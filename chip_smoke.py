@@ -1,12 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (python_ray_tracer_tpu_torch) on one card.
 
-Builds the CUDA render kernels from ``python_ray_tracer_tpu_torch/csrc``, holds
-each kernel mode against the plain PyTorch version and against the JAX
+Builds the CUDA kernels from ``python_ray_tracer_tpu_torch/csrc``, holds each
+render kernel mode against the plain PyTorch version and against the JAX
 package's frozen framebuffers (``tests/goldens/*.npz``, read with numpy), drives
-the main path through the CLI (``render --backend cuda`` at 1000x1000 with AA,
-1920x1080 without and with AA), checks that the path launched the kernels and
-wrote the right PNGs, and times kernel against plain version with CUDA events.
+the render path through the CLI (``render --backend cuda`` at 1000x1000 with
+AA, 1920x1080 without and with AA), checks that the path launched the kernels
+and wrote the right PNGs, and times kernel against plain version with CUDA
+events (phases 1-6). Then the backward kernel (phases 7-9): every mode against
+its plain version at 256x256 and twice for bit-identical results; the training
+path through its entry points at the fit CLI's defaults (``cli fit --mode
+hard`` and ``--mode camera`` at 1000x1000, depth 2, the AA ``fit_scene`` step,
+``fused=False`` and ``render_image_fast``'s backward), with launch counts and
+convergence checked and each mode held against its plain version at those
+shapes; and step times (kernel alone, its reduction, host packing, Adam, the
+whole ``fit_scene`` step, the plain step).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -21,6 +29,9 @@ COUNT of flipped pixels (some channel off by more than 1 level), which must stay
 max diff <= 1 level on every pixel and < 1% changed, except at pixel (8, 33) of
 the 64x64 goldens, a near tie on which the JAX Pallas kernel in interpret mode
 itself reads 30 levels off demo_64_d2_noaa_clean (tests/torch_goldens.py).
+Backward kernel against the plain version: the JAX package's kernel rule
+(render_bwd_cuda.grad_rule) with the 0.1% of pixels where the kernel's and the
+plain render disagree most held out of both sides (render_bwd_cuda.held_out).
 """
 from __future__ import annotations
 
@@ -58,6 +69,15 @@ REPLACES = {
     "aa_none": "python_ray_tracer_tpu/ops/pallas/render_pallas.py:1487",
     "aa_shared": "python_ray_tracer_tpu/ops/pallas/render_pallas.py:1386",
 }
+BWD_REPLACES = "python_ray_tracer_tpu/ops/pallas/render_bwd.py:736"
+BWD_SOURCE = "python_ray_tracer_tpu_torch/csrc/render_bwd.cu"
+BWD_PARITY_RES = (256, 256)
+FIT_STEPS = 30           # steps of each `cli fit` run on the main path
+FIT_RES = (1000, 1000)   # the fit CLI's default size
+LOSS_DROP = 0.75         # the fit's last loss must fall below this share of its first
+# Device memory the plain AA training step may take at FIT_RES, reckoned from
+# its peak at BWD_PARITY_RES; above it the plain AA step runs at BWD_PARITY_RES.
+PLAIN_MEM_BUDGET = 60e9
 
 
 def frame_diff(a, b):
@@ -96,7 +116,288 @@ def read_png(path: str):
     return w, h, px.astype(np.uint8)
 
 
+def seeded(torch, shape, dev, seed: int):
+    """Uniform [0, 1) tensor from a seeded CPU generator, moved to ``dev``."""
+    return torch.rand(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+
+def backward_phases(torch, rt, card: str, dev) -> list:
+    """Phases 7-9: the backward kernel (TPU kernel 4) against its plain version
+    in every mode, the training path through its entry points, and step
+    times. Returns the backward entries of the kernels line."""
+    import contextlib
+    import io
+    from python_ray_tracer_tpu_torch import cli, train
+    from python_ray_tracer_tpu_torch.ops.cuda import _build, render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+
+    def counts(scene):
+        return scene.spheres.count, scene.planes.count, scene.lights.count
+
+    def kernel_flat(mode, cam, scene, x, compat):
+        """The wrapper's flat gradient, camera slots included (and the loss
+        slot in the fused modes); ``x`` is the target or the cotangent."""
+        aa = mode.endswith("_aa")
+        if mode.startswith("fused"):
+            loss, sg, cg = rb.loss_and_scene_grads_cuda(
+                cam, scene, x, depth=2, compat=compat, aliasing=aa, return_camera=True)
+            return rb.flatten_grads(sg, cg, loss)
+        return rb.flatten_grads(*rb.scene_grads_cuda(
+            cam, scene, x, depth=2, compat=compat, aliasing=aa, return_camera=True))
+
+    def cotangent(cam, scene, target, aa, compat):
+        """d mean((render - target)^2) / d render, through the render kernel."""
+        img = rt.render_image_cuda(cam, scene, depth=2, aliasing=aa, compat=compat)
+        return (2.0 * (img - target) / img.numel()).contiguous()
+
+    def held(label, mode, cam, scene, x, compat):
+        """The wrapper against the plain version under the JAX package's kernel
+        rule, with rb.held_out's pixels (0.1%, where the two renders disagree
+        most) taken out of both; print max|d| / max|g| per leaf group and
+        return (max_abs_err, max_rel_err)."""
+        flat, ref, ref_all, out = rb.kernel_and_plain(mode, cam, scene, x, depth=2,
+                                                      compat=compat)
+        check(bool(torch.isfinite(flat).all()), f"{label}: non-finite gradient")
+        rule = rb.grad_rule(flat, ref, *counts(scene), ref_all)
+        print(f"[bwd] {label} ({int(out.sum())} pixels held out): "
+              + " ".join(f"{k}={v:.2e}" for k, (v, _) in rule.items()))
+        bad = [k for k, (_, ok) in rule.items() if not ok]
+        check(not bad, f"{label}: {bad} outside the rule")
+        return float((flat - ref).abs().max()), max(v for v, _ in rule.values())
+
+    # Phase 7: every backward mode against the plain version, demo scene at
+    # 256x256, depth 2, compat and clean (Phong on); two runs bit-identical.
+    cam = rt.default_camera(BWD_PARITY_RES, device=dev)
+    target = seeded(torch, (*BWD_PARITY_RES, 3), dev, 0)
+    for compat in (True, False):
+        mats = rt.Materials.build(specular=0.0 if compat else 0.6, shininess=8.0,
+                                  device=dev)
+        scene = rt.default_scene(mats, device=dev)
+        for mode in rb.MODES:
+            x = (target if mode.startswith("fused") else
+                 cotangent(cam, scene, target, mode.endswith("_aa"), compat))
+            a = kernel_flat(mode, cam, scene, x, compat)
+            b = kernel_flat(mode, cam, scene, x, compat)
+            torch.cuda.synchronize()
+            check(torch.equal(a, b), f"{mode} compat={compat}: two runs differ")
+            check(bool(torch.isfinite(a).all()), f"{mode} compat={compat}: not finite")
+            held(f"{mode:10s} compat={compat!s:5s} 256x256 d2, 2 runs bit-identical",
+                 mode, cam, scene, x, compat)
+
+    # Phase 8: the training path through its entry points at the fit CLI's
+    # defaults. Every count is set to 0 just before a path and read just after.
+    os.makedirs(OUT_DIR, exist_ok=True)
+    main_launches = dict.fromkeys(rb.MODES, 0)
+
+    def drive(label, fn, expect):
+        rb.reset_launch_counts()
+        render_cuda.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(rb.LAUNCHES)
+        print(f"[main] {label}: backward launches {got}, render launches "
+              f"{dict(render_cuda.LAUNCHES)}, plain calls {dict(rb.PLAIN_CALLS)}")
+        check(got == {m: expect.get(m, 0) for m in rb.MODES},
+              f"{label}: backward launches {got}, expected {expect}")
+        check(not any(rb.PLAIN_CALLS.values()), f"{label}: the plain version ran")
+        for m in rb.MODES:
+            main_launches[m] += got[m]
+        return out
+
+    def cli_fit(mode):
+        png = os.path.join(OUT_DIR, f"fit_{mode}.png")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["fit", "--mode", mode, "--backend", "cuda", "--steps",
+                           str(FIT_STEPS), "--out", png])
+        print(buf.getvalue(), end="")
+        check(rc == 0, f"cli fit --mode {mode} failed")
+        check(read_png(png)[:2] == FIT_RES, f"{png}: not {FIT_RES}")
+        text = buf.getvalue()
+        step0 = float(text.split("[fit] step 0: loss=")[1].split()[0])
+        return step0, next(ln for ln in text.splitlines() if ln.startswith("loss: ")).split()
+
+    t0 = time.perf_counter()
+    step0_cli, hard = drive(f"cli fit --mode hard --backend cuda --steps {FIT_STEPS}",
+                            lambda: cli_fit("hard"), {"fused_noaa": FIT_STEPS})
+    first, last, err_max = float(hard[1]), float(hard[3]), float(hard[12])
+    err0 = float(torch.tensor([0.2, -0.15, 0.1]).norm())
+    check(last < LOSS_DROP * first, f"fit --mode hard: loss {first} -> {last}")
+    check(err_max < err0, f"fit --mode hard: center error {err0} -> {err_max}")
+    _, camera = drive(f"cli fit --mode camera --backend cuda --steps {FIT_STEPS}",
+                      lambda: cli_fit("camera"), {"fused_noaa": FIT_STEPS})
+    p0, p1 = float(camera[7]), float(camera[9])
+    check(float(camera[3]) < float(camera[1]), f"fit --mode camera: loss {camera[1:4]}")
+    check(p1 < p0, f"fit --mode camera: camera position error {p0} -> {p1}")
+    print(f"[main] cli fit: hard loss {first:.4e} -> {last:.4e} ({last / first:.3f}x), "
+          f"max center error {err0:.4f} -> {err_max:.4f}; camera position error "
+          f"{p0} -> {p1}; both runs {time.perf_counter() - t0:.1f} s")
+
+    # The fit CLI's inputs (cmd_fit): the 2-sphere scene, centers shifted.
+    cfg = RenderConfig()
+    scene = cli.fit_scene_two_spheres(cfg, dev)
+    init = rt.Scene.from_leaves(scene.leaves())
+    init.spheres = rt.Spheres(
+        scene.spheres.center + torch.tensor([0.2, -0.15, 0.1], device=dev),
+        scene.spheres.radius, scene.spheres.albedo)
+    fit_trainable = ("spheres.center",)
+
+    def camera_at(res):
+        return rt.Camera.build(res, cfg.camera_position, cfg.camera_euler, cfg.fov,
+                               device=dev)
+
+    cam = camera_at(FIT_RES)
+    target = rt.render_image_cuda(cam, scene, depth=2, aliasing=False)
+    target_aa = rt.render_image_cuda(cam, scene, depth=2, aliasing=True)
+    _, aa_losses = drive("fit_scene(aliasing=True, backend='cuda') 3 steps",
+                         lambda: train.fit_scene(init, cam, target_aa, steps=3, lr=1e-2,
+                                                 depth=2, aliasing=True, backend="cuda",
+                                                 trainable=fit_trainable),
+                         {"fused_aa": 3})
+    check(aa_losses[-1] < aa_losses[0], f"AA fit losses {aa_losses}")
+    drive("fit_scene(fused=False, backend='cuda') 2 steps",
+          lambda: train.fit_scene(init, cam, target, steps=2, lr=1e-2, depth=2,
+                                  backend="cuda", fused=False, trainable=fit_trainable),
+          {"cot_noaa": 2})
+
+    def fast_aa_backward():
+        leaves = [t.detach().clone().requires_grad_(True) for t in init.leaves()]
+        img = render_cuda.render_image_fast(cam, rt.Scene.from_leaves(leaves), depth=2,
+                                            aliasing=True)
+        torch.mean((img - target_aa) ** 2).backward()
+        return leaves[0].grad
+    g = drive("render_image_fast(aliasing=True) backward", fast_aa_backward,
+              {"cot_aa": 1})
+    check(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
+          "render_image_fast: no sphere-center gradient")
+    print(f"[main] backward launches over the training paths: {main_launches}")
+    check(all(main_launches[m] > 0 for m in rb.MODES), f"launches {main_launches}")
+
+    # Each mode at the main path's shapes against the plain version; step 0
+    # of the hard fit must match its plain version at full size.
+    errs = {"fused_noaa": held("fused_noaa step 0 of cli fit --mode hard, 1000x1000 d2",
+                               "fused_noaa", cam, init, target, True)}
+    check(abs(float(kernel_flat("fused_noaa", cam, init, target, True)[-1]) - step0_cli)
+          <= 1e-5 * step0_cli, "cli fit's step-0 loss differs from the kernel's")
+    g_noaa = cotangent(cam, init, target, False, True)
+    errs["cot_noaa"] = held("cot_noaa 1000x1000 d2", "cot_noaa", cam, init, g_noaa, True)
+    # The plain AA step keeps 9 samples x 3 traces of autograd tensors: reckon
+    # its memory at full size from its peak at 256x256 before running it.
+    small = camera_at(BWD_PARITY_RES)
+    t_small = rt.render_image_cuda(small, scene, depth=2, aliasing=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rb.loss_and_scene_grads_plain(small, init, t_small, depth=2, aliasing=True)
+    peak = torch.cuda.max_memory_allocated() - base
+    full = peak * (FIT_RES[0] * FIT_RES[1]) / (BWD_PARITY_RES[0] * BWD_PARITY_RES[1])
+    aa_res = FIT_RES if full < PLAIN_MEM_BUDGET else BWD_PARITY_RES
+    print(f"[mem] plain AA step: peak {peak / 1e9:.3f} GB at 256x256, reckoned "
+          f"{full / 1e9:.2f} GB at 1000x1000; the plain AA step runs at {aa_res}")
+    cam_aa = camera_at(aa_res)
+    t_aa = rt.render_image_cuda(cam_aa, scene, depth=2, aliasing=True)
+    errs["fused_aa"] = held(f"fused_aa {aa_res[0]}x{aa_res[1]} d2", "fused_aa", cam_aa,
+                            init, t_aa, True)
+    g_aa = cotangent(cam_aa, init, t_aa, True, True)
+    errs["cot_aa"] = held(f"cot_aa {aa_res[0]}x{aa_res[1]} d2", "cot_aa", cam_aa, init,
+                          g_aa, True)
+
+    # Phase 9: times with CUDA events at 1000x1000, depth 2.
+    W, H = FIT_RES
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    params = render_cuda.pack_params(cam, init, True).to(dev)
+    tables = render_cuda.scene_tables(init)
+    cnt = counts(init)
+    cheap = render_cuda.shadow_cheap_ok(init, True)
+
+    def pack():
+        return (render_cuda.pack_params(cam, init, True).to(dev),
+                render_cuda.scene_tables(init), render_cuda.shadow_cheap_ok(init, True))
+
+    p = torch.zeros((2, 3), device=dev, requires_grad=True)
+    p.grad = torch.ones_like(p)
+    adam = torch.optim.Adam([p], lr=1e-2)
+
+    def adam_step():
+        adam.step()
+        return p
+
+    pack_ms = 1e3 * rt.time_fn(pack, warmup=2, iters=20)
+    adam_ms = 1e3 * rt.time_fn(adam_step, warmup=2, iters=50)
+    # (input at 1000x1000, input at the plain version's size) of each mode
+    inputs = {"fused_noaa": (target, target), "fused_aa": (target_aa, t_aa),
+              "cot_noaa": (g_noaa, g_noaa),
+              "cot_aa": (cotangent(cam, init, target_aa, True, True), g_aa)}
+    times = {}
+    for mode in rb.MODES:
+        aa, fused = mode.endswith("_aa"), mode.startswith("fused")
+        x, x_plain = inputs[mode]
+        cam_plain = cam_aa if aa else cam
+        n = rb.n_grads(*cnt, fused)
+        out = torch.empty(n, device=dev)
+        rows_n = rb.n_blocks(W, H, aa)
+        partial = torch.empty(n * rows_n, device=dev)
+        img = torch.empty((W, H, 3), device=dev)
+
+        def kernel_only():
+            if mode == "fused_aa":
+                render_cuda.launch(img, params, tables, cnt, depth=2, mode="aa_shared",
+                                   compat=True, cheap_shadow=cheap)
+            return rb.launch(out, partial, params, tables, cnt,
+                             image=img if mode == "fused_aa" else (None if fused else x),
+                             target=x if fused else None, W=W, H=H, depth=2, mode=mode,
+                             compat=True, cheap_shadow=cheap)
+
+        def reduce_only():
+            check(lib.rt_reduce_rows(partial.data_ptr(), rows_n, n, out.data_ptr(),
+                                     stream) == 0, "reduction launch failed")
+            return out
+
+        t = {"kernel": 1e3 * rt.time_fn(kernel_only, warmup=2, iters=20),
+             "reduce": 1e3 * rt.time_fn(reduce_only, warmup=2, iters=50)}
+        if fused:   # the whole fit_scene step: pack, kernel(s), reduction, Adam
+            sc = rt.Scene.from_leaves([s.clone() for s in init.leaves()])
+            step = train.make_train_step(
+                sc, train.cuda_value_and_grad(cam, x, depth=2, aliasing=aa), lr=1e-2,
+                trainable=fit_trainable)
+            t["step"] = 1e3 * rt.time_fn(step, warmup=2, iters=10)
+            sp = rt.Scene.from_leaves([s.clone() for s in init.leaves()])
+            pstep = train.make_train_step(
+                sp, train.autograd_value_and_grad(
+                    train.pixel_loss(cam_plain, x_plain, depth=2, aliasing=aa)),
+                lr=1e-2, trainable=fit_trainable)
+            t["plain"] = 1e3 * rt.time_fn(pstep, warmup=1, iters=1 if aa else 3)
+        else:       # the wrapper alone, and the plain VJP
+            t["step"] = 1e3 * rt.time_fn(rb.scene_grads_cuda, cam, init, x, depth=2,
+                                         aliasing=aa, warmup=2, iters=10)
+            t["plain"] = 1e3 * rt.time_fn(rb.scene_grads_plain, cam_plain, init, x_plain,
+                                          depth=2, aliasing=aa, warmup=1,
+                                          iters=1 if aa else 3)
+        t["plain_res"] = cam_plain.resolution
+        times[mode] = t
+        print(f"[time] {mode} 1000x1000 d2: {'fit_scene step' if fused else 'wrapper'} "
+              f"{t['step']:.4f} ms, kernel alone {t['kernel']:.4f} ms (reduction alone "
+              f"{t['reduce']:.4f} ms), pack {pack_ms:.4f} ms, Adam {adam_ms:.4f} ms, "
+              f"plain {t['plain']:.4f} ms at {t['plain_res'][0]}x{t['plain_res'][1]} "
+              f"| {card}")
+
+    def entry(name, modes, t):
+        e = [errs[m] for m in modes]
+        return {"name": name, "route": "cuda", "source": BWD_SOURCE,
+                "replaces": BWD_REPLACES, "launches": sum(main_launches[m] for m in modes),
+                "max_abs_err": max(a for a, _ in e), "max_rel_err": max(r for _, r in e),
+                "ms": t["step"], "plain_ms": t["plain"], "kernel_only_ms": t["kernel"],
+                "reduce_ms": t["reduce"],
+                "shape": f"{W}x{H}_d2", "plain_shape": "x".join(map(str, t["plain_res"]))}
+    return [entry("render_bwd_fused_noaa", ("fused_noaa",), times["fused_noaa"]),
+            entry("render_bwd_fused_aa", ("fused_aa",), times["fused_aa"]),
+            entry("render_bwd_cotangent", ("cot_noaa", "cot_aa"), times["cot_noaa"])]
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -240,6 +541,8 @@ def main() -> int:
             "replaces": REPLACES[mode], "launches": launches[mode],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "kernel_only_ms": r["kernel_ms"], "shape": label})
+    kernels += backward_phases(torch, rt, card, dev)
+    print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,11 @@ module by module and are the reference path; the render kernels are
 hand-written CUDA C++ (``csrc/``), built with nvcc at first use and bound with
 ctypes (``ops/cuda``). This package imports torch and numpy, never jax.
 
-Entry point: ``python -m python_ray_tracer_tpu_torch.cli render``.
+The backward kernel (``csrc/render_bwd.cu``) gives scene and camera gradients;
+``render_image_fast`` is the differentiable render, and ``train`` fits scenes
+and cameras with it.
+
+Entry point: ``python -m python_ray_tracer_tpu_torch.cli render|fit``.
 """
 from .models.scene import (Scene, Spheres, Planes, Lights, Materials, default_scene,
                            random_scene, RED, GREEN, BLUE, YELLOW, GREY, MAGENTA)
@@ -15,8 +19,13 @@ from .models.camera import (Camera, default_camera, euler_rotation, rotation_x,
 from .ops.render import render_image, render_rays, to_framebuffer
 from .ops.shade import sample, trace_once, reflect
 from .ops.intersect import intersect_spheres, intersect_planes, closest_hit, any_hit
-from .ops.cuda.render_cuda import render_image_cuda, pack_params, shadow_cheap_ok
+from .ops.cuda.render_cuda import (render_image_cuda, render_image_fast, pack_params,
+                                   shadow_cheap_ok)
+from .ops.cuda.render_bwd_cuda import (grad_layout, scene_grads_cuda,
+                                       loss_and_scene_grads_cuda)
+from .train import fit_scene, fit_camera
 from .utils.config import RenderConfig, resolve_backend
+from .utils.metrics import MetricsLogger
 from .utils.image import save_png, framebuffer_to_array
 from .utils.timing import time_fn, rays_per_image
 
@@ -27,8 +36,10 @@ __all__ = [
     "random_scene", "Camera", "default_camera", "euler_rotation", "rotation_x",
     "rotation_y", "rotation_z", "render_image", "render_rays", "to_framebuffer",
     "sample", "trace_once", "reflect", "intersect_spheres", "intersect_planes",
-    "closest_hit", "any_hit", "render_image_cuda", "pack_params",
-    "shadow_cheap_ok", "RenderConfig", "resolve_backend", "save_png",
+    "closest_hit", "any_hit", "render_image_cuda", "render_image_fast",
+    "pack_params", "shadow_cheap_ok", "grad_layout", "scene_grads_cuda",
+    "loss_and_scene_grads_cuda", "fit_scene", "fit_camera", "MetricsLogger",
+    "RenderConfig", "resolve_backend", "save_png",
     "framebuffer_to_array", "time_fn", "rays_per_image",
     "RED", "GREEN", "BLUE", "YELLOW", "GREY", "MAGENTA",
 ]

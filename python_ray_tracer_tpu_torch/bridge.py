@@ -1,8 +1,10 @@
-"""Build this package's ``Scene`` and ``Camera`` from plain numpy arrays.
+"""Build this package's ``Scene`` and ``Camera`` from plain numpy arrays, and
+convert gradients between the flat layout and the pytrees.
 
-The arrays can come from the JAX package (its pytree leaves, or
-``Scene.to_soa()`` output) or from a file; nothing here imports JAX. Both
-packages then render the same scene bit for bit at their inputs.
+The arrays can come from the JAX package (its pytree leaves, its flat
+``render_bwd.grad_layout`` gradient vector, or ``Scene.to_soa()`` output) or
+from a file; nothing here imports JAX. Both packages then render the same scene
+bit for bit at their inputs, and their gradients compare slot by slot.
 """
 from __future__ import annotations
 
@@ -12,14 +14,8 @@ import numpy as np
 import torch
 
 from .models.camera import Camera
-from .models.scene import Lights, Materials, Planes, Scene, Spheres
-
-# Order of the JAX Scene pytree's leaves (dataclass field order).
-SCENE_LEAVES = ("spheres.center", "spheres.radius", "spheres.albedo",
-                "planes.origin", "planes.normal", "planes.albedo",
-                "lights.position", "materials.ambient", "materials.lambert",
-                "materials.reflection", "materials.specular",
-                "materials.shininess")
+from .models.scene import LEAF_PATHS, Materials, Scene
+from .ops.cuda.render_bwd_cuda import flatten_grads, n_grads, unflatten_grads
 
 
 def _t(a, device) -> torch.Tensor:
@@ -27,13 +23,12 @@ def _t(a, device) -> torch.Tensor:
 
 
 def scene_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> Scene:
-    """Scene from the 12 arrays in :data:`SCENE_LEAVES` order (e.g.
+    """Scene from the 12 arrays in :data:`~.models.scene.LEAF_PATHS` order (e.g.
     ``[np.asarray(x) for x in jax.tree_util.tree_leaves(jax_scene)]``)."""
-    if len(leaves) != len(SCENE_LEAVES):
-        raise ValueError(f"expected {len(SCENE_LEAVES)} leaves {SCENE_LEAVES}, "
+    if len(leaves) != len(LEAF_PATHS):
+        raise ValueError(f"expected {len(LEAF_PATHS)} leaves {LEAF_PATHS}, "
                          f"got {len(leaves)}")
-    t = [_t(a, device) for a in leaves]
-    return Scene(Spheres(*t[0:3]), Planes(*t[3:6]), Lights(t[6]), Materials(*t[7:12]))
+    return Scene.from_leaves([_t(a, device) for a in leaves])
 
 
 def scene_from_soa(spheres: np.ndarray, lights: np.ndarray, planes: np.ndarray,
@@ -50,3 +45,24 @@ def camera_from_arrays(position: np.ndarray, rotation: np.ndarray, fov,
     """Camera from its arrays (the JAX Camera's leaves) and resolution."""
     return Camera(_t(position, device), _t(rotation, device), _t(fov, device),
                   tuple(int(v) for v in resolution))
+
+
+def grads_from_flat(flat: np.ndarray, ns: int, npl: int, nl: int, *,
+                    resolution: Tuple[int, int] = (1, 1)):
+    """A flat gradient vector in ``grad_layout`` order -> ``(scene_g,
+    camera_g, loss)``: the port's ``Scene`` and ``Camera`` of gradients, and
+    the trailing loss slot (None when the vector has none)."""
+    flat = torch.as_tensor(np.asarray(flat, np.float32))
+    fused = flat.shape[0] == n_grads(ns, npl, nl, True)
+    out = unflatten_grads(flat, ns, npl, nl, resolution, return_camera=True,
+                          fused_loss=fused)
+    return (out[1], out[2], out[0]) if fused else (out[0], out[1], None)
+
+
+def flat_from_grads(scene_g: Scene, camera_g: Camera | None = None,
+                    loss=None) -> np.ndarray:
+    """Inverse of :func:`grads_from_flat`: the flat float32 numpy vector (camera
+    slots 0 when ``camera_g`` is None; a trailing loss slot when ``loss`` is
+    given)."""
+    return flatten_grads(scene_g, camera_g,
+                         None if loss is None else torch.as_tensor(loss)).cpu().numpy()

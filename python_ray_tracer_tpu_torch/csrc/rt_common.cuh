@@ -5,15 +5,19 @@
 // (python_ray_tracer_tpu/ops/pallas/render_pallas.py) term for term, so the
 // two agree up to float rounding:
 //   raygen            <- _raygen            (:1294)
-//   closest_hit       <- _closest_hit       (:403)
+//   closest_hit       <- _closest_hit       (:403), plus the winner's index
+//   hit_of            <- the hit-attribute fold of render_bwd._fwd_trace_res
 //   sphere_occ_cheap  <- _sphere_occ_cheap  (:501)
 //   occluded          <- _any_hit_multi     (:571), one light at a time
+//   surface           <- _primary_geometry  (:952), for a given hit
 //   primary_geometry  <- _primary_geometry  (:952)
 //   reflect_dir       <- _reflect_dir       (:979)
 //   trace             <- _trace             (:1195)
 //   sample_chain      <- _sample_chain      (:1310)
-// Later kernels (backward, soft, worklist) include this header so that the
-// intersection math exists once.
+// The backward kernel (render_bwd.cu) includes this header and recomputes its
+// forward chain through these same functions, so its hit, shadow and bounce
+// decisions are the render kernel's own; later kernels (soft, worklist) will
+// include it too, so that the intersection math exists once.
 //
 // Semantics kept from the reference (compat mode): hits count only for
 // 0 < t < 999 (t starts at FAR and the winner test is a strict `<`, so the far
@@ -76,8 +80,15 @@ __device__ __forceinline__ float rnorm(float x, float y, float z) {
   return 1.0f / sqrtf(x * x + y * y + z * z);
 }
 
+// A primary ray with what its adjoint needs: the camera-space grid point
+// (focal, pcy, pcz) and the reciprocal norm of R @ p.
+struct RayGen {
+  Ray ray;
+  float pcy, pcz, dn;
+};
+
 // Analytic primary ray through fractional pixel (px, py).
-__device__ __forceinline__ Ray raygen(const float* P, float px, float py) {
+__device__ __forceinline__ RayGen raygen_full(const float* P, float px, float py) {
   const float pcx = P[P_FOCAL];
   const float pcy = P[P_Y0] + px * P[P_DY];
   const float pcz = P[P_Z0] + py * P[P_DZ];
@@ -85,8 +96,12 @@ __device__ __forceinline__ Ray raygen(const float* P, float px, float py) {
   const float dy = P[P_ROT + 3] * pcx + P[P_ROT + 4] * pcy + P[P_ROT + 5] * pcz;
   const float dz = P[P_ROT + 6] * pcx + P[P_ROT + 7] * pcy + P[P_ROT + 8] * pcz;
   const float dn = rnorm(dx, dy, dz);
-  return {P[P_ORIGIN + 0], P[P_ORIGIN + 1], P[P_ORIGIN + 2],
-          dx * dn, dy * dn, dz * dn};
+  return {{P[P_ORIGIN + 0], P[P_ORIGIN + 1], P[P_ORIGIN + 2],
+           dx * dn, dy * dn, dz * dn}, pcy, pcz, dn};
+}
+
+__device__ __forceinline__ Ray raygen(const float* P, float px, float py) {
+  return raygen_full(P, px, py).ray;
 }
 
 struct Hit {
@@ -94,12 +109,27 @@ struct Hit {
   float ar, ag, ab;   // albedo of the hit object
   float qx, qy, qz;   // sphere center, or plane normal
   bool plane;
+  int obj;            // index into [spheres ++ planes]; -1 for no hit
 };
+
+// The Hit record of object `obj` at distance t (obj < 0: no hit).
+template <bool COMPAT>
+__device__ __forceinline__ Hit hit_of(const SceneView& s, float t, int obj) {
+  if (obj < 0) return {COMPAT ? FAR : BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, -1};
+  if (obj < s.ns) {
+    const int ns = s.ns;
+    return {t, s.sph[4 * ns + obj], s.sph[5 * ns + obj], s.sph[6 * ns + obj],
+            s.sph[obj], s.sph[ns + obj], s.sph[2 * ns + obj], false, obj};
+  }
+  const int j = obj - s.ns, np = s.npl;
+  return {t, s.pln[6 * np + j], s.pln[7 * np + j], s.pln[8 * np + j],
+          s.pln[3 * np + j], s.pln[4 * np + j], s.pln[5 * np + j], true, obj};
+}
 
 // Closest hit over spheres, then planes, with the strict `<` winner test.
 template <bool COMPAT>
 __device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
-  Hit h{COMPAT ? FAR : BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false};
+  Hit h{COMPAT ? FAR : BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, -1};
   const float ox = ray.ox, oy = ray.oy, oz = ray.oz;
   const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
   const float a = dx * dx + dy * dy + dz * dz;
@@ -124,7 +154,7 @@ __device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
     const float tj = (num_near > 0.0f ? num_near : num_far) * inv2a;
     if (has && num_far > 0.0f && tj < h.t) {
       h = {tj, s.sph[4 * ns + j], s.sph[5 * ns + j], s.sph[6 * ns + j],
-           cx, cy, cz, false};
+           cx, cy, cz, false, j};
     }
   }
   const float eps = COMPAT ? 1e-3f : 1e-8f;
@@ -138,7 +168,7 @@ __device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
     const float tj = num / den_safe;
     if (fabsf(den) >= eps && tj > 0.0f && tj < h.t) {
       h = {tj, s.pln[6 * np + j], s.pln[7 * np + j], s.pln[8 * np + j],
-           nx, ny, nz, true};
+           nx, ny, nz, true, ns + j};
     }
   }
   return h;
@@ -205,10 +235,12 @@ __device__ __forceinline__ bool occluded(const SceneView& s, float ox, float oy,
   return false;
 }
 
-// Unit mirror direction d - 2(d.n)n (reference common.py:114-120).
-__device__ __forceinline__ void reflect_dir(float dx, float dy, float dz,
-                                            float nx, float ny, float nz,
-                                            float& rx, float& ry, float& rz) {
+// Unit mirror direction d - 2(d.n)n (reference common.py:114-120). Returns
+// the reciprocal norm of d - 2(d.n)n, which the backward kernel's adjoint of
+// the normalisation needs.
+__device__ __forceinline__ float reflect_dir(float dx, float dy, float dz,
+                                             float nx, float ny, float nz,
+                                             float& rx, float& ry, float& rz) {
   const float ddn = dx * nx + dy * ny + dz * nz;
   rx = dx - 2.0f * ddn * nx;
   ry = dy - 2.0f * ddn * ny;
@@ -217,6 +249,7 @@ __device__ __forceinline__ void reflect_dir(float dx, float dy, float dz,
   rx *= rn;
   ry *= rn;
   rz *= rn;
+  return rn;
 }
 
 struct Surface {
@@ -224,29 +257,39 @@ struct Surface {
   float px, py, pz;   // hit point, biased along the normal
   float nx, ny, nz;   // unit normal
   float ar, ag, ab;   // albedo
+  float ux, uy, uz;   // hit point before the bias (o + t d)
+  float srn;          // 1/|P - center| on a sphere, 1 on a plane
 };
 
-// Closest hit -> normal-biased hit point, unit normal and albedo.
+// A hit -> normal-biased hit point, unit normal and albedo.
 template <bool COMPAT>
-__device__ __forceinline__ Surface primary_geometry(const SceneView& s,
-                                                    const Ray& ray) {
-  const Hit h = closest_hit<COMPAT>(s, ray);
+__device__ __forceinline__ Surface surface(const Ray& ray, const Hit& h) {
   Surface f;
   f.alive = h.t < (COMPAT ? FAR : BIG * 0.5f);
   const float ts = f.alive ? h.t : 0.0f;
   float px = ray.ox + ts * ray.dx, py = ray.oy + ts * ray.dy, pz = ray.oz + ts * ray.dz;
   if (h.plane) {
     f.nx = h.qx; f.ny = h.qy; f.nz = h.qz;
+    f.srn = 1.0f;
   } else {
     const float sx = px - h.qx, sy = py - h.qy, sz = pz - h.qz;
     const float sn = rnorm(sx, sy, sz);
     f.nx = sx * sn; f.ny = sy * sn; f.nz = sz * sn;
+    f.srn = sn;
   }
+  f.ux = px; f.uy = py; f.uz = pz;
   f.px = px + BIAS * f.nx;
   f.py = py + BIAS * f.ny;
   f.pz = pz + BIAS * f.nz;
   f.ar = h.ar; f.ag = h.ag; f.ab = h.ab;
   return f;
+}
+
+// Closest hit -> normal-biased hit point, unit normal and albedo.
+template <bool COMPAT>
+__device__ __forceinline__ Surface primary_geometry(const SceneView& s,
+                                                    const Ray& ray) {
+  return surface<COMPAT>(ray, closest_hit<COMPAT>(s, ray));
 }
 
 // One shading evaluation (reference trace, trace.py:45-112): ambient +

@@ -118,6 +118,14 @@ class Materials:
                            (ambient, lambert, reflection, specular, shininess)))
 
 
+# Paths of a Scene's 12 tensors in dataclass order: the JAX Scene pytree's
+# leaf order and the order of Scene.leaves().
+LEAF_PATHS = ("spheres.center", "spheres.radius", "spheres.albedo",
+              "planes.origin", "planes.normal", "planes.albedo",
+              "lights.position", "materials.ambient", "materials.lambert",
+              "materials.reflection", "materials.specular", "materials.shininess")
+
+
 @dataclasses.dataclass
 class Scene:
     spheres: Spheres
@@ -128,6 +136,16 @@ class Scene:
     @property
     def device(self) -> torch.device:
         return self.materials.ambient.device
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The 12 tensors in :data:`LEAF_PATHS` order."""
+        return [t for grp in (self.spheres, self.planes, self.lights, self.materials)
+                for t in vars(grp).values()]
+
+    @staticmethod
+    def from_leaves(t: Sequence[torch.Tensor]) -> "Scene":
+        """Inverse of :meth:`leaves`."""
+        return Scene(Spheres(*t[0:3]), Planes(*t[3:6]), Lights(t[6]), Materials(*t[7:12]))
 
     def to_soa(self):
         """Pack to the reference's column-major SoA float32 numpy arrays:

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``python_ray_tracer_tpu_torch/csrc/``).
 
-The ``.cu`` sources are compiled with ``nvcc`` into one shared library with a
-plain C interface and bound with ``ctypes`` (no PyTorch headers, so a build takes
-seconds). The library name carries a hash of the sources and flags: a source
-change builds a new library, and an ``flock`` keeps concurrent processes from
-building the same one twice. Nothing is built at import; :func:`load_library`
-builds on first use and raises with the compiler's stderr if it cannot.
+The ``.cu`` sources are compiled with ``nvcc``, one process per source, all
+started together, and linked into one shared library with a plain C interface,
+bound with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
+library name carries a hash of the sources and flags: a source change builds a
+new library, and an ``flock`` keeps concurrent processes from building the same
+one twice. Nothing is built at import; :func:`load_library` builds on first use
+and raises with the compiler's stderr if it cannot.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -74,12 +75,27 @@ def build() -> str:
         if os.path.isfile(so):       # built by another process while we waited
             return so
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-o", tmp, *srcs]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, so)
+        objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
+        try:
+            procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.PIPE, text=True))
+                     for cmd in ([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o",
+                                  obj, src] for src, obj in zip(srcs, objs))]
+            results = [(cmd, p, *p.communicate()) for cmd, p in procs]
+            for cmd, p, _, err in results:
+                if p.returncode != 0:
+                    raise RuntimeError(f"nvcc failed (rc {p.returncode}): "
+                                       f"{' '.join(cmd)}\n{err}")
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
+                                   f"{' '.join(cmd)}\n{proc.stderr}")
+            os.replace(tmp, so)
+        finally:
+            for f in objs:
+                if os.path.exists(f):
+                    os.remove(f)
     return so
 
 
@@ -94,6 +110,12 @@ def load_library() -> ctypes.CDLL:
             lib.rt_render_fwd.restype = ci
             lib.rt_render_fwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp,
                                           ci, ci, ci, ci, ci, ci, vp]
+            lib.rt_render_bwd.restype = ci
+            lib.rt_render_bwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp,
+                                          vp, ci, ci, ci, ci, ci, ci, ci, ci,
+                                          vp]
+            lib.rt_reduce_rows.restype = ci
+            lib.rt_reduce_rows.argtypes = [vp, ci, ci, vp, vp]
             lib.rt_error_string.restype = ctypes.c_char_p
             lib.rt_error_string.argtypes = [ci]
             _lib = lib

@@ -1,0 +1,413 @@
+"""Scene and camera gradients through the hand-written CUDA backward kernel
+(``csrc/render_bwd.cu``).
+
+Counterpart of ``python_ray_tracer_tpu/ops/pallas/render_bwd.py``. The kernel
+recomputes each sample chain's forward pass, reverse-sweeps it with
+hand-derived adjoints, and reduces the adjoints into the flat gradient vector
+of :func:`grad_layout`; a second kernel sums the per-block partials in a fixed
+order, so two runs give the same bits. Four kernel modes:
+
+  * ``cot_noaa`` / ``cot_aa``: an image cotangent in (:func:`scene_grads_cuda`);
+    the AA form runs the 9 sample chains of every pixel;
+  * ``fused_noaa``: the training step in one launch: render, MSE against the
+    target, loss slot, reverse sweep (:func:`loss_and_scene_grads_cuda`);
+  * ``fused_aa``: the ``aa_shared`` render kernel makes the image, then the
+    backward kernel forms the loss and cotangent per pixel and runs the 9
+    reverse chains.
+
+The plain versions (:func:`scene_grads_plain`, :func:`loss_and_scene_grads_plain`)
+are ``torch.autograd`` of ``ops/render.py`` packed into the same layout. The
+wrappers take them for tensors on the CPU only; for CUDA tensors they launch
+the kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ...models.camera import Camera
+from ...models.scene import LEAF_PATHS, Lights, Materials, Planes, Scene, Spheres
+from ..render import render_image
+from . import render_cuda
+
+MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")   # C enum order
+# Kernel launches per mode; a plain counter, reset with reset_launch_counts().
+LAUNCHES = {m: 0 for m in MODES}
+# Calls of the plain versions, so a run can show that it never took them.
+PLAIN_CALLS = {"scene_grads": 0, "loss_and_scene_grads": 0}
+
+MAX_DEPTH = 8                # residual slots a thread keeps (render_bwd.cu)
+BLOCK_Y, BLOCK_X = 16, 8     # threads a block along the image's y and x axes
+N_WARPS = BLOCK_Y * BLOCK_X // 32
+_SMEM_LIMIT = 227 * 1024     # shared memory a block can have on Hopper
+
+# The JAX package's rule for the backward kernel against autodiff
+# (tests/test_pallas_bwd.py): these leaves max|d| / max|g| < 5e-2 (a.e.
+# gradients: the grazing clamp and silhouette pixels differ from autodiff's
+# root-formula values); every other leaf rtol 1e-3 / atol 1e-7; the loss rel
+# 1e-5. The plane's origin and normal are held as geometry here: they place
+# the hit point through t = n.(p0 - o) / n.d, and on the card at 64x64 and
+# above the ground plane's grazing hits near the horizon (n.d ~ 1e-3, rounded
+# with FMA in the kernel and without it in the plain version) put their
+# smallest components 1e-4..1e-3 apart.
+GEOMETRY_GROUPS = ("spheres.center", "spheres.radius", "planes.origin", "planes.normal",
+                   "lights.position", "camera.position", "camera.rotation", "camera.fov")
+CAMERA_GRAD_GROUPS = ("camera.position", "camera.rotation", "camera.fov")
+
+
+def reset_launch_counts() -> None:
+    for m in MODES:
+        LAUNCHES[m] = 0
+    for k in PLAIN_CALLS:
+        PLAIN_CALLS[k] = 0
+
+
+def grad_layout(ns: int, npl: int, nl: int):
+    """Slot index map for the flat gradient vector and its length
+    (``render_bwd.grad_layout``)."""
+    slots = {}
+    k = 0
+    for j in range(ns):
+        for c in range(7):
+            slots[("sph", j, c)] = k
+            k += 1
+    for j in range(npl):
+        for c in range(9):
+            slots[("pln", j, c)] = k
+            k += 1
+    for l in range(nl):
+        for c in range(3):
+            slots[("light", l, c)] = k
+            k += 1
+    for name in ("amb", "lamb", "refl", "spec", "shin"):
+        slots[name] = k
+        k += 1
+    for c in range(3):
+        slots[("cam_pos", c)] = k
+        k += 1
+    for r in range(3):
+        for c in range(3):
+            slots[("rot", r, c)] = k
+            k += 1
+    slots["fov"] = k
+    return slots, k + 1
+
+
+def n_grads(ns: int, npl: int, nl: int, fused: bool = False) -> int:
+    return 7 * ns + 9 * npl + 3 * nl + 18 + int(fused)
+
+
+def unflatten_grads(flat: torch.Tensor, ns: int, npl: int, nl: int, resolution, *,
+                    return_camera: bool, fused_loss: bool):
+    """Flat vector (+ trailing loss slot when ``fused_loss``) -> ``Scene``
+    (and ``Camera``) gradients, as ``render_bwd.unflatten_grads``: returns
+    ``scene_g``, ``(scene_g, camera_g)``, ``(loss, scene_g)`` or ``(loss,
+    scene_g, camera_g)``."""
+    if flat.shape != (n_grads(ns, npl, nl, fused_loss),):
+        raise ValueError(f"flat gradient has shape {tuple(flat.shape)}, expected "
+                         f"({n_grads(ns, npl, nl, fused_loss)},)")
+    off = 7 * ns
+    sph = flat[:off].reshape(ns, 7)
+    pln = flat[off:off + 9 * npl].reshape(npl, 9)
+    off += 9 * npl
+    lts = flat[off:off + 3 * nl].reshape(nl, 3)
+    off += 3 * nl
+    scene_g = Scene(Spheres(sph[:, 0:3], sph[:, 3], sph[:, 4:7]),
+                    Planes(pln[:, 0:3], pln[:, 3:6], pln[:, 6:9]),
+                    Lights(lts), Materials(*(flat[off + i] for i in range(5))))
+    out = (scene_g,)
+    if return_camera:
+        off += 5
+        out += (Camera(flat[off:off + 3], flat[off + 3:off + 12].reshape(3, 3),
+                       flat[off + 12], tuple(resolution)),)
+    if fused_loss:
+        out = (flat[-1],) + out
+    return out[0] if len(out) == 1 else out
+
+
+def flatten_grads(scene_g: Scene, camera_g: Camera | None = None,
+                  loss: torch.Tensor | None = None) -> torch.Tensor:
+    """Inverse of :func:`unflatten_grads`: ``Scene`` (+ ``Camera``) gradients
+    (+ loss) -> flat float32 vector; absent camera slots are 0."""
+    s, p = scene_g.spheres, scene_g.planes
+    dev = scene_g.materials.ambient.device
+    m = scene_g.materials
+    parts = [torch.cat([s.center, s.radius[:, None], s.albedo], 1).reshape(-1),
+             torch.cat([p.origin, p.normal, p.albedo], 1).reshape(-1),
+             scene_g.lights.position.reshape(-1),
+             torch.stack([m.ambient, m.lambert, m.reflection, m.specular,
+                          m.shininess])]
+    if camera_g is None:
+        parts.append(torch.zeros(13, device=dev))
+    else:
+        parts += [camera_g.position.reshape(3), camera_g.rotation.reshape(9),
+                  camera_g.fov.reshape(1)]
+    if loss is not None:
+        parts.append(loss.reshape(1))
+    return torch.cat([t.to(dev, torch.float32) for t in parts])
+
+
+def grad_groups(flat: torch.Tensor, ns: int, npl: int, nl: int) -> dict:
+    """A flat vector (with or without the loss slot) -> ``{"spheres.center":
+    tensor, ..., "camera.fov": tensor[, "loss": tensor]}``."""
+    fused = flat.shape[0] == n_grads(ns, npl, nl, True)
+    out = unflatten_grads(flat, ns, npl, nl, (1, 1), return_camera=True,
+                          fused_loss=fused)
+    scene_g, cam_g = out[-2], out[-1]
+    groups = {}
+    for path in LEAF_PATHS + CAMERA_GRAD_GROUPS:
+        grp, leaf = path.split(".")
+        groups[path] = getattr(cam_g if grp == "camera" else getattr(scene_g, grp), leaf)
+    if fused:
+        groups["loss"] = out[0]
+    return groups
+
+
+def grad_rule(flat: torch.Tensor, ref: torch.Tensor, ns: int, npl: int, nl: int,
+              scale_ref: torch.Tensor | None = None) -> dict:
+    """Hold a kernel's flat gradient against its plain version's under
+    :data:`GEOMETRY_GROUPS`' rule: ``{group: (max|d| / max|g|, ok)}`` (max|d|
+    itself where the plain group is all zero). ``g`` is ``scale_ref``
+    (default ``ref``): :func:`kernel_and_plain` passes the plain gradient over
+    all pixels, the gradient a user gets, since its held-out pixels may carry
+    most of a group (one pixel of a 34-light 24x16 AA frame carries nearly
+    all of its fov gradient, and what is left is a cancelling sum ~1000x
+    smaller)."""
+    got, want, scales = (grad_groups(f.detach().double().cpu(), ns, npl, nl)
+                         for f in (flat, ref, ref if scale_ref is None else scale_ref))
+    out = {}
+    for path, b in want.items():
+        a = got[path]
+        d = (a - b).abs()
+        scale = float(scales[path].abs().max()) if b.numel() else 0.0
+        rel = float(d.max()) / scale if scale > 0 else (float(d.max()) if d.numel() else 0.0)
+        if path in GEOMETRY_GROUPS:
+            ok = rel < 5e-2
+        elif path == "loss":
+            ok = float(d.max()) <= 1e-5 * scale
+        else:
+            ok = bool((d <= 1e-7 + 1e-3 * b.abs()).all())
+        out[path] = (rel, ok)
+    return out
+
+
+# Share of pixels held out of a kernel-against-plain gradient comparison: the
+# ones where the kernel's render and the plain render disagree most, as the
+# forward rule allows 0.1% of pixels to flip. One sample on a near tie (a hit
+# or shadow decided by float32 rounding) or near a tangent (an a.e.
+# t-adjoint 1/(2at + b) whose denominator is mostly rounding) can carry most
+# of a leaf group's gradient at 64x64 and above; such a pixel shows up as the
+# largest forward disagreement.
+HELD_OUT_FRAC = 1e-3
+
+
+def held_out(img_a: torch.Tensor, img_b: torch.Tensor,
+             frac: float = HELD_OUT_FRAC) -> torch.Tensor:
+    """Boolean ``(w, h)`` mask of the ``ceil(frac * w * h)`` pixels where two
+    ``(w, h, 3)`` renders differ most (max over channels)."""
+    d = (img_a - img_b).abs().amax(-1).reshape(-1)
+    held = torch.zeros(d.shape, dtype=torch.bool, device=d.device)
+    held[torch.topk(d, math.ceil(frac * d.numel())).indices] = True
+    return held.reshape(img_a.shape[:2])
+
+
+def kernel_and_plain(mode: str, camera, scene, x, *, depth: int = 2, compat: bool = True):
+    """The wrapper's and the plain version's flat gradients for one kernel
+    mode on the same input ``x`` (the target in the fused modes, else the
+    cotangent), camera slots included, with the :func:`held_out` pixels taken
+    out of both sides: in the cotangent modes their cotangent is zeroed; in
+    the fused modes each side's own loss and gradient on those pixels (its
+    cotangent mode on ``2 (render - target) / n`` there) is subtracted.
+    Returns ``(kernel_flat, plain_flat, plain_all_pixels, held)``, the third
+    for :func:`grad_rule`'s ``scale_ref``."""
+    aa = mode.endswith("_aa")
+    kw = dict(depth=depth, compat=compat, aliasing=aa)
+    img_k = render_cuda.render_image_cuda(camera, scene, **kw)
+    img_p = render_image(camera, scene, **kw)
+    held = held_out(img_k, img_p)[..., None]
+
+    def cot_kernel(g):
+        return flatten_grads(*scene_grads_cuda(camera, scene, g.contiguous(),
+                                               return_camera=True, **kw))
+
+    def cot_plain(g):
+        return scene_grads_plain(camera, scene, g, **kw)
+
+    if not mode.startswith("fused"):
+        keep = x * ~held
+        return cot_kernel(keep), cot_plain(keep), cot_plain(x), held[..., 0]
+    loss, scene_g, cam_g = loss_and_scene_grads_cuda(camera, scene, x, return_camera=True,
+                                                     **kw)
+    plain_all = loss_and_scene_grads_plain(camera, scene, x, **kw)
+    sides = ((flatten_grads(scene_g, cam_g, loss), img_k, cot_kernel),
+             (plain_all, img_p, cot_plain))
+    out = []
+    for flat, img, cot in sides:
+        d = (img - x) * held
+        out.append(flat - torch.cat([cot(2.0 * d / x.numel()),
+                                     ((d * d).sum() / x.numel()).reshape(1)]))
+    return out[0], out[1], plain_all, held[..., 0]
+
+
+# --- the plain version: autograd of ops/render.py --------------------------------
+
+def _autograd_flat(camera, scene, objective):
+    """Flat gradient of ``objective(camera, scene) -> (scalar, loss or None)``
+    with respect to every scene and camera tensor."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in
+              scene.leaves() + [camera.position, camera.rotation, camera.fov]]
+    value, loss = objective(Camera(*leaves[12:], camera.resolution),
+                            Scene.from_leaves(leaves[:12]))
+    grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    g = [torch.zeros_like(t) if d is None else d for t, d in zip(leaves, grads)]
+    return flatten_grads(Scene.from_leaves(g[:12]), Camera(*g[12:], camera.resolution),
+                         None if loss is None else loss.detach())
+
+
+def scene_grads_plain(camera, scene, g_image, *, depth: int = 2, compat: bool = True,
+                      aliasing: bool = False) -> torch.Tensor:
+    """Plain version of the cotangent modes: the vector-Jacobian product of
+    ``render_image`` with ``g_image (w, h, 3)``, as a flat vector of
+    :func:`grad_layout` (camera slots included)."""
+    PLAIN_CALLS["scene_grads"] += 1
+
+    def objective(cam, sc):
+        img = render_image(cam, sc, depth=depth, aliasing=aliasing, compat=compat)
+        return (img * g_image.detach()).sum(), None
+    return _autograd_flat(camera, scene, objective)
+
+
+def loss_and_scene_grads_plain(camera, scene, target, *, depth: int = 2,
+                               compat: bool = True, aliasing: bool = False) -> torch.Tensor:
+    """Plain version of the fused modes: ``mean((render - target)^2)`` and its
+    gradient, as a flat vector with the loss in the trailing slot."""
+    PLAIN_CALLS["loss_and_scene_grads"] += 1
+
+    def objective(cam, sc):
+        img = render_image(cam, sc, depth=depth, aliasing=aliasing, compat=compat)
+        loss = torch.mean((img - target.detach()) ** 2)
+        return loss, loss
+    return _autograd_flat(camera, scene, objective)
+
+
+# --- the kernel ------------------------------------------------------------------
+
+def _check(camera, scene, image, depth: int, name: str):
+    dev = camera.position.device
+    if dev.type != "cuda":
+        raise ValueError(f"the backward wrappers take CPU or CUDA tensors, got {dev}")
+    if not 0 <= depth <= MAX_DEPTH:
+        raise ValueError(f"depth must be in [0, {MAX_DEPTH}], got {depth}")
+    render_cuda._check_inputs(camera, scene, dev)
+    W, H = camera.resolution
+    if W < 1 or H < 1:
+        raise ValueError(f"empty resolution {camera.resolution}")
+    if image.device != dev or image.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {dev}, got {image.dtype} on "
+                         f"{image.device}")
+    if tuple(image.shape) != (W, H, 3):
+        raise ValueError(f"{name} has shape {tuple(image.shape)}, expected {(W, H, 3)}")
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    smem = 4 * (render_cuda.N_PARAMS + 7 * ns + 9 * npl + 3 * nl +
+                N_WARPS * n_grads(ns, npl, nl, True))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"scene needs {smem} B of shared memory in the backward "
+                         f"kernel, a block has at most {_SMEM_LIMIT} B")
+
+
+def n_blocks(W: int, H: int, aliasing: bool) -> int:
+    """Thread blocks of one backward launch (rows of its partial sums)."""
+    return math.ceil(H / BLOCK_Y) * math.ceil(W / BLOCK_X) * (9 if aliasing else 1)
+
+
+def launch(out, partial, params, tables, counts, *, image, target, W: int, H: int,
+           depth: int, mode: str, compat: bool, cheap_shadow: bool) -> torch.Tensor:
+    """Launch the backward kernel and its reduction on the current stream, for
+    inputs already packed and checked: ``out (n_grads,)``, ``partial
+    (n_grads * n_blocks,)``, ``params``, the ``scene_tables``, the object
+    counts, ``image`` (the cotangent, or the rendered image in ``fused_aa``;
+    None in ``fused_noaa``) and ``target`` (fused modes; else None), all
+    float32, contiguous, on the current device. Counts the launch in
+    :data:`LAUNCHES`."""
+    from ._build import load_library
+    lib = load_library()
+    (sph, pln, lts), (ns, npl, nl) = tables, counts
+    rows = n_blocks(W, H, mode in ("cot_aa", "fused_aa"))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = lib.rt_render_bwd(
+        params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
+        None if image is None else image.data_ptr(),
+        None if target is None else target.data_ptr(), partial.data_ptr(), rows,
+        out.shape[0], W, H, depth, MODES.index(mode), int(compat), int(cheap_shadow),
+        stream)
+    if rc == 0:
+        rc = lib.rt_reduce_rows(partial.data_ptr(), rows, out.shape[0], out.data_ptr(),
+                                stream)
+    if rc != 0:
+        raise RuntimeError(f"backward kernel ({mode}) failed: CUDA error {rc} "
+                           f"({lib.rt_error_string(rc).decode()})")
+    LAUNCHES[mode] += 1
+    return out
+
+
+def _run(camera, scene, image, target, *, depth, compat, mode):
+    dev = camera.position.device
+    W, H = camera.resolution
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    n = n_grads(*counts, mode.startswith("fused"))
+    with torch.cuda.device(dev), torch.no_grad():
+        params = render_cuda.pack_params(camera, scene, compat).to(dev)
+        tables = render_cuda.scene_tables(scene)
+        cheap = render_cuda.shadow_cheap_ok(scene, compat)
+        if mode == "fused_aa":
+            image = render_cuda.launch(torch.empty((W, H, 3), device=dev), params,
+                                       tables, counts, depth=depth, mode="aa_shared",
+                                       compat=compat, cheap_shadow=cheap)
+        out = torch.empty(n, device=dev)
+        partial = torch.empty(n * n_blocks(W, H, mode.endswith("_aa")), device=dev)
+        return launch(out, partial, params, tables, counts,
+                      image=None if image is None else image.contiguous(),
+                      target=None if target is None else target.contiguous(),
+                      W=W, H=H, depth=depth, mode=mode, compat=compat,
+                      cheap_shadow=cheap)
+
+
+def scene_grads_cuda(camera, scene, g_image, *, depth: int = 2, compat: bool = True,
+                     aliasing: bool = False, return_camera: bool = False):
+    """Image cotangent ``(w, h, 3)`` -> ``Scene`` gradients (with
+    ``return_camera``: ``(scene_g, camera_g)``), as
+    ``render_bwd.scene_grads_pallas``. CPU tensors take
+    :func:`scene_grads_plain`; CUDA tensors launch ``cot_aa`` (with
+    ``aliasing``) or ``cot_noaa``."""
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    if camera.position.device.type == "cpu":
+        flat = scene_grads_plain(camera, scene, g_image, depth=depth, compat=compat,
+                                 aliasing=aliasing)
+    else:
+        _check(camera, scene, g_image, depth, "g_image")
+        flat = _run(camera, scene, g_image, None, depth=depth, compat=compat,
+                    mode="cot_aa" if aliasing else "cot_noaa")
+    return unflatten_grads(flat, ns, npl, nl, camera.resolution,
+                           return_camera=return_camera, fused_loss=False)
+
+
+def loss_and_scene_grads_cuda(camera, scene, target, *, depth: int = 2,
+                              compat: bool = True, aliasing: bool = False,
+                              return_camera: bool = False):
+    """The training step's ``(loss, scene_g)`` (with ``return_camera``:
+    ``(loss, scene_g, camera_g)``) for ``loss = mean((render - target)^2)``,
+    as ``render_bwd.loss_and_scene_grads_pallas``. CPU tensors take
+    :func:`loss_and_scene_grads_plain`; CUDA tensors launch ``fused_noaa``, or
+    with ``aliasing`` the ``aa_shared`` render and then ``fused_aa``."""
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    if camera.position.device.type == "cpu":
+        flat = loss_and_scene_grads_plain(camera, scene, target, depth=depth,
+                                          compat=compat, aliasing=aliasing)
+    else:
+        _check(camera, scene, target, depth, "target")
+        flat = _run(camera, scene, None, target, depth=depth, compat=compat,
+                    mode="fused_aa" if aliasing else "fused_noaa")
+    return unflatten_grads(flat, ns, npl, nl, camera.resolution,
+                           return_camera=return_camera, fused_loss=True)

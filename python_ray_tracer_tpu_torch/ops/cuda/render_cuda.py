@@ -13,7 +13,9 @@ kernel modes:
 :func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
 tensors on the CPU; for CUDA tensors it launches the kernel or raises. Camera,
 grid and material scalars are packed on the host into the TPU kernel's ``_P_*``
-parameter layout (:func:`pack_params`).
+parameter layout (:func:`pack_params`). :func:`render_image_fast` is the
+differentiable form (``render_pallas.render_image_fast``): the render kernel
+forward, the backward kernel (``render_bwd_cuda``) for its gradient.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import ctypes
 import numpy as np
 import torch
 
+from ...models.camera import Camera
+from ...models.scene import Scene
 from ..render import render_image
 from ..intersect import FAR
 
@@ -178,3 +182,47 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES[mode] += 1
     return out
+
+
+class _RenderImageFast(torch.autograd.Function):
+    """Render kernel forward; backward kernel (cotangent mode, camera slots
+    included) backward. Inputs after the four settings: the camera's position,
+    rotation and fov, then the scene's 12 tensors in dataclass order."""
+
+    @staticmethod
+    def forward(ctx, resolution, depth, aliasing, compat, *leaves):
+        camera, scene = _assemble(resolution, leaves)
+        ctx.settings = (resolution, depth, aliasing, compat)
+        ctx.save_for_backward(*leaves)
+        return render_image_cuda(camera, scene, depth=depth, aliasing=aliasing,
+                                 compat=compat)
+
+    @staticmethod
+    def backward(ctx, g):
+        from .render_bwd_cuda import scene_grads_cuda
+        resolution, depth, aliasing, compat = ctx.settings
+        camera, scene = _assemble(resolution, ctx.saved_tensors)
+        scene_g, cam_g = scene_grads_cuda(camera, scene, g.float().contiguous(),
+                                          depth=depth, compat=compat,
+                                          aliasing=aliasing, return_camera=True)
+        return (None, None, None, None, cam_g.position, cam_g.rotation, cam_g.fov,
+                *scene_g.leaves())
+
+
+def _assemble(resolution, leaves):
+    pos, rot, fov, *s = leaves
+    return Camera(pos, rot, fov, resolution), Scene.from_leaves(s)
+
+
+def render_image_fast(camera, scene, depth: int = 2, aliasing: bool = True,
+                      compat: bool = True) -> torch.Tensor:
+    """Differentiable render -> float ``(w, h, 3)``. CPU tensors take the plain
+    version (differentiated by autograd); on CUDA tensors the forward is the
+    render kernel and the backward is the backward kernel, for the scene and
+    the camera alike. No light-count fallback: the kernel has no such limit."""
+    if camera.position.device.type == "cpu":
+        return render_image(camera, scene, depth=depth, aliasing=aliasing,
+                            compat=compat)
+    return _RenderImageFast.apply(tuple(camera.resolution), depth, aliasing, compat,
+                                  camera.position, camera.rotation, camera.fov,
+                                  *scene.leaves())

@@ -46,7 +46,12 @@ def intersect_spheres(ray_o, ray_d, center, radius, *, compat: bool = True):
     c = _dot(L, L) - radius * radius                      # (..., N)
     disc = b * b - 4.0 * a * c
     has_root = disc >= 0.0
-    sq = torch.sqrt(torch.where(has_root, disc, torch.zeros_like(disc)))
+    # The root is taken only where disc > 0 (it is 0 at disc == 0 either way):
+    # sqrt's derivative is infinite at 0, so a ray with disc == 0 exactly in
+    # float32 would turn its zero cotangent into NaN.
+    pos = disc > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, torch.ones_like(disc))),
+                     torch.zeros_like(disc))
     inv2a = _safe_div(torch.ones_like(a), 2.0 * a)
     t_near = (-b - sq) * inv2a
     t_far = (-b + sq) * inv2a

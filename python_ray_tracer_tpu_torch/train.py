@@ -1,0 +1,219 @@
+"""Inverse rendering: fit scene parameters, or the camera, to a target image by
+gradient descent.
+
+PyTorch counterpart of ``python_ray_tracer_tpu/train.py`` on one device. Two
+backends:
+
+  * ``"cuda"``: the hand-written kernels. ``fused=True`` runs each step as one
+    backward-kernel launch that renders, forms the MSE loss and its cotangent
+    and reverse-sweeps (``loss_and_scene_grads_cuda``; with AA the render
+    kernel runs first); ``fused=False`` runs the render kernel and then the
+    backward kernel on the cotangent. Like every kernel wrapper, these take
+    their plain versions for tensors on the CPU and launch or raise on CUDA
+    tensors.
+  * ``"torch"``: autograd of the plain renderer (:func:`pixel_loss`).
+
+The optimizer is ``torch.optim.Adam(lr)`` over the trainable leaves only. That
+is optax Adam on masked gradients (``train._mask_grads``): a leaf whose
+gradient is always zero never moves.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
+
+from .models.camera import Camera, euler_rotation
+from .models.scene import LEAF_PATHS, Scene
+from .ops.cuda.render_bwd_cuda import loss_and_scene_grads_cuda, scene_grads_cuda
+from .ops.cuda.render_cuda import render_image_cuda
+from .ops.render import render_image
+from .utils.metrics import MetricsLogger
+
+BACKENDS = ("cuda", "torch")
+CAMERA_KEYS = ("position", "euler", "fov")
+
+
+def _check_backend(backend: str) -> None:
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+
+
+def pixel_loss(camera, target, *, depth: int = 2, aliasing: bool = False,
+               compat: bool = True) -> Callable:
+    """``loss(scene) -> scalar`` mean-squared pixel error of the plain renderer."""
+    def loss(scene):
+        img = render_image(camera, scene, depth=depth, aliasing=aliasing,
+                           compat=compat)
+        return torch.mean((img - target) ** 2)
+    return loss
+
+
+def trainable_paths(trainable: Optional[Sequence[str]]) -> List[str]:
+    """Leaf paths that receive updates. ``trainable`` entries are top-level
+    fields (``"spheres"``) or dotted leaf paths (``"spheres.center"``); None
+    trains everything."""
+    if trainable is None:
+        return list(LEAF_PATHS)
+    unknown = [t for t in trainable if t not in LEAF_PATHS and
+               not any(p.startswith(t + ".") for p in LEAF_PATHS)]
+    if unknown:
+        raise ValueError(f"unknown trainable fields {unknown}")
+    return [p for p in LEAF_PATHS if p in trainable or p.split(".")[0] in trainable]
+
+
+def cuda_value_and_grad(camera, target, *, depth: int = 2, compat: bool = True,
+                        aliasing: bool = False, fused: bool = True) -> Callable:
+    """``scene -> (loss, scene_grads)`` through the kernels
+    (``train.pallas_value_and_grad``)."""
+    if fused:
+        def value_and_grad(scene):
+            return loss_and_scene_grads_cuda(camera, scene, target, depth=depth,
+                                             compat=compat, aliasing=aliasing)
+        return value_and_grad
+
+    def value_and_grad(scene):
+        img = render_image_cuda(camera, scene, depth=depth, aliasing=aliasing,
+                                compat=compat)
+        diff = img - target
+        loss = torch.mean(diff ** 2)
+        grads = scene_grads_cuda(camera, scene, 2.0 * diff / diff.numel(), depth=depth,
+                                 compat=compat, aliasing=aliasing)
+        return loss, grads
+    return value_and_grad
+
+
+def autograd_value_and_grad(loss_fn: Callable) -> Callable:
+    """``scene -> (loss, scene_grads)`` by autograd of ``loss_fn(scene)``."""
+    def value_and_grad(scene):
+        leaves = [t.detach().requires_grad_(True) for t in scene.leaves()]
+        loss = loss_fn(Scene.from_leaves(leaves))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), Scene.from_leaves(
+            [torch.zeros_like(t) if g is None else g for t, g in zip(leaves, grads)])
+    return value_and_grad
+
+
+def make_train_step(scene: Scene, value_and_grad: Callable, *, lr: float,
+                    trainable: Optional[Sequence[str]] = None) -> Callable:
+    """``step() -> loss``: one Adam step on ``scene``'s trainable leaves, in
+    place, with the gradients of ``value_and_grad(scene) -> (loss,
+    scene_grads)`` (:func:`cuda_value_and_grad` or
+    :func:`autograd_value_and_grad`)."""
+    paths = trainable_paths(trainable)
+    index = [LEAF_PATHS.index(p) for p in paths]
+    params = [scene.leaves()[i] for i in index]
+    opt = torch.optim.Adam(params, lr=lr)
+
+    def step():
+        loss, grads = value_and_grad(scene)
+        g = grads.leaves()
+        for i, p in zip(index, params):
+            p.grad = g[i].detach().to(p.dtype).reshape(p.shape)
+        opt.step()
+        return loss
+    return step
+
+
+def _log(logger, i, steps, log_every, loss):
+    if logger is not None and (i % log_every == 0 or i == steps - 1):
+        logger.log(i, loss=loss)
+
+
+def fit_scene(init_scene: Scene, camera, target, *, steps: int = 200,
+              lr: float = 2e-2, depth: int = 2, aliasing: bool = False,
+              compat: bool = True, trainable: Optional[Sequence[str]] = ("spheres",),
+              backend: str = "torch", fused: bool = True,
+              logger: Optional[MetricsLogger] = None, log_every: int = 20):
+    """Run the inverse-render optimization; returns ``(scene, losses)``.
+    ``init_scene`` is not modified. ``trainable`` selects the leaves that
+    receive updates (default: sphere geometry and albedo)."""
+    _check_backend(backend)
+    scene = Scene.from_leaves([t.detach().clone() for t in init_scene.leaves()])
+    if backend == "cuda":
+        vg = cuda_value_and_grad(camera, target, depth=depth, compat=compat,
+                                 aliasing=aliasing, fused=fused)
+    else:
+        vg = autograd_value_and_grad(pixel_loss(camera, target, depth=depth,
+                                                aliasing=aliasing, compat=compat))
+    step = make_train_step(scene, vg, lr=lr, trainable=trainable)
+    losses = []
+    for i in range(steps):
+        losses.append(float(step()))
+        _log(logger, i, steps, log_every, losses[-1])
+    return scene, losses
+
+
+def camera_of(p: Dict[str, torch.Tensor], resolution) -> Camera:
+    """Camera of :func:`fit_camera`'s parameters ``{position, euler (radians),
+    fov}``."""
+    e = p["euler"]
+    return Camera(p["position"], euler_rotation(e[0], e[1], e[2], is_radians=True,
+                                                device=e.device),
+                  p["fov"], tuple(resolution))
+
+
+def camera_value_and_grad(scene, target, resolution, *, depth: int = 1,
+                          compat: bool = True, aliasing: bool = False,
+                          backend: str = "cuda") -> Callable:
+    """``params -> (loss, grads)`` for camera-pose fitting
+    (``train.camera_value_and_grad``). With ``backend="cuda"`` the backward
+    kernel's camera slots are chained to the Euler angles by autograd of
+    ``euler_rotation`` (a 3x3 Jacobian on the card, next to nothing beside the
+    render); with ``"torch"`` the whole loss is differentiated by autograd."""
+    _check_backend(backend)
+    if backend == "cuda":
+        def value_and_grad(p):
+            e = p["euler"].detach().requires_grad_(True)
+            rot = euler_rotation(e[0], e[1], e[2], is_radians=True, device=e.device)
+            cam = Camera(p["position"].detach(), rot.detach(), p["fov"].detach(),
+                         tuple(resolution))
+            loss, _, cam_g = loss_and_scene_grads_cuda(
+                cam, scene, target, depth=depth, compat=compat, aliasing=aliasing,
+                return_camera=True)
+            (euler_g,) = torch.autograd.grad(rot, e, grad_outputs=cam_g.rotation)
+            return loss, {"position": cam_g.position, "euler": euler_g, "fov": cam_g.fov}
+        return value_and_grad
+
+    def value_and_grad(p):
+        q = {k: p[k].detach().requires_grad_(True) for k in CAMERA_KEYS}
+        img = render_image(camera_of(q, resolution), scene, depth=depth,
+                           aliasing=aliasing, compat=compat)
+        loss = torch.mean((img - target) ** 2)
+        grads = torch.autograd.grad(loss, [q[k] for k in CAMERA_KEYS])
+        return loss.detach(), dict(zip(CAMERA_KEYS, grads))
+    return value_and_grad
+
+
+def fit_camera(init_camera, scene, target, *, steps: int = 300, lr: float = 1e-2,
+               depth: int = 1, aliasing: bool = False, compat: bool = True,
+               fit_fov: bool = False, logger: Optional[MetricsLogger] = None,
+               log_every: int = 20, backend: str = "torch"):
+    """Inverse rendering with respect to the camera: recover its pose from a
+    target image (``train.fit_camera``). Optimizes position and Euler angles
+    (the rotation is rebuilt by ``euler_rotation`` every step, so it stays a
+    rotation) and, with ``fit_fov``, the fov. ``init_camera``'s rotation is
+    taken to come from ``euler_rotation``; its angles are recovered with the
+    reference's transposed Ry (``Ry_ref(t) = Ry_std(-t)``, so ``R[2, 0] =
+    +sin(pitch)``). Returns ``(fitted_camera, losses)``."""
+    R = init_camera.rotation.detach().float()
+    pitch0 = torch.asin(torch.clamp(R[2, 0], -1.0, 1.0))
+    yaw0 = torch.atan2(R[1, 0], R[0, 0])
+    roll0 = torch.atan2(R[2, 1], R[2, 2])
+    params = {"position": init_camera.position.detach().clone().float(),
+              "euler": torch.stack([roll0, pitch0, yaw0]),
+              "fov": init_camera.fov.detach().clone().float()}
+    resolution = init_camera.resolution
+    vg = camera_value_and_grad(scene, target, resolution, depth=depth, compat=compat,
+                               aliasing=aliasing, backend=backend)
+    keys = CAMERA_KEYS if fit_fov else CAMERA_KEYS[:2]
+    opt = torch.optim.Adam([params[k] for k in keys], lr=lr)
+    losses = []
+    for i in range(steps):
+        loss, grads = vg(params)
+        for k in keys:
+            params[k].grad = grads[k].detach().reshape(params[k].shape)
+        opt.step()
+        losses.append(float(loss))
+        _log(logger, i, steps, log_every, losses[-1])
+    return camera_of(params, resolution), losses

@@ -1,4 +1,5 @@
-"""The CUDA render kernel on a card, against the plain PyTorch version.
+"""The CUDA render and backward kernels on a card, against the plain PyTorch
+version.
 
 Every test here needs a CUDA card and skips without one. The file imports no
 JAX, so it also runs on a host without it:
@@ -11,14 +12,25 @@ flips isolated near-tie hit or shadow tests, so at most 0.1% of pixels may be
 off by more than 1 level. Against the JAX package's frozen framebuffers (read
 with numpy): max diff <= 1 level and < 1% changed, except at the one near tie
 named in tests/torch_goldens.py, as tests/test_goldens.py holds the Pallas
-kernel.
+kernel. The backward kernel against autograd of the plain version follows
+the JAX package's kernel rule (render_bwd_cuda.GEOMETRY_GROUPS): geometry,
+light and camera leaves max|d| / max|g| < 5e-2, the other leaves rtol 1e-3 /
+atol 1e-7, the loss rel 1e-5, with the 0.1% of pixels where the kernel's and
+the plain render disagree most held out of both sides
+(render_bwd_cuda.held_out: at 64x64 one near-tie or near-tangent sample can
+carry most of a leaf group's gradient).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
 
 import python_ray_tracer_tpu_torch as trt
+from python_ray_tracer_tpu_torch import cli, train
+from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
 from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+from python_ray_tracer_tpu_torch.utils.config import RenderConfig
 
 from .torch_goldens import GOLDEN_CONFIGS, compare_frames, load_golden
 
@@ -116,3 +128,211 @@ def test_empty_scene_renders_black(cuda_device):
     out = trt.render_image_cuda(trt.default_camera((20, 20), device=cuda_device), scene)
     assert float(out.abs().max()) == 0.0
     np.testing.assert_array_equal(out.cpu().numpy(), np.zeros((20, 20, 3), np.float32))
+
+
+# --- the backward kernel ---------------------------------------------------------
+
+BWD_MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")
+
+
+def _bwd_scene(name, compat, dev):
+    if name == "two":
+        return cli.fit_scene_two_spheres(RenderConfig(), dev)
+    mats = trt.Materials.build(0.05, 0.6, 0.3, 0.0 if compat else 0.6, 8.0, device=dev)
+    return trt.default_scene(mats, device=dev)
+
+
+def _target(res, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.rand((*res, 3), generator=g).to(dev)
+
+
+def _bwd_input(mode, cam, scene, target, compat, depth=2):
+    """The target (fused modes) or the MSE cotangent of the plain render."""
+    if mode.startswith("fused"):
+        return target
+    img = trt.render_image(cam, scene, depth=depth, aliasing=mode.endswith("_aa"),
+                           compat=compat)
+    return (2.0 * (img - target) / img.numel()).contiguous()
+
+
+def _kernel_flat(mode, cam, scene, x, compat):
+    """The kernel wrapper's flat gradient, camera slots included."""
+    kw = dict(depth=2, compat=compat, aliasing=mode.endswith("_aa"), return_camera=True)
+    if mode.startswith("fused"):
+        loss, scene_g, cam_g = rb.loss_and_scene_grads_cuda(cam, scene, x, **kw)
+        return rb.flatten_grads(scene_g, cam_g, loss)
+    return rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, x, **kw))
+
+
+def _assert_rule(flat, ref, scene, scale_ref=None):
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    bad = {k: v for k, (v, ok) in rb.grad_rule(flat, ref, *counts, scale_ref).items()
+           if not ok}
+    assert not bad, bad
+
+
+def _assert_matches_plain(mode, cam, scene, target, compat, depth=2):
+    """Kernel against plain version under the rule, the held-out pixels
+    (render_bwd_cuda.held_out) taken out of both."""
+    x = _bwd_input(mode, cam, scene, target, compat, depth)
+    flat, ref, ref_all, held = rb.kernel_and_plain(mode, cam, scene, x, depth=depth,
+                                                   compat=compat)
+    assert int(held.sum()) == math.ceil(rb.HELD_OUT_FRAC * held.numel())
+    assert bool(torch.isfinite(flat).all())
+    _assert_rule(flat, ref, scene, ref_all)
+
+
+@pytest.mark.parametrize("mode", BWD_MODES)
+@pytest.mark.parametrize("name", ["demo", "two"])
+@pytest.mark.parametrize("compat", [True, False])
+def test_bwd_kernel_matches_plain(cuda_device, mode, name, compat):
+    scene = _bwd_scene(name, compat, cuda_device)
+    cam = trt.default_camera((64, 64), device=cuda_device)
+    target = _target((64, 64), cuda_device)
+    before = rb.LAUNCHES[mode]
+    flat = _kernel_flat(mode, cam, scene, _bwd_input(mode, cam, scene, target, compat),
+                        compat)
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES[mode] == before + 1
+    assert bool(torch.isfinite(flat).all())
+    _assert_matches_plain(mode, cam, scene, target, compat)
+
+
+@pytest.mark.parametrize("mode", BWD_MODES)
+def test_bwd_kernel_is_deterministic(cuda_device, mode):
+    scene = _bwd_scene("demo", True, cuda_device)
+    cam = trt.default_camera((96, 72), device=cuda_device)
+    x = _bwd_input(mode, cam, scene, _target((96, 72), cuda_device, seed=1), True)
+    assert torch.equal(_kernel_flat(mode, cam, scene, x, True),
+                       _kernel_flat(mode, cam, scene, x, True))
+
+
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_render_image_fast_grads_match_plain_autograd(cuda_device, aliasing):
+    """render_image_fast: the render kernel forward, the backward kernel
+    backward, for scene and camera leaves, against autograd of the plain path."""
+    scene = _bwd_scene("demo", True, cuda_device)
+    cam = trt.default_camera((48, 40), device=cuda_device)
+    g = _target((48, 40), cuda_device, seed=2) - 0.5
+    mode = "cot_aa" if aliasing else "cot_noaa"
+    before = rb.LAUNCHES[mode]
+    grads = []
+    for fn in (render_cuda.render_image_fast, trt.render_image):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in scene.leaves() + [cam.position, cam.rotation, cam.fov]]
+        c = trt.Camera(*leaves[12:], cam.resolution)
+        (fn(c, trt.Scene.from_leaves(leaves[:12]), depth=2, aliasing=aliasing) * g).sum()\
+            .backward()
+        grads.append(rb.flatten_grads(
+            trt.Scene.from_leaves([t.grad if t.grad is not None else torch.zeros_like(t)
+                                   for t in leaves[:12]]),
+            trt.Camera(*(t.grad for t in leaves[12:]), cam.resolution)))
+    assert rb.LAUNCHES[mode] == before + 1
+    _assert_rule(grads[0], grads[1], scene)
+
+
+@pytest.mark.parametrize("mode", ["fused_noaa", "fused_aa"])
+def test_bwd_kernel_24_spheres(cuda_device, mode):
+    """24 spheres at 32x32 (past the JAX kernel's 16-sphere unroll limit; the
+    port's loop has no such limit), seen from a corner of the field. The view
+    is one where float32 says something about every geometry group: the plain
+    version in float32 and in float64 agree under the rule. (From a camera
+    beside a sphere, the two plain versions put the AA fov gradient 3x apart,
+    and no float32 kernel can be held to either.)"""
+    g = torch.Generator().manual_seed(4)
+    scene = trt.random_scene(24, generator=g, device=cuda_device)
+    cam = trt.Camera.build((32, 32), [-10.0, -10.0, 8.0], [0.0, -30.0, 45.0],
+                           device=cuda_device)
+    target = _target((32, 32), cuda_device)
+    aa = mode == "fused_aa"
+    cam64 = trt.Camera(cam.position.double(), cam.rotation.double(), cam.fov.double(),
+                       cam.resolution)
+    scene64 = trt.Scene.from_leaves([t.double() for t in scene.leaves()])
+    rule = rb.grad_rule(
+        rb.loss_and_scene_grads_plain(cam, scene, target, depth=2, aliasing=aa),
+        rb.loss_and_scene_grads_plain(cam64, scene64, target.double(), depth=2,
+                                      aliasing=aa), 24, 1, 3)
+    assert all(ok for k, (_, ok) in rule.items() if k in rb.GEOMETRY_GROUPS), rule
+    _assert_matches_plain(mode, cam, scene, target, True)
+
+
+@pytest.mark.parametrize("mode", ["fused_noaa", "cot_aa"])
+@pytest.mark.parametrize("compat", [True, False])
+def test_bwd_kernel_past_32_lights(cuda_device, mode, compat):
+    """34 lights: the reverse sweep re-tests the shadow rays of lights past the
+    kernel's 32-bit occlusion mask."""
+    two = _bwd_scene("two", compat, cuda_device)
+    lights = trt.Lights(torch.tensor([[2.5 + 0.1 * i, -2.0 + 0.12 * i, 3.0 + 0.05 * i]
+                                      for i in range(34)], device=cuda_device))
+    mats = trt.Materials.build(0.1, 0.05, 0.3, 0.0 if compat else 0.5, 8.0,
+                               device=cuda_device)
+    scene = trt.Scene(two.spheres, two.planes, lights, mats)
+    cam = trt.default_camera((24, 16), device=cuda_device)
+    _assert_matches_plain(mode, cam, scene, _target((24, 16), cuda_device), compat)
+
+
+def test_bwd_kernel_at_max_depth(cuda_device):
+    scene = _bwd_scene("two", True, cuda_device)
+    cam = trt.default_camera((32, 32), device=cuda_device)
+    _assert_matches_plain("fused_noaa", cam, scene, _target((32, 32), cuda_device), True,
+                          depth=rb.MAX_DEPTH)
+
+
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_bwd_kernel_empty_scene(cuda_device, aliasing):
+    """No objects and no lights: every gradient slot 0, the loss mean(target^2)."""
+    dev = cuda_device
+    scene = trt.Scene(trt.Spheres.build([], dev), trt.Planes.build([], dev),
+                      trt.Lights.build([], dev), trt.Materials.build(device=dev))
+    cam = trt.default_camera((20, 12), device=dev)
+    target = _target((20, 12), dev)
+    loss, scene_g, cam_g = rb.loss_and_scene_grads_cuda(cam, scene, target,
+                                                        aliasing=aliasing,
+                                                        return_camera=True)
+    assert bool((rb.flatten_grads(scene_g, cam_g) == 0).all())
+    assert float(loss) == pytest.approx(float((target ** 2).mean()), rel=1e-5)
+
+
+def test_bwd_wrapper_rejects_bad_inputs(cuda_device):
+    scene = _bwd_scene("two", True, cuda_device)
+    cam = trt.default_camera((16, 16), device=cuda_device)
+    target = _target((16, 16), cuda_device)
+    with pytest.raises(ValueError, match="depth"):
+        rb.loss_and_scene_grads_cuda(cam, scene, target, depth=rb.MAX_DEPTH + 1)
+    with pytest.raises(ValueError, match="shape"):
+        rb.loss_and_scene_grads_cuda(cam, scene, target[:8])
+    with pytest.raises(ValueError, match="is on cpu"):
+        rb.scene_grads_cuda(cam, trt.default_scene(), target)
+
+
+def test_fit_scene_cuda_backend_on_card(cuda_device):
+    """fit_scene(backend="cuda"): one fused launch a step, the plain version
+    never called, the loss falls."""
+    scene = _bwd_scene("two", True, cuda_device)
+    cam = trt.default_camera((128, 128), device=cuda_device)
+    target = trt.render_image_cuda(cam, scene, depth=2, aliasing=False)
+    init = trt.Scene.from_leaves(scene.leaves())
+    init.spheres = trt.Spheres(scene.spheres.center + torch.tensor(
+        [0.2, -0.15, 0.1], device=cuda_device), scene.spheres.radius, scene.spheres.albedo)
+    rb.reset_launch_counts()
+    _, losses = train.fit_scene(init, cam, target, steps=20, lr=1e-2, depth=2,
+                                trainable=("spheres.center",), backend="cuda")
+    assert rb.LAUNCHES["fused_noaa"] == 20 and sum(rb.PLAIN_CALLS.values()) == 0
+    assert losses[-1] < 0.75 * losses[0]
+
+
+def test_fit_camera_cuda_backend_on_card(cuda_device):
+    scene = _bwd_scene("two", True, cuda_device)
+    true_cam = trt.Camera.build((64, 64), [-2.0, 0.0, 2.0], [0.0, -30.0, 0.0],
+                                device=cuda_device)
+    target = trt.render_image_cuda(true_cam, scene, depth=1, aliasing=False)
+    init = trt.Camera.build((64, 64), [-2.1, 0.08, 1.92], [1.5, -27.5, 2.0],
+                            device=cuda_device)
+    rb.reset_launch_counts()
+    fitted, losses = train.fit_camera(init, scene, target, steps=60, depth=1,
+                                      backend="cuda")
+    assert rb.LAUNCHES["fused_noaa"] == 60 and sum(rb.PLAIN_CALLS.values()) == 0
+    assert losses[-1] < 0.6 * losses[0]
+    err0 = float((init.position - true_cam.position).abs().max())
+    assert float((fitted.position - true_cam.position).abs().max()) < err0

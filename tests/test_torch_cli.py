@@ -1,5 +1,6 @@
-"""The port's slice as a whole: ``cli render`` to PNG, the PNG writers,
-backend resolution, timing helpers, and that the port never imports JAX."""
+"""The port's slices as a whole: ``cli render`` and ``cli fit`` to PNG, the
+PNG writers, backend resolution, timing helpers, and that the port never
+imports JAX."""
 import os
 import subprocess
 import sys
@@ -42,6 +43,48 @@ def test_cli_backend_cuda_without_card_raises(tmp_path):
                   "--out", str(tmp_path / "x.png")])
 
 
+@pytest.mark.parametrize("mode,summary", [("hard", "center err: 0.200 -> median"),
+                                          ("camera", "camera pos err: 0.100 -> ")])
+def test_cli_fit_torch_backend(tmp_path, capsys, mode, summary):
+    """``fit --mode hard|camera --backend torch`` at 16x16, depth 1, 10 steps:
+    the JAX CLI's summary line, a falling loss, and the fitted PNG."""
+    out = tmp_path / "fit.png"
+    assert cli.main(["fit", "--mode", mode, "--backend", "torch", "--width", "16",
+                     "--height", "16", "--depth", "1", "--steps", "10",
+                     "--out", str(out)]) == 0
+    printed = capsys.readouterr().out
+    line = next(ln for ln in printed.splitlines() if ln.startswith("loss: "))
+    assert summary in line, printed
+    first, last = (float(v) for v in line.split()[1:4:2])
+    assert last < first
+    assert "[fit] step 0: loss=" in printed and "[fit] step 9: loss=" in printed
+    assert np.asarray(Image.open(out).convert("RGB")).shape == (16, 16, 3)
+
+
+def test_cli_fit_first_loss_matches_jax_cli(tmp_path, capsys):
+    """The port's hard fit starts from the JAX CLI's scene, shift and target:
+    step 0's loss equals ``python_ray_tracer_tpu.cli fit --mode hard``'s."""
+    from python_ray_tracer_tpu import cli as jcli
+    args = ["fit", "--mode", "hard", "--width", "16", "--height", "16", "--depth", "1",
+            "--steps", "1", "--out", ""]
+    assert jcli.main(args + ["--backend", "jnp"]) == 0
+    want = capsys.readouterr().out
+    assert cli.main(args + ["--backend", "torch"]) == 0
+    got = capsys.readouterr().out
+
+    def first_loss(text):
+        return float(text.split("[fit] step 0: loss=")[1].split()[0])
+    assert first_loss(got) == pytest.approx(first_loss(want), rel=1e-5)
+
+
+def test_cli_fit_backend_cuda_without_card_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        cli.main(["fit", "--backend", "cuda", "--width", "8", "--height", "8",
+                  "--steps", "1", "--out", str(tmp_path / "x.png")])
+
+
 def test_resolve_backend():
     want_auto = "cuda" if torch.cuda.is_available() else "torch"
     assert trt.resolve_backend("auto") == want_auto
@@ -80,6 +123,8 @@ def test_port_never_imports_jax():
     code = ("import sys; import python_ray_tracer_tpu_torch, "
             "python_ray_tracer_tpu_torch.cli, "
             "python_ray_tracer_tpu_torch.ops.cuda.render_cuda, "
+            "python_ray_tracer_tpu_torch.ops.cuda.render_bwd_cuda, "
+            "python_ray_tracer_tpu_torch.train, "
             "python_ray_tracer_tpu_torch.bridge; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'python_ray_tracer_tpu.')) or m == 'python_ray_tracer_tpu'); "

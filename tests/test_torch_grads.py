@@ -1,0 +1,165 @@
+"""Gradients of the port's backward path on the CPU, against the JAX package.
+
+The port's plain version of the backward kernel (autograd of ops/render.py,
+packed into the grad_layout vector: render_bwd_cuda.scene_grads_plain /
+loss_and_scene_grads_plain) is held against ``jax.value_and_grad`` of the JAX
+jnp path on the demo scene, every scene and camera leaf within 5e-3 of the
+leaf's max |g| (the two autodiffs differ only by float32 rounding), except the
+one leaf named at FOV_PHONG_TOL. tests/test_torch_grads_pallas.py holds it
+against the JAX Pallas backward kernel.
+
+On CPU tensors the kernel wrappers (scene_grads_cuda, loss_and_scene_grads_cuda)
+take these plain versions and launch nothing. The kernel itself runs on a
+card (tests/test_torch_card.py, chip_smoke.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import python_ray_tracer_tpu as jrt
+from python_ray_tracer_tpu_torch import bridge
+from python_ray_tracer_tpu_torch.models.scene import LEAF_PATHS
+from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
+
+from .test_torch_render import to_torch
+
+torch.set_num_threads(1)
+
+# Leaves held to the geometry rule (max|d| / max|g|); the rest to rtol/atol.
+GEOMETRY = ("spheres.center", "spheres.radius", "lights.position", "camera.position",
+            "camera.rotation", "camera.fov")
+# The fov gradient under clean-mode Phong at depth 2 is a heavily cancelling sum
+# of per-pixel terms: in float32 both packages land ~6% off its float64 value
+# (port 4.291e-4, JAX 4.321e-4, float64 plain path 4.048e-4, which a float64
+# central difference confirms), 7e-3 apart from each other. Float32 rounding
+# alone sets that gap, so this one leaf in that case is held to 2e-2.
+FOV_PHONG_TOL = 2e-2
+
+
+def two_sphere_scene_jax():
+    """The scene of python_ray_tracer_tpu/cli.py:195-199."""
+    return jrt.Scene(
+        jrt.Spheres.build([([2.5, 0.5, 1.0], 0.8, jrt.RED), ([1.5, -0.9, 0.5], 0.5, jrt.BLUE)]),
+        jrt.Planes.build([([5, 0, 0], [0, 0, 1], jrt.GREY)]),
+        jrt.Lights.build([[2.5, -2.0, 3.0], [2.5, 2.0, 3.0]]), jrt.Materials.build())
+
+
+def noise(res, seed=0):
+    return np.random.default_rng(seed).uniform(0.0, 1.0, (*res, 3)).astype(np.float32)
+
+
+def leaf_groups(scene_g, cam_g):
+    """{"spheres.center": array, ...} for the port's or the JAX package's grads."""
+    out = {}
+    for path in LEAF_PATHS + rb.CAMERA_GRAD_GROUPS:
+        grp, leaf = path.split(".")
+        obj = cam_g if grp == "camera" else getattr(scene_g, grp)
+        out[path] = np.asarray(getattr(obj, leaf), np.float64)
+    return out
+
+
+def port_groups(flat, scene):
+    scene_g, cam_g, loss = bridge.grads_from_flat(
+        flat.numpy(), scene.spheres.count, scene.planes.count, scene.lights.count)
+    return leaf_groups(scene_g, cam_g), loss
+
+
+def rel_err(a, b):
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30)) if b.size else 0.0
+
+
+def assert_kernel_rule(got, want):
+    for path in want:
+        if path in GEOMETRY:
+            assert rel_err(got[path], want[path]) < 5e-2, path
+        else:
+            np.testing.assert_allclose(got[path], want[path], rtol=1e-3, atol=1e-7,
+                                       err_msg=path)
+
+
+@pytest.mark.parametrize("aliasing,compat,spec", [(False, True, 0.0), (True, True, 0.0),
+                                                  (False, False, 0.6)])
+def test_plain_grads_match_jax_autodiff(aliasing, compat, spec):
+    """Demo scene 24x24, depth 2: the plain version's loss and every leaf
+    against jax.value_and_grad of the jnp path."""
+    scene_j = jrt.default_scene(jrt.Materials.build(specular=spec, shininess=8.0))
+    cam_j = jrt.default_camera((24, 24))
+    target = noise((24, 24))
+
+    def loss_j(c, s):
+        img = jrt.render_image(c, s, depth=2, aliasing=aliasing, compat=compat)
+        return jnp.mean((img - target) ** 2)
+    l_j, (gc_j, gs_j) = jax.value_and_grad(loss_j, argnums=(0, 1))(cam_j, scene_j)
+    cam, scene = to_torch(cam_j, scene_j)
+    flat = rb.loss_and_scene_grads_plain(cam, scene, torch.from_numpy(target), depth=2,
+                                         compat=compat, aliasing=aliasing)
+    got, loss = port_groups(flat, scene)
+    assert float(loss) == pytest.approx(float(l_j), rel=1e-5)
+    want = leaf_groups(gs_j, gc_j)
+    for path in want:
+        tol = FOV_PHONG_TOL if (spec and path == "camera.fov") else 5e-3
+        assert np.abs(got[path] - want[path]).max() <= tol * np.abs(want[path]).max(), path
+    if not compat:
+        assert abs(float(got["materials.specular"])) > 0.0
+
+
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_wrappers_on_cpu_tensors_take_the_plain_version(aliasing):
+    """scene_grads_cuda / loss_and_scene_grads_cuda on CPU tensors: the plain
+    version's numbers, no kernel launch, both return forms."""
+    cam, scene = to_torch(jrt.default_camera((12, 10)), two_sphere_scene_jax())
+    target = torch.from_numpy(noise((12, 10), seed=3))
+    before = dict(rb.LAUNCHES)
+    loss, scene_g, cam_g = rb.loss_and_scene_grads_cuda(
+        cam, scene, target, depth=1, aliasing=aliasing, return_camera=True)
+    flat = rb.loss_and_scene_grads_plain(cam, scene, target, depth=1, aliasing=aliasing)
+    torch.testing.assert_close(rb.flatten_grads(scene_g, cam_g, loss), flat, rtol=0, atol=0)
+    scene_only = rb.scene_grads_cuda(cam, scene, target, depth=1, aliasing=aliasing)
+    plain = rb.scene_grads_plain(cam, scene, target, depth=1, aliasing=aliasing)
+    torch.testing.assert_close(rb.flatten_grads(scene_only)[:-13], plain[:-13], rtol=0,
+                               atol=0)
+    assert rb.LAUNCHES == before
+
+
+@pytest.mark.parametrize("mode", rb.MODES)
+def test_kernel_and_plain_holds_out_pixels(mode):
+    """render_bwd_cuda.kernel_and_plain (the card's parity comparison) takes
+    the held-out pixels out of both sides: on CPU tensors both sides are the
+    plain version, and each equals the gradient of the loss (or the VJP) over
+    the kept pixels alone."""
+    cam, scene = to_torch(jrt.default_camera((20, 16)), two_sphere_scene_jax())
+    target = torch.from_numpy(noise((20, 16), seed=5))
+    aa = mode.endswith("_aa")
+    img = rb.render_image(cam, scene, depth=1, aliasing=aa)
+    x = target if mode.startswith("fused") else 2.0 * (img - target) / img.numel()
+    a, b, b_all, held = rb.kernel_and_plain(mode, cam, scene, x, depth=1)
+    assert held.shape == (20, 16) and int(held.sum()) == 1
+    keep = (~held)[..., None]
+    if mode.startswith("fused"):
+        d = (img - target) * keep
+        want = torch.cat([rb.scene_grads_plain(cam, scene, 2.0 * d / d.numel(), depth=1,
+                                               aliasing=aa),
+                          ((d * d).sum() / d.numel()).reshape(1)])
+        want_all = rb.loss_and_scene_grads_plain(cam, scene, target, depth=1, aliasing=aa)
+    else:
+        want = rb.scene_grads_plain(cam, scene, x * keep, depth=1, aliasing=aa)
+        want_all = rb.scene_grads_plain(cam, scene, x, depth=1, aliasing=aa)
+    for got in (a, b):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-9)
+    torch.testing.assert_close(b_all, want_all, rtol=0, atol=0)
+
+
+def test_render_image_fast_on_cpu_is_differentiable():
+    """render_image_fast on CPU tensors is the plain render, differentiated by
+    autograd: its sphere-center gradient equals the plain version's."""
+    from python_ray_tracer_tpu_torch.ops.cuda.render_cuda import render_image_fast
+    cam, scene = to_torch(jrt.default_camera((12, 12)), two_sphere_scene_jax())
+    g = torch.from_numpy(noise((12, 12), seed=4))
+    center = scene.spheres.center.clone().requires_grad_(True)
+    scene.spheres.center = center
+    (render_image_fast(cam, scene, depth=1, aliasing=True) * g).sum().backward()
+    flat = rb.scene_grads_plain(cam, scene, g, depth=1, aliasing=True)
+    torch.testing.assert_close(center.grad.reshape(-1),
+                               flat[:14].reshape(2, 7)[:, :3].reshape(-1))

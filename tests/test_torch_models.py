@@ -13,6 +13,7 @@ import torch
 import python_ray_tracer_tpu as jrt
 import python_ray_tracer_tpu_torch as trt
 from python_ray_tracer_tpu_torch import bridge
+from python_ray_tracer_tpu_torch.models.scene import LEAF_PATHS
 
 torch.set_num_threads(1)
 
@@ -76,7 +77,7 @@ def test_to_soa_matches_jax_and_round_trips():
     back_j = jrt.Scene.from_soa(*sj.to_soa())
     for a, b in zip(_scene_leaves(back_j),
                     [getattr(getattr(back_t, g), f).numpy() for g, f in
-                     (k.split(".") for k in bridge.SCENE_LEAVES)]):
+                     (k.split(".") for k in LEAF_PATHS)]):
         np.testing.assert_array_equal(b, a)
 
 
