@@ -14,7 +14,17 @@ hard`` and ``--mode camera`` at 1000x1000, depth 2, the AA ``fit_scene`` step,
 ``fused=False`` and ``render_image_fast``'s backward), with launch counts and
 convergence checked and each mode held against its plain version at those
 shapes; and step times (kernel alone, its reduction, host packing, Adam, the
-whole ``fit_scene`` step, the plain step).
+whole ``fit_scene`` step, the plain step). Then the soft-visibility kernels
+(phases 10-12): the soft forward and both soft backward modes against their
+plain versions at every tau of the anneal (demo scene 256x256, 100 seeded
+spheres 128x128), twice for bit-identical results; ``cli fit --mode soft``
+(its default mode) and ``cli render --soft 0.05`` at 1000x1000 with launch,
+convergence and PNG checks; the fit's targets, its step 0 and
+``render_image_soft_fast``'s backward held against their plain versions at
+that size; the counted plain bounce fit; and times (demo 1000x1000, 100
+spheres 512x512). Every kernel's entry in the kernels line carries its bound
+(``utils/timing.py``: the FP32 operations and bytes the function needs, over
+the H100's peak rates).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -32,6 +42,12 @@ itself reads 30 levels off demo_64_d2_noaa_clean (tests/torch_goldens.py).
 Backward kernel against the plain version: the JAX package's kernel rule
 (render_bwd_cuda.grad_rule) with the 0.1% of pixels where the kernel's and the
 plain render disagree most held out of both sides (render_bwd_cuda.held_out).
+Soft kernels against the plain version: soft_cuda.image_rule and
+soft_bwd_cuda.soft_grad_rule, every element within its allowance of the plain
+version in float32 or in float64 (where far spheres make the soft cover
+cancel, float32 roundings differ by more than the allowance; the kernel must
+stay near one of the two). In the kernels line, ``max_rel_err`` is the worst ratio of a
+difference to its allowance under the entry's rule (<= 1 passes).
 """
 from __future__ import annotations
 
@@ -78,6 +94,20 @@ LOSS_DROP = 0.75         # the fit's last loss must fall below this share of its
 # Device memory the plain AA training step may take at FIT_RES, reckoned from
 # its peak at BWD_PARITY_RES; above it the plain AA step runs at BWD_PARITY_RES.
 PLAIN_MEM_BUDGET = 60e9
+# The soft-visibility kernels (phases 10-12).
+SOFT_FWD_SOURCE = "python_ray_tracer_tpu_torch/csrc/soft_fwd.cu"
+SOFT_BWD_SOURCE = "python_ray_tracer_tpu_torch/csrc/soft_bwd.cu"
+SOFT_FWD_REPLACES = "python_ray_tracer_tpu/ops/pallas/soft_pallas.py:72"
+SOFT_BWD_REPLACES = "python_ray_tracer_tpu/ops/pallas/soft_bwd.py:77"
+SOFT_TAUS = (0.15, 0.05, 0.02)        # fit_scene_soft's anneal
+SOFT_PARITY = (("demo", (256, 256)), ("random100", (128, 128)))
+SOFT_TIMES = (("demo", (1000, 1000)), ("random100", (512, 512)))
+SOFT_FIT_STEPS = 150                  # the fit CLI's default
+# Largest intermediate of one checkpointed block of the plain soft version
+# (ops/soft.row_chunk_for), and the device memory the plain step may take at
+# 1000x1000, reckoned from its peak at a small size.
+SOFT_BLOCK_BYTES = 1 << 30
+SOFT_PLAIN_BUDGET = 30e9
 
 
 def frame_diff(a, b):
@@ -121,6 +151,11 @@ def seeded(torch, shape, dev, seed: int):
     return torch.rand(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
 
 
+def counts(scene):
+    """(spheres, planes, lights) of a scene."""
+    return scene.spheres.count, scene.planes.count, scene.lights.count
+
+
 def backward_phases(torch, rt, card: str, dev) -> list:
     """Phases 7-9: the backward kernel (TPU kernel 4) against its plain version
     in every mode, the training path through its entry points, and step
@@ -130,10 +165,8 @@ def backward_phases(torch, rt, card: str, dev) -> list:
     from python_ray_tracer_tpu_torch import cli, train
     from python_ray_tracer_tpu_torch.ops.cuda import _build, render_cuda
     from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
+    from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
-
-    def counts(scene):
-        return scene.spheres.count, scene.planes.count, scene.lights.count
 
     def kernel_flat(mode, cam, scene, x, compat):
         """The wrapper's flat gradient, camera slots included (and the loss
@@ -154,8 +187,8 @@ def backward_phases(torch, rt, card: str, dev) -> list:
     def held(label, mode, cam, scene, x, compat):
         """The wrapper against the plain version under the JAX package's kernel
         rule, with rb.held_out's pixels (0.1%, where the two renders disagree
-        most) taken out of both; print max|d| / max|g| per leaf group and
-        return (max_abs_err, max_rel_err)."""
+        most) taken out of both; print each leaf group's worst ratio to its
+        allowance and return (max_abs_err, the worst ratio)."""
         flat, ref, ref_all, out = rb.kernel_and_plain(mode, cam, scene, x, depth=2,
                                                       compat=compat)
         check(bool(torch.isfinite(flat).all()), f"{label}: non-finite gradient")
@@ -385,15 +418,351 @@ def backward_phases(torch, rt, card: str, dev) -> list:
 
     def entry(name, modes, t):
         e = [errs[m] for m in modes]
+        mode = modes[0]
+        ops, nbytes = timing.hard_work(W, H, *cnt, mode)
+        if mode == "fused_aa":      # the fused AA step runs the aa_shared render first
+            ops += timing.hard_work(W, H, *cnt, "aa_shared")[0]
+        bound, bound_by = timing.bound_ms(ops, nbytes)
+        print(f"[bound] {name} {W}x{H} d2: {bound:.4f} ms ({bound_by}, a lower bound: the "
+              f"primary sweep and the camera and material slot sums) vs kernel alone "
+              f"{t['kernel']:.4f} ms | {card}")
         return {"name": name, "route": "cuda", "source": BWD_SOURCE,
                 "replaces": BWD_REPLACES, "launches": sum(main_launches[m] for m in modes),
                 "max_abs_err": max(a for a, _ in e), "max_rel_err": max(r for _, r in e),
                 "ms": t["step"], "plain_ms": t["plain"], "kernel_only_ms": t["kernel"],
-                "reduce_ms": t["reduce"],
+                "reduce_ms": t["reduce"], "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": None,
                 "shape": f"{W}x{H}_d2", "plain_shape": "x".join(map(str, t["plain_res"]))}
     return [entry("render_bwd_fused_noaa", ("fused_noaa",), times["fused_noaa"]),
             entry("render_bwd_fused_aa", ("fused_aa",), times["fused_aa"]),
             entry("render_bwd_cotangent", ("cot_noaa", "cot_aa"), times["cot_noaa"])]
+
+
+def soft_phases(torch, rt, card: str, dev) -> list:
+    """Phases 10-12: the soft forward and backward kernels (TPU kernels 5-6)
+    against their plain versions, the soft fit and render through their entry
+    points at full width, each kernel held against its plain version at the
+    shapes that path gives it, and times. Returns the soft entries of the
+    kernels line, whose errors are those of the full-width checks."""
+    import contextlib
+    import io
+    import numpy as np
+    from python_ray_tracer_tpu_torch import cli, train
+    from python_ray_tracer_tpu_torch.ops.cuda import _build, render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_cuda
+    from python_ray_tracer_tpu_torch.ops.soft import row_chunk_for
+    from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
+
+    def soft_scene(name):
+        """The fit CLI's demo scene (RenderConfig materials), or 100 seeded
+        random spheres."""
+        if name == "demo":
+            return rt.default_scene(device=dev)
+        return rt.random_scene(100, generator=torch.Generator().manual_seed(0), device=dev)
+
+    def kernel_flat(mode, cam, scene, x, tau):
+        if mode == "fused":
+            loss, sg, cg = sb.soft_loss_and_grads_cuda(cam, scene, x, tau=tau,
+                                                       return_camera=True)
+            return rb.flatten_grads(sg, cg, loss)
+        return rb.flatten_grads(*sb.soft_scene_grads_cuda(cam, scene, x, tau=tau,
+                                                          return_camera=True))
+
+    def plain_flat(mode, cam, scene, x, tau, chunk):
+        fn = sb.soft_loss_and_grads_plain if mode == "fused" else sb.soft_scene_grads_plain
+        return fn(cam, scene, x, tau=tau, row_chunk=chunk)
+
+    def held_image(label, img, cam, scene, tau):
+        """The kernel's image against the plain version in float32 and float64
+        under soft_cuda.image_rule; prints the numbers and the element farthest
+        from the plain float32 version, and returns ((max_abs_err, worst ratio
+        to the allowance), the plain float32 image)."""
+        res = cam.resolution
+        plain = rt.render_image_soft(cam, scene, tau=tau,
+                                     row_chunk=row_chunk_for(res, scene, SOFT_BLOCK_BYTES))
+        plain64 = rt.render_image_soft(*soft_cuda.as_double(cam, scene), tau=tau,
+                                       row_chunk=row_chunk_for(res, scene,
+                                                               SOFT_BLOCK_BYTES // 2))
+        r = soft_cuda.image_rule(img, plain, plain64)
+        print(f"[soft-fwd] {label} tau={tau}: max|k-plain| {r['max_abs_err']:.3e}, "
+              f"max|k-plain64| {r['max_abs_err_f64']:.3e}, max|plain-plain64| "
+              f"{r['plain_err_f64']:.3e}, ratio {r['ratio']:.3f}, flipped {r['flipped']}"
+              f"/{res[0] * res[1]}; farthest from plain32 {r['worst']}, from plain64 "
+              f"{r['worst64']}")
+        check(r["ok"], f"soft_fwd {label} tau={tau}: {r}")
+        return (r["max_abs_err"], r["ratio"]), plain
+
+    def held(label, mode, cam, scene, x, tau, flat=None, chunk=None):
+        """The kernel's flat gradient against the plain version in float32 and
+        float64 under soft_bwd_cuda.soft_grad_rule; prints each leaf group's
+        worst ratio to its allowance and returns (max_abs_err, the worst
+        ratio). ``chunk``: the plain float32 run's block (half in float64)."""
+        chunk = row_chunk_for(cam.resolution, scene, SOFT_BLOCK_BYTES) if chunk is None \
+            else chunk
+        flat = kernel_flat(mode, cam, scene, x, tau) if flat is None else flat
+        check(bool(torch.isfinite(flat).all()), f"{label}: non-finite gradient")
+        ref = plain_flat(mode, cam, scene, x, tau, chunk)
+        cam64, scene64 = soft_cuda.as_double(cam, scene)
+        ref64 = plain_flat(mode, cam64, scene64, x.double(), tau,
+                           None if chunk is None else max(1, chunk // 2))
+        rule = sb.soft_grad_rule(flat, ref, *counts(scene), ref64=ref64)
+        plain_rule = sb.soft_grad_rule(ref, ref64, *counts(scene))
+        print(f"[soft-bwd] {label}: " + " ".join(f"{k}={v:.3f}" for k, (v, _) in rule.items())
+              + f" | plain f32 vs f64 worst {max(v for v, _ in plain_rule.values()):.3f}")
+        groups = rb.grad_groups(flat.cpu(), *counts(scene))
+        check(all(float(groups[k].abs().max()) == 0.0 for k in
+                  ("materials.reflection", "materials.specular", "materials.shininess")),
+              f"{label}: refl/spec/shin slots are not 0")
+        bad = [k for k, (_, ok) in rule.items() if not ok]
+        check(not bad, f"{label}: {bad} outside the rule")
+        return float((flat - ref).abs().max()), max(v for v, _ in rule.values())
+
+    # Phase 10: each soft kernel mode against the plain version, every tau of
+    # the anneal, two runs bit-identical.
+    for name, res in SOFT_PARITY:
+        scene = soft_scene(name)
+        cam = rt.default_camera(res, device=dev)
+        target = seeded(torch, (*res, 3), dev, 1)
+        for tau in SOFT_TAUS:
+            img = rt.render_image_soft_cuda(cam, scene, tau=tau)
+            again = rt.render_image_soft_cuda(cam, scene, tau=tau)
+            torch.cuda.synchronize()
+            check(torch.equal(img, again), f"soft_fwd {name} tau={tau}: two runs differ")
+            _, plain = held_image(f"{name} {res[0]}x{res[1]}, 2 runs bit-identical", img,
+                                  cam, scene, tau)
+            cot = (2.0 * (plain - target) / plain.numel()).contiguous()
+            for mode, x in (("cot", cot), ("fused", target)):
+                a = kernel_flat(mode, cam, scene, x, tau)
+                b = kernel_flat(mode, cam, scene, x, tau)
+                torch.cuda.synchronize()
+                check(torch.equal(a, b), f"soft {mode} {name} tau={tau}: two runs differ")
+                held(f"{mode:5s} {name} {res[0]}x{res[1]} tau={tau}, 2 runs bit-identical",
+                     mode, cam, scene, x, tau, a)
+
+    # Phase 11: the soft path through its entry points at full width. Every
+    # count is set to 0 just before a path and read just after.
+    os.makedirs(OUT_DIR, exist_ok=True)
+    main_launches = {"soft_fwd": 0, "cot": 0, "fused": 0}
+
+    def drive(label, fn, expect):
+        sb.reset_launch_counts()
+        soft_cuda.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {"soft_fwd": soft_cuda.LAUNCHES["soft_fwd"], **sb.LAUNCHES}
+        plain = {**soft_cuda.PLAIN_CALLS, **sb.PLAIN_CALLS}
+        print(f"[soft-main] {label}: launches {got}, plain calls {plain}")
+        check(got == {k: expect.get(k, 0) for k in got}, f"{label}: launches {got}, "
+              f"expected {expect}")
+        check(not any(plain.values()), f"{label}: the plain version ran")
+        for k in main_launches:
+            main_launches[k] += got[k]
+        return out
+
+    def cli_fit():
+        png = os.path.join(OUT_DIR, "fit_soft.png")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["fit", "--mode", "soft", "--backend", "cuda", "--out", png])
+        print(buf.getvalue(), end="")
+        check(rc == 0, "cli fit --mode soft failed")
+        check(read_png(png)[:2] == FIT_RES, f"{png}: not {FIT_RES}")
+        return buf.getvalue()
+
+    t0 = time.perf_counter()
+    text = drive("cli fit --mode soft --backend cuda (1000x1000, 150 steps, taus "
+                 "0.15/0.05/0.02)", cli_fit, {"soft_fwd": len(SOFT_TAUS),
+                                              "fused": SOFT_FIT_STEPS})
+    fit_s = time.perf_counter() - t0
+    # the logger's line per stage: "[fit] step N: tau=.. first_loss=.. loss=.."
+    stages = [(float(ln.split("first_loss=")[1].split()[0]),
+               float(ln.split(" loss=")[1].split()[0]))
+              for ln in text.splitlines() if ln.startswith("[fit] step") and "tau=" in ln]
+    check(len(stages) == len(SOFT_TAUS), f"soft fit: stage lines {stages}")
+    line = next(ln for ln in text.splitlines() if ln.startswith("loss: "))
+    median = float(line.split("median ")[1].split()[0])
+    shift = float(torch.tensor(cli.FIT_SHIFT).norm())
+    print(f"[soft-main] cli fit --mode soft: stage losses (first, last) {stages}; median "
+          f"center error {shift:.4f} -> {median}; {fit_s:.1f} s with the PNG")
+    check(all(b < a for a, b in stages), f"soft fit: a stage's loss did not fall {stages}")
+    check(median < shift, f"soft fit: median center error {median}")
+
+    # The fit's targets (one soft_fwd launch a stage; tau 0.05 is also `render
+    # --soft 0.05`'s frame) against the plain version at full size.
+    cfg_scene = soft_scene("demo")
+    cam = rt.default_camera(FIT_RES, device=dev)
+    errs = {"soft_fwd": [held_image("cli fit's target 1000x1000", rt.render_image_soft_cuda(
+        cam, cfg_scene, tau=tau), cam, cfg_scene, tau)[0] for tau in SOFT_TAUS]}
+
+    # Step 0 of that fit against its plain version at full size: its memory
+    # reckoned from the plain step's peak at 128x128 in 8 blocks.
+    init = rt.Scene.from_leaves(cfg_scene.leaves())
+    init.spheres = rt.Spheres(cfg_scene.spheres.center + torch.tensor(cli.FIT_SHIFT,
+                                                                      device=dev),
+                              cfg_scene.spheres.radius, cfg_scene.spheres.albedo)
+    small = rt.default_camera((128, 128), device=dev)
+    t_small = rt.render_image_soft_cuda(small, cfg_scene, tau=SOFT_TAUS[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    sb.soft_loss_and_grads_plain(small, init, t_small, tau=SOFT_TAUS[0], row_chunk=16)
+    per_col = (torch.cuda.max_memory_allocated() - base) / 16 * FIT_RES[1] / 128
+    full_chunk = max(1, int(SOFT_PLAIN_BUDGET / (2 * per_col)))
+    print(f"[soft-mem] plain soft step: {per_col / 1e6:.1f} MB a column at 1000 rows "
+          f"(reckoned from 128x128); blocks of {full_chunk} columns at 1000x1000, "
+          f"float64 included, stay under {SOFT_PLAIN_BUDGET / 1e9:.0f} GB")
+    target = rt.render_image_soft_cuda(cam, cfg_scene, tau=SOFT_TAUS[0])
+    step0 = kernel_flat("fused", cam, init, target, SOFT_TAUS[0])
+    check(abs(float(step0[-1]) - stages[0][0]) <= 1e-5 * stages[0][0],
+          f"cli fit's step-0 loss {stages[0][0]} differs from the kernel's {float(step0[-1])}")
+    errs["fused"] = [held("fused step 0 of cli fit --mode soft, 1000x1000 tau=0.15", "fused",
+                          cam, init, target, SOFT_TAUS[0], step0, full_chunk)]
+
+    png = os.path.join(OUT_DIR, "render_soft.png")
+    drive("cli render --soft 0.05 --backend cuda (1000x1000)",
+          lambda: check(cli.main(["render", "--soft", "0.05", "--backend", "cuda",
+                                  "--out", png]) == 0, "cli render --soft failed"),
+          {"soft_fwd": 7})
+    w, h, px = read_png(png)
+    check((w, h) == FIT_RES, f"{png}: {w}x{h}")
+    frame = framebuffer_to_array(rt.to_framebuffer(rt.render_image_soft_cuda(
+        cam, soft_scene("demo"), tau=0.05)))
+    check(np.array_equal(px, frame), f"{png}: pixels differ from the kernel's frame")
+    print(f"[soft-main] {os.path.relpath(png, ROOT)} {w}x{h} decodes to the kernel's frame")
+
+    def fast_backward():
+        """The MSE's scene and camera gradient through render_image_soft_fast,
+        and the image cotangent its backward received."""
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in init.leaves() + [cam.position, cam.rotation, cam.fov]]
+        img = rt.render_image_soft_fast(rt.Camera(*leaves[12:], cam.resolution),
+                                        rt.Scene.from_leaves(leaves[:12]), tau=0.05)
+        seen = []
+        img.register_hook(seen.append)
+        torch.mean((img - target) ** 2).backward()
+        grads = [t.grad if t.grad is not None else torch.zeros_like(t) for t in leaves]
+        return rb.flatten_grads(rt.Scene.from_leaves(grads[:12]),
+                                rt.Camera(*grads[12:], cam.resolution)), seen[0]
+    g, cot = drive("render_image_soft_fast backward (1000x1000)", fast_backward,
+                   {"soft_fwd": 1, "cot": 1})
+    check(bool(g[:3].abs().max() > 0), "render_image_soft_fast: no sphere-center gradient")
+    errs["cot"] = [held("cot   render_image_soft_fast's backward, 1000x1000 tau=0.05", "cot",
+                        cam, init, cot.contiguous(), 0.05, g, full_chunk)]
+
+    # The mirror bounce has no kernel in either package: counted plain calls.
+    sb.reset_launch_counts()
+    soft_cuda.reset_launch_counts()
+    _, bl = train.fit_scene_soft(init, rt.default_camera((64, 64), device=dev), cfg_scene,
+                                 steps=3, backend="cuda", bounce_depth=1)
+    torch.cuda.synchronize()
+    print(f"[soft-main] fit_scene_soft(bounce_depth=1, backend='cuda') 64x64, 3 steps: "
+          f"plain calls {dict(soft_cuda.PLAIN_CALLS)} (3 targets + 3 steps through the "
+          f"plain version, as stated: no kernel covers the bounce), kernel launches "
+          f"{dict(soft_cuda.LAUNCHES)} {dict(sb.LAUNCHES)}, losses {bl}")
+    check(soft_cuda.PLAIN_CALLS["render_image_soft"] == 6 and
+          not any(sb.LAUNCHES.values()) and soft_cuda.LAUNCHES["soft_fwd"] == 0,
+          "bounce fit: unexpected kernel launches or plain-call counts")
+    print(f"[soft-main] soft launches over the main paths: {main_launches}")
+    check(all(v > 0 for v in main_launches.values()), f"launches {main_launches}")
+
+    # Phase 12: times with CUDA events; bounds from utils/timing (the work the
+    # function needs for these inputs).
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    times = {}
+    for name, res in SOFT_TIMES:
+        scene = soft_scene(name)
+        sc = init if name == "demo" else scene
+        W, H = res
+        camr = rt.default_camera(res, device=dev)
+        tgt = rt.render_image_soft_cuda(camr, scene, tau=0.05)
+        cnt = counts(sc)
+        params = render_cuda.pack_params(camr, sc, compat=False).to(dev)
+        tables = render_cuda.scene_tables(sc)
+        img = torch.empty((W, H, 3), device=dev)
+        n = rb.n_grads(*cnt, True)
+        out = torch.empty(n, device=dev)
+        rows_n = sb.n_blocks(W, H)
+        partial = torch.empty(n * rows_n, device=dev)
+        cot = (2.0 * (rt.render_image_soft_cuda(camr, sc, tau=0.05) - tgt) /
+               tgt.numel()).contiguous()
+        reps = 10 if name == "demo" else 3
+
+        def reduce_only():
+            check(lib.rt_reduce_rows(partial.data_ptr(), rows_n, n, out.data_ptr(),
+                                     stream) == 0, "reduction launch failed")
+            return out
+        t = {
+            "fwd_kernel": rt.time_fn(soft_cuda.launch, img, params, tables, cnt, tau=0.05,
+                                     warmup=2, iters=2 * reps),
+            "fwd_wrapper": rt.time_fn(rt.render_image_soft_cuda, camr, sc, tau=0.05,
+                                      warmup=2, iters=2 * reps),
+            "fused_kernel": rt.time_fn(sb.launch, out, partial, params, tables, cnt,
+                                       image=tgt, W=W, H=H, tau=0.05, mode="fused",
+                                       warmup=1, iters=reps),
+            "cot_kernel": rt.time_fn(sb.launch, out[:-1], partial[:-rows_n], params, tables,
+                                     cnt, image=cot, W=W, H=H, tau=0.05, mode="cot",
+                                     warmup=1, iters=reps),
+            "reduce": rt.time_fn(reduce_only, warmup=2, iters=50),
+            "cot_wrapper": rt.time_fn(sb.soft_scene_grads_cuda, camr, sc, cot, tau=0.05,
+                                      warmup=1, iters=reps),
+        }
+        sc_step = rt.Scene.from_leaves([s.clone() for s in sc.leaves()])
+        step = train.make_train_step(sc_step, train.soft_value_and_grad(
+            camr, tgt, tau=0.05, backend="cuda"), lr=1e-2, trainable=("spheres.center",))
+        t["step"] = rt.time_fn(step, warmup=1, iters=reps)
+        pchunk = row_chunk_for(res, sc, SOFT_BLOCK_BYTES)   # the plain version, same size
+        t["plain_fwd"] = rt.time_fn(rt.render_image_soft, camr, sc, tau=0.05,
+                                    row_chunk=pchunk, warmup=1, iters=1)
+        t["plain_step"] = rt.time_fn(sb.soft_loss_and_grads_plain, camr, sc, tgt, tau=0.05,
+                                     row_chunk=pchunk, warmup=1, iters=1)
+        t["plain_cot"] = rt.time_fn(sb.soft_scene_grads_plain, camr, sc, cot, tau=0.05,
+                                    row_chunk=pchunk, warmup=1, iters=1)
+        t = {k: 1e3 * v for k, v in t.items()}
+        live = timing.soft_live_counts(camr, sc, 0.05)
+        for kind in ("fwd", "fused", "cot"):
+            t[f"{kind}_bound"] = timing.bound_ms(*timing.soft_work(camr, sc, 0.05, kind, live))
+        times[name] = t
+        print(f"[soft-time] {name} {W}x{H} tau=0.05: soft_fwd kernel alone "
+              f"{t['fwd_kernel']:.4f} ms (bound {t['fwd_bound'][0]:.4f} ms, "
+              f"{t['fwd_bound'][1]}), wrapper {t['fwd_wrapper']:.4f} ms; fused soft "
+              f"backward kernel alone {t['fused_kernel']:.4f} ms (bound "
+              f"{t['fused_bound'][0]:.4f} ms; reduction alone {t['reduce']:.4f} ms), "
+              f"fit_scene_soft step {t['step']:.4f} ms; cotangent kernel alone "
+              f"{t['cot_kernel']:.4f} ms (bound {t['cot_bound'][0]:.4f} ms), wrapper "
+              f"{t['cot_wrapper']:.4f} ms; plain forward {t['plain_fwd']:.4f} ms, plain "
+              f"fused step {t['plain_step']:.4f} ms, plain VJP {t['plain_cot']:.4f} ms at "
+              f"{W}x{H} | {card}")
+        print(f"[soft-bound] {name} {W}x{H} tau=0.05, live terms a pixel: "
+              + " ".join(f"{k}={v / live['px']:.4f}" for k, v in live.items() if k != "px"))
+
+    t = times["demo"]
+
+    def entry(name, source, replaces, kind, launches, err, err_at, ms, kernel_ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max(a for a, _ in err),
+                "max_rel_err": max(r for _, r in err), "err_at": err_at, "ms": ms,
+                "kernel_only_ms": kernel_ms, "plain_ms": plain_ms,
+                "bound_ms": t[f"{kind}_bound"][0], "bound_by": t[f"{kind}_bound"][1],
+                "library_ms": None, "shape": "1000x1000_demo_tau0.05",
+                "plain_shape": "1000x1000"}
+    return [
+        entry("soft_fwd", SOFT_FWD_SOURCE, SOFT_FWD_REPLACES, "fwd",
+              main_launches["soft_fwd"], errs["soft_fwd"],
+              "1000x1000 demo, the fit's targets at tau 0.15/0.05/0.02", t["fwd_wrapper"],
+              t["fwd_kernel"], t["plain_fwd"]),
+        entry("soft_bwd_fused", SOFT_BWD_SOURCE, SOFT_BWD_REPLACES, "fused",
+              main_launches["fused"], errs["fused"],
+              "1000x1000 demo, step 0 of cli fit --mode soft (tau 0.15)", t["step"],
+              t["fused_kernel"], t["plain_step"]),
+        entry("soft_bwd_cotangent", SOFT_BWD_SOURCE, SOFT_BWD_REPLACES, "cot",
+              main_launches["cot"], errs["cot"],
+              "1000x1000 demo, render_image_soft_fast's backward (tau 0.05)",
+              t["cot_wrapper"], t["cot_kernel"], t["plain_cot"]),
+    ]
 
 
 def main() -> int:
@@ -408,6 +777,7 @@ def main() -> int:
     import python_ray_tracer_tpu_torch as rt
     from python_ray_tracer_tpu_torch import cli
     from python_ray_tracer_tpu_torch.ops.cuda import _build, render_cuda
+    from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
 
     # Phase 1: the card.
@@ -519,8 +889,7 @@ def main() -> int:
         # kernel alone: launches back to back on inputs packed once
         packed = (torch.empty((w, h, 3), device=dev),
                   render_cuda.pack_params(cam, scene, True).to(dev),
-                  render_cuda.scene_tables(scene),
-                  (scene.spheres.count, scene.planes.count, scene.lights.count))
+                  render_cuda.scene_tables(scene), counts(scene))
         kernel_ms = 1e3 * rt.time_fn(
             render_cuda.launch, *packed, depth=2, mode=mode, compat=True,
             cheap_shadow=render_cuda.shadow_cheap_ok(scene, True), warmup=2, iters=50)
@@ -535,13 +904,19 @@ def main() -> int:
     kernels = []
     for mode, label in (("aa_none", "1920x1080_noaa"), ("aa_shared", "1000x1000_aa")):
         r = rows[label]
+        w, h = (int(v) for v in label.split("_")[0].split("x"))
+        bound, bound_by = timing.bound_ms(*timing.hard_work(w, h, *counts(scene), mode))
+        print(f"[bound] render_fwd_{mode} {label}: {bound:.4f} ms ({bound_by}, a lower "
+              f"bound: the primary sweep only) vs kernel alone {r['kernel_ms']:.4f} ms")
         kernels.append({
             "name": f"render_fwd_{mode}", "route": "cuda",
             "source": "python_ray_tracer_tpu_torch/csrc/render_fwd.cu",
             "replaces": REPLACES[mode], "launches": launches[mode],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "kernel_only_ms": r["kernel_ms"], "shape": label})
+            "kernel_only_ms": r["kernel_ms"], "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": None, "shape": label})
     kernels += backward_phases(torch, rt, card, dev)
+    kernels += soft_phases(torch, rt, card, dev)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

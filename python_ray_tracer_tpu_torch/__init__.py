@@ -8,7 +8,9 @@ ctypes (``ops/cuda``). This package imports torch and numpy, never jax.
 
 The backward kernel (``csrc/render_bwd.cu``) gives scene and camera gradients;
 ``render_image_fast`` is the differentiable render, and ``train`` fits scenes
-and cameras with it.
+and cameras with it. The soft-visibility renderer (``ops/soft.py``) has its
+forward and backward kernels (``csrc/soft_fwd.cu``, ``csrc/soft_bwd.cu``),
+``render_image_soft_fast`` and ``train.fit_scene_soft``.
 
 Entry point: ``python -m python_ray_tracer_tpu_torch.cli render|fit``.
 """
@@ -23,7 +25,10 @@ from .ops.cuda.render_cuda import (render_image_cuda, render_image_fast, pack_pa
                                    shadow_cheap_ok)
 from .ops.cuda.render_bwd_cuda import (grad_layout, scene_grads_cuda,
                                        loss_and_scene_grads_cuda)
-from .train import fit_scene, fit_camera
+from .ops.soft import render_image_soft, render_rays_soft
+from .ops.cuda.soft_cuda import render_image_soft_cuda, render_image_soft_fast
+from .ops.cuda.soft_bwd_cuda import soft_scene_grads_cuda, soft_loss_and_grads_cuda
+from .train import fit_scene, fit_scene_soft, fit_camera
 from .utils.config import RenderConfig, resolve_backend
 from .utils.metrics import MetricsLogger
 from .utils.image import save_png, framebuffer_to_array
@@ -38,7 +43,10 @@ __all__ = [
     "sample", "trace_once", "reflect", "intersect_spheres", "intersect_planes",
     "closest_hit", "any_hit", "render_image_cuda", "render_image_fast",
     "pack_params", "shadow_cheap_ok", "grad_layout", "scene_grads_cuda",
-    "loss_and_scene_grads_cuda", "fit_scene", "fit_camera", "MetricsLogger",
+    "loss_and_scene_grads_cuda", "render_image_soft", "render_rays_soft",
+    "render_image_soft_cuda", "render_image_soft_fast", "soft_scene_grads_cuda",
+    "soft_loss_and_grads_cuda", "fit_scene", "fit_scene_soft", "fit_camera",
+    "MetricsLogger",
     "RenderConfig", "resolve_backend", "save_png",
     "framebuffer_to_array", "time_fn", "rays_per_image",
     "RED", "GREEN", "BLUE", "YELLOW", "GREY", "MAGENTA",

@@ -3,29 +3,37 @@ render|fit``.
 
 ``render`` reproduces the reference main.py flow (main.py:8-55): build the demo
 scene, render at the reference's settings (1000x1000, amb=0, lamb=0.6,
-refl=0.3, depth=2, AA on), print a synchronised time, save a PNG. ``fit`` is
-the inverse-rendering demo of ``python_ray_tracer_tpu.cli fit``: ``--mode
-hard`` recovers perturbed sphere centers, ``--mode camera`` a perturbed camera
-pose. ``--backend cuda`` runs the hand-written CUDA kernels, ``--backend
-torch`` the plain PyTorch version.
+refl=0.3, depth=2, AA on), print a synchronised time, save a PNG; ``--soft TAU``
+renders with the soft-visibility renderer instead. ``fit`` is the
+inverse-rendering demo of ``python_ray_tracer_tpu.cli fit``: ``--mode soft``
+(the default) recovers the perturbed sphere centers of the demo scene through
+the soft renderer with tau annealing, ``--mode hard`` those of a well-separated
+2-sphere scene through the hard renderer, ``--mode camera`` a perturbed camera
+pose. ``--backend cuda`` (the default) runs the hand-written CUDA kernels on
+the card and raises without one; ``--backend torch`` is the explicit request
+for the plain PyTorch version on the CPU.
 """
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import torch
 
 from . import train
 from .models.camera import Camera
 from .models.scene import (BLUE, GREY, RED, Lights, Materials, Planes, Scene,
-                           Spheres, default_scene)
+                           Spheres, default_scene, random_scene)
 from .ops.cuda.render_cuda import render_image_cuda
+from .ops.cuda.soft_cuda import render_image_soft_cuda, render_image_soft_plain
 from .ops.render import render_image, to_framebuffer
 from .utils.config import BACKENDS, RenderConfig, resolve_backend
 from .utils.image import save_png
 from .utils.metrics import MetricsLogger
 from .utils.timing import rays_per_image, time_fn
+
+FIT_SHIFT = (0.2, -0.15, 0.1)   # the fit demos' sphere-center perturbation
 
 
 def _add_render_args(p: argparse.ArgumentParser) -> None:
@@ -41,7 +49,14 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--clean", action="store_true",
                    help="disable reference-quirk compat mode")
     p.add_argument("--backend", choices=BACKENDS, default=d.backend,
-                   help="auto = cuda when a card is visible, else torch")
+                   help="cuda (default): the CUDA kernels on the card, an error "
+                        "without one; torch: the plain PyTorch version on the CPU")
+    p.add_argument("--soft", type=float, default=0.0, metavar="TAU",
+                   help="render with the soft-visibility renderer at this tau")
+    p.add_argument("--spheres", type=int, default=0,
+                   help="random N-sphere scene instead of the demo scene (drawn "
+                        "from a seeded torch.Generator: not the JAX package's "
+                        "jax.random scene of the same N)")
     p.add_argument("--out", type=str, default="output/render.png")
 
 
@@ -50,16 +65,24 @@ def _build(args):
                        lambert=args.lambert, reflection=args.reflection,
                        depth=args.depth, aliasing=not args.no_aliasing, fov=args.fov,
                        compat=not args.clean, backend=resolve_backend(args.backend))
-    device = "cuda" if torch.cuda.is_available() else "cpu"
+    device = "cuda" if cfg.backend == "cuda" else "cpu"
     mats = Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, cfg.specular,
                            cfg.shininess, device=device)
-    scene = default_scene(mats, device=device)
+    if args.spheres > 0:
+        scene = random_scene(args.spheres, materials=mats,
+                             generator=torch.Generator().manual_seed(0), device=device)
+    else:
+        scene = default_scene(mats, device=device)
     cam = Camera.build((cfg.width, cfg.height), cfg.camera_position,
                        cfg.camera_euler, cfg.fov, device=device)
     return cfg, scene, cam
 
 
-def _render_fn(cfg: RenderConfig):
+def _render_fn(cfg: RenderConfig, soft_tau: float = 0.0):
+    if soft_tau > 0.0:
+        if cfg.backend == "cuda":
+            return lambda cam, scene: render_image_soft_cuda(cam, scene, tau=soft_tau)
+        return lambda cam, scene: render_image_soft_plain(cam, scene, tau=soft_tau)
     kw = dict(depth=cfg.depth, aliasing=cfg.aliasing, compat=cfg.compat)
     if cfg.backend == "cuda":
         return lambda cam, scene: render_image_cuda(cam, scene, **kw)
@@ -68,14 +91,15 @@ def _render_fn(cfg: RenderConfig):
 
 def cmd_render(args) -> int:
     cfg, scene, cam = _build(args)
-    fn = _render_fn(cfg)
+    fn = _render_fn(cfg, args.soft)
     secs = time_fn(fn, cam, scene, warmup=1, iters=5)
     img = fn(cam, scene)
     n_rays = rays_per_image(cfg.width, cfg.height, depth=cfg.depth,
                             aliasing=cfg.aliasing, n_lights=scene.lights.count)
+    soft = f", soft tau={args.soft:g}" if args.soft > 0.0 else ""
     print(f"time: {secs * 1000:,.3f} ms  "
           f"({n_rays / secs / 1e6:,.1f} Mrays/s, {cfg.width}x{cfg.height}, "
-          f"backend={cfg.backend}, device={cam.device})")
+          f"backend={cfg.backend}, device={cam.device}{soft})")
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     save_png(to_framebuffer(img), args.out)
     print(f"saved {args.out}")
@@ -101,13 +125,20 @@ def fit_scene_two_spheres(cfg: RenderConfig, device) -> Scene:
 
 
 def cmd_fit(args) -> int:
-    """Inverse-render demo on the 2-sphere scene. ``--mode hard`` shifts the
-    sphere centers by (0.2, -0.15, 0.1) and recovers them by pixel-gradient
-    descent; ``--mode camera`` fixes the scene and recovers a perturbed camera
-    pose. Target and fit render without AA, as in the JAX CLI."""
-    cfg, _, cam = _build(args)
+    """Inverse-render demo. ``--mode soft`` (default) shifts every sphere
+    center of the demo scene (or ``--spheres N``) by (0.2, -0.15, 0.1) and
+    recovers them through the soft renderer with tau annealed 0.15 -> 0.05 ->
+    0.02 (``train.fit_scene_soft``); ``--mode hard`` does the same through the
+    hard renderer on the well-separated 2-sphere scene (or ``--spheres N``);
+    ``--mode camera`` fixes that scene and recovers a perturbed camera pose.
+    Hard targets and every fitted PNG render without AA, as in the JAX CLI."""
+    cfg, scene, cam = _build(args)
     device = cam.device
-    scene = fit_scene_two_spheres(cfg, device)
+    if args.mode in ("hard", "camera") and args.spheres <= 0:
+        print(f"[fit] --mode {args.mode}: using the built-in 2-sphere well-separated "
+              f"scene (hard-visibility gradients mislead on the crowded demo scene); "
+              f"pass --spheres N to fit a scene of your own", file=sys.stderr)
+        scene = fit_scene_two_spheres(cfg, device)
 
     def render(c, s):
         kw = dict(depth=cfg.depth, aliasing=False, compat=cfg.compat)
@@ -115,9 +146,9 @@ def cmd_fit(args) -> int:
             return render_image_cuda(c, s, **kw)
         return render_image(c, s, **kw)
 
-    target = render(cam, scene)
     logger = MetricsLogger("fit")
     if args.mode == "camera":
+        target = render(cam, scene)
         init_cam = Camera.build(cam.resolution,
                                 cam.position.cpu().numpy() + [0.1, -0.08, 0.08],
                                 [1.5, -27.5, 2.0], float(cam.fov), device=device)
@@ -132,12 +163,23 @@ def cmd_fit(args) -> int:
     else:
         init = Scene.from_leaves(scene.leaves())
         init.spheres = Spheres(
-            scene.spheres.center + torch.tensor([0.2, -0.15, 0.1], device=device),
+            scene.spheres.center + torch.tensor(FIT_SHIFT, device=device),
             scene.spheres.radius, scene.spheres.albedo)
-        fitted, losses = train.fit_scene(init, cam, target, steps=args.steps, lr=args.lr,
-                                         depth=cfg.depth, compat=cfg.compat,
-                                         logger=logger, trainable=("spheres.center",),
-                                         backend=cfg.backend)
+        if args.mode == "soft":
+            if args.bounce_depth and cfg.backend == "cuda":
+                print("[fit] --bounce-depth 1: no kernel covers the mirror bounce (in "
+                      "either package), so targets and steps run the plain PyTorch "
+                      "version on the card")
+            fitted, losses = train.fit_scene_soft(init, cam, scene, steps=args.steps,
+                                                  lr=args.lr, logger=logger,
+                                                  backend=cfg.backend,
+                                                  bounce_depth=args.bounce_depth)
+        else:
+            fitted, losses = train.fit_scene(init, cam, render(cam, scene),
+                                             steps=args.steps, lr=args.lr,
+                                             depth=cfg.depth, compat=cfg.compat,
+                                             logger=logger, trainable=("spheres.center",),
+                                             backend=cfg.backend)
         errs = torch.linalg.norm(fitted.spheres.center - scene.spheres.center, dim=1)
         err0 = float((init.spheres.center - scene.spheres.center).abs().max())
         print(f"loss: {_loss_span(losses)}  "
@@ -161,10 +203,13 @@ def main(argv=None) -> int:
     pf.set_defaults(out="output/fit.png")   # don't clobber render's default PNG
     pf.add_argument("--steps", type=int, default=150)
     pf.add_argument("--lr", type=float, default=1e-2)
-    pf.add_argument("--mode", choices=["hard", "camera"], default="hard",
-                    help="hard: recover sphere centers; camera: recover the camera "
-                         "pose. The default is hard until the soft-visibility "
-                         "renderer is ported (the JAX CLI's default is soft)")
+    pf.add_argument("--mode", choices=["soft", "hard", "camera"], default="soft",
+                    help="soft (default): recover sphere centers through the soft "
+                         "renderer; hard: through the hard renderer; camera: "
+                         "recover the camera pose")
+    pf.add_argument("--bounce-depth", type=int, default=0, choices=[0, 1],
+                    help="soft mode: add a depth-1 mirror bounce (makes reflection "
+                         "trainable; renders through the plain PyTorch version)")
     args = ap.parse_args(argv)
     if args.cmd == "fit":
         return cmd_fit(args)

@@ -68,22 +68,8 @@ constexpr int BX = 16;                       // threads along y
 constexpr int BY = 8;                        // threads along x
 constexpr int NT = BX * BY;
 constexpr int NWARPS = NT / 32;
-constexpr unsigned FULL = 0xffffffffu;
 constexpr float DEN_EPS = 1e-6f;             // grazing-hit clamp, render_bwd.py:60
 constexpr int RED_THREADS = 256;             // reduce_rows block size
-
-// Slot offsets of grad_layout(ns, npl, nl).
-struct Slots {
-  int pln, lts, mat, cam, loss, n;
-  __device__ Slots(int ns, int npl, int nl, bool fused) {
-    pln = 7 * ns;
-    lts = pln + 9 * npl;
-    mat = lts + 3 * nl;          // amb, lamb, refl, spec, shin
-    cam = mat + 5;               // pos 3, rot 9, fov
-    loss = cam + 13;
-    n = loss + (fused ? 1 : 0);
-  }
-};
 
 // What one trace keeps for the reverse sweep.
 struct Res {
@@ -91,18 +77,6 @@ struct Res {
   int obj;         // hit object, -1 on a miss
   unsigned occ;    // bit l: light l (< 32) occluded
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// row[slot] += the warp's sum of v. Every lane of the warp must call it.
-__device__ __forceinline__ void acc(float* row, int slot, float v, int lane) {
-  v = warp_sum(v);
-  if (lane == 0) row[slot] += v;
-}
 
 // row[base + c] += v[c], summed over the lanes that share `base` (base < 0:
 // nothing to add). Lanes hit different objects, so the warp reduces one
@@ -121,16 +95,6 @@ __device__ __forceinline__ void acc_obj(float* row, int base, const float (&v)[N
     }
     pending &= ~__ballot_sync(FULL, mine);
   }
-}
-
-// Adjoint of u = v * rn, rn = 1/|v| (render_bwd.py:70): vbar = rn (ubar -
-// u (u . ubar)), written into b.
-__device__ __forceinline__ void norm_adj(float ux, float uy, float uz, float rn,
-                                         float& bx, float& by, float& bz) {
-  const float dot = ux * bx + uy * by + uz * bz;
-  bx = rn * (bx - ux * dot);
-  by = rn * (by - uy * dot);
-  bz = rn * (bz - uz * dot);
 }
 
 // Unit direction from the biased hit point to light l, and its reciprocal
@@ -498,14 +462,7 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
 
   // The block's partial: its warps' rows summed in warp order.
   __syncthreads();
-  const size_t n_blocks = static_cast<size_t>(gridDim.x) * gridDim.y * gridDim.z;
-  const size_t block = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
-                           gridDim.x + blockIdx.x;
-  for (int k = tid; k < sl.n; k += NT) {
-    float v = 0.0f;
-    for (int wp = 0; wp < NWARPS; ++wp) v += s_acc[wp * sl.n + k];
-    partial[static_cast<size_t>(k) * n_blocks + block] = v;
-  }
+  write_block_partial(s_acc, NWARPS, sl.n, partial, tid, NT);
 }
 
 // Second stage: out[k] = sum over rows of partial[k * n_rows + row], each

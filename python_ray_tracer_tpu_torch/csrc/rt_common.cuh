@@ -16,8 +16,10 @@
 //   sample_chain      <- _sample_chain      (:1310)
 // The backward kernel (render_bwd.cu) includes this header and recomputes its
 // forward chain through these same functions, so its hit, shadow and bounce
-// decisions are the render kernel's own; later kernels (soft, worklist) will
-// include it too, so that the intersection math exists once.
+// decisions are the render kernel's own. The soft kernels include it through
+// soft_common.cuh. The adjoint helpers at the end (norm_adj, the warp
+// reductions and the per-block partial column) are shared by both backward
+// kernels.
 //
 // Semantics kept from the reference (compat mode): hits count only for
 // 0 < t < 999 (t starts at FAR and the winner test is a strict `<`, so the far
@@ -39,8 +41,9 @@ constexpr float BIG = 1e30f;    // "no hit" distance in clean mode
 constexpr float BIAS = 2e-4f;   // shadow/mirror acne offset, trace.py:82
 
 // Parameter vector layout (render_cuda.py P_*; render_pallas.py _P_*). P_X0,
-// the x offset of a ray-parallel slice, is packed as 0 and not read: the port
-// renders whole frames.
+// the x offset of a ray-parallel slice, is packed as 0: the port renders whole
+// frames. The soft kernels add it to the pixel's x (as the TPU soft backward
+// does), so a sharded caller needs no kernel change.
 enum : int {
   P_ORIGIN = 0, P_ROT = 3, P_FOCAL = 12, P_Y0 = 13, P_DY = 14, P_Z0 = 15,
   P_DZ = 16, P_AMB = 17, P_LAMB = 18, P_REFL = 19, P_SPEC = 20, P_SHIN = 21,
@@ -356,6 +359,63 @@ __device__ __forceinline__ Rgb sample_chain(const SceneView& s, float px,
     b = b + w * t.b;
   }
   return {r, g, b};
+}
+
+// --- adjoint helpers shared by the backward kernels ------------------------------
+
+constexpr unsigned FULL = 0xffffffffu;
+
+// Slot offsets of the flat gradient vector, grad_layout(ns, npl, nl):
+// [spheres 7 ns (cx cy cz r ar ag ab), planes 9 npl (ox oy oz nx ny nz ar ag
+// ab), lights 3 nl, amb, lamb, refl, spec, shin, cam_pos 3, rot 9, fov] and a
+// trailing loss slot in the fused modes.
+struct Slots {
+  int pln, lts, mat, cam, loss, n;
+  __device__ Slots(int ns, int npl, int nl, bool fused) {
+    pln = 7 * ns;
+    lts = pln + 9 * npl;
+    mat = lts + 3 * nl;          // amb, lamb, refl, spec, shin
+    cam = mat + 5;               // pos 3, rot 9, fov
+    loss = cam + 13;
+    n = loss + (fused ? 1 : 0);
+  }
+};
+
+// Adjoint of u = v * rn, rn = 1/|v| (render_bwd.py:70): vbar = rn (ubar -
+// u (u . ubar)), written into b.
+__device__ __forceinline__ void norm_adj(float ux, float uy, float uz, float rn,
+                                         float& bx, float& by, float& bz) {
+  const float dot = ux * bx + uy * by + uz * bz;
+  bx = rn * (bx - ux * dot);
+  by = rn * (by - uy * dot);
+  bz = rn * (bz - uz * dot);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// row[slot] += the warp's sum of v. Every lane of the warp must call it.
+__device__ __forceinline__ void acc(float* row, int slot, float v, int lane) {
+  v = warp_sum(v);
+  if (lane == 0) row[slot] += v;
+}
+
+// The block's partial sums: its `nwarps` accumulator rows of `n` slots
+// (s_acc[w * n + k]) summed in warp order into column `block` of partial
+// (partial[k * n_blocks + block]). Call after a __syncthreads().
+__device__ __forceinline__ void write_block_partial(const float* s_acc, int nwarps, int n,
+                                                    float* partial, int tid, int nt) {
+  const size_t n_blocks = static_cast<size_t>(gridDim.x) * gridDim.y * gridDim.z;
+  const size_t block = (static_cast<size_t>(blockIdx.z) * gridDim.y + blockIdx.y) *
+                           gridDim.x + blockIdx.x;
+  for (int k = tid; k < n; k += nt) {
+    float v = 0.0f;
+    for (int wp = 0; wp < nwarps; ++wp) v += s_acc[wp * n + k];
+    partial[static_cast<size_t>(k) * n_blocks + block] = v;
+  }
 }
 
 }  // namespace rt

@@ -116,6 +116,12 @@ def load_library() -> ctypes.CDLL:
                                           vp]
             lib.rt_reduce_rows.restype = ci
             lib.rt_reduce_rows.argtypes = [vp, ci, ci, vp, vp]
+            cf = ctypes.c_float
+            lib.rt_soft_fwd.restype = ci
+            lib.rt_soft_fwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, vp]
+            lib.rt_soft_bwd.restype = ci
+            lib.rt_soft_bwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, cf, vp, vp, ci, ci,
+                                        ci, ci, ci, vp]
             lib.rt_error_string.restype = ctypes.c_char_p
             lib.rt_error_string.argtypes = [ci]
             _lib = lib

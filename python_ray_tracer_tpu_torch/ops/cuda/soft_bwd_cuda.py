@@ -1,0 +1,215 @@
+"""Scene and camera gradients of the soft render through the hand-written CUDA
+backward kernel (``csrc/soft_bwd.cu``).
+
+Counterpart of ``python_ray_tracer_tpu/ops/pallas/soft_bwd.py``. The kernel
+recomputes each pixel's soft forward pass, reverse-sweeps it with hand-derived
+adjoints (the sigmoid-cancelling identities: no division by ``1 - alpha``), and
+reduces the adjoints into the flat gradient vector of
+``render_bwd_cuda.grad_layout``; ``rt_reduce_rows`` sums the per-block partials
+in a fixed order, so two runs give the same bits. Two kernel modes:
+
+  * ``cot``: an image cotangent in (:func:`soft_scene_grads_cuda`);
+  * ``fused``: the training step in one launch: render, MSE against the
+    target, loss slot, reverse sweep (:func:`soft_loss_and_grads_cuda`).
+
+Both fill the camera slots; the ``refl``, ``spec`` and ``shin`` slots stay 0
+(the soft scope has no mirror bounce and no Phong). The plain versions
+(:func:`soft_scene_grads_plain`, :func:`soft_loss_and_grads_plain`) are
+``torch.autograd`` of ``ops/soft.py`` packed into the same layout; the
+wrappers take them for tensors on the CPU only, and for CUDA tensors launch the
+kernel or raise.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from ..soft import render_image_soft
+from . import render_cuda, soft_cuda
+from .render_bwd_cuda import _autograd_flat, grad_groups, n_grads, unflatten_grads
+
+MODES = ("cot", "fused")
+# Kernel launches per mode and plain-version calls; plain counters, reset with
+# reset_launch_counts().
+LAUNCHES = {m: 0 for m in MODES}
+PLAIN_CALLS = {"soft_scene_grads": 0, "soft_loss_and_grads": 0}
+
+BLOCK_Y, BLOCK_X = 16, 8     # threads a block along the image's y and x axes
+N_WARPS = BLOCK_Y * BLOCK_X // 32
+_SMEM_LIMIT = 227 * 1024     # shared memory a block can have on Hopper
+
+
+def reset_launch_counts() -> None:
+    for m in MODES:
+        LAUNCHES[m] = 0
+    for k in PLAIN_CALLS:
+        PLAIN_CALLS[k] = 0
+
+
+# --- the plain version: autograd of ops/soft.py -----------------------------------
+
+def soft_scene_grads_plain(camera, scene, g_image, *, tau: float = 0.05,
+                           row_chunk: int | None = None,
+                           bounce_depth: int = 0) -> torch.Tensor:
+    """Plain version of the cotangent mode: the vector-Jacobian product of
+    ``render_image_soft`` with ``g_image (w, h, 3)``, as a flat vector of
+    ``grad_layout`` (camera slots included). ``row_chunk`` bounds its memory
+    (checkpointed blocks, :func:`..soft.render_image_soft`)."""
+    PLAIN_CALLS["soft_scene_grads"] += 1
+
+    def objective(cam, sc):
+        img = render_image_soft(cam, sc, tau=tau, row_chunk=row_chunk,
+                                bounce_depth=bounce_depth)
+        return (img * g_image.detach()).sum(), None
+    return _autograd_flat(camera, scene, objective)
+
+
+def soft_loss_and_grads_plain(camera, scene, target, *, tau: float = 0.05,
+                              row_chunk: int | None = None,
+                              bounce_depth: int = 0) -> torch.Tensor:
+    """Plain version of the fused mode: ``mean((render - target)^2)`` and its
+    gradient, as a flat vector with the loss in the trailing slot."""
+    PLAIN_CALLS["soft_loss_and_grads"] += 1
+
+    def objective(cam, sc):
+        img = render_image_soft(cam, sc, tau=tau, row_chunk=row_chunk,
+                                bounce_depth=bounce_depth)
+        loss = torch.mean((img - target.detach()) ** 2)
+        return loss, loss
+    return _autograd_flat(camera, scene, objective)
+
+
+# The JAX package's rule for the soft backward kernel against autodiff
+# (tests/test_soft_bwd.py:30-70): every scene leaf |d| <= 5e-6 * max(max|g|, 1)
+# + 5e-3 |g| (reassociation noise is relative to the leaf's accumulated sum);
+# camera position atol 1e-5, rotation atol 1e-3, both rtol 5e-3; fov, a heavily
+# cancelling lane sum, atol 3e-5 alone; the loss rel 1e-5.
+CAMERA_ATOL = {"camera.position": 1e-5, "camera.rotation": 1e-3}
+
+
+def soft_grad_rule(flat: torch.Tensor, ref: torch.Tensor, ns: int, npl: int, nl: int,
+                   ref64: torch.Tensor | None = None) -> dict:
+    """Hold a flat gradient against a reference under the rule above:
+    ``{group: (max |d| / allowance, ok)}``, ok when the ratio is <= 1. With
+    ``ref64`` (the plain version in float64) the allowances come from it, and
+    each element may lie within its allowance of ``ref`` or of ``ref64``
+    (soft_cuda.image_rule's reason): never farther than that from both."""
+    def groups(f):
+        return grad_groups(f.detach().double().cpu(), ns, npl, nl)
+    got = groups(flat)
+    want = groups(ref if ref64 is None else ref64)
+    alt = None if ref64 is None else groups(ref)
+    out = {}
+    for path, b in want.items():
+        d = (got[path] - b).abs()
+        if alt is not None:
+            d = torch.minimum(d, (got[path] - alt[path]).abs())
+        if path == "camera.fov":
+            allow = torch.full_like(b, 3e-5)
+        elif path == "loss":
+            allow = 1e-5 * b.abs()
+        elif path in CAMERA_ATOL:
+            allow = CAMERA_ATOL[path] + 5e-3 * b.abs()
+        else:
+            scale = max(float(b.abs().max()), 1.0) if b.numel() else 1.0
+            allow = 5e-6 * scale + 5e-3 * b.abs()
+        ratio = float((d / allow).max()) if d.numel() else 0.0
+        out[path] = (ratio, ratio <= 1.0)
+    return out
+
+
+# --- the kernel ------------------------------------------------------------------
+
+def n_blocks(W: int, H: int) -> int:
+    """Thread blocks of one soft backward launch (rows of its partial sums)."""
+    return math.ceil(H / BLOCK_Y) * math.ceil(W / BLOCK_X)
+
+
+def _check(camera, scene, image, tau, name: str):
+    dev = soft_cuda.check_inputs(camera, scene, tau)
+    W, H = camera.resolution
+    if image.device != dev or image.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 on {dev}, got {image.dtype} on "
+                         f"{image.device}")
+    if tuple(image.shape) != (W, H, 3):
+        raise ValueError(f"{name} has shape {tuple(image.shape)}, expected {(W, H, 3)}")
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    smem = 4 * (render_cuda.N_PARAMS + 7 * ns + 9 * npl + 3 * nl +
+                N_WARPS * n_grads(ns, npl, nl, True))
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"scene needs {smem} B of shared memory in the soft backward "
+                         f"kernel, a block has at most {_SMEM_LIMIT} B")
+
+
+def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: float,
+           mode: str) -> torch.Tensor:
+    """Launch the soft backward kernel and its reduction on the current stream
+    for inputs already packed and checked: ``out (n_grads,)``, ``partial
+    (n_grads * n_blocks,)``, ``params`` (clean-mode grid), the
+    ``scene_tables``, the object counts and ``image`` (the cotangent, or in
+    ``fused`` the target), all float32, contiguous, on the current device.
+    Counts the launch in :data:`LAUNCHES`."""
+    from ._build import load_library
+    lib = load_library()
+    (sph, pln, lts), (ns, npl, nl) = tables, counts
+    rows = n_blocks(W, H)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    rc = lib.rt_soft_bwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
+                         lts.data_ptr(), nl, float(tau), image.data_ptr(),
+                         partial.data_ptr(), rows, out.shape[0], W, H,
+                         int(mode == "fused"), stream)
+    if rc == 0:
+        rc = lib.rt_reduce_rows(partial.data_ptr(), rows, out.shape[0], out.data_ptr(),
+                                stream)
+    if rc != 0:
+        raise RuntimeError(f"soft backward kernel ({mode}) failed: CUDA error {rc} "
+                           f"({lib.rt_error_string(rc).decode()})")
+    LAUNCHES[mode] += 1
+    return out
+
+
+def _run(camera, scene, image, *, tau, mode):
+    dev = camera.position.device
+    W, H = camera.resolution
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    n = n_grads(*counts, mode == "fused")
+    with torch.cuda.device(dev), torch.no_grad():
+        params = render_cuda.pack_params(camera, scene, compat=False).to(dev)
+        out = torch.empty(n, device=dev)
+        partial = torch.empty(n * n_blocks(W, H), device=dev)
+        return launch(out, partial, params, render_cuda.scene_tables(scene), counts,
+                      image=image.contiguous(), W=W, H=H, tau=tau, mode=mode)
+
+
+def soft_scene_grads_cuda(camera, scene, g_image, *, tau: float = 0.05,
+                          return_camera: bool = False):
+    """Image cotangent ``(w, h, 3)`` -> ``Scene`` gradients (with
+    ``return_camera``: ``(scene_g, camera_g)``), as
+    ``soft_bwd.soft_scene_grads_pallas``. CPU tensors take
+    :func:`soft_scene_grads_plain`; CUDA tensors launch mode ``cot``."""
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    if camera.position.device.type == "cpu":
+        flat = soft_scene_grads_plain(camera, scene, g_image, tau=tau)
+    else:
+        _check(camera, scene, g_image, tau, "g_image")
+        flat = _run(camera, scene, g_image, tau=tau, mode="cot")
+    return unflatten_grads(flat, ns, npl, nl, camera.resolution,
+                           return_camera=return_camera, fused_loss=False)
+
+
+def soft_loss_and_grads_cuda(camera, scene, target, *, tau: float = 0.05,
+                             return_camera: bool = False):
+    """The soft training step's ``(loss, scene_g)`` (with ``return_camera``:
+    ``(loss, scene_g, camera_g)``) for ``loss = mean((render_soft -
+    target)^2)``, as ``soft_bwd.soft_loss_and_grads_pallas``. CPU tensors take
+    :func:`soft_loss_and_grads_plain`; CUDA tensors launch mode ``fused``."""
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    if camera.position.device.type == "cpu":
+        flat = soft_loss_and_grads_plain(camera, scene, target, tau=tau)
+    else:
+        _check(camera, scene, target, tau, "target")
+        flat = _run(camera, scene, target, tau=tau, mode="fused")
+    return unflatten_grads(flat, ns, npl, nl, camera.resolution,
+                           return_camera=return_camera, fused_loss=True)

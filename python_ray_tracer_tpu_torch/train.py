@@ -16,6 +16,11 @@ backends:
 The optimizer is ``torch.optim.Adam(lr)`` over the trainable leaves only. That
 is optax Adam on masked gradients (``train._mask_grads``): a leaf whose
 gradient is always zero never moves.
+
+:func:`fit_scene_soft` fits through the soft-visibility renderer with tau
+annealed toward hard: on ``"cuda"`` each step is one launch of the fused soft
+backward kernel (``soft_loss_and_grads_cuda``) and each stage's target one
+launch of the soft forward kernel.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ from .models.camera import Camera, euler_rotation
 from .models.scene import LEAF_PATHS, Scene
 from .ops.cuda.render_bwd_cuda import loss_and_scene_grads_cuda, scene_grads_cuda
 from .ops.cuda.render_cuda import render_image_cuda
+from .ops.cuda.soft_bwd_cuda import soft_loss_and_grads_cuda
+from .ops.cuda.soft_cuda import (render_image_soft_cuda, render_image_soft_fast,
+                                 render_image_soft_plain)
 from .ops.render import render_image
 from .utils.metrics import MetricsLogger
 
@@ -47,6 +55,44 @@ def pixel_loss(camera, target, *, depth: int = 2, aliasing: bool = False,
                            compat=compat)
         return torch.mean((img - target) ** 2)
     return loss
+
+
+def soft_pixel_loss(camera, target, *, tau: float = 0.05, row_chunk: Optional[int] = None,
+                    backend: str = "torch", bounce_depth: int = 0) -> Callable:
+    """Silhouette-aware ``loss(scene) -> scalar`` through the soft-visibility
+    renderer (``train.soft_pixel_loss``); the target should come from the same
+    renderer. On ``"cuda"`` the render is :func:`render_image_soft_fast` (the
+    soft forward kernel, and the soft backward kernel for its gradient).
+    ``bounce_depth=1`` renders through the plain version on either backend,
+    counted in ``soft_cuda.PLAIN_CALLS``: no kernel of either package covers
+    the mirror bounce."""
+    _check_backend(backend)
+    if backend == "cuda" and bounce_depth == 0:
+        def loss(scene):
+            return torch.mean((render_image_soft_fast(camera, scene, tau) - target) ** 2)
+        return loss
+
+    def loss(scene):
+        img = render_image_soft_plain(camera, scene, tau=tau, row_chunk=row_chunk,
+                                      bounce_depth=bounce_depth)
+        return torch.mean((img - target) ** 2)
+    return loss
+
+
+def soft_value_and_grad(camera, target, *, tau: float, backend: str = "cuda",
+                        bounce_depth: int = 0) -> Callable:
+    """``scene -> (loss, scene_grads)`` of the soft pixel loss: on ``"cuda"``
+    one launch of the fused soft backward kernel (render, MSE, reverse sweep);
+    otherwise, and for ``bounce_depth=1``, autograd of
+    :func:`soft_pixel_loss`'s plain version."""
+    _check_backend(backend)
+    if backend == "cuda" and bounce_depth == 0:
+        def value_and_grad(scene):
+            return soft_loss_and_grads_cuda(camera, scene, target, tau=tau)
+        return value_and_grad
+    return autograd_value_and_grad(soft_pixel_loss(camera, target, tau=tau,
+                                                   backend=backend,
+                                                   bounce_depth=bounce_depth))
 
 
 def trainable_paths(trainable: Optional[Sequence[str]]) -> List[str]:
@@ -141,6 +187,43 @@ def fit_scene(init_scene: Scene, camera, target, *, steps: int = 200,
     for i in range(steps):
         losses.append(float(step()))
         _log(logger, i, steps, log_every, losses[-1])
+    return scene, losses
+
+
+def fit_scene_soft(init_scene: Scene, camera, target_scene: Scene, *, steps: int = 200,
+                   lr: float = 1e-2, taus: Sequence[float] = (0.15, 0.05, 0.02),
+                   trainable: Optional[Sequence[str]] = ("spheres.center",),
+                   logger: Optional[MetricsLogger] = None, backend: str = "torch",
+                   bounce_depth: int = 0):
+    """Coarse-to-fine soft-visibility fitting, tau annealed toward hard
+    (``train.fit_scene_soft``): ``max(1, steps // len(taus))`` steps per tau,
+    each stage against a target re-rendered from ``target_scene`` at that tau
+    (the soft forward kernel on ``"cuda"``), with a new Adam per stage.
+    ``bounce_depth=1`` adds the depth-1 mirror bounce; the bounce has no kernel
+    in either package, so its targets and steps run the plain version on both
+    backends (counted in ``soft_cuda.PLAIN_CALLS`` and
+    ``soft_bwd_cuda.PLAIN_CALLS``). ``init_scene`` is not modified. The
+    logger's line per stage gives its tau and its first and last loss.
+    Returns ``(scene, losses)``."""
+    _check_backend(backend)
+    scene = Scene.from_leaves([t.detach().clone() for t in init_scene.leaves()])
+    losses: List[float] = []
+    per_stage = max(1, steps // len(taus))
+    for tau in taus:
+        with torch.no_grad():
+            if backend == "cuda" and bounce_depth == 0:
+                target = render_image_soft_cuda(camera, target_scene, tau=tau)
+            else:
+                target = render_image_soft_plain(camera, target_scene, tau=tau,
+                                                 bounce_depth=bounce_depth)
+        vg = soft_value_and_grad(camera, target, tau=tau, backend=backend,
+                                 bounce_depth=bounce_depth)
+        step = make_train_step(scene, vg, lr=lr, trainable=trainable)
+        for _ in range(per_stage):
+            losses.append(float(step()))
+        if logger is not None:
+            logger.log(len(losses), tau=float(tau), first_loss=losses[-per_stage],
+                       loss=losses[-1])
     return scene, losses
 
 

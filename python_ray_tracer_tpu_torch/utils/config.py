@@ -7,7 +7,7 @@ from typing import Tuple
 
 import torch
 
-BACKENDS = ("auto", "cuda", "torch")
+BACKENDS = ("cuda", "torch")
 
 
 @dataclasses.dataclass
@@ -23,21 +23,18 @@ class RenderConfig:
     camera_position: Tuple[float, float, float] = (-2.0, 0.0, 2.0)
     camera_euler: Tuple[float, float, float] = (0.0, -30.0, 0.0)
     compat: bool = True            # reproduce the reference's quirks
-    backend: str = "auto"          # "auto" | "cuda" | "torch"
+    backend: str = "cuda"          # "cuda" | "torch"
     specular: float = 0.0          # Phong highlight (clean mode only)
     shininess: float = 32.0
 
 
 def resolve_backend(backend: str) -> str:
-    """``"cuda"``: the hand-written kernel on the card; ``"torch"``: the plain
-    PyTorch version; ``"auto"``: ``cuda`` when a card is visible, else
-    ``torch``. Asking for ``cuda`` without a card raises."""
+    """``"cuda"`` (the default): the hand-written kernels on the card;
+    ``"torch"``: the plain PyTorch version on the CPU, only when asked for.
+    ``cuda`` without a card raises: no backend falls back to the CPU."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
-    has_card = torch.cuda.is_available()
-    if backend == "auto":
-        return "cuda" if has_card else "torch"
-    if backend == "cuda" and not has_card:
+    if backend == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("backend 'cuda' needs a CUDA device, and "
                            "torch.cuda.is_available() is False")
     return backend

@@ -336,3 +336,180 @@ def test_fit_camera_cuda_backend_on_card(cuda_device):
     assert losses[-1] < 0.6 * losses[0]
     err0 = float((init.position - true_cam.position).abs().max())
     assert float((fitted.position - true_cam.position).abs().max()) < err0
+
+
+# --- the soft-visibility kernels ---------------------------------------------------
+#
+# Forward against the plain version: soft_cuda.image_rule (every element
+# within 2e-4 of the plain version in float32 or in float64; <= 0.1% of uint8
+# pixels off by more than 1 level). Backward against autograd of the plain
+# version: soft_bwd_cuda.soft_grad_rule, the JAX package's rule for its soft
+# backward kernel (tests/test_soft_bwd.py:30-70), on the MSE cotangent of a
+# seeded target, each element within its allowance of the float32 or the
+# float64 plain gradient.
+
+SOFT_TAUS = (0.15, 0.05, 0.02)
+
+
+def _soft_scene(name, dev):
+    if name == "demo":
+        return trt.default_scene(trt.Materials.build(0.1, 0.6, device=dev), device=dev)
+    if name == "random40":
+        return trt.random_scene(40, generator=torch.Generator().manual_seed(4), device=dev)
+    if name == "ties":      # the camera inside two spheres: both clamp to t = 1e-4
+        return trt.Scene(
+            trt.Spheres.build([([-1.9, 0.0, 2.0], 0.5, trt.RED),
+                               ([-1.95, 0.1, 2.0], 0.6, trt.GREEN),
+                               ([3.0, 0.0, 1.0], 1.0, trt.BLUE),
+                               ([-6.0, 0.0, 2.0], 1.0, trt.YELLOW)], dev),
+            trt.Planes.build([([0.0, 0.0, -1.0], [0.0, 0.0, 1.0], trt.GREY)], dev),
+            trt.Lights.build([[0.0, 2.0, 6.0]], dev), trt.Materials.build(0.3, 0.6, device=dev))
+    if name == "degenerate":  # saturated cover behind a sphere; a plane in front
+        return trt.Scene(
+            trt.Spheres.build([([3.0, 0.0, 0.0], 1.4, trt.RED),
+                               ([8.0, 0.0, 0.0], 1.0, trt.GREEN)], dev),
+            trt.Planes.build([([1.0, 0.0, 0.0], [-1.0, 0.0, 0.0], trt.GREY)], dev),
+            trt.Lights.build([[0.0, 0.0, 8.0]], dev),
+            trt.Materials.build(ambient=0.2, lambert=0.6, device=dev))
+    # "lights20": no light-count limit in either soft kernel
+    two = _bwd_scene("two", False, dev)
+    lights = trt.Lights(torch.tensor([[2.5 + 0.2 * i, -2.0 + 0.2 * i, 3.0 + 0.1 * i]
+                                      for i in range(20)], device=dev))
+    return trt.Scene(two.spheres, two.planes, lights, trt.Materials.build(0.1, 0.05,
+                                                                          device=dev))
+
+
+def _assert_soft_image(out, cam, scene, tau, label):
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_cuda
+    rule = soft_cuda.image_rule(out, trt.render_image_soft(cam, scene, tau=tau),
+                                trt.render_image_soft(*soft_cuda.as_double(cam, scene),
+                                                      tau=tau))
+    print(f"[soft-fwd] {label} tau={tau}: max|k-plain| {rule['max_abs_err']:.4e}, "
+          f"ratio {rule['ratio']:.4f}, worst {rule['worst']}, worst64 {rule['worst64']}")
+    assert rule["ok"], rule
+
+
+@pytest.mark.parametrize("tau", SOFT_TAUS)
+@pytest.mark.parametrize("name", ["demo", "random40", "ties", "lights20"])
+def test_soft_fwd_matches_plain(cuda_device, name, tau):
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_cuda
+    scene = _soft_scene(name, cuda_device)
+    cam = trt.default_camera((96, 64), device=cuda_device)
+    before = soft_cuda.LAUNCHES["soft_fwd"]
+    out = trt.render_image_soft_cuda(cam, scene, tau=tau)
+    torch.cuda.synchronize()
+    assert soft_cuda.LAUNCHES["soft_fwd"] == before + 1
+    _assert_soft_image(out, cam, scene, tau, f"{name} 96x64")
+    assert torch.equal(out, trt.render_image_soft_cuda(cam, scene, tau=tau))
+
+
+def _soft_flat(mode, cam, scene, x, tau):
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    if mode == "fused":
+        loss, scene_g, cam_g = sb.soft_loss_and_grads_cuda(cam, scene, x, tau=tau,
+                                                           return_camera=True)
+        return rb.flatten_grads(scene_g, cam_g, loss)
+    return rb.flatten_grads(*sb.soft_scene_grads_cuda(cam, scene, x, tau=tau,
+                                                      return_camera=True))
+
+
+def _soft_input(mode, cam, scene, target, tau):
+    if mode == "fused":
+        return target
+    img = trt.render_image_soft(cam, scene, tau=tau)
+    return (2.0 * (img - target) / img.numel()).contiguous()
+
+
+@pytest.mark.parametrize("mode", ["cot", "fused"])
+@pytest.mark.parametrize("name,tau", [("demo", 0.15), ("demo", 0.02), ("random40", 0.05),
+                                      ("ties", 0.05), ("degenerate", 0.02),
+                                      ("lights20", 0.05)])
+def test_soft_bwd_matches_plain(cuda_device, mode, name, tau):
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb, soft_cuda
+    scene = _soft_scene(name, cuda_device)
+    cam = trt.default_camera((64, 48), device=cuda_device)
+    x = _soft_input(mode, cam, scene, _target((64, 48), cuda_device), tau)
+    before = sb.LAUNCHES[mode]
+    flat = _soft_flat(mode, cam, scene, x, tau)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES[mode] == before + 1
+    assert bool(torch.isfinite(flat).all())
+    assert torch.equal(flat, _soft_flat(mode, cam, scene, x, tau))
+    plain = sb.soft_loss_and_grads_plain if mode == "fused" else sb.soft_scene_grads_plain
+    ref = plain(cam, scene, x, tau=tau)
+    ref64 = plain(*soft_cuda.as_double(cam, scene), x.double(), tau=tau)
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    rule = sb.soft_grad_rule(flat, ref, *counts, ref64=ref64)
+    assert all(ok for _, ok in rule.values()), rule
+    groups = rb.grad_groups(flat.cpu(), *counts)
+    for leaf in ("materials.reflection", "materials.specular", "materials.shininess"):
+        assert float(groups[leaf]) == 0.0
+
+
+def test_render_image_soft_fast_grads_match_plain_autograd(cuda_device):
+    """render_image_soft_fast: the soft forward kernel forward, the soft backward
+    kernel (one cotangent launch) backward, for scene and camera leaves."""
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    scene = _soft_scene("demo", cuda_device)
+    cam = trt.default_camera((48, 40), device=cuda_device)
+    g = (_target((48, 40), cuda_device, seed=2) - 0.5) / (48 * 40)
+    before = sb.LAUNCHES["cot"]
+    grads = []
+    for fn in (trt.render_image_soft_fast, trt.render_image_soft):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in scene.leaves() + [cam.position, cam.rotation, cam.fov]]
+        c = trt.Camera(*leaves[12:], cam.resolution)
+        (fn(c, trt.Scene.from_leaves(leaves[:12]), tau=0.05) * g).sum().backward()
+        grads.append(rb.flatten_grads(
+            trt.Scene.from_leaves([t.grad if t.grad is not None else torch.zeros_like(t)
+                                   for t in leaves[:12]]),
+            trt.Camera(*(t.grad for t in leaves[12:]), cam.resolution)))
+    assert sb.LAUNCHES["cot"] == before + 1
+    rule = sb.soft_grad_rule(grads[0], grads[1], 6, 1, 3)
+    assert all(ok for _, ok in rule.values()), rule
+
+
+def test_soft_empty_scene(cuda_device):
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    dev = cuda_device
+    scene = trt.Scene(trt.Spheres.build([], dev), trt.Planes.build([], dev),
+                      trt.Lights.build([], dev), trt.Materials.build(device=dev))
+    cam = trt.default_camera((20, 12), device=dev)
+    assert float(trt.render_image_soft_cuda(cam, scene).abs().max()) == 0.0
+    target = _target((20, 12), dev)
+    loss, scene_g, cam_g = sb.soft_loss_and_grads_cuda(cam, scene, target,
+                                                       return_camera=True)
+    assert bool((rb.flatten_grads(scene_g, cam_g) == 0).all())
+    assert float(loss) == pytest.approx(float((target ** 2).mean()), rel=1e-5)
+
+
+def test_soft_wrappers_reject_bad_inputs(cuda_device):
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    scene = _soft_scene("demo", cuda_device)
+    cam = trt.default_camera((16, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="tau"):
+        trt.render_image_soft_cuda(cam, scene, tau=0.0)
+    with pytest.raises(ValueError, match="shape"):
+        sb.soft_loss_and_grads_cuda(cam, scene, _target((16, 16), cuda_device)[:8])
+    with pytest.raises(ValueError, match="is on cpu"):
+        sb.soft_scene_grads_cuda(cam, trt.default_scene(), _target((16, 16), cuda_device))
+
+
+def test_fit_scene_soft_cuda_backend_on_card(cuda_device):
+    """fit_scene_soft(backend="cuda"): one soft forward launch per stage (the
+    target), one fused soft backward launch per step, the plain version never
+    called, and the loss falls within each stage."""
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb, soft_cuda
+    scene = _soft_scene("demo", cuda_device)
+    cam = trt.default_camera((96, 96), device=cuda_device)
+    init = trt.Scene.from_leaves(scene.leaves())
+    init.spheres = trt.Spheres(scene.spheres.center + torch.tensor(
+        [0.05, -0.04, 0.03], device=cuda_device), scene.spheres.radius,
+        scene.spheres.albedo)
+    sb.reset_launch_counts()
+    soft_cuda.reset_launch_counts()
+    _, losses = train.fit_scene_soft(init, cam, scene, steps=30, lr=1e-2, backend="cuda")
+    assert sb.LAUNCHES == {"cot": 0, "fused": 30} and soft_cuda.LAUNCHES["soft_fwd"] == 3
+    assert not any(sb.PLAIN_CALLS.values()) and not any(soft_cuda.PLAIN_CALLS.values())
+    for k in range(3):
+        assert losses[10 * k + 9] < losses[10 * k]

@@ -86,11 +86,18 @@ def test_cli_fit_backend_cuda_without_card_raises(tmp_path):
 
 
 def test_resolve_backend():
-    want_auto = "cuda" if torch.cuda.is_available() else "torch"
-    assert trt.resolve_backend("auto") == want_auto
+    """No backend picks the CPU by itself: ``cuda`` is the default and raises
+    without a card, ``torch`` is the explicit CPU request, ``auto`` is gone."""
+    assert trt.RenderConfig().backend == "cuda"
     assert trt.resolve_backend("torch") == "torch"
-    with pytest.raises(ValueError):
-        trt.resolve_backend("pallas")
+    if torch.cuda.is_available():
+        assert trt.resolve_backend("cuda") == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            trt.resolve_backend("cuda")
+    for bad in ("auto", "pallas"):
+        with pytest.raises(ValueError):
+            trt.resolve_backend(bad)
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (37, 53), (64, 5)])
@@ -124,6 +131,9 @@ def test_port_never_imports_jax():
             "python_ray_tracer_tpu_torch.cli, "
             "python_ray_tracer_tpu_torch.ops.cuda.render_cuda, "
             "python_ray_tracer_tpu_torch.ops.cuda.render_bwd_cuda, "
+            "python_ray_tracer_tpu_torch.ops.cuda.soft_cuda, "
+            "python_ray_tracer_tpu_torch.ops.cuda.soft_bwd_cuda, "
+            "python_ray_tracer_tpu_torch.ops.soft, "
             "python_ray_tracer_tpu_torch.train, "
             "python_ray_tracer_tpu_torch.bridge; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
