@@ -22,9 +22,18 @@ spheres 128x128), twice for bit-identical results; ``cli fit --mode soft``
 convergence and PNG checks; the fit's targets, its step 0 and
 ``render_image_soft_fast``'s backward held against their plain versions at
 that size; the counted plain bounce fit; and times (demo 1000x1000, 100
-spheres 512x512). Every kernel's entry in the kernels line carries its bound
-(``utils/timing.py``: the FP32 operations and bytes the function needs, over
-the H100's peak rates).
+spheres 512x512). Then the large-scene render path (phases 13-15): the
+hit-extent kernel (TPU kernel 3) against its plain version on 100 and 1000
+seeded spheres at 256x256, twice for bit-identical rows; the render kernel with
+the cone cull, the shadow lists, the Morton groups, and all three, against all
+culls off bit for bit in every mode, compat and clean, and all on against the
+plain version; ``cli render --backend cuda --spheres 100|1000`` at 1920x1080
+without and with AA, with launch counts, PNG and plain-version checks and the
+hit-extent rows held against their plain version at those shapes; and times
+(kernel 3 alone, the three table functions, the render kernel with all culls
+on and all off, the whole wrapper, the plain version, list lengths). Every
+kernel's entry in the kernels line carries its bound (``utils/timing.py``: the
+FP32 operations and bytes the function needs, over the H100's peak rates).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -46,7 +55,13 @@ Soft kernels against the plain version: soft_cuda.image_rule and
 soft_bwd_cuda.soft_grad_rule, every element within its allowance of the plain
 version in float32 or in float64 (where far spheres make the soft cover
 cancel, float32 roundings differ by more than the allowance; the kernel must
-stay near one of the two). In the kernels line, ``max_rel_err`` is the worst ratio of a
+stay near one of the two). Hit extents against the plain version:
+hit_extents_cuda.extent_rule (counts and sentinel rows equal, boxes within
+1e-3 + 1e-6 m^2, m the row's largest coordinate). A render with culls on
+against culls off: ``torch.equal``; only a case with the Morton groups on may
+fall back to the flip rule, named in the output, because sweeping in Morton
+order can move the winner of an exact t tie between two spheres.
+In the kernels line, ``max_rel_err`` is the worst ratio of a
 difference to its allowance under the entry's rule (<= 1 passes).
 """
 from __future__ import annotations
@@ -108,6 +123,26 @@ SOFT_FIT_STEPS = 150                  # the fit CLI's default
 # 1000x1000, reckoned from its peak at a small size.
 SOFT_BLOCK_BYTES = 1 << 30
 SOFT_PLAIN_BUDGET = 30e9
+
+
+# The large-scene render path (phases 13-15).
+HX_SOURCE = "python_ray_tracer_tpu_torch/csrc/hit_extents.cu"
+HX_REPLACES = "python_ray_tracer_tpu/ops/pallas/render_pallas.py:990"
+LARGE_SPHERES = (100, 1000)
+LARGE_RES = (1920, 1080)
+LARGE_PARITY_RES = (256, 256)
+LARGE_FRAMES = 7         # wrapper calls of one `cli render` run: warm-up, 5 timed, the PNG's
+# Elements of the plain renderer's largest intermediate (a block's shadow
+# sweep, columns x height x lights x objects) when it renders in column blocks.
+PLAIN_BLOCK_ELEMS = 1 << 27
+# benchmarks/large_scene.py's camera, timed beside the CLI's at 100 spheres
+BENCH_POSE = ([-12.0, 0.0, 4.0], [0.0, -15.0, 0.0])
+CROSSOVER_SPHERES = (32, 64, 100, 200, 300, 500, 700, 1000)
+CULLS = {"cull": dict(cull=True, shadow_lists=False, group_cull=False),
+         "lists": dict(cull=False, shadow_lists=True, group_cull=False),
+         "groups": dict(cull=False, shadow_lists=False, group_cull=True),
+         "all": dict(cull=True, shadow_lists=True, group_cull=True)}
+ALL_OFF = dict(cull=False, shadow_lists=False, group_cull=False)
 
 
 def frame_diff(a, b):
@@ -765,6 +800,291 @@ def soft_phases(torch, rt, card: str, dev) -> list:
     ]
 
 
+def large_scene_phases(torch, rt, card: str, dev) -> list:
+    """Phases 13-15: the hit-extent kernel (TPU kernel 3) against its plain
+    version, every cull of the render kernel against the full sweep bit for
+    bit, ``cli render --spheres 100|1000`` at 1920x1080 through the large-scene
+    path, and times. Returns the large-scene entries of the kernels line."""
+    import numpy as np
+    from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
+
+    cfg = RenderConfig()
+
+    def cli_scene(n, specular=0.0):
+        """`cli render --spheres n`'s scene (cli._build: seed 0, the CLI's
+        materials), with a Phong term for the clean-mode checks."""
+        mats = rt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, specular,
+                                  cfg.shininess, device=dev)
+        return rt.random_scene(n, materials=mats,
+                               generator=torch.Generator().manual_seed(0), device=dev)
+
+    def cli_camera(res, pose=None):
+        pos, euler = pose or (cfg.camera_position, cfg.camera_euler)
+        return rt.Camera.build(res, pos, euler, cfg.fov, device=dev)
+
+    def plain(cam, scene, aa, compat=True):
+        """The plain renderer in column blocks that bound its memory."""
+        ns, npl, nl = counts(scene)
+        cols = max(1, PLAIN_BLOCK_ELEMS // (cam.resolution[1] * max(nl, 1) * (ns + npl)))
+        return rt.render_image(cam, scene, depth=2, aliasing=aa, compat=compat,
+                               row_chunk=cols)
+
+    def flips(label, img, ref, res):
+        f, changed, dmax = frame_diff(rt.to_framebuffer(img), rt.to_framebuffer(ref))
+        print(f"[large] {label}: flipped {f}/{res[0] * res[1]}, changed {changed}, max {dmax}")
+        check(f <= FLIP_FRAC * res[0] * res[1], f"{label}: {f} flipped pixels")
+        return float((img - ref).abs().max())
+
+    def extents_held(label, cam, scene, aa, compat, vis):
+        """Kernel 3 twice (bit-identical rows) against its plain version."""
+        a = hx.hit_extents_cuda(cam, scene, aliasing=aa, compat=compat, vis=vis)
+        b = hx.hit_extents_cuda(cam, scene, aliasing=aa, compat=compat, vis=vis)
+        torch.cuda.synchronize()
+        check(torch.equal(a, b), f"hit_extents {label}: two runs differ")
+        rule = hx.extent_rule(a, hx.hit_extents_plain(cam, scene, aliasing=aa,
+                                                      compat=compat, vis=vis))
+        print(f"[extent] {label}, 2 runs bit-identical: counts equal "
+              f"{rule['counts_equal']}, sentinel rows equal {rule['sentinels_equal']}, "
+              f"max_abs_err {rule['max_abs_err']:.3e}, ratio {rule['ratio']:.3f}, "
+              f"tiles with hits {int((a[:, 6] > 0).sum())}/{a.shape[0]}")
+        check(rule["ok"], f"hit_extents {label}: {rule}")
+        return rule
+
+    def vis_of(cam, scene, compat):
+        k = ct.list_capacity(scene.spheres.count)
+        return (*ct.tile_visibility(cam, scene, compat=compat, K=k), k)
+
+    # Phase 13: parity at 256x256, compat and clean, 100 and 1000 spheres.
+    res = LARGE_PARITY_RES
+    cam = cli_camera(res)
+    for n in LARGE_SPHERES:
+        for compat in (True, False):
+            scene = cli_scene(n, 0.0 if compat else 0.5)
+            vis = vis_of(cam, scene, compat)
+            for aa in (False, True):
+                for v, vname in ((None, "no lists"), (vis, "cone-cull lists")):
+                    extents_held(f"{n} spheres {res[0]}x{res[1]} aa={aa} compat={compat} "
+                                 f"{vname}", cam, scene, aa, compat, v)
+            refs = {aa: plain(cam, scene, aa, compat) for aa in (False, True)}
+            for mode in render_cuda.MODES:
+                aa = mode != "aa_none"
+                kw = dict(depth=2, compat=compat, aliasing=aa, aa_share=mode == "aa_shared")
+                off = rt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+                verdicts = []
+                for name, culls in CULLS.items():
+                    img = rt.render_image_cuda(cam, scene, **kw, **culls)
+                    torch.cuda.synchronize()
+                    same = torch.equal(img, off)
+                    verdicts.append(f"{name} {'bit-identical' if same else 'DIFFERS'}")
+                    if not same:
+                        px = torch.nonzero((img != off).any(dim=-1))
+                        for x, y in px[:8].tolist():
+                            print(f"[parity] {n} spheres {mode} compat={compat} {name}: pixel "
+                                  f"({x}, {y}) culled {img[x, y].tolist()} "
+                                  f"({[hex(v) for v in img[x, y].view(torch.int32).tolist()]}) "
+                                  f"full sweep {off[x, y].tolist()} "
+                                  f"({[hex(v) for v in off[x, y].view(torch.int32).tolist()]})")
+                        check(culls["group_cull"], f"{n} spheres {mode} compat={compat} "
+                              f"{name}: {px.shape[0]} pixels differ from the full sweep")
+                        flips(f"{n} spheres {mode} compat={compat} {name}: {px.shape[0]} "
+                              f"pixels moved under the Morton order (exact t ties), flip "
+                              f"rule instead", img, off, res)
+                print(f"[parity] {n} spheres {mode:13s} compat={compat!s:5s} {res[0]}x{res[1]} d2 vs "
+                      f"all culls off: " + ", ".join(verdicts))
+                flips(f"{n} spheres {mode} compat={compat} all culls on vs plain",
+                      rt.render_image_cuda(cam, scene, **kw, **CULLS["all"]), refs[aa], res)
+
+    # Phase 14: the main path through the CLI at 1920x1080, counts set to 0
+    # just before each run and read just after.
+    os.makedirs(OUT_DIR, exist_ok=True)
+    W, H = LARGE_RES
+    cam = cli_camera(LARGE_RES)
+    main = {}
+    for n in LARGE_SPHERES:
+        scene = cli_scene(n)
+        for aa in (False, True):
+            mode = "aa_shared" if aa else "aa_none"
+            label = f"{n}_spheres_{W}x{H}_{'aa' if aa else 'noaa'}"
+            png = os.path.join(OUT_DIR, f"{label}.png")
+            args = ["render", "--backend", "cuda", "--spheres", str(n), "--width", str(W),
+                    "--height", str(H), "--out", png] + ([] if aa else ["--no-aliasing"])
+            render_cuda.reset_launch_counts()
+            hx.reset_launch_counts()
+            check(cli.main(args) == 0, f"cli {' '.join(args)} failed")
+            torch.cuda.synchronize()
+            got = {"hit_extents": hx.LAUNCHES["hit_extents"], **render_cuda.LAUNCHES}
+            print(f"[large-main] cli {' '.join(args[:-2])}: launches {got}")
+            check(got["hit_extents"] == LARGE_FRAMES and got[mode] == LARGE_FRAMES and
+                  sum(render_cuda.LAUNCHES.values()) == LARGE_FRAMES,
+                  f"{label}: launches {got}, expected {LARGE_FRAMES} hit_extents and "
+                  f"{LARGE_FRAMES} {mode}")
+            w, h, px = read_png(png)
+            check((w, h) == LARGE_RES, f"{png}: {w}x{h}")
+            img = rt.render_image_cuda(cam, scene, depth=2, aliasing=aa)
+            check(img.shape == (W, H, 3) and bool(torch.isfinite(img).all()),
+                  f"{label}: frame {tuple(img.shape)} not finite")
+            check(np.array_equal(px, framebuffer_to_array(rt.to_framebuffer(img))),
+                  f"{png}: pixels differ from the kernel's frame")
+            check(torch.equal(img, rt.render_image_cuda(cam, scene, depth=2, aliasing=aa,
+                                                        **ALL_OFF)),
+                  f"{label}: the culled frame differs from the full sweep")
+            t0 = time.perf_counter()
+            ref = plain(cam, scene, aa)
+            torch.cuda.synchronize()
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            err = flips(f"{label} vs plain (PNG decodes to the kernel's frame, which is "
+                        f"bit-identical to the full sweep)", img, ref, LARGE_RES)
+            del ref
+            rule = extents_held(f"{label} (the main path's launch)", cam, scene, aa, True,
+                                vis_of(cam, scene, True))
+            main[(n, aa)] = dict(launches=got, err=err, plain_ms=plain_ms, rule=rule,
+                                 label=label, mode=mode)
+
+    # Phase 15: times with CUDA events.
+    def host_and_device_ms(fn, iters=10):
+        """(device ms, host ms) a call: CUDA events around `iters` calls back
+        to back, and the host clock over the same calls before the
+        synchronise (the time to enqueue them)."""
+        fn()
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        host = 1e3 * (time.perf_counter() - t0) / iters
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters, host
+
+    def times(label, cam, scene, aa, plain_ms=None):
+        mode = "aa_shared" if aa else "aa_none"
+        ns, npl, nl = cnt = counts(scene)
+        k = ct.list_capacity(ns)
+        W, H = cam.resolution
+        params = render_cuda.pack_params(cam, scene, True).to(dev)
+        tabs = render_cuda.scene_tables(scene)
+        cheap = render_cuda.shadow_cheap_ok(scene, True)
+        vis, shadow, groups = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                             aliasing=aa, compat=True)
+        ext = torch.empty((vis[1].numel(), 8), device=dev)
+        out = torch.empty((W, H, 3), device=dev)
+        reps = 20 if ns <= 100 else 5
+        t = {"k3": 1e3 * rt.time_fn(hx.launch, ext, params, tabs, cnt, W=W, H=H, aliasing=aa,
+                                    compat=True, n_levels=1, vis=vis, warmup=2, iters=50)}
+        t["vis"] = host_and_device_ms(lambda: ct.tile_visibility(cam, scene, compat=True, K=k))
+        t["lists"] = host_and_device_ms(lambda: ct.shadow_visibility_lists(
+            ext, scene.lights.position, scene.spheres.center, scene.spheres.radius, K=k,
+            compat=True))
+        t["groups"] = host_and_device_ms(lambda: ct.sphere_groups(
+            scene.spheres.center, scene.spheres.radius, order_from=cam.position))
+        for name, tb in (("on", (vis, shadow, groups)), ("off", (None, None, None))):
+            t[name] = 1e3 * rt.time_fn(render_cuda.launch, out, params, tabs, cnt, depth=2,
+                                       mode=mode, compat=True, cheap_shadow=cheap, vis=tb[0],
+                                       shadow=tb[1], groups=tb[2], warmup=2, iters=reps)
+        t["wrapper"] = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
+                                        aliasing=aa, warmup=2, iters=reps)
+        t["wrapper_off"] = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
+                                            aliasing=aa, **ALL_OFF, warmup=2, iters=reps)
+        t["k3_bound"] = timing.bound_ms(*timing.hit_extents_work(W, H, ns, npl, aa, vis,
+                                                                 ext))
+        t["on_bound"] = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, mode, vis,
+                                                                 shadow, ext))
+        t["off_bound"] = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, mode,
+                                                                  None, None, ext))
+
+        def rows(tab):
+            c = tab[1].float()
+            return (float(c[c >= 0].mean()) if bool((c >= 0).any()) else 0.0,
+                    float((c < 0).float().mean()))
+        (vm, vo), (sm, so) = rows(vis), rows(shadow)
+        plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+        print(f"[large-time] {label}: hit_extents kernel alone {t['k3']:.4f} ms; table functions "
+              f"(device ms / host ms a call) tile_visibility {t['vis'][0]:.4f} / "
+              f"{t['vis'][1]:.4f}, shadow_visibility_lists {t['lists'][0]:.4f} / "
+              f"{t['lists'][1]:.4f}, sphere_groups {t['groups'][0]:.4f} / "
+              f"{t['groups'][1]:.4f} ({'used' if groups else 'not used at this size'}); "
+              f"render kernel alone all culls on {t['on']:.4f} ms, all off {t['off']:.4f} ms "
+              f"({t['on'] / t['off']:.3f}x); whole wrapper {t['wrapper']:.4f} ms, with culls "
+              f"off {t['wrapper_off']:.4f} ms{plain_txt} | {card}")
+        print(f"[large-lists] {label}: K={k}; primary rows mean {vm:.2f} spheres, -1 rows "
+              f"{vo:.4f}; shadow rows mean {sm:.2f} spheres, -1 rows {so:.4f}; groups "
+              f"{groups[2] if groups else 0}")
+        print(f"[bound] hit_extents {label}: {t['k3_bound'][0]:.4f} ms ({t['k3_bound'][1]}) vs "
+              f"kernel alone {t['k3']:.4f} ms; render all culls on {t['on_bound'][0]:.4f} ms "
+              f"({t['on_bound'][1]}, a lower bound: the listed primary and level-0 shadow "
+              f"sweeps) vs {t['on']:.4f} ms; all off {t['off_bound'][0]:.4f} ms vs "
+              f"{t['off']:.4f} ms | {card}")
+        return t
+
+    timed = {}
+    for n in LARGE_SPHERES:
+        scene = cli_scene(n)
+        for aa in (False, True):
+            m = main[(n, aa)]
+            timed[(n, aa)] = times(m["label"], cam, scene, aa, m["plain_ms"])
+    bench_cam = cli_camera(LARGE_RES, BENCH_POSE)
+    for aa in (False, True):
+        label = f"100_spheres_{W}x{H}_{'aa' if aa else 'noaa'}_camera_-12_0_4"
+        scene = cli_scene(100)
+        img = rt.render_image_cuda(bench_cam, scene, depth=2, aliasing=aa)
+        check(torch.equal(img, rt.render_image_cuda(bench_cam, scene, depth=2, aliasing=aa,
+                                                    **ALL_OFF)),
+              f"{label}: the culled frame differs from the full sweep")
+        times(label, bench_cam, scene, aa)
+
+    # Where each cull starts to pay end to end on this card: the whole wrapper
+    # (table functions, kernel 3, render kernel) with the automatic choice,
+    # with each cull alone and with all off, over the sphere count.
+    for n in CROSSOVER_SPHERES:
+        scene = cli_scene(n)
+        for aa in (False, True):
+            ms = {name: 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
+                                         aliasing=aa, **culls, warmup=2, iters=5)
+                  for name, culls in (("auto", {}), *CULLS.items(), ("off", ALL_OFF))}
+            print(f"[large-crossover] {n} spheres {W}x{H} {'aa' if aa else 'noaa'}, whole "
+                  f"wrapper ms: " + ", ".join(f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" | {card}")
+
+    n = LARGE_SPHERES[-1]
+
+    def render_entry(aa):
+        m, t = main[(n, aa)], timed[(n, aa)]
+        return {"name": f"render_fwd_{m['mode']}_large", "route": "cuda",
+                "source": "python_ray_tracer_tpu_torch/csrc/render_fwd.cu",
+                "replaces": REPLACES[m["mode"]], "launches": m["launches"][m["mode"]],
+                "max_abs_err": m["err"], "ms": t["wrapper"], "plain_ms": m["plain_ms"],
+                "kernel_only_ms": t["on"], "culls_off_kernel_ms": t["off"],
+                "bound_ms": t["on_bound"][0], "bound_by": t["on_bound"][1],
+                "library_ms": None, "shape": m["label"]}
+    m, t = main[(n, True)], timed[(n, True)]
+    # the kernel's own wrapper, as large_scene_tables calls it
+    scene = cli_scene(n)
+    vis = vis_of(cam, scene, True)
+    hx_ms = 1e3 * rt.time_fn(hx.hit_extents_cuda, cam, scene, aliasing=True, vis=vis,
+                             warmup=2, iters=20)
+    hx_plain_ms = 1e3 * rt.time_fn(hx.hit_extents_plain, cam, scene, aliasing=True, vis=vis,
+                                   warmup=1, iters=1)
+    print(f"[large-time] hit_extents wrapper {hx_ms:.4f} ms, plain version "
+          f"{hx_plain_ms:.4f} ms at {m['label']} | {card}")
+    launches = sum(v["launches"]["hit_extents"] for v in main.values())
+    print(f"[large-main] launches over the large-scene main paths: hit_extents {launches}, "
+          f"render {[(v['label'], v['launches'][v['mode']]) for v in main.values()]}")
+    return [
+        {"name": "hit_extents", "route": "cuda", "source": HX_SOURCE, "replaces": HX_REPLACES,
+         "launches": launches, "max_abs_err": m["rule"]["max_abs_err"],
+         "max_rel_err": m["rule"]["ratio"], "ms": hx_ms, "kernel_only_ms": t["k3"],
+         "plain_ms": hx_plain_ms, "bound_ms": t["k3_bound"][0], "bound_by": t["k3_bound"][1],
+         "library_ms": None, "shape": m["label"]},
+        render_entry(False), render_entry(True)]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -776,7 +1096,7 @@ def main() -> int:
     import numpy as np
     import python_ray_tracer_tpu_torch as rt
     from python_ray_tracer_tpu_torch import cli
-    from python_ray_tracer_tpu_torch.ops.cuda import _build, render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import _build, hit_extents_cuda, render_cuda
     from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
 
@@ -850,6 +1170,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     pngs = {label: os.path.join(OUT_DIR, f"{label}.png") for label, _, _ in MAIN_PATH}
     render_cuda.reset_launch_counts()
+    hit_extents_cuda.reset_launch_counts()
     for label, args, mode in MAIN_PATH:
         before = render_cuda.LAUNCHES[mode]
         check(cli.main(["render", "--backend", "cuda", *args, "--out",
@@ -857,8 +1178,12 @@ def main() -> int:
         check(render_cuda.LAUNCHES[mode] > before,
               f"cli render {label} did not launch {mode}")
     launches = dict(render_cuda.LAUNCHES)
-    print(f"[main] kernel launches on the main path: {launches}")
+    print(f"[main] kernel launches on the main path: {launches}; hit_extents "
+          f"{hit_extents_cuda.LAUNCHES['hit_extents']} (the demo scene takes no "
+          f"large-scene table)")
     check(all(launches[m] > 0 for m in REPLACES), f"main path launches {launches}")
+    check(hit_extents_cuda.LAUNCHES["hit_extents"] == 0,
+          "the demo scene launched the hit-extent kernel")
     for label, args, mode in MAIN_PATH:
         w, h, png = read_png(pngs[label])
         want = (int(args[1]), int(args[3]))
@@ -910,13 +1235,14 @@ def main() -> int:
               f"bound: the primary sweep only) vs kernel alone {r['kernel_ms']:.4f} ms")
         kernels.append({
             "name": f"render_fwd_{mode}", "route": "cuda",
-            "source": "python_ray_tracer_tpu_torch/csrc/render_fwd.cu",
+            "source": "python_ray_tracer_tpu_torch/csrc/render_fwd_small.cu",
             "replaces": REPLACES[mode], "launches": launches[mode],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "kernel_only_ms": r["kernel_ms"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "shape": label})
     kernels += backward_phases(torch, rt, card, dev)
     kernels += soft_phases(torch, rt, card, dev)
+    kernels += large_scene_phases(torch, rt, card, dev)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,10 @@ convert gradients between the flat layout and the pytrees.
 The arrays can come from the JAX package (its pytree leaves, its flat
 ``render_bwd.grad_layout`` gradient vector, or ``Scene.to_soa()`` output) or
 from a file; nothing here imports JAX. Both packages then render the same scene
-bit for bit at their inputs, and their gradients compare slot by slot.
+bit for bit at their inputs, and their gradients compare slot by slot. The
+large-scene tables cross the same way (:func:`tables_from_arrays`,
+:func:`tile_rows_from_jax`), so the port's kernels can run on tables the JAX
+package built.
 """
 from __future__ import annotations
 
@@ -15,6 +18,7 @@ import torch
 
 from .models.camera import Camera
 from .models.scene import LEAF_PATHS, Materials, Scene
+from .ops.cuda.cull_tables import GROUP_SIZE
 from .ops.cuda.render_bwd_cuda import flatten_grads, n_grads, unflatten_grads
 
 
@@ -45,6 +49,38 @@ def camera_from_arrays(position: np.ndarray, rotation: np.ndarray, fov,
     """Camera from its arrays (the JAX Camera's leaves) and resolution."""
     return Camera(_t(position, device), _t(rotation, device), _t(fov, device),
                   tuple(int(v) for v in resolution))
+
+
+def tile_rows_from_jax(rows: np.ndarray, n_tx: int, n_ty: int, swap_xy: bool) -> np.ndarray:
+    """Per-tile rows ``(n_tiles, ...)`` in the JAX package's tile numbering ->
+    the port's (``tx * n_ty + ty``). The JAX kernels number tiles ``i * n_v +
+    j`` over their (sublane, lane) grid: ``(x, y)`` tiles as here when
+    ``swap_xy`` is false, ``(y, x)`` tiles when it is true."""
+    rows = np.asarray(rows)
+    if not swap_xy:
+        return rows
+    return rows.reshape(n_ty, n_tx, *rows.shape[1:]).swapaxes(0, 1).reshape(rows.shape)
+
+
+def tables_from_arrays(*, vis=None, shadow=None, groups=None, device="cpu"):
+    """The render kernel's large-scene tables from numpy arrays, e.g. those of
+    ``render_pallas._tile_visibility`` / ``_shadow_visibility_lists`` /
+    ``_sphere_groups`` built with the port's 16x16 tiles and brought into its
+    tile numbering (:func:`tile_rows_from_jax`): ``vis = (idx, cnt, k)`` and
+    ``shadow = (idx, cnt, k)`` become int32 tensors, ``groups = (perm,
+    bounds)`` an int32 and a float32 tensor with the group count. Returns
+    ``(vis, shadow, groups)`` as ``render_cuda.launch`` takes them."""
+    def ints(a):
+        return torch.as_tensor(np.array(a, dtype=np.int32).reshape(-1),
+                               device=device)
+    out = [None if t is None else (ints(t[0]), ints(t[1]), int(t[2]))
+           for t in (vis, shadow)]
+    if groups is not None:
+        perm, bounds = groups
+        out.append((ints(perm), _t(bounds, device).reshape(-1), len(perm) // GROUP_SIZE))
+    else:
+        out.append(None)
+    return tuple(out)
 
 
 def grads_from_flat(flat: np.ndarray, ns: int, npl: int, nl: int, *,

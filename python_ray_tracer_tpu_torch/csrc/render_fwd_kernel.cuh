@@ -1,0 +1,244 @@
+// Forward render kernel for Hopper (sm_90a): ray generation -> closest hit ->
+// ambient + Lambert + shadow rays -> mirror bounces -> 3x3 AA with the
+// reference's compat G/B swaps, in one launch, one thread per pixel.
+//
+// Replaces the TPU kernels of python_ray_tracer_tpu/ops/pallas/render_pallas.py:
+//   AA_NONE        <- _make_kernel (:1487) at S=1 (no AA)
+//   AA_PER_SAMPLE  <- _make_kernel (:1487) at S=9 (per-sample AA grid axis)
+//   AA_SHARED      <- _make_kernel_aa_shared (:1386) (4 shared sample grids)
+//
+// What bounds it on this card: FP32 ALU work and sqrt/division rate, not
+// memory. The scene is 60 floats (demo) to 7000 (1000 spheres) and the output
+// 12 bytes a pixel; without tables every ray sweeps every object (spheres,
+// planes) once for its closest hit and once per light for its shadow test, at
+// each of up to depth+1 trace levels.
+//
+// What the design does about it:
+//   * the parameter vector and the scene's SoA tables are staged in shared
+//     memory at block start, so object reads are broadcasts that cost no
+//     global-memory traffic;
+//   * loops over objects, lights and bounces run at run time (no unroll
+//     limit); a ray that misses stops bouncing and a shadow ray stops at its
+//     first occluder, both exact;
+//   * AA_SHARED evaluates each distinct sample position once per block: the
+//     reference's AA samples are midpoints between neighbouring pixels, so a
+//     16x16 block needs its 256 centers, 17x16 + 16x17 edge midpoints and
+//     17x17 corners (1089 chains) instead of 9 x 256 = 2304;
+//   * no atomics: every output element is written by one thread, so the
+//     output is deterministic;
+//   * large scenes (the TABLES instantiations, render_fwd.cu; the host wrapper
+//     decides) sweep less: a block is one tile of the host's tables, so its primary rays
+//     sweep the tile's cone-visible spheres, its level-0 shadow rays the
+//     tile's per-light occluder lists (built from the hit-extent kernel's
+//     rows, hit_extents.cu), and its bounce rays the Morton groups whose ball
+//     they meet. The block's lists and the groups are staged in shared memory
+//     beside the scene; lists are uniform across the block, group tests are
+//     per thread. Every cull is exact: the image is bit-identical to the full
+//     sweep's (exact t ties between distinct spheres under the Morton order
+//     aside), which the same instantiation renders with its tables off, and
+//     which needs rt_common.cuh's pinned arithmetic. The small-scene
+//     instantiations (render_fwd_small.cu) are the kernel without any of it,
+//     in the compiler's own arithmetic.
+// Occupancy tuning and gathered (cx, cy, cz, r) list rows are later work.
+//
+// Block shape: 16x16 threads; threadIdx.x walks the image's y axis, which is
+// the contiguous axis of the (w, h, 3) output. The ragged edge is masked with
+// `<` (the reference's `<=` bound reads out of bounds; see the README's
+// divergence ledger, item 1).
+//
+// This header holds the kernel and its launch; each of those two source files
+// includes it once, after choosing rt_common.cuh's arithmetic, and
+// instantiates its own half (TABLES true or false).
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "rt_common.cuh"
+
+namespace {
+
+using namespace rt;
+
+enum : int { AA_NONE = 0, AA_PER_SAMPLE = 1, AA_SHARED = 2 };
+
+constexpr int TILE = 16;                                   // pixels a side
+constexpr int N_C = TILE * TILE;                           // centers
+constexpr int N_U = (TILE + 1) * TILE;                     // x-axis midpoints
+constexpr int N_V = TILE * (TILE + 1);                     // y-axis midpoints
+constexpr int N_UV = (TILE + 1) * (TILE + 1);              // corners
+constexpr int N_SHARED = N_C + N_U + N_V + N_UV;           // 1089
+
+__device__ __forceinline__ void store(float* out, int H, int x, int y,
+                                      float c0, float c1, float c2) {
+  float* o = out + (static_cast<size_t>(x) * H + y) * 3;
+  o[0] = c0;
+  o[1] = c1;
+  o[2] = c2;
+}
+
+template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
+__global__ void __launch_bounds__(TILE * TILE)
+render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
+                  int ns, const float* __restrict__ pln, int npl,
+                  const float* __restrict__ lts, int nl, float* __restrict__ out,
+                  int W, int H, int depth, TableArgs ta) {
+  extern __shared__ float smem[];
+  float* s_p = smem;
+  float* s_sph = s_p + N_PARAMS;
+  float* s_pln = s_sph + 7 * ns;
+  float* s_lts = s_pln + 9 * npl;
+  const int tid = threadIdx.y * TILE + threadIdx.x;
+  for (int i = tid; i < N_PARAMS; i += TILE * TILE) s_p[i] = params[i];
+  for (int i = tid; i < 7 * ns; i += TILE * TILE) s_sph[i] = sph[i];
+  for (int i = tid; i < 9 * npl; i += TILE * TILE) s_pln[i] = pln[i];
+  for (int i = tid; i < 3 * nl; i += TILE * TILE) s_lts[i] = lts[i];
+  // The tile id of the host's tables: x tiles outermost, as cull_tables.py
+  // numbers them.
+  float* s_tab = s_lts + 3 * nl;
+  Tables tb{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
+  if (TABLES) {
+    tb = stage_tables(ta, nl, blockIdx.y * gridDim.x + blockIdx.x, s_tab, tid,
+                      TILE * TILE);
+  }
+  __syncthreads();
+  const SceneView s{s_p, s_sph, ns, s_pln, npl, s_lts, nl};
+
+  const int x0 = blockIdx.y * TILE, y0 = blockIdx.x * TILE;
+  const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
+  const float fx0 = static_cast<float>(x0);
+  const float fy0 = static_cast<float>(y0);
+  const float gx = fx0 + static_cast<float>(threadIdx.y);
+  const float gy = fy0 + static_cast<float>(threadIdx.x);
+  const bool interior = gx >= 1.0f && gx <= static_cast<float>(W - 2) &&
+                        gy >= 1.0f && gy <= static_cast<float>(H - 2);
+  const float inv9 = static_cast<float>(1.0 / 9.0);
+
+  if (MODE == AA_SHARED) {
+    // Evaluate the block's 4 shared sample grids into shared memory:
+    // C (16x16) at (x, y), U (17x16) at (x - 0.5, y), V (16x17) at
+    // (x, y - 0.5), UV (17x17) at (x - 0.5, y - 0.5), indices from the tile
+    // corner; channel c of sample q lives at samp[c * N_SHARED + q].
+    float* samp = s_tab + (TABLES ? table_words(ta, nl) : 0);
+    for (int q = tid; q < N_SHARED; q += TILE * TILE) {
+      int kx, ky;
+      float du = 0.0f, dv = 0.0f;
+      if (q < N_C) {
+        kx = q / TILE; ky = q % TILE;
+      } else if (q < N_C + N_U) {
+        kx = (q - N_C) / TILE; ky = (q - N_C) % TILE; du = -0.5f;
+      } else if (q < N_C + N_U + N_V) {
+        kx = (q - N_C - N_U) / (TILE + 1); ky = (q - N_C - N_U) % (TILE + 1); dv = -0.5f;
+      } else {
+        kx = (q - N_C - N_U - N_V) / (TILE + 1); ky = (q - N_C - N_U - N_V) % (TILE + 1);
+        du = -0.5f; dv = -0.5f;
+      }
+      const Rgb c = sample_chain<COMPAT, CHEAP, TABLES>(
+          s, tb, (fx0 + du) + static_cast<float>(kx),
+          (fy0 + dv) + static_cast<float>(ky), depth);
+      samp[q] = c.r;
+      samp[N_SHARED + q] = c.g;
+      samp[2 * N_SHARED + q] = c.b;
+    }
+    __syncthreads();
+    if (x >= W || y >= H) return;
+    const int kx = threadIdx.y, ky = threadIdx.x;
+    const int iC = kx * TILE + ky;
+    const int iU = N_C + kx * TILE + ky;                        // U[kx][ky]
+    const int iV = N_C + N_U + kx * (TILE + 1) + ky;            // V[kx][ky]
+    const int iUV = N_C + N_U + N_V + kx * (TILE + 1) + ky;     // UV[kx][ky]
+    float n[3];
+    for (int c = 0; c < 3; ++c) {
+      const float* sc = samp + c * N_SHARED;
+      n[c] = sc[iU] + sc[iU + TILE] + sc[iV] + sc[iV + 1] + sc[iUV] +
+             sc[iUV + TILE + 1] + sc[iUV + 1] + sc[iUV + TILE + 2];
+    }
+    const float pr = samp[iC], pg = samp[N_SHARED + iC], pb = samp[2 * N_SHARED + iC];
+    if (COMPAT) {   // accumulation swap + store swap composed
+      store(out, H, x, y, interior ? (pr + n[0]) * inv9 : pr,
+            interior ? (pb + n[1]) * inv9 : pb, interior ? (pg + n[2]) * inv9 : pg);
+    } else {
+      store(out, H, x, y, interior ? (pr + n[0]) * inv9 : pr,
+            interior ? (pg + n[1]) * inv9 : pg, interior ? (pb + n[2]) * inv9 : pb);
+    }
+    return;
+  }
+
+  if (x >= W || y >= H) return;
+  const Rgb c0 = sample_chain<COMPAT, CHEAP, TABLES>(s, tb, gx + s_p[P_OFFS],
+                                                     gy + s_p[P_OFFS + 1], depth);
+  // Primary sample: compat stores (R, B, G), the store swap (common.py:61-63).
+  float o0 = c0.r, o1 = COMPAT ? c0.b : c0.g, o2 = COMPAT ? c0.g : c0.b;
+  if (MODE == AA_PER_SAMPLE && interior) {
+    // Neighbour samples land unswapped under compat: the accumulation swap
+    // (kernels.py:59-60) composed with the store swap cancels for them.
+    for (int k = 1; k < 9; ++k) {
+      const Rgb c = sample_chain<COMPAT, CHEAP, TABLES>(
+          s, tb, gx + s_p[P_OFFS + 2 * k], gy + s_p[P_OFFS + 2 * k + 1], depth);
+      o0 += c.r;
+      o1 += c.g;
+      o2 += c.b;
+    }
+    o0 *= inv9;
+    o1 *= inv9;
+    o2 *= inv9;
+  }
+  store(out, H, x, y, o0, o1, o2);
+}
+
+// The scene, the output and the launch settings, bundled for the dispatch.
+struct Job {
+  const float* params;
+  const float* sph;
+  int ns;
+  const float* pln;
+  int npl;
+  const float* lts;
+  int nl;
+  float* out;
+  int W, H, depth;
+  TableArgs ta;
+  cudaStream_t stream;
+};
+
+template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
+cudaError_t launch(const Job& j) {
+  const size_t smem = sizeof(float) * (N_PARAMS + 7 * j.ns + 9 * j.npl + 3 * j.nl +
+                                       (TABLES ? table_words(j.ta, j.nl) : 0) +
+                                       (MODE == AA_SHARED ? 3 * N_SHARED : 0));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        render_fwd_kernel<MODE, COMPAT, CHEAP, TABLES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const dim3 block(TILE, TILE);
+  const dim3 grid((j.H + TILE - 1) / TILE, (j.W + TILE - 1) / TILE);
+  render_fwd_kernel<MODE, COMPAT, CHEAP, TABLES><<<grid, block, smem, j.stream>>>(
+      j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.out, j.W, j.H, j.depth, j.ta);
+  return cudaGetLastError();
+}
+
+template <int MODE, bool TABLES>
+cudaError_t dispatch_mode(bool compat, bool cheap, const Job& j) {
+  if (compat) {
+    return cheap ? launch<MODE, true, true, TABLES>(j) : launch<MODE, true, false, TABLES>(j);
+  }
+  return cheap ? launch<MODE, false, true, TABLES>(j) : launch<MODE, false, false, TABLES>(j);
+}
+
+// mode: 0 no AA, 1 per-sample AA, 2 shared-sample AA.
+template <bool TABLES>
+cudaError_t dispatch(int mode, bool compat, bool cheap, const Job& j) {
+  switch (mode) {
+    case AA_NONE:
+      return dispatch_mode<AA_NONE, TABLES>(compat, cheap, j);
+    case AA_PER_SAMPLE:
+      return dispatch_mode<AA_PER_SAMPLE, TABLES>(compat, cheap, j);
+    case AA_SHARED:
+      return dispatch_mode<AA_SHARED, TABLES>(compat, cheap, j);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace

@@ -6,18 +6,22 @@
 // two agree up to float rounding:
 //   raygen            <- _raygen            (:1294)
 //   closest_hit       <- _closest_hit       (:403), plus the winner's index
+//   closest_hit_listed  <- _culled_sphere_fold (:128) inside _closest_hit
+//   closest_hit_grouped <- _grouped_sphere_fold (:338) inside _closest_hit
 //   hit_of            <- the hit-attribute fold of render_bwd._fwd_trace_res
 //   sphere_occ_cheap  <- _sphere_occ_cheap  (:501)
 //   occluded          <- _any_hit_multi     (:571), one light at a time
+//   occluded_listed   <- _any_hit_listed    (:757), _culled_sphere_fold_ee (:168)
+//   occluded_grouped  <- _any_hit_multi_grouped (:645), one light at a time
 //   surface           <- _primary_geometry  (:952), for a given hit
 //   primary_geometry  <- _primary_geometry  (:952)
 //   reflect_dir       <- _reflect_dir       (:979)
+//   light_dir, bounce_ray <- the shadow and mirror rays of _trace (:1195)
 //   trace             <- _trace             (:1195)
 //   sample_chain      <- _sample_chain      (:1310)
-// The backward kernel (render_bwd.cu) includes this header and recomputes its
-// forward chain through these same functions, so its hit, shadow and bounce
-// decisions are the render kernel's own. The soft kernels include it through
-// soft_common.cuh. The adjoint helpers at the end (norm_adj, the warp
+// The backward kernel (render_bwd_kernel.cuh) includes this header and
+// recomputes its forward chain through these same functions. The soft kernels include it
+// through soft_common.cuh. The adjoint helpers at the end (norm_adj, the warp
 // reductions and the per-block partial column) are shared by both backward
 // kernels.
 //
@@ -29,12 +33,56 @@
 //
 // Normalisations use 1/sqrtf (IEEE sqrt and division without fast math), not
 // the approximate rsqrtf, so rays match the CPU references to the last bits
-// as far as FMA contraction allows.
+// as far as the chosen FMAs allow.
+//
+// Two arithmetics, chosen per source file with RT_PIN before the include.
+//
+// RT_PIN 1 (the default; render_fwd.cu's large-scene kernels, hit_extents.cu
+// and render_bwd.cu, the backward kernel of large scenes): every function that decides a hit or moves a ray (ray
+// generation, the sphere and plane tests of both sweeps, the surface point and
+// normal, the mirror and light directions) is written in the operations fm /
+// fa / fs / ff / pm below, so that no product is ever fused with the sum that
+// consumes it except where the source says ff. Left to itself the compiler
+// contracts a*b + c differently from one inlined copy to the next (measured
+// on the H100: the listed and the full closest-hit sweep of one kernel
+// disagreed in the last bits at a third of the pixels). With the operations
+// pinned, a sphere's t, a hit point and a shadow decision are the same bits in
+// every sweep and in every pinned source file: the culled render equals the
+// full sweep, the hit-extent kernel's points are the render kernel's, and the
+// backward kernel recomputes the render kernel's own decisions.
+//
+// A mul and an add are fused only when neither carries a rounding modifier,
+// so one of the two pinned is enough, and which one is a matter of speed.
+// Everywhere but in the per-sphere tests the sums are pinned (fa / fs / ff)
+// and the products plain (fm); in hit_sphere, sphere_occludes and
+// sphere_occ_cheap the products are pinned (pm, ff) and the sums plain
+// (+, -). Measured on the H100 (700 W), demo scene 1000x1000 AA / 1080p no AA
+// / 1080p AA and 1000 spheres 1080p no AA with every table off: compiler's
+// choice 0.510 / 0.230 / 1.000 / 19.85 ms, everything pinned 0.532 / 0.235 /
+// 1.047 / 19.85 ms, this mix 0.515 / 0.233 / 1.013 / 19.55 ms. The rule to
+// keep: never a plain product into a plain sum.
+//
+// RT_PIN 0 (render_fwd_small.cu and render_bwd_small.cu, for scenes too small
+// for tables, and the soft kernels): the same operations are plain * + -, and
+// the compiler contracts them as it likes. Those kernels sweep every sphere
+// for every ray, so nothing of theirs has to equal another sweep bit for bit,
+// and they keep the compiler's faster code. The two arithmetics live in two
+// inline namespaces, so a library that links both kinds of source file holds
+// no function under one name with two bodies.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#ifndef RT_PIN
+#define RT_PIN 1
+#endif
+
 namespace rt {
+#if RT_PIN
+inline namespace pinned {
+#else
+inline namespace contracted {
+#endif
 
 constexpr float FAR = 999.0f;   // reference init distance, trace.py:17
 constexpr float BIG = 1e30f;    // "no hit" distance in clean mode
@@ -79,8 +127,35 @@ struct TraceOut {
   bool alive;
 };
 
+#if RT_PIN
+// fm: a product for pinned sums only (fa, fs, ff, or no sum at all). fa, fs,
+// ff, pm: one IEEE operation each, round to nearest even, never fused or split.
+__device__ __forceinline__ float fm(float a, float b) { return a * b; }
+__device__ __forceinline__ float pm(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float fa(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float fs(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float ff(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+// a . b = fma(az, bz, fma(ay, by, ax bx)).
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
+                                      float bz) {
+  return ff(az, bz, ff(ay, by, fm(ax, bx)));
+}
+#else
+__device__ __forceinline__ float fm(float a, float b) { return a * b; }
+__device__ __forceinline__ float pm(float a, float b) { return a * b; }
+__device__ __forceinline__ float fa(float a, float b) { return a + b; }
+__device__ __forceinline__ float fs(float a, float b) { return a - b; }
+__device__ __forceinline__ float ff(float a, float b, float c) { return a * b + c; }
+
+__device__ __forceinline__ float dot3(float ax, float ay, float az, float bx, float by,
+                                      float bz) {
+  return ax * bx + ay * by + az * bz;
+}
+#endif
+
 __device__ __forceinline__ float rnorm(float x, float y, float z) {
-  return 1.0f / sqrtf(x * x + y * y + z * z);
+  return 1.0f / sqrtf(dot3(x, y, z, x, y, z));
 }
 
 // A primary ray with what its adjoint needs: the camera-space grid point
@@ -93,14 +168,14 @@ struct RayGen {
 // Analytic primary ray through fractional pixel (px, py).
 __device__ __forceinline__ RayGen raygen_full(const float* P, float px, float py) {
   const float pcx = P[P_FOCAL];
-  const float pcy = P[P_Y0] + px * P[P_DY];
-  const float pcz = P[P_Z0] + py * P[P_DZ];
-  const float dx = P[P_ROT + 0] * pcx + P[P_ROT + 1] * pcy + P[P_ROT + 2] * pcz;
-  const float dy = P[P_ROT + 3] * pcx + P[P_ROT + 4] * pcy + P[P_ROT + 5] * pcz;
-  const float dz = P[P_ROT + 6] * pcx + P[P_ROT + 7] * pcy + P[P_ROT + 8] * pcz;
+  const float pcy = ff(px, P[P_DY], P[P_Y0]);
+  const float pcz = ff(py, P[P_DZ], P[P_Z0]);
+  const float dx = dot3(P[P_ROT + 0], P[P_ROT + 1], P[P_ROT + 2], pcx, pcy, pcz);
+  const float dy = dot3(P[P_ROT + 3], P[P_ROT + 4], P[P_ROT + 5], pcx, pcy, pcz);
+  const float dz = dot3(P[P_ROT + 6], P[P_ROT + 7], P[P_ROT + 8], pcx, pcy, pcz);
   const float dn = rnorm(dx, dy, dz);
   return {{P[P_ORIGIN + 0], P[P_ORIGIN + 1], P[P_ORIGIN + 2],
-           dx * dn, dy * dn, dz * dn}, pcy, pcz, dn};
+           fm(dx, dn), fm(dy, dn), fm(dz, dn)}, pcy, pcz, dn};
 }
 
 __device__ __forceinline__ Ray raygen(const float* P, float px, float py) {
@@ -115,10 +190,16 @@ struct Hit {
   int obj;            // index into [spheres ++ planes]; -1 for no hit
 };
 
+// The record of a ray that has hit nothing yet: t at the far clip.
+template <bool COMPAT>
+__device__ __forceinline__ Hit no_hit() {
+  return {COMPAT ? FAR : BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, -1};
+}
+
 // The Hit record of object `obj` at distance t (obj < 0: no hit).
 template <bool COMPAT>
 __device__ __forceinline__ Hit hit_of(const SceneView& s, float t, int obj) {
-  if (obj < 0) return {COMPAT ? FAR : BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, -1};
+  if (obj < 0) return no_hit<COMPAT>();
   if (obj < s.ns) {
     const int ns = s.ns;
     return {t, s.sph[4 * ns + obj], s.sph[5 * ns + obj], s.sph[6 * ns + obj],
@@ -129,51 +210,244 @@ __device__ __forceinline__ Hit hit_of(const SceneView& s, float t, int obj) {
           s.pln[3 * np + j], s.pln[4 * np + j], s.pln[5 * np + j], true, obj};
 }
 
-// Closest hit over spheres, then planes, with the strict `<` winner test.
-template <bool COMPAT>
-__device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
-  Hit h{COMPAT ? FAR : BIG, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, false, -1};
-  const float ox = ray.ox, oy = ray.oy, oz = ray.oz;
-  const float dx = ray.dx, dy = ray.dy, dz = ray.dz;
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float inv2a = 1.0f / (2.0f * a);
-  // Sweep-invariant terms: b_j = 2(o.d - c_j.d), c_j = o.o - 2 o.c_j + |c_j|^2 - r_j^2.
-  const float od = ox * dx + oy * dy + oz * dz;
-  const float oo = ox * ox + oy * oy + oz * oz;
+// The terms of a closest-hit sweep that do not depend on the object:
+// b_j = 2(o.d - c_j.d), c_j = o.o - 2 o.c_j + |c_j|^2 - r_j^2.
+struct HitSweep {
+  float ox, oy, oz, dx, dy, dz;
+  float a, inv2a, od, oo;
+};
+
+__device__ __forceinline__ HitSweep hit_sweep(const Ray& ray) {
+  HitSweep w;
+  w.ox = ray.ox; w.oy = ray.oy; w.oz = ray.oz;
+  w.dx = ray.dx; w.dy = ray.dy; w.dz = ray.dz;
+  w.a = dot3(w.dx, w.dy, w.dz, w.dx, w.dy, w.dz);
+  w.inv2a = 1.0f / fm(2.0f, w.a);
+  w.od = dot3(w.ox, w.oy, w.oz, w.dx, w.dy, w.dz);
+  w.oo = dot3(w.ox, w.oy, w.oz, w.ox, w.oy, w.oz);
+  return w;
+}
+
+// Sphere j against the running winner h, strict `<`. Every closest-hit sweep
+// (full, listed, grouped) goes through this one body, so a sphere's t does
+// not depend on which sweep reached it.
+__device__ __forceinline__ void hit_sphere(const SceneView& s, const HitSweep& w,
+                                           int j, Hit& h) {
   const int ns = s.ns;
-  for (int j = 0; j < ns; ++j) {
-    const float cx = s.sph[j], cy = s.sph[ns + j], cz = s.sph[2 * ns + j];
-    const float r = s.sph[3 * ns + j];
-    const float cd = cx * dx + cy * dy + cz * dz;
-    const float oc = cx * ox + cy * oy + cz * oz;
-    const float b = 2.0f * (od - cd);
-    const float c = oo - 2.0f * oc + (cx * cx + cy * cy + cz * cz - r * r);
-    const float disc = b * b - 4.0f * a * c;
-    const bool has = disc >= 0.0f;
-    const float sq = sqrtf(has ? disc : 0.0f);
-    const float num_near = -b - sq;
-    const float num_far = -b + sq;
-    // nearest positive root; the far root is >= the near root always
-    const float tj = (num_near > 0.0f ? num_near : num_far) * inv2a;
-    if (has && num_far > 0.0f && tj < h.t) {
-      h = {tj, s.sph[4 * ns + j], s.sph[5 * ns + j], s.sph[6 * ns + j],
-           cx, cy, cz, false, j};
-    }
+  const float cx = s.sph[j], cy = s.sph[ns + j], cz = s.sph[2 * ns + j];
+  const float r = s.sph[3 * ns + j];
+  const float cd = dot3(cx, cy, cz, w.dx, w.dy, w.dz);
+  const float oc = dot3(cx, cy, cz, w.ox, w.oy, w.oz);
+  // pinned products, plain sums (see the head of this file)
+  const float b = pm(2.0f, w.od - cd);
+  const float c = ff(-2.0f, oc, w.oo) + ff(-r, r, dot3(cx, cy, cz, cx, cy, cz));
+  const float disc = ff(b, b, -pm(pm(4.0f, w.a), c));
+  const bool has = disc >= 0.0f;
+  const float sq = sqrtf(has ? disc : 0.0f);
+  const float num_near = -b - sq;
+  const float num_far = -b + sq;
+  // nearest positive root; the far root is >= the near root always
+  const float tj = pm(num_near > 0.0f ? num_near : num_far, w.inv2a);
+  if (has && num_far > 0.0f && tj < h.t) {
+    h = {tj, s.sph[4 * ns + j], s.sph[5 * ns + j], s.sph[6 * ns + j],
+         cx, cy, cz, false, j};
   }
+}
+
+// The planes against the running winner, after the spheres.
+template <bool COMPAT>
+__device__ __forceinline__ void hit_planes(const SceneView& s, const HitSweep& w,
+                                           Hit& h) {
   const float eps = COMPAT ? 1e-3f : 1e-8f;
   const int np = s.npl;
   for (int j = 0; j < np; ++j) {
     const float nx = s.pln[3 * np + j], ny = s.pln[4 * np + j], nz = s.pln[5 * np + j];
-    const float den = dx * nx + dy * ny + dz * nz;
+    const float den = dot3(w.dx, w.dy, w.dz, nx, ny, nz);
     const float den_safe = fabsf(den) > 1e-30f ? den : 1.0f;
-    const float num = (s.pln[j] - ox) * nx + (s.pln[np + j] - oy) * ny +
-                      (s.pln[2 * np + j] - oz) * nz;
+    const float num = dot3(fs(s.pln[j], w.ox), fs(s.pln[np + j], w.oy),
+                           fs(s.pln[2 * np + j], w.oz), nx, ny, nz);
     const float tj = num / den_safe;
     if (fabsf(den) >= eps && tj > 0.0f && tj < h.t) {
       h = {tj, s.pln[6 * np + j], s.pln[7 * np + j], s.pln[8 * np + j],
-           nx, ny, nz, true, ns + j};
+           nx, ny, nz, true, s.ns + j};
     }
   }
+}
+
+// Closest hit over spheres, then planes, with the strict `<` winner test.
+template <bool COMPAT>
+__device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
+  Hit h = no_hit<COMPAT>();
+  const HitSweep w = hit_sweep(ray);
+  const int ns = s.ns;
+  for (int j = 0; j < ns; ++j) hit_sphere(s, w, j, h);
+  hit_planes<COMPAT>(s, w, h);
+  return h;
+}
+
+// --- large-scene tables -------------------------------------------------------
+//
+// What a block reads of the tables that ops/cuda/cull_tables.py builds. The
+// lists are per render tile (one 16x16 block), so every thread of a block
+// sweeps the same list and a listed sweep does not diverge. The Morton groups
+// are per scene; the group test is per thread, on the thread's own ray (see
+// closest_hit_grouped).
+constexpr int GROUP = 16;       // spheres a Morton group (cull_tables.GROUP_SIZE)
+
+struct Tables {
+  const int* vis;     // this tile's cone-visible spheres, ascending index
+  int vis_n;          // how many; < 0: no list, sweep all ns spheres
+  const int* sh;      // this tile's nl occluder lists, sh_k slots each
+  const int* sh_n;    // their nl counts (< 0: sweep all); nullptr: no lists
+  int sh_k;
+  const int* perm;    // Morton sweep order, G * GROUP original indices
+  const float* bnd;   // G x (cx, cy, cz, R): a ball around each group
+  int G;              // 0: no groups
+};
+
+// The tables as a kernel receives them (device pointers; a null pointer
+// switches that table off): the flat per-tile primary lists `vis_idx
+// (n_tiles * vis_k)` with counts `vis_cnt (n_tiles)`, the per-(tile, light)
+// occluder lists `sh_idx (n_tiles * nl * sh_k)` with counts `sh_cnt (n_tiles *
+// nl)`, and the Morton groups `perm (G * GROUP)`, `bnd (G * 4)`. A count of -1
+// marks a row that overflowed its slots: that row sweeps all spheres.
+struct TableArgs {
+  const int* vis_idx;
+  const int* vis_cnt;
+  int vis_k;
+  const int* sh_idx;
+  const int* sh_cnt;
+  int sh_k;
+  const int* perm;
+  const float* bnd;
+  int G;
+};
+
+// 4-byte words of shared memory a block needs for its copy of the tables.
+__host__ __device__ inline int table_words(const TableArgs& a, int nl) {
+  return (a.perm ? a.G * (4 + GROUP) : 0) + (a.vis_idx ? a.vis_k : 0) +
+         (a.sh_idx ? nl * (a.sh_k + 1) : 0);
+}
+
+// Copy tile `tile`'s lists and the groups into shared memory at `base`
+// (table_words words) and return the block's view of them. Every thread of
+// the block calls it; a __syncthreads() must follow before the view is read.
+__device__ __forceinline__ Tables stage_tables(const TableArgs& a, int nl, int tile,
+                                               float* base, int tid, int nt) {
+  Tables tb{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
+  int* w = reinterpret_cast<int*>(base);
+  if (a.perm) {
+    float* bnd = base;
+    int* perm = w + 4 * a.G;
+    for (int i = tid; i < 4 * a.G; i += nt) bnd[i] = a.bnd[i];
+    for (int i = tid; i < GROUP * a.G; i += nt) perm[i] = a.perm[i];
+    tb.bnd = bnd; tb.perm = perm; tb.G = a.G;
+    w = perm + GROUP * a.G;
+  }
+  if (a.vis_idx) {
+    const int n = a.vis_cnt[tile];
+    const int* src = a.vis_idx + static_cast<size_t>(tile) * a.vis_k;
+    for (int i = tid; i < n; i += nt) w[i] = src[i];
+    tb.vis = w; tb.vis_n = n;
+    w += a.vis_k;
+  }
+  if (a.sh_idx) {
+    int* cnt = w + nl * a.sh_k;
+    for (int l = 0; l < nl; ++l) {
+      const size_t row = static_cast<size_t>(tile) * nl + l;
+      const int n = a.sh_cnt[row];
+      const int* src = a.sh_idx + row * a.sh_k;
+      for (int i = tid; i < n; i += nt) w[l * a.sh_k + i] = src[i];
+      if (tid == 0) cnt[l] = n;
+    }
+    tb.sh = w; tb.sh_n = cnt; tb.sh_k = a.sh_k;
+  }
+  return tb;
+}
+
+// Primary closest hit over the tile's cone-visible list (the JAX package's
+// _culled_sphere_fold). The list keeps ascending sphere index, so the strict
+// `<` winner and its tie class are those of the full sweep; n < 0 is the
+// overflow sentinel and sweeps all spheres.
+template <bool COMPAT>
+__device__ __forceinline__ Hit closest_hit_listed(const SceneView& s, const Ray& ray,
+                                                  const int* list, int n) {
+  if (n < 0) return closest_hit<COMPAT>(s, ray);
+  Hit h = no_hit<COMPAT>();
+  const HitSweep w = hit_sweep(ray);
+  for (int i = 0; i < n; ++i) hit_sphere(s, w, list[i], h);
+  hit_planes<COMPAT>(s, w, h);
+  return h;
+}
+
+// May the ray o + t d meet the ball (g, R) at some t > 0, and where does it
+// enter it (clamped at 0)? The group test of both grouped sweeps: the root
+// form of the sphere test with no far clip, on the sweep's hoisted terms.
+// A member sphere lies inside its group's ball (cull_tables.sphere_groups
+// inflates R by 0.1% + 1e-3), so in exact arithmetic a ray that meets a member
+// meets the ball no later. In float32 both tests carry the rounding of the
+// hoisted quadratic, which grows with the square of the origin's distance from
+// the scene (a bounce ray can start hundreds of units away on the ground
+// plane): about 1e-7 (b^2 + 4 a |terms of c|) in the discriminant, so a member
+// test can report a hit for a ray that passes the sphere at a distance that
+// R's fixed slack does not cover. The ball test therefore widens its own
+// discriminant by `tol`, 32 float32 epsilons of the magnitudes that went into
+// it, and moves the entry point toward the origin by the matching distance;
+// near the scene that widens a ball by ~1e-3 of a unit and moves its entry by
+// a few 1e-2, which costs the cull next to nothing.
+struct BallTest {
+  bool may;
+  float entry;
+};
+
+__device__ __forceinline__ BallTest ball_test(float gx, float gy, float gz, float gr,
+                                              float ox, float oy, float oz, float dx,
+                                              float dy, float dz, float a, float inv2a,
+                                              float od, float oo) {
+  const float cd = dot3(gx, gy, gz, dx, dy, dz);
+  const float oc = dot3(gx, gy, gz, ox, oy, oz);
+  const float gg = dot3(gx, gy, gz, gx, gy, gz);
+  const float c = fa(ff(-2.0f, oc, oo), ff(-gr, gr, gg));
+  const float b = fm(2.0f, fs(od, cd));
+  const float disc = ff(b, b, -fm(fm(4.0f, a), c));
+  const float bb = fm(2.0f, fa(fabsf(od), fabsf(cd)));
+  const float mag = ff(bb, bb, fm(fm(4.0f, a), fa(fa(oo, fm(2.0f, fabsf(oc))), ff(gr, gr, gg))));
+  const float tol = fm(3.8e-6f, mag);                 // 32 * 2^-23
+  const float wide = fa(disc, tol);
+  const float sq = sqrtf(fmaxf(wide, 0.0f));
+  const float reach = fa(sq, sqrtf(tol));
+  return {wide >= 0.0f && fa(-b, reach) > 0.0f, fmaxf(fm(fs(-b, reach), inv2a), 0.0f)};
+}
+
+// Bounce closest hit over the Morton groups (_grouped_sphere_fold): a group
+// is swept only if the ray meets its ball at a positive t (root form, no far
+// clip: a member hit at any positive t implies it) and enters it before the
+// running winner (a member's t is >= the ball's entry t, and the winner test
+// is strict). The TPU kernel tests a whole tile's rays and sweeps a group if
+// any lane needs it; here each thread decides for its own ray, which is the
+// same test on fewer rays: lanes of a warp that skip a group wait for those
+// that sweep it, and no warp vote is needed (in AA_SHARED's last pass of the
+// sample loop only part of a warp is active, where a full-mask vote would be
+// undefined). Sweeping in Morton order moves exact-tie winners only. All
+// GROUP slots of a group are swept: the pad slots of the one partial group
+// repeat sphere 0 (its own hit, which a second visit cannot change), and the
+// front-to-back group order can put that group anywhere, so masking "slots
+// past ns" would drop real members.
+template <bool COMPAT>
+__device__ __forceinline__ Hit closest_hit_grouped(const SceneView& s, const Ray& ray,
+                                                   const Tables& tb) {
+  Hit h = no_hit<COMPAT>();
+  const HitSweep w = hit_sweep(ray);
+  for (int g = 0; g < tb.G; ++g) {
+    const float gx = tb.bnd[4 * g], gy = tb.bnd[4 * g + 1], gz = tb.bnd[4 * g + 2];
+    const float gr = tb.bnd[4 * g + 3];
+    const BallTest q = ball_test(gx, gy, gz, gr, w.ox, w.oy, w.oz, w.dx, w.dy, w.dz,
+                                 w.a, w.inv2a, w.od, w.oo);
+    if (q.may && q.entry < h.t) {
+      for (int k = g * GROUP; k < (g + 1) * GROUP; ++k) hit_sphere(s, w, tb.perm[k], h);
+    }
+  }
+  hit_planes<COMPAT>(s, w, h);
   return h;
 }
 
@@ -186,9 +460,67 @@ __device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
 template <bool COMPAT>
 __device__ __forceinline__ bool sphere_occ_cheap(float cterm, float g, float a,
                                                  float inv_a) {
-  float tc = g * inv_a;
+  float tc = pm(g, inv_a);
   tc = COMPAT ? fminf(fmaxf(tc, 0.0f), FAR) : fmaxf(tc, 0.0f);
-  return cterm <= tc * (2.0f * g - a * tc);
+  return cterm <= pm(tc, ff(-a, tc, pm(2.0f, g)));
+}
+
+// The terms of a shadow sweep that do not depend on the object.
+struct ShadowSweep {
+  float ox, oy, oz, dx, dy, dz;
+  float oo, a, inv2a, inv_a, od;
+};
+
+__device__ __forceinline__ ShadowSweep shadow_sweep(float ox, float oy, float oz,
+                                                    float dx, float dy, float dz) {
+  ShadowSweep w;
+  w.ox = ox; w.oy = oy; w.oz = oz; w.dx = dx; w.dy = dy; w.dz = dz;
+  w.oo = dot3(ox, oy, oz, ox, oy, oz);
+  w.a = dot3(dx, dy, dz, dx, dy, dz);
+  w.inv2a = 1.0f / fm(2.0f, w.a);
+  w.inv_a = fa(w.inv2a, w.inv2a);
+  w.od = dot3(ox, oy, oz, dx, dy, dz);
+  return w;
+}
+
+// Does any plane block the shadow ray at 0 < t (< FAR in compat)?
+template <bool COMPAT>
+__device__ __forceinline__ bool planes_occlude(const SceneView& s, const ShadowSweep& w) {
+  const float eps = COMPAT ? 1e-3f : 1e-8f;
+  const int np = s.npl;
+  for (int j = 0; j < np; ++j) {
+    const float nx = s.pln[3 * np + j], ny = s.pln[4 * np + j], nz = s.pln[5 * np + j];
+    const float pnum = dot3(fs(s.pln[j], w.ox), fs(s.pln[np + j], w.oy),
+                            fs(s.pln[2 * np + j], w.oz), nx, ny, nz);
+    const float den = dot3(w.dx, w.dy, w.dz, nx, ny, nz);
+    const float den_safe = fabsf(den) > 1e-30f ? den : 1.0f;
+    const float tj = pnum / den_safe;
+    if (fabsf(den) >= eps && tj > 0.0f && (!COMPAT || tj < FAR)) return true;
+  }
+  return false;
+}
+
+// Does sphere j block the shadow ray? One body for every shadow sweep (full,
+// listed, grouped).
+template <bool COMPAT, bool CHEAP>
+__device__ __forceinline__ bool sphere_occludes(const SceneView& s, const ShadowSweep& w,
+                                                int j) {
+  const int ns = s.ns;
+  const float cx = s.sph[j], cy = s.sph[ns + j], cz = s.sph[2 * ns + j];
+  const float r = s.sph[3 * ns + j];
+  const float oc = dot3(cx, cy, cz, w.ox, w.oy, w.oz);
+  // pinned products, plain sums (see the head of this file)
+  const float cterm = ff(-2.0f, oc, w.oo) + ff(-r, r, dot3(cx, cy, cz, cx, cy, cz));
+  const float cd = dot3(cx, cy, cz, w.dx, w.dy, w.dz);
+  if (CHEAP) return sphere_occ_cheap<COMPAT>(cterm, cd - w.od, w.a, w.inv_a);
+  const float b = pm(2.0f, w.od - cd);
+  const float disc = ff(b, b, -pm(pm(4.0f, w.a), cterm));
+  const bool has = disc >= 0.0f;
+  const float sq = sqrtf(has ? disc : 0.0f);
+  const float num_near = -b - sq;
+  const float num_far = -b + sq;
+  const float tj = pm(num_near > 0.0f ? num_near : num_far, w.inv2a);
+  return has && num_far > 0.0f && (!COMPAT || tj < FAR);
 }
 
 // Is the shadow ray from o along unit d blocked by any object at any
@@ -197,43 +529,51 @@ __device__ __forceinline__ bool sphere_occ_cheap(float cterm, float g, float a,
 template <bool COMPAT, bool CHEAP>
 __device__ __forceinline__ bool occluded(const SceneView& s, float ox, float oy,
                                          float oz, float dx, float dy, float dz) {
-  const float eps = COMPAT ? 1e-3f : 1e-8f;
-  const int np = s.npl;
-  for (int j = 0; j < np; ++j) {
-    const float nx = s.pln[3 * np + j], ny = s.pln[4 * np + j], nz = s.pln[5 * np + j];
-    const float pnum = (s.pln[j] - ox) * nx + (s.pln[np + j] - oy) * ny +
-                       (s.pln[2 * np + j] - oz) * nz;
-    const float den = dx * nx + dy * ny + dz * nz;
-    const float den_safe = fabsf(den) > 1e-30f ? den : 1.0f;
-    const float tj = pnum / den_safe;
-    if (fabsf(den) >= eps && tj > 0.0f && (!COMPAT || tj < FAR)) return true;
-  }
-  const float oo = ox * ox + oy * oy + oz * oz;
-  const float a = dx * dx + dy * dy + dz * dz;
-  const float inv2a = 1.0f / (2.0f * a);
-  const float inv_a = inv2a + inv2a;
-  const float od = ox * dx + oy * dy + oz * dz;
+  const ShadowSweep w = shadow_sweep(ox, oy, oz, dx, dy, dz);
+  if (planes_occlude<COMPAT>(s, w)) return true;
   const int ns = s.ns;
   for (int j = 0; j < ns; ++j) {
-    const float cx = s.sph[j], cy = s.sph[ns + j], cz = s.sph[2 * ns + j];
-    const float r = s.sph[3 * ns + j];
-    const float oc = cx * ox + cy * oy + cz * oz;
-    const float cterm = oo - 2.0f * oc + (cx * cx + cy * cy + cz * cz - r * r);
-    const float cd = cx * dx + cy * dy + cz * dz;
-    bool valid;
-    if (CHEAP) {
-      valid = sphere_occ_cheap<COMPAT>(cterm, cd - od, a, inv_a);
-    } else {
-      const float b = 2.0f * (od - cd);
-      const float disc = b * b - 4.0f * a * cterm;
-      const bool has = disc >= 0.0f;
-      const float sq = sqrtf(has ? disc : 0.0f);
-      const float num_near = -b - sq;
-      const float num_far = -b + sq;
-      const float tj = (num_near > 0.0f ? num_near : num_far) * inv2a;
-      valid = has && num_far > 0.0f && (!COMPAT || tj < FAR);
+    if (sphere_occludes<COMPAT, CHEAP>(s, w, j)) return true;
+  }
+  return false;
+}
+
+// Level-0 shadow ray over the tile's occluder list for this light
+// (_any_hit_listed): the list holds every sphere that can block a shadow ray
+// from the tile's hit points toward the light or beyond it; n < 0 sweeps all.
+template <bool COMPAT, bool CHEAP>
+__device__ __forceinline__ bool occluded_listed(const SceneView& s, float ox, float oy,
+                                                float oz, float dx, float dy, float dz,
+                                                const int* list, int n) {
+  if (n < 0) return occluded<COMPAT, CHEAP>(s, ox, oy, oz, dx, dy, dz);
+  const ShadowSweep w = shadow_sweep(ox, oy, oz, dx, dy, dz);
+  if (planes_occlude<COMPAT>(s, w)) return true;
+  for (int i = 0; i < n; ++i) {
+    if (sphere_occludes<COMPAT, CHEAP>(s, w, list[i])) return true;
+  }
+  return false;
+}
+
+// Bounce shadow ray over the Morton groups (_any_hit_multi_grouped): a group
+// is swept only if the ray meets its ball at a positive t and, in compat,
+// enters it before FAR (a member's occluding t is >= the entry t). Per thread,
+// as in closest_hit_grouped.
+template <bool COMPAT, bool CHEAP>
+__device__ __forceinline__ bool occluded_grouped(const SceneView& s, float ox, float oy,
+                                                 float oz, float dx, float dy, float dz,
+                                                 const Tables& tb) {
+  const ShadowSweep w = shadow_sweep(ox, oy, oz, dx, dy, dz);
+  if (planes_occlude<COMPAT>(s, w)) return true;
+  for (int g = 0; g < tb.G; ++g) {
+    const float gx = tb.bnd[4 * g], gy = tb.bnd[4 * g + 1], gz = tb.bnd[4 * g + 2];
+    const float gr = tb.bnd[4 * g + 3];
+    const BallTest q = ball_test(gx, gy, gz, gr, ox, oy, oz, dx, dy, dz, w.a, w.inv2a,
+                                 w.od, w.oo);
+    if (q.may && (!COMPAT || q.entry < FAR)) {
+      for (int k = g * GROUP; k < (g + 1) * GROUP; ++k) {
+        if (sphere_occludes<COMPAT, CHEAP>(s, w, tb.perm[k])) return true;
+      }
     }
-    if (valid) return true;
   }
   return false;
 }
@@ -244,14 +584,14 @@ __device__ __forceinline__ bool occluded(const SceneView& s, float ox, float oy,
 __device__ __forceinline__ float reflect_dir(float dx, float dy, float dz,
                                              float nx, float ny, float nz,
                                              float& rx, float& ry, float& rz) {
-  const float ddn = dx * nx + dy * ny + dz * nz;
-  rx = dx - 2.0f * ddn * nx;
-  ry = dy - 2.0f * ddn * ny;
-  rz = dz - 2.0f * ddn * nz;
+  const float k = fm(-2.0f, dot3(dx, dy, dz, nx, ny, nz));
+  rx = ff(k, nx, dx);
+  ry = ff(k, ny, dy);
+  rz = ff(k, nz, dz);
   const float rn = rnorm(rx, ry, rz);
-  rx *= rn;
-  ry *= rn;
-  rz *= rn;
+  rx = fm(rx, rn);
+  ry = fm(ry, rn);
+  rz = fm(rz, rn);
   return rn;
 }
 
@@ -270,38 +610,71 @@ __device__ __forceinline__ Surface surface(const Ray& ray, const Hit& h) {
   Surface f;
   f.alive = h.t < (COMPAT ? FAR : BIG * 0.5f);
   const float ts = f.alive ? h.t : 0.0f;
-  float px = ray.ox + ts * ray.dx, py = ray.oy + ts * ray.dy, pz = ray.oz + ts * ray.dz;
+  const float px = ff(ts, ray.dx, ray.ox), py = ff(ts, ray.dy, ray.oy),
+              pz = ff(ts, ray.dz, ray.oz);
   if (h.plane) {
     f.nx = h.qx; f.ny = h.qy; f.nz = h.qz;
     f.srn = 1.0f;
   } else {
-    const float sx = px - h.qx, sy = py - h.qy, sz = pz - h.qz;
+    const float sx = fs(px, h.qx), sy = fs(py, h.qy), sz = fs(pz, h.qz);
     const float sn = rnorm(sx, sy, sz);
-    f.nx = sx * sn; f.ny = sy * sn; f.nz = sz * sn;
+    f.nx = fm(sx, sn); f.ny = fm(sy, sn); f.nz = fm(sz, sn);
     f.srn = sn;
   }
   f.ux = px; f.uy = py; f.uz = pz;
-  f.px = px + BIAS * f.nx;
-  f.py = py + BIAS * f.ny;
-  f.pz = pz + BIAS * f.nz;
+  f.px = ff(BIAS, f.nx, px);
+  f.py = ff(BIAS, f.ny, py);
+  f.pz = ff(BIAS, f.nz, pz);
   f.ar = h.ar; f.ag = h.ag; f.ab = h.ab;
   return f;
 }
 
-// Closest hit -> normal-biased hit point, unit normal and albedo.
-template <bool COMPAT>
-__device__ __forceinline__ Surface primary_geometry(const SceneView& s,
-                                                    const Ray& ray) {
+// Unit direction from the biased hit point to light l (the shadow ray), and
+// its reciprocal norm.
+__device__ __forceinline__ float light_dir(const SceneView& s, int l, const Surface& f,
+                                           float& lx, float& ly, float& lz) {
+  const int nl = s.nl;
+  lx = fs(s.lts[l], f.px);
+  ly = fs(s.lts[nl + l], f.py);
+  lz = fs(s.lts[2 * nl + l], f.pz);
+  const float ln = rnorm(lx, ly, lz);
+  lx = fm(lx, ln); ly = fm(ly, ln); lz = fm(lz, ln);
+  return ln;
+}
+
+// The mirror ray leaving surface f along unit (rx, ry, rz), its origin biased
+// along the ray.
+__device__ __forceinline__ Ray bounce_ray(const Surface& f, float rx, float ry, float rz) {
+  return {ff(BIAS, rx, f.px), ff(BIAS, ry, f.py), ff(BIAS, rz, f.pz), rx, ry, rz};
+}
+
+// Closest hit -> normal-biased hit point, unit normal and albedo. With
+// TABLES, the primary ray (level 0) sweeps the tile's cone-visible list and a
+// bounce ray the Morton groups (where the scene has them); without, and for a
+// table that is off, every ray sweeps every sphere. The hit-extent kernel
+// (hit_extents.cu) calls this same function, so its hit points are the
+// render kernel's level-0 shadow-ray origins.
+template <bool COMPAT, bool TABLES>
+__device__ __forceinline__ Surface primary_geometry(const SceneView& s, const Ray& ray,
+                                                    const Tables& tb, bool primary) {
+  if (!TABLES) return surface<COMPAT>(ray, closest_hit<COMPAT>(s, ray));
+  if (primary) {
+    return surface<COMPAT>(ray, closest_hit_listed<COMPAT>(s, ray, tb.vis, tb.vis_n));
+  }
+  if (tb.G > 0) return surface<COMPAT>(ray, closest_hit_grouped<COMPAT>(s, ray, tb));
   return surface<COMPAT>(ray, closest_hit<COMPAT>(s, ray));
 }
 
 // One shading evaluation (reference trace, trace.py:45-112): ambient +
 // Lambert over unoccluded lights (+ Phong in clean mode), and the next
-// mirror ray. A miss returns black with alive = false and no next ray.
-template <bool COMPAT, bool CHEAP>
-__device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray) {
+// mirror ray. A miss returns black with alive = false and no next ray. With
+// TABLES, level-0 shadow rays sweep the tile's occluder lists and bounce
+// shadow rays the Morton groups.
+template <bool COMPAT, bool CHEAP, bool TABLES>
+__device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
+                                          const Tables& tb, bool primary) {
   TraceOut o;
-  const Surface f = primary_geometry<COMPAT>(s, ray);
+  const Surface f = primary_geometry<COMPAT, TABLES>(s, ray, tb, primary);
   o.alive = f.alive;
   if (!f.alive) {
     o.r = o.g = o.b = 0.0f;
@@ -315,10 +688,17 @@ __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray) {
   float spec_sum = 0.0f;
   const int nl = s.nl;
   for (int l = 0; l < nl; ++l) {
-    float lx = s.lts[l] - f.px, ly = s.lts[nl + l] - f.py, lz = s.lts[2 * nl + l] - f.pz;
-    const float ln = rnorm(lx, ly, lz);
-    lx *= ln; ly *= ln; lz *= ln;
-    const bool occ = occluded<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz);
+    float lx, ly, lz;
+    light_dir(s, l, f, lx, ly, lz);
+    bool occ;
+    if (TABLES && primary && tb.sh_n != nullptr) {
+      occ = occluded_listed<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz,
+                                           tb.sh + l * tb.sh_k, tb.sh_n[l]);
+    } else if (TABLES && !primary && tb.G > 0) {
+      occ = occluded_grouped<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb);
+    } else {
+      occ = occluded<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz);
+    }
     float lam = lamb * (lx * f.nx + ly * f.ny + lz * f.nz);
     lam = (!occ && lam > 0.0f) ? lam : 0.0f;
     r = r + lam * f.ar;
@@ -337,23 +717,23 @@ __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray) {
     r += phong; g += phong; b += phong;
   }
   o.r = r; o.g = g; o.b = b;
-  o.next = {f.px + BIAS * rx, f.py + BIAS * ry, f.pz + BIAS * rz, rx, ry, rz};
+  o.next = bounce_ray(f, rx, ry, rz);
   return o;
 }
 
 // Primary trace + up to `depth` mirror bounces; bounce i adds
 // reflection^(i+1) * rgb_i. A ray that misses stops: its weight is 0 from
 // then on, so stopping is exact.
-template <bool COMPAT, bool CHEAP>
-__device__ __forceinline__ Rgb sample_chain(const SceneView& s, float px,
-                                            float py, int depth) {
-  TraceOut t = trace<COMPAT, CHEAP>(s, raygen(s.p, px, py));
+template <bool COMPAT, bool CHEAP, bool TABLES>
+__device__ __forceinline__ Rgb sample_chain(const SceneView& s, const Tables& tb,
+                                            float px, float py, int depth) {
+  TraceOut t = trace<COMPAT, CHEAP, TABLES>(s, raygen(s.p, px, py), tb, true);
   float r = t.r, g = t.g, b = t.b;
   const float refl = s.p[P_REFL];
   float w = 1.0f;
   for (int bounce = 0; bounce < depth && t.alive; ++bounce) {
     w = w * refl;
-    t = trace<COMPAT, CHEAP>(s, t.next);
+    t = trace<COMPAT, CHEAP, TABLES>(s, t.next, tb, false);
     r = r + w * t.r;
     g = g + w * t.g;
     b = b + w * t.b;
@@ -418,4 +798,5 @@ __device__ __forceinline__ void write_block_partial(const float* s_acc, int nwar
   }
 }
 
+}  // inline namespace pinned / contracted
 }  // namespace rt

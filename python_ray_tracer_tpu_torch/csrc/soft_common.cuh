@@ -24,6 +24,9 @@
 // far outside a silhouette, which gives alpha = 0 exactly, never a NaN.
 #pragma once
 
+// The soft kernels read no large-scene table: the compiler's own contraction
+// (rt_common.cuh).
+#define RT_PIN 0
 #include "rt_common.cuh"
 
 namespace rt {

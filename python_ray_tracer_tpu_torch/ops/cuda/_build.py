@@ -109,11 +109,15 @@ def load_library() -> ctypes.CDLL:
             vp, ci = ctypes.c_void_p, ctypes.c_int
             lib.rt_render_fwd.restype = ci
             lib.rt_render_fwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp,
-                                          ci, ci, ci, ci, ci, ci, vp]
+                                          ci, ci, ci, ci, ci, ci, ci,
+                                          vp, vp, ci, vp, vp, ci, vp, vp, ci, vp]
+            lib.rt_hit_extents.restype = ci
+            lib.rt_hit_extents.argtypes = [vp, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci,
+                                           vp, vp, ci, vp, vp, ci, vp]
             lib.rt_render_bwd.restype = ci
             lib.rt_render_bwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp,
                                           vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                                          vp]
+                                          ci, vp]
             lib.rt_reduce_rows.restype = ci
             lib.rt_reduce_rows.argtypes = [vp, ci, ci, vp, vp]
             cf = ctypes.c_float

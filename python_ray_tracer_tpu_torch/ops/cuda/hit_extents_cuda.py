@@ -1,0 +1,236 @@
+"""Hit extents through the hand-written CUDA kernel (``csrc/hit_extents.cu``).
+
+Counterpart of ``render_pallas._hit_extents_pallas`` (TPU kernel
+``_make_hit_extent_kernel``): per render tile and trace level, the box around
+the biased hit points of the sample chains that the render kernel will start
+shadow rays from, and their count, as rows ``[min xyz, max xyz, count, 0]``
+of a float32 ``(n_tiles * n_levels, 8)`` tensor, levels fastest (a tile
+without hits keeps ``+-1e30`` and count 0). ``cull_tables.
+shadow_visibility_lists`` turns the rows into the render kernel's per-(tile,
+light) occluder lists.
+
+:func:`hit_extents_cuda` runs :func:`hit_extents_plain` for tensors on the CPU;
+for CUDA tensors it launches the kernel or raises. The plain version reduces
+the hit points of ``ops/intersect.py`` per tile with tensor ops; the tests and
+``chip_smoke.py`` hold the kernel against it under :func:`extent_rule`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..intersect import BIG, _all_t
+from ..shade import BIAS, _surface_attributes, reflect
+from . import render_cuda
+from .cull_tables import GROUP_SIZE, TILE, tile_grid
+
+MAX_LEVELS = 4     # trace levels one launch covers (csrc/hit_extents.cu)
+# Kernel launches; a plain counter, reset with reset_launch_counts().
+LAUNCHES = {"hit_extents": 0}
+_PLAIN_BLOCK = 1 << 26   # elements of the plain version's largest intermediate
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["hit_extents"] = 0
+
+
+def _positions(n_tx: int, n_ty: int, tile: int, aliasing: bool, dev):
+    """Sample positions a tile: ``(px, py)`` of shape ``(n_tx * n_ty, P)``, the
+    centers and, with AA, the two half-axis grids and the corners (the render
+    kernel's four shared grids: 256 + 272 + 272 + 289 positions at tile 16)."""
+    grids = [(tile, tile, 0.0, 0.0)]
+    if aliasing:
+        grids += [(tile + 1, tile, -0.5, 0.0), (tile, tile + 1, 0.0, -0.5),
+                  (tile + 1, tile + 1, -0.5, -0.5)]
+    x0 = (torch.arange(n_tx, dtype=torch.float32, device=dev) * tile)[:, None, None]
+    y0 = (torch.arange(n_ty, dtype=torch.float32, device=dev) * tile)[None, :, None]
+    px, py = [], []
+    for nx, ny, du, dv in grids:
+        kx, ky = torch.meshgrid(torch.arange(nx, dtype=torch.float32, device=dev),
+                                torch.arange(ny, dtype=torch.float32, device=dev),
+                                indexing="ij")
+        gx, gy = torch.broadcast_tensors((x0 + du) + kx.reshape(-1), (y0 + dv) + ky.reshape(-1))
+        px.append(gx.reshape(n_tx * n_ty, -1))
+        py.append(gy.reshape(n_tx * n_ty, -1))
+    return torch.cat(px, dim=1), torch.cat(py, dim=1)
+
+
+def hit_extents_plain(camera, scene, *, aliasing: bool, compat: bool = True,
+                      n_levels: int = 1, tile: int = TILE, vis=None) -> torch.Tensor:
+    """The hit-extent rows with plain tensor ops, on the inputs' device.
+
+    ``tile`` is the tile's side in pixels. ``vis = (idx, cnt, k)``: the primary
+    cone-cull lists of :func:`cull_tables.tile_visibility`; a tile's level-0
+    closest hit then sweeps only its listed spheres (all of them where its
+    count is -1), as the kernel does."""
+    W, H = camera.resolution
+    n_tx, n_ty = tile_grid(W, H, tile)
+    n_tiles = n_tx * n_ty
+    dev = camera.device
+    ns, npl = scene.spheres.count, scene.planes.count
+    out = torch.zeros((n_tiles, n_levels, 8), dtype=torch.float32, device=dev)
+    out[..., 0:3] = BIG
+    out[..., 3:6] = -BIG
+    if ns + npl == 0:
+        return out.reshape(-1, 8)
+    px, py = _positions(n_tx, n_ty, tile, aliasing, dev)
+    listed = None
+    if vis is not None:
+        idx, cnt, k = vis
+        slots = torch.arange(k, device=dev)[None, :] < cnt[:, None]
+        listed = torch.zeros((n_tiles, ns + 1), dtype=torch.bool, device=dev)
+        # slots past a row's count go to the extra column
+        listed.scatter_(1, torch.where(slots, idx.reshape(n_tiles, k).long(),
+                                       torch.full_like(slots, ns, dtype=torch.long)),
+                        torch.ones_like(slots))
+        listed = listed[:, :ns] | (cnt < 0)[:, None]
+    step = max(1, _PLAIN_BLOCK // (px.shape[1] * (ns + npl)))
+    for t0 in range(0, n_tiles, step):
+        sl = slice(t0, t0 + step)
+        x, y = px[sl], py[sl]
+        used = (x >= 0.0) & (x <= W - 1.0) & (y >= 0.0) & (y <= H - 1.0)
+        d = camera.ray_directions(torch.stack([x, y], dim=-1), compat=compat)
+        o = camera.ray_origin().expand(d.shape)
+        for level in range(n_levels):
+            t_all, _ = _all_t(o, d, scene, compat)
+            if level == 0 and listed is not None:
+                t_all = torch.cat([torch.where(listed[sl, None, :], t_all[..., :ns],
+                                               torch.full_like(t_all[..., :ns], BIG)),
+                                   t_all[..., ns:]], dim=-1)
+            t = torch.amin(t_all, dim=-1)
+            obj = torch.argmin(t_all, dim=-1)
+            alive = t < BIG
+            P = o + torch.where(alive, t, torch.zeros_like(t))[..., None] * d
+            _, N = _surface_attributes(P, dict(obj=obj, is_plane=obj >= ns), scene)
+            Pb = P + BIAS * N
+            used = used & alive
+            m = used[..., None]
+            out[sl, level, 0:3] = torch.where(m, Pb, torch.full_like(Pb, BIG)).amin(dim=1)
+            out[sl, level, 3:6] = torch.where(m, Pb, torch.full_like(Pb, -BIG)).amax(dim=1)
+            out[sl, level, 6] = used.sum(dim=1).to(torch.float32)
+            if level + 1 < n_levels:
+                d = reflect(d, N)
+                o = Pb + BIAS * d
+    return out.reshape(-1, 8)
+
+
+def extent_rule(rows: torch.Tensor, plain: torch.Tensor) -> dict:
+    """Hold hit-extent rows against the plain version's. Counts must be equal
+    and the rows of tiles without hits bit-equal (the sentinels). Each box
+    coordinate must lie within ``1e-3 + 1e-6 m^2`` of the plain one, ``m`` the
+    plain row's largest coordinate magnitude: at scene scale the two hit
+    points differ by float32 reassociation (the kernel's hoisted quadratic and
+    FMA contraction against the plain root form, ~1e-5), but a ground-plane
+    hit near the horizon has ``t = h / (d . n)`` with ``d . n`` near 0, so a
+    rounding of ``d . n`` moves ``t`` by ~1e-7 t^2 / h. Returns ``ok``,
+    ``counts_equal``, ``sentinels_equal``, ``max_abs_err`` and ``ratio`` (the
+    worst difference over its allowance)."""
+    has = plain[:, 6] > 0
+    counts_equal = bool(torch.equal(rows[:, 6:], plain[:, 6:]))
+    sentinels_equal = bool(torch.equal(rows[~has], plain[~has]))
+    err = ratio = 0.0
+    if bool(has.any()):
+        a, b = rows[has, :6], plain[has, :6]
+        m = b.abs().amax(dim=1, keepdim=True)
+        diff = (a - b).abs()
+        err = float(diff.max())
+        ratio = float((diff / (1e-3 + 1e-6 * m * m)).max())
+    return dict(ok=counts_equal and sentinels_equal and ratio <= 1.0,
+                counts_equal=counts_equal, sentinels_equal=sentinels_equal,
+                max_abs_err=err, ratio=ratio)
+
+
+def _check_table(name, t, dtype, n, dev):
+    if t.device != dev or t.dtype != dtype or t.dim() != 1 or t.shape[0] != n or \
+            not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous {dtype} ({n},) tensor on {dev}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def check_tables(vis, shadow, groups, *, n_tiles: int, ns: int, nl: int, dev) -> None:
+    """Raise on tables the kernels do not take: ``vis = (idx, cnt, k)``,
+    ``shadow = (idx, cnt, k)``, ``groups = (perm, bounds, G)``, each or None."""
+    if vis is not None:
+        idx, cnt, k = vis
+        if not 1 <= k <= ns:
+            raise ValueError(f"primary lists: k={k} for {ns} spheres")
+        _check_table("primary list indices", idx, torch.int32, n_tiles * k, dev)
+        _check_table("primary list counts", cnt, torch.int32, n_tiles, dev)
+    if shadow is not None:
+        idx, cnt, k = shadow
+        if not 1 <= k <= ns or nl < 1:
+            raise ValueError(f"shadow lists: k={k} for {ns} spheres, {nl} lights")
+        _check_table("shadow list indices", idx, torch.int32, n_tiles * nl * k, dev)
+        _check_table("shadow list counts", cnt, torch.int32, n_tiles * nl, dev)
+    if groups is not None:
+        perm, bounds, G = groups
+        if G < 1:
+            raise ValueError(f"sphere groups: G={G}")
+        _check_table("group sweep order", perm, torch.int32, G * GROUP_SIZE, dev)
+        _check_table("group bounds", bounds, torch.float32, G * 4, dev)
+
+
+def table_args(vis, shadow, groups) -> list:
+    """The C argument lists ``[idx, cnt, k]`` of the three tables (null
+    pointers for one that is off), in the order the entry points take them."""
+    args = []
+    for tab in (vis, shadow, groups):
+        if tab is None:
+            args.append([None, None, 0])
+        else:
+            a, b, k = tab
+            args.append([a.data_ptr(), b.data_ptr(), int(k)])
+    return args
+
+
+def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compat: bool,
+           n_levels: int, vis=None, groups=None) -> torch.Tensor:
+    """Launch the kernel on the current stream for inputs already packed and
+    checked: ``out (n_tiles * n_levels, 8)``, ``params`` and ``tables`` as for
+    ``render_cuda.launch``; ``vis`` and ``groups`` are checked here. Counts the
+    launch in :data:`LAUNCHES`."""
+    from ._build import load_library
+    lib = load_library()
+    (sph, pln, _), (ns, npl, nl) = tables, counts
+    check_tables(vis, None, groups, n_tiles=out.shape[0] // n_levels, ns=ns, nl=nl,
+                 dev=out.device)
+    v, _, g = table_args(vis, None, groups)
+    rc = lib.rt_hit_extents(
+        params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, out.data_ptr(),
+        W, H, n_levels, int(aliasing), int(compat), *v, *g,
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"hit-extent kernel failed: CUDA error {rc} "
+                           f"({lib.rt_error_string(rc).decode()})")
+    LAUNCHES["hit_extents"] += 1
+    return out
+
+
+def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
+                     n_levels: int = 1, vis=None, groups=None) -> torch.Tensor:
+    """Hit-extent rows ``(n_tiles * n_levels, 8)`` of a render of ``scene``
+    from ``camera``, for 16x16 tiles. ``vis`` and ``groups`` are the primary
+    lists and the Morton groups the render will use (``cull_tables``), so the
+    hit points are the render kernel's own. CPU tensors take
+    :func:`hit_extents_plain`; CUDA tensors launch the kernel."""
+    dev = camera.position.device
+    if dev.type == "cpu":
+        return hit_extents_plain(camera, scene, aliasing=aliasing, compat=compat,
+                                 n_levels=n_levels, vis=vis)
+    if dev.type != "cuda":
+        raise ValueError(f"hit_extents_cuda takes CPU or CUDA tensors, got {dev}")
+    if not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"n_levels must be in 1..{MAX_LEVELS}, got {n_levels}")
+    render_cuda._check_inputs(camera, scene, dev)
+    W, H = camera.resolution
+    if W < 1 or H < 1:
+        raise ValueError(f"empty resolution {camera.resolution}")
+    n_tx, n_ty = tile_grid(W, H)
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    params = render_cuda.pack_params(camera, scene, compat).to(dev)
+    out = torch.empty((n_tx * n_ty * n_levels, 8), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        return launch(out, params, render_cuda.scene_tables(scene), counts, W=W, H=H,
+                      aliasing=aliasing, compat=compat, n_levels=n_levels, vis=vis,
+                      groups=groups)

@@ -329,8 +329,10 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
     (n_grads * n_blocks,)``, ``params``, the ``scene_tables``, the object
     counts, ``image`` (the cotangent, or the rendered image in ``fused_aa``;
     None in ``fused_noaa``) and ``target`` (fused modes; else None), all
-    float32, contiguous, on the current device. Counts the launch in
-    :data:`LAUNCHES`."""
+    float32, contiguous, on the current device. A scene of more than
+    ``render_cuda.CULL_MIN_SPHERES`` spheres runs the kernel compiled in the
+    arithmetic of the render kernel's large-scene instantiation, so that it
+    recomputes that render's own hits. Counts the launch in :data:`LAUNCHES`."""
     from ._build import load_library
     lib = load_library()
     (sph, pln, lts), (ns, npl, nl) = tables, counts
@@ -341,7 +343,7 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
         None if image is None else image.data_ptr(),
         None if target is None else target.data_ptr(), partial.data_ptr(), rows,
         out.shape[0], W, H, depth, MODES.index(mode), int(compat), int(cheap_shadow),
-        stream)
+        int(ns > render_cuda.CULL_MIN_SPHERES), stream)
     if rc == 0:
         rc = lib.rt_reduce_rows(partial.data_ptr(), rows, out.shape[0], out.data_ptr(),
                                 stream)

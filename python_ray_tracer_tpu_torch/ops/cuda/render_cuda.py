@@ -1,17 +1,25 @@
-"""Forward render through the hand-written CUDA kernel (``csrc/render_fwd.cu``).
+"""Forward render through the hand-written CUDA kernel (``csrc/render_fwd*.cu*``).
 
-Counterpart of ``python_ray_tracer_tpu/ops/pallas/render_pallas.py`` for small
-and mid-size scenes: one launch covers ray generation, closest hit, shading with
-shadow rays, mirror bounces and the AA accumulation with the compat swaps. Three
-kernel modes:
+Counterpart of ``python_ray_tracer_tpu/ops/pallas/render_pallas.py``: one launch
+covers ray generation, closest hit, shading with shadow rays, mirror bounces and
+the AA accumulation with the compat swaps. Three kernel modes:
 
   * ``aa_none``: no AA (the TPU ``_make_kernel`` at S=1);
   * ``aa_per_sample``: 9 samples walked per thread (``_make_kernel`` at S=9);
   * ``aa_shared``: the 4 shared half-offset sample grids of
     ``_make_kernel_aa_shared``, evaluated per block into shared memory.
 
+Scenes of more than :data:`CULL_MIN_SPHERES` spheres take the large-scene path
+(``render_pallas._render_image_pallas``'s, with the same three keywords): the
+per-tile cone cull of the primary sweep, the two-pass shadow pipeline (the
+hit-extent kernel, ``hit_extents_cuda``, then per-(tile, light) occluder lists
+for the level-0 shadow sweeps) and, from :data:`GROUP_MIN_SPHERES` spheres up,
+Morton-grouped bounce sweeps. :func:`large_scene_tables` builds the tables
+(``cull_tables``) for each frame. Every cull is exact: the image is
+bit-identical to the full sweep's.
+
 :func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises. Camera,
+tensors on the CPU; for CUDA tensors it launches the kernels or raises. Camera,
 grid and material scalars are packed on the host into the TPU kernel's ``_P_*``
 parameter layout (:func:`pack_params`). :func:`render_image_fast` is the
 differentiable form (``render_pallas.render_image_fast``): the render kernel
@@ -28,6 +36,7 @@ from ...models.camera import Camera
 from ...models.scene import Scene
 from ..render import render_image
 from ..intersect import FAR
+from . import cull_tables
 
 # AA half-offsets in (x, y) index space; s=0 is the primary (center) sample
 # (reference kernels.py:32-50).
@@ -49,9 +58,16 @@ MODES = ("aa_none", "aa_per_sample", "aa_shared")   # C enum order
 # Kernel launches per mode; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {m: 0 for m in MODES}
 
-# Largest scene the kernel stages in shared memory (227 KB a block, less the
-# shared-AA sample grids).
+# Shared memory a block may stage (227 KB) beside the shared-AA sample grids:
+# the parameters, the scene's tables and, on the large-scene path, the Morton
+# groups, the tile's primary list and its per-light occluder lists.
 _SMEM_LIMIT = 227 * 1024 - 3 * 4 * 1089
+
+# The large-scene path's automatic thresholds (the JAX package's): the cone
+# cull and the shadow lists for more spheres than CULL_MIN_SPHERES, the Morton
+# groups from GROUP_MIN_SPHERES spheres up.
+CULL_MIN_SPHERES = 16
+GROUP_MIN_SPHERES = 256
 
 
 def reset_launch_counts() -> None:
@@ -101,6 +117,17 @@ def scene_tables(scene):
     return sph, pln, lts
 
 
+def _smem_bytes(ns: int, npl: int, nl: int) -> int:
+    """Shared memory a block stages beside the AA sample grids, with every
+    large-scene table on at its largest row capacity."""
+    words = N_PARAMS + 7 * ns + 9 * npl + 3 * nl
+    if ns > CULL_MIN_SPHERES:
+        k = cull_tables.list_capacity(ns)
+        words += -(-ns // cull_tables.GROUP_SIZE) * (4 + cull_tables.GROUP_SIZE)
+        words += k + nl * (k + 1)
+    return 4 * words
+
+
 def _check_inputs(camera, scene, dev):
     tensors = {"camera.position": camera.position, "camera.rotation": camera.rotation,
                "camera.fov": camera.fov}
@@ -126,19 +153,68 @@ def _check_inputs(camera, scene, dev):
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
-    smem = 4 * (N_PARAMS + 7 * ns + 9 * npl + 3 * nl)
+    smem = _smem_bytes(ns, npl, nl)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"scene needs {smem} B of shared memory, the kernel "
                          f"stages at most {_SMEM_LIMIT} B")
 
 
+def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: bool,
+                       cull: bool = True, shadow_lists: bool | None = None,
+                       group_cull: bool | None = None, K: int | None = None,
+                       packed=None):
+    """The render kernel's tables for this frame: ``(vis, shadow, groups)``,
+    each ``(idx, cnt, k)`` / ``(perm, bounds, G)`` or None where that cull is
+    off (``render_pallas._render_image_pallas``'s resolution of its ``cull``,
+    ``shadow_lists`` and ``group_cull``; None is "auto"). The cone cull and the
+    shadow lists need more than :data:`CULL_MIN_SPHERES` spheres (the lists
+    also a light); groups are automatic from :data:`GROUP_MIN_SPHERES` spheres
+    and need ``depth > 0``. The shadow lists come from one launch of the
+    hit-extent kernel on the same primary lists (level 0 only, so it takes no
+    groups). ``K``: slots a list row
+    (default ``cull_tables.list_capacity``). ``packed``: the caller's
+    ``(params, scene_tables, counts)`` for checked CUDA inputs, which the
+    hit-extent launch then shares instead of packing them again."""
+    from . import hit_extents_cuda as hx
+    ns, nl = scene.spheres.count, scene.lights.count
+    rolled = ns > CULL_MIN_SPHERES
+    k = cull_tables.list_capacity(ns) if K is None else min(K, ns)
+    vis = shadow = groups = None
+    if cull and rolled:
+        vis = (*cull_tables.tile_visibility(camera, scene, compat=compat, K=k), k)
+    want_groups = ns >= GROUP_MIN_SPHERES if group_cull is None else group_cull
+    if want_groups and rolled and depth > 0:
+        perm, bounds = cull_tables.sphere_groups(scene.spheres.center, scene.spheres.radius,
+                                                 order_from=camera.position)
+        groups = (perm, bounds, perm.shape[0] // cull_tables.GROUP_SIZE)
+    if (shadow_lists is None or shadow_lists) and rolled and nl > 0:
+        if packed is None:
+            ext = hx.hit_extents_cuda(camera, scene, aliasing=aliasing, compat=compat,
+                                      n_levels=1, vis=vis)
+        else:
+            W, H = camera.resolution
+            n_tx, n_ty = cull_tables.tile_grid(W, H)
+            ext = hx.launch(torch.empty((n_tx * n_ty, 8), dtype=torch.float32,
+                                        device=camera.device), *packed, W=W, H=H,
+                            aliasing=aliasing, compat=compat, n_levels=1, vis=vis)
+        shadow = (*cull_tables.shadow_visibility_lists(
+            ext, scene.lights.position, scene.spheres.center, scene.spheres.radius,
+            K=k, compat=compat), k)
+    return vis, shadow, groups
+
+
 def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
-                      compat: bool = True, aa_share: bool = True) -> torch.Tensor:
+                      compat: bool = True, aa_share: bool = True, cull: bool = True,
+                      shadow_lists: bool | None = None,
+                      group_cull: bool | None = None) -> torch.Tensor:
     """Render -> float ``(w, h, 3)`` image, as :func:`..render.render_image`.
 
-    CPU tensors take the plain PyTorch version. CUDA tensors launch the kernel
-    on the current stream (mode ``aa_shared`` when ``aliasing and aa_share``,
-    ``aa_per_sample`` for AA without sharing, else ``aa_none``)."""
+    CPU tensors take the plain PyTorch version, whatever the cull keywords
+    say. CUDA tensors launch the kernel on the current stream (mode
+    ``aa_shared`` when ``aliasing and aa_share``, ``aa_per_sample`` for AA
+    without sharing, else ``aa_none``), after the hit-extent kernel where the
+    shadow lists are on. ``cull``, ``shadow_lists`` and ``group_cull`` are the
+    JAX wrapper's (:func:`large_scene_tables`); none changes a pixel."""
     dev = camera.position.device
     if dev.type == "cpu":
         return render_image(camera, scene, depth=depth, aliasing=aliasing,
@@ -155,27 +231,43 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
     params = pack_params(camera, scene, compat).to(dev)
     out = torch.empty((W, H, 3), dtype=torch.float32, device=dev)
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    tables = scene_tables(scene)
     with torch.cuda.device(dev):
-        return launch(out, params, scene_tables(scene), counts, depth=depth,
+        vis, shadow, groups = large_scene_tables(
+            camera, scene, depth=depth, aliasing=aliasing, compat=compat, cull=cull,
+            shadow_lists=shadow_lists, group_cull=group_cull,
+            packed=(params, tables, counts))
+        return launch(out, params, tables, counts, depth=depth,
                       mode=mode, compat=compat,
-                      cheap_shadow=shadow_cheap_ok(scene, compat))
+                      cheap_shadow=shadow_cheap_ok(scene, compat), vis=vis,
+                      shadow=shadow, groups=groups)
 
 
 def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
-           cheap_shadow: bool) -> torch.Tensor:
+           cheap_shadow: bool, vis=None, shadow=None, groups=None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked by :func:`render_image_cuda`: ``out (W, H, 3)``, ``params
     (N_PARAMS,)``, the :func:`scene_tables` and the object counts
     ``(ns, npl, nl)``, all tensors float32 and contiguous on the current
-    device. Counts the launch in :data:`LAUNCHES`."""
+    device; ``vis``, ``shadow`` and ``groups`` as :func:`large_scene_tables`
+    returns them (int32 lists for 16x16 tiles, checked here). A scene of more
+    than :data:`CULL_MIN_SPHERES` spheres runs the kernel's large-scene
+    instantiation whichever tables are on, so a render with every table off
+    differs from a culled one only in the sweeps. Counts the launch in
+    :data:`LAUNCHES`."""
     from ._build import load_library
+    from .hit_extents_cuda import check_tables, table_args
     lib = load_library()
     W, H = out.shape[0], out.shape[1]
     (sph, pln, lts), (ns, npl, nl) = tables, counts
+    n_tx, n_ty = cull_tables.tile_grid(W, H)
+    check_tables(vis, shadow, groups, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=out.device)
+    v, sh, g = table_args(vis, shadow, groups)
     rc = lib.rt_render_fwd(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
         lts.data_ptr(), nl, out.data_ptr(), W, H, depth,
         MODES.index(mode), int(compat), int(cheap_shadow),
+        int(ns > CULL_MIN_SPHERES), *v, *sh, *g,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"render kernel ({mode}) failed: CUDA error {rc} "
@@ -186,16 +278,18 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
 
 class _RenderImageFast(torch.autograd.Function):
     """Render kernel forward; backward kernel (cotangent mode, camera slots
-    included) backward. Inputs after the four settings: the camera's position,
+    included) backward. Inputs after the five settings: the camera's position,
     rotation and fov, then the scene's 12 tensors in dataclass order."""
 
     @staticmethod
-    def forward(ctx, resolution, depth, aliasing, compat, *leaves):
+    def forward(ctx, resolution, depth, aliasing, compat, culls, *leaves):
         camera, scene = _assemble(resolution, leaves)
         ctx.settings = (resolution, depth, aliasing, compat)
         ctx.save_for_backward(*leaves)
+        cull, shadow_lists, group_cull = culls
         return render_image_cuda(camera, scene, depth=depth, aliasing=aliasing,
-                                 compat=compat)
+                                 compat=compat, cull=cull, shadow_lists=shadow_lists,
+                                 group_cull=group_cull)
 
     @staticmethod
     def backward(ctx, g):
@@ -205,8 +299,8 @@ class _RenderImageFast(torch.autograd.Function):
         scene_g, cam_g = scene_grads_cuda(camera, scene, g.float().contiguous(),
                                           depth=depth, compat=compat,
                                           aliasing=aliasing, return_camera=True)
-        return (None, None, None, None, cam_g.position, cam_g.rotation, cam_g.fov,
-                *scene_g.leaves())
+        return (None, None, None, None, None, cam_g.position, cam_g.rotation,
+                cam_g.fov, *scene_g.leaves())
 
 
 def _assemble(resolution, leaves):
@@ -215,14 +309,20 @@ def _assemble(resolution, leaves):
 
 
 def render_image_fast(camera, scene, depth: int = 2, aliasing: bool = True,
-                      compat: bool = True) -> torch.Tensor:
+                      compat: bool = True, cull: bool = True,
+                      shadow_lists: bool | None = None,
+                      group_cull: bool | None = None) -> torch.Tensor:
     """Differentiable render -> float ``(w, h, 3)``. CPU tensors take the plain
     version (differentiated by autograd); on CUDA tensors the forward is the
-    render kernel and the backward is the backward kernel, for the scene and
-    the camera alike. No light-count fallback: the kernel has no such limit."""
+    render kernel (on the large-scene path for a large scene, with
+    :func:`render_image_cuda`'s three cull keywords) and the backward is the
+    backward kernel, for the scene and the camera alike. The backward kernel
+    sweeps every sphere: the culls are exact, so its recomputed forward is the
+    render kernel's. No light-count fallback: the kernel has no such limit."""
     if camera.position.device.type == "cpu":
         return render_image(camera, scene, depth=depth, aliasing=aliasing,
                             compat=compat)
     return _RenderImageFast.apply(tuple(camera.resolution), depth, aliasing, compat,
+                                  (cull, shadow_lists, group_cull),
                                   camera.position, camera.rotation, camera.fov,
                                   *scene.leaves())

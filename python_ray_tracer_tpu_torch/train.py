@@ -2,7 +2,7 @@
 gradient descent.
 
 PyTorch counterpart of ``python_ray_tracer_tpu/train.py`` on one device. Two
-backends:
+backends; every entry point defaults to ``"cuda"``:
 
   * ``"cuda"``: the hand-written kernels. ``fused=True`` runs each step as one
     backward-kernel launch that renders, forms the MSE loss and its cotangent
@@ -58,7 +58,7 @@ def pixel_loss(camera, target, *, depth: int = 2, aliasing: bool = False,
 
 
 def soft_pixel_loss(camera, target, *, tau: float = 0.05, row_chunk: Optional[int] = None,
-                    backend: str = "torch", bounce_depth: int = 0) -> Callable:
+                    backend: str = "cuda", bounce_depth: int = 0) -> Callable:
     """Silhouette-aware ``loss(scene) -> scalar`` through the soft-visibility
     renderer (``train.soft_pixel_loss``); the target should come from the same
     renderer. On ``"cuda"`` the render is :func:`render_image_soft_fast` (the
@@ -169,7 +169,7 @@ def _log(logger, i, steps, log_every, loss):
 def fit_scene(init_scene: Scene, camera, target, *, steps: int = 200,
               lr: float = 2e-2, depth: int = 2, aliasing: bool = False,
               compat: bool = True, trainable: Optional[Sequence[str]] = ("spheres",),
-              backend: str = "torch", fused: bool = True,
+              backend: str = "cuda", fused: bool = True,
               logger: Optional[MetricsLogger] = None, log_every: int = 20):
     """Run the inverse-render optimization; returns ``(scene, losses)``.
     ``init_scene`` is not modified. ``trainable`` selects the leaves that
@@ -193,7 +193,7 @@ def fit_scene(init_scene: Scene, camera, target, *, steps: int = 200,
 def fit_scene_soft(init_scene: Scene, camera, target_scene: Scene, *, steps: int = 200,
                    lr: float = 1e-2, taus: Sequence[float] = (0.15, 0.05, 0.02),
                    trainable: Optional[Sequence[str]] = ("spheres.center",),
-                   logger: Optional[MetricsLogger] = None, backend: str = "torch",
+                   logger: Optional[MetricsLogger] = None, backend: str = "cuda",
                    bounce_depth: int = 0):
     """Coarse-to-fine soft-visibility fitting, tau annealed toward hard
     (``train.fit_scene_soft``): ``max(1, steps // len(taus))`` steps per tau,
@@ -271,7 +271,7 @@ def camera_value_and_grad(scene, target, resolution, *, depth: int = 1,
 def fit_camera(init_camera, scene, target, *, steps: int = 300, lr: float = 1e-2,
                depth: int = 1, aliasing: bool = False, compat: bool = True,
                fit_fov: bool = False, logger: Optional[MetricsLogger] = None,
-               log_every: int = 20, backend: str = "torch"):
+               log_every: int = 20, backend: str = "cuda"):
     """Inverse rendering with respect to the camera: recover its pose from a
     target image (``train.fit_camera``). Optimizes position and Euler angles
     (the rotation is rebuilt by ``euler_rotation`` every step, so it stays a

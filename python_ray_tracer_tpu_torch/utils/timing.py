@@ -105,6 +105,9 @@ LOSS = 12            # fused: residual, loss partial, cotangent
 HIT_SETUP = 17       # a, 1/(2a), o.d, o.o
 HIT_SPHERE = 29      # one sphere's quadratic and nearest root
 HIT_PLANE = 14       # one plane's n.d, n.(p0 - o), division
+# rt_common.cuh's sqrt-free shadow sweep (sphere_occludes, CHEAP)
+SHADOW_SETUP = 18    # o.o, a, 1/(2a), 1/a, o.d
+SHADOW_SPHERE = 26   # o.c, |o-c|^2 - r^2, c.d, the clamped closest approach
 
 
 def bound_ms(ops: float, nbytes: float) -> tuple:
@@ -238,7 +241,7 @@ def hard_samples(W: int, H: int, mode: str) -> int:
 
 def hard_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str) -> tuple:
     """(operations, bytes) lower bound of one hard render or backward launch
-    (csrc/render_fwd.cu, csrc/render_bwd.cu): ray generation and the primary
+    (csrc/render_fwd_kernel.cuh, csrc/render_bwd.cu): ray generation and the primary
     closest-hit sweep of every sample chain, and in the backward the ray
     direction's adjoint and one add a chain into each camera and material
     slot. Shadow, bounce and adjoint work depend on the hits and are left
@@ -249,4 +252,78 @@ def hard_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str) -> tuple:
     if mode.startswith(("cot", "fused")):
         ops += samples * (18 + NORM_ADJ)     # 18 slot sums a chain
         nbytes += 4 * (7 * ns + 9 * npl + 3 * nl + 19)   # the gradient out
+    return ops, nbytes
+
+
+def _listed(table, n_rows: int, ns: int):
+    """Spheres each row's sweep visits: its list's count, or all ``ns`` for a
+    row that overflowed (-1) and where the table is off (None). A float
+    tensor ``(n_rows,)`` on the table's device, or the number ``ns``."""
+    if table is None:
+        return float(ns)
+    cnt = table[1].to(torch.float32)
+    return torch.where(cnt < 0, torch.full_like(cnt, float(ns)), cnt)
+
+
+def tile_positions(W: int, H: int, aliasing: bool) -> torch.Tensor:
+    """Sample positions inside the image ``[0, W-1] x [0, H-1]`` of every 16x16
+    tile, float ``(n_tiles,)`` in the tables' tile order (x tiles outermost):
+    the pixel centers and, with AA, the half-offset positions of the tile's
+    17-wide grids (the -0.5 column and the ragged edge fall outside)."""
+    def axis(n):
+        x0 = 16.0 * torch.arange(-(-n // 16), dtype=torch.float32)
+        centers = (x0[:, None] + torch.arange(16.0) <= n - 1).sum(dim=1)
+        half = x0[:, None] - 0.5 + torch.arange(17.0)
+        return centers + (((half >= 0) & (half <= n - 1)).sum(dim=1) if aliasing else 0)
+    return (axis(W)[:, None] * axis(H)[None, :]).reshape(-1).to(torch.float32)
+
+
+def hit_extents_work(W: int, H: int, ns: int, npl: int, aliasing: bool, vis, ext) -> tuple:
+    """(operations, bytes) the hit-extent function (csrc/hit_extents.cu, one
+    trace level) needs for this run's tables: every in-image sample position
+    of a tile (:func:`tile_positions`) generates its ray and sweeps the tile's
+    cone-visible spheres (``vis = (idx, cnt, k)``; all ``ns`` for a row that
+    overflowed, or with ``vis`` None) and the planes once; the samples that hit
+    (``ext``'s counts, the rows the function returns) form their hit point and
+    normal. Bytes: parameters, spheres and planes in, the primary lists and
+    counts in, 32 bytes a tile out."""
+    pos = tile_positions(W, H, aliasing)
+    n_tiles = pos.shape[0]
+    swept = _listed(vis, n_tiles, ns)
+    if isinstance(swept, torch.Tensor):
+        swept = swept.cpu()
+    live = float(ext[:, 6].sum())
+    ops = float((pos * (RAYGEN + HIT_SETUP + npl * HIT_PLANE + swept * HIT_SPHERE)).sum()) + \
+        live * (SURFACE + SPHERE_NORMAL)
+    nbytes = 4 * (41 + 7 * ns + 9 * npl) + 32 * n_tiles
+    if vis is not None:
+        nbytes += 4 * (n_tiles * vis[2] + n_tiles)
+    return ops, nbytes
+
+
+def large_scene_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str, vis, shadow,
+                     ext) -> tuple:
+    """(operations, bytes) lower bound of one render launch on the large-scene
+    path for this run's tables: :func:`hard_work`'s ray generation and primary
+    sweep, the sweep over each tile's cone-visible spheres only (``vis``), plus
+    the level-0 shadow rays, one a light from every live in-image sample
+    (``ext``'s counts, the hit-extent rows of this frame), each over its (tile,
+    light) occluder list (``shadow``) and the planes. A table that is None
+    sweeps all ``ns`` spheres. Bounce levels depend on where the rays go and
+    are left out. Bytes: :func:`hard_work`'s and the tables in."""
+    n_tiles = -(-W // 16) * -(-H // 16)
+    per_tile = hard_samples(W, H, mode) / n_tiles
+    swept = _listed(vis, n_tiles, ns)
+    swept = float(swept.sum()) if isinstance(swept, torch.Tensor) else swept * n_tiles
+    ops = per_tile * (n_tiles * (RAYGEN + HIT_SETUP + npl * HIT_PLANE) + swept * HIT_SPHERE)
+    live = ext[:, 6].to(torch.float32)                               # (n_tiles,)
+    occ = _listed(shadow, n_tiles * nl, ns)
+    occ = occ.reshape(n_tiles, nl).sum(dim=1).to(live.device) if isinstance(
+        occ, torch.Tensor) else occ * nl
+    ops += float((live * (nl * (LIGHT + SHADOW_SETUP + npl * HIT_PLANE) +
+                          occ * SHADOW_SPHERE)).sum())
+    nbytes = _scene_bytes(ns, npl, nl) + 12 * W * H
+    for tab, rows in ((vis, n_tiles), (shadow, n_tiles * nl)):
+        if tab is not None:
+            nbytes += 4 * (rows * tab[2] + rows)
     return ops, nbytes

@@ -513,3 +513,176 @@ def test_fit_scene_soft_cuda_backend_on_card(cuda_device):
     assert not any(sb.PLAIN_CALLS.values()) and not any(soft_cuda.PLAIN_CALLS.values())
     for k in range(3):
         assert losses[10 * k + 9] < losses[10 * k]
+
+
+# --- the large-scene path: hit-extent kernel, cone cull, shadow lists, groups --------
+#
+# Every cull is exact, so a render with any of them on must equal the render
+# with all of them off bit for bit (torch.equal on the float image). The
+# hit-extent kernel against its plain version: hit_extents_cuda.extent_rule
+# (counts equal, rows of tiles without hits equal to the sentinels, boxes
+# within 1e-3 + 1e-6 m^2, m the row's largest coordinate).
+
+from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct  # noqa: E402
+from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx  # noqa: E402
+
+
+def _planted_scene(n, dev, seed=11, lights=3, planes=True):
+    """n seeded spheres plus one large sphere beyond light 0: shadow rays have
+    no maximum distance, so it shadows the scene from behind the light."""
+    base = trt.random_scene(n, generator=torch.Generator().manual_seed(seed), device=dev)
+    L0 = base.lights.position[0]
+    u = L0 - torch.tensor([0.0, 0.0, 2.0], device=dev)
+    beyond = L0 + 4.0 * u / u.norm()
+    sph = trt.Spheres(torch.cat([base.spheres.center, beyond[None]]),
+                      torch.cat([base.spheres.radius, torch.tensor([1.5], device=dev)]),
+                      torch.cat([base.spheres.albedo,
+                                 torch.tensor([[1.0, 0.0, 0.0]], device=dev)]))
+    return trt.Scene(sph, base.planes if planes else trt.Planes.build([], dev),
+                     trt.Lights(base.lights.position[:lights]), base.materials)
+
+
+# 100: the horizon and sky tiles in view. A ground-plane hit near the horizon is
+# ill-conditioned (t = h / (d . n) with d . n near 0; no far clip in clean
+# mode), so that pose is held against the plain version in compat mode only.
+LARGE_POSES = {24: ([-7.0, 0.0, 3.0], [0.0, -20.0, 0.0]),
+               40: ([-7.0, 0.0, 3.0], [0.0, -15.0, 0.0]),
+               100: ([-7.0, 0.0, 3.0], [0.0, 10.0, 0.0]),
+               300: ([-2.0, 0.0, 2.0], [0.0, -30.0, 0.0])}
+
+
+@pytest.mark.parametrize("n", [24, 100, 300])
+@pytest.mark.parametrize("aliasing", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+def test_hit_extents_kernel_matches_plain(cuda_device, n, aliasing, compat):
+    scene = _planted_scene(n, cuda_device)
+    cam = trt.Camera.build((120, 72), *LARGE_POSES[n if compat else 24], device=cuda_device)
+    k = ct.list_capacity(n + 1)
+    vis = (*ct.tile_visibility(cam, scene, compat=compat, K=k), k)
+    for v in (None, vis):
+        hx.reset_launch_counts()
+        a = hx.hit_extents_cuda(cam, scene, aliasing=aliasing, compat=compat, vis=v)
+        b = hx.hit_extents_cuda(cam, scene, aliasing=aliasing, compat=compat, vis=v)
+        torch.cuda.synchronize()
+        assert hx.LAUNCHES["hit_extents"] == 2 and torch.equal(a, b)
+        ref = hx.hit_extents_plain(cam, scene, aliasing=aliasing, compat=compat, vis=v)
+        assert a.shape == ref.shape == (8 * 5, 8)
+        rule = hx.extent_rule(a, ref)
+        assert rule["ok"], rule
+
+
+def _render_tabs(cam, scene, mode, depth, compat, tabs):
+    W, H = cam.resolution
+    dev = cam.device
+    out = torch.empty((W, H, 3), device=dev)
+    cnt = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    vis, shadow, groups = tabs
+    return render_cuda.launch(
+        out, render_cuda.pack_params(cam, scene, compat).to(dev),
+        render_cuda.scene_tables(scene), cnt, depth=depth, mode=mode, compat=compat,
+        cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat), vis=vis, shadow=shadow,
+        groups=groups)
+
+
+CULLS = {"cull": dict(cull=True, shadow_lists=False, group_cull=False),
+         "lists": dict(cull=False, shadow_lists=True, group_cull=False),
+         "groups": dict(cull=False, shadow_lists=False, group_cull=True),
+         "all": dict(cull=True, shadow_lists=True, group_cull=True),
+         "auto": dict()}
+ALL_OFF = dict(cull=False, shadow_lists=False, group_cull=False)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("n", [24, 40, 100, 300])
+def test_culls_are_bit_identical_to_the_full_sweep(cuda_device, mode, compat, n):
+    """Each cull alone, all together, the automatic choice, and lists forced
+    to K=2 so that every row overflows, against all culls off; then all on
+    against the plain version under the flip rule."""
+    mats = trt.Materials.build(0.05, 0.6, 0.3, 0.5, 16.0, device=cuda_device)
+    scene = _planted_scene(n, cuda_device)
+    scene.materials = mats
+    cam = trt.Camera.build((104, 72), *LARGE_POSES[n], device=cuda_device)
+    aa = mode != "aa_none"
+    kw = dict(depth=2, compat=compat, aliasing=aa, aa_share=mode == "aa_shared")
+    hx.reset_launch_counts()
+    off = trt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+    assert hx.LAUNCHES["hit_extents"] == 0
+    for name, culls in CULLS.items():
+        hx.reset_launch_counts()
+        img = trt.render_image_cuda(cam, scene, **kw, **culls)
+        torch.cuda.synchronize()
+        assert hx.LAUNCHES["hit_extents"] == int(name in ("lists", "all", "auto")), name
+        assert torch.equal(img, off), (name, int((img != off).any(-1).sum()))
+    tabs = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=aa, compat=compat,
+                                          group_cull=True, K=2)
+    assert int((tabs[0][1] >= 0).sum()) < tabs[0][1].numel()      # rows overflow
+    assert torch.equal(_render_tabs(cam, scene, mode, 2, compat, tabs), off)
+    if compat or n != 100:
+        ref = trt.render_image(cam, scene, depth=2, aliasing=aa, compat=compat)
+        assert _flipped(off, ref) <= 1e-3 * 104 * 72
+
+
+@pytest.mark.parametrize("lights,planes", [(0, True), (3, False), (1, True)])
+def test_culls_without_lights_or_planes(cuda_device, lights, planes):
+    scene = _planted_scene(40, cuda_device, lights=lights, planes=planes)
+    cam = trt.Camera.build((96, 64), *LARGE_POSES[40], device=cuda_device)
+    for aa in (False, True):
+        off = trt.render_image_cuda(cam, scene, depth=2, aliasing=aa, **ALL_OFF)
+        hx.reset_launch_counts()
+        on = trt.render_image_cuda(cam, scene, depth=2, aliasing=aa, group_cull=True)
+        assert hx.LAUNCHES["hit_extents"] == int(lights > 0)
+        assert torch.equal(on, off)
+        ref = trt.render_image(cam, scene, depth=2, aliasing=aa)
+        assert _flipped(on, ref) <= 1e-3 * 96 * 64
+
+
+def test_planted_occluder_beyond_the_light_still_shadows(cuda_device):
+    """The lists keep a sphere beyond a light: with it the image differs from
+    the scene without it, and lists on equals lists off."""
+    scene = _planted_scene(22, cuda_device)
+    base = trt.Scene(trt.Spheres(scene.spheres.center[:-1], scene.spheres.radius[:-1],
+                                 scene.spheres.albedo[:-1]),
+                     scene.planes, scene.lights, scene.materials)
+    cam = trt.Camera.build((96, 64), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0], device=cuda_device)
+    on = trt.render_image_cuda(cam, scene, depth=1, aliasing=False, shadow_lists=True)
+    off = trt.render_image_cuda(cam, scene, depth=1, aliasing=False, **ALL_OFF)
+    without = trt.render_image_cuda(cam, base, depth=1, aliasing=False, shadow_lists=True)
+    assert torch.equal(on, off)
+    assert float((on - without).abs().max()) > 1e-3
+
+
+def test_render_image_fast_on_a_large_scene(cuda_device):
+    """Forward on the large-scene path, backward through the unculled backward
+    kernel: the same gradient as with every cull off."""
+    scene = _planted_scene(40, cuda_device)
+    cam = trt.Camera.build((64, 48), *LARGE_POSES[40], device=cuda_device)
+    target = _target((64, 48), cuda_device)
+    grads = []
+    for culls in (dict(), ALL_OFF):
+        leaves = [t.detach().clone().requires_grad_(True) for t in scene.leaves()]
+        hx.reset_launch_counts()
+        img = render_cuda.render_image_fast(cam, trt.Scene.from_leaves(leaves), depth=2,
+                                            aliasing=False, **culls)
+        assert hx.LAUNCHES["hit_extents"] == int(not culls)
+        torch.mean((img - target) ** 2).backward()
+        grads.append(leaves[0].grad)
+    assert torch.equal(grads[0], grads[1]) and bool(grads[0].abs().max() > 0)
+
+
+def test_large_scene_wrappers_reject_bad_tables(cuda_device):
+    scene = _planted_scene(24, cuda_device)
+    cam = trt.Camera.build((32, 32), *LARGE_POSES[24], device=cuda_device)
+    with pytest.raises(ValueError, match="n_levels"):
+        hx.hit_extents_cuda(cam, scene, aliasing=False, n_levels=hx.MAX_LEVELS + 1)
+    vis, shadow, groups = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                         aliasing=False, compat=True)
+    with pytest.raises(ValueError, match="primary list"):
+        _render_tabs(cam, scene, "aa_none", 2, True, ((vis[0][:-1], vis[1], vis[2]), None,
+                                                      None))
+    with pytest.raises(ValueError, match="shadow list"):
+        _render_tabs(cam, scene, "aa_none", 2, True, (None, (shadow[0].cpu(), shadow[1],
+                                                             shadow[2]), None))
+    two = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=2, vis=vis)
+    one = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=1, vis=vis)
+    assert two.shape == (8, 8) and torch.equal(two[0::2], one)

@@ -90,7 +90,7 @@ def test_trainable_mask_freezes_fields():
     """tests/test_train.py::test_trainable_mask_freezes_fields on the port."""
     *_, cam, scene, target = _fit_inputs(shift=0.0)
     fitted, _ = train.fit_scene(scene, cam, target * 0.5, steps=5, lr=5e-2,
-                                trainable=("spheres",), depth=1)
+                                trainable=("spheres",), depth=1, backend="torch")
     torch.testing.assert_close(fitted.lights.position, scene.lights.position, rtol=0,
                                atol=0)
     torch.testing.assert_close(fitted.materials.lambert, scene.materials.lambert,
@@ -155,3 +155,13 @@ def test_camera_value_and_grad_cuda_backend_matches_autograd():
     for k in train.CAMERA_KEYS:
         torch.testing.assert_close(out["cuda"][1][k], out["torch"][1][k], rtol=1e-4,
                                    atol=1e-7)
+
+
+def test_entry_points_default_to_the_cuda_backend():
+    """The library never picks the CPU: every training entry point that takes a
+    backend defaults to the kernels (tests ask for "torch" explicitly)."""
+    import inspect
+    for fn in (train.fit_scene, train.fit_scene_soft, train.fit_camera,
+               train.soft_pixel_loss, train.soft_value_and_grad,
+               train.camera_value_and_grad):
+        assert inspect.signature(fn).parameters["backend"].default == "cuda", fn.__name__
