@@ -31,7 +31,17 @@ plain version; ``cli render --backend cuda --spheres 100|1000`` at 1920x1080
 without and with AA, with launch counts, PNG and plain-version checks and the
 hit-extent rows held against their plain version at those shapes; and times
 (kernel 3 alone, the three table functions, the render kernel with all culls
-on and all off, the whole wrapper, the plain version, list lengths). Every
+on and all off, the whole wrapper, the plain version, list lengths). Then
+adaptive AA (phases 16-18): the worklist kernel (TPU kernel 7) against the
+plain trace of the same worklist on the demo scene and 100 and 1000 seeded
+spheres at 256x256, compat and clean, twice for bit-identical frames, and
+with every interior pixel flagged against the per-sample AA render; ``cli
+render --adaptive-aa 0.002`` at 1920x1080 on those three scenes, with launch
+counts, the stats line, PNG and full-AA quality checks; and times (the kernel
+alone, the centers pass, the flag/tent/compaction ops on the device and the
+host, the whole wrapper against the ``aa_shared`` and ``aa_none`` wrappers,
+the plain trace, the bound), the kernel held against the plain trace of those
+worklists. Every
 kernel's entry in the kernels line carries its bound (``utils/timing.py``: the
 FP32 operations and bytes the function needs, over the H100's peak rates).
 
@@ -57,10 +67,17 @@ version in float32 or in float64 (where far spheres make the soft cover
 cancel, float32 roundings differ by more than the allowance; the kernel must
 stay near one of the two). Hit extents against the plain version:
 hit_extents_cuda.extent_rule (counts and sentinel rows equal, boxes within
-1e-3 + 1e-6 m^2, m the row's largest coordinate). A render with culls on
-against culls off: ``torch.equal``; only a case with the Morton groups on may
-fall back to the flip rule, named in the output, because sweeping in Morton
-order can move the winner of an exact t tie between two spheres.
+1e-3 + 1e-6 m^2, m the row's largest coordinate). The worklist kernel against
+the plain trace: the flip rule over the listed pixels; with every interior
+pixel flagged, against the per-sample AA render: ``torch.equal`` above 16
+spheres (both in render_fwd.cu's pinned arithmetic), and on the demo scene
+tests/test_adaptive.py's rule (max |d| <= 3e-5, uint8 off by at most 1 on at
+most 0.2% of the pixels). Adaptive frames against full AA: at most 0.5% of
+the pixels off by more than 1 level where no flagged pixel was dropped. A
+render with culls on against culls off: ``torch.equal``; only a case with the
+Morton groups on may fall back to the flip rule, named in the output, because
+sweeping in Morton order can move the winner of an exact t tie between two
+spheres.
 In the kernels line, ``max_rel_err`` is the worst ratio of a
 difference to its allowance under the entry's rule (<= 1 passes).
 """
@@ -143,6 +160,18 @@ CULLS = {"cull": dict(cull=True, shadow_lists=False, group_cull=False),
          "groups": dict(cull=False, shadow_lists=False, group_cull=True),
          "all": dict(cull=True, shadow_lists=True, group_cull=True)}
 ALL_OFF = dict(cull=False, shadow_lists=False, group_cull=False)
+# Adaptive AA (phases 16-18): the worklist kernel (TPU kernel 7).
+LIST_SOURCE = "python_ray_tracer_tpu_torch/csrc/render_fwd_kernel.cuh"
+LIST_REPLACES = "python_ray_tracer_tpu/ops/pallas/render_adaptive.py:97"
+ADAPTIVE_SCENES = (0, 100, 1000)     # 0: the demo scene
+ADAPTIVE_PARITY_RES = (256, 256)
+ADAPTIVE_PARITY_EPS = 0.5 / 255
+ADAPTIVE_EPS = 0.002                 # the CLI runs' --adaptive-aa
+ADAPTIVE_BUDGET = 0.25               # the CLI's default --adaptive-budget
+ADAPTIVE_QUALITY = 0.005             # pixels off full AA by > 1 level (tests/test_adaptive.py)
+DEMO_ADAPTIVE_ATOL = 3e-5            # all flagged vs per-sample AA, demo scene
+DEMO_ADAPTIVE_CHANGED = 0.002
+PLAIN_LIST_MAX = 65536               # pixels of the plain trace at 1000 spheres
 
 
 def frame_diff(a, b):
@@ -184,6 +213,24 @@ def read_png(path: str):
 def seeded(torch, shape, dev, seed: int):
     """Uniform [0, 1) tensor from a seeded CPU generator, moved to ``dev``."""
     return torch.rand(shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+
+
+def host_and_device_ms(fn, iters=10):
+    """(device ms, host ms) a call: CUDA events around `iters` calls back to
+    back, and the host clock over the same calls before the synchronise (the
+    time to enqueue them)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = 1e3 * (time.perf_counter() - t0) / iters
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, host
 
 
 def counts(scene):
@@ -947,22 +994,6 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
                                  label=label, mode=mode)
 
     # Phase 15: times with CUDA events.
-    def host_and_device_ms(fn, iters=10):
-        """(device ms, host ms) a call: CUDA events around `iters` calls back
-        to back, and the host clock over the same calls before the
-        synchronise (the time to enqueue them)."""
-        fn()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        host = 1e3 * (time.perf_counter() - t0) / iters
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / iters, host
-
     def times(label, cam, scene, aa, plain_ms=None):
         mode = "aa_shared" if aa else "aa_none"
         ns, npl, nl = cnt = counts(scene)
@@ -1083,6 +1114,244 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
          "plain_ms": hx_plain_ms, "bound_ms": t["k3_bound"][0], "bound_by": t["k3_bound"][1],
          "library_ms": None, "shape": m["label"]},
         render_entry(False), render_entry(True)]
+
+
+def adaptive_phases(torch, rt, card: str, dev) -> list:
+    """Phases 16-18: the worklist kernel (TPU kernel 7) against its plain
+    version and the all-flagged identity, ``cli render --adaptive-aa`` at
+    1920x1080 on the demo scene and 100 and 1000 spheres, and times. Returns
+    the kernels line's entry for the worklist kernel."""
+    import contextlib
+    import io
+    import numpy as np
+    from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.ops import adaptive as adp
+    from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
+
+    cfg = RenderConfig()
+
+    def scene_and_camera(n, res, compat=True):
+        """The CLI's scene (`--spheres n`, or the demo scene for 0) and camera,
+        with a Phong term in clean mode."""
+        mats = rt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection,
+                                  0.0 if compat else 0.5, cfg.shininess, device=dev)
+        scene = (rt.default_scene(mats, device=dev) if n == 0 else rt.random_scene(
+            n, materials=mats, generator=torch.Generator().manual_seed(0), device=dev))
+        return scene, rt.Camera.build(res, cfg.camera_position, cfg.camera_euler, cfg.fov,
+                                      device=dev)
+
+    def name(n):
+        return "demo" if n == 0 else f"{n}_spheres"
+
+    def worklist(cam, scene, compat, eps, budget):
+        return ac.worklist_inputs(cam, scene, depth=2, compat=compat, eps=eps,
+                                  budget_frac=budget)
+
+    def plain_trace(cam, scene, idx, n, tent, compat):
+        """The plain trace of the first n listed pixels, in blocks that bound
+        its largest intermediate (a shadow sweep: pixels x lights x objects)."""
+        ns, npl, nl = counts(scene)
+        chunk = max(1, PLAIN_BLOCK_ELEMS // (max(nl, 1) * (ns + npl)))
+        return adp.trace_worklist_plain(cam, scene, idx, n, tent, depth=2, compat=compat,
+                                        chunk=chunk)
+
+    def held(label, out, ref, idx, n):
+        """The kernel's frame against the plain trace's at the first n listed
+        pixels under the flip rule; returns max |d| there and the flipped
+        count over its allowance (<= 1 passes)."""
+        sel = idx[:n].long()
+        d = (rt.to_framebuffer(out).int() - rt.to_framebuffer(ref).int()).abs().amax(0)
+        flips = int((d.reshape(-1)[sel] > FLIP_LEVELS).sum())
+        err = float((out.reshape(-1, 3)[sel] - ref.reshape(-1, 3)[sel]).abs().max()) \
+            if n else 0.0
+        print(f"[adaptive] {label}: kernel vs plain trace at {n} listed pixels: flipped "
+              f"{flips}, max_abs_err {err:.3e}")
+        check(flips <= FLIP_FRAC * n, f"{label}: {flips} flipped of {n} listed pixels")
+        rules.append(flips / (FLIP_FRAC * n) if n else 0.0)
+        return err
+
+    # Phase 16: parity at 256x256, compat and clean.
+    res, rules = ADAPTIVE_PARITY_RES, []
+    for n in ADAPTIVE_SCENES:
+        for compat in (True, False):
+            scene, cam = scene_and_camera(n, res, compat)
+            label = f"{name(n)} {res[0]}x{res[1]} compat={compat}"
+            packed, tent, idx, flagged, dropped = worklist(cam, scene, compat,
+                                                           ADAPTIVE_PARITY_EPS, 1.0)
+            cheap = render_cuda.shadow_cheap_ok(scene, compat)
+            a = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
+                               cheap_shadow=cheap)
+            b = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
+                               cheap_shadow=cheap)
+            torch.cuda.synchronize()
+            check(torch.equal(a, b), f"render_list {label}: two runs differ")
+            n_listed = int(flagged)
+            check(int(dropped) == 0 and n_listed > 0, f"{label}: stats {n_listed} {dropped}")
+            sub = min(n_listed, PLAIN_LIST_MAX)
+            held(f"{label} eps=0.5/255, 2 runs bit-identical", a,
+                 plain_trace(cam, scene, idx, sub, tent, compat), idx, sub)
+            out, st = rt.render_image_adaptive_cuda(cam, scene, compat=compat, eps=-1.0,
+                                                    budget_frac=1.0, with_stats=True)
+            ref = rt.render_image_cuda(cam, scene, compat=compat, aliasing=True,
+                                       aa_share=False)
+            check(int(st["flagged"]) == (res[0] - 2) * (res[1] - 2) and
+                  int(st["dropped"]) == 0, f"{label}: all-flagged stats {st}")
+            same = torch.equal(out, ref)
+            dmax = float((out - ref).abs().max())
+            q = (rt.to_framebuffer(out).int() - rt.to_framebuffer(ref).int()).abs()
+            changed = float((q.amax(0) > 0).float().mean())
+            print(f"[adaptive] {label}: all flagged vs aa_per_sample: "
+                  f"{'bit-identical' if same else 'NOT bit-identical'}, max|d| {dmax:.3e}, "
+                  f"uint8 max {int(q.max())} on {changed:.5f} of pixels; flagged at "
+                  f"eps=0.5/255 {n_listed} ({n_listed / (res[0] * res[1]):.4f})")
+            if n > render_cuda.CULL_MIN_SPHERES:
+                check(same, f"{label}: all flagged differs from the per-sample render")
+            else:
+                check(dmax <= DEMO_ADAPTIVE_ATOL and int(q.max()) <= 1 and
+                      changed <= DEMO_ADAPTIVE_CHANGED, f"{label}: all flagged vs "
+                      f"per-sample: max|d| {dmax}, uint8 max {int(q.max())}, {changed}")
+
+    # Phase 17: the main path through the CLI at 1920x1080, counts set to 0
+    # just before each run and read just after.
+    os.makedirs(OUT_DIR, exist_ok=True)
+    W, H = LARGE_RES
+    main, launches = {}, 0
+    for n in ADAPTIVE_SCENES:
+        scene, cam = scene_and_camera(n, LARGE_RES)
+        label = f"{name(n)}_{W}x{H}_adaptive"
+        png = os.path.join(OUT_DIR, f"{label}.png")
+        args = ["render", "--backend", "cuda", "--adaptive-aa", str(ADAPTIVE_EPS),
+                "--width", str(W), "--height", str(H), "--out", png]
+        if n:
+            args[1:1] = ["--spheres", str(n)]
+        render_cuda.reset_launch_counts()
+        hx.reset_launch_counts()
+        ac.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        torch.cuda.synchronize()
+        text = buf.getvalue()
+        print(text, end="")
+        check(rc == 0, f"cli {' '.join(args)} failed")
+        got = {**ac.LAUNCHES, **render_cuda.LAUNCHES, **hx.LAUNCHES}
+        print(f"[adaptive-main] cli {' '.join(args[:-2])}: launches {got}")
+        want = {"render_list": LARGE_FRAMES, "aa_none": LARGE_FRAMES, "aa_per_sample": 0,
+                "aa_shared": 0, "hit_extents": LARGE_FRAMES if n else 0}
+        check(got == want, f"{label}: launches {got}, expected {want}")
+        launches += got["render_list"]
+        line = next((ln for ln in text.splitlines() if ln.startswith("[adaptive-aa] flagged")),
+                    None)
+        check(line is not None, f"{label}: no stats line")
+        img, st = rt.render_image_adaptive_cuda(cam, scene, eps=ADAPTIVE_EPS,
+                                                budget_frac=ADAPTIVE_BUDGET, with_stats=True)
+        flagged, dropped = int(st["flagged"]), int(st["dropped"])
+        check(f"flagged {flagged:,} px" in line and f"dropped {dropped:,}" in line,
+              f"{label}: stats line {line!r}, wrapper {flagged} {dropped}")
+        w, h, px = read_png(png)
+        check((w, h) == LARGE_RES, f"{png}: {w}x{h}")
+        check(img.shape == (W, H, 3) and bool(torch.isfinite(img).all()),
+              f"{label}: frame not finite")
+        check(np.array_equal(px, framebuffer_to_array(rt.to_framebuffer(img))),
+              f"{png}: pixels differ from the wrapper's frame")
+        full = rt.render_image_cuda(cam, scene, depth=2, aliasing=True)
+        flips, changed, dmax = frame_diff(rt.to_framebuffer(img), rt.to_framebuffer(full))
+        share = flips / (W * H)
+        _, all_st = rt.render_image_adaptive_cuda(cam, scene, eps=ADAPTIVE_EPS,
+                                                  budget_frac=1.0, with_stats=True)
+        print(f"[adaptive-main] {label}: {os.path.relpath(png, ROOT)} decodes to the "
+              f"wrapper's frame; flagged {flagged} ({flagged / (W * H):.4f}; "
+              f"{int(all_st['flagged']) / (W * H):.4f} at budget 1.0), dropped {dropped}; "
+              f"vs full AA (aa_shared): off by > 1 level {flips} ({share:.5f}), changed "
+              f"{changed}, max {dmax} levels")
+        if dropped == 0:
+            check(share <= ADAPTIVE_QUALITY, f"{label}: {share:.4%} of pixels off full AA")
+        main[n] = dict(label=label, flagged=flagged, dropped=dropped, share=share)
+    check(launches > 0, "the main path never launched the worklist kernel")
+
+    # Phase 18: times with CUDA events at those shapes; the kernel against the
+    # plain trace of the main path's worklists (the first PLAIN_LIST_MAX
+    # listed pixels at 1000 spheres).
+    times = {}
+    for n in ADAPTIVE_SCENES:
+        scene, cam = scene_and_camera(n, LARGE_RES)
+        label = main[n]["label"]
+        ns, npl, nl = counts(scene)
+        reps = 20 if n <= 100 else 5
+        packed, tent, idx, flagged, _ = worklist(cam, scene, True, ADAPTIVE_EPS,
+                                                 ADAPTIVE_BUDGET)
+        cheap = render_cuda.shadow_cheap_ok(scene, True)
+        out = tent.clone()
+        n_listed = min(int(flagged), idx.numel())
+        t = {"kernel": 1e3 * rt.time_fn(ac.launch_list, out, *packed, idx, flagged, depth=2,
+                                        compat=True, cheap_shadow=cheap, warmup=2,
+                                        iters=reps),
+             "centers": 1e3 * rt.time_fn(render_cuda.render_packed, cam, scene, packed,
+                                         depth=2, mode="aa_none", compat=True, warmup=2,
+                                         iters=reps)}
+        C = adp.stored_to_rgb(render_cuda.render_packed(cam, scene, packed, depth=2,
+                                                        mode="aa_none", compat=True), True)
+        K = adp.budget_slots(W, H, ADAPTIVE_BUDGET)
+        t["glue"] = host_and_device_ms(lambda: adp.tent_and_worklist(
+            C, compat=True, eps=ADAPTIVE_EPS, K=K), iters=reps)
+        flags = adp.curvature_flags(C, ADAPTIVE_EPS)
+        t["parts"] = {"curvature_flags": host_and_device_ms(
+                          lambda: adp.curvature_flags(C, ADAPTIVE_EPS), iters=reps),
+                      "tent_image": host_and_device_ms(lambda: adp.tent_image(C, True),
+                                                       iters=reps),
+                      "compact": host_and_device_ms(lambda: adp.compact(flags, K),
+                                                    iters=reps)}
+        t["wrapper"] = host_and_device_ms(lambda: rt.render_image_adaptive_cuda(
+            cam, scene, eps=ADAPTIVE_EPS, budget_frac=ADAPTIVE_BUDGET), iters=reps)
+        t["shared"] = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
+                                       aliasing=True, warmup=2, iters=reps)
+        t["none"] = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
+                                     aliasing=False, warmup=2, iters=reps)
+        sub = n_listed if n <= 100 else min(n_listed, PLAIN_LIST_MAX)
+        t0 = time.perf_counter()
+        ref = plain_trace(cam, scene, idx, sub, tent, True)
+        torch.cuda.synchronize()
+        t["plain"] = 1e3 * (time.perf_counter() - t0)
+        t["plain_px"] = sub
+        t["err"] = held(label, ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2,
+                                               compat=True, cheap_shadow=cheap),
+                        ref, idx, sub)
+        del ref
+        vis = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=False, compat=True,
+                                             shadow_lists=False, group_cull=False)[0]
+        t["bound"] = timing.bound_ms(*timing.adaptive_work(idx, n_listed, H, ns, npl, nl, vis))
+        t["listed"] = n_listed
+        times[n] = t
+        print(f"[adaptive-time] {label} eps={ADAPTIVE_EPS} budget={ADAPTIVE_BUDGET}, "
+              f"{n_listed} listed pixels: list kernel alone {t['kernel']:.4f} ms (bound "
+              f"{t['bound'][0]:.4f} ms, {t['bound'][1]}); centers pass on packed inputs "
+              f"{t['centers']:.4f} ms; flag/tent/compaction ops {t['glue'][0]:.4f} ms device "
+              f"/ {t['glue'][1]:.4f} ms host; whole adaptive wrapper {t['wrapper'][0]:.4f} ms "
+              f"device / {t['wrapper'][1]:.4f} ms host, against the aa_shared wrapper "
+              f"{t['shared']:.4f} ms ({t['wrapper'][0] / t['shared']:.3f}x) and the "
+              f"aa_none wrapper {t['none']:.4f} ms; plain trace {t['plain']:.4f} ms for "
+              f"{sub} pixels | {card}")
+        print(f"[adaptive-glue] {label}, device ms / host ms a call: " + ", ".join(
+            f"{k} {d:.4f} / {h:.4f}" for k, (d, h) in t["parts"].items()) + f" | {card}")
+
+    t = times[0]
+    return [{"name": "render_adaptive_list", "route": "cuda", "source": LIST_SOURCE,
+             "replaces": LIST_REPLACES, "launches": launches,
+             "max_abs_err": max(v["err"] for v in times.values()), "max_rel_err": max(rules),
+             "ms": t["wrapper"][0], "kernel_only_ms": t["kernel"], "plain_ms": t["plain"],
+             "bound_ms": t["bound"][0], "bound_by": t["bound"][1], "library_ms": None,
+             "shape": main[0]["label"], "listed_px": t["listed"],
+             "shapes": {main[n]["label"]: {
+                 "listed_px": v["listed"], "kernel_only_ms": v["kernel"],
+                 "wrapper_ms": v["wrapper"][0], "aa_shared_wrapper_ms": v["shared"],
+                 "plain_ms": v["plain"], "plain_px": v["plain_px"], "bound_ms": v["bound"][0],
+                 "max_abs_err": v["err"], "flagged": main[n]["flagged"],
+                 "dropped": main[n]["dropped"]} for n, v in times.items()}}]
 
 
 def main() -> int:
@@ -1243,6 +1512,7 @@ def main() -> int:
     kernels += backward_phases(torch, rt, card, dev)
     kernels += soft_phases(torch, rt, card, dev)
     kernels += large_scene_phases(torch, rt, card, dev)
+    kernels += adaptive_phases(torch, rt, card, dev)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ The backward kernel (``csrc/render_bwd.cu``) gives scene and camera gradients;
 ``render_image_fast`` is the differentiable render, and ``train`` fits scenes
 and cameras with it. The soft-visibility renderer (``ops/soft.py``) has its
 forward and backward kernels (``csrc/soft_fwd.cu``, ``csrc/soft_bwd.cu``),
-``render_image_soft_fast`` and ``train.fit_scene_soft``.
+``render_image_soft_fast`` and ``train.fit_scene_soft``. Adaptive AA
+(``ops/adaptive.py``) traces the 9 samples of the flagged pixels only, through
+the worklist kernel (``render_image_adaptive_cuda``).
 
 Entry point: ``python -m python_ray_tracer_tpu_torch.cli render|fit``.
 """
@@ -25,6 +27,8 @@ from .ops.cuda.render_cuda import (render_image_cuda, render_image_fast, pack_pa
                                    shadow_cheap_ok)
 from .ops.cuda.render_bwd_cuda import (grad_layout, scene_grads_cuda,
                                        loss_and_scene_grads_cuda)
+from .ops.adaptive import render_image_adaptive_plain
+from .ops.cuda.adaptive_cuda import render_image_adaptive_cuda
 from .ops.soft import render_image_soft, render_rays_soft
 from .ops.cuda.soft_cuda import render_image_soft_cuda, render_image_soft_fast
 from .ops.cuda.soft_bwd_cuda import soft_scene_grads_cuda, soft_loss_and_grads_cuda
@@ -43,7 +47,8 @@ __all__ = [
     "sample", "trace_once", "reflect", "intersect_spheres", "intersect_planes",
     "closest_hit", "any_hit", "render_image_cuda", "render_image_fast",
     "pack_params", "shadow_cheap_ok", "grad_layout", "scene_grads_cuda",
-    "loss_and_scene_grads_cuda", "render_image_soft", "render_rays_soft",
+    "loss_and_scene_grads_cuda", "render_image_adaptive_plain",
+    "render_image_adaptive_cuda", "render_image_soft", "render_rays_soft",
     "render_image_soft_cuda", "render_image_soft_fast", "soft_scene_grads_cuda",
     "soft_loss_and_grads_cuda", "fit_scene", "fit_scene_soft", "fit_camera",
     "MetricsLogger",

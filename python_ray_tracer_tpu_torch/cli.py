@@ -4,7 +4,9 @@ render|fit``.
 ``render`` reproduces the reference main.py flow (main.py:8-55): build the demo
 scene, render at the reference's settings (1000x1000, amb=0, lamb=0.6,
 refl=0.3, depth=2, AA on), print a synchronised time, save a PNG; ``--soft TAU``
-renders with the soft-visibility renderer instead. ``fit`` is the
+renders with the soft-visibility renderer instead, and ``--adaptive-aa EPS``
+supersamples only the pixels whose centers curve by more than EPS (the worklist
+kernel; ``--backend cuda`` with AA on). ``fit`` is the
 inverse-rendering demo of ``python_ray_tracer_tpu.cli fit``: ``--mode soft``
 (the default) recovers the perturbed sphere centers of the demo scene through
 the soft renderer with tau annealing, ``--mode hard`` those of a well-separated
@@ -25,6 +27,7 @@ from . import train
 from .models.camera import Camera
 from .models.scene import (BLUE, GREY, RED, Lights, Materials, Planes, Scene,
                            Spheres, default_scene, random_scene)
+from .ops.cuda.adaptive_cuda import render_image_adaptive_cuda
 from .ops.cuda.render_cuda import render_image_cuda
 from .ops.cuda.soft_cuda import render_image_soft_cuda, render_image_soft_plain
 from .ops.render import render_image, to_framebuffer
@@ -53,6 +56,13 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                         "without one; torch: the plain PyTorch version on the CPU")
     p.add_argument("--soft", type=float, default=0.0, metavar="TAU",
                    help="render with the soft-visibility renderer at this tau")
+    p.add_argument("--adaptive-aa", type=float, default=None, metavar="EPS",
+                   help="adaptive 3x3 AA (cuda backend, AA on): trace the 9 samples "
+                        "only of pixels whose center curvature exceeds EPS (in [0, 1] "
+                        "units; try 0.002, about 0.5/255), the tent filter elsewhere")
+    p.add_argument("--adaptive-budget", type=float, default=0.25,
+                   help="worklist length as a share of the pixels (static; pixels "
+                        "flagged past it keep the tent value and are reported)")
     p.add_argument("--spheres", type=int, default=0,
                    help="random N-sphere scene instead of the demo scene (drawn "
                         "from a seeded torch.Generator: not the JAX package's "
@@ -78,22 +88,48 @@ def _build(args):
     return cfg, scene, cam
 
 
-def _render_fn(cfg: RenderConfig, soft_tau: float = 0.0):
+def _render_fn(cfg: RenderConfig, soft_tau: float = 0.0, adaptive_eps=None,
+               adaptive_budget: float = 0.25):
+    """``(fn(cam, scene) -> image, adaptive keywords or None)``: the render
+    call the flags ask for, and the keywords of
+    :func:`render_image_adaptive_cuda` when that is it. ``--adaptive-aa`` is
+    ignored, with a note on stderr, under ``--soft``, without AA and on the
+    plain backend (as the JAX CLI ignores it off its Pallas backend)."""
+    ignored = None
+    if soft_tau > 0.0:
+        ignored = "--soft renders use the soft renderer"
+    elif not cfg.aliasing:
+        ignored = "requires aliasing on"
+    elif cfg.backend != "cuda":
+        ignored = "cuda backend only"
+    if adaptive_eps is not None and ignored:
+        print(f"[adaptive-aa] ignored: {ignored}", file=sys.stderr)
     if soft_tau > 0.0:
         if cfg.backend == "cuda":
-            return lambda cam, scene: render_image_soft_cuda(cam, scene, tau=soft_tau)
-        return lambda cam, scene: render_image_soft_plain(cam, scene, tau=soft_tau)
+            return lambda cam, scene: render_image_soft_cuda(cam, scene, tau=soft_tau), None
+        return lambda cam, scene: render_image_soft_plain(cam, scene, tau=soft_tau), None
+    if adaptive_eps is not None and not ignored:
+        akw = dict(depth=cfg.depth, compat=cfg.compat, eps=adaptive_eps,
+                   budget_frac=adaptive_budget)
+        return lambda cam, scene: render_image_adaptive_cuda(cam, scene, **akw), akw
     kw = dict(depth=cfg.depth, aliasing=cfg.aliasing, compat=cfg.compat)
     if cfg.backend == "cuda":
-        return lambda cam, scene: render_image_cuda(cam, scene, **kw)
-    return lambda cam, scene: render_image(cam, scene, **kw)
+        return lambda cam, scene: render_image_cuda(cam, scene, **kw), None
+    return lambda cam, scene: render_image(cam, scene, **kw), None
 
 
 def cmd_render(args) -> int:
     cfg, scene, cam = _build(args)
-    fn = _render_fn(cfg, args.soft)
+    fn, adaptive = _render_fn(cfg, args.soft, args.adaptive_aa, args.adaptive_budget)
     secs = time_fn(fn, cam, scene, warmup=1, iters=5)
-    img = fn(cam, scene)
+    if adaptive is None:
+        img = fn(cam, scene)
+    else:   # the frame that gives the stats is the PNG's: no extra render
+        img, stats = render_image_adaptive_cuda(cam, scene, **adaptive, with_stats=True)
+        flagged, dropped = int(stats["flagged"]), int(stats["dropped"])
+        print(f"[adaptive-aa] flagged {flagged:,} px "
+              f"({flagged / (cfg.width * cfg.height):.1%}), dropped {dropped:,} "
+              f"(raise --adaptive-budget if > 0)")
     n_rays = rays_per_image(cfg.width, cfg.height, depth=cfg.depth,
                             aliasing=cfg.aliasing, n_lights=scene.lights.count)
     soft = f", soft tau={args.soft:g}" if args.soft > 0.0 else ""

@@ -1,6 +1,6 @@
-// The render kernel's large-scene instantiations (render_fwd_kernel.cuh with
-// TABLES, in rt_common.cuh's pinned arithmetic) and the entry point of both
-// halves.
+// The render kernel's and the worklist kernel's large-scene instantiations
+// (render_fwd_kernel.cuh with TABLES, in rt_common.cuh's pinned arithmetic)
+// and the entry points of both halves.
 
 #include "render_fwd_kernel.cuh"
 
@@ -41,6 +41,41 @@ int rt_render_fwd(const float* params, const float* sph, int ns, const float* pl
               {vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, bnd, n_groups},
               static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch<true>(mode, compat != 0, cheap_shadow != 0, j));
+}
+
+// The small-scene worklist instantiations (render_fwd_small.cu); arguments
+// checked here.
+int rt_render_list_small(const float* params, const float* sph, int ns, const float* pln,
+                         int npl, const float* lts, int nl, const int* idx,
+                         const int* flagged, int K, float* out, int W, int H, int depth,
+                         int compat, int cheap_shadow, void* stream);
+
+// Adaptive AA's worklist pass on `stream`: for each of the first
+// min(*flagged, K) slots of idx (int32, flat pixel indices x * H + y), trace
+// that pixel's 9 AA samples and write their average, in the stored layout of
+// mode 1 (per-sample AA), into out (W, H, 3) float32, which holds the tent
+// image; every other pixel of out is left as it is. flagged is a device
+// pointer to one int32. params and the SoA tables as for rt_render_fwd.
+// large_scene selects this file's instantiation (the pinned arithmetic of the
+// large-scene render, every sweep full), else render_fwd_small.cu's.
+// Returns cudaGetLastError() after the launch (0 on success).
+int rt_render_list(const float* params, const float* sph, int ns, const float* pln,
+                   int npl, const float* lts, int nl, const int* idx, const int* flagged,
+                   int K, float* out, int W, int H, int depth, int compat,
+                   int cheap_shadow, int large_scene, void* stream) {
+  if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 || K < 1 ||
+      !idx || !flagged || !out) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!large_scene) {
+    return rt_render_list_small(params, sph, ns, pln, npl, lts, nl, idx, flagged, K, out,
+                                W, H, depth, compat, cheap_shadow, stream);
+  }
+  const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth,
+              {nullptr, nullptr, 0, nullptr, nullptr, 0, nullptr, nullptr, 0},
+              static_cast<cudaStream_t>(stream)};
+  return static_cast<int>(dispatch_list<true>(compat != 0, cheap_shadow != 0, j, idx,
+                                              flagged, K));
 }
 
 const char* rt_error_string(int code) {

@@ -6,6 +6,8 @@
 //   AA_NONE        <- _make_kernel (:1487) at S=1 (no AA)
 //   AA_PER_SAMPLE  <- _make_kernel (:1487) at S=9 (per-sample AA grid axis)
 //   AA_SHARED      <- _make_kernel_aa_shared (:1386) (4 shared sample grids)
+// and, in render_list_kernel below, the TPU kernel of adaptive AA's worklist
+// (python_ray_tracer_tpu/ops/pallas/render_adaptive.py:97, _make_list_kernel).
 //
 // What bounds it on this card: FP32 ALU work and sqrt/division rate, not
 // memory. The scene is 60 floats (demo) to 7000 (1000 spheres) and the output
@@ -46,9 +48,10 @@
 // `<` (the reference's `<=` bound reads out of bounds; see the README's
 // divergence ledger, item 1).
 //
-// This header holds the kernel and its launch; each of those two source files
-// includes it once, after choosing rt_common.cuh's arithmetic, and
-// instantiates its own half (TABLES true or false).
+// This header holds the kernels and their launches; each of those two source
+// files includes it once, after choosing rt_common.cuh's arithmetic, and
+// instantiates its own half (TABLES true or false), so the worklist pass runs
+// the same arithmetic as the render it stands in for.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,6 +79,59 @@ __device__ __forceinline__ void store(float* out, int H, int x, int y,
   o[2] = c2;
 }
 
+// Shared-memory words of the parameter vector and the scene's SoA tables.
+__host__ __device__ __forceinline__ int scene_words(int ns, int npl, int nl) {
+  return N_PARAMS + 7 * ns + 9 * npl + 3 * nl;
+}
+
+// Stage the parameter vector and the scene's tables at smem (thread tid of
+// nt) and return the view of them; the words past scene_words are the
+// caller's. The caller synchronises.
+__device__ __forceinline__ SceneView stage_scene(const float* __restrict__ params,
+                                                 const float* __restrict__ sph, int ns,
+                                                 const float* __restrict__ pln, int npl,
+                                                 const float* __restrict__ lts, int nl,
+                                                 float* smem, int tid, int nt) {
+  float* s_p = smem;
+  float* s_sph = s_p + N_PARAMS;
+  float* s_pln = s_sph + 7 * ns;
+  float* s_lts = s_pln + 9 * npl;
+  for (int i = tid; i < N_PARAMS; i += nt) s_p[i] = params[i];
+  for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
+  for (int i = tid; i < 9 * npl; i += nt) s_pln[i] = pln[i];
+  for (int i = tid; i < 3 * nl; i += nt) s_lts[i] = lts[i];
+  return SceneView{s_p, s_sph, ns, s_pln, npl, s_lts, nl};
+}
+
+// AA_PER_SAMPLE's value of the pixel at (gx, gy), in the stored layout: the
+// primary sample, and where aa (an interior pixel) its 8 neighbours added and
+// the sum scaled by float32(1/9). Compat stores the primary sample (R, B, G),
+// the store swap (common.py:61-63); the neighbours land unswapped, since the
+// accumulation swap (kernels.py:59-60) composed with the store swap cancels
+// for them. The render kernel and the worklist kernel both call this, so a
+// worklist frame with every interior pixel listed is the per-sample frame.
+template <bool COMPAT, bool CHEAP, bool TABLES>
+__device__ __forceinline__ Rgb per_sample_aa(const SceneView& s, const Tables& tb, float gx,
+                                             float gy, int depth, bool aa) {
+  const Rgb c0 = sample_chain<COMPAT, CHEAP, TABLES>(s, tb, gx + s.p[P_OFFS],
+                                                     gy + s.p[P_OFFS + 1], depth);
+  Rgb o{c0.r, COMPAT ? c0.b : c0.g, COMPAT ? c0.g : c0.b};
+  if (aa) {
+    for (int k = 1; k < 9; ++k) {
+      const Rgb c = sample_chain<COMPAT, CHEAP, TABLES>(
+          s, tb, gx + s.p[P_OFFS + 2 * k], gy + s.p[P_OFFS + 2 * k + 1], depth);
+      o.r += c.r;
+      o.g += c.g;
+      o.b += c.b;
+    }
+    const float inv9 = static_cast<float>(1.0 / 9.0);
+    o.r *= inv9;
+    o.g *= inv9;
+    o.b *= inv9;
+  }
+  return o;
+}
+
 template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
 __global__ void __launch_bounds__(TILE * TILE)
 render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
@@ -83,25 +139,17 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
                   const float* __restrict__ lts, int nl, float* __restrict__ out,
                   int W, int H, int depth, TableArgs ta) {
   extern __shared__ float smem[];
-  float* s_p = smem;
-  float* s_sph = s_p + N_PARAMS;
-  float* s_pln = s_sph + 7 * ns;
-  float* s_lts = s_pln + 9 * npl;
   const int tid = threadIdx.y * TILE + threadIdx.x;
-  for (int i = tid; i < N_PARAMS; i += TILE * TILE) s_p[i] = params[i];
-  for (int i = tid; i < 7 * ns; i += TILE * TILE) s_sph[i] = sph[i];
-  for (int i = tid; i < 9 * npl; i += TILE * TILE) s_pln[i] = pln[i];
-  for (int i = tid; i < 3 * nl; i += TILE * TILE) s_lts[i] = lts[i];
+  const SceneView s = stage_scene(params, sph, ns, pln, npl, lts, nl, smem, tid, TILE * TILE);
   // The tile id of the host's tables: x tiles outermost, as cull_tables.py
   // numbers them.
-  float* s_tab = s_lts + 3 * nl;
+  float* s_tab = smem + scene_words(ns, npl, nl);
   Tables tb{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
   if (TABLES) {
     tb = stage_tables(ta, nl, blockIdx.y * gridDim.x + blockIdx.x, s_tab, tid,
                       TILE * TILE);
   }
   __syncthreads();
-  const SceneView s{s_p, s_sph, ns, s_pln, npl, s_lts, nl};
 
   const int x0 = blockIdx.y * TILE, y0 = blockIdx.x * TILE;
   const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
@@ -164,25 +212,54 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   }
 
   if (x >= W || y >= H) return;
-  const Rgb c0 = sample_chain<COMPAT, CHEAP, TABLES>(s, tb, gx + s_p[P_OFFS],
-                                                     gy + s_p[P_OFFS + 1], depth);
-  // Primary sample: compat stores (R, B, G), the store swap (common.py:61-63).
-  float o0 = c0.r, o1 = COMPAT ? c0.b : c0.g, o2 = COMPAT ? c0.g : c0.b;
-  if (MODE == AA_PER_SAMPLE && interior) {
-    // Neighbour samples land unswapped under compat: the accumulation swap
-    // (kernels.py:59-60) composed with the store swap cancels for them.
-    for (int k = 1; k < 9; ++k) {
-      const Rgb c = sample_chain<COMPAT, CHEAP, TABLES>(
-          s, tb, gx + s_p[P_OFFS + 2 * k], gy + s_p[P_OFFS + 2 * k + 1], depth);
-      o0 += c.r;
-      o1 += c.g;
-      o2 += c.b;
-    }
-    o0 *= inv9;
-    o1 *= inv9;
-    o2 *= inv9;
-  }
-  store(out, H, x, y, o0, o1, o2);
+  const Rgb o = per_sample_aa<COMPAT, CHEAP, TABLES>(s, tb, gx, gy, depth,
+                                                     MODE == AA_PER_SAMPLE && interior);
+  store(out, H, x, y, o.r, o.g, o.b);
+}
+
+// Adaptive AA's worklist pass (replaces the TPU kernel _make_list_kernel,
+// python_ray_tracer_tpu/ops/pallas/render_adaptive.py:97): one thread per
+// listed pixel traces its 9 AA samples and writes their average
+// (per_sample_aa, the render kernel's AA_PER_SAMPLE code) straight into the
+// tent image at (x, y), which the wrapper allocated for this launch and hands
+// over. What bounds it: FP32 work, 9 sample chains a listed pixel. Each chain
+// sweeps every sphere, where the function needs only those of the pixel's
+// tile cone-cull list (the centers pass builds it; reading it here is later
+// work). The TPU kernel traced a (rows, 128) list of float sample coordinates
+// into a (3, rows, 128) sample buffer that XLA then combined and scattered,
+// because the TPU has no scatter worth the name; here each thread derives its
+// pixel from the flat index x * H + y and writes its own 12 bytes, so no
+// sample buffer, coordinate list or scatter exists. idx holds K slots; the
+// first min(*flagged, K) are live (the count stays on the device: no host
+// sync). A block whose first slot is past the count exits before staging the
+// scene, so the empty tail of a static-budget grid costs almost nothing.
+constexpr int LIST_BLOCK = 256;
+
+template <bool COMPAT, bool CHEAP, bool TABLES>
+__global__ void __launch_bounds__(LIST_BLOCK)
+render_list_kernel(const float* __restrict__ params, const float* __restrict__ sph, int ns,
+                   const float* __restrict__ pln, int npl, const float* __restrict__ lts,
+                   int nl, const int* __restrict__ idx, const int* __restrict__ flagged,
+                   int K, float* __restrict__ out, int W, int H, int depth) {
+  const int n = min(*flagged, K);
+  const int first = blockIdx.x * LIST_BLOCK;
+  if (first >= n) return;   // uniform across the block, before any barrier
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x;
+  const SceneView s = stage_scene(params, sph, ns, pln, npl, lts, nl, smem, tid, LIST_BLOCK);
+  __syncthreads();
+  const int slot = first + tid;
+  if (slot >= n) return;
+  const int p = idx[slot];
+  if (p < 0 || p >= W * H) return;
+  // No tables: with TABLES (the large-scene instantiation) every sweep takes
+  // its full-sweep branch, the machine code of the render kernel with every
+  // cull off.
+  const Tables tb{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
+  const int x = p / H, y = p % H;
+  const Rgb o = per_sample_aa<COMPAT, CHEAP, TABLES>(s, tb, static_cast<float>(x),
+                                                     static_cast<float>(y), depth, true);
+  store(out, H, x, y, o.r, o.g, o.b);
 }
 
 // The scene, the output and the launch settings, bundled for the dispatch.
@@ -202,7 +279,7 @@ struct Job {
 
 template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
 cudaError_t launch(const Job& j) {
-  const size_t smem = sizeof(float) * (N_PARAMS + 7 * j.ns + 9 * j.npl + 3 * j.nl +
+  const size_t smem = sizeof(float) * (scene_words(j.ns, j.npl, j.nl) +
                                        (TABLES ? table_words(j.ta, j.nl) : 0) +
                                        (MODE == AA_SHARED ? 3 * N_SHARED : 0));
   if (smem > 48 * 1024) {
@@ -239,6 +316,34 @@ cudaError_t dispatch(int mode, bool compat, bool cheap, const Job& j) {
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The worklist pass over K slots of idx (j.out is the tent image; j.ta unused).
+template <bool COMPAT, bool CHEAP, bool TABLES>
+cudaError_t launch_list(const Job& j, const int* idx, const int* flagged, int K) {
+  const size_t smem = sizeof(float) * scene_words(j.ns, j.npl, j.nl);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        render_list_kernel<COMPAT, CHEAP, TABLES>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+  }
+  const int blocks = (K + LIST_BLOCK - 1) / LIST_BLOCK;
+  render_list_kernel<COMPAT, CHEAP, TABLES><<<blocks, LIST_BLOCK, smem, j.stream>>>(
+      j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, idx, flagged, K, j.out, j.W, j.H,
+      j.depth);
+  return cudaGetLastError();
+}
+
+template <bool TABLES>
+cudaError_t dispatch_list(bool compat, bool cheap, const Job& j, const int* idx,
+                          const int* flagged, int K) {
+  if (compat) {
+    return cheap ? launch_list<true, true, TABLES>(j, idx, flagged, K)
+                 : launch_list<true, false, TABLES>(j, idx, flagged, K);
+  }
+  return cheap ? launch_list<false, true, TABLES>(j, idx, flagged, K)
+               : launch_list<false, false, TABLES>(j, idx, flagged, K);
 }
 
 }  // namespace

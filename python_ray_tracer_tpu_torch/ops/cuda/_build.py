@@ -111,6 +111,9 @@ def load_library() -> ctypes.CDLL:
             lib.rt_render_fwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp,
                                           ci, ci, ci, ci, ci, ci, ci,
                                           vp, vp, ci, vp, vp, ci, vp, vp, ci, vp]
+            lib.rt_render_list.restype = ci
+            lib.rt_render_list.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci, vp,
+                                           ci, ci, ci, ci, ci, ci, vp]
             lib.rt_hit_extents.restype = ci
             lib.rt_hit_extents.argtypes = [vp, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci,
                                            vp, vp, ci, vp, vp, ci, vp]

@@ -215,28 +215,48 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
     without sharing, else ``aa_none``), after the hit-extent kernel where the
     shadow lists are on. ``cull``, ``shadow_lists`` and ``group_cull`` are the
     JAX wrapper's (:func:`large_scene_tables`); none changes a pixel."""
-    dev = camera.position.device
-    if dev.type == "cpu":
+    if camera.position.device.type == "cpu":
         return render_image(camera, scene, depth=depth, aliasing=aliasing,
                             compat=compat)
+    mode = ("aa_shared" if aa_share else "aa_per_sample") if aliasing else "aa_none"
+    return render_packed(camera, scene, packed_inputs(camera, scene, depth=depth,
+                                                      compat=compat),
+                         depth=depth, mode=mode, compat=compat, cull=cull,
+                         shadow_lists=shadow_lists, group_cull=group_cull)
+
+
+def packed_inputs(camera, scene, *, depth: int, compat: bool):
+    """Check CUDA inputs (device, dtype, shapes, depth, resolution, the shared
+    memory a block stages) and pack them for the kernels: ``(params, tables,
+    counts)``, the parameter vector and :func:`scene_tables` on the camera's
+    device and ``(ns, npl, nl)``."""
+    dev = camera.position.device
     if dev.type != "cuda":
-        raise ValueError(f"render_image_cuda takes CPU or CUDA tensors, got {dev}")
+        raise ValueError(f"the render kernels take CPU or CUDA tensors, got {dev}")
     if depth < 0:
         raise ValueError(f"depth must be >= 0, got {depth}")
     _check_inputs(camera, scene, dev)
     W, H = camera.resolution
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")
-    mode = ("aa_shared" if aa_share else "aa_per_sample") if aliasing else "aa_none"
-    params = pack_params(camera, scene, compat).to(dev)
+    return (pack_params(camera, scene, compat).to(dev), scene_tables(scene),
+            (scene.spheres.count, scene.planes.count, scene.lights.count))
+
+
+def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
+                  cull: bool = True, shadow_lists: bool | None = None,
+                  group_cull: bool | None = None) -> torch.Tensor:
+    """:func:`render_image_cuda`'s CUDA path on :func:`packed_inputs`: the
+    large-scene tables (with the hit-extent kernel where the shadow lists are
+    on), then one launch of the render kernel in ``mode``."""
+    params, tables, counts = packed
+    dev = params.device
+    W, H = camera.resolution
     out = torch.empty((W, H, 3), dtype=torch.float32, device=dev)
-    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
-    tables = scene_tables(scene)
     with torch.cuda.device(dev):
         vis, shadow, groups = large_scene_tables(
-            camera, scene, depth=depth, aliasing=aliasing, compat=compat, cull=cull,
-            shadow_lists=shadow_lists, group_cull=group_cull,
-            packed=(params, tables, counts))
+            camera, scene, depth=depth, aliasing=mode != "aa_none", compat=compat,
+            cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed)
         return launch(out, params, tables, counts, depth=depth,
                       mode=mode, compat=compat,
                       cheap_shadow=shadow_cheap_ok(scene, compat), vis=vis,
@@ -246,7 +266,7 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
 def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
            cheap_shadow: bool, vis=None, shadow=None, groups=None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
-    checked by :func:`render_image_cuda`: ``out (W, H, 3)``, ``params
+    checked by :func:`packed_inputs`: ``out (W, H, 3)``, ``params
     (N_PARAMS,)``, the :func:`scene_tables` and the object counts
     ``(ns, npl, nl)``, all tensors float32 and contiguous on the current
     device; ``vis``, ``shadow`` and ``groups`` as :func:`large_scene_tables`

@@ -255,6 +255,30 @@ def hard_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str) -> tuple:
     return ops, nbytes
 
 
+def adaptive_work(idx, n_listed: int, H: int, ns: int, npl: int, nl: int,
+                  vis=None) -> tuple:
+    """(operations, bytes) lower bound of one worklist launch
+    (csrc/render_fwd_kernel.cuh ``render_list_kernel``) for this run's first
+    ``n_listed`` slots of ``idx`` (``min(flagged, K)`` flat indices ``x * H +
+    y``): as :func:`large_scene_work`, ray generation and the primary sweep of
+    each of their 9 sample chains over the cone-visible spheres of the pixel's
+    16x16 tile (``vis = (idx, cnt, k)``, the centers pass's table; all ``ns``
+    for a row that overflowed, or with ``vis`` None). Shadow and bounce work
+    depend on the hits and are left out. Bytes: the scene, the flagged count
+    and the table in, each listed pixel's index in and its 12 bytes out."""
+    ops = 9 * n_listed * (RAYGEN + HIT_SETUP + npl * HIT_PLANE)
+    nbytes = _scene_bytes(ns, npl, nl) + 4 + 16 * n_listed
+    swept = _listed(vis, 0 if vis is None else vis[1].numel(), ns)
+    if isinstance(swept, torch.Tensor):
+        p = idx[:n_listed].to(device=swept.device, dtype=torch.int64)
+        rows = (p // H) // 16 * -(-H // 16) + (p % H) // 16    # x tiles outermost
+        ops += 9 * float(swept[rows].sum()) * HIT_SPHERE
+        nbytes += 4 * (swept.numel() * vis[2] + swept.numel())
+    else:
+        ops += 9 * n_listed * swept * HIT_SPHERE
+    return ops, nbytes
+
+
 def _listed(table, n_rows: int, ns: int):
     """Spheres each row's sweep visits: its list's count, or all ``ns`` for a
     row that overflowed (-1) and where the table is off (None). A float

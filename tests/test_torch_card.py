@@ -686,3 +686,125 @@ def test_large_scene_wrappers_reject_bad_tables(cuda_device):
     two = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=2, vis=vis)
     one = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=1, vis=vis)
     assert two.shape == (8, 8) and torch.equal(two[0::2], one)
+
+
+# --- adaptive AA: the worklist kernel -------------------------------------------------
+#
+# The kernel against the plain trace of the same worklist into the same tent
+# image: at most 0.1% of the listed pixels off by more than 1 level (the flip
+# rule), two runs bit-identical. With every interior pixel listed the frame is
+# the per-sample AA render: above 16 spheres both run the pinned arithmetic of
+# render_fwd.cu, so torch.equal; on the demo scene (render_fwd_small.cu, the
+# compiler's contraction in two kernels) tests/test_adaptive.py's JAX rule,
+# max |d| <= 3e-5 and uint8 off by at most 1 on at most 0.2% of the pixels.
+
+from python_ray_tracer_tpu_torch.ops import adaptive as adp  # noqa: E402
+from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac  # noqa: E402
+
+ADAPTIVE_RES = (160, 120)
+INTERIOR = (ADAPTIVE_RES[0] - 2) * (ADAPTIVE_RES[1] - 2)
+
+
+def _adaptive_scene(n, dev, compat):
+    """The demo scene (n = 0) or n planted spheres, seen from the default
+    camera at 160x120 (no horizon in view: ground hits there are
+    ill-conditioned, LARGE_POSES)."""
+    mats = trt.Materials.build(0.05, 0.6, 0.3, 0.0 if compat else 0.5, 16.0, device=dev)
+    cam = trt.default_camera(ADAPTIVE_RES, device=dev)
+    if n == 0:
+        return trt.default_scene(mats, device=dev), cam
+    scene = _planted_scene(n, dev)
+    scene.materials = mats
+    return scene, cam
+
+
+def _worklist(cam, scene, compat, eps, budget):
+    return ac.worklist_inputs(cam, scene, depth=2, compat=compat, eps=eps,
+                              budget_frac=budget)
+
+
+@pytest.mark.parametrize("n", [0, 24, 100])
+@pytest.mark.parametrize("compat", [True, False])
+def test_list_kernel_matches_plain(cuda_device, n, compat):
+    scene, cam = _adaptive_scene(n, cuda_device, compat)
+    packed, tent, idx, flagged, dropped = _worklist(cam, scene, compat, 0.5 / 255, 1.0)
+    cheap = render_cuda.shadow_cheap_ok(scene, compat)
+    ac.reset_launch_counts()
+    a = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
+                       cheap_shadow=cheap)
+    b = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
+                       cheap_shadow=cheap)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES["render_list"] == 2 and torch.equal(a, b)
+    n_listed = int(flagged)
+    assert 0 < n_listed <= INTERIOR and int(dropped) == 0
+    ref = adp.trace_worklist_plain(cam, scene, idx, flagged, tent, depth=2, compat=compat)
+    listed = torch.zeros(ADAPTIVE_RES[0] * ADAPTIVE_RES[1], dtype=torch.bool,
+                         device=cuda_device)
+    listed[idx[:n_listed].long()] = True
+    assert torch.equal(a.reshape(-1, 3)[~listed], tent.reshape(-1, 3)[~listed])
+    d = (trt.to_framebuffer(a).int() - trt.to_framebuffer(ref).int()).abs().amax(0)
+    assert int((d.reshape(-1)[listed] > 1).sum()) <= 1e-3 * n_listed
+
+
+@pytest.mark.parametrize("n", [24, 100])
+@pytest.mark.parametrize("compat", [True, False])
+def test_adaptive_all_flagged_is_the_per_sample_render(cuda_device, n, compat):
+    scene, cam = _adaptive_scene(n, cuda_device, compat)
+    out, st = trt.render_image_adaptive_cuda(cam, scene, compat=compat, eps=-1.0,
+                                             budget_frac=1.0, with_stats=True)
+    ref = trt.render_image_cuda(cam, scene, compat=compat, aliasing=True, aa_share=False)
+    assert int(st["flagged"]) == INTERIOR and int(st["dropped"]) == 0
+    assert torch.equal(out, ref), int((out != ref).any(-1).sum())
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_adaptive_all_flagged_demo_scene(cuda_device, compat):
+    scene, cam = _adaptive_scene(0, cuda_device, compat)
+    out = trt.render_image_adaptive_cuda(cam, scene, compat=compat, eps=-1.0,
+                                         budget_frac=1.0)
+    ref = trt.render_image_cuda(cam, scene, compat=compat, aliasing=True, aa_share=False)
+    assert float((out - ref).abs().max()) <= 3e-5
+    d = (trt.to_framebuffer(out).int() - trt.to_framebuffer(ref).int()).abs()
+    assert int(d.max()) <= 1 and float((d.amax(0) > 0).float().mean()) <= 0.002
+
+
+def test_adaptive_wrapper_launches_and_budget(cuda_device):
+    """One centers pass and one worklist launch a frame, no AA render; pixels
+    flagged past the budget keep the tent value and are reported."""
+    scene, cam = _adaptive_scene(0, cuda_device, True)
+    render_cuda.reset_launch_counts()
+    ac.reset_launch_counts()
+    full, sf = trt.render_image_adaptive_cuda(cam, scene, eps=0.5 / 255, budget_frac=1.0,
+                                              with_stats=True)
+    torch.cuda.synchronize()
+    assert ac.LAUNCHES["render_list"] == 1
+    assert dict(render_cuda.LAUNCHES) == {"aa_none": 1, "aa_per_sample": 0, "aa_shared": 0}
+    K = adp.budget_slots(*ADAPTIVE_RES, 0.05)
+    part, sp = trt.render_image_adaptive_cuda(cam, scene, eps=0.5 / 255, budget_frac=0.05,
+                                              with_stats=True)
+    assert int(sp["flagged"]) == int(sf["flagged"]) > K
+    assert int(sp["dropped"]) == int(sf["flagged"]) - K
+    _, tent, idx, _, _ = _worklist(cam, scene, True, 0.5 / 255, 1.0)
+    kept, cut = idx[:K].long(), idx[K:int(sf["flagged"])].long()
+    assert torch.equal(part.reshape(-1, 3)[kept], full.reshape(-1, 3)[kept])
+    assert torch.equal(part.reshape(-1, 3)[cut], tent.reshape(-1, 3)[cut])
+    cpu = trt.render_image_adaptive_cuda(cam.to("cpu"), trt.Scene.from_leaves(
+        [t.cpu() for t in scene.leaves()]), eps=0.5 / 255, budget_frac=1.0)
+    assert _flipped(full.cpu(), cpu) <= 1e-3 * ADAPTIVE_RES[0] * ADAPTIVE_RES[1]
+
+
+def test_list_kernel_rejects_bad_inputs(cuda_device):
+    scene, cam = _adaptive_scene(0, cuda_device, True)
+    packed, tent, idx, flagged, _ = _worklist(cam, scene, True, 0.5 / 255, 0.25)
+    kw = dict(depth=2, compat=True, cheap_shadow=True)
+    with pytest.raises(ValueError, match="idx"):
+        ac.launch_list(tent, *packed, idx.long(), flagged, **kw)
+    with pytest.raises(ValueError, match="flagged"):
+        ac.launch_list(tent, *packed, idx, flagged.cpu(), **kw)
+    with pytest.raises(ValueError, match="out"):
+        ac.launch_list(tent.double(), *packed, idx, flagged, **kw)
+    mixed = trt.Scene.from_leaves([t.cpu() if i == 0 else t
+                                   for i, t in enumerate(scene.leaves())])
+    with pytest.raises(ValueError, match="expected cuda"):
+        trt.render_image_adaptive_cuda(cam, mixed)
