@@ -22,9 +22,11 @@ spheres 128x128), twice for bit-identical results; ``cli fit --mode soft``
 convergence and PNG checks; the fit's targets, its step 0 and
 ``render_image_soft_fast``'s backward held against their plain versions at
 that size; the counted plain bounce fit; and times (demo 1000x1000, 100
-spheres 512x512). Then the large-scene render path (phases 13-15): the
-hit-extent kernel (TPU kernel 3) against its plain version on 100 and 1000
-seeded spheres at 256x256, twice for bit-identical rows; the render kernel with
+spheres 512x512, both from the fit's shifted centers; the backward's two modes
+at every tau of the anneal under the planner's launch plan). Then the
+large-scene render path (phases 13-15): the hit-extent kernel (TPU kernel 3)
+against its plain version on 100 and 1000 seeded spheres at 256x256, twice for
+bit-identical rows; the render kernel with
 the cone cull, the shadow lists, the Morton groups, and all three, against all
 culls off bit for bit in every mode, compat and clean, and all on against the
 plain version; ``cli render --backend cuda --spheres 100|1000`` at 1920x1080
@@ -83,6 +85,7 @@ difference to its allowance under the entry's rule (<= 1 passes).
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import struct
@@ -134,6 +137,9 @@ SOFT_BWD_REPLACES = "python_ray_tracer_tpu/ops/pallas/soft_bwd.py:77"
 SOFT_TAUS = (0.15, 0.05, 0.02)        # fit_scene_soft's anneal
 SOFT_PARITY = (("demo", (256, 256)), ("random100", (128, 128)))
 SOFT_TIMES = (("demo", (1000, 1000)), ("random100", (512, 512)))
+# (cap, cj) timed beside the soft backward planner's choice at each thread
+# count (clipped to the scene's object and sphere counts).
+SOFT_PLAN_SWEEP = ((32, 16), (16, 16), (16, 4), (8, 8), (8, 4), (4, 4), (1, 4))
 SOFT_FIT_STEPS = 150                  # the fit CLI's default
 # Largest intermediate of one checkpointed block of the plain soft version
 # (ops/soft.row_chunk_for), and the device memory the plain step may take at
@@ -751,47 +757,93 @@ def soft_phases(torch, rt, card: str, dev) -> list:
     check(all(v > 0 for v in main_launches.values()), f"launches {main_launches}")
 
     # Phase 12: times with CUDA events; bounds from utils/timing (the work the
-    # function needs for these inputs).
+    # function needs for these inputs). Both shapes start from the fit's shifted
+    # centers against the unshifted scene's render, so the cotangent is not 0.
     lib = _build.load_library()
     stream = torch.cuda.current_stream().cuda_stream
+    regs, local = ctypes.c_int(), ctypes.c_int()
+    check(lib.rt_soft_bwd_attrs(ctypes.byref(regs), ctypes.byref(local)) == 0,
+          "cudaFuncGetAttributes of the soft backward kernel failed")
+    print(f"[soft-time] soft backward kernel: {regs.value} registers, {local.value} B of "
+          f"local memory a thread (stack frame and spills) | {card}")
     times = {}
     for name, res in SOFT_TIMES:
         scene = soft_scene(name)
-        sc = init if name == "demo" else scene
+        sc = rt.Scene.from_leaves(scene.leaves())
+        sc.spheres = rt.Spheres(scene.spheres.center + torch.tensor(cli.FIT_SHIFT, device=dev),
+                                scene.spheres.radius, scene.spheres.albedo)
         W, H = res
         camr = rt.default_camera(res, device=dev)
-        tgt = rt.render_image_soft_cuda(camr, scene, tau=0.05)
         cnt = counts(sc)
         params = render_cuda.pack_params(camr, sc, compat=False).to(dev)
         tables = render_cuda.scene_tables(sc)
         img = torch.empty((W, H, 3), device=dev)
+        reps = 10 if name == "demo" else 3
+        t = {}
+        for tau in SOFT_TAUS:
+            tgt = rt.render_image_soft_cuda(camr, scene, tau=tau)
+            cot = (2.0 * (rt.render_image_soft_cuda(camr, sc, tau=tau) - tgt) /
+                   tgt.numel()).contiguous()
+            live = timing.soft_live_counts(camr, sc, tau)
+            for mode, x in (("fused", tgt), ("cot", cot)):
+                shape = sb.plan(*cnt, mode == "fused")
+                out = torch.empty(rb.n_grads(*cnt, mode == "fused"), device=dev)
+                partial = torch.empty(out.numel() * sb.n_blocks(W, H, shape), device=dev)
+                ms = 1e3 * rt.time_fn(sb.launch, out, partial, params, tables, cnt, image=x,
+                                      W=W, H=H, tau=tau, mode=mode, shape=shape, warmup=1,
+                                      iters=reps)
+                bound = timing.bound_ms(*timing.soft_work(camr, sc, tau, mode, live))
+                t[(mode, tau)] = (ms, bound, shape)
+                print(f"[soft-time] {name} {W}x{H} tau={tau} {mode:5s} soft backward kernel "
+                      f"alone {ms:.4f} ms (plan nt={shape.nt} cap={shape.cap} cj={shape.cj} "
+                      f"store_vis={int(shape.store_vis)}, {shape.smem} B); bound "
+                      f"{bound[0]:.4f} ms ({bound[1]}), {ms / bound[0]:.1f}x | {card}")
+            if tau == 0.05:
+                tgt05, cot05, live05 = tgt, cot, live
+        tgt, cot, live = tgt05, cot05, live05
+        # The planner's plan beside others, fused at tau 0.05.
+        out = torch.empty(rb.n_grads(*cnt, True), device=dev)
+        chosen = sb.plan(*cnt, True)
+        plans = [chosen] + [
+            sb.Plan(nt, c, j, True, sb.smem_bytes(*cnt, True, nt, c, j, True))
+            for nt in (128, 64, 32) for c, j in
+            ((min(c, cnt[0] + cnt[1]), min(j, max(cnt[0], 1))) for c, j in SOFT_PLAN_SWEEP)]
+        sweep = {}
+        for p in plans:
+            key = (p.nt, p.cap, p.cj, int(p.store_vis))
+            if key in sweep or p.smem > sb.SMEM_LIMIT:
+                continue
+            partial = torch.empty(out.numel() * sb.n_blocks(W, H, p), device=dev)
+            sweep[key] = 1e3 * rt.time_fn(sb.launch, out, partial, params, tables, cnt,
+                                          image=tgt, W=W, H=H, tau=0.05, mode="fused",
+                                          shape=p, warmup=1, iters=reps)
+        key, best = next(iter(sweep)), min(sweep, key=sweep.get)
+        print(f"[soft-plan] {name} {W}x{H} tau=0.05 fused, ms by (nt, cap, cj, store_vis): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items())
+              + f"; the planner's {key} {sweep[key]:.4f}, the best {best} "
+              f"{sweep[best]:.4f} | {card}")
+        shape = sb.plan(*cnt, True)
         n = rb.n_grads(*cnt, True)
         out = torch.empty(n, device=dev)
-        rows_n = sb.n_blocks(W, H)
+        rows_n = sb.n_blocks(W, H, shape)
         partial = torch.empty(n * rows_n, device=dev)
-        cot = (2.0 * (rt.render_image_soft_cuda(camr, sc, tau=0.05) - tgt) /
-               tgt.numel()).contiguous()
-        reps = 10 if name == "demo" else 3
+        sb.launch(out, partial, params, tables, cnt, image=tgt, W=W, H=H, tau=0.05,
+                  mode="fused", shape=shape)
 
         def reduce_only():
             check(lib.rt_reduce_rows(partial.data_ptr(), rows_n, n, out.data_ptr(),
                                      stream) == 0, "reduction launch failed")
             return out
-        t = {
+        t.update({
+            "fused_kernel": t[("fused", 0.05)][0], "cot_kernel": t[("cot", 0.05)][0],
             "fwd_kernel": rt.time_fn(soft_cuda.launch, img, params, tables, cnt, tau=0.05,
                                      warmup=2, iters=2 * reps),
             "fwd_wrapper": rt.time_fn(rt.render_image_soft_cuda, camr, sc, tau=0.05,
                                       warmup=2, iters=2 * reps),
-            "fused_kernel": rt.time_fn(sb.launch, out, partial, params, tables, cnt,
-                                       image=tgt, W=W, H=H, tau=0.05, mode="fused",
-                                       warmup=1, iters=reps),
-            "cot_kernel": rt.time_fn(sb.launch, out[:-1], partial[:-rows_n], params, tables,
-                                     cnt, image=cot, W=W, H=H, tau=0.05, mode="cot",
-                                     warmup=1, iters=reps),
             "reduce": rt.time_fn(reduce_only, warmup=2, iters=50),
             "cot_wrapper": rt.time_fn(sb.soft_scene_grads_cuda, camr, sc, cot, tau=0.05,
                                       warmup=1, iters=reps),
-        }
+        })
         sc_step = rt.Scene.from_leaves([s.clone() for s in sc.leaves()])
         step = train.make_train_step(sc_step, train.soft_value_and_grad(
             camr, tgt, tau=0.05, backend="cuda"), lr=1e-2, trainable=("spheres.center",))
@@ -803,8 +855,9 @@ def soft_phases(torch, rt, card: str, dev) -> list:
                                      row_chunk=pchunk, warmup=1, iters=1)
         t["plain_cot"] = rt.time_fn(sb.soft_scene_grads_plain, camr, sc, cot, tau=0.05,
                                     row_chunk=pchunk, warmup=1, iters=1)
-        t = {k: 1e3 * v for k, v in t.items()}
-        live = timing.soft_live_counts(camr, sc, 0.05)
+        for k in ("fwd_kernel", "fwd_wrapper", "reduce", "cot_wrapper", "step", "plain_fwd",
+                  "plain_step", "plain_cot"):
+            t[k] *= 1e3
         for kind in ("fwd", "fused", "cot"):
             t[f"{kind}_bound"] = timing.bound_ms(*timing.soft_work(camr, sc, 0.05, kind, live))
         times[name] = t

@@ -1,7 +1,8 @@
 // Shared device math of the soft-visibility kernels (soft_fwd.cu, soft_bwd.cu):
-// the soft sphere cover and its adjoint, the opaque plane cover, the light
-// geometry, the compositing tie-break, shadow transmission, and the per-object
-// forward evaluation both kernels recompute.
+// the soft sphere cover, the opaque plane cover, the light geometry, the
+// compositing tie-break and weight, shadow transmission, and the forward
+// kernel's per-object evaluation. The backward's own helpers (the cover's
+// adjoint among them) live in soft_bwd.cu.
 //
 // Each function mirrors the plain version (ops/soft.py) and the TPU kernels
 // term for term, except one: the squared closest-approach distance b^2 is
@@ -11,7 +12,6 @@
 // turns that into ~1e-3 of color (the plain float32 version is that far off
 // its float64 run at 1000x1000). |v|^2 has neither error.
 //   soft_cover      <- soft_pallas._soft_cover (:55-69), soft_bwd.cover (:156-177)
-//   soft_cover_adj  <- soft_bwd.cover_adj (:179-206)
 //   plane_cover     <- soft_bwd.plane_cover (:213-222)
 //   light_dir       <- soft_bwd.light_geom (:236-245)
 //   closer          <- the stable argsort order (soft.py:173; soft_pallas.py:182-184)
@@ -82,47 +82,6 @@ __device__ __forceinline__ Cover sphere_cover(const SceneView& s, int j, float o
   const int ns = s.ns;
   return soft_cover<NEED_T>(ox, oy, oz, dx, dy, dz, s.sph[j], s.sph[ns + j],
                             s.sph[2 * ns + j], s.sph[3 * ns + j], tau);
-}
-
-struct CoverAdj {
-  float cx, cy, cz, r;   // center and radius cotangents
-  float ox, oy, oz;      // ray-origin cotangent
-  float dx, dy, dz;      // ray-direction cotangent
-};
-
-// Adjoint of soft_cover (soft_bwd.cover_adj): xbar is the cotangent of the
-// sigmoid's pre-activation x = -(b - r) / (tau r) (the callers form it with
-// the sigmoid-cancelling identities, so a saturated alpha gives exact zeros);
-// tbar that of the clamped blend depth (WITH_T; the cover must carry t).
-template <bool WITH_T>
-__device__ __forceinline__ CoverAdj soft_cover_adj(const Cover& c, float dx, float dy,
-                                                   float dz, float r, float tau,
-                                                   float xbar, float tbar) {
-  const float inv_tr = 1.0f / (tau * r);
-  const float bbar = -xbar * inv_tr;
-  float rbar = xbar * c.b * inv_tr * (1.0f / r);
-  float d2bar = c.d2 > 1e-12f ? bbar * 0.5f / c.b : 0.0f;
-  float t_cabar;
-  if (WITH_T) {
-    const float t_rbar = c.t_raw > 1e-4f ? tbar : 0.0f;
-    const float hcbar = c.inside ? -t_rbar : 0.0f;
-    const float c2bar = hcbar * 0.5f / c.hc;
-    rbar += 2.0f * r * c2bar;
-    d2bar -= c2bar;
-    t_cabar = t_rbar - 2.0f * c.t_ca * d2bar;
-  } else {
-    t_cabar = -2.0f * c.t_ca * d2bar;
-  }
-  // The adjoint of d2 = |L|^2 - t_ca^2 (t_ca = L . d, L = center - origin).
-  // That of |L - t_ca d|^2, the form soft_cover evaluates, gives the same L
-  // cotangent for a unit d and a d cotangent that differs only along d, which
-  // the adjoint of each ray direction's normalisation removes; this one costs
-  // fewer operations a cover.
-  const float Lbx = t_cabar * dx + 2.0f * d2bar * c.Lx;
-  const float Lby = t_cabar * dy + 2.0f * d2bar * c.Ly;
-  const float Lbz = t_cabar * dz + 2.0f * d2bar * c.Lz;
-  return {Lbx, Lby, Lbz, rbar, -Lbx, -Lby, -Lbz,
-          t_cabar * c.Lx, t_cabar * c.Ly, t_cabar * c.Lz};
 }
 
 // Opaque plane k: alpha 1 where the ray hits it (|n.d| > 1e-8 and t > 0),

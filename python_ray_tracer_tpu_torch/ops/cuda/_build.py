@@ -128,7 +128,11 @@ def load_library() -> ctypes.CDLL:
             lib.rt_soft_fwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, vp]
             lib.rt_soft_bwd.restype = ci
             lib.rt_soft_bwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, cf, vp, vp, ci, ci,
-                                        ci, ci, ci, vp]
+                                        ci, ci, ci, ci, ci, ci, ci, vp]
+            lib.rt_soft_bwd_smem.restype = ctypes.c_longlong
+            lib.rt_soft_bwd_smem.argtypes = [ci] * 8
+            lib.rt_soft_bwd_attrs.restype = ci
+            lib.rt_soft_bwd_attrs.argtypes = [vp, vp]
             lib.rt_error_string.restype = ctypes.c_char_p
             lib.rt_error_string.argtypes = [ci]
             _lib = lib

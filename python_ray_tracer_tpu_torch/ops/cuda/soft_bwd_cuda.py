@@ -2,11 +2,14 @@
 backward kernel (``csrc/soft_bwd.cu``).
 
 Counterpart of ``python_ray_tracer_tpu/ops/pallas/soft_bwd.py``. The kernel
-recomputes each pixel's soft forward pass, reverse-sweeps it with hand-derived
-adjoints (the sigmoid-cancelling identities: no division by ``1 - alpha``), and
-reduces the adjoints into the flat gradient vector of
-``render_bwd_cuda.grad_layout``; ``rt_reduce_rows`` sums the per-block partials
-in a fixed order, so two runs give the same bits. Two kernel modes:
+takes each pixel's soft forward values once (a lane-private table of its live
+objects), reverse-sweeps them with hand-derived adjoints (the
+sigmoid-cancelling identities: no division by ``1 - alpha``), skips every term
+that is exactly 0, and reduces each gradient slot once a window of spheres or
+a chunk of objects into the flat vector of ``render_bwd_cuda.grad_layout``;
+``rt_reduce_rows`` sums the per-block partials in a fixed order, so two runs
+give the same bits. :func:`plan` picks the block shape and the chunk sizes from
+the scene's counts. Two kernel modes:
 
   * ``cot``: an image cotangent in (:func:`soft_scene_grads_cuda`);
   * ``fused``: the training step in one launch: render, MSE against the
@@ -23,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -36,9 +40,8 @@ MODES = ("cot", "fused")
 LAUNCHES = {m: 0 for m in MODES}
 PLAIN_CALLS = {"soft_scene_grads": 0, "soft_loss_and_grads": 0}
 
-BLOCK_Y, BLOCK_X = 16, 8     # threads a block along the image's y and x axes
-N_WARPS = BLOCK_Y * BLOCK_X // 32
-_SMEM_LIMIT = 227 * 1024     # shared memory a block can have on Hopper
+BLOCK_Y = 16                 # threads a block along the image's y axis
+SMEM_LIMIT = 227 * 1024     # shared memory a block can have on Hopper
 
 
 def reset_launch_counts() -> None:
@@ -122,12 +125,68 @@ def soft_grad_rule(flat: torch.Tensor, ref: torch.Tensor, ns: int, npl: int, nl:
 
 # --- the kernel ------------------------------------------------------------------
 
-def n_blocks(W: int, H: int) -> int:
+class Plan(NamedTuple):
+    """One soft backward launch's shape: ``nt`` threads a block (16 along y),
+    ``cap`` live objects a pixel keeps in its table at once, ``cj`` spheres a
+    window of the lane-private slab, ``store_vis`` (the table keeps one
+    transmission a light) and the block's shared memory in bytes."""
+    nt: int
+    cap: int
+    cj: int
+    store_vis: bool
+    smem: int
+
+
+N_TFIXED = 6                 # table fields besides the transmissions (soft_bwd.cu)
+
+
+def smem_bytes(ns: int, npl: int, nl: int, fused: bool, nt: int, cap: int, cj: int,
+               store_vis: bool) -> int:
+    """Shared memory of one block (``rt_soft_bwd_smem``): the scene with three
+    staged floats a sphere, a row of gradient slots a warp, and each thread's
+    table and slab."""
+    nf = N_TFIXED + (nl if store_vis else 0)
+    return 4 * (render_cuda.N_PARAMS + 10 * ns + 9 * npl + 3 * nl
+                + (nt // 32) * n_grads(ns, npl, nl, fused) + nt * (nf * cap + 7 * cj))
+
+
+def plan(ns: int, npl: int, nl: int, fused: bool = True) -> Plan:
+    """The block shape and chunk sizes for a scene: the first plan that fits
+    a block's shared memory, taking the most threads a block (128, 64, 32),
+    then stored transmissions, then the most live objects a chunk (``cap``, up
+    to 32 and the object count: a pixel with more live objects than that forms
+    its weights from fresh covers) and the widest window (``cj``, up to 16
+    spheres), halving the larger of the two until they fit. On the card
+    (``chip_smoke.py`` phase 12's plan sweep, PERF.md §6) this is the fastest
+    plan of the sweep on the demo scene and 17% slower than the fastest at 100
+    spheres, where no simple rule picked the best. Raises ``ValueError`` only
+    where (32, 1, 1) without stored transmissions does not fit, which is where
+    the first port's kernel (4 warps of gradient rows) did not fit either."""
+    for nt in (128, 64, 32):
+        for sv in (True, False):
+            cap, cj = max(1, min(ns + npl, 32)), max(1, min(ns, 16))
+            while True:
+                smem = smem_bytes(ns, npl, nl, fused, nt, cap, cj, sv)
+                if smem <= SMEM_LIMIT:
+                    return Plan(nt, cap, cj, sv, smem)
+                if cap == cj == 1:
+                    break
+                if cap >= cj:
+                    cap //= 2
+                else:
+                    cj //= 2
+    raise ValueError(f"scene (ns={ns}, npl={npl}, nl={nl}) needs "
+                     f"{smem_bytes(ns, npl, nl, fused, 32, 1, 1, False)} B of shared "
+                     f"memory in the soft backward kernel, a block has at most "
+                     f"{SMEM_LIMIT} B")
+
+
+def n_blocks(W: int, H: int, p: Plan) -> int:
     """Thread blocks of one soft backward launch (rows of its partial sums)."""
-    return math.ceil(H / BLOCK_Y) * math.ceil(W / BLOCK_X)
+    return math.ceil(H / BLOCK_Y) * math.ceil(W / (p.nt // BLOCK_Y))
 
 
-def _check(camera, scene, image, tau, name: str):
+def _check(camera, scene, image, tau, name: str, fused: bool) -> Plan:
     dev = soft_cuda.check_inputs(camera, scene, tau)
     W, H = camera.resolution
     if image.device != dev or image.dtype != torch.float32:
@@ -135,31 +194,27 @@ def _check(camera, scene, image, tau, name: str):
                          f"{image.device}")
     if tuple(image.shape) != (W, H, 3):
         raise ValueError(f"{name} has shape {tuple(image.shape)}, expected {(W, H, 3)}")
-    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
-    smem = 4 * (render_cuda.N_PARAMS + 7 * ns + 9 * npl + 3 * nl +
-                N_WARPS * n_grads(ns, npl, nl, True))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"scene needs {smem} B of shared memory in the soft backward "
-                         f"kernel, a block has at most {_SMEM_LIMIT} B")
+    return plan(scene.spheres.count, scene.planes.count, scene.lights.count, fused)
 
 
 def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: float,
-           mode: str) -> torch.Tensor:
+           mode: str, shape: Plan) -> torch.Tensor:
     """Launch the soft backward kernel and its reduction on the current stream
     for inputs already packed and checked: ``out (n_grads,)``, ``partial
     (n_grads * n_blocks,)``, ``params`` (clean-mode grid), the
-    ``scene_tables``, the object counts and ``image`` (the cotangent, or in
-    ``fused`` the target), all float32, contiguous, on the current device.
-    Counts the launch in :data:`LAUNCHES`."""
+    ``scene_tables``, the object counts, ``image`` (the cotangent, or in
+    ``fused`` the target), all float32, contiguous, on the current device, and
+    the launch's :class:`Plan`. Counts the launch in :data:`LAUNCHES`."""
     from ._build import load_library
     lib = load_library()
     (sph, pln, lts), (ns, npl, nl) = tables, counts
-    rows = n_blocks(W, H)
+    rows = n_blocks(W, H, shape)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     rc = lib.rt_soft_bwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
                          lts.data_ptr(), nl, float(tau), image.data_ptr(),
                          partial.data_ptr(), rows, out.shape[0], W, H,
-                         int(mode == "fused"), stream)
+                         int(mode == "fused"), shape.nt, shape.cap, shape.cj,
+                         int(shape.store_vis), stream)
     if rc == 0:
         rc = lib.rt_reduce_rows(partial.data_ptr(), rows, out.shape[0], out.data_ptr(),
                                 stream)
@@ -170,7 +225,7 @@ def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: 
     return out
 
 
-def _run(camera, scene, image, *, tau, mode):
+def _run(camera, scene, image, *, tau, mode, shape):
     dev = camera.position.device
     W, H = camera.resolution
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
@@ -178,9 +233,10 @@ def _run(camera, scene, image, *, tau, mode):
     with torch.cuda.device(dev), torch.no_grad():
         params = render_cuda.pack_params(camera, scene, compat=False).to(dev)
         out = torch.empty(n, device=dev)
-        partial = torch.empty(n * n_blocks(W, H), device=dev)
+        partial = torch.empty(n * n_blocks(W, H, shape), device=dev)
         return launch(out, partial, params, render_cuda.scene_tables(scene), counts,
-                      image=image.contiguous(), W=W, H=H, tau=tau, mode=mode)
+                      image=image.contiguous(), W=W, H=H, tau=tau, mode=mode,
+                      shape=shape)
 
 
 def soft_scene_grads_cuda(camera, scene, g_image, *, tau: float = 0.05,
@@ -193,8 +249,8 @@ def soft_scene_grads_cuda(camera, scene, g_image, *, tau: float = 0.05,
     if camera.position.device.type == "cpu":
         flat = soft_scene_grads_plain(camera, scene, g_image, tau=tau)
     else:
-        _check(camera, scene, g_image, tau, "g_image")
-        flat = _run(camera, scene, g_image, tau=tau, mode="cot")
+        shape = _check(camera, scene, g_image, tau, "g_image", False)
+        flat = _run(camera, scene, g_image, tau=tau, mode="cot", shape=shape)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=False)
 
@@ -209,7 +265,7 @@ def soft_loss_and_grads_cuda(camera, scene, target, *, tau: float = 0.05,
     if camera.position.device.type == "cpu":
         flat = soft_loss_and_grads_plain(camera, scene, target, tau=tau)
     else:
-        _check(camera, scene, target, tau, "target")
-        flat = _run(camera, scene, target, tau=tau, mode="fused")
+        shape = _check(camera, scene, target, tau, "target", True)
+        flat = _run(camera, scene, target, tau=tau, mode="fused", shape=shape)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=True)

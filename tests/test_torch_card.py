@@ -446,6 +446,117 @@ def test_soft_bwd_matches_plain(cuda_device, mode, name, tau):
         assert float(groups[leaf]) == 0.0
 
 
+def _skip_scene(name, dev):
+    """Scenes that reach each of the soft backward kernel's exact skips (and
+    the planner's chunks): see test_soft_bwd_skips_match_plain."""
+    S = trt.Spheres.build
+    if name in ("dead", "backlit"):
+        # dead: spheres 2 (wholly off-frame) and 3 (behind the camera) have
+        # alpha 0 on every primary and shadow ray; backlit: light 1 lies under
+        # the plane, the only surface in view
+        seen = [([2.2, 0.3, 1.0], 1.0, trt.RED), ([0.6, -0.8, 0.5], 0.5, trt.GREEN)]
+        gone = [([2.0, 40.0, 1.0], 0.3, trt.BLUE), ([-8.0, 0.0, -3.0], 0.5, trt.YELLOW)]
+        lights = [[2.5, -2.0, 3.0], [5.0, 0.1, 6.0]] if name == "dead" else \
+            [[2.5, -2.0, 3.0], [3.0, 0.0, -4.0]]
+        return trt.Scene(S((seen if name == "dead" else []) + gone, dev),
+                         trt.Planes.build([([5, 0, 0], [0, 0, 1], trt.GREY)], dev),
+                         trt.Lights.build(lights, dev), trt.Materials.build(device=dev))
+    if name == "eclipsed":  # at tau 0.02 the big sphere's a == 1.0f hides the small one
+        return trt.Scene(S([([2.0, 0.0, 1.0], 1.0, trt.RED), ([6.0, 0.0, -1.0], 0.1, trt.GREEN)],
+                           dev),
+                         trt.Planes.build([([5, 0, 0], [0, 0, 1], trt.GREY)], dev),
+                         trt.Lights.build([[2.5, -2.0, 3.0]], dev), trt.Materials.build(device=dev))
+    if name in ("nolights", "lights20"):
+        # lights20: past the 14 lights whose Lambert signs the kernel's table
+        # keeps as bits; every other light under the plane
+        demo = _soft_scene("demo", dev)
+        lights = [] if name == "nolights" else [
+            [3.0 + 4.0 * math.cos(0.3 * i), 4.0 * math.sin(0.3 * i), 5.0 if i % 2 else -3.0]
+            for i in range(20)]
+        return trt.Scene(demo.spheres, demo.planes, trt.Lights.build(lights, dev),
+                         demo.materials)
+    if name == "random256":
+        return trt.random_scene(256, generator=torch.Generator().manual_seed(5), device=dev)
+    # "largest": the most spheres (1 plane, 3 lights) the first port's kernel took
+    return trt.random_scene(1654, generator=torch.Generator().manual_seed(6), device=dev)
+
+
+# name -> (tau, resolution, slots that are exactly 0: (group, rows))
+SKIP_CASES = {
+    "dead": (0.05, (64, 48), (("spheres.center", [2, 3]), ("spheres.radius", [2, 3]),
+                              ("spheres.albedo", [2, 3]))),
+    "eclipsed": (0.02, (64, 48), (("spheres.center", [1]), ("spheres.radius", [1]),
+                                  ("spheres.albedo", [1]))),
+    "backlit": (0.15, (64, 48), (("lights.position", [1]),)),
+    "nolights": (0.05, (64, 48), ()),
+    "lights20": (0.05, (64, 48), ()),
+    "random256": (0.05, (64, 48), ()),
+    "largest": (0.05, (16, 16), ()),
+}
+
+
+@pytest.mark.parametrize("mode", ["cot", "fused"])
+@pytest.mark.parametrize("name", sorted(SKIP_CASES))
+def test_soft_bwd_skips_match_plain(cuda_device, mode, name):
+    """Scenes that reach each exact skip of the soft backward kernel (dead
+    objects and occluders, an eclipsed sphere, an unlit light, no lights, 20
+    lights: past the table's Lambert sign bits) and
+    its chunked paths (256 spheres; the largest scene the first port took):
+    the rule against the plain version in float32 or float64, two runs
+    bit-identical, and exact zeros where the function has them."""
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb, soft_cuda
+    from python_ray_tracer_tpu_torch.ops.soft import row_chunk_for
+    tau, res, zeros = SKIP_CASES[name]
+    scene = _skip_scene(name, cuda_device)
+    cam = trt.default_camera(res, device=cuda_device)
+    x = _soft_input(mode, cam, scene, _target(res, cuda_device), tau)
+    before = sb.LAUNCHES[mode]
+    flat = _soft_flat(mode, cam, scene, x, tau)
+    torch.cuda.synchronize()
+    assert sb.LAUNCHES[mode] == before + 1
+    assert bool(torch.isfinite(flat).all())
+    assert torch.equal(flat, _soft_flat(mode, cam, scene, x, tau))
+    plain = sb.soft_loss_and_grads_plain if mode == "fused" else sb.soft_scene_grads_plain
+    chunk = row_chunk_for(res, scene, 1 << 28)
+    ref = plain(cam, scene, x, tau=tau, row_chunk=chunk)
+    ref64 = plain(*soft_cuda.as_double(cam, scene), x.double(), tau=tau,
+                  row_chunk=None if chunk is None else max(1, chunk // 2))
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    rule = sb.soft_grad_rule(flat, ref, *counts, ref64=ref64)
+    assert all(ok for _, ok in rule.values()), rule
+    groups = rb.grad_groups(flat.cpu(), *counts)
+    for leaf, rows in zeros:
+        assert bool((groups[leaf][rows] == 0).all()), (leaf, groups[leaf][rows])
+        assert bool((rb.grad_groups(ref.cpu(), *counts)[leaf][rows] == 0).all())
+
+
+@pytest.mark.parametrize("mode", ["cot", "fused"])
+@pytest.mark.parametrize("name,shape", [("demo", (32, 1, 1, False)), ("demo", (64, 2, 3, True)),
+                                        ("demo", (128, 3, 2, False)),
+                                        ("lights20", (128, 7, 6, False))])
+def test_soft_bwd_any_plan_matches_plain(cuda_device, mode, name, shape):
+    """Launch plans the planner picks only for very large scenes: one live
+    object a chunk (weights from fresh covers, FUSED's transmissions swept
+    again), windows smaller than the scene, transmissions not stored (with
+    20 lights, past the 14 Lambert sign bits the kernel decides each sign and
+    sweeps each transmission again). Each is held to the rule, two runs
+    bit-identical."""
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb, soft_cuda
+    scene = _soft_scene("demo", cuda_device) if name == "demo" else \
+        _skip_scene(name, cuda_device)
+    cam = trt.default_camera((48, 40), device=cuda_device)
+    x = _soft_input(mode, cam, scene, _target((48, 40), cuda_device), 0.05)
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    plan = sb.Plan(*shape, sb.smem_bytes(*counts, mode == "fused", *shape))
+    flat = sb._run(cam, scene, x, tau=0.05, mode=mode, shape=plan)
+    assert torch.equal(flat, sb._run(cam, scene, x, tau=0.05, mode=mode, shape=plan))
+    plain = sb.soft_loss_and_grads_plain if mode == "fused" else sb.soft_scene_grads_plain
+    rule = sb.soft_grad_rule(flat, plain(cam, scene, x, tau=0.05), *counts,
+                             ref64=plain(*soft_cuda.as_double(cam, scene), x.double(),
+                                         tau=0.05))
+    assert all(ok for _, ok in rule.values()), rule
+
+
 def test_render_image_soft_fast_grads_match_plain_autograd(cuda_device):
     """render_image_soft_fast: the soft forward kernel forward, the soft backward
     kernel (one cotangent launch) backward, for scene and camera leaves."""

@@ -122,6 +122,27 @@ def test_fit_camera_matches_jax_fit():
     assert float(fitted.fov) == pytest.approx(float(init.fov))
 
 
+def test_fit_camera_fit_fov_matches_jax_fit():
+    """fit_camera(fit_fov=True) on both packages at 32x32, pose and fov both
+    off: the same loss at each of the first 6 steps (rel 1e-5) and the same
+    fov after them (1e-5). Later steps part: past the loss minimum (step 2) the
+    two Adams' rounding moves the cameras ~1e-5 apart, and silhouette pixels
+    of the hard render flip (each package's loss agrees with the other's at the
+    same camera)."""
+    scene_j = two_sphere_scene_jax()
+    true_j = jrt.Camera.build((32, 32), [-2.0, 0.0, 2.0], [0.0, -30.0, 0.0])
+    target_j = jrt.render_image(true_j, scene_j, depth=1, aliasing=False)
+    init_j = jrt.Camera.build((32, 32), [-2.1, 0.08, 1.92], [1.5, -27.5, 2.0], fov=48.0)
+    fitted_j, losses_j = jtrain.fit_camera(init_j, scene_j, target_j, steps=6, depth=1,
+                                           fit_fov=True)
+    init, scene = to_torch(init_j, scene_j)
+    fitted, losses = train.fit_camera(init, scene, torch.from_numpy(np.array(target_j)),
+                                      steps=6, depth=1, fit_fov=True, backend="torch")
+    np.testing.assert_allclose(np.asarray(losses), np.asarray(losses_j), rtol=1e-5, atol=0)
+    assert float(fitted.fov) == pytest.approx(float(fitted_j.fov), abs=1e-5)
+    assert abs(float(fitted.fov) - 48.0) > 1e-3      # the fov did move
+
+
 def test_camera_value_and_grad_cuda_backend_matches_autograd():
     """The kernel path's camera gradient (camera slots chained to Euler angles
     through autograd of euler_rotation; plain version on CPU tensors) equals
