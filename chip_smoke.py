@@ -27,7 +27,7 @@ at every tau of the anneal under the planner's launch plan). Then the
 large-scene render path (phases 13-15): the hit-extent kernel (TPU kernel 3)
 against its plain version on 100 and 1000 seeded spheres at 256x256, twice for
 bit-identical rows; the render kernel with
-the cone cull, the shadow lists, the Morton groups, and all three, against all
+the cone cull, the shadow lists, the bounce tree, and all three, against all
 culls off bit for bit in every mode, compat and clean, and all on against the
 plain version; ``cli render --backend cuda --spheres 100|1000`` at 1920x1080
 without and with AA, with launch counts, PNG and plain-version checks and the
@@ -43,14 +43,25 @@ counts, the stats line, PNG and full-AA quality checks; and times (the kernel
 alone, the centers pass, the flag/tent/compaction ops on the device and the
 host, the whole wrapper against the ``aa_shared`` and ``aa_none`` wrappers,
 the plain trace, the bound), the kernel held against the plain trace of those
-worklists. Every
+worklists. Then the large-scene bounce sweeps (phase 19, ``[tree-*]``):
+kernels 2 (``aa_shared``) and 7 (the worklist kernel) alone
+on the demo scene and 100 and 1000 spheres, at 1000 spheres at depth 0, 1 and
+2, the live samples of each trace level, the bounce tree's LEAF x FAN sweep
+(kernels built for each shape), its box and sphere tests a bounce ray, and
+ptxas's registers and spills; and the two kernels through their entry points
+(phase 20, ``[entry-time]``: wrapper and profiled kernel times). Every
 kernel's entry in the kernels line carries its bound (``utils/timing.py``: the
 FP32 operations and bytes the function needs, over the H100's peak rates).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
-failed phase raises. The last line of standard output is
-``{"ok": true, "device": {...}}``; the line before it lists the kernels.
+failed phase raises. ``python3 chip_smoke.py --entry-times DIR`` runs phase
+20 alone on the package of the checkout in DIR (an older commit unpacked with
+``git archive``, say): it calls only entry points whose signatures every tree
+of the port shares, so that two trees' times can be set side by side in one
+run on one card (each tree's own ``chip_smoke.py`` gives the rest). The last
+line of standard output is ``{"ok": true, "device": {...}}``; the line before
+it lists the kernels.
 
 Parity rules. Kernel against the plain version (tests/test_pallas.py::_compare's
 rule): float32 reassociation (FMA contraction, the hoisted quadratic) flips
@@ -76,10 +87,10 @@ spheres (both in render_fwd.cu's pinned arithmetic), and on the demo scene
 tests/test_adaptive.py's rule (max |d| <= 3e-5, uint8 off by at most 1 on at
 most 0.2% of the pixels). Adaptive frames against full AA: at most 0.5% of
 the pixels off by more than 1 level where no flagged pixel was dropped. A
-render with culls on against culls off: ``torch.equal``; only a case with the
-Morton groups on may fall back to the flip rule, named in the output, because
-sweeping in Morton order can move the winner of an exact t tie between two
-spheres.
+render with culls on against culls off: ``torch.equal``, the bounce tree
+included (it takes the least (t, index), so no sweep order moves a tie); the
+worklist kernel with its tables against the same launch without:
+``torch.equal``.
 In the kernels line, ``max_rel_err`` is the worst ratio of a
 difference to its allowance under the entry's rule (<= 1 passes).
 """
@@ -174,6 +185,10 @@ ADAPTIVE_PARITY_RES = (256, 256)
 ADAPTIVE_PARITY_EPS = 0.5 / 255
 ADAPTIVE_EPS = 0.002                 # the CLI runs' --adaptive-aa
 ADAPTIVE_BUDGET = 0.25               # the CLI's default --adaptive-budget
+TREE_SHAPES = ((4, 8), (4, 16), (8, 8), (8, 16))   # (LEAF, FAN) of phase 19's sweep
+# The kernels' sources for a library of another tree shape (the render and
+# worklist kernels, large and small halves; the sweep needs nothing else).
+TREE_SWEEP_SOURCES = ("render_fwd.cu", "render_fwd_small.cu")
 ADAPTIVE_QUALITY = 0.005             # pixels off full AA by > 1 level (tests/test_adaptive.py)
 DEMO_ADAPTIVE_ATOL = 3e-5            # all flagged vs per-sample AA, demo scene
 DEMO_ADAPTIVE_CHANGED = 0.002
@@ -990,11 +1005,8 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
                                   f"({[hex(v) for v in img[x, y].view(torch.int32).tolist()]}) "
                                   f"full sweep {off[x, y].tolist()} "
                                   f"({[hex(v) for v in off[x, y].view(torch.int32).tolist()]})")
-                        check(culls["group_cull"], f"{n} spheres {mode} compat={compat} "
-                              f"{name}: {px.shape[0]} pixels differ from the full sweep")
-                        flips(f"{n} spheres {mode} compat={compat} {name}: {px.shape[0]} "
-                              f"pixels moved under the Morton order (exact t ties), flip "
-                              f"rule instead", img, off, res)
+                        check(False, f"{n} spheres {mode} compat={compat} {name}: "
+                              f"{px.shape[0]} pixels differ from the full sweep")
                 print(f"[parity] {n} spheres {mode:13s} compat={compat!s:5s} {res[0]}x{res[1]} d2 vs "
                       f"all culls off: " + ", ".join(verdicts))
                 flips(f"{n} spheres {mode} compat={compat} all culls on vs plain",
@@ -1055,8 +1067,8 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         params = render_cuda.pack_params(cam, scene, True).to(dev)
         tabs = render_cuda.scene_tables(scene)
         cheap = render_cuda.shadow_cheap_ok(scene, True)
-        vis, shadow, groups = render_cuda.large_scene_tables(cam, scene, depth=2,
-                                                             aliasing=aa, compat=True)
+        vis, shadow, tree = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                           aliasing=aa, compat=True)
         ext = torch.empty((vis[1].numel(), 8), device=dev)
         out = torch.empty((W, H, 3), device=dev)
         reps = 20 if ns <= 100 else 5
@@ -1066,12 +1078,18 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         t["lists"] = host_and_device_ms(lambda: ct.shadow_visibility_lists(
             ext, scene.lights.position, scene.spheres.center, scene.spheres.radius, K=k,
             compat=True))
-        t["groups"] = host_and_device_ms(lambda: ct.sphere_groups(
-            scene.spheres.center, scene.spheres.radius, order_from=cam.position))
-        for name, tb in (("on", (vis, shadow, groups)), ("off", (None, None, None))):
+        t["tree"] = host_and_device_ms(lambda: ct.bounce_tree(scene.spheres.center,
+                                                              scene.spheres.radius))
+        for name, tb in (("on", (vis, shadow, tree)), ("off", (None, None, None))):
             t[name] = 1e3 * rt.time_fn(render_cuda.launch, out, params, tabs, cnt, depth=2,
                                        mode=mode, compat=True, cheap_shadow=cheap, vis=tb[0],
-                                       shadow=tb[1], groups=tb[2], warmup=2, iters=reps)
+                                       shadow=tb[1], tree=tb[2], warmup=2, iters=reps)
+        # the live counts of every trace level, for the bounds: one launch with
+        # the render's tables at n_levels = depth + 1
+        ext3 = hx.hit_extents_cuda(cam, scene, aliasing=aa, n_levels=3, vis=vis,
+                                   tree=ct.bounce_tree(scene.spheres.center,
+                                                       scene.spheres.radius))
+        live = ext3[:, 6].reshape(-1, 3).sum(dim=0).tolist()
         t["wrapper"] = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
                                         aliasing=aa, warmup=2, iters=reps)
         t["wrapper_off"] = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
@@ -1079,9 +1097,9 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         t["k3_bound"] = timing.bound_ms(*timing.hit_extents_work(W, H, ns, npl, aa, vis,
                                                                  ext))
         t["on_bound"] = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, mode, vis,
-                                                                 shadow, ext))
+                                                                 shadow, ext3))
         t["off_bound"] = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, mode,
-                                                                  None, None, ext))
+                                                                  None, None, ext3))
 
         def rows(tab):
             c = tab[1].float()
@@ -1092,19 +1110,20 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         print(f"[large-time] {label}: hit_extents kernel alone {t['k3']:.4f} ms; table functions "
               f"(device ms / host ms a call) tile_visibility {t['vis'][0]:.4f} / "
               f"{t['vis'][1]:.4f}, shadow_visibility_lists {t['lists'][0]:.4f} / "
-              f"{t['lists'][1]:.4f}, sphere_groups {t['groups'][0]:.4f} / "
-              f"{t['groups'][1]:.4f} ({'used' if groups else 'not used at this size'}); "
+              f"{t['lists'][1]:.4f}, bounce_tree {t['tree'][0]:.4f} / "
+              f"{t['tree'][1]:.4f} ({'used' if tree else 'not used at this size'}); "
               f"render kernel alone all culls on {t['on']:.4f} ms, all off {t['off']:.4f} ms "
               f"({t['on'] / t['off']:.3f}x); whole wrapper {t['wrapper']:.4f} ms, with culls "
               f"off {t['wrapper_off']:.4f} ms{plain_txt} | {card}")
         print(f"[large-lists] {label}: K={k}; primary rows mean {vm:.2f} spheres, -1 rows "
-              f"{vo:.4f}; shadow rows mean {sm:.2f} spheres, -1 rows {so:.4f}; groups "
-              f"{groups[2] if groups else 0}")
+              f"{vo:.4f}; shadow rows mean {sm:.2f} spheres, -1 rows {so:.4f}; bounce tree "
+              f"{f'{tree.n_leaves} leaves of {ct.LEAF}, fan {ct.FAN}' if tree else 'off'};"
+              f" live samples at levels 0-2 (hit_extents, n_levels 3) {live}")
         print(f"[bound] hit_extents {label}: {t['k3_bound'][0]:.4f} ms ({t['k3_bound'][1]}) vs "
               f"kernel alone {t['k3']:.4f} ms; render all culls on {t['on_bound'][0]:.4f} ms "
               f"({t['on_bound'][1]}, a lower bound: the listed primary and level-0 shadow "
-              f"sweeps) vs {t['on']:.4f} ms; all off {t['off_bound'][0]:.4f} ms vs "
-              f"{t['off']:.4f} ms | {card}")
+              f"sweeps and the bounce levels' floor) vs {t['on']:.4f} ms; all off "
+              f"{t['off_bound'][0]:.4f} ms vs {t['off']:.4f} ms | {card}")
         return t
 
     timed = {}
@@ -1202,8 +1221,11 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         return "demo" if n == 0 else f"{n}_spheres"
 
     def worklist(cam, scene, compat, eps, budget):
-        return ac.worklist_inputs(cam, scene, depth=2, compat=compat, eps=eps,
-                                  budget_frac=budget)
+        """``(packed, tables, tent, idx, flagged, dropped)``, the tables as
+        launch_list's keywords."""
+        packed, (vis, shadow, tree), *rest = ac.worklist_inputs(
+            cam, scene, depth=2, compat=compat, eps=eps, budget_frac=budget)
+        return (packed, dict(vis=vis, shadow=shadow, tree=tree), *rest)
 
     def plain_trace(cam, scene, idx, n, tent, compat):
         """The plain trace of the first n listed pixels, in blocks that bound
@@ -1234,15 +1256,20 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         for compat in (True, False):
             scene, cam = scene_and_camera(n, res, compat)
             label = f"{name(n)} {res[0]}x{res[1]} compat={compat}"
-            packed, tent, idx, flagged, dropped = worklist(cam, scene, compat,
-                                                           ADAPTIVE_PARITY_EPS, 1.0)
+            packed, tabs, tent, idx, flagged, dropped = worklist(cam, scene, compat,
+                                                                 ADAPTIVE_PARITY_EPS, 1.0)
             cheap = render_cuda.shadow_cheap_ok(scene, compat)
             a = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
-                               cheap_shadow=cheap)
+                               cheap_shadow=cheap, **tabs)
             b = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
-                               cheap_shadow=cheap)
+                               cheap_shadow=cheap, **tabs)
+            off = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
+                                 cheap_shadow=cheap)
             torch.cuda.synchronize()
             check(torch.equal(a, b), f"render_list {label}: two runs differ")
+            check(torch.equal(a, off), f"render_list {label}: with tables "
+                  f"{[k for k, v in tabs.items() if v is not None]} differs from every table "
+                  f"off at {int((a != off).any(-1).sum())} pixels")
             n_listed = int(flagged)
             check(int(dropped) == 0 and n_listed > 0, f"{label}: stats {n_listed} {dropped}")
             sub = min(n_listed, PLAIN_LIST_MAX)
@@ -1336,19 +1363,24 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         label = main[n]["label"]
         ns, npl, nl = counts(scene)
         reps = 20 if n <= 100 else 5
-        packed, tent, idx, flagged, _ = worklist(cam, scene, True, ADAPTIVE_EPS,
-                                                 ADAPTIVE_BUDGET)
+        packed, tabs, tent, idx, flagged, _ = worklist(cam, scene, True, ADAPTIVE_EPS,
+                                                       ADAPTIVE_BUDGET)
         cheap = render_cuda.shadow_cheap_ok(scene, True)
         out = tent.clone()
         n_listed = min(int(flagged), idx.numel())
+
+        def centers():
+            """The wrapper's centers pass: the AA lattice's tables, then the
+            render kernel in mode aa_none on them."""
+            return render_cuda.render_packed(
+                cam, scene, packed, depth=2, mode="aa_none", compat=True,
+                tabs=render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=True,
+                                                    compat=True, packed=packed))
         t = {"kernel": 1e3 * rt.time_fn(ac.launch_list, out, *packed, idx, flagged, depth=2,
-                                        compat=True, cheap_shadow=cheap, warmup=2,
+                                        compat=True, cheap_shadow=cheap, **tabs, warmup=2,
                                         iters=reps),
-             "centers": 1e3 * rt.time_fn(render_cuda.render_packed, cam, scene, packed,
-                                         depth=2, mode="aa_none", compat=True, warmup=2,
-                                         iters=reps)}
-        C = adp.stored_to_rgb(render_cuda.render_packed(cam, scene, packed, depth=2,
-                                                        mode="aa_none", compat=True), True)
+             "centers": 1e3 * rt.time_fn(centers, warmup=2, iters=reps)}
+        C = adp.stored_to_rgb(centers(), True)
         K = adp.budget_slots(W, H, ADAPTIVE_BUDGET)
         t["glue"] = host_and_device_ms(lambda: adp.tent_and_worklist(
             C, compat=True, eps=ADAPTIVE_EPS, K=K), iters=reps)
@@ -1372,16 +1404,21 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         t["plain"] = 1e3 * (time.perf_counter() - t0)
         t["plain_px"] = sub
         t["err"] = held(label, ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2,
-                                               compat=True, cheap_shadow=cheap),
+                                               compat=True, cheap_shadow=cheap, **tabs),
                         ref, idx, sub)
         del ref
-        vis = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=False, compat=True,
-                                             shadow_lists=False, group_cull=False)[0]
-        t["bound"] = timing.bound_ms(*timing.adaptive_work(idx, n_listed, H, ns, npl, nl, vis))
+        # the live counts of the AA lattice at levels 0-2 (one hit_extents
+        # launch, n_levels = depth + 1), for the bound
+        ext3 = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=3, vis=tabs["vis"],
+                                   tree=tabs["tree"])
+        t["bound"] = timing.bound_ms(*timing.adaptive_work(
+            idx, n_listed, H, ns, npl, nl, tabs["vis"], tabs["shadow"], ext3, W))
         t["listed"] = n_listed
         times[n] = t
         print(f"[adaptive-time] {label} eps={ADAPTIVE_EPS} budget={ADAPTIVE_BUDGET}, "
-              f"{n_listed} listed pixels: list kernel alone {t['kernel']:.4f} ms (bound "
+              f"{n_listed} listed pixels, tables "
+              f"{[k for k, v in tabs.items() if v is not None]}: list kernel alone "
+              f"{t['kernel']:.4f} ms (bound "
               f"{t['bound'][0]:.4f} ms, {t['bound'][1]}); centers pass on packed inputs "
               f"{t['centers']:.4f} ms; flag/tent/compaction ops {t['glue'][0]:.4f} ms device "
               f"/ {t['glue'][1]:.4f} ms host; whole adaptive wrapper {t['wrapper'][0]:.4f} ms "
@@ -1407,6 +1444,262 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
                  "dropped": main[n]["dropped"]} for n, v in times.items()}}]
 
 
+def ptxas_report(csrc: str, source: str, out_dir: str):
+    """Start ``nvcc -Xptxas -v`` on one source of ``csrc`` (the kernels'
+    registers, spills and shared memory as ptxas reports them); returns the
+    process, whose stderr :func:`ptxas_lines` reads."""
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    os.makedirs(out_dir, exist_ok=True)
+    return subprocess.Popen(
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-c", "-o",
+         os.path.join(out_dir, f"ptxas_{os.getpid()}.o"), os.path.join(csrc, source)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def ptxas_lines(proc) -> list:
+    """``(kernel, registers, spill stores, spill loads, stack)`` of each entry
+    function in a :func:`ptxas_report`'s output, names demangled by c++filt
+    where it exists."""
+    import re
+    _, err = proc.communicate(timeout=900)
+    check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{err[-3000:]}")
+    rows, name, spill = [], None, (0, 0, 0)
+    for line in err.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                      r"spill loads", line)
+        if m:
+            spill = tuple(int(v) for v in m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append([name, int(m.group(1)), spill[1], spill[2], spill[0]])
+            name = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(r[0] for r in rows),
+                               capture_output=True, text=True, timeout=60).stdout.split("\n")
+        for r, n in zip(rows, names):
+            r[0] = n.replace("(anonymous namespace)::", "").split("(")[0]
+    except OSError:
+        pass
+    return rows
+
+
+def bounce_phase(torch, rt, card: str, dev) -> None:
+    """Phase 19: the large-scene bounce sweeps of kernels 2 (``aa_shared``)
+    and 7 (the worklist kernel) at 1920x1080, compat, the CLI's camera and
+    scenes: each kernel alone on the demo scene and 100 and 1000 spheres
+    (their wrappers: phase 20); at 1000 spheres the depth 0 / 1 / 2 split (the difference
+    of two depths is one bounce level's cost), the live samples of each level
+    (one hit_extents launch, n_levels 3) and the hit-extent kernel's level-0
+    launch alone; the bounce tree's LEAF x FAN sweep at 1000 spheres (a
+    library of the two kernels built for each other shape with -DRT_LEAF /
+    -DRT_FAN, each frame ``torch.equal`` to the package's) and its box and
+    sphere tests a bounce ray (the plain traversal on the chains of every
+    16th pixel); ptxas's registers and spills of render_fwd.cu's and
+    hit_extents.cu's instantiations. The compiles all run before the first
+    timing."""
+    from concurrent.futures import ThreadPoolExecutor
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+
+    t0 = time.perf_counter()
+    procs = [ptxas_report(_build.CSRC_DIR, src, _build.BUILD_DIR)
+             for src in ("render_fwd.cu", "hit_extents.cu")]
+    others = [s for s in TREE_SHAPES if s != (ct.LEAF, ct.FAN)]
+    with ThreadPoolExecutor(len(others)) as pool:
+        paths = pool.map(lambda s: _build.build(TREE_SWEEP_SOURCES, (f"-DRT_LEAF={s[0]}",
+                                                                     f"-DRT_FAN={s[1]}")),
+                         others)
+        libs = {s: _build.declare(ctypes.CDLL(p)) for s, p in zip(others, paths)}
+    regs = [ptxas_lines(p) for p in procs]
+    for s, lib in libs.items():
+        check(_build.tree_shape(lib) == s, f"library for {s} reports {_build.tree_shape(lib)}")
+    libs[(ct.LEAF, ct.FAN)] = _build.load_library()
+    print(f"[tree-build] kernels for tree shapes {others} and the ptxas reports in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    cfg = RenderConfig()
+    W, H = LARGE_RES
+    cam = rt.Camera.build(LARGE_RES, cfg.camera_position, cfg.camera_euler, cfg.fov,
+                          device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for n in ADAPTIVE_SCENES:
+        scene = scene_of(rt, cfg, n, dev)
+        ns, npl, nl = counts(scene)
+        reps = 50 if n == 0 else 20 if n <= 100 else 10
+        params = render_cuda.pack_params(cam, scene, True).to(dev)
+        tabs = render_cuda.scene_tables(scene)
+        cheap = render_cuda.shadow_cheap_ok(scene, True)
+        t2 = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=True, compat=True)
+        out = torch.empty((W, H, 3), device=dev)
+        packed, t7, tent, idx, flagged, _ = ac.worklist_inputs(
+            cam, scene, depth=2, compat=True, eps=ADAPTIVE_EPS, budget_frac=ADAPTIVE_BUDGET)
+        lout = tent.clone()
+
+        def k2(depth, tb=t2):
+            return render_cuda.launch(out, params, tabs, (ns, npl, nl), depth=depth,
+                                      mode="aa_shared", compat=True, cheap_shadow=cheap,
+                                      vis=tb[0], shadow=tb[1], tree=tb[2])
+
+        def k7(depth, tb=t7):
+            return ac.launch_list(lout, *packed, idx, flagged, depth=depth, compat=True,
+                                  cheap_shadow=cheap, vis=tb[0], shadow=tb[1], tree=tb[2])
+        depths = (0, 1, 2) if ns >= 1000 else (2,)
+        ms2 = {d: 1e3 * rt.time_fn(k2, d, warmup=2, iters=reps) for d in depths}
+        ms7 = {d: 1e3 * rt.time_fn(k7, d, warmup=2, iters=reps) for d in depths}
+        on = [k for k, v in zip(("vis", "shadow", "tree"), t2) if v is not None]
+        print(f"[tree-time] {'demo' if n == 0 else f'{n}_spheres'} {W}x{H} compat, tables "
+              f"{on}: aa_shared kernel alone " +
+              ", ".join(f"depth {d} {v:.4f} ms" for d, v in ms2.items()) +
+              f"; worklist kernel alone ({int(flagged)} flagged, tables "
+              f"{[k for k, v in zip(('vis', 'shadow', 'tree'), t7) if v is not None]}) " +
+              ", ".join(f"depth {d} {v:.4f} ms" for d, v in ms7.items()) + f" | {card}")
+        if ns < 1000:
+            continue
+        ext = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=3, vis=t2[0])
+        k3 = 1e3 * rt.time_fn(hx.launch, ext[:ext.shape[0] // 3], params, tabs, (ns, npl, nl),
+                              W=W, H=H, aliasing=True, compat=True, n_levels=1, vis=t2[0],
+                              warmup=2, iters=50)
+        print(f"[tree-time] {n}_spheres: live samples of the AA lattice at levels 0-2 "
+              f"{ext[:, 6].reshape(-1, 3).sum(dim=0).tolist()}; hit_extents kernel alone "
+              f"(level 0, the render path's launch) {k3:.4f} ms | {card}")
+
+        # the sweep: each shape's kernels on its own tree, frames held
+        # against the package's (the tree's shape moves no pixel)
+        ref2, ref7 = k2(2).clone(), k7(2).clone()
+        (sph, pln, lts) = tabs
+        for (leaf, fan), lib in libs.items():
+            tr = ct.bounce_tree(scene.spheres.center, scene.spheres.radius, leaf=leaf,
+                                fan=fan)
+            v, sh, g = hx.table_args(t2[0], t2[1], tr)
+            vl, shl, gl = hx.table_args(t7[0], t7[1], tr)
+
+            def s2():
+                rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
+                                       npl, lts.data_ptr(), nl, out.data_ptr(), W, H, 2,
+                                       render_cuda.MODES.index("aa_shared"), 1, int(cheap), 1,
+                                       *v, *sh, *g, stream)
+                check(rc == 0, f"aa_shared for tree shape {(leaf, fan)}: CUDA error {rc}")
+                return out
+
+            def s7():
+                rc = lib.rt_render_list(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
+                                        npl, lts.data_ptr(), nl, idx.data_ptr(),
+                                        flagged.data_ptr(), idx.numel(), lout.data_ptr(), W,
+                                        H, 2, 1, int(cheap), 1, *vl, *shl, *gl, stream)
+                check(rc == 0, f"worklist kernel for tree shape {(leaf, fan)}: CUDA error {rc}")
+                return lout
+            s2()
+            s7()
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref2) and torch.equal(lout, ref7),
+                  f"tree shape {(leaf, fan)} changed the frame")
+            a = 1e3 * rt.time_fn(s2, warmup=2, iters=reps)
+            b = 1e3 * rt.time_fn(s7, warmup=2, iters=reps)
+            print(f"[tree-sweep] {n}_spheres leaf {leaf} fan {fan}: aa_shared kernel alone "
+                  f"{a:.4f} ms, worklist kernel alone {b:.4f} ms, frames equal to the "
+                  f"package's{' (the constants)' if (leaf, fan) == (ct.LEAF, ct.FAN) else ''}"
+                  f" | {card}")
+        # box and sphere tests a bounce ray at levels 1 and 2, with the plain
+        # traversal, on the chains of every 16th pixel center
+        from python_ray_tracer_tpu_torch.ops import intersect
+        from python_ray_tracer_tpu_torch.ops.shade import BIAS, _surface_attributes, reflect
+        xs, ys = torch.meshgrid(torch.arange(8, W, 16.0, device=dev),
+                                torch.arange(8, H, 16.0, device=dev), indexing="ij")
+        d = cam.ray_directions(torch.stack([xs, ys], -1).reshape(-1, 2), compat=True)
+        o = cam.ray_origin().expand(d.shape)
+        c, r = scene.spheres.center, scene.spheres.radius
+        for level in range(3):
+            h = intersect.closest_hit(o, d, scene, compat=True)
+            alive = h["hit"]
+            P = o + torch.where(alive, h["t"], torch.zeros_like(h["t"]))[..., None] * d
+            _, N = _surface_attributes(P, h, scene)
+            Pb = P + BIAS * N
+            if level:
+                L = scene.lights.position[0] - Pb[alive]
+                L = L / L.norm(dim=-1, keepdim=True)
+                for leaf, fan in TREE_SHAPES:
+                    tr = ct.bounce_tree(c, r, leaf=leaf, fan=fan)
+                    _, _, nb, nsph = ct.tree_closest_hit_plain(tr, o, d, c, r, compat=True,
+                                                               fan=fan)
+                    _, sb, ss = ct.tree_occluded_plain(tr, Pb[alive], L, c, r, compat=True,
+                                                       cheap=cheap, fan=fan)
+                    print(f"[tree-work] {n}_spheres level {level} leaf {leaf} fan {fan}: "
+                          f"{o.shape[0]} bounce rays, a closest hit {nb.double().mean():.1f}"
+                          f" box and {nsph.double().mean():.1f} sphere tests; "
+                          f"{L.shape[0]} shadow rays to light 0, {sb.double().mean():.1f} "
+                          f"box and {ss.double().mean():.1f} sphere tests")
+            d2 = reflect(d, N)
+            o, d = (Pb + BIAS * d2)[alive], d2[alive]
+    for rows in regs:
+        for name, nregs, st, ld, stack in rows:
+            print(f"[tree-regs] {name}: {nregs} registers, spill stores {st} B, loads "
+                  f"{ld} B, stack {stack} B")
+
+
+def scene_of(rt, cfg, n: int, dev):
+    """The CLI's scene: the demo scene (n = 0) or ``random_scene(n)`` from
+    seed 0, with the CLI's materials (specular 0)."""
+    import torch
+    mats = rt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, 0.0, cfg.shininess,
+                              device=dev)
+    return (rt.default_scene(mats, device=dev) if n == 0 else rt.random_scene(
+        n, materials=mats, generator=torch.Generator().manual_seed(0), device=dev))
+
+
+def entry_times(torch, rt, card: str, dev, label: str) -> None:
+    """Phase 20 (``[entry-time]``), also run alone by ``--entry-times DIR`` on
+    the package of another checkout: kernels 2 and 7 through the entry points
+    a user calls, ``render_image_cuda`` (AA, so ``aa_shared``) and
+    ``render_image_adaptive_cuda``, at 1920x1080, compat, the CLI's camera, on
+    the demo scene and 100 spheres at depth 2 and on 1000 spheres at depth 0,
+    1 and 2: each wrapper's time (CUDA events) and the device time of its
+    kernel a call (torch.profiler; "not measured" where the profiler reports
+    none). The entry points' signatures are the same in every tree of the
+    port, so two checkouts' lines can be set side by side."""
+    from torch.profiler import ProfilerActivity, profile
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig()
+    cam = rt.Camera.build(LARGE_RES, cfg.camera_position, cfg.camera_euler, cfg.fov,
+                          device=dev)
+
+    def device_ms(fn, kernel: str, calls: int = 5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for e in prof.key_averages():
+            if kernel in e.key:
+                us += getattr(e, "self_device_time_total",
+                              getattr(e, "self_cuda_time_total", 0.0))
+        return f"{us / 1e3 / calls:.4f} ms" if us > 0 else "not measured"
+    for n in ADAPTIVE_SCENES:
+        scene = scene_of(rt, cfg, n, dev)
+        for depth in ((0, 1, 2) if n >= 1000 else (2,)):
+            def shared():
+                return rt.render_image_cuda(cam, scene, depth=depth, aliasing=True)
+
+            def adaptive():
+                return rt.render_image_adaptive_cuda(cam, scene, depth=depth,
+                                                     eps=ADAPTIVE_EPS,
+                                                     budget_frac=ADAPTIVE_BUDGET)
+            reps = 20 if n <= 100 else 10
+            w2 = 1e3 * rt.time_fn(shared, warmup=2, iters=reps)
+            w7 = 1e3 * rt.time_fn(adaptive, warmup=2, iters=reps)
+            print(f"[entry-time] {label} {'demo' if n == 0 else f'{n}_spheres'} "
+                  f"{LARGE_RES[0]}x{LARGE_RES[1]} depth {depth}: render_image_cuda "
+                  f"{w2:.4f} ms (render_fwd_kernel {device_ms(shared, 'render_fwd_kernel')} "
+                  f"a call); render_image_adaptive_cuda {w7:.4f} ms (render_list_kernel "
+                  f"{device_ms(adaptive, 'render_list_kernel')} a call) | {card}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1414,6 +1707,20 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
+    if len(sys.argv) == 3 and sys.argv[1] == "--entry-times":
+        # phase 20 alone, on the package of another checkout
+        root = os.path.abspath(sys.argv[2])
+        sys.path.insert(0, root)
+        import python_ray_tracer_tpu_torch as rt
+        check(os.path.dirname(os.path.abspath(rt.__file__)) ==
+              os.path.join(root, "python_ray_tracer_tpu_torch"), f"imported {rt.__file__}")
+        card = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+        print(card)
+        entry_times(torch, rt, card, torch.device("cuda", 0), os.path.relpath(root, ROOT))
+        print(f"[smoke] --entry-times {root} in {time.perf_counter() - t_start:.1f} s")
+        return 0
     sys.path.insert(0, ROOT)
     import numpy as np
     import python_ray_tracer_tpu_torch as rt
@@ -1566,6 +1873,8 @@ def main() -> int:
     kernels += soft_phases(torch, rt, card, dev)
     kernels += large_scene_phases(torch, rt, card, dev)
     kernels += adaptive_phases(torch, rt, card, dev)
+    bounce_phase(torch, rt, card, dev)
+    entry_times(torch, rt, card, dev, "this tree")
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,6 @@ import torch
 
 from .models.camera import Camera
 from .models.scene import LEAF_PATHS, Materials, Scene
-from .ops.cuda.cull_tables import GROUP_SIZE
 from .ops.cuda.render_bwd_cuda import flatten_grads, n_grads, unflatten_grads
 
 
@@ -62,25 +61,19 @@ def tile_rows_from_jax(rows: np.ndarray, n_tx: int, n_ty: int, swap_xy: bool) ->
     return rows.reshape(n_ty, n_tx, *rows.shape[1:]).swapaxes(0, 1).reshape(rows.shape)
 
 
-def tables_from_arrays(*, vis=None, shadow=None, groups=None, device="cpu"):
-    """The render kernel's large-scene tables from numpy arrays, e.g. those of
-    ``render_pallas._tile_visibility`` / ``_shadow_visibility_lists`` /
-    ``_sphere_groups`` built with the port's 16x16 tiles and brought into its
-    tile numbering (:func:`tile_rows_from_jax`): ``vis = (idx, cnt, k)`` and
-    ``shadow = (idx, cnt, k)`` become int32 tensors, ``groups = (perm,
-    bounds)`` an int32 and a float32 tensor with the group count. Returns
-    ``(vis, shadow, groups)`` as ``render_cuda.launch`` takes them."""
+def tables_from_arrays(*, vis=None, shadow=None, device="cpu"):
+    """The render kernel's list tables from numpy arrays, e.g. those of
+    ``render_pallas._tile_visibility`` / ``_shadow_visibility_lists`` built
+    with the port's 16x16 tiles and brought into its tile numbering
+    (:func:`tile_rows_from_jax`): ``vis = (idx, cnt, k)`` and ``shadow =
+    (idx, cnt, k)`` become int32 tensors. Returns ``(vis, shadow)`` as
+    ``render_cuda.launch`` takes them (its bounce tree has no JAX
+    counterpart: ``cull_tables.bounce_tree``)."""
     def ints(a):
         return torch.as_tensor(np.array(a, dtype=np.int32).reshape(-1),
                                device=device)
-    out = [None if t is None else (ints(t[0]), ints(t[1]), int(t[2]))
-           for t in (vis, shadow)]
-    if groups is not None:
-        perm, bounds = groups
-        out.append((ints(perm), _t(bounds, device).reshape(-1), len(perm) // GROUP_SIZE))
-    else:
-        out.append(None)
-    return tuple(out)
+    return tuple(None if t is None else (ints(t[0]), ints(t[1]), int(t[2]))
+                 for t in (vis, shadow))
 
 
 def grads_from_flat(flat: np.ndarray, ns: int, npl: int, nl: int, *,

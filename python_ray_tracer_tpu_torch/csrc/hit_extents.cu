@@ -14,7 +14,11 @@
 // What bounds it on this card: FP32 operations. It reads the scene (28 KB at
 // 1000 spheres) and the tile's primary list and writes 32 bytes a (tile,
 // level); each sample position costs one ray generation and one closest-hit
-// sweep over the tile's cone-visible spheres.
+// sweep over the tile's cone-visible spheres, and past level 0 (where the
+// render kernel lists no bounce) one closest hit through the bounce tree, the
+// render kernel's own bounce sweep (rt_common.cuh closest_hit_tree): at 1000
+// spheres the tree's box tests and the ~45 sphere tests of a bounce ray bound
+// those levels, where the full sweep took 1000.
 //
 // What the design does about it, and what it must keep:
 //   * one block per render tile with render_fwd_kernel.cuh's blockIdx -> tile mapping,
@@ -24,7 +28,7 @@
 //     shared grids (centers, both half-axis grids, corners) with AA, which is
 //     also the lattice the per-sample AA mode samples;
 //   * the hit points come from rt_common.cuh's raygen, primary_geometry (with
-//     the same primary list, and the same Morton groups past level 0),
+//     the same primary list, and the same bounce tree past level 0),
 //     reflect_dir and bounce_ray, the functions the render kernel calls. They
 //     are written in rounded-once operations (rt_common.cuh fm / fa / fs /
 //     ff), so this file's copies give the render kernel's bits: the boxes
@@ -39,7 +43,10 @@
 //     shared-memory stage give the same bits on every run: no atomics. A tile
 //     without hits keeps the sentinels +-1e30 and count 0;
 //   * blocks are independent and each writes its own rows (the TPU grid is
-//     sequential and writes disjoint SMEM slots; nothing carries over).
+//     sequential and writes disjoint SMEM slots; nothing carries over);
+//   * a launch of level 0 alone (the render path's) runs an instantiation
+//     without the bounce levels (BOUNCES false), so the tree traversal's code
+//     and registers stay out of it.
 
 #include <cuda_runtime.h>
 
@@ -59,7 +66,7 @@ constexpr int N_SHARED = N_C + N_U + N_V + N_UV;
 constexpr int MAX_LEVELS = 4;               // hit_extents_cuda.MAX_LEVELS
 constexpr int ROW = 8;                      // floats a (tile, level) row
 
-template <bool COMPAT, bool AA>
+template <bool COMPAT, bool AA, bool BOUNCES>
 __global__ void __launch_bounds__(NT)
 hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                    int ns, const float* __restrict__ pln, int npl,
@@ -84,10 +91,11 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
   const float fy0 = static_cast<float>(blockIdx.x * TILE);
   const float x_max = static_cast<float>(W - 1), y_max = static_cast<float>(H - 1);
 
-  float mn[MAX_LEVELS][3], mx[MAX_LEVELS][3];
-  int cnt[MAX_LEVELS];
+  constexpr int LEVELS = BOUNCES ? MAX_LEVELS : 1;
+  float mn[LEVELS][3], mx[LEVELS][3];
+  int cnt[LEVELS];
 #pragma unroll
-  for (int l = 0; l < MAX_LEVELS; ++l) {
+  for (int l = 0; l < LEVELS; ++l) {
     mn[l][0] = mn[l][1] = mn[l][2] = BIG;
     mx[l][0] = mx[l][1] = mx[l][2] = -BIG;
     cnt[l] = 0;
@@ -114,7 +122,7 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
     bool used = px >= 0.0f && px <= x_max && py >= 0.0f && py <= y_max;
     Ray ray = raygen(s.p, px, py);
 #pragma unroll
-    for (int l = 0; l < MAX_LEVELS; ++l) {
+    for (int l = 0; l < LEVELS; ++l) {
       if (l >= n_levels) break;
       const Surface f = primary_geometry<COMPAT, true>(s, ray, tb, l == 0);
       // a chain dead at this level reaches no later one either, in the image
@@ -137,7 +145,7 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
   // warp shuffles, then one shared-memory stage; every thread gets here
   const int lane = tid & 31, warp = tid >> 5;
 #pragma unroll
-  for (int l = 0; l < MAX_LEVELS; ++l) {
+  for (int l = 0; l < LEVELS; ++l) {
     if (l >= n_levels) break;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -175,23 +183,34 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
   }
 }
 
-template <bool COMPAT, bool AA>
-cudaError_t launch(const float* params, const float* sph, int ns, const float* pln,
-                   int npl, float* out, int W, int H, int n_levels,
-                   const TableArgs& ta, cudaStream_t stream) {
+template <bool COMPAT, bool AA, bool BOUNCES>
+cudaError_t launch_levels(const float* params, const float* sph, int ns, const float* pln,
+                          int npl, float* out, int W, int H, int n_levels,
+                          const TableArgs& ta, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (N_PARAMS + 7 * ns + 9 * npl + table_words(ta, 0) +
                                        (NT / 32) * MAX_LEVELS * 7);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        hit_extents_kernel<COMPAT, AA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hit_extents_kernel<COMPAT, AA, BOUNCES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   const dim3 block(TILE, TILE);
   const dim3 grid((H + TILE - 1) / TILE, (W + TILE - 1) / TILE);
-  hit_extents_kernel<COMPAT, AA><<<grid, block, smem, stream>>>(
+  hit_extents_kernel<COMPAT, AA, BOUNCES><<<grid, block, smem, stream>>>(
       params, sph, ns, pln, npl, out, W, H, n_levels, ta);
   return cudaGetLastError();
+}
+
+template <bool COMPAT, bool AA>
+cudaError_t launch(const float* params, const float* sph, int ns, const float* pln,
+                   int npl, float* out, int W, int H, int n_levels,
+                   const TableArgs& ta, cudaStream_t stream) {
+  return n_levels > 1
+             ? launch_levels<COMPAT, AA, true>(params, sph, ns, pln, npl, out, W, H, n_levels,
+                                               ta, stream)
+             : launch_levels<COMPAT, AA, false>(params, sph, ns, pln, npl, out, W, H,
+                                                n_levels, ta, stream);
 }
 
 }  // namespace
@@ -202,23 +221,22 @@ extern "C" {
 // `stream`, tiles of 16x16 pixels numbered x tiles outermost. params, sph and
 // pln as for rt_render_fwd. aliasing: walk the 3x3 AA lattice (the four shared
 // grids) instead of the pixel centers. vis_idx / vis_cnt / vis_k: the primary
-// cone-cull lists the render will use (null: none); perm / bnd / n_groups:
-// the Morton groups it will use past level 0 (null: none; not staged when
-// n_levels is 1, where no ray reads them). Returns cudaGetLastError() after
-// the launch (0 on success).
+// cone-cull lists the render will use (null: none); perm / box / n_leaves:
+// the bounce tree it will use past level 0 (rt_common.cuh Tables;
+// null: none; not staged when n_levels is 1, where no ray reads it). Returns
+// cudaGetLastError() after the launch (0 on success).
 int rt_hit_extents(const float* params, const float* sph, int ns, const float* pln,
                    int npl, float* out, int W, int H, int n_levels, int aliasing,
                    int compat, const int* vis_idx, const int* vis_cnt, int vis_k,
-                   const int* perm, const float* bnd, int n_groups, void* stream) {
-  if (W <= 0 || H <= 0 || ns < 0 || npl < 0 || n_levels < 1 || n_levels > MAX_LEVELS ||
-      (W + TILE - 1) / TILE > 65535 || (vis_idx && (!vis_cnt || vis_k < 1)) ||
-      (perm && (!bnd || n_groups < 1))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                   const int* perm, const float* box, int n_leaves,
+                   void* stream) {
   const bool bounces = n_levels > 1;
   const TableArgs ta{vis_idx, vis_cnt, vis_k, nullptr, nullptr, 0,
-                     bounces ? perm : nullptr, bounces ? bnd : nullptr,
-                     bounces ? n_groups : 0};
+                     bounces ? perm : nullptr, box, n_leaves};
+  if (W <= 0 || H <= 0 || ns < 0 || npl < 0 || n_levels < 1 || n_levels > MAX_LEVELS ||
+      (W + TILE - 1) / TILE > 65535 || !tables_ok(ta)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (compat) {

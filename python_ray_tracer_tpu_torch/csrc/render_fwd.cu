@@ -19,17 +19,20 @@ int rt_render_fwd_small(const float* params, const float* sph, int ns, const flo
 // table is optional there: a null vis_idx, sh_idx or perm switches it off,
 // and with all three null that kernel too sweeps every sphere for every ray
 // (the render that the culled ones must equal bit for bit: same machine code,
-// other sweeps). Without large_scene the tables must be null.
+// other sweeps). perm / box / n_leaves: the bounce tree (rt_common.cuh
+// Tables, LEAF spheres a leaf and FAN leaves a parent). Without large_scene
+// the tables must be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 int rt_render_fwd(const float* params, const float* sph, int ns, const float* pln,
                   int npl, const float* lts, int nl, float* out, int W, int H,
                   int depth, int mode, int compat, int cheap_shadow, int large_scene,
                   const int* vis_idx, const int* vis_cnt, int vis_k,
                   const int* sh_idx, const int* sh_cnt, int sh_k,
-                  const int* perm, const float* bnd, int n_groups, void* stream) {
+                  const int* perm, const float* box, int n_leaves,
+                  void* stream) {
+  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves};
   if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 ||
-      (W + TILE - 1) / TILE > 65535 || (vis_idx && (!vis_cnt || vis_k < 1)) ||
-      (sh_idx && (!sh_cnt || sh_k < 1)) || (perm && (!bnd || n_groups < 1)) ||
+      (W + TILE - 1) / TILE > 65535 || !tables_ok(ta) ||
       (!large_scene && (vis_idx || sh_idx || perm))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -37,8 +40,7 @@ int rt_render_fwd(const float* params, const float* sph, int ns, const float* pl
     return rt_render_fwd_small(params, sph, ns, pln, npl, lts, nl, out, W, H, depth, mode,
                                compat, cheap_shadow, stream);
   }
-  const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth,
-              {vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, bnd, n_groups},
+  const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth, ta,
               static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch<true>(mode, compat != 0, cheap_shadow != 0, j));
 }
@@ -57,25 +59,39 @@ int rt_render_list_small(const float* params, const float* sph, int ns, const fl
 // image; every other pixel of out is left as it is. flagged is a device
 // pointer to one int32. params and the SoA tables as for rt_render_fwd.
 // large_scene selects this file's instantiation (the pinned arithmetic of the
-// large-scene render, every sweep full), else render_fwd_small.cu's.
+// large-scene render), else render_fwd_small.cu's; the large-scene tables as
+// for rt_render_fwd, the lists built for the AA lattice (each listed pixel
+// reads its tile's rows), and none without large_scene.
 // Returns cudaGetLastError() after the launch (0 on success).
 int rt_render_list(const float* params, const float* sph, int ns, const float* pln,
                    int npl, const float* lts, int nl, const int* idx, const int* flagged,
                    int K, float* out, int W, int H, int depth, int compat,
-                   int cheap_shadow, int large_scene, void* stream) {
+                   int cheap_shadow, int large_scene,
+                   const int* vis_idx, const int* vis_cnt, int vis_k,
+                   const int* sh_idx, const int* sh_cnt, int sh_k,
+                   const int* perm, const float* box, int n_leaves,
+                   void* stream) {
+  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves};
   if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 || K < 1 ||
-      !idx || !flagged || !out) {
+      !idx || !flagged || !out || !tables_ok(ta) ||
+      (!large_scene && (vis_idx || sh_idx || perm))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!large_scene) {
     return rt_render_list_small(params, sph, ns, pln, npl, lts, nl, idx, flagged, K, out,
                                 W, H, depth, compat, cheap_shadow, stream);
   }
-  const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth,
-              {nullptr, nullptr, 0, nullptr, nullptr, 0, nullptr, nullptr, 0},
+  const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth, ta,
               static_cast<cudaStream_t>(stream)};
   return static_cast<int>(dispatch_list<true>(compat != 0, cheap_shadow != 0, j, idx,
                                               flagged, K));
+}
+
+// The bounce tree's shape this library was built for (rt_common.cuh LEAF,
+// FAN).
+void rt_tree_shape(int* leaf, int* fan) {
+  *leaf = LEAF;
+  *fan = FAN;
 }
 
 const char* rt_error_string(int code) {

@@ -13,7 +13,10 @@
 // memory. The scene is 60 floats (demo) to 7000 (1000 spheres) and the output
 // 12 bytes a pixel; without tables every ray sweeps every object (spheres,
 // planes) once for its closest hit and once per light for its shadow test, at
-// each of up to depth+1 trace levels.
+// each of up to depth+1 trace levels. With the tables, what is left at 1000
+// spheres is the bounce levels (rt_common.cuh's head): the tiles' lists make
+// the primary and level-0 shadow sweeps short, and a bounce ray's sweeps go
+// through the bounce tree.
 //
 // What the design does about it:
 //   * the parameter vector and the scene's SoA tables are staged in shared
@@ -32,13 +35,13 @@
 //     decides) sweep less: a block is one tile of the host's tables, so its primary rays
 //     sweep the tile's cone-visible spheres, its level-0 shadow rays the
 //     tile's per-light occluder lists (built from the hit-extent kernel's
-//     rows, hit_extents.cu), and its bounce rays the Morton groups whose ball
-//     they meet. The block's lists and the groups are staged in shared memory
-//     beside the scene; lists are uniform across the block, group tests are
+//     rows, hit_extents.cu), and its bounce rays the bounce tree's boxes they
+//     meet. The block's lists and the tree are staged in shared memory
+//     beside the scene; lists are uniform across the block, box tests are
 //     per thread. Every cull is exact: the image is bit-identical to the full
-//     sweep's (exact t ties between distinct spheres under the Morton order
-//     aside), which the same instantiation renders with its tables off, and
-//     which needs rt_common.cuh's pinned arithmetic. The small-scene
+//     sweep's, exact t ties included (the tree takes the least (t, index)),
+//     which the same instantiation renders with its tables off, and which
+//     needs rt_common.cuh's pinned arithmetic. The small-scene
 //     instantiations (render_fwd_small.cu) are the kernel without any of it,
 //     in the compiler's own arithmetic.
 // Occupancy tuning and gathered (cx, cy, cz, r) list rows are later work.
@@ -144,7 +147,7 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   // The tile id of the host's tables: x tiles outermost, as cull_tables.py
   // numbers them.
   float* s_tab = smem + scene_words(ns, npl, nl);
-  Tables tb{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
+  Tables tb = no_tables();
   if (TABLES) {
     tb = stage_tables(ta, nl, blockIdx.y * gridDim.x + blockIdx.x, s_tab, tid,
                       TILE * TILE);
@@ -222,13 +225,19 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
 // listed pixel traces its 9 AA samples and writes their average
 // (per_sample_aa, the render kernel's AA_PER_SAMPLE code) straight into the
 // tent image at (x, y), which the wrapper allocated for this launch and hands
-// over. What bounds it: FP32 work, 9 sample chains a listed pixel. Each chain
-// sweeps every sphere, where the function needs only those of the pixel's
-// tile cone-cull list (the centers pass builds it; reading it here is later
-// work). The TPU kernel traced a (rows, 128) list of float sample coordinates
-// into a (3, rows, 128) sample buffer that XLA then combined and scattered,
-// because the TPU has no scatter worth the name; here each thread derives its
-// pixel from the flat index x * H + y and writes its own 12 bytes, so no
+// over. What bounds it: FP32 work, 9 sample chains a listed pixel. With the
+// large-scene tables (TABLES, and the wrapper passes them) a chain reads the
+// tables of its pixel's tile, (x / 16) * ceil(H / 16) + y / 16 as
+// cull_tables.py numbers tiles: its primary and level-0 shadow sweeps take
+// that tile's lists, read straight from device memory (the worklist runs in
+// flat x * H + y order, so a warp's pixels lie in 1-3 tiles), and its bounce
+// sweeps the bounce tree, staged in shared memory beside the scene. The lists
+// must have been built for the AA lattice (aliasing), whose boxes hold every
+// sample of a tile's pixels. The TPU kernel traced a (rows, 128) list of
+// float sample coordinates into a (3, rows, 128) sample buffer that XLA then
+// combined and scattered, because the TPU has no scatter worth the name; here
+// each thread derives its pixel from the flat index x * H + y and writes its
+// own 12 bytes, so no
 // sample buffer, coordinate list or scatter exists. idx holds K slots; the
 // first min(*flagged, K) are live (the count stays on the device: no host
 // sync). A block whose first slot is past the count exits before staging the
@@ -240,23 +249,25 @@ __global__ void __launch_bounds__(LIST_BLOCK)
 render_list_kernel(const float* __restrict__ params, const float* __restrict__ sph, int ns,
                    const float* __restrict__ pln, int npl, const float* __restrict__ lts,
                    int nl, const int* __restrict__ idx, const int* __restrict__ flagged,
-                   int K, float* __restrict__ out, int W, int H, int depth) {
+                   int K, float* __restrict__ out, int W, int H, int depth, TableArgs ta) {
   const int n = min(*flagged, K);
   const int first = blockIdx.x * LIST_BLOCK;
   if (first >= n) return;   // uniform across the block, before any barrier
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
   const SceneView s = stage_scene(params, sph, ns, pln, npl, lts, nl, smem, tid, LIST_BLOCK);
+  // With every table off (and without TABLES) every sweep takes its
+  // full-sweep branch, the machine code of the render kernel with every cull
+  // off.
+  Tables tb = no_tables();
+  if (TABLES) stage_tree(ta, smem + scene_words(ns, npl, nl), tid, LIST_BLOCK, tb);
   __syncthreads();
   const int slot = first + tid;
   if (slot >= n) return;
   const int p = idx[slot];
   if (p < 0 || p >= W * H) return;
-  // No tables: with TABLES (the large-scene instantiation) every sweep takes
-  // its full-sweep branch, the machine code of the render kernel with every
-  // cull off.
-  const Tables tb{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
   const int x = p / H, y = p % H;
+  if (TABLES) tile_lists(ta, nl, (x / TILE) * ((H + TILE - 1) / TILE) + y / TILE, tb);
   const Rgb o = per_sample_aa<COMPAT, CHEAP, TABLES>(s, tb, static_cast<float>(x),
                                                      static_cast<float>(y), depth, true);
   store(out, H, x, y, o.r, o.g, o.b);
@@ -318,10 +329,11 @@ cudaError_t dispatch(int mode, bool compat, bool cheap, const Job& j) {
   }
 }
 
-// The worklist pass over K slots of idx (j.out is the tent image; j.ta unused).
+// The worklist pass over K slots of idx (j.out is the tent image).
 template <bool COMPAT, bool CHEAP, bool TABLES>
 cudaError_t launch_list(const Job& j, const int* idx, const int* flagged, int K) {
-  const size_t smem = sizeof(float) * scene_words(j.ns, j.npl, j.nl);
+  const size_t smem = sizeof(float) * (scene_words(j.ns, j.npl, j.nl) +
+                                       (TABLES ? tree_words(j.ta) : 0));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         render_list_kernel<COMPAT, CHEAP, TABLES>,
@@ -331,7 +343,7 @@ cudaError_t launch_list(const Job& j, const int* idx, const int* flagged, int K)
   const int blocks = (K + LIST_BLOCK - 1) / LIST_BLOCK;
   render_list_kernel<COMPAT, CHEAP, TABLES><<<blocks, LIST_BLOCK, smem, j.stream>>>(
       j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, idx, flagged, K, j.out, j.W, j.H,
-      j.depth);
+      j.depth, j.ta);
   return cudaGetLastError();
 }
 

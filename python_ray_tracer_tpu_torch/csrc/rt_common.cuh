@@ -7,12 +7,12 @@
 //   raygen            <- _raygen            (:1294)
 //   closest_hit       <- _closest_hit       (:403), plus the winner's index
 //   closest_hit_listed  <- _culled_sphere_fold (:128) inside _closest_hit
-//   closest_hit_grouped <- _grouped_sphere_fold (:338) inside _closest_hit
+//   closest_hit_tree  <- _grouped_sphere_fold (:338) inside _closest_hit
 //   hit_of            <- the hit-attribute fold of render_bwd._fwd_trace_res
 //   sphere_occ_cheap  <- _sphere_occ_cheap  (:501)
 //   occluded          <- _any_hit_multi     (:571), one light at a time
 //   occluded_listed   <- _any_hit_listed    (:757), _culled_sphere_fold_ee (:168)
-//   occluded_grouped  <- _any_hit_multi_grouped (:645), one light at a time
+//   occluded_tree     <- _any_hit_multi_grouped (:645), one light at a time
 //   surface           <- _primary_geometry  (:952), for a given hit
 //   primary_geometry  <- _primary_geometry  (:952)
 //   reflect_dir       <- _reflect_dir       (:979)
@@ -30,6 +30,17 @@
 // clip costs nothing); spheres are scanned before planes, lower index first;
 // the plane parallel threshold is 1e-3 (1e-8 in clean mode); shadow rays have
 // no maximum distance; shadow and mirror origins are biased by 2e-4.
+//
+// Large scenes (the TABLES instantiations): a primary ray sweeps its tile's
+// cone-visible list (~1.2 spheres at 1000 spheres) and a level-0 shadow ray
+// its tile's occluder list (~1.7), so what bounds them is the bounce levels,
+// where rays go anywhere: a bounce origin sits inside many large bounding
+// volumes, so 16-sphere groups under balls (R ~ 2) left ~390 of 1000 sphere
+// tests a bounce closest hit. The bounce tree (tight boxes over 4-8
+// consecutive Morton spheres under one level of parent boxes) takes ~100
+// sqrt-free slab tests and ~45 sphere tests there, and its slab test widens
+// every box by what the sphere tests' rounding can reach, so no culled sweep
+// ever differs from the full one (see the tree's section below).
 //
 // Normalisations use 1/sqrtf (IEEE sqrt and division without fast math), not
 // the approximate rsqrtf, so rays match the CPU references to the last bits
@@ -228,9 +239,12 @@ __device__ __forceinline__ HitSweep hit_sweep(const Ray& ray) {
   return w;
 }
 
-// Sphere j against the running winner h, strict `<`. Every closest-hit sweep
-// (full, listed, grouped) goes through this one body, so a sphere's t does
-// not depend on which sweep reached it.
+// Sphere j against the running winner h: strict `<`, or with TIE the least
+// (t, index), which is the same winner for a sweep in ascending index order
+// and for the tree's Morton order alike. Every closest-hit sweep (full,
+// listed, tree) goes through this one body, so a sphere's t does not depend on
+// which sweep reached it.
+template <bool TIE = false>
 __device__ __forceinline__ void hit_sphere(const SceneView& s, const HitSweep& w,
                                            int j, Hit& h) {
   const int ns = s.ns;
@@ -248,7 +262,7 @@ __device__ __forceinline__ void hit_sphere(const SceneView& s, const HitSweep& w
   const float num_far = -b + sq;
   // nearest positive root; the far root is >= the near root always
   const float tj = pm(num_near > 0.0f ? num_near : num_far, w.inv2a);
-  if (has && num_far > 0.0f && tj < h.t) {
+  if (has && num_far > 0.0f && (tj < h.t || (TIE && tj == h.t && j < h.obj))) {
     h = {tj, s.sph[4 * ns + j], s.sph[5 * ns + j], s.sph[6 * ns + j],
          cx, cy, cz, false, j};
   }
@@ -289,10 +303,32 @@ __device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
 //
 // What a block reads of the tables that ops/cuda/cull_tables.py builds. The
 // lists are per render tile (one 16x16 block), so every thread of a block
-// sweeps the same list and a listed sweep does not diverge. The Morton groups
-// are per scene; the group test is per thread, on the thread's own ray (see
-// closest_hit_grouped).
-constexpr int GROUP = 16;       // spheres a Morton group (cull_tables.GROUP_SIZE)
+// sweeps the same list and a listed sweep does not diverge. The bounce tree is
+// per scene; its box tests are per thread, on the thread's own ray (see
+// closest_hit_tree).
+//
+// The bounce tree (cull_tables.bounce_tree): the spheres in Morton order, cut
+// into leaves of LEAF consecutive spheres (pad slots of the last leaf repeat
+// its last real member), each leaf with an axis-aligned box around its member
+// balls, and one level of parents, each over FAN consecutive leaves (the last
+// parent may have fewer), each with the box around its leaves' boxes. It is
+// implicit: leaf l holds perm[l * LEAF .. (l + 1) * LEAF), parent p leaves
+// [p * FAN, min((p + 1) * FAN, n_leaves)). box holds `reach` (the largest |c|
+// + r of any sphere, rounded up; the slab test's slack scales with it), then
+// the parents' boxes, then the leaves', 6 floats each (lo xyz, hi xyz).
+//
+// LEAF and FAN are compile-time constants (cull_tables.LEAF / FAN mirror
+// them), so the member loop unrolls. 4 and 8 were the fastest of LEAF in {4,
+// 8} x FAN in {8, 16} at 1000 spheres (chip_smoke.py [tree-sweep], which
+// builds the other three with -DRT_LEAF / -DRT_FAN; see PERF.md).
+#ifndef RT_LEAF
+#define RT_LEAF 4
+#endif
+#ifndef RT_FAN
+#define RT_FAN 8
+#endif
+constexpr int LEAF = RT_LEAF;
+constexpr int FAN = RT_FAN;
 
 struct Tables {
   const int* vis;     // this tile's cone-visible spheres, ascending index
@@ -300,17 +336,18 @@ struct Tables {
   const int* sh;      // this tile's nl occluder lists, sh_k slots each
   const int* sh_n;    // their nl counts (< 0: sweep all); nullptr: no lists
   int sh_k;
-  const int* perm;    // Morton sweep order, G * GROUP original indices
-  const float* bnd;   // G x (cx, cy, cz, R): a ball around each group
-  int G;              // 0: no groups
+  const int* perm;    // the bounce tree's sweep order, n_leaves * LEAF indices
+  const float* box;   // reach, parent boxes, leaf boxes
+  int n_leaves;       // 0: no tree
 };
 
 // The tables as a kernel receives them (device pointers; a null pointer
 // switches that table off): the flat per-tile primary lists `vis_idx
 // (n_tiles * vis_k)` with counts `vis_cnt (n_tiles)`, the per-(tile, light)
 // occluder lists `sh_idx (n_tiles * nl * sh_k)` with counts `sh_cnt (n_tiles *
-// nl)`, and the Morton groups `perm (G * GROUP)`, `bnd (G * 4)`. A count of -1
-// marks a row that overflowed its slots: that row sweeps all spheres.
+// nl)`, and the bounce tree `perm (n_leaves * LEAF)`, `box (tree_box_words)`.
+// A count of -1 marks a row that overflowed its slots: that row sweeps all
+// spheres.
 struct TableArgs {
   const int* vis_idx;
   const int* vis_cnt;
@@ -319,31 +356,63 @@ struct TableArgs {
   const int* sh_cnt;
   int sh_k;
   const int* perm;
-  const float* bnd;
-  int G;
+  const float* box;
+  int n_leaves;
 };
+
+// Each table that is on is whole: a list's counts beside its indices and at
+// least one slot a row; a tree with leaves.
+inline bool tables_ok(const TableArgs& a) {
+  return (!a.vis_idx || (a.vis_cnt && a.vis_k >= 1)) &&
+         (!a.sh_idx || (a.sh_cnt && a.sh_k >= 1)) &&
+         (!a.perm || (a.box && a.n_leaves >= 1));
+}
+
+__host__ __device__ inline int tree_parents(int n_leaves) {
+  return (n_leaves + FAN - 1) / FAN;
+}
+
+// Floats of a tree's box table: reach, then 6 a parent and 6 a leaf.
+__host__ __device__ inline int tree_box_words(int n_leaves) {
+  return 1 + 6 * (tree_parents(n_leaves) + n_leaves);
+}
+
+// 4-byte words of shared memory a block needs for the bounce tree.
+__host__ __device__ inline int tree_words(const TableArgs& a) {
+  return a.perm ? tree_box_words(a.n_leaves) + a.n_leaves * LEAF : 0;
+}
 
 // 4-byte words of shared memory a block needs for its copy of the tables.
 __host__ __device__ inline int table_words(const TableArgs& a, int nl) {
-  return (a.perm ? a.G * (4 + GROUP) : 0) + (a.vis_idx ? a.vis_k : 0) +
-         (a.sh_idx ? nl * (a.sh_k + 1) : 0);
+  return tree_words(a) + (a.vis_idx ? a.vis_k : 0) + (a.sh_idx ? nl * (a.sh_k + 1) : 0);
 }
 
-// Copy tile `tile`'s lists and the groups into shared memory at `base`
+// Copy the bounce tree into shared memory at `base` (tree_words words) and
+// point tb at it. Every thread of the block calls it; a __syncthreads() must
+// follow before the tree is read.
+__device__ __forceinline__ void stage_tree(const TableArgs& a, float* base, int tid, int nt,
+                                           Tables& tb) {
+  if (!a.perm) return;
+  const int nb = tree_box_words(a.n_leaves);
+  int* perm = reinterpret_cast<int*>(base + nb);
+  for (int i = tid; i < nb; i += nt) base[i] = a.box[i];
+  for (int i = tid; i < a.n_leaves * LEAF; i += nt) perm[i] = a.perm[i];
+  tb.box = base; tb.perm = perm; tb.n_leaves = a.n_leaves;
+}
+
+// The record of a tile with no tables.
+__host__ __device__ inline Tables no_tables() {
+  return Tables{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
+}
+
+// Copy tile `tile`'s lists and the bounce tree into shared memory at `base`
 // (table_words words) and return the block's view of them. Every thread of
 // the block calls it; a __syncthreads() must follow before the view is read.
 __device__ __forceinline__ Tables stage_tables(const TableArgs& a, int nl, int tile,
                                                float* base, int tid, int nt) {
-  Tables tb{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
-  int* w = reinterpret_cast<int*>(base);
-  if (a.perm) {
-    float* bnd = base;
-    int* perm = w + 4 * a.G;
-    for (int i = tid; i < 4 * a.G; i += nt) bnd[i] = a.bnd[i];
-    for (int i = tid; i < GROUP * a.G; i += nt) perm[i] = a.perm[i];
-    tb.bnd = bnd; tb.perm = perm; tb.G = a.G;
-    w = perm + GROUP * a.G;
-  }
+  Tables tb = no_tables();
+  stage_tree(a, base, tid, nt, tb);
+  int* w = reinterpret_cast<int*>(base + tree_words(a));
   if (a.vis_idx) {
     const int n = a.vis_cnt[tile];
     const int* src = a.vis_idx + static_cast<size_t>(tile) * a.vis_k;
@@ -365,6 +434,20 @@ __device__ __forceinline__ Tables stage_tables(const TableArgs& a, int nl, int t
   return tb;
 }
 
+// Tile `tile`'s lists read where they lie in device memory (the worklist
+// kernel: the threads of a block belong to different tiles).
+__device__ __forceinline__ void tile_lists(const TableArgs& a, int nl, int tile, Tables& tb) {
+  if (a.vis_idx) {
+    tb.vis = a.vis_idx + static_cast<size_t>(tile) * a.vis_k;
+    tb.vis_n = a.vis_cnt[tile];
+  }
+  if (a.sh_idx) {
+    tb.sh = a.sh_idx + static_cast<size_t>(tile) * nl * a.sh_k;
+    tb.sh_n = a.sh_cnt + static_cast<size_t>(tile) * nl;
+    tb.sh_k = a.sh_k;
+  }
+}
+
 // Primary closest hit over the tile's cone-visible list (the JAX package's
 // _culled_sphere_fold). The list keeps ascending sphere index, so the strict
 // `<` winner and its tie class are those of the full sweep; n < 0 is the
@@ -380,71 +463,134 @@ __device__ __forceinline__ Hit closest_hit_listed(const SceneView& s, const Ray&
   return h;
 }
 
-// May the ray o + t d meet the ball (g, R) at some t > 0, and where does it
-// enter it (clamped at 0)? The group test of both grouped sweeps: the root
-// form of the sphere test with no far clip, on the sweep's hoisted terms.
-// A member sphere lies inside its group's ball (cull_tables.sphere_groups
-// inflates R by 0.1% + 1e-3), so in exact arithmetic a ray that meets a member
-// meets the ball no later. In float32 both tests carry the rounding of the
-// hoisted quadratic, which grows with the square of the origin's distance from
-// the scene (a bounce ray can start hundreds of units away on the ground
-// plane): about 1e-7 (b^2 + 4 a |terms of c|) in the discriminant, so a member
-// test can report a hit for a ray that passes the sphere at a distance that
-// R's fixed slack does not cover. The ball test therefore widens its own
-// discriminant by `tol`, 32 float32 epsilons of the magnitudes that went into
-// it, and moves the entry point toward the origin by the matching distance;
-// near the scene that widens a ball by ~1e-3 of a unit and moves its entry by
-// a few 1e-2, which costs the cull next to nothing.
-struct BallTest {
-  bool may;
-  float entry;
+// --- the bounce tree's slab test ----------------------------------------------
+//
+// A box is skipped only where no member sphere can be reported by the sphere
+// tests above (hit_sphere, sphere_occludes in both forms) as they compute it
+// in float32, for any ray, bounce origins far out on the ground plane
+// included. Let u = 2^-24 and S = |o| + reach >= |o| + |c| + r for every
+// member (the ray's `s` below; |d| = 1 within a few u). The tests form b =
+// 2(o.d - c.d) and c = o.o - 2 o.c + c.c - r^2 from hoisted dot products, so
+// their rounding grows with |o|^2 + |c|^2, not with |o - c|^2. Counting each
+// operation once (a dot3: 3 roundings of its terms' magnitude; the sums; 4ac;
+// the discriminant's fma): |b - B| <= 8uS, |c - C| <= 5uS^2, and the computed
+// discriminant lies within 76uS^2 of the exact D = 4a(r^2 - rho^2), rho the
+// distance from the center to the ray's line. So a reported hit (disc >= 0)
+// has rho^2 <= r^2 + 19uS^2 (1 + 4u): the line passes within r + sqrt(19u) S of
+// the center. The sqrt-free shadow test accepts a point o + tc d (tc in [0,
+// FAR] in compat, >= 0 in clean) whose exact squared distance from the center
+// exceeds r^2 by at most 22uS^2 (cterm's 5uS^2, tc (2g - a tc)'s 17uS^2, with
+// tc <= S). Both margins are below delta = 1.5e-3 S (sqrt(22u) = 1.15e-3; the
+// rest covers the rounding of delta, of S and of the planes lo - o - delta,
+// at most u(S + delta) each): every point of a member that a test can report
+// lies in the member's box grown by delta on every side. The boxes' own
+// inflation (r 1.001 + 1e-3, rounded outward) only adds to that.
+//
+// Along the ray: the computed roots are (-b -+ sq) / 2a with |b - B| / 2a <=
+// 4uS and sq <= sqrt(D + E)(1 + u), E = 76uS^2, whose exact counterpart is
+// the chord of a ball of radius sqrt(r^2 + E / 4a) inside the grown box; 1/2a
+// and the product add 2u|t|. So the reported t (the near root, or the far one
+// where the near one is <= 0, never less than the near one) is >= T0 - 5uS -
+// 3u|T0|, T0 the grown box's exact entry, and num_far > 0 implies that the
+// exact exit T1 > -5uS. The slab t's, fma(lo, 1/d, (-o - delta) / d) and the
+// like, are (lo + (-o - delta)(1 + e1)) (1/d)(1 + e2)(1 + e3), |e| <= u: the
+// first factor moves the plane by at most u(|o| + delta), which delta covers,
+// and the rest keeps them within 3u|T| of their exact values. So with w =
+// 2^-20 = 16u, t0' = t0 - (|t0| + S) w <=
+// T0 - 5uS - 3u|T0| and t1' = t1 + (|t1| + S) w >= T1 + 5uS, and a box may hold
+// a reported hit only if t0' <= t1', t1' >= 0 and t0' <= the running winner's
+// t (a closest hit: a member's t is >= t0'), or t0' <= FAR (a compat shadow
+// ray). The operations are pinned (fa / fm / ff) like the rest of the file.
+//
+// 1/d is clamped to +-2^64, so no slab product can overflow (for |o| + reach
+// < 2^60) and no infinity or NaN ever reaches the slab t's: with a clamp at
+// FLT_MAX, d = 0 made (-o - delta) / d infinite wherever |o -+ delta| > 1, so
+// both planes of that axis summed to one infinity and every box was dropped
+// (a ground bounce keeps a primary ray's exact 0, a shadow ray gets one where
+// P_x == light_x). Where |d| >= 2^-64 the argument above holds as it stands.
+// Where |d| < 2^-64 (0 and subnormals included) the slope is 2^64 (a power of
+// two, so the products are exact), which shrinks that axis's interval from
+// (plane - o) / d to (plane - o) 2^64 but cuts off nothing: a reported point
+// lies within S (1 + 2e-3) of o along the ray, so on this axis within S 2^-64
+// of o's coordinate, and inside the member's box grown by the margins above
+// (< 1.2e-3 S); so o lies inside the slab grown by delta with at least 2e-4 S
+// to spare, and the clamped interval reaches 2e-4 S 2^64 >> S on both sides
+// of t = 0. Where o is not inside it so, no member can report a hit at all.
+struct BoxRay {
+  float lx, ly, lz;   // (-o - delta) / d: lo / d + this is the lower plane's t
+  float hx, hy, hz;   // (-o + delta) / d
+  float ix, iy, iz;   // 1/d, clamped to +-2^64
+  float s;            // |o| + reach
 };
 
-__device__ __forceinline__ BallTest ball_test(float gx, float gy, float gz, float gr,
-                                              float ox, float oy, float oz, float dx,
-                                              float dy, float dz, float a, float inv2a,
-                                              float od, float oo) {
-  const float cd = dot3(gx, gy, gz, dx, dy, dz);
-  const float oc = dot3(gx, gy, gz, ox, oy, oz);
-  const float gg = dot3(gx, gy, gz, gx, gy, gz);
-  const float c = fa(ff(-2.0f, oc, oo), ff(-gr, gr, gg));
-  const float b = fm(2.0f, fs(od, cd));
-  const float disc = ff(b, b, -fm(fm(4.0f, a), c));
-  const float bb = fm(2.0f, fa(fabsf(od), fabsf(cd)));
-  const float mag = ff(bb, bb, fm(fm(4.0f, a), fa(fa(oo, fm(2.0f, fabsf(oc))), ff(gr, gr, gg))));
-  const float tol = fm(3.8e-6f, mag);                 // 32 * 2^-23
-  const float wide = fa(disc, tol);
-  const float sq = sqrtf(fmaxf(wide, 0.0f));
-  const float reach = fa(sq, sqrtf(tol));
-  return {wide >= 0.0f && fa(-b, reach) > 0.0f, fmaxf(fm(fs(-b, reach), inv2a), 0.0f)};
+__device__ __forceinline__ float slab_inv(float d) {
+  constexpr float CLAMP = 18446744073709551616.0f;   // 2^64
+  return fminf(fmaxf(1.0f / d, -CLAMP), CLAMP);
 }
 
-// Bounce closest hit over the Morton groups (_grouped_sphere_fold): a group
-// is swept only if the ray meets its ball at a positive t (root form, no far
-// clip: a member hit at any positive t implies it) and enters it before the
-// running winner (a member's t is >= the ball's entry t, and the winner test
-// is strict). The TPU kernel tests a whole tile's rays and sweeps a group if
-// any lane needs it; here each thread decides for its own ray, which is the
-// same test on fewer rays: lanes of a warp that skip a group wait for those
-// that sweep it, and no warp vote is needed (in AA_SHARED's last pass of the
+__device__ __forceinline__ BoxRay box_ray(float ox, float oy, float oz, float dx, float dy,
+                                          float dz, float reach) {
+  BoxRay q;
+  q.s = fa(sqrtf(dot3(ox, oy, oz, ox, oy, oz)), reach);
+  const float delta = fm(1.5e-3f, q.s);
+  q.ix = slab_inv(dx); q.iy = slab_inv(dy); q.iz = slab_inv(dz);
+  q.lx = fm(fs(-ox, delta), q.ix); q.ly = fm(fs(-oy, delta), q.iy);
+  q.lz = fm(fs(-oz, delta), q.iz);
+  q.hx = fm(fa(-ox, delta), q.ix); q.hy = fm(fa(-oy, delta), q.iy);
+  q.hz = fm(fa(-oz, delta), q.iz);
+  return q;
+}
+
+struct Span {
+  float t0, t1;   // widened entry and exit of the grown box
+};
+
+__device__ __forceinline__ Span box_span(const BoxRay& q, const float* b) {
+  constexpr float W = 9.5367431640625e-7f;   // 2^-20
+  const float ax = ff(b[0], q.ix, q.lx), bx = ff(b[3], q.ix, q.hx);
+  const float ay = ff(b[1], q.iy, q.ly), by = ff(b[4], q.iy, q.hy);
+  const float az = ff(b[2], q.iz, q.lz), bz = ff(b[5], q.iz, q.hz);
+  const float t0 = fmaxf(fmaxf(fminf(ax, bx), fminf(ay, by)), fminf(az, bz));
+  const float t1 = fminf(fminf(fmaxf(ax, bx), fmaxf(ay, by)), fmaxf(az, bz));
+  return {ff(-W, fa(fabsf(t0), q.s), t0), ff(W, fa(fabsf(t1), q.s), t1)};
+}
+
+// May a member of the box beat the running winner at t_max (closest hit), or
+// block a shadow ray (t_max = FAR in compat, BIG in clean)?
+__device__ __forceinline__ bool visit(const Span& sp, float t_max) {
+  return sp.t0 <= sp.t1 && sp.t1 >= 0.0f && sp.t0 <= t_max;
+}
+
+// Bounce closest hit over the tree (the JAX package's _grouped_sphere_fold
+// answers the same query with Morton groups of 16 under a ball each): parents
+// in Morton order, then a parent's leaves, then a leaf's members through
+// hit_sphere. A node is skipped if the ray misses its box or enters it after
+// the running winner (visit). The winner is the least (t, sphere index)
+// (hit_sphere<true>), which the full sweep's strict `<` in ascending order
+// also finds, so no visit order can move a tie: the result is the full
+// sweep's, bits and index. Pad slots repeat a real member, whose second visit
+// changes nothing. The TPU kernel tests a whole tile's rays and sweeps a group
+// if any lane needs it; here each thread decides for its own ray, which is the
+// same test on fewer rays: lanes of a warp that skip a node wait for those
+// that take it, and no warp vote is needed (in AA_SHARED's last pass of the
 // sample loop only part of a warp is active, where a full-mask vote would be
-// undefined). Sweeping in Morton order moves exact-tie winners only. All
-// GROUP slots of a group are swept: the pad slots of the one partial group
-// repeat sphere 0 (its own hit, which a second visit cannot change), and the
-// front-to-back group order can put that group anywhere, so masking "slots
-// past ns" would drop real members.
+// undefined).
 template <bool COMPAT>
-__device__ __forceinline__ Hit closest_hit_grouped(const SceneView& s, const Ray& ray,
-                                                   const Tables& tb) {
+__device__ __forceinline__ Hit closest_hit_tree(const SceneView& s, const Ray& ray,
+                                                const Tables& tb) {
   Hit h = no_hit<COMPAT>();
   const HitSweep w = hit_sweep(ray);
-  for (int g = 0; g < tb.G; ++g) {
-    const float gx = tb.bnd[4 * g], gy = tb.bnd[4 * g + 1], gz = tb.bnd[4 * g + 2];
-    const float gr = tb.bnd[4 * g + 3];
-    const BallTest q = ball_test(gx, gy, gz, gr, w.ox, w.oy, w.oz, w.dx, w.dy, w.dz,
-                                 w.a, w.inv2a, w.od, w.oo);
-    if (q.may && q.entry < h.t) {
-      for (int k = g * GROUP; k < (g + 1) * GROUP; ++k) hit_sphere(s, w, tb.perm[k], h);
+  const BoxRay q = box_ray(ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, tb.box[0]);
+  const int n_par = tree_parents(tb.n_leaves);
+  const float* pbox = tb.box + 1;
+  const float* lbox = pbox + 6 * n_par;
+  for (int p = 0; p < n_par; ++p) {
+    if (!visit(box_span(q, pbox + 6 * p), h.t)) continue;
+    const int l1 = min((p + 1) * FAN, tb.n_leaves);
+    for (int l = p * FAN; l < l1; ++l) {
+      if (!visit(box_span(q, lbox + 6 * l), h.t)) continue;
+#pragma unroll
+      for (int k = 0; k < LEAF; ++k) hit_sphere<true>(s, w, tb.perm[l * LEAF + k], h);
     }
   }
   hit_planes<COMPAT>(s, w, h);
@@ -501,7 +647,7 @@ __device__ __forceinline__ bool planes_occlude(const SceneView& s, const ShadowS
 }
 
 // Does sphere j block the shadow ray? One body for every shadow sweep (full,
-// listed, grouped).
+// listed, tree).
 template <bool COMPAT, bool CHEAP>
 __device__ __forceinline__ bool sphere_occludes(const SceneView& s, const ShadowSweep& w,
                                                 int j) {
@@ -554,24 +700,29 @@ __device__ __forceinline__ bool occluded_listed(const SceneView& s, float ox, fl
   return false;
 }
 
-// Bounce shadow ray over the Morton groups (_any_hit_multi_grouped): a group
-// is swept only if the ray meets its ball at a positive t and, in compat,
-// enters it before FAR (a member's occluding t is >= the entry t). Per thread,
-// as in closest_hit_grouped.
+// Bounce shadow ray over the tree (_any_hit_multi_grouped): a box is
+// skipped if the ray misses it or, in compat, enters it beyond FAR (a member's
+// occluding t is >= the box's widened entry). Per thread, as in
+// closest_hit_tree; the first occluder ends the sweep.
 template <bool COMPAT, bool CHEAP>
-__device__ __forceinline__ bool occluded_grouped(const SceneView& s, float ox, float oy,
-                                                 float oz, float dx, float dy, float dz,
-                                                 const Tables& tb) {
+__device__ __forceinline__ bool occluded_tree(const SceneView& s, float ox, float oy,
+                                              float oz, float dx, float dy, float dz,
+                                              const Tables& tb) {
   const ShadowSweep w = shadow_sweep(ox, oy, oz, dx, dy, dz);
   if (planes_occlude<COMPAT>(s, w)) return true;
-  for (int g = 0; g < tb.G; ++g) {
-    const float gx = tb.bnd[4 * g], gy = tb.bnd[4 * g + 1], gz = tb.bnd[4 * g + 2];
-    const float gr = tb.bnd[4 * g + 3];
-    const BallTest q = ball_test(gx, gy, gz, gr, ox, oy, oz, dx, dy, dz, w.a, w.inv2a,
-                                 w.od, w.oo);
-    if (q.may && (!COMPAT || q.entry < FAR)) {
-      for (int k = g * GROUP; k < (g + 1) * GROUP; ++k) {
-        if (sphere_occludes<COMPAT, CHEAP>(s, w, tb.perm[k])) return true;
+  const BoxRay q = box_ray(ox, oy, oz, dx, dy, dz, tb.box[0]);
+  const float t_max = COMPAT ? FAR : BIG;
+  const int n_par = tree_parents(tb.n_leaves);
+  const float* pbox = tb.box + 1;
+  const float* lbox = pbox + 6 * n_par;
+  for (int p = 0; p < n_par; ++p) {
+    if (!visit(box_span(q, pbox + 6 * p), t_max)) continue;
+    const int l1 = min((p + 1) * FAN, tb.n_leaves);
+    for (int l = p * FAN; l < l1; ++l) {
+      if (!visit(box_span(q, lbox + 6 * l), t_max)) continue;
+#pragma unroll
+      for (int k = 0; k < LEAF; ++k) {
+        if (sphere_occludes<COMPAT, CHEAP>(s, w, tb.perm[l * LEAF + k])) return true;
       }
     }
   }
@@ -650,7 +801,7 @@ __device__ __forceinline__ Ray bounce_ray(const Surface& f, float rx, float ry, 
 
 // Closest hit -> normal-biased hit point, unit normal and albedo. With
 // TABLES, the primary ray (level 0) sweeps the tile's cone-visible list and a
-// bounce ray the Morton groups (where the scene has them); without, and for a
+// bounce ray the bounce tree (where the scene has one); without, and for a
 // table that is off, every ray sweeps every sphere. The hit-extent kernel
 // (hit_extents.cu) calls this same function, so its hit points are the
 // render kernel's level-0 shadow-ray origins.
@@ -661,7 +812,7 @@ __device__ __forceinline__ Surface primary_geometry(const SceneView& s, const Ra
   if (primary) {
     return surface<COMPAT>(ray, closest_hit_listed<COMPAT>(s, ray, tb.vis, tb.vis_n));
   }
-  if (tb.G > 0) return surface<COMPAT>(ray, closest_hit_grouped<COMPAT>(s, ray, tb));
+  if (tb.n_leaves > 0) return surface<COMPAT>(ray, closest_hit_tree<COMPAT>(s, ray, tb));
   return surface<COMPAT>(ray, closest_hit<COMPAT>(s, ray));
 }
 
@@ -669,7 +820,7 @@ __device__ __forceinline__ Surface primary_geometry(const SceneView& s, const Ra
 // Lambert over unoccluded lights (+ Phong in clean mode), and the next
 // mirror ray. A miss returns black with alive = false and no next ray. With
 // TABLES, level-0 shadow rays sweep the tile's occluder lists and bounce
-// shadow rays the Morton groups.
+// shadow rays the bounce tree.
 template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
                                           const Tables& tb, bool primary) {
@@ -694,8 +845,8 @@ __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
     if (TABLES && primary && tb.sh_n != nullptr) {
       occ = occluded_listed<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz,
                                            tb.sh + l * tb.sh_k, tb.sh_n[l]);
-    } else if (TABLES && !primary && tb.G > 0) {
-      occ = occluded_grouped<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb);
+    } else if (TABLES && !primary && tb.n_leaves > 0) {
+      occ = occluded_tree<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb);
     } else {
       occ = occluded<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz);
     }

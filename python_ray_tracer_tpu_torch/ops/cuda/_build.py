@@ -4,9 +4,13 @@ The ``.cu`` sources are compiled with ``nvcc``, one process per source, all
 started together, and linked into one shared library with a plain C interface,
 bound with ``ctypes`` (no PyTorch headers, so a build takes seconds). The
 library name carries a hash of the sources and flags: a source change builds a
-new library, and an ``flock`` keeps concurrent processes from building the same
-one twice. Nothing is built at import; :func:`load_library` builds on first use
-and raises with the compiler's stderr if it cannot.
+new library, and an ``flock`` a library keeps concurrent processes from
+building the same one twice. Nothing is built at import; :func:`load_library`
+builds on first use and raises with the compiler's stderr if it cannot, or if
+the library's bounce-tree shape is not ``cull_tables.LEAF`` / ``FAN``.
+:func:`build` also takes a subset of the sources and extra ``-D`` flags, for
+``chip_smoke.py``'s kernels of other tree shapes; the package loads only the
+default library.
 """
 from __future__ import annotations
 
@@ -43,34 +47,42 @@ def find_nvcc() -> str:
                        "the CUDA kernels cannot be built")
 
 
-def _sources():
+def _sources(names=None):
     srcs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     hdrs = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    if names is not None:
+        srcs = [os.path.join(CSRC_DIR, n) for n in names]
+        missing = [p for p in srcs if not os.path.isfile(p)]
+        if missing:
+            raise RuntimeError(f"no such CUDA sources: {missing}")
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
     return srcs, hdrs
 
 
-def library_path() -> str:
-    """Where the library for the current sources and flags lives."""
-    srcs, hdrs = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(sources=None, defines=()) -> str:
+    """Where the library for the current sources and flags lives (``sources``:
+    file names under csrc/, default all; ``defines``: extra nvcc flags)."""
+    srcs, hdrs = _sources(sources)
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for p in srcs + hdrs:
         with open(p, "rb") as f:
             h.update(os.path.basename(p).encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"librt_kernels_{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
+def build(sources=None, defines=()) -> str:
     """Compile the kernels if the library for the current sources is missing.
-    Returns its path; raises ``RuntimeError`` with nvcc's stderr on failure."""
-    so = library_path()
+    Returns its path; raises ``RuntimeError`` with nvcc's stderr on failure.
+    ``sources`` and ``defines`` as for :func:`library_path`."""
+    so = library_path(sources, defines)
     if os.path.isfile(so):
         return so
     nvcc = find_nvcc()
-    srcs, _ = _sources()
+    srcs, _ = _sources(sources)
+    flags = (*NVCC_FLAGS, *defines)
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lockf:
+    with open(f"{so}.lock", "w") as lockf:
         fcntl.flock(lockf, fcntl.LOCK_EX)
         if os.path.isfile(so):       # built by another process while we waited
             return so
@@ -79,14 +91,14 @@ def build() -> str:
         try:
             procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.PIPE, text=True))
-                     for cmd in ([nvcc, *NVCC_FLAGS, "-I", CSRC_DIR, "-c", "-o",
+                     for cmd in ([nvcc, *flags, "-I", CSRC_DIR, "-c", "-o",
                                   obj, src] for src, obj in zip(srcs, objs))]
             results = [(cmd, p, *p.communicate()) for cmd, p in procs]
             for cmd, p, _, err in results:
                 if p.returncode != 0:
                     raise RuntimeError(f"nvcc failed (rc {p.returncode}): "
                                        f"{' '.join(cmd)}\n{err}")
-            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+            cmd = [nvcc, *flags, "-shared", "-o", tmp, *objs]
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
@@ -99,41 +111,52 @@ def build() -> str:
     return so
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the signature of every C entry point that ``lib`` holds."""
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    tables = [vp, vp, ci, vp, vp, ci, vp, vp, ci]   # the two lists, the tree
+    sigs = {
+        "rt_render_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci, ci,
+                               *tables, vp]),
+        "rt_render_list": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci, vp, ci, ci, ci, ci,
+                                ci, ci, *tables, vp]),
+        "rt_tree_shape": (None, [ctypes.POINTER(ci), ctypes.POINTER(ci)]),
+        "rt_hit_extents": (ci, [vp, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, vp, vp, ci, vp,
+                                vp, ci, vp]),
+        "rt_render_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                               ci, ci, ci, ci, vp]),
+        "rt_reduce_rows": (ci, [vp, ci, ci, vp, vp]),
+        "rt_soft_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, vp]),
+        "rt_soft_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, vp, ci, ci, ci, ci, ci, ci,
+                             ci, ci, ci, vp]),
+        "rt_soft_bwd_smem": (ctypes.c_longlong, [ci] * 8),
+        "rt_soft_bwd_attrs": (ci, [vp, vp]),
+        "rt_error_string": (ctypes.c_char_p, [ci]),
+    }
+    for name, (res, args) in sigs.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.restype, fn.argtypes = res, args
+    return lib
+
+
+def tree_shape(lib: ctypes.CDLL):
+    """``(leaf, fan)``: the bounce-tree shape ``lib``'s kernels were built for."""
+    leaf, fan = ctypes.c_int(), ctypes.c_int()
+    lib.rt_tree_shape(ctypes.byref(leaf), ctypes.byref(fan))
+    return leaf.value, fan.value
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C entry
     point's signature declared."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.rt_render_fwd.restype = ci
-            lib.rt_render_fwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp,
-                                          ci, ci, ci, ci, ci, ci, ci,
-                                          vp, vp, ci, vp, vp, ci, vp, vp, ci, vp]
-            lib.rt_render_list.restype = ci
-            lib.rt_render_list.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci, vp,
-                                           ci, ci, ci, ci, ci, ci, vp]
-            lib.rt_hit_extents.restype = ci
-            lib.rt_hit_extents.argtypes = [vp, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci,
-                                           vp, vp, ci, vp, vp, ci, vp]
-            lib.rt_render_bwd.restype = ci
-            lib.rt_render_bwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, vp, vp,
-                                          vp, ci, ci, ci, ci, ci, ci, ci, ci,
-                                          ci, vp]
-            lib.rt_reduce_rows.restype = ci
-            lib.rt_reduce_rows.argtypes = [vp, ci, ci, vp, vp]
-            cf = ctypes.c_float
-            lib.rt_soft_fwd.restype = ci
-            lib.rt_soft_fwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, vp]
-            lib.rt_soft_bwd.restype = ci
-            lib.rt_soft_bwd.argtypes = [vp, vp, ci, vp, ci, vp, ci, cf, vp, vp, ci, ci,
-                                        ci, ci, ci, ci, ci, ci, ci, vp]
-            lib.rt_soft_bwd_smem.restype = ctypes.c_longlong
-            lib.rt_soft_bwd_smem.argtypes = [ci] * 8
-            lib.rt_soft_bwd_attrs.restype = ci
-            lib.rt_soft_bwd_attrs.argtypes = [vp, vp]
-            lib.rt_error_string.restype = ctypes.c_char_p
-            lib.rt_error_string.argtypes = [ci]
+            from .cull_tables import FAN, LEAF
+            lib = declare(ctypes.CDLL(build()))
+            if tree_shape(lib) != (LEAF, FAN):
+                raise RuntimeError(f"kernel library built for bounce-tree shape "
+                                   f"{tree_shape(lib)}, cull_tables has {(LEAF, FAN)}")
             _lib = lib
         return _lib

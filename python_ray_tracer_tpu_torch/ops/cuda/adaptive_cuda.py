@@ -4,15 +4,17 @@
 Counterpart of ``python_ray_tracer_tpu/ops/pallas/render_adaptive.py``
 ``render_image_adaptive`` (TPU kernel ``_make_list_kernel``). A frame is:
 
-  1. the centers pass: :func:`render_cuda.render_packed` in mode ``aa_none``,
-     with the large-scene tables and the hit-extent kernel above
-     ``CULL_MIN_SPHERES`` spheres, as ``render_image_cuda(aliasing=False)``;
+  1. the large-scene tables above ``CULL_MIN_SPHERES`` spheres
+     (:func:`render_cuda.large_scene_tables`, with the hit-extent kernel over
+     the AA lattice), then the centers pass: :func:`render_cuda.render_packed`
+     in mode ``aa_none`` on those tables (the AA lattice's shadow lists hold
+     the centers' ones, so its frame is ``render_image_cuda(aliasing=False)``'s);
   2. the glue, PyTorch ops on the card (``ops/adaptive.py``): the stored to
      (r, g, b) channel swap under compat, the curvature flags, the tent image
      and the static-budget compaction (a cumulative sum and a binary search:
      no host sync, the flagged count stays on the device);
-  3. one launch of the worklist kernel, which writes the 9-sample average of
-     each listed pixel into the tent image in place.
+  3. one launch of the worklist kernel on the same tables, which writes the
+     9-sample average of each listed pixel into the tent image in place.
 
 The TPU design traced a list of fractional sample coordinates into a sample
 buffer and scattered the combined rows with XLA; here each thread of the
@@ -40,7 +42,7 @@ def reset_launch_counts() -> None:
 
 
 def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat: bool,
-                cheap_shadow: bool) -> torch.Tensor:
+                cheap_shadow: bool, vis=None, shadow=None, tree=None) -> torch.Tensor:
     """Launch the worklist kernel on the current stream: for each of the first
     ``min(flagged, len(idx))`` slots of ``idx`` (int32 flat indices ``x * H +
     y``), write that pixel's 9-sample AA average into ``out (W, H, 3)`` (the
@@ -48,9 +50,13 @@ def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat
     :func:`render_cuda.packed_inputs` returns them; ``flagged`` an int32
     tensor of one element on the same device, read by the kernel. A scene of
     more than ``CULL_MIN_SPHERES`` spheres runs the large-scene instantiation
-    (the pinned arithmetic, every sweep full). Counts the launch in
+    (the pinned arithmetic), which takes ``vis``, ``shadow`` and ``tree`` as
+    :func:`render_cuda.large_scene_tables` returns them for ``aliasing=True``
+    (checked here; each None sweeps all spheres). Counts the launch in
     :data:`LAUNCHES`."""
     from ._build import load_library
+    from .hit_extents_cuda import check_tables, table_args
+    from .cull_tables import tile_grid
     dev = out.device
     if out.dtype != torch.float32 or out.dim() != 3 or out.shape[2] != 3 or \
             not out.is_contiguous():
@@ -67,10 +73,13 @@ def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat
     lib = load_library()
     W, H = out.shape[0], out.shape[1]
     (sph, pln, lts), (ns, npl, nl) = tables, counts
+    n_tx, n_ty = tile_grid(W, H)
+    check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=dev)
+    v, sh, g = table_args(vis, shadow, tree)
     rc = lib.rt_render_list(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
         idx.data_ptr(), flagged.data_ptr(), idx.numel(), out.data_ptr(), W, H, depth,
-        int(compat), int(cheap_shadow), int(ns > render_cuda.CULL_MIN_SPHERES),
+        int(compat), int(cheap_shadow), int(ns > render_cuda.CULL_MIN_SPHERES), *v, *sh, *g,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"worklist kernel failed: CUDA error {rc} "
@@ -82,16 +91,20 @@ def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat
 def worklist_inputs(camera, scene, *, depth: int, compat: bool, eps: float,
                     budget_frac: float):
     """The adaptive frame's steps before the worklist launch, on CUDA inputs:
-    ``(packed, tent, idx, flagged, dropped)``, the :func:`render_cuda.
-    packed_inputs`, the tent image, the K-slot worklist and the two counts
-    (device tensors). Runs the centers pass (the render kernel in mode
-    ``aa_none``) and the glue ops."""
+    ``(packed, tabs, tent, idx, flagged, dropped)``, the :func:`render_cuda.
+    packed_inputs`, the large-scene tables ``(vis, shadow, tree)`` (built once,
+    for the AA lattice, and taken by both launches), the tent image, the
+    K-slot worklist and the two counts (device tensors). Runs the centers pass
+    (the render kernel in mode ``aa_none``) and the glue ops."""
     packed = render_cuda.packed_inputs(camera, scene, depth=depth, compat=compat)
     W, H = camera.resolution
+    with torch.cuda.device(packed[0].device):
+        tabs = render_cuda.large_scene_tables(camera, scene, depth=depth, aliasing=True,
+                                              compat=compat, packed=packed)
     centers = render_cuda.render_packed(camera, scene, packed, depth=depth, mode="aa_none",
-                                        compat=compat)
-    return (packed, *tent_and_worklist(stored_to_rgb(centers, compat), compat=compat,
-                                       eps=eps, K=budget_slots(W, H, budget_frac)))
+                                        compat=compat, tabs=tabs)
+    return (packed, tabs, *tent_and_worklist(stored_to_rgb(centers, compat), compat=compat,
+                                             eps=eps, K=budget_slots(W, H, budget_frac)))
 
 
 def render_image_adaptive_cuda(camera, scene, *, depth: int = 2, compat: bool = True,
@@ -110,11 +123,12 @@ def render_image_adaptive_cuda(camera, scene, *, depth: int = 2, compat: bool = 
         return render_image_adaptive_plain(camera, scene, depth=depth, compat=compat,
                                            eps=eps, budget_frac=budget_frac,
                                            with_stats=with_stats)
-    packed, out, idx, flagged, dropped = worklist_inputs(
+    packed, (vis, shadow, tree), out, idx, flagged, dropped = worklist_inputs(
         camera, scene, depth=depth, compat=compat, eps=eps, budget_frac=budget_frac)
     with torch.cuda.device(out.device):
         launch_list(out, *packed, idx, flagged, depth=depth, compat=compat,
-                    cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat))
+                    cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat), vis=vis,
+                    shadow=shadow, tree=tree)
     if with_stats:
         return out, {"flagged": flagged, "dropped": dropped}
     return out

@@ -6,13 +6,19 @@ outside any kernel there and stay plain tensor code here (they run on the
 device of their inputs; dot products are multiply-and-sum, never a matmul):
 
   * :func:`sphere_groups` (``_sphere_groups``, ``_morton30``): Morton-ordered
-    groups of 16 spheres with a bounding ball each, for bounce sweeps;
+    groups of spheres with a bounding ball each; the kernels' bounce sweeps
+    take its order, under :func:`bounce_tree`'s boxes instead of its balls;
   * :func:`tile_visibility` (``_tile_visibility``): per render tile, the
     spheres whose ball meets the cone around the tile's primary rays;
   * :func:`shadow_visibility_lists` (``_shadow_visibility_lists``): per (tile,
     light), the spheres that can block a shadow ray from the tile's hit box
     (a row of the hit-extent kernel, ``hit_extents_cuda``) toward the light or
-    beyond it.
+    beyond it;
+  * :func:`bounce_tree` (no JAX counterpart): the bounce sweeps' two-level
+    box tree over the Morton order, with :func:`tree_closest_hit_plain` and
+    :func:`tree_occluded_plain`, plain traversals that mirror the kernels'
+    (``csrc/rt_common.cuh`` ``closest_hit_tree``, ``occluded_tree``) and are
+    the tests' reference, used by nothing on the card path.
 
 A tile is one 16x16 block of ``csrc/render_fwd_kernel.cuh``; tile ``(tx, ty)`` covers
 pixels ``x in [16 tx, 16 tx + 16)``, ``y in [16 ty, 16 ty + 16)`` and has id
@@ -29,12 +35,26 @@ capacity policy answers its SMEM limits).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from ..intersect import FAR, _dot
+from ..intersect import BIG, FAR, _dot
 
 TILE = 16          # pixels a side of a render tile (csrc/render_fwd_kernel.cuh TILE)
-GROUP_SIZE = 16    # spheres a Morton group (csrc/rt_common.cuh GROUP)
+GROUP_SIZE = 16    # spheres a Morton group of the JAX package's _sphere_groups
+# The bounce tree's shape, spheres a leaf and leaves a parent: mirrors of
+# csrc/rt_common.cuh LEAF and FAN, compile-time constants of the kernels
+# (fixed from the sweep of chip_smoke.py's [tree-sweep] at 1000 spheres; see
+# PERF.md).
+LEAF = 4
+FAN = 8
+# csrc/rt_common.cuh box_ray / box_span: the grown box's margin a unit of
+# S = |o| + reach, the slab t's relative and absolute widening, and the clamp
+# of the slab slope 1/d.
+SLAB_DELTA = 1.5e-3
+SLAB_W = 2.0 ** -20
+SLAB_INV_CLAMP = 2.0 ** 64
 
 
 def tile_grid(width: int, height: int, tile: int = TILE):
@@ -229,3 +249,203 @@ def shadow_visibility_lists(ext, lights, centers, radii, *, K: int, compat: bool
     values = order if to_sorted is None else to_sorted.to(order.device).long()[order]
     return _compact(keep.reshape(T * nl, ns),
                     values[None].expand(T, nl, ns).reshape(T * nl, ns), K)
+
+
+class BounceTree(NamedTuple):
+    """The bounce sweeps' tree as the kernels take it (csrc/rt_common.cuh
+    ``Tables``): ``perm (n_leaves * LEAF,)`` int32, the spheres in Morton
+    order, leaf ``l`` holding slots ``[l * LEAF, (l + 1) * LEAF)``; ``box``
+    float32, ``reach`` (the largest ``|c| + r``, rounded up), then the
+    parents' boxes, then the leaves', 6 floats each (lo xyz, hi xyz); parent
+    ``p`` covers leaves ``[p * FAN, min((p + 1) * FAN, n_leaves))``. A tree
+    built with another ``leaf`` / ``fan`` (:func:`bounce_tree`'s keywords)
+    has ``perm.numel() // n_leaves`` slots a leaf."""
+    perm: torch.Tensor
+    box: torch.Tensor
+    n_leaves: int
+
+
+def tree_box_words(n_leaves: int, fan: int = FAN) -> int:
+    """Floats of a tree's ``box`` (csrc/rt_common.cuh ``tree_box_words``)."""
+    return 1 + 6 * (-(-n_leaves // fan) + n_leaves)
+
+
+def _outward(x: torch.Tensor, down: bool) -> torch.Tensor:
+    """float64 -> the nearest float32 on the outer side (below for ``down``)."""
+    f = x.to(torch.float32)
+    off = f.double() > x if down else f.double() < x
+    return torch.where(off, torch.nextafter(f, torch.full_like(f, -BIG if down else BIG)), f)
+
+
+def bounce_tree(centers, radii, leaf: int = LEAF, fan: int = FAN) -> BounceTree:
+    """The two-level box tree of the kernels' bounce sweeps, with ``leaf``
+    spheres a leaf and ``fan`` leaves a parent (the kernels take the default,
+    :data:`LEAF` and :data:`FAN`; chip_smoke.py's sweep builds kernels for
+    the others).
+
+    The order is :func:`sphere_groups`' Morton permutation (cut into groups of
+    ``leaf``); the pad slots of the last leaf repeat its last real member (a
+    second visit changes no hit), not sphere 0, so its box stays tight. A leaf's
+    box bounds its member balls inflated as the groups' balls are (``r * 1.001
+    + 1e-3``), in float64 and rounded outward to float32; a parent's box is
+    the min / max of its leaves' boxes (exact). ``reach`` bounds ``|c| + r``
+    from above; the kernels' slab test grows every box by ``1.5e-3 (|o| +
+    reach)`` for a ray from ``o`` (rt_common.cuh derives it). Plain tensor ops
+    on the inputs' device, no host sync."""
+    ns = centers.shape[0]
+    if ns < 1 or leaf < 1 or fan < 1:
+        raise ValueError(f"bounce_tree: {ns} spheres, leaf {leaf}, fan {fan}")
+    n_leaves = -(-ns // leaf)
+    perm = sphere_groups(centers, radii, group_size=leaf)[0].long()
+    perm[ns:] = perm[ns - 1]
+    c = centers.double()[perm].reshape(n_leaves, leaf, 3)
+    r = (radii.double()[perm] * 1.001 + 1e-3).reshape(n_leaves, leaf, 1)
+    lo = _outward((c - r).amin(dim=1), down=True)
+    hi = _outward((c + r).amax(dim=1), down=False)
+    n_par = -(-n_leaves // fan)
+    pad = n_par * fan - n_leaves
+    lo_p = torch.cat([lo, lo[-1:].expand(pad, 3)]).reshape(n_par, fan, 3).amin(dim=1)
+    hi_p = torch.cat([hi, hi[-1:].expand(pad, 3)]).reshape(n_par, fan, 3).amax(dim=1)
+    reach = _outward((torch.sqrt(_dot(centers.double(), centers.double())) +
+                      radii.double()).amax()[None], down=False)
+    box = torch.cat([reach, torch.cat([lo_p, hi_p], dim=1).reshape(-1),
+                     torch.cat([lo, hi], dim=1).reshape(-1)])
+    return BounceTree(perm.to(torch.int32), box.contiguous(), n_leaves)
+
+
+def _tree_shape(tree: BounceTree, fan: int):
+    """``(leaf, n_parents)`` of a tree built with ``fan`` leaves a parent."""
+    leaf = tree.perm.numel() // tree.n_leaves
+    if tree.perm.numel() != tree.n_leaves * leaf or \
+            tree.box.numel() != tree_box_words(tree.n_leaves, fan):
+        raise ValueError(f"bounce tree: {tree.perm.numel()} slots and {tree.box.numel()} "
+                         f"box floats for {tree.n_leaves} leaves, fan {fan}")
+    return leaf, -(-tree.n_leaves // fan)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """float32 ``a * b + c`` with the product exact (in float64, where a
+    product of two floats is exact) and the sum rounded in float64, then to
+    float32: a fused multiply-add but for a rare second rounding."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
+def tree_spans(tree: BounceTree, o: torch.Tensor, d: torch.Tensor):
+    """``(t0, t1)``, each ``(R, n_parents + n_leaves)``: the widened entry and
+    exit of every node's grown box for the rays ``o + t d`` (``(R, 3)``
+    float32), as csrc/rt_common.cuh ``box_ray`` / ``box_span`` compute them,
+    operation for operation: the slope ``1/d`` clamped to +-2^64, the planes'
+    offsets ``(-o -+ delta) / d`` rounded, each plane's t one fma (see
+    :func:`_fma`; a second rounding lies inside the margins the header
+    derives)."""
+    nodes = tree.box[1:].reshape(-1, 6)
+    s = torch.sqrt(_dot(o, o)) + tree.box[0]
+    delta = (SLAB_DELTA * s)[:, None]
+    inv = torch.clamp(1.0 / d, -SLAB_INV_CLAMP, SLAB_INV_CLAMP)
+    lo_off = ((-o - delta) * inv)[:, None, :]
+    hi_off = ((-o + delta) * inv)[:, None, :]
+    a = _fma(nodes[None, :, 0:3], inv[:, None, :], lo_off)
+    b = _fma(nodes[None, :, 3:6], inv[:, None, :], hi_off)
+    t0 = torch.minimum(a, b).amax(dim=-1)
+    t1 = torch.maximum(a, b).amin(dim=-1)
+    return t0 - (t0.abs() + s[:, None]) * SLAB_W, t1 + (t1.abs() + s[:, None]) * SLAB_W
+
+
+def _visit(t0, t1, t_max):
+    return (t0 <= t1) & (t1 >= 0.0) & (t0 <= t_max)
+
+
+def sphere_hits_plain(o, d, centers, radii, *, compat: bool):
+    """``(t, valid)``, each ``(R, ns)``: every sphere's hit as rt_common.cuh
+    ``hit_sphere`` computes it (the hoisted quadratic, nearest positive root,
+    under the far clip in compat), in float32."""
+    a, od, oo = _dot(d, d), _dot(o, d), _dot(o, o)
+    cd = _dot(d[:, None, :], centers[None])
+    oc = _dot(o[:, None, :], centers[None])
+    cc = _dot(centers, centers)
+    b = 2.0 * (od[:, None] - cd)
+    c = (oo[:, None] - 2.0 * oc) + (cc - radii * radii)[None]
+    disc = b * b - (4.0 * a)[:, None] * c
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    near, far = -b - sq, -b + sq
+    t = torch.where(near > 0.0, near, far) * (1.0 / (2.0 * a))[:, None]
+    return t, (disc >= 0.0) & (far > 0.0) & (t < (FAR if compat else BIG))
+
+
+def sphere_occludes_plain(o, d, centers, radii, *, compat: bool, cheap: bool):
+    """``(R, ns)`` bool: does each sphere block each shadow ray, as
+    rt_common.cuh ``sphere_occludes`` decides (``cheap``: the sqrt-free
+    closest-approach test; else the root form under the far clip in compat)."""
+    if not cheap:
+        return sphere_hits_plain(o, d, centers, radii, compat=compat)[1]
+    a, od, oo = _dot(d, d), _dot(o, d), _dot(o, o)
+    cd = _dot(d[:, None, :], centers[None])
+    oc = _dot(o[:, None, :], centers[None])
+    cterm = (oo[:, None] - 2.0 * oc) + (_dot(centers, centers) - radii * radii)[None]
+    g = cd - od[:, None]
+    tc = torch.clamp(g * (1.0 / a)[:, None], min=0.0, max=FAR if compat else None)
+    return cterm <= tc * (2.0 * g - a[:, None] * tc)
+
+
+def tree_closest_hit_plain(tree: BounceTree, o, d, centers, radii, *, compat: bool,
+                           tie: bool = True, fan: int = FAN):
+    """The kernels' tree sweep (``closest_hit_tree``) over spheres only, with
+    plain tensor ops on rays ``(R, 3)``: parents in order, then their leaves,
+    then the members, a node skipped where :func:`tree_spans` says no member
+    can beat the running winner; the winner is the least ``(t, index)`` (with
+    ``tie=False`` a strict ``<`` in visit order, for the tests to show that
+    the rule matters). ``fan``: the tree's leaves a parent. Returns ``(t,
+    obj, boxes, spheres)``: the winner's t (the far clip for none) and index
+    (-1), and the box and sphere tests each ray made."""
+    R = o.shape[0]
+    leaf, n_par = _tree_shape(tree, fan)
+    t_all, ok_all = sphere_hits_plain(o, d, centers, radii, compat=compat)
+    t0, t1 = tree_spans(tree, o, d)
+    h_t = torch.full((R,), FAR if compat else BIG, dtype=torch.float32, device=o.device)
+    h_obj = torch.full((R,), -1, dtype=torch.int64, device=o.device)
+    n_boxes = torch.zeros(R, dtype=torch.int64, device=o.device)
+    n_spheres = torch.zeros_like(n_boxes)
+    perm = tree.perm.long().tolist()
+    for p in range(n_par):
+        vp = _visit(t0[:, p], t1[:, p], h_t)
+        n_boxes += 1
+        for lf in range(p * fan, min((p + 1) * fan, tree.n_leaves)):
+            n_boxes += vp
+            vl = vp & _visit(t0[:, n_par + lf], t1[:, n_par + lf], h_t)
+            for j in perm[lf * leaf:(lf + 1) * leaf]:
+                n_spheres += vl
+                tj = t_all[:, j]
+                wins = tj < h_t
+                if tie:
+                    wins = wins | ((tj == h_t) & (j < h_obj))
+                take = vl & ok_all[:, j] & wins
+                h_t = torch.where(take, tj, h_t)
+                h_obj = torch.where(take, torch.full_like(h_obj, j), h_obj)
+    return h_t, h_obj, n_boxes, n_spheres
+
+
+def tree_occluded_plain(tree: BounceTree, o, d, centers, radii, *, compat: bool,
+                        cheap: bool, fan: int = FAN):
+    """The kernels' tree shadow sweep (``occluded_tree``) over spheres only:
+    ``(occluded (R,) bool, boxes, spheres)``, the box and sphere tests each
+    ray made before its first occluder (or the end). ``fan``: the tree's
+    leaves a parent."""
+    R = o.shape[0]
+    leaf, n_par = _tree_shape(tree, fan)
+    occ_all = sphere_occludes_plain(o, d, centers, radii, compat=compat, cheap=cheap)
+    t0, t1 = tree_spans(tree, o, d)
+    t_max = FAR if compat else BIG
+    occ = torch.zeros(R, dtype=torch.bool, device=o.device)
+    n_boxes = torch.zeros(R, dtype=torch.int64, device=o.device)
+    n_spheres = torch.zeros_like(n_boxes)
+    perm = tree.perm.long().tolist()
+    for p in range(n_par):
+        vp = _visit(t0[:, p], t1[:, p], t_max) & ~occ
+        n_boxes += ~occ
+        for lf in range(p * fan, min((p + 1) * fan, tree.n_leaves)):
+            n_boxes += vp & ~occ
+            vl = vp & ~occ & _visit(t0[:, n_par + lf], t1[:, n_par + lf], t_max)
+            for j in perm[lf * leaf:(lf + 1) * leaf]:
+                n_spheres += vl & ~occ
+                occ = occ | (vl & occ_all[:, j])
+    return occ, n_boxes, n_spheres

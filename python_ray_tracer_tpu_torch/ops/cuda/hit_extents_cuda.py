@@ -23,7 +23,7 @@ import torch
 from ..intersect import BIG, _all_t
 from ..shade import BIAS, _surface_attributes, reflect
 from . import render_cuda
-from .cull_tables import GROUP_SIZE, TILE, tile_grid
+from .cull_tables import LEAF, TILE, tile_grid, tree_box_words
 
 MAX_LEVELS = 4     # trace levels one launch covers (csrc/hit_extents.cu)
 # Kernel launches; a plain counter, reset with reset_launch_counts().
@@ -148,9 +148,11 @@ def _check_table(name, t, dtype, n, dev):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def check_tables(vis, shadow, groups, *, n_tiles: int, ns: int, nl: int, dev) -> None:
+def check_tables(vis, shadow, tree, *, n_tiles: int, ns: int, nl: int, dev) -> None:
     """Raise on tables the kernels do not take: ``vis = (idx, cnt, k)``,
-    ``shadow = (idx, cnt, k)``, ``groups = (perm, bounds, G)``, each or None."""
+    ``shadow = (idx, cnt, k)``, ``tree`` a ``cull_tables.BounceTree`` of the
+    kernels' shape (``cull_tables.LEAF`` / ``FAN``) whose leaves hold every
+    sphere's slot, each or None."""
     if vis is not None:
         idx, cnt, k = vis
         if not 1 <= k <= ns:
@@ -163,39 +165,39 @@ def check_tables(vis, shadow, groups, *, n_tiles: int, ns: int, nl: int, dev) ->
             raise ValueError(f"shadow lists: k={k} for {ns} spheres, {nl} lights")
         _check_table("shadow list indices", idx, torch.int32, n_tiles * nl * k, dev)
         _check_table("shadow list counts", cnt, torch.int32, n_tiles * nl, dev)
-    if groups is not None:
-        perm, bounds, G = groups
-        if G < 1:
-            raise ValueError(f"sphere groups: G={G}")
-        _check_table("group sweep order", perm, torch.int32, G * GROUP_SIZE, dev)
-        _check_table("group bounds", bounds, torch.float32, G * 4, dev)
+    if tree is not None:
+        if tree.n_leaves * LEAF < max(ns, 1) or (tree.n_leaves - 1) * LEAF >= ns:
+            raise ValueError(f"bounce tree: {tree.n_leaves} leaves of {LEAF} for {ns} "
+                             f"spheres")
+        _check_table("tree sweep order", tree.perm, torch.int32, tree.n_leaves * LEAF, dev)
+        _check_table("tree boxes", tree.box, torch.float32, tree_box_words(tree.n_leaves),
+                     dev)
 
 
-def table_args(vis, shadow, groups) -> list:
-    """The C argument lists ``[idx, cnt, k]`` of the three tables (null
-    pointers for one that is off), in the order the entry points take them."""
-    args = []
-    for tab in (vis, shadow, groups):
-        if tab is None:
-            args.append([None, None, 0])
-        else:
-            a, b, k = tab
-            args.append([a.data_ptr(), b.data_ptr(), int(k)])
+def table_args(vis, shadow, tree) -> list:
+    """The C argument lists of the three tables, in the order the entry
+    points take them: ``[idx, cnt, k]`` for each list, ``[perm, box,
+    n_leaves]`` for the tree (null pointers and zeros for one that is
+    off)."""
+    args = [[None, None, 0] if tab is None else [tab[0].data_ptr(), tab[1].data_ptr(),
+                                                 int(tab[2])] for tab in (vis, shadow)]
+    args.append([None, None, 0] if tree is None else
+                [tree.perm.data_ptr(), tree.box.data_ptr(), tree.n_leaves])
     return args
 
 
 def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compat: bool,
-           n_levels: int, vis=None, groups=None) -> torch.Tensor:
+           n_levels: int, vis=None, tree=None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked: ``out (n_tiles * n_levels, 8)``, ``params`` and ``tables`` as for
-    ``render_cuda.launch``; ``vis`` and ``groups`` are checked here. Counts the
+    ``render_cuda.launch``; ``vis`` and ``tree`` are checked here. Counts the
     launch in :data:`LAUNCHES`."""
     from ._build import load_library
     lib = load_library()
     (sph, pln, _), (ns, npl, nl) = tables, counts
-    check_tables(vis, None, groups, n_tiles=out.shape[0] // n_levels, ns=ns, nl=nl,
+    check_tables(vis, None, tree, n_tiles=out.shape[0] // n_levels, ns=ns, nl=nl,
                  dev=out.device)
-    v, _, g = table_args(vis, None, groups)
+    v, _, g = table_args(vis, None, tree)
     rc = lib.rt_hit_extents(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, out.data_ptr(),
         W, H, n_levels, int(aliasing), int(compat), *v, *g,
@@ -208,10 +210,10 @@ def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compa
 
 
 def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
-                     n_levels: int = 1, vis=None, groups=None) -> torch.Tensor:
+                     n_levels: int = 1, vis=None, tree=None) -> torch.Tensor:
     """Hit-extent rows ``(n_tiles * n_levels, 8)`` of a render of ``scene``
-    from ``camera``, for 16x16 tiles. ``vis`` and ``groups`` are the primary
-    lists and the Morton groups the render will use (``cull_tables``), so the
+    from ``camera``, for 16x16 tiles. ``vis`` and ``tree`` are the primary
+    lists and the bounce tree the render will use (``cull_tables``), so the
     hit points are the render kernel's own. CPU tensors take
     :func:`hit_extents_plain`; CUDA tensors launch the kernel."""
     dev = camera.position.device
@@ -222,7 +224,7 @@ def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
         raise ValueError(f"hit_extents_cuda takes CPU or CUDA tensors, got {dev}")
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"n_levels must be in 1..{MAX_LEVELS}, got {n_levels}")
-    render_cuda._check_inputs(camera, scene, dev)
+    render_cuda._check_inputs(camera, scene, dev, tree is not None and n_levels > 1)
     W, H = camera.resolution
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")
@@ -233,4 +235,4 @@ def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
     with torch.cuda.device(dev):
         return launch(out, params, render_cuda.scene_tables(scene), counts, W=W, H=H,
                       aliasing=aliasing, compat=compat, n_levels=n_levels, vis=vis,
-                      groups=groups)
+                      tree=tree)

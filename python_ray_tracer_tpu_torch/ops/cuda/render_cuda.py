@@ -14,9 +14,10 @@ Scenes of more than :data:`CULL_MIN_SPHERES` spheres take the large-scene path
 per-tile cone cull of the primary sweep, the two-pass shadow pipeline (the
 hit-extent kernel, ``hit_extents_cuda``, then per-(tile, light) occluder lists
 for the level-0 shadow sweeps) and, from :data:`GROUP_MIN_SPHERES` spheres up,
-Morton-grouped bounce sweeps. :func:`large_scene_tables` builds the tables
-(``cull_tables``) for each frame. Every cull is exact: the image is
-bit-identical to the full sweep's.
+bounce sweeps through a two-level box tree over the Morton order (the
+``group_cull`` keyword; ``cull_tables.bounce_tree``). :func:`large_scene_tables`
+builds the tables (``cull_tables``) for each frame. Every cull is exact: the
+image is bit-identical to the full sweep's.
 
 :func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
 tensors on the CPU; for CUDA tensors it launches the kernels or raises. Camera,
@@ -59,13 +60,13 @@ MODES = ("aa_none", "aa_per_sample", "aa_shared")   # C enum order
 LAUNCHES = {m: 0 for m in MODES}
 
 # Shared memory a block may stage (227 KB) beside the shared-AA sample grids:
-# the parameters, the scene's tables and, on the large-scene path, the Morton
-# groups, the tile's primary list and its per-light occluder lists.
+# the parameters, the scene's tables and, on the large-scene path, the bounce
+# tree, the tile's primary list and its per-light occluder lists.
 _SMEM_LIMIT = 227 * 1024 - 3 * 4 * 1089
 
 # The large-scene path's automatic thresholds (the JAX package's): the cone
-# cull and the shadow lists for more spheres than CULL_MIN_SPHERES, the Morton
-# groups from GROUP_MIN_SPHERES spheres up.
+# cull and the shadow lists for more spheres than CULL_MIN_SPHERES, the bounce
+# tree (the JAX package's Morton groups) from GROUP_MIN_SPHERES spheres up.
 CULL_MIN_SPHERES = 16
 GROUP_MIN_SPHERES = 256
 
@@ -117,18 +118,30 @@ def scene_tables(scene):
     return sph, pln, lts
 
 
-def _smem_bytes(ns: int, npl: int, nl: int) -> int:
-    """Shared memory a block stages beside the AA sample grids, with every
-    large-scene table on at its largest row capacity."""
+def uses_tree(ns: int, depth: int, group_cull: bool | None = None) -> bool:
+    """Whether :func:`large_scene_tables` builds the bounce tree: ``group_cull``
+    (None: from :data:`GROUP_MIN_SPHERES` spheres up), on the large-scene
+    path, for a render with bounces."""
+    want = ns >= GROUP_MIN_SPHERES if group_cull is None else bool(group_cull)
+    return want and ns > CULL_MIN_SPHERES and depth > 0
+
+
+def _smem_bytes(ns: int, npl: int, nl: int, tree: bool = False) -> int:
+    """Shared memory a block stages beside the AA sample grids, with both
+    lists on at their largest row capacity and, with ``tree``, the bounce
+    tree (~2.7 words a sphere: with it, 1 plane and 3 lights, the largest
+    scene is 5600 spheres; without it, 7753)."""
     words = N_PARAMS + 7 * ns + 9 * npl + 3 * nl
     if ns > CULL_MIN_SPHERES:
         k = cull_tables.list_capacity(ns)
-        words += -(-ns // cull_tables.GROUP_SIZE) * (4 + cull_tables.GROUP_SIZE)
         words += k + nl * (k + 1)
+        if tree:
+            n_leaves = -(-ns // cull_tables.LEAF)
+            words += cull_tables.tree_box_words(n_leaves) + n_leaves * cull_tables.LEAF
     return 4 * words
 
 
-def _check_inputs(camera, scene, dev):
+def _check_inputs(camera, scene, dev, tree: bool = False):
     tensors = {"camera.position": camera.position, "camera.rotation": camera.rotation,
                "camera.fov": camera.fov}
     for grp in ("spheres", "planes", "lights", "materials"):
@@ -153,7 +166,7 @@ def _check_inputs(camera, scene, dev):
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
-    smem = _smem_bytes(ns, npl, nl)
+    smem = _smem_bytes(ns, npl, nl, tree)
     if smem > _SMEM_LIMIT:
         raise ValueError(f"scene needs {smem} B of shared memory, the kernel "
                          f"stages at most {_SMEM_LIMIT} B")
@@ -163,15 +176,16 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
                        cull: bool = True, shadow_lists: bool | None = None,
                        group_cull: bool | None = None, K: int | None = None,
                        packed=None):
-    """The render kernel's tables for this frame: ``(vis, shadow, groups)``,
-    each ``(idx, cnt, k)`` / ``(perm, bounds, G)`` or None where that cull is
-    off (``render_pallas._render_image_pallas``'s resolution of its ``cull``,
-    ``shadow_lists`` and ``group_cull``; None is "auto"). The cone cull and the
-    shadow lists need more than :data:`CULL_MIN_SPHERES` spheres (the lists
-    also a light); groups are automatic from :data:`GROUP_MIN_SPHERES` spheres
-    and need ``depth > 0``. The shadow lists come from one launch of the
-    hit-extent kernel on the same primary lists (level 0 only, so it takes no
-    groups). ``K``: slots a list row
+    """The render kernel's tables for this frame: ``(vis, shadow, tree)``,
+    ``(idx, cnt, k)``, ``(idx, cnt, k)`` and a ``cull_tables.BounceTree``, each
+    None where that cull is off (``render_pallas._render_image_pallas``'s
+    resolution of its ``cull``, ``shadow_lists`` and ``group_cull``; None is
+    "auto"). The cone cull and the shadow lists need more than
+    :data:`CULL_MIN_SPHERES` spheres (the lists also a light); the bounce tree
+    (``group_cull``, the JAX package's Morton groups) is automatic from
+    :data:`GROUP_MIN_SPHERES` spheres and needs ``depth > 0``. The shadow lists
+    come from one launch of the hit-extent kernel on the same primary lists
+    (level 0 only, so it takes no tree). ``K``: slots a list row
     (default ``cull_tables.list_capacity``). ``packed``: the caller's
     ``(params, scene_tables, counts)`` for checked CUDA inputs, which the
     hit-extent launch then shares instead of packing them again."""
@@ -179,14 +193,11 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     ns, nl = scene.spheres.count, scene.lights.count
     rolled = ns > CULL_MIN_SPHERES
     k = cull_tables.list_capacity(ns) if K is None else min(K, ns)
-    vis = shadow = groups = None
+    vis = shadow = tree = None
     if cull and rolled:
         vis = (*cull_tables.tile_visibility(camera, scene, compat=compat, K=k), k)
-    want_groups = ns >= GROUP_MIN_SPHERES if group_cull is None else group_cull
-    if want_groups and rolled and depth > 0:
-        perm, bounds = cull_tables.sphere_groups(scene.spheres.center, scene.spheres.radius,
-                                                 order_from=camera.position)
-        groups = (perm, bounds, perm.shape[0] // cull_tables.GROUP_SIZE)
+    if uses_tree(ns, depth, group_cull):
+        tree = cull_tables.bounce_tree(scene.spheres.center, scene.spheres.radius)
     if (shadow_lists is None or shadow_lists) and rolled and nl > 0:
         if packed is None:
             ext = hx.hit_extents_cuda(camera, scene, aliasing=aliasing, compat=compat,
@@ -200,7 +211,7 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
         shadow = (*cull_tables.shadow_visibility_lists(
             ext, scene.lights.position, scene.spheres.center, scene.spheres.radius,
             K=k, compat=compat), k)
-    return vis, shadow, groups
+    return vis, shadow, tree
 
 
 def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
@@ -220,22 +231,24 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
                             compat=compat)
     mode = ("aa_shared" if aa_share else "aa_per_sample") if aliasing else "aa_none"
     return render_packed(camera, scene, packed_inputs(camera, scene, depth=depth,
-                                                      compat=compat),
+                                                      compat=compat, group_cull=group_cull),
                          depth=depth, mode=mode, compat=compat, cull=cull,
                          shadow_lists=shadow_lists, group_cull=group_cull)
 
 
-def packed_inputs(camera, scene, *, depth: int, compat: bool):
+def packed_inputs(camera, scene, *, depth: int, compat: bool,
+                  group_cull: bool | None = None):
     """Check CUDA inputs (device, dtype, shapes, depth, resolution, the shared
-    memory a block stages) and pack them for the kernels: ``(params, tables,
-    counts)``, the parameter vector and :func:`scene_tables` on the camera's
-    device and ``(ns, npl, nl)``."""
+    memory a block stages, the bounce tree counted where :func:`uses_tree`)
+    and pack them for the kernels: ``(params, tables, counts)``, the parameter
+    vector and :func:`scene_tables` on the camera's device and ``(ns, npl,
+    nl)``."""
     dev = camera.position.device
     if dev.type != "cuda":
         raise ValueError(f"the render kernels take CPU or CUDA tensors, got {dev}")
     if depth < 0:
         raise ValueError(f"depth must be >= 0, got {depth}")
-    _check_inputs(camera, scene, dev)
+    _check_inputs(camera, scene, dev, uses_tree(scene.spheres.count, depth, group_cull))
     W, H = camera.resolution
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")
@@ -245,31 +258,32 @@ def packed_inputs(camera, scene, *, depth: int, compat: bool):
 
 def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
                   cull: bool = True, shadow_lists: bool | None = None,
-                  group_cull: bool | None = None) -> torch.Tensor:
+                  group_cull: bool | None = None, tabs=None) -> torch.Tensor:
     """:func:`render_image_cuda`'s CUDA path on :func:`packed_inputs`: the
     large-scene tables (with the hit-extent kernel where the shadow lists are
-    on), then one launch of the render kernel in ``mode``."""
+    on; ``tabs``, :func:`large_scene_tables`' result, where the caller has
+    them already), then one launch of the render kernel in ``mode``."""
     params, tables, counts = packed
     dev = params.device
     W, H = camera.resolution
     out = torch.empty((W, H, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        vis, shadow, groups = large_scene_tables(
+        vis, shadow, tree = tabs if tabs is not None else large_scene_tables(
             camera, scene, depth=depth, aliasing=mode != "aa_none", compat=compat,
             cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed)
         return launch(out, params, tables, counts, depth=depth,
                       mode=mode, compat=compat,
                       cheap_shadow=shadow_cheap_ok(scene, compat), vis=vis,
-                      shadow=shadow, groups=groups)
+                      shadow=shadow, tree=tree)
 
 
 def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
-           cheap_shadow: bool, vis=None, shadow=None, groups=None) -> torch.Tensor:
+           cheap_shadow: bool, vis=None, shadow=None, tree=None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked by :func:`packed_inputs`: ``out (W, H, 3)``, ``params
     (N_PARAMS,)``, the :func:`scene_tables` and the object counts
     ``(ns, npl, nl)``, all tensors float32 and contiguous on the current
-    device; ``vis``, ``shadow`` and ``groups`` as :func:`large_scene_tables`
+    device; ``vis``, ``shadow`` and ``tree`` as :func:`large_scene_tables`
     returns them (int32 lists for 16x16 tiles, checked here). A scene of more
     than :data:`CULL_MIN_SPHERES` spheres runs the kernel's large-scene
     instantiation whichever tables are on, so a render with every table off
@@ -281,8 +295,8 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
     W, H = out.shape[0], out.shape[1]
     (sph, pln, lts), (ns, npl, nl) = tables, counts
     n_tx, n_ty = cull_tables.tile_grid(W, H)
-    check_tables(vis, shadow, groups, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=out.device)
-    v, sh, g = table_args(vis, shadow, groups)
+    check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=out.device)
+    v, sh, g = table_args(vis, shadow, tree)
     rc = lib.rt_render_fwd(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
         lts.data_ptr(), nl, out.data_ptr(), W, H, depth,

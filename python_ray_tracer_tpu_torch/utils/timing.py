@@ -255,27 +255,66 @@ def hard_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str) -> tuple:
     return ops, nbytes
 
 
+# A live hit's floor past the sweep: its point and normal, then for each
+# light the direction and Lambert term, a shadow ray's set-up and its planes.
+def _hit_floor(npl: int, nl: int) -> int:
+    return SURFACE + SPHERE_NORMAL + nl * (LIGHT + SHADOW_SETUP + npl * HIT_PLANE)
+
+
+def bounce_floor(live, npl: int, nl: int) -> float:
+    """Operations the bounce levels need at least, from live counts ``(...,
+    L)`` at trace levels 0..L-1 (L = depth + 1; any leading shape is summed):
+    a bounce ray is traced at level l from each hit alive at level l - 1 (its
+    set-up, the planes and at least the one sphere test of its sweep), and
+    each hit alive at level l >= 1 is shaded (:func:`_hit_floor`)."""
+    lv = torch.as_tensor(live, dtype=torch.float64)
+    lv = lv.reshape(-1, lv.shape[-1]).sum(dim=0)
+    return float(lv[:-1].sum()) * (HIT_SETUP + npl * HIT_PLANE + HIT_SPHERE) + \
+        float(lv[1:].sum()) * _hit_floor(npl, nl)
+
+
 def adaptive_work(idx, n_listed: int, H: int, ns: int, npl: int, nl: int,
-                  vis=None) -> tuple:
+                  vis=None, shadow=None, ext=None, W: int | None = None) -> tuple:
     """(operations, bytes) lower bound of one worklist launch
     (csrc/render_fwd_kernel.cuh ``render_list_kernel``) for this run's first
     ``n_listed`` slots of ``idx`` (``min(flagged, K)`` flat indices ``x * H +
     y``): as :func:`large_scene_work`, ray generation and the primary sweep of
     each of their 9 sample chains over the cone-visible spheres of the pixel's
-    16x16 tile (``vis = (idx, cnt, k)``, the centers pass's table; all ``ns``
-    for a row that overflowed, or with ``vis`` None). Shadow and bounce work
-    depend on the hits and are left out. Bytes: the scene, the flagged count
-    and the table in, each listed pixel's index in and its 12 bytes out."""
+    16x16 tile (``vis = (idx, cnt, k)``; all ``ns`` for a row that
+    overflowed, or with ``vis`` None). With ``ext``, the hit-extent rows of
+    the AA lattice at levels 0..depth (``W`` wide), the shadow and bounce
+    levels too, over the chains that must be alive: a tile whose in-image
+    lattice positions (:func:`tile_positions`) hold D dead ones at a level
+    has at most 4 D dead chains there (a corner position serves 4 pixels), so
+    of its listed pixels' 9 m chains at least ``max(0, 9 m - 4 D)`` live.
+    Those count the level-0 shadow rays over the tile's occluder lists
+    (``shadow``, as :func:`large_scene_work`) and :func:`bounce_floor`.
+    Bytes: the scene, the flagged count and the tables in, each listed
+    pixel's index in and its 12 bytes out."""
     ops = 9 * n_listed * (RAYGEN + HIT_SETUP + npl * HIT_PLANE)
     nbytes = _scene_bytes(ns, npl, nl) + 4 + 16 * n_listed
-    swept = _listed(vis, 0 if vis is None else vis[1].numel(), ns)
+    for tab in (vis, shadow):
+        if tab is not None:
+            nbytes += 4 * tab[1].numel() * (tab[2] + 1)
+    p = idx[:n_listed].to(dtype=torch.int64).cpu()
+    rows = (p // H) // 16 * -(-H // 16) + (p % H) // 16    # x tiles outermost
+    swept = _listed(vis, 0, ns)
     if isinstance(swept, torch.Tensor):
-        p = idx[:n_listed].to(device=swept.device, dtype=torch.int64)
-        rows = (p // H) // 16 * -(-H // 16) + (p % H) // 16    # x tiles outermost
-        ops += 9 * float(swept[rows].sum()) * HIT_SPHERE
-        nbytes += 4 * (swept.numel() * vis[2] + swept.numel())
+        ops += 9 * float(swept.cpu()[rows].sum()) * HIT_SPHERE
     else:
         ops += 9 * n_listed * swept * HIT_SPHERE
+    if ext is not None:
+        n_tiles = -(-W // 16) * -(-H // 16)
+        m = torch.bincount(rows, minlength=n_tiles).to(torch.float64)
+        live = ext[:, 6].reshape(n_tiles, -1).cpu().to(torch.float64)
+        dead = tile_positions(W, H, True).to(torch.float64)[:, None] - live
+        chains = torch.clamp(9.0 * m[:, None] - 4.0 * dead, min=0.0)   # (n_tiles, L)
+        occ = _listed(shadow, n_tiles * nl, ns)
+        occ = occ.reshape(n_tiles, nl).sum(dim=1).cpu().double() if isinstance(
+            occ, torch.Tensor) else occ * nl
+        ops += float((chains[:, 0] * (nl * (LIGHT + SHADOW_SETUP + npl * HIT_PLANE) +
+                                      occ * SHADOW_SPHERE)).sum())
+        ops += bounce_floor(chains, npl, nl)
     return ops, nbytes
 
 
@@ -333,14 +372,18 @@ def large_scene_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str, vis,
     the level-0 shadow rays, one a light from every live in-image sample
     (``ext``'s counts, the hit-extent rows of this frame), each over its (tile,
     light) occluder list (``shadow``) and the planes. A table that is None
-    sweeps all ``ns`` spheres. Bounce levels depend on where the rays go and
-    are left out. Bytes: :func:`hard_work`'s and the tables in."""
+    sweeps all ``ns`` spheres. Where ``ext`` holds levels 0..depth (levels
+    fastest, as the hit-extent kernel writes them), the bounce levels'
+    :func:`bounce_floor` of its live counts too. Bytes: :func:`hard_work`'s
+    and the tables in."""
     n_tiles = -(-W // 16) * -(-H // 16)
     per_tile = hard_samples(W, H, mode) / n_tiles
     swept = _listed(vis, n_tiles, ns)
     swept = float(swept.sum()) if isinstance(swept, torch.Tensor) else swept * n_tiles
     ops = per_tile * (n_tiles * (RAYGEN + HIT_SETUP + npl * HIT_PLANE) + swept * HIT_SPHERE)
-    live = ext[:, 6].to(torch.float32)                               # (n_tiles,)
+    levels = ext[:, 6].reshape(n_tiles, -1).to(torch.float32)
+    ops += bounce_floor(levels.cpu(), npl, nl)
+    live = levels[:, 0]                                              # (n_tiles,)
     occ = _listed(shadow, n_tiles * nl, ns)
     occ = occ.reshape(n_tiles, nl).sum(dim=1).to(live.device) if isinstance(
         occ, torch.Tensor) else occ * nl

@@ -241,6 +241,40 @@ def test_adaptive_work_sweeps_each_listed_pixel_tile_list():
     assert ops < timing.adaptive_work(idx, len(px), H, ns, 1, 3)[0]
 
 
+
+def test_adaptive_work_counts_bounce_levels_of_live_chains():
+    """With the hit-extent rows of the AA lattice (levels 0..2), each tile's
+    listed chains that must be alive (9 m - 4 dead positions, at least 0)
+    add the level-0 shadow rays over the tile's occluder lists and the
+    bounce floor: a traced bounce ray from each live chain of the level
+    before, a shaded hit for each live chain past level 0."""
+    W, H, ns, npl, nl, k = 40, 20, 50, 1, 3, 8
+    cnt = torch.tensor([3, -1, 0, 5, 2, 7], dtype=torch.int32)          # 3 x 2 tiles
+    vis = (torch.zeros((6 * k,), dtype=torch.int32), cnt, k)
+    sh_cnt = torch.tensor([1, 2, 0, 0, 0, 0, -1, 4, 1] + [0] * 9, dtype=torch.int32)
+    shadow = (torch.zeros((18 * k,), dtype=torch.int32), sh_cnt, k)
+    px = [(0, 0), (1, 1), (17, 3), (20, 16), (33, 2)]                   # tiles 0 0 2 3 4
+    idx = torch.tensor([x * H + y for x, y in px], dtype=torch.int32)
+    P = timing.tile_positions(W, H, True)
+    ext = torch.zeros((6, 3, 8))
+    ext[:, :, 6] = P[:, None]                 # every position live at every level ...
+    ext[2, :, 6] = P[2] - torch.tensor([0.0, 2.0, 100.0])   # ... but tile 2's
+    ext[3, 2, 6] = P[3] - 1.0
+    ext = ext.reshape(18, 8)
+    base, b0 = timing.adaptive_work(idx, len(px), H, ns, npl, nl, vis, shadow)
+    ops, nbytes = timing.adaptive_work(idx, len(px), H, ns, npl, nl, vis, shadow, ext, W)
+    assert nbytes == b0 == timing.adaptive_work(idx, len(px), H, ns, npl, nl)[1] + \
+        4 * (6 * (k + 1) + 18 * (k + 1))
+    chains = {0: (18, 18, 18), 2: (9, 1, 0), 3: (9, 9, 5), 4: (9, 9, 9)}   # tile: levels 0-2
+    occ = {0: 1 + 2 + 0, 2: ns + 4 + 1, 3: 0, 4: 0}
+    shade = timing.LIGHT + timing.SHADOW_SETUP + npl * timing.HIT_PLANE
+    want = sum(c[0] * (nl * shade + occ[t] * timing.SHADOW_SPHERE) for t, c in chains.items())
+    traced = sum(c[0] + c[1] for c in chains.values())
+    hits = sum(c[1] + c[2] for c in chains.values())
+    want += traced * (timing.HIT_SETUP + npl * timing.HIT_PLANE + timing.HIT_SPHERE)
+    want += hits * (timing.SURFACE + timing.SPHERE_NORMAL + nl * shade)
+    assert ops - base == want
+
 # --- the CLI ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("extra,why", [(["--soft", "0.05"], "--soft renders use the soft"),

@@ -626,7 +626,7 @@ def test_fit_scene_soft_cuda_backend_on_card(cuda_device):
         assert losses[10 * k + 9] < losses[10 * k]
 
 
-# --- the large-scene path: hit-extent kernel, cone cull, shadow lists, groups --------
+# --- the large-scene path: hit-extent kernel, cone cull, shadow lists, bounce tree --
 #
 # Every cull is exact, so a render with any of them on must equal the render
 # with all of them off bit for bit (torch.equal on the float image). The
@@ -653,13 +653,28 @@ def _planted_scene(n, dev, seed=11, lights=3, planes=True):
                      trt.Lights(base.lights.position[:lights]), base.materials)
 
 
-# 100: the horizon and sky tiles in view. A ground-plane hit near the horizon is
+# 100 and "1000 far": the horizon and sky tiles in view, so bounce rays start
+# up to the far clip out on the ground plane, where the sphere tests' hoisted
+# quadratic is noisiest. A ground-plane hit near the horizon is
 # ill-conditioned (t = h / (d . n) with d . n near 0; no far clip in clean
-# mode), so that pose is held against the plain version in compat mode only.
+# mode), so the 100-sphere pose is held against the plain version in compat
+# mode only; at 1000 spheres so many bounce rays start far out that the full
+# sweep's hoisted quadratic parts from the plain version's root form at more
+# pixels than the flip rule allows in both modes, and "1000 far" is there for
+# the culls' bit identity alone. 1000: the CLI's camera (RenderConfig).
+# "1000 axis", at 129 x 65: the center column's primary rays have direction y
+# exactly 0 and so have their ground bounces, from origins at y = 3 (a slab
+# slope clamped at FLT_MAX once made the tree drop every box for them); there
+# for the culls' bit identity alone.
 LARGE_POSES = {24: ([-7.0, 0.0, 3.0], [0.0, -20.0, 0.0]),
                40: ([-7.0, 0.0, 3.0], [0.0, -15.0, 0.0]),
                100: ([-7.0, 0.0, 3.0], [0.0, 10.0, 0.0]),
-               300: ([-2.0, 0.0, 2.0], [0.0, -30.0, 0.0])}
+               300: ([-2.0, 0.0, 2.0], [0.0, -30.0, 0.0]),
+               1000: (list(RenderConfig.camera_position), list(RenderConfig.camera_euler)),
+               "1000 far": ([-7.0, 0.0, 3.0], [0.0, 10.0, 0.0]),
+               "1000 axis": ([-12.0, 3.0, 3.0], [0.0, -15.0, 0.0])}
+HORIZON_POSES = (100, "1000 far")
+POSE_RES = {"1000 axis": (129, 65)}     # every other pose renders 104 x 72
 
 
 @pytest.mark.parametrize("n", [24, 100, 300])
@@ -687,12 +702,12 @@ def _render_tabs(cam, scene, mode, depth, compat, tabs):
     dev = cam.device
     out = torch.empty((W, H, 3), device=dev)
     cnt = (scene.spheres.count, scene.planes.count, scene.lights.count)
-    vis, shadow, groups = tabs
+    vis, shadow, tree = tabs
     return render_cuda.launch(
         out, render_cuda.pack_params(cam, scene, compat).to(dev),
         render_cuda.scene_tables(scene), cnt, depth=depth, mode=mode, compat=compat,
         cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat), vis=vis, shadow=shadow,
-        groups=groups)
+        tree=tree)
 
 
 CULLS = {"cull": dict(cull=True, shadow_lists=False, group_cull=False),
@@ -705,15 +720,17 @@ ALL_OFF = dict(cull=False, shadow_lists=False, group_cull=False)
 
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("compat", [True, False])
-@pytest.mark.parametrize("n", [24, 40, 100, 300])
+@pytest.mark.parametrize("n", [24, 40, 100, 300, 1000, "1000 far", "1000 axis"])
 def test_culls_are_bit_identical_to_the_full_sweep(cuda_device, mode, compat, n):
     """Each cull alone, all together, the automatic choice, and lists forced
     to K=2 so that every row overflows, against all culls off; then all on
     against the plain version under the flip rule."""
     mats = trt.Materials.build(0.05, 0.6, 0.3, 0.5, 16.0, device=cuda_device)
+    pose, res = LARGE_POSES[n], POSE_RES.get(n, (104, 72))
+    n = int(str(n).split()[0])
     scene = _planted_scene(n, cuda_device)
     scene.materials = mats
-    cam = trt.Camera.build((104, 72), *LARGE_POSES[n], device=cuda_device)
+    cam = trt.Camera.build(res, *pose, device=cuda_device)
     aa = mode != "aa_none"
     kw = dict(depth=2, compat=compat, aliasing=aa, aa_share=mode == "aa_shared")
     hx.reset_launch_counts()
@@ -729,7 +746,8 @@ def test_culls_are_bit_identical_to_the_full_sweep(cuda_device, mode, compat, n)
                                           group_cull=True, K=2)
     assert int((tabs[0][1] >= 0).sum()) < tabs[0][1].numel()      # rows overflow
     assert torch.equal(_render_tabs(cam, scene, mode, 2, compat, tabs), off)
-    if compat or n != 100:
+    if res == (104, 72) and ((compat and n < 1000) or
+                             pose not in [LARGE_POSES[k] for k in HORIZON_POSES]):
         ref = trt.render_image(cam, scene, depth=2, aliasing=aa, compat=compat)
         assert _flipped(off, ref) <= 1e-3 * 104 * 72
 
@@ -786,17 +804,28 @@ def test_large_scene_wrappers_reject_bad_tables(cuda_device):
     cam = trt.Camera.build((32, 32), *LARGE_POSES[24], device=cuda_device)
     with pytest.raises(ValueError, match="n_levels"):
         hx.hit_extents_cuda(cam, scene, aliasing=False, n_levels=hx.MAX_LEVELS + 1)
-    vis, shadow, groups = render_cuda.large_scene_tables(cam, scene, depth=2,
-                                                         aliasing=False, compat=True)
+    vis, shadow, tree = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                       aliasing=False, compat=True,
+                                                       group_cull=True)
     with pytest.raises(ValueError, match="primary list"):
         _render_tabs(cam, scene, "aa_none", 2, True, ((vis[0][:-1], vis[1], vis[2]), None,
                                                       None))
     with pytest.raises(ValueError, match="shadow list"):
         _render_tabs(cam, scene, "aa_none", 2, True, (None, (shadow[0].cpu(), shadow[1],
                                                              shadow[2]), None))
+    with pytest.raises(ValueError, match="tree sweep order"):
+        _render_tabs(cam, scene, "aa_none", 2, True, (None, None, tree._replace(
+            perm=tree.perm[:-1])))
+    with pytest.raises(ValueError, match="bounce tree"):
+        _render_tabs(cam, scene, "aa_none", 2, True, (None, None, tree._replace(
+            n_leaves=tree.n_leaves + 1)))
     two = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=2, vis=vis)
     one = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=1, vis=vis)
     assert two.shape == (8, 8) and torch.equal(two[0::2], one)
+    # past level 0 the tree's hit points are the full sweep's
+    three = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=3, vis=vis, tree=tree)
+    assert torch.equal(three, hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=3,
+                                                  vis=vis))
 
 
 # --- adaptive AA: the worklist kernel -------------------------------------------------
@@ -830,21 +859,24 @@ def _adaptive_scene(n, dev, compat):
 
 
 def _worklist(cam, scene, compat, eps, budget):
-    return ac.worklist_inputs(cam, scene, depth=2, compat=compat, eps=eps,
-                              budget_frac=budget)
+    """``(packed, tables, tent, idx, flagged, dropped)``; ``tables`` as
+    launch_list's keywords."""
+    packed, (vis, shadow, tree), *rest = ac.worklist_inputs(
+        cam, scene, depth=2, compat=compat, eps=eps, budget_frac=budget)
+    return (packed, dict(vis=vis, shadow=shadow, tree=tree), *rest)
 
 
 @pytest.mark.parametrize("n", [0, 24, 100])
 @pytest.mark.parametrize("compat", [True, False])
 def test_list_kernel_matches_plain(cuda_device, n, compat):
     scene, cam = _adaptive_scene(n, cuda_device, compat)
-    packed, tent, idx, flagged, dropped = _worklist(cam, scene, compat, 0.5 / 255, 1.0)
+    packed, tabs, tent, idx, flagged, dropped = _worklist(cam, scene, compat, 0.5 / 255, 1.0)
     cheap = render_cuda.shadow_cheap_ok(scene, compat)
     ac.reset_launch_counts()
     a = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
-                       cheap_shadow=cheap)
+                       cheap_shadow=cheap, **tabs)
     b = ac.launch_list(tent.clone(), *packed, idx, flagged, depth=2, compat=compat,
-                       cheap_shadow=cheap)
+                       cheap_shadow=cheap, **tabs)
     torch.cuda.synchronize()
     assert ac.LAUNCHES["render_list"] == 2 and torch.equal(a, b)
     n_listed = int(flagged)
@@ -858,7 +890,31 @@ def test_list_kernel_matches_plain(cuda_device, n, compat):
     assert int((d.reshape(-1)[listed] > 1).sum()) <= 1e-3 * n_listed
 
 
-@pytest.mark.parametrize("n", [24, 100])
+@pytest.mark.parametrize("n", [24, 100, 1000])
+@pytest.mark.parametrize("compat", [True, False])
+def test_list_kernel_with_tables_is_the_list_kernel_without(cuda_device, n, compat):
+    """The worklist kernel reading its pixels' tile lists and the bounce tree
+    against the same launch with every table off, bit for bit (listed
+    pixels everywhere, the budget dropping none)."""
+    scene, cam = _adaptive_scene(n, cuda_device, compat)
+    packed, tabs, tent, idx, flagged, dropped = _worklist(cam, scene, compat, 0.5 / 255, 1.0)
+    assert tabs["vis"] is not None and tabs["shadow"] is not None
+    assert (tabs["tree"] is not None) == (n >= render_cuda.GROUP_MIN_SPHERES)
+    if tabs["tree"] is None:
+        tabs["tree"] = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
+    cheap = render_cuda.shadow_cheap_ok(scene, compat)
+    kw = dict(depth=2, compat=compat, cheap_shadow=cheap)
+    off = ac.launch_list(tent.clone(), *packed, idx, flagged, **kw)
+    on = ac.launch_list(tent.clone(), *packed, idx, flagged, **kw, **tabs)
+    torch.cuda.synchronize()
+    assert int(flagged) > 0 and int(dropped) == 0
+    assert torch.equal(on, off), int((on != off).any(-1).sum())
+    for only in ("vis", "shadow", "tree"):
+        one = ac.launch_list(tent.clone(), *packed, idx, flagged, **kw, **{only: tabs[only]})
+        assert torch.equal(one, off), only
+
+
+@pytest.mark.parametrize("n", [24, 100, 1000])
 @pytest.mark.parametrize("compat", [True, False])
 def test_adaptive_all_flagged_is_the_per_sample_render(cuda_device, n, compat):
     scene, cam = _adaptive_scene(n, cuda_device, compat)
@@ -896,7 +952,7 @@ def test_adaptive_wrapper_launches_and_budget(cuda_device):
                                               with_stats=True)
     assert int(sp["flagged"]) == int(sf["flagged"]) > K
     assert int(sp["dropped"]) == int(sf["flagged"]) - K
-    _, tent, idx, _, _ = _worklist(cam, scene, True, 0.5 / 255, 1.0)
+    _, _, tent, idx, _, _ = _worklist(cam, scene, True, 0.5 / 255, 1.0)
     kept, cut = idx[:K].long(), idx[K:int(sf["flagged"])].long()
     assert torch.equal(part.reshape(-1, 3)[kept], full.reshape(-1, 3)[kept])
     assert torch.equal(part.reshape(-1, 3)[cut], tent.reshape(-1, 3)[cut])
@@ -907,7 +963,7 @@ def test_adaptive_wrapper_launches_and_budget(cuda_device):
 
 def test_list_kernel_rejects_bad_inputs(cuda_device):
     scene, cam = _adaptive_scene(0, cuda_device, True)
-    packed, tent, idx, flagged, _ = _worklist(cam, scene, True, 0.5 / 255, 0.25)
+    packed, _, tent, idx, flagged, _ = _worklist(cam, scene, True, 0.5 / 255, 0.25)
     kw = dict(depth=2, compat=True, cheap_shadow=True)
     with pytest.raises(ValueError, match="idx"):
         ac.launch_list(tent, *packed, idx.long(), flagged, **kw)
@@ -915,6 +971,10 @@ def test_list_kernel_rejects_bad_inputs(cuda_device):
         ac.launch_list(tent, *packed, idx, flagged.cpu(), **kw)
     with pytest.raises(ValueError, match="out"):
         ac.launch_list(tent.double(), *packed, idx, flagged, **kw)
+    # the small-scene instantiation takes no table
+    with pytest.raises(RuntimeError, match="worklist kernel failed"):
+        ac.launch_list(tent, *packed, idx, flagged, **kw,
+                       tree=ct.bounce_tree(scene.spheres.center, scene.spheres.radius))
     mixed = trt.Scene.from_leaves([t.cpu() if i == 0 else t
                                    for i, t in enumerate(scene.leaves())])
     with pytest.raises(ValueError, match="expected cuda"):

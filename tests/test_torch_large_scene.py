@@ -200,7 +200,7 @@ def test_hit_extents_plain_matches_pallas_interpret():
         compat=True, swap_xy=swap, aliasing=False, culled=True,
         vis_tabs=(idx_j, cnt_j), vis_k=ns, interpret=True, n_levels=1))
     ext_j = bridge.tile_rows_from_jax(ext_j, n_tx, n_ty, swap)
-    vis, _, _ = bridge.tables_from_arrays(vis=(
+    vis, _ = bridge.tables_from_arrays(vis=(
         bridge.tile_rows_from_jax(np.asarray(idx_j).reshape(-1, ns), n_tx, n_ty, swap),
         bridge.tile_rows_from_jax(np.asarray(cnt_j), n_tx, n_ty, swap), ns))
     # the port's own function gives those tables
@@ -273,9 +273,9 @@ def test_lists_cover_every_used_hit_and_occluder(aliasing, compat):
     scene = _planted()
     ns = scene.spheres.count
     cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
-    vis, shadow, groups = render_cuda.large_scene_tables(
+    vis, shadow, tree = render_cuda.large_scene_tables(
         cam, scene, depth=2, aliasing=aliasing, compat=compat)
-    assert groups is None and vis[2] == shadow[2] == 32
+    assert tree is None and vis[2] == shadow[2] == 32
     used, obj, Pb = _tile_hits(cam, scene, aliasing, compat)
     vis_rows, sh_rows = _rows(vis[0], vis[1]), _rows(shadow[0], shadow[1])
     assert any(r is not None and len(r) < ns for r in vis_rows)
@@ -321,8 +321,8 @@ def test_large_scene_tables_thresholds():
     assert vis is not None and shadow is not None and groups is None
     assert vis[2] == 17 and vis[0].shape == (4 * 17,) and shadow[0].shape == (4 * 3 * 17,)
     big = trt.random_scene(256, generator=g)
-    vis, shadow, groups = render_cuda.large_scene_tables(cam, big, **kw)
-    assert groups is not None and groups[2] == 16 and vis[2] == 32
+    vis, shadow, tree = render_cuda.large_scene_tables(cam, big, **kw)
+    assert tree is not None and tree.n_leaves == 256 // ct.LEAF and vis[2] == 32
     assert render_cuda.large_scene_tables(cam, big, depth=0, aliasing=False,
                                           compat=True)[2] is None
     assert render_cuda.large_scene_tables(cam, big, **kw, cull=False, shadow_lists=False,
@@ -332,6 +332,47 @@ def test_large_scene_tables_thresholds():
     assert render_cuda.CULL_MIN_SPHERES == jp._UNROLL_LIMIT
     assert render_cuda.GROUP_MIN_SPHERES == jp._GROUP_MIN_NS
     assert [ct.list_capacity(n) for n in (6, 100, 1000, 4000)] == [6, 32, 64, 128]
+
+
+def _groups_smem_bytes(ns, npl, nl):
+    """The render wrapper's shared-memory charge before the bounce tree: the
+    scene, both lists at their largest capacity and, above 16 spheres, the
+    16-sphere Morton groups (4 bound floats and 16 indices each) whatever the
+    depth."""
+    words = 41 + 7 * ns + 9 * npl + 3 * nl
+    if ns > 16:
+        k = ct.list_capacity(ns)
+        words += -(-ns // 16) * 20 + k + nl * (k + 1)
+    return 4 * words
+
+
+@pytest.mark.parametrize("npl,nl", [(1, 3), (0, 0), (1, 20), (4, 1)])
+def test_smem_check_counts_the_tree_only_where_it_is_built(npl, nl):
+    """The render wrapper charges the bounce tree's shared memory only where
+    large_scene_tables builds it (render_cuda.uses_tree): at depth 0 or with
+    group_cull off, the largest scene the groups' charge took, and one less,
+    still pass; with the tree, the largest scene is pinned (5600 spheres
+    with 1 plane and 3 lights, where the groups' charge took 6576)."""
+    limit = render_cuda._SMEM_LIMIT
+    ns_old = max(n for n in range(9000) if _groups_smem_bytes(n, npl, nl) <= limit)
+    for ns in (ns_old - 1, ns_old):
+        for depth, group_cull in ((0, None), (0, True), (2, False)):
+            assert not render_cuda.uses_tree(ns, depth, group_cull)
+        assert render_cuda._smem_bytes(ns, npl, nl, tree=False) <= limit
+    assert render_cuda.uses_tree(256, 1) and render_cuda.uses_tree(17, 1, True)
+    assert not render_cuda.uses_tree(255, 2) and not render_cuda.uses_tree(16, 2, True)
+    ns_tree = max(n for n in range(9000) if render_cuda._smem_bytes(n, npl, nl, tree=True)
+                  <= limit)
+    assert ns_tree == {(1, 3): 5600, (0, 0): 5643, (1, 20): 5369, (4, 1): 5625}[(npl, nl)]
+    if (npl, nl) == (1, 3):
+        assert ns_old == 6576
+        cam = trt.Camera.build((16, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
+        scene = trt.random_scene(ns_old, generator=torch.Generator().manual_seed(0))
+        dev = torch.device("cpu")
+        render_cuda._check_inputs(cam, scene, dev, render_cuda.uses_tree(ns_old, 0))
+        render_cuda._check_inputs(cam, scene, dev, render_cuda.uses_tree(ns_old, 2, False))
+        with pytest.raises(ValueError, match="shared memory"):
+            render_cuda._check_inputs(cam, scene, dev, render_cuda.uses_tree(ns_old, 2))
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(cull=False, shadow_lists=False,
@@ -363,15 +404,15 @@ def test_bridge_tables_and_tile_rows():
     want = np.array([rows[ty * 3 + tx] for tx in range(3) for ty in range(2)])
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(bridge.tile_rows_from_jax(rows, 3, 2, False), rows)
-    perm, bnd = np.arange(32)[::-1], np.ones(8)
-    vis, shadow, groups = bridge.tables_from_arrays(
-        vis=(rows, np.full(6, 2), 2), groups=(perm, bnd))
-    assert shadow is None and vis[2] == 2 and groups[2] == 2
-    assert vis[0].dtype == vis[1].dtype == groups[0].dtype == torch.int32
-    assert groups[1].dtype == torch.float32 and vis[0].shape == (12,)
-    hx.check_tables(vis, None, groups, n_tiles=6, ns=32, nl=0, dev=torch.device("cpu"))
+    vis, shadow = bridge.tables_from_arrays(vis=(rows, np.full(6, 2), 2))
+    assert shadow is None and vis[2] == 2
+    assert vis[0].dtype == vis[1].dtype == torch.int32 and vis[0].shape == (12,)
+    tree = ct.bounce_tree(torch.rand(32, 3), torch.full((32,), 0.1))
+    hx.check_tables(vis, None, tree, n_tiles=6, ns=32, nl=0, dev=torch.device("cpu"))
     with pytest.raises(ValueError, match="primary list indices"):
         hx.check_tables(vis, None, None, n_tiles=5, ns=32, nl=0, dev=torch.device("cpu"))
+    with pytest.raises(ValueError, match="bounce tree"):
+        hx.check_tables(None, None, tree, n_tiles=6, ns=40, nl=0, dev=torch.device("cpu"))
 
 
 def test_large_scene_bound_counts_listed_work():
@@ -403,3 +444,28 @@ def test_large_scene_bound_counts_listed_work():
     assert nbytes > nbytes_full
     none = timing.large_scene_work(64, 48, ns, npl, nl, "aa_none", None, None, ext)
     assert none[0] > ops
+
+
+def test_large_scene_bound_counts_bounce_levels():
+    """Hit-extent rows of levels 0..2 (levels fastest) add the bounce floor
+    to the level-0 bound: a traced bounce ray (set-up, planes, one sphere)
+    from each hit alive at the level before, and each hit alive past level 0
+    shaded (point, normal, and per light its direction, shadow set-up and
+    planes); the level-0 rows alone give the level-0 bound."""
+    W, H, ns, npl, nl = 40, 24, 30, 1, 3                   # 3 x 2 tiles
+    live = torch.tensor([[256, 200, 50], [128, 128, 0], [256, 0, 0], [128, 64, 64],
+                         [128, 100, 90], [64, 64, 64]], dtype=torch.float32)
+    ext = torch.zeros((6, 3, 8))
+    ext[:, :, 6] = live
+    lv0 = ext[:, 0].clone()
+    ops, nbytes = timing.large_scene_work(W, H, ns, npl, nl, "aa_none", None, None,
+                                          ext.reshape(18, 8))
+    ops0, nbytes0 = timing.large_scene_work(W, H, ns, npl, nl, "aa_none", None, None, lv0)
+    assert nbytes == nbytes0
+    traced = float(live[:, 0].sum() + live[:, 1].sum())
+    hits = float(live[:, 1].sum() + live[:, 2].sum())
+    assert ops - ops0 == traced * (timing.HIT_SETUP + npl * timing.HIT_PLANE +
+                                   timing.HIT_SPHERE) + \
+        hits * (timing.SURFACE + timing.SPHERE_NORMAL +
+                nl * (timing.LIGHT + timing.SHADOW_SETUP + npl * timing.HIT_PLANE))
+    assert timing.bounce_floor(live, npl, nl) == ops - ops0
