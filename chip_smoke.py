@@ -48,10 +48,23 @@ kernels 2 (``aa_shared``) and 7 (the worklist kernel) alone
 on the demo scene and 100 and 1000 spheres, at 1000 spheres at depth 0, 1 and
 2, the live samples of each trace level, the bounce tree's LEAF x FAN sweep
 (kernels built for each shape), its box and sphere tests a bounce ray, and
-ptxas's registers and spills; and the two kernels through their entry points
-(phase 20, ``[entry-time]``: wrapper and profiled kernel times). Every
-kernel's entry in the kernels line carries its bound (``utils/timing.py``: the
-FP32 operations and bytes the function needs, over the H100's peak rates).
+ptxas's registers and spills; the light cells of the bounce shadow rays
+(phase 21, ``[lightbuf-*]``): their build kernel against its plain version
+integer for integer at 100 and 1000 spheres and its times, what a bounce
+shadow ray reads and tests (the plain lookup traversal on every 16th pixel's
+chains, each answer held against the full any-hit), ``aa_none`` alone with the
+cells on and off (depth 0 / 1 / 2 at 1000 spheres), the centers pass of
+adaptive AA, ``aa_shared``, the worklist kernel and ``aa_per_sample``, every
+frame with the cells on ``torch.equal`` to the one without, the R x K sweep at
+1000 spheres (kernels built with -DRT_LC_R / -DRT_LC_K) and ptxas's
+registers; and kernels 1, 2 and 7 through their entry points (phase 20,
+``[entry-time]``: wrapper and profiled kernel times, the adaptive wrapper's
+centers pass and ``aa_per_sample`` among them, and ptxas's registers of the
+small-scene source). Every kernel's entry
+in the kernels line carries its bound (``utils/timing.py``: the FP32
+operations and bytes the function needs, over the H100's peak rates); the
+light-cell kernel has an entry of its own beside the seven TPU kernels'
+(``replaces`` null: no TPU kernel builds such a table).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -90,7 +103,8 @@ the pixels off by more than 1 level where no flagged pixel was dropped. A
 render with culls on against culls off: ``torch.equal``, the bounce tree
 included (it takes the least (t, index), so no sweep order moves a tie); the
 worklist kernel with its tables against the same launch without:
-``torch.equal``.
+``torch.equal``. The light cells' build kernel against its plain version:
+``torch.equal`` on every row, count and the header.
 In the kernels line, ``max_rel_err`` is the worst ratio of a
 difference to its allowance under the entry's rule (<= 1 passes).
 """
@@ -189,16 +203,31 @@ TREE_SHAPES = ((4, 8), (4, 16), (8, 8), (8, 16))   # (LEAF, FAN) of phase 19's s
 # The kernels' sources for a library of another tree shape (the render and
 # worklist kernels, large and small halves; the sweep needs nothing else).
 TREE_SWEEP_SOURCES = ("render_fwd.cu", "render_fwd_small.cu")
+# The light cells of the bounce shadow rays (phase 21): the build kernel, the
+# (R, K) shapes of the sweep (each built with -DRT_LC_R= -DRT_LC_K= from the
+# render, worklist and build kernels' sources).
+LC_SOURCE = "python_ray_tracer_tpu_torch/csrc/light_cells.cu"
+LC_SHAPES = ((32, 32), (32, 64), (64, 32), (64, 64))
+LC_SWEEP_SOURCES = ("render_fwd.cu", "render_fwd_small.cu", "light_cells.cu")
 ADAPTIVE_QUALITY = 0.005             # pixels off full AA by > 1 level (tests/test_adaptive.py)
 DEMO_ADAPTIVE_ATOL = 3e-5            # all flagged vs per-sample AA, demo scene
 DEMO_ADAPTIVE_CHANGED = 0.002
 PLAIN_LIST_MAX = 65536               # pixels of the plain trace at 1000 spheres
+# Launches of the light-cell kernel on the main paths (phases 14 and 17).
+MAIN_COUNTS = {"light_cells": 0}
 
 
 def frame_diff(a, b):
     """(flipped pixels, changed pixels, max level diff) of two uint8 (3,w,h)."""
     d = (a.int() - b.int()).abs().amax(dim=0)
     return int((d > FLIP_LEVELS).sum()), int((d > 0).sum()), int(d.max())
+
+
+def phase_time(label: str, t0: float) -> float:
+    """Print the seconds since ``t0`` that ``label`` took; returns now."""
+    now = time.perf_counter()
+    print(f"[smoke] {label} in {now - t0:.1f} s")
+    return now
 
 
 def check(cond: bool, msg: str) -> None:
@@ -924,6 +953,7 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
     from python_ray_tracer_tpu_torch import cli
     from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
     from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
     from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
     from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
@@ -1028,14 +1058,18 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
                     "--height", str(H), "--out", png] + ([] if aa else ["--no-aliasing"])
             render_cuda.reset_launch_counts()
             hx.reset_launch_counts()
+            lc.reset_launch_counts()
             check(cli.main(args) == 0, f"cli {' '.join(args)} failed")
             torch.cuda.synchronize()
-            got = {"hit_extents": hx.LAUNCHES["hit_extents"], **render_cuda.LAUNCHES}
+            got = {"hit_extents": hx.LAUNCHES["hit_extents"], **lc.LAUNCHES,
+                   **render_cuda.LAUNCHES}
             print(f"[large-main] cli {' '.join(args[:-2])}: launches {got}")
+            MAIN_COUNTS["light_cells"] += got["light_cells"]
             check(got["hit_extents"] == LARGE_FRAMES and got[mode] == LARGE_FRAMES and
+                  got["light_cells"] == LARGE_FRAMES and
                   sum(render_cuda.LAUNCHES.values()) == LARGE_FRAMES,
-                  f"{label}: launches {got}, expected {LARGE_FRAMES} hit_extents and "
-                  f"{LARGE_FRAMES} {mode}")
+                  f"{label}: launches {got}, expected {LARGE_FRAMES} hit_extents, "
+                  f"light_cells and {mode}")
             w, h, px = read_png(png)
             check((w, h) == LARGE_RES, f"{png}: {w}x{h}")
             img = rt.render_image_cuda(cam, scene, depth=2, aliasing=aa)
@@ -1067,8 +1101,8 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         params = render_cuda.pack_params(cam, scene, True).to(dev)
         tabs = render_cuda.scene_tables(scene)
         cheap = render_cuda.shadow_cheap_ok(scene, True)
-        vis, shadow, tree = render_cuda.large_scene_tables(cam, scene, depth=2,
-                                                           aliasing=aa, compat=True)
+        vis, shadow, tree, cells = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                                  aliasing=aa, compat=True)
         ext = torch.empty((vis[1].numel(), 8), device=dev)
         out = torch.empty((W, H, 3), device=dev)
         reps = 20 if ns <= 100 else 5
@@ -1080,10 +1114,11 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
             compat=True))
         t["tree"] = host_and_device_ms(lambda: ct.bounce_tree(scene.spheres.center,
                                                               scene.spheres.radius))
-        for name, tb in (("on", (vis, shadow, tree)), ("off", (None, None, None))):
+        for name, tb in (("on", (vis, shadow, tree, cells)), ("off", (None,) * 4)):
             t[name] = 1e3 * rt.time_fn(render_cuda.launch, out, params, tabs, cnt, depth=2,
                                        mode=mode, compat=True, cheap_shadow=cheap, vis=tb[0],
-                                       shadow=tb[1], tree=tb[2], warmup=2, iters=reps)
+                                       shadow=tb[1], tree=tb[2], cells=tb[3], warmup=2,
+                                       iters=reps)
         # the live counts of every trace level, for the bounds: one launch with
         # the render's tables at n_levels = depth + 1
         ext3 = hx.hit_extents_cuda(cam, scene, aliasing=aa, n_levels=3, vis=vis,
@@ -1117,7 +1152,8 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
               f"off {t['wrapper_off']:.4f} ms{plain_txt} | {card}")
         print(f"[large-lists] {label}: K={k}; primary rows mean {vm:.2f} spheres, -1 rows "
               f"{vo:.4f}; shadow rows mean {sm:.2f} spheres, -1 rows {so:.4f}; bounce tree "
-              f"{f'{tree.n_leaves} leaves of {ct.LEAF}, fan {ct.FAN}' if tree else 'off'};"
+              f"{f'{tree.n_leaves} leaves of {ct.LEAF}, fan {ct.FAN}' if tree else 'off'}; "
+              f"light cells {'on' if cells is not None else 'off'};"
               f" live samples at levels 0-2 (hit_extents, n_levels 3) {live}")
         print(f"[bound] hit_extents {label}: {t['k3_bound'][0]:.4f} ms ({t['k3_bound'][1]}) vs "
               f"kernel alone {t['k3']:.4f} ms; render all culls on {t['on_bound'][0]:.4f} ms "
@@ -1200,6 +1236,7 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
     from python_ray_tracer_tpu_torch.ops import adaptive as adp
     from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac
     from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
     from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
     from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
@@ -1223,9 +1260,9 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
     def worklist(cam, scene, compat, eps, budget):
         """``(packed, tables, tent, idx, flagged, dropped)``, the tables as
         launch_list's keywords."""
-        packed, (vis, shadow, tree), *rest = ac.worklist_inputs(
+        packed, (vis, shadow, tree, cells), *rest = ac.worklist_inputs(
             cam, scene, depth=2, compat=compat, eps=eps, budget_frac=budget)
-        return (packed, dict(vis=vis, shadow=shadow, tree=tree), *rest)
+        return (packed, dict(vis=vis, shadow=shadow, tree=tree, cells=cells), *rest)
 
     def plain_trace(cam, scene, idx, n, tent, compat):
         """The plain trace of the first n listed pixels, in blocks that bound
@@ -1312,6 +1349,7 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         render_cuda.reset_launch_counts()
         hx.reset_launch_counts()
         ac.reset_launch_counts()
+        lc.reset_launch_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(args)
@@ -1319,12 +1357,14 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         text = buf.getvalue()
         print(text, end="")
         check(rc == 0, f"cli {' '.join(args)} failed")
-        got = {**ac.LAUNCHES, **render_cuda.LAUNCHES, **hx.LAUNCHES}
+        got = {**ac.LAUNCHES, **render_cuda.LAUNCHES, **hx.LAUNCHES, **lc.LAUNCHES}
         print(f"[adaptive-main] cli {' '.join(args[:-2])}: launches {got}")
         want = {"render_list": LARGE_FRAMES, "aa_none": LARGE_FRAMES, "aa_per_sample": 0,
-                "aa_shared": 0, "hit_extents": LARGE_FRAMES if n else 0}
+                "aa_shared": 0, "hit_extents": LARGE_FRAMES if n else 0,
+                "light_cells": LARGE_FRAMES if n else 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         launches += got["render_list"]
+        MAIN_COUNTS["light_cells"] += got["light_cells"]
         line = next((ln for ln in text.splitlines() if ln.startswith("[adaptive-aa] flagged")),
                     None)
         check(line is not None, f"{label}: no stats line")
@@ -1452,17 +1492,22 @@ def ptxas_report(csrc: str, source: str, out_dir: str):
     os.makedirs(out_dir, exist_ok=True)
     return subprocess.Popen(
         [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-c", "-o",
-         os.path.join(out_dir, f"ptxas_{os.getpid()}.o"), os.path.join(csrc, source)],
+         os.path.join(out_dir, f"ptxas_{os.getpid()}_{source}.o"), os.path.join(csrc, source)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
 def ptxas_lines(proc) -> list:
-    """``(kernel, registers, spill stores, spill loads, stack)`` of each entry
-    function in a :func:`ptxas_report`'s output, names demangled by c++filt
-    where it exists."""
-    import re
+    """:func:`ptxas_rows` of a :func:`ptxas_report`'s output."""
     _, err = proc.communicate(timeout=900)
     check(proc.returncode == 0, f"nvcc -Xptxas -v failed:\n{err[-3000:]}")
+    return ptxas_rows(err)
+
+
+def ptxas_rows(err: str) -> list:
+    """``(kernel, registers, spill stores, spill loads, stack)`` of each entry
+    function in the stderr of ``nvcc -Xptxas -v``, names demangled by c++filt
+    where it exists."""
+    import re
     rows, name, spill = [], None, (0, 0, 0)
     for line in err.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1486,7 +1531,77 @@ def ptxas_lines(proc) -> list:
     return rows
 
 
-def bounce_phase(torch, rt, card: str, dev) -> None:
+# The render and worklist kernels' launch bounds in render_fwd_kernel.cuh
+# (their minimum of resident blocks a multiprocessor); phase 21 builds them
+# again with each replaced by 0 (no minimum, ptxas's own register choice).
+MIN_BLOCKS_EXPRS = ("TABLES ? (MODE == AA_PER_SAMPLE ? 2 : 3) : 0", "TABLES ? 2 : 0")
+
+
+def build_without_min_blocks():
+    """The library of render_fwd.cu and render_fwd_small.cu from a copy of
+    csrc/ (in the build directory) whose render_fwd_kernel.cuh asks for no
+    minimum of resident blocks in any instantiation, with the package's nvcc
+    flags and ``-Xptxas -v``; returns its path and ptxas's rows of
+    render_fwd.cu (:func:`ptxas_rows`)."""
+    import shutil
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    src = os.path.join(_build.BUILD_DIR, f"no_min_blocks_{os.getpid()}")
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build.CSRC_DIR, src)
+    hdr = os.path.join(src, "render_fwd_kernel.cuh")
+    with open(hdr) as f:
+        text = f.read()
+    for expr in MIN_BLOCKS_EXPRS:
+        check(text.count(expr) == 1, f"render_fwd_kernel.cuh has no launch bound {expr!r}")
+        text = text.replace(expr, "0")
+    with open(hdr, "w") as f:
+        f.write(text)
+    nvcc = _build.find_nvcc()
+    objs = [os.path.join(src, f"{name}.o") for name in TREE_SWEEP_SOURCES]
+    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", src, "-c",
+                               "-o", obj, os.path.join(src, name)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for name, obj in zip(TREE_SWEEP_SOURCES, objs)]
+    errs = []
+    for p in procs:
+        _, err = p.communicate(timeout=900)
+        check(p.returncode == 0, f"nvcc failed on the copy without minimum blocks:\n{err}")
+        errs.append(err)
+    so = os.path.join(src, "librt_no_min_blocks.so")
+    proc = subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", so, *objs],
+                          capture_output=True, text=True, timeout=900)
+    check(proc.returncode == 0, f"nvcc link failed:\n{proc.stderr}")
+    return so, ptxas_rows(errs[TREE_SWEEP_SOURCES.index("render_fwd.cu")])
+
+
+def start_sweep_builds():
+    """Start the compiles of phases 19 and 21 together: the render and
+    worklist kernels for the other bounce-tree shapes (TREE_SHAPES) and the
+    other light-cell shapes (LC_SHAPES, with the build kernel), those kernels
+    without a minimum of resident blocks (:func:`build_without_min_blocks`),
+    and ptxas reports of render_fwd.cu, hit_extents.cu and light_cells.cu.
+    Returns ``(futures by ("tree" | "cells", shape) and ("bounds", None),
+    ptxas processes by source, start time)``."""
+    from concurrent.futures import ThreadPoolExecutor
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
+    t0 = time.perf_counter()
+    procs = {src: ptxas_report(_build.CSRC_DIR, src, _build.BUILD_DIR)
+             for src in ("render_fwd.cu", "hit_extents.cu", "light_cells.cu")}
+    jobs = [("tree", s, TREE_SWEEP_SOURCES, (f"-DRT_LEAF={s[0]}", f"-DRT_FAN={s[1]}"))
+            for s in TREE_SHAPES if s != (ct.LEAF, ct.FAN)]
+    jobs += [("cells", s, LC_SWEEP_SOURCES, (f"-DRT_LC_R={s[0]}", f"-DRT_LC_K={s[1]}"))
+             for s in LC_SHAPES if s != (lc.R, lc.K)]
+    pool = ThreadPoolExecutor(len(jobs) + 1)
+    futs = {(kind, shape): pool.submit(_build.build, srcs, defs)
+            for kind, shape, srcs, defs in jobs}
+    futs[("bounds", None)] = pool.submit(build_without_min_blocks)
+    pool.shutdown(wait=False)
+    return futs, procs, t0
+
+
+def bounce_phase(torch, rt, card: str, dev, builds) -> list:
     """Phase 19: the large-scene bounce sweeps of kernels 2 (``aa_shared``)
     and 7 (the worklist kernel) at 1920x1080, compat, the CLI's camera and
     scenes: each kernel alone on the demo scene and 100 and 1000 spheres
@@ -1498,9 +1613,9 @@ def bounce_phase(torch, rt, card: str, dev) -> None:
     -DRT_FAN, each frame ``torch.equal`` to the package's) and its box and
     sphere tests a bounce ray (the plain traversal on the chains of every
     16th pixel); ptxas's registers and spills of render_fwd.cu's and
-    hit_extents.cu's instantiations. The compiles all run before the first
-    timing."""
-    from concurrent.futures import ThreadPoolExecutor
+    hit_extents.cu's instantiations. The compiles (:func:`start_sweep_builds`,
+    phase 21's among them) all end before the first timing. Returns
+    render_fwd.cu's ptxas rows."""
     from python_ray_tracer_tpu_torch.ops.cuda import _build
     from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac
     from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
@@ -1508,20 +1623,19 @@ def bounce_phase(torch, rt, card: str, dev) -> None:
     from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
 
-    t0 = time.perf_counter()
-    procs = [ptxas_report(_build.CSRC_DIR, src, _build.BUILD_DIR)
-             for src in ("render_fwd.cu", "hit_extents.cu")]
-    others = [s for s in TREE_SHAPES if s != (ct.LEAF, ct.FAN)]
-    with ThreadPoolExecutor(len(others)) as pool:
-        paths = pool.map(lambda s: _build.build(TREE_SWEEP_SOURCES, (f"-DRT_LEAF={s[0]}",
-                                                                     f"-DRT_FAN={s[1]}")),
-                         others)
-        libs = {s: _build.declare(ctypes.CDLL(p)) for s, p in zip(others, paths)}
-    regs = [ptxas_lines(p) for p in procs]
+    futs, procs, t0 = builds
+    libs = {s: _build.declare(ctypes.CDLL(f.result())) for (kind, s), f in futs.items()
+            if kind == "tree"}
+    for f in futs.values():
+        f.result()
+    regs = [ptxas_lines(procs[src]) for src in ("render_fwd.cu", "hit_extents.cu")]
     for s, lib in libs.items():
         check(_build.tree_shape(lib) == s, f"library for {s} reports {_build.tree_shape(lib)}")
+    others = list(libs)
     libs[(ct.LEAF, ct.FAN)] = _build.load_library()
-    print(f"[tree-build] kernels for tree shapes {others} and the ptxas reports in "
+    print(f"[tree-build] kernels for tree shapes {others}, light-cell shapes "
+          f"{[s for kind, s in futs if kind == 'cells']}, the kernels without a minimum "
+          f"of resident blocks and the ptxas reports in "
           f"{time.perf_counter() - t0:.1f} s")
 
     cfg = RenderConfig()
@@ -1545,20 +1659,22 @@ def bounce_phase(torch, rt, card: str, dev) -> None:
         def k2(depth, tb=t2):
             return render_cuda.launch(out, params, tabs, (ns, npl, nl), depth=depth,
                                       mode="aa_shared", compat=True, cheap_shadow=cheap,
-                                      vis=tb[0], shadow=tb[1], tree=tb[2])
+                                      vis=tb[0], shadow=tb[1], tree=tb[2], cells=tb[3])
 
         def k7(depth, tb=t7):
             return ac.launch_list(lout, *packed, idx, flagged, depth=depth, compat=True,
-                                  cheap_shadow=cheap, vis=tb[0], shadow=tb[1], tree=tb[2])
+                                  cheap_shadow=cheap, vis=tb[0], shadow=tb[1], tree=tb[2],
+                                  cells=tb[3])
         depths = (0, 1, 2) if ns >= 1000 else (2,)
         ms2 = {d: 1e3 * rt.time_fn(k2, d, warmup=2, iters=reps) for d in depths}
         ms7 = {d: 1e3 * rt.time_fn(k7, d, warmup=2, iters=reps) for d in depths}
-        on = [k for k, v in zip(("vis", "shadow", "tree"), t2) if v is not None]
+        on = [k for k, v in zip(("vis", "shadow", "tree", "cells"), t2) if v is not None]
         print(f"[tree-time] {'demo' if n == 0 else f'{n}_spheres'} {W}x{H} compat, tables "
               f"{on}: aa_shared kernel alone " +
               ", ".join(f"depth {d} {v:.4f} ms" for d, v in ms2.items()) +
               f"; worklist kernel alone ({int(flagged)} flagged, tables "
-              f"{[k for k, v in zip(('vis', 'shadow', 'tree'), t7) if v is not None]}) " +
+              f"{[k for k, v in zip(('vis', 'shadow', 'tree', 'cells'), t7) if v is not None]})"
+              " " +
               ", ".join(f"depth {d} {v:.4f} ms" for d, v in ms7.items()) + f" | {card}")
         if ns < 1000:
             continue
@@ -1577,14 +1693,14 @@ def bounce_phase(torch, rt, card: str, dev) -> None:
         for (leaf, fan), lib in libs.items():
             tr = ct.bounce_tree(scene.spheres.center, scene.spheres.radius, leaf=leaf,
                                 fan=fan)
-            v, sh, g = hx.table_args(t2[0], t2[1], tr)
-            vl, shl, gl = hx.table_args(t7[0], t7[1], tr)
+            v, sh, g, c2 = hx.table_args(t2[0], t2[1], tr, t2[3])
+            vl, shl, gl, c7 = hx.table_args(t7[0], t7[1], tr, t7[3])
 
             def s2():
                 rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
                                        npl, lts.data_ptr(), nl, out.data_ptr(), W, H, 2,
                                        render_cuda.MODES.index("aa_shared"), 1, int(cheap), 1,
-                                       *v, *sh, *g, stream)
+                                       *v, *sh, *g, *c2, stream)
                 check(rc == 0, f"aa_shared for tree shape {(leaf, fan)}: CUDA error {rc}")
                 return out
 
@@ -1592,7 +1708,7 @@ def bounce_phase(torch, rt, card: str, dev) -> None:
                 rc = lib.rt_render_list(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
                                         npl, lts.data_ptr(), nl, idx.data_ptr(),
                                         flagged.data_ptr(), idx.numel(), lout.data_ptr(), W,
-                                        H, 2, 1, int(cheap), 1, *vl, *shl, *gl, stream)
+                                        H, 2, 1, int(cheap), 1, *vl, *shl, *gl, *c7, stream)
                 check(rc == 0, f"worklist kernel for tree shape {(leaf, fan)}: CUDA error {rc}")
                 return lout
             s2()
@@ -1641,6 +1757,321 @@ def bounce_phase(torch, rt, card: str, dev) -> None:
         for name, nregs, st, ld, stack in rows:
             print(f"[tree-regs] {name}: {nregs} registers, spill stores {st} B, loads "
                   f"{ld} B, stack {stack} B")
+    return regs[0]
+
+
+def lightbuf_phase(torch, rt, card: str, dev, builds, fwd_regs) -> list:
+    """Phase 21 (``[lightbuf-*]``): the light cells of the bounce shadow rays
+    at 1920x1080, compat, the CLI's camera and scenes. ``[lightbuf-build]``:
+    the build kernel against its plain version, integer for integer, at 100
+    and 1000 spheres, its time alone, through its wrapper and the plain
+    version's, and its bound. ``[lightbuf-work]``: on the chains of every
+    16th pixel (each light at 100 spheres, light 0 at 1000), what a bounce
+    shadow ray reads (its row's length), the share that falls back and its
+    sphere tests, by the plain lookup traversal, each ray's answer held
+    against the full any-hit, beside the sweep of before (the tree's box and
+    sphere tests, or the full sweep's). ``[lightbuf-time]``: ``aa_none`` alone
+    with the cells on and off (the same kernel; depth 0 / 1 / 2 at 1000
+    spheres), the centers pass of adaptive AA (``aa_none`` on the AA
+    lattice's tables), ``aa_shared``, the worklist kernel and, at 100 and 1000
+    spheres, ``aa_per_sample`` (which take the lookup through ``trace``),
+    every frame with the cells on ``torch.equal`` to the one with them off;
+    the no-AA wrapper; the bounds. The R x K sweep at 1000 spheres
+    (``[lightbuf-sweep]``, libraries from :func:`start_sweep_builds`).
+    ``[lightbuf-bounds]``: ``aa_none``, ``aa_shared``, ``aa_per_sample`` and
+    the worklist kernel alone at 100 and 1000 spheres with their launch
+    bounds and without a minimum of resident blocks (ptxas's own register
+    choice, :func:`build_without_min_blocks`), frames ``torch.equal``.
+    ``[lightbuf-regs]``: ptxas's registers and spills of render_fwd.cu's
+    instantiations (all of them TABLES) and of the build kernel. Returns the
+    build kernel's entry of the kernels line."""
+    from python_ray_tracer_tpu_torch.ops import intersect
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.ops.shade import BIAS, _surface_attributes, reflect
+    from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+
+    cfg = RenderConfig()
+    W, H = LARGE_RES
+    cam = rt.Camera.build(LARGE_RES, cfg.camera_position, cfg.camera_euler, cfg.fov,
+                          device=dev)
+    per = 3 * lc.R * lc.R
+
+    def rows_of(cells):
+        cnt = cells.cnt.float()
+        return (float(cnt[cnt >= 0].mean()), int(cells.cnt.max()),
+                float((cnt < 0).float().mean()))
+
+    built = {}
+    for n in LARGE_SPHERES:
+        scene = scene_of(rt, cfg, n, dev)
+        ns, npl, nl = counts(scene)
+        sph, _, lts = render_cuda.scene_tables(scene)
+        c, r, L = scene.spheres.center, scene.spheres.radius, scene.lights.position
+        cells = lc.light_cells_cuda(sph, lts, ns, nl)
+        plain = lc.light_cells_plain(c, r, L)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("idx", "cnt", "hdr"), cells, plain):
+            if not torch.equal(a, b):
+                bad = torch.nonzero(a.reshape(-1) != b.reshape(-1)).reshape(-1)[:8].tolist()
+                check(False, f"light cells {n} spheres: {name} differs from the plain "
+                      f"version at {bad}")
+        buf = lc.empty(nl, dev)
+        t = {"kernel": 1e3 * rt.time_fn(lc.launch, buf, sph, lts, ns, nl, warmup=2, iters=50),
+             "wrapper": 1e3 * rt.time_fn(lc.light_cells_cuda, sph, lts, ns, nl, warmup=2,
+                                         iters=50),
+             "plain": 1e3 * rt.time_fn(lc.light_cells_plain, c, r, L, warmup=1, iters=3),
+             "bound": timing.bound_ms(*timing.light_cells_work(ns, nl, lc.R, lc.K))}
+        mean, longest, over = rows_of(cells)
+        print(f"[lightbuf-build] {n}_spheres, {nl} lights, R {lc.R}, K {lc.K}: kernel equals "
+              f"the plain version integer for integer (reach {float(cells.hdr[0]):.6g}, "
+              f"s_max {float(cells.hdr[1]):.6g}); kernel alone {t['kernel']:.4f} ms, wrapper "
+              f"{t['wrapper']:.4f} ms, plain {t['plain']:.4f} ms, bound {t['bound'][0]:.4f} "
+              f"ms ({t['bound'][1]}); rows mean {mean:.2f} spheres, longest {longest}, -1 "
+              f"rows {over:.4f} | {card}")
+        built[n] = (scene, cells, t)
+
+        # what a bounce shadow ray reads and tests, on every 16th pixel's chain
+        xs, ys = torch.meshgrid(torch.arange(8, W, 16.0, device=dev),
+                                torch.arange(8, H, 16.0, device=dev), indexing="ij")
+        d = cam.ray_directions(torch.stack([xs, ys], -1).reshape(-1, 2), compat=True)
+        o = cam.ray_origin().expand(d.shape)
+        tree = ct.bounce_tree(c, r) if render_cuda.uses_tree(ns, 2) else None
+        cheap = render_cuda.shadow_cheap_ok(scene, True)
+        for level in range(3):
+            h = intersect.closest_hit(o, d, scene, compat=True)
+            alive = h["hit"]
+            P = o + torch.where(alive, h["t"], torch.zeros_like(h["t"]))[..., None] * d
+            _, N = _surface_attributes(P, h, scene)
+            Pb = P + BIAS * N
+            if level:
+                P1 = Pb[alive]
+                for li in range(nl if ns < 1000 else 1):
+                    v = L[li] - P1
+                    dl = v / torch.sqrt(intersect._dot(v, v))[:, None]
+                    occ, fb, tests = lc.occluded_cells_plain(cells, P1, dl, li, c, r,
+                                                             compat=True, cheap=cheap,
+                                                             tree=tree)
+                    occ_all = ct.sphere_occludes_plain(P1, dl, c, r, compat=True, cheap=cheap)
+                    full = occ_all.any(dim=1)
+                    check(torch.equal(occ, full), f"light cells {n} spheres level {level} "
+                          f"light {li}: {int((occ != full).sum())} rays differ from the "
+                          f"full any-hit")
+                    cell = lc.light_cell_of(dl)
+                    read = cells.cnt[li * per + cell.clamp(min=0)].float()[~fb]
+                    if tree is not None:
+                        _, bb, bs = ct.tree_occluded_plain(tree, P1, dl, c, r, compat=True,
+                                                           cheap=cheap)
+                        before = (f"the tree {bb.double().mean():.2f} box and "
+                                  f"{bs.double().mean():.2f} sphere tests")
+                    else:
+                        first = torch.where(full, occ_all.int().argmax(dim=1) + 1,
+                                            torch.full_like(full, ns, dtype=torch.int64))
+                        before = f"the full sweep {first.double().mean():.2f} sphere tests"
+                    print(f"[lightbuf-work] {n}_spheres level {level} light {li}: "
+                          f"{P1.shape[0]} bounce shadow rays, any-hit equal to the full "
+                          f"sweep's; fallback {float(fb.double().mean()):.4f}; row read "
+                          f"{float(read.double().mean()) if read.numel() else 0.0:.2f} "
+                          f"spheres; {float(tests.double().mean()):.2f} sphere tests a ray; "
+                          f"before: {before}")
+            d2 = reflect(d, N)
+            o, d = (Pb + BIAS * d2)[alive], d2[alive]
+
+    # each kernel alone, cells on and off, frames equal
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    for n in ADAPTIVE_SCENES:
+        scene = scene_of(rt, cfg, n, dev)
+        ns, npl, nl = cnt = counts(scene)
+        params = render_cuda.pack_params(cam, scene, True).to(dev)
+        tabs = render_cuda.scene_tables(scene)
+        cheap = render_cuda.shadow_cheap_ok(scene, True)
+        out = torch.empty((W, H, 3), device=dev)
+        reps = 50 if n == 0 else 20 if n <= 100 else 10
+        t1 = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=False, compat=True)
+        ta = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=True, compat=True)
+        packed, t7, tent, idx, flagged, _ = ac.worklist_inputs(
+            cam, scene, depth=2, compat=True, eps=ADAPTIVE_EPS, budget_frac=ADAPTIVE_BUDGET)
+        lout = tent.clone()
+
+        def k(mode, depth, tb):
+            return render_cuda.launch(out, params, tabs, cnt, depth=depth, mode=mode,
+                                      compat=True, cheap_shadow=cheap, vis=tb[0],
+                                      shadow=tb[1], tree=tb[2], cells=tb[3])
+
+        def k7(depth, tb):
+            return ac.launch_list(lout, *packed, idx, flagged, depth=depth, compat=True,
+                                  cheap_shadow=cheap, vis=tb[0], shadow=tb[1], tree=tb[2],
+                                  cells=tb[3])
+        runs = [("aa_none", lambda dp, tb: k("aa_none", dp, tb), t1,
+                 (0, 1, 2) if ns >= 1000 else (2,)),
+                ("centers pass", lambda dp, tb: k("aa_none", dp, tb), ta, (2,)),
+                ("aa_shared (inherited)", lambda dp, tb: k("aa_shared", dp, tb), ta, (2,)),
+                ("worklist (inherited)", k7, t7, (2,))]
+        if n:
+            runs.append(("aa_per_sample (inherited)",
+                         lambda dp, tb: k("aa_per_sample", dp, tb), ta, (2,)))
+        parts = []
+        for label, fn, tb, depths in runs:
+            for depth in depths:
+                on = fn(depth, tb).clone()
+                ms_on = 1e3 * rt.time_fn(fn, depth, tb, warmup=2, iters=reps)
+                if tb[3] is None:
+                    parts.append(f"{label} depth {depth} {ms_on:.4f} ms")
+                    continue
+                off_tb = (*tb[:3], None)
+                off = fn(depth, off_tb).clone()
+                torch.cuda.synchronize()
+                check(torch.equal(on, off), f"{n} spheres {label} depth {depth}: "
+                      f"{int((on != off).any(-1).sum())} pixels differ with the cells off")
+                ms_off = 1e3 * rt.time_fn(fn, depth, off_tb, warmup=2, iters=reps)
+                parts.append(f"{label} depth {depth} {ms_on:.4f} ms (cells off {ms_off:.4f},"
+                             f" {ms_on / ms_off:.3f}x)")
+        wrapper = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2, aliasing=False,
+                                   warmup=2, iters=reps)
+        if n:
+            ext3 = hx.hit_extents_cuda(cam, scene, aliasing=False, n_levels=3, vis=t1[0],
+                                       tree=ct.bounce_tree(scene.spheres.center,
+                                                           scene.spheres.radius))
+            bound = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, "aa_none",
+                                                             t1[0], t1[1], ext3))
+            cbound = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, "aa_none",
+                                                              ta[0], ta[1], ext3))
+            btxt = (f"bound {bound[0]:.4f} ms ({bound[1]}), centers pass {cbound[0]:.4f} ms "
+                    f"({cbound[1]})")
+        else:
+            bound = timing.bound_ms(*timing.hard_work(W, H, ns, npl, nl, "aa_none"))
+            btxt = f"bound {bound[0]:.4f} ms ({bound[1]})"
+        print(f"[lightbuf-time] {'demo' if n == 0 else f'{n}_spheres'} {W}x{H} compat, "
+              f"kernels alone: " + "; ".join(parts) + f"; no-AA wrapper {wrapper:.4f} ms; "
+              f"{btxt} | {card}")
+
+    # the R x K sweep: each shape's build kernel and render kernel
+    futs = builds[0]
+    for shape in LC_SHAPES:
+        lib = (_build.load_library() if shape == (lc.R, lc.K) else
+               _build.declare(ctypes.CDLL(futs[("cells", shape)].result())))
+        check(_build.light_cells_shape(lib) == shape,
+              f"library for light cells {shape} reports {_build.light_cells_shape(lib)}")
+        for n in LARGE_SPHERES[-1:]:
+            scene, ref_cells, _ = built[n]
+            ns, npl, nl = counts(scene)
+            params = render_cuda.pack_params(cam, scene, True).to(dev)
+            sph, pln, lts = render_cuda.scene_tables(scene)
+            cheap = render_cuda.shadow_cheap_ok(scene, True)
+            t1 = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=False,
+                                                compat=True, light_cells=False)
+            cells = lc.launch(lc.empty(nl, dev, *shape), sph, lts, ns, nl, lib=lib)
+            plain = lc.light_cells_plain(scene.spheres.center, scene.spheres.radius,
+                                         scene.lights.position, r=shape[0], k=shape[1])
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(cells, plain)),
+                  f"light cells {shape} at {n} spheres differ from the plain version")
+            out = torch.empty((W, H, 3), device=dev)
+            args = [a for grp in hx.table_args(*t1[:3], cells) for a in grp]
+
+            def s1():
+                rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
+                                       npl, lts.data_ptr(), nl, out.data_ptr(), W, H, 2,
+                                       render_cuda.MODES.index("aa_none"), 1, int(cheap), 1,
+                                       *args, stream)
+                check(rc == 0, f"aa_none for light cells {shape}: CUDA error {rc}")
+                return out
+            ref = render_cuda.render_packed(cam, scene, (params, (sph, pln, lts),
+                                                         (ns, npl, nl)),
+                                            depth=2, mode="aa_none", compat=True,
+                                            tabs=(*t1[:3], None)).clone()
+            s1()
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"light cells {shape} changed the {n}-sphere frame")
+            ms = 1e3 * rt.time_fn(s1, warmup=2, iters=20 if n <= 100 else 10)
+            bms = 1e3 * rt.time_fn(lc.launch, cells, sph, lts, ns, nl, lib=lib, warmup=2,
+                                   iters=20)
+            mean, longest, over = rows_of(cells)
+            print(f"[lightbuf-sweep] {n}_spheres R {shape[0]} K {shape[1]}: aa_none kernel "
+                  f"alone {ms:.4f} ms, build kernel alone {bms:.4f} ms, rows mean "
+                  f"{mean:.2f}, longest {longest}, -1 rows {over:.4f}, frame equal to the "
+                  f"cells-off frame{' (the constants)' if shape == (lc.R, lc.K) else ''}"
+                  f" | {card}")
+
+    # the launch bounds against none (ptxas's own register choice): each kernel
+    # alone, both libraries in turns (A B B A, the least of each), frames equal
+    free_so, free_regs = futs[("bounds", None)].result()
+    free = _build.declare(ctypes.CDLL(free_so))
+    for name, nregs, st, ld, stack in free_regs:
+        print(f"[lightbuf-bounds] without a minimum of blocks, {name}: {nregs} registers, "
+              f"spill stores {st} B, loads {ld} B, stack {stack} B")
+    for n in LARGE_SPHERES:
+        scene = scene_of(rt, cfg, n, dev)
+        ns, npl, nl = counts(scene)
+        params = render_cuda.pack_params(cam, scene, True).to(dev)
+        sph, pln, lts = render_cuda.scene_tables(scene)
+        cheap = render_cuda.shadow_cheap_ok(scene, True)
+        t1 = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=False, compat=True)
+        ta = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=True, compat=True)
+        _, t7, tent, idx, flagged, _ = ac.worklist_inputs(
+            cam, scene, depth=2, compat=True, eps=ADAPTIVE_EPS, budget_frac=ADAPTIVE_BUDGET)
+
+        def fwd(lib, mode, tb):
+            args = [a for grp in hx.table_args(*tb) for a in grp]
+            buf = torch.empty((W, H, 3), device=dev)
+
+            def run():
+                rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
+                                       npl, lts.data_ptr(), nl, buf.data_ptr(), W, H, 2,
+                                       render_cuda.MODES.index(mode), 1, int(cheap), 1,
+                                       *args, stream)
+                check(rc == 0, f"{mode} without minimum blocks: CUDA error {rc}")
+                return buf
+            return run
+
+        def lst(lib, tb):
+            args = [a for grp in hx.table_args(*tb) for a in grp]
+            buf = tent.clone()
+
+            def run():
+                rc = lib.rt_render_list(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
+                                        npl, lts.data_ptr(), nl, idx.data_ptr(),
+                                        flagged.data_ptr(), idx.numel(), buf.data_ptr(), W, H,
+                                        2, 1, int(cheap), 1, *args, stream)
+                check(rc == 0, f"worklist kernel without minimum blocks: CUDA error {rc}")
+                return buf
+            return run
+        pkg = _build.load_library()
+        parts = []
+        for label, make in (("aa_none", lambda lib: fwd(lib, "aa_none", t1)),
+                            ("aa_shared", lambda lib: fwd(lib, "aa_shared", ta)),
+                            ("aa_per_sample", lambda lib: fwd(lib, "aa_per_sample", ta)),
+                            ("worklist", lambda lib: lst(lib, t7))):
+            a, b = make(pkg), make(free)
+            fa, fb = a().clone(), b().clone()
+            torch.cuda.synchronize()
+            check(torch.equal(fa, fb), f"{n} spheres {label}: the launch bounds changed "
+                  f"{int((fa != fb).any(-1).sum())} pixels")
+            reps = 20 if n <= 100 else 10
+            ms = {id(a): [], id(b): []}
+            for fn in (a, b, b, a):
+                ms[id(fn)].append(1e3 * rt.time_fn(fn, warmup=2, iters=reps))
+            ma, mb = min(ms[id(a)]), min(ms[id(b)])
+            parts.append(f"{label} {ma:.4f} ms (no minimum {mb:.4f}, {ma / mb:.3f}x)")
+        print(f"[lightbuf-bounds] {n}_spheres {W}x{H} compat depth 2, kernels alone with the "
+              f"launch bounds: " + "; ".join(parts) + f"; frames equal | {card}")
+
+    for name, nregs, st, ld, stack in fwd_regs + ptxas_lines(builds[1]["light_cells.cu"]):
+        print(f"[lightbuf-regs] {name}: {nregs} registers, spill stores {st} B, loads "
+              f"{ld} B, stack {stack} B")
+    check(MAIN_COUNTS["light_cells"] > 0, "the main paths launched no light-cell build")
+    scene, cells, t = built[LARGE_SPHERES[-1]]
+    return [{"name": "light_cells", "route": "cuda", "source": LC_SOURCE,
+             "replaces": None, "launches": MAIN_COUNTS["light_cells"],
+             "max_abs_err": 0.0, "ms": t["wrapper"], "kernel_only_ms": t["kernel"],
+             "plain_ms": t["plain"], "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+             "library_ms": None, "shape": f"{LARGE_SPHERES[-1]}_spheres_3_lights",
+             "part_of": "render_fwd_aa_none_large: the bounce shadow rays' tables"}]
 
 
 def scene_of(rt, cfg, n: int, dev):
@@ -1655,16 +2086,22 @@ def scene_of(rt, cfg, n: int, dev):
 
 def entry_times(torch, rt, card: str, dev, label: str) -> None:
     """Phase 20 (``[entry-time]``), also run alone by ``--entry-times DIR`` on
-    the package of another checkout: kernels 2 and 7 through the entry points
-    a user calls, ``render_image_cuda`` (AA, so ``aa_shared``) and
-    ``render_image_adaptive_cuda``, at 1920x1080, compat, the CLI's camera, on
-    the demo scene and 100 spheres at depth 2 and on 1000 spheres at depth 0,
-    1 and 2: each wrapper's time (CUDA events) and the device time of its
-    kernel a call (torch.profiler; "not measured" where the profiler reports
-    none). The entry points' signatures are the same in every tree of the
-    port, so two checkouts' lines can be set side by side."""
+    the package of another checkout: kernels 2, 7 and 1 through the entry
+    points a user calls, ``render_image_cuda`` (AA, so ``aa_shared``; AA with
+    ``aa_share=False``, so ``aa_per_sample``, at 100 and 1000 spheres; and
+    without AA, so ``aa_none``) and ``render_image_adaptive_cuda`` (its
+    worklist kernel and its centers pass, ``aa_none``), at 1920x1080, compat,
+    the CLI's camera, on the demo scene and 100 spheres at depth 2 and on 1000
+    spheres at depth 0, 1 and 2: each wrapper's time (CUDA events) and the
+    device time of its kernel a call (torch.profiler; "not measured" where the
+    profiler reports none). The entry points' signatures are the same in
+    every tree of the port, so two checkouts' lines can be set side by side.
+    ``[entry-regs]``: ptxas's registers and spills of the checkout's
+    render_fwd_small.cu (the small-scene instantiations)."""
     from torch.profiler import ProfilerActivity, profile
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    small_regs = ptxas_report(_build.CSRC_DIR, "render_fwd_small.cu", _build.BUILD_DIR)
     cfg = RenderConfig()
     cam = rt.Camera.build(LARGE_RES, cfg.camera_position, cfg.camera_euler, cfg.fov,
                           device=dev)
@@ -1690,14 +2127,32 @@ def entry_times(torch, rt, card: str, dev, label: str) -> None:
                 return rt.render_image_adaptive_cuda(cam, scene, depth=depth,
                                                      eps=ADAPTIVE_EPS,
                                                      budget_frac=ADAPTIVE_BUDGET)
+            def none():
+                return rt.render_image_cuda(cam, scene, depth=depth, aliasing=False)
+
+            def per_sample():
+                return rt.render_image_cuda(cam, scene, depth=depth, aliasing=True,
+                                            aa_share=False)
             reps = 20 if n <= 100 else 10
             w2 = 1e3 * rt.time_fn(shared, warmup=2, iters=reps)
             w7 = 1e3 * rt.time_fn(adaptive, warmup=2, iters=reps)
+            w1 = 1e3 * rt.time_fn(none, warmup=2, iters=reps)
+            ps = ""
+            if n and depth == 2:
+                w3 = 1e3 * rt.time_fn(per_sample, warmup=2, iters=reps)
+                ps = (f"; render_image_cuda aa_share=False {w3:.4f} ms (render_fwd_kernel "
+                      f"{device_ms(per_sample, 'render_fwd_kernel')} a call)")
             print(f"[entry-time] {label} {'demo' if n == 0 else f'{n}_spheres'} "
                   f"{LARGE_RES[0]}x{LARGE_RES[1]} depth {depth}: render_image_cuda "
                   f"{w2:.4f} ms (render_fwd_kernel {device_ms(shared, 'render_fwd_kernel')} "
                   f"a call); render_image_adaptive_cuda {w7:.4f} ms (render_list_kernel "
-                  f"{device_ms(adaptive, 'render_list_kernel')} a call) | {card}")
+                  f"{device_ms(adaptive, 'render_list_kernel')} a call, its centers pass "
+                  f"render_fwd_kernel {device_ms(adaptive, 'render_fwd_kernel')}); "
+                  f"render_image_cuda no AA {w1:.4f} ms (render_fwd_kernel "
+                  f"{device_ms(none, 'render_fwd_kernel')} a call){ps} | {card}")
+    for name, nregs, st, ld, stack in ptxas_lines(small_regs):
+        print(f"[entry-regs] {label} render_fwd_small.cu {name}: {nregs} registers, spill "
+              f"stores {st} B, loads {ld} B, stack {stack} B")
 
 
 def main() -> int:
@@ -1869,12 +2324,22 @@ def main() -> int:
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "kernel_only_ms": r["kernel_ms"], "bound_ms": bound, "bound_by": bound_by,
             "library_ms": None, "shape": label})
+    t0 = phase_time("phases 1-6", t_start)
     kernels += backward_phases(torch, rt, card, dev)
+    t0 = phase_time("phases 7-9", t0)
     kernels += soft_phases(torch, rt, card, dev)
+    t0 = phase_time("phases 10-12", t0)
     kernels += large_scene_phases(torch, rt, card, dev)
+    t0 = phase_time("phases 13-15", t0)
     kernels += adaptive_phases(torch, rt, card, dev)
-    bounce_phase(torch, rt, card, dev)
+    t0 = phase_time("phases 16-18", t0)
+    builds = start_sweep_builds()
+    fwd_regs = bounce_phase(torch, rt, card, dev, builds)
+    t0 = phase_time("phase 19", t0)
+    kernels += lightbuf_phase(torch, rt, card, dev, builds, fwd_regs)
+    t0 = phase_time("phase 21", t0)
     entry_times(torch, rt, card, dev, "this tree")
+    phase_time("phase 20", t0)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,8 +20,10 @@ int rt_render_fwd_small(const float* params, const float* sph, int ns, const flo
 // and with all three null that kernel too sweeps every sphere for every ray
 // (the render that the culled ones must equal bit for bit: same machine code,
 // other sweeps). perm / box / n_leaves: the bounce tree (rt_common.cuh
-// Tables, LEAF spheres a leaf and FAN leaves a parent). Without large_scene
-// the tables must be null.
+// Tables, LEAF spheres a leaf and FAN leaves a parent); lc_idx / lc_cnt /
+// lc_hdr: the light cells of the bounce shadow rays (rt_light_cells,
+// light_cells.cu; nl * LC_ROWS rows of LC_K slots). Without large_scene the
+// tables must be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 int rt_render_fwd(const float* params, const float* sph, int ns, const float* pln,
                   int npl, const float* lts, int nl, float* out, int W, int H,
@@ -29,11 +31,13 @@ int rt_render_fwd(const float* params, const float* sph, int ns, const float* pl
                   const int* vis_idx, const int* vis_cnt, int vis_k,
                   const int* sh_idx, const int* sh_cnt, int sh_k,
                   const int* perm, const float* box, int n_leaves,
+                  const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                   void* stream) {
-  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves};
+  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
+                     lc_idx, lc_cnt, lc_hdr};
   if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 ||
       (W + TILE - 1) / TILE > 65535 || !tables_ok(ta) ||
-      (!large_scene && (vis_idx || sh_idx || perm))) {
+      (!large_scene && (vis_idx || sh_idx || perm || lc_idx))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!large_scene) {
@@ -61,7 +65,8 @@ int rt_render_list_small(const float* params, const float* sph, int ns, const fl
 // large_scene selects this file's instantiation (the pinned arithmetic of the
 // large-scene render), else render_fwd_small.cu's; the large-scene tables as
 // for rt_render_fwd, the lists built for the AA lattice (each listed pixel
-// reads its tile's rows), and none without large_scene.
+// reads its tile's rows; the bounce tree and the light cells are the
+// frame's), and none without large_scene.
 // Returns cudaGetLastError() after the launch (0 on success).
 int rt_render_list(const float* params, const float* sph, int ns, const float* pln,
                    int npl, const float* lts, int nl, const int* idx, const int* flagged,
@@ -70,11 +75,13 @@ int rt_render_list(const float* params, const float* sph, int ns, const float* p
                    const int* vis_idx, const int* vis_cnt, int vis_k,
                    const int* sh_idx, const int* sh_cnt, int sh_k,
                    const int* perm, const float* box, int n_leaves,
+                   const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                    void* stream) {
-  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves};
+  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
+                     lc_idx, lc_cnt, lc_hdr};
   if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 || K < 1 ||
       !idx || !flagged || !out || !tables_ok(ta) ||
-      (!large_scene && (vis_idx || sh_idx || perm))) {
+      (!large_scene && (vis_idx || sh_idx || perm || lc_idx))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!large_scene) {

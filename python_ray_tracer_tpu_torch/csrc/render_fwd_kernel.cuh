@@ -35,10 +35,12 @@
 //     decides) sweep less: a block is one tile of the host's tables, so its primary rays
 //     sweep the tile's cone-visible spheres, its level-0 shadow rays the
 //     tile's per-light occluder lists (built from the hit-extent kernel's
-//     rows, hit_extents.cu), and its bounce rays the bounce tree's boxes they
-//     meet. The block's lists and the tree are staged in shared memory
-//     beside the scene; lists are uniform across the block, box tests are
-//     per thread. Every cull is exact: the image is bit-identical to the full
+//     rows, hit_extents.cu), its bounce rays the bounce tree's boxes they
+//     meet and their shadow rays their light cell's row (light_cells.cu; the
+//     rows stay in device memory, read through the read-only path). The
+//     block's lists and the tree are staged in shared memory beside the
+//     scene; lists are uniform across the block, box tests and cell rows
+//     are per thread. Every cull is exact: the image is bit-identical to the full
 //     sweep's, exact t ties included (the tree takes the least (t, index)),
 //     which the same instantiation renders with its tables off, and which
 //     needs rt_common.cuh's pinned arithmetic. The small-scene
@@ -135,8 +137,23 @@ __device__ __forceinline__ Rgb per_sample_aa(const SceneView& s, const Tables& t
   return o;
 }
 
+// Launch bounds. The TABLES instantiations (render_fwd.cu) ask for a minimum
+// of resident blocks a multiprocessor, which caps their registers. Left to
+// itself, since the light cells' lookup ptxas makes every aa_shared and
+// aa_per_sample instantiation spill (aa_per_sample never did before) and one
+// of aa_none's; 3 blocks (at most 85 registers) keep aa_none and aa_shared
+// free of spills, 2 (at most 128) aa_per_sample. The worklist kernel spills
+// in neither case and takes 2 as well. These bounds are chosen for no spill,
+// not for speed: chip_smoke.py's [lightbuf-bounds] prints ptxas's rows and
+// times each kernel against the same source with no minimum (PERF.md). The
+// small-scene instantiations (render_fwd_small.cu) ask for a minimum of 0,
+// which is no minimum: ptxas then reports the registers, spills and stack of
+// a bound without a second argument (a minimum of 1 lets it give
+// aa_per_sample 89-92 registers).
+
 template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
-__global__ void __launch_bounds__(TILE * TILE)
+__global__ void __launch_bounds__(TILE * TILE,
+                                   TABLES ? (MODE == AA_PER_SAMPLE ? 2 : 3) : 0)
 render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                   int ns, const float* __restrict__ pln, int npl,
                   const float* __restrict__ lts, int nl, float* __restrict__ out,
@@ -245,7 +262,7 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
 constexpr int LIST_BLOCK = 256;
 
 template <bool COMPAT, bool CHEAP, bool TABLES>
-__global__ void __launch_bounds__(LIST_BLOCK)
+__global__ void __launch_bounds__(LIST_BLOCK, TABLES ? 2 : 0)
 render_list_kernel(const float* __restrict__ params, const float* __restrict__ sph, int ns,
                    const float* __restrict__ pln, int npl, const float* __restrict__ lts,
                    int nl, const int* __restrict__ idx, const int* __restrict__ flagged,

@@ -13,6 +13,8 @@
 //   occluded          <- _any_hit_multi     (:571), one light at a time
 //   occluded_listed   <- _any_hit_listed    (:757), _culled_sphere_fold_ee (:168)
 //   occluded_tree     <- _any_hit_multi_grouped (:645), one light at a time
+//   occluded_cells    <- no JAX counterpart: a bounce shadow ray over its
+//                        light cell's row (the light cells, light_cells.cu)
 //   surface           <- _primary_geometry  (:952), for a given hit
 //   primary_geometry  <- _primary_geometry  (:952)
 //   reflect_dir       <- _reflect_dir       (:979)
@@ -40,7 +42,11 @@
 // consecutive Morton spheres under one level of parent boxes) takes ~100
 // sqrt-free slab tests and ~45 sphere tests there, and its slab test widens
 // every box by what the sphere tests' rounding can reach, so no culled sweep
-// ever differs from the full one (see the tree's section below).
+// ever differs from the full one (see the tree's section below). A bounce
+// shadow ray has no maximum distance and a lit one met every box on its line
+// (~100-120 slab and ~24 sphere tests); it now sweeps its light cell's row
+// instead (~11 spheres, ~4 tests before the first occluder; the light cells'
+// section below), with the same kind of margin.
 //
 // Normalisations use 1/sqrtf (IEEE sqrt and division without fast math), not
 // the approximate rsqrtf, so rays match the CPU references to the last bits
@@ -330,6 +336,26 @@ __device__ __forceinline__ Hit closest_hit(const SceneView& s, const Ray& ray) {
 constexpr int LEAF = RT_LEAF;
 constexpr int FAN = RT_FAN;
 
+// The light cells' shape (light_cells.cu builds them; occluded_cells below
+// reads them): LC_R x LC_R cells on each of the 3 axial faces of a light's
+// cube map, LC_K slots a row. Compile-time constants (light_cells_cuda.R / K
+// mirror them; the loader checks rt_light_cells_shape); -DRT_LC_R / -DRT_LC_K
+// build other shapes for chip_smoke.py's sweep only. LC_R must be a power of
+// two (the cell index's product is then exact).
+#ifndef RT_LC_R
+#define RT_LC_R 64
+#endif
+#ifndef RT_LC_K
+#define RT_LC_K 32
+#endif
+constexpr int LC_R = RT_LC_R;
+constexpr int LC_K = RT_LC_K;
+static_assert(LC_R >= 2 && LC_R <= 1024 && (LC_R & (LC_R - 1)) == 0, "LC_R: a power of two");
+static_assert(LC_K >= 1, "LC_K: at least one slot");
+
+// Rows of one light's cells: 3 faces of LC_R x LC_R.
+constexpr int LC_ROWS = 3 * LC_R * LC_R;
+
 struct Tables {
   const int* vis;     // this tile's cone-visible spheres, ascending index
   int vis_n;          // how many; < 0: no list, sweep all ns spheres
@@ -339,15 +365,20 @@ struct Tables {
   const int* perm;    // the bounce tree's sweep order, n_leaves * LEAF indices
   const float* box;   // reach, parent boxes, leaf boxes
   int n_leaves;       // 0: no tree
+  const int* lc_idx;  // the light cells (device memory): LC_K slots a row
+  const int* lc_cnt;  // their counts (< 0: overflowed); nullptr: no cells
+  const float* lc_hdr;  // reach, s_max
 };
 
 // The tables as a kernel receives them (device pointers; a null pointer
 // switches that table off): the flat per-tile primary lists `vis_idx
 // (n_tiles * vis_k)` with counts `vis_cnt (n_tiles)`, the per-(tile, light)
 // occluder lists `sh_idx (n_tiles * nl * sh_k)` with counts `sh_cnt (n_tiles *
-// nl)`, and the bounce tree `perm (n_leaves * LEAF)`, `box (tree_box_words)`.
-// A count of -1 marks a row that overflowed its slots: that row sweeps all
-// spheres.
+// nl)`, the bounce tree `perm (n_leaves * LEAF)`, `box (tree_box_words)`, and
+// the per-light direction-cell occluder lists of the bounce shadow rays
+// `lc_idx (nl * LC_ROWS * LC_K)`, `lc_cnt (nl * LC_ROWS)`, `lc_hdr (2)` (see
+// occluded_cells). A count of -1 marks a row that overflowed its slots: that
+// row sweeps all spheres (the tree, for a bounce ray where there is one).
 struct TableArgs {
   const int* vis_idx;
   const int* vis_cnt;
@@ -358,14 +389,18 @@ struct TableArgs {
   const int* perm;
   const float* box;
   int n_leaves;
+  const int* lc_idx;
+  const int* lc_cnt;
+  const float* lc_hdr;
 };
 
 // Each table that is on is whole: a list's counts beside its indices and at
-// least one slot a row; a tree with leaves.
+// least one slot a row; a tree with leaves; the light cells with their header.
 inline bool tables_ok(const TableArgs& a) {
   return (!a.vis_idx || (a.vis_cnt && a.vis_k >= 1)) &&
          (!a.sh_idx || (a.sh_cnt && a.sh_k >= 1)) &&
-         (!a.perm || (a.box && a.n_leaves >= 1));
+         (!a.perm || (a.box && a.n_leaves >= 1)) &&
+         (!a.lc_idx || (a.lc_cnt && a.lc_hdr));
 }
 
 __host__ __device__ inline int tree_parents(int n_leaves) {
@@ -388,10 +423,14 @@ __host__ __device__ inline int table_words(const TableArgs& a, int nl) {
 }
 
 // Copy the bounce tree into shared memory at `base` (tree_words words) and
-// point tb at it. Every thread of the block calls it; a __syncthreads() must
-// follow before the tree is read.
+// point tb at it and at the light cells, which stay in device memory. Every
+// thread of the block calls it; a __syncthreads() must follow before the tree
+// is read.
 __device__ __forceinline__ void stage_tree(const TableArgs& a, float* base, int tid, int nt,
                                            Tables& tb) {
+  if (a.lc_idx) {
+    tb.lc_idx = a.lc_idx; tb.lc_cnt = a.lc_cnt; tb.lc_hdr = a.lc_hdr;
+  }
   if (!a.perm) return;
   const int nb = tree_box_words(a.n_leaves);
   int* perm = reinterpret_cast<int*>(base + nb);
@@ -402,7 +441,8 @@ __device__ __forceinline__ void stage_tree(const TableArgs& a, float* base, int 
 
 // The record of a tile with no tables.
 __host__ __device__ inline Tables no_tables() {
-  return Tables{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0};
+  return Tables{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0,
+                nullptr, nullptr, nullptr};
 }
 
 // Copy tile `tile`'s lists and the bounce tree into shared memory at `base`
@@ -729,6 +769,128 @@ __device__ __forceinline__ bool occluded_tree(const SceneView& s, float ox, floa
   return false;
 }
 
+// --- the light cells: per-light direction-cell occluder lists -----------------
+//
+// Every shadow ray toward light l lies, up to rounding, on a line through l, so
+// a sphere can block it only if it comes near that line, on either side of l
+// (an occluder beyond the light shadows too: shadow rays have no maximum
+// distance). Each light gets an axial cube map of directions: face k in {x, y,
+// z} takes the directions whose largest |component| is the k-th, with face
+// coordinates the other two components over the k-th, in [-1, 1], so d and -d
+// share a cell; each face is cut into LC_R x LC_R cells, and a cell's row
+// lists, in ascending index, every sphere that a shadow ray filed under that
+// cell can report (the light buffer of Haines and Greenberg, 1986).
+// light_cells.cu builds the rows once a frame on the card; a bounce-level
+// shadow ray sweeps its row (occluded_cells) instead of the tree or every
+// sphere. Level 0 keeps its tile lists.
+//
+// Exactness. Let u = 2^-24, reach >= max(|c| + r, |l|) over every sphere and
+// light (rounded up), S = |o| + reach for a shadow ray from o, and S_max =
+// LC_SCALE reach, fixed when the rows are built. A ray with S > S_max (in
+// float32: not S <= s_max; far ground bounces) takes the sweep it took
+// before the cells. For S <= S_max:
+//  (1) a sphere that sphere_occludes reports (root or cheap form) has its
+//      center within r + sqrt(22u) S < r + 1.15e-3 S of the ray's line (the
+//      derivation at the bounce tree's slab test above);
+//  (2) light_dir's float32 direction d of l - o is off the exact one by ~9u
+//      at most (a rounding of each difference, three in the dot product, the
+//      square root, the division, the product), so the ray's line passes
+//      within 9u |l - o| <= 9u S of l, and within that of the line through l
+//      along d everywhere (where l - o is so short that its squares are
+//      subnormal, it passes within |l - o| < 1e-18 of l);
+//  (3) so a reported sphere's center lies within r + m of the line through l
+//      along d, with m = LC_MARGIN S_max >= (1.15e-3 + 9u) S_max (1.5e-3, the
+//      slab test's delta, leaves ~3.5e-4 S_max unused). LC_SCALE = 4 lets
+//      origins out to 3 reach use the rows (at 2, 6-7% of the bounce shadow
+//      rays of a 100-sphere 1080p frame fell back to the full sweep, at 4
+//      2%; the rows grow ~10%, PERF.md);
+//  (4) the kernel files d under the face of its largest |d_k| (exact compares,
+//      ties to the lower axis, so |d_i / d_k| <= 1 exactly), takes a = d_i /
+//      d_k in one IEEE division (within u of the exact ratio) and the index
+//      floor((a + 1) LC_R / 2) (the sum rounds once, within u; the product by
+//      a power of two is exact; a = 1 goes to the last cell): the exact
+//      ratios of d lie within 2^-22 of the computed cell's square, and the
+//      build grows every square by LC_GROW = 2^-20 on each side;
+//  (5) the build keeps sphere j in a cell's row if a line through l with a
+//      direction in the grown cell can pass within rho = r + m of its center:
+//      with w = c - l, where rho >= |w| (the grown ball holds the light) in
+//      every row of that light; else where the angle between the lines of w
+//      and of the cell's central direction c^ is at most alpha + beta, alpha
+//      = asin(rho / |w|) and beta the largest angle from c^ to a corner of the
+//      grown cell (the cone around c^ through the four corners holds the
+//      whole square: its section by the face's plane is an ellipse, which is
+//      convex). In cosines, with no asin or acos: |c^ . w| >= cb sqrt(|w|^2 -
+//      rho^2) - sb rho, cb = cos(beta), sb = sin(beta) (the right side is |w|
+//      cos(alpha + beta), <= 0 where alpha + beta >= 90 degrees);
+//  (6) in float32 each side of that test is within 200u (|w| + rho) <= 400u
+//      S_max of its exact value (|w| <= |c| + |l| <= 2 reach <= S_max and rho
+//      <= S_max; the "holds the light" branch takes every rho^2 >= (1 -
+//      2^-10) |w|^2, which keeps sqrt(|w|^2 - rho^2) >= |w| / 32 clear of
+//      the cancellation), so the left side gets tau = LC_TAU S_max = 2^-14
+//      S_max = 1024u S_max added, and no sphere that the exact test keeps is
+//      dropped.
+// A direction that is not finite or whose largest |component| is below 0.5
+// (light_dir at the light itself) is filed under no cell and takes the old
+// sweep too. The build's test is written in products, sums, differences and
+// square roots, each one pinned IEEE operation, so light_cells.cu and the
+// plain version (light_cells_cuda.light_cells_plain) produce the same rows,
+// integer for integer. With LC_MARGIN at 0 the plain lookup misses occluders
+// that the full sweep reports (tests/test_torch_light_cells.py).
+constexpr float LC_SCALE = 4.0f;                          // S_max / reach
+constexpr float LC_MARGIN = 1.5e-3f;                      // m / S_max
+constexpr float LC_GROW = 9.5367431640625e-7f;            // 2^-20, the cells' growth
+constexpr float LC_TAU = 6.103515625e-5f;                 // 2^-14, the test's slack / S_max
+constexpr float LC_HOLDS = 0.9990234375f;                 // 1 - 2^-10
+constexpr float LC_REACH_UP = 1.00000095367431640625f;    // 1 + 2^-20
+
+// The row of a light's cells that direction d is filed under, (face * LC_R +
+// iu) * LC_R + iv, or -1 (not finite, or not near unit length).
+__device__ __forceinline__ int light_cell(float dx, float dy, float dz) {
+  const float ax = fabsf(dx), ay = fabsf(dy), az = fabsf(dz);
+  if (!(__fadd_rn(__fadd_rn(ax, ay), az) <= 2.0f)) return -1;
+  int face;
+  float m, p, q;
+  if (ax >= ay && ax >= az) {
+    face = 0; m = dx; p = dy; q = dz;
+  } else if (ay >= az) {
+    face = 1; m = dy; p = dx; q = dz;
+  } else {
+    face = 2; m = dz; p = dx; q = dy;
+  }
+  if (!(fabsf(m) >= 0.5f)) return -1;
+  constexpr float HALF_R = 0.5f * LC_R;
+  const int iu = min(static_cast<int>(__fmul_rn(__fadd_rn(__fdiv_rn(p, m), 1.0f), HALF_R)),
+                     LC_R - 1);
+  const int iv = min(static_cast<int>(__fmul_rn(__fadd_rn(__fdiv_rn(q, m), 1.0f), HALF_R)),
+                     LC_R - 1);
+  return (face * LC_R + iu) * LC_R + iv;
+}
+
+// Bounce shadow ray toward light l over the light cells: the row of its
+// direction's cell (planes first, then the row's spheres, the first occluder
+// ending the sweep), where S <= s_max, the direction has a cell and the row
+// did not overflow; else the sweep of before, the tree where the scene has
+// one, every sphere where not.
+template <bool COMPAT, bool CHEAP>
+__device__ __forceinline__ bool occluded_cells(const SceneView& s, float ox, float oy,
+                                               float oz, float dx, float dy, float dz,
+                                               const Tables& tb, int l) {
+  const int cell = light_cell(dx, dy, dz);
+  const float S = __fadd_rn(
+      __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(ox, ox), __fmul_rn(oy, oy)), __fmul_rn(oz, oz))),
+      __ldg(tb.lc_hdr));
+  if (cell >= 0 && S <= __ldg(tb.lc_hdr + 1)) {
+    const size_t row = static_cast<size_t>(l) * LC_ROWS + cell;
+    const int n = __ldg(tb.lc_cnt + row);
+    if (n >= 0) {
+      return occluded_listed<COMPAT, CHEAP>(s, ox, oy, oz, dx, dy, dz,
+                                            tb.lc_idx + row * LC_K, n);
+    }
+  }
+  if (tb.n_leaves > 0) return occluded_tree<COMPAT, CHEAP>(s, ox, oy, oz, dx, dy, dz, tb);
+  return occluded<COMPAT, CHEAP>(s, ox, oy, oz, dx, dy, dz);
+}
+
 // Unit mirror direction d - 2(d.n)n (reference common.py:114-120). Returns
 // the reciprocal norm of d - 2(d.n)n, which the backward kernel's adjoint of
 // the normalisation needs.
@@ -820,7 +982,8 @@ __device__ __forceinline__ Surface primary_geometry(const SceneView& s, const Ra
 // Lambert over unoccluded lights (+ Phong in clean mode), and the next
 // mirror ray. A miss returns black with alive = false and no next ray. With
 // TABLES, level-0 shadow rays sweep the tile's occluder lists and bounce
-// shadow rays the bounce tree.
+// shadow rays their light cell's row (occluded_cells), or the bounce tree
+// where the cells are off.
 template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
                                           const Tables& tb, bool primary) {
@@ -845,6 +1008,8 @@ __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
     if (TABLES && primary && tb.sh_n != nullptr) {
       occ = occluded_listed<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz,
                                            tb.sh + l * tb.sh_k, tb.sh_n[l]);
+    } else if (TABLES && !primary && tb.lc_cnt != nullptr) {
+      occ = occluded_cells<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb, l);
     } else if (TABLES && !primary && tb.n_leaves > 0) {
       occ = occluded_tree<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb);
     } else {

@@ -7,9 +7,10 @@ library name carries a hash of the sources and flags: a source change builds a
 new library, and an ``flock`` a library keeps concurrent processes from
 building the same one twice. Nothing is built at import; :func:`load_library`
 builds on first use and raises with the compiler's stderr if it cannot, or if
-the library's bounce-tree shape is not ``cull_tables.LEAF`` / ``FAN``.
-:func:`build` also takes a subset of the sources and extra ``-D`` flags, for
-``chip_smoke.py``'s kernels of other tree shapes; the package loads only the
+the library's bounce-tree shape is not ``cull_tables.LEAF`` / ``FAN`` or
+its light cells' is not ``light_cells_cuda.R`` / ``K``. :func:`build` also
+takes a subset of the sources and extra ``-D`` flags, for ``chip_smoke.py``'s
+kernels of other tree and light-cell shapes; the package loads only the
 default library.
 """
 from __future__ import annotations
@@ -114,13 +115,15 @@ def build(sources=None, defines=()) -> str:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the signature of every C entry point that ``lib`` holds."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tables = [vp, vp, ci, vp, vp, ci, vp, vp, ci]   # the two lists, the tree
+    tables = [vp, vp, ci, vp, vp, ci, vp, vp, ci, vp, vp, vp]   # lists, tree, light cells
     sigs = {
         "rt_render_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci, ci,
                                *tables, vp]),
         "rt_render_list": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci, vp, ci, ci, ci, ci,
                                 ci, ci, *tables, vp]),
         "rt_tree_shape": (None, [ctypes.POINTER(ci), ctypes.POINTER(ci)]),
+        "rt_light_cells": (ci, [vp, ci, vp, ci, vp, vp, vp, vp]),
+        "rt_light_cells_shape": (None, [ctypes.POINTER(ci), ctypes.POINTER(ci)]),
         "rt_hit_extents": (ci, [vp, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, vp, vp, ci, vp,
                                 vp, ci, vp]),
         "rt_render_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
@@ -147,16 +150,28 @@ def tree_shape(lib: ctypes.CDLL):
     return leaf.value, fan.value
 
 
+def light_cells_shape(lib: ctypes.CDLL):
+    """``(r, k)``: the light cells' shape ``lib``'s kernels were built for."""
+    r, k = ctypes.c_int(), ctypes.c_int()
+    lib.rt_light_cells_shape(ctypes.byref(r), ctypes.byref(k))
+    return r.value, k.value
+
+
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library, with every C entry
     point's signature declared."""
     global _lib
     with _lock:
         if _lib is None:
+            from . import light_cells_cuda as lc
             from .cull_tables import FAN, LEAF
             lib = declare(ctypes.CDLL(build()))
             if tree_shape(lib) != (LEAF, FAN):
                 raise RuntimeError(f"kernel library built for bounce-tree shape "
                                    f"{tree_shape(lib)}, cull_tables has {(LEAF, FAN)}")
+            if light_cells_shape(lib) != (lc.R, lc.K):
+                raise RuntimeError(f"kernel library built for light cells "
+                                   f"{light_cells_shape(lib)}, light_cells_cuda has "
+                                   f"{(lc.R, lc.K)}")
             _lib = lib
         return _lib

@@ -42,7 +42,8 @@ def reset_launch_counts() -> None:
 
 
 def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat: bool,
-                cheap_shadow: bool, vis=None, shadow=None, tree=None) -> torch.Tensor:
+                cheap_shadow: bool, vis=None, shadow=None, tree=None,
+                cells=None) -> torch.Tensor:
     """Launch the worklist kernel on the current stream: for each of the first
     ``min(flagged, len(idx))`` slots of ``idx`` (int32 flat indices ``x * H +
     y``), write that pixel's 9-sample AA average into ``out (W, H, 3)`` (the
@@ -50,9 +51,9 @@ def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat
     :func:`render_cuda.packed_inputs` returns them; ``flagged`` an int32
     tensor of one element on the same device, read by the kernel. A scene of
     more than ``CULL_MIN_SPHERES`` spheres runs the large-scene instantiation
-    (the pinned arithmetic), which takes ``vis``, ``shadow`` and ``tree`` as
-    :func:`render_cuda.large_scene_tables` returns them for ``aliasing=True``
-    (checked here; each None sweeps all spheres). Counts the launch in
+    (the pinned arithmetic), which takes ``vis``, ``shadow``, ``tree`` and
+    ``cells`` as :func:`render_cuda.large_scene_tables` returns them for
+    ``aliasing=True`` (checked here; each None sweeps all spheres). Counts the launch in
     :data:`LAUNCHES`."""
     from ._build import load_library
     from .hit_extents_cuda import check_tables, table_args
@@ -74,12 +75,12 @@ def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat
     W, H = out.shape[0], out.shape[1]
     (sph, pln, lts), (ns, npl, nl) = tables, counts
     n_tx, n_ty = tile_grid(W, H)
-    check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=dev)
-    v, sh, g = table_args(vis, shadow, tree)
+    check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=dev, cells=cells)
+    v, sh, g, c = table_args(vis, shadow, tree, cells)
     rc = lib.rt_render_list(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
         idx.data_ptr(), flagged.data_ptr(), idx.numel(), out.data_ptr(), W, H, depth,
-        int(compat), int(cheap_shadow), int(ns > render_cuda.CULL_MIN_SPHERES), *v, *sh, *g,
+        int(compat), int(cheap_shadow), int(ns > render_cuda.CULL_MIN_SPHERES), *v, *sh, *g, *c,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"worklist kernel failed: CUDA error {rc} "
@@ -92,7 +93,7 @@ def worklist_inputs(camera, scene, *, depth: int, compat: bool, eps: float,
                     budget_frac: float):
     """The adaptive frame's steps before the worklist launch, on CUDA inputs:
     ``(packed, tabs, tent, idx, flagged, dropped)``, the :func:`render_cuda.
-    packed_inputs`, the large-scene tables ``(vis, shadow, tree)`` (built once,
+    packed_inputs`, the large-scene tables ``(vis, shadow, tree, cells)`` (built once,
     for the AA lattice, and taken by both launches), the tent image, the
     K-slot worklist and the two counts (device tensors). Runs the centers pass
     (the render kernel in mode ``aa_none``) and the glue ops."""
@@ -123,12 +124,12 @@ def render_image_adaptive_cuda(camera, scene, *, depth: int = 2, compat: bool = 
         return render_image_adaptive_plain(camera, scene, depth=depth, compat=compat,
                                            eps=eps, budget_frac=budget_frac,
                                            with_stats=with_stats)
-    packed, (vis, shadow, tree), out, idx, flagged, dropped = worklist_inputs(
+    packed, (vis, shadow, tree, cells), out, idx, flagged, dropped = worklist_inputs(
         camera, scene, depth=depth, compat=compat, eps=eps, budget_frac=budget_frac)
     with torch.cuda.device(out.device):
         launch_list(out, *packed, idx, flagged, depth=depth, compat=compat,
                     cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat), vis=vis,
-                    shadow=shadow, tree=tree)
+                    shadow=shadow, tree=tree, cells=cells)
     if with_stats:
         return out, {"flagged": flagged, "dropped": dropped}
     return out

@@ -148,11 +148,13 @@ def _check_table(name, t, dtype, n, dev):
                          f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def check_tables(vis, shadow, tree, *, n_tiles: int, ns: int, nl: int, dev) -> None:
+def check_tables(vis, shadow, tree, *, n_tiles: int, ns: int, nl: int, dev,
+                 cells=None) -> None:
     """Raise on tables the kernels do not take: ``vis = (idx, cnt, k)``,
     ``shadow = (idx, cnt, k)``, ``tree`` a ``cull_tables.BounceTree`` of the
     kernels' shape (``cull_tables.LEAF`` / ``FAN``) whose leaves hold every
-    sphere's slot, each or None."""
+    sphere's slot, ``cells`` a ``light_cells_cuda.LightCells`` of the kernels'
+    shape for ``nl`` lights, each or None."""
     if vis is not None:
         idx, cnt, k = vis
         if not 1 <= k <= ns:
@@ -172,17 +174,22 @@ def check_tables(vis, shadow, tree, *, n_tiles: int, ns: int, nl: int, dev) -> N
         _check_table("tree sweep order", tree.perm, torch.int32, tree.n_leaves * LEAF, dev)
         _check_table("tree boxes", tree.box, torch.float32, tree_box_words(tree.n_leaves),
                      dev)
+    if cells is not None:
+        from .light_cells_cuda import check_cells
+        check_cells(cells, nl, dev)
 
 
-def table_args(vis, shadow, tree) -> list:
-    """The C argument lists of the three tables, in the order the entry
+def table_args(vis, shadow, tree, cells=None) -> list:
+    """The C argument lists of the four tables, in the order the entry
     points take them: ``[idx, cnt, k]`` for each list, ``[perm, box,
-    n_leaves]`` for the tree (null pointers and zeros for one that is
-    off)."""
+    n_leaves]`` for the tree, ``[idx, cnt, hdr]`` for the light cells (null
+    pointers and zeros for one that is off)."""
     args = [[None, None, 0] if tab is None else [tab[0].data_ptr(), tab[1].data_ptr(),
                                                  int(tab[2])] for tab in (vis, shadow)]
     args.append([None, None, 0] if tree is None else
                 [tree.perm.data_ptr(), tree.box.data_ptr(), tree.n_leaves])
+    args.append([None, None, None] if cells is None else
+                [cells.idx.data_ptr(), cells.cnt.data_ptr(), cells.hdr.data_ptr()])
     return args
 
 
@@ -197,7 +204,7 @@ def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compa
     (sph, pln, _), (ns, npl, nl) = tables, counts
     check_tables(vis, None, tree, n_tiles=out.shape[0] // n_levels, ns=ns, nl=nl,
                  dev=out.device)
-    v, _, g = table_args(vis, None, tree)
+    v, _, g, _ = table_args(vis, None, tree)
     rc = lib.rt_hit_extents(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, out.data_ptr(),
         W, H, n_levels, int(aliasing), int(compat), *v, *g,

@@ -13,11 +13,14 @@ Scenes of more than :data:`CULL_MIN_SPHERES` spheres take the large-scene path
 (``render_pallas._render_image_pallas``'s, with the same three keywords): the
 per-tile cone cull of the primary sweep, the two-pass shadow pipeline (the
 hit-extent kernel, ``hit_extents_cuda``, then per-(tile, light) occluder lists
-for the level-0 shadow sweeps) and, from :data:`GROUP_MIN_SPHERES` spheres up,
-bounce sweeps through a two-level box tree over the Morton order (the
-``group_cull`` keyword; ``cull_tables.bounce_tree``). :func:`large_scene_tables`
-builds the tables (``cull_tables``) for each frame. Every cull is exact: the
-image is bit-identical to the full sweep's.
+for the level-0 shadow sweeps), per-light direction-cell occluder lists for the
+bounce-level shadow rays (the light cells, built on the card by the kernel of
+``light_cells_cuda``; with the shadow lists, where the frame has bounces) and,
+from :data:`GROUP_MIN_SPHERES` spheres up, bounce sweeps through a two-level box
+tree over the Morton order (the ``group_cull`` keyword;
+``cull_tables.bounce_tree``). :func:`large_scene_tables` builds the tables
+(``cull_tables``, ``light_cells_cuda``) for each frame. Every cull is exact:
+the image is bit-identical to the full sweep's.
 
 :func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
 tensors on the CPU; for CUDA tensors it launches the kernels or raises. Camera,
@@ -175,9 +178,10 @@ def _check_inputs(camera, scene, dev, tree: bool = False):
 def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: bool,
                        cull: bool = True, shadow_lists: bool | None = None,
                        group_cull: bool | None = None, K: int | None = None,
-                       packed=None):
-    """The render kernel's tables for this frame: ``(vis, shadow, tree)``,
-    ``(idx, cnt, k)``, ``(idx, cnt, k)`` and a ``cull_tables.BounceTree``, each
+                       packed=None, light_cells: bool = True):
+    """The render kernel's tables for this frame: ``(vis, shadow, tree,
+    cells)``, ``(idx, cnt, k)``, ``(idx, cnt, k)``, a
+    ``cull_tables.BounceTree`` and a ``light_cells_cuda.LightCells``, each
     None where that cull is off (``render_pallas._render_image_pallas``'s
     resolution of its ``cull``, ``shadow_lists`` and ``group_cull``; None is
     "auto"). The cone cull and the shadow lists need more than
@@ -185,20 +189,29 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     (``group_cull``, the JAX package's Morton groups) is automatic from
     :data:`GROUP_MIN_SPHERES` spheres and needs ``depth > 0``. The shadow lists
     come from one launch of the hit-extent kernel on the same primary lists
-    (level 0 only, so it takes no tree). ``K``: slots a list row
-    (default ``cull_tables.list_capacity``). ``packed``: the caller's
-    ``(params, scene_tables, counts)`` for checked CUDA inputs, which the
-    hit-extent launch then shares instead of packing them again."""
+    (level 0 only, so it takes no tree); the light cells, the bounce levels'
+    shadow lists, from one launch of the light-cell kernel where the shadow
+    lists are on and ``depth > 0`` (``light_cells=False`` leaves them off, for
+    the tests and ``chip_smoke.py``). ``K``: slots a tile list row (default
+    ``cull_tables.list_capacity``; the light cells' slots are the kernels'
+    constant). ``packed``: the caller's ``(params, scene_tables, counts)`` for
+    checked CUDA inputs, which the hit-extent and light-cell launches then
+    share instead of packing them again."""
     from . import hit_extents_cuda as hx
+    from .light_cells_cuda import light_cells_cuda
     ns, nl = scene.spheres.count, scene.lights.count
     rolled = ns > CULL_MIN_SPHERES
     k = cull_tables.list_capacity(ns) if K is None else min(K, ns)
-    vis = shadow = tree = None
+    vis = shadow = tree = cells = None
     if cull and rolled:
         vis = (*cull_tables.tile_visibility(camera, scene, compat=compat, K=k), k)
     if uses_tree(ns, depth, group_cull):
         tree = cull_tables.bounce_tree(scene.spheres.center, scene.spheres.radius)
-    if (shadow_lists is None or shadow_lists) and rolled and nl > 0:
+    lists = (shadow_lists is None or shadow_lists) and rolled and nl > 0
+    if lists and light_cells and depth > 0:
+        sph, _, lts = scene_tables(scene) if packed is None else packed[1]
+        cells = light_cells_cuda(sph, lts, ns, nl)
+    if lists:
         if packed is None:
             ext = hx.hit_extents_cuda(camera, scene, aliasing=aliasing, compat=compat,
                                       n_levels=1, vis=vis)
@@ -211,7 +224,7 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
         shadow = (*cull_tables.shadow_visibility_lists(
             ext, scene.lights.position, scene.spheres.center, scene.spheres.radius,
             K=k, compat=compat), k)
-    return vis, shadow, tree
+    return vis, shadow, tree, cells
 
 
 def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
@@ -268,23 +281,25 @@ def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
     W, H = camera.resolution
     out = torch.empty((W, H, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        vis, shadow, tree = tabs if tabs is not None else large_scene_tables(
+        vis, shadow, tree, cells = tabs if tabs is not None else large_scene_tables(
             camera, scene, depth=depth, aliasing=mode != "aa_none", compat=compat,
             cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed)
         return launch(out, params, tables, counts, depth=depth,
                       mode=mode, compat=compat,
                       cheap_shadow=shadow_cheap_ok(scene, compat), vis=vis,
-                      shadow=shadow, tree=tree)
+                      shadow=shadow, tree=tree, cells=cells)
 
 
 def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
-           cheap_shadow: bool, vis=None, shadow=None, tree=None) -> torch.Tensor:
+           cheap_shadow: bool, vis=None, shadow=None, tree=None,
+           cells=None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked by :func:`packed_inputs`: ``out (W, H, 3)``, ``params
     (N_PARAMS,)``, the :func:`scene_tables` and the object counts
     ``(ns, npl, nl)``, all tensors float32 and contiguous on the current
-    device; ``vis``, ``shadow`` and ``tree`` as :func:`large_scene_tables`
-    returns them (int32 lists for 16x16 tiles, checked here). A scene of more
+    device; ``vis``, ``shadow``, ``tree`` and ``cells`` as
+    :func:`large_scene_tables` returns them (int32 lists for 16x16 tiles,
+    checked here). A scene of more
     than :data:`CULL_MIN_SPHERES` spheres runs the kernel's large-scene
     instantiation whichever tables are on, so a render with every table off
     differs from a culled one only in the sweeps. Counts the launch in
@@ -295,13 +310,14 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
     W, H = out.shape[0], out.shape[1]
     (sph, pln, lts), (ns, npl, nl) = tables, counts
     n_tx, n_ty = cull_tables.tile_grid(W, H)
-    check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=out.device)
-    v, sh, g = table_args(vis, shadow, tree)
+    check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=out.device,
+                 cells=cells)
+    v, sh, g, c = table_args(vis, shadow, tree, cells)
     rc = lib.rt_render_fwd(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
         lts.data_ptr(), nl, out.data_ptr(), W, H, depth,
         MODES.index(mode), int(compat), int(cheap_shadow),
-        int(ns > CULL_MIN_SPHERES), *v, *sh, *g,
+        int(ns > CULL_MIN_SPHERES), *v, *sh, *g, *c,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"render kernel ({mode}) failed: CUDA error {rc} "

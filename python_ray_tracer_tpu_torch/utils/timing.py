@@ -110,6 +110,16 @@ SHADOW_SETUP = 18    # o.o, a, 1/(2a), 1/a, o.d
 SHADOW_SPHERE = 26   # o.c, |o-c|^2 - r^2, c.d, the clamped closest approach
 
 
+# The light-cell build (csrc/light_cells.cu): a row's cone (its central
+# direction and four corner directions, each normalised, a dot and a cross
+# product), a light's per-sphere terms (w = c - l, |w|^2, rho, the guard, the
+# square root), the scene's reach a sphere, and one (row, sphere) cone test.
+LC_CELL = 90
+LC_SPHERE = 14
+LC_REACH = 7
+LC_TEST = 12
+
+
 def bound_ms(ops: float, nbytes: float) -> tuple:
     """``(ms, "operations" | "bytes")``: the least time one H100 could take,
     and which of the two rates sets it."""
@@ -394,3 +404,15 @@ def large_scene_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str, vis,
         if tab is not None:
             nbytes += 4 * (rows * tab[2] + rows)
     return ops, nbytes
+
+
+def light_cells_work(ns: int, nl: int, r: int = 64, k: int = 32) -> tuple:
+    """(operations, bytes) of one light-cell build (csrc/light_cells.cu) for
+    ``ns`` spheres and ``nl`` lights at ``r x r`` cells a face and ``k``
+    slots a row: every (row, sphere) cone test once, each row's cone, each
+    light's per-sphere terms and the reach once; bytes: the spheres' centers
+    and radii and the lights in, every row's slots and count and the header
+    out."""
+    rows = nl * 3 * r * r
+    ops = rows * (LC_CELL + ns * LC_TEST) + nl * ns * LC_SPHERE + (ns + nl) * LC_REACH
+    return ops, 16 * ns + 12 * nl + 4 * rows * (k + 1) + 8

@@ -702,12 +702,12 @@ def _render_tabs(cam, scene, mode, depth, compat, tabs):
     dev = cam.device
     out = torch.empty((W, H, 3), device=dev)
     cnt = (scene.spheres.count, scene.planes.count, scene.lights.count)
-    vis, shadow, tree = tabs
+    vis, shadow, tree, cells = tabs
     return render_cuda.launch(
         out, render_cuda.pack_params(cam, scene, compat).to(dev),
         render_cuda.scene_tables(scene), cnt, depth=depth, mode=mode, compat=compat,
         cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat), vis=vis, shadow=shadow,
-        tree=tree)
+        tree=tree, cells=cells)
 
 
 CULLS = {"cull": dict(cull=True, shadow_lists=False, group_cull=False),
@@ -804,21 +804,24 @@ def test_large_scene_wrappers_reject_bad_tables(cuda_device):
     cam = trt.Camera.build((32, 32), *LARGE_POSES[24], device=cuda_device)
     with pytest.raises(ValueError, match="n_levels"):
         hx.hit_extents_cuda(cam, scene, aliasing=False, n_levels=hx.MAX_LEVELS + 1)
-    vis, shadow, tree = render_cuda.large_scene_tables(cam, scene, depth=2,
-                                                       aliasing=False, compat=True,
-                                                       group_cull=True)
+    vis, shadow, tree, cells = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                              aliasing=False, compat=True,
+                                                              group_cull=True)
     with pytest.raises(ValueError, match="primary list"):
         _render_tabs(cam, scene, "aa_none", 2, True, ((vis[0][:-1], vis[1], vis[2]), None,
-                                                      None))
+                                                      None, None))
     with pytest.raises(ValueError, match="shadow list"):
         _render_tabs(cam, scene, "aa_none", 2, True, (None, (shadow[0].cpu(), shadow[1],
-                                                             shadow[2]), None))
+                                                             shadow[2]), None, None))
     with pytest.raises(ValueError, match="tree sweep order"):
         _render_tabs(cam, scene, "aa_none", 2, True, (None, None, tree._replace(
-            perm=tree.perm[:-1])))
+            perm=tree.perm[:-1]), None))
     with pytest.raises(ValueError, match="bounce tree"):
         _render_tabs(cam, scene, "aa_none", 2, True, (None, None, tree._replace(
-            n_leaves=tree.n_leaves + 1)))
+            n_leaves=tree.n_leaves + 1), None))
+    with pytest.raises(ValueError, match="light cells counts"):
+        _render_tabs(cam, scene, "aa_none", 2, True, (None, None, None, cells._replace(
+            cnt=cells.cnt[:-1])))
     two = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=2, vis=vis)
     one = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=1, vis=vis)
     assert two.shape == (8, 8) and torch.equal(two[0::2], one)
@@ -861,9 +864,9 @@ def _adaptive_scene(n, dev, compat):
 def _worklist(cam, scene, compat, eps, budget):
     """``(packed, tables, tent, idx, flagged, dropped)``; ``tables`` as
     launch_list's keywords."""
-    packed, (vis, shadow, tree), *rest = ac.worklist_inputs(
+    packed, (vis, shadow, tree, cells), *rest = ac.worklist_inputs(
         cam, scene, depth=2, compat=compat, eps=eps, budget_frac=budget)
-    return (packed, dict(vis=vis, shadow=shadow, tree=tree), *rest)
+    return (packed, dict(vis=vis, shadow=shadow, tree=tree, cells=cells), *rest)
 
 
 @pytest.mark.parametrize("n", [0, 24, 100])
@@ -893,12 +896,13 @@ def test_list_kernel_matches_plain(cuda_device, n, compat):
 @pytest.mark.parametrize("n", [24, 100, 1000])
 @pytest.mark.parametrize("compat", [True, False])
 def test_list_kernel_with_tables_is_the_list_kernel_without(cuda_device, n, compat):
-    """The worklist kernel reading its pixels' tile lists and the bounce tree
-    against the same launch with every table off, bit for bit (listed
-    pixels everywhere, the budget dropping none)."""
+    """The worklist kernel reading its pixels' tile lists, the bounce tree and
+    the light cells against the same launch with every table off, bit for bit
+    (listed pixels everywhere, the budget dropping none)."""
     scene, cam = _adaptive_scene(n, cuda_device, compat)
     packed, tabs, tent, idx, flagged, dropped = _worklist(cam, scene, compat, 0.5 / 255, 1.0)
     assert tabs["vis"] is not None and tabs["shadow"] is not None
+    assert tabs["cells"] is not None
     assert (tabs["tree"] is not None) == (n >= render_cuda.GROUP_MIN_SPHERES)
     if tabs["tree"] is None:
         tabs["tree"] = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
@@ -909,7 +913,7 @@ def test_list_kernel_with_tables_is_the_list_kernel_without(cuda_device, n, comp
     torch.cuda.synchronize()
     assert int(flagged) > 0 and int(dropped) == 0
     assert torch.equal(on, off), int((on != off).any(-1).sum())
-    for only in ("vis", "shadow", "tree"):
+    for only in ("vis", "shadow", "tree", "cells"):
         one = ac.launch_list(tent.clone(), *packed, idx, flagged, **kw, **{only: tabs[only]})
         assert torch.equal(one, off), only
 
@@ -979,3 +983,142 @@ def test_list_kernel_rejects_bad_inputs(cuda_device):
                                    for i, t in enumerate(scene.leaves())])
     with pytest.raises(ValueError, match="expected cuda"):
         trt.render_image_adaptive_cuda(cam, mixed)
+
+
+# --- the light cells of the bounce shadow rays ---------------------------------------
+#
+# The build kernel (csrc/light_cells.cu) against its plain version integer for
+# integer; frames with the cells on against the same kernel instantiation with
+# them off (large_scene_tables(light_cells=False): the tile lists and the tree
+# as before), bit for bit, for aa_none, aa_shared and the worklist kernel; a
+# library built with LC_K = 2, where most rows overflow to the sweep of before,
+# gives the same frames; the build makes no host sync.
+
+from python_ray_tracer_tpu_torch.ops.cuda import _build  # noqa: E402
+from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc  # noqa: E402
+
+# 100: the horizon in view (bounce shadow rays from far out on the ground take
+# the fallback past s_max); 1000: the CLI's camera.
+CELL_POSES = {100: LARGE_POSES[100], 1000: LARGE_POSES[1000]}
+
+
+def _cells_scene(n, dev, compat, lights=3):
+    mats = trt.Materials.build(0.05, 0.6, 0.3, 0.0 if compat else 0.5, 16.0, device=dev)
+    scene = _planted_scene(n, dev, lights=lights)
+    scene.materials = mats
+    return scene, trt.Camera.build((104, 72), *CELL_POSES[n], device=dev)
+
+
+@pytest.mark.parametrize("n", [100, 1000])
+@pytest.mark.parametrize("lights", [1, 3])
+def test_light_cell_kernel_is_its_plain_version(cuda_device, n, lights):
+    scene, _ = _cells_scene(n, cuda_device, True, lights)
+    ns, nl = scene.spheres.count, scene.lights.count
+    sph, _, lts = render_cuda.scene_tables(scene)
+    lc.reset_launch_counts()
+    a = lc.light_cells_cuda(sph, lts, ns, nl)
+    b = lc.light_cells_cuda(sph, lts, ns, nl)
+    torch.cuda.synchronize()
+    assert lc.LAUNCHES["light_cells"] == 2
+    ref = lc.light_cells_plain(scene.spheres.center, scene.spheres.radius,
+                               scene.lights.position)
+    cpu = lc.light_cells_cuda(sph.cpu(), lts.cpu(), ns, nl)
+    assert lc.LAUNCHES["light_cells"] == 2
+    for x, y, z, w in zip(a, b, ref, cpu):
+        assert torch.equal(x, y) and torch.equal(x, z) and torch.equal(x.cpu(), w)
+    assert bool((a.cnt > 0).any())
+
+
+def _frame_pair(cam, scene, mode, compat, depth=2):
+    """The frame of ``mode`` (or of the worklist kernel, every interior pixel
+    listed) with the light cells on and with them off, the other tables
+    the same."""
+    aa = mode != "aa_none"
+    tabs = render_cuda.large_scene_tables(cam, scene, depth=depth, aliasing=aa,
+                                          compat=compat)
+    assert tabs[3] is not None
+    off = (*tabs[:3], None)
+    if mode != "worklist":
+        return (_render_tabs(cam, scene, mode, depth, compat, tabs),
+                _render_tabs(cam, scene, mode, depth, compat, off),
+                _render_tabs(cam, scene, mode, depth, compat, (None,) * 4))
+    packed, _, tent, idx, flagged, _ = ac.worklist_inputs(
+        cam, scene, depth=depth, compat=compat, eps=-1.0, budget_frac=1.0)
+    kw = dict(depth=depth, compat=compat,
+              cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat))
+    return tuple(ac.launch_list(tent.clone(), *packed, idx, flagged, **kw,
+                                **dict(zip(("vis", "shadow", "tree", "cells"), t)))
+                 for t in (tabs, off, (None,) * 4))
+
+
+@pytest.mark.parametrize("mode", ["aa_none", "aa_shared", "worklist"])
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("n", [100, 1000])
+def test_frames_with_light_cells_are_the_frames_without(cuda_device, mode, compat, n):
+    scene, cam = _cells_scene(n, cuda_device, compat)
+    on, off, none = _frame_pair(cam, scene, mode, compat)
+    torch.cuda.synchronize()
+    assert torch.equal(on, off), int((on != off).any(-1).sum())
+    assert torch.equal(on, none), int((on != none).any(-1).sum())
+
+
+def _launch_with(lib, out, packed, mode, compat, cheap, tabs, depth=2):
+    from python_ray_tracer_tpu_torch.ops.cuda.hit_extents_cuda import table_args
+    (params, (sph, pln, lts), (ns, npl, nl)) = packed
+    W, H = out.shape[0], out.shape[1]
+    v, sh, g, c = table_args(*tabs)
+    rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
+                           lts.data_ptr(), nl, out.data_ptr(), W, H, depth,
+                           render_cuda.MODES.index(mode), int(compat), int(cheap), 1,
+                           *v, *sh, *g, *c, None)
+    assert rc == 0, rc
+    return out
+
+
+def test_small_k_overflows_rows_and_keeps_the_frames(cuda_device):
+    """A library built with LC_K = 2 (-DRT_LC_K=2): its build kernel equals the
+    plain version at k = 2, most rows hold -1, and its frames with those cells
+    equal the package's with the cells off."""
+    path = _build.build(("render_fwd.cu", "render_fwd_small.cu", "light_cells.cu"),
+                        ("-DRT_LC_K=2",))
+    lib = _build.declare(__import__("ctypes").CDLL(path))
+    assert _build.light_cells_shape(lib) == (lc.R, 2)
+    for n in (100, 1000):
+        for compat in (True, False):
+            scene, cam = _cells_scene(n, cuda_device, compat)
+            ns, nl = scene.spheres.count, scene.lights.count
+            packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=compat)
+            sph, _, lts = packed[1]
+            small = lc.launch(lc.empty(nl, cuda_device, k=2), sph, lts, ns, nl, lib=lib)
+            torch.cuda.synchronize()
+            ref = lc.light_cells_plain(scene.spheres.center, scene.spheres.radius,
+                                       scene.lights.position, k=2)
+            assert all(torch.equal(x, y) for x, y in zip(small, ref))
+            assert bool((small.cnt < 0).any()) and bool((small.cnt >= 0).any())
+            cheap = render_cuda.shadow_cheap_ok(scene, compat)
+            for mode in ("aa_none", "aa_shared"):
+                tabs = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                      aliasing=mode != "aa_none",
+                                                      compat=compat, light_cells=False)
+                W, H = cam.resolution
+                got = _launch_with(lib, torch.empty((W, H, 3), device=cuda_device), packed,
+                                   mode, compat, cheap, (*tabs[:3], small))
+                want = _render_tabs(cam, scene, mode, 2, compat, tabs)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (n, compat, mode,
+                                                int((got != want).any(-1).sum()))
+
+
+def test_light_cell_build_makes_no_host_sync(cuda_device):
+    scene, _ = _cells_scene(1000, cuda_device, True)
+    sph, _, lts = render_cuda.scene_tables(scene)
+    ns, nl = scene.spheres.count, scene.lights.count
+    lc.light_cells_cuda(sph, lts, ns, nl)          # the library is loaded
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cells = lc.light_cells_cuda(sph, lts, ns, nl)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert cells.cnt.shape == (lc.n_rows(nl),)

@@ -273,9 +273,9 @@ def test_lists_cover_every_used_hit_and_occluder(aliasing, compat):
     scene = _planted()
     ns = scene.spheres.count
     cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
-    vis, shadow, tree = render_cuda.large_scene_tables(
+    vis, shadow, tree, cells = render_cuda.large_scene_tables(
         cam, scene, depth=2, aliasing=aliasing, compat=compat)
-    assert tree is None and vis[2] == shadow[2] == 32
+    assert tree is None and vis[2] == shadow[2] == 32 and cells is not None
     used, obj, Pb = _tile_hits(cam, scene, aliasing, compat)
     vis_rows, sh_rows = _rows(vis[0], vis[1]), _rows(shadow[0], shadow[1])
     assert any(r is not None and len(r) < ns for r in vis_rows)
@@ -309,26 +309,28 @@ def test_lists_cover_every_used_hit_and_occluder(aliasing, compat):
 
 def test_large_scene_tables_thresholds():
     """Auto: nothing for <= 16 spheres, cull and lists above, groups from 256
-    spheres and only with bounces; lists need a light."""
+    spheres and only with bounces; lists need a light, and the light cells
+    the lists and bounces."""
     cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
     kw = dict(depth=2, aliasing=False, compat=True)
     g = torch.Generator().manual_seed(0)
-    assert render_cuda.large_scene_tables(cam, trt.default_scene(), **kw) == (None,) * 3
+    assert render_cuda.large_scene_tables(cam, trt.default_scene(), **kw) == (None,) * 4
     assert render_cuda.large_scene_tables(cam, trt.random_scene(16, generator=g), **kw,
-                                          shadow_lists=True, group_cull=True) == (None,) * 3
-    vis, shadow, groups = render_cuda.large_scene_tables(
+                                          shadow_lists=True, group_cull=True) == (None,) * 4
+    vis, shadow, groups, cells = render_cuda.large_scene_tables(
         cam, trt.random_scene(17, generator=g), **kw)
-    assert vis is not None and shadow is not None and groups is None
+    assert vis is not None and shadow is not None and groups is None and cells is not None
     assert vis[2] == 17 and vis[0].shape == (4 * 17,) and shadow[0].shape == (4 * 3 * 17,)
     big = trt.random_scene(256, generator=g)
-    vis, shadow, tree = render_cuda.large_scene_tables(cam, big, **kw)
+    vis, shadow, tree, cells = render_cuda.large_scene_tables(cam, big, **kw)
     assert tree is not None and tree.n_leaves == 256 // ct.LEAF and vis[2] == 32
+    assert cells is not None
     assert render_cuda.large_scene_tables(cam, big, depth=0, aliasing=False,
-                                          compat=True)[2] is None
+                                          compat=True)[2:] == (None, None)
     assert render_cuda.large_scene_tables(cam, big, **kw, cull=False, shadow_lists=False,
-                                          group_cull=False) == (None,) * 3
+                                          group_cull=False) == (None,) * 4
     dark = trt.Scene(big.spheres, big.planes, trt.Lights.build([]), big.materials)
-    assert render_cuda.large_scene_tables(cam, dark, **kw)[1] is None
+    assert render_cuda.large_scene_tables(cam, dark, **kw)[1::2] == (None, None)
     assert render_cuda.CULL_MIN_SPHERES == jp._UNROLL_LIMIT
     assert render_cuda.GROUP_MIN_SPHERES == jp._GROUP_MIN_NS
     assert [ct.list_capacity(n) for n in (6, 100, 1000, 4000)] == [6, 32, 64, 128]
@@ -421,8 +423,8 @@ def test_large_scene_bound_counts_listed_work():
     the tables in and 32 bytes a tile out."""
     scene = _planted()
     cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
-    vis, shadow, _ = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=False,
-                                                    compat=True)
+    vis, shadow, _, _ = render_cuda.large_scene_tables(cam, scene, depth=2,
+                                                       aliasing=False, compat=True)
     ext = hx.hit_extents_plain(cam, scene, aliasing=False, compat=True, vis=vis)
     ns, npl, nl = 101, 1, 3
     ops_k3, bytes_k3 = timing.hit_extents_work(64, 48, ns, npl, False, vis, ext)
