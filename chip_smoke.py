@@ -14,7 +14,12 @@ hard`` and ``--mode camera`` at 1000x1000, depth 2, the AA ``fit_scene`` step,
 ``fused=False`` and ``render_image_fast``'s backward), with launch counts and
 convergence checked and each mode held against its plain version at those
 shapes; and step times (kernel alone, its reduction, host packing, Adam, the
-whole ``fit_scene`` step, the plain step). Then the soft-visibility kernels
+whole ``fit_scene`` step, the plain step), each mode's kernel beside other
+launch plans (``[bwd-plan]``: threads a block and blocks a multiprocessor
+around the planner's choice), ptxas's rows of the backward and soft forward
+sources (``[bwd-regs]``), and the bound ``utils/timing.hard_bwd_work`` of
+the run's live counts (``[bound]``, the old lower bound beside it). Then the
+soft-visibility kernels
 (phases 10-12): the soft forward and both soft backward modes against their
 plain versions at every tau of the anneal (demo scene 256x256, 100 seeded
 spheres 128x128), twice for bit-identical results; ``cli fit --mode soft``
@@ -22,8 +27,9 @@ spheres 128x128), twice for bit-identical results; ``cli fit --mode soft``
 convergence and PNG checks; the fit's targets, its step 0 and
 ``render_image_soft_fast``'s backward held against their plain versions at
 that size; the counted plain bounce fit; and times (demo 1000x1000, 100
-spheres 512x512, both from the fit's shifted centers; the backward's two modes
-at every tau of the anneal under the planner's launch plan). Then the
+spheres 512x512, both from the fit's shifted centers; the soft forward and
+the backward's two modes at every tau of the anneal, the backward under the
+planner's launch plan). Then the
 large-scene render path (phases 13-15): the hit-extent kernel (TPU kernel 3)
 against its plain version on 100 and 1000 seeded spheres at 256x256, twice for
 bit-identical rows; the render kernel with
@@ -72,7 +78,11 @@ failed phase raises. ``python3 chip_smoke.py --entry-times DIR`` runs phase
 20 alone on the package of the checkout in DIR (an older commit unpacked with
 ``git archive``, say): it calls only entry points whose signatures every tree
 of the port shares, so that two trees' times can be set side by side in one
-run on one card (each tree's own ``chip_smoke.py`` gives the rest). The last
+run on one card (each tree's own ``chip_smoke.py`` gives the rest).
+``python3 chip_smoke.py --ab-times DIR`` does the same for kernels 4 and 5
+(:func:`ab_times`: the four backward modes at the fit CLI's shapes, the soft
+forward at every tau with each frame's digest, the soft backward's digests,
+and ptxas's rows of the checkout's sources). The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels.
 
@@ -146,7 +156,7 @@ REPLACES = {
     "aa_shared": "python_ray_tracer_tpu/ops/pallas/render_pallas.py:1386",
 }
 BWD_REPLACES = "python_ray_tracer_tpu/ops/pallas/render_bwd.py:736"
-BWD_SOURCE = "python_ray_tracer_tpu_torch/csrc/render_bwd.cu"
+BWD_SOURCE = "python_ray_tracer_tpu_torch/csrc/render_bwd_kernel.cuh"
 BWD_PARITY_RES = (256, 256)
 FIT_STEPS = 30           # steps of each `cli fit` run on the main path
 FIT_RES = (1000, 1000)   # the fit CLI's default size
@@ -299,6 +309,13 @@ def backward_phases(torch, rt, card: str, dev) -> list:
     from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
     from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    from concurrent.futures import ThreadPoolExecutor
+    # [bwd-bounds]: the backward's sources built with other minimums of
+    # resident blocks, compiled while phases 7-8 run.
+    pool = ThreadPoolExecutor(len(BWD_MIN_BLOCKS))
+    bound_builds = {mb: pool.submit(_build.build, BWD_BOUND_SOURCES,
+                                    (f"-DRT_BWD_MIN_BLOCKS={mb}",)) for mb in BWD_MIN_BLOCKS}
+    pool.shutdown(wait=False)
 
     def kernel_flat(mode, cam, scene, x, compat):
         """The wrapper's flat gradient, camera slots included (and the loss
@@ -496,32 +513,76 @@ def backward_phases(torch, rt, card: str, dev) -> list:
               "cot_noaa": (g_noaa, g_noaa),
               "cot_aa": (cotangent(cam, init, target_aa, True, True), g_aa)}
     times = {}
+    regs = bwd_regs_start(_build.CSRC_DIR)
     for mode in rb.MODES:
         aa, fused = mode.endswith("_aa"), mode.startswith("fused")
         x, x_plain = inputs[mode]
         cam_plain = cam_aa if aa else cam
         n = rb.n_grads(*cnt, fused)
         out = torch.empty(n, device=dev)
-        rows_n = rb.n_blocks(W, H, aa)
-        partial = torch.empty(n * rows_n, device=dev)
+        shape = rb.launch_plan(cam, init, mode)
         img = torch.empty((W, H, 3), device=dev)
 
-        def kernel_only():
+        def kernel_only(shape=shape, lib=None):
+            partial = partials(shape.blocks)
             if mode == "fused_aa":
                 render_cuda.launch(img, params, tables, cnt, depth=2, mode="aa_shared",
                                    compat=True, cheap_shadow=cheap)
             return rb.launch(out, partial, params, tables, cnt,
                              image=img if mode == "fused_aa" else (None if fused else x),
                              target=x if fused else None, W=W, H=H, depth=2, mode=mode,
-                             compat=True, cheap_shadow=cheap)
+                             compat=True, cheap_shadow=cheap, shape=shape, lib=lib)
+
+        bufs = {}
+
+        def partials(rows):
+            if rows not in bufs:
+                bufs[rows] = torch.empty(n * rows, device=dev)
+            return bufs[rows]
 
         def reduce_only():
-            check(lib.rt_reduce_rows(partial.data_ptr(), rows_n, n, out.data_ptr(),
-                                     stream) == 0, "reduction launch failed")
+            check(lib.rt_reduce_rows(partials(shape.blocks).data_ptr(), shape.blocks, n,
+                                     out.data_ptr(), stream) == 0, "reduction launch failed")
             return out
 
         t = {"kernel": 1e3 * rt.time_fn(kernel_only, warmup=2, iters=20),
-             "reduce": 1e3 * rt.time_fn(reduce_only, warmup=2, iters=50)}
+             "reduce": 1e3 * rt.time_fn(reduce_only, warmup=2, iters=50), "plan": shape}
+        # The plan sweep: threads a block and blocks a multiprocessor around the
+        # planner's choice, kernel alone (the fused AA step's render included).
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        sweep = {}
+        for nt in (128, 64, 32):
+            for per_sm in (1, 2, 4, 8, 16):
+                q = rb.plan(*cnt, W, H, aa=aa, fused=fused, large=False, n_sm=n_sm,
+                            blocks_per_sm=per_sm)
+                q = rb.Plan(nt, True, q.blocks, q.tiles, rb.smem_bytes(*cnt, fused, aa, nt, True))
+                if (nt, q.blocks) not in sweep:
+                    sweep[(nt, q.blocks)] = 1e3 * rt.time_fn(kernel_only, q, warmup=1, iters=10)
+        best = min(sweep, key=sweep.get)
+        # The package's kernel against builds with a minimum of resident
+        # blocks, in turns (package, builds, builds reversed, package), each at
+        # the planner's grid and at its minimum's blocks a multiprocessor.
+        libs = {mb: _build.declare(ctypes.CDLL(f.result())) for mb, f in bound_builds.items()}
+        ref = kernel_only().clone()
+        order = [None, *BWD_MIN_BLOCKS, *reversed(BWD_MIN_BLOCKS), None]
+        bt = {}
+        for mb in order:
+            for per_sm in sorted({rb.BLOCKS_PER_SM, mb or rb.BLOCKS_PER_SM}):
+                q = rb.plan(*cnt, W, H, aa=aa, fused=fused, large=False, n_sm=n_sm,
+                            blocks_per_sm=per_sm)
+                ms = 1e3 * rt.time_fn(kernel_only, q, libs.get(mb), warmup=1, iters=10)
+                bt.setdefault((mb or 0, q.blocks), []).append(ms)
+            got = kernel_only(lib=libs.get(mb)).clone()
+            check(bool(torch.isfinite(got).all()), f"{mode} min blocks {mb}: not finite")
+            check(float((got - ref).abs().max()) <= 1e-3 * float(ref.abs().max()),
+                  f"{mode} min blocks {mb}: gradient off the package's")
+        print(f"[bwd-bounds] {mode} {W}x{H} d2 kernel alone ms by (minimum blocks, grid), "
+              f"in turns: " + ", ".join(f"{k} " + "/".join(f"{v:.4f}" for v in vs)
+                                         for k, vs in bt.items()) + f" | {card}")
+        print(f"[bwd-plan] {mode} {W}x{H} d2 kernel alone ms by (threads, blocks): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items())
+              + f"; the planner's ({shape.nt}, {shape.blocks}) ({shape.tiles} tiles a block, "
+              f"{shape.smem} B) {t['kernel']:.4f}, the best {best} {sweep[best]:.4f} | {card}")
         if fused:   # the whole fit_scene step: pack, kernel(s), reduction, Adam
             sc = rt.Scene.from_leaves([s.clone() for s in init.leaves()])
             step = train.make_train_step(
@@ -547,27 +608,64 @@ def backward_phases(torch, rt, card: str, dev) -> list:
               f"{t['reduce']:.4f} ms), pack {pack_ms:.4f} ms, Adam {adam_ms:.4f} ms, "
               f"plain {t['plain']:.4f} ms at {t['plain_res'][0]}x{t['plain_res'][1]} "
               f"| {card}")
+    bwd_regs_print(regs, "this tree")
+    for mb in BWD_MIN_BLOCKS:
+        bwd_regs_print({"render_bwd_small.cu": ptxas_report(
+            _build.CSRC_DIR, "render_bwd_small.cu", _build.BUILD_DIR,
+            (f"-DRT_BWD_MIN_BLOCKS={mb}",))}, f"min blocks {mb}")
 
     def entry(name, modes, t):
         e = [errs[m] for m in modes]
         mode = modes[0]
+        x = inputs[mode][0]
+        g = None if mode.startswith("fused") else x
+        live = timing.hard_chain_counts(
+            cam, init, timing.bwd_positions(W, H, mode.endswith("_aa"), g), depth=2)
+        bound, bound_by = timing.bound_ms(*timing.hard_bwd_work(W, H, *cnt, mode, live))
         ops, nbytes = timing.hard_work(W, H, *cnt, mode)
         if mode == "fused_aa":      # the fused AA step runs the aa_shared render first
             ops += timing.hard_work(W, H, *cnt, "aa_shared")[0]
-        bound, bound_by = timing.bound_ms(ops, nbytes)
-        print(f"[bound] {name} {W}x{H} d2: {bound:.4f} ms ({bound_by}, a lower bound: the "
-              f"primary sweep and the camera and material slot sums) vs kernel alone "
-              f"{t['kernel']:.4f} ms | {card}")
+        low = timing.bound_ms(ops, nbytes)[0]
+        print(f"[bound] {name} {W}x{H} d2: {bound:.4f} ms ({bound_by}; timing.hard_bwd_work: "
+              f"the chains' traces, live hits and adjoints, rays / sphere hits / plane hits "
+              f"by level {live.int().tolist()}), the old lower bound (timing.hard_work: the "
+              f"primary sweep and the slot sums) {low:.4f} ms, vs kernel alone "
+              f"{t['kernel']:.4f} ms ({t['kernel'] / bound:.1f}x) | {card}")
         return {"name": name, "route": "cuda", "source": BWD_SOURCE,
                 "replaces": BWD_REPLACES, "launches": sum(main_launches[m] for m in modes),
                 "max_abs_err": max(a for a, _ in e), "max_rel_err": max(r for _, r in e),
                 "ms": t["step"], "plain_ms": t["plain"], "kernel_only_ms": t["kernel"],
                 "reduce_ms": t["reduce"], "bound_ms": bound, "bound_by": bound_by,
-                "library_ms": None,
+                "lower_bound_ms": low, "library_ms": None,
                 "shape": f"{W}x{H}_d2", "plain_shape": "x".join(map(str, t["plain_res"]))}
     return [entry("render_bwd_fused_noaa", ("fused_noaa",), times["fused_noaa"]),
             entry("render_bwd_fused_aa", ("fused_aa",), times["fused_aa"]),
             entry("render_bwd_cotangent", ("cot_noaa", "cot_aa"), times["cot_noaa"])]
+
+
+# The backward kernel's sources, whose ptxas rows [bwd-regs] prints.
+BWD_REG_SOURCES = ("render_bwd.cu", "render_bwd_small.cu", "soft_fwd.cu")
+# [bwd-bounds]: the backward built with these minimums of resident blocks a
+# multiprocessor (render_bwd_kernel.cuh RT_BWD_MIN_BLOCKS) beside the package's.
+BWD_MIN_BLOCKS = (5, 6)
+BWD_BOUND_SOURCES = ("render_bwd.cu", "render_bwd_small.cu")
+
+
+def bwd_regs_start(csrc: str) -> dict:
+    """Start ``nvcc -Xptxas -v`` on a checkout's backward and soft forward
+    sources; :func:`bwd_regs_print` prints their rows."""
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    return {src: ptxas_report(csrc, src, _build.BUILD_DIR) for src in BWD_REG_SOURCES
+            if os.path.isfile(os.path.join(csrc, src))}
+
+
+def bwd_regs_print(procs: dict, label: str) -> None:
+    """``[bwd-regs]``: registers, spill stores and loads, and stack frame of
+    every kernel instantiation in :func:`bwd_regs_start`'s sources."""
+    for src, proc in procs.items():
+        for name, nregs, st, ld, stack in ptxas_lines(proc):
+            print(f"[bwd-regs] {label} {src} {name}: {nregs} registers, spill stores {st} B, "
+                  f"loads {ld} B, stack {stack} B")
 
 
 def soft_phases(torch, rt, card: str, dev) -> list:
@@ -829,6 +927,12 @@ def soft_phases(torch, rt, card: str, dev) -> list:
             cot = (2.0 * (rt.render_image_soft_cuda(camr, sc, tau=tau) - tgt) /
                    tgt.numel()).contiguous()
             live = timing.soft_live_counts(camr, sc, tau)
+            fms = 1e3 * rt.time_fn(soft_cuda.launch, img, params, tables, cnt, tau=tau,
+                                   warmup=2, iters=2 * reps)
+            fb = timing.bound_ms(*timing.soft_work(camr, sc, tau, "fwd", live))
+            print(f"[soft-time] {name} {W}x{H} tau={tau} soft_fwd kernel alone {fms:.4f} ms "
+                  f"(chunk of {lib.rt_soft_fwd_cap(*cnt)} live objects); bound {fb[0]:.4f} ms "
+                  f"({fb[1]}), {fms / fb[0]:.1f}x | {card}")
             for mode, x in (("fused", tgt), ("cot", cot)):
                 shape = sb.plan(*cnt, mode == "fused")
                 out = torch.empty(rb.n_grads(*cnt, mode == "fused"), device=dev)
@@ -1484,15 +1588,17 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
                  "dropped": main[n]["dropped"]} for n, v in times.items()}}]
 
 
-def ptxas_report(csrc: str, source: str, out_dir: str):
+def ptxas_report(csrc: str, source: str, out_dir: str, defines=()):
     """Start ``nvcc -Xptxas -v`` on one source of ``csrc`` (the kernels'
-    registers, spills and shared memory as ptxas reports them); returns the
-    process, whose stderr :func:`ptxas_lines` reads."""
+    registers, spills and shared memory as ptxas reports them), with extra
+    ``defines``; returns the process, whose stderr :func:`ptxas_lines` reads."""
     from python_ray_tracer_tpu_torch.ops.cuda import _build
     os.makedirs(out_dir, exist_ok=True)
+    tag = "".join(d.strip("-").replace("=", "") for d in defines)
     return subprocess.Popen(
-        [_build.find_nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", csrc, "-c", "-o",
-         os.path.join(out_dir, f"ptxas_{os.getpid()}_{source}.o"), os.path.join(csrc, source)],
+        [_build.find_nvcc(), *_build.NVCC_FLAGS, *defines, "-Xptxas", "-v", "-I", csrc, "-c",
+         "-o", os.path.join(out_dir, f"ptxas_{os.getpid()}_{tag}{source}.o"),
+         os.path.join(csrc, source)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
@@ -2155,6 +2261,96 @@ def entry_times(torch, rt, card: str, dev, label: str) -> None:
               f"stores {st} B, loads {ld} B, stack {stack} B")
 
 
+def ab_times(torch, rt, card: str, dev, label: str) -> None:
+    """``--ab-times DIR``: the backward kernel (TPU kernel 4) and the soft
+    forward kernel (TPU kernel 5) of one checkout's package, through entry
+    points whose signatures every tree of the port shares, so that two
+    checkouts' lines can be set side by side in one call (parent, this, this,
+    parent). ``[ab-bwd]``: the four backward modes at the fit CLI's shapes
+    (1000x1000, depth 2, compat, the 2-sphere scene from its shifted centers),
+    each wrapper's time (CUDA events) and the device time a call of its
+    kernels (torch.profiler: the backward kernel, its reduction and, in
+    fused_aa, the aa_shared render). ``[ab-soft]``: the soft forward at every
+    tau on the demo scene at 1000x1000 and 100 spheres at 512x512 (from the
+    soft fit's shifted centers), wrapper and device ms and a SHA-256 digest of
+    each frame's bytes. ``[ab-softbwd]``: digests of both soft backward modes'
+    gradients at tau 0.05 on those shapes. ``[bwd-regs]``: ptxas's rows of the
+    checkout's backward and soft forward sources."""
+    import hashlib
+    from torch.profiler import ProfilerActivity, profile
+    from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    regs = bwd_regs_start(_build.CSRC_DIR)
+
+    def device_ms(fn, names, calls=5):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            for k in names:
+                if k in e.key:
+                    us[k] += getattr(e, "self_device_time_total",
+                                     getattr(e, "self_cuda_time_total", 0.0))
+        total = sum(us.values())
+        parts = ", ".join(f"{k} {v / 1e3 / calls:.4f}" for k, v in us.items())
+        return (f"{total / 1e3 / calls:.4f} ms ({parts})" if total > 0 else "not measured")
+
+    def digest(t):
+        return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+    cfg = RenderConfig()
+    scene = cli.fit_scene_two_spheres(cfg, dev)
+    init = rt.Scene.from_leaves(scene.leaves())
+    init.spheres = rt.Spheres(scene.spheres.center + torch.tensor([0.2, -0.15, 0.1], device=dev),
+                              scene.spheres.radius, scene.spheres.albedo)
+    cam = rt.Camera.build(FIT_RES, cfg.camera_position, cfg.camera_euler, cfg.fov, device=dev)
+    for aa in (False, True):
+        target = rt.render_image_cuda(cam, scene, depth=2, aliasing=aa)
+        img = rt.render_image_cuda(cam, init, depth=2, aliasing=aa)
+        cot = (2.0 * (img - target) / img.numel()).contiguous()
+        names = ("render_bwd_kernel", "reduce_rows_kernel") + (("render_fwd_kernel",)
+                                                               if aa else ())
+        for mode, fn in ((f"fused_{'aa' if aa else 'noaa'}", lambda: rb.loss_and_scene_grads_cuda(
+                             cam, init, target, depth=2, aliasing=aa)),
+                         (f"cot_{'aa' if aa else 'noaa'}", lambda: rb.scene_grads_cuda(
+                             cam, init, cot, depth=2, aliasing=aa))):
+            wrapper = 1e3 * rt.time_fn(fn, warmup=2, iters=20)
+            dms = device_ms(fn, names if mode.startswith("fused") else names[:2])
+            print(f"[ab-bwd] {label} {mode} {FIT_RES[0]}x{FIT_RES[1]} d2: wrapper {wrapper:.4f} ms, "
+                  f"device {dms} a call | {card}")
+    for name, res in SOFT_TIMES:
+        base = rt.default_scene(device=dev) if name == "demo" else rt.random_scene(
+            100, generator=torch.Generator().manual_seed(0), device=dev)
+        sc = rt.Scene.from_leaves(base.leaves())
+        sc.spheres = rt.Spheres(base.spheres.center + torch.tensor(cli.FIT_SHIFT, device=dev),
+                                base.spheres.radius, base.spheres.albedo)
+        camr = rt.default_camera(res, device=dev)
+        for tau in SOFT_TAUS:
+            def fwd():
+                return rt.render_image_soft_cuda(camr, sc, tau=tau)
+            frame = fwd()
+            wrapper = 1e3 * rt.time_fn(fwd, warmup=2, iters=10)
+            print(f"[ab-soft] {label} {name} {res[0]}x{res[1]} tau={tau}: wrapper {wrapper:.4f} ms, "
+                  f"device {device_ms(fwd, ('soft_fwd_kernel',))} a call, frame digest "
+                  f"{digest(frame)} | {card}")
+        tgt = rt.render_image_soft_cuda(camr, base, tau=0.05)
+        cot = (2.0 * (rt.render_image_soft_cuda(camr, sc, tau=0.05) - tgt) / tgt.numel()).contiguous()
+        loss, sg, cg = sb.soft_loss_and_grads_cuda(camr, sc, tgt, tau=0.05, return_camera=True)
+        fused = rb.flatten_grads(sg, cg, loss)
+        grads = rb.flatten_grads(*sb.soft_scene_grads_cuda(camr, sc, cot, tau=0.05,
+                                                           return_camera=True))
+        print(f"[ab-softbwd] {label} {name} {res[0]}x{res[1]} tau=0.05: fused digest "
+              f"{digest(fused)}, cotangent digest {digest(grads)}")
+    bwd_regs_print(regs, label)
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2162,8 +2358,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 1
-    if len(sys.argv) == 3 and sys.argv[1] == "--entry-times":
-        # phase 20 alone, on the package of another checkout
+    if len(sys.argv) == 3 and sys.argv[1] in ("--entry-times", "--ab-times"):
+        # phase 20, or the A/B times of kernels 4 and 5, on another checkout's package
         root = os.path.abspath(sys.argv[2])
         sys.path.insert(0, root)
         import python_ray_tracer_tpu_torch as rt
@@ -2173,8 +2369,9 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
         print(card)
-        entry_times(torch, rt, card, torch.device("cuda", 0), os.path.relpath(root, ROOT))
-        print(f"[smoke] --entry-times {root} in {time.perf_counter() - t_start:.1f} s")
+        fn = entry_times if sys.argv[1] == "--entry-times" else ab_times
+        fn(torch, rt, card, torch.device("cuda", 0), os.path.relpath(root, ROOT))
+        print(f"[smoke] {sys.argv[1]} {root} in {time.perf_counter() - t_start:.1f} s")
         return 0
     sys.path.insert(0, ROOT)
     import numpy as np

@@ -1,7 +1,7 @@
 // The backward kernel for large scenes (render_bwd_kernel.cuh in rt_common.cuh's
-// pinned arithmetic, the render kernel's for such scenes), the entry point of
-// both halves, and the second-stage reduction that every backward kernel of
-// the library shares.
+// pinned arithmetic, the render kernel's for such scenes; per-warp rows, at
+// depths 0-3 and the general depth), the entry point of both halves, and the
+// second-stage reduction that every backward kernel of the library shares.
 
 #include "render_bwd_kernel.cuh"
 
@@ -31,43 +31,43 @@ reduce_rows_kernel(const float* __restrict__ partial, int n_rows, float* __restr
 extern "C" {
 
 // The small-scene kernels (render_bwd_small.cu); arguments checked here.
-int rt_render_bwd_small(const float* params, const float* sph, int ns, const float* pln,
-                        int npl, const float* lts, int nl, const float* img,
-                        const float* target, float* partial, int n_grads, int W, int H,
-                        int depth, int mode, int compat, int cheap_shadow, void* stream);
+int rt_render_bwd_small(const BwdJob* job, int compat, int cheap_shadow, int cols);
 
-// Launch the backward kernel on `stream`: writes per-block partial sums into
-// partial (n_grads x n_rows, n_rows = ceil(H/16) * ceil(W/8) * (9 with AA, else
-// 1)); rt_reduce_rows then sums them. img: the (W, H, 3) cotangent (COT_*
-// modes) or the rendered image (FUSED_AA); target: the (W, H, 3) target
-// (FUSED_* modes); unused pointers may be null. n_grads = 7 ns + 9 npl + 3 nl
-// + 18, + 1 in the fused modes. large_scene: the scene is one the render
-// kernel draws with its large-scene instantiations (rt_render_fwd), so this
-// file's pinned kernels recompute it; else render_bwd_small.cu's do. Returns
-// cudaGetLastError() after the launch.
+// Launch the backward kernel on `stream`: n_rows blocks of nt threads (32, 64
+// or 128) walk the image's 16x16 tiles (block b takes tiles b, b + n_rows,
+// ...; 1 <= n_rows <= the tile count) and write per-block partial sums into
+// partial (n_grads x n_rows); rt_reduce_rows then sums them. cols: the slot
+// columns (small scenes only), else per-warp rows (render_bwd_kernel.cuh's
+// head). img: the (W, H, 3) cotangent (COT_* modes) or the rendered image
+// (FUSED_AA); target: the (W, H, 3) target (FUSED_* modes); unused pointers
+// may be null. n_grads = 7 ns + 9 npl + 3 nl + 18, + 1 in the fused modes.
+// large_scene: the scene is one the render kernel draws with its large-scene
+// instantiations (rt_render_fwd), so this file's pinned kernels recompute it;
+// else render_bwd_small.cu's do. Returns cudaGetLastError() after the launch.
 int rt_render_bwd(const float* params, const float* sph, int ns, const float* pln,
                   int npl, const float* lts, int nl, const float* img,
                   const float* target, float* partial, int n_rows, int n_grads,
                   int W, int H, int depth, int mode, int compat, int cheap_shadow,
-                  int large_scene, void* stream) {
+                  int large_scene, int nt, int cols, void* stream) {
   const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
-  const int S = (mode == COT_AA || mode == FUSED_AA) ? 9 : 1;
+  const bool aa = mode == COT_AA || mode == FUSED_AA;
+  const long long n_tiles =
+      static_cast<long long>((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE);
   if (W <= 0 || H <= 0 || depth < 0 || depth > MAX_DEPTH || ns < 0 || npl < 0 ||
       nl < 0 || mode < COT_NOAA || mode > FUSED_AA ||
-      (W + BY - 1) / BY > 65535 ||
       n_grads != 7 * ns + 9 * npl + 3 * nl + 18 + (fused ? 1 : 0) ||
-      static_cast<long long>(n_rows) !=
-          static_cast<long long>((H + BX - 1) / BX) * ((W + BY - 1) / BY) * S ||
+      n_rows < 1 || n_rows > n_tiles || !(nt == 32 || nt == 64 || nt == 128) ||
+      (cols && large_scene) ||
+      sizeof(float) * bwd_smem_words(ns, npl, nl, n_grads, aa, nt, cols != 0) >
+          static_cast<size_t>(227 * 1024) ||
       (mode != FUSED_NOAA && img == nullptr) || (fused && target == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (!large_scene) {
-    return rt_render_bwd_small(params, sph, ns, pln, npl, lts, nl, img, target, partial,
-                               n_grads, W, H, depth, mode, compat, cheap_shadow, stream);
-  }
-  return static_cast<int>(dispatch(params, sph, ns, pln, npl, lts, nl, img, target, partial,
-                                   n_grads, W, H, depth, mode, compat != 0,
-                                   cheap_shadow != 0, static_cast<cudaStream_t>(stream)));
+  const BwdJob job{params, sph, ns, pln, npl, lts, nl, img, target, partial,
+                   n_rows, W, H, depth, mode, n_grads, nt,
+                   static_cast<cudaStream_t>(stream)};
+  if (!large_scene) return rt_render_bwd_small(&job, compat, cheap_shadow, cols);
+  return static_cast<int>(dispatch_depth<false>(compat != 0, cheap_shadow != 0, job));
 }
 
 // out[k] = sum_r partial[k * n_rows + r] for k < n_cols, in a fixed order.

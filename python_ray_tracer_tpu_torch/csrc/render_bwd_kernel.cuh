@@ -7,58 +7,94 @@
 // _make_bwd_kernel (:736), with its helpers _norm_adj (:70), _fwd_trace_res
 // (:144) and _bwd_trace (:464). Modes (C enum below):
 //   COT_NOAA    cotangent image in, no AA              (render_bwd.py:1039-1044)
-//   COT_AA      cotangent image in, 9 chains a pixel   (:1045-1064)
+//   COT_AA      cotangent image in, the AA lattice     (:1066-1130, aa_share)
 //   FUSED_NOAA  target in: the kernel renders the pixel, forms the MSE loss
 //               partial and its cotangent, then reverse-sweeps  (:958-977)
 //   FUSED_AA    target and the aa_shared render in: loss partial and
-//               cotangent per pixel, then COT_AA's reverse chains
+//               cotangent per pixel, then COT_AA's lattice chains
 // Every mode fills the camera slots (position, rotation, fov).
 //
-// Output: the flat gradient vector of render_bwd.grad_layout,
+// Output: per-block partial sums of the flat gradient vector of
+// render_bwd.grad_layout,
 //   [spheres 7*ns (cx cy cz r ar ag ab), planes 9*npl (ox oy oz nx ny nz ar
 //   ag ab), lights 3*nl, amb, lamb, refl, spec, shin, cam_pos 3, rot 9, fov]
-// plus a trailing loss slot in the fused modes.
+// plus a trailing loss slot in the fused modes; rt_reduce_rows (render_bwd.cu)
+// sums them in a fixed order.
 //
-// What bounds it on this card: FP32 ALU work, sqrt and division, as in the
-// forward kernel, plus the adjoint reductions: every pixel contributes to
-// every material, light and camera slot and to its hit object's slots.
+// What bounded the first port of this kernel (0.16 ms a fit step at 1000x1000
+// depth 2 without AA, 1.61 ms with, H100 at 700 W): reductions inside the
+// reverse loop (per trace 3 nl light slots and each hit object's 7 or 9 slots
+// warp-summed one object at a time, per chain 19 camera, material and loss
+// slots: ~29 warp sums a trace, ~106 a chain on the fit scene, each 5 shuffles
+// and a shared-memory add, all of them even where every lane's value was 0),
+// the residuals in local memory (an array indexed at run time), one block per
+// 128 pixels, and 9 chains a pixel with AA. What bounds this one: the chain's
+// FP32 arithmetic (closest-hit and shadow sweeps, sqrt and division).
 //
 // What the design does about it:
 //   * the forward chain is recomputed per thread through rt_common.cuh's
 //     raygen / closest_hit / occluded / surface / reflect_dir, the functions
 //     the render kernel uses, in the arithmetic the render kernel uses for the
-//     same scene (below); per bounce only (origin, direction, t, hit index, shadow
-//     bitmask) is kept, in a per-thread array of MAX_DEPTH + 1 entries, and
-//     the reverse sweep rebuilds the rest elementwise;
-//   * no per-thread gradient vector (78 slots for the demo scene would
-//     spill): each adjoint is warp-reduced with shuffles as it is produced
-//     and lane 0 adds it to its warp's row of a shared-memory accumulator.
-//     Per-object slots differ between lanes, so they are reduced one hit
-//     object at a time (the lowest pending lane's object first). Material and
-//     camera adjoints stay in registers until the chain ends;
-//   * determinism without float atomics: every shared-memory row has one
-//     writer, rows are summed in warp order into a per-block partial column
-//     (partial[slot * n_blocks + block]), and a second kernel (reduce_rows)
-//     sums each slot's column in a fixed tree order. Two runs give the same
-//     bits;
-//   * the collective operations need every lane of a warp, so no thread
-//     returns early: pad pixels, skipped AA samples and dead rays run the
-//     reverse loop with their contributions selected to 0 (selects, not
-//     multiplies: an unused lane's values may be inf or NaN). A warp stops
-//     sweeping bounces once all its lanes' chains have ended;
+//     same scene (below); per trace only (origin, direction, t, hit index,
+//     shadow bitmask) is kept, and the reverse sweep rebuilds the rest;
+//   * the residuals stay in registers: the kernel is instantiated for depths
+//     0-3 (the main path's 2 among them), where each trace's record is read
+//     and written through a chain of selects on the loop index; other depths
+//     up to MAX_DEPTH take a general instantiation with a run-time indexed
+//     array;
+//   * no reduction inside the loops (COLS, the small scenes): every thread
+//     adds each adjoint into its own column of shared memory, slot k of
+//     thread t at k * nt + t (neighbouring lanes hit neighbouring banks; no
+//     atomics), for every trace of every chain it takes. At the end each slot
+//     is reduced once a block in a fixed order (each lane sums its column's
+//     entries of the block's warps in warp order, then one warp sum), and a
+//     warp-uniform __any_sync skips a slot that is 0 on every lane;
+//   * where the columns do not fit a block (ROWS: the large scenes, 7 ns
+//     sphere slots, and small scenes with very many slots) the object and
+//     light slots keep per-warp rows, each adjoint warp-reduced as it is
+//     produced (acc, acc_obj); the 18-19 camera, material and loss slots are
+//     lane-private columns in both forms, added to once a chain;
+//   * a block walks several 16x16 tiles (tile b, b + gridDim.x, ...): the
+//     grid is sized to the card by the wrapper's planner, and each block
+//     writes one partial column;
+//   * the AA modes trace the forward's lattice: a tile's 1089 distinct sample
+//     positions (the C, U, V and UV grids of render_fwd_kernel.cuh's
+//     AA_SHARED) instead of 9 chains a pixel. A lattice chain's cotangent is
+//     the sum of the weights of the in-tile pixels whose 3x3 stencil holds it
+//     (float32(1/9) each for an interior pixel; a border pixel takes its
+//     primary sample alone, weight 1; the compat channel swap on the centre
+//     sample only), exactly the adjoint of the forward's combine. A position
+//     on a tile edge is traced by both tiles, each with its own share;
+//   * exact skips: a chain whose cotangent is 0 runs no reverse sweep (every
+//     adjoint is linear in it; in ROWS it still joins the collectives) and, in
+//     the cotangent modes, no forward chain either; in COLS a trace that does
+//     not contribute (a miss, past the chain's end) is not swept at all;
+//   * the reverse sweep takes each light's terms once a trace, for the shade
+//     and its adjoints alike (the first port took them twice);
+//   * determinism without float atomics: every column and row has one writer,
+//     each block writes its partial column in a fixed order, and a second
+//     kernel (reduce_rows) sums each slot's column in a fixed tree order. Two
+//     runs give the same bits;
 //   * the per-pixel cotangent and target are read only for in-bounds pixels.
-// Making it fast (the shared-sample AA backward, the one-launch fused AA
-// step, fewer reductions) is later work.
-//
-// Block shape: 16 x 8 threads (4 warps); threadIdx.x walks the image's y axis,
-// the contiguous axis of the (w, h, 3) images; gridDim.z is the AA sample.
-
+// The launch plan (threads a block, the grid, COLS or ROWS) comes from the
+// wrapper's planner (render_bwd_cuda.plan), one rule: 128 threads a block and
+// the slot columns where the scene is a small one and they fit (else 64, then
+// 32 threads), else per-warp rows (128, 64, 32 threads); BLOCKS_PER_SM blocks
+// (4; fewer where their shared memory does not fit an SM) on each SM, at most
+// one a tile. Shared memory a block:
+//   4 B x (41 + 7 ns + 9 npl + 3 nl              the scene
+//          + 6 x 256 with AA                     a tile's pixel cotangents
+//          + COLS: n_grads x nt                  every slot's columns
+//            ROWS: nwarps x (n_grads - 18 - fused) + (18 + fused) x nt)
+// The one-launch fused AA step is later work.
 //
 // This header holds the kernel and its launch. Two source files include it
 // once each, after choosing rt_common.cuh's arithmetic, as the render kernel's
-// two halves do: render_bwd_small.cu (contracted) for scenes the render kernel
-// draws without tables, render_bwd.cu (pinned) for large scenes, so that the
-// recomputed chain decides each hit as the forward did.
+// two halves do: render_bwd_small.cu (contracted; COLS at depths 0-3 and the
+// general depth, ROWS at the general depth) for scenes the render kernel draws
+// without tables, render_bwd.cu (pinned; ROWS at depths 0-3 and the general
+// depth) for large scenes, so that the recomputed chain decides each hit as
+// the forward did.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -71,11 +107,23 @@ using namespace rt;
 
 enum : int { COT_NOAA = 0, COT_AA = 1, FUSED_NOAA = 2, FUSED_AA = 3 };
 
+// Resident blocks a multiprocessor the kernel asks ptxas to make room for (0:
+// no minimum, ptxas's own register choice); chip_smoke.py's [bwd-bounds] times
+// other minimums, built with -DRT_BWD_MIN_BLOCKS.
+#ifndef RT_BWD_MIN_BLOCKS
+#define RT_BWD_MIN_BLOCKS 0
+#endif
+
 constexpr int MAX_DEPTH = 8;                 // bounces a chain can keep residuals for
-constexpr int BX = 16;                       // threads along y
-constexpr int BY = 8;                        // threads along x
-constexpr int NT = BX * BY;
-constexpr int NWARPS = NT / 32;
+constexpr int MAX_NT = 128;                  // threads a block, at most
+constexpr int TILE = 16;                     // pixels a tile side
+constexpr int TILE_PX = TILE * TILE;
+constexpr int N_C = TILE * TILE;             // the AA lattice's grids (render_fwd_kernel.cuh)
+constexpr int N_U = (TILE + 1) * TILE;
+constexpr int N_V = TILE * (TILE + 1);
+constexpr int N_UV = (TILE + 1) * (TILE + 1);
+constexpr int N_SHARED = N_C + N_U + N_V + N_UV;   // 1089
+constexpr int COT_WORDS = 6 * TILE_PX;       // a tile's centre and neighbour cotangents
 constexpr float DEN_EPS = 1e-6f;             // grazing-hit clamp, render_bwd.py:60
 
 // What one trace keeps for the reverse sweep.
@@ -83,6 +131,42 @@ struct Res {
   float ox, oy, oz, dx, dy, dz, t;
   int obj;         // hit object, -1 on a miss
   unsigned occ;    // bit l: light l (< 32) occluded
+};
+
+// Records of a chain's traces: NR of them. D >= 0 (depths 0-3): kept in
+// registers, read and written through selects on the index; D < 0: an array
+// indexed at run time (MAX_DEPTH + 1 records).
+template <int D>
+struct Chain {
+  static constexpr int NR = D < 0 ? MAX_DEPTH + 1 : D + 1;
+  Res r[NR];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int k = 0; k < NR; ++k) r[k] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, 0u};
+  }
+  __device__ __forceinline__ Res get(int i) const {
+    if constexpr (D < 0) {
+      return r[i];
+    } else {
+      Res o = r[0];
+#pragma unroll
+      for (int k = 1; k < NR; ++k) {
+        if (i == k) o = r[k];
+      }
+      return o;
+    }
+  }
+  __device__ __forceinline__ void put(int i, const Res& v) {
+    if constexpr (D < 0) {
+      r[i] = v;
+    } else {
+#pragma unroll
+      for (int k = 0; k < NR; ++k) {
+        if (i == k) r[k] = v;
+      }
+    }
+  }
 };
 
 // row[base + c] += v[c], summed over the lanes that share `base` (base < 0:
@@ -103,6 +187,34 @@ __device__ __forceinline__ void acc_obj(float* row, int base, const float (&v)[N
     pending &= ~__ballot_sync(FULL, mine);
   }
 }
+
+// Where a trace's object and light adjoints go. COLS: this lane's column
+// (slot k at col[k * nt]), added to only where the trace contributes. ROWS:
+// the warp's row, through warp sums that every lane joins.
+template <bool COLS>
+struct Sink {
+  float* p;   // COLS: s_acc + tid; ROWS: the warp's row
+  int nt, lane;
+
+  __device__ __forceinline__ void add(int k, float v, bool act) const {
+    if (COLS) {
+      p[k * nt] += v;
+    } else {
+      acc(p, k, act ? v : 0.0f, lane);
+    }
+  }
+  template <int N>
+  __device__ __forceinline__ void add_obj(int base, const float (&v)[N]) const {
+    if (COLS) {
+      if (base >= 0) {
+#pragma unroll
+        for (int c = 0; c < N; ++c) p[(base + c) * nt] += v[c];
+      }
+    } else {
+      acc_obj<N>(p, base, v, lane);
+    }
+  }
+};
 
 // Per-light shading terms of one trace.
 struct LightTerm {
@@ -172,24 +284,27 @@ __device__ __forceinline__ Shade shade_of(const SceneView& s, const Surface& f, 
 // Forward chain of one sample: primary trace + up to `depth` bounces,
 // keeping each trace's residuals; returns how many traces ran (the last one
 // may be a miss) and the weighted color sum.
-template <bool COMPAT, bool CHEAP>
-__device__ int fwd_chain(const SceneView& s, Ray ray, int depth, Res* res, float& cr,
-                         float& cg, float& cb) {
+template <bool COMPAT, bool CHEAP, int D>
+__device__ __forceinline__ int fwd_chain(const SceneView& s, Ray ray, int depth,
+                                         Chain<D>& ch, float& cr, float& cg, float& cb) {
   const float refl = s.p[P_REFL];
+  const int last = D < 0 ? depth : D;
   float w = 1.0f;
   cr = cg = cb = 0.0f;
   int k = 0;
-  for (int bounce = 0; bounce <= depth; ++bounce) {
+  for (int bounce = 0; bounce <= last; ++bounce) {
     const Hit h = closest_hit<COMPAT>(s, ray);
-    res[k] = {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, h.t, h.obj, 0u};
     ++k;
     const Surface f = surface<COMPAT>(ray, h);
-    if (!f.alive) break;
+    if (!f.alive) {
+      ch.put(bounce, {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, h.t, h.obj, 0u});
+      break;
+    }
     float Rx, Ry, Rz;
     reflect_dir(ray.dx, ray.dy, ray.dz, f.nx, f.ny, f.nz, Rx, Ry, Rz);
     unsigned occ = 0u;
     const Shade sh = shade_of<COMPAT, CHEAP>(s, f, Rx, Ry, Rz, occ, false);
-    res[k - 1].occ = occ;
+    ch.put(bounce, {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, h.t, h.obj, occ});
     cr = cr + w * sh.r;
     cg = cg + w * sh.g;
     cb = cb + w * sh.b;
@@ -204,15 +319,18 @@ struct MatAcc {
   float amb, lamb, refl, spec, shin;
 };
 
-// Reverse sweep of one trace (render_bwd.py:464-700). g: the pixel's
+// Reverse sweep of one trace (render_bwd.py:464-700). g: the chain's
 // cotangent in sample color space; w: the trace's weight refl^i; dw: d w /
 // d refl = i refl^(i-1). ob/db: in, the cotangents of the next trace's
-// origin and direction; out, this trace's. Every lane of the warp must call
-// it; `act` selects whether this lane's trace contributes.
-template <bool COMPAT, bool CHEAP>
-__device__ void bwd_trace(const SceneView& s, const Slots& sl, float* row, int lane,
-                          const Res& rs, bool act, float g0, float g1, float g2,
-                          float w, float dw, float* ob, float* db, MatAcc& ma) {
+// origin and direction; out, this trace's. `act`: this lane's trace
+// contributes (always, in COLS, whose caller sweeps only such traces; in ROWS
+// every lane of the warp calls it and a lane that does not contribute adds
+// zeros).
+template <bool COMPAT, bool CHEAP, bool COLS>
+__device__ __forceinline__ void bwd_trace(const SceneView& s, const Slots& sl,
+                                          const Sink<COLS>& out, const Res& rs, bool act,
+                                          float g0, float g1, float g2, float w, float dw,
+                                          float* ob, float* db, MatAcc& ma) {
   const float* P = s.p;
   const float lamb = P[P_LAMB];
   const float dx = rs.dx, dy = rs.dy, dz = rs.dz;
@@ -224,23 +342,16 @@ __device__ void bwd_trace(const SceneView& s, const Slots& sl, float* row, int l
   const float rrn = reflect_dir(dx, dy, dz, nx, ny, nz, Rx, Ry, Rz);
   const float ddn = dx * nx + dy * ny + dz * nz;
   unsigned occ = rs.occ;
-  const Shade sh = shade_of<COMPAT, CHEAP>(s, f, Rx, Ry, Rz, occ, true);
   const bool has_spec = !COMPAT && s.nl > 0;
 
+  // rgb = shade * albedo (+ spec * spec_sum), shade = amb + lamb * lam_sum:
+  // the lights' terms once, for the shade and its adjoints alike
   const float gr = w * g0, gg = w * g1, gb = w * g2;
-  // rgb = shade * albedo (+ spec * spec_sum)
   const float shade_bar = gr * f.ar + gg * f.ag + gb * f.ab;
-  const float abr = sh.shade * gr, abg = sh.shade * gg, abb = sh.shade * gb;
-  ma.amb += act ? shade_bar : 0.0f;
-  ma.lamb += act ? shade_bar * sh.lam_sum : 0.0f;
-  ma.refl += act ? dw * (g0 * sh.r + g1 * sh.g + g2 * sh.b) : 0.0f;
   const float lam_sum_bar = shade_bar * lamb;
-  float spec_sum_bar = 0.0f, shin_bar = 0.0f;
-  if (has_spec) {
-    const float gsum = gr + gg + gb;
-    spec_sum_bar = P[P_SPEC] * gsum;
-    ma.spec += act ? gsum * sh.spec_sum : 0.0f;
-  }
+  const float gsum = gr + gg + gb;
+  const float spec_sum_bar = has_spec ? P[P_SPEC] * gsum : 0.0f;
+  float shin_bar = 0.0f, lam_sum = 0.0f, spec_sum = 0.0f;
 
   // next trace: o_next = Pb + BIAS * R, d_next = R
   float Rbx = BIAS * ob[0] + db[0], Rby = BIAS * ob[1] + db[1], Rbz = BIAS * ob[2] + db[2];
@@ -248,6 +359,8 @@ __device__ void bwd_trace(const SceneView& s, const Slots& sl, float* row, int l
   float lnx = 0.0f, lny = 0.0f, lnz = 0.0f;
   for (int l = 0; l < s.nl; ++l) {
     const LightTerm q = light_term<COMPAT, CHEAP>(s, l, f, Rx, Ry, Rz, occ, true);
+    lam_sum += q.m ? q.ldotn : 0.0f;
+    spec_sum += q.p;
     const float chi = q.m ? lam_sum_bar : 0.0f;
     float Lbx = chi * nx, Lby = chi * ny, Lbz = chi * nz;
     lnx += chi * q.lx;
@@ -260,11 +373,19 @@ __device__ void bwd_trace(const SceneView& s, const Slots& sl, float* row, int l
       shin_bar += spec_sum_bar * q.p * q.logs;
     }
     norm_adj(q.lx, q.ly, q.lz, q.lrn, Lbx, Lby, Lbz);
-    acc(row, sl.lts + 3 * l + 0, act ? Lbx : 0.0f, lane);
-    acc(row, sl.lts + 3 * l + 1, act ? Lby : 0.0f, lane);
-    acc(row, sl.lts + 3 * l + 2, act ? Lbz : 0.0f, lane);
+    out.add(sl.lts + 3 * l + 0, Lbx, act);
+    out.add(sl.lts + 3 * l + 1, Lby, act);
+    out.add(sl.lts + 3 * l + 2, Lbz, act);
     pbbx -= Lbx; pbby -= Lby; pbbz -= Lbz;
   }
+  const float shade = P[P_AMB] + lamb * lam_sum;
+  const float spec = has_spec ? P[P_SPEC] * spec_sum : 0.0f;
+  const float abr = shade * gr, abg = shade * gg, abb = shade * gb;
+  ma.amb += act ? shade_bar : 0.0f;
+  ma.lamb += act ? shade_bar * lam_sum : 0.0f;
+  ma.refl += act ? dw * (g0 * (shade * f.ar + spec) + g1 * (shade * f.ag + spec) +
+                         g2 * (shade * f.ab + spec)) : 0.0f;
+  if (has_spec) ma.spec += act ? gsum * spec_sum : 0.0f;
   if (has_spec) ma.shin += act ? shin_bar : 0.0f;
 
   // R = normalize(w), w = d - 2 (d.n) n
@@ -342,14 +463,99 @@ __device__ void bwd_trace(const SceneView& s, const Slots& sl, float* row, int l
     pv[6] = abr; pv[7] = abg; pv[8] = abb;
     pbase = sl.pln + 9 * j;
   }
-  acc_obj<7>(row, sbase, sv, lane);
-  acc_obj<9>(row, pbase, pv, lane);
+  out.add_obj(sbase, sv);
+  out.add_obj(pbase, pv);
   ob[0] = act ? obx : 0.0f; ob[1] = act ? oby : 0.0f; ob[2] = act ? obz : 0.0f;
   db[0] = act ? dbx : 0.0f; db[1] = act ? dby : 0.0f; db[2] = act ? dbz : 0.0f;
 }
 
-template <bool COMPAT, bool CHEAP>
-__global__ void __launch_bounds__(NT)
+// One sample chain at fractional pixel (px, py): the forward chain (which
+// FUSED_NOAA needs for its loss and cotangent), then the reverse sweep and
+// the camera adjoint. `fwd`: the chain is traced; `cot` (sr, sg, sb): its
+// cotangent in sample color space, or in FUSED_NOAA the pixel at `pix` forms
+// it from the render and the target. tail: this lane's column of the 18-19
+// material, camera and loss slots (slot k - sl.mat at tail[(k - sl.mat) * nt]).
+template <bool COMPAT, bool CHEAP, bool COLS, int D>
+__device__ __forceinline__ void sample(const SceneView& s, const Slots& sl,
+                                       const Sink<COLS>& out, float* tail, int nt,
+                                       float px, float py, int depth, bool fwd,
+                                       bool fused_noaa, const float* __restrict__ target,
+                                       size_t pix, float inv_denom, float two_inv, float sr,
+                                       float sg, float sb) {
+  const float* P = s.p;
+  const RayGen rg = raygen_full(P, px, py);
+  Chain<D> ch;
+  ch.clear();
+  int K = 1;
+  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+  if (fwd) K = fwd_chain<COMPAT, CHEAP, D>(s, rg.ray, depth, ch, cr, cg, cb);
+  if (fused_noaa && fwd) {
+    // the stored pixel (compat stores (r, b, g)), its MSE partial and cotangent
+    const float st0 = cr, st1 = COMPAT ? cb : cg, st2 = COMPAT ? cg : cb;
+    const float d0 = st0 - target[pix], d1 = st1 - target[pix + 1],
+                d2 = st2 - target[pix + 2];
+    tail[(sl.loss - sl.mat) * nt] += (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom;
+    const float g0 = two_inv * d0, g1 = two_inv * d1, g2 = two_inv * d2;
+    sr = g0; sg = COMPAT ? g2 : g1; sb = COMPAT ? g1 : g2;
+  }
+  // Every adjoint is linear in the cotangent: none where it is 0.
+  const bool on = fwd && (sr != 0.0f || sg != 0.0f || sb != 0.0f);
+
+  const float refl = P[P_REFL];
+  MatAcc ma{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float ob[3] = {0.0f, 0.0f, 0.0f}, db[3] = {0.0f, 0.0f, 0.0f};
+  const int kmax = COLS ? (on ? K : 0) : __reduce_max_sync(FULL, on ? K : 0);
+  for (int i = kmax - 1; i >= 0; --i) {
+    float w = 1.0f, dw = 0.0f;       // refl^i and i refl^(i-1)
+    for (int k = 0; k < i; ++k) {
+      dw = dw * refl + w;
+      w = w * refl;
+    }
+    const Res rs = ch.get(i);
+    const bool act = on && i < K && rs.obj >= 0;
+    if (COLS && !act) continue;
+    bwd_trace<COMPAT, CHEAP, COLS>(s, sl, out, rs, act, sr, sg, sb, w, dw, ob, db, ma);
+  }
+  if (!on) return;
+
+  // Camera: position takes the primary origin's cotangent; d = normalize(R p),
+  // p = (focal, pcy, pcz); focal = cot(fov/2) with fov in degrees.
+  const float focal = P[P_FOCAL];
+  float ubx = db[0], uby = db[1], ubz = db[2];
+  norm_adj(rg.ray.dx, rg.ray.dy, rg.ray.dz, rg.dn, ubx, uby, ubz);
+  const float pvec[3] = {focal, rg.pcy, rg.pcz};
+  const float ub[3] = {ubx, uby, ubz};
+  float* cam = tail + (sl.cam - sl.mat) * nt;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) cam[c * nt] += ob[c];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c) cam[(3 + 3 * r + c) * nt] += ub[r] * pvec[c];
+  const float focal_bar = P[P_ROT + 0] * ubx + P[P_ROT + 3] * uby + P[P_ROT + 6] * ubz;
+  const float dfdf = -(1.0f + focal * focal) * static_cast<float>(3.14159265358979 / 360.0);
+  cam[12 * nt] += focal_bar * dfdf;
+  tail[0] += ma.amb;
+  tail[nt] += ma.lamb;
+  tail[2 * nt] += ma.refl;
+  tail[3 * nt] += ma.spec;
+  tail[4 * nt] += ma.shin;
+}
+
+// Shared-memory words of one block (render_bwd_cuda.smem_bytes / 4).
+inline size_t bwd_smem_words(int ns, int npl, int nl,
+                                                          int n_grads, bool aa, int nt,
+                                                          bool cols) {
+  const size_t mat = 7 * static_cast<size_t>(ns) + 9 * static_cast<size_t>(npl) +
+                     3 * static_cast<size_t>(nl);
+  const size_t tail = static_cast<size_t>(n_grads) - mat;
+  return N_PARAMS + mat + (aa ? COT_WORDS : 0) +
+         (cols ? static_cast<size_t>(n_grads) * nt
+               : static_cast<size_t>(nt / 32) * mat + tail * nt);
+}
+
+template <bool COMPAT, bool CHEAP, bool COLS, int D>
+__global__ void __launch_bounds__(MAX_NT, RT_BWD_MIN_BLOCKS)
 render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                   int ns, const float* __restrict__ pln, int npl,
                   const float* __restrict__ lts, int nl, const float* __restrict__ img,
@@ -358,144 +564,200 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
   const bool aa = mode == COT_AA || mode == FUSED_AA;
   const Slots sl(ns, npl, nl, fused);
+  const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, nwarps = nt >> 5;
+  const int n_tail = sl.n - sl.mat;
   extern __shared__ float smem[];
   float* s_p = smem;
   float* s_sph = s_p + N_PARAMS;
   float* s_pln = s_sph + 7 * ns;
   float* s_lts = s_pln + 9 * npl;
-  float* s_acc = s_lts + 3 * nl;               // NWARPS rows of sl.n slots
-  const int tid = threadIdx.y * BX + threadIdx.x;
-  for (int i = tid; i < N_PARAMS; i += NT) s_p[i] = params[i];
-  for (int i = tid; i < 7 * ns; i += NT) s_sph[i] = sph[i];
-  for (int i = tid; i < 9 * npl; i += NT) s_pln[i] = pln[i];
-  for (int i = tid; i < 3 * nl; i += NT) s_lts[i] = lts[i];
-  for (int i = tid; i < NWARPS * sl.n; i += NT) s_acc[i] = 0.0f;
+  float* s_cot = s_lts + 3 * nl;                 // AA: centre, then neighbour cotangents
+  float* s_acc = s_cot + (aa ? COT_WORDS : 0);
+  // COLS: every slot's columns; ROWS: the warps' rows of the object and light
+  // slots, then the tail slots' columns.
+  const int acc_words = COLS ? sl.n * nt : nwarps * sl.mat + n_tail * nt;
+  for (int i = tid; i < N_PARAMS; i += nt) s_p[i] = params[i];
+  for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
+  for (int i = tid; i < 9 * npl; i += nt) s_pln[i] = pln[i];
+  for (int i = tid; i < 3 * nl; i += nt) s_lts[i] = lts[i];
+  for (int i = tid; i < acc_words; i += nt) s_acc[i] = 0.0f;
   __syncthreads();
   const SceneView s{s_p, s_sph, ns, s_pln, npl, s_lts, nl};
-  const int lane = tid & 31;
-  float* row = s_acc + (tid >> 5) * sl.n;
+  const Sink<COLS> out{COLS ? s_acc + tid : s_acc + (tid >> 5) * sl.mat, nt, lane};
+  float* tail = COLS ? s_acc + sl.mat * nt + tid : s_acc + nwarps * sl.mat + tid;
 
-  const int x = blockIdx.y * BY + threadIdx.y, y = blockIdx.x * BX + threadIdx.x;
-  const int smp = blockIdx.z;                  // AA sample, 0 = primary
-  const bool inb = x < W && y < H;
-  const bool interior = x >= 1 && x <= W - 2 && y >= 1 && y <= H - 2;
-  // A border pixel takes its primary sample alone.
-  const bool on = inb && (!aa || interior || smp == 0);
-  const size_t pix = inb ? (static_cast<size_t>(x) * H + y) * 3 : 0;
-
-  const RayGen rg = raygen_full(s_p, static_cast<float>(x) + s_p[P_OFFS + 2 * smp],
-                                static_cast<float>(y) + s_p[P_OFFS + 2 * smp + 1]);
-  Res res[MAX_DEPTH + 1];
-  res[0] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, -1, 0u};
-  int K = 1;
-  float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  if (on) K = fwd_chain<COMPAT, CHEAP>(s, rg.ray, depth, res, cr, cg, cb);
-
-  // Cotangent (g0, g1, g2) of the stored pixel.
-  float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f, loss = 0.0f;
-  if (inb) {
-    if (fused) {
-      const float inv_denom = static_cast<float>(1.0 / (3.0 * W * static_cast<double>(H)));
-      const float two_inv = static_cast<float>(2.0 / (3.0 * W * static_cast<double>(H)));
-      float st0, st1, st2;
-      if (mode == FUSED_NOAA) {        // compat stores (r, b, g)
-        st0 = cr; st1 = COMPAT ? cb : cg; st2 = COMPAT ? cg : cb;
-      } else {
-        st0 = img[pix]; st1 = img[pix + 1]; st2 = img[pix + 2];
+  const float inv_denom = static_cast<float>(1.0 / (3.0 * W * static_cast<double>(H)));
+  const float two_inv = static_cast<float>(2.0 / (3.0 * W * static_cast<double>(H)));
+  const float inv9 = static_cast<float>(1.0 / 9.0);
+  const int n_ty = (H + TILE - 1) / TILE;
+  const int n_tiles = ((W + TILE - 1) / TILE) * n_ty;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int x0 = tile / n_ty * TILE, y0 = tile % n_ty * TILE;   // x tiles outermost
+    const float fx0 = static_cast<float>(x0), fy0 = static_cast<float>(y0);
+    if (aa) {
+      // The tile's pixel cotangents (and, fused, the loss): the centre
+      // sample's share (weight 1/9 inside the border ring, 1 on it; compat's
+      // store swap) and each neighbour sample's (1/9, inside the ring only).
+      for (int p = tid; p < TILE_PX; p += nt) {
+        const int x = x0 + p / TILE, y = y0 + p % TILE;
+        float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
+        bool interior = false;
+        if (x < W && y < H) {
+          const size_t pix = (static_cast<size_t>(x) * H + y) * 3;
+          if (fused) {
+            const float d0 = img[pix] - target[pix], d1 = img[pix + 1] - target[pix + 1],
+                        d2 = img[pix + 2] - target[pix + 2];
+            tail[(sl.loss - sl.mat) * nt] += (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom;
+            g0 = two_inv * d0; g1 = two_inv * d1; g2 = two_inv * d2;
+          } else {
+            g0 = img[pix]; g1 = img[pix + 1]; g2 = img[pix + 2];
+          }
+          interior = x >= 1 && x <= W - 2 && y >= 1 && y <= H - 2;
+        }
+        const float wc = interior ? inv9 : 1.0f;
+        s_cot[p] = wc * g0;
+        s_cot[TILE_PX + p] = wc * (COMPAT ? g2 : g1);
+        s_cot[2 * TILE_PX + p] = wc * (COMPAT ? g1 : g2);
+        s_cot[3 * TILE_PX + p] = interior ? inv9 * g0 : 0.0f;
+        s_cot[4 * TILE_PX + p] = interior ? inv9 * g1 : 0.0f;
+        s_cot[5 * TILE_PX + p] = interior ? inv9 * g2 : 0.0f;
       }
-      const float d0 = st0 - target[pix], d1 = st1 - target[pix + 1],
-                  d2 = st2 - target[pix + 2];
-      loss = smp == 0 ? (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom : 0.0f;
-      g0 = two_inv * d0; g1 = two_inv * d1; g2 = two_inv * d2;
-    } else {
-      g0 = img[pix]; g1 = img[pix + 1]; g2 = img[pix + 2];
+      __syncthreads();
     }
-  }
-  // Into sample color space: the primary sample's compat store swap; AA
-  // neighbours land unswapped; interior AA weights 1/9.
-  const float wgt = (aa && interior) ? static_cast<float>(1.0 / 9.0) : 1.0f;
-  const bool swap = COMPAT && smp == 0;
-  const float sr = wgt * g0, sg = wgt * (swap ? g2 : g1), sb = wgt * (swap ? g1 : g2);
-
-  // Reverse sweep over the chain's traces.
-  const float refl = s_p[P_REFL];
-  MatAcc ma{0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float ob[3] = {0.0f, 0.0f, 0.0f}, db[3] = {0.0f, 0.0f, 0.0f};
-  const int kmax = __reduce_max_sync(FULL, K);
-  for (int i = kmax - 1; i >= 0; --i) {
-    float w = 1.0f, dw = 0.0f;       // refl^i and i refl^(i-1)
-    for (int k = 0; k < i; ++k) {
-      dw = dw * refl + w;
-      w = w * refl;
+    const int items = aa ? N_SHARED : TILE_PX;
+    for (int base = 0; base < items; base += nt) {   // warp-uniform
+      const int q = base + tid;
+      float px, py, sr = 0.0f, sg = 0.0f, sb = 0.0f;
+      bool fwd = false;
+      size_t pix = 0;
+      if (aa) {
+        // Lattice position q (render_fwd_kernel.cuh's AA_SHARED order) and the
+        // sum of its in-tile pixels' shares.
+        int kx = 0, ky = 0;
+        float du = 0.0f, dv = 0.0f;
+        const auto share = [&](int p) {   // pixel p's neighbour share
+          sr += s_cot[3 * TILE_PX + p];
+          sg += s_cot[4 * TILE_PX + p];
+          sb += s_cot[5 * TILE_PX + p];
+        };
+        if (q < N_C) {
+          kx = q / TILE; ky = q % TILE;
+          const int p = kx * TILE + ky;
+          sr = s_cot[p]; sg = s_cot[TILE_PX + p]; sb = s_cot[2 * TILE_PX + p];
+        } else if (q < N_C + N_U) {
+          kx = (q - N_C) / TILE; ky = (q - N_C) % TILE; du = -0.5f;
+          if (kx < TILE) share(kx * TILE + ky);
+          if (kx >= 1) share((kx - 1) * TILE + ky);
+        } else if (q < N_C + N_U + N_V) {
+          kx = (q - N_C - N_U) / (TILE + 1); ky = (q - N_C - N_U) % (TILE + 1); dv = -0.5f;
+          if (ky < TILE) share(kx * TILE + ky);
+          if (ky >= 1) share(kx * TILE + ky - 1);
+        } else if (q < N_SHARED) {
+          kx = (q - N_C - N_U - N_V) / (TILE + 1); ky = (q - N_C - N_U - N_V) % (TILE + 1);
+          du = -0.5f; dv = -0.5f;
+          if (kx < TILE && ky < TILE) share(kx * TILE + ky);
+          if (kx >= 1 && ky >= 1) share((kx - 1) * TILE + ky - 1);
+          if (kx < TILE && ky >= 1) share(kx * TILE + ky - 1);
+          if (kx >= 1 && ky < TILE) share((kx - 1) * TILE + ky);
+        }
+        px = (fx0 + du) + static_cast<float>(kx);
+        py = (fy0 + dv) + static_cast<float>(ky);
+        fwd = q < N_SHARED && (sr != 0.0f || sg != 0.0f || sb != 0.0f);
+      } else {
+        const int x = x0 + q / TILE, y = y0 + q % TILE;
+        fwd = x < W && y < H;
+        px = static_cast<float>(x) + s_p[P_OFFS];
+        py = static_cast<float>(y) + s_p[P_OFFS + 1];
+        if (fwd) {
+          pix = (static_cast<size_t>(x) * H + y) * 3;
+          if (!fused) {   // the stored pixel's cotangent, into sample color space
+            const float g0 = img[pix], g1 = img[pix + 1], g2 = img[pix + 2];
+            sr = g0; sg = COMPAT ? g2 : g1; sb = COMPAT ? g1 : g2;
+            fwd = sr != 0.0f || sg != 0.0f || sb != 0.0f;   // no loss to form
+          }
+        }
+      }
+      sample<COMPAT, CHEAP, COLS, D>(s, sl, out, tail, nt, px, py, depth, fwd,
+                                     !aa && fused, target, pix, inv_denom, two_inv, sr,
+                                     sg, sb);
     }
-    const Res rs = res[i < K ? i : K - 1];
-    const bool act = on && i < K && rs.obj >= 0;
-    bwd_trace<COMPAT, CHEAP>(s, sl, row, lane, rs, act, sr, sg, sb, w, dw, ob, db, ma);
+    if (aa) __syncthreads();   // the next tile rewrites the cotangents
   }
 
-  // Camera: position takes the primary origin's cotangent; d = normalize(R p),
-  // p = (focal, pcy, pcz); focal = cot(fov/2) with fov in degrees.
-  const float focal = s_p[P_FOCAL];
-  float ubx = db[0], uby = db[1], ubz = db[2];
-  norm_adj(rg.ray.dx, rg.ray.dy, rg.ray.dz, rg.dn, ubx, uby, ubz);
-  if (!on) ubx = uby = ubz = 0.0f;
-  const float pvec[3] = {focal, rg.pcy, rg.pcz};
-  const float ub[3] = {ubx, uby, ubz};
-  for (int c = 0; c < 3; ++c) acc(row, sl.cam + c, ob[c], lane);
-  for (int r = 0; r < 3; ++r)
-    for (int c = 0; c < 3; ++c) acc(row, sl.cam + 3 + 3 * r + c, ub[r] * pvec[c], lane);
-  const float focal_bar = s_p[P_ROT + 0] * ubx + s_p[P_ROT + 3] * uby + s_p[P_ROT + 6] * ubz;
-  const float dfdf = -(1.0f + focal * focal) * static_cast<float>(3.14159265358979 / 360.0);
-  acc(row, sl.cam + 12, focal_bar * dfdf, lane);
-  acc(row, sl.mat + 0, ma.amb, lane);
-  acc(row, sl.mat + 1, ma.lamb, lane);
-  acc(row, sl.mat + 2, ma.refl, lane);
-  acc(row, sl.mat + 3, ma.spec, lane);
-  acc(row, sl.mat + 4, ma.shin, lane);
-  if (fused) acc(row, sl.loss, loss, lane);
-
-  // The block's partial: its warps' rows summed in warp order.
+  // The block's partial column: each slot reduced once, in a fixed order.
   __syncthreads();
-  write_block_partial(s_acc, NWARPS, sl.n, partial, tid, NT);
+  const size_t G = gridDim.x;
+  const int warp = tid >> 5;
+  float* col0 = s_acc + (COLS ? 0 : nwarps * sl.mat);
+  const int k0 = COLS ? 0 : sl.mat;
+  if (!COLS) {   // the rows, summed in warp order
+    for (int k = tid; k < sl.mat; k += nt) {
+      float v = 0.0f;
+      for (int wp = 0; wp < nwarps; ++wp) v += s_acc[wp * sl.mat + k];
+      partial[static_cast<size_t>(k) * G + blockIdx.x] = v;
+    }
+  }
+  for (int k = k0 + warp; k < sl.n; k += nwarps) {
+    const float* c = col0 + (k - k0) * nt;
+    float v = 0.0f;
+    for (int wp = 0; wp < nwarps; ++wp) v += c[wp * 32 + lane];
+    if (__any_sync(FULL, v != 0.0f)) v = warp_sum(v);
+    if (lane == 0) partial[static_cast<size_t>(k) * G + blockIdx.x] = v;
+  }
 }
 
-template <bool COMPAT, bool CHEAP>
-cudaError_t launch(const float* params, const float* sph, int ns, const float* pln,
-                   int npl, const float* lts, int nl, const float* img,
-                   const float* target, float* partial, int W, int H, int depth,
-                   int mode, int n_grads, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (N_PARAMS + 7 * ns + 9 * npl + 3 * nl +
-                                       NWARPS * static_cast<size_t>(n_grads));
+// The launch's arguments, bundled for the dispatch.
+struct BwdJob {
+  const float* params;
+  const float* sph;
+  int ns;
+  const float* pln;
+  int npl;
+  const float* lts;
+  int nl;
+  const float* img;
+  const float* target;
+  float* partial;
+  int n_rows, W, H, depth, mode, n_grads, nt;
+  cudaStream_t stream;
+};
+
+template <bool COMPAT, bool CHEAP, bool COLS, int D>
+cudaError_t launch_job(const BwdJob& j) {
+  const bool aa = j.mode == COT_AA || j.mode == FUSED_AA;
+  const size_t smem =
+      sizeof(float) * bwd_smem_words(j.ns, j.npl, j.nl, j.n_grads, aa, j.nt, COLS);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        render_bwd_kernel<COMPAT, CHEAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        render_bwd_kernel<COMPAT, CHEAP, COLS, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const int S = (mode == COT_AA || mode == FUSED_AA) ? 9 : 1;
-  const dim3 block(BX, BY);
-  const dim3 grid((H + BX - 1) / BX, (W + BY - 1) / BY, S);
-  render_bwd_kernel<COMPAT, CHEAP><<<grid, block, smem, stream>>>(
-      params, sph, ns, pln, npl, lts, nl, img, target, partial, W, H, depth, mode);
+  render_bwd_kernel<COMPAT, CHEAP, COLS, D><<<j.n_rows, j.nt, smem, j.stream>>>(
+      j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.img, j.target, j.partial, j.W, j.H,
+      j.depth, j.mode);
   return cudaGetLastError();
 }
 
-
-// All arguments as rt_render_bwd's (render_bwd.cu), checked there.
-inline cudaError_t dispatch(const float* params, const float* sph, int ns, const float* pln,
-                            int npl, const float* lts, int nl, const float* img,
-                            const float* target, float* partial, int n_grads, int W, int H,
-                            int depth, int mode, bool compat, bool cheap, cudaStream_t st) {
+// The instantiation for (compat, cheap) at depth D.
+template <bool COLS, int D>
+cudaError_t dispatch_arith(bool compat, bool cheap, const BwdJob& j) {
   if (compat) {
-    return cheap ? launch<true, true>(params, sph, ns, pln, npl, lts, nl, img, target,
-                                      partial, W, H, depth, mode, n_grads, st)
-                 : launch<true, false>(params, sph, ns, pln, npl, lts, nl, img, target,
-                                       partial, W, H, depth, mode, n_grads, st);
+    return cheap ? launch_job<true, true, COLS, D>(j) : launch_job<true, false, COLS, D>(j);
   }
-  return cheap ? launch<false, true>(params, sph, ns, pln, npl, lts, nl, img, target,
-                                     partial, W, H, depth, mode, n_grads, st)
-               : launch<false, false>(params, sph, ns, pln, npl, lts, nl, img, target,
-                                      partial, W, H, depth, mode, n_grads, st);
+  return cheap ? launch_job<false, true, COLS, D>(j) : launch_job<false, false, COLS, D>(j);
+}
+
+// Depths 0-3 take their own instantiation, the others the general one.
+template <bool COLS>
+cudaError_t dispatch_depth(bool compat, bool cheap, const BwdJob& j) {
+  switch (j.depth) {
+    case 0: return dispatch_arith<COLS, 0>(compat, cheap, j);
+    case 1: return dispatch_arith<COLS, 1>(compat, cheap, j);
+    case 2: return dispatch_arith<COLS, 2>(compat, cheap, j);
+    case 3: return dispatch_arith<COLS, 3>(compat, cheap, j);
+    default: return dispatch_arith<COLS, -1>(compat, cheap, j);
+  }
 }
 
 }  // namespace

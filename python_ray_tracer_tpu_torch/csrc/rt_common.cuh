@@ -23,9 +23,9 @@
 //   sample_chain      <- _sample_chain      (:1310)
 // The backward kernel (render_bwd_kernel.cuh) includes this header and
 // recomputes its forward chain through these same functions. The soft kernels include it
-// through soft_common.cuh. The adjoint helpers at the end (norm_adj, the warp
-// reductions and the per-block partial column) are shared by both backward
-// kernels.
+// through soft_common.cuh. The adjoint helpers at the end (norm_adj and the
+// warp reductions) are shared by both backward kernels, the per-block partial
+// column of per-warp rows by the soft backward.
 //
 // Semantics kept from the reference (compat mode): hits count only for
 // 0 < t < 999 (t starts at FAR and the winner test is a strict `<`, so the far

@@ -214,8 +214,8 @@ __device__ __forceinline__ float transmission_live(const Scene& sc, float px, fl
   return vis;
 }
 
-// Object gi's surface at blend depth t: soft_common.cuh's soft_surface without
-// the weight.
+// Object gi's surface at blend depth t: its point, unit normal (with the
+// normal's reciprocal norm) and albedo.
 struct Surf {
   float px, py, pz, nx, ny, nz, nn, ar, ag, ab;
 };

@@ -1,8 +1,7 @@
 // Shared device math of the soft-visibility kernels (soft_fwd.cu, soft_bwd.cu):
-// the soft sphere cover, the opaque plane cover, the light geometry, the
-// compositing tie-break and weight, shadow transmission, and the forward
-// kernel's per-object evaluation. The backward's own helpers (the cover's
-// adjoint among them) live in soft_bwd.cu.
+// the soft sphere cover, the opaque plane cover, the light geometry and the
+// compositing tie-break. Each kernel's own helpers (the forward's live-object
+// table, the backward's adjoints) live in its source file.
 //
 // Each function mirrors the plain version (ops/soft.py) and the TPU kernels
 // term for term, except one: the squared closest-approach distance b^2 is
@@ -127,120 +126,6 @@ __device__ __forceinline__ LightDir light_dir(const SceneView& s, int l, float p
   const float ww = wx * wx + wy * wy + wz * wz;
   const float rn = 1.0f / sqrtf(ww > 0.0f ? ww : 1.0f);
   return {wx * rn, wy * rn, wz * rn, rn};
-}
-
-// Shadow transmission prod_j (1 - alpha_j) over every sphere, spheres
-// ascending, along the ray from P in unit direction L.
-__device__ __forceinline__ float transmission(const SceneView& s, float px, float py,
-                                              float pz, const LightDir& L, float tau) {
-  float vis = 1.0f;
-  for (int j = 0; j < s.ns; ++j) {
-    vis *= 1.0f - sphere_cover<false>(s, j, px, py, pz, L.x, L.y, L.z, tau).a;
-  }
-  return vis;
-}
-
-// Compositing weight w_i = a_i prod_{j != i} (1 - a_j [j closer]), the
-// order-free form of the sorted cumprod: spheres ascending, then planes.
-__device__ __forceinline__ float soft_weight(const SceneView& s, const Ray& ray,
-                                             float tau, int gi, float ai, float ti) {
-  float w = ai;
-  for (int j = 0; j < s.ns; ++j) {
-    const Cover c = sphere_cover<true>(s, j, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy,
-                                       ray.dz, tau);
-    if (closer(c.t, j, ti, gi)) w *= 1.0f - c.a;
-  }
-  for (int k = 0; k < s.npl; ++k) {
-    const PlaneCover p = plane_cover(s, k, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz);
-    if (closer(p.t, s.ns + k, ti, gi)) w *= 1.0f - p.a;
-  }
-  return w;
-}
-
-// A composited object at this pixel: its surface point and unit normal, the
-// normal's reciprocal norm (spheres; 1 on planes), albedo, compositing weight,
-// and lam_sum = sum_l relu(lamb L.N) vis_l (color (amb + lam_sum) * albedo).
-struct SoftObj {
-  float a, t;
-  float px, py, pz, nx, ny, nz, nn;
-  float ar, ag, ab;
-  float w, lam_sum;
-};
-
-// Object gi's surface and weight at blend depth t (after its cover).
-__device__ __forceinline__ SoftObj soft_surface(const SceneView& s, const Ray& ray,
-                                                float tau, int gi, float a, float t) {
-  SoftObj o;
-  o.a = a;
-  o.t = t;
-  o.px = ray.ox + t * ray.dx;
-  o.py = ray.oy + t * ray.dy;
-  o.pz = ray.oz + t * ray.dz;
-  const int ns = s.ns;
-  if (gi < ns) {
-    const float vx = o.px - s.sph[gi], vy = o.py - s.sph[ns + gi],
-                vz = o.pz - s.sph[2 * ns + gi];
-    const float vv = vx * vx + vy * vy + vz * vz;
-    o.nn = 1.0f / sqrtf(vv > 0.0f ? vv : 1.0f);
-    o.nx = vx * o.nn; o.ny = vy * o.nn; o.nz = vz * o.nn;
-    o.ar = s.sph[4 * ns + gi]; o.ag = s.sph[5 * ns + gi]; o.ab = s.sph[6 * ns + gi];
-  } else {
-    const int k = gi - ns, np = s.npl;
-    o.nn = 1.0f;
-    o.nx = s.pln[3 * np + k]; o.ny = s.pln[4 * np + k]; o.nz = s.pln[5 * np + k];
-    o.ar = s.pln[6 * np + k]; o.ag = s.pln[7 * np + k]; o.ab = s.pln[8 * np + k];
-  }
-  o.w = soft_weight(s, ray, tau, gi, a, t);
-  o.lam_sum = 0.0f;
-  return o;
-}
-
-// Fill o.lam_sum = sum_l relu(lamb L.N) vis_l.
-__device__ __forceinline__ void soft_shade(const SceneView& s, float tau, SoftObj& o) {
-  const float lamb = s.p[P_LAMB];
-  float lam_sum = 0.0f;
-  for (int l = 0; l < s.nl; ++l) {
-    const LightDir L = light_dir(s, l, o.px, o.py, o.pz);
-    const float lam = lamb * (L.x * o.nx + L.y * o.ny + L.z * o.nz);
-    const float vis = transmission(s, o.px, o.py, o.pz, L, tau);
-    lam_sum += (lam > 0.0f ? lam : 0.0f) * vis;
-  }
-  o.lam_sum = lam_sum;
-}
-
-// Object gi's full forward evaluation: cover, surface, weight and lam_sum.
-__device__ __forceinline__ SoftObj soft_object(const SceneView& s, const Ray& ray,
-                                               float tau, int gi) {
-  float a, t;
-  if (gi < s.ns) {
-    const Cover c = sphere_cover<true>(s, gi, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy,
-                                       ray.dz, tau);
-    a = c.a;
-    t = c.t;
-  } else {
-    const PlaneCover p = plane_cover(s, gi - s.ns, ray.ox, ray.oy, ray.oz, ray.dx,
-                                     ray.dy, ray.dz);
-    a = p.a;
-    t = p.t;
-  }
-  SoftObj o = soft_surface(s, ray, tau, gi, a, t);
-  soft_shade(s, tau, o);
-  return o;
-}
-
-// The soft-composited color of one primary ray: sum_i w_i (amb + lam_sum_i)
-// albedo_i, written amb * albedo + lam_sum * albedo as ops/soft.py does.
-__device__ __forceinline__ Rgb soft_pixel(const SceneView& s, const Ray& ray, float tau) {
-  const float amb = s.p[P_AMB];
-  float r = 0.0f, g = 0.0f, b = 0.0f;
-  const int K = s.ns + s.npl;
-  for (int gi = 0; gi < K; ++gi) {
-    const SoftObj o = soft_object(s, ray, tau, gi);
-    r += o.w * (amb * o.ar + o.lam_sum * o.ar);
-    g += o.w * (amb * o.ag + o.lam_sum * o.ag);
-    b += o.w * (amb * o.ab + o.lam_sum * o.ab);
-  }
-  return {r, g, b};
 }
 
 }  // namespace rt

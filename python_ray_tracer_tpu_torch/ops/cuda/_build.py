@@ -127,9 +127,10 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "rt_hit_extents": (ci, [vp, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, vp, vp, ci, vp,
                                 vp, ci, vp]),
         "rt_render_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
-                               ci, ci, ci, ci, vp]),
+                               ci, ci, ci, ci, ci, ci, vp]),
         "rt_reduce_rows": (ci, [vp, ci, ci, vp, vp]),
         "rt_soft_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, vp]),
+        "rt_soft_fwd_cap": (ci, [ci, ci, ci]),
         "rt_soft_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, vp, ci, ci, ci, ci, ci, ci,
                              ci, ci, ci, vp]),
         "rt_soft_bwd_smem": (ctypes.c_longlong, [ci] * 8),

@@ -3,33 +3,40 @@
 
 Counterpart of ``python_ray_tracer_tpu/ops/pallas/render_bwd.py``. The kernel
 recomputes each sample chain's forward pass, reverse-sweeps it with
-hand-derived adjoints, and reduces the adjoints into the flat gradient vector
-of :func:`grad_layout`; a second kernel sums the per-block partials in a fixed
-order, so two runs give the same bits. Four kernel modes:
+hand-derived adjoints, and adds the adjoints into per-thread columns (or, for
+large scenes, per-warp rows) of the flat gradient vector of
+:func:`grad_layout`, which each block reduces once into its partial column; a
+second kernel sums the per-block partials in a fixed order, so two runs give
+the same bits. :func:`plan` picks the launch (threads a block, the grid,
+columns or rows). Four kernel modes:
 
   * ``cot_noaa`` / ``cot_aa``: an image cotangent in (:func:`scene_grads_cuda`);
-    the AA form runs the 9 sample chains of every pixel;
+    the AA form traces the forward's shared-sample lattice, 1089 chains a
+    16x16 tile, each with the cotangent :func:`lattice_cotangents` gives it;
   * ``fused_noaa``: the training step in one launch: render, MSE against the
     target, loss slot, reverse sweep (:func:`loss_and_scene_grads_cuda`);
   * ``fused_aa``: the ``aa_shared`` render kernel makes the image, then the
-    backward kernel forms the loss and cotangent per pixel and runs the 9
-    reverse chains.
+    backward kernel forms the loss and cotangent per pixel and runs the
+    lattice's reverse chains.
 
 The plain versions (:func:`scene_grads_plain`, :func:`loss_and_scene_grads_plain`)
-are ``torch.autograd`` of ``ops/render.py`` packed into the same layout. The
-wrappers take them for tensors on the CPU only; for CUDA tensors they launch
-the kernel or raise.
+are ``torch.autograd`` of ``ops/render.py`` packed into the same layout;
+:func:`scene_grads_lattice_plain` is the AA cotangent form written as the
+kernel computes it (autograd of the lattice chains' colors weighted by their
+cotangents). The wrappers take the plain versions for tensors on the CPU only;
+for CUDA tensors they launch the kernel or raise.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from ...models.camera import Camera
 from ...models.scene import LEAF_PATHS, Lights, Materials, Planes, Scene, Spheres
-from ..render import render_image
+from ..render import render_image, render_rays
 from . import render_cuda
 
 MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")   # C enum order
@@ -39,9 +46,12 @@ LAUNCHES = {m: 0 for m in MODES}
 PLAIN_CALLS = {"scene_grads": 0, "loss_and_scene_grads": 0}
 
 MAX_DEPTH = 8                # residual slots a thread keeps (render_bwd.cu)
-BLOCK_Y, BLOCK_X = 16, 8     # threads a block along the image's y and x axes
-N_WARPS = BLOCK_Y * BLOCK_X // 32
-_SMEM_LIMIT = 227 * 1024     # shared memory a block can have on Hopper
+TILE = 16                    # a block's work unit: a 16x16 tile of pixels
+LATTICE = 1089               # the AA lattice's sample chains a tile (C, U, V, UV grids)
+SMEM_LIMIT = 227 * 1024      # shared memory a block can have on Hopper
+SM_SMEM = 228 * 1024         # shared memory of one SM
+BLOCKS_PER_SM = 4            # the planner's blocks a multiprocessor
+H100_SMS = 132
 
 # The JAX package's rule for the backward kernel against autodiff
 # (tests/test_pallas_bwd.py): these leaves max|d| / max|g| < 5e-2 (a.e.
@@ -251,6 +261,159 @@ def kernel_and_plain(mode: str, camera, scene, x, *, depth: int = 2, compat: boo
     return out[0], out[1], plain_all, held[..., 0]
 
 
+# --- the launch plan ---------------------------------------------------------------
+
+class Plan(NamedTuple):
+    """One backward launch's shape: ``nt`` threads a block, ``cols`` (every
+    slot in per-thread columns of shared memory; else the object and light
+    slots in per-warp rows), ``blocks`` (the grid; block b walks tiles b, b +
+    blocks, ...), ``tiles`` (the most tiles a block walks) and the block's
+    shared memory in bytes."""
+    nt: int
+    cols: bool
+    blocks: int
+    tiles: int
+    smem: int
+
+
+def smem_bytes(ns: int, npl: int, nl: int, fused: bool, aa: bool, nt: int,
+               cols: bool) -> int:
+    """Shared memory of one block (``bwd_smem_words`` in
+    render_bwd_kernel.cuh): the scene, a tile's pixel cotangents with AA, and
+    the slot columns (``cols``) or the warps' rows of the object and light
+    slots beside the 18-19 tail slots' columns."""
+    n = n_grads(ns, npl, nl, fused)
+    mat = 7 * ns + 9 * npl + 3 * nl
+    words = render_cuda.N_PARAMS + mat + (6 * TILE * TILE if aa else 0)
+    words += n * nt if cols else (nt // 32) * mat + (n - mat) * nt
+    return 4 * words
+
+
+def n_tiles(W: int, H: int) -> int:
+    return math.ceil(W / TILE) * math.ceil(H / TILE)
+
+
+def plan(ns: int, npl: int, nl: int, W: int, H: int, *, aa: bool, fused: bool,
+         large: bool, n_sm: int = H100_SMS, blocks_per_sm: int = BLOCKS_PER_SM) -> Plan:
+    """The backward launch for a scene and image, one rule: the most threads a
+    block (128, 64, 32) whose slot columns fit a block's shared memory, for a
+    small scene (``large`` False: the columns exist only in the small-scene
+    kernels); else the most threads whose per-warp rows fit. Then
+    ``blocks_per_sm`` blocks on each of ``n_sm`` multiprocessors (fewer where
+    their shared memory does not fit one), at most one a tile, the tiles dealt
+    out evenly. Raises ``ValueError`` where no plan fits."""
+    for cols in ((False,) if large else (True, False)):
+        for nt in (128, 64, 32):
+            smem = smem_bytes(ns, npl, nl, fused, aa, nt, cols)
+            if smem > SMEM_LIMIT:
+                continue
+            per_sm = max(1, min(blocks_per_sm, SM_SMEM // (smem + 1024)))
+            tiles = math.ceil(n_tiles(W, H) / min(n_tiles(W, H), n_sm * per_sm))
+            return Plan(nt, cols, math.ceil(n_tiles(W, H) / tiles), tiles, smem)
+    raise ValueError(f"scene (ns={ns}, npl={npl}, nl={nl}) needs "
+                     f"{smem_bytes(ns, npl, nl, fused, aa, 32, False)} B of shared memory "
+                     f"in the backward kernel, a block has at most {SMEM_LIMIT} B")
+
+
+# --- the AA lattice -----------------------------------------------------------------
+#
+# render_fwd_kernel.cuh's AA_SHARED traces, for the 16x16 tile at (x0, y0)
+# (x tiles outermost), 1089 distinct sample positions: C[kx][ky] at (x0 + kx,
+# y0 + ky) (256), U[kx][ky] at x - 0.5 (17 x 16), V[kx][ky] at y - 0.5 (16 x
+# 17) and UV[kx][ky] at both (17 x 17), in that order, kx major. Pixel (kx,
+# ky) of the tile combines C[kx][ky] with its 8 neighbours U[kx][ky],
+# U[kx+1][ky], V[kx][ky], V[kx][ky+1] and the four UV corners, times
+# float32(1/9), inside the image's border ring; on the ring it takes C alone.
+# Compat stores the centre sample (r, b, g) and the neighbours unswapped.
+
+INV9 = float(torch.tensor(1.0 / 9.0, dtype=torch.float32))
+
+
+def _lattice_grid():
+    """Float ``(1089, 2)``: (kx + du, ky + dv) of the lattice positions from
+    the tile corner, in the kernels' order."""
+    parts = []
+    for nx, ny, du, dv in ((TILE, TILE, 0.0, 0.0), (TILE + 1, TILE, -0.5, 0.0),
+                           (TILE, TILE + 1, 0.0, -0.5), (TILE + 1, TILE + 1, -0.5, -0.5)):
+        kx, ky = torch.meshgrid(torch.arange(nx), torch.arange(ny), indexing="ij")
+        parts.append(torch.stack([kx.reshape(-1), ky.reshape(-1)], dim=-1).float()
+                     + torch.tensor([du, dv]))
+    return torch.cat(parts)                                  # (1089, 2): k + d
+
+
+def tile_origins(W: int, H: int, device=None) -> torch.Tensor:
+    """Float ``(n_tiles, 2)`` tile corners (x0, y0), x tiles outermost."""
+    tx, ty = torch.meshgrid(torch.arange(math.ceil(W / TILE)),
+                            torch.arange(math.ceil(H / TILE)), indexing="ij")
+    return (TILE * torch.stack([tx.reshape(-1), ty.reshape(-1)], dim=-1)).float().to(device)
+
+
+def lattice_positions(W: int, H: int, device=None) -> torch.Tensor:
+    """Float ``(n_tiles, 1089, 2)``: every tile's lattice sample positions in
+    pixel-index space, (x0 + kx + du, y0 + ky + dv)."""
+    return tile_origins(W, H, device)[:, None, :] + _lattice_grid().to(device)[None]
+
+
+def _tiled(img: torch.Tensor, W: int, H: int) -> torch.Tensor:
+    """``(W, H, C)`` -> ``(n_tiles, 16, 16, C)``, zero past the image."""
+    tx, ty = math.ceil(W / TILE), math.ceil(H / TILE)
+    pad = img.new_zeros((tx * TILE, ty * TILE, img.shape[-1]))
+    pad[:W, :H] = img
+    return pad.reshape(tx, TILE, ty, TILE, -1).permute(0, 2, 1, 3, 4).reshape(
+        tx * ty, TILE, TILE, -1)
+
+
+def _interior(W: int, H: int, device) -> torch.Tensor:
+    m = torch.zeros((W, H, 1), dtype=torch.bool, device=device)
+    m[1:W - 1, 1:H - 1] = True
+    return m
+
+
+def _swap(x: torch.Tensor, compat: bool) -> torch.Tensor:
+    return x[..., [0, 2, 1]] if compat else x
+
+
+def lattice_cotangents(g: torch.Tensor, W: int, H: int, compat: bool) -> torch.Tensor:
+    """Pixel cotangents ``g (W, H, 3)`` (the stored layout) -> the lattice
+    chains' cotangents ``(n_tiles, 1089, 3)`` in sample color space: each
+    chain's is the sum of the shares of the in-tile pixels whose 3x3 stencil
+    holds it, the adjoint of :func:`lattice_combine` (the kernels' COT_AA and
+    FUSED_AA cotangents, csrc/render_bwd_kernel.cuh)."""
+    inside = _interior(W, H, g.device)
+    centre = _tiled(_swap(torch.where(inside, g * INV9, g), compat), W, H)
+    nb = _tiled(torch.where(inside, g * INV9, torch.zeros_like(g)), W, H)
+    T = centre.shape[0]
+    nx = torch.nn.functional.pad(nb, (0, 0, 0, 0, 1, 1))       # (T, 18, 16, 3)
+    ny = torch.nn.functional.pad(nb, (0, 0, 1, 1))             # (T, 16, 18, 3)
+    nxy = torch.nn.functional.pad(nb, (0, 0, 1, 1, 1, 1))      # (T, 18, 18, 3)
+    u = nx[:, 1:] + nx[:, :-1]                                 # pixels kx and kx - 1
+    v = ny[:, :, 1:] + ny[:, :, :-1]                           # pixels ky and ky - 1
+    uv = ((nxy[:, 1:, 1:] + nxy[:, :-1, :-1]) + nxy[:, 1:, :-1]) + nxy[:, :-1, 1:]
+    return torch.cat([p.reshape(T, -1, 3) for p in (centre, u, v, uv)], dim=1)
+
+
+def lattice_combine(samples: torch.Tensor, W: int, H: int, compat: bool) -> torch.Tensor:
+    """The forward's combine in plain torch: lattice sample colors
+    ``(n_tiles, 1089, 3)`` -> the stored ``(W, H, 3)`` image, as
+    render_fwd_kernel.cuh's AA_SHARED forms it."""
+    T = samples.shape[0]
+    c, u, v, uv = torch.split(samples, [TILE * TILE, (TILE + 1) * TILE,
+                                        TILE * (TILE + 1), (TILE + 1) ** 2], dim=1)
+    c = c.reshape(T, TILE, TILE, 3)
+    u = u.reshape(T, TILE + 1, TILE, 3)
+    v = v.reshape(T, TILE, TILE + 1, 3)
+    uv = uv.reshape(T, TILE + 1, TILE + 1, 3)
+    n = (u[:, :-1] + u[:, 1:] + v[:, :, :-1] + v[:, :, 1:] + uv[:, :-1, :-1] +
+         uv[:, 1:, 1:] + uv[:, :-1, 1:] + uv[:, 1:, :-1])
+    tx, ty = math.ceil(W / TILE), math.ceil(H / TILE)
+
+    def untile(t):
+        return t.reshape(tx, ty, TILE, TILE, 3).permute(0, 2, 1, 3, 4).reshape(
+            tx * TILE, ty * TILE, 3)[:W, :H]
+    centre, nsum = untile(_swap(c, compat)), untile(n)
+    return torch.where(_interior(W, H, samples.device), (centre + nsum) * INV9, centre)
+
+
 # --- the plain version: autograd of ops/render.py --------------------------------
 
 def _autograd_flat(camera, scene, objective):
@@ -292,6 +455,24 @@ def loss_and_scene_grads_plain(camera, scene, target, *, depth: int = 2,
     return _autograd_flat(camera, scene, objective)
 
 
+def scene_grads_lattice_plain(camera, scene, g_image, *, depth: int = 2,
+                              compat: bool = True) -> torch.Tensor:
+    """The AA cotangent form as the kernel computes it, in plain torch: the
+    lattice chains' colors (``render_rays`` at :func:`lattice_positions`)
+    weighted by :func:`lattice_cotangents`, differentiated by autograd; chains
+    whose cotangent is 0 are left out, as the kernel leaves them. Equal to
+    :func:`scene_grads_plain` with ``aliasing`` up to float rounding."""
+    W, H = camera.resolution
+    pos = lattice_positions(W, H, g_image.device).reshape(-1, 2)
+    cot = lattice_cotangents(g_image.detach(), W, H, compat).reshape(-1, 3)
+    live = (cot != 0).any(dim=-1)
+    pos, cot = pos[live], cot[live]
+
+    def objective(cam, sc):
+        return (render_rays(pos, cam, sc, depth=depth, compat=compat) * cot).sum(), None
+    return _autograd_flat(camera, scene, objective)
+
+
 # --- the kernel ------------------------------------------------------------------
 
 def _check(camera, scene, image, depth: int, name: str):
@@ -310,43 +491,36 @@ def _check(camera, scene, image, depth: int, name: str):
     if tuple(image.shape) != (W, H, 3):
         raise ValueError(f"{name} has shape {tuple(image.shape)}, expected {(W, H, 3)}")
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
-    smem = 4 * (render_cuda.N_PARAMS + 7 * ns + 9 * npl + 3 * nl +
-                N_WARPS * n_grads(ns, npl, nl, True))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"scene needs {smem} B of shared memory in the backward "
-                         f"kernel, a block has at most {_SMEM_LIMIT} B")
-
-
-def n_blocks(W: int, H: int, aliasing: bool) -> int:
-    """Thread blocks of one backward launch (rows of its partial sums)."""
-    return math.ceil(H / BLOCK_Y) * math.ceil(W / BLOCK_X) * (9 if aliasing else 1)
+    plan(ns, npl, nl, W, H, aa=True, fused=True, large=ns > render_cuda.CULL_MIN_SPHERES)
 
 
 def launch(out, partial, params, tables, counts, *, image, target, W: int, H: int,
-           depth: int, mode: str, compat: bool, cheap_shadow: bool) -> torch.Tensor:
+           depth: int, mode: str, compat: bool, cheap_shadow: bool,
+           shape: Plan, lib=None) -> torch.Tensor:
     """Launch the backward kernel and its reduction on the current stream, for
     inputs already packed and checked: ``out (n_grads,)``, ``partial
-    (n_grads * n_blocks,)``, ``params``, the ``scene_tables``, the object
+    (n_grads * shape.blocks,)``, ``params``, the ``scene_tables``, the object
     counts, ``image`` (the cotangent, or the rendered image in ``fused_aa``;
     None in ``fused_noaa``) and ``target`` (fused modes; else None), all
-    float32, contiguous, on the current device. A scene of more than
-    ``render_cuda.CULL_MIN_SPHERES`` spheres runs the kernel compiled in the
-    arithmetic of the render kernel's large-scene instantiation, so that it
-    recomputes that render's own hits. Counts the launch in :data:`LAUNCHES`."""
+    float32, contiguous, on the current device, and the launch's
+    :class:`Plan`. A scene of more than ``render_cuda.CULL_MIN_SPHERES``
+    spheres runs the kernel compiled in the arithmetic of the render kernel's
+    large-scene instantiation, so that it recomputes that render's own hits.
+    ``lib``: a kernel library other than the package's (one built with other
+    flags, :func:`._build.build`). Counts the launch in :data:`LAUNCHES`."""
     from ._build import load_library
-    lib = load_library()
+    lib = load_library() if lib is None else lib
     (sph, pln, lts), (ns, npl, nl) = tables, counts
-    rows = n_blocks(W, H, mode in ("cot_aa", "fused_aa"))
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     rc = lib.rt_render_bwd(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
         None if image is None else image.data_ptr(),
-        None if target is None else target.data_ptr(), partial.data_ptr(), rows,
+        None if target is None else target.data_ptr(), partial.data_ptr(), shape.blocks,
         out.shape[0], W, H, depth, MODES.index(mode), int(compat), int(cheap_shadow),
-        int(ns > render_cuda.CULL_MIN_SPHERES), stream)
+        int(ns > render_cuda.CULL_MIN_SPHERES), shape.nt, int(shape.cols), stream)
     if rc == 0:
-        rc = lib.rt_reduce_rows(partial.data_ptr(), rows, out.shape[0], out.data_ptr(),
-                                stream)
+        rc = lib.rt_reduce_rows(partial.data_ptr(), shape.blocks, out.shape[0],
+                                out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"backward kernel ({mode}) failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
@@ -354,11 +528,22 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
     return out
 
 
+def launch_plan(camera, scene, mode: str) -> Plan:
+    """:func:`plan` for a launch of ``mode`` on this camera's image and scene,
+    on the current card's multiprocessors."""
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    W, H = camera.resolution
+    n_sm = torch.cuda.get_device_properties(camera.position.device).multi_processor_count
+    return plan(ns, npl, nl, W, H, aa=mode.endswith("_aa"), fused=mode.startswith("fused"),
+                large=ns > render_cuda.CULL_MIN_SPHERES, n_sm=n_sm)
+
+
 def _run(camera, scene, image, target, *, depth, compat, mode):
     dev = camera.position.device
     W, H = camera.resolution
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
     n = n_grads(*counts, mode.startswith("fused"))
+    shape = launch_plan(camera, scene, mode)
     with torch.cuda.device(dev), torch.no_grad():
         params = render_cuda.pack_params(camera, scene, compat).to(dev)
         tables = render_cuda.scene_tables(scene)
@@ -368,12 +553,12 @@ def _run(camera, scene, image, target, *, depth, compat, mode):
                                        tables, counts, depth=depth, mode="aa_shared",
                                        compat=compat, cheap_shadow=cheap)
         out = torch.empty(n, device=dev)
-        partial = torch.empty(n * n_blocks(W, H, mode.endswith("_aa")), device=dev)
+        partial = torch.empty(n * shape.blocks, device=dev)
         return launch(out, partial, params, tables, counts,
                       image=None if image is None else image.contiguous(),
                       target=None if target is None else target.contiguous(),
                       W=W, H=H, depth=depth, mode=mode, compat=compat,
-                      cheap_shadow=cheap)
+                      cheap_shadow=cheap, shape=shape)
 
 
 def scene_grads_cuda(camera, scene, g_image, *, depth: int = 2, compat: bool = True,

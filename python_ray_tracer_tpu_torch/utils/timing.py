@@ -108,6 +108,14 @@ HIT_PLANE = 14       # one plane's n.d, n.(p0 - o), division
 # rt_common.cuh's sqrt-free shadow sweep (sphere_occludes, CHEAP)
 SHADOW_SETUP = 18    # o.o, a, 1/(2a), 1/a, o.d
 SHADOW_SPHERE = 26   # o.c, |o-c|^2 - r^2, c.d, the clamped closest approach
+# csrc/render_bwd_kernel.cuh's reverse sweep, per live trace: the shade's and
+# the mirror direction's adjoints, the hit point's and the material sums
+# (bwd_trace up to the object branch), and the hit's own: a sphere's
+# quadratic root (center, radius, origin and direction cotangents) with its
+# normal's normalisation, or a plane's PLANE_ADJ.
+TRACE_ADJ = 95
+SPHERE_HIT_ADJ = 90 + NORM_ADJ
+AA_COMBINE = 30      # a pixel's 9-sample combine (the fused AA loss needs the image)
 
 
 # The light-cell build (csrc/light_cells.cu): a row's cone (its central
@@ -262,6 +270,94 @@ def hard_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str) -> tuple:
     if mode.startswith(("cot", "fused")):
         ops += samples * (18 + NORM_ADJ)     # 18 slot sums a chain
         nbytes += 4 * (7 * ns + 9 * npl + 3 * nl + 19)   # the gradient out
+    return ops, nbytes
+
+
+def bwd_positions(W: int, H: int, aliasing: bool, g=None) -> torch.Tensor:
+    """Float ``(N, 2)``: the distinct sample positions the render's gradient
+    needs, in pixel-index space. Without AA every pixel; with AA every
+    interior pixel's 9 samples and every border pixel's centre, each distinct
+    position once (neighbouring pixels share their half-offset samples). With
+    ``g`` (an image cotangent ``(W, H, 3)``) only the pixels whose cotangent
+    is not 0 count."""
+    need = torch.ones((W, H), dtype=torch.bool) if g is None else \
+        (g.detach().cpu() != 0).any(dim=-1)
+    if not aliasing:
+        x, y = torch.nonzero(need, as_tuple=True)
+        return torch.stack([x, y], dim=-1).float()
+    half = torch.zeros((2 * W + 1, 2 * H + 1), dtype=torch.bool)   # (2x + 1, 2y + 1) is (x, y)
+    inner = torch.zeros((W, H), dtype=torch.bool)
+    inner[1:W - 1, 1:H - 1] = True
+    half[1::2, 1::2] |= need
+    for sx in (-1, 0, 1):
+        for sy in (-1, 0, 1):
+            half[1 + sx:2 * W + 1 + sx:2, 1 + sy:2 * H + 1 + sy:2] |= need & inner
+    i, j = torch.nonzero(half, as_tuple=True)
+    return torch.stack([(i.float() - 1.0) / 2.0, (j.float() - 1.0) / 2.0], dim=-1)
+
+
+def hard_chain_counts(camera, scene, positions, *, depth: int, compat: bool = True,
+                      block: int = 1 << 18) -> torch.Tensor:
+    """What the hard render's chains at ``positions (N, 2)`` meet, by the
+    plain trace (ops/shade.py, no gradient): float64 ``(depth + 1, 3)``, per
+    trace level the rays traced, the sphere hits and the plane hits (a ray is
+    traced at level l from each hit at level l - 1)."""
+    from ..ops.intersect import closest_hit
+    from ..ops.shade import trace_once
+    out = torch.zeros((depth + 1, 3), dtype=torch.float64)
+    ns = scene.spheres.count
+    with torch.no_grad():
+        for pos in torch.split(positions.to(camera.device), block):
+            d = camera.ray_directions(pos, compat=compat)
+            o = camera.ray_origin().expand(d.shape)
+            alive = torch.ones(d.shape[:-1], dtype=torch.bool, device=d.device)
+            for lvl in range(depth + 1):
+                o, d = o[alive], d[alive]
+                out[lvl, 0] += o.shape[0]
+                if o.shape[0] == 0 or ns + scene.planes.count == 0:
+                    break
+                hit = closest_hit(o, d, scene, compat=compat)
+                out[lvl, 1] += float((hit["hit"] & (hit["obj"] < ns)).sum())
+                out[lvl, 2] += float((hit["hit"] & (hit["obj"] >= ns)).sum())
+                if lvl == depth:
+                    break
+                st = trace_once(o, d, scene, compat=compat)
+                alive, o, d = st.alive, st.point, st.direction
+    return out
+
+
+def hard_bwd_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str, counts) -> tuple:
+    """(operations, bytes) the hard render's gradient needs for this run's
+    inputs (csrc/render_bwd.cu; in ``fused_aa`` with the ``aa_shared``
+    render before it): ``counts`` is :func:`hard_chain_counts` of the chains
+    at :func:`bwd_positions`. The forward chain once: every traced ray's
+    ray generation (level 0) or nothing more, its closest-hit set-up and
+    sweep over every object; every live hit's surface, normal and per light
+    its direction, Lambert term, a shadow ray's set-up and planes and one
+    sphere test (the first may stop it). The reverse sweep once: per live hit
+    the trace's adjoint (TRACE_ADJ), each light's (LIGHT_ADJ) and its
+    object's (a sphere's quadratic root and normal, or PLANE_ADJ); per chain
+    the camera's (CAMERA_ADJ). One add a chain into each slot it touches (the
+    5 material and 13 camera slots, the loss, each live hit's 3 nl light and 7
+    or 9 object slots). In the fused modes the loss (LOSS a pixel; with AA the
+    9-sample combine first). Bytes: the scene, the image or target in (both in
+    ``fused_aa``: the render's image is the function's own intermediate, not
+    counted), the gradient out."""
+    c = torch.as_tensor(counts, dtype=torch.float64)
+    rays, sph, pln = c[:, 0], c[:, 1], c[:, 2]
+    chains, hits = float(rays[0]), float(sph.sum() + pln.sum())
+    fused = mode.startswith("fused")
+    fwd = (chains * RAYGEN + float(rays.sum()) * (HIT_SETUP + ns * HIT_SPHERE + npl * HIT_PLANE)
+           + hits * (SURFACE + nl * (LIGHT + SHADOW_SETUP + npl * HIT_PLANE + min(ns, 1)
+                                     * SHADOW_SPHERE)) + float(sph.sum()) * SPHERE_NORMAL)
+    adj = (hits * (TRACE_ADJ + nl * LIGHT_ADJ) + float(sph.sum()) * SPHERE_HIT_ADJ
+           + float(pln.sum()) * PLANE_ADJ + chains * CAMERA_ADJ)
+    adds = chains * (18 + int(fused)) + hits * 3 * nl + float(sph.sum()) * 7 + float(pln.sum()) * 9
+    ops = fwd + adj + adds
+    if fused:
+        ops += W * H * (LOSS + (AA_COMBINE if mode.endswith("_aa") else 0))
+    nbytes = _scene_bytes(ns, npl, nl) + 12 * W * H + 4 * (7 * ns + 9 * npl + 3 * nl + 18
+                                                          + int(fused))
     return ops, nbytes
 
 

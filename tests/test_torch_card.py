@@ -294,6 +294,92 @@ def test_bwd_kernel_empty_scene(cuda_device, aliasing):
     assert float(loss) == pytest.approx(float((target ** 2).mean()), rel=1e-5)
 
 
+def _bwd_case_scene(name, compat, dev):
+    """The fit scene, the demo scene, or 24 seeded spheres (the large-scene
+    instantiation), with the camera each is held under."""
+    if name == "r24":
+        scene = trt.random_scene(24, generator=torch.Generator().manual_seed(4), device=dev)
+        return scene, trt.Camera.build((32, 32), [-10.0, -10.0, 8.0], [0.0, -30.0, 45.0],
+                                       device=dev)
+    return _bwd_scene(name, compat, dev), trt.default_camera((37, 29), device=dev)
+
+
+# (mode, scene, depth, compat) of test_bwd_kernel_every_depth_instantiation:
+# the fit scene at every depth; the demo scene at depths 0-3 and, clean, 5;
+# the 24-sphere view of test_bwd_kernel_24_spheres in compat at depths 0-3
+# (and 5 in the cotangent and AA modes), clean with AA at every depth and
+# without AA at depths 0-1. Left out are the combinations where that view or
+# the demo scene's depth-5 AA frame is one float32 cannot decide (the plain
+# version in float32 and in float64 already differ there by more than the
+# rule), and the 24-sphere clean no-AA fused step at depths 0-1, where a
+# sphere's near-zero albedo gradient misses rtol 1e-3 by the same margin in
+# the kernel before and after the slot columns.
+BWD_DEPTH_CASES = (
+    [(m, "two", d, c) for m in BWD_MODES for d in (0, 1, 2, 3, 5) for c in (True, False)]
+    + [(m, "demo", d, c) for m in BWD_MODES for d in (0, 1, 2, 3) for c in (True, False)]
+    + [(m, "demo", 5, False) for m in BWD_MODES]
+    + [(m, "r24", d, True) for m in BWD_MODES for d in (0, 1, 2, 3)]
+    + [(m, "r24", 5, True) for m in ("cot_noaa", "cot_aa", "fused_aa")]
+    + [(m, "r24", d, False) for m in ("cot_aa", "fused_aa") for d in (0, 1, 2, 3, 5)]
+    + [("cot_noaa", "r24", d, False) for d in (0, 1)])
+
+
+@pytest.mark.parametrize("mode,name,depth,compat", BWD_DEPTH_CASES)
+def test_bwd_kernel_every_depth_instantiation(cuda_device, mode, depth, name, compat):
+    """Depths 0-3 take their own instantiation (residuals in registers), 5
+    the general one; the fit and demo scenes the slot columns at 37x29 (W and
+    H not multiples of 16), 24 spheres the pinned per-warp rows. Under the
+    rule against the plain version, two runs bit-identical, one launch."""
+    scene, cam = _bwd_case_scene(name, compat, cuda_device)
+    target = _target(cam.resolution, cuda_device)
+    x = _bwd_input(mode, cam, scene, target, compat, depth)
+    kw = dict(depth=depth, compat=compat, aliasing=mode.endswith("_aa"), return_camera=True)
+
+    def flat():
+        if mode.startswith("fused"):
+            loss, scene_g, cam_g = rb.loss_and_scene_grads_cuda(cam, scene, x, **kw)
+            return rb.flatten_grads(scene_g, cam_g, loss)
+        return rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, x, **kw))
+    before = rb.LAUNCHES[mode]
+    a = flat()
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES[mode] == before + 1
+    assert torch.equal(a, flat())
+    assert rb.launch_plan(cam, scene, mode).cols == (name != "r24")
+    _assert_matches_plain(mode, cam, scene, target, compat, depth)
+
+
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("name", ["two", "demo"])
+def test_cot_aa_lattice_matches_the_9_sample_vjp(cuda_device, compat, name):
+    """cot_aa traces the AA lattice: the kernel, the plain lattice form
+    (render_bwd_cuda.scene_grads_lattice_plain) and the plain 9-sample VJP.
+    The two plain forms differ only in float rounding; the kernel is held to
+    the 9-sample VJP under the rule, its held-out pixels out of both."""
+    scene = _bwd_scene(name, compat, cuda_device)
+    cam = trt.default_camera((45, 38), device=cuda_device)
+    x = _bwd_input("cot_aa", cam, scene, _target((45, 38), cuda_device, seed=3), compat)
+    lattice = rb.scene_grads_lattice_plain(cam, scene, x, depth=2, compat=compat)
+    per_sample = rb.scene_grads_plain(cam, scene, x, depth=2, compat=compat, aliasing=True)
+    counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
+    rule = rb.grad_rule(lattice, per_sample, *counts)
+    assert all(r < 1e-3 for r, _ in rule.values()), rule
+    _assert_matches_plain("cot_aa", cam, scene, _target((45, 38), cuda_device, seed=3), compat)
+
+
+def test_bwd_plan_sizes_the_grid_to_the_card(cuda_device):
+    """The planner's grid: a few blocks on every multiprocessor, each walking
+    several tiles, the partial columns as many as the blocks."""
+    scene = _bwd_scene("two", True, cuda_device)
+    cam = trt.default_camera((1000, 1000), device=cuda_device)
+    n_sm = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    for mode in BWD_MODES:
+        p = rb.launch_plan(cam, scene, mode)
+        assert p.cols and p.nt == 128 and p.tiles > 1
+        assert n_sm <= p.blocks <= rb.BLOCKS_PER_SM * n_sm
+        assert (p.blocks - 1) * p.tiles < rb.n_tiles(1000, 1000) <= p.blocks * p.tiles
+
+
 def test_bwd_wrapper_rejects_bad_inputs(cuda_device):
     scene = _bwd_scene("two", True, cuda_device)
     cam = trt.default_camera((16, 16), device=cuda_device)
@@ -400,6 +486,21 @@ def test_soft_fwd_matches_plain(cuda_device, name, tau):
     torch.cuda.synchronize()
     assert soft_cuda.LAUNCHES["soft_fwd"] == before + 1
     _assert_soft_image(out, cam, scene, tau, f"{name} 96x64")
+    assert torch.equal(out, trt.render_image_soft_cuda(cam, scene, tau=tau))
+
+
+@pytest.mark.parametrize("tau", SOFT_TAUS)
+def test_soft_fwd_100_spheres(cuda_device, tau):
+    """100 seeded spheres (up to ~40 live objects a pixel at tau 0.15: more
+    than one chunk of the forward's table where it overflows its 32)."""
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_cuda
+    scene = trt.random_scene(100, generator=torch.Generator().manual_seed(0), device=cuda_device)
+    cam = trt.default_camera((96, 64), device=cuda_device)
+    before = soft_cuda.LAUNCHES["soft_fwd"]
+    out = trt.render_image_soft_cuda(cam, scene, tau=tau)
+    torch.cuda.synchronize()
+    assert soft_cuda.LAUNCHES["soft_fwd"] == before + 1
+    _assert_soft_image(out, cam, scene, tau, "random100 96x64")
     assert torch.equal(out, trt.render_image_soft_cuda(cam, scene, tau=tau))
 
 

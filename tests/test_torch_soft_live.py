@@ -143,3 +143,54 @@ def test_plan_raises_only_where_the_first_port_did(npl, nl):
     assert sb.plan(0, npl, nl_max).smem <= 227 * 1024
     with pytest.raises(ValueError, match="shared memory"):
         sb.plan(0, npl, 100_000)
+
+
+# --- the soft forward's skips -----------------------------------------------------
+#
+# csrc/soft_fwd.cu drops an object's primary cover and a shadow occluder's
+# cover where t_ca <= 0 or where the squared closest-approach distance |v|^2
+# (v = L - t_ca d) exceeds (r (1 + 90 tau))^2, and a light whose Lambert term
+# is <= 0. Each such term must be exactly 0 in the plain float32 version.
+
+def _kernel_dead(o, d, center, radius, tau):
+    """The forward kernel's test, in float32: True where it drops the cover."""
+    L = center - o[..., None, :]
+    t_ca = (L * d[..., None, :]).sum(-1)
+    v = L - t_ca[..., None] * d[..., None, :]
+    rd = radius * (1.0 + 90.0 * tau)
+    return ~(t_ca > 0.0) | ((v * v).sum(-1) > rd * rd)
+
+
+@pytest.mark.parametrize("tau", [0.15, 0.05, 0.02])
+def test_soft_forward_skips_only_exact_zeros(tau):
+    """On the scenes above and the demo scene: every primary cover and every
+    shadow cover the forward kernel drops has alpha exactly 0 in the plain
+    float32 version (ops/soft.py's _sphere_soft_cover), and every light it
+    does not sweep has a Lambert term of exactly 0 there; the drops are many."""
+    from python_ray_tracer_tpu_torch.ops.intersect import _dot
+    from python_ray_tracer_tpu_torch.ops.soft import _norm, _sphere_soft_cover
+    scenes = [dead_scene(), backlit_scene(), eclipsed_scene(), jrt.default_scene()]
+    dropped = 0
+    for scene_j in scenes:
+        cam, scene = to_torch(jrt.default_camera((40, 28)), scene_j)
+        d = cam.ray_directions(torch.stack(torch.meshgrid(
+            torch.arange(40.0), torch.arange(28.0), indexing="ij"), dim=-1), compat=False)
+        o = cam.ray_origin().expand(d.shape)
+        c, r = scene.spheres.center, scene.spheres.radius
+        alpha, t = _sphere_soft_cover(o, d, c, r, tau)
+        dead = _kernel_dead(o, d, c, r, tau)
+        assert bool((alpha[dead] == 0).all())
+        dropped += int(dead.sum())
+        # the live spheres' points, toward every light
+        P = o[..., None, :] + t[..., None] * d[..., None, :]          # (w, h, ns, 3)
+        N = (P - c) / _norm(P - c)
+        Ld = scene.lights.position - P[..., None, :]                  # (w, h, ns, nl, 3)
+        Ld = Ld / _norm(Ld)
+        lam = scene.materials.lambert * _dot(Ld, N[..., None, :])
+        relu = torch.where(lam > 0.0, lam, torch.zeros_like(lam))
+        assert bool((relu[~(lam > 0.0)] == 0).all())
+        a_sh, _ = _sphere_soft_cover(P[..., None, :], Ld, c, r, tau)  # (w, h, ns, nl, ns)
+        dead_sh = _kernel_dead(P[..., None, :], Ld, c, r, tau)
+        assert bool((a_sh[dead_sh] == 0).all())
+        dropped += int(dead_sh.sum())
+    assert dropped > 0
