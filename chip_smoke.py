@@ -32,14 +32,21 @@ the backward's two modes at every tau of the anneal, the backward under the
 planner's launch plan). Then the
 large-scene render path (phases 13-15): the hit-extent kernel (TPU kernel 3)
 against its plain version on 100 and 1000 seeded spheres at 256x256, twice for
-bit-identical rows; the render kernel with
+bit-identical rows and scales, the scale that of its rows; the list kernel
+(``[lists]``: the level-0 shadow lists, no TPU kernel) against the plain
+``shadow_visibility_lists`` on the same rows integer for integer, at 1920x1080,
+100 and 1000 spheres, AA and not, compat and clean, at the list capacity and
+at K = 4, twice for bit-identical rows; the render kernel with
 the cone cull, the shadow lists, the bounce tree, and all three, against all
 culls off bit for bit in every mode, compat and clean, and all on against the
 plain version; ``cli render --backend cuda --spheres 100|1000`` at 1920x1080
 without and with AA, with launch counts, PNG and plain-version checks and the
 hit-extent rows held against their plain version at those shapes; and times
-(kernel 3 alone, the three table functions, the render kernel with all culls
-on and all off, the whole wrapper, the plain version, list lengths). Then
+(kernel 3 alone, the list kernel alone and through its wrapper beside the plain
+function and its bound, the three table functions, the render kernel with all
+culls on and all off, the whole wrapper, the plain version, list lengths), and
+the hit-extent kernel built with 1, 2, 4 and 8 warps a tile in each mode
+(``[extent-sweep]``). Then
 adaptive AA (phases 16-18): the worklist kernel (TPU kernel 7) against the
 plain trace of the same worklist on the demo scene and 100 and 1000 seeded
 spheres at 256x256, compat and clean, twice for bit-identical frames, and
@@ -69,8 +76,8 @@ centers pass and ``aa_per_sample`` among them, and ptxas's registers of the
 small-scene source). Every kernel's entry
 in the kernels line carries its bound (``utils/timing.py``: the FP32
 operations and bytes the function needs, over the H100's peak rates); the
-light-cell kernel has an entry of its own beside the seven TPU kernels'
-(``replaces`` null: no TPU kernel builds such a table).
+light-cell and list kernels have entries of their own beside the seven TPU
+kernels' (``replaces`` null: no TPU kernel builds such a table).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -186,6 +193,13 @@ SOFT_PLAIN_BUDGET = 30e9
 # The large-scene render path (phases 13-15).
 HX_SOURCE = "python_ray_tracer_tpu_torch/csrc/hit_extents.cu"
 HX_REPLACES = "python_ray_tracer_tpu/ops/pallas/render_pallas.py:990"
+SL_SOURCE = "python_ray_tracer_tpu_torch/csrc/shadow_lists.cu"
+# [extent-sweep]: warps a tile of the hit-extent kernel without and with AA
+# (hit_extents.cu RT_HX_TILE_WARPS, RT_HX_AA_TILE_WARPS), the first the
+# package's; the others each built alone with -D while phases 13-14 run and
+# timed against it, so that each mode sees 1, 2, 4 and 8 warps a tile.
+HX_SHAPES = ((1, 4), (2, 1), (4, 2), (8, 8))
+LIST_KS = (None, 4)      # [lists]: the list capacity, and 4 (rows overflow)
 LARGE_SPHERES = (100, 1000)
 LARGE_RES = (1920, 1080)
 LARGE_PARITY_RES = (256, 256)
@@ -1059,11 +1073,13 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
     from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
     from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
     from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
     from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
     from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
 
     cfg = RenderConfig()
+    hx_builds = start_extent_builds()
 
     def cli_scene(n, specular=0.0):
         """`cli render --spheres n`'s scene (cli._build: seed 0, the CLI's
@@ -1091,19 +1107,54 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         return float((img - ref).abs().max())
 
     def extents_held(label, cam, scene, aa, compat, vis):
-        """Kernel 3 twice (bit-identical rows) against its plain version."""
-        a = hx.hit_extents_cuda(cam, scene, aliasing=aa, compat=compat, vis=vis)
-        b = hx.hit_extents_cuda(cam, scene, aliasing=aa, compat=compat, vis=vis)
+        """Kernel 3 twice (bit-identical rows and scales) against its plain
+        version; its scale against the plain scale of its own rows."""
+        scales = [torch.full((1,), float("nan"), device=dev) for _ in range(2)]
+        a, b = (hx.hit_extents_cuda(cam, scene, aliasing=aa, compat=compat, vis=vis,
+                                    scale=sc) for sc in scales)
         torch.cuda.synchronize()
-        check(torch.equal(a, b), f"hit_extents {label}: two runs differ")
+        check(torch.equal(a, b) and torch.equal(*scales),
+              f"hit_extents {label}: two runs differ")
+        plain_scale = ct.extent_scale(a).reshape(1)
+        check(torch.equal(scales[0], plain_scale),
+              f"hit_extents {label}: scale {scales[0].item()} vs {plain_scale.item()}")
         rule = hx.extent_rule(a, hx.hit_extents_plain(cam, scene, aliasing=aa,
                                                       compat=compat, vis=vis))
         print(f"[extent] {label}, 2 runs bit-identical: counts equal "
               f"{rule['counts_equal']}, sentinel rows equal {rule['sentinels_equal']}, "
               f"max_abs_err {rule['max_abs_err']:.3e}, ratio {rule['ratio']:.3f}, "
-              f"tiles with hits {int((a[:, 6] > 0).sum())}/{a.shape[0]}")
+              f"tiles with hits {int((a[:, 6] > 0).sum())}/{a.shape[0]}, scale "
+              f"{scales[0].item():.6g} equal to the plain scale of the rows")
         check(rule["ok"], f"hit_extents {label}: {rule}")
         return rule
+
+    def lists_held(label, cam, scene, aa, compat, vis):
+        """The list kernel twice (bit-identical rows) against the plain
+        function on the same hit-extent rows, at the list capacity and at K =
+        4; returns the largest count of differing integers (0)."""
+        scale = torch.empty(1, device=dev)
+        ext = hx.hit_extents_cuda(cam, scene, aliasing=aa, compat=compat, vis=vis,
+                                  scale=scale)
+        L, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+        parts = []
+        for K in LIST_KS:
+            K = vis[2] if K is None else K
+            a, b = (sl.shadow_lists_cuda(ext, scale, L, C, R, K=K, compat=compat)
+                    for _ in range(2))
+            want = ct.shadow_visibility_lists(ext, L, C, R, K=K, compat=compat)
+            torch.cuda.synchronize()
+            check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+                  f"shadow lists {label} K={K}: two runs differ")
+            d_cnt, d_idx = int((a[1] != want[1]).sum()), int((a[0] != want[0]).sum())
+            check(d_cnt == 0 and d_idx == 0, f"shadow lists {label} K={K}: {d_cnt} counts "
+                  f"and {d_idx} slots differ from the plain function")
+            c = a[1]
+            parts.append(f"K={K}: equal, rows {c.numel()}, sky {int((c == 0).sum())}, -1 "
+                         f"{int((c < 0).sum())}, mean kept {float(c[c > 0].float().mean()):.2f}"
+                         if bool((c > 0).any()) else f"K={K}: equal, rows {c.numel()}")
+        print(f"[lists] {label}, 2 runs bit-identical, integer for integer the plain "
+              f"function's: " + "; ".join(parts))
+        return 0.0
 
     def vis_of(cam, scene, compat):
         k = ct.list_capacity(scene.spheres.count)
@@ -1146,6 +1197,19 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
                 flips(f"{n} spheres {mode} compat={compat} all culls on vs plain",
                       rt.render_image_cuda(cam, scene, **kw, **CULLS["all"]), refs[aa], res)
 
+    # [lists]: the list kernel at the main path's shape, from the CLI's camera
+    # and, at 100 spheres, from one with the horizon in view (sky tiles).
+    W, H = LARGE_RES
+    for n, pose in [(n, None) for n in LARGE_SPHERES] + [(100, BENCH_POSE)]:
+        cam = cli_camera(LARGE_RES, pose)
+        where = "" if pose is None else f" camera {pose[0]}"
+        for compat in (True, False):
+            scene = cli_scene(n, 0.0 if compat else 0.5)
+            vis = vis_of(cam, scene, compat)
+            for aa in (False, True):
+                lists_held(f"{n} spheres {W}x{H}{where} aa={aa} compat={compat}", cam, scene,
+                           aa, compat, vis)
+
     # Phase 14: the main path through the CLI at 1920x1080, counts set to 0
     # just before each run and read just after.
     os.makedirs(OUT_DIR, exist_ok=True)
@@ -1163,17 +1227,18 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
             render_cuda.reset_launch_counts()
             hx.reset_launch_counts()
             lc.reset_launch_counts()
+            sl.reset_launch_counts()
             check(cli.main(args) == 0, f"cli {' '.join(args)} failed")
             torch.cuda.synchronize()
-            got = {"hit_extents": hx.LAUNCHES["hit_extents"], **lc.LAUNCHES,
+            got = {"hit_extents": hx.LAUNCHES["hit_extents"], **lc.LAUNCHES, **sl.LAUNCHES,
                    **render_cuda.LAUNCHES}
             print(f"[large-main] cli {' '.join(args[:-2])}: launches {got}")
             MAIN_COUNTS["light_cells"] += got["light_cells"]
             check(got["hit_extents"] == LARGE_FRAMES and got[mode] == LARGE_FRAMES and
-                  got["light_cells"] == LARGE_FRAMES and
+                  got["light_cells"] == LARGE_FRAMES and got["shadow_lists"] == LARGE_FRAMES and
                   sum(render_cuda.LAUNCHES.values()) == LARGE_FRAMES,
                   f"{label}: launches {got}, expected {LARGE_FRAMES} hit_extents, "
-                  f"light_cells and {mode}")
+                  f"light_cells, shadow_lists and {mode}")
             w, h, px = read_png(png)
             check((w, h) == LARGE_RES, f"{png}: {w}x{h}")
             img = rt.render_image_cuda(cam, scene, depth=2, aliasing=aa)
@@ -1208,14 +1273,27 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         vis, shadow, tree, cells = render_cuda.large_scene_tables(cam, scene, depth=2,
                                                                   aliasing=aa, compat=True)
         ext = torch.empty((vis[1].numel(), 8), device=dev)
+        scale = torch.empty(1, device=dev)
         out = torch.empty((W, H, 3), device=dev)
         reps = 20 if ns <= 100 else 5
+        # kernel 3 as the render path launches it (with the scale), then the
+        # list kernel on its rows
         t = {"k3": 1e3 * rt.time_fn(hx.launch, ext, params, tabs, cnt, W=W, H=H, aliasing=aa,
-                                    compat=True, n_levels=1, vis=vis, warmup=2, iters=50)}
+                                    compat=True, n_levels=1, vis=vis, scale=scale, warmup=2,
+                                    iters=50)}
+        L, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+        order = ct.light_order(L, C, R).to(torch.int32)
+        sl_out = (torch.empty_like(shadow[0]), torch.empty_like(shadow[1]))
+        t["sl"] = 1e3 * rt.time_fn(sl.launch, *sl_out, ext, scale, L, C, R, order, k=k,
+                                   compat=True, warmup=2, iters=50)
+        t["sl_wrapper"] = host_and_device_ms(lambda: sl.shadow_lists_cuda(
+            ext, scale, L, C, R, K=k, compat=True))
         t["vis"] = host_and_device_ms(lambda: ct.tile_visibility(cam, scene, compat=True, K=k))
         t["lists"] = host_and_device_ms(lambda: ct.shadow_visibility_lists(
-            ext, scene.lights.position, scene.spheres.center, scene.spheres.radius, K=k,
-            compat=True))
+            ext, L, C, R, K=k, compat=True))
+        want = ct.shadow_visibility_lists(ext, L, C, R, K=k, compat=True)
+        check(torch.equal(sl_out[0], want[0]) and torch.equal(sl_out[1], want[1]),
+              f"{label}: the timed list kernel's rows differ from the plain function's")
         t["tree"] = host_and_device_ms(lambda: ct.bounce_tree(scene.spheres.center,
                                                               scene.spheres.radius))
         for name, tb in (("on", (vis, shadow, tree, cells)), ("off", (None,) * 4)):
@@ -1234,7 +1312,9 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         t["wrapper_off"] = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
                                             aliasing=aa, **ALL_OFF, warmup=2, iters=reps)
         t["k3_bound"] = timing.bound_ms(*timing.hit_extents_work(W, H, ns, npl, aa, vis,
-                                                                 ext))
+                                                                 ext, scale=True))
+        t["sl_bound"] = timing.bound_ms(*timing.shadow_lists_work(ext, L, C, R, K=k,
+                                                                  compat=True))
         t["on_bound"] = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, mode, vis,
                                                                  shadow, ext3))
         t["off_bound"] = timing.bound_ms(*timing.large_scene_work(W, H, ns, npl, nl, mode,
@@ -1246,9 +1326,12 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
                     float((c < 0).float().mean()))
         (vm, vo), (sm, so) = rows(vis), rows(shadow)
         plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
-        print(f"[large-time] {label}: hit_extents kernel alone {t['k3']:.4f} ms; table functions "
+        print(f"[large-time] {label}: hit_extents kernel alone {t['k3']:.4f} ms; list kernel "
+              f"alone {t['sl']:.4f} ms, its wrapper shadow_lists_cuda {t['sl_wrapper'][0]:.4f} / "
+              f"{t['sl_wrapper'][1]:.4f} (device ms / host ms a call), bound "
+              f"{t['sl_bound'][0]:.4f} ms ({t['sl_bound'][1]}); table functions "
               f"(device ms / host ms a call) tile_visibility {t['vis'][0]:.4f} / "
-              f"{t['vis'][1]:.4f}, shadow_visibility_lists {t['lists'][0]:.4f} / "
+              f"{t['vis'][1]:.4f}, shadow_visibility_lists (plain) {t['lists'][0]:.4f} / "
               f"{t['lists'][1]:.4f}, bounce_tree {t['tree'][0]:.4f} / "
               f"{t['tree'][1]:.4f} ({'used' if tree else 'not used at this size'}); "
               f"render kernel alone all culls on {t['on']:.4f} ms, all off {t['off']:.4f} ms "
@@ -1260,7 +1343,9 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
               f"light cells {'on' if cells is not None else 'off'};"
               f" live samples at levels 0-2 (hit_extents, n_levels 3) {live}")
         print(f"[bound] hit_extents {label}: {t['k3_bound'][0]:.4f} ms ({t['k3_bound'][1]}) vs "
-              f"kernel alone {t['k3']:.4f} ms; render all culls on {t['on_bound'][0]:.4f} ms "
+              f"kernel alone {t['k3']:.4f} ms; shadow_lists {t['sl_bound'][0]:.4f} ms "
+              f"({t['sl_bound'][1]}) vs kernel alone {t['sl']:.4f} ms; render all culls on "
+              f"{t['on_bound'][0]:.4f} ms "
               f"({t['on_bound'][1]}, a lower bound: the listed primary and level-0 shadow "
               f"sweeps and the bounce levels' floor) vs {t['on']:.4f} ms; all off "
               f"{t['off_bound'][0]:.4f} ms vs {t['off']:.4f} ms | {card}")
@@ -1272,6 +1357,8 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
         for aa in (False, True):
             m = main[(n, aa)]
             timed[(n, aa)] = times(m["label"], cam, scene, aa, m["plain_ms"])
+    extent_sweep(torch, rt, card, dev, hx_builds, cam,
+                 {n: cli_scene(n) for n in LARGE_SPHERES})
     bench_cam = cli_camera(LARGE_RES, BENCH_POSE)
     for aa in (False, True):
         label = f"100_spheres_{W}x{H}_{'aa' if aa else 'noaa'}_camera_-12_0_4"
@@ -1311,21 +1398,92 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
     scene = cli_scene(n)
     vis = vis_of(cam, scene, True)
     hx_ms = 1e3 * rt.time_fn(hx.hit_extents_cuda, cam, scene, aliasing=True, vis=vis,
-                             warmup=2, iters=20)
+                             scale=torch.empty(1, device=dev), warmup=2, iters=20)
     hx_plain_ms = 1e3 * rt.time_fn(hx.hit_extents_plain, cam, scene, aliasing=True, vis=vis,
                                    warmup=1, iters=1)
     print(f"[large-time] hit_extents wrapper {hx_ms:.4f} ms, plain version "
           f"{hx_plain_ms:.4f} ms at {m['label']} | {card}")
     launches = sum(v["launches"]["hit_extents"] for v in main.values())
+    sl_launches = sum(v["launches"]["shadow_lists"] for v in main.values())
     print(f"[large-main] launches over the large-scene main paths: hit_extents {launches}, "
+          f"shadow_lists {sl_launches}, "
           f"render {[(v['label'], v['launches'][v['mode']]) for v in main.values()]}")
+    check(sl_launches > 0, "the large-scene main paths launched no list kernel")
     return [
         {"name": "hit_extents", "route": "cuda", "source": HX_SOURCE, "replaces": HX_REPLACES,
          "launches": launches, "max_abs_err": m["rule"]["max_abs_err"],
          "max_rel_err": m["rule"]["ratio"], "ms": hx_ms, "kernel_only_ms": t["k3"],
          "plain_ms": hx_plain_ms, "bound_ms": t["k3_bound"][0], "bound_by": t["k3_bound"][1],
          "library_ms": None, "shape": m["label"]},
+        {"name": "shadow_lists", "route": "cuda", "source": SL_SOURCE, "replaces": None,
+         "launches": sl_launches, "max_abs_err": 0.0, "ms": t["sl_wrapper"][0],
+         "kernel_only_ms": t["sl"], "plain_ms": t["lists"][0], "bound_ms": t["sl_bound"][0],
+         "bound_by": t["sl_bound"][1], "library_ms": None, "shape": m["label"],
+         "part_of": "render_fwd_aa_none_large and render_fwd_aa_shared_large: the level-0 "
+                    "shadow rays' tables"},
         render_entry(False), render_entry(True)]
+
+
+def start_extent_builds() -> dict:
+    """Start the compiles of [extent-sweep]'s hit-extent kernels (HX_SHAPES
+    other than the package's own), each hit_extents.cu alone, together.
+    Returns futures by shape, the package's shape mapped to None."""
+    from concurrent.futures import ThreadPoolExecutor
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    others = HX_SHAPES[1:]
+    pool = ThreadPoolExecutor(len(others))
+    futs = {s: pool.submit(_build.build, ("hit_extents.cu",),
+                           (f"-DRT_HX_TILE_WARPS={s[0]}", f"-DRT_HX_AA_TILE_WARPS={s[1]}"))
+            for s in others}
+    pool.shutdown(wait=False)
+    return {HX_SHAPES[0]: None, **futs}
+
+
+def extent_sweep(torch, rt, card: str, dev, builds: dict, cam, scenes: dict) -> None:
+    """``[extent-sweep]``: the hit-extent kernel of every group size in
+    HX_SHAPES (the first is the package's) alone at the main path's shapes
+    (1920x1080, level 0, the cone-cull lists, with the scale), rows and scale
+    ``torch.equal`` to the package's, times with CUDA events over 50 launches,
+    each shape timed twice in turns (forward, then backward order) and the
+    lesser kept."""
+    from python_ray_tracer_tpu_torch.ops.cuda import _build
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    t0 = time.perf_counter()
+    libs = {s: None if f is None else _build.declare(ctypes.CDLL(f.result()))
+            for s, f in builds.items()}
+    print(f"[extent-sweep] {len(libs) - 1} other group sizes built, waited "
+          f"{time.perf_counter() - t0:.1f} s")
+    W, H = cam.resolution
+    for n, scene in scenes.items():
+        k = ct.list_capacity(scene.spheres.count)
+        vis = (*ct.tile_visibility(cam, scene, compat=True, K=k), k)
+        packed = (render_cuda.pack_params(cam, scene, True).to(dev),
+                  render_cuda.scene_tables(scene), counts(scene))
+        for aa in (False, True):
+            runs = {}
+            for s, lib in libs.items():
+                out = torch.empty((vis[1].numel(), 8), device=dev)
+                scale = torch.empty(1, device=dev)
+                hx.launch(out, *packed, W=W, H=H, aliasing=aa, compat=True, n_levels=1,
+                          vis=vis, scale=scale, lib=lib)
+                runs[s] = (out, scale)
+            torch.cuda.synchronize()
+            ref = runs[HX_SHAPES[0]]
+            for s, (out, scale) in runs.items():
+                check(torch.equal(out, ref[0]) and torch.equal(scale, ref[1]),
+                      f"[extent-sweep] {s[aa]} warps a tile: rows differ from the package's")
+            ms = {s: [] for s in libs}
+            for s in list(libs) + list(libs)[::-1]:
+                out, scale = runs[s]
+                ms[s].append(1e3 * rt.time_fn(hx.launch, out, *packed, W=W, H=H, aliasing=aa,
+                                              compat=True, n_levels=1, vis=vis, scale=scale,
+                                              lib=libs[s], warmup=2, iters=50))
+            print(f"[extent-sweep] {n}_spheres {W}x{H} {'aa' if aa else 'noaa'}, kernel alone "
+                  f"(rows equal): " + "; ".join(
+                      f"{s[aa]} warps a tile{' (the package)' if s == HX_SHAPES[0] else ''} "
+                      f"{min(v):.4f} ms" for s, v in ms.items()) + f" | {card}")
 
 
 def adaptive_phases(torch, rt, card: str, dev) -> list:
@@ -1342,6 +1500,7 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
     from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
     from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
     from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
     from python_ray_tracer_tpu_torch.utils import timing
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
     from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
@@ -1454,6 +1613,7 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         hx.reset_launch_counts()
         ac.reset_launch_counts()
         lc.reset_launch_counts()
+        sl.reset_launch_counts()
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(args)
@@ -1461,11 +1621,13 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         text = buf.getvalue()
         print(text, end="")
         check(rc == 0, f"cli {' '.join(args)} failed")
-        got = {**ac.LAUNCHES, **render_cuda.LAUNCHES, **hx.LAUNCHES, **lc.LAUNCHES}
+        got = {**ac.LAUNCHES, **render_cuda.LAUNCHES, **hx.LAUNCHES, **lc.LAUNCHES,
+               **sl.LAUNCHES}
         print(f"[adaptive-main] cli {' '.join(args[:-2])}: launches {got}")
         want = {"render_list": LARGE_FRAMES, "aa_none": LARGE_FRAMES, "aa_per_sample": 0,
                 "aa_shared": 0, "hit_extents": LARGE_FRAMES if n else 0,
-                "light_cells": LARGE_FRAMES if n else 0}
+                "light_cells": LARGE_FRAMES if n else 0,
+                "shadow_lists": LARGE_FRAMES if n else 0}
         check(got == want, f"{label}: launches {got}, expected {want}")
         launches += got["render_list"]
         MAIN_COUNTS["light_cells"] += got["light_cells"]
@@ -2203,7 +2365,11 @@ def entry_times(torch, rt, card: str, dev, label: str) -> None:
     profiler reports none). The entry points' signatures are the same in
     every tree of the port, so two checkouts' lines can be set side by side.
     ``[entry-regs]``: ptxas's registers and spills of the checkout's
-    render_fwd_small.cu (the small-scene instantiations)."""
+    render_fwd_small.cu (the small-scene instantiations). ``[entry-tables]``:
+    at 100 and 1000 spheres, AA and not, the hit-extent kernel alone
+    (``hit_extents_cuda.launch``) and the frame's tables through
+    ``render_cuda.large_scene_tables``, whose signatures every tree since the
+    large-scene path shares."""
     from torch.profiler import ProfilerActivity, profile
     from python_ray_tracer_tpu_torch.ops.cuda import _build
     from python_ray_tracer_tpu_torch.utils.config import RenderConfig
@@ -2259,6 +2425,33 @@ def entry_times(torch, rt, card: str, dev, label: str) -> None:
     for name, nregs, st, ld, stack in ptxas_lines(small_regs):
         print(f"[entry-regs] {label} render_fwd_small.cu {name}: {nregs} registers, spill "
               f"stores {st} B, loads {ld} B, stack {stack} B")
+    # The large-scene tables: kernel 3 alone (CUDA events; with its scale where the
+    # tree's launch takes one, as its render path launches it) and the frame's
+    # tables through render_cuda.large_scene_tables (device and host ms a call).
+    import inspect
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    with_scale = "scale" in inspect.signature(hx.launch).parameters
+    W, H = LARGE_RES
+    for n in (100, 1000):
+        scene = scene_of(rt, cfg, n, dev)
+        k = ct.list_capacity(n)
+        vis = (*ct.tile_visibility(cam, scene, compat=True, K=k), k)
+        packed = (render_cuda.pack_params(cam, scene, True).to(dev),
+                  render_cuda.scene_tables(scene), counts(scene))
+        ext = torch.empty((vis[1].numel(), 8), device=dev)
+        kw = dict(scale=torch.empty(1, device=dev)) if with_scale else {}
+        for aa in (False, True):
+            k3 = 1e3 * rt.time_fn(hx.launch, ext, *packed, W=W, H=H, aliasing=aa, compat=True,
+                                  n_levels=1, vis=vis, **kw, warmup=2, iters=50)
+            tables = host_and_device_ms(lambda: render_cuda.large_scene_tables(
+                cam, scene, depth=2, aliasing=aa, compat=True))
+            print(f"[entry-tables] {label} {n}_spheres {W}x{H} {'aa' if aa else 'noaa'}: "
+                  f"hit_extents kernel alone {k3:.4f} ms"
+                  f"{' (with its scale)' if with_scale else ''}; large_scene_tables "
+                  f"{tables[0]:.4f} / {tables[1]:.4f} ms (device / host a call: the primary "
+                  f"lists, hit extents, shadow lists, bounce tree, light cells) | {card}")
 
 
 def ab_times(torch, rt, card: str, dev, label: str) -> None:

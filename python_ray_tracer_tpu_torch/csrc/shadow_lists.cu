@@ -1,0 +1,194 @@
+// The level-0 shadow lists of the render kernel, built on the card once a
+// large-scene frame: for each (tile, light) row, the spheres that can block a
+// shadow ray from a point of the tile's hit box (a row of hit_extents.cu)
+// toward that light or beyond it, from the largest apparent size from the
+// light down, k slots a row, count -1 where more than k are kept. The rules
+// are ops/cuda/cull_tables.py shadow_visibility_lists' (the JAX package's
+// _shadow_visibility_lists, render_pallas.py:1113, plain jnp outside any
+// kernel there): a capsule around the segment box centre -> light, widened by
+// the box's half-diagonal, and a cone past the light, each widened by the
+// sphere's radius and a slack of 2e-6 of the scene's scale; a row whose light
+// lies within two half-diagonals of the box keeps every sphere, and a row of a
+// tile without hits keeps none. No TPU kernel computes these lists; this kernel
+// serves the render kernel's level-0 shadow sweeps (TPU kernels 1, 2 and 7).
+//
+// What bounds it: FP32 work, one ~34-operation capsule-and-cone test a (row,
+// sphere) pair until the row is decided (8160 tiles x 3 lights x 1000 spheres
+// at 1080p, fewer for sky rows and overflowed rows), then the rows written
+// once. The design:
+//   * one warp a (tile, light) row; its lanes take the light's spheres 32 at a
+//     time in the light's order (`order`, the stable argsort of -r / |c - L|
+//     that the wrapper computes with the plain function's tensor ops) and a
+//     ballot with a population count appends the kept ones in that order (no
+//     atomics, no sort: the rows are deterministic). A row stops at its
+//     (k + 1)-th kept sphere: its count is then -1 and its slots the first k;
+//   * a block serves one light (blockIdx.y): it stages the light's spheres in
+//     the light's order in shared memory once (center, radius, |c - L|^2 and
+//     the original index), so a test reads 5 broadcast-free consecutive words
+//     a lane; its warps stride over the tiles;
+//   * the row's terms (box centre and half-diagonal, the direction to the
+//     light, the cone's slope) once a row, the slack once a block (the
+//     hit-extent kernel's scale and the lights' largest coordinate: no host
+//     sync);
+//   * every operation is the plain function's, in its order, pinned
+//     (rt_common.cuh fm / fa / fs, __fsqrt_rn, __fdiv_rn, dot products summed
+//     left to right as ops/intersect.py _dot does), so the rows equal
+//     cull_tables.shadow_visibility_lists' integer for integer on the same
+//     hit-extent rows; slots past a row's count hold 0, as there.
+
+#include <cuda_runtime.h>
+
+#include <algorithm>
+
+#include "rt_common.cuh"
+
+namespace {
+
+using namespace rt;
+
+constexpr int SL_WARPS = 8;        // warps a block
+constexpr int NT = SL_WARPS * 32;
+constexpr int ROW = 8;             // floats a hit-extent row
+constexpr float EXTENT_CLEAN = 1e9f;
+
+__device__ __forceinline__ float dot3p(float ax, float ay, float az, float bx, float by,
+                                       float bz) {
+  return fa(fa(fm(ax, bx), fm(ay, by)), fm(az, bz));
+}
+
+__global__ void __launch_bounds__(NT)
+shadow_lists_kernel(const float* __restrict__ ext, const float* __restrict__ scale,
+                    const float* __restrict__ lts, int nl, const float* __restrict__ cen,
+                    const float* __restrict__ rad, int ns, const int* __restrict__ order,
+                    int n_tiles, int k, int compat, int* __restrict__ idx,
+                    int* __restrict__ cnt) {
+  extern __shared__ float smem[];   // cx, cy, cz, r, |c - L|^2, index: ns each
+  float* s_cx = smem;
+  float* s_cy = s_cx + ns;
+  float* s_cz = s_cy + ns;
+  float* s_r = s_cz + ns;
+  float* s_vv = s_r + ns;
+  int* s_j = reinterpret_cast<int*>(s_vv + ns);
+  const int l = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float lx = lts[3 * l], ly = lts[3 * l + 1], lz = lts[3 * l + 2];
+  for (int p = tid; p < ns; p += NT) {
+    const int j = order[static_cast<size_t>(l) * ns + p];
+    const float cx = cen[3 * j], cy = cen[3 * j + 1], cz = cen[3 * j + 2];
+    const float vx = fs(cx, lx), vy = fs(cy, ly), vz = fs(cz, lz);
+    s_cx[p] = cx;
+    s_cy[p] = cy;
+    s_cz[p] = cz;
+    s_r[p] = rad[j];
+    s_vv[p] = dot3p(vx, vy, vz, vx, vy, vz);
+    s_j[p] = j;
+  }
+  // the scale: the boxes' (hit_extents.cu) and the lights' largest |coordinate|
+  float lmax = 0.0f;
+  for (int i = lane; i < 3 * nl; i += 32) lmax = fmaxf(lmax, fabsf(lts[i]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) lmax = fmaxf(lmax, __shfl_xor_sync(FULL, lmax, o));
+  const float slack = fmaxf(fm(2e-6f, fmaxf(scale[0], lmax)), 1e-3f);
+  const float extent = compat ? FAR : EXTENT_CLEAN;
+  __syncthreads();
+
+  for (int tile = blockIdx.x * SL_WARPS + warp; tile < n_tiles;
+       tile += gridDim.x * SL_WARPS) {
+    const size_t row = static_cast<size_t>(tile) * nl + l;
+    int* slots = idx + row * k;
+    const float* e = ext + static_cast<size_t>(tile) * ROW;
+    int n = 0;
+    if (e[6] > 0.5f) {
+      // the row's terms, in cull_tables.shadow_visibility_lists' operations
+      const float bx = fm(0.5f, fa(e[0], e[3])), by = fm(0.5f, fa(e[1], e[4])),
+                  bz = fm(0.5f, fa(e[2], e[5]));
+      const float ex = fm(0.5f, fs(e[3], e[0])), ey = fm(0.5f, fs(e[4], e[1])),
+                  ez = fm(0.5f, fs(e[5], e[2]));
+      const float hdiag = __fsqrt_rn(dot3p(ex, ey, ez, ex, ey, ez));
+      const float sx = fs(lx, bx), sy = fs(ly, by), sz = fs(lz, bz);
+      const float ss = fmaxf(dot3p(sx, sy, sz, sx, sy, sz), 1e-12f);
+      const float dlb = __fsqrt_rn(ss);
+      if (!(dlb > fm(2.0f, hdiag))) {
+        // the cone is ill-defined: the row keeps every sphere, in order
+        n = ns;
+        for (int p = lane; p < min(ns, k); p += 32) slots[p] = s_j[p];
+      } else {
+        const float ux = __fdiv_rn(sx, dlb), uy = __fdiv_rn(sy, dlb), uz = __fdiv_rn(sz, dlb);
+        const float slope = __fdiv_rn(hdiag, fmaxf(fs(dlb, hdiag), 1e-6f));
+        const float rmink = __fsqrt_rn(fa(1.0f, fm(slope, slope)));
+        for (int base = 0; base < ns; base += 32) {
+          const int p = base + lane;
+          bool keep = false;
+          if (p < ns) {
+            const float cx = s_cx[p], cy = s_cy[p], cz = s_cz[p], r = s_r[p];
+            // the capsule around the segment box centre -> light
+            const float wx = fs(cx, bx), wy = fs(cy, by), wz = fs(cz, bz);
+            const float ws = dot3p(wx, wy, wz, sx, sy, sz);
+            const float tt = fminf(fmaxf(__fdiv_rn(ws, ss), 0.0f), 1.0f);
+            const float d2 = fa(fs(dot3p(wx, wy, wz, wx, wy, wz), fm(fm(2.0f, tt), ws)),
+                                fm(fm(tt, tt), ss));
+            const float reach = fa(fa(r, hdiag), slack);
+            // the cone past the light
+            const float vx = fs(cx, lx), vy = fs(cy, ly), vz = fs(cz, lz);
+            const float proj = dot3p(vx, vy, vz, ux, uy, uz);
+            const float lat2 = fmaxf(fs(s_vv[p], fm(proj, proj)), 0.0f);
+            const float allow = fa(fm(proj, slope), fm(fa(r, slack), rmink));
+            keep = d2 <= fm(reach, reach) ||
+                   (proj > -r && proj < fa(extent, r) && lat2 <= fm(allow, allow) &&
+                    allow > 0.0f);
+          }
+          const unsigned bal = __ballot_sync(FULL, keep);
+          const int pos = n + __popc(bal & ((1u << lane) - 1u));
+          if (keep && pos < k) slots[pos] = s_j[p];
+          n += __popc(bal);
+          if (n > k) break;   // warp-uniform: the row overflows
+        }
+      }
+    }
+    for (int i = min(n, k) + lane; i < k; i += 32) slots[i] = 0;
+    if (lane == 0) cnt[row] = n > k ? -1 : n;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Build the level-0 shadow lists of a frame on `stream` (device pointers):
+// ext (n_tiles, 8) the hit-extent rows of level 0 (rt_hit_extents), scale (1)
+// its scale, lts (nl, 3) the lights, cen (ns, 3) and rad (ns) the spheres,
+// order (nl, ns) int32 each light's spheres from the largest apparent size
+// down; idx (n_tiles * nl * k) and cnt (n_tiles * nl) int32 receive the rows,
+// row tile * nl + light, k = min(K, ns) slots a row (count -1: overflowed).
+// compat: the cone reaches FAR past the light, else 1e9. Returns
+// cudaGetLastError() after the launch (0 on success).
+int rt_shadow_lists(const float* ext, const float* scale, const float* lts, int nl,
+                    const float* cen, const float* rad, int ns, const int* order,
+                    int n_tiles, int k, int compat, int* idx, int* cnt, void* stream) {
+  if (ns < 1 || nl < 1 || nl > 65535 || n_tiles < 1 || k < 1 || k > ns || !ext || !scale ||
+      !lts || !cen || !rad || !order || !idx || !cnt) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = sizeof(float) * 6 * static_cast<size_t>(ns);
+  cudaError_t e;
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(shadow_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shadow_lists_kernel, NT,
+                                                         smem)) != cudaSuccess) {
+    return static_cast<int>(e);
+  }
+  // as many blocks as the card holds at once, shared out over the lights
+  const int per_light = std::max(1, std::min((n_tiles + SL_WARPS - 1) / SL_WARPS,
+                                             sms * std::max(per_sm, 1) / nl));
+  shadow_lists_kernel<<<dim3(per_light, nl), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      ext, scale, lts, nl, cen, rad, ns, order, n_tiles, k, compat, idx, cnt);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -10,8 +10,8 @@ builds on first use and raises with the compiler's stderr if it cannot, or if
 the library's bounce-tree shape is not ``cull_tables.LEAF`` / ``FAN`` or
 its light cells' is not ``light_cells_cuda.R`` / ``K``. :func:`build` also
 takes a subset of the sources and extra ``-D`` flags, for ``chip_smoke.py``'s
-kernels of other tree and light-cell shapes; the package loads only the
-default library.
+kernels of other tree and light-cell shapes and hit-extent group sizes; the
+package loads only the default library.
 """
 from __future__ import annotations
 
@@ -124,8 +124,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         "rt_tree_shape": (None, [ctypes.POINTER(ci), ctypes.POINTER(ci)]),
         "rt_light_cells": (ci, [vp, ci, vp, ci, vp, vp, vp, vp]),
         "rt_light_cells_shape": (None, [ctypes.POINTER(ci), ctypes.POINTER(ci)]),
-        "rt_hit_extents": (ci, [vp, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, vp, vp, ci, vp,
-                                vp, ci, vp]),
+        "rt_hit_extents": (ci, [vp, vp, ci, vp, ci, vp, vp, ci, ci, ci, ci, ci, vp, vp, ci,
+                                vp, vp, ci, vp]),
+        "rt_shadow_lists": (ci, [vp, vp, vp, ci, vp, vp, ci, vp, ci, ci, ci, vp, vp, vp]),
         "rt_render_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                                ci, ci, ci, ci, ci, ci, vp]),
         "rt_reduce_rows": (ci, [vp, ci, ci, vp, vp]),

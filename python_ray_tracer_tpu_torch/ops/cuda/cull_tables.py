@@ -13,7 +13,9 @@ device of their inputs; dot products are multiply-and-sum, never a matmul):
   * :func:`shadow_visibility_lists` (``_shadow_visibility_lists``): per (tile,
     light), the spheres that can block a shadow ray from the tile's hit box
     (a row of the hit-extent kernel, ``hit_extents_cuda``) toward the light or
-    beyond it;
+    beyond it; on the card the render path builds them with the hand-written
+    kernel of ``shadow_lists_cuda``, which computes these rows, and this
+    function is its plain version;
   * :func:`bounce_tree` (no JAX counterpart): the bounce sweeps' two-level
     box tree over the Morton order, with :func:`tree_closest_hit_plain` and
     :func:`tree_occluded_plain`, plain traversals that mirror the kernels'
@@ -185,23 +187,45 @@ def tile_visibility(camera, scene, *, compat: bool, tile: int = TILE, K=None):
                     torch.arange(ns, device=dev)[None, :], ns if K is None else K)
 
 
-def shadow_visibility_lists(ext, lights, centers, radii, *, K: int, compat: bool,
-                            to_sorted=None):
-    """Per-(tile, light) conservative occluder lists from hit-extent rows.
+def extent_scale(ext) -> torch.Tensor:
+    """0-dim float32: the largest coordinate magnitude ``max(|lo|, |hi|)`` of
+    the hit-extent rows ``ext (T, 8)`` that have hits (0 where none has): the
+    boxes' part of the lists' scale (csrc/hit_extents.cu writes it beside the
+    rows). Rows of tiles without hits carry the +-1e30 sentinels and must not
+    feed it."""
+    if ext.shape[0] == 0:
+        return ext.new_zeros(())
+    has = ext[:, 6] > 0.5
+    coord = torch.where(has[:, None], torch.maximum(ext[:, 0:3].abs(), ext[:, 3:6].abs()),
+                        torch.zeros_like(ext[:, 0:3]))
+    return coord.amax()
 
-    ``ext (T, 8)``: ``[min xyz, max xyz, count, 0]`` a tile (one trace level).
-    A sphere can block some shadow ray of a tile only if it meets the region
-    swept by rays from points of the tile's hit box through the light and on
-    beyond it by ``FAR`` (the any-hit query has no maximum distance: a sphere
-    past the light still shadows). The test is a capsule around the segment
-    box centre -> light plus a cone past the light, each widened by the
-    sphere's radius and a scale-aware slack; where the light lies within two
-    half-diagonals of the box the cone is ill-defined and the row keeps every
-    sphere. Rows of tiles without hits keep none (count 0). Within a row,
-    entries run from the largest apparent size from that light (``r / |c -
-    L|``) down; ``to_sorted`` (original index -> position in a sorted sphere
-    table) remaps the entries. Returns ``(idx (T * nl * k,), cnt (T * nl,))``
-    int32 with ``k = min(K, ns)``; row ``tile * nl + l`` is light ``l``'s."""
+
+def light_order(lights, centers, radii) -> torch.Tensor:
+    """``(nl, ns)`` int64: each light's spheres from the largest apparent size
+    ``r / |c - L|`` down (a stable sort: equal sizes keep ascending index), the
+    order of every (tile, light) row of :func:`shadow_visibility_lists`."""
+    ang = radii[None, :] / torch.clamp(_norm(centers[None, :, :] - lights[:, None, :]),
+                                       min=1e-6)                    # (nl, ns)
+    return torch.argsort(-ang, dim=1, stable=True)
+
+
+class ShadowRows(NamedTuple):
+    """:func:`shadow_rows`: ``keep (T, nl, ns)`` bool, whether row ``(tile,
+    light)`` keeps each sphere, in the light's :func:`light_order`; ``has
+    (T,)``, whether the tile has hits (a row without keeps none); ``cull_ok
+    (T, nl)``, whether the row's cone is defined (a row without keeps every
+    sphere); ``order (nl, ns)``."""
+    keep: torch.Tensor
+    has: torch.Tensor
+    cull_ok: torch.Tensor
+    order: torch.Tensor
+
+
+def shadow_rows(ext, lights, centers, radii, *, compat: bool, scale=None) -> ShadowRows:
+    """The decisions of :func:`shadow_visibility_lists` before compaction.
+    ``scale``: the boxes' part of the lists' scale (0-dim or ``(1,)``; None:
+    :func:`extent_scale` of ``ext``)."""
     T, ns, nl = ext.shape[0], centers.shape[0], lights.shape[0]
     lo, hi = ext[:, 0:3], ext[:, 3:6]
     has = ext[:, 6] > 0.5                                            # (T,)
@@ -209,12 +233,9 @@ def shadow_visibility_lists(ext, lights, centers, radii, *, K: int, compat: bool
     e = 0.5 * (hi - lo)
     hdiag = _norm(e)                                                 # (T,)
     # The slack covers the rounding of b, e and hdiag, ~0.5 ulp of the largest
-    # coordinate; rows without hits carry the +-1e30 sentinels and must not
-    # feed the scale.
-    coord = torch.where(has[:, None], torch.maximum(lo.abs(), hi.abs()),
-                        torch.zeros_like(lo))
-    scale = torch.maximum(coord.amax() if T else lights.new_zeros(()),
-                          lights.abs().amax() if nl else lights.new_zeros(()))
+    # coordinate.
+    box = extent_scale(ext) if scale is None else scale.reshape(())
+    scale = torch.maximum(box, lights.abs().amax() if nl else lights.new_zeros(()))
     slack = torch.clamp(2e-6 * scale, min=1e-3)
     s = lights[None, :, :] - b[:, None, :]                           # (T, nl, 3)
     ss = torch.clamp(_dot(s, s), min=1e-12)                          # (T, nl)
@@ -241,13 +262,38 @@ def shadow_visibility_lists(ext, lights, centers, radii, *, K: int, compat: bool
     visible = (near_seg | in_cone | ~cull_ok[:, :, None]) & has[:, None, None]
 
     # Largest apparent occluder first: sort the spheres once a light, then
-    # compact each row in that order.
-    ang = radii[None, :] / torch.clamp(_norm(centers[None, :, :] - lights[:, None, :]),
-                                       min=1e-6)                    # (nl, ns)
-    order = torch.argsort(-ang, dim=1, stable=True)                  # (nl, ns)
+    # read each row in that order.
+    order = light_order(lights, centers, radii)                      # (nl, ns)
     keep = torch.gather(visible, 2, order[None].expand(T, nl, ns))
+    return ShadowRows(keep, has, cull_ok, order)
+
+
+def shadow_visibility_lists(ext, lights, centers, radii, *, K: int, compat: bool,
+                            to_sorted=None, scale=None):
+    """Per-(tile, light) conservative occluder lists from hit-extent rows.
+
+    ``ext (T, 8)``: ``[min xyz, max xyz, count, 0]`` a tile (one trace level).
+    A sphere can block some shadow ray of a tile only if it meets the region
+    swept by rays from points of the tile's hit box through the light and on
+    beyond it by ``FAR`` (the any-hit query has no maximum distance: a sphere
+    past the light still shadows). The test is a capsule around the segment
+    box centre -> light plus a cone past the light, each widened by the
+    sphere's radius and a scale-aware slack (``2e-6`` of the largest of
+    ``scale``, default :func:`extent_scale` of ``ext``, and the lights'
+    coordinates, at least ``1e-3``); where the light lies within two
+    half-diagonals of the box the cone is ill-defined and the row keeps every
+    sphere. Rows of tiles without hits keep none (count 0). Within a row,
+    entries run from the largest apparent size from that light (``r / |c -
+    L|``, :func:`light_order`) down; ``to_sorted`` (original index ->
+    position in a sorted sphere table) remaps the entries. Returns ``(idx (T *
+    nl * k,), cnt (T * nl,))`` int32 with ``k = min(K, ns)``; row ``tile * nl
+    + l`` is light ``l``'s. csrc/shadow_lists.cu computes the same rows on the
+    card (``shadow_lists_cuda``)."""
+    T, ns, nl = ext.shape[0], centers.shape[0], lights.shape[0]
+    rows = shadow_rows(ext, lights, centers, radii, compat=compat, scale=scale)
+    order = rows.order
     values = order if to_sorted is None else to_sorted.to(order.device).long()[order]
-    return _compact(keep.reshape(T * nl, ns),
+    return _compact(rows.keep.reshape(T * nl, ns),
                     values[None].expand(T, nl, ns).reshape(T * nl, ns), K)
 
 

@@ -5,14 +5,18 @@ Counterpart of ``render_pallas._hit_extents_pallas`` (TPU kernel
 the biased hit points of the sample chains that the render kernel will start
 shadow rays from, and their count, as rows ``[min xyz, max xyz, count, 0]``
 of a float32 ``(n_tiles * n_levels, 8)`` tensor, levels fastest (a tile
-without hits keeps ``+-1e30`` and count 0). ``cull_tables.
-shadow_visibility_lists`` turns the rows into the render kernel's per-(tile,
-light) occluder lists.
+without hits keeps ``+-1e30`` and count 0), and, into a ``scale`` buffer
+where one is given, the largest coordinate magnitude of the rows with hits
+(``cull_tables.extent_scale``, the plain scale). ``shadow_lists_cuda`` (the
+list kernel, plain version ``cull_tables.shadow_visibility_lists``) turns the
+rows and the scale into the render kernel's per-(tile, light) occluder lists.
 
-:func:`hit_extents_cuda` runs :func:`hit_extents_plain` for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises. The plain version reduces
-the hit points of ``ops/intersect.py`` per tile with tensor ops; the tests and
-``chip_smoke.py`` hold the kernel against it under :func:`extent_rule`.
+:func:`hit_extents_cuda` runs :func:`hit_extents_plain` (and
+``extent_scale``) for tensors on the CPU; for CUDA tensors it launches the
+kernel or raises. The plain version reduces the hit points of
+``ops/intersect.py`` per tile with tensor ops; the tests and
+``chip_smoke.py`` hold the kernel against it under :func:`extent_rule`, and
+the kernel's scale against ``extent_scale`` of its own rows (bit for bit).
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 from ..intersect import BIG, _all_t
 from ..shade import BIAS, _surface_attributes, reflect
 from . import render_cuda
-from .cull_tables import LEAF, TILE, tile_grid, tree_box_words
+from .cull_tables import LEAF, TILE, extent_scale, tile_grid, tree_box_words
 
 MAX_LEVELS = 4     # trace levels one launch covers (csrc/hit_extents.cu)
 # Kernel launches; a plain counter, reset with reset_launch_counts().
@@ -193,22 +197,37 @@ def table_args(vis, shadow, tree, cells=None) -> list:
     return args
 
 
+def check_scale(scale, dev) -> None:
+    """Raise on a scale buffer the kernels do not take (a contiguous float32
+    ``(1,)`` tensor on ``dev``)."""
+    if not isinstance(scale, torch.Tensor) or scale.device != dev or \
+            scale.dtype != torch.float32 or scale.shape != (1,) or not scale.is_contiguous():
+        got = (f"{scale.dtype} {tuple(scale.shape)} on {scale.device}"
+               if isinstance(scale, torch.Tensor) else repr(scale))
+        raise ValueError(f"scale: expected a contiguous float32 (1,) tensor on {dev}, got {got}")
+
+
 def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compat: bool,
-           n_levels: int, vis=None, tree=None) -> torch.Tensor:
+           n_levels: int, vis=None, tree=None, scale=None, lib=None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked: ``out (n_tiles * n_levels, 8)``, ``params`` and ``tables`` as for
-    ``render_cuda.launch``; ``vis`` and ``tree`` are checked here. Counts the
-    launch in :data:`LAUNCHES`."""
+    ``render_cuda.launch``; ``vis``, ``tree`` and ``scale`` (a ``(1,)``
+    float32 buffer for the rows' scale, or None) are checked here. ``lib``: a
+    library built with other warps a tile (``-DRT_HX_TILE_WARPS`` /
+    ``-DRT_HX_AA_TILE_WARPS``, chip_smoke.py's sweep), default the package's.
+    Counts the launch in :data:`LAUNCHES`."""
     from ._build import load_library
-    lib = load_library()
+    lib = lib or load_library()
     (sph, pln, _), (ns, npl, nl) = tables, counts
     check_tables(vis, None, tree, n_tiles=out.shape[0] // n_levels, ns=ns, nl=nl,
                  dev=out.device)
+    if scale is not None:
+        check_scale(scale, out.device)
     v, _, g, _ = table_args(vis, None, tree)
     rc = lib.rt_hit_extents(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, out.data_ptr(),
-        W, H, n_levels, int(aliasing), int(compat), *v, *g,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        None if scale is None else scale.data_ptr(), W, H, n_levels, int(aliasing),
+        int(compat), *v, *g, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"hit-extent kernel failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
@@ -217,16 +236,23 @@ def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compa
 
 
 def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
-                     n_levels: int = 1, vis=None, tree=None) -> torch.Tensor:
+                     n_levels: int = 1, vis=None, tree=None, scale=None) -> torch.Tensor:
     """Hit-extent rows ``(n_tiles * n_levels, 8)`` of a render of ``scene``
     from ``camera``, for 16x16 tiles. ``vis`` and ``tree`` are the primary
     lists and the bounce tree the render will use (``cull_tables``), so the
-    hit points are the render kernel's own. CPU tensors take
+    hit points are the render kernel's own. ``scale``: a ``(1,)`` float32
+    buffer on the camera's device that receives the rows' scale
+    (``cull_tables.extent_scale``), or None. CPU tensors take
     :func:`hit_extents_plain`; CUDA tensors launch the kernel."""
     dev = camera.position.device
+    if scale is not None:
+        check_scale(scale, dev)
     if dev.type == "cpu":
-        return hit_extents_plain(camera, scene, aliasing=aliasing, compat=compat,
-                                 n_levels=n_levels, vis=vis)
+        ext = hit_extents_plain(camera, scene, aliasing=aliasing, compat=compat,
+                                n_levels=n_levels, vis=vis)
+        if scale is not None:
+            scale.copy_(extent_scale(ext).reshape(1))
+        return ext
     if dev.type != "cuda":
         raise ValueError(f"hit_extents_cuda takes CPU or CUDA tensors, got {dev}")
     if not 1 <= n_levels <= MAX_LEVELS:
@@ -242,4 +268,4 @@ def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
     with torch.cuda.device(dev):
         return launch(out, params, render_cuda.scene_tables(scene), counts, W=W, H=H,
                       aliasing=aliasing, compat=compat, n_levels=n_levels, vis=vis,
-                      tree=tree)
+                      tree=tree, scale=scale)

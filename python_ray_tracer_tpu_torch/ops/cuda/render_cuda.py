@@ -12,14 +12,16 @@ the AA accumulation with the compat swaps. Three kernel modes:
 Scenes of more than :data:`CULL_MIN_SPHERES` spheres take the large-scene path
 (``render_pallas._render_image_pallas``'s, with the same three keywords): the
 per-tile cone cull of the primary sweep, the two-pass shadow pipeline (the
-hit-extent kernel, ``hit_extents_cuda``, then per-(tile, light) occluder lists
-for the level-0 shadow sweeps), per-light direction-cell occluder lists for the
+hit-extent kernel, ``hit_extents_cuda``, then the list kernel,
+``shadow_lists_cuda``: per-(tile, light) occluder lists for the level-0 shadow
+sweeps), per-light direction-cell occluder lists for the
 bounce-level shadow rays (the light cells, built on the card by the kernel of
 ``light_cells_cuda``; with the shadow lists, where the frame has bounces) and,
 from :data:`GROUP_MIN_SPHERES` spheres up, bounce sweeps through a two-level box
 tree over the Morton order (the ``group_cull`` keyword;
 ``cull_tables.bounce_tree``). :func:`large_scene_tables` builds the tables
-(``cull_tables``, ``light_cells_cuda``) for each frame. Every cull is exact:
+(``cull_tables``, ``hit_extents_cuda``, ``shadow_lists_cuda``,
+``light_cells_cuda``) for each frame. Every cull is exact:
 the image is bit-identical to the full sweep's.
 
 :func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
@@ -189,9 +191,11 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     (``group_cull``, the JAX package's Morton groups) is automatic from
     :data:`GROUP_MIN_SPHERES` spheres and needs ``depth > 0``. The shadow lists
     come from one launch of the hit-extent kernel on the same primary lists
-    (level 0 only, so it takes no tree); the light cells, the bounce levels'
-    shadow lists, from one launch of the light-cell kernel where the shadow
-    lists are on and ``depth > 0`` (``light_cells=False`` leaves them off, for
+    (level 0 only, so it takes no tree), then one launch of the list kernel
+    on its rows and scale (``shadow_lists_cuda``; no host sync between them;
+    on CPU tensors both take their plain versions); the light cells, the
+    bounce levels' shadow lists, from one launch of the light-cell kernel
+    where the shadow lists are on and ``depth > 0`` (``light_cells=False`` leaves them off, for
     the tests and ``chip_smoke.py``). ``K``: slots a tile list row (default
     ``cull_tables.list_capacity``; the light cells' slots are the kernels'
     constant). ``packed``: the caller's ``(params, scene_tables, counts)`` for
@@ -199,6 +203,7 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     share instead of packing them again."""
     from . import hit_extents_cuda as hx
     from .light_cells_cuda import light_cells_cuda
+    from .shadow_lists_cuda import shadow_lists_cuda
     ns, nl = scene.spheres.count, scene.lights.count
     rolled = ns > CULL_MIN_SPHERES
     k = cull_tables.list_capacity(ns) if K is None else min(K, ns)
@@ -212,18 +217,19 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
         sph, _, lts = scene_tables(scene) if packed is None else packed[1]
         cells = light_cells_cuda(sph, lts, ns, nl)
     if lists:
+        scale = torch.empty(1, dtype=torch.float32, device=camera.device)
         if packed is None:
             ext = hx.hit_extents_cuda(camera, scene, aliasing=aliasing, compat=compat,
-                                      n_levels=1, vis=vis)
+                                      n_levels=1, vis=vis, scale=scale)
         else:
             W, H = camera.resolution
             n_tx, n_ty = cull_tables.tile_grid(W, H)
             ext = hx.launch(torch.empty((n_tx * n_ty, 8), dtype=torch.float32,
                                         device=camera.device), *packed, W=W, H=H,
-                            aliasing=aliasing, compat=compat, n_levels=1, vis=vis)
-        shadow = (*cull_tables.shadow_visibility_lists(
-            ext, scene.lights.position, scene.spheres.center, scene.spheres.radius,
-            K=k, compat=compat), k)
+                            aliasing=aliasing, compat=compat, n_levels=1, vis=vis,
+                            scale=scale)
+        shadow = (*shadow_lists_cuda(ext, scale, scene.lights.position, scene.spheres.center,
+                                     scene.spheres.radius, K=k, compat=compat), k)
     return vis, shadow, tree, cells
 
 
@@ -236,9 +242,9 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
     CPU tensors take the plain PyTorch version, whatever the cull keywords
     say. CUDA tensors launch the kernel on the current stream (mode
     ``aa_shared`` when ``aliasing and aa_share``, ``aa_per_sample`` for AA
-    without sharing, else ``aa_none``), after the hit-extent kernel where the
-    shadow lists are on. ``cull``, ``shadow_lists`` and ``group_cull`` are the
-    JAX wrapper's (:func:`large_scene_tables`); none changes a pixel."""
+    without sharing, else ``aa_none``), after the hit-extent and list kernels
+    where the shadow lists are on. ``cull``, ``shadow_lists`` and
+    ``group_cull`` are the JAX wrapper's (:func:`large_scene_tables`); none changes a pixel."""
     if camera.position.device.type == "cpu":
         return render_image(camera, scene, depth=depth, aliasing=aliasing,
                             compat=compat)
@@ -273,9 +279,9 @@ def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
                   cull: bool = True, shadow_lists: bool | None = None,
                   group_cull: bool | None = None, tabs=None) -> torch.Tensor:
     """:func:`render_image_cuda`'s CUDA path on :func:`packed_inputs`: the
-    large-scene tables (with the hit-extent kernel where the shadow lists are
-    on; ``tabs``, :func:`large_scene_tables`' result, where the caller has
-    them already), then one launch of the render kernel in ``mode``."""
+    large-scene tables (with the hit-extent and list kernels where the shadow
+    lists are on; ``tabs``, :func:`large_scene_tables`' result, where the
+    caller has them already), then one launch of the render kernel in ``mode``."""
     params, tables, counts = packed
     dev = params.device
     W, H = camera.resolution

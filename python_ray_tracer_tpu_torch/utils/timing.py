@@ -127,6 +127,17 @@ LC_SPHERE = 14
 LC_REACH = 7
 LC_TEST = 12
 
+# The level-0 shadow lists (csrc/shadow_lists.cu, cull_tables.shadow_rows): a
+# (tile with hits, light) row's terms (box centre, half-diagonal, the
+# direction to the light and its length, the cone's slope and 1 / cos), a
+# (light, sphere)'s (c - L, |c - L|^2, r + slack, the cone's far end, the
+# apparent size r / |c - L| of the light's order), and one capsule-and-cone
+# test a (row, sphere): w = c - b, w.s, |w|^2, the segment parameter and d^2,
+# the reach, the projection, the lateral distance and the cone's allowance.
+SL_ROW = 37
+SL_SPHERE = 14
+SL_TEST = 34
+
 
 def bound_ms(ops: float, nbytes: float) -> tuple:
     """``(ms, "operations" | "bytes")``: the least time one H100 could take,
@@ -447,7 +458,8 @@ def tile_positions(W: int, H: int, aliasing: bool) -> torch.Tensor:
     return (axis(W)[:, None] * axis(H)[None, :]).reshape(-1).to(torch.float32)
 
 
-def hit_extents_work(W: int, H: int, ns: int, npl: int, aliasing: bool, vis, ext) -> tuple:
+def hit_extents_work(W: int, H: int, ns: int, npl: int, aliasing: bool, vis, ext,
+                     scale: bool = False) -> tuple:
     """(operations, bytes) the hit-extent function (csrc/hit_extents.cu, one
     trace level) needs for this run's tables: every in-image sample position
     of a tile (:func:`tile_positions`) generates its ray and sweeps the tile's
@@ -455,7 +467,8 @@ def hit_extents_work(W: int, H: int, ns: int, npl: int, aliasing: bool, vis, ext
     overflowed, or with ``vis`` None) and the planes once; the samples that hit
     (``ext``'s counts, the rows the function returns) form their hit point and
     normal. Bytes: parameters, spheres and planes in, the primary lists and
-    counts in, 32 bytes a tile out."""
+    counts in, 32 bytes a tile out, and with ``scale`` (a launch that writes
+    the rows' scale, as the render path's does) its 4 bytes."""
     pos = tile_positions(W, H, aliasing)
     n_tiles = pos.shape[0]
     swept = _listed(vis, n_tiles, ns)
@@ -464,7 +477,7 @@ def hit_extents_work(W: int, H: int, ns: int, npl: int, aliasing: bool, vis, ext
     live = float(ext[:, 6].sum())
     ops = float((pos * (RAYGEN + HIT_SETUP + npl * HIT_PLANE + swept * HIT_SPHERE)).sum()) + \
         live * (SURFACE + SPHERE_NORMAL)
-    nbytes = 4 * (41 + 7 * ns + 9 * npl) + 32 * n_tiles
+    nbytes = 4 * (41 + 7 * ns + 9 * npl) + 32 * n_tiles + (4 if scale else 0)
     if vis is not None:
         nbytes += 4 * (n_tiles * vis[2] + n_tiles)
     return ops, nbytes
@@ -512,3 +525,30 @@ def light_cells_work(ns: int, nl: int, r: int = 64, k: int = 32) -> tuple:
     rows = nl * 3 * r * r
     ops = rows * (LC_CELL + ns * LC_TEST) + nl * ns * LC_SPHERE + (ns + nl) * LC_REACH
     return ops, 16 * ns + 12 * nl + 4 * rows * (k + 1) + 8
+
+
+def shadow_lists_work(ext, lights, centers, radii, *, K: int, compat: bool) -> tuple:
+    """(operations, bytes) the level-0 shadow-list function
+    (csrc/shadow_lists.cu) needs for this frame's hit-extent rows ``ext (T,
+    8)``: each (tile with hits, light) row's terms once, each (light, sphere)'s
+    once, and one capsule-and-cone test a (row, sphere) up to the point where
+    the row is decided: all ``ns`` spheres for a row that keeps at most ``k =
+    min(K, ns)``, the spheres up to its (k + 1)-th kept one for a row that
+    overflows; none for a row of a tile without hits or a row whose cone is
+    not defined (it keeps every sphere). Bytes: the rows and their scale, the
+    spheres, the lights and the lights' orders in, every row's slots and
+    count out. The rows' decisions are ``cull_tables.shadow_rows``'."""
+    from ..ops.cuda.cull_tables import shadow_rows
+    T, nl, ns = ext.shape[0], lights.shape[0], centers.shape[0]
+    k = min(K, ns)
+    rows = shadow_rows(ext, lights, centers, radii, compat=compat)
+    live = rows.has[:, None] & rows.cull_ok                          # (T, nl): rows tested
+    kept = torch.cumsum(rows.keep, dim=2)                            # (T, nl, ns)
+    # spheres tested: up to the first position where k + 1 are kept, else all
+    tests = torch.where(kept[..., -1] > k, (kept <= k).sum(dim=2) + 1,
+                        torch.full_like(kept[..., -1], ns))
+    n_tests = float(torch.where(live, tests, torch.zeros_like(tests)).sum())
+    ops = float(rows.has.sum()) * nl * SL_ROW + nl * ns * SL_SPHERE + n_tests * SL_TEST
+    nbytes = 32 * T + 4 + 16 * ns + 12 * nl + 4 * nl * ns + 4 * T * nl * (k + 1)
+    return ops, nbytes
+

@@ -1223,3 +1223,119 @@ def test_light_cell_build_makes_no_host_sync(cuda_device):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert cells.cnt.shape == (lc.n_rows(nl),)
+
+
+# --- the level-0 shadow lists on the card: the list kernel -----------------------------
+#
+# csrc/shadow_lists.cu against cull_tables.shadow_visibility_lists on the same
+# hit-extent rows, integer for integer (counts and slots), at list capacity
+# and at K = 4 (rows overflow); two runs bit-identical. The hit-extent kernel's
+# scale against cull_tables.extent_scale of its own rows, bit for bit; the
+# two launches of the render path make no host sync; frames with the kernel's
+# lists equal the frames with every cull off.
+
+from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl  # noqa: E402
+
+# 24 and 100: the horizon in view, sky tiles beside boxes that reach far out on
+# the ground; 1000: the CLI's camera.
+LIST_POSES = {24: LARGE_POSES[24], 100: LARGE_POSES[100], 1000: LARGE_POSES[1000]}
+
+
+def _list_inputs(n, dev, aliasing, compat, res=(160, 96), pose=None):
+    scene = _planted_scene(n, dev)
+    cam = trt.Camera.build(res, *(pose or LIST_POSES[n]), device=dev)
+    k = ct.list_capacity(n + 1)
+    vis = (*ct.tile_visibility(cam, scene, compat=compat, K=k), k)
+    scale = torch.full((1,), float("nan"), device=dev)
+    ext = hx.hit_extents_cuda(cam, scene, aliasing=aliasing, compat=compat, vis=vis,
+                              scale=scale)
+    return scene, cam, vis, ext, scale
+
+
+@pytest.mark.parametrize("n", [24, 100, 1000])
+@pytest.mark.parametrize("aliasing", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+def test_shadow_list_kernel_is_its_plain_version(cuda_device, n, aliasing, compat):
+    scene, _, vis, ext, scale = _list_inputs(n, cuda_device, aliasing, compat)
+    L, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+    for K in (vis[2], 4):
+        sl.reset_launch_counts()
+        a = sl.shadow_lists_cuda(ext, scale, L, C, R, K=K, compat=compat)
+        b = sl.shadow_lists_cuda(ext, scale, L, C, R, K=K, compat=compat)
+        torch.cuda.synchronize()
+        assert sl.LAUNCHES["shadow_lists"] == 2
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+        want = ct.shadow_visibility_lists(ext, L, C, R, K=K, compat=compat)
+        assert torch.equal(a[1], want[1]), int((a[1] != want[1]).sum())
+        assert torch.equal(a[0], want[0]), int((a[0] != want[0]).sum())
+        assert bool((a[1] == 0).any()) or n == 1000          # sky rows keep nothing
+        if K == 4:
+            assert bool((a[1] == -1).any())
+
+
+@pytest.mark.parametrize("n", [100, 1000])
+@pytest.mark.parametrize("aliasing", [False, True])
+@pytest.mark.parametrize("compat", [True, False])
+def test_hit_extents_kernel_scale_and_repeats(cuda_device, n, aliasing, compat):
+    """The hit-extent kernel (a group of warps a tile) under extent_rule, its rows
+    and scale bit-identical over two runs, the scale extent_scale of its rows,
+    the rows with and without the scale buffer the same. The 100-sphere pose
+    has the horizon in view, so it is held to the rule in compat mode only
+    (test_hit_extents_kernel_matches_plain's convention)."""
+    pose = None if compat or n == 1000 else LARGE_POSES[24]
+    scene, cam, vis, ext, scale = _list_inputs(n, cuda_device, aliasing, compat, pose=pose)
+    scale2 = torch.full((1,), float("nan"), device=cuda_device)
+    again = hx.hit_extents_cuda(cam, scene, aliasing=aliasing, compat=compat, vis=vis,
+                                scale=scale2)
+    bare = hx.hit_extents_cuda(cam, scene, aliasing=aliasing, compat=compat, vis=vis)
+    torch.cuda.synchronize()
+    assert torch.equal(ext, again) and torch.equal(ext, bare) and torch.equal(scale, scale2)
+    assert torch.equal(scale, ct.extent_scale(ext).reshape(1))
+    rule = hx.extent_rule(ext, hx.hit_extents_plain(cam, scene, aliasing=aliasing,
+                                                    compat=compat, vis=vis))
+    assert rule["ok"], rule
+
+
+def test_list_pipeline_makes_no_host_sync(cuda_device):
+    """The render path's two launches, hit extents then lists, on packed
+    inputs: no host sync."""
+    scene, cam, vis, _, _ = _list_inputs(1000, cuda_device, True, True)
+    packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=True)
+    W, H = cam.resolution
+    n_tx, n_ty = ct.tile_grid(W, H)
+    L, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        scale = torch.empty(1, device=cuda_device)
+        ext = hx.launch(torch.empty((n_tx * n_ty, 8), device=cuda_device), *packed, W=W, H=H,
+                        aliasing=True, compat=True, n_levels=1, vis=vis, scale=scale)
+        idx, cnt = sl.shadow_lists_cuda(ext, scale, L, C, R, K=vis[2], compat=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = ct.shadow_visibility_lists(ext, L, C, R, K=vis[2], compat=True)
+    assert torch.equal(idx, want[0]) and torch.equal(cnt, want[1])
+
+
+@pytest.mark.parametrize("n", [100, 1000])
+@pytest.mark.parametrize("mode", MODES)
+def test_frames_with_the_list_kernel_equal_culls_off(cuda_device, n, mode):
+    """render_image_cuda with every cull on (one hit-extent and one list
+    launch a frame) against every cull off, bit for bit, in compat and clean
+    mode; the lists forced to K = 4 give the same frame."""
+    scene = _planted_scene(n, cuda_device)
+    cam = trt.Camera.build((320, 180), *LIST_POSES[n], device=cuda_device)
+    aa = mode != "aa_none"
+    for compat in (True, False):
+        kw = dict(depth=2, compat=compat, aliasing=aa, aa_share=mode == "aa_shared")
+        off = trt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+        hx.reset_launch_counts()
+        sl.reset_launch_counts()
+        on = trt.render_image_cuda(cam, scene, **kw, **CULLS["all"])
+        torch.cuda.synchronize()
+        assert hx.LAUNCHES["hit_extents"] == 1 and sl.LAUNCHES["shadow_lists"] == 1
+        assert torch.equal(on, off), (compat, int((on != off).any(-1).sum()))
+        tabs = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=aa,
+                                              compat=compat, K=4)
+        assert bool((tabs[1][1] == -1).any())
+        assert torch.equal(_render_tabs(cam, scene, mode, 2, compat, tabs), off)
