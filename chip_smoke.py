@@ -77,7 +77,14 @@ small-scene source). Every kernel's entry
 in the kernels line carries its bound (``utils/timing.py``: the FP32
 operations and bytes the function needs, over the H100's peak rates); the
 light-cell and list kernels have entries of their own beside the seven TPU
-kernels' (``replaces`` null: no TPU kernel builds such a table).
+kernels' (``replaces`` null: no TPU kernel builds such a table). Then the
+ray-parallel path (phase 22, :func:`parallel_phase`, ``[ray-par]``,
+``[repair]``, ``[animate]``): frames stitched from slices ``torch.equal`` to
+the whole frame, the fused steps' slice partials against the frame's, two
+ranks on the one card over gloo, the backward kernels at 7753 spheres and
+their global form against the staged one (the hard kernel's bits, the soft
+kernel's rule, and the times behind the planners' rules), and ``cli animate``;
+``python3 chip_smoke.py --phase 22`` runs it alone after the build.
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -86,10 +93,11 @@ failed phase raises. ``python3 chip_smoke.py --entry-times DIR`` runs phase
 ``git archive``, say): it calls only entry points whose signatures every tree
 of the port shares, so that two trees' times can be set side by side in one
 run on one card (each tree's own ``chip_smoke.py`` gives the rest).
-``python3 chip_smoke.py --ab-times DIR`` does the same for kernels 4 and 5
-(:func:`ab_times`: the four backward modes at the fit CLI's shapes, the soft
-forward at every tau with each frame's digest, the soft backward's digests,
-and ptxas's rows of the checkout's sources). The last
+``python3 chip_smoke.py --ab-times DIR`` does the same for kernels 1, 2, 4, 5
+and 6 (:func:`ab_times`: the four backward modes at the fit CLI's shapes, the
+soft forward at every tau with each frame's digest, the soft backward's
+digests, kernels 1, 2, 4 and 6 alone, and ptxas's rows of the checkout's
+sources). The last
 line of standard output is ``{"ok": true, "device": {...}}``; the line before
 it lists the kernels.
 
@@ -658,11 +666,12 @@ def backward_phases(torch, rt, card: str, dev) -> list:
 
 
 # The backward kernel's sources, whose ptxas rows [bwd-regs] prints.
-BWD_REG_SOURCES = ("render_bwd.cu", "render_bwd_small.cu", "soft_fwd.cu")
+BWD_REG_SOURCES = ("render_bwd.cu", "render_bwd_small.cu", "render_bwd_global.cu",
+                   "soft_fwd.cu")
 # [bwd-bounds]: the backward built with these minimums of resident blocks a
 # multiprocessor (render_bwd_kernel.cuh RT_BWD_MIN_BLOCKS) beside the package's.
 BWD_MIN_BLOCKS = (5, 6)
-BWD_BOUND_SOURCES = ("render_bwd.cu", "render_bwd_small.cu")
+BWD_BOUND_SOURCES = ("render_bwd.cu", "render_bwd_small.cu", "render_bwd_global.cu")
 
 
 def bwd_regs_start(csrc: str) -> dict:
@@ -1966,7 +1975,7 @@ def bounce_phase(torch, rt, card: str, dev, builds) -> list:
 
             def s2():
                 rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
-                                       npl, lts.data_ptr(), nl, out.data_ptr(), W, H, 2,
+                                       npl, lts.data_ptr(), nl, out.data_ptr(), W, H, W, 2,
                                        render_cuda.MODES.index("aa_shared"), 1, int(cheap), 1,
                                        *v, *sh, *g, *c2, stream)
                 check(rc == 0, f"aa_shared for tree shape {(leaf, fan)}: CUDA error {rc}")
@@ -2244,7 +2253,7 @@ def lightbuf_phase(torch, rt, card: str, dev, builds, fwd_regs) -> list:
 
             def s1():
                 rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
-                                       npl, lts.data_ptr(), nl, out.data_ptr(), W, H, 2,
+                                       npl, lts.data_ptr(), nl, out.data_ptr(), W, H, W, 2,
                                        render_cuda.MODES.index("aa_none"), 1, int(cheap), 1,
                                        *args, stream)
                 check(rc == 0, f"aa_none for light cells {shape}: CUDA error {rc}")
@@ -2290,7 +2299,7 @@ def lightbuf_phase(torch, rt, card: str, dev, builds, fwd_regs) -> list:
 
             def run():
                 rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(),
-                                       npl, lts.data_ptr(), nl, buf.data_ptr(), W, H, 2,
+                                       npl, lts.data_ptr(), nl, buf.data_ptr(), W, H, W, 2,
                                        render_cuda.MODES.index(mode), 1, int(cheap), 1,
                                        *args, stream)
                 check(rc == 0, f"{mode} without minimum blocks: CUDA error {rc}")
@@ -2468,7 +2477,8 @@ def ab_times(torch, rt, card: str, dev, label: str) -> None:
     soft fit's shifted centers), wrapper and device ms and a SHA-256 digest of
     each frame's bytes. ``[ab-softbwd]``: digests of both soft backward modes'
     gradients at tau 0.05 on those shapes. ``[bwd-regs]``: ptxas's rows of the
-    checkout's backward and soft forward sources."""
+    checkout's backward and soft forward sources. ``[ab-kernel]``:
+    :func:`ab_kernels`."""
     import hashlib
     from torch.profiler import ProfilerActivity, profile
     from python_ray_tracer_tpu_torch import cli
@@ -2541,7 +2551,520 @@ def ab_times(torch, rt, card: str, dev, label: str) -> None:
                                                            return_camera=True))
         print(f"[ab-softbwd] {label} {name} {res[0]}x{res[1]} tau=0.05: fused digest "
               f"{digest(fused)}, cotangent digest {digest(grads)}")
+    ab_kernels(torch, rt, card, dev, label)
     bwd_regs_print(regs, label)
+
+
+def ab_kernels(torch, rt, card: str, dev, label: str) -> None:
+    """``[ab-kernel]`` (part of :func:`ab_times`): kernels alone (CUDA events,
+    launches on inputs packed once) through a checkout's package, with
+    keywords every tree of the port shares: render ``aa_shared`` 1000x1000 and
+    ``aa_none`` 1080p on the demo scene, the hard fused steps at 1000x1000 d2
+    on the fit scene, and the fused soft backward at tau 0.05 on the demo
+    scene and 100 spheres, from the fit's shifted centers."""
+    from python_ray_tracer_tpu_torch import cli
+    from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb, render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    from python_ray_tracer_tpu_torch.ops.cuda.soft_cuda import render_image_soft_cuda
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+
+    def ms(fn, iters=30):
+        return 1e3 * rt.time_fn(fn, warmup=3, iters=iters)
+    out = []
+    demo = rt.default_scene(device=dev)
+    for mode, (W, H) in (("aa_shared", (1000, 1000)), ("aa_none", (1920, 1080))):
+        cam = rt.default_camera((W, H), device=dev)
+        buf = torch.empty((W, H, 3), device=dev)
+        prm = render_cuda.pack_params(cam, demo, True).to(dev)
+        tabs = render_cuda.scene_tables(demo)
+        out.append((f"render {mode} {W}x{H}", ms(lambda: render_cuda.launch(
+            buf, prm, tabs, counts(demo), depth=2, mode=mode, compat=True, cheap_shadow=True))))
+    fs = cli.fit_scene_two_spheres(RenderConfig(), dev)
+    shift = torch.tensor(cli.FIT_SHIFT, device=dev)
+    cam = rt.default_camera(FIT_RES, device=dev)
+    init = rt.Scene.from_leaves(fs.leaves())
+    init.spheres = rt.Spheres(fs.spheres.center + shift, fs.spheres.radius, fs.spheres.albedo)
+    prm = render_cuda.pack_params(cam, init, True).to(dev)
+    tabs = render_cuda.scene_tables(init)
+    for mode in ("fused_noaa", "fused_aa"):
+        aa = mode == "fused_aa"
+        tgt = rt.render_image_cuda(cam, fs, aliasing=aa)
+        img = rt.render_image_cuda(cam, init, aliasing=True) if aa else None
+        shape = rb.launch_plan(cam, init, mode)
+        n = rb.n_grads(*counts(fs), True)
+        o, part = torch.empty(n, device=dev), torch.empty(n * shape.blocks, device=dev)
+        out.append((f"backward {mode} {FIT_RES[0]}x{FIT_RES[1]} d2", ms(lambda: rb.launch(
+            o, part, prm, tabs, counts(fs), image=img, target=tgt, W=FIT_RES[0], H=FIT_RES[1],
+            depth=2, mode=mode, compat=True, cheap_shadow=True, shape=shape))))
+    for name, scene, (W, H) in (("demo", demo, FIT_RES),
+                                ("100 spheres", rt.random_scene(
+                                    100, generator=torch.Generator().manual_seed(0), device=dev),
+                                 (512, 512))):
+        cam = rt.default_camera((W, H), device=dev)
+        sc = rt.Scene.from_leaves(scene.leaves())
+        sc.spheres = rt.Spheres(scene.spheres.center + shift, scene.spheres.radius,
+                                scene.spheres.albedo)
+        tgt = render_image_soft_cuda(cam, scene, tau=0.05)
+        c = counts(scene)
+        shape = sb.plan(*c, True)
+        n = rb.n_grads(*c, True)
+        o, part = torch.empty(n, device=dev), torch.empty(n * sb.n_blocks(W, H, shape), device=dev)
+        prm = render_cuda.pack_params(cam, sc, False).to(dev)
+        tabs = render_cuda.scene_tables(sc)
+        out.append((f"soft fused {name} {W}x{H} tau 0.05", ms(lambda: sb.launch(
+            o, part, prm, tabs, c, image=tgt, W=W, H=H, tau=0.05, mode="fused", shape=shape),
+            iters=20)))
+    print(f"[ab-kernel] {label}: " + "; ".join(f"{k} {v:.4f} ms" for k, v in out) +
+          f" | {card}")
+
+
+# --- phase 22: the ray-parallel path ---------------------------------------------
+
+PAR_RES = (1000, 1000)            # the demo scene's slices: 2, 4 and 8 (125 wide)
+PAR_BIG = (1000, (1920, 1080), (2, 8))   # spheres, size, slices (960 and 240 wide)
+PAR_STEP_SLICES = 4               # slices of the fused steps held against the frame
+PAR_FIT_STEPS = 5                 # sharded fit_scene steps of the two-rank run
+REPAIR_NS = 7753                  # the largest scene the render takes (1 plane, 3 lights)
+REPAIR_RES = (64, 64)
+REPAIR_DEPTH = 1                  # the plain version's depth at 7753 spheres (its memory)
+# At 7753 spheres more pixels hold a near-tie hit or shadow decision than the
+# 0.1% that render_bwd_cuda.held_out takes out (22-140 of 4096 at 64x64 from
+# BENCH_POSE), and one grazing shadow decision can move one sphere's albedo
+# gradient by 0.3-0.5% while its pixel moves by less than 1e-5 (the plain
+# version in float32 and float64 agree there: the kernel's pinned arithmetic
+# decides the tie the other way). The repair check also holds out every pixel
+# whose kernel and plain renders differ by more than REPAIR_TIE: 16 float32
+# ulps at 1.0, ~20x their rounding differences.
+REPAIR_TIE = 2e-6
+REPAIR_SOFT_PIXELS = 3            # the soft check's cotangent: the strongest edges
+TIME_NS = (4000, 7753)            # the step times past the old limits
+# [repair-form]: scenes on each side of the hard planner's form bands
+# (render_bwd_cuda.plan; 1 plane, 3 lights) and the modes timed there
+FORM_HARD = ((1000, ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")), (1800, ("fused_noaa",)),
+             (2400, ("fused_noaa",)), (3000, ("fused_noaa", "fused_aa")), (4080, ("fused_noaa",)))
+
+
+def _par_rank(rank, port, q):
+    """One rank of phase 22's two-rank run on the one card (gloo): the frame
+    gathered from the ranks' slices, then PAR_FIT_STEPS sharded fit_scene
+    steps; rank 0 also renders the whole frame, runs the single-process fit
+    and times the all-reduce of the step's flat vector. Puts a dict."""
+    try:
+        sys.path.insert(0, ROOT)
+        import torch
+        import python_ray_tracer_tpu_torch as rt
+        from python_ray_tracer_tpu_torch import cli, train
+        from python_ray_tracer_tpu_torch.ops.cuda import _build, render_bwd_cuda as rb
+        from python_ray_tracer_tpu_torch.parallel import (distributed, gather_framebuffer,
+                                                          initialize, make_mesh,
+                                                          render_image_sharded)
+        from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+        _build.load_library()
+        dev = torch.device("cuda", 0)
+        initialize(f"tcp://localhost:{port}", world_size=2, rank=rank, backend="gloo")
+        mesh = make_mesh()
+        out = {"rank": rank, "size": mesh.size}
+        scene = rt.default_scene(device=dev)
+        cam = rt.default_camera(PAR_RES, device=dev)
+        frame = gather_framebuffer(render_image_sharded(cam, scene, mesh), mesh)
+        if rank == 0:
+            out["frame_equal"] = bool(torch.equal(frame, rt.render_image_cuda(cam, scene)))
+        fs = cli.fit_scene_two_spheres(RenderConfig(), dev)
+        fcam = rt.default_camera(FIT_RES, device=dev)
+        target = rt.render_image_cuda(fcam, fs, aliasing=False)
+        init = rt.Scene.from_leaves(fs.leaves())
+        init.spheres = rt.Spheres(fs.spheres.center + torch.tensor(cli.FIT_SHIFT, device=dev),
+                                  fs.spheres.radius, fs.spheres.albedo)
+        kw = dict(steps=PAR_FIT_STEPS, lr=1e-2, depth=2, trainable=("spheres.center",))
+        rb.reset_launch_counts()
+        distributed.reset_counts()
+        _, out["losses"] = train.fit_scene(init, fcam, target, mesh=mesh, **kw)
+        out["all_reduce"] = distributed.COLLECTIVES["all_reduce"]
+        out["fused_noaa"] = rb.LAUNCHES["fused_noaa"]
+        t = torch.zeros(rb.n_grads(2, 1, 2, True), device=dev)
+        torch.distributed.barrier()
+        for _ in range(3):
+            distributed.all_reduce_sum(t, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            distributed.all_reduce_sum(t, mesh)
+        torch.cuda.synchronize()
+        out["all_reduce_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+        if rank == 0:
+            _, out["single"] = train.fit_scene(init, fcam, target, **kw)
+        torch.distributed.destroy_process_group()
+        q.put(out)
+    except Exception as e:   # the parent fails the phase on it
+        import traceback
+        q.put({"rank": rank, "error": traceback.format_exc() or repr(e)})
+
+
+def _plain_chunked(torch, fn, width: int, chunk: int, g):
+    """A plain flat gradient as the sum of its column slices' (``fn(x0, lw,
+    g slice)``), chunk columns at a time: the plain version's memory at 7753
+    spheres."""
+    total = 0
+    for x0 in range(0, width, chunk):
+        lw = min(chunk, width - x0)
+        total = total + fn(x0, lw, g[x0:x0 + lw])
+    return total
+
+
+def parallel_phase(torch, rt, card: str, dev) -> None:
+    """Phase 22 (``[ray-par]``, ``[repair]``, ``[animate]``): frames stitched
+    from slices against the whole frame (``torch.equal``) in the three render
+    modes, on the demo scene at 1000x1000 over 2, 4 and 8 slices and at 1000
+    spheres 1080p over 2 and 8 with every cull on; the hard fused step (no AA,
+    AA) and the soft fused step: the partials of 4 slices summed against the
+    frame's (loss rel 1e-6, gradients under grad_rule / soft_grad_rule); two
+    ranks on the one card over gloo (the gathered frame, 5 sharded fit_scene
+    steps against the single-process fit, one all-reduce a step, the
+    all-reduce's time); times of the frame against the sum of its slices;
+    the repair: the backward kernels at 7753 spheres against their plain
+    versions, the global form against the staged one (bits hard, the rule
+    soft) and both timed on scenes on each side of the planners' rules
+    (``[repair-form]``), the
+    step at 4000 and 7753 spheres; and ``cli animate`` at 256x256, 24 frames,
+    against single renders."""
+    from python_ray_tracer_tpu_torch import animation, cli
+    from python_ray_tracer_tpu_torch.ops.cuda import (hit_extents_cuda, light_cells_cuda,
+                                                      render_bwd_cuda as rb, render_cuda,
+                                                      shadow_lists_cuda, soft_bwd_cuda as sb,
+                                                      soft_cuda)
+    from python_ray_tracer_tpu_torch.ops.render import render_image
+    from python_ray_tracer_tpu_torch.ops.soft import render_rays_soft
+    from python_ray_tracer_tpu_torch.parallel import make_mesh, render_image_sharded
+    from python_ray_tracer_tpu_torch.parallel.mesh import column_slice
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    wrappers = (render_cuda, hit_extents_cuda, shadow_lists_cuda, light_cells_cuda, rb, sb,
+                soft_cuda)
+
+    def reset():
+        for m in wrappers:
+            m.reset_launch_counts()
+
+    def launches():
+        return {k: v for m in wrappers for k, v in m.LAUNCHES.items() if v}
+
+    demo = rt.default_scene(device=dev)
+    big = rt.random_scene(PAR_BIG[0], generator=torch.Generator().manual_seed(0), device=dev)
+
+    # Slices against the whole frame (the main path of this phase: counts read after).
+    reset()
+    for label, scene, (W, H), ns in (("demo", demo, PAR_RES, (2, 4, 8)),
+                                     (f"{PAR_BIG[0]} spheres", big, PAR_BIG[1], PAR_BIG[2])):
+        cam = rt.default_camera((W, H), device=dev)
+        for mode in render_cuda.MODES:
+            kw = dict(aliasing=mode != "aa_none", aa_share=mode == "aa_shared")
+            whole = rt.render_image_cuda(cam, scene, **kw)
+            for n in ns:
+                st = torch.cat([render_image_sharded(cam, scene, make_mesh(size=n, rank=i), **kw)
+                                for i in range(n)])
+                eq = torch.equal(st, whole)
+                print(f"[ray-par] {label} {W}x{H} {mode}: {n} slices of {W // n} stitched, "
+                      f"torch.equal {eq}")
+                check(eq, f"{label} {mode}: {n} slices differ from the whole frame "
+                          f"(max {float((st - whole).abs().max())})")
+    got = launches()
+    print(f"[ray-par] launches of the slices' path: {got}")
+    for k in ("aa_none", "aa_per_sample", "aa_shared", "hit_extents", "shadow_lists",
+              "light_cells"):
+        check(any(v > 0 for kk, v in got.items() if kk == k), f"slices launched no {k}")
+
+    # Times: the whole frame against the sum of its 8 slices' (render).
+    for label, scene, (W, H) in (("demo", demo, PAR_RES), (f"{PAR_BIG[0]} spheres", big,
+                                                           PAR_BIG[1])):
+        cam = rt.default_camera((W, H), device=dev)
+        whole_ms = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, warmup=2, iters=10)
+        part = [1e3 * rt.time_fn(render_image_sharded, cam, scene, make_mesh(size=8, rank=i),
+                                 warmup=1, iters=5) for i in range(8)]
+        print(f"[ray-par-time] render aa_shared {label} {W}x{H}: whole frame {whole_ms:.4f} ms, "
+              f"8 slices {sum(part):.4f} ms summed (each {min(part):.4f}-{max(part):.4f}) | {card}")
+
+    # The fused steps: 4 slices' partials against the frame's.
+    fs = cli.fit_scene_two_spheres(RenderConfig(), dev)
+    fcam = rt.default_camera(FIT_RES, device=dev)
+    shift = torch.tensor(cli.FIT_SHIFT, device=dev)
+
+    def shifted(scene):
+        s = rt.Scene.from_leaves(scene.leaves())
+        s.spheres = rt.Spheres(scene.spheres.center + shift, scene.spheres.radius,
+                               scene.spheres.albedo)
+        return s
+
+    def step_case(label, fn, target, rule, cnt):
+        W = fcam.resolution[0]
+
+        def whole():
+            lo, g, c = fn(target, 0, W)
+            return rb.flatten_grads(g, c, lo)
+
+        def part(i):
+            x0, lw = column_slice(W, i, PAR_STEP_SLICES)
+            lo, g, c = fn(target[x0:x0 + lw].contiguous(), x0, lw)
+            return rb.flatten_grads(g, c, lo)
+        a = whole()
+        b = sum(part(i) for i in range(PAR_STEP_SLICES))
+        rel = abs(float(b[-1]) - float(a[-1])) / abs(float(a[-1]))
+        res = rule(b, a, *cnt)
+        worst = max(res.items(), key=lambda kv: kv[1][0])
+        print(f"[ray-par] {label}: loss {float(a[-1]):.8g}, {PAR_STEP_SLICES} slices "
+              f"{float(b[-1]):.8g} (rel {rel:.3g}); gradients ok "
+              f"{all(ok for _, ok in res.values())}, worst {worst[0]} {worst[1][0]:.3g}")
+        check(rel <= 1e-6, f"{label}: slices' loss rel {rel}")
+        check(all(ok for _, ok in res.values()), f"{label}: slices' gradients {res}")
+        whole_ms = 1e3 * rt.time_fn(whole, warmup=2, iters=10)
+        part_ms = [1e3 * rt.time_fn(part, i, warmup=1, iters=5) for i in range(PAR_STEP_SLICES)]
+        print(f"[ray-par-time] {label}: whole frame {whole_ms:.4f} ms, {PAR_STEP_SLICES} "
+              f"slices {sum(part_ms):.4f} ms summed | {card}")
+
+    init = shifted(fs)
+    for aa in (False, True):
+        target = rt.render_image_cuda(fcam, fs, aliasing=aa)
+        step_case(f"hard fused step, {'AA' if aa else 'no AA'}, {FIT_RES[0]}x{FIT_RES[1]} d2",
+                  lambda t, x0, lw, aa=aa: rb.loss_and_scene_grads_cuda(
+                      fcam, init, t, aliasing=aa, return_camera=True, x_offset=x0,
+                      local_width=lw), target, rb.grad_rule, counts(fs))
+    starget = soft_cuda.render_image_soft_cuda(fcam, demo, tau=0.05)
+    sinit = shifted(demo)
+    step_case(f"soft fused step, tau 0.05, demo {FIT_RES[0]}x{FIT_RES[1]}",
+              lambda t, x0, lw: sb.soft_loss_and_grads_cuda(
+                  fcam, sinit, t, tau=0.05, return_camera=True, x_offset=x0,
+                  local_width=lw), starget, sb.soft_grad_rule, counts(demo))
+    got = launches()
+    print(f"[ray-par] launches through phase 22's steps: {got}")
+    check(got.get("fused_noaa", 0) > 0 and got.get("fused_aa", 0) > 0 and
+          got.get("fused", 0) > 0, f"the sharded steps' kernels did not launch: {got}")
+
+    # Two ranks on the one card (gloo).
+    import socket
+    import torch.multiprocessing as mp
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    procs = [ctx.Process(target=_par_rank, args=(r, port, q)) for r in (0, 1)]
+    for p in procs:
+        p.start()
+    try:
+        res = sorted((q.get(timeout=600) for _ in procs), key=lambda r: r["rank"])
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    for r in res:
+        check("error" not in r, f"rank {r['rank']}: {r.get('error')}")
+    r0, r1 = res
+    rel = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], r0["single"]))
+    print(f"[ray-par] two ranks on one card (gloo): gathered frame torch.equal "
+          f"{r0['frame_equal']}; sharded fit losses {r0['losses']} vs single-process "
+          f"{r0['single']} (rel {rel:.3g}); all-reduces {r0['all_reduce']} / "
+          f"{r1['all_reduce']} in {PAR_FIT_STEPS} steps; fused_noaa launches "
+          f"{r0['fused_noaa']} / {r1['fused_noaa']}")
+    check(r0["frame_equal"], "the gathered frame differs from the whole frame")
+    check(r0["losses"] == r1["losses"], "the ranks' losses differ")
+    check(rel <= 1e-5, f"sharded fit losses rel {rel} off the single-process fit's")
+    check(r0["all_reduce"] == r1["all_reduce"] == PAR_FIT_STEPS, "not one all-reduce a step")
+    check(r0["fused_noaa"] == r1["fused_noaa"] == PAR_FIT_STEPS, "not one launch a step")
+    print(f"[ray-par-time] all-reduce of the step's {rb.n_grads(2, 1, 2, True)} floats: "
+          f"{r0['all_reduce_ms']:.4f} / {r1['all_reduce_ms']:.4f} ms (gloo between two "
+          f"processes on one card, host clock; says nothing of NCCL across cards) | {card}")
+
+    # The repair: the backward kernels past the staged size.
+    huge = rt.random_scene(REPAIR_NS, generator=torch.Generator().manual_seed(1), device=dev)
+    # outside the sphere cloud (the CLI's camera sits inside it at this density)
+    cam = rt.Camera.build(REPAIR_RES, *BENCH_POSE, device=dev)
+    W, H = REPAIR_RES
+    cnt = counts(huge)
+    for aa in (False, True):
+        mode = "cot_aa" if aa else "cot_noaa"
+        shape = rb.launch_plan(cam, huge, mode)
+        check(not shape.staged, f"{mode} at {REPAIR_NS} spheres planned staged: {shape}")
+        kw = dict(depth=REPAIR_DEPTH, aliasing=aa)
+        # past 5600 spheres the render takes no bounce tree (its own limit)
+        img_k = rt.render_image_cuda(cam, huge, group_cull=False, **kw)
+        with torch.no_grad():
+            img_p = torch.cat([render_image(cam, huge, x_offset=x0, local_width=8, **kw)
+                               for x0 in range(0, W, 8)])
+        held = (rb.held_out(img_k, img_p) |
+                ((img_k - img_p).abs().amax(-1) > REPAIR_TIE))[..., None]
+        g = seeded(torch, (W, H, 3), dev, 5) * 1e-2 * ~held
+        k = rb.flatten_grads(*rb.scene_grads_cuda(cam, huge, g.contiguous(),
+                                                  return_camera=True, **kw))
+        t0 = time.perf_counter()
+        p = _plain_chunked(torch, lambda x0, lw, gs: rb.scene_grads_plain(
+            cam, huge, gs, x_offset=x0, local_width=lw, **kw), W, 4 if aa else 16, g)
+        plain_s = time.perf_counter() - t0
+        res = rb.grad_rule(k, p, *cnt)
+        worst = max(res.items(), key=lambda kv: kv[1][0])
+        print(f"[repair] hard backward {mode} at {REPAIR_NS} spheres {W}x{H} d{REPAIR_DEPTH}: "
+              f"plan {shape}; against the plain version (column chunks, {plain_s:.1f} s; "
+              f"{int(held.sum())} pixels held out): ok {all(ok for _, ok in res.values())}, "
+              f"worst {worst[0]} {worst[1][0]:.3g}")
+        check(all(ok for _, ok in res.values()), f"{mode} at {REPAIR_NS} spheres: {res}")
+    sshape = sb.plan(*cnt, False)
+    check(not sshape.staged, f"soft cot at {REPAIR_NS} spheres planned staged: {sshape}")
+    # the soft frame's strongest edges: pixels with partial covers (elsewhere
+    # this dense cloud is opaque and in shadow, and the gradients are ~0)
+    simg = soft_cuda.render_image_soft_cuda(cam, huge, tau=0.05)
+    edge = torch.zeros((W, H), device=dev)
+    edge[:-1] += (simg[1:] - simg[:-1]).abs().sum(-1)
+    edge[:, :-1] += (simg[:, 1:] - simg[:, :-1]).abs().sum(-1)
+    pixels = [(i // H, i % H) for i in torch.topk(edge.reshape(-1), REPAIR_SOFT_PIXELS)
+              .indices.tolist()]
+    g = torch.zeros((W, H, 3), device=dev)
+    for i, (x, y) in enumerate(pixels):
+        g[x, y] = seeded(torch, (3,), dev, 20 + i) + 0.5
+    k = rb.flatten_grads(*sb.soft_scene_grads_cuda(cam, huge, g, tau=0.05, return_camera=True))
+    t0 = time.perf_counter()
+    p = 0
+    for x, y in pixels:
+        # one pixel's VJP: its ray alone (a column of 64 would not fit the card)
+        def objective(c, s, x=x, y=y):
+            d = c.ray_directions(torch.tensor([[float(x), float(y)]], device=dev),
+                                 compat=False)
+            rgb = render_rays_soft(c.ray_origin().expand(d.shape), d, s, tau=0.05)
+            return (rgb[0] * g[x, y]).sum(), None
+        p = p + rb._autograd_flat(cam, huge, objective)
+        torch.cuda.empty_cache()
+    plain_s = time.perf_counter() - t0
+    res = sb.soft_grad_rule(k, p, *cnt)
+    worst = max(res.items(), key=lambda kv: kv[1][0])
+    live = int((rb.grad_groups(k.double().cpu(), *cnt)["spheres.center"].abs().sum(1) > 0).sum())
+    print(f"[repair] soft backward cot at {REPAIR_NS} spheres {W}x{H}, cotangent on "
+          f"pixels {pixels} ({live} spheres with a gradient): plan {sshape}; against the plain version "
+          f"({plain_s:.1f} s): ok {all(ok for _, ok in res.values())}, worst {worst[0]} "
+          f"{worst[1][0]:.3g}")
+    check(all(ok for _, ok in res.values()), f"soft cot at {REPAIR_NS} spheres: {res}")
+
+    # The global form against the staged one on scenes both take (the hard
+    # kernel's bits, the soft kernel's rule) and the kernel-alone times behind
+    # the planners' rules, each plan timed in alternation (A, B, B, A).
+    def alternate(runs: dict, iters: int) -> dict:
+        ms = {k: [] for k in runs}
+        for k in list(runs) + list(runs)[::-1]:
+            ms[k].append(1e3 * rt.time_fn(runs[k], warmup=1, iters=iters))
+        return {k: min(v) for k, v in ms.items()}
+
+    def form(p):
+        return f"{'staged' if p.staged else 'global'} {p.nt} threads"
+
+    cam = rt.Camera.build((256, 256), *BENCH_POSE, device=dev)
+    for n_s, modes in FORM_HARD:
+        sc = rt.random_scene(n_s, generator=torch.Generator().manual_seed(2), device=dev)
+        cnt = counts(sc)
+        params = render_cuda.pack_params(cam, sc, True).to(dev)
+        tables = render_cuda.scene_tables(sc)
+        cheap = render_cuda.shadow_cheap_ok(sc, True)
+        cot = seeded(torch, (256, 256, 3), dev, 6) * 1e-2
+        tgt = rt.render_image_cuda(cam, sc, aliasing=False, group_cull=False) * 0.9
+        img_aa = rt.render_image_cuda(cam, sc, aliasing=True, group_cull=False)
+        for mode in modes:
+            fused = mode.startswith("fused")
+            chosen = rb.launch_plan(cam, sc, mode)
+            other = rb.launch_plan(cam, sc, mode, staged=not chosen.staged)
+            n = rb.n_grads(*cnt, fused)
+            image = img_aa if mode == "fused_aa" else (None if fused else cot)
+            # the bits: the staged plan and the global form at its very shape
+            sp = chosen if chosen.staged else other
+            twin = sp._replace(staged=False, smem=rb.smem_bytes(*cnt, fused, mode.endswith("_aa"),
+                                                                sp.nt, sp.cols, False))
+            runs, outs = {}, {}
+            for key, p in ((chosen.staged, chosen), (other.staged, other), ("twin", twin),
+                           ("sp", sp)):
+                o, part = torch.empty(n, device=dev), torch.empty(n * p.blocks, device=dev)
+                runs[key] = (lambda p=p, o=o, part=part: rb.launch(
+                    o, part, params, tables, cnt, image=image, target=tgt if fused else None,
+                    W=256, H=256, depth=2, mode=mode, compat=True, cheap_shadow=cheap, shape=p))
+            eq = torch.equal(runs["sp"]().clone(), runs["twin"]())
+            runs = {k: runs[k] for k in (True, False)}
+            ms = alternate(runs, 3 if n_s >= 3000 else 10)
+            print(f"[repair-form] hard {mode} d2, {n_s} spheres 256x256: planner's "
+                  f"{form(chosen)} {ms[chosen.staged]:.4f} ms, {form(other)} "
+                  f"{ms[other.staged]:.4f} ms (kernel and reduction alone, minima of 2 "
+                  f"alternating runs); global torch.equal to staged at {sp.nt} threads {eq} | "
+                  f"{card}")
+            check(eq, f"{mode} at {n_s} spheres: the global form differs from the staged form")
+    s100 = rt.random_scene(100, generator=torch.Generator().manual_seed(0), device=dev)
+    s1000 = rt.random_scene(1000, generator=torch.Generator().manual_seed(2), device=dev)
+    for label, base, res, iters in (("demo", demo, FIT_RES, 10), ("100 spheres", s100, (512, 512), 5),
+                                    ("1000 spheres", s1000, (64, 64), 2)):
+        cam = rt.default_camera(res, device=dev)
+        sc = shifted(base)
+        cnt = counts(sc)
+        params = render_cuda.pack_params(cam, sc, False).to(dev)
+        tables = render_cuda.scene_tables(sc)
+        stgt = soft_cuda.render_image_soft_cuda(cam, base, tau=0.05)
+        cot = seeded(torch, (*res, 3), dev, 7) * 1e-2
+        for mode in sb.MODES:
+            fused = mode == "fused"
+            chosen = sb.plan(*cnt, fused)
+            same = chosen._replace(staged=False, smem=sb.smem_bytes(
+                *cnt, fused, chosen.nt, chosen.cap, chosen.cj, chosen.store_vis, False))
+            own = sb.plan(*cnt, fused, staged=False)
+            n = rb.n_grads(*cnt, fused)
+            runs = {}
+            for name, p in (("staged", chosen), ("global", same), ("global, own plan", own)):
+                o = torch.empty(n, device=dev)
+                part = torch.empty(n * sb.n_blocks(*res, p), device=dev)
+                runs[name] = (lambda p=p, o=o, part=part: sb.launch(
+                    o, part, params, tables, cnt, image=stgt if fused else cot, W=res[0],
+                    H=res[1], tau=0.05, mode=mode, shape=p))
+            # nvcc contracts the two instantiations differently: the rule, not bits
+            a, b = runs["staged"]().clone(), runs["global"]()
+            rule = sb.soft_grad_rule(b, a, *cnt)
+            worst = max(rule.items(), key=lambda kv: kv[1][0])
+            ok = all(v for _, v in rule.values())
+            line = (f"[repair-form] soft {mode} tau 0.05, {label} {res[0]}x{res[1]}: plan "
+                    f"{chosen.nt} threads, cap {chosen.cap}, cj {chosen.cj}; global against "
+                    f"staged: torch.equal {torch.equal(a, b)}, max |d| "
+                    f"{float((a - b).abs().max()):.3g}, soft_grad_rule ok {ok} (worst "
+                    f"{worst[0]} {worst[1][0]:.3g})")
+            if fused:
+                ms = alternate(runs, iters)
+                line += (f"; staged {ms['staged']:.4f} ms, global {ms['global']:.4f} ms, "
+                         f"global with its own plan ({own.nt} threads, cap {own.cap}, cj "
+                         f"{own.cj}) {ms['global, own plan']:.4f} ms (kernel and reduction "
+                         f"alone, minima of 2 alternating runs)")
+            print(f"{line} | {card}")
+            check(ok, f"soft {mode}, {label}: the global form off the staged form: {rule}")
+
+    # Step times past the old limits (the planner's form).
+    for n_s in TIME_NS:
+        sc = rt.random_scene(n_s, generator=torch.Generator().manual_seed(2), device=dev)
+        for res in (REPAIR_RES, (256, 256)):
+            cam = rt.Camera.build(res, *BENCH_POSE, device=dev)
+            tgt = rt.render_image_cuda(cam, sc, aliasing=False, group_cull=False) * 0.9
+            shape = rb.launch_plan(cam, sc, "fused_noaa")
+            ms = 1e3 * rt.time_fn(rb.loss_and_scene_grads_cuda, cam, sc, tgt, warmup=1, iters=3)
+            print(f"[repair-time] hard fused_noaa step d2, {n_s} spheres {res[0]}x{res[1]} "
+                  f"({form(shape)}): {ms:.4f} ms | {card}")
+
+    # cli animate on the card, and its frames against single renders.
+    reset()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "orbit.gif")
+    check(cli.main(["animate", "--backend", "cuda", "--width", "256", "--height", "256",
+                    "--frames", "24", "--out", path]) == 0, "cli animate failed")
+    with open(path, "rb") as f:
+        head = f.read(6)
+    check(head == b"GIF89a" and os.path.getsize(path) > 0, f"{path}: not a GIF")
+    n_anim = render_cuda.LAUNCHES["aa_shared"]
+    cams = animation.orbit_cameras((256, 256), center=[1.0, 0.0, 1.0], radius=4.0,
+                                   height=1.5, n_frames=24, device=dev)
+    frames = animation.render_frames(cams, demo)
+    same = all(torch.equal(frames[k], rt.render_image_cuda(animation.frame_camera(cams, k), demo))
+               for k in range(24))
+    print(f"[animate] cli animate 256x256, 24 frames: {os.path.relpath(path, ROOT)} "
+          f"({os.path.getsize(path)} B), aa_shared launches {n_anim}; render_frames "
+          f"torch.equal to single renders on every frame: {same}")
+    check(n_anim >= 24 * 5, f"cli animate launched aa_shared {n_anim} times")
+    check(same, "render_frames differs from single renders")
 
 
 def main() -> int:
@@ -2552,7 +3075,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     if len(sys.argv) == 3 and sys.argv[1] in ("--entry-times", "--ab-times"):
-        # phase 20, or the A/B times of kernels 4 and 5, on another checkout's package
+        # phase 20 or the A/B times on another checkout's package
         root = os.path.abspath(sys.argv[2])
         sys.path.insert(0, root)
         import python_ray_tracer_tpu_torch as rt
@@ -2562,7 +3085,7 @@ def main() -> int:
             ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
             capture_output=True, text=True, check=True, timeout=60).stdout.strip()
         print(card)
-        fn = entry_times if sys.argv[1] == "--entry-times" else ab_times
+        fn = {"--entry-times": entry_times, "--ab-times": ab_times}[sys.argv[1]]
         fn(torch, rt, card, torch.device("cuda", 0), os.path.relpath(root, ROOT))
         print(f"[smoke] {sys.argv[1]} {root} in {time.perf_counter() - t_start:.1f} s")
         return 0
@@ -2588,6 +3111,10 @@ def main() -> int:
     so = _build.build()
     _build.load_library()
     print(f"[build] {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.1f} s")
+    if sys.argv[1:] == ["--phase", "22"]:   # the ray-parallel phase alone
+        parallel_phase(torch, rt, card, dev)
+        print(f"[smoke] phase 22 in {time.perf_counter() - t_start:.1f} s")
+        return 0
 
     def kernel(cam, scene, mode, depth, compat):
         return rt.render_image_cuda(cam, scene, depth=depth, compat=compat,
@@ -2729,7 +3256,9 @@ def main() -> int:
     kernels += lightbuf_phase(torch, rt, card, dev, builds, fwd_regs)
     t0 = phase_time("phase 21", t0)
     entry_times(torch, rt, card, dev, "this tree")
-    phase_time("phase 20", t0)
+    t0 = phase_time("phase 20", t0)
+    parallel_phase(torch, rt, card, dev)
+    phase_time("phase 22", t0)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

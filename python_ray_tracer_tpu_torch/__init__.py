@@ -12,9 +12,11 @@ and cameras with it. The soft-visibility renderer (``ops/soft.py``) has its
 forward and backward kernels (``csrc/soft_fwd.cu``, ``csrc/soft_bwd.cu``),
 ``render_image_soft_fast`` and ``train.fit_scene_soft``. Adaptive AA
 (``ops/adaptive.py``) traces the 9 samples of the flagged pixels only, through
-the worklist kernel (``render_image_adaptive_cuda``).
+the worklist kernel (``render_image_adaptive_cuda``). ``parallel`` shards
+renders and training steps by vertical slices over ``torch.distributed``;
+``animation`` renders camera trajectories.
 
-Entry point: ``python -m python_ray_tracer_tpu_torch.cli render|fit``.
+Entry point: ``python -m python_ray_tracer_tpu_torch.cli render|fit|animate``.
 """
 from .models.scene import (Scene, Spheres, Planes, Lights, Materials, default_scene,
                            random_scene, RED, GREEN, BLUE, YELLOW, GREY, MAGENTA)

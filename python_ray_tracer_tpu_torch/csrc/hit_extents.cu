@@ -51,9 +51,13 @@
 //     in the copy, which surface() does not read). chip_smoke.py and the card
 //     tests compare renders with the lists on and off bit for bit;
 //   * only positions an output pixel consumes may widen a box: alive at this
-//     level and every level before it, and inside [0, W-1] x [0, H-1] (the
-//     -0.5 column and the ragged edge are evaluated by the render kernel and
-//     thrown away);
+//     level and every level before it, and inside [0, Wg-1] x [0, H-1] in the
+//     frame's pixels (the -0.5 column and the ragged edge are evaluated by the
+//     render kernel and thrown away). A slice of a ray-parallel render
+//     (P_X0, Wg: render_fwd_kernel.cuh's head) walks its own tiles at the
+//     frame's positions and keeps the frame's bounds, as the TPU kernel does:
+//     a position past the slice's last column widens a box at most, and a
+//     wider box only lists more spheres;
 //   * min, max and an integer count are order-free, so the shuffles and the
 //     merge give the same bits on every run and for every group size; the
 //     scale is a max of non-negative floats, one atomicMax on their bits a
@@ -144,10 +148,10 @@ __device__ __forceinline__ void group_sync(int group) {
 template <bool COMPAT, bool AA, int TW, int LEVELS>
 __device__ __forceinline__ void trace_positions(const SceneView& s0, const SceneView& full,
                                                 const Tables& tb, int gl, float fx0,
-                                                float fy0, int W, int H, int n_levels,
+                                                float fy0, int Wg, int H, int n_levels,
                                                 float (&mn)[LEVELS][3], float (&mx)[LEVELS][3],
                                                 int (&cnt)[LEVELS]) {
-  const float x_max = static_cast<float>(W - 1), y_max = static_cast<float>(H - 1);
+  const float x_max = static_cast<float>(Wg - 1), y_max = static_cast<float>(H - 1);
   const int n_pos = AA ? N_SHARED : N_C;
   for (int q = gl; q < n_pos; q += TW * 32) {
     float px, py;
@@ -182,7 +186,7 @@ __global__ void __launch_bounds__(NT)
 hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                    int ns, const float* __restrict__ pln, int npl,
                    float* __restrict__ out, float* __restrict__ scale, int W, int H,
-                   int n_levels, TableArgs ta) {
+                   int Wg, int n_levels, TableArgs ta) {
   extern __shared__ float smem[];
   float* s_p = smem;
   float* s_pln = s_p + N_PARAMS;
@@ -233,17 +237,17 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
     }
     // the tile's corner pixel: tile = tx * n_ty + ty (render_fwd_kernel.cuh's
     // blockIdx.y * gridDim.x + blockIdx.x, blockIdx.y along x)
-    const float fx0 = static_cast<float>((tile / n_ty) * TILE);
+    const float fx0 = static_cast<float>((tile / n_ty) * TILE) + s_p[P_X0];
     const float fy0 = static_cast<float>((tile % n_ty) * TILE);
     // two calls, so that each sweep's loads know their memory (the gathered
     // slice in shared memory, or the whole scene)
     if (n_vis >= 0) {
       const SceneView listed{s_p, slice, n_vis, s_pln, npl, nullptr, 0};
-      trace_positions<COMPAT, AA, TW, LEVELS>(listed, full, tb, gl, fx0, fy0, W, H,
+      trace_positions<COMPAT, AA, TW, LEVELS>(listed, full, tb, gl, fx0, fy0, Wg, H,
                                               n_levels, mn, mx, cnt);
     } else {
-      trace_positions<COMPAT, AA, TW, LEVELS>(full, full, tb, gl, fx0, fy0, W, H, n_levels,
-                                              mn, mx, cnt);
+      trace_positions<COMPAT, AA, TW, LEVELS>(full, full, tb, gl, fx0, fy0, Wg, H,
+                                              n_levels, mn, mx, cnt);
     }
 
     // the warp's share: every lane ends with its min, max and count; one warp
@@ -315,8 +319,8 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
 
 template <bool COMPAT, bool AA, bool BOUNCES>
 cudaError_t launch_levels(const float* params, const float* sph, int ns, const float* pln,
-                          int npl, float* out, float* scale, int W, int H, int n_levels,
-                          const TableArgs& ta, cudaStream_t stream) {
+                          int npl, float* out, float* scale, int W, int H, int Wg,
+                          int n_levels, const TableArgs& ta, cudaStream_t stream) {
   const auto kernel = hit_extents_kernel<COMPAT, AA, BOUNCES>;
   constexpr int TW = tile_warps<AA>(), GROUPS = HX_WARPS / TW;
   const size_t smem = sizeof(float) * (N_PARAMS + 9 * static_cast<size_t>(npl) +
@@ -337,19 +341,19 @@ cudaError_t launch_levels(const float* params, const float* sph, int ns, const f
     return e;
   }
   kernel<<<static_cast<unsigned>(grid), NT, smem, stream>>>(params, sph, ns, pln, npl, out,
-                                                            scale, W, H, n_levels, ta);
+                                                            scale, W, H, Wg, n_levels, ta);
   return cudaGetLastError();
 }
 
 template <bool COMPAT, bool AA>
 cudaError_t launch(const float* params, const float* sph, int ns, const float* pln,
-                   int npl, float* out, float* scale, int W, int H, int n_levels,
+                   int npl, float* out, float* scale, int W, int H, int Wg, int n_levels,
                    const TableArgs& ta, cudaStream_t stream) {
   return n_levels > 1
              ? launch_levels<COMPAT, AA, true>(params, sph, ns, pln, npl, out, scale, W, H,
-                                               n_levels, ta, stream)
+                                               Wg, n_levels, ta, stream)
              : launch_levels<COMPAT, AA, false>(params, sph, ns, pln, npl, out, scale, W, H,
-                                                n_levels, ta, stream);
+                                                Wg, n_levels, ta, stream);
 }
 
 }  // namespace
@@ -357,7 +361,9 @@ cudaError_t launch(const float* params, const float* sph, int ns, const float* p
 extern "C" {
 
 // Hit extents of a W x H render into out (n_tiles * n_levels, 8) float32 on
-// `stream`, tiles of 16x16 pixels numbered x tiles outermost. params, sph and
+// `stream`, tiles of 16x16 pixels numbered x tiles outermost: the slice
+// [params[P_X0], params[P_X0] + W) of a frame Wg columns wide, as for
+// rt_render_fwd (Wg == W for a whole frame). params, sph and
 // pln as for rt_render_fwd. scale (1 float, or null): receives the largest
 // |coordinate| of the rows with hits (0 if none). aliasing: walk the 3x3 AA
 // lattice (the four shared grids) instead of the pixel centers. vis_idx /
@@ -366,14 +372,15 @@ extern "C" {
 // (rt_common.cuh Tables; null: none; not staged when n_levels is 1, where no
 // ray reads it). Returns cudaGetLastError() after the launch (0 on success).
 int rt_hit_extents(const float* params, const float* sph, int ns, const float* pln,
-                   int npl, float* out, float* scale, int W, int H, int n_levels,
+                   int npl, float* out, float* scale, int W, int H, int Wg, int n_levels,
                    int aliasing, int compat, const int* vis_idx, const int* vis_cnt,
                    int vis_k, const int* perm, const float* box, int n_leaves,
                    void* stream) {
   const bool bounces = n_levels > 1;
   const TableArgs ta{vis_idx, vis_cnt, vis_k, nullptr, nullptr, 0,
                      bounces ? perm : nullptr, box, n_leaves};
-  if (W <= 0 || H <= 0 || ns < 0 || npl < 0 || n_levels < 1 || n_levels > MAX_LEVELS ||
+  if (W <= 0 || H <= 0 || Wg < W || ns < 0 || npl < 0 || n_levels < 1 ||
+      n_levels > MAX_LEVELS ||
       static_cast<long>((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE) > (1L << 30) ||
       !tables_ok(ta)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -381,14 +388,14 @@ int rt_hit_extents(const float* params, const float* sph, int ns, const float* p
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (compat) {
-    e = aliasing ? launch<true, true>(params, sph, ns, pln, npl, out, scale, W, H, n_levels,
-                                      ta, st)
-                 : launch<true, false>(params, sph, ns, pln, npl, out, scale, W, H, n_levels,
-                                       ta, st);
+    e = aliasing ? launch<true, true>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
+                                      n_levels, ta, st)
+                 : launch<true, false>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
+                                       n_levels, ta, st);
   } else {
-    e = aliasing ? launch<false, true>(params, sph, ns, pln, npl, out, scale, W, H, n_levels,
-                                       ta, st)
-                 : launch<false, false>(params, sph, ns, pln, npl, out, scale, W, H,
+    e = aliasing ? launch<false, true>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
+                                       n_levels, ta, st)
+                 : launch<false, false>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
                                         n_levels, ta, st);
   }
   return static_cast<int>(e);

@@ -1,7 +1,8 @@
 // The backward kernel for large scenes (render_bwd_kernel.cuh in rt_common.cuh's
 // pinned arithmetic, the render kernel's for such scenes; per-warp rows, at
-// depths 0-3 and the general depth), the entry point of both halves, and the
-// second-stage reduction that every backward kernel of the library shares.
+// depths 0-3 and the general depth; the staged form, render_bwd_global.cu the
+// global one), the entry point of every part, and the second-stage reduction
+// that every backward kernel of the library shares.
 
 #include "render_bwd_kernel.cuh"
 
@@ -30,8 +31,10 @@ reduce_rows_kernel(const float* __restrict__ partial, int n_rows, float* __restr
 
 extern "C" {
 
-// The small-scene kernels (render_bwd_small.cu); arguments checked here.
+// The small-scene kernels (render_bwd_small.cu) and the global form of this
+// file's (render_bwd_global.cu); arguments checked here.
 int rt_render_bwd_small(const BwdJob* job, int compat, int cheap_shadow, int cols);
+int rt_render_bwd_global(const BwdJob* job, int compat, int cheap_shadow);
 
 // Launch the backward kernel on `stream`: n_rows blocks of nt threads (32, 64
 // or 128) walk the image's 16x16 tiles (block b takes tiles b, b + n_rows,
@@ -43,30 +46,36 @@ int rt_render_bwd_small(const BwdJob* job, int compat, int cheap_shadow, int col
 // may be null. n_grads = 7 ns + 9 npl + 3 nl + 18, + 1 in the fused modes.
 // large_scene: the scene is one the render kernel draws with its large-scene
 // instantiations (rt_render_fwd), so this file's pinned kernels recompute it;
-// else render_bwd_small.cu's do. Returns cudaGetLastError() after the launch.
+// else render_bwd_small.cu's do. staged: the block copies the sphere table
+// into shared memory; 0 takes the global form (large scenes, rows only;
+// render_bwd_kernel.cuh's head). W x H: the slice [params[P_X0],
+// params[P_X0] + W) of a frame Wg columns wide (Wg == W for a whole frame),
+// img and target the slice's; the loss's denominator is 3 Wg H. Returns
+// cudaGetLastError() after the launch.
 int rt_render_bwd(const float* params, const float* sph, int ns, const float* pln,
                   int npl, const float* lts, int nl, const float* img,
                   const float* target, float* partial, int n_rows, int n_grads,
-                  int W, int H, int depth, int mode, int compat, int cheap_shadow,
-                  int large_scene, int nt, int cols, void* stream) {
+                  int W, int H, int Wg, int depth, int mode, int compat, int cheap_shadow,
+                  int large_scene, int nt, int cols, int staged, void* stream) {
   const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
   const bool aa = mode == COT_AA || mode == FUSED_AA;
   const long long n_tiles =
       static_cast<long long>((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE);
-  if (W <= 0 || H <= 0 || depth < 0 || depth > MAX_DEPTH || ns < 0 || npl < 0 ||
+  if (W <= 0 || H <= 0 || Wg < W || depth < 0 || depth > MAX_DEPTH || ns < 0 || npl < 0 ||
       nl < 0 || mode < COT_NOAA || mode > FUSED_AA ||
       n_grads != 7 * ns + 9 * npl + 3 * nl + 18 + (fused ? 1 : 0) ||
       n_rows < 1 || n_rows > n_tiles || !(nt == 32 || nt == 64 || nt == 128) ||
-      (cols && large_scene) ||
-      sizeof(float) * bwd_smem_words(ns, npl, nl, n_grads, aa, nt, cols != 0) >
-          static_cast<size_t>(227 * 1024) ||
+      (cols && large_scene) || (!staged && (cols || !large_scene)) ||
+      sizeof(float) * bwd_smem_words(ns, npl, nl, n_grads, aa, nt, cols != 0,
+                                     staged != 0) > static_cast<size_t>(227 * 1024) ||
       (mode != FUSED_NOAA && img == nullptr) || (fused && target == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BwdJob job{params, sph, ns, pln, npl, lts, nl, img, target, partial,
                    n_rows, W, H, depth, mode, n_grads, nt,
-                   static_cast<cudaStream_t>(stream)};
+                   static_cast<cudaStream_t>(stream), Wg};
   if (!large_scene) return rt_render_bwd_small(&job, compat, cheap_shadow, cols);
+  if (!staged) return rt_render_bwd_global(&job, compat, cheap_shadow);
   return static_cast<int>(dispatch_depth<false>(compat != 0, cheap_shadow != 0, job));
 }
 

@@ -82,19 +82,42 @@
 // 32 threads), else per-warp rows (128, 64, 32 threads); BLOCKS_PER_SM blocks
 // (4; fewer where their shared memory does not fit an SM) on each SM, at most
 // one a tile. Shared memory a block:
-//   4 B x (41 + 7 ns + 9 npl + 3 nl              the scene
+//   4 B x (41 + 7 ns + 9 npl + 3 nl              the scene (7 ns: staged form)
 //          + 6 x 256 with AA                     a tile's pixel cotangents
 //          + COLS: n_grads x nt                  every slot's columns
 //            ROWS: nwarps x (n_grads - 18 - fused) + (18 + fused) x nt)
+// The staged form (G false) copies the sphere table into shared memory at
+// block start. The global form (G, large scenes only, render_bwd_global.cu)
+// reads the view's sphere table where it lies in device memory, through the
+// read-only cache (rt_common.cuh sph_at), and the block keeps only the
+// parameters, planes, lights, cotangents and its gradient rows; that reaches
+// 8208 spheres (7989 with AA) at 1 plane and 3 lights, past the 7753 the
+// render kernel takes, where the staged form stops at 4104 (3994). The
+// planner takes the most threads a block that either form fits, staged where
+// both do (render_bwd_cuda.plan: on the card the global form is slower at the
+// same threads and faster at twice the staged form's). At 1 plane and 3
+// lights without AA that is 128 threads staged up to 1587 spheres, then
+// global up to 1983, 64 staged up to 2704, then global up to 4057, 32 staged
+// up to 4101, then global. Both forms read the same floats in the same
+// order, so their gradients are the same bits.
+//
+// Slices (ray-parallel sharding): a launch reverse-sweeps columns [P_X0, P_X0
+// + W) of a frame Wg columns wide, as render_fwd_kernel.cuh renders them:
+// tiles, pixel bounds and pad pixels are the slice's (local x), the rays, the
+// AA lattice's positions and the border ring's test the frame's (global x),
+// and the fused modes' loss and cotangents have the frame's denominator
+// 3 Wg H, so the slices' partial sums add up to the frame's.
 // The one-launch fused AA step is later work.
 //
-// This header holds the kernel and its launch. Two source files include it
+// This header holds the kernel and its launch. Three source files include it
 // once each, after choosing rt_common.cuh's arithmetic, as the render kernel's
 // two halves do: render_bwd_small.cu (contracted; COLS at depths 0-3 and the
 // general depth, ROWS at the general depth) for scenes the render kernel draws
 // without tables, render_bwd.cu (pinned; ROWS at depths 0-3 and the general
 // depth) for large scenes, so that the recomputed chain decides each hit as
-// the forward did.
+// the forward did, and render_bwd_global.cu (pinned; the global form of
+// render_bwd.cu's kernels, compiled beside it). A scene small enough for the
+// contracted kernels always fits the staged form.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -418,8 +441,8 @@ __device__ __forceinline__ void bwd_trace(const SceneView& s, const Slots& sl,
   if (act && !h.plane) {
     // t from f(t) = a t^2 + b t + c = 0: dt = -(t^2 da + t db + dc) / (2at + b)
     const int j = rs.obj, ns = s.ns;
-    const float cx = s.sph[j], cy = s.sph[ns + j], cz = s.sph[2 * ns + j];
-    const float r = s.sph[3 * ns + j];
+    const float cx = sph_at(s, j), cy = sph_at(s, ns + j), cz = sph_at(s, 2 * ns + j);
+    const float r = sph_at(s, 3 * ns + j);
     const float ox = rs.ox, oy = rs.oy, oz = rs.oz;
     const float a = dx * dx + dy * dy + dz * dz;
     const float od = ox * dx + oy * dy + oz * dz;
@@ -542,25 +565,26 @@ __device__ __forceinline__ void sample(const SceneView& s, const Slots& sl,
   tail[4 * nt] += ma.shin;
 }
 
-// Shared-memory words of one block (render_bwd_cuda.smem_bytes / 4).
-inline size_t bwd_smem_words(int ns, int npl, int nl,
-                                                          int n_grads, bool aa, int nt,
-                                                          bool cols) {
+// Shared-memory words of one block (render_bwd_cuda.smem_bytes / 4); the
+// global form (staged false) leaves the sphere table out.
+inline size_t bwd_smem_words(int ns, int npl, int nl, int n_grads, bool aa, int nt,
+                             bool cols, bool staged = true) {
   const size_t mat = 7 * static_cast<size_t>(ns) + 9 * static_cast<size_t>(npl) +
                      3 * static_cast<size_t>(nl);
   const size_t tail = static_cast<size_t>(n_grads) - mat;
-  return N_PARAMS + mat + (aa ? COT_WORDS : 0) +
+  return N_PARAMS + mat - (staged ? 0 : 7 * static_cast<size_t>(ns)) +
+         (aa ? COT_WORDS : 0) +
          (cols ? static_cast<size_t>(n_grads) * nt
                : static_cast<size_t>(nt / 32) * mat + tail * nt);
 }
 
-template <bool COMPAT, bool CHEAP, bool COLS, int D>
+template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G>
 __global__ void __launch_bounds__(MAX_NT, RT_BWD_MIN_BLOCKS)
 render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                   int ns, const float* __restrict__ pln, int npl,
                   const float* __restrict__ lts, int nl, const float* __restrict__ img,
                   const float* __restrict__ target, float* __restrict__ partial,
-                  int W, int H, int depth, int mode) {
+                  int W, int H, int Wg, int depth, int mode) {
   const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
   const bool aa = mode == COT_AA || mode == FUSED_AA;
   const Slots sl(ns, npl, nl, fused);
@@ -568,8 +592,8 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   const int n_tail = sl.n - sl.mat;
   extern __shared__ float smem[];
   float* s_p = smem;
-  float* s_sph = s_p + N_PARAMS;
-  float* s_pln = s_sph + 7 * ns;
+  float* s_sph = s_p + N_PARAMS;                 // the staged form's sphere table
+  float* s_pln = s_sph + (G ? 0 : 7 * ns);
   float* s_lts = s_pln + 9 * npl;
   float* s_cot = s_lts + 3 * nl;                 // AA: centre, then neighbour cotangents
   float* s_acc = s_cot + (aa ? COT_WORDS : 0);
@@ -577,23 +601,28 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   // slots, then the tail slots' columns.
   const int acc_words = COLS ? sl.n * nt : nwarps * sl.mat + n_tail * nt;
   for (int i = tid; i < N_PARAMS; i += nt) s_p[i] = params[i];
-  for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
+  if (!G) {
+    for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
+  }
   for (int i = tid; i < 9 * npl; i += nt) s_pln[i] = pln[i];
   for (int i = tid; i < 3 * nl; i += nt) s_lts[i] = lts[i];
   for (int i = tid; i < acc_words; i += nt) s_acc[i] = 0.0f;
   __syncthreads();
-  const SceneView s{s_p, s_sph, ns, s_pln, npl, s_lts, nl};
+  const SceneView s{s_p, G ? sph : s_sph, ns, s_pln, npl, s_lts, nl, G};
   const Sink<COLS> out{COLS ? s_acc + tid : s_acc + (tid >> 5) * sl.mat, nt, lane};
   float* tail = COLS ? s_acc + sl.mat * nt + tid : s_acc + nwarps * sl.mat + tid;
 
-  const float inv_denom = static_cast<float>(1.0 / (3.0 * W * static_cast<double>(H)));
-  const float two_inv = static_cast<float>(2.0 / (3.0 * W * static_cast<double>(H)));
+  // the frame's denominator; x0g: the slice's first column in the frame
+  const float inv_denom = static_cast<float>(1.0 / (3.0 * Wg * static_cast<double>(H)));
+  const float two_inv = static_cast<float>(2.0 / (3.0 * Wg * static_cast<double>(H)));
   const float inv9 = static_cast<float>(1.0 / 9.0);
+  const int x0g = static_cast<int>(s_p[P_X0]);
   const int n_ty = (H + TILE - 1) / TILE;
   const int n_tiles = ((W + TILE - 1) / TILE) * n_ty;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int x0 = tile / n_ty * TILE, y0 = tile % n_ty * TILE;   // x tiles outermost
-    const float fx0 = static_cast<float>(x0), fy0 = static_cast<float>(y0);
+    // local tile corner (x0, y0), x tiles outermost; fx0: its global x
+    const int x0 = tile / n_ty * TILE, y0 = tile % n_ty * TILE;
+    const float fx0 = static_cast<float>(x0) + s_p[P_X0], fy0 = static_cast<float>(y0);
     if (aa) {
       // The tile's pixel cotangents (and, fused, the loss): the centre
       // sample's share (weight 1/9 inside the border ring, 1 on it; compat's
@@ -612,7 +641,7 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
           } else {
             g0 = img[pix]; g1 = img[pix + 1]; g2 = img[pix + 2];
           }
-          interior = x >= 1 && x <= W - 2 && y >= 1 && y <= H - 2;
+          interior = x0g + x >= 1 && x0g + x <= Wg - 2 && y >= 1 && y <= H - 2;
         }
         const float wc = interior ? inv9 : 1.0f;
         s_cot[p] = wc * g0;
@@ -666,7 +695,7 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
       } else {
         const int x = x0 + q / TILE, y = y0 + q % TILE;
         fwd = x < W && y < H;
-        px = static_cast<float>(x) + s_p[P_OFFS];
+        px = (static_cast<float>(x) + s_p[P_X0]) + s_p[P_OFFS];
         py = static_cast<float>(y) + s_p[P_OFFS + 1];
         if (fwd) {
           pix = (static_cast<size_t>(x) * H + y) * 3;
@@ -686,7 +715,7 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
 
   // The block's partial column: each slot reduced once, in a fixed order.
   __syncthreads();
-  const size_t G = gridDim.x;
+  const size_t n_blk = gridDim.x;
   const int warp = tid >> 5;
   float* col0 = s_acc + (COLS ? 0 : nwarps * sl.mat);
   const int k0 = COLS ? 0 : sl.mat;
@@ -694,7 +723,7 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
     for (int k = tid; k < sl.mat; k += nt) {
       float v = 0.0f;
       for (int wp = 0; wp < nwarps; ++wp) v += s_acc[wp * sl.mat + k];
-      partial[static_cast<size_t>(k) * G + blockIdx.x] = v;
+      partial[static_cast<size_t>(k) * n_blk + blockIdx.x] = v;
     }
   }
   for (int k = k0 + warp; k < sl.n; k += nwarps) {
@@ -702,7 +731,7 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
     float v = 0.0f;
     for (int wp = 0; wp < nwarps; ++wp) v += c[wp * 32 + lane];
     if (__any_sync(FULL, v != 0.0f)) v = warp_sum(v);
-    if (lane == 0) partial[static_cast<size_t>(k) * G + blockIdx.x] = v;
+    if (lane == 0) partial[static_cast<size_t>(k) * n_blk + blockIdx.x] = v;
   }
 }
 
@@ -720,43 +749,46 @@ struct BwdJob {
   float* partial;
   int n_rows, W, H, depth, mode, n_grads, nt;
   cudaStream_t stream;
+  int Wg;   // the frame's width; W is the slice's
 };
 
-template <bool COMPAT, bool CHEAP, bool COLS, int D>
+template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G>
 cudaError_t launch_job(const BwdJob& j) {
   const bool aa = j.mode == COT_AA || j.mode == FUSED_AA;
   const size_t smem =
-      sizeof(float) * bwd_smem_words(j.ns, j.npl, j.nl, j.n_grads, aa, j.nt, COLS);
+      sizeof(float) * bwd_smem_words(j.ns, j.npl, j.nl, j.n_grads, aa, j.nt, COLS, !G);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        render_bwd_kernel<COMPAT, CHEAP, COLS, D>,
+        render_bwd_kernel<COMPAT, CHEAP, COLS, D, G>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  render_bwd_kernel<COMPAT, CHEAP, COLS, D><<<j.n_rows, j.nt, smem, j.stream>>>(
+  render_bwd_kernel<COMPAT, CHEAP, COLS, D, G><<<j.n_rows, j.nt, smem, j.stream>>>(
       j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.img, j.target, j.partial, j.W, j.H,
-      j.depth, j.mode);
+      j.Wg, j.depth, j.mode);
   return cudaGetLastError();
 }
 
-// The instantiation for (compat, cheap) at depth D.
-template <bool COLS, int D>
+// The instantiation for (compat, cheap) at depth D; G: the global form.
+template <bool COLS, int D, bool G = false>
 cudaError_t dispatch_arith(bool compat, bool cheap, const BwdJob& j) {
   if (compat) {
-    return cheap ? launch_job<true, true, COLS, D>(j) : launch_job<true, false, COLS, D>(j);
+    return cheap ? launch_job<true, true, COLS, D, G>(j)
+                 : launch_job<true, false, COLS, D, G>(j);
   }
-  return cheap ? launch_job<false, true, COLS, D>(j) : launch_job<false, false, COLS, D>(j);
+  return cheap ? launch_job<false, true, COLS, D, G>(j)
+               : launch_job<false, false, COLS, D, G>(j);
 }
 
 // Depths 0-3 take their own instantiation, the others the general one.
-template <bool COLS>
+template <bool COLS, bool G = false>
 cudaError_t dispatch_depth(bool compat, bool cheap, const BwdJob& j) {
   switch (j.depth) {
-    case 0: return dispatch_arith<COLS, 0>(compat, cheap, j);
-    case 1: return dispatch_arith<COLS, 1>(compat, cheap, j);
-    case 2: return dispatch_arith<COLS, 2>(compat, cheap, j);
-    case 3: return dispatch_arith<COLS, 3>(compat, cheap, j);
-    default: return dispatch_arith<COLS, -1>(compat, cheap, j);
+    case 0: return dispatch_arith<COLS, 0, G>(compat, cheap, j);
+    case 1: return dispatch_arith<COLS, 1, G>(compat, cheap, j);
+    case 2: return dispatch_arith<COLS, 2, G>(compat, cheap, j);
+    case 3: return dispatch_arith<COLS, 3, G>(compat, cheap, j);
+    default: return dispatch_arith<COLS, -1, G>(compat, cheap, j);
   }
 }
 

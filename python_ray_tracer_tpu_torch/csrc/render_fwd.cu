@@ -9,9 +9,12 @@ extern "C" {
 // The small-scene instantiations (render_fwd_small.cu); arguments checked here.
 int rt_render_fwd_small(const float* params, const float* sph, int ns, const float* pln,
                         int npl, const float* lts, int nl, float* out, int W, int H,
-                        int depth, int mode, int compat, int cheap_shadow, void* stream);
+                        int Wg, int depth, int mode, int compat, int cheap_shadow,
+                        void* stream);
 
-// Render a W x H image into out (W, H, 3) float32 on `stream`. params holds
+// Render a W x H image into out (W, H, 3) float32 on `stream`: columns
+// [params[P_X0], params[P_X0] + W) of a frame Wg columns wide (Wg == W and
+// P_X0 0 for a whole frame; render_fwd_kernel.cuh's head). params holds
 // N_PARAMS floats; sph/pln/lts are the (7,ns)/(9,npl)/(3,nl) SoA tables, all
 // device pointers. mode: 0 no AA, 1 per-sample AA, 2 shared-sample AA.
 // large_scene selects this file's instantiations, which read the large-scene
@@ -26,7 +29,7 @@ int rt_render_fwd_small(const float* params, const float* sph, int ns, const flo
 // tables must be null.
 // Returns cudaGetLastError() after the launch (0 on success).
 int rt_render_fwd(const float* params, const float* sph, int ns, const float* pln,
-                  int npl, const float* lts, int nl, float* out, int W, int H,
+                  int npl, const float* lts, int nl, float* out, int W, int H, int Wg,
                   int depth, int mode, int compat, int cheap_shadow, int large_scene,
                   const int* vis_idx, const int* vis_cnt, int vis_k,
                   const int* sh_idx, const int* sh_cnt, int sh_k,
@@ -35,17 +38,17 @@ int rt_render_fwd(const float* params, const float* sph, int ns, const float* pl
                   void* stream) {
   const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
                      lc_idx, lc_cnt, lc_hdr};
-  if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 ||
+  if (W <= 0 || H <= 0 || Wg < W || depth < 0 || ns < 0 || npl < 0 || nl < 0 ||
       (W + TILE - 1) / TILE > 65535 || !tables_ok(ta) ||
       (!large_scene && (vis_idx || sh_idx || perm || lc_idx))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!large_scene) {
-    return rt_render_fwd_small(params, sph, ns, pln, npl, lts, nl, out, W, H, depth, mode,
-                               compat, cheap_shadow, stream);
+    return rt_render_fwd_small(params, sph, ns, pln, npl, lts, nl, out, W, H, Wg, depth,
+                               mode, compat, cheap_shadow, stream);
   }
   const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth, ta,
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream), Wg};
   return static_cast<int>(dispatch<true>(mode, compat != 0, cheap_shadow != 0, j));
 }
 
@@ -89,7 +92,7 @@ int rt_render_list(const float* params, const float* sph, int ns, const float* p
                                 W, H, depth, compat, cheap_shadow, stream);
   }
   const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth, ta,
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream), W};
   return static_cast<int>(dispatch_list<true>(compat != 0, cheap_shadow != 0, j, idx,
                                               flagged, K));
 }

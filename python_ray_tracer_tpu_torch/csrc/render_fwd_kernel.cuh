@@ -53,6 +53,16 @@
 // `<` (the reference's `<=` bound reads out of bounds; see the README's
 // divergence ledger, item 1).
 //
+// Slices (ray-parallel sharding): a launch renders columns [P_X0, P_X0 + W)
+// of a frame Wg columns wide. Grid, tiles, output and the ragged-edge mask are
+// the slice's own (local x); rays, the AA lattice's positions and the border
+// ring's test are the frame's (global x = P_X0 + local x, exact in float32).
+// Tile corners then sit at P_X0 + 16 k instead of 16 k, so a slice's tiles
+// hold other pixels than the frame's: every per-pixel value is still the
+// frame's own (the lattice positions are the same floats, each sample chain
+// is a function of its position alone, and every cull is exact), so frames
+// stitched from slices equal the whole frame bit for bit.
+//
 // This header holds the kernels and their launches; each of those two source
 // files includes it once, after choosing rt_common.cuh's arithmetic, and
 // instantiates its own half (TABLES true or false), so the worklist pass runs
@@ -157,7 +167,7 @@ __global__ void __launch_bounds__(TILE * TILE,
 render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                   int ns, const float* __restrict__ pln, int npl,
                   const float* __restrict__ lts, int nl, float* __restrict__ out,
-                  int W, int H, int depth, TableArgs ta) {
+                  int W, int H, int Wg, int depth, TableArgs ta) {
   extern __shared__ float smem[];
   const int tid = threadIdx.y * TILE + threadIdx.x;
   const SceneView s = stage_scene(params, sph, ns, pln, npl, lts, nl, smem, tid, TILE * TILE);
@@ -171,13 +181,14 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   }
   __syncthreads();
 
+  // local pixel (x, y) of the output; global x of the tile corner and pixel
   const int x0 = blockIdx.y * TILE, y0 = blockIdx.x * TILE;
   const int x = x0 + threadIdx.y, y = y0 + threadIdx.x;
-  const float fx0 = static_cast<float>(x0);
+  const float fx0 = static_cast<float>(x0) + s.p[P_X0];
   const float fy0 = static_cast<float>(y0);
   const float gx = fx0 + static_cast<float>(threadIdx.y);
   const float gy = fy0 + static_cast<float>(threadIdx.x);
-  const bool interior = gx >= 1.0f && gx <= static_cast<float>(W - 2) &&
+  const bool interior = gx >= 1.0f && gx <= static_cast<float>(Wg - 2) &&
                         gy >= 1.0f && gy <= static_cast<float>(H - 2);
   const float inv9 = static_cast<float>(1.0 / 9.0);
 
@@ -303,6 +314,7 @@ struct Job {
   int W, H, depth;
   TableArgs ta;
   cudaStream_t stream;
+  int Wg;   // the frame's width; W is the slice's (rt_render_fwd)
 };
 
 template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
@@ -319,7 +331,7 @@ cudaError_t launch(const Job& j) {
   const dim3 block(TILE, TILE);
   const dim3 grid((j.H + TILE - 1) / TILE, (j.W + TILE - 1) / TILE);
   render_fwd_kernel<MODE, COMPAT, CHEAP, TABLES><<<grid, block, smem, j.stream>>>(
-      j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.out, j.W, j.H, j.depth, j.ta);
+      j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.out, j.W, j.H, j.Wg, j.depth, j.ta);
   return cudaGetLastError();
 }
 

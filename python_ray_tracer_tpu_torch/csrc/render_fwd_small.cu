@@ -15,10 +15,11 @@ extern "C" {
 // from there with checked arguments.
 int rt_render_fwd_small(const float* params, const float* sph, int ns, const float* pln,
                         int npl, const float* lts, int nl, float* out, int W, int H,
-                        int depth, int mode, int compat, int cheap_shadow, void* stream) {
+                        int Wg, int depth, int mode, int compat, int cheap_shadow,
+                        void* stream) {
   const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth,
               {nullptr, nullptr, 0, nullptr, nullptr, 0, nullptr, nullptr, 0},
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream), Wg};
   return static_cast<int>(dispatch<false>(mode, compat != 0, cheap_shadow != 0, j));
 }
 
@@ -30,7 +31,7 @@ int rt_render_list_small(const float* params, const float* sph, int ns, const fl
                          int compat, int cheap_shadow, void* stream) {
   const Job j{params, sph, ns, pln, npl, lts, nl, out, W, H, depth,
               {nullptr, nullptr, 0, nullptr, nullptr, 0, nullptr, nullptr, 0},
-              static_cast<cudaStream_t>(stream)};
+              static_cast<cudaStream_t>(stream), W};
   return static_cast<int>(dispatch_list<false>(compat != 0, cheap_shadow != 0, j, idx,
                                                flagged, K));
 }

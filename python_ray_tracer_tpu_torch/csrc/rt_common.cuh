@@ -105,10 +105,12 @@ constexpr float FAR = 999.0f;   // reference init distance, trace.py:17
 constexpr float BIG = 1e30f;    // "no hit" distance in clean mode
 constexpr float BIAS = 2e-4f;   // shadow/mirror acne offset, trace.py:82
 
-// Parameter vector layout (render_cuda.py P_*; render_pallas.py _P_*). P_X0,
-// the x offset of a ray-parallel slice, is packed as 0: the port renders whole
-// frames. The soft kernels add it to the pixel's x (as the TPU soft backward
-// does), so a sharded caller needs no kernel change.
+// Parameter vector layout (render_cuda.py P_*; render_pallas.py _P_*). P_X0
+// is the global x index of a ray-parallel slice's first column (0 for a whole
+// frame): every kernel adds it to the pixel's x where it generates a ray, so a
+// slice [P_X0, P_X0 + W) of a wider frame traces the whole frame's rays. The
+// offset and the pixel indices are whole numbers below 2^24, so the sums are
+// exact and a slice's rays are the whole frame's, bit for bit.
 enum : int {
   P_ORIGIN = 0, P_ROT = 3, P_FOCAL = 12, P_Y0 = 13, P_DY = 14, P_Z0 = 15,
   P_DZ = 16, P_AMB = 17, P_LAMB = 18, P_REFL = 19, P_SPEC = 20, P_SHIN = 21,
@@ -117,7 +119,12 @@ enum : int {
 
 // The scene as the kernels read it: the parameter vector and the SoA tables
 // sph (7 x ns: center xyz, radius, albedo rgb), pln (9 x npl: origin xyz,
-// unit normal xyz, albedo rgb) and lts (3 x nl), row-major.
+// unit normal xyz, albedo rgb) and lts (3 x nl), row-major. `ldg`: sph lies
+// in device memory and is read through the read-only data cache (the hard
+// backward kernel's global form, for scenes whose sphere table does not fit a
+// block's shared memory beside the gradient rows); every other view reads sph
+// where it points, staged or not. A kernel fixes `ldg` at compile time, so the
+// test folds away.
 struct SceneView {
   const float* p;
   const float* sph;
@@ -126,7 +133,13 @@ struct SceneView {
   int npl;
   const float* lts;
   int nl;
+  bool ldg = false;
 };
+
+// Word i of the sphere table (the same float from either memory).
+__device__ __forceinline__ float sph_at(const SceneView& s, int i) {
+  return s.ldg ? __ldg(s.sph + i) : s.sph[i];
+}
 
 struct Ray {
   float ox, oy, oz, dx, dy, dz;
@@ -219,8 +232,8 @@ __device__ __forceinline__ Hit hit_of(const SceneView& s, float t, int obj) {
   if (obj < 0) return no_hit<COMPAT>();
   if (obj < s.ns) {
     const int ns = s.ns;
-    return {t, s.sph[4 * ns + obj], s.sph[5 * ns + obj], s.sph[6 * ns + obj],
-            s.sph[obj], s.sph[ns + obj], s.sph[2 * ns + obj], false, obj};
+    return {t, sph_at(s, 4 * ns + obj), sph_at(s, 5 * ns + obj), sph_at(s, 6 * ns + obj),
+            sph_at(s, obj), sph_at(s, ns + obj), sph_at(s, 2 * ns + obj), false, obj};
   }
   const int j = obj - s.ns, np = s.npl;
   return {t, s.pln[6 * np + j], s.pln[7 * np + j], s.pln[8 * np + j],
@@ -254,8 +267,8 @@ template <bool TIE = false>
 __device__ __forceinline__ void hit_sphere(const SceneView& s, const HitSweep& w,
                                            int j, Hit& h) {
   const int ns = s.ns;
-  const float cx = s.sph[j], cy = s.sph[ns + j], cz = s.sph[2 * ns + j];
-  const float r = s.sph[3 * ns + j];
+  const float cx = sph_at(s, j), cy = sph_at(s, ns + j), cz = sph_at(s, 2 * ns + j);
+  const float r = sph_at(s, 3 * ns + j);
   const float cd = dot3(cx, cy, cz, w.dx, w.dy, w.dz);
   const float oc = dot3(cx, cy, cz, w.ox, w.oy, w.oz);
   // pinned products, plain sums (see the head of this file)
@@ -269,7 +282,7 @@ __device__ __forceinline__ void hit_sphere(const SceneView& s, const HitSweep& w
   // nearest positive root; the far root is >= the near root always
   const float tj = pm(num_near > 0.0f ? num_near : num_far, w.inv2a);
   if (has && num_far > 0.0f && (tj < h.t || (TIE && tj == h.t && j < h.obj))) {
-    h = {tj, s.sph[4 * ns + j], s.sph[5 * ns + j], s.sph[6 * ns + j],
+    h = {tj, sph_at(s, 4 * ns + j), sph_at(s, 5 * ns + j), sph_at(s, 6 * ns + j),
          cx, cy, cz, false, j};
   }
 }
@@ -692,8 +705,8 @@ template <bool COMPAT, bool CHEAP>
 __device__ __forceinline__ bool sphere_occludes(const SceneView& s, const ShadowSweep& w,
                                                 int j) {
   const int ns = s.ns;
-  const float cx = s.sph[j], cy = s.sph[ns + j], cz = s.sph[2 * ns + j];
-  const float r = s.sph[3 * ns + j];
+  const float cx = sph_at(s, j), cy = sph_at(s, ns + j), cz = sph_at(s, 2 * ns + j);
+  const float r = sph_at(s, 3 * ns + j);
   const float oc = dot3(cx, cy, cz, w.ox, w.oy, w.oz);
   // pinned products, plain sums (see the head of this file)
   const float cterm = ff(-2.0f, oc, w.oo) + ff(-r, r, dot3(cx, cy, cz, cx, cy, cz));

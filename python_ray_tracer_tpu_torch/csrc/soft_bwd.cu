@@ -89,6 +89,22 @@
 //
 // Block: nt threads (32, 64 or 128), 16 along the image's y axis and nt/16
 // along x; a one-dimensional grid of ceil(H/16) * ceil(W/(nt/16)) blocks.
+//
+// Past 3388 spheres (1 plane, 3 lights) the scene's 10 words a sphere do not
+// fit a block beside its rows, and the planner takes the global form (G):
+// the sphere table is read where it lies in device memory, through the
+// read-only cache (Scene<G>), and 1 / (tau r), 1 / r and dead2 are computed
+// where they are needed, in the staging loop's operations; that takes scenes
+// up to 8228 spheres. The forms agree to float32 rounding, not bit for bit:
+// nvcc contracts their instantiations differently, and compiling the file
+// without contraction, which gave bits, cost the main-path soft step 2.8%
+// (PERF.md §6). On the card the global form is 14-17% slower on the scenes
+// both take (chip_smoke.py phase 22 [repair-form]), so the planner stages
+// while the scene fits.
+//
+// Slices (ray-parallel sharding): a launch's pixels are columns [P_X0, P_X0 +
+// W) of a frame Wg wide; FUSED's loss and cotangent take the frame's
+// denominator 3 Wg H, so the slices' partials sum to the frame's.
 
 #include <cuda_runtime.h>
 
@@ -116,38 +132,78 @@ enum : int {
 };
 constexpr int T_WBAR = T_A;
 
-// The scene as the backward reads it: the SoA tables and, per sphere,
-// 1 / (tau r), 1 / r and dead2 = (r (1 + 90 tau))^2: a ray whose squared
-// closest-approach distance exceeds dead2 has x < -89.9, so expf(-x)
-// overflows and alpha is exactly 0.
+// Per sphere of radius r: 1 / (tau r), 1 / r and dead2 = (r (1 + 90 tau))^2:
+// a ray whose squared closest-approach distance exceeds dead2 has x < -89.9,
+// so expf(-x) overflows and alpha is exactly 0 (which makes dead2's last bit
+// immaterial: alpha is 0 on both sides of it).
+__device__ __forceinline__ float inv_tau_r(float r, float tau) { return 1.0f / (tau * r); }
+__device__ __forceinline__ float dead_r2(float r, float tau) {
+  const float rd = r * (1.0f + 90.0f * tau);
+  return rd * rd;
+}
+
+// The scene as the backward reads it: the SoA tables and, staged (G false),
+// each sphere's three values above in shared memory (rcp); the global form
+// (G) reads the sphere table where it lies, through the read-only cache, and
+// computes the three values from the radius where it needs them, in the
+// staging loop's operations.
+template <bool G>
 struct Scene {
   SceneView v;
-  const float* inv_tr;
-  const float* inv_r;
-  const float* dead2;
+  const float* rcp;   // 1 / (tau r) x ns, 1 / r x ns, dead2 x ns (staged form)
+  float tau;
+
+  __device__ __forceinline__ float sph(int i) const {
+    if constexpr (G) {
+      return __ldg(v.sph + i);
+    } else {
+      return v.sph[i];
+    }
+  }
+  __device__ __forceinline__ float r(int j) const { return sph(3 * v.ns + j); }
+  __device__ __forceinline__ float inv_tr(int j) const {
+    if constexpr (G) {
+      return inv_tau_r(r(j), tau);
+    } else {
+      return rcp[j];
+    }
+  }
+  __device__ __forceinline__ float inv_r(int j) const {
+    if constexpr (G) {
+      return 1.0f / r(j);
+    } else {
+      return rcp[v.ns + j];
+    }
+  }
+  __device__ __forceinline__ float dead2(int j) const {
+    if constexpr (G) {
+      return dead_r2(r(j), tau);
+    } else {
+      return rcp[2 * v.ns + j];
+    }
+  }
 };
 
 // Sphere j's cover of a ray, with early exits: false (alpha exactly 0) when
 // t_ca <= 0, when b^2 > dead2 (before the sqrt and the exp) or when the
 // sigmoid underflows. soft_cover's arithmetic, but for the pre-activation
 // -(b - r) * (1 / (tau r)).
-template <bool NEED_T>
-__device__ __forceinline__ bool live_cover(const Scene& sc, int j, float ox, float oy,
+template <bool NEED_T, bool G>
+__device__ __forceinline__ bool live_cover(const Scene<G>& sc, int j, float ox, float oy,
                                            float oz, float dx, float dy, float dz,
                                            Cover& c) {
   const int ns = sc.v.ns;
-  const float* sph = sc.v.sph;
-  const float r = sph[3 * ns + j];
-  c.Lx = sph[j] - ox;
-  c.Ly = sph[ns + j] - oy;
-  c.Lz = sph[2 * ns + j] - oz;
+  const float r = sc.r(j);
+  c.Lx = sc.sph(j) - ox;
+  c.Ly = sc.sph(ns + j) - oy;
+  c.Lz = sc.sph(2 * ns + j) - oz;
   c.t_ca = c.Lx * dx + c.Ly * dy + c.Lz * dz;
   if (!(c.t_ca > 0.0f)) return false;
   const float vx = c.Lx - c.t_ca * dx, vy = c.Ly - c.t_ca * dy, vz = c.Lz - c.t_ca * dz;
   c.d2 = vx * vx + vy * vy + vz * vz;
-  if (c.d2 > sc.dead2[j]) return false;
+  if (c.d2 > sc.dead2(j)) return false;
   c.b = sqrtf(c.d2 > 1e-12f ? c.d2 : 1e-12f);
-  c.a = sigmoid(-(c.b - r) * sc.inv_tr[j]);
+  c.a = sigmoid(-(c.b - r) * sc.inv_tr(j));
   c.hc = 1.0f;
   c.t_raw = c.t = 0.0f;
   c.inside = false;
@@ -171,13 +227,13 @@ struct CoverAdj {
 // cotangent of the sigmoid's pre-activation x = -(b - r) / (tau r) (formed with
 // the sigmoid-cancelling identities, so a saturated alpha gives exact zeros);
 // tbar that of the clamped blend depth (WITH_T; the cover must carry t).
-template <bool WITH_T>
-__device__ __forceinline__ CoverAdj cover_adj(const Scene& sc, int j, const Cover& c,
+template <bool WITH_T, bool G>
+__device__ __forceinline__ CoverAdj cover_adj(const Scene<G>& sc, int j, const Cover& c,
                                               float dx, float dy, float dz, float xbar,
                                               float tbar) {
-  const float r = sc.v.sph[3 * sc.v.ns + j], inv_tr = sc.inv_tr[j];
+  const float r = sc.r(j), inv_tr = sc.inv_tr(j);
   const float bbar = -xbar * inv_tr;
-  float rbar = xbar * c.b * inv_tr * sc.inv_r[j];
+  float rbar = xbar * c.b * inv_tr * sc.inv_r(j);
   float d2bar = c.d2 > 1e-12f ? bbar * 0.5f / c.b : 0.0f;
   float t_cabar;
   if (WITH_T) {
@@ -204,7 +260,8 @@ __device__ __forceinline__ CoverAdj cover_adj(const Scene& sc, int j, const Cove
 
 // Shadow transmission prod_j (1 - alpha_j) from P toward L, dead occluders
 // skipped (a factor 1 - 0), stopping once it is 0.
-__device__ __forceinline__ float transmission_live(const Scene& sc, float px, float py,
+template <bool G>
+__device__ __forceinline__ float transmission_live(const Scene<G>& sc, float px, float py,
                                                    float pz, const LightDir& L) {
   float vis = 1.0f;
   for (int j = 0; j < sc.v.ns && vis != 0.0f; ++j) {
@@ -220,20 +277,22 @@ struct Surf {
   float px, py, pz, nx, ny, nz, nn, ar, ag, ab;
 };
 
-__device__ __forceinline__ Surf surface_at(const SceneView& s, const Ray& ray, int gi,
+template <bool G>
+__device__ __forceinline__ Surf surface_at(const Scene<G>& sc, const Ray& ray, int gi,
                                            float t) {
+  const SceneView& s = sc.v;
   Surf o;
   o.px = ray.ox + t * ray.dx;
   o.py = ray.oy + t * ray.dy;
   o.pz = ray.oz + t * ray.dz;
   const int ns = s.ns;
   if (gi < ns) {
-    const float vx = o.px - s.sph[gi], vy = o.py - s.sph[ns + gi],
-                vz = o.pz - s.sph[2 * ns + gi];
+    const float vx = o.px - sc.sph(gi), vy = o.py - sc.sph(ns + gi),
+                vz = o.pz - sc.sph(2 * ns + gi);
     const float vv = vx * vx + vy * vy + vz * vz;
     o.nn = 1.0f / sqrtf(vv > 0.0f ? vv : 1.0f);
     o.nx = vx * o.nn; o.ny = vy * o.nn; o.nz = vz * o.nn;
-    o.ar = s.sph[4 * ns + gi]; o.ag = s.sph[5 * ns + gi]; o.ab = s.sph[6 * ns + gi];
+    o.ar = sc.sph(4 * ns + gi); o.ag = sc.sph(5 * ns + gi); o.ab = sc.sph(6 * ns + gi);
   } else {
     const int k = gi - ns, np = s.npl;
     o.nn = 1.0f;
@@ -250,8 +309,9 @@ struct RayBar {
 
 // One lane's pixel: its ray, color cotangent, table and slab (lane-private,
 // slot-major with stride nt) and its running sums.
+template <bool G>
 struct Pix {
-  const Scene& sc;
+  const Scene<G>& sc;
   Ray ray;
   float tau;
   float* tab;   // this lane's column of the table
@@ -367,7 +427,7 @@ struct Pix {
       float lam_sum = 0.0f;
       unsigned lit_bits = 0;
       if (w != 0.0f) {
-        const Surf o = surface_at(s, ray, gi_e, t);
+        const Surf o = surface_at(sc, ray, gi_e, t);
         for (int l = 0; l < s.nl; ++l) {
           const LightDir L = light_dir(s, l, o.px, o.py, o.pz);
           const float lam = lamb * (L.x * o.nx + L.y * o.ny + L.z * o.nz);
@@ -401,9 +461,14 @@ struct Pix {
       T(T_WBAR, e) = 0.0f;
       if (w == 0.0f) continue;
       const int gi_e = gi(e), ns = s.ns;
-      const float* alb = gi_e < ns ? s.sph + 4 * ns + gi_e : s.pln + 6 * s.npl + gi_e - ns;
-      const int st = gi_e < ns ? ns : s.npl;
-      const float gA = g0 * alb[0] + g1 * alb[st] + g2 * alb[2 * st];
+      float ar, ag, ab;
+      if (gi_e < ns) {
+        ar = sc.sph(4 * ns + gi_e); ag = sc.sph(5 * ns + gi_e); ab = sc.sph(6 * ns + gi_e);
+      } else {
+        const float* alb = s.pln + 6 * s.npl + gi_e - ns;
+        ar = alb[0]; ag = alb[s.npl]; ab = alb[2 * s.npl];
+      }
+      const float gA = g0 * ar + g1 * ag + g2 * ab;
       amb_acc += w * gA;
       T(T_WBAR, e) = (amb + T(T_LS, e)) * gA * w;
     }
@@ -445,7 +510,7 @@ struct Pix {
       const float w = T(T_W, e);
       if (w == 0.0f || !maybe_lit(e, l)) continue;
       const float t = T(T_T, e);
-      const Surf o = surface_at(s, ray, gi(e), t);
+      const Surf o = surface_at(sc, ray, gi(e), t);
       const LightDir L = light_dir(s, l, o.px, o.py, o.pz);
       const float lam = lamb * (L.x * o.nx + L.y * o.ny + L.z * o.nz);
       if (!lit(e, l, lam)) continue;
@@ -486,7 +551,7 @@ struct Pix {
       t = T(T_T, own);
       const float w = T(T_W, own);
       if (w != 0.0f) {
-        const Surf o = surface_at(s, ray, j, t);
+        const Surf o = surface_at(sc, ray, j, t);
         float nb[3] = {0.0f, 0.0f, 0.0f};
         lambert_adj(own, o, w * (g0 * o.ar + g1 * o.ag + g2 * o.ab), nb);
         // N = (P - c) * nn: P takes vb, the center -vb
@@ -501,7 +566,8 @@ struct Pix {
     if (!live_cover<true>(sc, j, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, c)) {
       if (own < 0) return;
       // an entry whose recomputed cover rounds to dead: take the full cover
-      c = sphere_cover<true>(s, j, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, tau);
+      c = soft_cover<true>(ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, sc.sph(j),
+                           sc.sph(s.ns + j), sc.sph(2 * s.ns + j), sc.r(j), tau);
     }
     if (own < 0) t = c.t;
     // wbar_j w_j (1 - a_j) - a_j sum_{i behind j} wbar_i w_i
@@ -527,7 +593,7 @@ struct Pix {
     const SceneView& s = sc.v;
     const int k = gi(e) - s.ns, np = s.npl;
     const float w = T(T_W, e), t = T(T_T, e);
-    const Surf o = surface_at(s, ray, gi(e), t);
+    const Surf o = surface_at(sc, ray, gi(e), t);
     float nb[3] = {0.0f, 0.0f, 0.0f};
     lambert_adj(e, o, w * (g0 * o.ar + g1 * o.ag + g2 * o.ab), nb);
     const float p0x = s.pln[k], p0y = s.pln[np + k], p0z = s.pln[2 * np + k];
@@ -558,50 +624,54 @@ __device__ __forceinline__ void acc_live(float* row, int slot, float v, int lane
 }
 
 // Flush the slab's first `per` slots of each sphere in [w0, w1) into the row.
-__device__ __forceinline__ void flush(const Pix& px, float* row, int lane, int w0, int w1,
+template <bool G>
+__device__ __forceinline__ void flush(const Pix<G>& px, float* row, int lane, int w0, int w1,
                                       int per) {
   for (int j = w0; j < w1; ++j) {
     for (int c = 0; c < per; ++c) acc_live(row, 7 * j + c, px.S(7 * (j - w0) + c), lane);
   }
 }
 
-__device__ __forceinline__ void zero_slab(const Pix& px, int w0, int w1) {
+template <bool G>
+__device__ __forceinline__ void zero_slab(const Pix<G>& px, int w0, int w1) {
   for (int k = 0; k < 7 * (w1 - w0); ++k) px.S(k) = 0.0f;
 }
 
+template <bool G>
 __global__ void __launch_bounds__(MAX_NT)
 soft_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph, int ns,
                 const float* __restrict__ pln, int npl, const float* __restrict__ lts,
                 int nl, float tau, const float* __restrict__ img,
-                float* __restrict__ partial, int W, int H, int fused, int cap, int cj,
-                int store_vis) {
+                float* __restrict__ partial, int W, int H, int Wg, int fused, int cap,
+                int cj, int store_vis) {
   const int nt = blockDim.x, nwarps = nt / 32, by = nt / BX;
   const Slots sl(ns, npl, nl, fused != 0);
   const int nf = N_TFIXED + (store_vis ? nl : 0);
   extern __shared__ float smem[];
+  // G (the global form): no sphere table and no per-sphere values staged
+  const int staged_ns = G ? 0 : ns;
   float* s_p = smem;
   float* s_sph = s_p + N_PARAMS;
-  float* s_pln = s_sph + 7 * ns;
+  float* s_pln = s_sph + 7 * staged_ns;
   float* s_lts = s_pln + 9 * npl;
   float* s_rcp = s_lts + 3 * nl;               // 1 / (tau r), 1 / r, dead2
-  float* s_acc = s_rcp + 3 * ns;               // nwarps rows of sl.n slots
+  float* s_acc = s_rcp + 3 * staged_ns;        // nwarps rows of sl.n slots
   float* s_tab = s_acc + nwarps * sl.n;        // nf x cap x nt
   float* s_slab = s_tab + nf * cap * nt;       // 7 cj x nt
   const int tid = threadIdx.x;
   for (int i = tid; i < N_PARAMS; i += nt) s_p[i] = params[i];
-  for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
+  for (int i = tid; i < 7 * staged_ns; i += nt) s_sph[i] = sph[i];
   for (int i = tid; i < 9 * npl; i += nt) s_pln[i] = pln[i];
   for (int i = tid; i < 3 * nl; i += nt) s_lts[i] = lts[i];
-  for (int i = tid; i < ns; i += nt) {
+  for (int i = tid; i < staged_ns; i += nt) {
     const float r = sph[3 * ns + i];
-    const float rd = r * (1.0f + 90.0f * tau);
-    s_rcp[i] = 1.0f / (tau * r);
+    s_rcp[i] = inv_tau_r(r, tau);
     s_rcp[ns + i] = 1.0f / r;
-    s_rcp[2 * ns + i] = rd * rd;
+    s_rcp[2 * ns + i] = dead_r2(r, tau);
   }
   for (int i = tid; i < nwarps * sl.n; i += nt) s_acc[i] = 0.0f;
   __syncthreads();
-  const Scene sc{{s_p, s_sph, ns, s_pln, npl, s_lts, nl}, s_rcp, s_rcp + ns, s_rcp + 2 * ns};
+  const Scene<G> sc{{s_p, G ? sph : s_sph, ns, s_pln, npl, s_lts, nl, G}, s_rcp, tau};
   const int lane = tid & 31;
   float* row = s_acc + (tid >> 5) * sl.n;
 
@@ -612,7 +682,7 @@ soft_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
   const size_t pix = inb ? (static_cast<size_t>(x) * H + y) * 3 : 0;
   const RayGen rg = raygen_full(s_p, static_cast<float>(x) + s_p[P_X0],
                                 static_cast<float>(y));
-  Pix px{sc, rg.ray, tau, s_tab + tid, s_slab + tid, nt, cap, store_vis != 0,
+  Pix<G> px{sc, rg.ray, tau, s_tab + tid, s_slab + tid, nt, cap, store_vis != 0,
          0.0f, 0.0f, 0.0f, {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, 0.0f};
   const int K = ns + npl;
 
@@ -632,8 +702,9 @@ soft_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
         cr += c.r; cg += c.g; cb += c.b;
         if (k == K) break;
       }
-      const float inv_denom = static_cast<float>(1.0 / (3.0 * W * static_cast<double>(H)));
-      const float two_inv = static_cast<float>(2.0 / (3.0 * W * static_cast<double>(H)));
+      // the frame's denominator (a slice's launch: Wg the frame's width)
+      const float inv_denom = static_cast<float>(1.0 / (3.0 * Wg * static_cast<double>(H)));
+      const float two_inv = static_cast<float>(2.0 / (3.0 * Wg * static_cast<double>(H)));
       const float d0 = cr - img[pix], d1 = cg - img[pix + 1], d2 = cb - img[pix + 2];
       loss = (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom;
       px.g0 = two_inv * d0; px.g1 = two_inv * d1; px.g2 = two_inv * d2;
@@ -741,12 +812,13 @@ soft_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
 extern "C" {
 
 // Shared memory (bytes) of one soft backward block under a plan; the
-// wrapper's planner (soft_bwd_cuda.smem_bytes) computes the same.
+// wrapper's planner (soft_bwd_cuda.smem_bytes) computes the same. staged 0:
+// the global form, without the 10 words a sphere.
 long long rt_soft_bwd_smem(int ns, int npl, int nl, int n_grads, int nt, int cap, int cj,
-                           int store_vis) {
+                           int store_vis, int staged) {
   const long long nf = N_TFIXED + (store_vis ? nl : 0);
-  return 4LL * (N_PARAMS + 10LL * ns + 9LL * npl + 3LL * nl + (nt / 32) * 1LL * n_grads +
-                static_cast<long long>(nt) * (nf * cap + 7LL * cj));
+  return 4LL * (N_PARAMS + (staged ? 10LL * ns : 0LL) + 9LL * npl + 3LL * nl +
+                (nt / 32) * 1LL * n_grads + static_cast<long long>(nt) * (nf * cap + 7LL * cj));
 }
 
 // Launch the soft backward kernel on `stream`: per-block partial sums into
@@ -754,13 +826,17 @@ long long rt_soft_bwd_smem(int ns, int npl, int nl, int n_grads, int nt, int cap
 // then sums them. img: the (W, H, 3) cotangent, or with fused the target.
 // n_grads = 7 ns + 9 npl + 3 nl + 18, + 1 with fused. The plan: nt threads a
 // block (32, 64 or 128), cap live objects a chunk (>= 1), cj spheres a window
-// (>= 1), store_vis (a transmission a light in the table). Objects are indexed
-// in GI_BITS bits. Returns cudaGetLastError() after the launch.
+// (>= 1), store_vis (a transmission a light in the table), staged (the sphere
+// table and its per-sphere values in shared memory; 0: the global form).
+// Objects are indexed in GI_BITS bits. W x H: the slice [params[P_X0],
+// params[P_X0] + W) of a frame Wg columns wide (Wg == W for a whole frame),
+// img the slice's; FUSED's loss has the frame's denominator 3 Wg H. Returns
+// cudaGetLastError() after the launch.
 int rt_soft_bwd(const float* params, const float* sph, int ns, const float* pln, int npl,
                 const float* lts, int nl, float tau, const float* img, float* partial,
-                int n_rows, int n_grads, int W, int H, int fused, int nt, int cap, int cj,
-                int store_vis, void* stream) {
-  if (W <= 0 || H <= 0 || ns < 0 || npl < 0 || nl < 0 || !(tau > 0.0f) ||
+                int n_rows, int n_grads, int W, int H, int Wg, int fused, int nt, int cap,
+                int cj, int store_vis, int staged, void* stream) {
+  if (W <= 0 || H <= 0 || Wg < W || ns < 0 || npl < 0 || nl < 0 || !(tau > 0.0f) ||
       img == nullptr || !(nt == 32 || nt == 64 || nt == 128) || cap < 1 || cj < 1 ||
       ns + npl >= (1 << GI_BITS) ||
       n_grads != 7 * ns + 9 * npl + 3 * nl + 18 + (fused ? 1 : 0) ||
@@ -768,16 +844,17 @@ int rt_soft_bwd(const float* params, const float* sph, int ns, const float* pln,
           static_cast<long long>((H + BX - 1) / BX) * ((W + nt / BX - 1) / (nt / BX))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem = rt_soft_bwd_smem(ns, npl, nl, n_grads, nt, cap, cj, store_vis);
+  const long long smem =
+      rt_soft_bwd_smem(ns, npl, nl, n_grads, nt, cap, cj, store_vis, staged);
+  if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = staged ? soft_bwd_kernel<false> : soft_bwd_kernel<true>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        soft_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  soft_bwd_kernel<<<n_rows, nt, static_cast<size_t>(smem),
-                    static_cast<cudaStream_t>(stream)>>>(
-      params, sph, ns, pln, npl, lts, nl, tau, img, partial, W, H, fused, cap, cj,
+  kernel<<<n_rows, nt, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
+      params, sph, ns, pln, npl, lts, nl, tau, img, partial, W, H, Wg, fused, cap, cj,
       store_vis);
   return static_cast<int>(cudaGetLastError());
 }
@@ -786,7 +863,7 @@ int rt_soft_bwd(const float* params, const float* sph, int ns, const float* pln,
 // the soft backward kernel, as the loaded module reports them.
 int rt_soft_bwd_attrs(int* regs, int* local_bytes) {
   cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, soft_bwd_kernel);
+  const cudaError_t e = cudaFuncGetAttributes(&a, soft_bwd_kernel<false>);
   if (e != cudaSuccess) return static_cast<int>(e);
   *regs = a.numRegs;
   *local_bytes = static_cast<int>(a.localSizeBytes);

@@ -73,16 +73,6 @@ __device__ __forceinline__ Cover soft_cover(float ox, float oy, float oz, float 
   return c;
 }
 
-// Sphere j's cover of `ray` (the scene in SoA order, as SceneView holds it).
-template <bool NEED_T>
-__device__ __forceinline__ Cover sphere_cover(const SceneView& s, int j, float ox,
-                                              float oy, float oz, float dx, float dy,
-                                              float dz, float tau) {
-  const int ns = s.ns;
-  return soft_cover<NEED_T>(ox, oy, oz, dx, dy, dz, s.sph[j], s.sph[ns + j],
-                            s.sph[2 * ns + j], s.sph[3 * ns + j], tau);
-}
-
 // Opaque plane k: alpha 1 where the ray hits it (|n.d| > 1e-8 and t > 0),
 // else 0; t = max(n.(p0 - o) / n.d, 1e-4).
 struct PlaneCover {

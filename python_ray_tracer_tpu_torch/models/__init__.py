@@ -1,2 +1,3 @@
-from .scene import Scene, Spheres, Planes, Lights, Materials, default_scene, random_scene
+from .scene import (Scene, Spheres, Planes, Lights, Materials, default_scene, random_scene,
+                    Vector3D, Color)
 from .camera import Camera, default_camera, euler_rotation

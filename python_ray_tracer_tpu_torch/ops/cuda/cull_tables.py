@@ -142,7 +142,8 @@ def _compact(keep: torch.Tensor, values: torch.Tensor, K: int):
     return buf[:, :k].reshape(-1).contiguous(), cnt
 
 
-def tile_visibility(camera, scene, *, compat: bool, tile: int = TILE, K=None):
+def tile_visibility(camera, scene, *, compat: bool, tile: int = TILE, K=None,
+                    x_offset: int = 0, local_width: int | None = None):
     """Conservative per-tile sphere visibility for the primary closest-hit
     sweep.
 
@@ -153,13 +154,18 @@ def tile_visibility(camera, scene, *, compat: bool, tile: int = TILE, K=None):
     convex, so a dropped sphere misses every ray of the tile and the listed
     sweep's closest hit is the full sweep's, bit for bit. Returns ``(idx
     (n_tiles * k,), cnt (n_tiles,))`` int32, ``k = min(K or ns, ns)``, entries
-    in ascending sphere index."""
+    in ascending sphere index. ``x_offset`` / ``local_width``: the tiles of
+    the slice ``[x_offset, x_offset + local_width)`` of the frame (default
+    the whole frame), their corners taken in the frame's pixels
+    (``render_pallas._tile_visibility(x_offset=)``)."""
     ns = scene.spheres.count
     W, H = camera.resolution
-    n_tx, n_ty = tile_grid(W, H, tile)
+    lw = W - x_offset if local_width is None else local_width
+    n_tx, n_ty = tile_grid(lw, H, tile)
     dev = camera.device
     focal, y0, dy, z0, dz = camera.grid_params(compat)
-    u0 = (torch.arange(n_tx, dtype=torch.float32, device=dev) * tile)[:, None, None]
+    u0 = (torch.arange(n_tx, dtype=torch.float32, device=dev) * tile
+          + float(x_offset))[:, None, None]
     v0 = (torch.arange(n_ty, dtype=torch.float32, device=dev) * tile)[None, :, None]
     cu = torch.tensor([-1.0, -1.0, tile + 1.0, tile + 1.0], device=dev)
     cv = torch.tensor([-1.0, tile + 1.0, -1.0, tile + 1.0], device=dev)

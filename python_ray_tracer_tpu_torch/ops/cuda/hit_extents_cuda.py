@@ -39,15 +39,17 @@ def reset_launch_counts() -> None:
     LAUNCHES["hit_extents"] = 0
 
 
-def _positions(n_tx: int, n_ty: int, tile: int, aliasing: bool, dev):
+def _positions(n_tx: int, n_ty: int, tile: int, aliasing: bool, dev, x_offset: int = 0):
     """Sample positions a tile: ``(px, py)`` of shape ``(n_tx * n_ty, P)``, the
     centers and, with AA, the two half-axis grids and the corners (the render
-    kernel's four shared grids: 256 + 272 + 272 + 289 positions at tile 16)."""
+    kernel's four shared grids: 256 + 272 + 272 + 289 positions at tile 16),
+    in the frame's pixels (a slice's tiles start at ``x_offset``)."""
     grids = [(tile, tile, 0.0, 0.0)]
     if aliasing:
         grids += [(tile + 1, tile, -0.5, 0.0), (tile, tile + 1, 0.0, -0.5),
                   (tile + 1, tile + 1, -0.5, -0.5)]
-    x0 = (torch.arange(n_tx, dtype=torch.float32, device=dev) * tile)[:, None, None]
+    x0 = (torch.arange(n_tx, dtype=torch.float32, device=dev) * tile
+          + float(x_offset))[:, None, None]
     y0 = (torch.arange(n_ty, dtype=torch.float32, device=dev) * tile)[None, :, None]
     px, py = [], []
     for nx, ny, du, dv in grids:
@@ -61,15 +63,19 @@ def _positions(n_tx: int, n_ty: int, tile: int, aliasing: bool, dev):
 
 
 def hit_extents_plain(camera, scene, *, aliasing: bool, compat: bool = True,
-                      n_levels: int = 1, tile: int = TILE, vis=None) -> torch.Tensor:
+                      n_levels: int = 1, tile: int = TILE, vis=None, x_offset: int = 0,
+                      local_width: int | None = None) -> torch.Tensor:
     """The hit-extent rows with plain tensor ops, on the inputs' device.
 
     ``tile`` is the tile's side in pixels. ``vis = (idx, cnt, k)``: the primary
     cone-cull lists of :func:`cull_tables.tile_visibility`; a tile's level-0
     closest hit then sweeps only its listed spheres (all of them where its
-    count is -1), as the kernel does."""
+    count is -1), as the kernel does. ``x_offset`` / ``local_width``: the
+    rows of the slice ``[x_offset, x_offset + local_width)``'s tiles, which
+    keep the frame's bounds (the kernel's)."""
     W, H = camera.resolution
-    n_tx, n_ty = tile_grid(W, H, tile)
+    lw = W - x_offset if local_width is None else local_width
+    n_tx, n_ty = tile_grid(lw, H, tile)
     n_tiles = n_tx * n_ty
     dev = camera.device
     ns, npl = scene.spheres.count, scene.planes.count
@@ -78,7 +84,7 @@ def hit_extents_plain(camera, scene, *, aliasing: bool, compat: bool = True,
     out[..., 3:6] = -BIG
     if ns + npl == 0:
         return out.reshape(-1, 8)
-    px, py = _positions(n_tx, n_ty, tile, aliasing, dev)
+    px, py = _positions(n_tx, n_ty, tile, aliasing, dev, x_offset)
     listed = None
     if vis is not None:
         idx, cnt, k = vis
@@ -208,11 +214,14 @@ def check_scale(scale, dev) -> None:
 
 
 def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compat: bool,
-           n_levels: int, vis=None, tree=None, scale=None, lib=None) -> torch.Tensor:
+           n_levels: int, vis=None, tree=None, scale=None, lib=None,
+           W_global: int | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked: ``out (n_tiles * n_levels, 8)``, ``params`` and ``tables`` as for
     ``render_cuda.launch``; ``vis``, ``tree`` and ``scale`` (a ``(1,)``
-    float32 buffer for the rows' scale, or None) are checked here. ``lib``: a
+    float32 buffer for the rows' scale, or None) are checked here. ``W``:
+    the slice's width where ``W_global`` (the frame's, default ``W``) is
+    wider, its offset the packed ``P_X0``. ``lib``: a
     library built with other warps a tile (``-DRT_HX_TILE_WARPS`` /
     ``-DRT_HX_AA_TILE_WARPS``, chip_smoke.py's sweep), default the package's.
     Counts the launch in :data:`LAUNCHES`."""
@@ -226,7 +235,8 @@ def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compa
     v, _, g, _ = table_args(vis, None, tree)
     rc = lib.rt_hit_extents(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, out.data_ptr(),
-        None if scale is None else scale.data_ptr(), W, H, n_levels, int(aliasing),
+        None if scale is None else scale.data_ptr(), W, H,
+        W if W_global is None else W_global, n_levels, int(aliasing),
         int(compat), *v, *g, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"hit-extent kernel failed: CUDA error {rc} "
@@ -236,20 +246,25 @@ def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compa
 
 
 def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
-                     n_levels: int = 1, vis=None, tree=None, scale=None) -> torch.Tensor:
+                     n_levels: int = 1, vis=None, tree=None, scale=None, x_offset: int = 0,
+                     local_width: int | None = None) -> torch.Tensor:
     """Hit-extent rows ``(n_tiles * n_levels, 8)`` of a render of ``scene``
     from ``camera``, for 16x16 tiles. ``vis`` and ``tree`` are the primary
     lists and the bounce tree the render will use (``cull_tables``), so the
     hit points are the render kernel's own. ``scale``: a ``(1,)`` float32
     buffer on the camera's device that receives the rows' scale
-    (``cull_tables.extent_scale``), or None. CPU tensors take
-    :func:`hit_extents_plain`; CUDA tensors launch the kernel."""
+    (``cull_tables.extent_scale``), or None. ``x_offset`` / ``local_width``:
+    the rows of that slice's tiles (``render_cuda.render_image_cuda``'s
+    slice). CPU tensors take :func:`hit_extents_plain`; CUDA tensors launch
+    the kernel."""
     dev = camera.position.device
+    lw = render_cuda.slice_width(camera, x_offset, local_width)
     if scale is not None:
         check_scale(scale, dev)
     if dev.type == "cpu":
         ext = hit_extents_plain(camera, scene, aliasing=aliasing, compat=compat,
-                                n_levels=n_levels, vis=vis)
+                                n_levels=n_levels, vis=vis, x_offset=x_offset,
+                                local_width=lw)
         if scale is not None:
             scale.copy_(extent_scale(ext).reshape(1))
         return ext
@@ -261,11 +276,11 @@ def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
     W, H = camera.resolution
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")
-    n_tx, n_ty = tile_grid(W, H)
+    n_tx, n_ty = tile_grid(lw, H)
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
-    params = render_cuda.pack_params(camera, scene, compat).to(dev)
+    params = render_cuda.pack_params(camera, scene, compat, x_offset).to(dev)
     out = torch.empty((n_tx * n_ty * n_levels, 8), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        return launch(out, params, render_cuda.scene_tables(scene), counts, W=W, H=H,
-                      aliasing=aliasing, compat=compat, n_levels=n_levels, vis=vis,
-                      tree=tree, scale=scale)
+        return launch(out, params, render_cuda.scene_tables(scene), counts, W=lw, H=H,
+                      W_global=W, aliasing=aliasing, compat=compat, n_levels=n_levels,
+                      vis=vis, tree=tree, scale=scale)

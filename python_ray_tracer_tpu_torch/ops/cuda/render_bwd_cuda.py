@@ -19,6 +19,12 @@ columns or rows). Four kernel modes:
     backward kernel forms the loss and cotangent per pixel and runs the
     lattice's reverse chains.
 
+Every entry point takes the slice form of ``render_bwd._scene_grads_pallas``:
+``x_offset`` / ``local_width`` give the gradient partials (and, fused, the
+loss partial) of the columns ``[x_offset, x_offset + local_width)`` of the
+camera's frame, with rays from the frame's pixels and the frame's
+denominator, so the partials of a frame's slices sum to the frame's.
+
 The plain versions (:func:`scene_grads_plain`, :func:`loss_and_scene_grads_plain`)
 are ``torch.autograd`` of ``ops/render.py`` packed into the same layout;
 :func:`scene_grads_lattice_plain` is the AA cotangent form written as the
@@ -267,24 +273,29 @@ class Plan(NamedTuple):
     """One backward launch's shape: ``nt`` threads a block, ``cols`` (every
     slot in per-thread columns of shared memory; else the object and light
     slots in per-warp rows), ``blocks`` (the grid; block b walks tiles b, b +
-    blocks, ...), ``tiles`` (the most tiles a block walks) and the block's
-    shared memory in bytes."""
+    blocks, ...), ``tiles`` (the most tiles a block walks), the block's
+    shared memory in bytes and ``staged`` (the sphere table copied into
+    shared memory; else the global form reads it from device memory,
+    render_bwd_kernel.cuh's head)."""
     nt: int
     cols: bool
     blocks: int
     tiles: int
     smem: int
+    staged: bool = True
 
 
 def smem_bytes(ns: int, npl: int, nl: int, fused: bool, aa: bool, nt: int,
-               cols: bool) -> int:
+               cols: bool, staged: bool = True) -> int:
     """Shared memory of one block (``bwd_smem_words`` in
-    render_bwd_kernel.cuh): the scene, a tile's pixel cotangents with AA, and
-    the slot columns (``cols``) or the warps' rows of the object and light
-    slots beside the 18-19 tail slots' columns."""
+    render_bwd_kernel.cuh): the scene (the sphere table only when
+    ``staged``), a tile's pixel cotangents with AA, and the slot columns
+    (``cols``) or the warps' rows of the object and light slots beside the
+    18-19 tail slots' columns."""
     n = n_grads(ns, npl, nl, fused)
     mat = 7 * ns + 9 * npl + 3 * nl
-    words = render_cuda.N_PARAMS + mat + (6 * TILE * TILE if aa else 0)
+    words = render_cuda.N_PARAMS + mat - (0 if staged else 7 * ns) + \
+        (6 * TILE * TILE if aa else 0)
     words += n * nt if cols else (nt // 32) * mat + (n - mat) * nt
     return 4 * words
 
@@ -294,25 +305,38 @@ def n_tiles(W: int, H: int) -> int:
 
 
 def plan(ns: int, npl: int, nl: int, W: int, H: int, *, aa: bool, fused: bool,
-         large: bool, n_sm: int = H100_SMS, blocks_per_sm: int = BLOCKS_PER_SM) -> Plan:
-    """The backward launch for a scene and image, one rule: the most threads a
-    block (128, 64, 32) whose slot columns fit a block's shared memory, for a
-    small scene (``large`` False: the columns exist only in the small-scene
-    kernels); else the most threads whose per-warp rows fit. Then
-    ``blocks_per_sm`` blocks on each of ``n_sm`` multiprocessors (fewer where
-    their shared memory does not fit one), at most one a tile, the tiles dealt
-    out evenly. Raises ``ValueError`` where no plan fits."""
+         large: bool, n_sm: int = H100_SMS, blocks_per_sm: int = BLOCKS_PER_SM,
+         staged: bool | None = None) -> Plan:
+    """The backward launch for a scene and image. For a small scene (``large``
+    False: the slot columns exist only in the small-scene kernels, which
+    always stage the scene) the most threads a block (128, 64, 32) whose slot
+    columns fit a block's shared memory, else the most whose per-warp rows
+    fit. For a large scene, per-warp rows at the most threads a block that
+    either form fits, the staged form where both do: on the card the global
+    form is ~24% slower at the same threads, and 1.4-1.6x faster at twice
+    the staged form's threads (1000-4080 spheres; chip_smoke.py phase 22
+    ``[repair-form]``, PERF.md §6). Then ``blocks_per_sm`` blocks on each of
+    ``n_sm`` multiprocessors (fewer where their shared memory does not fit
+    one), at most one a tile, the tiles dealt out evenly. ``W``: the launch's
+    (a slice's) width. ``staged`` True or False: that form's plan alone (the
+    global form only for a large scene). Raises ``ValueError`` where no plan
+    fits."""
+    forms = (True, False) if large else (True,)
+    forms = forms if staged is None else tuple(f for f in forms if f == staged)
     for cols in ((False,) if large else (True, False)):
         for nt in (128, 64, 32):
-            smem = smem_bytes(ns, npl, nl, fused, aa, nt, cols)
-            if smem > SMEM_LIMIT:
-                continue
-            per_sm = max(1, min(blocks_per_sm, SM_SMEM // (smem + 1024)))
-            tiles = math.ceil(n_tiles(W, H) / min(n_tiles(W, H), n_sm * per_sm))
-            return Plan(nt, cols, math.ceil(n_tiles(W, H) / tiles), tiles, smem)
+            for form in forms:
+                smem = smem_bytes(ns, npl, nl, fused, aa, nt, cols, form)
+                if smem > SMEM_LIMIT:
+                    continue
+                per_sm = max(1, min(blocks_per_sm, SM_SMEM // (smem + 1024)))
+                tiles = math.ceil(n_tiles(W, H) / min(n_tiles(W, H), n_sm * per_sm))
+                return Plan(nt, cols, math.ceil(n_tiles(W, H) / tiles), tiles, smem,
+                            form)
     raise ValueError(f"scene (ns={ns}, npl={npl}, nl={nl}) needs "
-                     f"{smem_bytes(ns, npl, nl, fused, aa, 32, False)} B of shared memory "
-                     f"in the backward kernel, a block has at most {SMEM_LIMIT} B")
+                     f"{smem_bytes(ns, npl, nl, fused, aa, 32, False, not large)} B of "
+                     f"shared memory in the backward kernel, a block has at most "
+                     f"{SMEM_LIMIT} B")
 
 
 # --- the AA lattice -----------------------------------------------------------------
@@ -341,17 +365,22 @@ def _lattice_grid():
     return torch.cat(parts)                                  # (1089, 2): k + d
 
 
-def tile_origins(W: int, H: int, device=None) -> torch.Tensor:
-    """Float ``(n_tiles, 2)`` tile corners (x0, y0), x tiles outermost."""
+def tile_origins(W: int, H: int, device=None, x_offset: int = 0) -> torch.Tensor:
+    """Float ``(n_tiles, 2)`` tile corners (x0, y0), x tiles outermost, of a
+    ``W`` x ``H`` image, or of a slice ``W`` wide whose first column is the
+    frame's ``x_offset`` (corners in the frame's pixels)."""
     tx, ty = torch.meshgrid(torch.arange(math.ceil(W / TILE)),
                             torch.arange(math.ceil(H / TILE)), indexing="ij")
-    return (TILE * torch.stack([tx.reshape(-1), ty.reshape(-1)], dim=-1)).float().to(device)
+    corners = (TILE * torch.stack([tx.reshape(-1), ty.reshape(-1)], dim=-1)).float()
+    return (corners + torch.tensor([float(x_offset), 0.0])).to(device)
 
 
-def lattice_positions(W: int, H: int, device=None) -> torch.Tensor:
+def lattice_positions(W: int, H: int, device=None, x_offset: int = 0) -> torch.Tensor:
     """Float ``(n_tiles, 1089, 2)``: every tile's lattice sample positions in
-    pixel-index space, (x0 + kx + du, y0 + ky + dv)."""
-    return tile_origins(W, H, device)[:, None, :] + _lattice_grid().to(device)[None]
+    pixel-index space, (x0 + kx + du, y0 + ky + dv) (a slice's: the frame's
+    pixels, :func:`tile_origins`)."""
+    return (tile_origins(W, H, device, x_offset)[:, None, :]
+            + _lattice_grid().to(device)[None])
 
 
 def _tiled(img: torch.Tensor, W: int, H: int) -> torch.Tensor:
@@ -363,9 +392,13 @@ def _tiled(img: torch.Tensor, W: int, H: int) -> torch.Tensor:
         tx * ty, TILE, TILE, -1)
 
 
-def _interior(W: int, H: int, device) -> torch.Tensor:
+def _interior(W: int, H: int, device, x_offset: int = 0,
+              W_global: int | None = None) -> torch.Tensor:
+    """``(W, H, 1)``: the pixels inside the frame's border ring, for a slice
+    ``W`` wide at the frame's ``x_offset`` of a frame ``W_global`` wide."""
+    Wg = W if W_global is None else W_global
     m = torch.zeros((W, H, 1), dtype=torch.bool, device=device)
-    m[1:W - 1, 1:H - 1] = True
+    m[max(1 - x_offset, 0):max(Wg - 1 - x_offset, 0), 1:H - 1] = True
     return m
 
 
@@ -373,13 +406,15 @@ def _swap(x: torch.Tensor, compat: bool) -> torch.Tensor:
     return x[..., [0, 2, 1]] if compat else x
 
 
-def lattice_cotangents(g: torch.Tensor, W: int, H: int, compat: bool) -> torch.Tensor:
+def lattice_cotangents(g: torch.Tensor, W: int, H: int, compat: bool, x_offset: int = 0,
+                       W_global: int | None = None) -> torch.Tensor:
     """Pixel cotangents ``g (W, H, 3)`` (the stored layout) -> the lattice
     chains' cotangents ``(n_tiles, 1089, 3)`` in sample color space: each
     chain's is the sum of the shares of the in-tile pixels whose 3x3 stencil
     holds it, the adjoint of :func:`lattice_combine` (the kernels' COT_AA and
-    FUSED_AA cotangents, csrc/render_bwd_kernel.cuh)."""
-    inside = _interior(W, H, g.device)
+    FUSED_AA cotangents, csrc/render_bwd_kernel.cuh). ``x_offset`` /
+    ``W_global``: ``g`` is the slice of a wider frame at that offset."""
+    inside = _interior(W, H, g.device, x_offset, W_global)
     centre = _tiled(_swap(torch.where(inside, g * INV9, g), compat), W, H)
     nb = _tiled(torch.where(inside, g * INV9, torch.zeros_like(g)), W, H)
     T = centre.shape[0]
@@ -392,10 +427,12 @@ def lattice_cotangents(g: torch.Tensor, W: int, H: int, compat: bool) -> torch.T
     return torch.cat([p.reshape(T, -1, 3) for p in (centre, u, v, uv)], dim=1)
 
 
-def lattice_combine(samples: torch.Tensor, W: int, H: int, compat: bool) -> torch.Tensor:
+def lattice_combine(samples: torch.Tensor, W: int, H: int, compat: bool, x_offset: int = 0,
+                    W_global: int | None = None) -> torch.Tensor:
     """The forward's combine in plain torch: lattice sample colors
     ``(n_tiles, 1089, 3)`` -> the stored ``(W, H, 3)`` image, as
-    render_fwd_kernel.cuh's AA_SHARED forms it."""
+    render_fwd_kernel.cuh's AA_SHARED forms it (of a slice, as
+    :func:`lattice_cotangents`)."""
     T = samples.shape[0]
     c, u, v, uv = torch.split(samples, [TILE * TILE, (TILE + 1) * TILE,
                                         TILE * (TILE + 1), (TILE + 1) ** 2], dim=1)
@@ -411,7 +448,8 @@ def lattice_combine(samples: torch.Tensor, W: int, H: int, compat: bool) -> torc
         return t.reshape(tx, ty, TILE, TILE, 3).permute(0, 2, 1, 3, 4).reshape(
             tx * TILE, ty * TILE, 3)[:W, :H]
     centre, nsum = untile(_swap(c, compat)), untile(n)
-    return torch.where(_interior(W, H, samples.device), (centre + nsum) * INV9, centre)
+    return torch.where(_interior(W, H, samples.device, x_offset, W_global),
+                       (centre + nsum) * INV9, centre)
 
 
 # --- the plain version: autograd of ops/render.py --------------------------------
@@ -430,41 +468,60 @@ def _autograd_flat(camera, scene, objective):
 
 
 def scene_grads_plain(camera, scene, g_image, *, depth: int = 2, compat: bool = True,
-                      aliasing: bool = False) -> torch.Tensor:
+                      aliasing: bool = False, x_offset: int = 0,
+                      local_width: int | None = None) -> torch.Tensor:
     """Plain version of the cotangent modes: the vector-Jacobian product of
-    ``render_image`` with ``g_image (w, h, 3)``, as a flat vector of
-    :func:`grad_layout` (camera slots included)."""
+    ``render_image`` (of the slice ``x_offset`` / ``local_width``) with
+    ``g_image (w, h, 3)``, as a flat vector of :func:`grad_layout` (camera
+    slots included)."""
     PLAIN_CALLS["scene_grads"] += 1
 
     def objective(cam, sc):
-        img = render_image(cam, sc, depth=depth, aliasing=aliasing, compat=compat)
+        img = render_image(cam, sc, depth=depth, aliasing=aliasing, compat=compat,
+                           x_offset=x_offset, local_width=local_width)
         return (img * g_image.detach()).sum(), None
     return _autograd_flat(camera, scene, objective)
 
 
+def slice_mse(img: torch.Tensor, target: torch.Tensor, width: int) -> torch.Tensor:
+    """A slice's part of the frame's MSE: ``sum((img - target)^2)`` over the
+    frame's ``width * h * 3`` elements (``torch.mean`` where the slice is the
+    frame), so that the parts of a frame's slices sum to its MSE."""
+    d2 = (img - target) ** 2
+    if img.shape[0] == width:
+        return torch.mean(d2)
+    return d2.sum() / (width * img.shape[1] * img.shape[2])
+
+
 def loss_and_scene_grads_plain(camera, scene, target, *, depth: int = 2,
-                               compat: bool = True, aliasing: bool = False) -> torch.Tensor:
+                               compat: bool = True, aliasing: bool = False,
+                               x_offset: int = 0,
+                               local_width: int | None = None) -> torch.Tensor:
     """Plain version of the fused modes: ``mean((render - target)^2)`` and its
-    gradient, as a flat vector with the loss in the trailing slot."""
+    gradient, as a flat vector with the loss in the trailing slot; for a
+    slice, its part of the frame's MSE (:func:`slice_mse`)."""
     PLAIN_CALLS["loss_and_scene_grads"] += 1
 
     def objective(cam, sc):
-        img = render_image(cam, sc, depth=depth, aliasing=aliasing, compat=compat)
-        loss = torch.mean((img - target.detach()) ** 2)
+        img = render_image(cam, sc, depth=depth, aliasing=aliasing, compat=compat,
+                           x_offset=x_offset, local_width=local_width)
+        loss = slice_mse(img, target.detach(), camera.resolution[0])
         return loss, loss
     return _autograd_flat(camera, scene, objective)
 
 
 def scene_grads_lattice_plain(camera, scene, g_image, *, depth: int = 2,
-                              compat: bool = True) -> torch.Tensor:
+                              compat: bool = True, x_offset: int = 0) -> torch.Tensor:
     """The AA cotangent form as the kernel computes it, in plain torch: the
     lattice chains' colors (``render_rays`` at :func:`lattice_positions`)
     weighted by :func:`lattice_cotangents`, differentiated by autograd; chains
     whose cotangent is 0 are left out, as the kernel leaves them. Equal to
-    :func:`scene_grads_plain` with ``aliasing`` up to float rounding."""
-    W, H = camera.resolution
-    pos = lattice_positions(W, H, g_image.device).reshape(-1, 2)
-    cot = lattice_cotangents(g_image.detach(), W, H, compat).reshape(-1, 3)
+    :func:`scene_grads_plain` with ``aliasing`` up to float rounding.
+    ``g_image``: the frame's cotangent, or the slice's at ``x_offset``."""
+    Wg, H = camera.resolution
+    W = g_image.shape[0]
+    pos = lattice_positions(W, H, g_image.device, x_offset).reshape(-1, 2)
+    cot = lattice_cotangents(g_image.detach(), W, H, compat, x_offset, Wg).reshape(-1, 3)
     live = (cot != 0).any(dim=-1)
     pos, cot = pos[live], cot[live]
 
@@ -475,14 +532,14 @@ def scene_grads_lattice_plain(camera, scene, g_image, *, depth: int = 2,
 
 # --- the kernel ------------------------------------------------------------------
 
-def _check(camera, scene, image, depth: int, name: str):
+def _check(camera, scene, image, depth: int, name: str, lw: int):
     dev = camera.position.device
     if dev.type != "cuda":
         raise ValueError(f"the backward wrappers take CPU or CUDA tensors, got {dev}")
     if not 0 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must be in [0, {MAX_DEPTH}], got {depth}")
     render_cuda._check_inputs(camera, scene, dev)
-    W, H = camera.resolution
+    W, H = lw, camera.resolution[1]
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")
     if image.device != dev or image.dtype != torch.float32:
@@ -496,14 +553,16 @@ def _check(camera, scene, image, depth: int, name: str):
 
 def launch(out, partial, params, tables, counts, *, image, target, W: int, H: int,
            depth: int, mode: str, compat: bool, cheap_shadow: bool,
-           shape: Plan, lib=None) -> torch.Tensor:
+           shape: Plan, lib=None, W_global: int | None = None) -> torch.Tensor:
     """Launch the backward kernel and its reduction on the current stream, for
     inputs already packed and checked: ``out (n_grads,)``, ``partial
     (n_grads * shape.blocks,)``, ``params``, the ``scene_tables``, the object
     counts, ``image`` (the cotangent, or the rendered image in ``fused_aa``;
     None in ``fused_noaa``) and ``target`` (fused modes; else None), all
     float32, contiguous, on the current device, and the launch's
-    :class:`Plan`. A scene of more than ``render_cuda.CULL_MIN_SPHERES``
+    :class:`Plan` (its ``staged`` picks the form). ``W``: the slice's width
+    where ``W_global`` (the frame's, default ``W``) is wider, its offset the
+    packed ``P_X0``. A scene of more than ``render_cuda.CULL_MIN_SPHERES``
     spheres runs the kernel compiled in the arithmetic of the render kernel's
     large-scene instantiation, so that it recomputes that render's own hits.
     ``lib``: a kernel library other than the package's (one built with other
@@ -516,8 +575,9 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
         None if image is None else image.data_ptr(),
         None if target is None else target.data_ptr(), partial.data_ptr(), shape.blocks,
-        out.shape[0], W, H, depth, MODES.index(mode), int(compat), int(cheap_shadow),
-        int(ns > render_cuda.CULL_MIN_SPHERES), shape.nt, int(shape.cols), stream)
+        out.shape[0], W, H, W if W_global is None else W_global, depth, MODES.index(mode),
+        int(compat), int(cheap_shadow), int(ns > render_cuda.CULL_MIN_SPHERES), shape.nt,
+        int(shape.cols), int(shape.staged), stream)
     if rc == 0:
         rc = lib.rt_reduce_rows(partial.data_ptr(), shape.blocks, out.shape[0],
                                 out.data_ptr(), stream)
@@ -528,73 +588,86 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
     return out
 
 
-def launch_plan(camera, scene, mode: str) -> Plan:
-    """:func:`plan` for a launch of ``mode`` on this camera's image and scene,
-    on the current card's multiprocessors."""
+def launch_plan(camera, scene, mode: str, local_width: int | None = None,
+                staged: bool | None = None) -> Plan:
+    """:func:`plan` for a launch of ``mode`` on this camera's image (or a
+    slice ``local_width`` wide) and scene, on the current card's
+    multiprocessors (``staged``: as for :func:`plan`)."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     W, H = camera.resolution
+    W = W if local_width is None else local_width
     n_sm = torch.cuda.get_device_properties(camera.position.device).multi_processor_count
     return plan(ns, npl, nl, W, H, aa=mode.endswith("_aa"), fused=mode.startswith("fused"),
-                large=ns > render_cuda.CULL_MIN_SPHERES, n_sm=n_sm)
+                large=ns > render_cuda.CULL_MIN_SPHERES, n_sm=n_sm, staged=staged)
 
 
-def _run(camera, scene, image, target, *, depth, compat, mode):
+def _run(camera, scene, image, target, *, depth, compat, mode, x_offset=0, lw=None):
     dev = camera.position.device
-    W, H = camera.resolution
+    Wg, H = camera.resolution
+    W = Wg if lw is None else lw
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
     n = n_grads(*counts, mode.startswith("fused"))
-    shape = launch_plan(camera, scene, mode)
+    shape = launch_plan(camera, scene, mode, W)
     with torch.cuda.device(dev), torch.no_grad():
-        params = render_cuda.pack_params(camera, scene, compat).to(dev)
+        params = render_cuda.pack_params(camera, scene, compat, x_offset).to(dev)
         tables = render_cuda.scene_tables(scene)
         cheap = render_cuda.shadow_cheap_ok(scene, compat)
         if mode == "fused_aa":
             image = render_cuda.launch(torch.empty((W, H, 3), device=dev), params,
                                        tables, counts, depth=depth, mode="aa_shared",
-                                       compat=compat, cheap_shadow=cheap)
+                                       compat=compat, cheap_shadow=cheap, W_global=Wg)
         out = torch.empty(n, device=dev)
         partial = torch.empty(n * shape.blocks, device=dev)
         return launch(out, partial, params, tables, counts,
                       image=None if image is None else image.contiguous(),
                       target=None if target is None else target.contiguous(),
                       W=W, H=H, depth=depth, mode=mode, compat=compat,
-                      cheap_shadow=cheap, shape=shape)
+                      cheap_shadow=cheap, shape=shape, W_global=Wg)
 
 
 def scene_grads_cuda(camera, scene, g_image, *, depth: int = 2, compat: bool = True,
-                     aliasing: bool = False, return_camera: bool = False):
+                     aliasing: bool = False, return_camera: bool = False,
+                     x_offset: int = 0, local_width: int | None = None):
     """Image cotangent ``(w, h, 3)`` -> ``Scene`` gradients (with
     ``return_camera``: ``(scene_g, camera_g)``), as
-    ``render_bwd.scene_grads_pallas``. CPU tensors take
-    :func:`scene_grads_plain`; CUDA tensors launch ``cot_aa`` (with
-    ``aliasing``) or ``cot_noaa``."""
+    ``render_bwd.scene_grads_pallas``; with ``x_offset`` / ``local_width`` the
+    cotangent is the slice's ``(local_width, h, 3)`` and the gradients its
+    partials. CPU tensors take :func:`scene_grads_plain`; CUDA tensors launch
+    ``cot_aa`` (with ``aliasing``) or ``cot_noaa``."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    lw = render_cuda.slice_width(camera, x_offset, local_width)
     if camera.position.device.type == "cpu":
         flat = scene_grads_plain(camera, scene, g_image, depth=depth, compat=compat,
-                                 aliasing=aliasing)
+                                 aliasing=aliasing, x_offset=x_offset, local_width=lw)
     else:
-        _check(camera, scene, g_image, depth, "g_image")
+        _check(camera, scene, g_image, depth, "g_image", lw)
         flat = _run(camera, scene, g_image, None, depth=depth, compat=compat,
-                    mode="cot_aa" if aliasing else "cot_noaa")
+                    mode="cot_aa" if aliasing else "cot_noaa", x_offset=x_offset, lw=lw)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=False)
 
 
 def loss_and_scene_grads_cuda(camera, scene, target, *, depth: int = 2,
                               compat: bool = True, aliasing: bool = False,
-                              return_camera: bool = False):
+                              return_camera: bool = False, x_offset: int = 0,
+                              local_width: int | None = None):
     """The training step's ``(loss, scene_g)`` (with ``return_camera``:
     ``(loss, scene_g, camera_g)``) for ``loss = mean((render - target)^2)``,
-    as ``render_bwd.loss_and_scene_grads_pallas``. CPU tensors take
+    as ``render_bwd.loss_and_scene_grads_pallas``; with ``x_offset`` /
+    ``local_width``, ``target`` is the slice's and the loss and gradients its
+    partials over the frame's denominator. CPU tensors take
     :func:`loss_and_scene_grads_plain`; CUDA tensors launch ``fused_noaa``, or
     with ``aliasing`` the ``aa_shared`` render and then ``fused_aa``."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    lw = render_cuda.slice_width(camera, x_offset, local_width)
     if camera.position.device.type == "cpu":
         flat = loss_and_scene_grads_plain(camera, scene, target, depth=depth,
-                                          compat=compat, aliasing=aliasing)
+                                          compat=compat, aliasing=aliasing,
+                                          x_offset=x_offset, local_width=lw)
     else:
-        _check(camera, scene, target, depth, "target")
+        _check(camera, scene, target, depth, "target", lw)
         flat = _run(camera, scene, None, target, depth=depth, compat=compat,
-                    mode="fused_aa" if aliasing else "fused_noaa")
+                    mode="fused_aa" if aliasing else "fused_noaa", x_offset=x_offset,
+                    lw=lw)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=True)

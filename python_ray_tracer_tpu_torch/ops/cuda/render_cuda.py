@@ -27,7 +27,12 @@ the image is bit-identical to the full sweep's.
 :func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
 tensors on the CPU; for CUDA tensors it launches the kernels or raises. Camera,
 grid and material scalars are packed on the host into the TPU kernel's ``_P_*``
-parameter layout (:func:`pack_params`). :func:`render_image_fast` is the
+parameter layout (:func:`pack_params`). Every entry point takes the slice form
+of ``render_pallas._render_image_pallas``: ``x_offset`` and ``local_width``
+render columns ``[x_offset, x_offset + local_width)`` of the camera's frame,
+with rays from the frame's pixel indices and the frame's border ring, so
+frames stitched from slices equal the whole frame bit for bit (the
+ray-parallel package, ``parallel/``). :func:`render_image_fast` is the
 differentiable form (``render_pallas.render_image_fast``): the render kernel
 forward, the backward kernel (``render_bwd_cuda``) for its gradient.
 """
@@ -56,7 +61,7 @@ P_FOCAL = 12
 P_Y0, P_DY, P_Z0, P_DZ = 13, 14, 15, 16
 P_AMB, P_LAMB, P_REFL = 17, 18, 19
 P_SPEC, P_SHIN = 20, 21   # Phong specular/shininess (clean mode only)
-P_X0 = 22         # x offset of a ray-parallel slice: packed as 0, not read
+P_X0 = 22         # global x of a ray-parallel slice's first column
 P_OFFS = 23       # 2*9: AA offsets
 N_PARAMS = P_OFFS + 2 * len(AA_OFFSETS)
 
@@ -81,9 +86,24 @@ def reset_launch_counts() -> None:
         LAUNCHES[m] = 0
 
 
-def pack_params(camera, scene, compat: bool) -> torch.Tensor:
+def slice_width(camera, x_offset: int = 0, local_width: int | None = None) -> int:
+    """The width of the slice ``[x_offset, x_offset + local_width)`` of the
+    camera's frame (``local_width`` None: the frame's width, as the JAX
+    wrappers take it); raises ``ValueError`` for a slice that is not whole
+    columns inside the frame."""
+    W = camera.resolution[0]
+    lw = W if local_width is None else local_width
+    if int(x_offset) != x_offset or int(lw) != lw or x_offset < 0 or lw < 1 or \
+            x_offset + lw > W:
+        raise ValueError(f"slice [{x_offset}, {x_offset} + {lw}) is not inside the "
+                         f"frame's {W} columns")
+    return int(lw)
+
+
+def pack_params(camera, scene, compat: bool, x_offset: int = 0) -> torch.Tensor:
     """The 41-float parameter vector (``render_pallas._pack_params``), computed
-    on the CPU in float32 whatever the device of the inputs."""
+    on the CPU in float32 whatever the device of the inputs; ``x_offset`` is
+    the global x of a slice's first column (``P_X0``)."""
     cam = camera.to("cpu")
     m = scene.materials
     focal, y0, dy, z0, dz = cam.grid_params(compat)
@@ -92,7 +112,7 @@ def pack_params(camera, scene, compat: bool) -> torch.Tensor:
     return torch.cat([
         cam.position.float(), cam.rotation.float().reshape(-1),
         torch.stack([focal, y0, dy, z0, dz]), mats,
-        torch.zeros(1, dtype=torch.float32),
+        torch.tensor([float(x_offset)], dtype=torch.float32),
         torch.tensor(AA_OFFSETS, dtype=torch.float32).reshape(-1)])
 
 
@@ -180,7 +200,8 @@ def _check_inputs(camera, scene, dev, tree: bool = False):
 def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: bool,
                        cull: bool = True, shadow_lists: bool | None = None,
                        group_cull: bool | None = None, K: int | None = None,
-                       packed=None, light_cells: bool = True):
+                       packed=None, light_cells: bool = True, x_offset: int = 0,
+                       local_width: int | None = None):
     """The render kernel's tables for this frame: ``(vis, shadow, tree,
     cells)``, ``(idx, cnt, k)``, ``(idx, cnt, k)``, a
     ``cull_tables.BounceTree`` and a ``light_cells_cuda.LightCells``, each
@@ -200,7 +221,10 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     ``cull_tables.list_capacity``; the light cells' slots are the kernels'
     constant). ``packed``: the caller's ``(params, scene_tables, counts)`` for
     checked CUDA inputs, which the hit-extent and light-cell launches then
-    share instead of packing them again."""
+    share instead of packing them again. ``x_offset`` / ``local_width``: the
+    tables of that slice's tiles (its primary lists from cones in the frame's
+    pixels, its hit extents at the frame's positions); the bounce tree and
+    the light cells depend on the scene alone and are the frame's."""
     from . import hit_extents_cuda as hx
     from .light_cells_cuda import light_cells_cuda
     from .shadow_lists_cuda import shadow_lists_cuda
@@ -208,8 +232,10 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     rolled = ns > CULL_MIN_SPHERES
     k = cull_tables.list_capacity(ns) if K is None else min(K, ns)
     vis = shadow = tree = cells = None
+    lw = slice_width(camera, x_offset, local_width)
     if cull and rolled:
-        vis = (*cull_tables.tile_visibility(camera, scene, compat=compat, K=k), k)
+        vis = (*cull_tables.tile_visibility(camera, scene, compat=compat, K=k,
+                                            x_offset=x_offset, local_width=lw), k)
     if uses_tree(ns, depth, group_cull):
         tree = cull_tables.bounce_tree(scene.spheres.center, scene.spheres.radius)
     lists = (shadow_lists is None or shadow_lists) and rolled and nl > 0
@@ -220,14 +246,15 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
         scale = torch.empty(1, dtype=torch.float32, device=camera.device)
         if packed is None:
             ext = hx.hit_extents_cuda(camera, scene, aliasing=aliasing, compat=compat,
-                                      n_levels=1, vis=vis, scale=scale)
+                                      n_levels=1, vis=vis, scale=scale, x_offset=x_offset,
+                                      local_width=lw)
         else:
             W, H = camera.resolution
-            n_tx, n_ty = cull_tables.tile_grid(W, H)
+            n_tx, n_ty = cull_tables.tile_grid(lw, H)
             ext = hx.launch(torch.empty((n_tx * n_ty, 8), dtype=torch.float32,
-                                        device=camera.device), *packed, W=W, H=H,
-                            aliasing=aliasing, compat=compat, n_levels=1, vis=vis,
-                            scale=scale)
+                                        device=camera.device), *packed, W=lw, H=H,
+                            W_global=W, aliasing=aliasing, compat=compat, n_levels=1,
+                            vis=vis, scale=scale)
         shadow = (*shadow_lists_cuda(ext, scale, scene.lights.position, scene.spheres.center,
                                      scene.spheres.radius, K=k, compat=compat), k)
     return vis, shadow, tree, cells
@@ -236,8 +263,11 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
 def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
                       compat: bool = True, aa_share: bool = True, cull: bool = True,
                       shadow_lists: bool | None = None,
-                      group_cull: bool | None = None) -> torch.Tensor:
-    """Render -> float ``(w, h, 3)`` image, as :func:`..render.render_image`.
+                      group_cull: bool | None = None, x_offset: int = 0,
+                      local_width: int | None = None) -> torch.Tensor:
+    """Render -> float ``(w, h, 3)`` image, as :func:`..render.render_image`;
+    with ``x_offset`` / ``local_width`` the ``(local_width, h, 3)`` slice of
+    it at those columns (``render_pallas.render_image_pallas``'s).
 
     CPU tensors take the plain PyTorch version, whatever the cull keywords
     say. CUDA tensors launch the kernel on the current stream (mode
@@ -245,23 +275,26 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
     without sharing, else ``aa_none``), after the hit-extent and list kernels
     where the shadow lists are on. ``cull``, ``shadow_lists`` and
     ``group_cull`` are the JAX wrapper's (:func:`large_scene_tables`); none changes a pixel."""
+    lw = slice_width(camera, x_offset, local_width)
     if camera.position.device.type == "cpu":
         return render_image(camera, scene, depth=depth, aliasing=aliasing,
-                            compat=compat)
+                            compat=compat, x_offset=x_offset, local_width=lw)
     mode = ("aa_shared" if aa_share else "aa_per_sample") if aliasing else "aa_none"
     return render_packed(camera, scene, packed_inputs(camera, scene, depth=depth,
-                                                      compat=compat, group_cull=group_cull),
+                                                      compat=compat, group_cull=group_cull,
+                                                      x_offset=x_offset),
                          depth=depth, mode=mode, compat=compat, cull=cull,
-                         shadow_lists=shadow_lists, group_cull=group_cull)
+                         shadow_lists=shadow_lists, group_cull=group_cull,
+                         x_offset=x_offset, local_width=lw)
 
 
 def packed_inputs(camera, scene, *, depth: int, compat: bool,
-                  group_cull: bool | None = None):
+                  group_cull: bool | None = None, x_offset: int = 0):
     """Check CUDA inputs (device, dtype, shapes, depth, resolution, the shared
     memory a block stages, the bounce tree counted where :func:`uses_tree`)
     and pack them for the kernels: ``(params, tables, counts)``, the parameter
-    vector and :func:`scene_tables` on the camera's device and ``(ns, npl,
-    nl)``."""
+    vector (``x_offset`` in ``P_X0``) and :func:`scene_tables` on the camera's
+    device and ``(ns, npl, nl)``."""
     dev = camera.position.device
     if dev.type != "cuda":
         raise ValueError(f"the render kernels take CPU or CUDA tensors, got {dev}")
@@ -271,41 +304,48 @@ def packed_inputs(camera, scene, *, depth: int, compat: bool,
     W, H = camera.resolution
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")
-    return (pack_params(camera, scene, compat).to(dev), scene_tables(scene),
+    slice_width(camera, x_offset, W - x_offset)
+    return (pack_params(camera, scene, compat, x_offset).to(dev), scene_tables(scene),
             (scene.spheres.count, scene.planes.count, scene.lights.count))
 
 
 def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
                   cull: bool = True, shadow_lists: bool | None = None,
-                  group_cull: bool | None = None, tabs=None) -> torch.Tensor:
+                  group_cull: bool | None = None, tabs=None, x_offset: int = 0,
+                  local_width: int | None = None) -> torch.Tensor:
     """:func:`render_image_cuda`'s CUDA path on :func:`packed_inputs`: the
     large-scene tables (with the hit-extent and list kernels where the shadow
     lists are on; ``tabs``, :func:`large_scene_tables`' result, where the
-    caller has them already), then one launch of the render kernel in ``mode``."""
+    caller has them already), then one launch of the render kernel in
+    ``mode``. ``x_offset`` / ``local_width``: the slice, whose offset the
+    packed parameters must hold (:func:`packed_inputs`)."""
     params, tables, counts = packed
     dev = params.device
     W, H = camera.resolution
-    out = torch.empty((W, H, 3), dtype=torch.float32, device=dev)
+    lw = slice_width(camera, x_offset, local_width)
+    out = torch.empty((lw, H, 3), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         vis, shadow, tree, cells = tabs if tabs is not None else large_scene_tables(
             camera, scene, depth=depth, aliasing=mode != "aa_none", compat=compat,
-            cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed)
+            cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed,
+            x_offset=x_offset, local_width=lw)
         return launch(out, params, tables, counts, depth=depth,
                       mode=mode, compat=compat,
                       cheap_shadow=shadow_cheap_ok(scene, compat), vis=vis,
-                      shadow=shadow, tree=tree, cells=cells)
+                      shadow=shadow, tree=tree, cells=cells, W_global=W)
 
 
 def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
            cheap_shadow: bool, vis=None, shadow=None, tree=None,
-           cells=None) -> torch.Tensor:
+           cells=None, W_global: int | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked by :func:`packed_inputs`: ``out (W, H, 3)``, ``params
     (N_PARAMS,)``, the :func:`scene_tables` and the object counts
     ``(ns, npl, nl)``, all tensors float32 and contiguous on the current
     device; ``vis``, ``shadow``, ``tree`` and ``cells`` as
     :func:`large_scene_tables` returns them (int32 lists for 16x16 tiles,
-    checked here). A scene of more
+    checked here). ``W_global``: the frame's width where ``out`` is a slice
+    of it (at the packed ``P_X0``; default ``out``'s width). A scene of more
     than :data:`CULL_MIN_SPHERES` spheres runs the kernel's large-scene
     instantiation whichever tables are on, so a render with every table off
     differs from a culled one only in the sweeps. Counts the launch in
@@ -314,6 +354,7 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
     from .hit_extents_cuda import check_tables, table_args
     lib = load_library()
     W, H = out.shape[0], out.shape[1]
+    Wg = W if W_global is None else W_global
     (sph, pln, lts), (ns, npl, nl) = tables, counts
     n_tx, n_ty = cull_tables.tile_grid(W, H)
     check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=out.device,
@@ -321,7 +362,7 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
     v, sh, g, c = table_args(vis, shadow, tree, cells)
     rc = lib.rt_render_fwd(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
-        lts.data_ptr(), nl, out.data_ptr(), W, H, depth,
+        lts.data_ptr(), nl, out.data_ptr(), W, H, Wg, depth,
         MODES.index(mode), int(compat), int(cheap_shadow),
         int(ns > CULL_MIN_SPHERES), *v, *sh, *g, *c,
         ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))

@@ -20,7 +20,9 @@ Both fill the camera slots; the ``refl``, ``spec`` and ``shin`` slots stay 0
 (:func:`soft_scene_grads_plain`, :func:`soft_loss_and_grads_plain`) are
 ``torch.autograd`` of ``ops/soft.py`` packed into the same layout; the
 wrappers take them for tensors on the CPU only, and for CUDA tensors launch the
-kernel or raise.
+kernel or raise. Every entry point takes the slice form of
+``soft_bwd._soft_grads_pallas`` (``x_offset`` / ``local_width``: a slice's
+partials over the frame's denominator, as ``render_bwd_cuda``'s).
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ import torch
 
 from ..soft import render_image_soft
 from . import render_cuda, soft_cuda
-from .render_bwd_cuda import _autograd_flat, grad_groups, n_grads, unflatten_grads
+from .render_bwd_cuda import (_autograd_flat, grad_groups, n_grads, slice_mse,
+                              unflatten_grads)
 
 MODES = ("cot", "fused")
 # Kernel launches per mode and plain-version calls; plain counters, reset with
@@ -55,31 +58,37 @@ def reset_launch_counts() -> None:
 
 def soft_scene_grads_plain(camera, scene, g_image, *, tau: float = 0.05,
                            row_chunk: int | None = None,
-                           bounce_depth: int = 0) -> torch.Tensor:
+                           bounce_depth: int = 0, x_offset: int = 0,
+                           local_width: int | None = None) -> torch.Tensor:
     """Plain version of the cotangent mode: the vector-Jacobian product of
-    ``render_image_soft`` with ``g_image (w, h, 3)``, as a flat vector of
-    ``grad_layout`` (camera slots included). ``row_chunk`` bounds its memory
-    (checkpointed blocks, :func:`..soft.render_image_soft`)."""
+    ``render_image_soft`` (of the slice ``x_offset`` / ``local_width``) with
+    ``g_image (w, h, 3)``, as a flat vector of ``grad_layout`` (camera slots
+    included). ``row_chunk`` bounds its memory (checkpointed blocks,
+    :func:`..soft.render_image_soft`)."""
     PLAIN_CALLS["soft_scene_grads"] += 1
 
     def objective(cam, sc):
         img = render_image_soft(cam, sc, tau=tau, row_chunk=row_chunk,
-                                bounce_depth=bounce_depth)
+                                bounce_depth=bounce_depth, x_offset=x_offset,
+                                local_width=local_width)
         return (img * g_image.detach()).sum(), None
     return _autograd_flat(camera, scene, objective)
 
 
 def soft_loss_and_grads_plain(camera, scene, target, *, tau: float = 0.05,
                               row_chunk: int | None = None,
-                              bounce_depth: int = 0) -> torch.Tensor:
+                              bounce_depth: int = 0, x_offset: int = 0,
+                              local_width: int | None = None) -> torch.Tensor:
     """Plain version of the fused mode: ``mean((render - target)^2)`` and its
-    gradient, as a flat vector with the loss in the trailing slot."""
+    gradient, as a flat vector with the loss in the trailing slot; for a
+    slice, its part of the frame's MSE (``render_bwd_cuda.slice_mse``)."""
     PLAIN_CALLS["soft_loss_and_grads"] += 1
 
     def objective(cam, sc):
         img = render_image_soft(cam, sc, tau=tau, row_chunk=row_chunk,
-                                bounce_depth=bounce_depth)
-        loss = torch.mean((img - target.detach()) ** 2)
+                                bounce_depth=bounce_depth, x_offset=x_offset,
+                                local_width=local_width)
+        loss = slice_mse(img, target.detach(), camera.resolution[0])
         return loss, loss
     return _autograd_flat(camera, scene, objective)
 
@@ -129,55 +138,65 @@ class Plan(NamedTuple):
     """One soft backward launch's shape: ``nt`` threads a block (16 along y),
     ``cap`` live objects a pixel keeps in its table at once, ``cj`` spheres a
     window of the lane-private slab, ``store_vis`` (the table keeps one
-    transmission a light) and the block's shared memory in bytes."""
+    transmission a light), the block's shared memory in bytes and ``staged``
+    (the sphere table and three values a sphere in shared memory; else the
+    global form reads the table from device memory and computes the values
+    where it needs them, soft_bwd.cu)."""
     nt: int
     cap: int
     cj: int
     store_vis: bool
     smem: int
+    staged: bool = True
 
 
 N_TFIXED = 6                 # table fields besides the transmissions (soft_bwd.cu)
 
 
 def smem_bytes(ns: int, npl: int, nl: int, fused: bool, nt: int, cap: int, cj: int,
-               store_vis: bool) -> int:
-    """Shared memory of one block (``rt_soft_bwd_smem``): the scene with three
-    staged floats a sphere, a row of gradient slots a warp, and each thread's
-    table and slab."""
+               store_vis: bool, staged: bool = True) -> int:
+    """Shared memory of one block (``rt_soft_bwd_smem``): the scene (with the
+    sphere table and three floats a sphere, 10 words, only when ``staged``), a
+    row of gradient slots a warp, and each thread's table and slab."""
     nf = N_TFIXED + (nl if store_vis else 0)
-    return 4 * (render_cuda.N_PARAMS + 10 * ns + 9 * npl + 3 * nl
+    return 4 * (render_cuda.N_PARAMS + (10 * ns if staged else 0) + 9 * npl + 3 * nl
                 + (nt // 32) * n_grads(ns, npl, nl, fused) + nt * (nf * cap + 7 * cj))
 
 
-def plan(ns: int, npl: int, nl: int, fused: bool = True) -> Plan:
+def plan(ns: int, npl: int, nl: int, fused: bool = True, staged: bool | None = None) -> Plan:
     """The block shape and chunk sizes for a scene: the first plan that fits
-    a block's shared memory, taking the most threads a block (128, 64, 32),
-    then stored transmissions, then the most live objects a chunk (``cap``, up
-    to 32 and the object count: a pixel with more live objects than that forms
-    its weights from fresh covers) and the widest window (``cj``, up to 16
-    spheres), halving the larger of the two until they fit. On the card
-    (``chip_smoke.py`` phase 12's plan sweep, PERF.md §6) this is the fastest
-    plan of the sweep on the demo scene and 17% slower than the fastest at 100
-    spheres, where no simple rule picked the best. Raises ``ValueError`` only
-    where (32, 1, 1) without stored transmissions does not fit, which is where
-    the first port's kernel (4 warps of gradient rows) did not fit either."""
-    for nt in (128, 64, 32):
-        for sv in (True, False):
-            cap, cj = max(1, min(ns + npl, 32)), max(1, min(ns, 16))
-            while True:
-                smem = smem_bytes(ns, npl, nl, fused, nt, cap, cj, sv)
-                if smem <= SMEM_LIMIT:
-                    return Plan(nt, cap, cj, sv, smem)
-                if cap == cj == 1:
-                    break
-                if cap >= cj:
-                    cap //= 2
-                else:
-                    cj //= 2
+    a block's shared memory, the staged form first and then the global one
+    (past 3388 spheres at 1 plane and 3 lights), within a form taking the most
+    threads a block (128, 64, 32), then stored transmissions, then the most
+    live objects a chunk (``cap``, up to 32 and the object count: a pixel with
+    more live objects than that forms its weights from fresh covers) and the
+    widest window (``cj``, up to 16 spheres), halving the larger of the two
+    until they fit. On the card (``chip_smoke.py`` phase 12's plan sweep,
+    PERF.md §6) this is the fastest plan of the sweep on the demo scene and
+    17% slower than the fastest at 100 spheres, where no simple rule picked
+    the best. The global form is slower than the staged one on every scene
+    both take (phase 22's ``[repair-form]``), with the same plan or its own,
+    hence staged first; ``staged`` True or False: that form's plan alone.
+    Raises ``ValueError`` only where (32, 1, 1) of the global form without
+    stored transmissions does not fit (past 8228 spheres at 1 plane and 3
+    lights)."""
+    for form in ((True, False) if staged is None else (staged,)):
+        for nt in (128, 64, 32):
+            for sv in (True, False):
+                cap, cj = max(1, min(ns + npl, 32)), max(1, min(ns, 16))
+                while True:
+                    smem = smem_bytes(ns, npl, nl, fused, nt, cap, cj, sv, form)
+                    if smem <= SMEM_LIMIT:
+                        return Plan(nt, cap, cj, sv, smem, form)
+                    if cap == cj == 1:
+                        break
+                    if cap >= cj:
+                        cap //= 2
+                    else:
+                        cj //= 2
     raise ValueError(f"scene (ns={ns}, npl={npl}, nl={nl}) needs "
-                     f"{smem_bytes(ns, npl, nl, fused, 32, 1, 1, False)} B of shared "
-                     f"memory in the soft backward kernel, a block has at most "
+                     f"{smem_bytes(ns, npl, nl, fused, 32, 1, 1, False, False)} B of "
+                     f"shared memory in the soft backward kernel, a block has at most "
                      f"{SMEM_LIMIT} B")
 
 
@@ -186,9 +205,9 @@ def n_blocks(W: int, H: int, p: Plan) -> int:
     return math.ceil(H / BLOCK_Y) * math.ceil(W / (p.nt // BLOCK_Y))
 
 
-def _check(camera, scene, image, tau, name: str, fused: bool) -> Plan:
+def _check(camera, scene, image, tau, name: str, fused: bool, lw: int) -> Plan:
     dev = soft_cuda.check_inputs(camera, scene, tau)
-    W, H = camera.resolution
+    W, H = lw, camera.resolution[1]
     if image.device != dev or image.dtype != torch.float32:
         raise ValueError(f"{name} must be float32 on {dev}, got {image.dtype} on "
                          f"{image.device}")
@@ -198,13 +217,15 @@ def _check(camera, scene, image, tau, name: str, fused: bool) -> Plan:
 
 
 def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: float,
-           mode: str, shape: Plan) -> torch.Tensor:
+           mode: str, shape: Plan, W_global: int | None = None) -> torch.Tensor:
     """Launch the soft backward kernel and its reduction on the current stream
     for inputs already packed and checked: ``out (n_grads,)``, ``partial
     (n_grads * n_blocks,)``, ``params`` (clean-mode grid), the
     ``scene_tables``, the object counts, ``image`` (the cotangent, or in
     ``fused`` the target), all float32, contiguous, on the current device, and
-    the launch's :class:`Plan`. Counts the launch in :data:`LAUNCHES`."""
+    the launch's :class:`Plan`. ``W``: the slice's width where ``W_global``
+    (the frame's, default ``W``) is wider, its offset the packed ``P_X0``.
+    Counts the launch in :data:`LAUNCHES`."""
     from ._build import load_library
     lib = load_library()
     (sph, pln, lts), (ns, npl, nl) = tables, counts
@@ -213,8 +234,9 @@ def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: 
     rc = lib.rt_soft_bwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
                          lts.data_ptr(), nl, float(tau), image.data_ptr(),
                          partial.data_ptr(), rows, out.shape[0], W, H,
-                         int(mode == "fused"), shape.nt, shape.cap, shape.cj,
-                         int(shape.store_vis), stream)
+                         W if W_global is None else W_global, int(mode == "fused"),
+                         shape.nt, shape.cap, shape.cj, int(shape.store_vis),
+                         int(shape.staged), stream)
     if rc == 0:
         rc = lib.rt_reduce_rows(partial.data_ptr(), rows, out.shape[0], out.data_ptr(),
                                 stream)
@@ -225,47 +247,59 @@ def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: 
     return out
 
 
-def _run(camera, scene, image, *, tau, mode, shape):
+def _run(camera, scene, image, *, tau, mode, shape, x_offset=0, lw=None):
     dev = camera.position.device
-    W, H = camera.resolution
+    Wg, H = camera.resolution
+    W = Wg if lw is None else lw
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
     n = n_grads(*counts, mode == "fused")
     with torch.cuda.device(dev), torch.no_grad():
-        params = render_cuda.pack_params(camera, scene, compat=False).to(dev)
+        params = render_cuda.pack_params(camera, scene, False, x_offset).to(dev)
         out = torch.empty(n, device=dev)
         partial = torch.empty(n * n_blocks(W, H, shape), device=dev)
         return launch(out, partial, params, render_cuda.scene_tables(scene), counts,
                       image=image.contiguous(), W=W, H=H, tau=tau, mode=mode,
-                      shape=shape)
+                      shape=shape, W_global=Wg)
 
 
 def soft_scene_grads_cuda(camera, scene, g_image, *, tau: float = 0.05,
-                          return_camera: bool = False):
+                          return_camera: bool = False, x_offset: int = 0,
+                          local_width: int | None = None):
     """Image cotangent ``(w, h, 3)`` -> ``Scene`` gradients (with
     ``return_camera``: ``(scene_g, camera_g)``), as
-    ``soft_bwd.soft_scene_grads_pallas``. CPU tensors take
+    ``soft_bwd.soft_scene_grads_pallas``; with ``x_offset`` / ``local_width``
+    the slice's cotangent and partials. CPU tensors take
     :func:`soft_scene_grads_plain`; CUDA tensors launch mode ``cot``."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    lw = render_cuda.slice_width(camera, x_offset, local_width)
     if camera.position.device.type == "cpu":
-        flat = soft_scene_grads_plain(camera, scene, g_image, tau=tau)
+        flat = soft_scene_grads_plain(camera, scene, g_image, tau=tau, x_offset=x_offset,
+                                      local_width=lw)
     else:
-        shape = _check(camera, scene, g_image, tau, "g_image", False)
-        flat = _run(camera, scene, g_image, tau=tau, mode="cot", shape=shape)
+        shape = _check(camera, scene, g_image, tau, "g_image", False, lw)
+        flat = _run(camera, scene, g_image, tau=tau, mode="cot", shape=shape,
+                    x_offset=x_offset, lw=lw)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=False)
 
 
 def soft_loss_and_grads_cuda(camera, scene, target, *, tau: float = 0.05,
-                             return_camera: bool = False):
+                             return_camera: bool = False, x_offset: int = 0,
+                             local_width: int | None = None):
     """The soft training step's ``(loss, scene_g)`` (with ``return_camera``:
     ``(loss, scene_g, camera_g)``) for ``loss = mean((render_soft -
-    target)^2)``, as ``soft_bwd.soft_loss_and_grads_pallas``. CPU tensors take
-    :func:`soft_loss_and_grads_plain`; CUDA tensors launch mode ``fused``."""
+    target)^2)``, as ``soft_bwd.soft_loss_and_grads_pallas``; with
+    ``x_offset`` / ``local_width`` the slice's target, and its partials over
+    the frame's denominator. CPU tensors take :func:`soft_loss_and_grads_plain`;
+    CUDA tensors launch mode ``fused``."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    lw = render_cuda.slice_width(camera, x_offset, local_width)
     if camera.position.device.type == "cpu":
-        flat = soft_loss_and_grads_plain(camera, scene, target, tau=tau)
+        flat = soft_loss_and_grads_plain(camera, scene, target, tau=tau,
+                                         x_offset=x_offset, local_width=lw)
     else:
-        shape = _check(camera, scene, target, tau, "target", True)
-        flat = _run(camera, scene, target, tau=tau, mode="fused", shape=shape)
+        shape = _check(camera, scene, target, tau, "target", True, lw)
+        flat = _run(camera, scene, target, tau=tau, mode="fused", shape=shape,
+                    x_offset=x_offset, lw=lw)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=True)

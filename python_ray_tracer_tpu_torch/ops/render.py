@@ -62,15 +62,21 @@ def _render_block(xs, ys, camera, scene, *, depth, aliasing, compat):
 
 
 def render_image(camera, scene, *, depth: int = 2, aliasing: bool = True,
-                 compat: bool = True, row_chunk: int | None = None) -> torch.Tensor:
-    """Render the full image -> float ``(w, h, 3)`` in [0, ~1] scale.
+                 compat: bool = True, row_chunk: int | None = None, x_offset: int = 0,
+                 local_width: int | None = None) -> torch.Tensor:
+    """Render the full image -> float ``(w, h, 3)`` in [0, ~1] scale; with
+    ``x_offset`` / ``local_width`` the ``(local_width, h, 3)`` slice of it at
+    columns ``[x_offset, x_offset + local_width)`` (rays and the border ring
+    are the frame's: a slice is the frame's columns).
 
     ``row_chunk`` renders blocks of that many x columns at a time to bound peak
     memory on large images."""
     w, h = camera.resolution
     dev = camera.device
+    lw = w - x_offset if local_width is None else local_width
     ys = torch.arange(h, dtype=torch.float32, device=dev)
-    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    xs = torch.arange(x_offset, x_offset + lw, dtype=torch.float32, device=dev)
+    w = lw
     kw = dict(depth=depth, aliasing=aliasing, compat=compat)
     if row_chunk is None or row_chunk >= w:
         return _render_block(xs, ys, camera, scene, **kw)

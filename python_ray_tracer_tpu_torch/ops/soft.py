@@ -156,15 +156,18 @@ def _rows(xs, ys, camera, scene, tau, bounce_depth):
 
 
 def render_image_soft(camera, scene, *, tau: float = 0.05, row_chunk: int | None = None,
-                      bounce_depth: int = 0) -> torch.Tensor:
+                      bounce_depth: int = 0, x_offset: int = 0,
+                      local_width: int | None = None) -> torch.Tensor:
     """Full-image soft render -> float ``(w, h, 3)``, clean orientation and
-    channels. ``row_chunk`` renders blocks of that many x columns at a time
-    (the last block may be shorter); when autograd records the call, each
-    block is checkpointed and recomputed in the backward pass, so peak memory
-    is one block's intermediates."""
+    channels; with ``x_offset`` / ``local_width`` the ``(local_width, h, 3)``
+    slice of it at those columns. ``row_chunk`` renders blocks of that many x
+    columns at a time (the last block may be shorter); when autograd records
+    the call, each block is checkpointed and recomputed in the backward pass,
+    so peak memory is one block's intermediates."""
     w, h = camera.resolution
     dev = camera.device
-    xs = torch.arange(w, dtype=torch.float32, device=dev)
+    w = w - x_offset if local_width is None else local_width
+    xs = torch.arange(x_offset, x_offset + w, dtype=torch.float32, device=dev)
     ys = torch.arange(h, dtype=torch.float32, device=dev)
     if row_chunk is None or row_chunk >= w:
         return _rows(xs, ys, camera, scene, tau, bounce_depth)

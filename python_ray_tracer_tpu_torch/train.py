@@ -21,6 +21,14 @@ gradient is always zero never moves.
 annealed toward hard: on ``"cuda"`` each step is one launch of the fused soft
 backward kernel (``soft_loss_and_grads_cuda``) and each stage's target one
 launch of the soft forward kernel.
+
+With a ``mesh`` (``parallel.make_mesh``) :func:`fit_scene` and
+:func:`fit_scene_soft` take ray-parallel steps
+(:func:`cuda_value_and_grad_sharded`, :func:`soft_value_and_grad_sharded`):
+each rank runs the fused kernel on its vertical slice of the target, its loss
+and gradients partials over the frame's denominator, and one all-reduce of the
+flat gradient vector with the loss beside it sums them. Every rank then takes
+the same Adam step.
 """
 from __future__ import annotations
 
@@ -30,12 +38,15 @@ import torch
 
 from .models.camera import Camera, euler_rotation
 from .models.scene import LEAF_PATHS, Scene
-from .ops.cuda.render_bwd_cuda import loss_and_scene_grads_cuda, scene_grads_cuda
+from .ops.cuda.render_bwd_cuda import (flatten_grads, loss_and_scene_grads_cuda,
+                                       scene_grads_cuda, unflatten_grads)
 from .ops.cuda.render_cuda import render_image_cuda
 from .ops.cuda.soft_bwd_cuda import soft_loss_and_grads_cuda
 from .ops.cuda.soft_cuda import (render_image_soft_cuda, render_image_soft_fast,
                                  render_image_soft_plain)
 from .ops.render import render_image
+from .parallel.distributed import all_reduce_sum
+from .parallel.render_sharded import local_target, make_loss_fn
 from .utils.metrics import MetricsLogger
 
 BACKENDS = ("cuda", "torch")
@@ -129,6 +140,58 @@ def cuda_value_and_grad(camera, target, *, depth: int = 2, compat: bool = True,
     return value_and_grad
 
 
+def _summed(mesh, loss, scene_g):
+    """``(loss, scene_g)`` summed over the mesh's ranks: the flat gradient
+    vector (``render_bwd_cuda.flatten_grads``) with the loss in its trailing
+    slot, in one all-reduce."""
+    flat = all_reduce_sum(flatten_grads(scene_g, None, loss.detach()), mesh)
+    ns, npl, nl = (scene_g.spheres.center.shape[0], scene_g.planes.origin.shape[0],
+                   scene_g.lights.position.shape[0])
+    return unflatten_grads(flat, ns, npl, nl, (1, 1), return_camera=False, fused_loss=True)
+
+
+def cuda_value_and_grad_sharded(camera, mesh, *, depth: int = 2, compat: bool = True,
+                                aliasing: bool = False) -> Callable:
+    """``(scene, target) -> (loss, scene_grads)`` over a mesh
+    (``train.pallas_value_and_grad_sharded``): the fused kernel
+    (``loss_and_scene_grads_cuda``'s slice form) on this rank's columns of
+    ``target`` (the frame's, or the slice itself), then one all-reduce of its
+    gradient and loss partials. Every rank gets the frame's loss and
+    gradient."""
+    x0, lw = mesh.slice(camera.resolution[0])
+
+    def value_and_grad(scene, target):
+        loss, grads = loss_and_scene_grads_cuda(
+            camera, scene, local_target(target, camera, mesh).contiguous(), depth=depth,
+            compat=compat, aliasing=aliasing, x_offset=x0, local_width=lw)
+        return _summed(mesh, loss, grads)
+    return value_and_grad
+
+
+def soft_value_and_grad_sharded(camera, mesh, *, tau: float = 0.05) -> Callable:
+    """``(scene, target) -> (loss, scene_grads)`` of the soft pixel loss over a
+    mesh (``train.soft_value_and_grad_sharded``): the fused soft backward
+    kernel on this rank's columns, then one all-reduce."""
+    x0, lw = mesh.slice(camera.resolution[0])
+
+    def value_and_grad(scene, target):
+        loss, grads = soft_loss_and_grads_cuda(
+            camera, scene, local_target(target, camera, mesh).contiguous(), tau=tau,
+            x_offset=x0, local_width=lw)
+        return _summed(mesh, loss, grads)
+    return value_and_grad
+
+
+def autograd_value_and_grad_sharded(loss_fn: Callable, mesh) -> Callable:
+    """``scene -> (loss, scene_grads)``: autograd of a slice's loss part
+    (``parallel.make_loss_fn``), then the same one all-reduce."""
+    vg = autograd_value_and_grad(loss_fn)
+
+    def value_and_grad(scene):
+        return _summed(mesh, *vg(scene))
+    return value_and_grad
+
+
 def autograd_value_and_grad(loss_fn: Callable) -> Callable:
     """``scene -> (loss, scene_grads)`` by autograd of ``loss_fn(scene)``."""
     def value_and_grad(scene):
@@ -169,14 +232,31 @@ def _log(logger, i, steps, log_every, loss):
 def fit_scene(init_scene: Scene, camera, target, *, steps: int = 200,
               lr: float = 2e-2, depth: int = 2, aliasing: bool = False,
               compat: bool = True, trainable: Optional[Sequence[str]] = ("spheres",),
-              backend: str = "cuda", fused: bool = True,
+              backend: str = "cuda", fused: bool = True, mesh=None,
               logger: Optional[MetricsLogger] = None, log_every: int = 20):
     """Run the inverse-render optimization; returns ``(scene, losses)``.
     ``init_scene`` is not modified. ``trainable`` selects the leaves that
-    receive updates (default: sphere geometry and albedo)."""
+    receive updates (default: sphere geometry and albedo). With a ``mesh``
+    each step is ray-parallel: :func:`cuda_value_and_grad_sharded` on
+    ``"cuda"`` (the fused step; ``fused=False`` has no sharded form),
+    autograd of ``parallel.make_loss_fn`` and the same all-reduce on
+    ``"torch"``; ``target`` is the frame's or this rank's slice."""
     _check_backend(backend)
     scene = Scene.from_leaves([t.detach().clone() for t in init_scene.leaves()])
-    if backend == "cuda":
+    if mesh is not None:
+        if backend == "cuda":
+            if not fused:
+                raise ValueError("the sharded step is the fused one (fused=True)")
+            vg_sh = cuda_value_and_grad_sharded(camera, mesh, depth=depth, compat=compat,
+                                                aliasing=aliasing)
+
+            def vg(s):
+                return vg_sh(s, target)
+        else:
+            vg = autograd_value_and_grad_sharded(
+                make_loss_fn(camera, target, mesh, depth=depth, aliasing=aliasing,
+                             compat=compat), mesh)
+    elif backend == "cuda":
         vg = cuda_value_and_grad(camera, target, depth=depth, compat=compat,
                                  aliasing=aliasing, fused=fused)
     else:
@@ -194,7 +274,7 @@ def fit_scene_soft(init_scene: Scene, camera, target_scene: Scene, *, steps: int
                    lr: float = 1e-2, taus: Sequence[float] = (0.15, 0.05, 0.02),
                    trainable: Optional[Sequence[str]] = ("spheres.center",),
                    logger: Optional[MetricsLogger] = None, backend: str = "cuda",
-                   bounce_depth: int = 0):
+                   bounce_depth: int = 0, mesh=None):
     """Coarse-to-fine soft-visibility fitting, tau annealed toward hard
     (``train.fit_scene_soft``): ``max(1, steps // len(taus))`` steps per tau,
     each stage against a target re-rendered from ``target_scene`` at that tau
@@ -202,9 +282,13 @@ def fit_scene_soft(init_scene: Scene, camera, target_scene: Scene, *, steps: int
     ``bounce_depth=1`` adds the depth-1 mirror bounce; the bounce has no kernel
     in either package, so its targets and steps run the plain version on both
     backends (counted in ``soft_cuda.PLAIN_CALLS`` and
-    ``soft_bwd_cuda.PLAIN_CALLS``). ``init_scene`` is not modified. The
-    logger's line per stage gives its tau and its first and last loss.
-    Returns ``(scene, losses)``."""
+    ``soft_bwd_cuda.PLAIN_CALLS``). With a ``mesh`` each step is
+    ray-parallel (:func:`soft_value_and_grad_sharded` on ``"cuda"``, else
+    autograd of ``parallel.make_loss_fn(soft=True)``, which has no bounce, and
+    the one all-reduce); every rank renders the stage's whole target, since
+    the soft forward kernel has no slice form (nor has the JAX package's).
+    ``init_scene`` is not modified. The logger's line per stage gives its tau
+    and its first and last loss. Returns ``(scene, losses)``."""
     _check_backend(backend)
     scene = Scene.from_leaves([t.detach().clone() for t in init_scene.leaves()])
     losses: List[float] = []
@@ -216,8 +300,18 @@ def fit_scene_soft(init_scene: Scene, camera, target_scene: Scene, *, steps: int
             else:
                 target = render_image_soft_plain(camera, target_scene, tau=tau,
                                                  bounce_depth=bounce_depth)
-        vg = soft_value_and_grad(camera, target, tau=tau, backend=backend,
-                                 bounce_depth=bounce_depth)
+        if mesh is None:
+            vg = soft_value_and_grad(camera, target, tau=tau, backend=backend,
+                                     bounce_depth=bounce_depth)
+        elif backend == "cuda" and bounce_depth == 0:
+            vg = (lambda v, t: lambda s: v(s, t))(
+                soft_value_and_grad_sharded(camera, mesh, tau=tau), target)
+        else:
+            if bounce_depth:
+                raise ValueError("the sharded soft step has no mirror bounce "
+                                 "(bounce_depth=0)")
+            vg = autograd_value_and_grad_sharded(
+                make_loss_fn(camera, target, mesh, soft=True, tau=tau), mesh)
         step = make_train_step(scene, vg, lr=lr, trainable=trainable)
         for _ in range(per_stage):
             losses.append(float(step()))

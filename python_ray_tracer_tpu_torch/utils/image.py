@@ -38,6 +38,54 @@ def encode_png(img: np.ndarray, *, level: int = 6) -> bytes:
             chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + chunk(b"IEND", b""))
 
 
+def gif_palette() -> np.ndarray:
+    """``(256, 3)`` uint8: the colour cube :func:`encode_gif` quantises to, 6
+    red x 7 green x 6 blue levels evenly over [0, 255] (252 colours; black
+    pads the table)."""
+    r, g, b = np.meshgrid(np.arange(6), np.arange(7), np.arange(6), indexing="ij")
+    cube = np.stack([np.rint(255 * r / 5), np.rint(255 * g / 6), np.rint(255 * b / 5)],
+                    axis=-1).reshape(-1, 3)
+    return np.concatenate([cube, np.zeros((256 - len(cube), 3))]).astype(np.uint8)
+
+
+def _lzw_literal_codes(idx: np.ndarray) -> bytes:
+    """GIF image data of 8-bit palette indices: LZW with a code size of 8,
+    written as literals only, a clear code before every 254 of them, so that
+    every code stays 9 bits wide (a decoder's table grows to 511 entries and
+    is cleared before it needs a tenth bit). Valid GIF, ~9/8 of the raw
+    size."""
+    n = idx.size
+    chunks = [np.concatenate([[256], c]) for c in np.array_split(
+        idx.astype(np.int64), max(1, -(-n // 254)))]
+    codes = np.concatenate(chunks + [np.array([257])])
+    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).reshape(-1)
+    data = np.packbits(bits, bitorder="little").tobytes()
+    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                      for i in range(0, len(data), 255))
+    return bytes([8]) + blocks + b"\x00"
+
+
+def encode_gif(frames: np.ndarray, *, delay_cs: int = 8) -> bytes:
+    """Encode ``(n, h, w, 3)`` uint8 RGB frames as an animated GIF89a that
+    loops forever, ``delay_cs`` hundredths of a second a frame, with the
+    standard library and numpy: every pixel rounded to :func:`gif_palette`'s
+    nearest level on each channel."""
+    arr = np.asarray(frames, dtype=np.uint8)
+    if arr.ndim != 4 or arr.shape[3] != 3 or arr.shape[0] < 1:
+        raise ValueError(f"expected (n, h, w, 3) RGB8 frames, got {arr.shape}")
+    n, h, w = arr.shape[:3]
+    q = arr.astype(np.float64) / 255.0
+    idx = (np.rint(q[..., 0] * 5) * 42 + np.rint(q[..., 1] * 6) * 6 +
+           np.rint(q[..., 2] * 5)).astype(np.uint8)
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), gif_palette().tobytes(),
+           b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
+    for k in range(n):
+        out += [b"\x21\xf9\x04\x00" + struct.pack("<H", delay_cs) + b"\x00\x00",
+                b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0),
+                _lzw_literal_codes(idx[k].reshape(-1))]
+    return b"".join(out) + b"\x3b"
+
+
 def save_png(fb, path: str) -> None:
     """Save a uint8 ``(3, w, h)`` framebuffer as a PNG (reference main.py:51-53).
 

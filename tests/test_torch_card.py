@@ -1169,7 +1169,7 @@ def _launch_with(lib, out, packed, mode, compat, cheap, tabs, depth=2):
     W, H = out.shape[0], out.shape[1]
     v, sh, g, c = table_args(*tabs)
     rc = lib.rt_render_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
-                           lts.data_ptr(), nl, out.data_ptr(), W, H, depth,
+                           lts.data_ptr(), nl, out.data_ptr(), W, H, W, depth,
                            render_cuda.MODES.index(mode), int(compat), int(cheap), 1,
                            *v, *sh, *g, *c, None)
     assert rc == 0, rc
@@ -1339,3 +1339,180 @@ def test_frames_with_the_list_kernel_equal_culls_off(cuda_device, n, mode):
                                               compat=compat, K=4)
         assert bool((tabs[1][1] == -1).any())
         assert torch.equal(_render_tabs(cam, scene, mode, 2, compat, tabs), off)
+
+
+# --- the ray-parallel path: slices, their gradients, the repair, animation ---------
+
+def _sliced(n, fn):
+    from python_ray_tracer_tpu_torch.parallel import make_mesh
+    return torch.cat([fn(make_mesh(size=n, rank=i)) for i in range(n)])
+
+
+@pytest.mark.parametrize("n_spheres", [0, 300])
+@pytest.mark.parametrize("mode", MODES)
+def test_slices_stitch_to_the_whole_frame(cuda_device, n_spheres, mode):
+    """Slices of 2, 4 and 8 (widths not a multiple of 16) stitched equal the
+    whole frame bit for bit: the demo scene, and 300 spheres with the cone
+    cull, the shadow lists, the light cells and the bounce tree on."""
+    from python_ray_tracer_tpu_torch.parallel import render_image_sharded
+    if n_spheres:
+        scene = trt.random_scene(n_spheres, generator=torch.Generator().manual_seed(3),
+                                 device=cuda_device)
+    else:
+        scene = trt.default_scene(device=cuda_device)
+    cam = trt.default_camera((360, 200), device=cuda_device)
+    kw = dict(aliasing=mode != "aa_none", aa_share=mode == "aa_shared")
+    whole = trt.render_image_cuda(cam, scene, **kw)
+    for n in (2, 4, 8):
+        st = _sliced(n, lambda m: render_image_sharded(cam, scene, m, **kw))
+        assert torch.equal(st, whole), (n, int((st != whole).any(-1).sum()))
+
+
+@pytest.mark.parametrize("mode", ["fused_noaa", "fused_aa", "cot_noaa", "cot_aa"])
+def test_slice_gradients_sum_to_the_frame(cuda_device, mode):
+    """The partials of 4 slices (96 wide) summed against the whole frame's
+    under the kernel rule, the fused loss within rel 1e-6."""
+    from python_ray_tracer_tpu_torch.parallel.mesh import column_slice
+    scene = cli.fit_scene_two_spheres(RenderConfig(), cuda_device)
+    cam = trt.default_camera((384, 256), device=cuda_device)
+    aa = mode.endswith("_aa")
+    init = trt.Scene.from_leaves(scene.leaves())
+    init.spheres = trt.Spheres(scene.spheres.center + torch.tensor(cli.FIT_SHIFT,
+                                                                   device=cuda_device),
+                               scene.spheres.radius, scene.spheres.albedo)
+    x = trt.render_image_cuda(cam, scene, aliasing=aa)
+    if not mode.startswith("fused"):
+        x = torch.rand(x.shape, generator=torch.Generator().manual_seed(4)).to(cuda_device)
+
+    def run(x0, lw):
+        xs = x[x0:x0 + lw].contiguous()
+        if mode.startswith("fused"):
+            lo, g, c = rb.loss_and_scene_grads_cuda(cam, init, xs, aliasing=aa,
+                                                    return_camera=True, x_offset=x0,
+                                                    local_width=lw)
+            return rb.flatten_grads(g, c, lo)
+        return rb.flatten_grads(*rb.scene_grads_cuda(cam, init, xs * 1e-2, aliasing=aa,
+                                                     return_camera=True, x_offset=x0,
+                                                     local_width=lw))
+    whole = run(0, 384)
+    parts = sum(run(*column_slice(384, i, 4)) for i in range(4))
+    res = rb.grad_rule(parts, whole, *_counts(scene))
+    assert all(ok for _, ok in res.values()), res
+    if mode.startswith("fused"):
+        assert abs(float(parts[-1]) - float(whole[-1])) <= 1e-6 * abs(float(whole[-1]))
+
+
+def test_soft_slice_gradients_sum_to_the_frame(cuda_device):
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    from python_ray_tracer_tpu_torch.ops.cuda.soft_cuda import render_image_soft_cuda
+    from python_ray_tracer_tpu_torch.parallel.mesh import column_slice
+    scene = trt.default_scene(device=cuda_device)
+    cam = trt.default_camera((256, 256), device=cuda_device)
+    target = render_image_soft_cuda(cam, scene, tau=0.05)
+    init = trt.Scene.from_leaves(scene.leaves())
+    init.spheres = trt.Spheres(scene.spheres.center + 0.03, scene.spheres.radius,
+                               scene.spheres.albedo)
+
+    def run(x0, lw):
+        lo, g, c = sb.soft_loss_and_grads_cuda(cam, init, target[x0:x0 + lw].contiguous(),
+                                               tau=0.05, return_camera=True, x_offset=x0,
+                                               local_width=lw)
+        return rb.flatten_grads(g, c, lo)
+    whole = run(0, 256)
+    parts = sum(run(*column_slice(256, i, 4)) for i in range(4))
+    res = sb.soft_grad_rule(parts, whole, *_counts(scene))
+    assert all(ok for _, ok in res.values()), res
+    assert abs(float(parts[-1]) - float(whole[-1])) <= 1e-6 * abs(float(whole[-1]))
+
+
+def _counts(scene):
+    return scene.spheres.count, scene.planes.count, scene.lights.count
+
+
+def test_backward_at_the_render_limit(cuda_device):
+    """7753 spheres (1 plane, 3 lights: the largest scene the render takes)
+    at 48x48, depth 1, no AA, seen from outside the cloud: the hard backward
+    (global form) against the plain version computed 8 columns at a time.
+    Held out: the 0.1% of pixels and every pixel whose renders differ by more
+    than 2e-6 (chip_smoke.REPAIR_TIE: this dense view has more near-tie
+    decisions than the 0.1%)."""
+    scene = trt.random_scene(7753, generator=torch.Generator().manual_seed(1),
+                             device=cuda_device)
+    cam = trt.Camera.build((48, 48), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0], device=cuda_device)
+    assert not rb.launch_plan(cam, scene, "cot_noaa").staged
+    kw = dict(depth=1, aliasing=False)
+    img_k = trt.render_image_cuda(cam, scene, group_cull=False, **kw)
+    with torch.no_grad():
+        img_p = torch.cat([trt.render_image(cam, scene, x_offset=x0, local_width=8, **kw)
+                           for x0 in range(0, 48, 8)])
+    held = (rb.held_out(img_k, img_p) | ((img_k - img_p).abs().amax(-1) > 2e-6))[..., None]
+    g = torch.rand((48, 48, 3), generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    g = (g * 1e-2 * ~held).contiguous()
+    k = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, g, return_camera=True, **kw))
+    p = sum(rb.scene_grads_plain(cam, scene, g[x0:x0 + 8], x_offset=x0, local_width=8, **kw)
+            for x0 in range(0, 48, 8))
+    res = rb.grad_rule(k, p, *_counts(scene))
+    assert all(ok for _, ok in res.values()), res
+
+
+def test_render_frames_equal_single_renders(cuda_device):
+    from python_ray_tracer_tpu_torch import animation
+    scene = trt.default_scene(device=cuda_device)
+    cams = animation.orbit_cameras((96, 64), center=[1.0, 0.0, 1.0], radius=4.0,
+                                   height=1.5, n_frames=5, device=cuda_device)
+    for aa in (True, False):
+        frames = animation.render_frames(cams, scene, aliasing=aa)
+        for k in range(5):
+            single = trt.render_image_cuda(animation.frame_camera(cams, k), scene,
+                                           aliasing=aa)
+            assert torch.equal(frames[k], single), (aa, k)
+
+
+@pytest.mark.parametrize("ns", [300, 3000])
+def test_backward_global_form_equals_staged(cuda_device, ns):
+    """The backward kernels' global form (the sphere table read from device
+    memory) against the staged form at the same launch shape on scenes both
+    take: the hard kernel's bits in every mode; the soft kernel's, which nvcc
+    contracts differently in the two forms, under soft_grad_rule."""
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(3),
+                             device=cuda_device)
+    cam = trt.Camera.build((40, 36), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0], device=cuda_device)
+    cnt = _counts(scene)
+    tables = render_cuda.scene_tables(scene)
+    g = torch.rand((40, 36, 3), generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    target = trt.render_image_cuda(cam, scene, aliasing=False, group_cull=False) * 0.9
+    img_aa = trt.render_image_cuda(cam, scene, aliasing=True, group_cull=False)
+    params = render_cuda.pack_params(cam, scene, True).to(cuda_device)
+    for mode in rb.MODES:
+        fused = mode.startswith("fused")
+        out = []
+        sp = rb.launch_plan(cam, scene, mode, staged=True)
+        twin = sp._replace(staged=False, smem=rb.smem_bytes(*cnt, fused, mode.endswith("_aa"),
+                                                            sp.nt, sp.cols, False))
+        for p in (sp, twin):   # the same launch shape in both forms
+            n = rb.n_grads(*cnt, fused)
+            out.append(rb.launch(
+                torch.empty(n, device=cuda_device), torch.empty(n * p.blocks, device=cuda_device),
+                params, tables, cnt,
+                image=img_aa if mode == "fused_aa" else (None if fused else g),
+                target=target if fused else None, W=40, H=36, depth=2, mode=mode, compat=True,
+                cheap_shadow=render_cuda.shadow_cheap_ok(scene, True), shape=p))
+        assert torch.equal(out[0], out[1]), mode
+    if ns > 1000:
+        return   # the soft kernels' time grows with the scene's density
+    sparams = render_cuda.pack_params(cam, scene, False).to(cuda_device)
+    for mode in sb.MODES:
+        fused = mode == "fused"
+        p = sb.plan(*cnt, fused)
+        out = []
+        for q in (p, p._replace(staged=False, smem=sb.smem_bytes(
+                *cnt, fused, p.nt, p.cap, p.cj, p.store_vis, False))):
+            n = rb.n_grads(*cnt, fused)
+            out.append(sb.launch(
+                torch.empty(n, device=cuda_device),
+                torch.empty(n * sb.n_blocks(40, 36, q), device=cuda_device), sparams, tables,
+                cnt, image=target if fused else g, W=40, H=36, tau=0.05, mode=mode, shape=q))
+        res = sb.soft_grad_rule(out[1], out[0], *cnt)
+        assert all(ok for _, ok in res.values()), (mode, res)

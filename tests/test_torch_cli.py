@@ -135,7 +135,18 @@ def test_port_never_imports_jax():
             "python_ray_tracer_tpu_torch.ops.cuda.soft_bwd_cuda, "
             "python_ray_tracer_tpu_torch.ops.soft, "
             "python_ray_tracer_tpu_torch.train, "
-            "python_ray_tracer_tpu_torch.bridge; "
+            "python_ray_tracer_tpu_torch.bridge, "
+            "python_ray_tracer_tpu_torch.animation, "
+            "python_ray_tracer_tpu_torch.parallel, "
+            "python_ray_tracer_tpu_torch.parallel.mesh, "
+            "python_ray_tracer_tpu_torch.parallel.render_sharded, "
+            "python_ray_tracer_tpu_torch.parallel.distributed, "
+            "python_ray_tracer_tpu_torch.ops.adaptive, "
+            "python_ray_tracer_tpu_torch.ops.cuda.adaptive_cuda, "
+            "python_ray_tracer_tpu_torch.ops.cuda.light_cells_cuda, "
+            "python_ray_tracer_tpu_torch.ops.cuda.shadow_lists_cuda, "
+            "python_ray_tracer_tpu_torch.ops.cuda.hit_extents_cuda, "
+            "python_ray_tracer_tpu_torch.ops.cuda.cull_tables; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'python_ray_tracer_tpu.')) or m == 'python_ray_tracer_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")
