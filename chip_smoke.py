@@ -84,7 +84,15 @@ the whole frame, the fused steps' slice partials against the frame's, two
 ranks on the one card over gloo, the backward kernels at 7753 spheres and
 their global form against the staged one (the hard kernel's bits, the soft
 kernel's rule, and the times behind the planners' rules), and ``cli animate``;
-``python3 chip_smoke.py --phase 22`` runs it alone after the build.
+``python3 chip_smoke.py --phase 22`` runs it alone after the build. Then
+phase 23 (``--phase 23`` alone): :func:`faults_phase` (``[faults]``,
+``[profile]``: ``device_healthcheck``, ``resilient_fit`` over the fused step
+at the fit CLI's width with a NaN and an exception injected, losses
+``torch.equal`` to an uninterrupted run's, ``capture_trace`` naming the
+scopes and kernels) and :func:`scene_size_phase` (``[size-*]``: every
+kernel's global, chunked or device-rows form against its staged form and
+both timed, then 16384- and 65536-sphere scenes through the entry points,
+each kernel against its plain version).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -954,7 +962,7 @@ def soft_phases(torch, rt, card: str, dev) -> list:
                                    warmup=2, iters=2 * reps)
             fb = timing.bound_ms(*timing.soft_work(camr, sc, tau, "fwd", live))
             print(f"[soft-time] {name} {W}x{H} tau={tau} soft_fwd kernel alone {fms:.4f} ms "
-                  f"(chunk of {lib.rt_soft_fwd_cap(*cnt)} live objects); bound {fb[0]:.4f} ms "
+                  f"(chunk of {lib.rt_soft_fwd_cap(*cnt, 1)} live objects); bound {fb[0]:.4f} ms "
                   f"({fb[1]}), {fms / fb[0]:.1f}x | {card}")
             for mode, x in (("fused", tgt), ("cot", cot)):
                 shape = sb.plan(*cnt, mode == "fused")
@@ -2470,9 +2478,11 @@ def ab_times(torch, rt, card: str, dev, label: str) -> None:
     checkouts' lines can be set side by side in one call (parent, this, this,
     parent). ``[ab-bwd]``: the four backward modes at the fit CLI's shapes
     (1000x1000, depth 2, compat, the 2-sphere scene from its shifted centers),
-    each wrapper's time (CUDA events) and the device time a call of its
+    each wrapper's time (CUDA events), the device time a call of its
     kernels (torch.profiler: the backward kernel, its reduction and, in
-    fused_aa, the aa_shared render). ``[ab-soft]``: the soft forward at every
+    fused_aa, the aa_shared render) and a digest of its gradients.
+    ``[ab-frames]``: digests of the render's main-path frames (the demo
+    scene and 1000 spheres at 1000x1000 AA and 1080p). ``[ab-soft]``: the soft forward at every
     tau on the demo scene at 1000x1000 and 100 spheres at 512x512 (from the
     soft fit's shifted centers), wrapper and device ms and a SHA-256 digest of
     each frame's bytes. ``[ab-softbwd]``: digests of both soft backward modes'
@@ -2524,10 +2534,23 @@ def ab_times(torch, rt, card: str, dev, label: str) -> None:
                              cam, init, target, depth=2, aliasing=aa)),
                          (f"cot_{'aa' if aa else 'noaa'}", lambda: rb.scene_grads_cuda(
                              cam, init, cot, depth=2, aliasing=aa))):
+            out = fn()
+            flat = rb.flatten_grads(out[1], None, out[0]) if mode.startswith("fused") else \
+                rb.flatten_grads(out)
             wrapper = 1e3 * rt.time_fn(fn, warmup=2, iters=20)
             dms = device_ms(fn, names if mode.startswith("fused") else names[:2])
             print(f"[ab-bwd] {label} {mode} {FIT_RES[0]}x{FIT_RES[1]} d2: wrapper {wrapper:.4f} ms, "
-                  f"device {dms} a call | {card}")
+                  f"device {dms} a call, gradient digest {digest(flat)} | {card}")
+    # the main paths' frames (the demo scene's, and the large-scene path's at 1000
+    # spheres), each frame's digest
+    for name, n in (("demo", 0), ("1000 spheres", 1000)):
+        sc = rt.default_scene(device=dev) if n == 0 else rt.random_scene(
+            n, generator=torch.Generator().manual_seed(0), device=dev)
+        line = []
+        for res, aa in ((FIT_RES, True), ((1920, 1080), False), ((1920, 1080), True)):
+            frame = rt.render_image_cuda(rt.default_camera(res, device=dev), sc, aliasing=aa)
+            line.append(f"{res[0]}x{res[1]} {'AA' if aa else 'no AA'} {digest(frame)}")
+        print(f"[ab-frames] {label} {name}: " + ", ".join(line))
     for name, res in SOFT_TIMES:
         base = rt.default_scene(device=dev) if name == "demo" else rt.random_scene(
             100, generator=torch.Generator().manual_seed(0), device=dev)
@@ -2711,6 +2734,41 @@ def _plain_chunked(torch, fn, width: int, chunk: int, g):
     return total
 
 
+def _hard_against_plain(torch, rt, rb, cam, scene, aa: bool) -> dict:
+    """The hard backward's cotangent mode against its plain version at
+    REPAIR_DEPTH on a scene past the staged forms: a seeded cotangent with the
+    held-out pixels (rb.held_out, and every pixel whose two renders differ by
+    more than REPAIR_TIE: one grazing shadow decision there moves one albedo
+    gradient off both plain float32 and float64) zeroed, the plain version
+    summed over column slices (its memory). Returns ``ok``, the rule's
+    numbers, the largest difference and a line for the log."""
+    from python_ray_tracer_tpu_torch.ops.render import render_image
+    dev = cam.position.device
+    W, H = cam.resolution
+    kw = dict(depth=REPAIR_DEPTH, aliasing=aa)
+    img_k = rt.render_image_cuda(cam, scene, **kw)
+    with torch.no_grad():
+        img_p = torch.cat([render_image(cam, scene, x_offset=x0, local_width=8, **kw)
+                           for x0 in range(0, W, 8)])
+    held = (rb.held_out(img_k, img_p) |
+            ((img_k - img_p).abs().amax(-1) > REPAIR_TIE))[..., None]
+    g = seeded(torch, (W, H, 3), dev, 5) * 1e-2 * ~held
+    k = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, g.contiguous(), return_camera=True,
+                                              **kw))
+    t0 = time.perf_counter()
+    chunk = max(1, (4 if aa else 16) * REPAIR_NS // scene.spheres.count)
+    p = _plain_chunked(torch, lambda x0, lw, gs: rb.scene_grads_plain(
+        cam, scene, gs, x_offset=x0, local_width=lw, **kw), W, chunk, g)
+    plain_s = time.perf_counter() - t0
+    rule = rb.grad_rule(k, p, *counts(scene))
+    worst = max(rule.items(), key=lambda kv: kv[1][0])
+    ok = all(v for _, v in rule.values())
+    return {"ok": ok, "rule": rule, "err": float((k - p).abs().max()), "plain_s": plain_s,
+            "line": f"against the plain version (column chunks of {chunk}, {plain_s:.1f} s; "
+                    f"{int(held.sum())} pixels held out): ok {ok}, worst {worst[0]} "
+                    f"{worst[1][0]:.3g}"}
+
+
 def parallel_phase(torch, rt, card: str, dev) -> None:
     """Phase 22 (``[ray-par]``, ``[repair]``, ``[animate]``): frames stitched
     from slices against the whole frame (``torch.equal``) in the three render
@@ -2885,38 +2943,16 @@ def parallel_phase(torch, rt, card: str, dev) -> None:
         mode = "cot_aa" if aa else "cot_noaa"
         shape = rb.launch_plan(cam, huge, mode)
         check(not shape.staged, f"{mode} at {REPAIR_NS} spheres planned staged: {shape}")
-        kw = dict(depth=REPAIR_DEPTH, aliasing=aa)
-        # past 5600 spheres the render takes no bounce tree (its own limit)
-        img_k = rt.render_image_cuda(cam, huge, group_cull=False, **kw)
-        with torch.no_grad():
-            img_p = torch.cat([render_image(cam, huge, x_offset=x0, local_width=8, **kw)
-                               for x0 in range(0, W, 8)])
-        held = (rb.held_out(img_k, img_p) |
-                ((img_k - img_p).abs().amax(-1) > REPAIR_TIE))[..., None]
-        g = seeded(torch, (W, H, 3), dev, 5) * 1e-2 * ~held
-        k = rb.flatten_grads(*rb.scene_grads_cuda(cam, huge, g.contiguous(),
-                                                  return_camera=True, **kw))
-        t0 = time.perf_counter()
-        p = _plain_chunked(torch, lambda x0, lw, gs: rb.scene_grads_plain(
-            cam, huge, gs, x_offset=x0, local_width=lw, **kw), W, 4 if aa else 16, g)
-        plain_s = time.perf_counter() - t0
-        res = rb.grad_rule(k, p, *cnt)
-        worst = max(res.items(), key=lambda kv: kv[1][0])
+        res = _hard_against_plain(torch, rt, rb, cam, huge, aa)
         print(f"[repair] hard backward {mode} at {REPAIR_NS} spheres {W}x{H} d{REPAIR_DEPTH}: "
-              f"plan {shape}; against the plain version (column chunks, {plain_s:.1f} s; "
-              f"{int(held.sum())} pixels held out): ok {all(ok for _, ok in res.values())}, "
-              f"worst {worst[0]} {worst[1][0]:.3g}")
-        check(all(ok for _, ok in res.values()), f"{mode} at {REPAIR_NS} spheres: {res}")
+              f"plan {shape}; {res['line']}")
+        check(res["ok"], f"{mode} at {REPAIR_NS} spheres: {res['rule']}")
     sshape = sb.plan(*cnt, False)
     check(not sshape.staged, f"soft cot at {REPAIR_NS} spheres planned staged: {sshape}")
     # the soft frame's strongest edges: pixels with partial covers (elsewhere
     # this dense cloud is opaque and in shadow, and the gradients are ~0)
     simg = soft_cuda.render_image_soft_cuda(cam, huge, tau=0.05)
-    edge = torch.zeros((W, H), device=dev)
-    edge[:-1] += (simg[1:] - simg[:-1]).abs().sum(-1)
-    edge[:, :-1] += (simg[:, 1:] - simg[:, :-1]).abs().sum(-1)
-    pixels = [(i // H, i % H) for i in torch.topk(edge.reshape(-1), REPAIR_SOFT_PIXELS)
-              .indices.tolist()]
+    pixels = _edge_pixels(torch, simg, REPAIR_SOFT_PIXELS)
     g = torch.zeros((W, H, 3), device=dev)
     for i, (x, y) in enumerate(pixels):
         g[x, y] = seeded(torch, (3,), dev, 20 + i) + 0.5
@@ -2945,12 +2981,6 @@ def parallel_phase(torch, rt, card: str, dev) -> None:
     # The global form against the staged one on scenes both take (the hard
     # kernel's bits, the soft kernel's rule) and the kernel-alone times behind
     # the planners' rules, each plan timed in alternation (A, B, B, A).
-    def alternate(runs: dict, iters: int) -> dict:
-        ms = {k: [] for k in runs}
-        for k in list(runs) + list(runs)[::-1]:
-            ms[k].append(1e3 * rt.time_fn(runs[k], warmup=1, iters=iters))
-        return {k: min(v) for k, v in ms.items()}
-
     def form(p):
         return f"{'staged' if p.staged else 'global'} {p.nt} threads"
 
@@ -2983,7 +3013,7 @@ def parallel_phase(torch, rt, card: str, dev) -> None:
                     W=256, H=256, depth=2, mode=mode, compat=True, cheap_shadow=cheap, shape=p))
             eq = torch.equal(runs["sp"]().clone(), runs["twin"]())
             runs = {k: runs[k] for k in (True, False)}
-            ms = alternate(runs, 3 if n_s >= 3000 else 10)
+            ms = _alternate(rt, runs, 3 if n_s >= 3000 else 10)
             print(f"[repair-form] hard {mode} d2, {n_s} spheres 256x256: planner's "
                   f"{form(chosen)} {ms[chosen.staged]:.4f} ms, {form(other)} "
                   f"{ms[other.staged]:.4f} ms (kernel and reduction alone, minima of 2 "
@@ -3026,7 +3056,7 @@ def parallel_phase(torch, rt, card: str, dev) -> None:
                     f"{float((a - b).abs().max()):.3g}, soft_grad_rule ok {ok} (worst "
                     f"{worst[0]} {worst[1][0]:.3g})")
             if fused:
-                ms = alternate(runs, iters)
+                ms = _alternate(rt, runs, iters)
                 line += (f"; staged {ms['staged']:.4f} ms, global {ms['global']:.4f} ms, "
                          f"global with its own plan ({own.nt} threads, cap {own.cap}, cj "
                          f"{own.cj}) {ms['global, own plan']:.4f} ms (kernel and reduction "
@@ -3065,6 +3095,909 @@ def parallel_phase(torch, rt, card: str, dev) -> None:
           f"torch.equal to single renders on every frame: {same}")
     check(n_anim >= 24 * 5, f"cli animate launched aa_shared {n_anim} times")
     check(same, "render_frames differs from single renders")
+
+
+# --- phase 23: scenes of any size; checkpointing, fault recovery, profiling ---------
+SIZE_NS = (16384, 65536)           # past every staged form (1 plane, 3 lights)
+SIZE_BWD_NS = 16384                # the backward kernels' third form
+FORM_NS = (1000, 5000)             # scenes every form takes: each against the staged one
+SIZE_RES = (1920, 1080)
+SIZE_PARITY_RES = (64, 64)         # the plain versions' frame at SIZE_NS (column slices)
+SIZE_FORM_RES = (256, 256)
+SOFT_FORM_RES = (64, 64)           # the soft forward's forms (a dense cloud's soft frame is slow)
+# The soft backward's third form against its global form at FORM_NS[0]
+# spheres: 320 pixel groups of 16 x 8, more than its card-sized grid's 264
+# blocks there, so blocks walk groups.
+SOFT_ROWS_RES = (320, 128)
+# The soft backward's third form at SIZE_BWD_NS spheres: fit_scene_soft's
+# frame, with a cotangent on a few pixels (a fused step renders every pixel,
+# hours at this density).
+SIZE_BWD_SOFT_RES = (1000, 1000)
+SIZE_CHUNK = 256                   # the table kernels' chunk where the staged form fits too
+LC_MAIN_NS = (100, 1000)           # the light cells' forms at the main path's scenes
+SIZE_TAU = 0.02                    # the soft checks' tau: fit_scene_soft's last stage
+SIZE_SOFT_PIXELS = 4               # pixels of the soft forward against its plain version
+SIZE_SOFT_CANDIDATES = 8           # pixels whose subsets are taken in each order
+SIZE_SOFT_MAX_SUBSET = 12288       # spheres of a pixel's plain subset (its memory)
+SIZE_SOFT_RES = (8, 8)             # the soft forward's frame at SIZE_NS (seconds at 65536)
+SIZE_SEED = 3                      # random_scene(n, generator=torch.Generator().manual_seed(3))
+
+
+def _soft_subset(torch, cam, scene, x: int, y: int, tau: float, margin: float = 1e-3):
+    """The spheres that can have an alpha above 0 on pixel (x, y)'s soft
+    rays: its primary ray, and the shadow rays toward every light from the
+    blend point of every object whose alpha on the primary ray can be above
+    0 (ops/soft.py's covers, in float64, each sphere's dead radius r (1 + 90
+    tau) widened by ``margin``). Every other sphere's alpha is below 1e-38 on
+    each of those rays (soft_fwd.cu's exact skip), so the plain version over
+    the subset is the plain version over the scene, up to float32 rounding
+    of its sums: the plain version's memory (objects x spheres x lights a
+    ray) then fits at scenes of any size. Returns the sorted indices."""
+    c = scene.spheres.center.double()
+    r = scene.spheres.radius.double()
+    dead2 = (r * (1.0 + 90.0 * tau) + margin) ** 2
+    xy = torch.tensor([[float(x), float(y)]], device=c.device)
+    d = cam.ray_directions(xy, compat=False)[0].double()
+    o = cam.ray_origin().double()
+
+    def live(origins, dirs):                 # (k, 3) rays -> (ns,) any live
+        hit = torch.zeros(c.shape[0], dtype=torch.bool, device=c.device)
+        for i in range(0, origins.shape[0], 64):
+            L = c[None] - origins[i:i + 64, None]
+            dd = dirs[i:i + 64, None]
+            tca = (L * dd).sum(-1)
+            v = L - tca[..., None] * dd
+            hit |= ((tca > -margin) & ((v * v).sum(-1) <= dead2)).any(0)
+        return hit
+
+    prim = live(o[None], d[None])
+    idx = prim.nonzero()[:, 0]
+    L = c[idx] - o
+    tca = L @ d
+    v = L - tca[:, None] * d
+    chord2 = r[idx] ** 2 - (v * v).sum(-1)
+    t = torch.where(chord2 > 1e-12, tca - chord2.clamp(min=0.0).sqrt(), tca).clamp(min=1e-4)
+    pts = [o + t[:, None] * d]
+    pl = scene.planes
+    for k in range(pl.count):
+        n, p0 = pl.normal[k].double(), pl.origin[k].double()
+        den = float(n @ d)
+        if abs(den) > 1e-8 and float(n @ (p0 - o)) / den > 0:
+            pts.append((o + float(n @ (p0 - o)) / den * d)[None])
+    P = torch.cat(pts)
+    lights = scene.lights.position.double()
+    w = lights[None] - P[:, None]
+    dirs = w / w.norm(dim=-1, keepdim=True)
+    shadow = live(P[:, None].expand(-1, lights.shape[0], -1).reshape(-1, 3), dirs.reshape(-1, 3))
+    return (prim | shadow).nonzero()[:, 0]
+
+
+def _subscene(rt, scene, idx, dtype):
+    s = scene.spheres
+    sub = rt.Spheres(s.center[idx].to(dtype), s.radius[idx].to(dtype), s.albedo[idx].to(dtype))
+    return rt.Scene(sub, *(type(g)(*(t.to(dtype) for t in vars(g).values()))
+                           for g in (scene.planes, scene.lights, scene.materials)))
+
+
+def _soft_pixels_plain(torch, rt, cam, scene, pixels, tau: float, dtype, subsets=None):
+    """The plain soft render (ops/soft.py render_rays_soft) of each pixel's
+    ray over its :func:`_soft_subset` (``subsets``: already taken), in
+    ``dtype``: ``(len(pixels), 3)``."""
+    out = []
+    for i, (x, y) in enumerate(pixels):
+        idx = _soft_subset(torch, cam, scene, x, y, tau) if subsets is None else subsets[i]
+        sub = _subscene(rt, scene, idx, dtype)
+        xy = torch.tensor([[float(x), float(y)]], device=cam.position.device)
+        d = cam.ray_directions(xy, compat=False).to(dtype)
+        with torch.no_grad():
+            out.append(rt.render_rays_soft(cam.ray_origin().to(dtype)[None], d, sub,
+                                           tau=tau)[0])
+        torch.cuda.empty_cache()
+    return torch.stack(out)
+
+
+def _soft_check_pixels(torch, cam, scene, tau: float, n: int):
+    """Up to ``n`` pixels ``((x, y), subset, live)`` for the soft checks at
+    scenes where a pixel inside a dense cloud has most of the scene in its
+    :func:`_soft_subset`, ranked by the live spheres on their primary ray
+    (``live``, at least one): the pixel nearest the frame's median, the
+    densest, then the sparsest ones; each the first of up to
+    :data:`SIZE_SOFT_CANDIDATES` in its order whose subset has at most
+    :data:`SIZE_SOFT_MAX_SUBSET` spheres (the plain version's memory). Returns
+    them and the median live count."""
+    W, H = cam.resolution
+    c = scene.spheres.center.double()
+    dead2 = (scene.spheres.radius.double() * (1.0 + 90.0 * tau) + 1e-3) ** 2
+    xy = torch.stack(torch.meshgrid(torch.arange(W), torch.arange(H), indexing="ij"),
+                     -1).reshape(-1, 2).float().to(c.device)
+    d = cam.ray_directions(xy, compat=False).double()
+    L = c[None] - cam.ray_origin().double()
+    live = []
+    for i in range(0, d.shape[0], 256):
+        tca = (L * d[i:i + 256, None]).sum(-1)
+        v = L - tca[..., None] * d[i:i + 256, None]
+        live.append(((tca > -1e-3) & ((v * v).sum(-1) <= dead2)).sum(-1))
+    live = torch.cat(live).cpu()
+    ranked = [int(i) for i in torch.argsort(live, stable=True) if live[i] > 0]
+    if not ranked:
+        return [], 0
+    median = int(live[ranked[len(ranked) // 2]])
+    out, seen = [], set()
+
+    def take(order, k):
+        for i in order[:SIZE_SOFT_CANDIDATES]:
+            if k == 0 or len(out) == n:
+                return
+            if i in seen:
+                continue
+            seen.add(i)
+            sub = _soft_subset(torch, cam, scene, i // H, i % H, tau)
+            if sub.numel() <= SIZE_SOFT_MAX_SUBSET:
+                out.append(((i // H, i % H), sub, int(live[i])))
+                k -= 1
+    take(sorted(ranked, key=lambda i: abs(int(live[i]) - median)), 1)
+    take(ranked[::-1], 1)
+    take(ranked, n)
+    return out, median
+
+
+def _edge_pixels(torch, img, n: int):
+    """The ``n`` pixels of a soft frame with the strongest edges."""
+    W, H = img.shape[:2]
+    edge = torch.zeros((W, H), device=img.device)
+    edge[:-1] += (img[1:] - img[:-1]).abs().sum(-1)
+    edge[:, :-1] += (img[:, 1:] - img[:, :-1]).abs().sum(-1)
+    return [(i // H, i % H) for i in torch.topk(edge.reshape(-1), n).indices.tolist()]
+
+
+def _alternate(rt, runs: dict, iters: int) -> dict:
+    """Each run timed A, B, B, A (CUDA events over ``iters`` calls); the minima."""
+    ms = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        ms[k].append(1e3 * rt.time_fn(runs[k], warmup=1, iters=iters))
+    return {k: min(v) for k, v in ms.items()}
+
+
+def scene_size_phase(torch, rt, card: str, dev) -> list:
+    """Phase 23, first part (``[size-*]``): every kernel past its staged form.
+    On scenes every form takes (FORM_NS spheres, SIZE_FORM_RES), each global
+    or chunked form against the staged one: the render kernel in its three
+    modes, the worklist kernel, the hit-extent kernel with bounce levels, the
+    light-cell and list kernels (torch.equal: pinned sources; the light cells
+    also at the main path's LC_MAIN_NS spheres, timed), the soft
+    forward (its rule against the plain version, and max |d| to the staged
+    form: a contracted source), the hard backward's third form against the
+    staged and global forms at the same launch shape (torch.equal) and the
+    soft backward's against its global form (soft_grad_rule), with the forms'
+    times at the larger scene. Then SIZE_NS spheres: the main render entry
+    points at 1080p (their times and forms) with every table kernel inside,
+    each against its plain version at SIZE_PARITY_RES (column slices), culls
+    on against off, the worklist kernel, hit extents with bounce levels, the
+    bounce levels' witness (the plain version in float32 against float64),
+    the light cells and the lists against their plain functions, the soft
+    forward at SIZE_SOFT_RES against its plain version on a few pixels
+    (:func:`_soft_check_pixels`); and the backward kernels at SIZE_BWD_NS in
+    their third form against their plain versions (the hard one over the
+    frame in column slices, the soft one at SIZE_BWD_SOFT_RES with a
+    cotangent on 3 pixels). Returns the kernels line's entries of the new
+    forms."""
+    from python_ray_tracer_tpu_torch.ops.cuda import (adaptive_cuda as ac, cull_tables as ct,
+                                                      hit_extents_cuda as hx,
+                                                      light_cells_cuda as lc,
+                                                      render_bwd_cuda as rb, render_cuda,
+                                                      shadow_lists_cuda as sl,
+                                                      soft_bwd_cuda as sb, soft_cuda)
+    from python_ray_tracer_tpu_torch.ops.render import render_image
+    from python_ray_tracer_tpu_torch.utils import timing
+    wrappers = (render_cuda, ac, hx, lc, sl, soft_cuda, rb, sb)
+
+    def reset():
+        for m in wrappers:
+            m.reset_launch_counts()
+
+    def scene_of(n):
+        return rt.random_scene(n, generator=torch.Generator().manual_seed(SIZE_SEED), device=dev)
+
+    def plain_frame(cam, scene, **kw):
+        W = cam.resolution[0]
+        with torch.no_grad():
+            return torch.cat([render_image(cam, scene, x_offset=x0, local_width=min(8, W - x0),
+                                           **kw) for x0 in range(0, W, 8)])
+
+    entries = {}
+    # 1. Every form against the staged form on scenes every form takes.
+    cam = rt.Camera.build(SIZE_FORM_RES, *BENCH_POSE, device=dev)
+    W, H = SIZE_FORM_RES
+    for n in FORM_NS:
+        scene = scene_of(n)
+        cnt = counts(scene)
+        packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=True)
+        cheap = render_cuda.shadow_cheap_ok(scene, True)
+        tabs = {aa: render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=aa, compat=True,
+                                                   packed=packed) for aa in (False, True)}
+        check(tabs[True][2] is not None, f"{n} spheres: no bounce tree")
+        for mode in render_cuda.MODES:
+            vis, shadow, tree, cells = tabs[mode != "aa_none"]
+            runs = {f: (lambda f=f, o=torch.empty((W, H, 3), device=dev): render_cuda.launch(
+                o, *packed, depth=2, mode=mode, compat=True, cheap_shadow=cheap, vis=vis,
+                shadow=shadow, tree=tree, cells=cells, form=f)) for f in (0, 1)}
+            outs = {f: runs[f]().clone() for f in runs}
+            eq = torch.equal(outs[0], outs[1])
+            line = f"[size-form] render {mode} d2, {n} spheres {W}x{H}: every form torch.equal {eq}"
+            if n == FORM_NS[-1]:
+                ms = _alternate(rt, runs, 10)
+                entries[f"render_fwd_{mode}"] = ms
+                line += ("; kernel alone " + ", ".join(
+                    f"{render_cuda.FORMS[f]} {ms[f]:.4f} ms" for f in runs))
+            print(f"{line} | {card}")
+            check(eq, f"render {mode} at {n} spheres: a global form differs from the staged form")
+        # the worklist kernel over every pixel, each form
+        vis, shadow, tree, cells = tabs[True]
+        idx = torch.arange(W * H, dtype=torch.int32, device=dev)
+        flagged = torch.tensor([W * H], dtype=torch.int32, device=dev)
+        runs = {f: (lambda f=f, o=torch.zeros((W, H, 3), device=dev): ac.launch_list(
+            o, *packed, idx, flagged, depth=2, compat=True, cheap_shadow=cheap, vis=vis,
+            shadow=shadow, tree=tree, cells=cells, form=f)) for f in (0, 1)}
+        outs = {f: runs[f]().clone() for f in runs}
+        eq = torch.equal(outs[0], outs[1])
+        line = f"[size-form] worklist kernel, every pixel, {n} spheres: every form torch.equal {eq}"
+        if n == FORM_NS[-1]:
+            ms = _alternate(rt, runs, 5)
+            ext = hx.hit_extents_cuda(cam, scene, aliasing=True, vis=vis)
+            entries["render_list"] = ms
+            entries["render_list_bound"] = timing.bound_ms(*timing.large_scene_work(
+                W, H, *cnt, "aa_per_sample", vis, shadow, ext))
+            entries["hit_extents_bound"] = timing.bound_ms(*timing.hit_extents_work(
+                W, H, n, cnt[1], True, vis, ext))
+            line += "; " + ", ".join(f"{render_cuda.FORMS[f]} {ms[f]:.4f} ms" for f in runs)
+        print(f"{line} | {card}")
+        check(eq, f"worklist kernel at {n} spheres: a global form differs")
+        # hit extents with bounce levels, each form
+        n_tiles = -(-W // 16) * -(-H // 16)
+        runs = {f: (lambda f=f, o=torch.empty((n_tiles * 3, 8), device=dev): hx.launch(
+            o, *packed, W=W, H=H, aliasing=True, compat=True, n_levels=3, vis=vis, tree=tree,
+            form=f)) for f in (0, 1)}
+        outs = {f: runs[f]().clone() for f in runs}
+        eq = torch.equal(outs[0], outs[1])
+        line = f"[size-form] hit_extents 3 levels AA, {n} spheres: every form torch.equal {eq}"
+        if n == FORM_NS[-1]:
+            ms = _alternate(rt, runs, 10)
+            entries["hit_extents"] = ms
+            line += "; " + ", ".join(f"{render_cuda.FORMS[f]} {ms[f]:.4f} ms" for f in runs)
+        print(f"{line} | {card}")
+        check(eq, f"hit extents at {n} spheres: a global form differs")
+        # the table kernels: staged against chunks of SIZE_CHUNK
+        sph, _, lts = packed[1]
+        runs = {c: (lambda c=c: lc.launch(lc.empty(cnt[2], dev), sph, lts, n, cnt[2], chunk=c))
+                for c in (0, SIZE_CHUNK)}
+        a, b = runs[0](), runs[SIZE_CHUNK]()
+        eq = all(torch.equal(u, v) for u, v in zip(a, b))
+        ext = hx.hit_extents_cuda(cam, scene, aliasing=True, vis=vis,
+                                  scale=(scale := torch.empty(1, device=dev)))
+        order = ct.light_order(scene.lights.position, scene.spheres.center,
+                               scene.spheres.radius).to(torch.int32)
+        k = ct.list_capacity(n)
+
+        def lists(c):
+            return sl.launch(torch.empty(n_tiles * cnt[2] * k, dtype=torch.int32, device=dev),
+                             torch.empty(n_tiles * cnt[2], dtype=torch.int32, device=dev), ext,
+                             scale, scene.lights.position.contiguous(),
+                             scene.spheres.center.contiguous(),
+                             scene.spheres.radius.contiguous(), order, k=k, compat=True,
+                             chunk=c)
+        la, lb = lists(0), lists(SIZE_CHUNK)
+        leq = all(torch.equal(u, v) for u, v in zip(la, lb))
+        line = (f"[size-form] light cells / lists, {n} spheres: chunks of {SIZE_CHUNK} "
+                f"torch.equal to staged {eq} / {leq}")
+        if n == FORM_NS[-1]:
+            ms = _alternate(rt, runs, 10)
+            lms = _alternate(rt, {c: (lambda c=c: lists(c)) for c in (0, SIZE_CHUNK)}, 10)
+            entries["light_cells"], entries["shadow_lists"] = ms, lms
+            line += (f"; light cells staged {ms[0]:.4f} / chunked {ms[SIZE_CHUNK]:.4f} ms, lists "
+                     f"staged {lms[0]:.4f} / chunked {lms[SIZE_CHUNK]:.4f} ms")
+        print(f"{line} | {card}")
+        check(eq and leq, f"table kernels at {n} spheres: the chunked form differs")
+        # the soft forward: both forms against the plain version on edge pixels
+        scam = rt.Camera.build(SOFT_FORM_RES, *BENCH_POSE, device=dev)
+        sp = render_cuda.pack_params(scam, scene, False).to(dev)
+        runs = {st: (lambda st=st, o=torch.empty((*SOFT_FORM_RES, 3), device=dev):
+                     soft_cuda.launch(o, sp, packed[1], cnt, tau=SIZE_TAU, staged=st))
+                for st in (True, False)}
+        a, b = runs[True]().clone(), runs[False]().clone()
+        pix = _edge_pixels(torch, a, SIZE_SOFT_PIXELS)
+        p32 = _soft_pixels_plain(torch, rt, scam, scene, pix, SIZE_TAU, torch.float32)
+        p64 = _soft_pixels_plain(torch, rt, scam, scene, pix, SIZE_TAU, torch.float64)
+        xs, ys = (torch.tensor(v, device=dev) for v in zip(*pix))
+        ratio = {}
+        for st, img in ((True, a), (False, b)):
+            got = img[xs, ys]
+            ratio[st] = float(torch.minimum((got - p32).abs().double(),
+                                            (got.double() - p64).abs()).max()) / soft_cuda.IMAGE_ATOL
+        line = (f"[size-form] soft forward tau {SIZE_TAU}, {n} spheres {SOFT_FORM_RES[0]}x"
+                f"{SOFT_FORM_RES[1]}: global against staged "
+                f"torch.equal {torch.equal(a, b)}, max |d| {float((a - b).abs().max()):.3g}; "
+                f"against the plain version on edge pixels {pix}: staged {ratio[True]:.3g}, "
+                f"global {ratio[False]:.3g} of the rule")
+        if n == FORM_NS[-1]:
+            ms = _alternate(rt, runs, 1)
+            entries["soft_fwd"] = ms
+            line += f"; staged {ms[True]:.4f} ms, global {ms[False]:.4f} ms"
+        print(f"{line} | {card}")
+        check(max(ratio.values()) <= 1.0, f"soft forward at {n} spheres off its plain version")
+        # the backward kernels' third form against the others at one launch shape
+        tgt = rt.render_image_cuda(cam, scene, aliasing=False) * 0.9
+        img_aa = rt.render_image_cuda(cam, scene, aliasing=True)
+        cot = seeded(torch, (W, H, 3), dev, 6) * 1e-2
+        for mode in ("fused_noaa", "cot_aa"):
+            fused = mode.startswith("fused")
+            chosen = rb.launch_plan(cam, scene, mode)
+            glob = rb.launch_plan(cam, scene, mode, staged=False, device_rows=False)
+            nr = rb.n_grads(*cnt, fused)
+            res, runs = {}, {}
+            for name, p in (("planner", chosen), ("global", glob)):
+                twin = p._replace(staged=False, device_rows=True, smem=rb.smem_bytes(
+                    *cnt, fused, mode.endswith("_aa"), p.nt, False, False, True))
+                for key, q in ((name, p), (f"{name} twin", twin)):
+                    o, part = torch.empty(nr, device=dev), torch.empty(nr * q.blocks, device=dev)
+                    runs[key] = (lambda q=q, o=o, part=part: rb.launch(
+                        o, part, packed[0], packed[1], cnt, image=None if fused else cot,
+                        target=tgt if fused else None, W=W, H=H, depth=2, mode=mode,
+                        compat=True, cheap_shadow=cheap, shape=q))
+                    res[key] = runs[key]().clone()
+            eq = torch.equal(res["planner"], res["planner twin"]) and \
+                torch.equal(res["global"], res["global twin"])
+            line = (f"[size-form] hard {mode} d2, {n} spheres: rows in device memory "
+                    f"torch.equal to the planner's {'staged' if chosen.staged else 'global'} "
+                    f"{chosen.nt}-thread plan and to the global {glob.nt}-thread one: {eq}")
+            if n == FORM_NS[-1] and fused:
+                ms = _alternate(rt, {k: runs[k] for k in ("planner", "global twin")}, 5)
+                entries["render_bwd"] = ms
+                line += (f"; planner's {ms['planner']:.4f} ms, device rows at the global "
+                         f"plan's shape {ms['global twin']:.4f} ms")
+            print(f"{line} | {card}")
+            check(eq, f"hard {mode} at {n} spheres: device-memory rows differ")
+    # the light cells at the main path's scenes (the CLI's random_scene from
+    # seed 0): the staged form against the chunked one, which the staged
+    # form loses to at FORM_NS[-1]
+    for n in LC_MAIN_NS:
+        scene = rt.random_scene(n, generator=torch.Generator().manual_seed(0), device=dev)
+        sph, _, lts = render_cuda.scene_tables(scene)
+        nl = scene.lights.count
+        runs = {c: (lambda c=c, o=lc.empty(nl, dev): lc.launch(o, sph, lts, n, nl, chunk=c))
+                for c in (0, lc.CHUNK)}
+        eq = all(torch.equal(u, v) for u, v in zip(runs[0](), runs[lc.CHUNK]()))
+        ms = _alternate(rt, runs, 200)
+        print(f"[size-form] light cells at the main path's {n} spheres: chunks of {lc.CHUNK} "
+              f"torch.equal to staged {eq}; staged {ms[0]:.4f} / chunked {ms[lc.CHUNK]:.4f} ms "
+              f"(A, B, B, A minima of 200 launches) | {card}")
+        check(eq, f"light cells at {n} spheres: the chunked form differs")
+    # the soft backward's third form against its global form at one plan
+    # (SOFT_ROWS_RES: its blocks walk pixel groups)
+    scene = scene_of(FORM_NS[0])
+    cnt = counts(scene)
+    cam = rt.Camera.build(SOFT_ROWS_RES, *BENCH_POSE, device=dev)
+    W, H = SOFT_ROWS_RES
+    sparams = render_cuda.pack_params(cam, scene, False).to(dev)
+    tables = render_cuda.scene_tables(scene)
+    stgt = soft_cuda.render_image_soft_cuda(cam, scene, tau=SIZE_TAU)
+    cot = seeded(torch, (W, H, 3), dev, 6) * 1e-2
+    for mode in sb.MODES:
+        fused = mode == "fused"
+        glob = sb.plan(*cnt, fused, staged=False, device_rows=False)
+        twin = glob._replace(device_rows=True, smem=sb.smem_bytes(
+            *cnt, fused, glob.nt, glob.cap, glob.cj, glob.store_vis, False, True))
+        nr = rb.n_grads(*cnt, fused)
+        runs = {}
+        for key, q in (("global", glob), ("rows", twin)):
+            o = torch.empty(nr, device=dev)
+            part = torch.empty(nr * sb.n_blocks(W, H, q), device=dev)
+            runs[key] = (lambda q=q, o=o, part=part: sb.launch(
+                o, part, sparams, tables, cnt, image=stgt if fused else cot, W=W, H=H,
+                tau=SIZE_TAU, mode=mode, shape=q))
+        a, b = runs["global"]().clone(), runs["rows"]().clone()
+        rule = sb.soft_grad_rule(b, a, *cnt)
+        worst = max(rule.items(), key=lambda kv: kv[1][0])
+        ok = all(v for _, v in rule.values())
+        line = (f"[size-form] soft {mode} tau {SIZE_TAU}, {FORM_NS[0]} spheres {W}x{H}: rows in "
+                f"device memory ({sb.n_blocks(W, H, twin)} blocks walking "
+                f"{sb.n_blocks(W, H, glob)} pixel groups) "
+                f"against the global form at its plan ({glob.nt} threads, cap "
+                f"{glob.cap}, cj {glob.cj}): torch.equal {torch.equal(a, b)}, max |d| "
+                f"{float((a - b).abs().max()):.3g}, soft_grad_rule ok {ok} (worst {worst[0]} "
+                f"{worst[1][0]:.3g})")
+        if fused:
+            ms = _alternate(rt, runs, 1)
+            entries["soft_bwd"] = ms
+            line += f"; global {ms['global']:.4f} ms, device rows {ms['rows']:.4f} ms"
+        print(f"{line} | {card}")
+        check(ok, f"soft {mode}: device-memory rows off the global form")
+    print(f"[size-form] times above: kernel alone, minima of 2 alternating runs each")
+
+    # 2. Scenes past every staged form, through the entry points.
+    big = {}
+    for n in SIZE_NS:
+        scene = scene_of(n)
+        cnt = counts(scene)
+        cam = rt.Camera.build(SIZE_RES, *BENCH_POSE, device=dev)
+        reset()
+        for aa in (False, True):
+            mode = "aa_shared" if aa else "aa_none"
+            img = rt.render_image_cuda(cam, scene, aliasing=aa)
+            torch.cuda.synchronize()
+            check(img.shape == (*SIZE_RES, 3) and bool(torch.isfinite(img).all()),
+                  f"{n} spheres {mode}: image {tuple(img.shape)} not finite")
+            ms = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, aliasing=aa, warmup=1, iters=2)
+            packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=True)
+            vis, shadow, tree, cells = render_cuda.large_scene_tables(
+                cam, scene, depth=2, aliasing=aa, compat=True, packed=packed)
+            kernel_ms = 1e3 * rt.time_fn(
+                render_cuda.launch, torch.empty((*SIZE_RES, 3), device=dev), *packed, depth=2,
+                mode=mode, compat=True, cheap_shadow=render_cuda.shadow_cheap_ok(scene, True),
+                vis=vis, shadow=shadow, tree=tree, cells=cells, warmup=1, iters=2)
+            ext = hx.hit_extents_cuda(cam, scene, aliasing=aa, vis=vis)
+            bound = timing.bound_ms(*timing.large_scene_work(*SIZE_RES, *cnt, mode, vis, shadow,
+                                                             ext))
+            big[(n, mode)] = {"ms": ms, "kernel_ms": kernel_ms, "bound": bound}
+            print(f"[size-render] render_image_cuda {mode} d2, {n} spheres {SIZE_RES[0]}x"
+                  f"{SIZE_RES[1]}: {ms:.4f} ms a frame (wrapper: tables and kernels), kernel "
+                  f"alone {kernel_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}, a lower "
+                  f"bound), form {render_cuda.FORMS[render_cuda.scene_form(*cnt, True)]} "
+                  f"| {card}")
+        got = {"render": dict(render_cuda.GLOBAL_LAUNCHES), "hit_extents": hx.LAUNCHES["hit_extents"],
+               "light_cells_chunked": lc.GLOBAL_LAUNCHES["light_cells"],
+               "shadow_lists_chunked": sl.GLOBAL_LAUNCHES["shadow_lists"]}
+        print(f"[size-render] {n} spheres: launches {got}")
+        check(got["render"]["aa_none"] > 0 and got["render"]["aa_shared"] > 0 and
+              got["light_cells_chunked"] > 0 and got["shadow_lists_chunked"] > 0,
+              f"{n} spheres: not every global or chunked form launched: {got}")
+        big[n] = dict(got)
+        # the table kernels alone in their chunked form, and their plain functions
+        sph, _, lts = render_cuda.scene_tables(scene)
+        lc_ms = 1e3 * rt.time_fn(lc.launch, lc.empty(cnt[2], dev), sph, lts, n, cnt[2], warmup=1,
+                                 iters=10)
+        lc_plain_ms = 1e3 * rt.time_fn(lc.light_cells_plain, scene.spheres.center,
+                                       scene.spheres.radius, scene.lights.position, warmup=1,
+                                       iters=1)
+        big[(n, "light_cells")] = {"ms": lc_ms, "plain_ms": lc_plain_ms,
+                                   "bound": timing.bound_ms(*timing.light_cells_work(n, cnt[2]))}
+        # each against its plain version at SIZE_PARITY_RES
+        pc = rt.Camera.build(SIZE_PARITY_RES, *BENCH_POSE, device=dev)
+        pw, ph = SIZE_PARITY_RES
+        for mode in render_cuda.MODES:
+            aa = mode != "aa_none"
+            kw = dict(aliasing=aa, aa_share=mode == "aa_shared")
+            img_k = rt.render_image_cuda(pc, scene, **kw)
+            off = rt.render_image_cuda(pc, scene, cull=False, shadow_lists=False,
+                                       group_cull=False, **kw)
+            t0 = time.perf_counter()
+            img_p = plain_frame(pc, scene, aliasing=aa)
+            torch.cuda.synchronize()
+            flips, changed, dmax = frame_diff(rt.to_framebuffer(img_k), rt.to_framebuffer(img_p))
+            err = float((img_k - img_p).abs().max())
+            big[(n, mode)] = {**big.get((n, mode), {}), "err": err,
+                              "plain_s": time.perf_counter() - t0}
+            print(f"[size-parity] {mode} d2, {n} spheres {pw}x{ph}: flipped {flips}/{pw * ph} "
+                  f"against the plain version (column slices, "
+                  f"{time.perf_counter() - t0:.1f} s), max {dmax}; culls on torch.equal to "
+                  f"all off {torch.equal(img_k, off)}")
+            check(flips <= FLIP_FRAC * pw * ph, f"{mode} at {n} spheres: {flips} flipped")
+            check(torch.equal(img_k, off), f"{mode} at {n} spheres: culls change the frame")
+            if mode == "aa_per_sample":
+                adaptive = rt.render_image_adaptive_cuda(pc, scene, eps=-1.0, budget_frac=1.0)
+                eq = torch.equal(adaptive, img_k)
+                print(f"[size-parity] worklist kernel, every interior pixel flagged, {n} "
+                      f"spheres {pw}x{ph}: torch.equal to aa_per_sample {eq}")
+                check(eq, f"worklist kernel at {n} spheres differs from aa_per_sample")
+        # hit extents with bounce levels (the global form): level 0 against the
+        # plain version (extent_rule); the bounce levels with the tree against
+        # the same launch without it (exact culls: equal). A bounce level of
+        # a dense cloud is chaotic, so its rows against the plain version's
+        # (another rounding of the hit points) are reported, not held; the
+        # witness: the plain version in float32 against itself in float64,
+        # whose bounce levels part the same way while level 0 agrees.
+        vis = (*ct.tile_visibility(pc, scene, compat=True, K=ct.list_capacity(n)),
+               ct.list_capacity(n))
+        tree = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
+        ext_k = hx.hit_extents_cuda(pc, scene, aliasing=True, n_levels=3, vis=vis, tree=tree)
+        ext_n = hx.hit_extents_cuda(pc, scene, aliasing=True, n_levels=3, vis=vis)
+        t0 = time.perf_counter()
+        ext_p = hx.hit_extents_plain(pc, scene, aliasing=True, n_levels=3, vis=vis)
+        hx_plain_ms = 1e3 * (time.perf_counter() - t0)
+        pc64 = rt.Camera(pc.position.double(), pc.rotation.double(), pc.fov.double(),
+                         pc.resolution)
+        ext_64 = hx.hit_extents_plain(pc64, _subscene(rt, scene, torch.arange(n, device=dev),
+                                                      torch.float64),
+                                      aliasing=True, n_levels=3, vis=vis)
+        torch.cuda.empty_cache()
+        rule = hx.extent_rule(ext_k[0::3], ext_p[0::3])
+
+        def gap(a, b):
+            return [(round(hx.extent_rule(a[lv::3], b[lv::3])["ratio"], 4),
+                     int((a[lv::3, 6] != b[lv::3, 6]).sum())) for lv in range(3)]
+        print(f"[size-parity] hit_extents 3 levels AA, {n} spheres {pw}x{ph} "
+              f"({hx.GLOBAL_LAUNCHES['hit_extents']} global launches): level 0 against the "
+              f"plain version {rule}; levels 1-2 with the tree torch.equal to without "
+              f"{torch.equal(ext_k, ext_n)}; levels 0 / 1 / 2 (extent_rule ratio, rows whose "
+              f"counts differ, of {ext_k.shape[0] // 3}): kernel against the plain version "
+              f"{gap(ext_k, ext_p)}, the plain version in float32 against float64 "
+              f"{gap(ext_p, ext_64)}, the kernel against float64 {gap(ext_k, ext_64)}")
+        check(rule["ok"] and torch.equal(ext_k, ext_n), f"hit extents at {n} spheres: {rule}")
+        big[(n, "hit_extents")] = {"err": rule["max_abs_err"], "ratio": rule["ratio"],
+                                   "plain_ms": hx_plain_ms}
+        # the table kernels against their plain functions
+        sph, _, lts = render_cuda.scene_tables(scene)
+        cells = lc.light_cells_cuda(sph, lts, *cnt[::2])
+        plain_cells = lc.light_cells_plain(scene.spheres.center, scene.spheres.radius,
+                                           scene.lights.position)
+        ceq = all(torch.equal(a, b) for a, b in zip(cells, plain_cells))
+        lcam = rt.Camera.build(SIZE_FORM_RES, *BENCH_POSE, device=dev)
+        lvis = (*ct.tile_visibility(lcam, scene, compat=True, K=ct.list_capacity(n)),
+                ct.list_capacity(n))
+        ext = hx.hit_extents_cuda(lcam, scene, aliasing=True, vis=lvis,
+                                  scale=(scale := torch.empty(1, device=dev)))
+        kl = sl.shadow_lists_cuda(ext, scale, scene.lights.position, scene.spheres.center,
+                                  scene.spheres.radius, K=ct.list_capacity(n), compat=True)
+        pl = ct.shadow_visibility_lists(ext, scene.lights.position, scene.spheres.center,
+                                        scene.spheres.radius, K=ct.list_capacity(n),
+                                        compat=True, scale=scale)
+        leq = all(torch.equal(a, b) for a, b in zip(kl, pl))
+        L, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+        order = ct.light_order(L, C, R).to(torch.int32)
+        k = ct.list_capacity(n)
+        sl_ms = 1e3 * rt.time_fn(sl.launch, *(torch.empty_like(t) for t in kl), ext, scale, L, C,
+                                 R, order, k=k, compat=True, warmup=1, iters=10)
+        sl_plain_ms = 1e3 * rt.time_fn(ct.shadow_visibility_lists, ext, L, C, R, K=k,
+                                       compat=True, scale=scale, warmup=1, iters=1)
+        big[(n, "shadow_lists")] = {"ms": sl_ms, "plain_ms": sl_plain_ms, "bound": timing.bound_ms(
+            *timing.shadow_lists_work(ext, L, C, R, K=k, compat=True))}
+        print(f"[size-time] {n} spheres, chunked forms alone: light cells {lc_ms:.4f} ms (plain "
+              f"{lc_plain_ms:.4f} ms, bound {big[(n, 'light_cells')]['bound'][0]:.4f}), lists at "
+              f"{SIZE_FORM_RES[0]}x{SIZE_FORM_RES[1]} {sl_ms:.4f} ms (plain {sl_plain_ms:.4f} ms, "
+              f"bound {big[(n, 'shadow_lists')]['bound'][0]:.4f}) | {card}")
+        print(f"[size-parity] {n} spheres: light cells (chunked) torch.equal to the plain "
+              f"build {ceq}; level-0 lists at {SIZE_FORM_RES[0]}x{SIZE_FORM_RES[1]} (chunked) "
+              f"torch.equal to the plain function {leq}")
+        check(ceq and leq, f"table kernels at {n} spheres differ from their plain functions")
+        # the soft forward (global form) against its plain version
+        scam = rt.Camera.build(SIZE_SOFT_RES, *BENCH_POSE, device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        simg = rt.render_image_soft_cuda(scam, scene, tau=SIZE_TAU)
+        torch.cuda.synchronize()
+        sms = 1e3 * (time.perf_counter() - t0)   # one frame: seconds at this density
+        check(soft_cuda.GLOBAL_LAUNCHES["soft_fwd"] > 0, f"{n} spheres: soft forward not global")
+        t0 = time.perf_counter()
+        chosen, median = _soft_check_pixels(torch, scam, scene, SIZE_TAU, SIZE_SOFT_PIXELS)
+        pick_s = time.perf_counter() - t0
+        check(len(chosen) > 0, f"{n} spheres: no pixel's plain subset fits")
+        pix = [p for p, _, _ in chosen]
+        subs = [sub for _, sub, _ in chosen]
+        lives = [v for _, _, v in chosen]
+        sizes = [int(sub.numel()) for sub in subs]
+        t0 = time.perf_counter()
+        p32 = _soft_pixels_plain(torch, rt, scam, scene, pix, SIZE_TAU, torch.float32, subs)
+        plain_s = time.perf_counter() - t0
+        p64 = _soft_pixels_plain(torch, rt, scam, scene, pix, SIZE_TAU, torch.float64, subs)
+        xs, ys = (torch.tensor(v, device=dev) for v in zip(*pix))
+        got = simg[xs, ys]
+        d32 = (got - p32).abs()
+        ratio = float(torch.minimum(d32.double(), (got.double() - p64).abs()).max()) / \
+            soft_cuda.IMAGE_ATOL
+        px = SIZE_SOFT_RES[0] * SIZE_SOFT_RES[1]
+        big[(n, "soft")] = {"ms": sms, "err": float(d32.max()), "ratio": ratio,
+                            "plain_ms": 1e3 * plain_s, "plain_px": len(pix),
+                            "bound": timing.bound_ms(px * n * timing.COVER_GEO,
+                                                     timing._scene_bytes(*cnt) + 12 * px)}
+        print(f"[size-parity] soft forward tau {SIZE_TAU}, {n} spheres {SIZE_SOFT_RES[0]}x"
+              f"{SIZE_SOFT_RES[1]}: pixels {pix} (live spheres on their rays {lives}, the "
+              f"frame's median {median}; plain subsets {sizes} spheres, chosen in "
+              f"{pick_s:.1f} s, plain float32 {plain_s:.1f} s): max |d| {float(d32.max()):.3g}, "
+              f"{ratio:.3g} of the rule; {sms:.4f} ms a frame (one frame, host clock) | {card}")
+        check(ratio <= 1.0 and bool(torch.isfinite(simg).all()),
+              f"soft forward at {n} spheres off its plain version")
+        big[n]["launches"] = {
+            **{f"render_fwd_{m}_global": v for m, v in render_cuda.GLOBAL_LAUNCHES.items()},
+            "render_list_global": ac.GLOBAL_LAUNCHES["render_list"],
+            "hit_extents_global": hx.GLOBAL_LAUNCHES["hit_extents"],
+            "light_cells_chunked": lc.GLOBAL_LAUNCHES["light_cells"],
+            "shadow_lists_chunked": sl.GLOBAL_LAUNCHES["shadow_lists"],
+            "soft_fwd_global": soft_cuda.GLOBAL_LAUNCHES["soft_fwd"]}
+        print(f"[size-main] {n} spheres: launches of the global and chunked forms "
+              f"{big[n]['launches']}")
+
+    # 3. The backward kernels at SIZE_BWD_NS: the third form.
+    scene = scene_of(SIZE_BWD_NS)
+    cnt = counts(scene)
+    cam = rt.Camera.build(REPAIR_RES, *BENCH_POSE, device=dev)
+    W, H = REPAIR_RES
+    reset()
+    for aa in (False, True):
+        mode = "cot_aa" if aa else "cot_noaa"
+        shape = rb.launch_plan(cam, scene, mode)
+        check(shape.device_rows, f"{mode} at {SIZE_BWD_NS} spheres planned {shape}")
+        res = _hard_against_plain(torch, rt, rb, cam, scene, aa)
+        print(f"[size-bwd] hard {mode} at {SIZE_BWD_NS} spheres {W}x{H} d{REPAIR_DEPTH}: plan "
+              f"{shape}; {res['line']}")
+        check(res["ok"], f"{mode} at {SIZE_BWD_NS} spheres: {res['rule']}")
+        big[("bwd", mode)] = res
+    tgt = rt.render_image_cuda(cam, scene, aliasing=False) * 0.9
+    sms = 1e3 * rt.time_fn(rb.loss_and_scene_grads_cuda, cam, scene, tgt, warmup=1, iters=3)
+    shape = rb.launch_plan(cam, scene, "fused_noaa")
+    nr = rb.n_grads(*cnt, True)
+    params = render_cuda.pack_params(cam, scene, True).to(dev)
+    kms = 1e3 * rt.time_fn(
+        rb.launch, torch.empty(nr, device=dev), torch.empty(nr * shape.blocks, device=dev),
+        params, render_cuda.scene_tables(scene), cnt, image=None, target=tgt, W=W, H=H, depth=2,
+        mode="fused_noaa", compat=True, cheap_shadow=render_cuda.shadow_cheap_ok(scene, True),
+        shape=shape, warmup=1, iters=3)
+    big[("bwd", "fused_noaa")] = {"ms": sms, "kernel_ms": kms, "bound": timing.bound_ms(
+        *timing.hard_work(W, H, *cnt, "fused_noaa"))}
+    print(f"[size-bwd] hard fused_noaa step d2 at {SIZE_BWD_NS} spheres {W}x{H} ({shape}, "
+          f"scratch {4 * rb.scratch_floats(*cnt, shape)} B): {sms:.4f} ms, kernel and reduction "
+          f"alone {kms:.4f} ms | {card}")
+    cam = rt.Camera.build(SIZE_BWD_SOFT_RES, *BENCH_POSE, device=dev)
+    W, H = SIZE_BWD_SOFT_RES
+    chosen, median = _soft_check_pixels(torch, cam, scene, SIZE_TAU, REPAIR_SOFT_PIXELS)
+    check(len(chosen) > 0, f"{SIZE_BWD_NS} spheres: no pixel's plain subset fits")
+    pixels = [p for p, _, _ in chosen]
+    g = torch.zeros((W, H, 3), device=dev)
+    for i, (x, y) in enumerate(pixels):
+        g[x, y] = seeded(torch, (3,), dev, 20 + i) + 0.5
+    sshape = sb.plan(*cnt, False)
+    check(sshape.device_rows, f"soft cot at {SIZE_BWD_NS} spheres planned {sshape}")
+    sblocks = sb.n_blocks(W, H, sshape)
+    groups = sb.n_blocks(W, H, sshape._replace(device_rows=False))
+    snr = rb.n_grads(*cnt, False)
+    check(sblocks < groups, f"soft cot at {W}x{H}: {sblocks} blocks for {groups} groups")
+    k = rb.flatten_grads(*sb.soft_scene_grads_cuda(cam, scene, g, tau=SIZE_TAU,
+                                                   return_camera=True))
+    soft_ms = 1e3 * rt.time_fn(sb.soft_scene_grads_cuda, cam, scene, g, tau=SIZE_TAU, warmup=1,
+                               iters=3)
+    t0 = time.perf_counter()
+    p = torch.zeros_like(k)
+    n_s = cnt[0]
+    for (x, y), idx, _ in chosen:
+        sub = _subscene(rt, scene, idx, torch.float32)
+
+        def objective(c, s, x=x, y=y):
+            d = c.ray_directions(torch.tensor([[float(x), float(y)]], device=dev), compat=False)
+            rgb = rt.render_rays_soft(c.ray_origin().expand(d.shape), d, s, tau=SIZE_TAU)
+            return (rgb[0] * g[x, y]).sum(), None
+        ps = rb._autograd_flat(cam, sub, objective)
+        ns_sub = idx.numel()
+        # the subset's sphere slots (7 a sphere) back to the scene's; the
+        # rest of the layout is the scene's
+        p[:7 * n_s].view(n_s, 7)[idx] += ps[:7 * ns_sub].view(ns_sub, 7)
+        p[7 * n_s:] += ps[7 * ns_sub:]
+        torch.cuda.empty_cache()
+    soft_plain_ms = 1e3 * (time.perf_counter() - t0)
+    rule = sb.soft_grad_rule(k, p, *cnt)
+    worst = max(rule.items(), key=lambda kv: kv[1][0])
+    ok = all(v for _, v in rule.values())
+    big[("bwd", "soft")] = {
+        "ms": soft_ms, "plain_ms": soft_plain_ms, "err": float((k - p).abs().max()),
+        "ratio": worst[1][0], "bound": timing.bound_ms(
+            len(pixels) * cnt[0] * timing.COVER_GEO,
+            timing._scene_bytes(*cnt) + 12 * W * H + 4 * rb.n_grads(*cnt))}
+    print(f"[size-bwd] soft backward cot tau {SIZE_TAU} at {SIZE_BWD_NS} spheres {W}x{H}, "
+          f"cotangent on pixels {pixels} (live spheres on their rays "
+          f"{[v for _, _, v in chosen]}, the frame's median {median}): plan {sshape}, "
+          f"{sblocks} blocks walking {groups} pixel groups, scratch "
+          f"{4 * sb.scratch_floats(*cnt, False, W, H, sshape)} B, partials "
+          f"{4 * snr * sblocks} B (one block a group: {4 * groups * sshape.nt // 32 * snr} B "
+          f"and {4 * groups * snr} B); {soft_ms:.4f} ms; against the plain version over "
+          f"each pixel's subset ({time.perf_counter() - t0:.1f} s): ok {ok}, worst {worst[0]} "
+          f"{worst[1][0]:.3g}")
+    check(ok, f"soft cot at {SIZE_BWD_NS} spheres: {rule}")
+    got = {**{f"{m} rows": v for m, v in rb.ROWS_LAUNCHES.items() if v},
+           **{f"soft {m} rows": v for m, v in sb.ROWS_LAUNCHES.items() if v}}
+    print(f"[size-bwd] launches in the third form: {got}")
+    check(rb.ROWS_LAUNCHES["cot_noaa"] > 0 and sb.ROWS_LAUNCHES["cot"] > 0,
+          f"the third form did not launch: {got}")
+    return _size_entries(entries, big, got)
+
+
+def _size_entries(form_ms: dict, big: dict, rows: dict) -> list:
+    """The kernels line's entries of the global, chunked and device-rows
+    forms, from :func:`scene_size_phase`'s measurements: ``launches`` over
+    its SIZE_NS runs (rows: its SIZE_BWD_NS run), ``ms`` and the bound at the
+    largest scene each ran at, ``plain_ms`` where the plain version ran
+    (``plain_shape`` says on what)."""
+    n = SIZE_NS[-1]
+    big_n = f"{n} spheres {SIZE_RES[0]}x{SIZE_RES[1]}"
+    par = f"{n} spheres {SIZE_PARITY_RES[0]}x{SIZE_PARITY_RES[1]}"
+
+    def launches(key):
+        return sum(big[m]["launches"][key] for m in SIZE_NS)
+
+    out = []
+    for mode in ("aa_none", "aa_shared"):
+        r = big[(n, mode)]
+        out.append({
+            "name": f"render_fwd_{mode}_global", "route": "cuda",
+            "source": "python_ray_tracer_tpu_torch/csrc/render_fwd_global.cu",
+            "replaces": REPLACES[mode], "launches": launches(f"render_fwd_{mode}_global"),
+            "max_abs_err": r["err"], "ms": r["ms"], "kernel_only_ms": r["kernel_ms"],
+            "plain_ms": 1e3 * r["plain_s"], "plain_shape": par, "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None, "shape": big_n,
+            "staged_ms_5000": form_ms[f"render_fwd_{mode}"][0],
+            "global_ms_5000": form_ms[f"render_fwd_{mode}"][1]})
+    r = big[(n, "aa_per_sample")]
+    out.append({
+        "name": "render_list_global", "route": "cuda",
+        "source": "python_ray_tracer_tpu_torch/csrc/render_fwd_global.cu",
+        "replaces": LIST_REPLACES, "launches": launches("render_list_global"),
+        "max_abs_err": r["err"], "ms": form_ms["render_list"][1],
+        "plain_ms": 1e3 * r["plain_s"], "plain_shape": par + " (the per-sample AA frame it equals)",
+        "bound_ms": form_ms["render_list_bound"][0],
+        "bound_by": form_ms["render_list_bound"][1], "library_ms": None,
+        "shape": f"{FORM_NS[-1]} spheres {SIZE_FORM_RES[0]}x{SIZE_FORM_RES[1]}, every pixel",
+        "staged_ms": form_ms["render_list"][0]})
+    r = big[(n, "hit_extents")]
+    out.append({
+        "name": "hit_extents_global", "route": "cuda", "source": HX_SOURCE,
+        "replaces": HX_REPLACES, "launches": launches("hit_extents_global"),
+        "max_abs_err": r["err"], "max_rel_err": r["ratio"], "ms": form_ms["hit_extents"][1],
+        "plain_ms": r["plain_ms"], "plain_shape": par,
+        "bound_ms": form_ms["hit_extents_bound"][0],
+        "bound_by": form_ms["hit_extents_bound"][1], "library_ms": None,
+        "shape": f"3 levels AA, {FORM_NS[-1]} spheres {SIZE_FORM_RES[0]}x{SIZE_FORM_RES[1]}",
+        "staged_ms": form_ms["hit_extents"][0]})
+    for name, src in (("light_cells", LC_SOURCE), ("shadow_lists", SL_SOURCE)):
+        r = big[(n, name)]
+        out.append({
+            "name": f"{name}_chunked", "route": "cuda", "source": src, "replaces": None,
+            "launches": launches(f"{name}_chunked"), "max_abs_err": 0.0, "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+            "library_ms": None, "shape": f"{n} spheres" + (
+                f", {SIZE_FORM_RES[0]}x{SIZE_FORM_RES[1]} rows" if name == "shadow_lists" else "")})
+    r = big[(n, "soft")]
+    out.append({
+        "name": "soft_fwd_global", "route": "cuda", "source": SOFT_FWD_SOURCE,
+        "replaces": SOFT_FWD_REPLACES, "launches": launches("soft_fwd_global"),
+        "max_abs_err": r["err"], "max_rel_err": r["ratio"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "plain_shape": f"{r['plain_px']} pixels, each over its subset",
+        "bound_ms": r["bound"][0], "bound_by": r["bound"][1], "library_ms": None,
+        "shape": f"{n} spheres {SIZE_SOFT_RES[0]}x{SIZE_SOFT_RES[1]} tau {SIZE_TAU}"})
+    r, h = big[("bwd", "fused_noaa")], big[("bwd", "cot_noaa")]
+    out.append({
+        "name": "render_bwd_device_rows", "route": "cuda",
+        "source": "python_ray_tracer_tpu_torch/csrc/render_bwd_rows.cu",
+        "replaces": BWD_REPLACES, "launches": sum(v for k, v in rows.items()
+                                                  if not k.startswith("soft")),
+        "max_abs_err": h["err"], "ms": r["ms"], "kernel_only_ms": r["kernel_ms"],
+        "plain_ms": 1e3 * h["plain_s"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None,
+        "shape": f"fused_noaa d2, {SIZE_BWD_NS} spheres {REPAIR_RES[0]}x{REPAIR_RES[1]}"})
+    r = big[("bwd", "soft")]
+    out.append({
+        "name": "soft_bwd_device_rows", "route": "cuda", "source": SOFT_BWD_SOURCE,
+        "replaces": SOFT_BWD_REPLACES, "launches": sum(v for k, v in rows.items()
+                                                       if k.startswith("soft")),
+        "max_abs_err": r["err"], "max_rel_err": r["ratio"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+        "library_ms": None, "shape": f"cot tau {SIZE_TAU}, {SIZE_BWD_NS} spheres "
+                                     f"{SIZE_BWD_SOFT_RES[0]}x{SIZE_BWD_SOFT_RES[1]}, "
+                                     f"{REPAIR_SOFT_PIXELS} pixels' cotangent"})
+    return out
+
+
+FAULT_STEPS = 30                   # resilient_fit's steps on the card (the fit CLI's)
+FAULT_CKPT_EVERY = 5
+FAULT_NAN_STEP, FAULT_EXC_STEP = 12, 20
+FAULT_LR = 1e-2                    # the fit CLI's --lr
+
+
+def faults_phase(torch, rt, card: str, dev) -> None:
+    """Phase 23, second part (``[faults]``, ``[profile]``): ``device_healthcheck()``
+    on the card; ``resilient_fit`` over ``fit_scene``'s fused step (kernel 4,
+    ``fused_noaa``) at the fit CLI's width (its 2-sphere scene, FIT_RES, depth
+    2, FAULT_STEPS steps, a checkpoint every FAULT_CKPT_EVERY) with a NaN
+    injected at FAULT_NAN_STEP and an exception at FAULT_EXC_STEP: two events,
+    restored at the checkpoints before them, and losses torch.equal to an
+    uninterrupted run's (the backward is bit-deterministic); then a step that
+    fails every time, diagnosed as deterministic. Then ``capture_trace`` with
+    ``annotate`` around one ``render_image_cuda`` AA frame (kernel 2) and one
+    fit step: the trace file names both scopes and both kernels;
+    ``device_memory_stats``."""
+    import tempfile
+    from python_ray_tracer_tpu_torch import cli, train
+    from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb, render_cuda
+    from python_ray_tracer_tpu_torch.utils import faults, profiling
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+
+    t0 = time.perf_counter()
+    status = faults.device_healthcheck()
+    print(f"[faults] device_healthcheck(): {status} in {time.perf_counter() - t0:.2f} s")
+    check(status == {"cuda:0": True}, f"device_healthcheck() {status}")
+    cfg = RenderConfig(width=FIT_RES[0], height=FIT_RES[1])
+    scene = cli.fit_scene_two_spheres(cfg, dev)
+    cam = rt.Camera.build(FIT_RES, cfg.camera_position, cfg.camera_euler, cfg.fov, device=dev)
+    target = rt.render_image_cuda(cam, scene, depth=2, aliasing=False)
+
+    def make_step():
+        init = rt.Scene.from_leaves([t.clone() for t in scene.leaves()])
+        init.spheres.center += torch.tensor(cli.FIT_SHIFT, device=dev)
+        return train.make_train_step(init, train.cuda_value_and_grad(cam, target, depth=2),
+                                     lr=FAULT_LR, trainable=("spheres",))
+
+    step = make_step()
+    ref = [float(step()) for _ in range(FAULT_STEPS)]
+
+    class Faults:
+        """A NaN at FAULT_NAN_STEP and an exception at FAULT_EXC_STEP, once each."""
+        def __init__(self):
+            self.nan = faults.FaultInjector([FAULT_NAN_STEP], mode="nan")
+            self.exc = faults.FaultInjector([FAULT_EXC_STEP], mode="exception")
+
+        def maybe_fail(self, i, loss):
+            return self.exc.maybe_fail(i, self.nan.maybe_fail(i, loss))
+
+    rb.reset_launch_counts()
+    seen = []
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        _, _, losses, events = faults.resilient_fit(
+            make_step(), steps=FAULT_STEPS, ckpt_dir=d, ckpt_every=FAULT_CKPT_EVERY,
+            injector=Faults(), on_restart=lambda s, o, ev: seen.append(ev.step))
+        fit_s = time.perf_counter() - t0
+    restored = [(ev.step, ev.restored_step) for ev in events]
+    same = torch.equal(torch.tensor(losses), torch.tensor(ref))
+    print(f"[faults] resilient_fit, fused_noaa, {FIT_RES[0]}x{FIT_RES[1]} d2, {FAULT_STEPS} "
+          f"steps, a checkpoint every {FAULT_CKPT_EVERY}, NaN at {FAULT_NAN_STEP} and an "
+          f"exception at {FAULT_EXC_STEP}: events {restored} ({[ev.reason for ev in events]}), "
+          f"on_restart saw {seen}; {len(losses)} losses torch.equal to the uninterrupted run's "
+          f"{same} (first {losses[0]:.6g}, last {losses[-1]:.6g}); fused_noaa launches "
+          f"{rb.LAUNCHES['fused_noaa']} in {fit_s:.1f} s")
+    check(restored == [(FAULT_NAN_STEP, 10), (FAULT_EXC_STEP, 20)] and seen == [12, 20],
+          f"restart events {restored}")
+    check(len(losses) == FAULT_STEPS and same, "resilient_fit's losses differ from the run's")
+    check(rb.LAUNCHES["fused_noaa"] >= FAULT_STEPS, "resilient_fit did not launch fused_noaa")
+
+    class AlwaysFail(faults.FaultInjector):
+        def maybe_fail(self, i, loss):
+            return float("nan") if i == 2 else loss
+
+    with tempfile.TemporaryDirectory() as d:
+        try:
+            faults.resilient_fit(make_step(), steps=5, ckpt_dir=d, ckpt_every=1,
+                                 max_restarts=2, injector=AlwaysFail(fail_steps=[]))
+            diagnosis = None
+        except faults.UnrecoverableTraining as e:
+            diagnosis = str(e)
+    print(f"[faults] a step that fails every time: {diagnosis}")
+    check(diagnosis is not None and "deterministic" in diagnosis, "no deterministic diagnosis")
+
+    # A trace of one AA frame and one fit step.
+    t0 = time.perf_counter()
+    demo = rt.default_scene(device=dev)
+    dcam = rt.default_camera(FIT_RES, device=dev)
+    step = make_step()
+    rt.render_image_cuda(dcam, demo)
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    trace_dir = os.path.join(OUT_DIR, "trace")
+    with profiling.capture_trace(trace_dir) as prof:
+        with profiling.annotate("rt:render_aa"):
+            rt.render_image_cuda(dcam, demo)
+        with profiling.annotate("rt:fit_step"):
+            step()
+        torch.cuda.synchronize()
+    with open(prof.trace_path) as f:
+        text = f.read()
+    names = {k: k in text for k in ("rt:render_aa", "rt:fit_step", "render_fwd_kernel",
+                                    "render_bwd_kernel", "reduce_rows_kernel")}
+    device_us = {e.key: e.device_time_total for e in prof.key_averages()
+                 if "kernel" in e.key and e.device_time_total > 0}
+    mem = profiling.device_memory_stats(dev)
+    print(f"[profile] capture_trace: {os.path.relpath(prof.trace_path, ROOT)} "
+          f"({len(text)} B) names {names}; device us by kernel {device_us}; "
+          f"device_memory_stats: peak {mem.get('allocated_bytes.all.peak')} B, "
+          f"{len(mem)} keys; {time.perf_counter() - t0:.1f} s | {card}")
+    check(all(names.values()), f"the trace lacks {[k for k, v in names.items() if not v]}")
+    check(mem.get("allocated_bytes.all.peak", 0) > 0 and
+          profiling.device_memory_stats(torch.device("cpu")) == {}, "device_memory_stats")
 
 
 def main() -> int:
@@ -3114,6 +4047,13 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "22"]:   # the ray-parallel phase alone
         parallel_phase(torch, rt, card, dev)
         print(f"[smoke] phase 22 in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--phase", "23"]:   # scenes of any size, faults, profiling alone
+        faults_phase(torch, rt, card, dev)
+        t0 = phase_time("phase 23 faults", t_start)
+        print(json.dumps({"kernels": scene_size_phase(torch, rt, card, dev)}))
+        phase_time("phase 23 sizes", t0)
+        print(f"[smoke] phase 23 in {time.perf_counter() - t_start:.1f} s")
         return 0
 
     def kernel(cam, scene, mode, depth, compat):
@@ -3258,7 +4198,11 @@ def main() -> int:
     entry_times(torch, rt, card, dev, "this tree")
     t0 = phase_time("phase 20", t0)
     parallel_phase(torch, rt, card, dev)
-    phase_time("phase 22", t0)
+    t0 = phase_time("phase 22", t0)
+    faults_phase(torch, rt, card, dev)
+    t0 = phase_time("phase 23 faults", t0)
+    kernels += scene_size_phase(torch, rt, card, dev)
+    phase_time("phase 23 sizes", t0)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,10 @@ forward and backward kernels (``csrc/soft_fwd.cu``, ``csrc/soft_bwd.cu``),
 (``ops/adaptive.py``) traces the 9 samples of the flagged pixels only, through
 the worklist kernel (``render_image_adaptive_cuda``). ``parallel`` shards
 renders and training steps by vertical slices over ``torch.distributed``;
-``animation`` renders camera trajectories.
+``animation`` renders camera trajectories. ``utils.checkpoint`` saves and
+loads path-keyed trees (the JAX package's format, Adam's state in optax's
+layout), ``utils.faults`` resumes fits from them after faults, and
+``utils.profiling`` traces the kernels.
 
 Entry point: ``python -m python_ray_tracer_tpu_torch.cli render|fit|animate``.
 """
@@ -38,6 +41,7 @@ from .train import fit_scene, fit_scene_soft, fit_camera
 from .utils.config import RenderConfig, resolve_backend
 from .utils.metrics import MetricsLogger
 from .utils.image import save_png, framebuffer_to_array
+from .utils.checkpoint import save_pytree, load_pytree
 from .utils.timing import time_fn, rays_per_image
 
 __version__ = "0.1.0"
@@ -53,7 +57,7 @@ __all__ = [
     "render_image_adaptive_cuda", "render_image_soft", "render_rays_soft",
     "render_image_soft_cuda", "render_image_soft_fast", "soft_scene_grads_cuda",
     "soft_loss_and_grads_cuda", "fit_scene", "fit_scene_soft", "fit_camera",
-    "MetricsLogger",
+    "MetricsLogger", "save_pytree", "load_pytree",
     "RenderConfig", "resolve_backend", "save_png",
     "framebuffer_to_array", "time_fn", "rays_per_image",
     "RED", "GREEN", "BLUE", "YELLOW", "GREY", "MAGENTA",

@@ -40,6 +40,10 @@
 //     are separate inlined calls, so each one's loads know their memory. The
 //     launch with bounce levels (n_levels > 1: tests and chip_smoke.py)
 //     stages the scene and the bounce tree once a block, for the tree walks;
+//     past the size where they fit a block (G, the global form: the render
+//     kernel's rule, render_cuda.scene_form) it reads the sphere table where
+//     it lies, through the read-only cache, and past a further size the tree
+//     too, with the same floats and so the same rows;
 //   * the hit points come from rt_common.cuh's raygen, primary_geometry,
 //     reflect_dir and bounce_ray, the functions the render kernel calls,
 //     written in rounded-once operations (rt_common.cuh fm / fa / fs / ff), so
@@ -181,7 +185,7 @@ __device__ __forceinline__ void trace_positions(const SceneView& s0, const Scene
   }
 }
 
-template <bool COMPAT, bool AA, bool BOUNCES>
+template <bool COMPAT, bool AA, bool BOUNCES, bool G>
 __global__ void __launch_bounds__(NT)
 hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                    int ns, const float* __restrict__ pln, int npl,
@@ -200,12 +204,15 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
   for (int i = tid; i < 9 * npl; i += NT) s_pln[i] = pln[i];
   Tables tb = no_tables();
   if (BOUNCES) {
-    for (int i = tid; i < 7 * ns; i += NT) s_sph[i] = sph[i];
-    stage_tree(ta, s_sph + 7 * ns, tid, NT, tb);
+    if (!G) {
+      for (int i = tid; i < 7 * ns; i += NT) s_sph[i] = sph[i];
+    }
+    stage_tree<G>(ta, s_sph + (G ? 0 : 7 * ns), tid, NT, tb);
   }
   __syncthreads();   // the only block-wide barrier: the tiles below are the groups' own
-  // the whole scene: staged with bounce levels, else where it lies
-  const SceneView full{s_p, BOUNCES ? s_sph : sph, ns, s_pln, npl, nullptr, 0};
+  // the whole scene: staged with bounce levels (G: where it lies, read through
+  // the read-only cache), else where it lies
+  const SceneView full{s_p, BOUNCES && !G ? s_sph : sph, ns, s_pln, npl, nullptr, 0, G};
   float* slice = s_slices + group * slice_words(ta);
   float* merge = s_merge + group * TW * MAX_LEVELS * 8;
 
@@ -222,7 +229,7 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
       for (int i = gl; i < n_vis; i += TW * 32) {
         const int j = src[i];
 #pragma unroll
-        for (int r = 0; r < 7; ++r) slice[r * n_vis + i] = full.sph[r * ns + j];
+        for (int r = 0; r < 7; ++r) slice[r * n_vis + i] = sph_at(full, r * ns + j);
       }
     }
     group_sync<TW>(group);
@@ -317,18 +324,18 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
   }
 }
 
-template <bool COMPAT, bool AA, bool BOUNCES>
+template <bool COMPAT, bool AA, bool BOUNCES, bool G>
 cudaError_t launch_levels(const float* params, const float* sph, int ns, const float* pln,
                           int npl, float* out, float* scale, int W, int H, int Wg,
                           int n_levels, const TableArgs& ta, cudaStream_t stream) {
-  const auto kernel = hit_extents_kernel<COMPAT, AA, BOUNCES>;
+  const auto kernel = hit_extents_kernel<COMPAT, AA, BOUNCES, G>;
   constexpr int TW = tile_warps<AA>(), GROUPS = HX_WARPS / TW;
-  const size_t smem = sizeof(float) * (N_PARAMS + 9 * static_cast<size_t>(npl) +
-                                       GROUPS * static_cast<size_t>(slice_words(ta)) +
-                                       merge_words<TW>() +
-                                       (BOUNCES ? 7 * static_cast<size_t>(ns) + tree_words(ta)
-                                                : 0));
+  const size_t smem =
+      sizeof(float) * (N_PARAMS + 9 * static_cast<size_t>(npl) +
+                       GROUPS * static_cast<size_t>(slice_words(ta)) + merge_words<TW>() +
+                       (BOUNCES && !G ? 7 * static_cast<size_t>(ns) + tree_words(ta) : 0));
   cudaError_t e;
+  if (smem > static_cast<size_t>(227 * 1024)) return cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -345,15 +352,21 @@ cudaError_t launch_levels(const float* params, const float* sph, int ns, const f
   return cudaGetLastError();
 }
 
+// form: 0 staged, 1 global (the sphere table and the tree where they lie);
+// only a launch with bounce levels stages either.
 template <bool COMPAT, bool AA>
 cudaError_t launch(const float* params, const float* sph, int ns, const float* pln,
                    int npl, float* out, float* scale, int W, int H, int Wg, int n_levels,
-                   const TableArgs& ta, cudaStream_t stream) {
-  return n_levels > 1
-             ? launch_levels<COMPAT, AA, true>(params, sph, ns, pln, npl, out, scale, W, H,
-                                               Wg, n_levels, ta, stream)
-             : launch_levels<COMPAT, AA, false>(params, sph, ns, pln, npl, out, scale, W, H,
-                                                Wg, n_levels, ta, stream);
+                   const TableArgs& ta, int form, cudaStream_t stream) {
+  if (n_levels == 1) {
+    return launch_levels<COMPAT, AA, false, false>(params, sph, ns, pln, npl, out, scale, W,
+                                                   H, Wg, n_levels, ta, stream);
+  }
+  return form == 0
+             ? launch_levels<COMPAT, AA, true, false>(params, sph, ns, pln, npl, out, scale,
+                                                      W, H, Wg, n_levels, ta, stream)
+             : launch_levels<COMPAT, AA, true, true>(params, sph, ns, pln, npl, out, scale, W,
+                                                     H, Wg, n_levels, ta, stream);
 }
 
 }  // namespace
@@ -370,17 +383,19 @@ extern "C" {
 // vis_cnt / vis_k: the primary cone-cull lists the render will use (null:
 // none); perm / box / n_leaves: the bounce tree it will use past level 0
 // (rt_common.cuh Tables; null: none; not staged when n_levels is 1, where no
-// ray reads it). Returns cudaGetLastError() after the launch (0 on success).
+// ray reads it). form: as for rt_render_fwd (render_cuda.scene_form; read only
+// with n_levels > 1). Returns cudaGetLastError() after the launch (0 on
+// success).
 int rt_hit_extents(const float* params, const float* sph, int ns, const float* pln,
                    int npl, float* out, float* scale, int W, int H, int Wg, int n_levels,
                    int aliasing, int compat, const int* vis_idx, const int* vis_cnt,
-                   int vis_k, const int* perm, const float* box, int n_leaves,
+                   int vis_k, const int* perm, const float* box, int n_leaves, int form,
                    void* stream) {
   const bool bounces = n_levels > 1;
   const TableArgs ta{vis_idx, vis_cnt, vis_k, nullptr, nullptr, 0,
                      bounces ? perm : nullptr, box, n_leaves};
   if (W <= 0 || H <= 0 || Wg < W || ns < 0 || npl < 0 || n_levels < 1 ||
-      n_levels > MAX_LEVELS ||
+      n_levels > MAX_LEVELS || form < 0 || form > 1 ||
       static_cast<long>((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE) > (1L << 30) ||
       !tables_ok(ta)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -389,14 +404,14 @@ int rt_hit_extents(const float* params, const float* sph, int ns, const float* p
   cudaError_t e;
   if (compat) {
     e = aliasing ? launch<true, true>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
-                                      n_levels, ta, st)
+                                      n_levels, ta, form, st)
                  : launch<true, false>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
-                                       n_levels, ta, st);
+                                       n_levels, ta, form, st);
   } else {
     e = aliasing ? launch<false, true>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
-                                       n_levels, ta, st)
+                                       n_levels, ta, form, st)
                  : launch<false, false>(params, sph, ns, pln, npl, out, scale, W, H, Wg,
-                                        n_levels, ta, st);
+                                        n_levels, ta, form, st);
   }
   return static_cast<int>(e);
 }

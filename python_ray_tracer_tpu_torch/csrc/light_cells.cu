@@ -26,7 +26,15 @@
 //     version's (light_cells_cuda.light_cells_plain) integer for integer;
 //   * every operation of the test is pinned (rt_common.cuh fm / fa / fs and
 //     IEEE square root and division), the same float32 bits as the plain
-//     version's tensor ops.
+//     version's tensor ops;
+//   * past the 11,620 spheres whose terms fit a block's 227 KB (the chunked
+//     form, CHUNKED, light_cells_cuda.chunk_spheres), a block takes its rows
+//     a warp's worth at a time and sweeps the spheres in chunks of `chunk`:
+//     it stages a chunk's terms, each warp appends that chunk's kept spheres
+//     to its row, and the next chunk follows. The terms are the same floats
+//     and the spheres come in the same ascending order, so every row is the
+//     staged form's; each chunk's terms are computed once for every 8 rows
+//     of the block (the staged form: once for all its rows).
 
 #include "rt_common.cuh"
 
@@ -83,11 +91,58 @@ __device__ __forceinline__ CellCone cell_cone(int cell) {
   return {ca, cc, cz, cb, sb};
 }
 
+// Light l's terms of spheres [j0, j1) into the five arrays (index j - j0):
+// w = c - l, p = sqrt(|w|^2 - rho^2) (-1 where the grown ball holds the
+// light) and rho = r + m.
+__device__ __forceinline__ void stage_terms(const float* __restrict__ sph, int ns, float lx,
+                                            float ly, float lz, float m, int j0, int j1,
+                                            float* s_wx, float* s_wy, float* s_wz,
+                                            float* s_p, float* s_rho, int tid, int nt) {
+  for (int j = j0 + tid; j < j1; j += nt) {
+    const float wx = fs(sph[j], lx), wy = fs(sph[ns + j], ly), wz = fs(sph[2 * ns + j], lz);
+    const float ww = ss3(wx, wy, wz);
+    const float rho = fa(sph[3 * ns + j], m);
+    const float rr = fm(rho, rho);
+    const int i = j - j0;
+    s_wx[i] = wx;
+    s_wy[i] = wy;
+    s_wz[i] = wz;
+    s_p[i] = rr >= fm(ww, LC_HOLDS) ? -1.0f : __fsqrt_rn(fs(ww, rr));
+    s_rho[i] = rho;
+  }
+}
+
+// One warp's sweep of spheres [j0, j1) (terms at index j - j0) for the row of
+// cone c: the kept ones appended to slots from *n on.
+__device__ __forceinline__ void sweep_terms(const CellCone& c, float tau, int j0, int j1,
+                                            const float* s_wx, const float* s_wy,
+                                            const float* s_wz, const float* s_p,
+                                            const float* s_rho, int* slots, int& n,
+                                            int lane) {
+  for (int base = j0; base < j1; base += 32) {
+    const int j = base + lane;
+    bool keep = false;
+    if (j < j1) {
+      const int i = j - j0;
+      const float x = fabsf(fa(fa(fm(c.x, s_wx[i]), fm(c.y, s_wy[i])), fm(c.z, s_wz[i])));
+      const float p = s_p[i];
+      keep = p < 0.0f || fa(x, tau) >= fs(fm(c.cb, p), fm(c.sb, s_rho[i]));
+    }
+    const unsigned bal = __ballot_sync(FULL, keep);
+    const int pos = n + __popc(bal & ((1u << lane) - 1u));
+    if (keep && pos < LC_K) slots[pos] = j;
+    n += __popc(bal);
+  }
+}
+
+// CHUNKED: the terms staged `chunk` spheres at a time (chunk > 0); else all of
+// them at once (ns words each).
+template <bool CHUNKED>
 __global__ void __launch_bounds__(LC_WARPS * 32)
 light_cells_kernel(const float* __restrict__ sph, int ns, const float* __restrict__ lts,
                    int nl, int* __restrict__ idx, int* __restrict__ cnt,
-                   float* __restrict__ hdr) {
-  extern __shared__ float smem[];   // wx, wy, wz, p, rho: ns each
+                   float* __restrict__ hdr, int chunk) {
+  extern __shared__ float smem[];   // wx, wy, wz, p, rho: ns (CHUNKED: chunk) each
   __shared__ float s_red[LC_WARPS];
   const int l = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -117,45 +172,48 @@ light_cells_kernel(const float* __restrict__ sph, int ns, const float* __restric
   }
 
   // this light's per-sphere terms; p < 0 marks a grown ball that holds the light
+  const int cap = CHUNKED ? chunk : ns;
   float* s_wx = smem;
-  float* s_wy = s_wx + ns;
-  float* s_wz = s_wy + ns;
-  float* s_p = s_wz + ns;
-  float* s_rho = s_p + ns;
+  float* s_wy = s_wx + cap;
+  float* s_wz = s_wy + cap;
+  float* s_p = s_wz + cap;
+  float* s_rho = s_p + cap;
   const float lx = lts[l], ly = lts[nl + l], lz = lts[2 * nl + l];
-  for (int j = tid; j < ns; j += NT) {
-    const float wx = fs(sph[j], lx), wy = fs(sph[ns + j], ly), wz = fs(sph[2 * ns + j], lz);
-    const float ww = ss3(wx, wy, wz);
-    const float rho = fa(sph[3 * ns + j], m);
-    const float rr = fm(rho, rho);
-    s_wx[j] = wx;
-    s_wy[j] = wy;
-    s_wz[j] = wz;
-    s_p[j] = rr >= fm(ww, LC_HOLDS) ? -1.0f : __fsqrt_rn(fs(ww, rr));
-    s_rho[j] = rho;
+  if (!CHUNKED) {
+    stage_terms(sph, ns, lx, ly, lz, m, 0, ns, s_wx, s_wy, s_wz, s_p, s_rho, tid, NT);
+    __syncthreads();
+    for (int cell = blockIdx.x * LC_WARPS + warp; cell < LC_ROWS;
+         cell += gridDim.x * LC_WARPS) {
+      const CellCone c = cell_cone(cell);
+      const size_t row = static_cast<size_t>(l) * LC_ROWS + cell;
+      int* slots = idx + row * LC_K;
+      int n = 0;
+      sweep_terms(c, tau, 0, ns, s_wx, s_wy, s_wz, s_p, s_rho, slots, n, lane);
+      for (int i = min(n, LC_K) + lane; i < LC_K; i += 32) slots[i] = 0;
+      if (lane == 0) cnt[row] = n > LC_K ? -1 : n;
+    }
+    return;
   }
-  __syncthreads();
-
-  for (int cell = blockIdx.x * LC_WARPS + warp; cell < LC_ROWS; cell += gridDim.x * LC_WARPS) {
-    const CellCone c = cell_cone(cell);
+  // the block's rows, a warp's worth at a time (the loop's bound is the
+  // block's, so every warp meets the barriers), the chunks inside
+  for (int cell0 = blockIdx.x * LC_WARPS; cell0 < LC_ROWS; cell0 += gridDim.x * LC_WARPS) {
+    const int cell = cell0 + warp;
+    const bool mine = cell < LC_ROWS;
+    const CellCone c = cell_cone(mine ? cell : 0);
     const size_t row = static_cast<size_t>(l) * LC_ROWS + cell;
     int* slots = idx + row * LC_K;
     int n = 0;
-    for (int base = 0; base < ns; base += 32) {
-      const int j = base + lane;
-      bool keep = false;
-      if (j < ns) {
-        const float x = fabsf(fa(fa(fm(c.x, s_wx[j]), fm(c.y, s_wy[j])), fm(c.z, s_wz[j])));
-        const float p = s_p[j];
-        keep = p < 0.0f || fa(x, tau) >= fs(fm(c.cb, p), fm(c.sb, s_rho[j]));
-      }
-      const unsigned bal = __ballot_sync(FULL, keep);
-      const int pos = n + __popc(bal & ((1u << lane) - 1u));
-      if (keep && pos < LC_K) slots[pos] = j;
-      n += __popc(bal);
+    for (int j0 = 0; j0 < ns; j0 += chunk) {
+      const int j1 = min(j0 + chunk, ns);
+      __syncthreads();   // the previous chunk's terms are read
+      stage_terms(sph, ns, lx, ly, lz, m, j0, j1, s_wx, s_wy, s_wz, s_p, s_rho, tid, NT);
+      __syncthreads();
+      if (mine) sweep_terms(c, tau, j0, j1, s_wx, s_wy, s_wz, s_p, s_rho, slots, n, lane);
     }
-    for (int i = min(n, LC_K) + lane; i < LC_K; i += 32) slots[i] = 0;
-    if (lane == 0) cnt[row] = n > LC_K ? -1 : n;
+    if (mine) {
+      for (int i = min(n, LC_K) + lane; i < LC_K; i += 32) slots[i] = 0;
+      if (lane == 0) cnt[row] = n > LC_K ? -1 : n;
+    }
   }
 }
 
@@ -167,22 +225,25 @@ extern "C" {
 // are the render kernel's SoA tables (device pointers, nl >= 1); idx
 // (nl * LC_ROWS * LC_K) and cnt (nl * LC_ROWS) int32 receive the rows, row
 // (light * 3 + face) * LC_R * LC_R + iu * LC_R + iv, and hdr (2) float32 the
-// scene's reach and s_max (rt_common.cuh occluded_cells). Returns
-// cudaGetLastError() after the launch (0 on success).
+// scene's reach and s_max (rt_common.cuh occluded_cells). chunk: 0 stages
+// every sphere's terms at once; > 0, the chunked form, that many at a time
+// (light_cells_cuda.chunk_spheres). Returns cudaGetLastError() after the
+// launch (0 on success).
 int rt_light_cells(const float* sph, int ns, const float* lts, int nl, int* idx, int* cnt,
-                   float* hdr, void* stream) {
-  if (ns < 0 || nl < 1 || nl > 65535 || !sph || !lts || !idx || !cnt || !hdr) {
+                   float* hdr, int chunk, void* stream) {
+  if (ns < 0 || nl < 1 || nl > 65535 || chunk < 0 || !sph || !lts || !idx || !cnt || !hdr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * 5 * static_cast<size_t>(ns);
+  const size_t smem = sizeof(float) * 5 * static_cast<size_t>(chunk > 0 ? chunk : ns);
+  const auto kernel = chunk > 0 ? light_cells_kernel<true> : light_cells_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        light_cells_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const int per_light = max(1, min((LC_ROWS + LC_WARPS - 1) / LC_WARPS, LC_BLOCKS / nl));
-  light_cells_kernel<<<dim3(per_light, nl), LC_WARPS * 32, smem,
-                       static_cast<cudaStream_t>(stream)>>>(sph, ns, lts, nl, idx, cnt, hdr);
+  kernel<<<dim3(per_light, nl), LC_WARPS * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      sph, ns, lts, nl, idx, cnt, hdr, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

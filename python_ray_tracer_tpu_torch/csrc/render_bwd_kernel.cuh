@@ -100,6 +100,16 @@
 // global up to 1983, 64 staged up to 2704, then global up to 4057, 32 staged
 // up to 4101, then global. Both forms read the same floats in the same
 // order, so their gradients are the same bits.
+// Past 8203 spheres (7984 with AA) even the global form's rows do not fit a
+// block: the third form (R, render_bwd_rows.cu; the planner takes it only
+// where neither of the others fits) keeps each warp's row of object and light
+// slots in a device-memory scratch buffer (blocks x warps x (7 ns + 9 npl +
+// 3 nl) floats) that the wrapper allocates and the kernel zeroes. Each warp
+// still owns its row (lane 0 adds each warp sum to it, as in shared memory)
+// and the block still sums its rows in warp order into its partial column,
+// so at the same launch shape the gradients are the other forms' bits, with
+// no atomics. The block keeps the parameters, planes, lights, cotangents and
+// the 18-19 tail columns, which fit any scene.
 //
 // Slices (ray-parallel sharding): a launch reverse-sweeps columns [P_X0, P_X0
 // + W) of a frame Wg columns wide, as render_fwd_kernel.cuh renders them:
@@ -109,15 +119,16 @@
 // 3 Wg H, so the slices' partial sums add up to the frame's.
 // The one-launch fused AA step is later work.
 //
-// This header holds the kernel and its launch. Three source files include it
+// This header holds the kernel and its launch. Four source files include it
 // once each, after choosing rt_common.cuh's arithmetic, as the render kernel's
 // two halves do: render_bwd_small.cu (contracted; COLS at depths 0-3 and the
 // general depth, ROWS at the general depth) for scenes the render kernel draws
 // without tables, render_bwd.cu (pinned; ROWS at depths 0-3 and the general
 // depth) for large scenes, so that the recomputed chain decides each hit as
-// the forward did, and render_bwd_global.cu (pinned; the global form of
-// render_bwd.cu's kernels, compiled beside it). A scene small enough for the
-// contracted kernels always fits the staged form.
+// the forward did, render_bwd_global.cu (pinned; the global form of
+// render_bwd.cu's kernels, compiled beside it) and render_bwd_rows.cu
+// (pinned; the third form, with an entry point of its own). A scene small
+// enough for the contracted kernels always fits the staged form.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -566,25 +577,30 @@ __device__ __forceinline__ void sample(const SceneView& s, const Slots& sl,
 }
 
 // Shared-memory words of one block (render_bwd_cuda.smem_bytes / 4); the
-// global form (staged false) leaves the sphere table out.
+// global form (staged false) leaves the sphere table out, the third form
+// (rows false) the rows too.
 inline size_t bwd_smem_words(int ns, int npl, int nl, int n_grads, bool aa, int nt,
-                             bool cols, bool staged = true) {
+                             bool cols, bool staged = true, bool rows = true) {
   const size_t mat = 7 * static_cast<size_t>(ns) + 9 * static_cast<size_t>(npl) +
                      3 * static_cast<size_t>(nl);
   const size_t tail = static_cast<size_t>(n_grads) - mat;
   return N_PARAMS + mat - (staged ? 0 : 7 * static_cast<size_t>(ns)) +
          (aa ? COT_WORDS : 0) +
          (cols ? static_cast<size_t>(n_grads) * nt
-               : static_cast<size_t>(nt / 32) * mat + tail * nt);
+               : (rows ? static_cast<size_t>(nt / 32) * mat : 0) + tail * nt);
 }
 
-template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G>
+// G: the global form (the sphere table where it lies); R (with G, rows only):
+// the third form, the warps' rows in `scratch` (gridDim.x x nwarps x the
+// object and light slots) instead of shared memory.
+template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G, bool R = false>
 __global__ void __launch_bounds__(MAX_NT, RT_BWD_MIN_BLOCKS)
 render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                   int ns, const float* __restrict__ pln, int npl,
                   const float* __restrict__ lts, int nl, const float* __restrict__ img,
                   const float* __restrict__ target, float* __restrict__ partial,
-                  int W, int H, int Wg, int depth, int mode) {
+                  int W, int H, int Wg, int depth, int mode, float* __restrict__ scratch) {
+  static_assert(!R || (G && !COLS), "device-memory rows: the global form's rows only");
   const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
   const bool aa = mode == COT_AA || mode == FUSED_AA;
   const Slots sl(ns, npl, nl, fused);
@@ -598,8 +614,12 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   float* s_cot = s_lts + 3 * nl;                 // AA: centre, then neighbour cotangents
   float* s_acc = s_cot + (aa ? COT_WORDS : 0);
   // COLS: every slot's columns; ROWS: the warps' rows of the object and light
-  // slots, then the tail slots' columns.
-  const int acc_words = COLS ? sl.n * nt : nwarps * sl.mat + n_tail * nt;
+  // slots (R: in scratch), then the tail slots' columns.
+  const int acc_words = COLS ? sl.n * nt : (R ? 0 : nwarps * sl.mat) + n_tail * nt;
+  float* rows = R ? scratch + static_cast<size_t>(blockIdx.x) * nwarps * sl.mat : s_acc;
+  if (R) {
+    for (int i = tid; i < nwarps * sl.mat; i += nt) rows[i] = 0.0f;
+  }
   for (int i = tid; i < N_PARAMS; i += nt) s_p[i] = params[i];
   if (!G) {
     for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
@@ -609,8 +629,8 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   for (int i = tid; i < acc_words; i += nt) s_acc[i] = 0.0f;
   __syncthreads();
   const SceneView s{s_p, G ? sph : s_sph, ns, s_pln, npl, s_lts, nl, G};
-  const Sink<COLS> out{COLS ? s_acc + tid : s_acc + (tid >> 5) * sl.mat, nt, lane};
-  float* tail = COLS ? s_acc + sl.mat * nt + tid : s_acc + nwarps * sl.mat + tid;
+  const Sink<COLS> out{COLS ? s_acc + tid : rows + (tid >> 5) * sl.mat, nt, lane};
+  float* tail = COLS ? s_acc + sl.mat * nt + tid : s_acc + (R ? 0 : nwarps * sl.mat) + tid;
 
   // the frame's denominator; x0g: the slice's first column in the frame
   const float inv_denom = static_cast<float>(1.0 / (3.0 * Wg * static_cast<double>(H)));
@@ -717,12 +737,12 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   __syncthreads();
   const size_t n_blk = gridDim.x;
   const int warp = tid >> 5;
-  float* col0 = s_acc + (COLS ? 0 : nwarps * sl.mat);
+  float* col0 = s_acc + (COLS || R ? 0 : nwarps * sl.mat);
   const int k0 = COLS ? 0 : sl.mat;
   if (!COLS) {   // the rows, summed in warp order
     for (int k = tid; k < sl.mat; k += nt) {
       float v = 0.0f;
-      for (int wp = 0; wp < nwarps; ++wp) v += s_acc[wp * sl.mat + k];
+      for (int wp = 0; wp < nwarps; ++wp) v += rows[wp * sl.mat + k];
       partial[static_cast<size_t>(k) * n_blk + blockIdx.x] = v;
     }
   }
@@ -750,45 +770,47 @@ struct BwdJob {
   int n_rows, W, H, depth, mode, n_grads, nt;
   cudaStream_t stream;
   int Wg;   // the frame's width; W is the slice's
+  float* scratch;   // the third form's rows (n_rows x nt / 32 x the object and light slots)
 };
 
-template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G>
+template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G, bool R>
 cudaError_t launch_job(const BwdJob& j) {
   const bool aa = j.mode == COT_AA || j.mode == FUSED_AA;
   const size_t smem =
-      sizeof(float) * bwd_smem_words(j.ns, j.npl, j.nl, j.n_grads, aa, j.nt, COLS, !G);
+      sizeof(float) * bwd_smem_words(j.ns, j.npl, j.nl, j.n_grads, aa, j.nt, COLS, !G, !R);
+  const auto kernel = render_bwd_kernel<COMPAT, CHEAP, COLS, D, G, R>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        render_bwd_kernel<COMPAT, CHEAP, COLS, D, G>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  render_bwd_kernel<COMPAT, CHEAP, COLS, D, G><<<j.n_rows, j.nt, smem, j.stream>>>(
+  kernel<<<j.n_rows, j.nt, smem, j.stream>>>(
       j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.img, j.target, j.partial, j.W, j.H,
-      j.Wg, j.depth, j.mode);
+      j.Wg, j.depth, j.mode, j.scratch);
   return cudaGetLastError();
 }
 
-// The instantiation for (compat, cheap) at depth D; G: the global form.
-template <bool COLS, int D, bool G = false>
+// The instantiation for (compat, cheap) at depth D; G: the global form, R:
+// its rows in device memory.
+template <bool COLS, int D, bool G = false, bool R = false>
 cudaError_t dispatch_arith(bool compat, bool cheap, const BwdJob& j) {
   if (compat) {
-    return cheap ? launch_job<true, true, COLS, D, G>(j)
-                 : launch_job<true, false, COLS, D, G>(j);
+    return cheap ? launch_job<true, true, COLS, D, G, R>(j)
+                 : launch_job<true, false, COLS, D, G, R>(j);
   }
-  return cheap ? launch_job<false, true, COLS, D, G>(j)
-               : launch_job<false, false, COLS, D, G>(j);
+  return cheap ? launch_job<false, true, COLS, D, G, R>(j)
+               : launch_job<false, false, COLS, D, G, R>(j);
 }
 
 // Depths 0-3 take their own instantiation, the others the general one.
-template <bool COLS, bool G = false>
+template <bool COLS, bool G = false, bool R = false>
 cudaError_t dispatch_depth(bool compat, bool cheap, const BwdJob& j) {
   switch (j.depth) {
-    case 0: return dispatch_arith<COLS, 0, G>(compat, cheap, j);
-    case 1: return dispatch_arith<COLS, 1, G>(compat, cheap, j);
-    case 2: return dispatch_arith<COLS, 2, G>(compat, cheap, j);
-    case 3: return dispatch_arith<COLS, 3, G>(compat, cheap, j);
-    default: return dispatch_arith<COLS, -1, G>(compat, cheap, j);
+    case 0: return dispatch_arith<COLS, 0, G, R>(compat, cheap, j);
+    case 1: return dispatch_arith<COLS, 1, G, R>(compat, cheap, j);
+    case 2: return dispatch_arith<COLS, 2, G, R>(compat, cheap, j);
+    case 3: return dispatch_arith<COLS, 3, G, R>(compat, cheap, j);
+    default: return dispatch_arith<COLS, -1, G, R>(compat, cheap, j);
   }
 }
 

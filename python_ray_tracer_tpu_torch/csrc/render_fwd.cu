@@ -1,6 +1,7 @@
 // The render kernel's and the worklist kernel's large-scene instantiations
-// (render_fwd_kernel.cuh with TABLES, in rt_common.cuh's pinned arithmetic)
-// and the entry points of both halves.
+// (render_fwd_kernel.cuh with TABLES, in rt_common.cuh's pinned arithmetic;
+// the staged form, render_fwd_global.cu the global one) and the entry points
+// of both halves.
 
 #include "render_fwd_kernel.cuh"
 

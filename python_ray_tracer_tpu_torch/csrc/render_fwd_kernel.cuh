@@ -21,7 +21,8 @@
 // What the design does about it:
 //   * the parameter vector and the scene's SoA tables are staged in shared
 //     memory at block start, so object reads are broadcasts that cost no
-//     global-memory traffic;
+//     global-memory traffic (the staged form; past the size where a block's
+//     227 KB hold them, the global form below);
 //   * loops over objects, lights and bounces run at run time (no unroll
 //     limit); a ray that misses stops bouncing and a shadow ray stops at its
 //     first occluder, both exact;
@@ -48,6 +49,17 @@
 //     in the compiler's own arithmetic.
 // Occupancy tuning and gathered (cx, cy, cz, r) list rows are later work.
 //
+// The global form (G, large scenes only, render_fwd_global.cu): the sphere
+// table is read where it lies in device memory, through the read-only cache
+// (rt_common.cuh sph_at), and so is the bounce tree; the block stages the
+// parameters, planes, lights and the tile's lists, whose rows have at most
+// cull_tables.list_capacity (128) slots. The wrapper decides the form
+// (render_cuda.scene_form): staged wherever the scene fits, so every frame the
+// staged form draws is unchanged. At 1 plane and 3 lights the staged form
+// takes 7753 spheres (5600 with the tree), the global form any scene. Both
+// forms read the same floats in the same pinned arithmetic, so a frame is the
+// same bits in either.
+//
 // Block shape: 16x16 threads; threadIdx.x walks the image's y axis, which is
 // the contiguous axis of the (w, h, 3) output. The ragged edge is masked with
 // `<` (the reference's `<=` bound reads out of bounds; see the README's
@@ -63,10 +75,13 @@
 // is a function of its position alone, and every cull is exact), so frames
 // stitched from slices equal the whole frame bit for bit.
 //
-// This header holds the kernels and their launches; each of those two source
-// files includes it once, after choosing rt_common.cuh's arithmetic, and
-// instantiates its own half (TABLES true or false), so the worklist pass runs
-// the same arithmetic as the render it stands in for.
+// This header holds the kernels and their launches; each of the source files
+// includes it once, after choosing rt_common.cuh's arithmetic, and
+// instantiates its own part (TABLES false in render_fwd_small.cu, TABLES in
+// render_fwd.cu, TABLES and G in render_fwd_global.cu, with entry points of
+// its own, so that nvcc compiles it beside render_fwd.cu and a library built
+// without it still loads), so the worklist pass runs the same arithmetic as
+// the render it stands in for.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -94,14 +109,18 @@ __device__ __forceinline__ void store(float* out, int H, int x, int y,
   o[2] = c2;
 }
 
-// Shared-memory words of the parameter vector and the scene's SoA tables.
+// Shared-memory words of the parameter vector and the scene's SoA tables
+// (G, the global form: without the sphere table).
+template <bool G = false>
 __host__ __device__ __forceinline__ int scene_words(int ns, int npl, int nl) {
-  return N_PARAMS + 7 * ns + 9 * npl + 3 * nl;
+  return N_PARAMS + (G ? 0 : 7 * ns) + 9 * npl + 3 * nl;
 }
 
 // Stage the parameter vector and the scene's tables at smem (thread tid of
-// nt) and return the view of them; the words past scene_words are the
-// caller's. The caller synchronises.
+// nt) and return the view of them; the words past scene_words<G> are the
+// caller's. G: the sphere table stays where it lies (read through sph_at).
+// The caller synchronises.
+template <bool G = false>
 __device__ __forceinline__ SceneView stage_scene(const float* __restrict__ params,
                                                  const float* __restrict__ sph, int ns,
                                                  const float* __restrict__ pln, int npl,
@@ -109,13 +128,15 @@ __device__ __forceinline__ SceneView stage_scene(const float* __restrict__ param
                                                  float* smem, int tid, int nt) {
   float* s_p = smem;
   float* s_sph = s_p + N_PARAMS;
-  float* s_pln = s_sph + 7 * ns;
+  float* s_pln = s_sph + (G ? 0 : 7 * ns);
   float* s_lts = s_pln + 9 * npl;
   for (int i = tid; i < N_PARAMS; i += nt) s_p[i] = params[i];
-  for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
+  if (!G) {
+    for (int i = tid; i < 7 * ns; i += nt) s_sph[i] = sph[i];
+  }
   for (int i = tid; i < 9 * npl; i += nt) s_pln[i] = pln[i];
   for (int i = tid; i < 3 * nl; i += nt) s_lts[i] = lts[i];
-  return SceneView{s_p, s_sph, ns, s_pln, npl, s_lts, nl};
+  return SceneView{s_p, G ? sph : s_sph, ns, s_pln, npl, s_lts, nl, G};
 }
 
 // AA_PER_SAMPLE's value of the pixel at (gx, gy), in the stored layout: the
@@ -161,7 +182,7 @@ __device__ __forceinline__ Rgb per_sample_aa(const SceneView& s, const Tables& t
 // a bound without a second argument (a minimum of 1 lets it give
 // aa_per_sample 89-92 registers).
 
-template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
+template <int MODE, bool COMPAT, bool CHEAP, bool TABLES, bool G = false>
 __global__ void __launch_bounds__(TILE * TILE,
                                    TABLES ? (MODE == AA_PER_SAMPLE ? 2 : 3) : 0)
 render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
@@ -170,14 +191,15 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
                   int W, int H, int Wg, int depth, TableArgs ta) {
   extern __shared__ float smem[];
   const int tid = threadIdx.y * TILE + threadIdx.x;
-  const SceneView s = stage_scene(params, sph, ns, pln, npl, lts, nl, smem, tid, TILE * TILE);
+  const SceneView s =
+      stage_scene<G>(params, sph, ns, pln, npl, lts, nl, smem, tid, TILE * TILE);
   // The tile id of the host's tables: x tiles outermost, as cull_tables.py
   // numbers them.
-  float* s_tab = smem + scene_words(ns, npl, nl);
+  float* s_tab = smem + scene_words<G>(ns, npl, nl);
   Tables tb = no_tables();
   if (TABLES) {
-    tb = stage_tables(ta, nl, blockIdx.y * gridDim.x + blockIdx.x, s_tab, tid,
-                      TILE * TILE);
+    tb = stage_tables<G>(ta, nl, blockIdx.y * gridDim.x + blockIdx.x, s_tab, tid,
+                         TILE * TILE);
   }
   __syncthreads();
 
@@ -197,7 +219,7 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
     // C (16x16) at (x, y), U (17x16) at (x - 0.5, y), V (16x17) at
     // (x, y - 0.5), UV (17x17) at (x - 0.5, y - 0.5), indices from the tile
     // corner; channel c of sample q lives at samp[c * N_SHARED + q].
-    float* samp = s_tab + (TABLES ? table_words(ta, nl) : 0);
+    float* samp = s_tab + (TABLES ? table_words<G>(ta, nl) : 0);
     for (int q = tid; q < N_SHARED; q += TILE * TILE) {
       int kx, ky;
       float du = 0.0f, dv = 0.0f;
@@ -272,7 +294,7 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
 // scene, so the empty tail of a static-budget grid costs almost nothing.
 constexpr int LIST_BLOCK = 256;
 
-template <bool COMPAT, bool CHEAP, bool TABLES>
+template <bool COMPAT, bool CHEAP, bool TABLES, bool G = false>
 __global__ void __launch_bounds__(LIST_BLOCK, TABLES ? 2 : 0)
 render_list_kernel(const float* __restrict__ params, const float* __restrict__ sph, int ns,
                    const float* __restrict__ pln, int npl, const float* __restrict__ lts,
@@ -283,12 +305,13 @@ render_list_kernel(const float* __restrict__ params, const float* __restrict__ s
   if (first >= n) return;   // uniform across the block, before any barrier
   extern __shared__ float smem[];
   const int tid = threadIdx.x;
-  const SceneView s = stage_scene(params, sph, ns, pln, npl, lts, nl, smem, tid, LIST_BLOCK);
+  const SceneView s =
+      stage_scene<G>(params, sph, ns, pln, npl, lts, nl, smem, tid, LIST_BLOCK);
   // With every table off (and without TABLES) every sweep takes its
   // full-sweep branch, the machine code of the render kernel with every cull
-  // off.
+  // off. G: the global form, the tree read where it lies (as the render's).
   Tables tb = no_tables();
-  if (TABLES) stage_tree(ta, smem + scene_words(ns, npl, nl), tid, LIST_BLOCK, tb);
+  if (TABLES) stage_tree<G>(ta, smem + scene_words<G>(ns, npl, nl), tid, LIST_BLOCK, tb);
   __syncthreads();
   const int slot = first + tid;
   if (slot >= n) return;
@@ -317,74 +340,80 @@ struct Job {
   int Wg;   // the frame's width; W is the slice's (rt_render_fwd)
 };
 
-template <int MODE, bool COMPAT, bool CHEAP, bool TABLES>
+// Shared memory above 48 KB needs the kernel's opt-in; past 227 KB no launch.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem > static_cast<size_t>(227 * 1024)) return cudaErrorInvalidValue;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int MODE, bool COMPAT, bool CHEAP, bool TABLES, bool G>
 cudaError_t launch(const Job& j) {
-  const size_t smem = sizeof(float) * (scene_words(j.ns, j.npl, j.nl) +
-                                       (TABLES ? table_words(j.ta, j.nl) : 0) +
-                                       (MODE == AA_SHARED ? 3 * N_SHARED : 0));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        render_fwd_kernel<MODE, COMPAT, CHEAP, TABLES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  const size_t smem =
+      sizeof(float) * (scene_words<G>(j.ns, j.npl, j.nl) +
+                       (TABLES ? table_words<G>(j.ta, j.nl) : 0) +
+                       (MODE == AA_SHARED ? 3 * N_SHARED : 0));
+  const auto kernel = render_fwd_kernel<MODE, COMPAT, CHEAP, TABLES, G>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   const dim3 block(TILE, TILE);
   const dim3 grid((j.H + TILE - 1) / TILE, (j.W + TILE - 1) / TILE);
-  render_fwd_kernel<MODE, COMPAT, CHEAP, TABLES><<<grid, block, smem, j.stream>>>(
-      j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.out, j.W, j.H, j.Wg, j.depth, j.ta);
+  kernel<<<grid, block, smem, j.stream>>>(j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl,
+                                          j.out, j.W, j.H, j.Wg, j.depth, j.ta);
   return cudaGetLastError();
 }
 
-template <int MODE, bool TABLES>
+template <int MODE, bool TABLES, bool G>
 cudaError_t dispatch_mode(bool compat, bool cheap, const Job& j) {
   if (compat) {
-    return cheap ? launch<MODE, true, true, TABLES>(j) : launch<MODE, true, false, TABLES>(j);
+    return cheap ? launch<MODE, true, true, TABLES, G>(j)
+                 : launch<MODE, true, false, TABLES, G>(j);
   }
-  return cheap ? launch<MODE, false, true, TABLES>(j) : launch<MODE, false, false, TABLES>(j);
+  return cheap ? launch<MODE, false, true, TABLES, G>(j)
+               : launch<MODE, false, false, TABLES, G>(j);
 }
 
-// mode: 0 no AA, 1 per-sample AA, 2 shared-sample AA.
-template <bool TABLES>
+// mode: 0 no AA, 1 per-sample AA, 2 shared-sample AA; G: the global form.
+template <bool TABLES, bool G = false>
 cudaError_t dispatch(int mode, bool compat, bool cheap, const Job& j) {
   switch (mode) {
     case AA_NONE:
-      return dispatch_mode<AA_NONE, TABLES>(compat, cheap, j);
+      return dispatch_mode<AA_NONE, TABLES, G>(compat, cheap, j);
     case AA_PER_SAMPLE:
-      return dispatch_mode<AA_PER_SAMPLE, TABLES>(compat, cheap, j);
+      return dispatch_mode<AA_PER_SAMPLE, TABLES, G>(compat, cheap, j);
     case AA_SHARED:
-      return dispatch_mode<AA_SHARED, TABLES>(compat, cheap, j);
+      return dispatch_mode<AA_SHARED, TABLES, G>(compat, cheap, j);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // The worklist pass over K slots of idx (j.out is the tent image).
-template <bool COMPAT, bool CHEAP, bool TABLES>
+template <bool COMPAT, bool CHEAP, bool TABLES, bool G>
 cudaError_t launch_list(const Job& j, const int* idx, const int* flagged, int K) {
-  const size_t smem = sizeof(float) * (scene_words(j.ns, j.npl, j.nl) +
-                                       (TABLES ? tree_words(j.ta) : 0));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        render_list_kernel<COMPAT, CHEAP, TABLES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  const size_t smem = sizeof(float) * (scene_words<G>(j.ns, j.npl, j.nl) +
+                                       (TABLES && !G ? tree_words(j.ta) : 0));
+  const auto kernel = render_list_kernel<COMPAT, CHEAP, TABLES, G>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
   const int blocks = (K + LIST_BLOCK - 1) / LIST_BLOCK;
-  render_list_kernel<COMPAT, CHEAP, TABLES><<<blocks, LIST_BLOCK, smem, j.stream>>>(
-      j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, idx, flagged, K, j.out, j.W, j.H,
-      j.depth, j.ta);
+  kernel<<<blocks, LIST_BLOCK, smem, j.stream>>>(j.params, j.sph, j.ns, j.pln, j.npl, j.lts,
+                                                 j.nl, idx, flagged, K, j.out, j.W, j.H,
+                                                 j.depth, j.ta);
   return cudaGetLastError();
 }
 
-template <bool TABLES>
+template <bool TABLES, bool G = false>
 cudaError_t dispatch_list(bool compat, bool cheap, const Job& j, const int* idx,
                           const int* flagged, int K) {
   if (compat) {
-    return cheap ? launch_list<true, true, TABLES>(j, idx, flagged, K)
-                 : launch_list<true, false, TABLES>(j, idx, flagged, K);
+    return cheap ? launch_list<true, true, TABLES, G>(j, idx, flagged, K)
+                 : launch_list<true, false, TABLES, G>(j, idx, flagged, K);
   }
-  return cheap ? launch_list<false, true, TABLES>(j, idx, flagged, K)
-               : launch_list<false, false, TABLES>(j, idx, flagged, K);
+  return cheap ? launch_list<false, true, TABLES, G>(j, idx, flagged, K)
+               : launch_list<false, false, TABLES, G>(j, idx, flagged, K);
 }
 
 }  // namespace

@@ -120,11 +120,11 @@ enum : int {
 // The scene as the kernels read it: the parameter vector and the SoA tables
 // sph (7 x ns: center xyz, radius, albedo rgb), pln (9 x npl: origin xyz,
 // unit normal xyz, albedo rgb) and lts (3 x nl), row-major. `ldg`: sph lies
-// in device memory and is read through the read-only data cache (the hard
-// backward kernel's global form, for scenes whose sphere table does not fit a
-// block's shared memory beside the gradient rows); every other view reads sph
-// where it points, staged or not. A kernel fixes `ldg` at compile time, so the
-// test folds away.
+// in device memory and is read through the read-only data cache (the global
+// form of the render, hit-extent and backward kernels, for scenes whose
+// sphere table does not fit a block's shared memory beside what else the
+// block keeps there); every other view reads sph where it points, staged or
+// not. A kernel fixes `ldg` at compile time, so the test folds away.
 struct SceneView {
   const float* p;
   const float* sph;
@@ -430,21 +430,30 @@ __host__ __device__ inline int tree_words(const TableArgs& a) {
   return a.perm ? tree_box_words(a.n_leaves) + a.n_leaves * LEAF : 0;
 }
 
-// 4-byte words of shared memory a block needs for its copy of the tables.
+// 4-byte words of shared memory a block needs for its copy of the tables
+// (G, the global form: the tree's left out, as it is read where it lies).
+template <bool G = false>
 __host__ __device__ inline int table_words(const TableArgs& a, int nl) {
-  return tree_words(a) + (a.vis_idx ? a.vis_k : 0) + (a.sh_idx ? nl * (a.sh_k + 1) : 0);
+  return (G ? 0 : tree_words(a)) + (a.vis_idx ? a.vis_k : 0) +
+         (a.sh_idx ? nl * (a.sh_k + 1) : 0);
 }
 
 // Copy the bounce tree into shared memory at `base` (tree_words words) and
 // point tb at it and at the light cells, which stay in device memory. Every
 // thread of the block calls it; a __syncthreads() must follow before the tree
-// is read.
+// is read. G (the global form): tb points at the tree where it lies in
+// device memory, and nothing is staged; the same floats and indices either way.
+template <bool G = false>
 __device__ __forceinline__ void stage_tree(const TableArgs& a, float* base, int tid, int nt,
                                            Tables& tb) {
   if (a.lc_idx) {
     tb.lc_idx = a.lc_idx; tb.lc_cnt = a.lc_cnt; tb.lc_hdr = a.lc_hdr;
   }
   if (!a.perm) return;
+  if (G) {
+    tb.box = a.box; tb.perm = a.perm; tb.n_leaves = a.n_leaves;
+    return;
+  }
   const int nb = tree_box_words(a.n_leaves);
   int* perm = reinterpret_cast<int*>(base + nb);
   for (int i = tid; i < nb; i += nt) base[i] = a.box[i];
@@ -459,13 +468,15 @@ __host__ __device__ inline Tables no_tables() {
 }
 
 // Copy tile `tile`'s lists and the bounce tree into shared memory at `base`
-// (table_words words) and return the block's view of them. Every thread of
-// the block calls it; a __syncthreads() must follow before the view is read.
+// (table_words<G> words; G: the tree read where it lies) and return the
+// block's view of them. Every thread of the block calls it; a __syncthreads()
+// must follow before the view is read.
+template <bool G = false>
 __device__ __forceinline__ Tables stage_tables(const TableArgs& a, int nl, int tile,
                                                float* base, int tid, int nt) {
   Tables tb = no_tables();
-  stage_tree(a, base, tid, nt, tb);
-  int* w = reinterpret_cast<int*>(base + tree_words(a));
+  stage_tree<G>(a, base, tid, nt, tb);
+  int* w = reinterpret_cast<int*>(base + (G ? 0 : tree_words(a)));
   if (a.vis_idx) {
     const int n = a.vis_cnt[tile];
     const int* src = a.vis_idx + static_cast<size_t>(tile) * a.vis_k;

@@ -34,7 +34,14 @@
 //     (rt_common.cuh fm / fa / fs, __fsqrt_rn, __fdiv_rn, dot products summed
 //     left to right as ops/intersect.py _dot does), so the rows equal
 //     cull_tables.shadow_visibility_lists' integer for integer on the same
-//     hit-extent rows; slots past a row's count hold 0, as there.
+//     hit-extent rows; slots past a row's count hold 0, as there;
+//   * past the 9,685 spheres whose staged words fit a block's 227 KB (the
+//     chunked form, CHUNKED, shadow_lists_cuda.chunk_spheres), a block takes
+//     its tiles a warp's worth at a time and sweeps the light's order in
+//     chunks of `chunk`: it stages a chunk, each warp whose row is still open
+//     appends that chunk's kept spheres, and the block stops once every row
+//     is decided (__syncthreads_or). The same floats in the same order, so
+//     the same rows.
 
 #include <cuda_runtime.h>
 
@@ -56,33 +63,113 @@ __device__ __forceinline__ float dot3p(float ax, float ay, float az, float bx, f
   return fa(fa(fm(ax, bx), fm(ay, by)), fm(az, bz));
 }
 
+// The staged words of positions [p0, p1) of light l's order (index p - p0).
+struct Staged {
+  float *cx, *cy, *cz, *r, *vv;
+  int* j;
+
+  __device__ __forceinline__ Staged(float* smem, int cap)
+      : cx(smem), cy(smem + cap), cz(smem + 2 * cap), r(smem + 3 * cap), vv(smem + 4 * cap),
+        j(reinterpret_cast<int*>(smem + 5 * cap)) {}
+
+  __device__ __forceinline__ void stage(const int* __restrict__ ord,
+                                        const float* __restrict__ cen,
+                                        const float* __restrict__ rad, float lx, float ly,
+                                        float lz, int p0, int p1, int tid) const {
+    for (int p = p0 + tid; p < p1; p += NT) {
+      const int jj = ord[p];
+      const float x = cen[3 * jj], y = cen[3 * jj + 1], z = cen[3 * jj + 2];
+      const float vx = fs(x, lx), vy = fs(y, ly), vz = fs(z, lz);
+      const int i = p - p0;
+      cx[i] = x;
+      cy[i] = y;
+      cz[i] = z;
+      r[i] = rad[jj];
+      vv[i] = dot3p(vx, vy, vz, vx, vy, vz);
+      j[i] = jj;
+    }
+  }
+};
+
+// A (tile, light) row's terms, in cull_tables.shadow_visibility_lists'
+// operations: the box centre b and half-diagonal, the segment s = L - b, and
+// the cone's axis u, slope and 1 / cos.
+struct RowTerms {
+  float bx, by, bz, hdiag, sx, sy, sz, ss, ux, uy, uz, slope, rmink;
+  bool all;   // the cone is ill-defined: the row keeps every sphere, in order
+};
+
+__device__ __forceinline__ RowTerms row_terms(const float* e, float lx, float ly, float lz) {
+  RowTerms t;
+  t.bx = fm(0.5f, fa(e[0], e[3])); t.by = fm(0.5f, fa(e[1], e[4]));
+  t.bz = fm(0.5f, fa(e[2], e[5]));
+  const float ex = fm(0.5f, fs(e[3], e[0])), ey = fm(0.5f, fs(e[4], e[1])),
+              ez = fm(0.5f, fs(e[5], e[2]));
+  t.hdiag = __fsqrt_rn(dot3p(ex, ey, ez, ex, ey, ez));
+  t.sx = fs(lx, t.bx); t.sy = fs(ly, t.by); t.sz = fs(lz, t.bz);
+  t.ss = fmaxf(dot3p(t.sx, t.sy, t.sz, t.sx, t.sy, t.sz), 1e-12f);
+  const float dlb = __fsqrt_rn(t.ss);
+  t.all = !(dlb > fm(2.0f, t.hdiag));
+  t.ux = __fdiv_rn(t.sx, dlb); t.uy = __fdiv_rn(t.sy, dlb); t.uz = __fdiv_rn(t.sz, dlb);
+  t.slope = __fdiv_rn(t.hdiag, fmaxf(fs(dlb, t.hdiag), 1e-6f));
+  t.rmink = __fsqrt_rn(fa(1.0f, fm(t.slope, t.slope)));
+  return t;
+}
+
+// One warp's sweep of staged positions [p0, p1) (at index p - p0) for row t:
+// the kept spheres appended to slots from n on; false once the row overflows
+// (n > k), where it stops.
+__device__ __forceinline__ bool sweep_row(const RowTerms& t, const Staged& st, float lx,
+                                          float ly, float lz, float slack, float extent,
+                                          int p0, int p1, int k, int* slots, int& n,
+                                          int lane) {
+  for (int base = p0; base < p1; base += 32) {
+    const int p = base + lane;
+    bool keep = false;
+    const int i = p - p0;
+    if (p < p1) {
+      const float cx = st.cx[i], cy = st.cy[i], cz = st.cz[i], r = st.r[i];
+      // the capsule around the segment box centre -> light
+      const float wx = fs(cx, t.bx), wy = fs(cy, t.by), wz = fs(cz, t.bz);
+      const float ws = dot3p(wx, wy, wz, t.sx, t.sy, t.sz);
+      const float tt = fminf(fmaxf(__fdiv_rn(ws, t.ss), 0.0f), 1.0f);
+      const float d2 = fa(fs(dot3p(wx, wy, wz, wx, wy, wz), fm(fm(2.0f, tt), ws)),
+                          fm(fm(tt, tt), t.ss));
+      const float reach = fa(fa(r, t.hdiag), slack);
+      // the cone past the light
+      const float vx = fs(cx, lx), vy = fs(cy, ly), vz = fs(cz, lz);
+      const float proj = dot3p(vx, vy, vz, t.ux, t.uy, t.uz);
+      const float lat2 = fmaxf(fs(st.vv[i], fm(proj, proj)), 0.0f);
+      const float allow = fa(fm(proj, t.slope), fm(fa(r, slack), t.rmink));
+      keep = d2 <= fm(reach, reach) ||
+             (proj > -r && proj < fa(extent, r) && lat2 <= fm(allow, allow) &&
+              allow > 0.0f);
+    }
+    const unsigned bal = __ballot_sync(FULL, keep);
+    const int pos = n + __popc(bal & ((1u << lane) - 1u));
+    if (keep && pos < k) slots[pos] = st.j[i];
+    n += __popc(bal);
+    if (n > k) return false;   // warp-uniform: the row overflows
+  }
+  return true;
+}
+
+// CHUNKED: `chunk` positions of the light's order staged at a time (chunk >
+// 0); else all ns at once.
+template <bool CHUNKED>
 __global__ void __launch_bounds__(NT)
 shadow_lists_kernel(const float* __restrict__ ext, const float* __restrict__ scale,
                     const float* __restrict__ lts, int nl, const float* __restrict__ cen,
                     const float* __restrict__ rad, int ns, const int* __restrict__ order,
                     int n_tiles, int k, int compat, int* __restrict__ idx,
-                    int* __restrict__ cnt) {
-  extern __shared__ float smem[];   // cx, cy, cz, r, |c - L|^2, index: ns each
-  float* s_cx = smem;
-  float* s_cy = s_cx + ns;
-  float* s_cz = s_cy + ns;
-  float* s_r = s_cz + ns;
-  float* s_vv = s_r + ns;
-  int* s_j = reinterpret_cast<int*>(s_vv + ns);
+                    int* __restrict__ cnt, int chunk) {
+  extern __shared__ float smem[];   // cx, cy, cz, r, |c - L|^2, index: ns (chunk) each
+  const Staged st(smem, CHUNKED ? chunk : ns);
   const int l = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const float lx = lts[3 * l], ly = lts[3 * l + 1], lz = lts[3 * l + 2];
-  for (int p = tid; p < ns; p += NT) {
-    const int j = order[static_cast<size_t>(l) * ns + p];
-    const float cx = cen[3 * j], cy = cen[3 * j + 1], cz = cen[3 * j + 2];
-    const float vx = fs(cx, lx), vy = fs(cy, ly), vz = fs(cz, lz);
-    s_cx[p] = cx;
-    s_cy[p] = cy;
-    s_cz[p] = cz;
-    s_r[p] = rad[j];
-    s_vv[p] = dot3p(vx, vy, vz, vx, vy, vz);
-    s_j[p] = j;
-  }
+  const int* ord = order + static_cast<size_t>(l) * ns;
+  if (!CHUNKED) st.stage(ord, cen, rad, lx, ly, lz, 0, ns, tid);
   // the scale: the boxes' (hit_extents.cu) and the lights' largest |coordinate|
   float lmax = 0.0f;
   for (int i = lane; i < 3 * nl; i += 32) lmax = fmaxf(lmax, fabsf(lts[i]));
@@ -92,61 +179,58 @@ shadow_lists_kernel(const float* __restrict__ ext, const float* __restrict__ sca
   const float extent = compat ? FAR : EXTENT_CLEAN;
   __syncthreads();
 
-  for (int tile = blockIdx.x * SL_WARPS + warp; tile < n_tiles;
-       tile += gridDim.x * SL_WARPS) {
+  if (!CHUNKED) {
+    for (int tile = blockIdx.x * SL_WARPS + warp; tile < n_tiles;
+         tile += gridDim.x * SL_WARPS) {
+      const size_t row = static_cast<size_t>(tile) * nl + l;
+      int* slots = idx + row * k;
+      const float* e = ext + static_cast<size_t>(tile) * ROW;
+      int n = 0;
+      if (e[6] > 0.5f) {
+        const RowTerms t = row_terms(e, lx, ly, lz);
+        if (t.all) {
+          n = ns;
+          for (int p = lane; p < min(ns, k); p += 32) slots[p] = st.j[p];
+        } else {
+          sweep_row(t, st, lx, ly, lz, slack, extent, 0, ns, k, slots, n, lane);
+        }
+      }
+      for (int i = min(n, k) + lane; i < k; i += 32) slots[i] = 0;
+      if (lane == 0) cnt[row] = n > k ? -1 : n;
+    }
+    return;
+  }
+  // the block's tiles, a warp's worth at a time (the loop's bound is the
+  // block's, so every warp meets the barriers), the chunks inside
+  for (int tile0 = blockIdx.x * SL_WARPS; tile0 < n_tiles; tile0 += gridDim.x * SL_WARPS) {
+    const int tile = tile0 + warp;
     const size_t row = static_cast<size_t>(tile) * nl + l;
     int* slots = idx + row * k;
-    const float* e = ext + static_cast<size_t>(tile) * ROW;
     int n = 0;
-    if (e[6] > 0.5f) {
-      // the row's terms, in cull_tables.shadow_visibility_lists' operations
-      const float bx = fm(0.5f, fa(e[0], e[3])), by = fm(0.5f, fa(e[1], e[4])),
-                  bz = fm(0.5f, fa(e[2], e[5]));
-      const float ex = fm(0.5f, fs(e[3], e[0])), ey = fm(0.5f, fs(e[4], e[1])),
-                  ez = fm(0.5f, fs(e[5], e[2]));
-      const float hdiag = __fsqrt_rn(dot3p(ex, ey, ez, ex, ey, ez));
-      const float sx = fs(lx, bx), sy = fs(ly, by), sz = fs(lz, bz);
-      const float ss = fmaxf(dot3p(sx, sy, sz, sx, sy, sz), 1e-12f);
-      const float dlb = __fsqrt_rn(ss);
-      if (!(dlb > fm(2.0f, hdiag))) {
-        // the cone is ill-defined: the row keeps every sphere, in order
-        n = ns;
-        for (int p = lane; p < min(ns, k); p += 32) slots[p] = s_j[p];
-      } else {
-        const float ux = __fdiv_rn(sx, dlb), uy = __fdiv_rn(sy, dlb), uz = __fdiv_rn(sz, dlb);
-        const float slope = __fdiv_rn(hdiag, fmaxf(fs(dlb, hdiag), 1e-6f));
-        const float rmink = __fsqrt_rn(fa(1.0f, fm(slope, slope)));
-        for (int base = 0; base < ns; base += 32) {
-          const int p = base + lane;
-          bool keep = false;
-          if (p < ns) {
-            const float cx = s_cx[p], cy = s_cy[p], cz = s_cz[p], r = s_r[p];
-            // the capsule around the segment box centre -> light
-            const float wx = fs(cx, bx), wy = fs(cy, by), wz = fs(cz, bz);
-            const float ws = dot3p(wx, wy, wz, sx, sy, sz);
-            const float tt = fminf(fmaxf(__fdiv_rn(ws, ss), 0.0f), 1.0f);
-            const float d2 = fa(fs(dot3p(wx, wy, wz, wx, wy, wz), fm(fm(2.0f, tt), ws)),
-                                fm(fm(tt, tt), ss));
-            const float reach = fa(fa(r, hdiag), slack);
-            // the cone past the light
-            const float vx = fs(cx, lx), vy = fs(cy, ly), vz = fs(cz, lz);
-            const float proj = dot3p(vx, vy, vz, ux, uy, uz);
-            const float lat2 = fmaxf(fs(s_vv[p], fm(proj, proj)), 0.0f);
-            const float allow = fa(fm(proj, slope), fm(fa(r, slack), rmink));
-            keep = d2 <= fm(reach, reach) ||
-                   (proj > -r && proj < fa(extent, r) && lat2 <= fm(allow, allow) &&
-                    allow > 0.0f);
-          }
-          const unsigned bal = __ballot_sync(FULL, keep);
-          const int pos = n + __popc(bal & ((1u << lane) - 1u));
-          if (keep && pos < k) slots[pos] = s_j[p];
-          n += __popc(bal);
-          if (n > k) break;   // warp-uniform: the row overflows
+    RowTerms t{};
+    bool open = false;   // the row still sweeps
+    if (tile < n_tiles) {
+      const float* e = ext + static_cast<size_t>(tile) * ROW;
+      if (e[6] > 0.5f) {
+        t = row_terms(e, lx, ly, lz);
+        if (t.all) {
+          n = ns;
+          for (int p = lane; p < min(ns, k); p += 32) slots[p] = ord[p];
+        } else {
+          open = true;
         }
       }
     }
-    for (int i = min(n, k) + lane; i < k; i += 32) slots[i] = 0;
-    if (lane == 0) cnt[row] = n > k ? -1 : n;
+    for (int p0 = 0; __syncthreads_or(open) && p0 < ns; p0 += chunk) {
+      const int p1 = min(p0 + chunk, ns);
+      st.stage(ord, cen, rad, lx, ly, lz, p0, p1, tid);
+      __syncthreads();
+      if (open) open = sweep_row(t, st, lx, ly, lz, slack, extent, p0, p1, k, slots, n, lane);
+    }
+    if (tile < n_tiles) {
+      for (int i = min(n, k) + lane; i < k; i += 32) slots[i] = 0;
+      if (lane == 0) cnt[row] = n > k ? -1 : n;
+    }
   }
 }
 
@@ -160,34 +244,38 @@ extern "C" {
 // order (nl, ns) int32 each light's spheres from the largest apparent size
 // down; idx (n_tiles * nl * k) and cnt (n_tiles * nl) int32 receive the rows,
 // row tile * nl + light, k = min(K, ns) slots a row (count -1: overflowed).
-// compat: the cone reaches FAR past the light, else 1e9. Returns
-// cudaGetLastError() after the launch (0 on success).
+// compat: the cone reaches FAR past the light, else 1e9. chunk: 0 stages the
+// whole order at once; > 0, the chunked form, that many positions at a time
+// (shadow_lists_cuda.chunk_spheres). Returns cudaGetLastError() after the
+// launch (0 on success).
 int rt_shadow_lists(const float* ext, const float* scale, const float* lts, int nl,
                     const float* cen, const float* rad, int ns, const int* order,
-                    int n_tiles, int k, int compat, int* idx, int* cnt, void* stream) {
-  if (ns < 1 || nl < 1 || nl > 65535 || n_tiles < 1 || k < 1 || k > ns || !ext || !scale ||
-      !lts || !cen || !rad || !order || !idx || !cnt) {
+                    int n_tiles, int k, int compat, int* idx, int* cnt, int chunk,
+                    void* stream) {
+  if (ns < 1 || nl < 1 || nl > 65535 || n_tiles < 1 || k < 1 || k > ns || chunk < 0 ||
+      !ext || !scale || !lts || !cen || !rad || !order || !idx || !cnt) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = sizeof(float) * 6 * static_cast<size_t>(ns);
+  const size_t smem = sizeof(float) * 6 * static_cast<size_t>(chunk > 0 ? chunk : ns);
+  const auto kernel = chunk > 0 ? shadow_lists_kernel<true> : shadow_lists_kernel<false>;
   cudaError_t e;
   if (smem > 48 * 1024) {
-    e = cudaFuncSetAttribute(shadow_lists_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   int dev = 0, sms = 0, per_sm = 0;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
       (e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, shadow_lists_kernel, NT,
-                                                         smem)) != cudaSuccess) {
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, NT, smem)) !=
+          cudaSuccess) {
     return static_cast<int>(e);
   }
   // as many blocks as the card holds at once, shared out over the lights
   const int per_light = std::max(1, std::min((n_tiles + SL_WARPS - 1) / SL_WARPS,
                                              sms * std::max(per_sm, 1) / nl));
-  shadow_lists_kernel<<<dim3(per_light, nl), NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      ext, scale, lts, nl, cen, rad, ns, order, n_tiles, k, compat, idx, cnt);
+  kernel<<<dim3(per_light, nl), NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      ext, scale, lts, nl, cen, rad, ns, order, n_tiles, k, compat, idx, cnt, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 

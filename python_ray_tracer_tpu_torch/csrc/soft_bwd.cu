@@ -102,6 +102,18 @@
 // both take (chip_smoke.py phase 22 [repair-form]), so the planner stages
 // while the scene fits.
 //
+// Past 8228 spheres the rows no longer fit a block either, and the planner
+// takes the third form (R, only where neither of the others fits): each
+// warp's row lies in a device-memory scratch buffer (blocks x warps x n_grads
+// floats) that the wrapper allocates and the kernel zeroes. Its grid is the
+// card's size (soft_bwd_cuda.n_blocks), not one block a pixel group: block b
+// walks groups b, b + gridDim.x, ..., so the scratch and the partials are
+// bounded by the card, whatever the frame. Each warp still owns its row (lane
+// 0 adds each warp sum to it), and the block still sums its rows in warp
+// order into its partial column: no atomics, two runs give the same bits. The
+// block keeps the parameters, planes, lights and the lane-private table and
+// slab.
+//
 // Slices (ray-parallel sharding): a launch's pixels are columns [P_X0, P_X0 +
 // W) of a frame Wg wide; FUSED's loss and cotangent take the frame's
 // denominator 3 Wg H, so the slices' partials sum to the frame's.
@@ -116,8 +128,8 @@ using namespace rt;
 
 constexpr int BX = 16;         // threads along y
 constexpr int MAX_NT = 128;
-constexpr int GI_BITS = 16;    // T_KEY: object index in the low bits ...
-constexpr int LIT_BITS = 14;   // ... the Lambert sign of lights 0..13 above (bit 30 clear)
+constexpr int GI_BITS = 21;    // T_KEY: object index in the low bits (2^21 objects) ...
+constexpr int LIT_BITS = 9;    // ... the Lambert sign of lights 0..8 above (bit 30 clear)
 
 // Lane-private table fields (slot-major: field f of entry e at (f cap + e) nt).
 enum : int {
@@ -637,13 +649,17 @@ __device__ __forceinline__ void zero_slab(const Pix<G>& px, int w0, int w1) {
   for (int k = 0; k < 7 * (w1 - w0); ++k) px.S(k) = 0.0f;
 }
 
-template <bool G>
+// G: the global form; R (with G): the third form, the warps' rows in scratch
+// (gridDim.x x nwarps x n_grads floats) instead of shared memory, and a grid
+// of the card's size walking the pixel groups.
+template <bool G, bool R = false>
 __global__ void __launch_bounds__(MAX_NT)
 soft_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph, int ns,
                 const float* __restrict__ pln, int npl, const float* __restrict__ lts,
                 int nl, float tau, const float* __restrict__ img,
                 float* __restrict__ partial, int W, int H, int Wg, int fused, int cap,
-                int cj, int store_vis) {
+                int cj, int store_vis, float* __restrict__ scratch) {
+  static_assert(!R || G, "device-memory rows: the global form's only");
   const int nt = blockDim.x, nwarps = nt / 32, by = nt / BX;
   const Slots sl(ns, npl, nl, fused != 0);
   const int nf = N_TFIXED + (store_vis ? nl : 0);
@@ -655,8 +671,9 @@ soft_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
   float* s_pln = s_sph + 7 * staged_ns;
   float* s_lts = s_pln + 9 * npl;
   float* s_rcp = s_lts + 3 * nl;               // 1 / (tau r), 1 / r, dead2
-  float* s_acc = s_rcp + 3 * staged_ns;        // nwarps rows of sl.n slots
-  float* s_tab = s_acc + nwarps * sl.n;        // nf x cap x nt
+  float* s_acc = s_rcp + 3 * staged_ns;        // nwarps rows of sl.n slots (not R)
+  float* s_tab = s_acc + (R ? 0 : nwarps * sl.n);   // nf x cap x nt
+  float* acc_rows = R ? scratch + static_cast<size_t>(blockIdx.x) * nwarps * sl.n : s_acc;
   float* s_slab = s_tab + nf * cap * nt;       // 7 cj x nt
   const int tid = threadIdx.x;
   for (int i = tid; i < N_PARAMS; i += nt) s_p[i] = params[i];
@@ -669,142 +686,152 @@ soft_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
     s_rcp[ns + i] = 1.0f / r;
     s_rcp[2 * ns + i] = dead_r2(r, tau);
   }
-  for (int i = tid; i < nwarps * sl.n; i += nt) s_acc[i] = 0.0f;
+  for (int i = tid; i < nwarps * sl.n; i += nt) acc_rows[i] = 0.0f;
   __syncthreads();
   const Scene<G> sc{{s_p, G ? sph : s_sph, ns, s_pln, npl, s_lts, nl, G}, s_rcp, tau};
   const int lane = tid & 31;
-  float* row = s_acc + (tid >> 5) * sl.n;
+  float* row = acc_rows + (tid >> 5) * sl.n;
 
   const int nby = (H + BX - 1) / BX;
-  const int x = static_cast<int>(blockIdx.x) / nby * by + tid / BX;
-  const int y = static_cast<int>(blockIdx.x) % nby * BX + tid % BX;
-  const bool inb = x < W && y < H;
-  const size_t pix = inb ? (static_cast<size_t>(x) * H + y) * 3 : 0;
-  const RayGen rg = raygen_full(s_p, static_cast<float>(x) + s_p[P_X0],
-                                static_cast<float>(y));
-  Pix<G> px{sc, rg.ray, tau, s_tab + tid, s_slab + tid, nt, cap, store_vis != 0,
-         0.0f, 0.0f, 0.0f, {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, 0.0f};
-  const int K = ns + npl;
+  // One pixel group (BX x by pixels) into the warps' rows.
+  const auto group = [&](int grp) {
+    const int x = grp / nby * by + tid / BX;
+    const int y = grp % nby * BX + tid % BX;
+    const bool inb = x < W && y < H;
+    const size_t pix = inb ? (static_cast<size_t>(x) * H + y) * 3 : 0;
+    const RayGen rg = raygen_full(s_p, static_cast<float>(x) + s_p[P_X0],
+                                  static_cast<float>(y));
+    Pix<G> px{sc, rg.ray, tau, s_tab + tid, s_slab + tid, nt, cap, store_vis != 0,
+           0.0f, 0.0f, 0.0f, {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, 0.0f, 0.0f};
+    const int K = ns + npl;
 
-  // Cotangent of the pixel's color: the image in, or in FUSED the MSE's.
-  float loss = 0.0f;
-  int n_first = 0;
-  bool table_valid = false;
-  if (fused) {
-    if (inb) {
-      float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-      int k = 0;
-      n_first = px.build(&k);
-      table_valid = k == K;      // one chunk holds every live object
-      for (bool first = true;; first = false) {
-        const int n = first ? n_first : px.build(&k);
-        const Rgb c = px.fill(n, first && table_valid);
-        cr += c.r; cg += c.g; cb += c.b;
-        if (k == K) break;
-      }
-      // the frame's denominator (a slice's launch: Wg the frame's width)
-      const float inv_denom = static_cast<float>(1.0 / (3.0 * Wg * static_cast<double>(H)));
-      const float two_inv = static_cast<float>(2.0 / (3.0 * Wg * static_cast<double>(H)));
-      const float d0 = cr - img[pix], d1 = cg - img[pix + 1], d2 = cb - img[pix + 2];
-      loss = (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom;
-      px.g0 = two_inv * d0; px.g1 = two_inv * d1; px.g2 = two_inv * d2;
-    }
-  } else if (inb) {
-    px.g0 = img[pix]; px.g1 = img[pix + 1]; px.g2 = img[pix + 2];
-  }
-
-  // Reverse sweep, a chunk of live objects at a time (one chunk where the
-  // table holds them all). Every adjoint is linear in the color cotangent, so a
-  // pixel whose cotangent is 0 has none.
-  bool more = px.g0 != 0.0f || px.g1 != 0.0f || px.g2 != 0.0f;
-  int kb = 0;
-  const int nwin = ns > 0 ? (ns + cj - 1) / cj : 1;
-  while (__any_sync(FULL, more)) {
-    int n = 0;
-    bool complete = false;
-    if (more) {
-      if (table_valid) {
-        n = n_first;
-        kb = K;
-        complete = true;
-      } else {
-        const bool first = kb == 0;
-        n = px.build(&kb);
-        complete = first && kb == K;
-        px.fill(n, complete);
-      }
-      more = kb < K;
-      px.prepare(n);
-    }
-    // Shadows and lights, a window of spheres at a time.
-    for (int win = 0; win < nwin; ++win) {
-      const int w0 = win * cj, w1 = min(w0 + cj, ns);
-      zero_slab(px, w0, w1);
-      for (int l = 0; l < nl; ++l) {
-        float Lw[3] = {0.0f, 0.0f, 0.0f};
-        px.shadow_stage(n, l, w0, w1, Lw);
-#pragma unroll
-        for (int c = 0; c < 3; ++c) acc_live(row, sl.lts + 3 * l + c, Lw[c], lane);
-      }
-      if (nwin > 1) flush(px, row, lane, w0, w1, 4);
-    }
-    // Spheres: Lambert and normal chains, albedos, primary covers.
-    for (int win = 0; win < nwin && ns > 0; ++win) {
-      const int w0 = win * cj, w1 = min(w0 + cj, ns);
-      if (nwin > 1) zero_slab(px, w0, w1);
-      if (complete) {
-        for (int e = 0; e < n; ++e) {
-          const int j = px.gi(e);
-          if (j >= w0 && j < w1) px.sphere_primary(n, j, w0, e);
+    // Cotangent of the pixel's color: the image in, or in FUSED the MSE's.
+    float loss = 0.0f;
+    int n_first = 0;
+    bool table_valid = false;
+    if (fused) {
+      if (inb) {
+        float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+        int k = 0;
+        n_first = px.build(&k);
+        table_valid = k == K;      // one chunk holds every live object
+        for (bool first = true;; first = false) {
+          const int n = first ? n_first : px.build(&k);
+          const Rgb c = px.fill(n, first && table_valid);
+          cr += c.r; cg += c.g; cb += c.b;
+          if (k == K) break;
         }
-      } else if (n > 0) {
-        int e = 0;
-        while (e < n && px.gi(e) < w0) ++e;
-        for (int j = w0; j < w1; ++j) {
-          const int own = e < n && px.gi(e) == j ? e++ : -1;
-          px.sphere_primary(n, j, w0, own);
-        }
+        // the frame's denominator (a slice's launch: Wg the frame's width)
+        const float inv_denom = static_cast<float>(1.0 / (3.0 * Wg * static_cast<double>(H)));
+        const float two_inv = static_cast<float>(2.0 / (3.0 * Wg * static_cast<double>(H)));
+        const float d0 = cr - img[pix], d1 = cg - img[pix + 1], d2 = cb - img[pix + 2];
+        loss = (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom;
+        px.g0 = two_inv * d0; px.g1 = two_inv * d1; px.g2 = two_inv * d2;
       }
-      flush(px, row, lane, w0, w1, 7);
+    } else if (inb) {
+      px.g0 = img[pix]; px.g1 = img[pix + 1]; px.g2 = img[pix + 2];
     }
-    // Planes.
-    int e = 0;
-    while (e < n && px.gi(e) < ns) ++e;
-    for (int k = 0; k < npl; ++k) {
-      float v[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      if (e < n && px.gi(e) == ns + k) {
-        if (px.T(T_W, e) != 0.0f) px.plane_adj(e, v);
-        ++e;
-      }
-#pragma unroll
-      for (int c = 0; c < 9; ++c) acc_live(row, sl.pln + 9 * k + c, v[c], lane);
-    }
-  }
 
-  acc_live(row, sl.mat + 0, px.amb_acc, lane);
-  acc_live(row, sl.mat + 1, px.lamb_acc, lane);
-  // Camera: position takes the origin's cotangent; d = normalize(R p),
-  // p = (focal, pcy, pcz); focal = cot(fov/2) with fov in degrees.
-  const RayBar& rb = px.rb;
-  const float focal = s_p[P_FOCAL];
-  float ub[3] = {rb.dx, rb.dy, rb.dz};
-  norm_adj(rg.ray.dx, rg.ray.dy, rg.ray.dz, rg.dn, ub[0], ub[1], ub[2]);
-  const float ob[3] = {rb.ox, rb.oy, rb.oz};
-  const float pvec[3] = {focal, rg.pcy, rg.pcz};
+    // Reverse sweep, a chunk of live objects at a time (one chunk where the
+    // table holds them all). Every adjoint is linear in the color cotangent, so a
+    // pixel whose cotangent is 0 has none.
+    bool more = px.g0 != 0.0f || px.g1 != 0.0f || px.g2 != 0.0f;
+    int kb = 0;
+    const int nwin = ns > 0 ? (ns + cj - 1) / cj : 1;
+    while (__any_sync(FULL, more)) {
+      int n = 0;
+      bool complete = false;
+      if (more) {
+        if (table_valid) {
+          n = n_first;
+          kb = K;
+          complete = true;
+        } else {
+          const bool first = kb == 0;
+          n = px.build(&kb);
+          complete = first && kb == K;
+          px.fill(n, complete);
+        }
+        more = kb < K;
+        px.prepare(n);
+      }
+      // Shadows and lights, a window of spheres at a time.
+      for (int win = 0; win < nwin; ++win) {
+        const int w0 = win * cj, w1 = min(w0 + cj, ns);
+        zero_slab(px, w0, w1);
+        for (int l = 0; l < nl; ++l) {
+          float Lw[3] = {0.0f, 0.0f, 0.0f};
+          px.shadow_stage(n, l, w0, w1, Lw);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) acc(row, sl.cam + c, ob[c], lane);
+          for (int c = 0; c < 3; ++c) acc_live(row, sl.lts + 3 * l + c, Lw[c], lane);
+        }
+        if (nwin > 1) flush(px, row, lane, w0, w1, 4);
+      }
+      // Spheres: Lambert and normal chains, albedos, primary covers.
+      for (int win = 0; win < nwin && ns > 0; ++win) {
+        const int w0 = win * cj, w1 = min(w0 + cj, ns);
+        if (nwin > 1) zero_slab(px, w0, w1);
+        if (complete) {
+          for (int e = 0; e < n; ++e) {
+            const int j = px.gi(e);
+            if (j >= w0 && j < w1) px.sphere_primary(n, j, w0, e);
+          }
+        } else if (n > 0) {
+          int e = 0;
+          while (e < n && px.gi(e) < w0) ++e;
+          for (int j = w0; j < w1; ++j) {
+            const int own = e < n && px.gi(e) == j ? e++ : -1;
+            px.sphere_primary(n, j, w0, own);
+          }
+        }
+        flush(px, row, lane, w0, w1, 7);
+      }
+      // Planes.
+      int e = 0;
+      while (e < n && px.gi(e) < ns) ++e;
+      for (int k = 0; k < npl; ++k) {
+        float v[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        if (e < n && px.gi(e) == ns + k) {
+          if (px.T(T_W, e) != 0.0f) px.plane_adj(e, v);
+          ++e;
+        }
 #pragma unroll
-  for (int r = 0; r < 3; ++r)
+        for (int c = 0; c < 9; ++c) acc_live(row, sl.pln + 9 * k + c, v[c], lane);
+      }
+    }
+
+    acc_live(row, sl.mat + 0, px.amb_acc, lane);
+    acc_live(row, sl.mat + 1, px.lamb_acc, lane);
+    // Camera: position takes the origin's cotangent; d = normalize(R p),
+    // p = (focal, pcy, pcz); focal = cot(fov/2) with fov in degrees.
+    const RayBar& rb = px.rb;
+    const float focal = s_p[P_FOCAL];
+    float ub[3] = {rb.dx, rb.dy, rb.dz};
+    norm_adj(rg.ray.dx, rg.ray.dy, rg.ray.dz, rg.dn, ub[0], ub[1], ub[2]);
+    const float ob[3] = {rb.ox, rb.oy, rb.oz};
+    const float pvec[3] = {focal, rg.pcy, rg.pcz};
 #pragma unroll
-    for (int c = 0; c < 3; ++c) acc(row, sl.cam + 3 + 3 * r + c, ub[r] * pvec[c], lane);
-  const float focal_bar = s_p[P_ROT + 0] * ub[0] + s_p[P_ROT + 3] * ub[1] +
-                          s_p[P_ROT + 6] * ub[2];
-  const float dfdf = -(1.0f + focal * focal) * static_cast<float>(3.14159265358979 / 360.0);
-  acc(row, sl.cam + 12, focal_bar * dfdf, lane);
-  if (fused) acc(row, sl.loss, loss, lane);
+    for (int c = 0; c < 3; ++c) acc(row, sl.cam + c, ob[c], lane);
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) acc(row, sl.cam + 3 + 3 * r + c, ub[r] * pvec[c], lane);
+    const float focal_bar = s_p[P_ROT + 0] * ub[0] + s_p[P_ROT + 3] * ub[1] +
+                            s_p[P_ROT + 6] * ub[2];
+    const float dfdf = -(1.0f + focal * focal) * static_cast<float>(3.14159265358979 / 360.0);
+    acc(row, sl.cam + 12, focal_bar * dfdf, lane);
+    if (fused) acc(row, sl.loss, loss, lane);
+  };
+  if (R) {
+    // a grid of the card's size: block b walks groups b, b + gridDim.x, ...
+    const int n_groups = nby * ((W + by - 1) / by);
+    for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) group(grp);
+  } else {
+    group(static_cast<int>(blockIdx.x));
+  }
 
   __syncthreads();
-  write_block_partial(s_acc, nwarps, sl.n, partial, tid, nt);
+  write_block_partial(acc_rows, nwarps, sl.n, partial, tid, nt);
 }
 
 }  // namespace
@@ -813,41 +840,50 @@ extern "C" {
 
 // Shared memory (bytes) of one soft backward block under a plan; the
 // wrapper's planner (soft_bwd_cuda.smem_bytes) computes the same. staged 0:
-// the global form, without the 10 words a sphere.
+// the global form, without the 10 words a sphere; rows 0 (the third form):
+// without the warps' rows too.
 long long rt_soft_bwd_smem(int ns, int npl, int nl, int n_grads, int nt, int cap, int cj,
-                           int store_vis, int staged) {
+                           int store_vis, int staged, int rows) {
   const long long nf = N_TFIXED + (store_vis ? nl : 0);
   return 4LL * (N_PARAMS + (staged ? 10LL * ns : 0LL) + 9LL * npl + 3LL * nl +
-                (nt / 32) * 1LL * n_grads + static_cast<long long>(nt) * (nf * cap + 7LL * cj));
+                (rows ? (nt / 32) * 1LL * n_grads : 0LL) +
+                static_cast<long long>(nt) * (nf * cap + 7LL * cj));
 }
 
 // Launch the soft backward kernel on `stream`: per-block partial sums into
-// partial (n_grads x n_rows, n_rows = ceil(H/16) * ceil(W/(nt/16))); rt_reduce_rows
+// partial (n_grads x n_rows, n_rows = ceil(H/16) * ceil(W/(nt/16)), the pixel
+// groups; with scratch, any 1 <= n_rows <= the groups); rt_reduce_rows
 // then sums them. img: the (W, H, 3) cotangent, or with fused the target.
 // n_grads = 7 ns + 9 npl + 3 nl + 18, + 1 with fused. The plan: nt threads a
 // block (32, 64 or 128), cap live objects a chunk (>= 1), cj spheres a window
 // (>= 1), store_vis (a transmission a light in the table), staged (the sphere
 // table and its per-sphere values in shared memory; 0: the global form).
-// Objects are indexed in GI_BITS bits. W x H: the slice [params[P_X0],
+// scratch (the third form, with staged 0): n_rows x nt / 32 x n_grads floats
+// of device memory that the launch zeroes and fills with the warps' rows; null
+// keeps the rows in shared memory. Objects are indexed in GI_BITS bits. W x H:
+// the slice [params[P_X0],
 // params[P_X0] + W) of a frame Wg columns wide (Wg == W for a whole frame),
 // img the slice's; FUSED's loss has the frame's denominator 3 Wg H. Returns
 // cudaGetLastError() after the launch.
 int rt_soft_bwd(const float* params, const float* sph, int ns, const float* pln, int npl,
                 const float* lts, int nl, float tau, const float* img, float* partial,
                 int n_rows, int n_grads, int W, int H, int Wg, int fused, int nt, int cap,
-                int cj, int store_vis, int staged, void* stream) {
+                int cj, int store_vis, int staged, float* scratch, void* stream) {
+  const long long n_groups = (nt == 32 || nt == 64 || nt == 128) && H > 0 && W > 0
+      ? static_cast<long long>((H + BX - 1) / BX) * ((W + nt / BX - 1) / (nt / BX)) : 0;
   if (W <= 0 || H <= 0 || Wg < W || ns < 0 || npl < 0 || nl < 0 || !(tau > 0.0f) ||
       img == nullptr || !(nt == 32 || nt == 64 || nt == 128) || cap < 1 || cj < 1 ||
       ns + npl >= (1 << GI_BITS) ||
       n_grads != 7 * ns + 9 * npl + 3 * nl + 18 + (fused ? 1 : 0) ||
-      static_cast<long long>(n_rows) !=
-          static_cast<long long>((H + BX - 1) / BX) * ((W + nt / BX - 1) / (nt / BX))) {
+      (scratch == nullptr && n_rows != n_groups) || n_rows < 1 || n_rows > n_groups ||
+      (scratch != nullptr && staged)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long smem =
-      rt_soft_bwd_smem(ns, npl, nl, n_grads, nt, cap, cj, store_vis, staged);
+  const long long smem = rt_soft_bwd_smem(ns, npl, nl, n_grads, nt, cap, cj, store_vis,
+                                          staged, scratch == nullptr);
   if (smem > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = staged ? soft_bwd_kernel<false> : soft_bwd_kernel<true>;
+  const auto kernel = staged ? soft_bwd_kernel<false>
+                             : (scratch ? soft_bwd_kernel<true, true> : soft_bwd_kernel<true>);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -855,7 +891,7 @@ int rt_soft_bwd(const float* params, const float* sph, int ns, const float* pln,
   }
   kernel<<<n_rows, nt, static_cast<size_t>(smem), static_cast<cudaStream_t>(stream)>>>(
       params, sph, ns, pln, npl, lts, nl, tau, img, partial, W, H, Wg, fused, cap, cj,
-      store_vis);
+      store_vis, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,6 +41,14 @@
 // The table's chunk size, one rule: cap = min(K, 32), halved until the block's
 // shared memory (the scene and NT x 4 x cap floats) fits 227 KB.
 //
+// The global form (G; render_cuda.scene_form, past the scenes whose staged
+// form fits a block at cap 1: 8,220 spheres at 1 plane and 3 lights): the
+// sphere table is read where it lies in device memory, through the read-only
+// cache, and the block stages the rest, so cap follows the same rule without
+// the sphere table. The same operations on the same floats, but nvcc contracts
+// the two instantiations on its own, so the forms agree within the kernel's
+// rule against the plain version (soft_cuda.image_rule), not bit for bit.
+//
 // Block: NT = 128 threads, 16 along the image's y axis (the contiguous axis of
 // the (w, h, 3) output) and 8 along x; a one-dimensional grid of
 // ceil(H / 16) * ceil(W / 8) blocks.
@@ -66,13 +74,24 @@ enum : int { T_KEY = 0, T_A, T_T, T_W, N_FIELDS };
 // alpha is exactly 0: t_ca <= 0, b^2 past dead2 = (r dead_k)^2 with dead_k = 1
 // + 90 tau (the pre-activation is then below -89.9, expf overflows and the
 // sigmoid is 0; tested before the sqrt), or a sigmoid that underflows.
-template <bool NEED_T>
+// Word i of the sphere table: staged in shared memory, or G, where it lies.
+template <bool G>
+__device__ __forceinline__ float sph_word(const SceneView& s, int i) {
+  if constexpr (G) {
+    return __ldg(s.sph + i);
+  } else {
+    return s.sph[i];
+  }
+}
+
+template <bool NEED_T, bool G>
 __device__ __forceinline__ bool live_cover(const SceneView& s, int j, float ox, float oy,
                                            float oz, float dx, float dy, float dz,
                                            float tau, float dead_k, float& a, float& t) {
   const int ns = s.ns;
-  const float r = s.sph[3 * ns + j];
-  const float Lx = s.sph[j] - ox, Ly = s.sph[ns + j] - oy, Lz = s.sph[2 * ns + j] - oz;
+  const float r = sph_word<G>(s, 3 * ns + j);
+  const float Lx = sph_word<G>(s, j) - ox, Ly = sph_word<G>(s, ns + j) - oy,
+              Lz = sph_word<G>(s, 2 * ns + j) - oz;
   const float t_ca = Lx * dx + Ly * dy + Lz * dz;
   if (!(t_ca > 0.0f)) return false;
   const float vx = Lx - t_ca * dx, vy = Ly - t_ca * dy, vz = Lz - t_ca * dz;
@@ -91,6 +110,7 @@ __device__ __forceinline__ bool live_cover(const SceneView& s, int j, float ox, 
 }
 
 // One lane's pixel: its primary ray and its column of the table.
+template <bool G>
 struct Pix {
   const SceneView& s;
   Ray ray;
@@ -104,7 +124,7 @@ struct Pix {
   // Object k's primary cover: false where its alpha is 0.
   __device__ bool cover(int k, float& a, float& t) const {
     if (k < s.ns) {
-      return live_cover<true>(s, k, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, tau,
+      return live_cover<true, G>(s, k, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, tau,
                               dead_k, a, t);
     }
     const PlaneCover p = plane_cover(s, k - s.ns, ray.ox, ray.oy, ray.oz, ray.dx, ray.dy,
@@ -164,7 +184,7 @@ struct Pix {
     float vis = 1.0f;
     for (int j = 0; j < s.ns && vis != 0.0f; ++j) {
       float a, t;
-      if (live_cover<false>(s, j, px, py, pz, L.x, L.y, L.z, tau, dead_k, a, t)) {
+      if (live_cover<false, G>(s, j, px, py, pz, L.x, L.y, L.z, tau, dead_k, a, t)) {
         vis *= 1.0f - a;
       }
     }
@@ -183,11 +203,13 @@ struct Pix {
       const float px = ray.ox + t * ray.dx, py = ray.oy + t * ray.dy, pz = ray.oz + t * ray.dz;
       float nx, ny, nz, ar, ag, ab;
       if (k < ns) {
-        const float vx = px - s.sph[k], vy = py - s.sph[ns + k], vz = pz - s.sph[2 * ns + k];
+        const float vx = px - sph_word<G>(s, k), vy = py - sph_word<G>(s, ns + k),
+                    vz = pz - sph_word<G>(s, 2 * ns + k);
         const float vv = vx * vx + vy * vy + vz * vz;
         const float nn = 1.0f / sqrtf(vv > 0.0f ? vv : 1.0f);
         nx = vx * nn; ny = vy * nn; nz = vz * nn;
-        ar = s.sph[4 * ns + k]; ag = s.sph[5 * ns + k]; ab = s.sph[6 * ns + k];
+        ar = sph_word<G>(s, 4 * ns + k); ag = sph_word<G>(s, 5 * ns + k);
+        ab = sph_word<G>(s, 6 * ns + k);
       } else {
         const int q = k - ns, np = s.npl;
         nx = s.pln[3 * np + q]; ny = s.pln[4 * np + q]; nz = s.pln[5 * np + q];
@@ -208,11 +230,14 @@ struct Pix {
   }
 };
 
-inline size_t smem_words(int ns, int npl, int nl, int cap) {
-  return N_PARAMS + 7 * static_cast<size_t>(ns) + 9 * static_cast<size_t>(npl) +
-         3 * static_cast<size_t>(nl) + static_cast<size_t>(NT) * N_FIELDS * cap;
+// staged: the sphere table among the words (the staged form).
+inline size_t smem_words(int ns, int npl, int nl, int cap, bool staged = true) {
+  return N_PARAMS + (staged ? 7 * static_cast<size_t>(ns) : 0) +
+         9 * static_cast<size_t>(npl) + 3 * static_cast<size_t>(nl) +
+         static_cast<size_t>(NT) * N_FIELDS * cap;
 }
 
+template <bool G>
 __global__ void __launch_bounds__(NT)
 soft_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph, int ns,
                 const float* __restrict__ pln, int npl, const float* __restrict__ lts,
@@ -220,22 +245,24 @@ soft_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
   extern __shared__ float smem[];
   float* s_p = smem;
   float* s_sph = s_p + N_PARAMS;
-  float* s_pln = s_sph + 7 * ns;
+  float* s_pln = s_sph + (G ? 0 : 7 * ns);
   float* s_lts = s_pln + 9 * npl;
   float* s_tab = s_lts + 3 * nl;
   const int tid = threadIdx.x;
   for (int i = tid; i < N_PARAMS; i += NT) s_p[i] = params[i];
-  for (int i = tid; i < 7 * ns; i += NT) s_sph[i] = sph[i];
+  if (!G) {
+    for (int i = tid; i < 7 * ns; i += NT) s_sph[i] = sph[i];
+  }
   for (int i = tid; i < 9 * npl; i += NT) s_pln[i] = pln[i];
   for (int i = tid; i < 3 * nl; i += NT) s_lts[i] = lts[i];
   __syncthreads();
-  const SceneView s{s_p, s_sph, ns, s_pln, npl, s_lts, nl};
+  const SceneView s{s_p, G ? sph : s_sph, ns, s_pln, npl, s_lts, nl, G};
 
   const int nby = (H + BX - 1) / BX;
   const int x = static_cast<int>(blockIdx.x) / nby * BY + tid / BX;
   const int y = static_cast<int>(blockIdx.x) % nby * BX + tid % BX;
   if (x >= W || y >= H) return;
-  const Pix px{s, raygen(s_p, static_cast<float>(x) + s_p[P_X0], static_cast<float>(y)),
+  const Pix<G> px{s, raygen(s_p, static_cast<float>(x) + s_p[P_X0], static_cast<float>(y)),
                tau, 1.0f + 90.0f * tau, s_tab + tid, cap};
   const int K = ns + npl;
   float r = 0.0f, g = 0.0f, b = 0.0f;
@@ -251,10 +278,12 @@ soft_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
   o[2] = b;
 }
 
-// The table's chunk size for a scene (the rule in the head of this file).
-int plan_cap(int ns, int npl, int nl) {
+// The table's chunk size for a scene in a form (the rule in the head of this
+// file).
+int plan_cap(int ns, int npl, int nl, bool staged = true) {
   int cap = ns + npl < MAX_CAP ? (ns + npl > 0 ? ns + npl : 1) : MAX_CAP;
-  while (cap > 1 && 4 * smem_words(ns, npl, nl, cap) > static_cast<size_t>(SMEM_LIMIT)) {
+  while (cap > 1 &&
+         4 * smem_words(ns, npl, nl, cap, staged) > static_cast<size_t>(SMEM_LIMIT)) {
     cap /= 2;
   }
   return cap;
@@ -265,33 +294,35 @@ int plan_cap(int ns, int npl, int nl) {
 extern "C" {
 
 // The soft forward kernel's chunk size (live objects a pixel keeps in its
-// table at once) for a scene.
-int rt_soft_fwd_cap(int ns, int npl, int nl) { return plan_cap(ns, npl, nl); }
+// table at once) for a scene in a form (staged 0: the global form).
+int rt_soft_fwd_cap(int ns, int npl, int nl, int staged) {
+  return plan_cap(ns, npl, nl, staged != 0);
+}
 
 // Soft render of a W x H image into out (W, H, 3) float32 on `stream`. params:
 // the N_PARAMS vector packed with the clean-mode grid; sph/pln/lts: the
-// (7,ns)/(9,npl)/(3,nl) SoA tables; tau > 0 the coverage softness. Returns
-// cudaGetLastError() after the launch (0 on success).
+// (7,ns)/(9,npl)/(3,nl) SoA tables; tau > 0 the coverage softness. staged: the
+// sphere table in shared memory; 0 takes the global form (render_cuda.
+// scene_form). Returns cudaGetLastError() after the launch (0 on success).
 int rt_soft_fwd(const float* params, const float* sph, int ns, const float* pln, int npl,
-                const float* lts, int nl, float tau, float* out, int W, int H,
+                const float* lts, int nl, float tau, float* out, int W, int H, int staged,
                 void* stream) {
   if (W <= 0 || H <= 0 || ns < 0 || npl < 0 || nl < 0 || !(tau > 0.0f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int cap = plan_cap(ns, npl, nl);
-  const size_t smem = sizeof(float) * smem_words(ns, npl, nl, cap);
+  const int cap = plan_cap(ns, npl, nl, staged != 0);
+  const size_t smem = sizeof(float) * smem_words(ns, npl, nl, cap, staged != 0);
   if (smem > static_cast<size_t>(SMEM_LIMIT)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = staged ? soft_fwd_kernel<false> : soft_fwd_kernel<true>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        soft_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const long long blocks =
       static_cast<long long>((H + BX - 1) / BX) * ((W + BY - 1) / BY);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  soft_fwd_kernel<<<static_cast<unsigned>(blocks), NT, smem,
-                    static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<static_cast<unsigned>(blocks), NT, smem, static_cast<cudaStream_t>(stream)>>>(
       params, sph, ns, pln, npl, lts, nl, tau, out, W, H, cap);
   return static_cast<int>(cudaGetLastError());
 }

@@ -121,20 +121,26 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                ci, *tables, vp]),
         "rt_render_list": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci, vp, ci, ci, ci, ci,
                                 ci, ci, *tables, vp]),
+        "rt_render_fwd_global": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci,
+                                      ci, *tables, vp]),
+        "rt_render_list_global": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, ci, vp, ci, ci, ci,
+                                       ci, ci, *tables, vp]),
         "rt_tree_shape": (None, [ctypes.POINTER(ci), ctypes.POINTER(ci)]),
-        "rt_light_cells": (ci, [vp, ci, vp, ci, vp, vp, vp, vp]),
+        "rt_light_cells": (ci, [vp, ci, vp, ci, vp, vp, vp, ci, vp]),
         "rt_light_cells_shape": (None, [ctypes.POINTER(ci), ctypes.POINTER(ci)]),
         "rt_hit_extents": (ci, [vp, vp, ci, vp, ci, vp, vp, ci, ci, ci, ci, ci, ci, vp, vp,
-                                ci, vp, vp, ci, vp]),
-        "rt_shadow_lists": (ci, [vp, vp, vp, ci, vp, vp, ci, vp, ci, ci, ci, vp, vp, vp]),
+                                ci, vp, vp, ci, ci, vp]),
+        "rt_shadow_lists": (ci, [vp, vp, vp, ci, vp, vp, ci, vp, ci, ci, ci, vp, vp, ci, vp]),
         "rt_render_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
                                ci, ci, ci, ci, ci, ci, ci, ci, vp]),
+        "rt_render_bwd_rows": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
+                                    ci, ci, ci, ci, ci, vp, vp]),
         "rt_reduce_rows": (ci, [vp, ci, ci, vp, vp]),
-        "rt_soft_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, vp]),
-        "rt_soft_fwd_cap": (ci, [ci, ci, ci]),
+        "rt_soft_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, ci, vp]),
+        "rt_soft_fwd_cap": (ci, [ci, ci, ci, ci]),
         "rt_soft_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, vp, ci, ci, ci, ci, ci, ci,
-                             ci, ci, ci, ci, ci, vp]),
-        "rt_soft_bwd_smem": (ctypes.c_longlong, [ci] * 9),
+                             ci, ci, ci, ci, ci, vp, vp]),
+        "rt_soft_bwd_smem": (ctypes.c_longlong, [ci] * 10),
         "rt_soft_bwd_attrs": (ci, [vp, vp]),
         "rt_error_string": (ctypes.c_char_p, [ci]),
     }

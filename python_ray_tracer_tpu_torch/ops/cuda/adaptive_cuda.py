@@ -35,15 +35,18 @@ from . import render_cuda
 
 # Worklist kernel launches; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {"render_list": 0}
+# Of those, the launches in the global form.
+GLOBAL_LAUNCHES = {"render_list": 0}
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["render_list"] = 0
+    GLOBAL_LAUNCHES["render_list"] = 0
 
 
 def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat: bool,
                 cheap_shadow: bool, vis=None, shadow=None, tree=None,
-                cells=None) -> torch.Tensor:
+                cells=None, form: int | None = None) -> torch.Tensor:
     """Launch the worklist kernel on the current stream: for each of the first
     ``min(flagged, len(idx))`` slots of ``idx`` (int32 flat indices ``x * H +
     y``), write that pixel's 9-sample AA average into ``out (W, H, 3)`` (the
@@ -53,7 +56,9 @@ def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat
     more than ``CULL_MIN_SPHERES`` spheres runs the large-scene instantiation
     (the pinned arithmetic), which takes ``vis``, ``shadow``, ``tree`` and
     ``cells`` as :func:`render_cuda.large_scene_tables` returns them for
-    ``aliasing=True`` (checked here; each None sweeps all spheres). Counts the launch in
+    ``aliasing=True`` (checked here; each None sweeps all spheres), in the
+    form the render kernel takes for the scene (``render_cuda.scene_form``;
+    ``form``: another, the same bits). Counts the launch in
     :data:`LAUNCHES`."""
     from ._build import load_library
     from .hit_extents_cuda import check_tables, table_args
@@ -77,15 +82,25 @@ def launch_list(out, params, tables, counts, idx, flagged, *, depth: int, compat
     n_tx, n_ty = tile_grid(W, H)
     check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=dev, cells=cells)
     v, sh, g, c = table_args(vis, shadow, tree, cells)
-    rc = lib.rt_render_list(
-        params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
-        idx.data_ptr(), flagged.data_ptr(), idx.numel(), out.data_ptr(), W, H, depth,
-        int(compat), int(cheap_shadow), int(ns > render_cuda.CULL_MIN_SPHERES), *v, *sh, *g, *c,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    large = ns > render_cuda.CULL_MIN_SPHERES
+    if form is None:
+        form = render_cuda.scene_form(ns, npl, nl, tree is not None) if large else 0
+    if form and not large:
+        raise ValueError(f"a scene of {ns} spheres has no global form")
+    args = (params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
+            idx.data_ptr(), flagged.data_ptr(), idx.numel(), out.data_ptr(), W, H, depth,
+            int(compat), int(cheap_shadow))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if form:
+        rc = lib.rt_render_list_global(*args, *v, *sh, *g, *c, stream)
+    else:
+        rc = lib.rt_render_list(*args, int(large), *v, *sh, *g, *c, stream)
     if rc != 0:
         raise RuntimeError(f"worklist kernel failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES["render_list"] += 1
+    if form:
+        GLOBAL_LAUNCHES["render_list"] += 1
     return out
 
 

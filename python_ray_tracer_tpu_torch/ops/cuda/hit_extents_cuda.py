@@ -32,11 +32,30 @@ from .cull_tables import LEAF, TILE, extent_scale, tile_grid, tree_box_words
 MAX_LEVELS = 4     # trace levels one launch covers (csrc/hit_extents.cu)
 # Kernel launches; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {"hit_extents": 0}
+# Of those, the launches with bounce levels in the global form.
+GLOBAL_LAUNCHES = {"hit_extents": 0}
+HX_WARPS = 8                  # warps a block (csrc/hit_extents.cu)
+TILE_WARPS = (1, 4)           # warps a tile without and with AA (RT_HX_*TILE_WARPS)
 _PLAIN_BLOCK = 1 << 26   # elements of the plain version's largest intermediate
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["hit_extents"] = 0
+    GLOBAL_LAUNCHES["hit_extents"] = 0
+
+
+def staged_bytes(ns: int, npl: int, aliasing: bool, vis_k: int, tree) -> int:
+    """Shared memory of a block of the launch with bounce levels in the
+    staged form (csrc/hit_extents.cu): the parameters, the planes, each
+    group's gathered slice (7 rows of ``vis_k``), the merge rows, the sphere
+    table and the bounce tree (``tree``: a ``cull_tables.BounceTree`` or
+    None)."""
+    tw = TILE_WARPS[int(aliasing)]
+    words = render_cuda.N_PARAMS + 9 * npl + (HX_WARPS // tw) * 7 * vis_k + \
+        (HX_WARPS * MAX_LEVELS * 8 if tw > 1 else 0) + 7 * ns
+    if tree is not None:
+        words += tree_box_words(tree.n_leaves) + tree.n_leaves * LEAF
+    return 4 * words
 
 
 def _positions(n_tx: int, n_ty: int, tile: int, aliasing: bool, dev, x_offset: int = 0):
@@ -215,7 +234,7 @@ def check_scale(scale, dev) -> None:
 
 def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compat: bool,
            n_levels: int, vis=None, tree=None, scale=None, lib=None,
-           W_global: int | None = None) -> torch.Tensor:
+           W_global: int | None = None, form: int | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked: ``out (n_tiles * n_levels, 8)``, ``params`` and ``tables`` as for
     ``render_cuda.launch``; ``vis``, ``tree`` and ``scale`` (a ``(1,)``
@@ -224,7 +243,9 @@ def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compa
     wider, its offset the packed ``P_X0``. ``lib``: a
     library built with other warps a tile (``-DRT_HX_TILE_WARPS`` /
     ``-DRT_HX_AA_TILE_WARPS``, chip_smoke.py's sweep), default the package's.
-    Counts the launch in :data:`LAUNCHES`."""
+    A launch with bounce levels stages the scene and the tree in the form
+    ``render_cuda.scene_form`` gives for :func:`staged_bytes` (``form``:
+    another, the same rows). Counts the launch in :data:`LAUNCHES`."""
     from ._build import load_library
     lib = lib or load_library()
     (sph, pln, _), (ns, npl, nl) = tables, counts
@@ -233,15 +254,25 @@ def launch(out, params, tables, counts, *, W: int, H: int, aliasing: bool, compa
     if scale is not None:
         check_scale(scale, out.device)
     v, _, g, _ = table_args(vis, None, tree)
+    if n_levels == 1:
+        form = 0
+    elif form is None:
+        form = render_cuda.scene_form(
+            ns, npl, nl,
+            staged_bytes=staged_bytes(ns, npl, aliasing, 0 if vis is None else int(vis[2]),
+                                      tree),
+            limit=render_cuda.SMEM_BLOCK)
     rc = lib.rt_hit_extents(
         params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, out.data_ptr(),
         None if scale is None else scale.data_ptr(), W, H,
         W if W_global is None else W_global, n_levels, int(aliasing),
-        int(compat), *v, *g, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        int(compat), *v, *g, int(form), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"hit-extent kernel failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES["hit_extents"] += 1
+    if form:
+        GLOBAL_LAUNCHES["hit_extents"] += 1
     return out
 
 
@@ -272,7 +303,7 @@ def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
         raise ValueError(f"hit_extents_cuda takes CPU or CUDA tensors, got {dev}")
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"n_levels must be in 1..{MAX_LEVELS}, got {n_levels}")
-    render_cuda._check_inputs(camera, scene, dev, tree is not None and n_levels > 1)
+    render_cuda._check_inputs(camera, scene, dev)
     W, H = camera.resolution
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")

@@ -29,6 +29,7 @@ import torch
 
 from ..intersect import _dot
 from . import cull_tables as ct
+from . import render_cuda
 
 # Mirrors of csrc/rt_common.cuh's constexprs: the cells' shape (LC_R, LC_K; the
 # loader checks the library's), S_max / reach, the margin m / S_max, the cells'
@@ -45,10 +46,28 @@ REACH_UP = 1.0 + 2.0 ** -20
 _ROW_BLOCK = 2048        # rows a chunk of the plain build
 # Kernel launches; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {"light_cells": 0}
+# Of those, the launches in the chunked form.
+GLOBAL_LAUNCHES = {"light_cells": 0}
+# The kernel stages 5 floats a sphere (and 32 bytes of its own) in a block's
+# 227 KB; past that, CHUNK spheres at a time (csrc/light_cells.cu).
+STAGED_WORDS = 5
+CHUNK = 2048
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["light_cells"] = 0
+    GLOBAL_LAUNCHES["light_cells"] = 0
+
+
+def chunk_spheres(ns: int) -> int:
+    """Spheres the kernel stages at a time: 0 (all of them, the staged form)
+    where their terms fit a block (``render_cuda.scene_form``'s rule), up to
+    11620 spheres; else :data:`CHUNK` (the chunked form, the same rows). On
+    the card the staged form is the faster one at 100 spheres and the slower
+    at 5000 (``chip_smoke.py`` phase 23 ``[size-form]``, PERF.md §6); where
+    the two cross is not measured."""
+    return CHUNK if render_cuda.scene_form(ns, 0, 0, False, 4 * STAGED_WORDS * ns + 32,
+                                           render_cuda.SMEM_BLOCK) else 0
 
 
 class LightCells(NamedTuple):
@@ -231,23 +250,29 @@ def check_cells(cells: LightCells, nl: int, dev) -> None:
     _check("header", cells.hdr, torch.float32, 2, dev)
 
 
-def launch(out: LightCells, sph, lts, ns: int, nl: int, lib=None) -> LightCells:
+def launch(out: LightCells, sph, lts, ns: int, nl: int, lib=None,
+           chunk: int | None = None) -> LightCells:
     """Launch the kernel on the current stream into ``out`` (checked here)
     from the render kernel's SoA tables ``sph (7, *)`` and ``lts (3, nl)`` on
     the current device. ``lib``: a library built with other ``-DRT_LC_R`` /
     ``-DRT_LC_K`` (chip_smoke.py's sweep; ``out`` then unchecked), default
-    the package's. Counts the launch in :data:`LAUNCHES`."""
+    the package's. ``chunk``: spheres staged at a time (default
+    :func:`chunk_spheres`; 0 all at once). Counts the launch in
+    :data:`LAUNCHES`."""
     from ._build import load_library
     if lib is None:
         lib = load_library()
         check_cells(out, nl, sph.device)
+    chunk = chunk_spheres(ns) if chunk is None else chunk
     rc = lib.rt_light_cells(sph.data_ptr(), ns, lts.data_ptr(), nl, out.idx.data_ptr(),
-                            out.cnt.data_ptr(), out.hdr.data_ptr(),
+                            out.cnt.data_ptr(), out.hdr.data_ptr(), chunk,
                             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"light-cell kernel failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES["light_cells"] += 1
+    if chunk:
+        GLOBAL_LAUNCHES["light_cells"] += 1
     return out
 
 

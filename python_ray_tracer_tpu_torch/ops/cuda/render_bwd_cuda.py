@@ -48,6 +48,8 @@ from . import render_cuda
 MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")   # C enum order
 # Kernel launches per mode; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {m: 0 for m in MODES}
+# Of those, the launches in the third form (rows in device memory).
+ROWS_LAUNCHES = {m: 0 for m in MODES}
 # Calls of the plain versions, so a run can show that it never took them.
 PLAIN_CALLS = {"scene_grads": 0, "loss_and_scene_grads": 0}
 
@@ -76,6 +78,7 @@ CAMERA_GRAD_GROUPS = ("camera.position", "camera.rotation", "camera.fov")
 def reset_launch_counts() -> None:
     for m in MODES:
         LAUNCHES[m] = 0
+        ROWS_LAUNCHES[m] = 0
     for k in PLAIN_CALLS:
         PLAIN_CALLS[k] = 0
 
@@ -274,30 +277,41 @@ class Plan(NamedTuple):
     slot in per-thread columns of shared memory; else the object and light
     slots in per-warp rows), ``blocks`` (the grid; block b walks tiles b, b +
     blocks, ...), ``tiles`` (the most tiles a block walks), the block's
-    shared memory in bytes and ``staged`` (the sphere table copied into
+    shared memory in bytes, ``staged`` (the sphere table copied into
     shared memory; else the global form reads it from device memory,
-    render_bwd_kernel.cuh's head)."""
+    render_bwd_kernel.cuh's head) and ``device_rows`` (the third form: the
+    global form with the warps' rows in a device-memory scratch buffer of
+    :func:`scratch_floats` floats)."""
     nt: int
     cols: bool
     blocks: int
     tiles: int
     smem: int
     staged: bool = True
+    device_rows: bool = False
 
 
 def smem_bytes(ns: int, npl: int, nl: int, fused: bool, aa: bool, nt: int,
-               cols: bool, staged: bool = True) -> int:
+               cols: bool, staged: bool = True, device_rows: bool = False) -> int:
     """Shared memory of one block (``bwd_smem_words`` in
     render_bwd_kernel.cuh): the scene (the sphere table only when
     ``staged``), a tile's pixel cotangents with AA, and the slot columns
-    (``cols``) or the warps' rows of the object and light slots beside the
-    18-19 tail slots' columns."""
+    (``cols``) or the warps' rows of the object and light slots (not with
+    ``device_rows``) beside the 18-19 tail slots' columns."""
     n = n_grads(ns, npl, nl, fused)
     mat = 7 * ns + 9 * npl + 3 * nl
     words = render_cuda.N_PARAMS + mat - (0 if staged else 7 * ns) + \
         (6 * TILE * TILE if aa else 0)
-    words += n * nt if cols else (nt // 32) * mat + (n - mat) * nt
+    words += n * nt if cols else (0 if device_rows else (nt // 32) * mat) + (n - mat) * nt
     return 4 * words
+
+
+def scratch_floats(ns: int, npl: int, nl: int, shape: Plan) -> int:
+    """Device memory of a launch's rows (floats): the third form's blocks x
+    warps x the object and light slots, else 0."""
+    if not shape.device_rows:
+        return 0
+    return shape.blocks * (shape.nt // 32) * (7 * ns + 9 * npl + 3 * nl)
 
 
 def n_tiles(W: int, H: int) -> int:
@@ -306,7 +320,7 @@ def n_tiles(W: int, H: int) -> int:
 
 def plan(ns: int, npl: int, nl: int, W: int, H: int, *, aa: bool, fused: bool,
          large: bool, n_sm: int = H100_SMS, blocks_per_sm: int = BLOCKS_PER_SM,
-         staged: bool | None = None) -> Plan:
+         staged: bool | None = None, device_rows: bool | None = None) -> Plan:
     """The backward launch for a scene and image. For a small scene (``large``
     False: the slot columns exist only in the small-scene kernels, which
     always stage the scene) the most threads a block (128, 64, 32) whose slot
@@ -319,23 +333,30 @@ def plan(ns: int, npl: int, nl: int, W: int, H: int, *, aa: bool, fused: bool,
     ``n_sm`` multiprocessors (fewer where their shared memory does not fit
     one), at most one a tile, the tiles dealt out evenly. ``W``: the launch's
     (a slice's) width. ``staged`` True or False: that form's plan alone (the
-    global form only for a large scene). Raises ``ValueError`` where no plan
-    fits."""
+    global form only for a large scene). A large scene that neither form fits
+    (past 8208 spheres at 1 plane and 3 lights, 7984 fused with AA) takes the
+    third form at 128 threads: the global form with the warps' rows in device
+    memory, the same bits as the others at the same launch shape
+    (``device_rows`` True: that form alone; False: never). Raises
+    ``ValueError`` where no plan fits."""
     forms = (True, False) if large else (True,)
     forms = forms if staged is None else tuple(f for f in forms if f == staged)
-    for cols in ((False,) if large else (True, False)):
-        for nt in (128, 64, 32):
-            for form in forms:
-                smem = smem_bytes(ns, npl, nl, fused, aa, nt, cols, form)
-                if smem > SMEM_LIMIT:
-                    continue
-                per_sm = max(1, min(blocks_per_sm, SM_SMEM // (smem + 1024)))
-                tiles = math.ceil(n_tiles(W, H) / min(n_tiles(W, H), n_sm * per_sm))
-                return Plan(nt, cols, math.ceil(n_tiles(W, H) / tiles), tiles, smem,
-                            form)
+    tries = [(cols, nt, form, False) for cols in ((False,) if large else (True, False))
+             for nt in (128, 64, 32) for form in forms]
+    if device_rows:
+        tries = []
+    if large and device_rows is not False and staged is not True:
+        tries.append((False, 128, False, True))
+    for cols, nt, form, rows in tries:
+        smem = smem_bytes(ns, npl, nl, fused, aa, nt, cols, form, rows)
+        if smem > SMEM_LIMIT:
+            continue
+        per_sm = max(1, min(blocks_per_sm, SM_SMEM // (smem + 1024)))
+        tiles = math.ceil(n_tiles(W, H) / min(n_tiles(W, H), n_sm * per_sm))
+        return Plan(nt, cols, math.ceil(n_tiles(W, H) / tiles), tiles, smem, form, rows)
     raise ValueError(f"scene (ns={ns}, npl={npl}, nl={nl}) needs "
-                     f"{smem_bytes(ns, npl, nl, fused, aa, 32, False, not large)} B of "
-                     f"shared memory in the backward kernel, a block has at most "
+                     f"{smem_bytes(ns, npl, nl, fused, aa, 32, False, not large, large)} B "
+                     f"of shared memory in the backward kernel, a block has at most "
                      f"{SMEM_LIMIT} B")
 
 
@@ -553,14 +574,17 @@ def _check(camera, scene, image, depth: int, name: str, lw: int):
 
 def launch(out, partial, params, tables, counts, *, image, target, W: int, H: int,
            depth: int, mode: str, compat: bool, cheap_shadow: bool,
-           shape: Plan, lib=None, W_global: int | None = None) -> torch.Tensor:
+           shape: Plan, lib=None, W_global: int | None = None,
+           scratch=None) -> torch.Tensor:
     """Launch the backward kernel and its reduction on the current stream, for
     inputs already packed and checked: ``out (n_grads,)``, ``partial
     (n_grads * shape.blocks,)``, ``params``, the ``scene_tables``, the object
     counts, ``image`` (the cotangent, or the rendered image in ``fused_aa``;
     None in ``fused_noaa``) and ``target`` (fused modes; else None), all
     float32, contiguous, on the current device, and the launch's
-    :class:`Plan` (its ``staged`` picks the form). ``W``: the slice's width
+    :class:`Plan` (its ``staged`` and ``device_rows`` pick the form; the
+    third form's rows go to ``scratch``, a float32 buffer of at least
+    :func:`scratch_floats`, allocated here where None). ``W``: the slice's width
     where ``W_global`` (the frame's, default ``W``) is wider, its offset the
     packed ``P_X0``. A scene of more than ``render_cuda.CULL_MIN_SPHERES``
     spheres runs the kernel compiled in the arithmetic of the render kernel's
@@ -571,13 +595,23 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
     lib = load_library() if lib is None else lib
     (sph, pln, lts), (ns, npl, nl) = tables, counts
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-    rc = lib.rt_render_bwd(
-        params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
-        None if image is None else image.data_ptr(),
-        None if target is None else target.data_ptr(), partial.data_ptr(), shape.blocks,
-        out.shape[0], W, H, W if W_global is None else W_global, depth, MODES.index(mode),
-        int(compat), int(cheap_shadow), int(ns > render_cuda.CULL_MIN_SPHERES), shape.nt,
-        int(shape.cols), int(shape.staged), stream)
+    args = (params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
+            None if image is None else image.data_ptr(),
+            None if target is None else target.data_ptr(), partial.data_ptr(),
+            shape.blocks, out.shape[0], W, H, W if W_global is None else W_global, depth,
+            MODES.index(mode), int(compat), int(cheap_shadow))
+    if shape.device_rows:
+        need = scratch_floats(ns, npl, nl, shape)
+        if scratch is None:
+            scratch = torch.empty(need, dtype=torch.float32, device=out.device)
+        if scratch.dtype != torch.float32 or scratch.device != out.device or \
+                scratch.numel() < need or not scratch.is_contiguous():
+            raise ValueError(f"backward scratch: expected {need} contiguous float32 on "
+                             f"{out.device}")
+        rc = lib.rt_render_bwd_rows(*args, shape.nt, scratch.data_ptr(), stream)
+    else:
+        rc = lib.rt_render_bwd(*args, int(ns > render_cuda.CULL_MIN_SPHERES), shape.nt,
+                               int(shape.cols), int(shape.staged), stream)
     if rc == 0:
         rc = lib.rt_reduce_rows(partial.data_ptr(), shape.blocks, out.shape[0],
                                 out.data_ptr(), stream)
@@ -585,20 +619,23 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
         raise RuntimeError(f"backward kernel ({mode}) failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES[mode] += 1
+    if shape.device_rows:
+        ROWS_LAUNCHES[mode] += 1
     return out
 
 
 def launch_plan(camera, scene, mode: str, local_width: int | None = None,
-                staged: bool | None = None) -> Plan:
+                staged: bool | None = None, device_rows: bool | None = None) -> Plan:
     """:func:`plan` for a launch of ``mode`` on this camera's image (or a
     slice ``local_width`` wide) and scene, on the current card's
-    multiprocessors (``staged``: as for :func:`plan`)."""
+    multiprocessors (``staged``, ``device_rows``: as for :func:`plan`)."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     W, H = camera.resolution
     W = W if local_width is None else local_width
     n_sm = torch.cuda.get_device_properties(camera.position.device).multi_processor_count
     return plan(ns, npl, nl, W, H, aa=mode.endswith("_aa"), fused=mode.startswith("fused"),
-                large=ns > render_cuda.CULL_MIN_SPHERES, n_sm=n_sm, staged=staged)
+                large=ns > render_cuda.CULL_MIN_SPHERES, n_sm=n_sm, staged=staged,
+                device_rows=device_rows)
 
 
 def _run(camera, scene, image, target, *, depth, compat, mode, x_offset=0, lw=None):

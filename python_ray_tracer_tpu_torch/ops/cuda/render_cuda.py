@@ -22,7 +22,9 @@ tree over the Morton order (the ``group_cull`` keyword;
 ``cull_tables.bounce_tree``). :func:`large_scene_tables` builds the tables
 (``cull_tables``, ``hit_extents_cuda``, ``shadow_lists_cuda``,
 ``light_cells_cuda``) for each frame. Every cull is exact:
-the image is bit-identical to the full sweep's.
+the image is bit-identical to the full sweep's. No scene is too large: past
+the size whose tables a block stages, a launch takes the kernels' global form
+(:func:`scene_form`; ``csrc/render_fwd_global.cu``), the same bits.
 
 :func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
 tensors on the CPU; for CUDA tensors it launches the kernels or raises. Camera,
@@ -68,11 +70,20 @@ N_PARAMS = P_OFFS + 2 * len(AA_OFFSETS)
 MODES = ("aa_none", "aa_per_sample", "aa_shared")   # C enum order
 # Kernel launches per mode; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {m: 0 for m in MODES}
+# Of those, the launches in the global form (scene_form 1).
+GLOBAL_LAUNCHES = {m: 0 for m in MODES}
 
-# Shared memory a block may stage (227 KB) beside the shared-AA sample grids:
-# the parameters, the scene's tables and, on the large-scene path, the bounce
-# tree, the tile's primary list and its per-light occluder lists.
-_SMEM_LIMIT = 227 * 1024 - 3 * 4 * 1089
+# Shared memory a block may use (227 KB), and what the render kernel may stage
+# beside the shared-AA sample grids: the parameters, the scene's tables and,
+# on the large-scene path, the bounce tree, the tile's primary list and its
+# per-light occluder lists.
+SMEM_BLOCK = 227 * 1024
+_SMEM_LIMIT = SMEM_BLOCK - 3 * 4 * 1089
+
+# The forms of a kernel that stages the scene (scene_form): the staged form and
+# the global form (the sphere table and the bounce tree read where they lie in
+# device memory).
+FORMS = ("staged", "global")
 
 # The large-scene path's automatic thresholds (the JAX package's): the cone
 # cull and the shadow lists for more spheres than CULL_MIN_SPHERES, the bounce
@@ -84,6 +95,7 @@ GROUP_MIN_SPHERES = 256
 def reset_launch_counts() -> None:
     for m in MODES:
         LAUNCHES[m] = 0
+        GLOBAL_LAUNCHES[m] = 0
 
 
 def slice_width(camera, x_offset: int = 0, local_width: int | None = None) -> int:
@@ -166,7 +178,24 @@ def _smem_bytes(ns: int, npl: int, nl: int, tree: bool = False) -> int:
     return 4 * words
 
 
-def _check_inputs(camera, scene, dev, tree: bool = False):
+def scene_form(ns: int, npl: int, nl: int, tree: bool = False,
+               staged_bytes: int | None = None, limit: int = _SMEM_LIMIT) -> int:
+    """The form (an index of :data:`FORMS`) of a kernel that stages the scene,
+    one rule for every such kernel: staged where its staged form's shared
+    memory (``staged_bytes``; default the render kernel's, :func:`_smem_bytes`
+    with ``tree``) fits ``limit`` (default the render kernel's room beside the
+    AA sample grids); else global. At 1 plane and 3 lights the render kernel
+    stages up to 7753 spheres (5600 with the tree). Every scene the staged
+    form takes keeps it, so those frames do not change."""
+    b = _smem_bytes(ns, npl, nl, tree) if staged_bytes is None else staged_bytes
+    return int(b > limit)
+
+
+def _check_inputs(camera, scene, dev):
+    """Raise on inputs the kernels do not take: a tensor off ``dev``, not
+    float32, or of another shape than the scene's counts give. No scene is too
+    large: past the size a block stages, the kernels take their global form
+    (:func:`scene_form`)."""
     tensors = {"camera.position": camera.position, "camera.rotation": camera.rotation,
                "camera.fov": camera.fov}
     for grp in ("spheres", "planes", "lights", "materials"):
@@ -191,10 +220,6 @@ def _check_inputs(camera, scene, dev, tree: bool = False):
     for name, (t, want) in shapes.items():
         if tuple(t.shape) != want:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {want}")
-    smem = _smem_bytes(ns, npl, nl, tree)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"scene needs {smem} B of shared memory, the kernel "
-                         f"stages at most {_SMEM_LIMIT} B")
 
 
 def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: bool,
@@ -281,18 +306,15 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
                             compat=compat, x_offset=x_offset, local_width=lw)
     mode = ("aa_shared" if aa_share else "aa_per_sample") if aliasing else "aa_none"
     return render_packed(camera, scene, packed_inputs(camera, scene, depth=depth,
-                                                      compat=compat, group_cull=group_cull,
-                                                      x_offset=x_offset),
+                                                      compat=compat, x_offset=x_offset),
                          depth=depth, mode=mode, compat=compat, cull=cull,
                          shadow_lists=shadow_lists, group_cull=group_cull,
                          x_offset=x_offset, local_width=lw)
 
 
-def packed_inputs(camera, scene, *, depth: int, compat: bool,
-                  group_cull: bool | None = None, x_offset: int = 0):
-    """Check CUDA inputs (device, dtype, shapes, depth, resolution, the shared
-    memory a block stages, the bounce tree counted where :func:`uses_tree`)
-    and pack them for the kernels: ``(params, tables, counts)``, the parameter
+def packed_inputs(camera, scene, *, depth: int, compat: bool, x_offset: int = 0):
+    """Check CUDA inputs (device, dtype, shapes, depth, resolution) and pack
+    them for the kernels: ``(params, tables, counts)``, the parameter
     vector (``x_offset`` in ``P_X0``) and :func:`scene_tables` on the camera's
     device and ``(ns, npl, nl)``."""
     dev = camera.position.device
@@ -300,7 +322,7 @@ def packed_inputs(camera, scene, *, depth: int, compat: bool,
         raise ValueError(f"the render kernels take CPU or CUDA tensors, got {dev}")
     if depth < 0:
         raise ValueError(f"depth must be >= 0, got {depth}")
-    _check_inputs(camera, scene, dev, uses_tree(scene.spheres.count, depth, group_cull))
+    _check_inputs(camera, scene, dev)
     W, H = camera.resolution
     if W < 1 or H < 1:
         raise ValueError(f"empty resolution {camera.resolution}")
@@ -337,7 +359,7 @@ def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
 
 def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
            cheap_shadow: bool, vis=None, shadow=None, tree=None,
-           cells=None, W_global: int | None = None) -> torch.Tensor:
+           cells=None, W_global: int | None = None, form: int | None = None) -> torch.Tensor:
     """Launch the kernel on the current stream for inputs already packed and
     checked by :func:`packed_inputs`: ``out (W, H, 3)``, ``params
     (N_PARAMS,)``, the :func:`scene_tables` and the object counts
@@ -348,8 +370,10 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
     of it (at the packed ``P_X0``; default ``out``'s width). A scene of more
     than :data:`CULL_MIN_SPHERES` spheres runs the kernel's large-scene
     instantiation whichever tables are on, so a render with every table off
-    differs from a culled one only in the sweeps. Counts the launch in
-    :data:`LAUNCHES`."""
+    differs from a culled one only in the sweeps, in the form
+    :func:`scene_form` gives it (``form``: another, for the tests and
+    ``chip_smoke.py``; the same bits in each). Counts the launch in
+    :data:`LAUNCHES` (and :data:`GLOBAL_LAUNCHES`)."""
     from ._build import load_library
     from .hit_extents_cuda import check_tables, table_args
     lib = load_library()
@@ -360,16 +384,25 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
     check_tables(vis, shadow, tree, n_tiles=n_tx * n_ty, ns=ns, nl=nl, dev=out.device,
                  cells=cells)
     v, sh, g, c = table_args(vis, shadow, tree, cells)
-    rc = lib.rt_render_fwd(
-        params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
-        lts.data_ptr(), nl, out.data_ptr(), W, H, Wg, depth,
-        MODES.index(mode), int(compat), int(cheap_shadow),
-        int(ns > CULL_MIN_SPHERES), *v, *sh, *g, *c,
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    large = ns > CULL_MIN_SPHERES
+    if form is None:
+        form = scene_form(ns, npl, nl, tree is not None) if large else 0
+    if form and not large:
+        raise ValueError(f"a scene of {ns} spheres has no global form")
+    args = (params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
+            out.data_ptr(), W, H, Wg, depth, MODES.index(mode), int(compat),
+            int(cheap_shadow))
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if form:
+        rc = lib.rt_render_fwd_global(*args, *v, *sh, *g, *c, stream)
+    else:
+        rc = lib.rt_render_fwd(*args, int(large), *v, *sh, *g, *c, stream)
     if rc != 0:
-        raise RuntimeError(f"render kernel ({mode}) failed: CUDA error {rc} "
+        raise RuntimeError(f"render kernel ({mode}, {FORMS[form]}) failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES[mode] += 1
+    if form:
+        GLOBAL_LAUNCHES[mode] += 1
     return out
 
 

@@ -25,14 +25,30 @@ import ctypes
 import torch
 
 from . import cull_tables as ct
+from . import render_cuda
 from .hit_extents_cuda import check_scale
 
 # Kernel launches; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {"shadow_lists": 0}
+# Of those, the launches in the chunked form.
+GLOBAL_LAUNCHES = {"shadow_lists": 0}
+# The kernel stages 6 words a sphere in a block's 227 KB; past that, CHUNK
+# positions of a light's order at a time (csrc/shadow_lists.cu).
+STAGED_WORDS = 6
+CHUNK = 2048
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["shadow_lists"] = 0
+    GLOBAL_LAUNCHES["shadow_lists"] = 0
+
+
+def chunk_spheres(ns: int) -> int:
+    """Spheres the kernel stages at a time: 0 (all of them, the staged form)
+    where they fit a block (``render_cuda.scene_form``'s rule), up to 9685
+    spheres; else :data:`CHUNK` (the chunked form, the same rows)."""
+    return CHUNK if render_cuda.scene_form(ns, 0, 0, False, 4 * STAGED_WORDS * ns,
+                                           render_cuda.SMEM_BLOCK) else 0
 
 
 def _check(name, t, dtype, shape, dev):
@@ -44,14 +60,15 @@ def _check(name, t, dtype, shape, dev):
 
 
 def launch(idx, cnt, ext, scale, lights, centers, radii, order, *, k: int,
-           compat: bool):
+           compat: bool, chunk: int | None = None):
     """Launch the kernel on the current stream into ``idx (T * nl * k,)`` and
     ``cnt (T * nl,)`` int32 from the level-0 hit-extent rows ``ext (T, 8)``
     and their ``scale (1,)``, the scene's ``lights (nl, 3)``, ``centers (ns,
     3)`` and ``radii (ns,)`` (float32) and each light's sphere order ``order
     (nl, ns)`` int32 (``cull_tables.light_order``), all on one CUDA device
-    and checked here; ``k = min(K, ns)`` slots a row. Counts the launch in
-    :data:`LAUNCHES`. Returns ``(idx, cnt)``."""
+    and checked here; ``k = min(K, ns)`` slots a row. ``chunk``: spheres
+    staged at a time (default :func:`chunk_spheres`; 0 all at once). Counts
+    the launch in :data:`LAUNCHES`. Returns ``(idx, cnt)``."""
     from ._build import load_library
     dev = ext.device
     T, nl, ns = ext.shape[0], lights.shape[0], centers.shape[0]
@@ -66,14 +83,17 @@ def launch(idx, cnt, ext, scale, lights, centers, radii, order, *, k: int,
     _check("indices", idx, torch.int32, (T * nl * k,), dev)
     _check("counts", cnt, torch.int32, (T * nl,), dev)
     lib = load_library()
+    chunk = chunk_spheres(ns) if chunk is None else chunk
     rc = lib.rt_shadow_lists(
         ext.data_ptr(), scale.data_ptr(), lights.data_ptr(), nl, centers.data_ptr(),
         radii.data_ptr(), ns, order.data_ptr(), T, k, int(compat), idx.data_ptr(),
-        cnt.data_ptr(), ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        cnt.data_ptr(), chunk, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"shadow-list kernel failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES["shadow_lists"] += 1
+    if chunk:
+        GLOBAL_LAUNCHES["shadow_lists"] += 1
     return idx, cnt
 
 

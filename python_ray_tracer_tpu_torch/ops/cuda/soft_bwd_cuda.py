@@ -34,22 +34,26 @@ import torch
 
 from ..soft import render_image_soft
 from . import render_cuda, soft_cuda
-from .render_bwd_cuda import (_autograd_flat, grad_groups, n_grads, slice_mse,
-                              unflatten_grads)
+from .render_bwd_cuda import (BLOCKS_PER_SM, H100_SMS, SM_SMEM, _autograd_flat,
+                              grad_groups, n_grads, slice_mse, unflatten_grads)
 
 MODES = ("cot", "fused")
 # Kernel launches per mode and plain-version calls; plain counters, reset with
 # reset_launch_counts().
 LAUNCHES = {m: 0 for m in MODES}
+# Of those, the launches in the third form (rows in device memory).
+ROWS_LAUNCHES = {m: 0 for m in MODES}
 PLAIN_CALLS = {"soft_scene_grads": 0, "soft_loss_and_grads": 0}
 
 BLOCK_Y = 16                 # threads a block along the image's y axis
+MAX_OBJECTS = 1 << 21        # spheres and planes a launch indexes (soft_bwd.cu GI_BITS)
 SMEM_LIMIT = 227 * 1024     # shared memory a block can have on Hopper
 
 
 def reset_launch_counts() -> None:
     for m in MODES:
         LAUNCHES[m] = 0
+        ROWS_LAUNCHES[m] = 0
     for k in PLAIN_CALLS:
         PLAIN_CALLS[k] = 0
 
@@ -141,29 +145,47 @@ class Plan(NamedTuple):
     transmission a light), the block's shared memory in bytes and ``staged``
     (the sphere table and three values a sphere in shared memory; else the
     global form reads the table from device memory and computes the values
-    where it needs them, soft_bwd.cu)."""
+    where it needs them, soft_bwd.cu) and ``device_rows`` (the third form:
+    the global form with the warps' rows in a device-memory scratch buffer
+    of :func:`scratch_floats` floats)."""
     nt: int
     cap: int
     cj: int
     store_vis: bool
     smem: int
     staged: bool = True
+    device_rows: bool = False
 
 
 N_TFIXED = 6                 # table fields besides the transmissions (soft_bwd.cu)
 
 
 def smem_bytes(ns: int, npl: int, nl: int, fused: bool, nt: int, cap: int, cj: int,
-               store_vis: bool, staged: bool = True) -> int:
+               store_vis: bool, staged: bool = True, device_rows: bool = False) -> int:
     """Shared memory of one block (``rt_soft_bwd_smem``): the scene (with the
     sphere table and three floats a sphere, 10 words, only when ``staged``), a
-    row of gradient slots a warp, and each thread's table and slab."""
+    row of gradient slots a warp (not with ``device_rows``), and each thread's
+    table and slab."""
     nf = N_TFIXED + (nl if store_vis else 0)
+    rows = 0 if device_rows else (nt // 32) * n_grads(ns, npl, nl, fused)
     return 4 * (render_cuda.N_PARAMS + (10 * ns if staged else 0) + 9 * npl + 3 * nl
-                + (nt // 32) * n_grads(ns, npl, nl, fused) + nt * (nf * cap + 7 * cj))
+                + rows + nt * (nf * cap + 7 * cj))
 
 
-def plan(ns: int, npl: int, nl: int, fused: bool = True, staged: bool | None = None) -> Plan:
+def scratch_floats(ns: int, npl: int, nl: int, fused: bool, W: int, H: int,
+                   shape: Plan) -> int:
+    """Device memory of a launch's rows (floats): the third form's blocks x
+    warps x n_grads, else 0. The third form's grid is the card's size
+    (:func:`n_blocks`), so this is bounded by the scene, not the frame: at
+    128 threads, 132 x 4 rows, about 14.8 KB a sphere (242 MB at 16384
+    spheres, 969 MB at 65536)."""
+    if not shape.device_rows:
+        return 0
+    return n_blocks(W, H, shape) * (shape.nt // 32) * n_grads(ns, npl, nl, fused)
+
+
+def plan(ns: int, npl: int, nl: int, fused: bool = True, staged: bool | None = None,
+         device_rows: bool | None = None) -> Plan:
     """The block shape and chunk sizes for a scene: the first plan that fits
     a block's shared memory, the staged form first and then the global one
     (past 3388 spheres at 1 plane and 3 lights), within a form taking the most
@@ -177,17 +199,27 @@ def plan(ns: int, npl: int, nl: int, fused: bool = True, staged: bool | None = N
     the best. The global form is slower than the staged one on every scene
     both take (phase 22's ``[repair-form]``), with the same plan or its own,
     hence staged first; ``staged`` True or False: that form's plan alone.
-    Raises ``ValueError`` only where (32, 1, 1) of the global form without
-    stored transmissions does not fit (past 8228 spheres at 1 plane and 3
-    lights)."""
-    for form in ((True, False) if staged is None else (staged,)):
+    Where neither form fits (past 8228 spheres at 1 plane and 3 lights) the
+    third form, the global form with the warps' rows in device memory and a
+    grid of the card's size (:func:`n_blocks`), by the same rule (``device_rows`` True: that form alone; False: never).
+    Raises ``ValueError`` where no form fits, or for :data:`MAX_OBJECTS`
+    objects and more."""
+    if ns + npl >= MAX_OBJECTS:
+        raise ValueError(f"the soft backward kernel indexes fewer than {MAX_OBJECTS} "
+                         f"objects, got {ns + npl}")
+    forms = [(f, False) for f in ((True, False) if staged is None else (staged,))]
+    if device_rows:
+        forms = []
+    if device_rows is not False and staged is not True:
+        forms.append((False, True))
+    for form, rows in forms:
         for nt in (128, 64, 32):
             for sv in (True, False):
                 cap, cj = max(1, min(ns + npl, 32)), max(1, min(ns, 16))
                 while True:
-                    smem = smem_bytes(ns, npl, nl, fused, nt, cap, cj, sv, form)
+                    smem = smem_bytes(ns, npl, nl, fused, nt, cap, cj, sv, form, rows)
                     if smem <= SMEM_LIMIT:
-                        return Plan(nt, cap, cj, sv, smem, form)
+                        return Plan(nt, cap, cj, sv, smem, form, rows)
                     if cap == cj == 1:
                         break
                     if cap >= cj:
@@ -195,14 +227,22 @@ def plan(ns: int, npl: int, nl: int, fused: bool = True, staged: bool | None = N
                     else:
                         cj //= 2
     raise ValueError(f"scene (ns={ns}, npl={npl}, nl={nl}) needs "
-                     f"{smem_bytes(ns, npl, nl, fused, 32, 1, 1, False, False)} B of "
-                     f"shared memory in the soft backward kernel, a block has at most "
+                     f"{smem_bytes(ns, npl, nl, fused, 32, 1, 1, False, False, True)} B "
+                     f"of shared memory in the soft backward kernel, a block has at most "
                      f"{SMEM_LIMIT} B")
 
 
-def n_blocks(W: int, H: int, p: Plan) -> int:
-    """Thread blocks of one soft backward launch (rows of its partial sums)."""
-    return math.ceil(H / BLOCK_Y) * math.ceil(W / (p.nt // BLOCK_Y))
+def n_blocks(W: int, H: int, p: Plan, n_sm: int = H100_SMS) -> int:
+    """Thread blocks of one soft backward launch (rows of its partial sums):
+    one a pixel group of 16 x ``nt / 16`` pixels; in the third form a grid of
+    the card's size, as the hard backward's (``render_bwd_cuda.plan``): as
+    many blocks as ``n_sm`` multiprocessors hold, up to ``BLOCKS_PER_SM``
+    each, at most one a group, each walking groups b, b + blocks, ..."""
+    groups = math.ceil(H / BLOCK_Y) * math.ceil(W / (p.nt // BLOCK_Y))
+    if not p.device_rows:
+        return groups
+    per_sm = max(1, min(BLOCKS_PER_SM, SM_SMEM // (p.smem + 1024)))
+    return min(groups, n_sm * per_sm)
 
 
 def _check(camera, scene, image, tau, name: str, fused: bool, lw: int) -> Plan:
@@ -217,26 +257,38 @@ def _check(camera, scene, image, tau, name: str, fused: bool, lw: int) -> Plan:
 
 
 def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: float,
-           mode: str, shape: Plan, W_global: int | None = None) -> torch.Tensor:
+           mode: str, shape: Plan, W_global: int | None = None,
+           scratch=None) -> torch.Tensor:
     """Launch the soft backward kernel and its reduction on the current stream
     for inputs already packed and checked: ``out (n_grads,)``, ``partial
     (n_grads * n_blocks,)``, ``params`` (clean-mode grid), the
     ``scene_tables``, the object counts, ``image`` (the cotangent, or in
     ``fused`` the target), all float32, contiguous, on the current device, and
-    the launch's :class:`Plan`. ``W``: the slice's width where ``W_global``
-    (the frame's, default ``W``) is wider, its offset the packed ``P_X0``.
-    Counts the launch in :data:`LAUNCHES`."""
+    the launch's :class:`Plan` (the third form's rows go to ``scratch``, a
+    float32 buffer of at least :func:`scratch_floats`, allocated here where
+    None). ``W``: the slice's width where ``W_global`` (the frame's, default
+    ``W``) is wider, its offset the packed ``P_X0``. Counts the launch in
+    :data:`LAUNCHES`."""
     from ._build import load_library
     lib = load_library()
     (sph, pln, lts), (ns, npl, nl) = tables, counts
     rows = n_blocks(W, H, shape)
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if shape.device_rows:
+        need = scratch_floats(ns, npl, nl, mode == "fused", W, H, shape)
+        if scratch is None:
+            scratch = torch.empty(need, dtype=torch.float32, device=out.device)
+        if scratch.dtype != torch.float32 or scratch.device != out.device or \
+                scratch.numel() < need or not scratch.is_contiguous():
+            raise ValueError(f"soft backward scratch: expected {need} contiguous float32 "
+                             f"on {out.device}")
     rc = lib.rt_soft_bwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
                          lts.data_ptr(), nl, float(tau), image.data_ptr(),
                          partial.data_ptr(), rows, out.shape[0], W, H,
                          W if W_global is None else W_global, int(mode == "fused"),
                          shape.nt, shape.cap, shape.cj, int(shape.store_vis),
-                         int(shape.staged), stream)
+                         int(shape.staged),
+                         scratch.data_ptr() if shape.device_rows else None, stream)
     if rc == 0:
         rc = lib.rt_reduce_rows(partial.data_ptr(), rows, out.shape[0], out.data_ptr(),
                                 stream)
@@ -244,6 +296,8 @@ def launch(out, partial, params, tables, counts, *, image, W: int, H: int, tau: 
         raise RuntimeError(f"soft backward kernel ({mode}) failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES[mode] += 1
+    if shape.device_rows:
+        ROWS_LAUNCHES[mode] += 1
     return out
 
 

@@ -26,11 +26,15 @@ from . import render_cuda
 # Kernel launches and plain-version calls; plain counters, reset with
 # reset_launch_counts().
 LAUNCHES = {"soft_fwd": 0}
+# Of those, the launches in the global form.
+GLOBAL_LAUNCHES = {"soft_fwd": 0}
 PLAIN_CALLS = {"render_image_soft": 0}
+NT = 128                       # threads a block (csrc/soft_fwd.cu)
 
 
 def reset_launch_counts() -> None:
     LAUNCHES["soft_fwd"] = 0
+    GLOBAL_LAUNCHES["soft_fwd"] = 0
     PLAIN_CALLS["render_image_soft"] = 0
 
 
@@ -46,8 +50,8 @@ def render_image_soft_plain(camera, scene, *, tau: float = 0.05,
 
 
 def check_inputs(camera, scene, tau: float):
-    """The render wrapper's input checks (device, dtype, shapes, shared memory)
-    plus ``tau > 0``; returns the device."""
+    """The render wrapper's input checks (device, dtype, shapes) plus ``tau >
+    0``; returns the device."""
     dev = camera.position.device
     if dev.type != "cuda":
         raise ValueError(f"the soft kernels take CPU or CUDA tensors, got {dev}")
@@ -75,23 +79,42 @@ def render_image_soft_cuda(camera, scene, *, tau: float = 0.05) -> torch.Tensor:
         return launch(out, params, render_cuda.scene_tables(scene), counts, tau=tau)
 
 
-def launch(out, params, tables, counts, *, tau: float) -> torch.Tensor:
+def staged_bytes(ns: int, npl: int, nl: int) -> int:
+    """Shared memory of a block of the staged form at its smallest table
+    (csrc/soft_fwd.cu: the scene and 4 floats a thread)."""
+    return 4 * (render_cuda.N_PARAMS + 7 * ns + 9 * npl + 3 * nl + NT * 4)
+
+
+def form(ns: int, npl: int, nl: int) -> int:
+    """The kernel's form (``render_cuda.scene_form``): staged wherever the
+    staged form fits a block (up to 8220 spheres at 1 plane and 3 lights),
+    else global."""
+    return render_cuda.scene_form(ns, npl, nl, False, staged_bytes(ns, npl, nl),
+                                  render_cuda.SMEM_BLOCK)
+
+
+def launch(out, params, tables, counts, *, tau: float,
+           staged: bool | None = None) -> torch.Tensor:
     """Launch the soft forward kernel on the current stream for inputs already
     packed and checked by :func:`render_image_soft_cuda`: ``out (W, H, 3)``,
     ``params`` (packed with the clean-mode grid), the ``scene_tables`` and the
     object counts ``(ns, npl, nl)``, all float32 and contiguous on the current
-    device. Counts the launch in :data:`LAUNCHES`."""
+    device, in the form :func:`form` gives (``staged``: that form).
+    Counts the launch in :data:`LAUNCHES` (and :data:`GLOBAL_LAUNCHES`)."""
     from ._build import load_library
     lib = load_library()
     W, H = out.shape[0], out.shape[1]
     (sph, pln, lts), (ns, npl, nl) = tables, counts
+    staged = form(ns, npl, nl) == 0 if staged is None else staged
     rc = lib.rt_soft_fwd(params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl,
-                         lts.data_ptr(), nl, float(tau), out.data_ptr(), W, H,
+                         lts.data_ptr(), nl, float(tau), out.data_ptr(), W, H, int(staged),
                          ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if rc != 0:
         raise RuntimeError(f"soft forward kernel failed: CUDA error {rc} "
                            f"({lib.rt_error_string(rc).decode()})")
     LAUNCHES["soft_fwd"] += 1
+    if not staged:
+        GLOBAL_LAUNCHES["soft_fwd"] += 1
     return out
 
 

@@ -208,7 +208,11 @@ def make_train_step(scene: Scene, value_and_grad: Callable, *, lr: float,
     """``step() -> loss``: one Adam step on ``scene``'s trainable leaves, in
     place, with the gradients of ``value_and_grad(scene) -> (loss,
     scene_grads)`` (:func:`cuda_value_and_grad` or
-    :func:`autograd_value_and_grad`)."""
+    :func:`autograd_value_and_grad`). The step's state is exposed for
+    checkpoints (``utils.checkpoint``, ``utils.faults.resilient_fit``):
+    ``step.scene`` (the scene it updates), ``step.optimizer`` (the
+    ``torch.optim.Adam``) and ``step.trainable`` (the leaf paths it
+    updates, in the optimizer's parameter order)."""
     paths = trainable_paths(trainable)
     index = [LEAF_PATHS.index(p) for p in paths]
     params = [scene.leaves()[i] for i in index]
@@ -221,6 +225,7 @@ def make_train_step(scene: Scene, value_and_grad: Callable, *, lr: float,
             p.grad = g[i].detach().to(p.dtype).reshape(p.shape)
         opt.step()
         return loss
+    step.scene, step.optimizer, step.trainable = scene, opt, tuple(paths)
     return step
 
 

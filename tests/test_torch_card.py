@@ -1516,3 +1516,222 @@ def test_backward_global_form_equals_staged(cuda_device, ns):
                 cnt, image=target if fused else g, W=40, H=36, tau=0.05, mode=mode, shape=q))
         res = sb.soft_grad_rule(out[1], out[0], *cnt)
         assert all(ok for _, ok in res.values()), (mode, res)
+
+
+def _pose(res, device):
+    return trt.Camera.build(res, [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0], device=device)
+
+
+@pytest.mark.parametrize("ns", [1000, 5000])
+def test_forward_global_forms_equal_staged(cuda_device, ns):
+    """Past the staged size each forward kernel reads the scene where it
+    lies (render_cuda.scene_form) or stages it in chunks: on scenes every
+    form takes, each form against the staged one. The pinned sources (the
+    render and worklist kernels in every form, the hit extents with bounce
+    levels, the light cells and the lists) give the same bits; the soft
+    forward, a contracted source, stays within the soft image rule's 2e-4."""
+    from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
+    from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_cuda
+    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(3), device=cuda_device)
+    W, H = 48, 40
+    cam = _pose((W, H), cuda_device)
+    cnt = _counts(scene)
+    packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=True)
+    cheap = render_cuda.shadow_cheap_ok(scene, True)
+    for mode in MODES:
+        vis, shadow, tree, cells = render_cuda.large_scene_tables(
+            cam, scene, depth=2, aliasing=mode != "aa_none", compat=True, packed=packed)
+        assert tree is not None
+        outs = [render_cuda.launch(torch.empty((W, H, 3), device=cuda_device), *packed, depth=2,
+                                   mode=mode, compat=True, cheap_shadow=cheap, vis=vis,
+                                   shadow=shadow, tree=tree, cells=cells, form=f)
+                for f in (0, 1)]
+        assert torch.equal(outs[0], outs[1]), mode
+    idx = torch.arange(W * H, dtype=torch.int32, device=cuda_device)
+    flagged = torch.tensor([W * H], dtype=torch.int32, device=cuda_device)
+    lists = [ac.launch_list(torch.zeros((W, H, 3), device=cuda_device), *packed, idx, flagged,
+                            depth=2, compat=True, cheap_shadow=cheap, vis=vis, shadow=shadow,
+                            tree=tree, cells=cells, form=f) for f in (0, 1)]
+    assert torch.equal(lists[0], lists[1])
+    n_tiles = -(-W // 16) * -(-H // 16)
+    ext = [hx.launch(torch.empty((n_tiles * 3, 8), device=cuda_device), *packed, W=W, H=H,
+                     aliasing=True, compat=True, n_levels=3, vis=vis, tree=tree, form=f)
+           for f in (0, 1)]
+    assert torch.equal(ext[0], ext[1])
+    sph, _, lts = packed[1]
+    a, b = (lc.launch(lc.empty(cnt[2], cuda_device), sph, lts, ns, cnt[2], chunk=c)
+            for c in (0, 256))
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    scale = torch.empty(1, device=cuda_device)
+    e = hx.hit_extents_cuda(cam, scene, aliasing=True, vis=vis, scale=scale)
+    order = ct.light_order(scene.lights.position, scene.spheres.center,
+                           scene.spheres.radius).to(torch.int32)
+    k = ct.list_capacity(ns)
+    rows = [sl.launch(torch.empty(n_tiles * cnt[2] * k, dtype=torch.int32, device=cuda_device),
+                      torch.empty(n_tiles * cnt[2], dtype=torch.int32, device=cuda_device), e,
+                      scale, scene.lights.position.contiguous(),
+                      scene.spheres.center.contiguous(), scene.spheres.radius.contiguous(),
+                      order, k=k, compat=True, chunk=c) for c in (0, 256)]
+    assert all(torch.equal(u, v) for u, v in zip(*rows))
+    sp = render_cuda.pack_params(cam, scene, False).to(cuda_device)
+    soft = [soft_cuda.launch(torch.empty((W, H, 3), device=cuda_device), sp, packed[1], cnt,
+                             tau=0.05, staged=st) for st in (True, False)]
+    assert float((soft[0] - soft[1]).abs().max()) <= soft_cuda.IMAGE_ATOL
+
+
+@pytest.mark.parametrize("ns", [1000, 5000])
+def test_backward_device_rows_equal_the_other_forms(cuda_device, ns):
+    """The backward kernels' third form (each warp's row in device memory)
+    against the staged and global forms at the same launch shape: the hard
+    kernel's bits in every mode; the soft kernel's under soft_grad_rule
+    against its global form (another instantiation of a contracted source)
+    on a frame of more pixel groups than its card-sized grid has blocks."""
+    from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(3), device=cuda_device)
+    W, H = 40, 36
+    cam = _pose((W, H), cuda_device)
+    cnt = _counts(scene)
+    tables = render_cuda.scene_tables(scene)
+    g = torch.rand((W, H, 3), generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    target = trt.render_image_cuda(cam, scene, aliasing=False) * 0.9
+    img_aa = trt.render_image_cuda(cam, scene, aliasing=True)
+    params = render_cuda.pack_params(cam, scene, True).to(cuda_device)
+    for mode in rb.MODES:
+        fused, aa = mode.startswith("fused"), mode.endswith("_aa")
+        for staged in (True, False):
+            try:
+                p = rb.launch_plan(cam, scene, mode, staged=staged, device_rows=False)
+            except ValueError:
+                continue   # the staged form does not fit this scene
+            twin = p._replace(staged=False, device_rows=True, smem=rb.smem_bytes(
+                *cnt, fused, aa, p.nt, False, False, True))
+            out = []
+            for q in (p, twin):
+                n = rb.n_grads(*cnt, fused)
+                out.append(rb.launch(
+                    torch.empty(n, device=cuda_device),
+                    torch.empty(n * q.blocks, device=cuda_device), params, tables, cnt,
+                    image=img_aa if mode == "fused_aa" else (None if fused else g),
+                    target=target if fused else None, W=W, H=H, depth=2, mode=mode,
+                    compat=True, cheap_shadow=render_cuda.shadow_cheap_ok(scene, True),
+                    shape=q))
+            assert torch.equal(out[0], out[1]), (mode, staged)
+    if ns > 1000:
+        return   # the soft kernels' time grows with the scene's density
+    W, H = 320, 128
+    cam = _pose((W, H), cuda_device)
+    g = torch.rand((W, H, 3), generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    target = trt.render_image_cuda(cam, scene, aliasing=False) * 0.9
+    sparams = render_cuda.pack_params(cam, scene, False).to(cuda_device)
+    for mode in sb.MODES:
+        fused = mode == "fused"
+        p = sb.plan(*cnt, fused, staged=False, device_rows=False)
+        twin = p._replace(device_rows=True, smem=sb.smem_bytes(
+            *cnt, fused, p.nt, p.cap, p.cj, p.store_vis, False, True))
+        assert sb.n_blocks(W, H, twin) < sb.n_blocks(W, H, p)   # blocks walk groups
+        out = []
+        for q in (p, twin):
+            n = rb.n_grads(*cnt, fused)
+            out.append(sb.launch(
+                torch.empty(n, device=cuda_device),
+                torch.empty(n * sb.n_blocks(W, H, q), device=cuda_device), sparams, tables,
+                cnt, image=target if fused else g, W=W, H=H, tau=0.05, mode=mode, shape=q))
+        res = sb.soft_grad_rule(out[1], out[0], *cnt)
+        assert all(ok for _, ok in res.values()), (mode, res)
+
+
+def test_16384_spheres_against_the_plain_version(cuda_device):
+    """16384 spheres (past every staged form) at 48x48, depth 1, seen from
+    outside the cloud: the render in every mode and the worklist kernel
+    against the plain version (column slices) and culls off, the light cells
+    and the lists against their plain functions, and the hard backward (its
+    third form) against the plain version, held out as
+    test_backward_at_the_render_limit holds them."""
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
+    from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
+    ns, W = 16384, 48
+    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(3), device=cuda_device)
+    cam = _pose((W, W), cuda_device)
+    kw = dict(depth=1)
+    for mode in MODES:
+        aa = mode != "aa_none"
+        k = trt.render_image_cuda(cam, scene, aliasing=aa, aa_share=mode == "aa_shared", **kw)
+        off = trt.render_image_cuda(cam, scene, aliasing=aa, aa_share=mode == "aa_shared",
+                                    cull=False, shadow_lists=False, group_cull=False, **kw)
+        with torch.no_grad():
+            p = torch.cat([trt.render_image(cam, scene, x_offset=x0, local_width=8, aliasing=aa,
+                                            **kw) for x0 in range(0, W, 8)])
+        assert torch.equal(k, off) and _flipped(k, p) <= 1e-3 * W * W, mode
+        if mode == "aa_per_sample":
+            assert torch.equal(trt.render_image_adaptive_cuda(cam, scene, eps=-1.0,
+                                                              budget_frac=1.0, **kw), k)
+    sph, _, lts = render_cuda.scene_tables(scene)
+    cells = lc.light_cells_cuda(sph, lts, ns, 3)
+    plain = lc.light_cells_plain(scene.spheres.center, scene.spheres.radius,
+                                 scene.lights.position)
+    assert all(torch.equal(a, b) for a, b in zip(cells, plain))
+    vis = (*ct.tile_visibility(cam, scene, compat=True, K=ct.list_capacity(ns)),
+           ct.list_capacity(ns))
+    scale = torch.empty(1, device=cuda_device)
+    ext = hx.hit_extents_cuda(cam, scene, aliasing=True, vis=vis, scale=scale)
+    args = (ext, scale, scene.lights.position, scene.spheres.center, scene.spheres.radius)
+    rows = sl.shadow_lists_cuda(*args, K=ct.list_capacity(ns), compat=True)
+    plain = ct.shadow_visibility_lists(*args[:1], *args[2:], K=ct.list_capacity(ns),
+                                       compat=True, scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(rows, plain))
+    assert rb.launch_plan(cam, scene, "cot_noaa").device_rows
+    img_k = trt.render_image_cuda(cam, scene, aliasing=False, **kw)
+    with torch.no_grad():
+        img_p = torch.cat([trt.render_image(cam, scene, x_offset=x0, local_width=8,
+                                            aliasing=False, **kw) for x0 in range(0, W, 8)])
+    held = (rb.held_out(img_k, img_p) | ((img_k - img_p).abs().amax(-1) > 2e-6))[..., None]
+    g = torch.rand((W, W, 3), generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    g = (g * 1e-2 * ~held).contiguous()
+    k = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, g, return_camera=True,
+                                              aliasing=False, **kw))
+    p = sum(rb.scene_grads_plain(cam, scene, g[x0:x0 + 4], x_offset=x0, local_width=4,
+                                 aliasing=False, **kw) for x0 in range(0, W, 4))
+    res = rb.grad_rule(k, p, *_counts(scene))
+    assert all(ok for _, ok in res.values()), res
+
+
+def test_resilient_fit_equals_an_uninterrupted_run(cuda_device, tmp_path):
+    """resilient_fit over the fused no-AA step (kernel 4) on the fit CLI's
+    2-sphere scene at 96x96: a NaN at step 4 and an exception at step 7,
+    restored from the checkpoints at steps 4 and 6; the backward is
+    bit-deterministic, so the losses are the uninterrupted run's, bit for
+    bit."""
+    from python_ray_tracer_tpu_torch.utils import faults
+    cfg = RenderConfig(width=96, height=96)
+    scene = cli.fit_scene_two_spheres(cfg, cuda_device)
+    cam = trt.Camera.build((96, 96), cfg.camera_position, cfg.camera_euler, cfg.fov,
+                           device=cuda_device)
+    target = trt.render_image_cuda(cam, scene, depth=2, aliasing=False)
+
+    def make_step():
+        init = trt.Scene.from_leaves([t.clone() for t in scene.leaves()])
+        init.spheres.center += torch.tensor(cli.FIT_SHIFT, device=cuda_device)
+        return train.make_train_step(init, train.cuda_value_and_grad(cam, target, depth=2),
+                                     lr=1e-2, trainable=("spheres",))
+
+    step = make_step()
+    ref = [float(step()) for _ in range(10)]
+
+    class Both:
+        nan = faults.FaultInjector([4], mode="nan")
+        exc = faults.FaultInjector([7], mode="exception")
+
+        def maybe_fail(self, i, loss):
+            return self.exc.maybe_fail(i, self.nan.maybe_fail(i, loss))
+
+    _, _, losses, events = faults.resilient_fit(make_step(), steps=10, ckpt_dir=str(tmp_path),
+                                                ckpt_every=2, injector=Both())
+    assert [(e.step, e.restored_step) for e in events] == [(4, 4), (7, 6)]
+    assert losses == ref
+    assert faults.device_healthcheck() == {"cuda:0": True}

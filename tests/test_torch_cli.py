@@ -146,7 +146,10 @@ def test_port_never_imports_jax():
             "python_ray_tracer_tpu_torch.ops.cuda.light_cells_cuda, "
             "python_ray_tracer_tpu_torch.ops.cuda.shadow_lists_cuda, "
             "python_ray_tracer_tpu_torch.ops.cuda.hit_extents_cuda, "
-            "python_ray_tracer_tpu_torch.ops.cuda.cull_tables; "
+            "python_ray_tracer_tpu_torch.ops.cuda.cull_tables, "
+            "python_ray_tracer_tpu_torch.utils.checkpoint, "
+            "python_ray_tracer_tpu_torch.utils.faults, "
+            "python_ray_tracer_tpu_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'python_ray_tracer_tpu.')) or m == 'python_ray_tracer_tpu'); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -353,8 +353,9 @@ def test_smem_check_counts_the_tree_only_where_it_is_built(npl, nl):
     """The render wrapper charges the bounce tree's shared memory only where
     large_scene_tables builds it (render_cuda.uses_tree): at depth 0 or with
     group_cull off, the largest scene the groups' charge took, and one less,
-    still pass; with the tree, the largest scene is pinned (5600 spheres
-    with 1 plane and 3 lights, where the groups' charge took 6576)."""
+    keep the staged form; with the tree, the largest staged scene is pinned
+    (5600 spheres with 1 plane and 3 lights, where the groups' charge took
+    6576), and past it the scene takes the global form instead of a refusal."""
     limit = render_cuda._SMEM_LIMIT
     ns_old = max(n for n in range(9000) if _groups_smem_bytes(n, npl, nl) <= limit)
     for ns in (ns_old - 1, ns_old):
@@ -371,10 +372,10 @@ def test_smem_check_counts_the_tree_only_where_it_is_built(npl, nl):
         cam = trt.Camera.build((16, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
         scene = trt.random_scene(ns_old, generator=torch.Generator().manual_seed(0))
         dev = torch.device("cpu")
-        render_cuda._check_inputs(cam, scene, dev, render_cuda.uses_tree(ns_old, 0))
-        render_cuda._check_inputs(cam, scene, dev, render_cuda.uses_tree(ns_old, 2, False))
-        with pytest.raises(ValueError, match="shared memory"):
-            render_cuda._check_inputs(cam, scene, dev, render_cuda.uses_tree(ns_old, 2))
+        render_cuda._check_inputs(cam, scene, dev)
+        for depth, group_cull, form in ((0, None, 0), (2, False, 0), (2, None, 1)):
+            tree = render_cuda.uses_tree(ns_old, depth, group_cull)
+            assert render_cuda.scene_form(ns_old, npl, nl, tree) == form
 
 
 @pytest.mark.parametrize("kw", [dict(), dict(cull=False, shadow_lists=False,

@@ -1,25 +1,38 @@
-"""The backward kernels take every scene the render kernel takes, on the CPU.
+"""Every kernel takes a scene of any size, on the CPU: the forms and plans.
 
-The render stages a scene in one block's shared memory and refuses a larger
-one (``render_cuda._check_inputs``: 7753 spheres at 1 plane and 3 lights
-without the bounce tree, 5600 with it). Both backward planners must then
-return a plan for every such scene, AA or not, fused or cotangent. The staged
-form reaches 4104 / 4101 / 3994 / 3992 spheres hard and 3388 soft; the global
-form, which leaves the sphere table in device memory, reaches 8208 / 8203 /
-7989 / 7984 hard and 8228 soft, all past 7753. The limits are the planners'
-own ``smem_bytes`` formulas, pinned here against the render's, and every plan
+Each kernel that stages the scene in one block's shared memory keeps its
+staged form wherever the scene fits (the render kernel: 7753 spheres at 1
+plane and 3 lights without the bounce tree, 5600 with it) and takes a global
+form past it (``render_cuda.scene_form``: the sphere table and the bounce
+tree read where they lie); the light-cell and list
+kernels take their chunked form past 11620 and 9685 spheres. The backward
+planners' staged form reaches 4104 / 4101 / 3994 / 3992 spheres hard and 3388
+soft; the global form, which leaves the sphere table in device memory,
+reaches 8208 / 8203 / 7989 / 7984 hard and 8228 soft; past those the third
+form keeps the warps' rows in device memory and takes any scene. The limits
+are the planners' own ``smem_bytes`` formulas, pinned here, and every plan
 fits a block and agrees with its formula. The soft planner stages while the
 scene fits; the hard planner takes the most threads a block either form
-fits, staged where both do.
+fits, staged where both do; neither takes the third form where another fits.
 """
 import pytest
 
+from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
 from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
 from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
 from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
+from python_ray_tracer_tpu_torch.ops.cuda import soft_cuda
+from python_ray_tracer_tpu_torch.ops.cuda.cull_tables import LEAF, list_capacity, tree_box_words
 
 MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")
 NPL, NL = 1, 3
+# Every band edge of every rule below, each side of it, up to 2^20 spheres.
+BAND_EDGES = sorted({n + d for n in (16, 255, 1587, 1983, 2704, 3388, 3992, 3994, 4057,
+                                     4101, 4104, 5600, 7753, 7984, 7989, 8203, 8208,
+                                     8220, 8228, 9685, 11620)
+                     for d in (0, 1)} | {1, 65535, 65536, 1 << 20})
 
 
 def _largest(fits, start=1):
@@ -115,10 +128,22 @@ def test_every_rendered_scene_has_a_soft_plan(fused):
 
 
 def test_planners_refuse_past_the_global_form():
+    """Where the global form stops fitting a block (8208 spheres hard, 8228
+    soft, at 1 plane and 3 lights), the third form, rows in device memory,
+    starts: exactly there, in both planners, and not a sphere earlier."""
+    for ns, rows in ((8208, False), (8209, True)):
+        p = rb.plan(ns, NPL, NL, 64, 64, aa=False, fused=False, large=True)
+        assert (p.staged, p.device_rows) == (False, rows)
+        assert p.smem == rb.smem_bytes(ns, NPL, NL, False, False, p.nt, False, False, rows)
+    for ns, rows in ((8228, False), (8229, True)):
+        p = sb.plan(ns, NPL, NL, True)
+        assert (p.staged, p.device_rows) == (False, rows)
+        assert p.smem == sb.smem_bytes(ns, NPL, NL, True, p.nt, p.cap, p.cj, p.store_vis,
+                                       False, rows)
     with pytest.raises(ValueError, match="backward kernel"):
-        rb.plan(8209, NPL, NL, 64, 64, aa=False, fused=False, large=True)
+        rb.plan(8209, NPL, NL, 64, 64, aa=False, fused=False, large=True, device_rows=False)
     with pytest.raises(ValueError, match="soft backward"):
-        sb.plan(8229, NPL, NL, True)
+        sb.plan(8229, NPL, NL, True, device_rows=False)
 
 
 def test_small_scenes_are_always_staged():
@@ -163,3 +188,86 @@ def test_planners_give_one_form_on_request():
         assert sb.plan(100, NPL, NL, fused) == sb.plan(100, NPL, NL, fused, staged=True)
         with pytest.raises(ValueError):
             sb.plan(3389, NPL, NL, fused, staged=True)
+
+
+def test_forward_form_limits():
+    """The staged forms' limits stay where they were (1 plane, 3 lights); the
+    forward forms are staged and global, nothing between."""
+    def largest(fits):
+        return max(n for n in range(1, 30000) if fits(n))
+    assert largest(lambda n: render_cuda.scene_form(n, NPL, NL) == 0) == 7753
+    assert largest(lambda n: render_cuda.scene_form(n, NPL, NL, True) == 0) == 5600
+    assert {render_cuda.scene_form(n, NPL, NL, t) for n in (1, 7753, 7754, 1 << 20)
+            for t in (False, True)} == {0, 1}
+    assert largest(lambda n: soft_cuda.form(n, NPL, NL) == 0) == 8220
+    assert largest(lambda n: lc.chunk_spheres(n) == 0) == 11620
+    assert largest(lambda n: sl.chunk_spheres(n) == 0) == 9685
+
+
+@pytest.mark.parametrize("ns", BAND_EDGES)
+def test_every_scene_size_has_a_form_and_a_plan(ns):
+    """At every band edge up to 2^20 spheres each kernel has a form that fits
+    a block (the staged form wherever it fits), and both backward planners a
+    plan, in every mode; no scene is refused for its size."""
+    limit = render_cuda.SMEM_BLOCK
+    for tree in (False, True):
+        f = render_cuda.scene_form(ns, NPL, NL, tree)
+        staged = render_cuda._smem_bytes(ns, NPL, NL, tree)
+        assert (f == 0) == (staged <= render_cuda._SMEM_LIMIT)
+        left = staged
+        if f and ns > 16:
+            left -= 28 * ns
+            if tree:
+                n_leaves = -(-ns // LEAF)
+                left -= 4 * (tree_box_words(n_leaves) + n_leaves * LEAF)
+        assert left <= render_cuda._SMEM_LIMIT
+        k = list_capacity(ns) if ns > 16 else 0
+        hb = hx.staged_bytes(ns, NPL, True, k, None)
+        assert render_cuda.scene_form(ns, NPL, NL, False, hb, limit) in (0, 1)
+    assert soft_cuda.form(ns, NPL, NL) == (0 if soft_cuda.staged_bytes(ns, NPL, NL) <= limit
+                                           else 1)
+    for chunk, words in ((lc.chunk_spheres(ns), 5), (sl.chunk_spheres(ns), 6)):
+        assert 4 * words * (chunk or ns) <= limit
+    for mode in MODES:
+        aa, fused = mode.endswith("_aa"), mode.startswith("fused")
+        p = rb.plan(ns, NPL, NL, 1000, 1000, aa=aa, fused=fused, large=ns > 16)
+        assert p.smem <= rb.SMEM_LIMIT
+        assert p.smem == rb.smem_bytes(ns, NPL, NL, fused, aa, p.nt, p.cols, p.staged,
+                                       p.device_rows)
+        assert p.device_rows == (ns > {"cot_noaa": 8208, "fused_noaa": 8203,
+                                       "cot_aa": 7989, "fused_aa": 7984}[mode])
+        assert rb.scratch_floats(ns, NPL, NL, p) == (
+            p.blocks * p.nt // 32 * (7 * ns + 9 * NPL + 3 * NL) if p.device_rows else 0)
+    for fused in (True, False):
+        p = sb.plan(ns, NPL, NL, fused)
+        assert p.smem <= sb.SMEM_LIMIT and p.device_rows == (ns > 8228)
+        assert p.staged == (ns <= 3388)
+
+
+@pytest.mark.parametrize("ns", [8229, 16384, 65536])
+def test_soft_device_rows_grid_is_the_cards(ns):
+    """The soft third form's grid is the card's size whatever the frame:
+    its scratch and partials at fit_scene_soft's 1000x1000 equal those at
+    1080p, and the other forms keep one block a pixel group."""
+    p = sb.plan(ns, NPL, NL, True)
+    assert p.device_rows
+    groups = {res: sb.n_blocks(*res, p._replace(device_rows=False))
+              for res in ((64, 64), (1000, 1000), (1920, 1080))}
+    for res, g in groups.items():
+        want = min(g, sb.H100_SMS * max(1, min(sb.BLOCKS_PER_SM,
+                                                sb.SM_SMEM // (p.smem + 1024))))
+        assert sb.n_blocks(*res, p) == want
+    assert groups[(64, 64)] == 32 and sb.n_blocks(64, 64, p) == 32
+    big = [sb.scratch_floats(ns, NPL, NL, True, *res, p) for res in ((1000, 1000),
+                                                                     (1920, 1080))]
+    assert big[0] == big[1] == sb.n_blocks(1000, 1000, p) * (p.nt // 32) * \
+        sb.n_grads(ns, NPL, NL, True)
+    assert 4 * big[0] <= 1.0e9 * ns / 65536
+
+
+def test_soft_planner_objects():
+    """The soft backward indexes objects in 21 bits (csrc/soft_bwd.cu
+    GI_BITS): its planner refuses 2^21 objects and more, and only that."""
+    sb.plan((1 << 21) - 2, NPL, NL, True)
+    with pytest.raises(ValueError, match="objects"):
+        sb.plan((1 << 21) - 1, NPL, NL, True)
