@@ -92,7 +92,15 @@ at the fit CLI's width with a NaN and an exception injected, losses
 scopes and kernels) and :func:`scene_size_phase` (``[size-*]``: every
 kernel's global, chunked or device-rows form against its staged form and
 both timed, then 16384- and 65536-sphere scenes through the entry points,
-each kernel against its plain version).
+each kernel against its plain version). Then phase 24 (``--phase 24``
+alone; :func:`bwd_tables_phase`): kernel 4 through the render's
+large-scene tables, every mode and form ``torch.equal`` to the same launch
+with every table off (``[bwd-tables]``), their times and the whole
+``fit_scene`` step at 100 and 1000 spheres (``[bwd-tables-time]``, with the
+steps one by one and one profiler trace), the staged form's bounce tree
+staged against read in place (``[bwd-tree]``), the one-launch fused AA step
+against the two-launch one (``[fused-aa1]``), the large-scene training path
+through ``fit_scene`` (``[main]``) and the bounds.
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -147,6 +155,7 @@ import ctypes
 import json
 import os
 import struct
+import statistics
 import subprocess
 import sys
 import time
@@ -347,13 +356,20 @@ def backward_phases(torch, rt, card: str, dev) -> list:
                                     (f"-DRT_BWD_MIN_BLOCKS={mb}",)) for mb in BWD_MIN_BLOCKS}
     pool.shutdown(wait=False)
 
+    def form_of(mode):
+        """(kernel mode, aa_form) of a launch counter's key: ``fused_aa1`` is
+        the one-launch fused AA step, ``fused_aa`` the two-launch one."""
+        return ("fused_aa", "one") if mode == "fused_aa1" else (mode, "two")
+
     def kernel_flat(mode, cam, scene, x, compat):
         """The wrapper's flat gradient, camera slots included (and the loss
         slot in the fused modes); ``x`` is the target or the cotangent."""
+        mode, form = form_of(mode)
         aa = mode.endswith("_aa")
         if mode.startswith("fused"):
             loss, sg, cg = rb.loss_and_scene_grads_cuda(
-                cam, scene, x, depth=2, compat=compat, aliasing=aa, return_camera=True)
+                cam, scene, x, depth=2, compat=compat, aliasing=aa, return_camera=True,
+                aa_form=form)
             return rb.flatten_grads(sg, cg, loss)
         return rb.flatten_grads(*rb.scene_grads_cuda(
             cam, scene, x, depth=2, compat=compat, aliasing=aa, return_camera=True))
@@ -368,8 +384,9 @@ def backward_phases(torch, rt, card: str, dev) -> list:
         rule, with rb.held_out's pixels (0.1%, where the two renders disagree
         most) taken out of both; print each leaf group's worst ratio to its
         allowance and return (max_abs_err, the worst ratio)."""
+        mode, form = form_of(mode)
         flat, ref, ref_all, out = rb.kernel_and_plain(mode, cam, scene, x, depth=2,
-                                                      compat=compat)
+                                                      compat=compat, aa_form=form)
         check(bool(torch.isfinite(flat).all()), f"{label}: non-finite gradient")
         rule = rb.grad_rule(flat, ref, *counts(scene), ref_all)
         print(f"[bwd] {label} ({int(out.sum())} pixels held out): "
@@ -378,15 +395,16 @@ def backward_phases(torch, rt, card: str, dev) -> list:
         check(not bad, f"{label}: {bad} outside the rule")
         return float((flat - ref).abs().max()), max(v for v, _ in rule.values())
 
-    # Phase 7: every backward mode against the plain version, demo scene at
-    # 256x256, depth 2, compat and clean (Phong on); two runs bit-identical.
+    # Phase 7: every backward mode (the fused AA step in both forms) against
+    # the plain version, demo scene at 256x256, depth 2, compat and clean
+    # (Phong on); two runs bit-identical.
     cam = rt.default_camera(BWD_PARITY_RES, device=dev)
     target = seeded(torch, (*BWD_PARITY_RES, 3), dev, 0)
     for compat in (True, False):
         mats = rt.Materials.build(specular=0.0 if compat else 0.6, shininess=8.0,
                                   device=dev)
         scene = rt.default_scene(mats, device=dev)
-        for mode in rb.MODES:
+        for mode in rb.COUNTED:
             x = (target if mode.startswith("fused") else
                  cotangent(cam, scene, target, mode.endswith("_aa"), compat))
             a = kernel_flat(mode, cam, scene, x, compat)
@@ -400,7 +418,7 @@ def backward_phases(torch, rt, card: str, dev) -> list:
     # Phase 8: the training path through its entry points at the fit CLI's
     # defaults. Every count is set to 0 just before a path and read just after.
     os.makedirs(OUT_DIR, exist_ok=True)
-    main_launches = dict.fromkeys(rb.MODES, 0)
+    main_launches = dict.fromkeys(rb.COUNTED, 0)
 
     def drive(label, fn, expect):
         rb.reset_launch_counts()
@@ -410,10 +428,10 @@ def backward_phases(torch, rt, card: str, dev) -> list:
         got = dict(rb.LAUNCHES)
         print(f"[main] {label}: backward launches {got}, render launches "
               f"{dict(render_cuda.LAUNCHES)}, plain calls {dict(rb.PLAIN_CALLS)}")
-        check(got == {m: expect.get(m, 0) for m in rb.MODES},
+        check(got == {m: expect.get(m, 0) for m in rb.COUNTED},
               f"{label}: backward launches {got}, expected {expect}")
         check(not any(rb.PLAIN_CALLS.values()), f"{label}: the plain version ran")
-        for m in rb.MODES:
+        for m in rb.COUNTED:
             main_launches[m] += got[m]
         return out
 
@@ -466,8 +484,19 @@ def backward_phases(torch, rt, card: str, dev) -> list:
                          lambda: train.fit_scene(init, cam, target_aa, steps=3, lr=1e-2,
                                                  depth=2, aliasing=True, backend="cuda",
                                                  trainable=fit_trainable),
-                         {"fused_aa": 3})
+                         {"fused_aa1": 3})
     check(aa_losses[-1] < aa_losses[0], f"AA fit losses {aa_losses}")
+
+    def two_launch_steps(n=2):
+        step = train.make_train_step(
+            rt.Scene.from_leaves([t.clone() for t in init.leaves()]),
+            train.cuda_value_and_grad(cam, target_aa, depth=2, aliasing=True, aa_form="two"),
+            lr=1e-2, trainable=fit_trainable)
+        return [float(step()) for _ in range(n)]
+    two_losses = drive("make_train_step(cuda_value_and_grad(aliasing=True, aa_form='two')) "
+                       "2 steps", two_launch_steps, {"fused_aa": 2})
+    check(two_losses[0] == aa_losses[0], f"the two forms' first AA losses {two_losses[0]} "
+                                         f"and {aa_losses[0]}")
     drive("fit_scene(fused=False, backend='cuda') 2 steps",
           lambda: train.fit_scene(init, cam, target, steps=2, lr=1e-2, depth=2,
                                   backend="cuda", fused=False, trainable=fit_trainable),
@@ -484,7 +513,7 @@ def backward_phases(torch, rt, card: str, dev) -> list:
     check(bool(torch.isfinite(g).all()) and bool(g.abs().max() > 0),
           "render_image_fast: no sphere-center gradient")
     print(f"[main] backward launches over the training paths: {main_launches}")
-    check(all(main_launches[m] > 0 for m in rb.MODES), f"launches {main_launches}")
+    check(all(main_launches[m] > 0 for m in rb.COUNTED), f"launches {main_launches}")
 
     # Each mode at the main path's shapes against the plain version; step 0
     # of the hard fit must match its plain version at full size.
@@ -509,8 +538,10 @@ def backward_phases(torch, rt, card: str, dev) -> list:
           f"{full / 1e9:.2f} GB at 1000x1000; the plain AA step runs at {aa_res}")
     cam_aa = camera_at(aa_res)
     t_aa = rt.render_image_cuda(cam_aa, scene, depth=2, aliasing=True)
-    errs["fused_aa"] = held(f"fused_aa {aa_res[0]}x{aa_res[1]} d2", "fused_aa", cam_aa,
-                            init, t_aa, True)
+    errs["fused_aa"] = held(f"fused_aa (two launches) {aa_res[0]}x{aa_res[1]} d2", "fused_aa",
+                            cam_aa, init, t_aa, True)
+    errs["fused_aa1"] = held(f"fused_aa1 (one launch) {aa_res[0]}x{aa_res[1]} d2", "fused_aa1",
+                             cam_aa, init, t_aa, True)
     g_aa = cotangent(cam_aa, init, t_aa, True, True)
     errs["cot_aa"] = held(f"cot_aa {aa_res[0]}x{aa_res[1]} d2", "cot_aa", cam_aa, init,
                           g_aa, True)
@@ -540,45 +571,11 @@ def backward_phases(torch, rt, card: str, dev) -> list:
     adam_ms = 1e3 * rt.time_fn(adam_step, warmup=2, iters=50)
     # (input at 1000x1000, input at the plain version's size) of each mode
     inputs = {"fused_noaa": (target, target), "fused_aa": (target_aa, t_aa),
-              "cot_noaa": (g_noaa, g_noaa),
+              "fused_aa1": (target_aa, t_aa), "cot_noaa": (g_noaa, g_noaa),
               "cot_aa": (cotangent(cam, init, target_aa, True, True), g_aa)}
-    times = {}
-    regs = bwd_regs_start(_build.CSRC_DIR)
-    for mode in rb.MODES:
-        aa, fused = mode.endswith("_aa"), mode.startswith("fused")
-        x, x_plain = inputs[mode]
-        cam_plain = cam_aa if aa else cam
-        n = rb.n_grads(*cnt, fused)
-        out = torch.empty(n, device=dev)
-        shape = rb.launch_plan(cam, init, mode)
-        img = torch.empty((W, H, 3), device=dev)
 
-        def kernel_only(shape=shape, lib=None):
-            partial = partials(shape.blocks)
-            if mode == "fused_aa":
-                render_cuda.launch(img, params, tables, cnt, depth=2, mode="aa_shared",
-                                   compat=True, cheap_shadow=cheap)
-            return rb.launch(out, partial, params, tables, cnt,
-                             image=img if mode == "fused_aa" else (None if fused else x),
-                             target=x if fused else None, W=W, H=H, depth=2, mode=mode,
-                             compat=True, cheap_shadow=cheap, shape=shape, lib=lib)
-
-        bufs = {}
-
-        def partials(rows):
-            if rows not in bufs:
-                bufs[rows] = torch.empty(n * rows, device=dev)
-            return bufs[rows]
-
-        def reduce_only():
-            check(lib.rt_reduce_rows(partials(shape.blocks).data_ptr(), shape.blocks, n,
-                                     out.data_ptr(), stream) == 0, "reduction launch failed")
-            return out
-
-        t = {"kernel": 1e3 * rt.time_fn(kernel_only, warmup=2, iters=20),
-             "reduce": 1e3 * rt.time_fn(reduce_only, warmup=2, iters=50), "plan": shape}
-        # The plan sweep: threads a block and blocks a multiprocessor around the
-        # planner's choice, kernel alone (the fused AA step's render included).
+    def sweep_and_bounds(mode, aa, fused, t, shape, kernel_only):
+        """[bwd-plan] and [bwd-bounds] of one mode."""
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         sweep = {}
         for nt in (128, 64, 32):
@@ -613,12 +610,65 @@ def backward_phases(torch, rt, card: str, dev) -> list:
               + ", ".join(f"{k} {v:.4f}" for k, v in sweep.items())
               + f"; the planner's ({shape.nt}, {shape.blocks}) ({shape.tiles} tiles a block, "
               f"{shape.smem} B) {t['kernel']:.4f}, the best {best} {sweep[best]:.4f} | {card}")
+
+    times = {}
+    regs = bwd_regs_start(_build.CSRC_DIR)
+    for key in rb.COUNTED:
+        mode, form = form_of(key)
+        one = form == "one"
+        aa, fused = mode.endswith("_aa"), mode.startswith("fused")
+        x, x_plain = inputs[key]
+        cam_plain = cam_aa if aa else cam
+        n = rb.n_grads(*cnt, fused)
+        out = torch.empty(n, device=dev)
+        shape = rb.launch_plan(cam, init, mode, one_launch=one)
+        img = torch.empty((W, H, 3), device=dev)
+
+        def kernel_only(shape=shape, lib=None):
+            partial = partials(shape.blocks)
+            two = mode == "fused_aa" and not one
+            if two:
+                render_cuda.launch(img, params, tables, cnt, depth=2, mode="aa_shared",
+                                   compat=True, cheap_shadow=cheap)
+            return rb.launch(out, partial, params, tables, cnt,
+                             image=img if two else (None if fused else x),
+                             target=x if fused else None, W=W, H=H, depth=2, mode=mode,
+                             compat=True, cheap_shadow=cheap, shape=shape, lib=lib,
+                             one_launch=one, rec=recs(shape) if one else None)
+
+        bufs = {}
+
+        def partials(rows):
+            if rows not in bufs:
+                bufs[rows] = torch.empty(n * rows, device=dev)
+            return bufs[rows]
+
+        def recs(shape):
+            if ("rec", shape.blocks) not in bufs:
+                bufs[("rec", shape.blocks)] = torch.empty(rb.rec_floats(shape, 2), device=dev)
+            return bufs[("rec", shape.blocks)]
+
+        def reduce_only():
+            check(lib.rt_reduce_rows(partials(shape.blocks).data_ptr(), shape.blocks, n,
+                                     out.data_ptr(), stream) == 0, "reduction launch failed")
+            return out
+
+        t = {"kernel": 1e3 * rt.time_fn(kernel_only, warmup=2, iters=20),
+             "reduce": 1e3 * rt.time_fn(reduce_only, warmup=2, iters=50), "plan": shape}
+        # The plan sweep (the two-launch modes): threads a block and blocks a
+        # multiprocessor around the planner's choice, kernel alone (the fused
+        # AA step's render included).
+        if not one:
+            sweep_and_bounds(mode, aa, fused, t, shape, kernel_only)
         if fused:   # the whole fit_scene step: pack, kernel(s), reduction, Adam
             sc = rt.Scene.from_leaves([s.clone() for s in init.leaves()])
             step = train.make_train_step(
-                sc, train.cuda_value_and_grad(cam, x, depth=2, aliasing=aa), lr=1e-2,
-                trainable=fit_trainable)
+                sc, train.cuda_value_and_grad(cam, x, depth=2, aliasing=aa, aa_form=form),
+                lr=1e-2, trainable=fit_trainable)
             t["step"] = 1e3 * rt.time_fn(step, warmup=2, iters=10)
+        if one:     # the same plain step as the two-launch form's
+            t["plain"] = times["fused_aa"]["plain"]
+        elif fused:
             sp = rt.Scene.from_leaves([s.clone() for s in init.leaves()])
             pstep = train.make_train_step(
                 sp, train.autograd_value_and_grad(
@@ -632,12 +682,21 @@ def backward_phases(torch, rt, card: str, dev) -> list:
                                           depth=2, aliasing=aa, warmup=1,
                                           iters=1 if aa else 3)
         t["plain_res"] = cam_plain.resolution
-        times[mode] = t
-        print(f"[time] {mode} 1000x1000 d2: {'fit_scene step' if fused else 'wrapper'} "
+        times[key] = t
+        print(f"[time] {key} 1000x1000 d2: {'fit_scene step' if fused else 'wrapper'} "
               f"{t['step']:.4f} ms, kernel alone {t['kernel']:.4f} ms (reduction alone "
               f"{t['reduce']:.4f} ms), pack {pack_ms:.4f} ms, Adam {adam_ms:.4f} ms, "
               f"plain {t['plain']:.4f} ms at {t['plain_res'][0]}x{t['plain_res'][1]} "
               f"| {card}")
+    # The fit step's two AA forms in turns: a step's host part varies by
+    # ~0.5 ms from run to run, more than the kernels differ.
+    steps = {f: train.make_train_step(
+        rt.Scene.from_leaves([s.clone() for s in init.leaves()]),
+        train.cuda_value_and_grad(cam, target_aa, depth=2, aliasing=True, aa_form=f),
+        lr=1e-2, trainable=fit_trainable) for f in ("two", "one")}
+    ab = _alternate(rt, steps, 10)
+    print(f"[time] fit_scene AA step {W}x{H} d2, two launches / one in turns (A, B, B, A "
+          f"minima): {ab['two']:.4f} / {ab['one']:.4f} ms | {card}")
     bwd_regs_print(regs, "this tree")
     for mb in BWD_MIN_BLOCKS:
         bwd_regs_print({"render_bwd_small.cu": ptxas_report(
@@ -646,8 +705,8 @@ def backward_phases(torch, rt, card: str, dev) -> list:
 
     def entry(name, modes, t):
         e = [errs[m] for m in modes]
-        mode = modes[0]
-        x = inputs[mode][0]
+        x = inputs[modes[0]][0]
+        mode = form_of(modes[0])[0]
         g = None if mode.startswith("fused") else x
         live = timing.hard_chain_counts(
             cam, init, timing.bwd_positions(W, H, mode.endswith("_aa"), g), depth=2)
@@ -670,6 +729,7 @@ def backward_phases(torch, rt, card: str, dev) -> list:
                 "shape": f"{W}x{H}_d2", "plain_shape": "x".join(map(str, t["plain_res"]))}
     return [entry("render_bwd_fused_noaa", ("fused_noaa",), times["fused_noaa"]),
             entry("render_bwd_fused_aa", ("fused_aa",), times["fused_aa"]),
+            entry("render_bwd_fused_aa1", ("fused_aa1",), times["fused_aa1"]),
             entry("render_bwd_cotangent", ("cot_noaa", "cot_aa"), times["cot_noaa"])]
 
 
@@ -2892,7 +2952,7 @@ def parallel_phase(torch, rt, card: str, dev) -> None:
                   local_width=lw), starget, sb.soft_grad_rule, counts(demo))
     got = launches()
     print(f"[ray-par] launches through phase 22's steps: {got}")
-    check(got.get("fused_noaa", 0) > 0 and got.get("fused_aa", 0) > 0 and
+    check(got.get("fused_noaa", 0) > 0 and got.get("fused_aa1", 0) > 0 and
           got.get("fused", 0) > 0, f"the sharded steps' kernels did not launch: {got}")
 
     # Two ranks on the one card (gloo).
@@ -4000,6 +4060,399 @@ def faults_phase(torch, rt, card: str, dev) -> None:
           profiling.device_memory_stats(torch.device("cpu")) == {}, "device_memory_stats")
 
 
+BT_NS = (100, 1000, 5000)          # [bwd-tables]: every form, tables on against off
+BT_RES = (256, 256)
+BT_ROWS = (16384, (64, 64))        # the third form alone past 8208 spheres
+BT_SLICE = (1000, 96, 64)          # spheres, x_offset, local_width of a BT_RES frame
+BT_TIME_NS = (100, 1000)           # [bwd-tables-time] at FIT_RES, depth 2
+BT_MAIN_NS = 1000                  # the large-scene main path, its bound and kernels-line entries
+BT_PLAIN_RES = (64, 64)            # the plain fused step at those scenes (its memory)
+BT_STEPS = 3                       # fit_scene steps of the large-scene main path
+AA1_SCENES = (2, 0, 100, 1000)     # [fused-aa1]: the fit scene, the demo scene, random clouds
+AA1_DEPTHS = (0, 1, 2, 3, 4)       # 4: the general depth's instantiation
+BT_MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa", "fused_aa1")
+BT_TREE_NS = (400, 1000)           # [bwd-tree]: the staged form's tree staged against in place
+BT_TREE_ROUNDS = 8                 # A, B, B, A rounds of [bwd-tree]
+BT_WALL_STEPS = 10                 # [bwd-step-walls]: steps timed one by one
+
+
+def bwd_tables_phase(torch, rt, card: str, dev) -> list:
+    """Phase 24 (``--phase 24`` alone): kernel 4 through the render's
+    large-scene tables and the one-launch fused AA step. ``[bwd-tables]``:
+    each backward mode (and ``fused_aa1``, the one-launch step) with its
+    tables on against the same launch shape with every table off,
+    ``torch.equal``, in the staged, global and device-rows forms at BT_NS
+    spheres, in the device-rows form at BT_ROWS, for a slice, and the
+    ``aa_shared`` frame of the two-launch step. ``[fused-aa1]``: the
+    one-launch step against the two-launch step, bits and kernel-alone times,
+    on AA1_SCENES at AA1_DEPTHS (256x256) and at FIT_RES d2 from shifted
+    centers (both also in the device-rows form on the large scenes).
+    ``[bwd-tables-time]``: the kernel alone and the whole ``fit_scene`` step
+    (``train.cuda_value_and_grad`` + Adam) in the main path's forms at
+    BT_TIME_NS spheres, FIT_RES d2, without and with AA, tables on and off,
+    with the tables' build beside; the steps one by one
+    (``[bwd-step-walls]``) and one trace (``[bwd-step-trace]``).
+    ``[bwd-tree]``: the staged form's bounce tree staged against read in
+    place at BT_TREE_NS. ``[main]``: ``fit_scene`` at 1000 spheres, without
+    and with AA, counts set to 0 before and read after. Returns the two
+    entries of the kernels line (``render_bwd_tables_fused_noaa``,
+    ``render_bwd_tables_fused_aa1``)."""
+    from python_ray_tracer_tpu_torch import cli, train
+    from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb, render_cuda
+    from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig()
+    OFF = ALL_OFF
+
+    def scene_n(n):
+        if n == 2:
+            return cli.fit_scene_two_spheres(cfg, dev)
+        return scene_of(rt, cfg, n, dev)
+
+    def camera(res):
+        return rt.Camera.build(res, cfg.camera_position, cfg.camera_euler, cfg.fov, device=dev)
+
+    def shifted(scene):
+        """The scene with every center moved by the fit CLI's shift (a fit's
+        first step: the cotangent is not 0 anywhere the spheres show)."""
+        init = rt.Scene.from_leaves([t.clone() for t in scene.leaves()])
+        init.spheres.center += torch.tensor(cli.FIT_SHIFT, device=dev)
+        return init
+
+    def prepare(cam, sc, mode, x, *, depth=2, culls=None, x_offset=0, lw=None, staged=None,
+                device_rows=None, tree_smem=None, shape=None, may_not_fit=False):
+        """Everything a launch needs, packed once: (run, shape); run() launches
+        ``mode`` (``fused_aa1``: the one-launch step; ``fused_aa``: the
+        aa_shared render, then the backward) and returns (flat, frame). With
+        ``may_not_fit``, (None, None) where the planner refuses the form."""
+        one = mode == "fused_aa1"
+        m = "fused_aa" if one else mode
+        aa, fused = m.endswith("_aa"), m.startswith("fused")
+        Wg, H = cam.resolution
+        W = Wg if lw is None else lw
+        packed = render_cuda.packed_inputs(cam, sc, depth=depth, compat=True, x_offset=x_offset)
+        params, tables, cnt = packed
+        tabs = render_cuda.large_scene_tables(cam, sc, depth=depth, aliasing=aa, compat=True,
+                                              packed=packed, x_offset=x_offset, local_width=W,
+                                              **(culls or {}))
+        if shape is None:
+            try:
+                shape = rb.launch_plan(cam, sc, m, W, staged=staged, device_rows=device_rows,
+                                       tabs=tabs, tree_smem=tree_smem, one_launch=one)
+            except ValueError:
+                if not may_not_fit:
+                    raise
+                return None, None
+        elif tabs[2] is None:   # another launch's shape, for the launch without the tree
+            shape = shape._replace(tree_smem=False)
+        cheap = render_cuda.shadow_cheap_ok(sc, True)
+        n = rb.n_grads(*cnt, fused)
+        out, partial = torch.empty(n, device=dev), torch.empty(n * shape.blocks, device=dev)
+        img = torch.empty((W, H, 3), device=dev)
+        rec = torch.empty(rb.rec_floats(shape, depth), device=dev) if one else None
+        scratch = torch.empty(rb.scratch_floats(*cnt, shape), device=dev) \
+            if shape.device_rows else None
+
+        def run():
+            frame = None
+            if m == "fused_aa" and not one:
+                frame = render_cuda.launch(img, params, tables, cnt, depth=depth,
+                                           mode="aa_shared", compat=True, cheap_shadow=cheap,
+                                           vis=tabs[0], shadow=tabs[1], tree=tabs[2],
+                                           cells=tabs[3], W_global=Wg)
+            rb.launch(out, partial, params, tables, cnt,
+                      image=frame if frame is not None else (None if fused else x),
+                      target=x if fused else None, W=W, H=H, depth=depth, mode=m, compat=True,
+                      cheap_shadow=cheap, shape=shape, W_global=Wg, tabs=tabs,
+                      one_launch=one, rec=rec, scratch=scratch)
+            return out.clone(), None if frame is None else frame.clone()
+        return run, shape
+
+    def inputs(cam, sc, mode, seed=0):
+        """A fit's target (fused) or its cotangent, from the scene with its
+        centers moved back: the cotangent is not 0 where the spheres show."""
+        W, H = cam.resolution
+        aa = mode.endswith("_aa") or mode == "fused_aa1"
+        tgt = rt.render_image_cuda(cam, sc, depth=2, aliasing=aa)
+        if mode.startswith("fused"):
+            return tgt.contiguous()
+        img = rt.render_image_cuda(cam, shifted(sc), depth=2, aliasing=aa)
+        return (2.0 * (img - tgt) / img.numel()).contiguous()
+
+    # [bwd-tables]: tables on against off at one launch shape, every mode and form.
+    t0 = time.perf_counter()
+    cam = camera(BT_RES)
+    cases = [(n, BT_RES, form) for n in BT_NS for form in ("staged", "global", "rows")]
+    cases.append((BT_ROWS[0], BT_ROWS[1], "rows"))
+    for n, res, form in cases:
+        sc, c = scene_n(n), camera(res)
+        init = shifted(sc)
+        line = []
+        for mode in BT_MODES:
+            x = inputs(c, sc, mode)
+            kw = dict(staged=form == "staged", device_rows=form == "rows")
+            # the staged form may not fit a large scene: then it is not a form there
+            run_on, shape = prepare(c, init, mode, x, may_not_fit=form == "staged", **kw)
+            if run_on is None:
+                line.append(f"{mode} (no staged plan)")
+                continue
+            run_off, _ = prepare(c, init, mode, x, culls=OFF, shape=shape)
+            (a, fa), (b, fb) = run_on(), run_off()
+            same = torch.equal(a, b) and (fa is None or torch.equal(fa, fb))
+            check(bool(torch.isfinite(a).all()), f"{n} {form} {mode}: not finite")
+            check(same, f"[bwd-tables] {n} spheres {form} {mode}: tables on differ from off "
+                        f"(max {float((a - b).abs().max()):.3g})")
+            line.append(f"{mode} {same}" + (f" (its aa_shared frame {torch.equal(fa, fb)})"
+                                            if fa is not None else "")
+                        + f" [{shape.nt}/{shape.blocks}]")
+        print(f"[bwd-tables] {n} spheres {res[0]}x{res[1]} d2 {form}: tables on torch.equal "
+              f"to off: " + ", ".join(line))
+    # a slice of the frame, through the tables of its own tiles
+    n, x0, lw = BT_SLICE
+    sc = shifted(scene_n(n))
+    for mode in BT_MODES:
+        xf = inputs(cam, scene_n(n), mode)
+        x = xf[x0:x0 + lw].contiguous()
+        run_on, shape = prepare(cam, sc, mode, x, x_offset=x0, lw=lw)
+        run_off, _ = prepare(cam, sc, mode, x, x_offset=x0, lw=lw, culls=OFF, shape=shape)
+        (a, fa), (b, fb) = run_on(), run_off()
+        same = torch.equal(a, b) and (fa is None or torch.equal(fa, fb))
+        print(f"[bwd-tables] {n} spheres slice [{x0}, {x0 + lw}) of {BT_RES[0]}x{BT_RES[1]} d2 "
+              f"{mode}: tables on torch.equal to off {same}")
+        check(same, f"[bwd-tables] slice {mode}: tables on differ from off")
+    t0 = phase_time("phase 24 [bwd-tables]", t0)
+
+    def step_flat(cam, scene, tgt, depth, form):
+        """The AA step's flat gradient, camera slots and loss included."""
+        loss, g, cg = rb.loss_and_scene_grads_cuda(cam, scene, tgt, depth=depth, aliasing=True,
+                                                   return_camera=True, aa_form=form)
+        return rb.flatten_grads(g, cg, loss)
+
+    # [fused-aa1]: the one-launch step against the two-launch step.
+    for n in AA1_SCENES:
+        sc = scene_n(n)
+        init = shifted(sc)
+        c = camera(BT_RES)
+        tgt = inputs(c, sc, "fused_aa")
+        worst = {}
+        for d in AA1_DEPTHS:
+            two, one = (step_flat(c, init, tgt, d, f) for f in ("two", "one"))
+            if torch.equal(one, two):
+                worst[d] = "bits"
+                continue
+            rule = rb.grad_rule(one, two, *counts(init))
+            bad = [k for k, (_, ok) in rule.items() if not ok]
+            lrel = abs(float(one[-1] - two[-1])) / abs(float(two[-1]))
+            check(not bad and lrel <= 1e-6, f"[fused-aa1] {n} spheres d{d}: {bad}, loss {lrel}")
+            worst[d] = f"grad_rule {max(v for v, _ in rule.values()):.2e}, loss rel {lrel:.1e}"
+        why = "" if all(v == "bits" for v in worst.values()) else (
+            " (the loss's bits; the gradient within grad_rule, not its bits: the small scenes' "
+            "contracted source, where nvcc contracts the replay's rebuilt rays otherwise than "
+            "the retrace)")
+        print(f"[fused-aa1] {n} spheres {BT_RES[0]}x{BT_RES[1]} one launch against two, by "
+              f"depth: {worst}{why}")
+        # times at the fit's size, depth 2, from shifted centers
+        c = camera(FIT_RES)
+        tgt = inputs(c, sc, "fused_aa")
+        runs = {f: prepare(c, init, m, tgt)[0] for f, m in (("two", "fused_aa"),
+                                                            ("one", "fused_aa1"))}
+        if n > render_cuda.CULL_MIN_SPHERES:   # and both in the device-rows form's plan
+            runs.update({f"{f} rows": prepare(c, init, m, tgt, device_rows=True)[0]
+                         for f, m in (("two", "fused_aa"), ("one", "fused_aa1"))})
+        ms = _alternate(rt, runs, 10 if n != BT_MAIN_NS else 5)
+        print(f"[fused-aa1] {n} spheres {FIT_RES[0]}x{FIT_RES[1]} d2 kernel alone (A, B, B, A "
+              f"minima): " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f"; the wrappers take one launch | {card}")
+    t0 = phase_time("phase 24 [fused-aa1]", t0)
+
+    # [bwd-tables-time]: kernel alone and the whole step, tables on and off
+    # (the main path's forms: fused_noaa and the one-launch AA step); each
+    # step also timed one by one ([bwd-step-walls]) and traced once at the
+    # smallest scene with AA ([bwd-step-trace]).
+    entries = []
+    c = camera(FIT_RES)
+    for n in BT_TIME_NS:
+        sc = scene_n(n)
+        init = shifted(sc)
+        for aa in (False, True):
+            key = "fused_aa1" if aa else "fused_noaa"
+            tgt = rt.render_image_cuda(c, sc, depth=2, aliasing=aa).contiguous()
+            kernel = {}
+            for label, culls in (("on", None), ("off", OFF)):
+                run, shape = prepare(c, init, key, tgt, culls=culls)
+                kernel[label] = 1e3 * rt.time_fn(run, warmup=1, iters=3 if label == "off" else 10)
+            cot = {}
+            if n == BT_MAIN_NS:   # the cotangent mode's kernel alone, tables on and off
+                cm = "cot_aa" if aa else "cot_noaa"
+                x = (2.0 * (rt.render_image_cuda(c, init, depth=2, aliasing=aa) - tgt) /
+                     tgt.numel()).contiguous()
+                for label, culls in (("on", None), ("off", OFF)):
+                    run, _ = prepare(c, init, cm, x, culls=culls)
+                    cot[label] = 1e3 * rt.time_fn(run, warmup=1,
+                                                  iters=3 if label == "off" else 10)
+            dev_ms, host_ms = host_and_device_ms(lambda: render_cuda.large_scene_tables(
+                c, init, depth=2, aliasing=aa, compat=True), iters=5)
+            steps, walls = {}, {}
+            for label, culls in (("on", {}), ("off", OFF)):
+                s = rt.Scene.from_leaves([t.clone() for t in init.leaves()])
+                step = train.make_train_step(
+                    s, train.cuda_value_and_grad(c, tgt, depth=2, aliasing=aa, **culls),
+                    lr=1e-2, trainable=("spheres.center",))
+                steps[label] = 1e3 * rt.time_fn(step, warmup=1, iters=3 if culls else 10)
+                if label == "on":
+                    walls = step_walls(torch, step, BT_WALL_STEPS)
+                    if aa and n == BT_TIME_NS[0]:
+                        step_trace(torch, step, f"{n} spheres {FIT_RES[0]}x{FIT_RES[1]} d2 "
+                                   f"{key}, tables on", card)
+            print(f"[bwd-tables-time] {n} spheres {FIT_RES[0]}x{FIT_RES[1]} d2 {key}: kernel "
+                  f"alone tables on / off {kernel['on']:.4f} / {kernel['off']:.4f} ms; the whole "
+                  f"step (train.cuda_value_and_grad) on / off {steps['on']:.4f} / "
+                  f"{steps['off']:.4f} ms; the tables' build {dev_ms:.4f} ms device, "
+                  f"{host_ms:.4f} ms host"
+                  + (f"; {cm} kernel alone on / off {cot['on']:.4f} / {cot['off']:.4f} ms"
+                     if cot else "") + f" | {card}")
+            print(f"[bwd-step-walls] {n} spheres {key} tables on: {BT_WALL_STEPS} steps one by "
+                  f"one (host clock, synchronised each): min {min(walls):.4f}, median "
+                  f"{statistics.median(walls):.4f}, max {max(walls):.4f} ms; "
+                  + " ".join(f"{w:.3f}" for w in walls))
+            if n == BT_MAIN_NS:
+                entries.append((key, kernel["on"], steps["on"], tgt, init))
+    t0 = phase_time("phase 24 [bwd-tables-time]", t0)
+
+    # [bwd-tree]: the staged form with the bounce tree staged against read in
+    # place, kernel alone, BT_TREE_ROUNDS rounds of A, B, B, A at BT_TREE_NS.
+    for n in BT_TREE_NS:
+        sc = scene_n(n)
+        init = shifted(sc)
+        for key in ("fused_noaa", "fused_aa1"):
+            tgt = rt.render_image_cuda(c, sc, depth=2, aliasing=key != "fused_noaa")
+            preps = {ts: prepare(c, init, key, tgt, staged=True, tree_smem=ts)
+                     for ts in (False, True)}
+            shapes = {ts: p[1] for ts, p in preps.items()}
+            check(shapes[True].tree_smem and not shapes[False].tree_smem,
+                  f"[bwd-tree] {n} {key}: plans {shapes}")
+            check(torch.equal(preps[True][0]()[0], preps[False][0]()[0]),
+                  f"[bwd-tree] {n} {key}: the two forms' gradients differ")
+            ms = {False: [], True: []}
+            for _ in range(BT_TREE_ROUNDS):
+                for ts in (False, True, True, False):
+                    ms[ts].append(1e3 * rt.time_fn(preps[ts][0], warmup=1, iters=5))
+            med = {ts: statistics.median(v) for ts, v in ms.items()}
+            spread = {ts: (max(v) - min(v)) / med[ts] for ts, v in ms.items()}
+            gain = (med[False] - med[True]) / med[False]
+            print(f"[bwd-tree] {n} spheres {FIT_RES[0]}x{FIT_RES[1]} d2 {key} staged form, "
+                  f"{2 * BT_TREE_ROUNDS} runs each: tree staged min / median / max "
+                  f"{min(ms[True]):.4f} / {med[True]:.4f} / {max(ms[True]):.4f} ms "
+                  f"({shapes[True].nt}/{shapes[True].blocks}), in place "
+                  f"{min(ms[False]):.4f} / {med[False]:.4f} / {max(ms[False]):.4f} ms "
+                  f"({shapes[False].nt}/{shapes[False].blocks}); staged faster by "
+                  f"{100 * gain:.2f}% of the median, spreads (max - min) / median "
+                  f"{100 * spread[True]:.2f}% / {100 * spread[False]:.2f}%; gain above both "
+                  f"spreads {gain > max(spread.values())} | {card}")
+    t0 = phase_time("phase 24 [bwd-tree]", t0)
+
+    # [main]: the large-scene training path through its entry point.
+    sc = scene_n(BT_MAIN_NS)
+    init = shifted(sc)
+    tables_main = {}
+    for aa in (False, True):
+        key = "fused_aa1" if aa else "fused_noaa"
+        tgt = rt.render_image_cuda(c, sc, depth=2, aliasing=aa)
+        rb.reset_launch_counts()
+        render_cuda.reset_launch_counts()
+        _, losses = train.fit_scene(init, c, tgt, steps=BT_STEPS, lr=1e-2, depth=2, aliasing=aa,
+                                    backend="cuda", trainable=("spheres.center",))
+        torch.cuda.synchronize()
+        got = {m: v for m, v in rb.LAUNCHES.items() if v}
+        print(f"[main] fit_scene(aliasing={aa}) {BT_MAIN_NS} spheres {FIT_RES[0]}x{FIT_RES[1]} d2 "
+              f"{BT_STEPS} steps: backward launches {got}, through the tables "
+              f"{ {m: v for m, v in rb.TABLE_LAUNCHES.items() if v} }; render launches "
+              f"{dict(render_cuda.LAUNCHES)}; losses {[round(v, 6) for v in losses]}")
+        check(got == {key: BT_STEPS} and rb.TABLE_LAUNCHES[key] == BT_STEPS and
+              not any(rb.PLAIN_CALLS.values()),
+              f"fit_scene at {BT_MAIN_NS} spheres: {got}, {dict(rb.TABLE_LAUNCHES)}")
+        check(all(v == v and v < float("inf") for v in losses),
+              f"fit_scene at {BT_MAIN_NS} spheres: losses {losses}")
+        tables_main[key] = rb.TABLE_LAUNCHES[key]
+
+    # [bound] and the kernels line: the tables' forms at 1000 spheres.
+    out = []
+    pc = camera(BT_PLAIN_RES)
+    for key, k_ms, step_ms, tgt, init in entries:
+        aa = key == "fused_aa1"
+        mode = "fused_aa" if aa else key
+        pos = timing.bwd_positions(*FIT_RES, aa)
+        live = timing.hard_chain_counts(c, init, pos, depth=2)
+        hits0 = timing.level0_hits_by_tile(c, init, pos)
+        vis, shadow, tree, _ = render_cuda.large_scene_tables(c, init, depth=2, aliasing=aa,
+                                                              compat=True)
+        bound, by = timing.bound_ms(*timing.hard_bwd_work_culled(
+            *FIT_RES, *counts(init), mode, live, pos, hits0, vis, shadow, tree))
+        full = timing.bound_ms(*timing.hard_bwd_work(*FIT_RES, *counts(init), mode, live))[0]
+        ptgt = rt.render_image_cuda(pc, scene_n(BT_MAIN_NS), depth=2, aliasing=aa).contiguous()
+        flat, ref, ref_all, held = rb.kernel_and_plain(mode, pc, init, ptgt, depth=2,
+                                                       aa_form="one")
+        rule = rb.grad_rule(flat, ref, *counts(init), ref_all)
+        bad = [k for k, (_, ok) in rule.items() if not ok]
+        check(not bad, f"[bwd-tables] {key} against the plain version: {bad}")
+        plain_ms = 1e3 * rt.time_fn(rb.loss_and_scene_grads_plain, pc, init, ptgt, depth=2,
+                                    aliasing=aa, warmup=0, iters=1)
+        print(f"[bound] render_bwd_tables {key} {BT_MAIN_NS} spheres {FIT_RES[0]}x{FIT_RES[1]} d2: "
+              f"{bound:.4f} ms ({by}; timing.hard_bwd_work_culled: the listed primary sweeps, "
+              f"the empty occluder lists, the tree's floor), unculled {full:.4f} ms, vs kernel "
+              f"alone {k_ms:.4f} ms ({k_ms / bound:.1f}x); against the plain version at "
+              f"{BT_PLAIN_RES[0]}x{BT_PLAIN_RES[1]} ({int(held.sum())} pixels held out): "
+              + " ".join(f"{k}={v:.2e}" for k, (v, _) in rule.items()) + f" | {card}")
+        out.append({"name": f"render_bwd_tables_{key}", "route": "cuda", "source": BWD_SOURCE,
+                    "replaces": BWD_REPLACES, "launches": tables_main[key],
+                    "max_abs_err": float((flat - ref).abs().max()),
+                    "max_rel_err": max(v for v, _ in rule.values()), "ms": step_ms,
+                    "plain_ms": plain_ms, "kernel_only_ms": k_ms, "bound_ms": bound,
+                    "bound_by": by, "library_ms": None, "shape": f"{BT_MAIN_NS}sph_{FIT_RES[0]}x"
+                    f"{FIT_RES[1]}_d2", "plain_shape": "x".join(map(str, BT_PLAIN_RES))})
+    phase_time("phase 24 [main] and [bound]", t0)
+    return out
+
+
+def step_walls(torch, step, n: int) -> list:
+    """Host-clock ms of each of ``n`` calls of ``step``, each synchronised."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def step_trace(torch, step, label: str, card: str, calls: int = 5) -> None:
+    """[bwd-step-trace]: ``calls`` steps under torch.profiler (host and
+    device): the host clock a step, the device's busy time a step (its
+    kernels and copies), and the host ops and kernels that take most."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / calls
+    ka = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in ka) / 1e3 / calls
+    host = sorted(ka, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]
+    kern = sorted((e for e in ka if dev_us(e) > 0), key=dev_us, reverse=True)[:4]
+    print(f"[bwd-step-trace] {label}: {calls} steps, host clock {wall:.4f} ms a step, device "
+          f"busy {busy:.4f} ms a step ({'not measured' if busy == 0 else f'{100 * (1 - busy / wall):.1f}% idle'}); "
+          f"host self time a step: " + ", ".join(
+              f"{e.key} {e.self_cpu_time_total / 1e3 / calls:.3f} ms x{e.count // calls}"
+              for e in host)
+          + "; device a step: " + ", ".join(f"{e.key[:40]} {dev_us(e) / 1e3 / calls:.3f} ms"
+                                            for e in kern) + f" | {card}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4047,6 +4500,11 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "22"]:   # the ray-parallel phase alone
         parallel_phase(torch, rt, card, dev)
         print(f"[smoke] phase 22 in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--phase", "24"]:   # kernel 4's tables and one-launch AA step alone
+        kernels = bwd_tables_phase(torch, rt, card, dev)
+        print(f"[smoke] phase 24 in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}))
         return 0
     if sys.argv[1:] == ["--phase", "23"]:   # scenes of any size, faults, profiling alone
         faults_phase(torch, rt, card, dev)
@@ -4202,7 +4660,9 @@ def main() -> int:
     faults_phase(torch, rt, card, dev)
     t0 = phase_time("phase 23 faults", t0)
     kernels += scene_size_phase(torch, rt, card, dev)
-    phase_time("phase 23 sizes", t0)
+    t0 = phase_time("phase 23 sizes", t0)
+    kernels += bwd_tables_phase(torch, rt, card, dev)
+    phase_time("phase 24", t0)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

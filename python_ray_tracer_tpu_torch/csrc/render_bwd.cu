@@ -41,42 +41,51 @@ int rt_render_bwd_global(const BwdJob* job, int compat, int cheap_shadow);
 // ...; 1 <= n_rows <= the tile count) and write per-block partial sums into
 // partial (n_grads x n_rows); rt_reduce_rows then sums them. cols: the slot
 // columns (small scenes only), else per-warp rows (render_bwd_kernel.cuh's
-// head). img: the (W, H, 3) cotangent (COT_* modes) or the rendered image
-// (FUSED_AA); target: the (W, H, 3) target (FUSED_* modes); unused pointers
-// may be null. n_grads = 7 ns + 9 npl + 3 nl + 18, + 1 in the fused modes.
-// large_scene: the scene is one the render kernel draws with its large-scene
-// instantiations (rt_render_fwd), so this file's pinned kernels recompute it;
-// else render_bwd_small.cu's do. staged: the block copies the sphere table
-// into shared memory; 0 takes the global form (large scenes, rows only;
-// render_bwd_kernel.cuh's head). W x H: the slice [params[P_X0],
-// params[P_X0] + W) of a frame Wg columns wide (Wg == W for a whole frame),
-// img and target the slice's; the loss's denominator is 3 Wg H. Returns
-// cudaGetLastError() after the launch.
+// head). mode: render_bwd_kernel.cuh's enum (FUSED_AA1, 4: the fused AA step
+// in one launch). img: the (W, H, 3) cotangent (COT_* modes) or the rendered
+// image (FUSED_AA); target: the (W, H, 3) target (FUSED_* modes); unused
+// pointers may be null. n_grads = 7 ns + 9 npl + 3 nl + 18, + 1 in the fused
+// modes. large_scene: the scene is one the render kernel draws with its
+// large-scene instantiations (rt_render_fwd), so this file's pinned kernels
+// recompute it, through the render's large-scene tables (rt_render_fwd's
+// arguments, the lists built for the AA lattice in the AA modes; each may be
+// null: that cull off; none without large_scene); else render_bwd_small.cu's
+// kernels do. staged: the block copies the sphere table into shared memory;
+// 0 takes the global form (large scenes, rows only; render_bwd_kernel.cuh's
+// head). tree_smem: the staged form copies the bounce tree into shared memory
+// too (else reads it where it lies). rec: FUSED_AA1's records, n_rows x
+// rec_words(depth) floats of device memory (else may be null). W x H: the
+// slice [params[P_X0], params[P_X0] + W) of a frame Wg columns wide (Wg == W
+// for a whole frame), img and target the slice's; the loss's denominator is
+// 3 Wg H. Returns cudaGetLastError() after the launch.
 int rt_render_bwd(const float* params, const float* sph, int ns, const float* pln,
                   int npl, const float* lts, int nl, const float* img,
                   const float* target, float* partial, int n_rows, int n_grads,
                   int W, int H, int Wg, int depth, int mode, int compat, int cheap_shadow,
-                  int large_scene, int nt, int cols, int staged, void* stream) {
-  const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
-  const bool aa = mode == COT_AA || mode == FUSED_AA;
-  const long long n_tiles =
-      static_cast<long long>((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE);
-  if (W <= 0 || H <= 0 || Wg < W || depth < 0 || depth > MAX_DEPTH || ns < 0 || npl < 0 ||
-      nl < 0 || mode < COT_NOAA || mode > FUSED_AA ||
-      n_grads != 7 * ns + 9 * npl + 3 * nl + 18 + (fused ? 1 : 0) ||
-      n_rows < 1 || n_rows > n_tiles || !(nt == 32 || nt == 64 || nt == 128) ||
-      (cols && large_scene) || (!staged && (cols || !large_scene)) ||
-      sizeof(float) * bwd_smem_words(ns, npl, nl, n_grads, aa, nt, cols != 0,
-                                     staged != 0) > static_cast<size_t>(227 * 1024) ||
-      (mode != FUSED_NOAA && img == nullptr) || (fused && target == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                  int large_scene, int nt, int cols, int staged,
+                  const int* vis_idx, const int* vis_cnt, int vis_k,
+                  const int* sh_idx, const int* sh_cnt, int sh_k,
+                  const int* perm, const float* box, int n_leaves,
+                  const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
+                  int tree_smem, float* rec, void* stream) {
+  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
+                     lc_idx, lc_cnt, lc_hdr};
   const BwdJob job{params, sph, ns, pln, npl, lts, nl, img, target, partial,
                    n_rows, W, H, depth, mode, n_grads, nt,
-                   static_cast<cudaStream_t>(stream), Wg};
+                   static_cast<cudaStream_t>(stream), Wg, nullptr, ta, tree_smem, rec};
+  const bool tables = vis_idx || sh_idx || perm || lc_idx;
+  if (!bwd_job_ok(job) || (cols && large_scene) || (!staged && (cols || !large_scene)) ||
+      !tables_ok(ta) || (tables && !large_scene) || (tree_smem && (!staged || !perm)) ||
+      (large_scene ? (staged ? job_smem<false, false, true>(job, false)
+                             : job_smem<true, false, true>(job, false))
+                   : job_smem<false, false, false>(job, cols != 0)) >
+          static_cast<size_t>(227 * 1024)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (!large_scene) return rt_render_bwd_small(&job, compat, cheap_shadow, cols);
   if (!staged) return rt_render_bwd_global(&job, compat, cheap_shadow);
-  return static_cast<int>(dispatch_depth<false>(compat != 0, cheap_shadow != 0, job));
+  return static_cast<int>(
+      dispatch_depth<false, false, false, true>(compat != 0, cheap_shadow != 0, job));
 }
 
 // out[k] = sum_r partial[k * n_rows + r] for k < n_cols, in a fixed order.

@@ -14,7 +14,7 @@ extern "C" {
 // arguments.
 int rt_render_bwd_global(const BwdJob* job, int compat, int cheap_shadow) {
   return static_cast<int>(
-      dispatch_depth<false, true>(compat != 0, cheap_shadow != 0, *job));
+      dispatch_depth<false, true, false, true>(compat != 0, cheap_shadow != 0, *job));
 }
 
 }  // extern "C"

@@ -12,6 +12,15 @@
 //               partial and its cotangent, then reverse-sweeps  (:958-977)
 //   FUSED_AA    target and the aa_shared render in: loss partial and
 //               cotangent per pixel, then COT_AA's lattice chains
+//   FUSED_AA1   target in: the AA step in one launch, in three phases a tile
+//               (render_bwd.py:744-763): A traces the lattice chains through
+//               the render's sample_chain, keeping their colors in shared
+//               memory and each trace's (t, hit object, occlusion bits) in a
+//               device-memory record buffer; B combines them in AA_SHARED's
+//               order (aa_combine) into the pixels, the loss partial and the
+//               cotangents; C rebuilds each chain from its records
+//               (replay_chain: no closest-hit or shadow sweep) and
+//               reverse-sweeps it as COT_AA does
 // Every mode fills the camera slots (position, rotation, fov).
 //
 // Output: per-block partial sums of the flat gradient vector of
@@ -83,6 +92,8 @@
 // (4; fewer where their shared memory does not fit an SM) on each SM, at most
 // one a tile. Shared memory a block:
 //   4 B x (41 + 7 ns + 9 npl + 3 nl              the scene (7 ns: staged form)
+//          + TABLES: a tile's lists (+ the tree)  bwd_table_words
+//          + 3 x 1089 in FUSED_AA1               the lattice's colors
 //          + 6 x 256 with AA                     a tile's pixel cotangents
 //          + COLS: n_grads x nt                  every slot's columns
 //            ROWS: nwarps x (n_grads - 18 - fused) + (18 + fused) x nt)
@@ -117,7 +128,18 @@
 // AA lattice's positions and the border ring's test the frame's (global x),
 // and the fused modes' loss and cotangents have the frame's denominator
 // 3 Wg H, so the slices' partial sums add up to the frame's.
-// The one-launch fused AA step is later work.
+//
+// Large scenes (TABLES, the pinned sources): the kernel reads the render's
+// large-scene tables (rt_common.cuh TableArgs; the render's 16x16 tiles, so
+// the tables a frame's render builds serve its backward, AA lattice and
+// slices included): each block stages a tile's primary and level-0 shadow
+// lists between two barriers as it walks its tiles, and the bounce tree once
+// (tree_smem, the staged form; else it reads the tree where it lies, as the
+// global and rows forms do); the light cells stay in device memory. The
+// recomputed chains decide every hit and shadow through the render's own
+// level dispatch (closest_hit_at, light_occluded), so with the same tables
+// they are the render's, and with any of them on the gradients are the bits
+// of the same launch with every table off.
 //
 // This header holds the kernel and its launch. Four source files include it
 // once each, after choosing rt_common.cuh's arithmetic, as the render kernel's
@@ -139,7 +161,7 @@ namespace {
 
 using namespace rt;
 
-enum : int { COT_NOAA = 0, COT_AA = 1, FUSED_NOAA = 2, FUSED_AA = 3 };
+enum : int { COT_NOAA = 0, COT_AA = 1, FUSED_NOAA = 2, FUSED_AA = 3, FUSED_AA1 = 4 };
 
 // Resident blocks a multiprocessor the kernel asks ptxas to make room for (0:
 // no minimum, ptxas's own register choice); chip_smoke.py's [bwd-bounds] times
@@ -147,6 +169,13 @@ enum : int { COT_NOAA = 0, COT_AA = 1, FUSED_NOAA = 2, FUSED_AA = 3 };
 #ifndef RT_BWD_MIN_BLOCKS
 #define RT_BWD_MIN_BLOCKS 0
 #endif
+
+// The one-launch AA step's minimum: 4 blocks of MAX_NT threads, at most 128
+// registers. Left to itself ptxas gave its compat depth-2 instantiation 148
+// (3 blocks an SM where the planner deals out 4), and the 100-sphere
+// 1000x1000 step ran 6.2821 ms against 4.5247 with the step inside the other
+// modes' 128-register instantiations (chip_smoke.py [fused-aa1], PERF.md).
+constexpr int ONE_MIN_BLOCKS = 4;
 
 constexpr int MAX_DEPTH = 8;                 // bounces a chain can keep residuals for
 constexpr int MAX_NT = 128;                  // threads a block, at most
@@ -261,19 +290,20 @@ struct LightTerm {
 // Light l's terms at surface f. `known`: the occlusion bit comes from
 // occ_bits (the forward pass's test, stored); otherwise the shadow ray is
 // tested and its bit set. Lights past the bitmask (l >= 32) are always
-// re-tested: the same test on the same ray gives the same answer.
-template <bool COMPAT, bool CHEAP>
+// re-tested: the same test (light_occluded, with the tables of the trace's
+// level: `primary` is level 0) on the same ray gives the same answer.
+template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ LightTerm light_term(const SceneView& s, int l,
                                                 const Surface& f, float Rx,
                                                 float Ry, float Rz, unsigned& occ_bits,
-                                                bool known) {
+                                                bool known, const Tables& tb, bool primary) {
   LightTerm q;
   q.lrn = light_dir(s, l, f, q.lx, q.ly, q.lz);
   bool occ;
   if (known && l < 32) {
     occ = ((occ_bits >> l) & 1u) != 0u;
   } else {
-    occ = occluded<COMPAT, CHEAP>(s, f.px, f.py, f.pz, q.lx, q.ly, q.lz);
+    occ = light_occluded<COMPAT, CHEAP, TABLES>(s, f, q.lx, q.ly, q.lz, tb, l, primary);
     if (!known && l < 32 && occ) occ_bits |= 1u << l;
   }
   q.ldotn = q.lx * f.nx + q.ly * f.ny + q.lz * f.nz;
@@ -296,13 +326,14 @@ struct Shade {
   float lam_sum, spec_sum, shade, r, g, b;
 };
 
-template <bool COMPAT, bool CHEAP>
+template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ Shade shade_of(const SceneView& s, const Surface& f, float Rx,
                                           float Ry, float Rz, unsigned& occ_bits,
-                                          bool known) {
+                                          bool known, const Tables& tb, bool primary) {
   Shade o{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int l = 0; l < s.nl; ++l) {
-    const LightTerm q = light_term<COMPAT, CHEAP>(s, l, f, Rx, Ry, Rz, occ_bits, known);
+    const LightTerm q = light_term<COMPAT, CHEAP, TABLES>(s, l, f, Rx, Ry, Rz, occ_bits,
+                                                          known, tb, primary);
     o.lam_sum += q.m ? q.ldotn : 0.0f;
     o.spec_sum += q.p;
   }
@@ -317,17 +348,19 @@ __device__ __forceinline__ Shade shade_of(const SceneView& s, const Surface& f, 
 
 // Forward chain of one sample: primary trace + up to `depth` bounces,
 // keeping each trace's residuals; returns how many traces ran (the last one
-// may be a miss) and the weighted color sum.
-template <bool COMPAT, bool CHEAP, int D>
-__device__ __forceinline__ int fwd_chain(const SceneView& s, Ray ray, int depth,
-                                         Chain<D>& ch, float& cr, float& cg, float& cb) {
+// may be a miss) and the weighted color sum. Every sweep is the render's at
+// the trace's level (closest_hit_at, light_occluded), tables included.
+template <bool COMPAT, bool CHEAP, bool TABLES, int D>
+__device__ __forceinline__ int fwd_chain(const SceneView& s, const Tables& tb, Ray ray,
+                                         int depth, Chain<D>& ch, float& cr, float& cg,
+                                         float& cb) {
   const float refl = s.p[P_REFL];
   const int last = D < 0 ? depth : D;
   float w = 1.0f;
   cr = cg = cb = 0.0f;
   int k = 0;
   for (int bounce = 0; bounce <= last; ++bounce) {
-    const Hit h = closest_hit<COMPAT>(s, ray);
+    const Hit h = closest_hit_at<COMPAT, TABLES>(s, ray, tb, bounce == 0);
     ++k;
     const Surface f = surface<COMPAT>(ray, h);
     if (!f.alive) {
@@ -337,12 +370,53 @@ __device__ __forceinline__ int fwd_chain(const SceneView& s, Ray ray, int depth,
     float Rx, Ry, Rz;
     reflect_dir(ray.dx, ray.dy, ray.dz, f.nx, f.ny, f.nz, Rx, Ry, Rz);
     unsigned occ = 0u;
-    const Shade sh = shade_of<COMPAT, CHEAP>(s, f, Rx, Ry, Rz, occ, false);
+    const Shade sh = shade_of<COMPAT, CHEAP, TABLES>(s, f, Rx, Ry, Rz, occ, false, tb,
+                                                     bounce == 0);
     ch.put(bounce, {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, h.t, h.obj, occ});
     cr = cr + w * sh.r;
     cg = cg + w * sh.g;
     cb = cb + w * sh.b;
     w = w * refl;
+    ray = bounce_ray(f, Rx, Ry, Rz);
+  }
+  return k;
+}
+
+// What the one-launch fused AA step (FUSED_AA1) keeps of its lattice chains'
+// traces, in the block's region of the record buffer: for trace level lvl of
+// lattice position q, its t, hit object and occlusion bits at (3 lvl + 0, 1,
+// 2) * N_SHARED + q (coalesced across a warp's positions).
+struct Recorder {
+  float* base;   // the block's region, plus q
+  __device__ __forceinline__ void operator()(int lvl, const TraceOut& t) const {
+    float* r = base + 3 * lvl * N_SHARED;
+    r[0] = t.t;
+    r[N_SHARED] = __int_as_float(t.obj);
+    r[2 * N_SHARED] = __uint_as_float(t.occ);
+  }
+};
+
+// The forward chain rebuilt from a Recorder's records (rec: the block's region
+// plus q): each trace's ray from the one before it, elementwise (hit_of,
+// surface, reflect_dir, bounce_ray: the render's own functions and
+// arithmetic), with no closest-hit or shadow sweep. Returns how many traces
+// ran, as fwd_chain.
+template <bool COMPAT, int D>
+__device__ __forceinline__ int replay_chain(const SceneView& s, Ray ray, int depth,
+                                            Chain<D>& ch, const float* rec) {
+  const int last = D < 0 ? depth : D;
+  int k = 0;
+  for (int bounce = 0; bounce <= last; ++bounce) {
+    const float* r = rec + 3 * bounce * N_SHARED;
+    const float t = r[0];
+    const int obj = __float_as_int(r[N_SHARED]);
+    ch.put(bounce, {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, t, obj,
+                    __float_as_uint(r[2 * N_SHARED])});
+    ++k;
+    const Surface f = surface<COMPAT>(ray, hit_of<COMPAT>(s, t, obj));
+    if (!f.alive) break;
+    float Rx, Ry, Rz;
+    reflect_dir(ray.dx, ray.dy, ray.dz, f.nx, f.ny, f.nz, Rx, Ry, Rz);
     ray = bounce_ray(f, Rx, Ry, Rz);
   }
   return k;
@@ -359,12 +433,14 @@ struct MatAcc {
 // origin and direction; out, this trace's. `act`: this lane's trace
 // contributes (always, in COLS, whose caller sweeps only such traces; in ROWS
 // every lane of the warp calls it and a lane that does not contribute adds
-// zeros).
-template <bool COMPAT, bool CHEAP, bool COLS>
+// zeros). tb, primary: the tables and level-0 flag of the trace, for the
+// re-tested lights past the bitmask.
+template <bool COMPAT, bool CHEAP, bool COLS, bool TABLES>
 __device__ __forceinline__ void bwd_trace(const SceneView& s, const Slots& sl,
                                           const Sink<COLS>& out, const Res& rs, bool act,
                                           float g0, float g1, float g2, float w, float dw,
-                                          float* ob, float* db, MatAcc& ma) {
+                                          float* ob, float* db, MatAcc& ma, const Tables& tb,
+                                          bool primary) {
   const float* P = s.p;
   const float lamb = P[P_LAMB];
   const float dx = rs.dx, dy = rs.dy, dz = rs.dz;
@@ -392,7 +468,8 @@ __device__ __forceinline__ void bwd_trace(const SceneView& s, const Slots& sl,
   float pbbx = ob[0], pbby = ob[1], pbbz = ob[2];   // cotangent of Pb
   float lnx = 0.0f, lny = 0.0f, lnz = 0.0f;
   for (int l = 0; l < s.nl; ++l) {
-    const LightTerm q = light_term<COMPAT, CHEAP>(s, l, f, Rx, Ry, Rz, occ, true);
+    const LightTerm q = light_term<COMPAT, CHEAP, TABLES>(s, l, f, Rx, Ry, Rz, occ, true,
+                                                          tb, primary);
     lam_sum += q.m ? q.ldotn : 0.0f;
     spec_sum += q.p;
     const float chi = q.m ? lam_sum_bar : 0.0f;
@@ -509,20 +586,28 @@ __device__ __forceinline__ void bwd_trace(const SceneView& s, const Slots& sl,
 // cotangent in sample color space, or in FUSED_NOAA the pixel at `pix` forms
 // it from the render and the target. tail: this lane's column of the 18-19
 // material, camera and loss slots (slot k - sl.mat at tail[(k - sl.mat) * nt]).
-template <bool COMPAT, bool CHEAP, bool COLS, int D>
-__device__ __forceinline__ void sample(const SceneView& s, const Slots& sl,
+// ONE (FUSED_AA1): the chain is replayed from its records `rec` (Recorder)
+// instead of traced.
+template <bool COMPAT, bool CHEAP, bool COLS, bool TABLES, int D, bool ONE>
+__device__ __forceinline__ void sample(const SceneView& s, const Tables& tb, const Slots& sl,
                                        const Sink<COLS>& out, float* tail, int nt,
                                        float px, float py, int depth, bool fwd,
                                        bool fused_noaa, const float* __restrict__ target,
                                        size_t pix, float inv_denom, float two_inv, float sr,
-                                       float sg, float sb) {
+                                       float sg, float sb, const float* rec) {
   const float* P = s.p;
   const RayGen rg = raygen_full(P, px, py);
   Chain<D> ch;
   ch.clear();
   int K = 1;
   float cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  if (fwd) K = fwd_chain<COMPAT, CHEAP, D>(s, rg.ray, depth, ch, cr, cg, cb);
+  if (fwd) {
+    if constexpr (ONE) {
+      K = replay_chain<COMPAT, D>(s, rg.ray, depth, ch, rec);
+    } else {
+      K = fwd_chain<COMPAT, CHEAP, TABLES, D>(s, tb, rg.ray, depth, ch, cr, cg, cb);
+    }
+  }
   if (fused_noaa && fwd) {
     // the stored pixel (compat stores (r, b, g)), its MSE partial and cotangent
     const float st0 = cr, st1 = COMPAT ? cb : cg, st2 = COMPAT ? cg : cb;
@@ -548,7 +633,8 @@ __device__ __forceinline__ void sample(const SceneView& s, const Slots& sl,
     const Res rs = ch.get(i);
     const bool act = on && i < K && rs.obj >= 0;
     if (COLS && !act) continue;
-    bwd_trace<COMPAT, CHEAP, COLS>(s, sl, out, rs, act, sr, sg, sb, w, dw, ob, db, ma);
+    bwd_trace<COMPAT, CHEAP, COLS, TABLES>(s, sl, out, rs, act, sr, sg, sb, w, dw, ob, db, ma,
+                                           tb, i == 0);
   }
   if (!on) return;
 
@@ -578,40 +664,83 @@ __device__ __forceinline__ void sample(const SceneView& s, const Slots& sl,
 
 // Shared-memory words of one block (render_bwd_cuda.smem_bytes / 4); the
 // global form (staged false) leaves the sphere table out, the third form
-// (rows false) the rows too.
+// (rows false) the rows too. tab: the tables' words (bwd_table_words); one:
+// the one-launch fused AA step's lattice colors.
 inline size_t bwd_smem_words(int ns, int npl, int nl, int n_grads, bool aa, int nt,
-                             bool cols, bool staged = true, bool rows = true) {
+                             bool cols, bool staged = true, bool rows = true, int tab = 0,
+                             bool one = false) {
   const size_t mat = 7 * static_cast<size_t>(ns) + 9 * static_cast<size_t>(npl) +
                      3 * static_cast<size_t>(nl);
   const size_t tail = static_cast<size_t>(n_grads) - mat;
   return N_PARAMS + mat - (staged ? 0 : 7 * static_cast<size_t>(ns)) +
-         (aa ? COT_WORDS : 0) +
+         static_cast<size_t>(tab) + (one ? 3 * N_SHARED : 0) + (aa ? COT_WORDS : 0) +
          (cols ? static_cast<size_t>(n_grads) * nt
                : (rows ? static_cast<size_t>(nt / 32) * mat : 0) + tail * nt);
 }
 
+// Words of the tables a block keeps in shared memory: one tile's lists and,
+// with tree_smem (the staged form only), the bounce tree.
+__host__ __device__ inline int bwd_table_words(const TableArgs& a, int nl, bool tree_smem) {
+  return list_words(a, nl) + (tree_smem ? tree_words(a) : 0);
+}
+
+// Floats of a block's region of the one-launch step's records: 3 for each
+// trace level of each lattice position.
+__host__ __device__ inline size_t rec_words(int depth) {
+  return 3 * static_cast<size_t>(depth + 1) * N_SHARED;
+}
+
+// Lattice position q < N_SHARED (render_fwd_kernel.cuh's AA_SHARED order):
+// its grid cell (kx, ky) from the tile's corner and its half offsets.
+__device__ __forceinline__ void lattice_cell(int q, int& kx, int& ky, float& du, float& dv) {
+  du = 0.0f; dv = 0.0f;
+  if (q < N_C) {
+    kx = q / TILE; ky = q % TILE;
+  } else if (q < N_C + N_U) {
+    kx = (q - N_C) / TILE; ky = (q - N_C) % TILE; du = -0.5f;
+  } else if (q < N_C + N_U + N_V) {
+    kx = (q - N_C - N_U) / (TILE + 1); ky = (q - N_C - N_U) % (TILE + 1); dv = -0.5f;
+  } else {
+    kx = (q - N_C - N_U - N_V) / (TILE + 1); ky = (q - N_C - N_U - N_V) % (TILE + 1);
+    du = -0.5f; dv = -0.5f;
+  }
+}
+
 // G: the global form (the sphere table where it lies); R (with G, rows only):
 // the third form, the warps' rows in `scratch` (gridDim.x x nwarps x the
-// object and light slots) instead of shared memory.
-template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G, bool R = false>
-__global__ void __launch_bounds__(MAX_NT, RT_BWD_MIN_BLOCKS)
+// object and light slots) instead of shared memory. TABLES (the pinned
+// sources): the render's large-scene tables `ta` (any of them null: that cull
+// off; tree_smem: the staged form copies the bounce tree into shared memory,
+// else reads it where it lies). ONE: the instantiation of FUSED_AA1 (a
+// compile-time choice, so that the other modes' code is what it was without
+// it), with rec: gridDim.x regions of rec_words(depth) floats for the
+// lattice chains' records.
+template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G, bool R = false,
+          bool TABLES = false, bool ONE = false>
+__global__ void __launch_bounds__(MAX_NT, ONE ? ONE_MIN_BLOCKS : RT_BWD_MIN_BLOCKS)
 render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sph,
                   int ns, const float* __restrict__ pln, int npl,
                   const float* __restrict__ lts, int nl, const float* __restrict__ img,
                   const float* __restrict__ target, float* __restrict__ partial,
-                  int W, int H, int Wg, int depth, int mode, float* __restrict__ scratch) {
+                  int W, int H, int Wg, int depth, int mode, float* __restrict__ scratch,
+                  TableArgs ta, int tree_smem, float* __restrict__ rec) {
   static_assert(!R || (G && !COLS), "device-memory rows: the global form's rows only");
-  const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
-  const bool aa = mode == COT_AA || mode == FUSED_AA;
+  static_assert(!TABLES || !COLS, "the tables: the large scenes' per-warp rows only");
+  constexpr bool one = ONE;   // mode == FUSED_AA1
+  const bool fused = mode == FUSED_NOAA || mode == FUSED_AA || one;
+  const bool aa = mode == COT_AA || mode == FUSED_AA || one;
   const Slots sl(ns, npl, nl, fused);
   const int nt = blockDim.x, tid = threadIdx.x, lane = tid & 31, nwarps = nt >> 5;
   const int n_tail = sl.n - sl.mat;
+  const bool tree_in = TABLES && !G && tree_smem;   // the tree staged
   extern __shared__ float smem[];
   float* s_p = smem;
   float* s_sph = s_p + N_PARAMS;                 // the staged form's sphere table
   float* s_pln = s_sph + (G ? 0 : 7 * ns);
   float* s_lts = s_pln + 9 * npl;
-  float* s_cot = s_lts + 3 * nl;                 // AA: centre, then neighbour cotangents
+  float* s_tab = s_lts + 3 * nl;                 // TABLES: the tree (tree_in), a tile's lists
+  float* s_samp = s_tab + (TABLES ? bwd_table_words(ta, nl, tree_in) : 0);
+  float* s_cot = s_samp + (one ? 3 * N_SHARED : 0);   // AA: centre, then neighbour cotangents
   float* s_acc = s_cot + (aa ? COT_WORDS : 0);
   // COLS: every slot's columns; ROWS: the warps' rows of the object and light
   // slots (R: in scratch), then the tail slots' columns.
@@ -627,10 +756,20 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   for (int i = tid; i < 9 * npl; i += nt) s_pln[i] = pln[i];
   for (int i = tid; i < 3 * nl; i += nt) s_lts[i] = lts[i];
   for (int i = tid; i < acc_words; i += nt) s_acc[i] = 0.0f;
+  Tables tb = no_tables();
+  int* s_lists = reinterpret_cast<int*>(s_tab + (tree_in ? tree_words(ta) : 0));
+  if constexpr (TABLES) {
+    if (tree_in) {
+      stage_tree<false>(ta, s_tab, tid, nt, tb);
+    } else {
+      stage_tree<true>(ta, s_tab, tid, nt, tb);
+    }
+  }
   __syncthreads();
   const SceneView s{s_p, G ? sph : s_sph, ns, s_pln, npl, s_lts, nl, G};
   const Sink<COLS> out{COLS ? s_acc + tid : rows + (tid >> 5) * sl.mat, nt, lane};
   float* tail = COLS ? s_acc + sl.mat * nt + tid : s_acc + (R ? 0 : nwarps * sl.mat) + tid;
+  float* blk_rec = one ? rec + static_cast<size_t>(blockIdx.x) * rec_words(depth) : nullptr;
 
   // the frame's denominator; x0g: the slice's first column in the frame
   const float inv_denom = static_cast<float>(1.0 / (3.0 * Wg * static_cast<double>(H)));
@@ -640,28 +779,64 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   const int n_ty = (H + TILE - 1) / TILE;
   const int n_tiles = ((W + TILE - 1) / TILE) * n_ty;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    if constexpr (TABLES) {
+      // the tile's lists, once every thread is done with the last tile's
+      __syncthreads();
+      stage_lists(ta, nl, tile, s_lists, tid, nt, tb);
+      __syncthreads();
+    }
     // local tile corner (x0, y0), x tiles outermost; fx0: its global x
     const int x0 = tile / n_ty * TILE, y0 = tile % n_ty * TILE;
     const float fx0 = static_cast<float>(x0) + s_p[P_X0], fy0 = static_cast<float>(y0);
+    if constexpr (ONE) {
+      // Phase A: the tile's lattice chains through the render's sample_chain
+      // (its sweeps, tables and shading), each chain's color into s_samp and
+      // its traces' records into the block's region. Thread tid takes
+      // positions tid, tid + nt, ..., as in phase C, so each thread reads back
+      // only the records it wrote.
+      for (int q = tid; q < N_SHARED; q += nt) {
+        int kx, ky;
+        float du, dv;
+        lattice_cell(q, kx, ky, du, dv);
+        const Rgb c = sample_chain<COMPAT, CHEAP, TABLES>(
+            s, tb, (fx0 + du) + static_cast<float>(kx), (fy0 + dv) + static_cast<float>(ky),
+            depth, Recorder{blk_rec + q});
+        s_samp[q] = c.r;
+        s_samp[N_SHARED + q] = c.g;
+        s_samp[2 * N_SHARED + q] = c.b;
+      }
+      __syncthreads();
+    }
     if (aa) {
       // The tile's pixel cotangents (and, fused, the loss): the centre
       // sample's share (weight 1/9 inside the border ring, 1 on it; compat's
       // store swap) and each neighbour sample's (1/9, inside the ring only).
+      // Fused, the pixel is the render's (FUSED_AA: the aa_shared launch's
+      // image; FUSED_AA1, phase B: its combine of phase A's colors).
       for (int p = tid; p < TILE_PX; p += nt) {
-        const int x = x0 + p / TILE, y = y0 + p % TILE;
+        const int kx = p / TILE, ky = p % TILE;
+        const int x = x0 + kx, y = y0 + ky;
         float g0 = 0.0f, g1 = 0.0f, g2 = 0.0f;
         bool interior = false;
         if (x < W && y < H) {
           const size_t pix = (static_cast<size_t>(x) * H + y) * 3;
+          interior = x0g + x >= 1 && x0g + x <= Wg - 2 && y >= 1 && y <= H - 2;
           if (fused) {
-            const float d0 = img[pix] - target[pix], d1 = img[pix + 1] - target[pix + 1],
-                        d2 = img[pix + 2] - target[pix + 2];
+            Rgb c;
+            if constexpr (ONE) {
+              c = aa_combine<COMPAT>(s_samp, N_SHARED, TILE, p, N_C + p,
+                                     N_C + N_U + kx * (TILE + 1) + ky,
+                                     N_C + N_U + N_V + kx * (TILE + 1) + ky, interior);
+            } else {
+              c = {img[pix], img[pix + 1], img[pix + 2]};
+            }
+            const float d0 = c.r - target[pix], d1 = c.g - target[pix + 1],
+                        d2 = c.b - target[pix + 2];
             tail[(sl.loss - sl.mat) * nt] += (d0 * d0 + d1 * d1 + d2 * d2) * inv_denom;
             g0 = two_inv * d0; g1 = two_inv * d1; g2 = two_inv * d2;
           } else {
             g0 = img[pix]; g1 = img[pix + 1]; g2 = img[pix + 2];
           }
-          interior = x0g + x >= 1 && x0g + x <= Wg - 2 && y >= 1 && y <= H - 2;
         }
         const float wc = interior ? inv9 : 1.0f;
         s_cot[p] = wc * g0;
@@ -684,26 +859,22 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
         // sum of its in-tile pixels' shares.
         int kx = 0, ky = 0;
         float du = 0.0f, dv = 0.0f;
+        if (q < N_SHARED) lattice_cell(q, kx, ky, du, dv);
         const auto share = [&](int p) {   // pixel p's neighbour share
           sr += s_cot[3 * TILE_PX + p];
           sg += s_cot[4 * TILE_PX + p];
           sb += s_cot[5 * TILE_PX + p];
         };
         if (q < N_C) {
-          kx = q / TILE; ky = q % TILE;
           const int p = kx * TILE + ky;
           sr = s_cot[p]; sg = s_cot[TILE_PX + p]; sb = s_cot[2 * TILE_PX + p];
         } else if (q < N_C + N_U) {
-          kx = (q - N_C) / TILE; ky = (q - N_C) % TILE; du = -0.5f;
           if (kx < TILE) share(kx * TILE + ky);
           if (kx >= 1) share((kx - 1) * TILE + ky);
         } else if (q < N_C + N_U + N_V) {
-          kx = (q - N_C - N_U) / (TILE + 1); ky = (q - N_C - N_U) % (TILE + 1); dv = -0.5f;
           if (ky < TILE) share(kx * TILE + ky);
           if (ky >= 1) share(kx * TILE + ky - 1);
         } else if (q < N_SHARED) {
-          kx = (q - N_C - N_U - N_V) / (TILE + 1); ky = (q - N_C - N_U - N_V) % (TILE + 1);
-          du = -0.5f; dv = -0.5f;
           if (kx < TILE && ky < TILE) share(kx * TILE + ky);
           if (kx >= 1 && ky >= 1) share((kx - 1) * TILE + ky - 1);
           if (kx < TILE && ky >= 1) share(kx * TILE + ky - 1);
@@ -726,11 +897,12 @@ render_bwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
           }
         }
       }
-      sample<COMPAT, CHEAP, COLS, D>(s, sl, out, tail, nt, px, py, depth, fwd,
-                                     !aa && fused, target, pix, inv_denom, two_inv, sr,
-                                     sg, sb);
+      // Phase C of FUSED_AA1: the chain replayed from its records.
+      sample<COMPAT, CHEAP, COLS, TABLES, D, ONE>(s, tb, sl, out, tail, nt, px, py, depth,
+                                                  fwd, !aa && fused, target, pix, inv_denom,
+                                                  two_inv, sr, sg, sb, blk_rec + (ONE ? q : 0));
     }
-    if (aa) __syncthreads();   // the next tile rewrites the cotangents
+    if (aa) __syncthreads();   // the next tile rewrites the colors and cotangents
   }
 
   // The block's partial column: each slot reduced once, in a fixed order.
@@ -771,14 +943,38 @@ struct BwdJob {
   cudaStream_t stream;
   int Wg;   // the frame's width; W is the slice's
   float* scratch;   // the third form's rows (n_rows x nt / 32 x the object and light slots)
+  TableArgs ta;     // the large-scene tables (TABLES; all null: every cull off)
+  int tree_smem;    // the staged form copies the bounce tree into shared memory
+  float* rec;       // FUSED_AA1: n_rows x rec_words(depth) floats
 };
 
-template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G, bool R>
+// What every entry point checks of a job: sizes, depth, mode, the gradient's
+// length, the grid, the threads, and the inputs its mode reads.
+inline bool bwd_job_ok(const BwdJob& j) {
+  const bool fused = j.mode == FUSED_NOAA || j.mode == FUSED_AA || j.mode == FUSED_AA1;
+  const long long n_tiles =
+      static_cast<long long>((j.W + TILE - 1) / TILE) * ((j.H + TILE - 1) / TILE);
+  return j.W > 0 && j.H > 0 && j.Wg >= j.W && j.depth >= 0 && j.depth <= MAX_DEPTH &&
+         j.ns >= 0 && j.npl >= 0 && j.nl >= 0 && j.mode >= COT_NOAA && j.mode <= FUSED_AA1 &&
+         j.n_grads == 7 * j.ns + 9 * j.npl + 3 * j.nl + 18 + (fused ? 1 : 0) &&
+         j.n_rows >= 1 && j.n_rows <= n_tiles && (j.nt == 32 || j.nt == 64 || j.nt == 128) &&
+         (j.mode == FUSED_NOAA || j.mode == FUSED_AA1 || j.img != nullptr) &&
+         (!fused || j.target != nullptr) && (j.mode != FUSED_AA1 || j.rec != nullptr);
+}
+
+// Shared memory of a job's block, in the form (G, R) and tables it runs with.
+template <bool G, bool R, bool TABLES>
+size_t job_smem(const BwdJob& j, bool cols) {
+  const bool aa = j.mode == COT_AA || j.mode == FUSED_AA || j.mode == FUSED_AA1;
+  const int tab = TABLES ? bwd_table_words(j.ta, j.nl, !G && j.tree_smem) : 0;
+  return sizeof(float) * bwd_smem_words(j.ns, j.npl, j.nl, j.n_grads, aa, j.nt, cols, !G, !R,
+                                        tab, j.mode == FUSED_AA1);
+}
+
+template <bool COMPAT, bool CHEAP, bool COLS, int D, bool G, bool R, bool TABLES, bool ONE>
 cudaError_t launch_job(const BwdJob& j) {
-  const bool aa = j.mode == COT_AA || j.mode == FUSED_AA;
-  const size_t smem =
-      sizeof(float) * bwd_smem_words(j.ns, j.npl, j.nl, j.n_grads, aa, j.nt, COLS, !G, !R);
-  const auto kernel = render_bwd_kernel<COMPAT, CHEAP, COLS, D, G, R>;
+  const size_t smem = job_smem<G, R, TABLES>(j, COLS);
+  const auto kernel = render_bwd_kernel<COMPAT, CHEAP, COLS, D, G, R, TABLES, ONE>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -786,31 +982,38 @@ cudaError_t launch_job(const BwdJob& j) {
   }
   kernel<<<j.n_rows, j.nt, smem, j.stream>>>(
       j.params, j.sph, j.ns, j.pln, j.npl, j.lts, j.nl, j.img, j.target, j.partial, j.W, j.H,
-      j.Wg, j.depth, j.mode, j.scratch);
+      j.Wg, j.depth, j.mode, j.scratch, j.ta, j.tree_smem, j.rec);
   return cudaGetLastError();
 }
 
 // The instantiation for (compat, cheap) at depth D; G: the global form, R:
-// its rows in device memory.
-template <bool COLS, int D, bool G = false, bool R = false>
-cudaError_t dispatch_arith(bool compat, bool cheap, const BwdJob& j) {
+// its rows in device memory; TABLES: the large-scene tables read; ONE: the
+// one-launch AA step.
+template <bool COLS, int D, bool G, bool R, bool TABLES, bool ONE>
+cudaError_t dispatch_cc(bool compat, bool cheap, const BwdJob& j) {
   if (compat) {
-    return cheap ? launch_job<true, true, COLS, D, G, R>(j)
-                 : launch_job<true, false, COLS, D, G, R>(j);
+    return cheap ? launch_job<true, true, COLS, D, G, R, TABLES, ONE>(j)
+                 : launch_job<true, false, COLS, D, G, R, TABLES, ONE>(j);
   }
-  return cheap ? launch_job<false, true, COLS, D, G, R>(j)
-               : launch_job<false, false, COLS, D, G, R>(j);
+  return cheap ? launch_job<false, true, COLS, D, G, R, TABLES, ONE>(j)
+               : launch_job<false, false, COLS, D, G, R, TABLES, ONE>(j);
+}
+
+template <bool COLS, int D, bool G = false, bool R = false, bool TABLES = false>
+cudaError_t dispatch_arith(bool compat, bool cheap, const BwdJob& j) {
+  if (j.mode == FUSED_AA1) return dispatch_cc<COLS, D, G, R, TABLES, true>(compat, cheap, j);
+  return dispatch_cc<COLS, D, G, R, TABLES, false>(compat, cheap, j);
 }
 
 // Depths 0-3 take their own instantiation, the others the general one.
-template <bool COLS, bool G = false, bool R = false>
+template <bool COLS, bool G = false, bool R = false, bool TABLES = false>
 cudaError_t dispatch_depth(bool compat, bool cheap, const BwdJob& j) {
   switch (j.depth) {
-    case 0: return dispatch_arith<COLS, 0, G, R>(compat, cheap, j);
-    case 1: return dispatch_arith<COLS, 1, G, R>(compat, cheap, j);
-    case 2: return dispatch_arith<COLS, 2, G, R>(compat, cheap, j);
-    case 3: return dispatch_arith<COLS, 3, G, R>(compat, cheap, j);
-    default: return dispatch_arith<COLS, -1, G, R>(compat, cheap, j);
+    case 0: return dispatch_arith<COLS, 0, G, R, TABLES>(compat, cheap, j);
+    case 1: return dispatch_arith<COLS, 1, G, R, TABLES>(compat, cheap, j);
+    case 2: return dispatch_arith<COLS, 2, G, R, TABLES>(compat, cheap, j);
+    case 3: return dispatch_arith<COLS, 3, G, R, TABLES>(compat, cheap, j);
+    default: return dispatch_arith<COLS, -1, G, R, TABLES>(compat, cheap, j);
   }
 }
 

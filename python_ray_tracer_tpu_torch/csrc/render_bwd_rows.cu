@@ -11,35 +11,32 @@
 
 extern "C" {
 
-// rt_render_bwd (render_bwd.cu) for a large scene in the third form: the same
-// arguments (large_scene, per-warp rows, the global form), and scratch, n_rows
-// x nt / 32 x (7 ns + 9 npl + 3 nl) floats of device memory that the launch
-// zeroes and fills with the warps' rows. Returns cudaGetLastError() after the
-// launch.
+// rt_render_bwd (render_bwd.cu) for a large scene in the third form: the
+// same arguments (large_scene, per-warp rows, the global form, the tables;
+// the tree is read where it lies), and scratch, n_rows x nt / 32 x (7 ns + 9
+// npl + 3 nl) floats of device memory that the launch zeroes and fills with
+// the warps' rows. Returns cudaGetLastError() after the launch.
 int rt_render_bwd_rows(const float* params, const float* sph, int ns, const float* pln,
                        int npl, const float* lts, int nl, const float* img,
                        const float* target, float* partial, int n_rows, int n_grads,
                        int W, int H, int Wg, int depth, int mode, int compat,
-                       int cheap_shadow, int nt, float* scratch, void* stream) {
-  const bool fused = mode == FUSED_NOAA || mode == FUSED_AA;
-  const bool aa = mode == COT_AA || mode == FUSED_AA;
-  const long long n_tiles =
-      static_cast<long long>((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE);
-  if (W <= 0 || H <= 0 || Wg < W || depth < 0 || depth > MAX_DEPTH || ns < 0 || npl < 0 ||
-      nl < 0 || mode < COT_NOAA || mode > FUSED_AA ||
-      n_grads != 7 * ns + 9 * npl + 3 * nl + 18 + (fused ? 1 : 0) ||
-      n_rows < 1 || n_rows > n_tiles || !(nt == 32 || nt == 64 || nt == 128) ||
-      scratch == nullptr ||
-      sizeof(float) * bwd_smem_words(ns, npl, nl, n_grads, aa, nt, false, false, false) >
-          static_cast<size_t>(227 * 1024) ||
-      (mode != FUSED_NOAA && img == nullptr) || (fused && target == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+                       int cheap_shadow, int nt, float* scratch,
+                       const int* vis_idx, const int* vis_cnt, int vis_k,
+                       const int* sh_idx, const int* sh_cnt, int sh_k,
+                       const int* perm, const float* box, int n_leaves,
+                       const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
+                       float* rec, void* stream) {
+  const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
+                     lc_idx, lc_cnt, lc_hdr};
   const BwdJob job{params, sph, ns, pln, npl, lts, nl, img, target, partial,
                    n_rows, W, H, depth, mode, n_grads, nt,
-                   static_cast<cudaStream_t>(stream), Wg, scratch};
+                   static_cast<cudaStream_t>(stream), Wg, scratch, ta, 0, rec};
+  if (!bwd_job_ok(job) || scratch == nullptr || !tables_ok(ta) ||
+      job_smem<true, true, true>(job, false) > static_cast<size_t>(227 * 1024)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(
-      dispatch_depth<false, true, true>(compat != 0, cheap_shadow != 0, job));
+      dispatch_depth<false, true, true, true>(compat != 0, cheap_shadow != 0, job));
 }
 
 }  // extern "C"

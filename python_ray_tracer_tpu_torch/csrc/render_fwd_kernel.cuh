@@ -212,7 +212,6 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
   const float gy = fy0 + static_cast<float>(threadIdx.x);
   const bool interior = gx >= 1.0f && gx <= static_cast<float>(Wg - 2) &&
                         gy >= 1.0f && gy <= static_cast<float>(H - 2);
-  const float inv9 = static_cast<float>(1.0 / 9.0);
 
   if (MODE == AA_SHARED) {
     // Evaluate the block's 4 shared sample grids into shared memory:
@@ -247,20 +246,8 @@ render_fwd_kernel(const float* __restrict__ params, const float* __restrict__ sp
     const int iU = N_C + kx * TILE + ky;                        // U[kx][ky]
     const int iV = N_C + N_U + kx * (TILE + 1) + ky;            // V[kx][ky]
     const int iUV = N_C + N_U + N_V + kx * (TILE + 1) + ky;     // UV[kx][ky]
-    float n[3];
-    for (int c = 0; c < 3; ++c) {
-      const float* sc = samp + c * N_SHARED;
-      n[c] = sc[iU] + sc[iU + TILE] + sc[iV] + sc[iV + 1] + sc[iUV] +
-             sc[iUV + TILE + 1] + sc[iUV + 1] + sc[iUV + TILE + 2];
-    }
-    const float pr = samp[iC], pg = samp[N_SHARED + iC], pb = samp[2 * N_SHARED + iC];
-    if (COMPAT) {   // accumulation swap + store swap composed
-      store(out, H, x, y, interior ? (pr + n[0]) * inv9 : pr,
-            interior ? (pb + n[1]) * inv9 : pb, interior ? (pg + n[2]) * inv9 : pg);
-    } else {
-      store(out, H, x, y, interior ? (pr + n[0]) * inv9 : pr,
-            interior ? (pg + n[1]) * inv9 : pg, interior ? (pb + n[2]) * inv9 : pb);
-    }
+    const Rgb o = aa_combine<COMPAT>(samp, N_SHARED, TILE, iC, iU, iV, iUV, interior);
+    store(out, H, x, y, o.r, o.g, o.b);
     return;
   }
 

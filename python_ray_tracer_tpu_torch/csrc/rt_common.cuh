@@ -150,11 +150,14 @@ struct Rgb {
 };
 
 // Shading result of one trace: color, biased next origin, unit mirror
-// direction, and whether the ray hit anything.
+// direction, whether the ray hit anything, and what it hit.
 struct TraceOut {
   float r, g, b;
   Ray next;
   bool alive;
+  float t;        // the hit's distance (the far clip on a miss)
+  int obj;        // the hit object, -1 on a miss
+  unsigned occ;   // bit l: light l (< 32) occluded
 };
 
 #if RT_PIN
@@ -430,12 +433,16 @@ __host__ __device__ inline int tree_words(const TableArgs& a) {
   return a.perm ? tree_box_words(a.n_leaves) + a.n_leaves * LEAF : 0;
 }
 
+// 4-byte words of shared memory a block needs for one tile's lists.
+__host__ __device__ inline int list_words(const TableArgs& a, int nl) {
+  return (a.vis_idx ? a.vis_k : 0) + (a.sh_idx ? nl * (a.sh_k + 1) : 0);
+}
+
 // 4-byte words of shared memory a block needs for its copy of the tables
 // (G, the global form: the tree's left out, as it is read where it lies).
 template <bool G = false>
 __host__ __device__ inline int table_words(const TableArgs& a, int nl) {
-  return (G ? 0 : tree_words(a)) + (a.vis_idx ? a.vis_k : 0) +
-         (a.sh_idx ? nl * (a.sh_k + 1) : 0);
+  return (G ? 0 : tree_words(a)) + list_words(a, nl);
 }
 
 // Copy the bounce tree into shared memory at `base` (tree_words words) and
@@ -467,16 +474,11 @@ __host__ __device__ inline Tables no_tables() {
                 nullptr, nullptr, nullptr};
 }
 
-// Copy tile `tile`'s lists and the bounce tree into shared memory at `base`
-// (table_words<G> words; G: the tree read where it lies) and return the
-// block's view of them. Every thread of the block calls it; a __syncthreads()
-// must follow before the view is read.
-template <bool G = false>
-__device__ __forceinline__ Tables stage_tables(const TableArgs& a, int nl, int tile,
-                                               float* base, int tid, int nt) {
-  Tables tb = no_tables();
-  stage_tree<G>(a, base, tid, nt, tb);
-  int* w = reinterpret_cast<int*>(base + (G ? 0 : tree_words(a)));
+// Copy tile `tile`'s lists into shared memory at `w` (list_words words) and
+// point tb at them. Every thread of the block calls it; a __syncthreads()
+// must follow before they are read.
+__device__ __forceinline__ void stage_lists(const TableArgs& a, int nl, int tile, int* w,
+                                            int tid, int nt, Tables& tb) {
   if (a.vis_idx) {
     const int n = a.vis_cnt[tile];
     const int* src = a.vis_idx + static_cast<size_t>(tile) * a.vis_k;
@@ -495,6 +497,19 @@ __device__ __forceinline__ Tables stage_tables(const TableArgs& a, int nl, int t
     }
     tb.sh = w; tb.sh_n = cnt; tb.sh_k = a.sh_k;
   }
+}
+
+// Copy tile `tile`'s lists and the bounce tree into shared memory at `base`
+// (table_words<G> words; G: the tree read where it lies) and return the
+// block's view of them. Every thread of the block calls it; a __syncthreads()
+// must follow before the view is read.
+template <bool G = false>
+__device__ __forceinline__ Tables stage_tables(const TableArgs& a, int nl, int tile,
+                                               float* base, int tid, int nt) {
+  Tables tb = no_tables();
+  stage_tree<G>(a, base, tid, nt, tb);
+  stage_lists(a, nl, tile, reinterpret_cast<int*>(base + (G ? 0 : tree_words(a))), tid, nt,
+              tb);
   return tb;
 }
 
@@ -985,34 +1000,67 @@ __device__ __forceinline__ Ray bounce_ray(const Surface& f, float rx, float ry, 
   return {ff(BIAS, rx, f.px), ff(BIAS, ry, f.py), ff(BIAS, rz, f.pz), rx, ry, rz};
 }
 
-// Closest hit -> normal-biased hit point, unit normal and albedo. With
-// TABLES, the primary ray (level 0) sweeps the tile's cone-visible list and a
-// bounce ray the bounce tree (where the scene has one); without, and for a
-// table that is off, every ray sweeps every sphere. The hit-extent kernel
-// (hit_extents.cu) calls this same function, so its hit points are the
-// render kernel's level-0 shadow-ray origins.
+// Closest hit of a ray at its level. With TABLES, the primary ray (level 0)
+// sweeps the tile's cone-visible list and a bounce ray the bounce tree (where
+// the scene has one); without, and for a table that is off, every ray sweeps
+// every sphere. The render, hit-extent and backward kernels all decide their
+// hits here, so with the same tables they decide the same ones.
+template <bool COMPAT, bool TABLES>
+__device__ __forceinline__ Hit closest_hit_at(const SceneView& s, const Ray& ray,
+                                              const Tables& tb, bool primary) {
+  if (!TABLES) return closest_hit<COMPAT>(s, ray);
+  if (primary) return closest_hit_listed<COMPAT>(s, ray, tb.vis, tb.vis_n);
+  if (tb.n_leaves > 0) return closest_hit_tree<COMPAT>(s, ray, tb);
+  return closest_hit<COMPAT>(s, ray);
+}
+
+// Closest hit -> normal-biased hit point, unit normal and albedo
+// (closest_hit_at's sweeps). The hit-extent kernel (hit_extents.cu) calls
+// this same function, so its hit points are the render kernel's level-0
+// shadow-ray origins.
 template <bool COMPAT, bool TABLES>
 __device__ __forceinline__ Surface primary_geometry(const SceneView& s, const Ray& ray,
                                                     const Tables& tb, bool primary) {
-  if (!TABLES) return surface<COMPAT>(ray, closest_hit<COMPAT>(s, ray));
-  if (primary) {
-    return surface<COMPAT>(ray, closest_hit_listed<COMPAT>(s, ray, tb.vis, tb.vis_n));
+  return surface<COMPAT>(ray, closest_hit_at<COMPAT, TABLES>(s, ray, tb, primary));
+}
+
+// Is the shadow ray from surface f toward light l (unit direction l) blocked?
+// With TABLES, a level-0 shadow ray sweeps the tile's occluder list for the
+// light, a bounce shadow ray its light cell's row (occluded_cells), or the
+// bounce tree where the cells are off; without, and for a table that is off,
+// every sphere. The render and the backward kernels both ask here.
+template <bool COMPAT, bool CHEAP, bool TABLES>
+__device__ __forceinline__ bool light_occluded(const SceneView& s, const Surface& f,
+                                               float lx, float ly, float lz,
+                                               const Tables& tb, int l, bool primary) {
+  if (TABLES && primary && tb.sh_n != nullptr) {
+    return occluded_listed<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz,
+                                          tb.sh + l * tb.sh_k, tb.sh_n[l]);
   }
-  if (tb.n_leaves > 0) return surface<COMPAT>(ray, closest_hit_tree<COMPAT>(s, ray, tb));
-  return surface<COMPAT>(ray, closest_hit<COMPAT>(s, ray));
+  if (TABLES && !primary && tb.lc_cnt != nullptr) {
+    return occluded_cells<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb, l);
+  }
+  if (TABLES && !primary && tb.n_leaves > 0) {
+    return occluded_tree<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb);
+  }
+  return occluded<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz);
 }
 
 // One shading evaluation (reference trace, trace.py:45-112): ambient +
 // Lambert over unoccluded lights (+ Phong in clean mode), and the next
-// mirror ray. A miss returns black with alive = false and no next ray. With
-// TABLES, level-0 shadow rays sweep the tile's occluder lists and bounce
-// shadow rays their light cell's row (occluded_cells), or the bounce tree
-// where the cells are off.
+// mirror ray. A miss returns black with alive = false and no next ray. The
+// sweeps are closest_hit_at's and light_occluded's. Besides the color, the
+// record the backward kernel replays: the hit's t and object, and bit l of
+// occ for each occluded light l < 32 (the render drops them).
 template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
                                           const Tables& tb, bool primary) {
   TraceOut o;
-  const Surface f = primary_geometry<COMPAT, TABLES>(s, ray, tb, primary);
+  const Hit h = closest_hit_at<COMPAT, TABLES>(s, ray, tb, primary);
+  const Surface f = surface<COMPAT>(ray, h);
+  o.t = h.t;
+  o.obj = h.obj;
+  o.occ = 0u;
   o.alive = f.alive;
   if (!f.alive) {
     o.r = o.g = o.b = 0.0f;
@@ -1028,17 +1076,8 @@ __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
   for (int l = 0; l < nl; ++l) {
     float lx, ly, lz;
     light_dir(s, l, f, lx, ly, lz);
-    bool occ;
-    if (TABLES && primary && tb.sh_n != nullptr) {
-      occ = occluded_listed<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz,
-                                           tb.sh + l * tb.sh_k, tb.sh_n[l]);
-    } else if (TABLES && !primary && tb.lc_cnt != nullptr) {
-      occ = occluded_cells<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb, l);
-    } else if (TABLES && !primary && tb.n_leaves > 0) {
-      occ = occluded_tree<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb);
-    } else {
-      occ = occluded<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz);
-    }
+    const bool occ = light_occluded<COMPAT, CHEAP, TABLES>(s, f, lx, ly, lz, tb, l, primary);
+    if (occ && l < 32) o.occ |= 1u << l;
     float lam = lamb * (lx * f.nx + ly * f.ny + lz * f.nz);
     lam = (!occ && lam > 0.0f) ? lam : 0.0f;
     r = r + lam * f.ar;
@@ -1061,24 +1100,60 @@ __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
   return o;
 }
 
+// A sample chain's recorder that keeps nothing (the render's).
+struct NoRecord {
+  __device__ __forceinline__ void operator()(int, const TraceOut&) const {}
+};
+
 // Primary trace + up to `depth` mirror bounces; bounce i adds
 // reflection^(i+1) * rgb_i. A ray that misses stops: its weight is 0 from
-// then on, so stopping is exact.
-template <bool COMPAT, bool CHEAP, bool TABLES>
+// then on, so stopping is exact. rec(level, trace) sees each trace as it is
+// made (the one-launch fused AA backward keeps their records).
+template <bool COMPAT, bool CHEAP, bool TABLES, typename Rec = NoRecord>
 __device__ __forceinline__ Rgb sample_chain(const SceneView& s, const Tables& tb,
-                                            float px, float py, int depth) {
+                                            float px, float py, int depth,
+                                            const Rec& rec = Rec()) {
   TraceOut t = trace<COMPAT, CHEAP, TABLES>(s, raygen(s.p, px, py), tb, true);
+  rec(0, t);
   float r = t.r, g = t.g, b = t.b;
   const float refl = s.p[P_REFL];
   float w = 1.0f;
   for (int bounce = 0; bounce < depth && t.alive; ++bounce) {
     w = w * refl;
     t = trace<COMPAT, CHEAP, TABLES>(s, t.next, tb, false);
+    rec(bounce + 1, t);
     r = r + w * t.r;
     g = g + w * t.g;
     b = b + w * t.b;
   }
   return {r, g, b};
+}
+
+// The shared-sample AA combine of one pixel (render_fwd_kernel.cuh's
+// AA_SHARED; the one-launch fused AA backward forms its loss with it): the
+// lattice colors samp (channel c of position q at samp[c * stride + q]), the
+// pixel's centre iC and the first of its U, V and UV neighbours (iU, iV, iUV;
+// grids `tile` and `tile + 1` wide), in the stored layout: the centre sample
+// alone on the border ring, else its 8 neighbours added and the sum scaled by
+// float32(1/9); compat stores the centre (R, B, G) and the neighbours
+// unswapped (the accumulation swap composed with the store swap).
+template <bool COMPAT>
+__device__ __forceinline__ Rgb aa_combine(const float* samp, int stride, int tile, int iC,
+                                          int iU, int iV, int iUV, bool interior) {
+  const float inv9 = static_cast<float>(1.0 / 9.0);
+  float n[3];
+  for (int c = 0; c < 3; ++c) {
+    const float* sc = samp + c * stride;
+    n[c] = sc[iU] + sc[iU + tile] + sc[iV] + sc[iV + 1] + sc[iUV] +
+           sc[iUV + tile + 1] + sc[iUV + 1] + sc[iUV + tile + 2];
+  }
+  const float pr = samp[iC], pg = samp[stride + iC], pb = samp[2 * stride + iC];
+  if (COMPAT) {
+    return {interior ? (pr + n[0]) * inv9 : pr, interior ? (pb + n[1]) * inv9 : pb,
+            interior ? (pg + n[2]) * inv9 : pg};
+  }
+  return {interior ? (pr + n[0]) * inv9 : pr, interior ? (pg + n[1]) * inv9 : pg,
+          interior ? (pb + n[2]) * inv9 : pb};
 }
 
 // --- adjoint helpers shared by the backward kernels ------------------------------

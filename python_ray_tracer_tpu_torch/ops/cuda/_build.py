@@ -132,9 +132,9 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                 ci, vp, vp, ci, ci, vp]),
         "rt_shadow_lists": (ci, [vp, vp, vp, ci, vp, vp, ci, vp, ci, ci, ci, vp, vp, ci, vp]),
         "rt_render_bwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
-                               ci, ci, ci, ci, ci, ci, ci, ci, vp]),
+                               ci, ci, ci, ci, ci, ci, ci, ci, *tables, ci, vp, vp]),
         "rt_render_bwd_rows": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, vp, vp, ci, ci, ci, ci, ci,
-                                    ci, ci, ci, ci, ci, vp, vp]),
+                                    ci, ci, ci, ci, ci, vp, *tables, vp, vp]),
         "rt_reduce_rows": (ci, [vp, ci, ci, vp, vp]),
         "rt_soft_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, cf, vp, ci, ci, ci, vp]),
         "rt_soft_fwd_cap": (ci, [ci, ci, ci, ci]),

@@ -15,9 +15,26 @@ columns or rows). Four kernel modes:
     16x16 tile, each with the cotangent :func:`lattice_cotangents` gives it;
   * ``fused_noaa``: the training step in one launch: render, MSE against the
     target, loss slot, reverse sweep (:func:`loss_and_scene_grads_cuda`);
-  * ``fused_aa``: the ``aa_shared`` render kernel makes the image, then the
-    backward kernel forms the loss and cotangent per pixel and runs the
-    lattice's reverse chains.
+  * ``fused_aa``: the AA training step, in one of two forms. Two launches:
+    the ``aa_shared`` render kernel makes the image, then the backward kernel
+    forms the loss and cotangent per pixel and runs the lattice's reverse
+    chains. One launch (the kernel's ``FUSED_AA1``): each block traces its
+    tile's lattice chains through the render's own trace, keeping each
+    trace's (t, hit object, occlusion bits) in a device-memory record buffer
+    (:func:`rec_floats`), forms the pixels, the loss and the cotangents from
+    their colors, and replays the records in the reverse sweep with no
+    closest-hit or shadow sweep. The wrappers take the one launch: on the
+    card it is 12-31% faster on the fit scene, the demo scene and 100
+    spheres, and ties at 1000 (chip_smoke.py ``[fused-aa1]``, PERF.md §6);
+    the two launches stay for the tests and ``chip_smoke.py``.
+
+A scene of more than ``render_cuda.CULL_MIN_SPHERES`` spheres reads the
+render's large-scene tables (``render_cuda.large_scene_tables``: the tiles'
+primary and level-0 shadow lists, the bounce tree, the light cells; the same
+16x16 tiles, so one build serves the render and the backward of a frame).
+Every cull is exact, so the gradients and loss are the bits of the same
+launch with every table off; ``cull``, ``shadow_lists`` and ``group_cull``
+turn them off as the JAX wrappers' keywords do.
 
 Every entry point takes the slice form of ``render_bwd._scene_grads_pallas``:
 ``x_offset`` / ``local_width`` give the gradient partials (and, fused, the
@@ -43,13 +60,19 @@ import torch
 from ...models.camera import Camera
 from ...models.scene import LEAF_PATHS, Lights, Materials, Planes, Scene, Spheres
 from ..render import render_image, render_rays
-from . import render_cuda
+from . import cull_tables, render_cuda
 
 MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")   # C enum order
-# Kernel launches per mode; a plain counter, reset with reset_launch_counts().
-LAUNCHES = {m: 0 for m in MODES}
-# Of those, the launches in the third form (rows in device memory).
-ROWS_LAUNCHES = {m: 0 for m in MODES}
+# Kernel launches per mode, the one-launch fused AA step under its own key
+# ("fused_aa" counts the two-launch step's backward alone); a plain counter,
+# reset with reset_launch_counts().
+COUNTED = MODES + ("fused_aa1",)
+LAUNCHES = {m: 0 for m in COUNTED}
+# Of those, the launches in the third form (rows in device memory) and
+# those that read a large-scene table.
+ROWS_LAUNCHES = {m: 0 for m in COUNTED}
+TABLE_LAUNCHES = {m: 0 for m in COUNTED}
+FUSED_AA1 = 4                # the C enum's one-launch fused AA step
 # Calls of the plain versions, so a run can show that it never took them.
 PLAIN_CALLS = {"scene_grads": 0, "loss_and_scene_grads": 0}
 
@@ -76,9 +99,10 @@ CAMERA_GRAD_GROUPS = ("camera.position", "camera.rotation", "camera.fov")
 
 
 def reset_launch_counts() -> None:
-    for m in MODES:
+    for m in COUNTED:
         LAUNCHES[m] = 0
         ROWS_LAUNCHES[m] = 0
+        TABLE_LAUNCHES[m] = 0
     for k in PLAIN_CALLS:
         PLAIN_CALLS[k] = 0
 
@@ -232,13 +256,15 @@ def held_out(img_a: torch.Tensor, img_b: torch.Tensor,
     return held.reshape(img_a.shape[:2])
 
 
-def kernel_and_plain(mode: str, camera, scene, x, *, depth: int = 2, compat: bool = True):
+def kernel_and_plain(mode: str, camera, scene, x, *, depth: int = 2, compat: bool = True,
+                     aa_form: str = "one"):
     """The wrapper's and the plain version's flat gradients for one kernel
     mode on the same input ``x`` (the target in the fused modes, else the
     cotangent), camera slots included, with the :func:`held_out` pixels taken
     out of both sides: in the cotangent modes their cotangent is zeroed; in
     the fused modes each side's own loss and gradient on those pixels (its
     cotangent mode on ``2 (render - target) / n`` there) is subtracted.
+    ``aa_form``: the fused AA step's form (:func:`loss_and_scene_grads_cuda`).
     Returns ``(kernel_flat, plain_flat, plain_all_pixels, held)``, the third
     for :func:`grad_rule`'s ``scale_ref``."""
     aa = mode.endswith("_aa")
@@ -258,7 +284,7 @@ def kernel_and_plain(mode: str, camera, scene, x, *, depth: int = 2, compat: boo
         keep = x * ~held
         return cot_kernel(keep), cot_plain(keep), cot_plain(x), held[..., 0]
     loss, scene_g, cam_g = loss_and_scene_grads_cuda(camera, scene, x, return_camera=True,
-                                                     **kw)
+                                                     aa_form=aa_form, **kw)
     plain_all = loss_and_scene_grads_plain(camera, scene, x, **kw)
     sides = ((flatten_grads(scene_g, cam_g, loss), img_k, cot_kernel),
              (plain_all, img_p, cot_plain))
@@ -281,7 +307,8 @@ class Plan(NamedTuple):
     shared memory; else the global form reads it from device memory,
     render_bwd_kernel.cuh's head) and ``device_rows`` (the third form: the
     global form with the warps' rows in a device-memory scratch buffer of
-    :func:`scratch_floats` floats)."""
+    :func:`scratch_floats` floats), and ``tree_smem`` (the staged form copies
+    the bounce tree into shared memory too; else reads it where it lies)."""
     nt: int
     cols: bool
     blocks: int
@@ -289,21 +316,46 @@ class Plan(NamedTuple):
     smem: int
     staged: bool = True
     device_rows: bool = False
+    tree_smem: bool = False
 
 
 def smem_bytes(ns: int, npl: int, nl: int, fused: bool, aa: bool, nt: int,
-               cols: bool, staged: bool = True, device_rows: bool = False) -> int:
+               cols: bool, staged: bool = True, device_rows: bool = False,
+               tables: int = 0, one_launch: bool = False) -> int:
     """Shared memory of one block (``bwd_smem_words`` in
     render_bwd_kernel.cuh): the scene (the sphere table only when
-    ``staged``), a tile's pixel cotangents with AA, and the slot columns
-    (``cols``) or the warps' rows of the object and light slots (not with
-    ``device_rows``) beside the 18-19 tail slots' columns."""
+    ``staged``), the ``tables`` words (:func:`table_words`), the one-launch
+    fused AA step's lattice colors (3 x 1089 words), a tile's pixel
+    cotangents with AA, and the slot columns (``cols``) or the warps' rows of
+    the object and light slots (not with ``device_rows``) beside the 18-19
+    tail slots' columns."""
     n = n_grads(ns, npl, nl, fused)
     mat = 7 * ns + 9 * npl + 3 * nl
-    words = render_cuda.N_PARAMS + mat - (0 if staged else 7 * ns) + \
-        (6 * TILE * TILE if aa else 0)
+    words = render_cuda.N_PARAMS + mat - (0 if staged else 7 * ns) + tables + \
+        (3 * LATTICE if one_launch else 0) + (6 * TILE * TILE if aa else 0)
     words += n * nt if cols else (0 if device_rows else (nt // 32) * mat) + (n - mat) * nt
     return 4 * words
+
+
+def table_words(tabs, nl: int) -> tuple:
+    """``(lists, tree)``: words of ``render_cuda.large_scene_tables``' result
+    ``(vis, shadow, tree, cells)`` that a block keeps in shared memory
+    (``bwd_table_words``): one tile's primary list and ``nl`` occluder lists
+    with their counts, and the bounce tree where the staged form copies it
+    (the light cells stay in device memory)."""
+    vis, shadow, tree, _ = tabs
+    lists = (vis[2] if vis is not None else 0) + \
+        (nl * (shadow[2] + 1) if shadow is not None else 0)
+    if tree is None:
+        return lists, 0
+    return lists, cull_tables.tree_box_words(tree.n_leaves) + tree.n_leaves * cull_tables.LEAF
+
+
+def rec_floats(shape: "Plan", depth: int) -> int:
+    """Device memory of the one-launch fused AA step's records (floats): each
+    block's 3 words for each trace level of each of a tile's 1089 lattice
+    chains."""
+    return shape.blocks * 3 * (depth + 1) * LATTICE
 
 
 def scratch_floats(ns: int, npl: int, nl: int, shape: Plan) -> int:
@@ -320,7 +372,8 @@ def n_tiles(W: int, H: int) -> int:
 
 def plan(ns: int, npl: int, nl: int, W: int, H: int, *, aa: bool, fused: bool,
          large: bool, n_sm: int = H100_SMS, blocks_per_sm: int = BLOCKS_PER_SM,
-         staged: bool | None = None, device_rows: bool | None = None) -> Plan:
+         staged: bool | None = None, device_rows: bool | None = None, lists: int = 0,
+         tree: int = 0, one_launch: bool = False, tree_smem: bool | None = None) -> Plan:
     """The backward launch for a scene and image. For a small scene (``large``
     False: the slot columns exist only in the small-scene kernels, which
     always stage the scene) the most threads a block (128, 64, 32) whose slot
@@ -337,8 +390,15 @@ def plan(ns: int, npl: int, nl: int, W: int, H: int, *, aa: bool, fused: bool,
     (past 8208 spheres at 1 plane and 3 lights, 7984 fused with AA) takes the
     third form at 128 threads: the global form with the warps' rows in device
     memory, the same bits as the others at the same launch shape
-    (``device_rows`` True: that form alone; False: never). Raises
-    ``ValueError`` where no plan fits."""
+    (``device_rows`` True: that form alone; False: never). ``lists`` and
+    ``tree``: the large-scene tables' words in shared memory (:func:`table_words`):
+    a tile's lists in every form, and the bounce tree, which the staged form
+    copies too where that keeps the plan's threads and blocks a
+    multiprocessor (on the card 2-3% faster than reading it where it lies at
+    1000 spheres, chip_smoke.py ``[bwd-tables-time]``, PERF.md §6;
+    ``tree_smem`` False: never, True: wherever it fits); ``one_launch``: the
+    one-launch fused AA step's colors. Raises ``ValueError`` where no plan
+    fits."""
     forms = (True, False) if large else (True,)
     forms = forms if staged is None else tuple(f for f in forms if f == staged)
     tries = [(cols, nt, form, False) for cols in ((False,) if large else (True, False))
@@ -347,13 +407,19 @@ def plan(ns: int, npl: int, nl: int, W: int, H: int, *, aa: bool, fused: bool,
         tries = []
     if large and device_rows is not False and staged is not True:
         tries.append((False, 128, False, True))
+    def per_sm(smem):
+        return max(1, min(blocks_per_sm, SM_SMEM // (smem + 1024)))
     for cols, nt, form, rows in tries:
-        smem = smem_bytes(ns, npl, nl, fused, aa, nt, cols, form, rows)
+        smem = smem_bytes(ns, npl, nl, fused, aa, nt, cols, form, rows, lists, one_launch)
         if smem > SMEM_LIMIT:
             continue
-        per_sm = max(1, min(blocks_per_sm, SM_SMEM // (smem + 1024)))
-        tiles = math.ceil(n_tiles(W, H) / min(n_tiles(W, H), n_sm * per_sm))
-        return Plan(nt, cols, math.ceil(n_tiles(W, H) / tiles), tiles, smem, form, rows)
+        with_tree = smem + 4 * tree
+        tree_in = bool(tree) and form and not cols and tree_smem is not False and \
+            with_tree <= SMEM_LIMIT and (tree_smem or per_sm(with_tree) == per_sm(smem))
+        smem = with_tree if tree_in else smem
+        tiles = math.ceil(n_tiles(W, H) / min(n_tiles(W, H), n_sm * per_sm(smem)))
+        return Plan(nt, cols, math.ceil(n_tiles(W, H) / tiles), tiles, smem, form, rows,
+                    tree_in)
     raise ValueError(f"scene (ns={ns}, npl={npl}, nl={nl}) needs "
                      f"{smem_bytes(ns, npl, nl, fused, aa, 32, False, not large, large)} B "
                      f"of shared memory in the backward kernel, a block has at most "
@@ -575,31 +641,59 @@ def _check(camera, scene, image, depth: int, name: str, lw: int):
 def launch(out, partial, params, tables, counts, *, image, target, W: int, H: int,
            depth: int, mode: str, compat: bool, cheap_shadow: bool,
            shape: Plan, lib=None, W_global: int | None = None,
-           scratch=None) -> torch.Tensor:
+           scratch=None, tabs=None, one_launch: bool = False, rec=None) -> torch.Tensor:
     """Launch the backward kernel and its reduction on the current stream, for
     inputs already packed and checked: ``out (n_grads,)``, ``partial
     (n_grads * shape.blocks,)``, ``params``, the ``scene_tables``, the object
-    counts, ``image`` (the cotangent, or the rendered image in ``fused_aa``;
-    None in ``fused_noaa``) and ``target`` (fused modes; else None), all
-    float32, contiguous, on the current device, and the launch's
-    :class:`Plan` (its ``staged`` and ``device_rows`` pick the form; the
-    third form's rows go to ``scratch``, a float32 buffer of at least
-    :func:`scratch_floats`, allocated here where None). ``W``: the slice's width
-    where ``W_global`` (the frame's, default ``W``) is wider, its offset the
-    packed ``P_X0``. A scene of more than ``render_cuda.CULL_MIN_SPHERES``
-    spheres runs the kernel compiled in the arithmetic of the render kernel's
-    large-scene instantiation, so that it recomputes that render's own hits.
-    ``lib``: a kernel library other than the package's (one built with other
-    flags, :func:`._build.build`). Counts the launch in :data:`LAUNCHES`."""
+    counts, ``image`` (the cotangent, or the rendered image in the two-launch
+    ``fused_aa``; None in ``fused_noaa`` and with ``one_launch``) and
+    ``target`` (fused modes; else None), all float32, contiguous, on the
+    current device, and the launch's :class:`Plan` (its ``staged`` and
+    ``device_rows`` pick the form; the third form's rows go to ``scratch``, a
+    float32 buffer of at least :func:`scratch_floats`, allocated here where
+    None). ``W``: the slice's width where ``W_global`` (the frame's, default
+    ``W``) is wider, its offset the packed ``P_X0``. A scene of more than
+    ``render_cuda.CULL_MIN_SPHERES`` spheres runs the kernel compiled in the
+    arithmetic of the render kernel's large-scene instantiation, so that it
+    recomputes that render's own hits, and reads ``tabs``, the frame's (or
+    slice's) ``render_cuda.large_scene_tables`` built for this mode's samples
+    (None: every table off; the plan's ``tree_smem`` needs the tree). ``one_launch``
+    (``fused_aa`` only): the one-launch form, its records in ``rec`` (at least
+    :func:`rec_floats`, allocated here where None). ``lib``: a kernel library
+    other than the package's (one built with other flags,
+    :func:`._build.build`). Counts the launch in :data:`LAUNCHES` (and
+    :data:`ROWS_LAUNCHES`, :data:`TABLE_LAUNCHES`) under ``mode``, or under
+    ``fused_aa1`` with ``one_launch``."""
     from ._build import load_library
-    lib = load_library() if lib is None else lib
+    from .hit_extents_cuda import check_tables, table_args
     (sph, pln, lts), (ns, npl, nl) = tables, counts
+    large = ns > render_cuda.CULL_MIN_SPHERES
+    tabs = (None, None, None, None) if tabs is None else tuple(tabs)
+    if any(t is not None for t in tabs) and not large:
+        raise ValueError(f"a scene of {ns} spheres takes no large-scene table")
+    if one_launch and mode != "fused_aa":
+        raise ValueError(f"the one-launch form is fused_aa's, not {mode}'s")
+    if shape.tree_smem and (tabs[2] is None or not shape.staged or shape.device_rows):
+        raise ValueError("tree_smem: the staged form with a bounce tree only")
+    check_tables(*tabs[:3], n_tiles=n_tiles(W, H), ns=ns, nl=nl, dev=out.device,
+                 cells=tabs[3])
+    if one_launch:
+        need = rec_floats(shape, depth)
+        if rec is None:
+            rec = torch.empty(need, dtype=torch.float32, device=out.device)
+        if rec.dtype != torch.float32 or rec.device != out.device or \
+                rec.numel() < need or not rec.is_contiguous():
+            raise ValueError(f"backward records: expected {need} contiguous float32 on "
+                             f"{out.device}")
+    lib = load_library() if lib is None else lib
+    targs = [a for t in table_args(*tabs) for a in t]
     stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
     args = (params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,
             None if image is None else image.data_ptr(),
             None if target is None else target.data_ptr(), partial.data_ptr(),
             shape.blocks, out.shape[0], W, H, W if W_global is None else W_global, depth,
-            MODES.index(mode), int(compat), int(cheap_shadow))
+            FUSED_AA1 if one_launch else MODES.index(mode), int(compat), int(cheap_shadow))
+    rec_ptr = rec.data_ptr() if one_launch else None
     if shape.device_rows:
         need = scratch_floats(ns, npl, nl, shape)
         if scratch is None:
@@ -608,69 +702,96 @@ def launch(out, partial, params, tables, counts, *, image, target, W: int, H: in
                 scratch.numel() < need or not scratch.is_contiguous():
             raise ValueError(f"backward scratch: expected {need} contiguous float32 on "
                              f"{out.device}")
-        rc = lib.rt_render_bwd_rows(*args, shape.nt, scratch.data_ptr(), stream)
+        rc = lib.rt_render_bwd_rows(*args, shape.nt, scratch.data_ptr(), *targs, rec_ptr,
+                                    stream)
     else:
-        rc = lib.rt_render_bwd(*args, int(ns > render_cuda.CULL_MIN_SPHERES), shape.nt,
-                               int(shape.cols), int(shape.staged), stream)
+        rc = lib.rt_render_bwd(*args, int(large), shape.nt, int(shape.cols),
+                               int(shape.staged), *targs, int(shape.tree_smem), rec_ptr,
+                               stream)
     if rc == 0:
         rc = lib.rt_reduce_rows(partial.data_ptr(), shape.blocks, out.shape[0],
                                 out.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"backward kernel ({mode}) failed: CUDA error {rc} "
-                           f"({lib.rt_error_string(rc).decode()})")
-    LAUNCHES[mode] += 1
+        raise RuntimeError(f"backward kernel ({mode}{', one launch' if one_launch else ''}) "
+                           f"failed: CUDA error {rc} ({lib.rt_error_string(rc).decode()})")
+    key = "fused_aa1" if one_launch else mode
+    LAUNCHES[key] += 1
     if shape.device_rows:
-        ROWS_LAUNCHES[mode] += 1
+        ROWS_LAUNCHES[key] += 1
+    if any(t is not None for t in tabs):
+        TABLE_LAUNCHES[key] += 1
     return out
 
 
 def launch_plan(camera, scene, mode: str, local_width: int | None = None,
-                staged: bool | None = None, device_rows: bool | None = None) -> Plan:
+                staged: bool | None = None, device_rows: bool | None = None,
+                tabs=None, tree_smem: bool | None = None, one_launch: bool = False) -> Plan:
     """:func:`plan` for a launch of ``mode`` on this camera's image (or a
     slice ``local_width`` wide) and scene, on the current card's
-    multiprocessors (``staged``, ``device_rows``: as for :func:`plan`)."""
+    multiprocessors (``staged``, ``device_rows``, ``tree_smem``: as for
+    :func:`plan`), with the tables ``tabs`` (``render_cuda.large_scene_tables``'
+    result) and the one-launch form's colors."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     W, H = camera.resolution
     W = W if local_width is None else local_width
     n_sm = torch.cuda.get_device_properties(camera.position.device).multi_processor_count
+    lists, tree = table_words((None, None, None, None) if tabs is None else tabs, nl)
     return plan(ns, npl, nl, W, H, aa=mode.endswith("_aa"), fused=mode.startswith("fused"),
                 large=ns > render_cuda.CULL_MIN_SPHERES, n_sm=n_sm, staged=staged,
-                device_rows=device_rows)
+                device_rows=device_rows, lists=lists, tree=tree, one_launch=one_launch,
+                tree_smem=tree_smem)
 
 
-def _run(camera, scene, image, target, *, depth, compat, mode, x_offset=0, lw=None):
+def _run(camera, scene, image, target, *, depth, compat, mode, x_offset=0, lw=None,
+         cull=True, shadow_lists=None, group_cull=None, tabs=None, aa_form="one"):
     dev = camera.position.device
     Wg, H = camera.resolution
     W = Wg if lw is None else lw
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
     n = n_grads(*counts, mode.startswith("fused"))
-    shape = launch_plan(camera, scene, mode, W)
+    one = mode == "fused_aa" and aa_form != "two"
     with torch.cuda.device(dev), torch.no_grad():
         params = render_cuda.pack_params(camera, scene, compat, x_offset).to(dev)
         tables = render_cuda.scene_tables(scene)
+        packed = (params, tables, counts)
+        if tabs is None and counts[0] > render_cuda.CULL_MIN_SPHERES:
+            tabs = render_cuda.large_scene_tables(
+                camera, scene, depth=depth, aliasing=mode.endswith("_aa"), compat=compat,
+                cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed,
+                x_offset=x_offset, local_width=W)
+        shape = launch_plan(camera, scene, mode, W, tabs=tabs, one_launch=one)
         cheap = render_cuda.shadow_cheap_ok(scene, compat)
-        if mode == "fused_aa":
+        if mode == "fused_aa" and not one:
+            vis, shadow, tree, cells = (None,) * 4 if tabs is None else tabs
             image = render_cuda.launch(torch.empty((W, H, 3), device=dev), params,
                                        tables, counts, depth=depth, mode="aa_shared",
-                                       compat=compat, cheap_shadow=cheap, W_global=Wg)
+                                       compat=compat, cheap_shadow=cheap, vis=vis,
+                                       shadow=shadow, tree=tree, cells=cells, W_global=Wg)
         out = torch.empty(n, device=dev)
         partial = torch.empty(n * shape.blocks, device=dev)
         return launch(out, partial, params, tables, counts,
                       image=None if image is None else image.contiguous(),
                       target=None if target is None else target.contiguous(),
                       W=W, H=H, depth=depth, mode=mode, compat=compat,
-                      cheap_shadow=cheap, shape=shape, W_global=Wg)
+                      cheap_shadow=cheap, shape=shape, W_global=Wg, tabs=tabs,
+                      one_launch=one)
 
 
 def scene_grads_cuda(camera, scene, g_image, *, depth: int = 2, compat: bool = True,
                      aliasing: bool = False, return_camera: bool = False,
-                     x_offset: int = 0, local_width: int | None = None):
+                     cull: bool = True, x_offset: int = 0, local_width: int | None = None,
+                     shadow_lists: bool | None = None, group_cull: bool | None = None,
+                     tabs=None):
     """Image cotangent ``(w, h, 3)`` -> ``Scene`` gradients (with
     ``return_camera``: ``(scene_g, camera_g)``), as
     ``render_bwd.scene_grads_pallas``; with ``x_offset`` / ``local_width`` the
     cotangent is the slice's ``(local_width, h, 3)`` and the gradients its
-    partials. CPU tensors take :func:`scene_grads_plain`; CUDA tensors launch
-    ``cot_aa`` (with ``aliasing``) or ``cot_noaa``."""
+    partials. CPU tensors take :func:`scene_grads_plain`, whatever the cull
+    keywords say; CUDA tensors launch ``cot_aa`` (with ``aliasing``) or
+    ``cot_noaa``, on a large scene through the tables that ``cull``,
+    ``shadow_lists`` and ``group_cull`` give (``render_cuda.large_scene_tables``;
+    ``tabs``: those tables where the caller has them, built for the same
+    frame, slice and ``aliasing``)."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     lw = render_cuda.slice_width(camera, x_offset, local_width)
     if camera.position.device.type == "cpu":
@@ -679,24 +800,33 @@ def scene_grads_cuda(camera, scene, g_image, *, depth: int = 2, compat: bool = T
     else:
         _check(camera, scene, g_image, depth, "g_image", lw)
         flat = _run(camera, scene, g_image, None, depth=depth, compat=compat,
-                    mode="cot_aa" if aliasing else "cot_noaa", x_offset=x_offset, lw=lw)
+                    mode="cot_aa" if aliasing else "cot_noaa", x_offset=x_offset, lw=lw,
+                    cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, tabs=tabs)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=False)
 
 
 def loss_and_scene_grads_cuda(camera, scene, target, *, depth: int = 2,
                               compat: bool = True, aliasing: bool = False,
-                              return_camera: bool = False, x_offset: int = 0,
-                              local_width: int | None = None):
+                              return_camera: bool = False, cull: bool = True,
+                              x_offset: int = 0, local_width: int | None = None,
+                              shadow_lists: bool | None = None,
+                              group_cull: bool | None = None, aa_form: str = "one"):
     """The training step's ``(loss, scene_g)`` (with ``return_camera``:
     ``(loss, scene_g, camera_g)``) for ``loss = mean((render - target)^2)``,
     as ``render_bwd.loss_and_scene_grads_pallas``; with ``x_offset`` /
     ``local_width``, ``target`` is the slice's and the loss and gradients its
     partials over the frame's denominator. CPU tensors take
-    :func:`loss_and_scene_grads_plain`; CUDA tensors launch ``fused_noaa``, or
-    with ``aliasing`` the ``aa_shared`` render and then ``fused_aa``."""
+    :func:`loss_and_scene_grads_plain`, whatever the cull keywords say; CUDA
+    tensors launch ``fused_noaa``, or with ``aliasing`` the fused AA step in
+    its one-launch form (``aa_form="two"``: the ``aa_shared`` render, then the
+    backward, for the tests and ``chip_smoke.py``), on a large scene through
+    the tables that ``cull``, ``shadow_lists`` and ``group_cull`` give (one
+    build serves the two-launch form's render and its backward)."""
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     lw = render_cuda.slice_width(camera, x_offset, local_width)
+    if aa_form not in ("one", "two"):
+        raise ValueError(f"aa_form must be 'one' or 'two', got {aa_form!r}")
     if camera.position.device.type == "cpu":
         flat = loss_and_scene_grads_plain(camera, scene, target, depth=depth,
                                           compat=compat, aliasing=aliasing,
@@ -705,6 +835,7 @@ def loss_and_scene_grads_cuda(camera, scene, target, *, depth: int = 2,
         _check(camera, scene, target, depth, "target", lw)
         flat = _run(camera, scene, None, target, depth=depth, compat=compat,
                     mode="fused_aa" if aliasing else "fused_noaa", x_offset=x_offset,
-                    lw=lw)
+                    lw=lw, cull=cull, shadow_lists=shadow_lists, group_cull=group_cull,
+                    aa_form=aa_form)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=True)

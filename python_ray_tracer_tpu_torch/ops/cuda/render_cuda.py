@@ -408,8 +408,10 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
 
 class _RenderImageFast(torch.autograd.Function):
     """Render kernel forward; backward kernel (cotangent mode, camera slots
-    included) backward. Inputs after the five settings: the camera's position,
-    rotation and fov, then the scene's 12 tensors in dataclass order."""
+    included) backward, through the forward's own large-scene tables (the
+    same camera, scene and samples). Inputs after the five settings: the
+    camera's position, rotation and fov, then the scene's 12 tensors in
+    dataclass order."""
 
     @staticmethod
     def forward(ctx, resolution, depth, aliasing, compat, culls, *leaves):
@@ -417,9 +419,15 @@ class _RenderImageFast(torch.autograd.Function):
         ctx.settings = (resolution, depth, aliasing, compat)
         ctx.save_for_backward(*leaves)
         cull, shadow_lists, group_cull = culls
-        return render_image_cuda(camera, scene, depth=depth, aliasing=aliasing,
-                                 compat=compat, cull=cull, shadow_lists=shadow_lists,
-                                 group_cull=group_cull)
+        packed = packed_inputs(camera, scene, depth=depth, compat=compat)
+        with torch.cuda.device(camera.position.device):
+            ctx.tabs = large_scene_tables(camera, scene, depth=depth, aliasing=aliasing,
+                                          compat=compat, cull=cull,
+                                          shadow_lists=shadow_lists, group_cull=group_cull,
+                                          packed=packed)
+        return render_packed(camera, scene, packed, depth=depth,
+                             mode="aa_shared" if aliasing else "aa_none", compat=compat,
+                             tabs=ctx.tabs)
 
     @staticmethod
     def backward(ctx, g):
@@ -428,7 +436,8 @@ class _RenderImageFast(torch.autograd.Function):
         camera, scene = _assemble(resolution, ctx.saved_tensors)
         scene_g, cam_g = scene_grads_cuda(camera, scene, g.float().contiguous(),
                                           depth=depth, compat=compat,
-                                          aliasing=aliasing, return_camera=True)
+                                          aliasing=aliasing, return_camera=True,
+                                          tabs=ctx.tabs)
         return (None, None, None, None, None, cam_g.position, cam_g.rotation,
                 cam_g.fov, *scene_g.leaves())
 
@@ -446,9 +455,9 @@ def render_image_fast(camera, scene, depth: int = 2, aliasing: bool = True,
     version (differentiated by autograd); on CUDA tensors the forward is the
     render kernel (on the large-scene path for a large scene, with
     :func:`render_image_cuda`'s three cull keywords) and the backward is the
-    backward kernel, for the scene and the camera alike. The backward kernel
-    sweeps every sphere: the culls are exact, so its recomputed forward is the
-    render kernel's. No light-count fallback: the kernel has no such limit."""
+    backward kernel, for the scene and the camera alike, through the same
+    tables (every cull is exact, so its recomputed forward is the render
+    kernel's). No light-count fallback: the kernel has no such limit."""
     if camera.position.device.type == "cpu":
         return render_image(camera, scene, depth=depth, aliasing=aliasing,
                             compat=compat)

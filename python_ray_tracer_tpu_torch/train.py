@@ -120,22 +120,26 @@ def trainable_paths(trainable: Optional[Sequence[str]]) -> List[str]:
 
 
 def cuda_value_and_grad(camera, target, *, depth: int = 2, compat: bool = True,
-                        aliasing: bool = False, fused: bool = True) -> Callable:
+                        aliasing: bool = False, fused: bool = True, aa_form: str = "one",
+                        **culls) -> Callable:
     """``scene -> (loss, scene_grads)`` through the kernels
-    (``train.pallas_value_and_grad``)."""
+    (``train.pallas_value_and_grad``); ``aa_form`` (the fused AA step's form)
+    and the cull keywords ``culls`` (``cull``, ``shadow_lists``,
+    ``group_cull``) go to the wrappers."""
     if fused:
         def value_and_grad(scene):
             return loss_and_scene_grads_cuda(camera, scene, target, depth=depth,
-                                             compat=compat, aliasing=aliasing)
+                                             compat=compat, aliasing=aliasing,
+                                             aa_form=aa_form, **culls)
         return value_and_grad
 
     def value_and_grad(scene):
         img = render_image_cuda(camera, scene, depth=depth, aliasing=aliasing,
-                                compat=compat)
+                                compat=compat, **culls)
         diff = img - target
         loss = torch.mean(diff ** 2)
         grads = scene_grads_cuda(camera, scene, 2.0 * diff / diff.numel(), depth=depth,
-                                 compat=compat, aliasing=aliasing)
+                                 compat=compat, aliasing=aliasing, **culls)
         return loss, grads
     return value_and_grad
 

@@ -372,6 +372,72 @@ def hard_bwd_work(W: int, H: int, ns: int, npl: int, nl: int, mode: str, counts)
     return ops, nbytes
 
 
+def position_tiles(positions, H: int) -> torch.Tensor:
+    """Long ``(N,)``: the 16x16 tile (x tiles outermost, as the tables number
+    them) whose chains trace each sample position ``(N, 2)`` (pixel-index
+    space; a half-offset position on a tile's low edge is its tile's, a
+    corner lattice position at +15.5 the next tile's too, counted once in
+    the first)."""
+    t = torch.floor((positions.to(torch.float64) + 0.5) / 16.0).to(torch.int64)
+    return t[:, 0] * -(-H // 16) + t[:, 1]
+
+
+def level0_hits_by_tile(camera, scene, positions, *, compat: bool = True,
+                        block: int = 1 << 18) -> torch.Tensor:
+    """Float64 ``(n_tiles,)``: the primary rays at ``positions (N, 2)`` that
+    hit something, by :func:`position_tiles`' tile (the level-0 shadow rays'
+    origins, one a light each), by the plain closest hit."""
+    from ..ops.intersect import closest_hit
+    W, H = camera.resolution
+    n_tiles = -(-W // 16) * -(-H // 16)
+    out = torch.zeros(n_tiles, dtype=torch.float64)
+    tiles = position_tiles(positions, H)
+    with torch.no_grad():
+        for pos, til in zip(torch.split(positions.to(camera.device), block),
+                            torch.split(tiles, block)):
+            d = camera.ray_directions(pos, compat=compat)
+            o = camera.ray_origin().expand(d.shape)
+            hit = closest_hit(o, d, scene, compat=compat)["hit"].cpu()
+            out += torch.bincount(til[hit], minlength=n_tiles).to(torch.float64)
+    return out
+
+
+def hard_bwd_work_culled(W: int, H: int, ns: int, npl: int, nl: int, mode: str, counts,
+                         positions, hits0, vis=None, shadow=None, tree=None) -> tuple:
+    """(operations, bytes) the hard render's gradient needs through the
+    large-scene tables (csrc/render_bwd_kernel.cuh's TABLES forms), as
+    :func:`large_scene_work` counts them for the render: :func:`hard_bwd_work`
+    with each primary ray's closest-hit sweep over its tile's cone-visible
+    list (``vis = (idx, cnt, k)``; ``positions`` are the chains'
+    :func:`bwd_positions`, by :func:`position_tiles`), each level-0 shadow
+    ray's one sphere test only where its (tile, light) occluder list
+    (``shadow``) is not empty (``hits0``: :func:`level0_hits_by_tile`, the
+    live primary hits by tile), and with the bounce tree (``tree``, a
+    ``cull_tables.BounceTree``) a bounce ray's sweep at its floor of one
+    sphere test (:func:`bounce_floor`). A table that is None, and a row that
+    overflowed, sweeps all ``ns`` spheres, so with every list row full and
+    no tree this is :func:`hard_bwd_work`'s count. Bytes: its, and the
+    tables in."""
+    ops, nbytes = hard_bwd_work(W, H, ns, npl, nl, mode, counts)
+    c = torch.as_tensor(counts, dtype=torch.float64)
+    n_tiles = -(-W // 16) * -(-H // 16)
+    tiles = position_tiles(positions, H)
+    swept = _listed(vis, n_tiles, ns)
+    if isinstance(swept, torch.Tensor):
+        ops -= float((ns - swept.cpu().double()[tiles]).sum()) * HIT_SPHERE
+    occ = _listed(shadow, n_tiles * nl, ns)
+    if isinstance(occ, torch.Tensor) and ns > 0:
+        empty = (occ.cpu().double().reshape(n_tiles, nl) == 0).sum(dim=1)
+        ops -= float((torch.as_tensor(hits0, dtype=torch.float64) * empty).sum()) * SHADOW_SPHERE
+    if tree is not None:
+        ops -= float(c[1:, 0].sum()) * (ns - min(ns, 1)) * HIT_SPHERE
+        nbytes += 4 * (tree.box.numel() + tree.perm.numel())
+    for tab, rows in ((vis, n_tiles), (shadow, n_tiles * nl)):
+        if tab is not None:
+            nbytes += 4 * (rows * tab[2] + rows)
+    return ops, nbytes
+
+
 # A live hit's floor past the sweep: its point and normal, then for each
 # light the direction and Lambert term, a shadow ray's set-up and its planes.
 def _hit_floor(npl: int, nl: int) -> int:

@@ -183,6 +183,12 @@ def _assert_matches_plain(mode, cam, scene, target, compat, depth=2):
     _assert_rule(flat, ref, scene, ref_all)
 
 
+def _counter(mode):
+    """The launch counter that a wrapper call of ``mode`` adds to: the
+    wrappers' fused AA step is the one-launch form, counted as ``fused_aa1``."""
+    return "fused_aa1" if mode == "fused_aa" else mode
+
+
 @pytest.mark.parametrize("mode", BWD_MODES)
 @pytest.mark.parametrize("name", ["demo", "two"])
 @pytest.mark.parametrize("compat", [True, False])
@@ -190,11 +196,11 @@ def test_bwd_kernel_matches_plain(cuda_device, mode, name, compat):
     scene = _bwd_scene(name, compat, cuda_device)
     cam = trt.default_camera((64, 64), device=cuda_device)
     target = _target((64, 64), cuda_device)
-    before = rb.LAUNCHES[mode]
+    before = rb.LAUNCHES[_counter(mode)]
     flat = _kernel_flat(mode, cam, scene, _bwd_input(mode, cam, scene, target, compat),
                         compat)
     torch.cuda.synchronize()
-    assert rb.LAUNCHES[mode] == before + 1
+    assert rb.LAUNCHES[_counter(mode)] == before + 1
     assert bool(torch.isfinite(flat).all())
     _assert_matches_plain(mode, cam, scene, target, compat)
 
@@ -340,10 +346,10 @@ def test_bwd_kernel_every_depth_instantiation(cuda_device, mode, depth, name, co
             loss, scene_g, cam_g = rb.loss_and_scene_grads_cuda(cam, scene, x, **kw)
             return rb.flatten_grads(scene_g, cam_g, loss)
         return rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, x, **kw))
-    before = rb.LAUNCHES[mode]
+    before = rb.LAUNCHES[_counter(mode)]
     a = flat()
     torch.cuda.synchronize()
-    assert rb.LAUNCHES[mode] == before + 1
+    assert rb.LAUNCHES[_counter(mode)] == before + 1
     assert torch.equal(a, flat())
     assert rb.launch_plan(cam, scene, mode).cols == (name != "r24")
     _assert_matches_plain(mode, cam, scene, target, compat, depth)
@@ -1735,3 +1741,155 @@ def test_resilient_fit_equals_an_uninterrupted_run(cuda_device, tmp_path):
     assert [(e.step, e.restored_step) for e in events] == [(4, 4), (7, 6)]
     assert losses == ref
     assert faults.device_healthcheck() == {"cuda:0": True}
+
+
+# --- kernel 4 through the large-scene tables; the one-launch fused AA step -------------
+
+BWD_FORMS = {"staged": dict(staged=True, tree_smem=False),
+             "staged, tree staged": dict(staged=True, tree_smem=True),
+             "global": dict(staged=False, device_rows=False), "rows": dict(device_rows=True)}
+
+
+def _bwd_once(cam, scene, mode, x, *, culls=None, form=None, shape=None, depth=2):
+    """(flat gradient, the two-launch step's aa_shared frame or None, plan) of
+    one launch of ``mode`` (``fused_aa1``: the one-launch AA step) through the
+    frame's tables (``culls``: render_cuda.large_scene_tables' keywords), in
+    ``form`` (a BWD_FORMS key) or at ``shape``."""
+    one = mode == "fused_aa1"
+    m = "fused_aa" if one else mode
+    aa, fused = m.endswith("_aa"), m.startswith("fused")
+    W, H = cam.resolution
+    packed = render_cuda.packed_inputs(cam, scene, depth=depth, compat=True)
+    params, tables, cnt = packed
+    tabs = render_cuda.large_scene_tables(cam, scene, depth=depth, aliasing=aa, compat=True,
+                                          packed=packed, **(culls or {}))
+    if shape is None:
+        shape = rb.launch_plan(cam, scene, m, tabs=tabs, one_launch=one, **BWD_FORMS[form])
+    elif tabs[2] is None:   # another launch's shape, for the launch without the tree
+        shape = shape._replace(tree_smem=False)
+    cheap = render_cuda.shadow_cheap_ok(scene, True)
+    frame = None
+    if m == "fused_aa" and not one:
+        frame = render_cuda.launch(torch.empty((W, H, 3), device=cam.device), params, tables,
+                                   cnt, depth=depth, mode="aa_shared", compat=True,
+                                   cheap_shadow=cheap, vis=tabs[0], shadow=tabs[1],
+                                   tree=tabs[2], cells=tabs[3])
+    n = rb.n_grads(*cnt, fused)
+    out = rb.launch(torch.empty(n, device=cam.device),
+                    torch.empty(n * shape.blocks, device=cam.device), params, tables, cnt,
+                    image=frame if frame is not None else (None if fused else x),
+                    target=x if fused else None, W=W, H=H, depth=depth, mode=m, compat=True,
+                    cheap_shadow=cheap, shape=shape, tabs=tabs, one_launch=one)
+    return out, frame, shape
+
+
+@pytest.mark.parametrize("form", sorted(BWD_FORMS))
+@pytest.mark.parametrize("mode", rb.MODES + ("fused_aa1",))
+def test_bwd_tables_equal_every_table_off(cuda_device, mode, form):
+    """300 spheres 48x32 depth 2, the bounce tree, light cells and both lists
+    on: every backward mode (and the one-launch AA step) in every form equals
+    the same launch with every table off, bit for bit (the culls are exact
+    in the pinned arithmetic), the two-launch step's aa_shared frame too."""
+    scene = trt.random_scene(300, generator=torch.Generator().manual_seed(3),
+                             device=cuda_device)
+    cam = _pose((48, 32), cuda_device)
+    fused = mode.startswith("fused")
+    aa = mode.endswith(("_aa", "_aa1"))
+    target = trt.render_image_cuda(cam, scene, aliasing=aa) * 0.9
+    g = torch.rand((48, 32, 3), generator=torch.Generator().manual_seed(4)).to(cuda_device)
+    x = target.contiguous() if fused else (g * 1e-2).contiguous()
+    on, f_on, shape = _bwd_once(cam, scene, mode, x, form=form)
+    off, f_off, _ = _bwd_once(cam, scene, mode, x, culls=ALL_OFF, shape=shape)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(on).all()) and bool(on.abs().max() > 0)
+    assert torch.equal(on, off)
+    assert f_on is None or torch.equal(f_on, f_off)
+
+
+@pytest.mark.parametrize("mode", rb.MODES)
+def test_bwd_slice_partials_with_tables_equal_without(cuda_device, mode):
+    """A slice [20, 52) of a 300-sphere 64x32 frame through the wrappers: its
+    partials with the slice's own tables equal those with every table off, at
+    the planner's one launch shape either way."""
+    scene = trt.random_scene(300, generator=torch.Generator().manual_seed(3),
+                             device=cuda_device)
+    cam = _pose((64, 32), cuda_device)
+    aa = mode.endswith("_aa")
+    kw = dict(depth=2, aliasing=aa, return_camera=True, x_offset=20, local_width=32)
+    target = (trt.render_image_cuda(cam, scene, aliasing=aa) * 0.9)[20:52].contiguous()
+    g = (torch.rand((32, 32, 3), generator=torch.Generator().manual_seed(6)) * 1e-2).to(
+        cuda_device)
+    out = []
+    for culls in ({}, ALL_OFF):
+        if mode.startswith("fused"):
+            loss, sg, cg = rb.loss_and_scene_grads_cuda(cam, scene, target, **kw, **culls)
+            out.append(rb.flatten_grads(sg, cg, loss))
+        else:
+            out.append(rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, g, **kw, **culls)))
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("depth", [0, 2, 4])
+@pytest.mark.parametrize("name", ["fit", "demo", "100 spheres"])
+def test_one_launch_aa_step_equals_the_two_launch_step(cuda_device, name, depth):
+    """The one-launch fused AA step (FUSED_AA1) against the aa_shared render
+    plus the backward, from shifted centers: the same bits where the scene
+    takes the pinned arithmetic (100 spheres); on the small scenes, whose
+    kernels the compiler contracts per instantiation, the loss's bits (the
+    same colors, combined in aa_shared's order) and the gradient within
+    grad_rule (the reverse sweep rebuilds each trace's ray from its record,
+    which nvcc may contract otherwise than the retrace)."""
+    cfg = RenderConfig()
+    if name == "fit":
+        scene = cli.fit_scene_two_spheres(cfg, cuda_device)
+        cam = trt.Camera.build((96, 80), cfg.camera_position, cfg.camera_euler, cfg.fov,
+                               device=cuda_device)
+    elif name == "demo":
+        scene, cam = trt.default_scene(device=cuda_device), trt.default_camera(
+            (96, 80), device=cuda_device)
+    else:
+        scene = trt.random_scene(100, generator=torch.Generator().manual_seed(3),
+                                 device=cuda_device)
+        cam = _pose((96, 80), cuda_device)
+    target = trt.render_image_cuda(cam, scene, depth=depth, aliasing=True)
+    init = trt.Scene.from_leaves([t.clone() for t in scene.leaves()])
+    init.spheres.center += torch.tensor(cli.FIT_SHIFT, device=cuda_device)
+    rb.reset_launch_counts()
+    out = {}
+    for form in ("two", "one"):
+        loss, sg, cg = rb.loss_and_scene_grads_cuda(cam, init, target, depth=depth,
+                                                    aliasing=True, return_camera=True,
+                                                    aa_form=form)
+        out[form] = rb.flatten_grads(sg, cg, loss)
+    torch.cuda.synchronize()
+    assert rb.LAUNCHES["fused_aa"] == 1 and rb.LAUNCHES["fused_aa1"] == 1
+    assert bool(out["one"].abs()[:-1].max() > 0)
+    assert float(out["one"][-1]) == float(out["two"][-1])
+    if init.spheres.count > render_cuda.CULL_MIN_SPHERES:
+        assert torch.equal(out["one"], out["two"])
+    else:
+        res = rb.grad_rule(out["one"], out["two"], *_counts(init))
+        assert all(ok for _, ok in res.values()), res
+
+
+def test_render_image_fast_backward_reads_the_forward_tables(cuda_device):
+    """render_image_fast at 300 spheres with AA: its backward takes the
+    forward's tables (one hit-extent launch over both) and gives the bits of
+    scene_grads_cuda, which builds them again."""
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    scene = trt.random_scene(300, generator=torch.Generator().manual_seed(3),
+                             device=cuda_device)
+    cam = _pose((48, 32), cuda_device)
+    target = trt.render_image_cuda(cam, scene) * 0.9
+    leaves = [t.detach().clone().requires_grad_(True) for t in scene.leaves()]
+    hx.reset_launch_counts()
+    rb.reset_launch_counts()
+    img = render_cuda.render_image_fast(cam, trt.Scene.from_leaves(leaves))
+    seen = []
+    img.register_hook(seen.append)
+    torch.mean((img - target) ** 2).backward()
+    torch.cuda.synchronize()
+    assert hx.LAUNCHES["hit_extents"] == 1 and rb.TABLE_LAUNCHES["cot_aa"] == 1
+    want = rb.scene_grads_cuda(cam, scene, seen[0].float().contiguous(), aliasing=True)
+    assert torch.equal(leaves[0].grad, want.spheres.center)
