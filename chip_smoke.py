@@ -735,11 +735,15 @@ def backward_phases(torch, rt, card: str, dev) -> list:
 
 # The backward kernel's sources, whose ptxas rows [bwd-regs] prints.
 BWD_REG_SOURCES = ("render_bwd.cu", "render_bwd_small.cu", "render_bwd_global.cu",
+                   "render_bwd_one.cu", "render_bwd_one_small.cu", "render_bwd_one_global.cu",
                    "soft_fwd.cu")
-# [bwd-bounds]: the backward built with these minimums of resident blocks a
-# multiprocessor (render_bwd_kernel.cuh RT_BWD_MIN_BLOCKS) beside the package's.
-BWD_MIN_BLOCKS = (5, 6)
-BWD_BOUND_SOURCES = ("render_bwd.cu", "render_bwd_small.cu", "render_bwd_global.cu")
+# [bwd-bounds]: the backward built with this minimum of resident blocks a
+# multiprocessor (render_bwd_kernel.cuh RT_BWD_MIN_BLOCKS) beside the package's
+# (5 and 6 were both slower in every mode, PERF.md; one build keeps the run short).
+BWD_MIN_BLOCKS = (5,)
+BWD_BOUND_SOURCES = ("render_bwd.cu", "render_bwd_small.cu", "render_bwd_global.cu",
+                     "render_bwd_one.cu", "render_bwd_one_small.cu",
+                     "render_bwd_one_global.cu")
 
 
 def bwd_regs_start(csrc: str) -> dict:
@@ -2603,7 +2607,7 @@ def ab_times(torch, rt, card: str, dev, label: str) -> None:
                   f"device {dms} a call, gradient digest {digest(flat)} | {card}")
     # the main paths' frames (the demo scene's, and the large-scene path's at 1000
     # spheres), each frame's digest
-    for name, n in (("demo", 0), ("1000 spheres", 1000)):
+    for name, n in (("demo", 0), ("100 spheres", 100), ("1000 spheres", 1000)):
         sc = rt.default_scene(device=dev) if n == 0 else rt.random_scene(
             n, generator=torch.Generator().manual_seed(0), device=dev)
         line = []
@@ -2642,9 +2646,11 @@ def ab_kernels(torch, rt, card: str, dev, label: str) -> None:
     """``[ab-kernel]`` (part of :func:`ab_times`): kernels alone (CUDA events,
     launches on inputs packed once) through a checkout's package, with
     keywords every tree of the port shares: render ``aa_shared`` 1000x1000 and
-    ``aa_none`` 1080p on the demo scene, the hard fused steps at 1000x1000 d2
-    on the fit scene, and the fused soft backward at tau 0.05 on the demo
-    scene and 100 spheres, from the fit's shifted centers."""
+    ``aa_none`` 1080p on the demo scene, the large-scene render (the CLI's
+    scene and camera, 1080p, depth 2, no AA and AA) at 100 and 1000 spheres
+    with the tables of ``large_scene_tables``' defaults, the hard fused steps
+    at 1000x1000 d2 on the fit scene, and the fused soft backward at tau 0.05
+    on the demo scene and 100 spheres, from the fit's shifted centers."""
     from python_ray_tracer_tpu_torch import cli
     from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb, render_cuda
     from python_ray_tracer_tpu_torch.ops.cuda import soft_bwd_cuda as sb
@@ -2662,6 +2668,23 @@ def ab_kernels(torch, rt, card: str, dev, label: str) -> None:
         tabs = render_cuda.scene_tables(demo)
         out.append((f"render {mode} {W}x{H}", ms(lambda: render_cuda.launch(
             buf, prm, tabs, counts(demo), depth=2, mode=mode, compat=True, cheap_shadow=True))))
+    cfg = RenderConfig()
+    for n in LV_TIME_NS:
+        sc = scene_of(rt, cfg, n, dev)
+        cam = rt.Camera.build(LARGE_RES, cfg.camera_position, cfg.camera_euler, cfg.fov,
+                              device=dev)
+        buf = torch.empty((*LARGE_RES, 3), device=dev)
+        prm = render_cuda.pack_params(cam, sc, True).to(dev)
+        tabs = render_cuda.scene_tables(sc)
+        for aa in (False, True):
+            mode = "aa_shared" if aa else "aa_none"
+            vis, shadow, tree, cells = render_cuda.large_scene_tables(
+                cam, sc, depth=2, aliasing=aa, compat=True)
+            out.append((f"render {mode} {n} spheres {LARGE_RES[0]}x{LARGE_RES[1]}", ms(
+                lambda: render_cuda.launch(buf, prm, tabs, counts(sc), depth=2, mode=mode,
+                                           compat=True, cheap_shadow=True, vis=vis,
+                                           shadow=shadow, tree=tree, cells=cells),
+                iters=20)))
     fs = cli.fit_scene_two_spheres(RenderConfig(), dev)
     shift = torch.tensor(cli.FIT_SHIFT, device=dev)
     cam = rt.default_camera(FIT_RES, device=dev)
@@ -4453,6 +4476,277 @@ def step_trace(torch, step, label: str, card: str, calls: int = 5) -> None:
                                             for e in kern) + f" | {card}")
 
 
+# --- phase 25: shadow lists at the bounce levels; shadow_cull ------------------
+
+LV_LEVELS = (1, 2, 3)               # [levels], [levels-time]: shadow_list_levels
+LV_FORM = (5000, (256, 256))        # [levels]: staged and global forms, compat and clean
+LV_BITS = (1000, (256, 256))        # [levels]: compat and clean, the slice, depth 4
+LV_SLICE = (96, 64)                 # x_offset, local_width of the LV_BITS frame
+LV_TIME_NS = (100, 1000)            # [levels-time], [capsule-time] at LARGE_RES, depth 2
+CAP_NS = (100, 1000, 5000)          # [capsule]: shadow_cull on against off, LV_FORM's size
+CAP_SCALE = 1e4                     # [capsule]: the scene scaled (clean mode)
+
+
+def _planted_scene(torch, rt, n: int, dev, s: float = 1.0):
+    """random_scene(n) from seed 11 plus a sphere of radius 1.5 planted 4
+    units beyond light 0 (tests/test_pallas.py's shadow-cull scene), every
+    length times s."""
+    base = rt.random_scene(n, generator=torch.Generator().manual_seed(11), device=dev)
+    L0 = base.lights.position[0]
+    u = L0 - torch.tensor([0.0, 0.0, 2.0], device=dev)
+    beyond = L0 + 4.0 * u / u.norm()
+    sph = rt.Spheres(torch.cat([base.spheres.center, beyond[None]]) * s,
+                     torch.cat([base.spheres.radius, torch.tensor([1.5], device=dev)]) * s,
+                     torch.cat([base.spheres.albedo, torch.tensor([[1.0, 0.0, 0.0]],
+                                                                  device=dev)]))
+    return rt.Scene(sph, rt.Planes(base.planes.origin * s, base.planes.normal,
+                                   base.planes.albedo),
+                    rt.Lights(base.lights.position * s), base.materials)
+
+
+def levels_capsule_phase(torch, rt, card: str, dev) -> None:
+    """Phase 25 (``--phase 25`` alone): the last two modes of TPU kernels 1-3.
+    ``[levels]``: frames with the shadow lists of the first L trace levels
+    (``render_image_cuda(shadow_list_levels=L)``) ``torch.equal`` to every
+    table off, at L in LV_LEVELS and L = 5 at depth 4, in the staged and the
+    global form (LV_FORM and LV_BITS, compat and clean), for a slice, every
+    mode; the list kernel's rows of L levels integer for integer the plain
+    function's. ``[levels-time]``: at each L, the hit-extent kernel, the list
+    kernel and the render kernel alone and the whole wrapper at LV_TIME_NS
+    spheres, 1920x1080 depth 2, with the list kernel's bound (``[bound]``).
+    ``[capsule]``: ``shadow_cull`` (the JAX wrapper's capsule cull) on and
+    off at the default tables, with the lists off and with every table off:
+    the same launches and frames ``torch.equal`` to every table off, at
+    CAP_NS spheres, the planted occluder beyond a light and the scene scaled
+    by CAP_SCALE. ``[capsule-time]``: the wrapper with it on and off, and
+    with the lists off."""
+    from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
+    from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
+    from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
+    from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
+    from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig()
+    modes = render_cuda.MODES
+
+    def camera(res, pose=None):
+        pos, euler = pose or (cfg.camera_position, cfg.camera_euler)
+        return rt.Camera.build(res, pos, euler, cfg.fov, device=dev)
+
+    def launch(cam, scene, mode, compat, tabs, packed, depth=2, **kw):
+        W, H = cam.resolution
+        return render_cuda.launch(
+            torch.empty((W, H, 3), device=dev), *packed, depth=depth, mode=mode, compat=compat,
+            cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat), vis=tabs[0],
+            shadow=tabs[1], tree=tabs[2], cells=tabs[3], **kw)
+
+    def kw_of(mode, compat=True, depth=2):
+        return dict(depth=depth, compat=compat, aliasing=mode != "aa_none",
+                    aa_share=mode == "aa_shared")
+
+    def level0(shadow, n_tiles):
+        """The level-0 rows of shadow lists of L levels, as a one-level table."""
+        idx, cnt, k, L = shadow
+        nl = cnt.numel() // (n_tiles * L)
+        return (idx.reshape(n_tiles, L, nl * k)[:, 0].reshape(-1),
+                cnt.reshape(n_tiles, L, nl)[:, 0].reshape(-1), k, 1)
+
+    render_cuda.reset_launch_counts()
+    hx.reset_launch_counts()
+    sl.reset_launch_counts()
+
+    # [levels]: bits
+    n_cases = 0
+    for (n, res), pose, compats in ((LV_FORM, BENCH_POSE, (True, False)),
+                                    (LV_BITS, None, (True, False))):
+        scene, cam = scene_of(rt, cfg, n, dev), camera(res, pose)
+        for compat in compats:
+            packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=compat)
+            for mode in modes:
+                off = rt.render_image_cuda(cam, scene, **kw_of(mode, compat), **ALL_OFF)
+                for L in LV_LEVELS:
+                    tabs = render_cuda.large_scene_tables(
+                        cam, scene, depth=2, aliasing=mode != "aa_none", compat=compat,
+                        packed=packed, shadow_list_levels=L)
+                    for form in (0, 1):
+                        img = launch(cam, scene, mode, compat, tabs, packed, form=form)
+                        check(torch.equal(img, off), f"[levels] {n} spheres {mode} compat="
+                              f"{compat} L={L} form {form}: differs from every table off")
+                        n_cases += 1
+    scene, cam = scene_of(rt, cfg, LV_BITS[0], dev), camera(LV_BITS[1])
+    x0, lw = LV_SLICE
+    for mode in modes:
+        off4 = rt.render_image_cuda(cam, scene, **kw_of(mode, depth=4), **ALL_OFF)
+        on4 = rt.render_image_cuda(cam, scene, **kw_of(mode, depth=4), shadow_list_levels=5)
+        whole = rt.render_image_cuda(cam, scene, **kw_of(mode), **ALL_OFF)
+        part = rt.render_image_cuda(cam, scene, **kw_of(mode), shadow_list_levels=3,
+                                    x_offset=x0, local_width=lw)
+        check(torch.equal(on4, off4), f"[levels] depth 4 L=5 {mode}: differs")
+        check(torch.equal(part, whole[x0:x0 + lw]), f"[levels] slice {mode}: differs")
+        n_cases += 2
+    vis = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=True, compat=True)[0]
+    tree = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
+    Lp, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+    for L in (*LV_LEVELS, 5):
+        scale = torch.empty(1, device=dev)
+        ext = hx.hit_extents_cuda(cam, scene, aliasing=True, n_levels=L, vis=vis, tree=tree,
+                                  scale=scale)
+        for K in (vis[2], 4):
+            got = sl.shadow_lists_cuda(ext, scale, Lp, C, R, K=K, compat=True)
+            want = ct.shadow_visibility_lists(ext, Lp, C, R, K=K, compat=True)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"[levels] list rows of {L} levels, K={K}: differ from the plain function")
+    print(f"[levels] {n_cases} frames torch.equal to every table off (L in {LV_LEVELS}, "
+          f"staged and global forms at {LV_FORM[0]} spheres {LV_FORM[1][0]}x{LV_FORM[1][1]}, "
+          f"compat and clean at {LV_BITS[0]} spheres, depth 4 at L=5, the slice "
+          f"[{x0}, {x0 + lw})); list kernel rows of L = 1, 2, 3, 5 levels at K = "
+          f"{vis[2]} and 4 integer for integer the plain function's")
+
+    # [levels-time]
+    for n in LV_TIME_NS:
+        scene, cam = scene_of(rt, cfg, n, dev), camera(LARGE_RES)
+        W, H = LARGE_RES
+        packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=True)
+        tree = ct.bounce_tree(scene.spheres.center, scene.spheres.radius) \
+            if render_cuda.uses_tree(n, 2) else None
+        Lp, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+        order = ct.light_order(Lp, C, R).to(torch.int32)
+        k = ct.list_capacity(n)
+        reps = 20 if n <= 100 else 5
+        for aa in (False, True):
+            mode = "aa_shared" if aa else "aa_none"
+            parts = []
+            # the live counts of every trace level, for the render's bound
+            ext3 = hx.hit_extents_cuda(cam, scene, aliasing=aa, n_levels=3, tree=tree,
+                                       vis=render_cuda.large_scene_tables(
+                                           cam, scene, depth=2, aliasing=aa, compat=True,
+                                           packed=packed)[0])
+            for L in LV_LEVELS:
+                tabs = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=aa,
+                                                      compat=True, packed=packed,
+                                                      shadow_list_levels=L)
+                vis = tabs[0]
+                n_tiles = vis[1].numel()
+                ext = torch.empty((n_tiles * L, 8), device=dev)
+                scale = torch.empty(1, device=dev)
+                hx_ms = 1e3 * rt.time_fn(hx.launch, ext, *packed, W=W, H=H, aliasing=aa,
+                                         compat=True, n_levels=L, vis=vis,
+                                         tree=tree if L > 1 else None, scale=scale,
+                                         warmup=2, iters=reps)
+                rows = (torch.empty(n_tiles * L * 3 * k, dtype=torch.int32, device=dev),
+                        torch.empty(n_tiles * L * 3, dtype=torch.int32, device=dev))
+                sl_ms = 1e3 * rt.time_fn(sl.launch, *rows, ext, scale, Lp, C, R, order, k=k,
+                                         compat=True, warmup=2, iters=reps)
+                bound = timing.bound_ms(*timing.shadow_lists_work(ext, Lp, C, R, K=k,
+                                                                  compat=True))
+                hx_bound = timing.bound_ms(*timing.hit_extents_work(
+                    W, H, n, 1, aa, vis, ext.reshape(n_tiles, L, 8)[:, 0], scale=True))
+                r_bound = timing.bound_ms(*timing.large_scene_work(
+                    W, H, n, 1, 3, mode, vis, level0(tabs[1], n_tiles), ext3))
+                r_ms = 1e3 * rt.time_fn(launch, cam, scene, mode, True, tabs, packed,
+                                        warmup=2, iters=reps)
+                w_ms = 1e3 * rt.time_fn(rt.render_image_cuda, cam, scene, depth=2,
+                                        aliasing=aa, shadow_list_levels=L, warmup=2,
+                                        iters=reps)
+                listed = float((tabs[1][1] >= 0).float().mean())
+                cnt = tabs[1][1].float()
+                mean = float(cnt[cnt >= 0].mean()) if bool((cnt >= 0).any()) else 0.0
+                parts.append(f"L={L}: hit_extents alone {hx_ms:.4f} ms, list kernel alone "
+                             f"{sl_ms:.4f} ms (bound {bound[0]:.4f} ms, {bound[1]}), render "
+                             f"kernel alone {r_ms:.4f} ms, wrapper {w_ms:.4f} ms, rows mean "
+                             f"{mean:.2f} spheres, listed share {listed:.4f}")
+                print(f"[bound] {n} spheres {W}x{H} {'aa' if aa else 'noaa'} L={L}: "
+                      f"shadow_lists {bound[0]:.4f} ms ({bound[1]}) vs kernel alone "
+                      f"{sl_ms:.4f} ms; hit_extents {hx_bound[0]:.4f} ms ({hx_bound[1]}, "
+                      f"level 0's work: a lower bound) vs {hx_ms:.4f} ms; render "
+                      f"{r_bound[0]:.4f} ms ({r_bound[1]}, large_scene_work on the level-0 "
+                      f"rows: a lower bound) vs {r_ms:.4f} ms | {card}")
+            print(f"[levels-time] {n} spheres {W}x{H} d2 {mode}: " + "; ".join(parts) +
+                  f" | {card}")
+
+    # [capsule]: bits and launches
+    def counts():
+        return (dict(render_cuda.LAUNCHES), dict(render_cuda.GLOBAL_LAUNCHES),
+                dict(hx.LAUNCHES), dict(sl.LAUNCHES))
+
+    def launches_of(fn):
+        """fn's result and the launches it made (the counters read before and
+        after, left as they are)."""
+        a = counts()
+        out = fn()
+        b = counts()
+        return out, tuple({k: y[k] - x[k] for k in y} for x, y in zip(a, b))
+
+    n_cases = 0
+    for n in CAP_NS:
+        res, pose = (LV_FORM[1], BENCH_POSE) if n >= LV_FORM[0] else ((256, 256), None)
+        scene, cam = scene_of(rt, cfg, n, dev), camera(res, pose)
+        for compat in (True, False):
+            for mode in ("aa_none", "aa_shared") if n >= LV_FORM[0] else modes:
+                kw = kw_of(mode, compat)
+                off = rt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+                for culls in ({}, dict(shadow_lists=False), ALL_OFF):
+                    made = []
+                    for cull in (False, True):
+                        img, used = launches_of(lambda: rt.render_image_cuda(
+                            cam, scene, **kw, **culls, shadow_cull=cull))
+                        check(torch.equal(img, off), f"[capsule] {n} spheres {mode} compat="
+                              f"{compat} {culls} shadow_cull={cull}: differs from every "
+                              f"table off")
+                        made.append(used)
+                    check(made[0] == made[1], f"[capsule] {n} spheres {mode} {culls}: "
+                          f"shadow_cull changes the launches {made}")
+                    n_cases += 2
+    beyond = {}
+    for s, compat in ((1.0, True), (1.0, False), (CAP_SCALE, False)):
+        scene = _planted_scene(torch, rt, 22, dev, s)
+        base = rt.Scene(rt.Spheres(scene.spheres.center[:-1], scene.spheres.radius[:-1],
+                                   scene.spheres.albedo[:-1]),
+                        scene.planes, scene.lights, scene.materials)
+        cam = rt.Camera.build((96, 64), [v * s for v in (-7.0, 0.0, 3.0)], [0.0, 10.0, 0.0],
+                              device=dev)
+        for mode in modes:
+            kw = dict(kw_of(mode, compat), depth=1)
+            off = rt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+            without = rt.render_image_cuda(cam, base, **kw)
+            for levels in (None, 2):
+                for cull in (False, True):
+                    on = rt.render_image_cuda(cam, scene, **kw, shadow_list_levels=levels,
+                                              shadow_cull=cull)
+                    check(torch.equal(on, off), f"[capsule] planted x{s} {mode} compat="
+                          f"{compat} L={levels} shadow_cull={cull}: differs from every "
+                          f"table off")
+                    n_cases += 1
+            d = float((off - without).abs().max())
+            check(d > 1e-3, f"[capsule] planted x{s} {mode}: the planted sphere shadows nothing")
+            beyond[(s, compat, mode)] = d
+    print(f"[capsule] {n_cases} frames torch.equal to every table off, shadow_cull on and "
+          f"off with the same launches ({CAP_NS} spheres, every mode, compat and clean, the "
+          f"default tables, lists off and every table off; the occluder planted beyond light "
+          f"0, whose shadow moves a frame by {min(beyond.values()):.4f}-"
+          f"{max(beyond.values()):.4f}, with the lists of 1 and 2 levels, and its scene "
+          f"scaled by {CAP_SCALE:g} in clean mode)")
+
+    # [capsule-time]: shadow_cull takes the default launches; the wrapper's
+    # time with it on and off, and with the lists off (their sweeps then take
+    # every sphere at level 0), each timed A, B, C, C, B, A (the minima)
+    for n in LV_TIME_NS:
+        scene, cam = scene_of(rt, cfg, n, dev), camera(LARGE_RES)
+        for aa in (False, True):
+            runs = {name: (lambda kw=kw: rt.render_image_cuda(cam, scene, depth=2, aliasing=aa,
+                                                              **kw))
+                    for name, kw in (("shadow_cull off", {}),
+                                     ("shadow_cull on", dict(shadow_cull=True)),
+                                     ("lists off", dict(shadow_lists=False)))}
+            t = _alternate(rt, runs, 5)
+            print(f"[capsule-time] {n} spheres {LARGE_RES[0]}x{LARGE_RES[1]} d2 "
+                  f"{'aa_shared' if aa else 'aa_none'}, wrapper: " +
+                  ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()) + f" | {card}")
+    print(f"[levels] launches in phase 25: render {dict(render_cuda.LAUNCHES)}, of them "
+          f"global {dict(render_cuda.GLOBAL_LAUNCHES)}; hit_extents "
+          f"{hx.LAUNCHES['hit_extents']}; shadow_lists {sl.LAUNCHES['shadow_lists']}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4496,7 +4790,10 @@ def main() -> int:
     t0 = time.perf_counter()
     so = _build.build()
     _build.load_library()
-    print(f"[build] {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.1f} s; nvcc "
+          f"seconds a source (from the build's start to its end): " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_SECONDS.items(),
+                                                key=lambda kv: -kv[1])))
     if sys.argv[1:] == ["--phase", "22"]:   # the ray-parallel phase alone
         parallel_phase(torch, rt, card, dev)
         print(f"[smoke] phase 22 in {time.perf_counter() - t_start:.1f} s")
@@ -4505,6 +4802,10 @@ def main() -> int:
         kernels = bwd_tables_phase(torch, rt, card, dev)
         print(f"[smoke] phase 24 in {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": kernels}))
+        return 0
+    if sys.argv[1:] == ["--phase", "25"]:   # shadow lists at the bounce levels, shadow_cull
+        levels_capsule_phase(torch, rt, card, dev)
+        print(f"[smoke] phase 25 in {time.perf_counter() - t_start:.1f} s")
         return 0
     if sys.argv[1:] == ["--phase", "23"]:   # scenes of any size, faults, profiling alone
         faults_phase(torch, rt, card, dev)
@@ -4662,7 +4963,9 @@ def main() -> int:
     kernels += scene_size_phase(torch, rt, card, dev)
     t0 = phase_time("phase 23 sizes", t0)
     kernels += bwd_tables_phase(torch, rt, card, dev)
-    phase_time("phase 24", t0)
+    t0 = phase_time("phase 24", t0)
+    levels_capsule_phase(torch, rt, card, dev)
+    phase_time("phase 25", t0)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

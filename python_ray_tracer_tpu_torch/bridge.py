@@ -50,15 +50,19 @@ def camera_from_arrays(position: np.ndarray, rotation: np.ndarray, fov,
                   tuple(int(v) for v in resolution))
 
 
-def tile_rows_from_jax(rows: np.ndarray, n_tx: int, n_ty: int, swap_xy: bool) -> np.ndarray:
-    """Per-tile rows ``(n_tiles, ...)`` in the JAX package's tile numbering ->
-    the port's (``tx * n_ty + ty``). The JAX kernels number tiles ``i * n_v +
-    j`` over their (sublane, lane) grid: ``(x, y)`` tiles as here when
-    ``swap_xy`` is false, ``(y, x)`` tiles when it is true."""
+def tile_rows_from_jax(rows: np.ndarray, n_tx: int, n_ty: int, swap_xy: bool,
+                       levels: int = 1) -> np.ndarray:
+    """Per-tile rows ``(n_tiles * levels, ...)`` in the JAX package's tile
+    numbering -> the port's (``tx * n_ty + ty``). The JAX kernels number tiles
+    ``i * n_v + j`` over their (sublane, lane) grid: ``(x, y)`` tiles as here
+    when ``swap_xy`` is false, ``(y, x)`` tiles when it is true. ``levels``:
+    rows of that many trace levels a tile, levels fastest (the hit-extent
+    rows of ``n_levels``), which stay together and in order."""
     rows = np.asarray(rows)
     if not swap_xy:
         return rows
-    return rows.reshape(n_ty, n_tx, *rows.shape[1:]).swapaxes(0, 1).reshape(rows.shape)
+    per = rows.reshape(n_ty, n_tx, levels, *rows.shape[1:])
+    return per.swapaxes(0, 1).reshape(rows.shape)
 
 
 def tables_from_arrays(*, vis=None, shadow=None, device="cpu"):
@@ -66,13 +70,14 @@ def tables_from_arrays(*, vis=None, shadow=None, device="cpu"):
     ``render_pallas._tile_visibility`` / ``_shadow_visibility_lists`` built
     with the port's 16x16 tiles and brought into its tile numbering
     (:func:`tile_rows_from_jax`): ``vis = (idx, cnt, k)`` and ``shadow =
-    (idx, cnt, k)`` become int32 tensors. Returns ``(vis, shadow)`` as
+    (idx, cnt, k, levels)`` (rows of ``levels`` trace levels a tile) become
+    int32 tensors. Returns ``(vis, shadow)`` as
     ``render_cuda.launch`` takes them (its bounce tree has no JAX
     counterpart: ``cull_tables.bounce_tree``)."""
     def ints(a):
         return torch.as_tensor(np.array(a, dtype=np.int32).reshape(-1),
                                device=device)
-    return tuple(None if t is None else (ints(t[0]), ints(t[1]), int(t[2]))
+    return tuple(None if t is None else (ints(t[0]), ints(t[1]), *(int(v) for v in t[2:]))
                  for t in (vis, shadow))
 
 

@@ -38,8 +38,10 @@
 //     lists, sweeps the whole scene where it lies in device memory, so the
 //     scene's size no longer sets the launch's shared memory. The two sweeps
 //     are separate inlined calls, so each one's loads know their memory. The
-//     launch with bounce levels (n_levels > 1: tests and chip_smoke.py)
-//     stages the scene and the bounce tree once a block, for the tree walks;
+//     launch with bounce levels (n_levels > 1: the render's
+//     shadow_list_levels, whose lists cover the bounce levels' shadow rays
+//     too) stages the scene and the bounce tree once a block, for the tree
+//     walks;
 //     past the size where they fit a block (G, the global form: the render
 //     kernel's rule, render_cuda.scene_form) it reads the sphere table where
 //     it lies, through the read-only cache, and past a further size the tree
@@ -54,6 +56,11 @@
 //     strict `<`, so the same winner, t and center (its object id is the slot
 //     in the copy, which surface() does not read). chip_smoke.py and the card
 //     tests compare renders with the lists on and off bit for bit;
+//   * any number of levels (the JAX package's kernel takes any): a pass keeps
+//     the boxes of MAX_LEVELS levels in registers, and past those the chains
+//     are traced again from their start for each further pass, to the same
+//     hit points (levels beyond 4 need a depth of 4 or more, where the render
+//     itself traces every chain that deep);
 //   * only positions an output pixel consumes may widen a box: alive at this
 //     level and every level before it, and inside [0, Wg-1] x [0, H-1] in the
 //     frame's pixels (the -0.5 column and the ragged edge are evaluated by the
@@ -82,7 +89,7 @@ constexpr int N_U = (TILE + 1) * TILE;
 constexpr int N_V = TILE * (TILE + 1);
 constexpr int N_UV = (TILE + 1) * (TILE + 1);
 constexpr int N_SHARED = N_C + N_U + N_V + N_UV;
-constexpr int MAX_LEVELS = 4;               // hit_extents_cuda.MAX_LEVELS
+constexpr int MAX_LEVELS = 4;               // levels a pass (hit_extents_cuda.MAX_LEVELS)
 constexpr int ROW = 8;                      // floats a (tile, level) row
 constexpr int HX_WARPS = 8;                 // warps a block
 constexpr int NT = HX_WARPS * 32;
@@ -144,17 +151,28 @@ __device__ __forceinline__ void group_sync(int group) {
   }
 }
 
+// The hit point of a chain's ray at trace level l: level 0 sweeps s0, a
+// bounce level `full` through the tables (closest_hit_at's dispatch: the
+// bounce tree where there is one).
+template <bool COMPAT>
+__device__ __forceinline__ Surface level_geometry(const SceneView& s0, const SceneView& full,
+                                                  const Tables& tb, const Ray& ray, int l) {
+  return l == 0 ? primary_geometry<COMPAT, false>(s0, ray, tb, 0)
+                : primary_geometry<COMPAT, true>(full, ray, tb, l);
+}
+
 // One lane's share of a tile's sample positions (gl, gl + 32 TW, ..., gl the
 // lane's place in the tile's group of TW warps): the chains that start there
-// widen the lane's per-level boxes with their hit points. s0 is what the
-// level-0 closest hit sweeps (the tile's gathered list, or the whole scene),
-// `full` what the bounce levels sweep.
+// widen the lane's per-level boxes of levels [l0, l0 + LEVELS) (box k for
+// level l0 + k) with their hit points. s0 is what the level-0 closest hit
+// sweeps (the tile's gathered list, or the whole scene), `full` what the
+// bounce levels sweep.
 template <bool COMPAT, bool AA, int TW, int LEVELS>
 __device__ __forceinline__ void trace_positions(const SceneView& s0, const SceneView& full,
                                                 const Tables& tb, int gl, float fx0,
                                                 float fy0, int Wg, int H, int n_levels,
-                                                float (&mn)[LEVELS][3], float (&mx)[LEVELS][3],
-                                                int (&cnt)[LEVELS]) {
+                                                int l0, float (&mn)[LEVELS][3],
+                                                float (&mx)[LEVELS][3], int (&cnt)[LEVELS]) {
   const float x_max = static_cast<float>(Wg - 1), y_max = static_cast<float>(H - 1);
   const int n_pos = AA ? N_SHARED : N_C;
   for (int q = gl; q < n_pos; q += TW * 32) {
@@ -162,19 +180,32 @@ __device__ __forceinline__ void trace_positions(const SceneView& s0, const Scene
     position(q, fx0, fy0, px, py);
     const bool used = px >= 0.0f && px <= x_max && py >= 0.0f && py <= y_max;
     Ray ray = raygen(s0.p, px, py);
+    // the levels before this pass's first: traced again, not kept
+    bool alive = true;
+    for (int l = 0; l < l0; ++l) {
+      const Surface f = level_geometry<COMPAT>(s0, full, tb, ray, l);
+      if (!f.alive) {
+        alive = false;
+        break;
+      }
+      float rx, ry, rz;
+      reflect_dir(ray.dx, ray.dy, ray.dz, f.nx, f.ny, f.nz, rx, ry, rz);
+      ray = bounce_ray(f, rx, ry, rz);
+    }
+    if (!alive) continue;
 #pragma unroll
-    for (int l = 0; l < LEVELS; ++l) {
+    for (int k = 0; k < LEVELS; ++k) {
+      const int l = l0 + k;
       if (l >= n_levels) break;
-      const Surface f = l == 0 ? primary_geometry<COMPAT, false>(s0, ray, tb, true)
-                               : primary_geometry<COMPAT, true>(full, ray, tb, false);
+      const Surface f = level_geometry<COMPAT>(s0, full, tb, ray, l);
       // a chain dead at this level reaches no later one either, in the image
       // or out of it
       if (!f.alive) break;
       if (used) {
-        mn[l][0] = fminf(mn[l][0], f.px); mx[l][0] = fmaxf(mx[l][0], f.px);
-        mn[l][1] = fminf(mn[l][1], f.py); mx[l][1] = fmaxf(mx[l][1], f.py);
-        mn[l][2] = fminf(mn[l][2], f.pz); mx[l][2] = fmaxf(mx[l][2], f.pz);
-        cnt[l] += 1;
+        mn[k][0] = fminf(mn[k][0], f.px); mx[k][0] = fmaxf(mx[k][0], f.px);
+        mn[k][1] = fminf(mn[k][1], f.py); mx[k][1] = fmaxf(mx[k][1], f.py);
+        mn[k][2] = fminf(mn[k][2], f.pz); mx[k][2] = fmaxf(mx[k][2], f.pz);
+        cnt[k] += 1;
       }
       if (l + 1 < n_levels) {
         float rx, ry, rz;
@@ -234,87 +265,95 @@ hit_extents_kernel(const float* __restrict__ params, const float* __restrict__ s
     }
     group_sync<TW>(group);
 
-    float mn[LEVELS][3], mx[LEVELS][3];
-    int cnt[LEVELS];
-#pragma unroll
-    for (int l = 0; l < LEVELS; ++l) {
-      mn[l][0] = mn[l][1] = mn[l][2] = BIG;
-      mx[l][0] = mx[l][1] = mx[l][2] = -BIG;
-      cnt[l] = 0;
-    }
     // the tile's corner pixel: tile = tx * n_ty + ty (render_fwd_kernel.cuh's
     // blockIdx.y * gridDim.x + blockIdx.x, blockIdx.y along x)
     const float fx0 = static_cast<float>((tile / n_ty) * TILE) + s_p[P_X0];
     const float fy0 = static_cast<float>((tile % n_ty) * TILE);
-    // two calls, so that each sweep's loads know their memory (the gathered
-    // slice in shared memory, or the whole scene)
-    if (n_vis >= 0) {
-      const SceneView listed{s_p, slice, n_vis, s_pln, npl, nullptr, 0};
-      trace_positions<COMPAT, AA, TW, LEVELS>(listed, full, tb, gl, fx0, fy0, Wg, H,
-                                              n_levels, mn, mx, cnt);
-    } else {
-      trace_positions<COMPAT, AA, TW, LEVELS>(full, full, tb, gl, fx0, fy0, Wg, H,
-                                              n_levels, mn, mx, cnt);
-    }
-
-    // the warp's share: every lane ends with its min, max and count; one warp
-    // a tile writes the rows, else the group's first warp merges its warps'
+    // LEVELS levels a pass (one pass up to MAX_LEVELS levels; past that the
+    // chains are traced again for each further pass, the same hit points)
+    for (int l0 = 0; l0 < (BOUNCES ? n_levels : 1); l0 += LEVELS) {
+      float mn[LEVELS][3], mx[LEVELS][3];
+      int cnt[LEVELS];
 #pragma unroll
-    for (int l = 0; l < LEVELS; ++l) {
-      if (l >= n_levels) break;
-      float v[7] = {mn[l][0], mn[l][1], mn[l][2], mx[l][0], mx[l][1], mx[l][2], 0.0f};
-      int n = cnt[l];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          v[c] = fminf(v[c], __shfl_xor_sync(FULL, v[c], o));
-          v[3 + c] = fmaxf(v[3 + c], __shfl_xor_sync(FULL, v[3 + c], o));
-        }
-        n += __shfl_xor_sync(FULL, n, o);
+      for (int l = 0; l < LEVELS; ++l) {
+        mn[l][0] = mn[l][1] = mn[l][2] = BIG;
+        mx[l][0] = mx[l][1] = mx[l][2] = -BIG;
+        cnt[l] = 0;
       }
-      v[6] = static_cast<float>(n);   // at most 1089: exact in float32
-      if (TW > 1) {
-        if (lane < 7) {
+      // two calls, so that each sweep's loads know their memory (the gathered
+      // slice in shared memory, or the whole scene)
+      if (n_vis >= 0) {
+        const SceneView listed{s_p, slice, n_vis, s_pln, npl, nullptr, 0};
+        trace_positions<COMPAT, AA, TW, LEVELS>(listed, full, tb, gl, fx0, fy0, Wg, H,
+                                                n_levels, l0, mn, mx, cnt);
+      } else {
+        trace_positions<COMPAT, AA, TW, LEVELS>(full, full, tb, gl, fx0, fy0, Wg, H,
+                                                n_levels, l0, mn, mx, cnt);
+      }
+      const int n_pass = min(LEVELS, n_levels - l0);
+
+      // the warp's share: every lane ends with its min, max and count; one
+      // warp a tile writes the rows, else the group's first warp merges its
+      // warps'
+#pragma unroll
+      for (int l = 0; l < LEVELS; ++l) {
+        if (l >= n_pass) break;
+        float v[7] = {mn[l][0], mn[l][1], mn[l][2], mx[l][0], mx[l][1], mx[l][2], 0.0f};
+        int n = cnt[l];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+          for (int c = 0; c < 3; ++c) {
+            v[c] = fminf(v[c], __shfl_xor_sync(FULL, v[c], o));
+            v[3 + c] = fmaxf(v[3 + c], __shfl_xor_sync(FULL, v[3 + c], o));
+          }
+          n += __shfl_xor_sync(FULL, n, o);
+        }
+        v[6] = static_cast<float>(n);   // at most 1089: exact in float32
+        if (TW > 1) {
+          if (lane < 7) {
+            float w = 0.0f;
+#pragma unroll
+            for (int c = 0; c < 7; ++c) w = lane == c ? v[c] : w;
+            merge[(gw * MAX_LEVELS + l) * 8 + lane] = w;
+          }
+          continue;
+        }
+        if (n > 0) {
+#pragma unroll
+          for (int c = 0; c < 6; ++c) top = fmaxf(top, fabsf(v[c]));
+        }
+        float* o = out + (static_cast<size_t>(tile) * n_levels + l0 + l) * ROW;
+        if (lane < ROW) {
           float w = 0.0f;
 #pragma unroll
           for (int c = 0; c < 7; ++c) w = lane == c ? v[c] : w;
-          merge[(gw * MAX_LEVELS + l) * 8 + lane] = w;
+          o[lane] = w;
         }
-        continue;
       }
-      if (n > 0) {
-#pragma unroll
-        for (int c = 0; c < 6; ++c) top = fmaxf(top, fabsf(v[c]));
-      }
-      float* o = out + (static_cast<size_t>(tile) * n_levels + l) * ROW;
-      if (lane < ROW) {
-        float w = 0.0f;
-#pragma unroll
-        for (int c = 0; c < 7; ++c) w = lane == c ? v[c] : w;
-        o[lane] = w;
-      }
-    }
-    if (TW > 1) {
-      group_sync<TW>(group);
-      // lane c of the first warp merges column c of each level (min, max, and
-      // the counts, whole numbers below 2^24: exact sums)
-      if (gw == 0 && lane < ROW) {
-        for (int l = 0; l < n_levels; ++l) {
-          float w = lane < 3 ? BIG : lane < 6 ? -BIG : 0.0f;
-          float n = 0.0f;
-          for (int k = 0; k < TW; ++k) {
-            const float* m = merge + (k * MAX_LEVELS + l) * 8;
-            const float x = lane < 7 ? m[lane] : 0.0f;
-            w = lane < 3 ? fminf(w, x) : lane < 6 ? fmaxf(w, x) : w + x;
-            n += m[6];
+      if (TW > 1) {
+        group_sync<TW>(group);
+        // lane c of the first warp merges column c of each level (min, max,
+        // and the counts, whole numbers below 2^24: exact sums)
+        if (gw == 0 && lane < ROW) {
+          for (int l = 0; l < n_pass; ++l) {
+            float w = lane < 3 ? BIG : lane < 6 ? -BIG : 0.0f;
+            float n = 0.0f;
+            for (int k = 0; k < TW; ++k) {
+              const float* m = merge + (k * MAX_LEVELS + l) * 8;
+              const float x = lane < 7 ? m[lane] : 0.0f;
+              w = lane < 3 ? fminf(w, x) : lane < 6 ? fmaxf(w, x) : w + x;
+              n += m[6];
+            }
+            if (n > 0.0f && lane < 6) top = fmaxf(top, fabsf(w));
+            out[(static_cast<size_t>(tile) * n_levels + l0 + l) * ROW + lane] = w;
           }
-          if (n > 0.0f && lane < 6) top = fmaxf(top, fabsf(w));
-          out[(static_cast<size_t>(tile) * n_levels + l) * ROW + lane] = w;
         }
       }
+      // the merge rows (and, after the last pass, the slice) are read before
+      // they are written again
+      group_sync<TW>(group);
     }
-    group_sync<TW>(group);   // the slice and merge rows are read before the next tile's
   }
   // one atomic a warp; non-negative floats order as their bits do
 #pragma unroll
@@ -395,7 +434,7 @@ int rt_hit_extents(const float* params, const float* sph, int ns, const float* p
   const TableArgs ta{vis_idx, vis_cnt, vis_k, nullptr, nullptr, 0,
                      bounces ? perm : nullptr, box, n_leaves};
   if (W <= 0 || H <= 0 || Wg < W || ns < 0 || npl < 0 || n_levels < 1 ||
-      n_levels > MAX_LEVELS || form < 0 || form > 1 ||
+      form < 0 || form > 1 ||
       static_cast<long>((W + TILE - 1) / TILE) * ((H + TILE - 1) / TILE) > (1L << 30) ||
       !tables_ok(ta)) {
     return static_cast<int>(cudaErrorInvalidValue);

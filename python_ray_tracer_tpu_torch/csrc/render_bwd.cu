@@ -35,6 +35,8 @@ extern "C" {
 // file's (render_bwd_global.cu); arguments checked here.
 int rt_render_bwd_small(const BwdJob* job, int compat, int cheap_shadow, int cols);
 int rt_render_bwd_global(const BwdJob* job, int compat, int cheap_shadow);
+// The one-launch AA step of this file's kernels (render_bwd_one.cu).
+int rt_render_bwd_one(const BwdJob* job, int compat, int cheap_shadow);
 
 // Launch the backward kernel on `stream`: n_rows blocks of nt threads (32, 64
 // or 128) walk the image's 16x16 tiles (block b takes tiles b, b + n_rows,
@@ -64,12 +66,12 @@ int rt_render_bwd(const float* params, const float* sph, int ns, const float* pl
                   int W, int H, int Wg, int depth, int mode, int compat, int cheap_shadow,
                   int large_scene, int nt, int cols, int staged,
                   const int* vis_idx, const int* vis_cnt, int vis_k,
-                  const int* sh_idx, const int* sh_cnt, int sh_k,
+                  const int* sh_idx, const int* sh_cnt, int sh_k, int sh_levels,
                   const int* perm, const float* box, int n_leaves,
                   const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                   int tree_smem, float* rec, void* stream) {
   const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
-                     lc_idx, lc_cnt, lc_hdr};
+                     lc_idx, lc_cnt, lc_hdr, sh_levels};
   const BwdJob job{params, sph, ns, pln, npl, lts, nl, img, target, partial,
                    n_rows, W, H, depth, mode, n_grads, nt,
                    static_cast<cudaStream_t>(stream), Wg, nullptr, ta, tree_smem, rec};
@@ -84,6 +86,7 @@ int rt_render_bwd(const float* params, const float* sph, int ns, const float* pl
   }
   if (!large_scene) return rt_render_bwd_small(&job, compat, cheap_shadow, cols);
   if (!staged) return rt_render_bwd_global(&job, compat, cheap_shadow);
+  if (mode == FUSED_AA1) return rt_render_bwd_one(&job, compat, cheap_shadow);
   return static_cast<int>(
       dispatch_depth<false, false, false, true>(compat != 0, cheap_shadow != 0, job));
 }

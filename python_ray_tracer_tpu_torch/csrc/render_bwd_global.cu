@@ -10,9 +10,13 @@
 
 extern "C" {
 
+// The one-launch AA step of this file's kernels (render_bwd_one_global.cu).
+int rt_render_bwd_one_global(const BwdJob* job, int compat, int cheap_shadow);
+
 // rt_render_bwd (render_bwd.cu) with staged 0; called from there with checked
 // arguments.
 int rt_render_bwd_global(const BwdJob* job, int compat, int cheap_shadow) {
+  if (job->mode == FUSED_AA1) return rt_render_bwd_one_global(job, compat, cheap_shadow);
   return static_cast<int>(
       dispatch_depth<false, true, false, true>(compat != 0, cheap_shadow != 0, *job));
 }

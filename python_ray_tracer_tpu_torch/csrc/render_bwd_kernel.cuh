@@ -132,8 +132,9 @@
 // Large scenes (TABLES, the pinned sources): the kernel reads the render's
 // large-scene tables (rt_common.cuh TableArgs; the render's 16x16 tiles, so
 // the tables a frame's render builds serve its backward, AA lattice and
-// slices included): each block stages a tile's primary and level-0 shadow
-// lists between two barriers as it walks its tiles, and the bounce tree once
+// slices included): each block stages a tile's primary list and its shadow
+// lists (those of the render's listed trace levels, rt_common.cuh
+// stage_lists) between two barriers as it walks its tiles, and the bounce tree once
 // (tree_smem, the staged form; else it reads the tree where it lies, as the
 // global and rows forms do); the light cells stay in device memory. The
 // recomputed chains decide every hit and shadow through the render's own
@@ -149,8 +150,12 @@
 // depth) for large scenes, so that the recomputed chain decides each hit as
 // the forward did, render_bwd_global.cu (pinned; the global form of
 // render_bwd.cu's kernels, compiled beside it) and render_bwd_rows.cu
-// (pinned; the third form, with an entry point of its own). A scene small
-// enough for the contracted kernels always fits the staged form.
+// (pinned; the third form, with an entry point of its own). The one-launch AA
+// step (FUSED_AA1) of each lives in a twin of its own, render_bwd_one_small.cu,
+// render_bwd_one.cu, render_bwd_one_global.cu and render_bwd_one_rows.cu, which
+// its entry point calls for that mode, so that nvcc compiles the eight files
+// side by side. A scene small enough for the contracted kernels always fits
+// the staged form.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -291,19 +296,20 @@ struct LightTerm {
 // occ_bits (the forward pass's test, stored); otherwise the shadow ray is
 // tested and its bit set. Lights past the bitmask (l >= 32) are always
 // re-tested: the same test (light_occluded, with the tables of the trace's
-// level: `primary` is level 0) on the same ray gives the same answer.
+// level `level`, 0 for the primary trace) on the same ray gives the same
+// answer.
 template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ LightTerm light_term(const SceneView& s, int l,
                                                 const Surface& f, float Rx,
                                                 float Ry, float Rz, unsigned& occ_bits,
-                                                bool known, const Tables& tb, bool primary) {
+                                                bool known, const Tables& tb, int level) {
   LightTerm q;
   q.lrn = light_dir(s, l, f, q.lx, q.ly, q.lz);
   bool occ;
   if (known && l < 32) {
     occ = ((occ_bits >> l) & 1u) != 0u;
   } else {
-    occ = light_occluded<COMPAT, CHEAP, TABLES>(s, f, q.lx, q.ly, q.lz, tb, l, primary);
+    occ = light_occluded<COMPAT, CHEAP, TABLES>(s, f, q.lx, q.ly, q.lz, tb, l, level);
     if (!known && l < 32 && occ) occ_bits |= 1u << l;
   }
   q.ldotn = q.lx * f.nx + q.ly * f.ny + q.lz * f.nz;
@@ -329,11 +335,11 @@ struct Shade {
 template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ Shade shade_of(const SceneView& s, const Surface& f, float Rx,
                                           float Ry, float Rz, unsigned& occ_bits,
-                                          bool known, const Tables& tb, bool primary) {
+                                          bool known, const Tables& tb, int level) {
   Shade o{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   for (int l = 0; l < s.nl; ++l) {
     const LightTerm q = light_term<COMPAT, CHEAP, TABLES>(s, l, f, Rx, Ry, Rz, occ_bits,
-                                                          known, tb, primary);
+                                                          known, tb, level);
     o.lam_sum += q.m ? q.ldotn : 0.0f;
     o.spec_sum += q.p;
   }
@@ -360,7 +366,7 @@ __device__ __forceinline__ int fwd_chain(const SceneView& s, const Tables& tb, R
   cr = cg = cb = 0.0f;
   int k = 0;
   for (int bounce = 0; bounce <= last; ++bounce) {
-    const Hit h = closest_hit_at<COMPAT, TABLES>(s, ray, tb, bounce == 0);
+    const Hit h = closest_hit_at<COMPAT, TABLES>(s, ray, tb, bounce);
     ++k;
     const Surface f = surface<COMPAT>(ray, h);
     if (!f.alive) {
@@ -371,7 +377,7 @@ __device__ __forceinline__ int fwd_chain(const SceneView& s, const Tables& tb, R
     reflect_dir(ray.dx, ray.dy, ray.dz, f.nx, f.ny, f.nz, Rx, Ry, Rz);
     unsigned occ = 0u;
     const Shade sh = shade_of<COMPAT, CHEAP, TABLES>(s, f, Rx, Ry, Rz, occ, false, tb,
-                                                     bounce == 0);
+                                                     bounce);
     ch.put(bounce, {ray.ox, ray.oy, ray.oz, ray.dx, ray.dy, ray.dz, h.t, h.obj, occ});
     cr = cr + w * sh.r;
     cg = cg + w * sh.g;
@@ -433,14 +439,14 @@ struct MatAcc {
 // origin and direction; out, this trace's. `act`: this lane's trace
 // contributes (always, in COLS, whose caller sweeps only such traces; in ROWS
 // every lane of the warp calls it and a lane that does not contribute adds
-// zeros). tb, primary: the tables and level-0 flag of the trace, for the
+// zeros). tb, level: the tables and the trace's level, for the
 // re-tested lights past the bitmask.
 template <bool COMPAT, bool CHEAP, bool COLS, bool TABLES>
 __device__ __forceinline__ void bwd_trace(const SceneView& s, const Slots& sl,
                                           const Sink<COLS>& out, const Res& rs, bool act,
                                           float g0, float g1, float g2, float w, float dw,
                                           float* ob, float* db, MatAcc& ma, const Tables& tb,
-                                          bool primary) {
+                                          int level) {
   const float* P = s.p;
   const float lamb = P[P_LAMB];
   const float dx = rs.dx, dy = rs.dy, dz = rs.dz;
@@ -469,7 +475,7 @@ __device__ __forceinline__ void bwd_trace(const SceneView& s, const Slots& sl,
   float lnx = 0.0f, lny = 0.0f, lnz = 0.0f;
   for (int l = 0; l < s.nl; ++l) {
     const LightTerm q = light_term<COMPAT, CHEAP, TABLES>(s, l, f, Rx, Ry, Rz, occ, true,
-                                                          tb, primary);
+                                                          tb, level);
     lam_sum += q.m ? q.ldotn : 0.0f;
     spec_sum += q.p;
     const float chi = q.m ? lam_sum_bar : 0.0f;
@@ -634,7 +640,7 @@ __device__ __forceinline__ void sample(const SceneView& s, const Tables& tb, con
     const bool act = on && i < K && rs.obj >= 0;
     if (COLS && !act) continue;
     bwd_trace<COMPAT, CHEAP, COLS, TABLES>(s, sl, out, rs, act, sr, sg, sb, w, dw, ob, db, ma,
-                                           tb, i == 0);
+                                           tb, i);
   }
   if (!on) return;
 
@@ -999,21 +1005,18 @@ cudaError_t dispatch_cc(bool compat, bool cheap, const BwdJob& j) {
                : launch_job<false, false, COLS, D, G, R, TABLES, ONE>(j);
 }
 
-template <bool COLS, int D, bool G = false, bool R = false, bool TABLES = false>
-cudaError_t dispatch_arith(bool compat, bool cheap, const BwdJob& j) {
-  if (j.mode == FUSED_AA1) return dispatch_cc<COLS, D, G, R, TABLES, true>(compat, cheap, j);
-  return dispatch_cc<COLS, D, G, R, TABLES, false>(compat, cheap, j);
-}
-
-// Depths 0-3 take their own instantiation, the others the general one.
-template <bool COLS, bool G = false, bool R = false, bool TABLES = false>
+// Depths 0-3 take their own instantiation, the others the general one. ONE:
+// the one-launch AA step's instantiations, which only the render_bwd_one*.cu
+// files make (each source's entry point hands FUSED_AA1 jobs to its one-launch
+// twin's), so that nvcc compiles them beside the other modes'.
+template <bool COLS, bool G = false, bool R = false, bool TABLES = false, bool ONE = false>
 cudaError_t dispatch_depth(bool compat, bool cheap, const BwdJob& j) {
   switch (j.depth) {
-    case 0: return dispatch_arith<COLS, 0, G, R, TABLES>(compat, cheap, j);
-    case 1: return dispatch_arith<COLS, 1, G, R, TABLES>(compat, cheap, j);
-    case 2: return dispatch_arith<COLS, 2, G, R, TABLES>(compat, cheap, j);
-    case 3: return dispatch_arith<COLS, 3, G, R, TABLES>(compat, cheap, j);
-    default: return dispatch_arith<COLS, -1, G, R, TABLES>(compat, cheap, j);
+    case 0: return dispatch_cc<COLS, 0, G, R, TABLES, ONE>(compat, cheap, j);
+    case 1: return dispatch_cc<COLS, 1, G, R, TABLES, ONE>(compat, cheap, j);
+    case 2: return dispatch_cc<COLS, 2, G, R, TABLES, ONE>(compat, cheap, j);
+    case 3: return dispatch_cc<COLS, 3, G, R, TABLES, ONE>(compat, cheap, j);
+    default: return dispatch_cc<COLS, -1, G, R, TABLES, ONE>(compat, cheap, j);
   }
 }
 

@@ -11,6 +11,9 @@
 
 extern "C" {
 
+// The one-launch AA step of this file's kernels (render_bwd_one_rows.cu).
+int rt_render_bwd_one_rows(const BwdJob* job, int compat, int cheap_shadow);
+
 // rt_render_bwd (render_bwd.cu) for a large scene in the third form: the
 // same arguments (large_scene, per-warp rows, the global form, the tables;
 // the tree is read where it lies), and scratch, n_rows x nt / 32 x (7 ns + 9
@@ -22,12 +25,12 @@ int rt_render_bwd_rows(const float* params, const float* sph, int ns, const floa
                        int W, int H, int Wg, int depth, int mode, int compat,
                        int cheap_shadow, int nt, float* scratch,
                        const int* vis_idx, const int* vis_cnt, int vis_k,
-                       const int* sh_idx, const int* sh_cnt, int sh_k,
+                       const int* sh_idx, const int* sh_cnt, int sh_k, int sh_levels,
                        const int* perm, const float* box, int n_leaves,
                        const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                        float* rec, void* stream) {
   const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
-                     lc_idx, lc_cnt, lc_hdr};
+                     lc_idx, lc_cnt, lc_hdr, sh_levels};
   const BwdJob job{params, sph, ns, pln, npl, lts, nl, img, target, partial,
                    n_rows, W, H, depth, mode, n_grads, nt,
                    static_cast<cudaStream_t>(stream), Wg, scratch, ta, 0, rec};
@@ -35,6 +38,7 @@ int rt_render_bwd_rows(const float* params, const float* sph, int ns, const floa
       job_smem<true, true, true>(job, false) > static_cast<size_t>(227 * 1024)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (mode == FUSED_AA1) return rt_render_bwd_one_rows(&job, compat, cheap_shadow);
   return static_cast<int>(
       dispatch_depth<false, true, true, true>(compat != 0, cheap_shadow != 0, job));
 }

@@ -9,11 +9,16 @@
 
 extern "C" {
 
+// The one-launch AA step of these kernels (render_bwd_one_small.cu).
+int rt_render_bwd_one_small(const BwdJob* job, int compat, int cheap_shadow, int cols);
+
 // rt_render_bwd (render_bwd.cu) for such a scene; called from there with
 // checked arguments.
 int rt_render_bwd_small(const BwdJob* job, int compat, int cheap_shadow, int cols) {
+  if (job->mode == FUSED_AA1) return rt_render_bwd_one_small(job, compat, cheap_shadow, cols);
   if (cols) return static_cast<int>(dispatch_depth<true>(compat != 0, cheap_shadow != 0, *job));
-  return static_cast<int>(dispatch_arith<false, -1>(compat != 0, cheap_shadow != 0, *job));
+  return static_cast<int>(
+      dispatch_cc<false, -1, false, false, false, false>(compat != 0, cheap_shadow != 0, *job));
 }
 
 }  // extern "C"

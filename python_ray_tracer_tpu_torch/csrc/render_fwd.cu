@@ -23,7 +23,9 @@ int rt_render_fwd_small(const float* params, const float* sph, int ns, const flo
 // table is optional there: a null vis_idx, sh_idx or perm switches it off,
 // and with all three null that kernel too sweeps every sphere for every ray
 // (the render that the culled ones must equal bit for bit: same machine code,
-// other sweeps). perm / box / n_leaves: the bounce tree (rt_common.cuh
+// other sweeps). sh_idx / sh_cnt / sh_k / sh_levels: the occluder lists of the
+// first sh_levels trace levels (>= 1), row (tile * sh_levels + level) * nl +
+// light. perm / box / n_leaves: the bounce tree (rt_common.cuh
 // Tables, LEAF spheres a leaf and FAN leaves a parent); lc_idx / lc_cnt /
 // lc_hdr: the light cells of the bounce shadow rays (rt_light_cells,
 // light_cells.cu; nl * LC_ROWS rows of LC_K slots). Without large_scene the
@@ -33,12 +35,12 @@ int rt_render_fwd(const float* params, const float* sph, int ns, const float* pl
                   int npl, const float* lts, int nl, float* out, int W, int H, int Wg,
                   int depth, int mode, int compat, int cheap_shadow, int large_scene,
                   const int* vis_idx, const int* vis_cnt, int vis_k,
-                  const int* sh_idx, const int* sh_cnt, int sh_k,
+                  const int* sh_idx, const int* sh_cnt, int sh_k, int sh_levels,
                   const int* perm, const float* box, int n_leaves,
                   const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                   void* stream) {
   const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
-                     lc_idx, lc_cnt, lc_hdr};
+                     lc_idx, lc_cnt, lc_hdr, sh_levels};
   if (W <= 0 || H <= 0 || Wg < W || depth < 0 || ns < 0 || npl < 0 || nl < 0 ||
       (W + TILE - 1) / TILE > 65535 || !tables_ok(ta) ||
       (!large_scene && (vis_idx || sh_idx || perm || lc_idx))) {
@@ -77,12 +79,12 @@ int rt_render_list(const float* params, const float* sph, int ns, const float* p
                    int K, float* out, int W, int H, int depth, int compat,
                    int cheap_shadow, int large_scene,
                    const int* vis_idx, const int* vis_cnt, int vis_k,
-                   const int* sh_idx, const int* sh_cnt, int sh_k,
+                   const int* sh_idx, const int* sh_cnt, int sh_k, int sh_levels,
                    const int* perm, const float* box, int n_leaves,
                    const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                    void* stream) {
   const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
-                     lc_idx, lc_cnt, lc_hdr};
+                     lc_idx, lc_cnt, lc_hdr, sh_levels};
   if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 || K < 1 ||
       !idx || !flagged || !out || !tables_ok(ta) ||
       (!large_scene && (vis_idx || sh_idx || perm || lc_idx))) {

@@ -16,12 +16,12 @@ int rt_render_fwd_global(const float* params, const float* sph, int ns, const fl
                          int npl, const float* lts, int nl, float* out, int W, int H, int Wg,
                          int depth, int mode, int compat, int cheap_shadow,
                          const int* vis_idx, const int* vis_cnt, int vis_k,
-                         const int* sh_idx, const int* sh_cnt, int sh_k,
+                         const int* sh_idx, const int* sh_cnt, int sh_k, int sh_levels,
                          const int* perm, const float* box, int n_leaves,
                          const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                          void* stream) {
   const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
-                     lc_idx, lc_cnt, lc_hdr};
+                     lc_idx, lc_cnt, lc_hdr, sh_levels};
   if (W <= 0 || H <= 0 || Wg < W || depth < 0 || ns < 0 || npl < 0 || nl < 0 ||
       (W + TILE - 1) / TILE > 65535 || !tables_ok(ta)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -38,12 +38,12 @@ int rt_render_list_global(const float* params, const float* sph, int ns, const f
                           const int* flagged, int K, float* out, int W, int H, int depth,
                           int compat, int cheap_shadow,
                           const int* vis_idx, const int* vis_cnt, int vis_k,
-                          const int* sh_idx, const int* sh_cnt, int sh_k,
+                          const int* sh_idx, const int* sh_cnt, int sh_k, int sh_levels,
                           const int* perm, const float* box, int n_leaves,
                           const int* lc_idx, const int* lc_cnt, const float* lc_hdr,
                           void* stream) {
   const TableArgs ta{vis_idx, vis_cnt, vis_k, sh_idx, sh_cnt, sh_k, perm, box, n_leaves,
-                     lc_idx, lc_cnt, lc_hdr};
+                     lc_idx, lc_cnt, lc_hdr, sh_levels};
   if (W <= 0 || H <= 0 || depth < 0 || ns < 0 || npl < 0 || nl < 0 || K < 1 || !idx ||
       !flagged || !out || !tables_ok(ta)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -75,6 +75,13 @@
 // is a function of its position alone, and every cull is exact), so frames
 // stitched from slices equal the whole frame bit for bit.
 //
+// Shadow lists at the bounce levels (the render's shadow_list_levels = L >
+// 1): the tile's occluder rows of the first L trace levels are staged beside
+// its primary list (L x nl rows, rt_common.cuh stage_lists) and a shadow ray
+// of level b < L sweeps its level's row (light_occluded); a larger L moves
+// the size where the wrapper switches to the global form (render_cuda.
+// scene_form counts the rows).
+//
 // This header holds the kernels and their launches; each of the source files
 // includes it once, after choosing rt_common.cuh's arithmetic, and
 // instantiates its own part (TABLES false in render_fwd_small.cu, TABLES in

@@ -375,8 +375,9 @@ constexpr int LC_ROWS = 3 * LC_R * LC_R;
 struct Tables {
   const int* vis;     // this tile's cone-visible spheres, ascending index
   int vis_n;          // how many; < 0: no list, sweep all ns spheres
-  const int* sh;      // this tile's nl occluder lists, sh_k slots each
-  const int* sh_n;    // their nl counts (< 0: sweep all); nullptr: no lists
+  const int* sh;      // this tile's sh_levels * nl occluder lists, sh_k slots each,
+                      // row level * nl + light
+  const int* sh_n;    // their counts (< 0: sweep all); nullptr: no lists
   int sh_k;
   const int* perm;    // the bounce tree's sweep order, n_leaves * LEAF indices
   const float* box;   // reach, parent boxes, leaf boxes
@@ -384,14 +385,18 @@ struct Tables {
   const int* lc_idx;  // the light cells (device memory): LC_K slots a row
   const int* lc_cnt;  // their counts (< 0: overflowed); nullptr: no cells
   const float* lc_hdr;  // reach, s_max
+  int sh_levels;      // the trace levels with occluder lists (0: no lists)
 };
 
 // The tables as a kernel receives them (device pointers; a null pointer
 // switches that table off): the flat per-tile primary lists `vis_idx
-// (n_tiles * vis_k)` with counts `vis_cnt (n_tiles)`, the per-(tile, light)
-// occluder lists `sh_idx (n_tiles * nl * sh_k)` with counts `sh_cnt (n_tiles *
-// nl)`, the bounce tree `perm (n_leaves * LEAF)`, `box (tree_box_words)`, and
-// the per-light direction-cell occluder lists of the bounce shadow rays
+// (n_tiles * vis_k)` with counts `vis_cnt (n_tiles)`, the per-(tile, level,
+// light) occluder lists of the first sh_levels trace levels `sh_idx (n_tiles
+// * sh_levels * nl * sh_k)` with counts `sh_cnt (n_tiles * sh_levels * nl)`,
+// row (tile * sh_levels + level) * nl + light (the JAX package's
+// _shadow_visibility_lists over hit-extent rows of sh_levels levels), the
+// bounce tree `perm (n_leaves * LEAF)`, `box (tree_box_words)`, and the
+// per-light direction-cell occluder lists of the bounce shadow rays
 // `lc_idx (nl * LC_ROWS * LC_K)`, `lc_cnt (nl * LC_ROWS)`, `lc_hdr (2)` (see
 // occluded_cells). A count of -1 marks a row that overflowed its slots: that
 // row sweeps all spheres (the tree, for a bounce ray where there is one).
@@ -408,13 +413,15 @@ struct TableArgs {
   const int* lc_idx;
   const int* lc_cnt;
   const float* lc_hdr;
+  int sh_levels = 1;
 };
 
 // Each table that is on is whole: a list's counts beside its indices and at
-// least one slot a row; a tree with leaves; the light cells with their header.
+// least one slot and one level a row; a tree with leaves; the light cells with
+// their header.
 inline bool tables_ok(const TableArgs& a) {
   return (!a.vis_idx || (a.vis_cnt && a.vis_k >= 1)) &&
-         (!a.sh_idx || (a.sh_cnt && a.sh_k >= 1)) &&
+         (!a.sh_idx || (a.sh_cnt && a.sh_k >= 1 && a.sh_levels >= 1)) &&
          (!a.perm || (a.box && a.n_leaves >= 1)) &&
          (!a.lc_idx || (a.lc_cnt && a.lc_hdr));
 }
@@ -433,9 +440,10 @@ __host__ __device__ inline int tree_words(const TableArgs& a) {
   return a.perm ? tree_box_words(a.n_leaves) + a.n_leaves * LEAF : 0;
 }
 
-// 4-byte words of shared memory a block needs for one tile's lists.
+// 4-byte words of shared memory a block needs for one tile's lists: the
+// primary list and sh_levels * nl occluder rows with their counts.
 __host__ __device__ inline int list_words(const TableArgs& a, int nl) {
-  return (a.vis_idx ? a.vis_k : 0) + (a.sh_idx ? nl * (a.sh_k + 1) : 0);
+  return (a.vis_idx ? a.vis_k : 0) + (a.sh_idx ? a.sh_levels * nl * (a.sh_k + 1) : 0);
 }
 
 // 4-byte words of shared memory a block needs for its copy of the tables
@@ -471,7 +479,7 @@ __device__ __forceinline__ void stage_tree(const TableArgs& a, float* base, int 
 // The record of a tile with no tables.
 __host__ __device__ inline Tables no_tables() {
   return Tables{nullptr, -1, nullptr, nullptr, 0, nullptr, nullptr, 0,
-                nullptr, nullptr, nullptr};
+                nullptr, nullptr, nullptr, 0};
 }
 
 // Copy tile `tile`'s lists into shared memory at `w` (list_words words) and
@@ -487,15 +495,16 @@ __device__ __forceinline__ void stage_lists(const TableArgs& a, int nl, int tile
     w += a.vis_k;
   }
   if (a.sh_idx) {
-    int* cnt = w + nl * a.sh_k;
-    for (int l = 0; l < nl; ++l) {
-      const size_t row = static_cast<size_t>(tile) * nl + l;
+    const int rows = a.sh_levels * nl;   // level * nl + light
+    int* cnt = w + rows * a.sh_k;
+    for (int l = 0; l < rows; ++l) {
+      const size_t row = static_cast<size_t>(tile) * rows + l;
       const int n = a.sh_cnt[row];
       const int* src = a.sh_idx + row * a.sh_k;
       for (int i = tid; i < n; i += nt) w[l * a.sh_k + i] = src[i];
       if (tid == 0) cnt[l] = n;
     }
-    tb.sh = w; tb.sh_n = cnt; tb.sh_k = a.sh_k;
+    tb.sh = w; tb.sh_n = cnt; tb.sh_k = a.sh_k; tb.sh_levels = a.sh_levels;
   }
 }
 
@@ -521,9 +530,11 @@ __device__ __forceinline__ void tile_lists(const TableArgs& a, int nl, int tile,
     tb.vis_n = a.vis_cnt[tile];
   }
   if (a.sh_idx) {
-    tb.sh = a.sh_idx + static_cast<size_t>(tile) * nl * a.sh_k;
-    tb.sh_n = a.sh_cnt + static_cast<size_t>(tile) * nl;
+    const size_t rows = static_cast<size_t>(a.sh_levels) * nl;
+    tb.sh = a.sh_idx + static_cast<size_t>(tile) * rows * a.sh_k;
+    tb.sh_n = a.sh_cnt + static_cast<size_t>(tile) * rows;
     tb.sh_k = a.sh_k;
+    tb.sh_levels = a.sh_levels;
   }
 }
 
@@ -1000,16 +1011,17 @@ __device__ __forceinline__ Ray bounce_ray(const Surface& f, float rx, float ry, 
   return {ff(BIAS, rx, f.px), ff(BIAS, ry, f.py), ff(BIAS, rz, f.pz), rx, ry, rz};
 }
 
-// Closest hit of a ray at its level. With TABLES, the primary ray (level 0)
-// sweeps the tile's cone-visible list and a bounce ray the bounce tree (where
-// the scene has one); without, and for a table that is off, every ray sweeps
-// every sphere. The render, hit-extent and backward kernels all decide their
-// hits here, so with the same tables they decide the same ones.
+// Closest hit of a ray at its trace level (0: the primary ray). With TABLES,
+// the primary ray sweeps the tile's cone-visible list and a bounce ray the
+// bounce tree (where the scene has one); without, and for a table that is
+// off, every ray sweeps every sphere. The render, hit-extent and backward
+// kernels all decide their hits here, so with the same tables they decide the
+// same ones.
 template <bool COMPAT, bool TABLES>
 __device__ __forceinline__ Hit closest_hit_at(const SceneView& s, const Ray& ray,
-                                              const Tables& tb, bool primary) {
+                                              const Tables& tb, int level) {
   if (!TABLES) return closest_hit<COMPAT>(s, ray);
-  if (primary) return closest_hit_listed<COMPAT>(s, ray, tb.vis, tb.vis_n);
+  if (level == 0) return closest_hit_listed<COMPAT>(s, ray, tb.vis, tb.vis_n);
   if (tb.n_leaves > 0) return closest_hit_tree<COMPAT>(s, ray, tb);
   return closest_hit<COMPAT>(s, ray);
 }
@@ -1020,43 +1032,47 @@ __device__ __forceinline__ Hit closest_hit_at(const SceneView& s, const Ray& ray
 // shadow-ray origins.
 template <bool COMPAT, bool TABLES>
 __device__ __forceinline__ Surface primary_geometry(const SceneView& s, const Ray& ray,
-                                                    const Tables& tb, bool primary) {
-  return surface<COMPAT>(ray, closest_hit_at<COMPAT, TABLES>(s, ray, tb, primary));
+                                                    const Tables& tb, int level) {
+  return surface<COMPAT>(ray, closest_hit_at<COMPAT, TABLES>(s, ray, tb, level));
 }
 
-// Is the shadow ray from surface f toward light l (unit direction l) blocked?
-// With TABLES, a level-0 shadow ray sweeps the tile's occluder list for the
-// light, a bounce shadow ray its light cell's row (occluded_cells), or the
-// bounce tree where the cells are off; without, and for a table that is off,
-// every sphere. The render and the backward kernels both ask here.
+// Is the shadow ray from surface f toward light l (unit direction l), at trace
+// level `level`, blocked? With TABLES (the JAX package's dispatch order,
+// _trace: lists, then groups, then every sphere, with the light cells and the
+// tree standing in for the groups): a shadow ray of a level below
+// tb.sh_levels sweeps the tile's occluder list for that level and light; a
+// bounce shadow ray above them its light cell's row (occluded_cells), or the
+// bounce tree where the cells are off; else, and without TABLES, every
+// sphere. The render and the backward kernels both ask here.
 template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ bool light_occluded(const SceneView& s, const Surface& f,
                                                float lx, float ly, float lz,
-                                               const Tables& tb, int l, bool primary) {
-  if (TABLES && primary && tb.sh_n != nullptr) {
+                                               const Tables& tb, int l, int level) {
+  if (TABLES && level < tb.sh_levels) {
+    const int row = level * s.nl + l;
     return occluded_listed<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz,
-                                          tb.sh + l * tb.sh_k, tb.sh_n[l]);
+                                          tb.sh + row * tb.sh_k, tb.sh_n[row]);
   }
-  if (TABLES && !primary && tb.lc_cnt != nullptr) {
+  if (TABLES && level > 0 && tb.lc_cnt != nullptr) {
     return occluded_cells<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb, l);
   }
-  if (TABLES && !primary && tb.n_leaves > 0) {
+  if (TABLES && level > 0 && tb.n_leaves > 0) {
     return occluded_tree<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz, tb);
   }
   return occluded<COMPAT, CHEAP>(s, f.px, f.py, f.pz, lx, ly, lz);
 }
 
-// One shading evaluation (reference trace, trace.py:45-112): ambient +
-// Lambert over unoccluded lights (+ Phong in clean mode), and the next
-// mirror ray. A miss returns black with alive = false and no next ray. The
-// sweeps are closest_hit_at's and light_occluded's. Besides the color, the
-// record the backward kernel replays: the hit's t and object, and bit l of
-// occ for each occluded light l < 32 (the render drops them).
+// One shading evaluation at trace level `level` (reference trace,
+// trace.py:45-112): ambient + Lambert over unoccluded lights (+ Phong in clean
+// mode), and the next mirror ray. A miss returns black with alive = false and
+// no next ray. The sweeps are closest_hit_at's and light_occluded's. Besides
+// the color, the record the backward kernel replays: the hit's t and object,
+// and bit l of occ for each occluded light l < 32 (the render drops them).
 template <bool COMPAT, bool CHEAP, bool TABLES>
 __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
-                                          const Tables& tb, bool primary) {
+                                          const Tables& tb, int level) {
   TraceOut o;
-  const Hit h = closest_hit_at<COMPAT, TABLES>(s, ray, tb, primary);
+  const Hit h = closest_hit_at<COMPAT, TABLES>(s, ray, tb, level);
   const Surface f = surface<COMPAT>(ray, h);
   o.t = h.t;
   o.obj = h.obj;
@@ -1076,7 +1092,7 @@ __device__ __forceinline__ TraceOut trace(const SceneView& s, const Ray& ray,
   for (int l = 0; l < nl; ++l) {
     float lx, ly, lz;
     light_dir(s, l, f, lx, ly, lz);
-    const bool occ = light_occluded<COMPAT, CHEAP, TABLES>(s, f, lx, ly, lz, tb, l, primary);
+    const bool occ = light_occluded<COMPAT, CHEAP, TABLES>(s, f, lx, ly, lz, tb, l, level);
     if (occ && l < 32) o.occ |= 1u << l;
     float lam = lamb * (lx * f.nx + ly * f.ny + lz * f.nz);
     lam = (!occ && lam > 0.0f) ? lam : 0.0f;
@@ -1113,14 +1129,14 @@ template <bool COMPAT, bool CHEAP, bool TABLES, typename Rec = NoRecord>
 __device__ __forceinline__ Rgb sample_chain(const SceneView& s, const Tables& tb,
                                             float px, float py, int depth,
                                             const Rec& rec = Rec()) {
-  TraceOut t = trace<COMPAT, CHEAP, TABLES>(s, raygen(s.p, px, py), tb, true);
+  TraceOut t = trace<COMPAT, CHEAP, TABLES>(s, raygen(s.p, px, py), tb, 0);
   rec(0, t);
   float r = t.r, g = t.g, b = t.b;
   const float refl = s.p[P_REFL];
   float w = 1.0f;
   for (int bounce = 0; bounce < depth && t.alive; ++bounce) {
     w = w * refl;
-    t = trace<COMPAT, CHEAP, TABLES>(s, t.next, tb, false);
+    t = trace<COMPAT, CHEAP, TABLES>(s, t.next, tb, bounce + 1);
     rec(bounce + 1, t);
     r = r + w * t.r;
     g = g + w * t.g;

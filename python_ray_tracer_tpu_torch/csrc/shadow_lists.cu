@@ -1,16 +1,22 @@
-// The level-0 shadow lists of the render kernel, built on the card once a
-// large-scene frame: for each (tile, light) row, the spheres that can block a
-// shadow ray from a point of the tile's hit box (a row of hit_extents.cu)
-// toward that light or beyond it, from the largest apparent size from the
-// light down, k slots a row, count -1 where more than k are kept. The rules
-// are ops/cuda/cull_tables.py shadow_visibility_lists' (the JAX package's
-// _shadow_visibility_lists, render_pallas.py:1113, plain jnp outside any
-// kernel there): a capsule around the segment box centre -> light, widened by
-// the box's half-diagonal, and a cone past the light, each widened by the
-// sphere's radius and a slack of 2e-6 of the scene's scale; a row whose light
-// lies within two half-diagonals of the box keeps every sphere, and a row of a
-// tile without hits keeps none. No TPU kernel computes these lists; this kernel
-// serves the render kernel's level-0 shadow sweeps (TPU kernels 1, 2 and 7).
+// The shadow lists of the render kernel, built on the card once a
+// large-scene frame: for each (tile, level, light) row, the spheres that can
+// block a shadow ray from a point of the box around the tile's hit points at
+// that trace level (a row of hit_extents.cu) toward that light or beyond it,
+// from the largest apparent size from the light down, k slots a row, count -1
+// where more than k are kept. The rules are ops/cuda/cull_tables.py
+// shadow_visibility_lists' (the JAX package's _shadow_visibility_lists,
+// render_pallas.py:1113, plain jnp outside any kernel there): a capsule
+// around the segment box centre -> light, widened by the box's half-diagonal,
+// and a cone past the light, each widened by the sphere's radius and a slack
+// of 2e-6 of the scene's scale; a row whose light lies within two
+// half-diagonals of the box keeps every sphere, and a row of a tile without
+// hits keeps none. No TPU kernel computes these lists; this kernel serves the
+// render kernel's listed shadow sweeps (TPU kernels 1, 2 and 7): level 0's by
+// default, the first L levels' with the render's shadow_list_levels = L. Its
+// `tiles` are hit-extent rows: with L levels a tile's rows are tile * L +
+// level (levels fastest), so row (tile * L + level) * nl + light of the
+// output is that level's list, the layout of the JAX package's lists over
+// hit-extent rows of L levels.
 //
 // What bounds it: FP32 work, one ~34-operation capsule-and-cone test a (row,
 // sphere) pair until the row is decided (8160 tiles x 3 lights x 1000 spheres
@@ -238,16 +244,17 @@ shadow_lists_kernel(const float* __restrict__ ext, const float* __restrict__ sca
 
 extern "C" {
 
-// Build the level-0 shadow lists of a frame on `stream` (device pointers):
-// ext (n_tiles, 8) the hit-extent rows of level 0 (rt_hit_extents), scale (1)
-// its scale, lts (nl, 3) the lights, cen (ns, 3) and rad (ns) the spheres,
-// order (nl, ns) int32 each light's spheres from the largest apparent size
-// down; idx (n_tiles * nl * k) and cnt (n_tiles * nl) int32 receive the rows,
-// row tile * nl + light, k = min(K, ns) slots a row (count -1: overflowed).
-// compat: the cone reaches FAR past the light, else 1e9. chunk: 0 stages the
-// whole order at once; > 0, the chunked form, that many positions at a time
-// (shadow_lists_cuda.chunk_spheres). Returns cudaGetLastError() after the
-// launch (0 on success).
+// Build the shadow lists of a frame on `stream` (device pointers): ext
+// (n_tiles, 8) hit-extent rows (rt_hit_extents; with L levels n_tiles is the
+// tiles times L, row tile * L + level), scale (1) their scale, lts (nl, 3)
+// the lights, cen (ns, 3) and rad (ns) the spheres, order (nl, ns) int32 each
+// light's spheres from the largest apparent size down; idx (n_tiles * nl * k)
+// and cnt (n_tiles * nl) int32 receive the rows, row tile * nl + light (for L
+// levels: (tile * L + level) * nl + light), k = min(K, ns) slots a row (count
+// -1: overflowed). compat: the cone reaches FAR past the light, else 1e9.
+// chunk: 0 stages the whole order at once; > 0, the chunked form, that many
+// positions at a time (shadow_lists_cuda.chunk_spheres). Returns
+// cudaGetLastError() after the launch (0 on success).
 int rt_shadow_lists(const float* ext, const float* scale, const float* lts, int nl,
                     const float* cen, const float* rad, int ns, const int* order,
                     int n_tiles, int k, int compat, int* idx, int* cnt, int chunk,

@@ -23,6 +23,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -33,6 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+# Seconds each source's nvcc took in this process's last build (file name ->
+# seconds from the start of the build to that process's exit), and the link's.
+BUILD_SECONDS: dict = {}
 
 
 def find_nvcc() -> str:
@@ -90,17 +94,31 @@ def build(sources=None, defines=()) -> str:
         tmp = f"{so}.{os.getpid()}.tmp"
         objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
         try:
-            procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.PIPE, text=True))
-                     for cmd in ([nvcc, *flags, "-I", CSRC_DIR, "-c", "-o",
-                                  obj, src] for src, obj in zip(srcs, objs))]
-            results = [(cmd, p, *p.communicate()) for cmd, p in procs]
-            for cmd, p, _, err in results:
+            t0 = time.perf_counter()
+            procs = [(src, cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.PIPE, text=True))
+                     for src, cmd in ((src, [nvcc, *flags, "-I", CSRC_DIR, "-c", "-o",
+                                             obj, src]) for src, obj in zip(srcs, objs))]
+            seconds, errs = {}, {}
+
+            def wait(src, p):
+                errs[src] = p.communicate()[1]
+                seconds[os.path.basename(src)] = time.perf_counter() - t0
+            waits = [threading.Thread(target=wait, args=(src, p)) for src, _, p in procs]
+            for w in waits:
+                w.start()
+            for w in waits:
+                w.join()
+            for src, cmd, p in procs:
                 if p.returncode != 0:
                     raise RuntimeError(f"nvcc failed (rc {p.returncode}): "
-                                       f"{' '.join(cmd)}\n{err}")
+                                       f"{' '.join(cmd)}\n{errs[src]}")
             cmd = [nvcc, *flags, "-shared", "-o", tmp, *objs]
+            t1 = time.perf_counter()
             proc = subprocess.run(cmd, capture_output=True, text=True)
+            seconds["link"] = time.perf_counter() - t1
+            BUILD_SECONDS.clear()
+            BUILD_SECONDS.update(seconds)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
                                    f"{' '.join(cmd)}\n{proc.stderr}")
@@ -115,7 +133,7 @@ def build(sources=None, defines=()) -> str:
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the signature of every C entry point that ``lib`` holds."""
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    tables = [vp, vp, ci, vp, vp, ci, vp, vp, ci, vp, vp, vp]   # lists, tree, light cells
+    tables = [vp, vp, ci, vp, vp, ci, ci, vp, vp, ci, vp, vp, vp]   # lists, tree, light cells
     sigs = {
         "rt_render_fwd": (ci, [vp, vp, ci, vp, ci, vp, ci, vp, ci, ci, ci, ci, ci, ci, ci,
                                ci, *tables, vp]),

@@ -11,11 +11,12 @@ device of their inputs; dot products are multiply-and-sum, never a matmul):
   * :func:`tile_visibility` (``_tile_visibility``): per render tile, the
     spheres whose ball meets the cone around the tile's primary rays;
   * :func:`shadow_visibility_lists` (``_shadow_visibility_lists``): per (tile,
-    light), the spheres that can block a shadow ray from the tile's hit box
-    (a row of the hit-extent kernel, ``hit_extents_cuda``) toward the light or
-    beyond it; on the card the render path builds them with the hand-written
-    kernel of ``shadow_lists_cuda``, which computes these rows, and this
-    function is its plain version;
+    level, light), the spheres that can block a shadow ray from the tile's
+    hit box at that trace level (a row of the hit-extent kernel,
+    ``hit_extents_cuda``) toward the light or beyond it; on the card the
+    render path builds them with the hand-written kernel of
+    ``shadow_lists_cuda``, which computes these rows, and this function is its
+    plain version;
   * :func:`bounce_tree` (no JAX counterpart): the bounce sweeps' two-level
     box tree over the Morton order, with :func:`tree_closest_hit_plain` and
     :func:`tree_occluded_plain`, plain traversals that mirror the kernels'
@@ -278,7 +279,10 @@ def shadow_visibility_lists(ext, lights, centers, radii, *, K: int, compat: bool
                             to_sorted=None, scale=None):
     """Per-(tile, light) conservative occluder lists from hit-extent rows.
 
-    ``ext (T, 8)``: ``[min xyz, max xyz, count, 0]`` a tile (one trace level).
+    ``ext (T, 8)``: ``[min xyz, max xyz, count, 0]`` a tile, or, for the
+    lists of L trace levels, a (tile, level) (``T`` the tiles times L, row
+    ``tile * L + level``: the hit-extent kernel's layout), whose rows are
+    then ``(tile * L + level) * nl + l``.
     A sphere can block some shadow ray of a tile only if it meets the region
     swept by rays from points of the tile's hit box through the light and on
     beyond it by ``FAR`` (the any-hit query has no maximum distance: a sphere

@@ -29,7 +29,7 @@ from ..shade import BIAS, _surface_attributes, reflect
 from . import render_cuda
 from .cull_tables import LEAF, TILE, extent_scale, tile_grid, tree_box_words
 
-MAX_LEVELS = 4     # trace levels one launch covers (csrc/hit_extents.cu)
+MAX_LEVELS = 4     # trace levels a pass of the kernel keeps (csrc/hit_extents.cu)
 # Kernel launches; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {"hit_extents": 0}
 # Of those, the launches with bounce levels in the global form.
@@ -180,10 +180,11 @@ def _check_table(name, t, dtype, n, dev):
 def check_tables(vis, shadow, tree, *, n_tiles: int, ns: int, nl: int, dev,
                  cells=None) -> None:
     """Raise on tables the kernels do not take: ``vis = (idx, cnt, k)``,
-    ``shadow = (idx, cnt, k)``, ``tree`` a ``cull_tables.BounceTree`` of the
-    kernels' shape (``cull_tables.LEAF`` / ``FAN``) whose leaves hold every
-    sphere's slot, ``cells`` a ``light_cells_cuda.LightCells`` of the kernels'
-    shape for ``nl`` lights, each or None."""
+    ``shadow = (idx, cnt, k, levels)`` (rows ``(tile * levels + level) *
+    nl + light``), ``tree`` a ``cull_tables.BounceTree`` of the kernels' shape
+    (``cull_tables.LEAF`` / ``FAN``) whose leaves hold every sphere's slot,
+    ``cells`` a ``light_cells_cuda.LightCells`` of the kernels' shape for
+    ``nl`` lights, each or None."""
     if vis is not None:
         idx, cnt, k = vis
         if not 1 <= k <= ns:
@@ -191,11 +192,13 @@ def check_tables(vis, shadow, tree, *, n_tiles: int, ns: int, nl: int, dev,
         _check_table("primary list indices", idx, torch.int32, n_tiles * k, dev)
         _check_table("primary list counts", cnt, torch.int32, n_tiles, dev)
     if shadow is not None:
-        idx, cnt, k = shadow
-        if not 1 <= k <= ns or nl < 1:
-            raise ValueError(f"shadow lists: k={k} for {ns} spheres, {nl} lights")
-        _check_table("shadow list indices", idx, torch.int32, n_tiles * nl * k, dev)
-        _check_table("shadow list counts", cnt, torch.int32, n_tiles * nl, dev)
+        idx, cnt, k, levels = shadow
+        if not 1 <= k <= ns or nl < 1 or levels < 1:
+            raise ValueError(f"shadow lists: k={k}, {levels} levels for {ns} spheres, "
+                             f"{nl} lights")
+        rows = n_tiles * levels * nl
+        _check_table("shadow list indices", idx, torch.int32, rows * k, dev)
+        _check_table("shadow list counts", cnt, torch.int32, rows, dev)
     if tree is not None:
         if tree.n_leaves * LEAF < max(ns, 1) or (tree.n_leaves - 1) * LEAF >= ns:
             raise ValueError(f"bounce tree: {tree.n_leaves} leaves of {LEAF} for {ns} "
@@ -210,11 +213,15 @@ def check_tables(vis, shadow, tree, *, n_tiles: int, ns: int, nl: int, dev,
 
 def table_args(vis, shadow, tree, cells=None) -> list:
     """The C argument lists of the four tables, in the order the entry
-    points take them: ``[idx, cnt, k]`` for each list, ``[perm, box,
-    n_leaves]`` for the tree, ``[idx, cnt, hdr]`` for the light cells (null
-    pointers and zeros for one that is off)."""
-    args = [[None, None, 0] if tab is None else [tab[0].data_ptr(), tab[1].data_ptr(),
-                                                 int(tab[2])] for tab in (vis, shadow)]
+    points take them: ``[idx, cnt, k]`` for the primary lists, ``[idx, cnt,
+    k, levels]`` for the shadow lists, ``[perm, box, n_leaves]`` for the tree,
+    ``[idx, cnt, hdr]`` for the light cells (null pointers and zeros for one
+    that is off; the shadow lists' levels 1)."""
+    args = [[None, None, 0] if vis is None else
+            [vis[0].data_ptr(), vis[1].data_ptr(), int(vis[2])],
+            [None, None, 0, 1] if shadow is None else
+            [shadow[0].data_ptr(), shadow[1].data_ptr(), int(shadow[2]),
+             int(shadow[3])]]
     args.append([None, None, 0] if tree is None else
                 [tree.perm.data_ptr(), tree.box.data_ptr(), tree.n_leaves])
     args.append([None, None, None] if cells is None else
@@ -301,8 +308,8 @@ def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
         return ext
     if dev.type != "cuda":
         raise ValueError(f"hit_extents_cuda takes CPU or CUDA tensors, got {dev}")
-    if not 1 <= n_levels <= MAX_LEVELS:
-        raise ValueError(f"n_levels must be in 1..{MAX_LEVELS}, got {n_levels}")
+    if n_levels < 1:
+        raise ValueError(f"n_levels must be at least 1, got {n_levels}")
     render_cuda._check_inputs(camera, scene, dev)
     W, H = camera.resolution
     if W < 1 or H < 1:

@@ -340,12 +340,12 @@ def smem_bytes(ns: int, npl: int, nl: int, fused: bool, aa: bool, nt: int,
 def table_words(tabs, nl: int) -> tuple:
     """``(lists, tree)``: words of ``render_cuda.large_scene_tables``' result
     ``(vis, shadow, tree, cells)`` that a block keeps in shared memory
-    (``bwd_table_words``): one tile's primary list and ``nl`` occluder lists
-    with their counts, and the bounce tree where the staged form copies it
-    (the light cells stay in device memory)."""
+    (``bwd_table_words``): one tile's primary list and its occluder lists (``nl``
+    a listed trace level) with their counts, and the bounce tree where the
+    staged form copies it (the light cells stay in device memory)."""
     vis, shadow, tree, _ = tabs
     lists = (vis[2] if vis is not None else 0) + \
-        (nl * (shadow[2] + 1) if shadow is not None else 0)
+        (shadow[3] * nl * (shadow[2] + 1) if shadow is not None else 0)
     if tree is None:
         return lists, 0
     return lists, cull_tables.tree_box_words(tree.n_leaves) + tree.n_leaves * cull_tables.LEAF

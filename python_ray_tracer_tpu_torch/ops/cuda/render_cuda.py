@@ -128,6 +128,15 @@ def pack_params(camera, scene, compat: bool, x_offset: int = 0) -> torch.Tensor:
         torch.tensor(AA_OFFSETS, dtype=torch.float32).reshape(-1)])
 
 
+def list_levels(depth: int, shadow_list_levels: int | None = None) -> int:
+    """The trace levels that get shadow lists, as the JAX wrapper resolves
+    ``shadow_list_levels`` (``render_pallas._render_image_pallas``): None is
+    level 0 alone, else ``max(1, min(depth + 1, shadow_list_levels))``."""
+    if shadow_list_levels is None:
+        return 1
+    return max(1, min(depth + 1, int(shadow_list_levels)))
+
+
 def shadow_cheap_ok(scene, compat: bool) -> bool:
     """Whether the sqrt-free shadow test is exact for this scene
     (``render_pallas._shadow_cheap_ok``): always in clean mode; in compat mode
@@ -163,15 +172,16 @@ def uses_tree(ns: int, depth: int, group_cull: bool | None = None) -> bool:
     return want and ns > CULL_MIN_SPHERES and depth > 0
 
 
-def _smem_bytes(ns: int, npl: int, nl: int, tree: bool = False) -> int:
+def _smem_bytes(ns: int, npl: int, nl: int, tree: bool = False, levels: int = 1) -> int:
     """Shared memory a block stages beside the AA sample grids, with both
-    lists on at their largest row capacity and, with ``tree``, the bounce
-    tree (~2.7 words a sphere: with it, 1 plane and 3 lights, the largest
-    scene is 5600 spheres; without it, 7753)."""
+    lists on at their largest row capacity, the shadow lists of ``levels``
+    trace levels, and, with ``tree``, the bounce tree (~2.7 words a sphere:
+    with it, 1 plane, 3 lights and one listed level, the largest scene is 5600
+    spheres; without it, 7753)."""
     words = N_PARAMS + 7 * ns + 9 * npl + 3 * nl
     if ns > CULL_MIN_SPHERES:
         k = cull_tables.list_capacity(ns)
-        words += k + nl * (k + 1)
+        words += k + levels * nl * (k + 1)
         if tree:
             n_leaves = -(-ns // cull_tables.LEAF)
             words += cull_tables.tree_box_words(n_leaves) + n_leaves * cull_tables.LEAF
@@ -179,15 +189,18 @@ def _smem_bytes(ns: int, npl: int, nl: int, tree: bool = False) -> int:
 
 
 def scene_form(ns: int, npl: int, nl: int, tree: bool = False,
-               staged_bytes: int | None = None, limit: int = _SMEM_LIMIT) -> int:
+               staged_bytes: int | None = None, limit: int = _SMEM_LIMIT,
+               levels: int = 1) -> int:
     """The form (an index of :data:`FORMS`) of a kernel that stages the scene,
     one rule for every such kernel: staged where its staged form's shared
     memory (``staged_bytes``; default the render kernel's, :func:`_smem_bytes`
-    with ``tree``) fits ``limit`` (default the render kernel's room beside the
-    AA sample grids); else global. At 1 plane and 3 lights the render kernel
-    stages up to 7753 spheres (5600 with the tree). Every scene the staged
-    form takes keeps it, so those frames do not change."""
-    b = _smem_bytes(ns, npl, nl, tree) if staged_bytes is None else staged_bytes
+    with ``tree`` and the shadow lists of ``levels`` trace levels) fits
+    ``limit`` (default the render kernel's room beside the AA sample grids);
+    else global. At 1 plane, 3 lights and one listed level the render kernel
+    stages up to 7753 spheres (5600 with the tree); more listed levels move
+    those sizes down. Every scene the staged form takes keeps it, so those
+    frames do not change."""
+    b = _smem_bytes(ns, npl, nl, tree, levels) if staged_bytes is None else staged_bytes
     return int(b > limit)
 
 
@@ -226,23 +239,30 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
                        cull: bool = True, shadow_lists: bool | None = None,
                        group_cull: bool | None = None, K: int | None = None,
                        packed=None, light_cells: bool = True, x_offset: int = 0,
-                       local_width: int | None = None):
+                       local_width: int | None = None,
+                       shadow_list_levels: int | None = None):
     """The render kernel's tables for this frame: ``(vis, shadow, tree,
-    cells)``, ``(idx, cnt, k)``, ``(idx, cnt, k)``, a
+    cells)``, ``(idx, cnt, k)``, ``(idx, cnt, k, levels)``, a
     ``cull_tables.BounceTree`` and a ``light_cells_cuda.LightCells``, each
     None where that cull is off (``render_pallas._render_image_pallas``'s
-    resolution of its ``cull``, ``shadow_lists`` and ``group_cull``; None is
-    "auto"). The cone cull and the shadow lists need more than
-    :data:`CULL_MIN_SPHERES` spheres (the lists also a light); the bounce tree
-    (``group_cull``, the JAX package's Morton groups) is automatic from
-    :data:`GROUP_MIN_SPHERES` spheres and needs ``depth > 0``. The shadow lists
-    come from one launch of the hit-extent kernel on the same primary lists
-    (level 0 only, so it takes no tree), then one launch of the list kernel
-    on its rows and scale (``shadow_lists_cuda``; no host sync between them;
-    on CPU tensors both take their plain versions); the light cells, the
-    bounce levels' shadow lists, from one launch of the light-cell kernel
-    where the shadow lists are on and ``depth > 0`` (``light_cells=False`` leaves them off, for
-    the tests and ``chip_smoke.py``). ``K``: slots a tile list row (default
+    resolution of its ``cull``, ``shadow_lists``, ``group_cull`` and
+    ``shadow_list_levels``; None is "auto"). The cone cull and the shadow
+    lists need more than :data:`CULL_MIN_SPHERES` spheres (the lists also a
+    light); the bounce tree (``group_cull``, the JAX package's Morton groups)
+    is automatic from :data:`GROUP_MIN_SPHERES` spheres and needs ``depth >
+    0``. The shadow lists cover the first ``levels`` trace levels
+    (:func:`list_levels`: level 0 alone by default; rows ``(tile * levels +
+    level) * nl + light``) and come from one launch of the hit-extent kernel
+    on the same primary lists (and, past level 0, the same bounce tree, so
+    its bounce hit points are the render's), then one launch of the list
+    kernel on its rows and scale (``shadow_lists_cuda``; no host sync between
+    them; on CPU tensors both take their plain versions). The JAX package
+    switches its Morton groups off where ``levels > 1``; the tree stays on
+    here, since the hit-extent kernel sweeps it as the render does. The light
+    cells, the lists of the bounce shadow rays past the listed levels, come
+    from one launch of the light-cell kernel where the shadow lists are on and
+    ``depth >= levels`` (``light_cells=False`` leaves them off, for the tests
+    and ``chip_smoke.py``). ``K``: slots a tile list row (default
     ``cull_tables.list_capacity``; the light cells' slots are the kernels'
     constant). ``packed``: the caller's ``(params, scene_tables, counts)`` for
     checked CUDA inputs, which the hit-extent and light-cell launches then
@@ -264,30 +284,34 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     if uses_tree(ns, depth, group_cull):
         tree = cull_tables.bounce_tree(scene.spheres.center, scene.spheres.radius)
     lists = (shadow_lists is None or shadow_lists) and rolled and nl > 0
-    if lists and light_cells and depth > 0:
+    levels = list_levels(depth, shadow_list_levels)
+    if lists and light_cells and depth >= levels:
         sph, _, lts = scene_tables(scene) if packed is None else packed[1]
         cells = light_cells_cuda(sph, lts, ns, nl)
     if lists:
         scale = torch.empty(1, dtype=torch.float32, device=camera.device)
+        bounce_tree = tree if levels > 1 else None
         if packed is None:
             ext = hx.hit_extents_cuda(camera, scene, aliasing=aliasing, compat=compat,
-                                      n_levels=1, vis=vis, scale=scale, x_offset=x_offset,
-                                      local_width=lw)
+                                      n_levels=levels, vis=vis, tree=bounce_tree,
+                                      scale=scale, x_offset=x_offset, local_width=lw)
         else:
             W, H = camera.resolution
             n_tx, n_ty = cull_tables.tile_grid(lw, H)
-            ext = hx.launch(torch.empty((n_tx * n_ty, 8), dtype=torch.float32,
+            ext = hx.launch(torch.empty((n_tx * n_ty * levels, 8), dtype=torch.float32,
                                         device=camera.device), *packed, W=lw, H=H,
-                            W_global=W, aliasing=aliasing, compat=compat, n_levels=1,
-                            vis=vis, scale=scale)
+                            W_global=W, aliasing=aliasing, compat=compat, n_levels=levels,
+                            vis=vis, tree=bounce_tree, scale=scale)
         shadow = (*shadow_lists_cuda(ext, scale, scene.lights.position, scene.spheres.center,
-                                     scene.spheres.radius, K=k, compat=compat), k)
+                                     scene.spheres.radius, K=k, compat=compat), k, levels)
     return vis, shadow, tree, cells
 
 
 def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
                       compat: bool = True, aa_share: bool = True, cull: bool = True,
+                      shadow_cull: bool = False, cheap_shadow: bool | None = None,
                       shadow_lists: bool | None = None,
+                      shadow_list_levels: int | None = None,
                       group_cull: bool | None = None, x_offset: int = 0,
                       local_width: int | None = None) -> torch.Tensor:
     """Render -> float ``(w, h, 3)`` image, as :func:`..render.render_image`;
@@ -298,8 +322,16 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
     say. CUDA tensors launch the kernel on the current stream (mode
     ``aa_shared`` when ``aliasing and aa_share``, ``aa_per_sample`` for AA
     without sharing, else ``aa_none``), after the hit-extent and list kernels
-    where the shadow lists are on. ``cull``, ``shadow_lists`` and
-    ``group_cull`` are the JAX wrapper's (:func:`large_scene_tables`); none changes a pixel."""
+    where the shadow lists are on. ``cull``, ``shadow_lists``,
+    ``shadow_list_levels`` and ``group_cull`` are the JAX wrapper's
+    (:func:`large_scene_tables`); ``cheap_shadow`` picks the sqrt-free
+    shadow test (None: :func:`shadow_cheap_ok`, as the JAX wrapper resolves
+    it; pass True only for a scene where that holds). ``shadow_cull`` (the
+    JAX wrapper's runtime capsule cull of the shadow sweeps that have no list)
+    is taken for the JAX signature and changes no launch: at the defaults
+    every shadow sweep of a large scene has a table here (the lists at the
+    listed levels, the light cells past them), each as exact as the capsule.
+    None of them changes a pixel."""
     lw = slice_width(camera, x_offset, local_width)
     if camera.position.device.type == "cpu":
         return render_image(camera, scene, depth=depth, aliasing=aliasing,
@@ -309,7 +341,8 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
                                                       compat=compat, x_offset=x_offset),
                          depth=depth, mode=mode, compat=compat, cull=cull,
                          shadow_lists=shadow_lists, group_cull=group_cull,
-                         x_offset=x_offset, local_width=lw)
+                         x_offset=x_offset, local_width=lw, cheap_shadow=cheap_shadow,
+                         shadow_list_levels=shadow_list_levels)
 
 
 def packed_inputs(camera, scene, *, depth: int, compat: bool, x_offset: int = 0):
@@ -334,7 +367,8 @@ def packed_inputs(camera, scene, *, depth: int, compat: bool, x_offset: int = 0)
 def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
                   cull: bool = True, shadow_lists: bool | None = None,
                   group_cull: bool | None = None, tabs=None, x_offset: int = 0,
-                  local_width: int | None = None) -> torch.Tensor:
+                  local_width: int | None = None, cheap_shadow: bool | None = None,
+                  shadow_list_levels: int | None = None) -> torch.Tensor:
     """:func:`render_image_cuda`'s CUDA path on :func:`packed_inputs`: the
     large-scene tables (with the hit-extent and list kernels where the shadow
     lists are on; ``tabs``, :func:`large_scene_tables`' result, where the
@@ -346,14 +380,14 @@ def render_packed(camera, scene, packed, *, depth: int, mode: str, compat: bool,
     W, H = camera.resolution
     lw = slice_width(camera, x_offset, local_width)
     out = torch.empty((lw, H, 3), dtype=torch.float32, device=dev)
+    cheap = shadow_cheap_ok(scene, compat) if cheap_shadow is None else bool(cheap_shadow)
     with torch.cuda.device(dev):
         vis, shadow, tree, cells = tabs if tabs is not None else large_scene_tables(
             camera, scene, depth=depth, aliasing=mode != "aa_none", compat=compat,
             cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed,
-            x_offset=x_offset, local_width=lw)
+            x_offset=x_offset, local_width=lw, shadow_list_levels=shadow_list_levels)
         return launch(out, params, tables, counts, depth=depth,
-                      mode=mode, compat=compat,
-                      cheap_shadow=shadow_cheap_ok(scene, compat), vis=vis,
+                      mode=mode, compat=compat, cheap_shadow=cheap, vis=vis,
                       shadow=shadow, tree=tree, cells=cells, W_global=W)
 
 
@@ -386,7 +420,8 @@ def launch(out, params, tables, counts, *, depth: int, mode: str, compat: bool,
     v, sh, g, c = table_args(vis, shadow, tree, cells)
     large = ns > CULL_MIN_SPHERES
     if form is None:
-        form = scene_form(ns, npl, nl, tree is not None) if large else 0
+        form = scene_form(ns, npl, nl, tree is not None,
+                          levels=1 if shadow is None else shadow[3]) if large else 0
     if form and not large:
         raise ValueError(f"a scene of {ns} spheres has no global form")
     args = (params.data_ptr(), sph.data_ptr(), ns, pln.data_ptr(), npl, lts.data_ptr(), nl,

@@ -1,15 +1,16 @@
-"""The level-0 shadow lists of the render kernel through the hand-written
-CUDA kernel ``csrc/shadow_lists.cu``.
+"""The shadow lists of the render kernel through the hand-written CUDA
+kernel ``csrc/shadow_lists.cu``.
 
-Per (tile, light), the spheres that can block a shadow ray from a point of
-the tile's hit box (a row of the hit-extent kernel, ``hit_extents_cuda``)
-toward the light or beyond it, from the largest apparent size from the light
-down; the rules, the slots and the counts are
+Per (tile, light), the spheres that can block a shadow ray from a point of the
+tile's hit box (a row of the hit-extent kernel, ``hit_extents_cuda``) toward
+the light or beyond it (per (tile, level, light) for the lists of L trace
+levels, whose hit-extent rows are ``tile * L + level``), from the largest
+apparent size from the light down; the rules, the slots and the counts are
 ``cull_tables.shadow_visibility_lists``' (the JAX package's
 ``_shadow_visibility_lists``, plain ``jnp`` outside any kernel there: no TPU
 kernel computes these lists). The kernel reads the hit-extent kernel's rows
-and scale where they lie on the card, so the render path builds its lists
-with two launches and no host sync.
+and scale where they lie on the card, so the render path builds its lists with
+two launches and no host sync.
 
 :func:`shadow_lists_cuda` runs the plain function for tensors on the CPU;
 for CUDA tensors it launches the kernel or raises. The kernel computes the
@@ -62,9 +63,10 @@ def _check(name, t, dtype, shape, dev):
 def launch(idx, cnt, ext, scale, lights, centers, radii, order, *, k: int,
            compat: bool, chunk: int | None = None):
     """Launch the kernel on the current stream into ``idx (T * nl * k,)`` and
-    ``cnt (T * nl,)`` int32 from the level-0 hit-extent rows ``ext (T, 8)``
-    and their ``scale (1,)``, the scene's ``lights (nl, 3)``, ``centers (ns,
-    3)`` and ``radii (ns,)`` (float32) and each light's sphere order ``order
+    ``cnt (T * nl,)`` int32 from the hit-extent rows ``ext (T, 8)`` (``T``
+    the tiles, or the tiles times the listed levels) and their ``scale
+    (1,)``, the scene's ``lights (nl, 3)``, ``centers (ns, 3)`` and ``radii
+    (ns,)`` (float32) and each light's sphere order ``order
     (nl, ns)`` int32 (``cull_tables.light_order``), all on one CUDA device
     and checked here; ``k = min(K, ns)`` slots a row. ``chunk``: spheres
     staged at a time (default :func:`chunk_spheres`; 0 all at once). Counts
@@ -99,8 +101,9 @@ def launch(idx, cnt, ext, scale, lights, centers, radii, order, *, k: int,
 
 def shadow_lists_cuda(ext, scale, lights, centers, radii, *, K: int, compat: bool):
     """Per-(tile, light) occluder lists ``(idx (T * nl * k,), cnt (T * nl,))``
-    int32, ``k = min(K, ns)``, row ``tile * nl + light``, from the level-0
-    hit-extent rows ``ext (T, 8)`` and their ``scale`` (``(1,)``: the boxes'
+    int32, ``k = min(K, ns)``, row ``tile * nl + light`` (with L levels
+    ``(tile * L + level) * nl + light``), from the hit-extent rows ``ext (T,
+    8)`` and their ``scale`` (``(1,)``: the boxes'
     largest coordinate magnitude, as ``hit_extents_cuda`` writes it). CPU
     tensors take ``cull_tables.shadow_visibility_lists`` with that scale;
     CUDA tensors launch the kernel (one launch, no host sync) or raise."""

@@ -594,16 +594,17 @@ def light_cells_work(ns: int, nl: int, r: int = 64, k: int = 32) -> tuple:
 
 
 def shadow_lists_work(ext, lights, centers, radii, *, K: int, compat: bool) -> tuple:
-    """(operations, bytes) the level-0 shadow-list function
-    (csrc/shadow_lists.cu) needs for this frame's hit-extent rows ``ext (T,
-    8)``: each (tile with hits, light) row's terms once, each (light, sphere)'s
-    once, and one capsule-and-cone test a (row, sphere) up to the point where
-    the row is decided: all ``ns`` spheres for a row that keeps at most ``k =
-    min(K, ns)``, the spheres up to its (k + 1)-th kept one for a row that
-    overflows; none for a row of a tile without hits or a row whose cone is
-    not defined (it keeps every sphere). Bytes: the rows and their scale, the
-    spheres, the lights and the lights' orders in, every row's slots and
-    count out. The rows' decisions are ``cull_tables.shadow_rows``'."""
+    """(operations, bytes) the shadow-list function (csrc/shadow_lists.cu) needs
+    for this frame's hit-extent rows ``ext (T, 8)`` (a tile's, or with the lists
+    of L trace levels a (tile, level)'s: ``T`` the tiles times L): each (tile
+    with hits, light) row's terms once, each (light, sphere)'s once, and one
+    capsule-and-cone test a (row, sphere) up to the point where the row is
+    decided: all ``ns`` spheres for a row that keeps at most ``k = min(K, ns)``,
+    the spheres up to its (k + 1)-th kept one for a row that overflows; none for
+    a row of a tile without hits or a row whose cone is not defined (it keeps
+    every sphere). Bytes: the rows and their scale, the spheres, the lights and
+    the lights' orders in, every row's slots and count out. The rows' decisions
+    are ``cull_tables.shadow_rows``'."""
     from ..ops.cuda.cull_tables import shadow_rows
     T, nl, ns = ext.shape[0], lights.shape[0], centers.shape[0]
     k = min(K, ns)

@@ -252,7 +252,7 @@ def test_adaptive_work_counts_bounce_levels_of_live_chains():
     cnt = torch.tensor([3, -1, 0, 5, 2, 7], dtype=torch.int32)          # 3 x 2 tiles
     vis = (torch.zeros((6 * k,), dtype=torch.int32), cnt, k)
     sh_cnt = torch.tensor([1, 2, 0, 0, 0, 0, -1, 4, 1] + [0] * 9, dtype=torch.int32)
-    shadow = (torch.zeros((18 * k,), dtype=torch.int32), sh_cnt, k)
+    shadow = (torch.zeros((18 * k,), dtype=torch.int32), sh_cnt, k, 1)
     px = [(0, 0), (1, 1), (17, 3), (20, 16), (33, 2)]                   # tiles 0 0 2 3 4
     idx = torch.tensor([x * H + y for x, y in px], dtype=torch.int32)
     P = timing.tile_positions(W, H, True)

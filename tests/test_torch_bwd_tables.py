@@ -106,7 +106,7 @@ def test_smem_counts_the_tables(ns):
     tree = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
     tabs = ((torch.zeros(8 * k, dtype=torch.int32), torch.zeros(8, dtype=torch.int32), k),
             (torch.zeros(8 * nl * k, dtype=torch.int32), torch.zeros(8 * nl, dtype=torch.int32),
-             k), tree, None)
+             k, 1), tree, None)
     lists = k + nl * (k + 1)
     tree_w = ct.tree_box_words(n_leaves) + n_leaves * ct.LEAF
     assert rb.table_words(tabs, nl) == (lists, tree_w)

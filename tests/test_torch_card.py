@@ -910,7 +910,7 @@ def test_large_scene_wrappers_reject_bad_tables(cuda_device):
     scene = _planted_scene(24, cuda_device)
     cam = trt.Camera.build((32, 32), *LARGE_POSES[24], device=cuda_device)
     with pytest.raises(ValueError, match="n_levels"):
-        hx.hit_extents_cuda(cam, scene, aliasing=False, n_levels=hx.MAX_LEVELS + 1)
+        hx.hit_extents_cuda(cam, scene, aliasing=False, n_levels=0)
     vis, shadow, tree, cells = render_cuda.large_scene_tables(cam, scene, depth=2,
                                                               aliasing=False, compat=True,
                                                               group_cull=True)
@@ -918,8 +918,8 @@ def test_large_scene_wrappers_reject_bad_tables(cuda_device):
         _render_tabs(cam, scene, "aa_none", 2, True, ((vis[0][:-1], vis[1], vis[2]), None,
                                                       None, None))
     with pytest.raises(ValueError, match="shadow list"):
-        _render_tabs(cam, scene, "aa_none", 2, True, (None, (shadow[0].cpu(), shadow[1],
-                                                             shadow[2]), None, None))
+        _render_tabs(cam, scene, "aa_none", 2, True, (None, (shadow[0].cpu(), *shadow[1:]),
+                                                      None, None))
     with pytest.raises(ValueError, match="tree sweep order"):
         _render_tabs(cam, scene, "aa_none", 2, True, (None, None, tree._replace(
             perm=tree.perm[:-1]), None))
@@ -1893,3 +1893,261 @@ def test_render_image_fast_backward_reads_the_forward_tables(cuda_device):
     assert hx.LAUNCHES["hit_extents"] == 1 and rb.TABLE_LAUNCHES["cot_aa"] == 1
     want = rb.scene_grads_cuda(cam, scene, seen[0].float().contiguous(), aliasing=True)
     assert torch.equal(leaves[0].grad, want.spheres.center)
+
+
+# --- shadow lists at the bounce levels; shadow_cull; an explicit cheap_shadow ---------
+
+def _scaled(scene, s):
+    """The scene with every length times s (centers, radii, lights, plane
+    origins): the same picture from a camera whose position is scaled too."""
+    sp, pl = scene.spheres, scene.planes
+    return trt.Scene(trt.Spheres(sp.center * s, sp.radius * s, sp.albedo),
+                     trt.Planes(pl.origin * s, pl.normal, pl.albedo),
+                     trt.Lights(scene.lights.position * s), scene.materials)
+
+
+@pytest.mark.parametrize("levels", [2, 3])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("n", [100, 300])
+def test_list_levels_frames_equal_every_table_off(cuda_device, n, compat, mode, levels):
+    """Shadow lists at the first `levels` trace levels (the render's
+    shadow_list_levels; 300 spheres with the bounce tree, 100 without):
+    frames torch.equal to every table off, the hit-extent launch writing
+    `levels` rows a tile and the list launch its rows; the light cells serve
+    the levels past the lists."""
+    scene = _planted_scene(n, cuda_device)
+    cam = trt.Camera.build((104, 72), *LARGE_POSES[n], device=cuda_device)
+    aa = mode != "aa_none"
+    kw = dict(depth=2, compat=compat, aliasing=aa, aa_share=mode == "aa_shared")
+    off = trt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+    tabs = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=aa, compat=compat,
+                                          shadow_list_levels=levels)
+    assert tabs[1][3] == levels and tabs[1][1].numel() == 7 * 5 * levels * 3
+    assert (tabs[3] is not None) == (levels <= 2)
+    hx.reset_launch_counts()
+    on = trt.render_image_cuda(cam, scene, **kw, shadow_list_levels=levels)
+    torch.cuda.synchronize()
+    assert hx.LAUNCHES["hit_extents"] == 1
+    assert torch.equal(on, off), int((on != off).any(-1).sum())
+    assert torch.equal(_render_tabs(cam, scene, mode, 2, compat, tabs), off)
+    for form in (0, 1):   # the staged and the global form of the same launch
+        W, H = cam.resolution
+        img = render_cuda.launch(
+            torch.empty((W, H, 3), device=cuda_device),
+            render_cuda.pack_params(cam, scene, compat).to(cuda_device),
+            render_cuda.scene_tables(scene), _counts(scene), depth=2, mode=mode,
+            compat=compat, cheap_shadow=render_cuda.shadow_cheap_ok(scene, compat),
+            vis=tabs[0], shadow=tabs[1], tree=tabs[2], cells=tabs[3], form=form)
+        assert torch.equal(img, off), form
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_list_levels_at_depth_4(cuda_device, mode):
+    """Five listed levels at depth 4 (past the hit-extent kernel's four
+    levels a pass), 300 spheres, compat: the frame of every table off."""
+    scene = _planted_scene(300, cuda_device)
+    cam = trt.Camera.build((96, 64), *LARGE_POSES[300], device=cuda_device)
+    aa = mode != "aa_none"
+    kw = dict(depth=4, aliasing=aa, aa_share=mode == "aa_shared")
+    off = trt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+    on = trt.render_image_cuda(cam, scene, **kw, shadow_list_levels=5)
+    over = trt.render_image_cuda(cam, scene, **kw, shadow_list_levels=9)   # clamped to 5
+    torch.cuda.synchronize()
+    assert torch.equal(on, off) and torch.equal(over, off)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 5])
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_list_levels_rows_are_the_plain_rows(cuda_device, levels, aliasing):
+    """The hit-extent kernel's rows of `levels` levels (the first four in one
+    pass, the fifth in a second) and the list kernel's rows on them: the list
+    rows integer for integer the plain function's on the same rows, the
+    extent rows two runs bit for bit, level 0 the one-level launch's, and
+    every level's rows the launch without the bounce tree's."""
+    scene = _planted_scene(300, cuda_device)
+    cam = trt.Camera.build((112, 64), *LARGE_POSES[300], device=cuda_device)
+    k = ct.list_capacity(301)
+    vis = (*ct.tile_visibility(cam, scene, compat=True, K=k), k)
+    tree = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
+    scale = torch.empty(1, device=cuda_device)
+    kw = dict(aliasing=aliasing, compat=True, vis=vis)
+    ext = hx.hit_extents_cuda(cam, scene, n_levels=levels, tree=tree, scale=scale, **kw)
+    again = hx.hit_extents_cuda(cam, scene, n_levels=levels, tree=tree, **kw)
+    bare = hx.hit_extents_cuda(cam, scene, n_levels=levels, **kw)
+    one = hx.hit_extents_cuda(cam, scene, n_levels=1, **kw)
+    torch.cuda.synchronize()
+    assert ext.shape == (7 * 4 * levels, 8)
+    assert torch.equal(ext, again) and torch.equal(ext, bare)
+    assert torch.equal(ext.reshape(28, levels, 8)[:, 0], one)
+    assert torch.equal(scale, ct.extent_scale(ext).reshape(1))
+    if levels > 1:
+        assert float(ext.reshape(28, levels, 8)[:, 1:, 6].sum()) > 0
+    L, C, R = scene.lights.position, scene.spheres.center, scene.spheres.radius
+    for K in (k, 4):
+        idx, cnt = sl.shadow_lists_cuda(ext, scale, L, C, R, K=K, compat=True)
+        want = ct.shadow_visibility_lists(ext, L, C, R, K=K, compat=True)
+        assert torch.equal(cnt, want[1]) and torch.equal(idx, want[0])
+
+
+def test_list_levels_slice_stitches(cuda_device):
+    """A slice [96, 160) of a 256 x 64 frame with three listed levels: the
+    frame's columns, and the frame with every table off."""
+    scene = _planted_scene(300, cuda_device)
+    cam = trt.Camera.build((256, 64), *LARGE_POSES[300], device=cuda_device)
+    for mode in MODES:
+        kw = dict(depth=2, aliasing=mode != "aa_none", aa_share=mode == "aa_shared")
+        whole = trt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+        part = trt.render_image_cuda(cam, scene, **kw, shadow_list_levels=3, x_offset=96,
+                                     local_width=64)
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[96:160]), mode
+
+
+def test_list_levels_worklist_and_backward(cuda_device):
+    """Tables with two listed levels through the worklist kernel (its pixels'
+    rows, read where they lie) and every backward mode: the bits of every
+    table off (the backward at one launch shape)."""
+    from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda as ac
+    scene = trt.random_scene(300, generator=torch.Generator().manual_seed(3),
+                             device=cuda_device)
+    cam = _pose((48, 32), cuda_device)
+    packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=True)
+    tabs = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=True, compat=True,
+                                          packed=packed, shadow_list_levels=2)
+    W, H = cam.resolution
+    idx = torch.arange(W * H, dtype=torch.int32, device=cuda_device)
+    flagged = torch.tensor([W * H], dtype=torch.int32, device=cuda_device)
+    kw = dict(depth=2, compat=True, cheap_shadow=render_cuda.shadow_cheap_ok(scene, True))
+    off = ac.launch_list(torch.zeros((W, H, 3), device=cuda_device), *packed, idx, flagged,
+                         **kw)
+    on = ac.launch_list(torch.zeros((W, H, 3), device=cuda_device), *packed, idx, flagged,
+                        **kw, vis=tabs[0], shadow=tabs[1], tree=tabs[2], cells=tabs[3])
+    assert torch.equal(on, off)
+    g = (torch.rand((48, 32, 3), generator=torch.Generator().manual_seed(4)) * 1e-2).to(
+        cuda_device)
+    for mode in rb.MODES + ("fused_aa1",):
+        fused = mode.startswith("fused")
+        aa = mode.endswith(("_aa", "_aa1"))
+        t = (trt.render_image_cuda(cam, scene, aliasing=aa) * 0.9) if fused else None
+        x = t.contiguous() if fused else g.contiguous()
+        for form in ("staged", "global", "rows"):
+            a, frame_a, shape = _bwd_once(cam, scene, mode, x, form=form,
+                                          culls=dict(shadow_list_levels=2))
+            b, frame_b, _ = _bwd_once(cam, scene, mode, x, culls=ALL_OFF, shape=shape)
+            torch.cuda.synchronize()
+            assert bool(a.abs().max() > 0) and torch.equal(a, b), (mode, form)
+            assert frame_a is None or torch.equal(frame_a, frame_b)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("n", [100, 1000])
+def test_capsule_frames_equal_capsule_off(cuda_device, n, compat, mode):
+    """shadow_cull (the JAX wrapper's capsule cull) changes no launch: with
+    it on, at the default tables, with the shadow lists off and with every
+    table off, the frames and the kernel launches of it off, on the scene
+    with an occluder planted beyond a light; each the frame of every table
+    off."""
+    scene = _planted_scene(n, cuda_device)
+    cam = trt.Camera.build((104, 72), *LARGE_POSES[n], device=cuda_device)
+    aa = mode != "aa_none"
+    kw = dict(depth=2, compat=compat, aliasing=aa, aa_share=mode == "aa_shared")
+    off = trt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
+    for culls in ({}, dict(shadow_lists=False), ALL_OFF):
+        counts = []
+        for cull in (False, True):
+            render_cuda.reset_launch_counts()
+            hx.reset_launch_counts()
+            sl.reset_launch_counts()
+            img = trt.render_image_cuda(cam, scene, **kw, **culls, shadow_cull=cull)
+            torch.cuda.synchronize()
+            assert torch.equal(img, off), (culls, cull, int((img != off).any(-1).sum()))
+            counts.append((dict(render_cuda.LAUNCHES), dict(render_cuda.GLOBAL_LAUNCHES),
+                           dict(hx.LAUNCHES), dict(sl.LAUNCHES)))
+        assert counts[0] == counts[1], culls
+
+
+def test_capsule_beyond_the_light_and_scaled(cuda_device):
+    """The shadow lists keep the sphere planted beyond a light (the frame
+    differs without it, and equals every table off), at level 0 and with two
+    listed levels, shadow_cull on and off, on the scene as it is and scaled
+    by 1e4 in clean mode (the lists' scale-aware slack)."""
+    scene = _planted_scene(22, cuda_device)
+    base = trt.Scene(trt.Spheres(scene.spheres.center[:-1], scene.spheres.radius[:-1],
+                                 scene.spheres.albedo[:-1]),
+                     scene.planes, scene.lights, scene.materials)
+    for s, compat in ((1.0, True), (1.0, False), (1e4, False)):
+        pos = [v * s for v in (-7.0, 0.0, 3.0)]
+        cam = trt.Camera.build((96, 64), pos, [0.0, 10.0, 0.0], device=cuda_device)
+        sc, bs = _scaled(scene, s), _scaled(base, s)
+        for aa in (False, True):
+            kw = dict(depth=1, aliasing=aa, compat=compat)
+            off = trt.render_image_cuda(cam, sc, **kw, **ALL_OFF)
+            without = trt.render_image_cuda(cam, bs, **kw)
+            for levels in (None, 2):
+                for cull in (False, True):
+                    on = trt.render_image_cuda(cam, sc, **kw, shadow_list_levels=levels,
+                                               shadow_cull=cull)
+                    torch.cuda.synchronize()
+                    assert torch.equal(on, off), (s, compat, aa, levels, cull)
+            assert float((off - without).abs().max()) > 1e-3, (s, compat, aa)
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_list_levels_5000_spheres(cuda_device, compat):
+    """5000 spheres 128 x 96 (a dense cloud, whose shadow rays graze many
+    spheres; the size where a run-time capsule sweep with only the lists'
+    slack dropped occluders in clean mode): one, two and three listed levels,
+    the staged and the global form of each, every mode, against every table
+    off."""
+    scene = trt.random_scene(5000, generator=torch.Generator().manual_seed(3),
+                             device=cuda_device)
+    cam = _pose((128, 96), cuda_device)
+    packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=compat)
+    cheap = render_cuda.shadow_cheap_ok(scene, compat)
+    for mode in MODES:
+        aa = mode != "aa_none"
+        tabs = {levels: render_cuda.large_scene_tables(
+            cam, scene, depth=2, aliasing=aa, compat=compat, packed=packed,
+            **(ALL_OFF if levels is None else dict(shadow_list_levels=levels)))
+            for levels in (None, 1, 2, 3)}
+        outs = {}
+        for levels, t in tabs.items():
+            for form in (0, 1):
+                outs[levels, form] = render_cuda.launch(
+                    torch.empty((128, 96, 3), device=cuda_device), *packed, depth=2,
+                    mode=mode, compat=compat, cheap_shadow=cheap, vis=t[0], shadow=t[1],
+                    tree=t[2], cells=t[3], form=form)
+        torch.cuda.synchronize()
+        ref = outs[None, 0]
+        for key, img in outs.items():
+            assert torch.equal(img, ref), (mode, key, int((img != ref).any(-1).sum()))
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_explicit_cheap_shadow_picks_the_instantiation(cuda_device, compat):
+    """cheap_shadow=True / False force the sqrt-free and the root shadow test
+    (the CHEAP instantiations); on a scene where shadow_cheap_ok holds both
+    give the frame of the automatic choice, on the demo and a 100-sphere scene:
+    the same bits in compat mode on the 100-sphere scene (pinned arithmetic);
+    in clean mode, where neither test clips the shadow ray at FAR, the two
+    tests' float32 roundings part at grazing shadow rays, and on the
+    contracted small-scene kernels, the flip rule."""
+    for scene, cam in ((trt.default_scene(device=cuda_device),
+                        trt.default_camera((96, 64), device=cuda_device)),
+                       (_planted_scene(100, cuda_device),
+                        trt.Camera.build((96, 64), *LARGE_POSES[100], device=cuda_device))):
+        assert render_cuda.shadow_cheap_ok(scene, compat)
+        for mode in MODES:
+            kw = dict(depth=2, compat=compat, aliasing=mode != "aa_none",
+                      aa_share=mode == "aa_shared")
+            auto = trt.render_image_cuda(cam, scene, **kw)
+            cheap = trt.render_image_cuda(cam, scene, **kw, cheap_shadow=True)
+            root = trt.render_image_cuda(cam, scene, **kw, cheap_shadow=False)
+            torch.cuda.synchronize()
+            assert torch.equal(cheap, auto)
+            if compat and scene.spheres.count > render_cuda.CULL_MIN_SPHERES:
+                assert torch.equal(root, auto), mode
+            else:
+                assert _flipped(root, auto) <= 1e-3 * 96 * 64, mode
