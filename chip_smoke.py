@@ -100,7 +100,14 @@ with every table off (``[bwd-tables]``), their times and the whole
 steps one by one and one profiler trace), the staged form's bounce tree
 staged against read in place (``[bwd-tree]``), the one-launch fused AA step
 against the two-launch one (``[fused-aa1]``), the large-scene training path
-through ``fit_scene`` (``[main]``) and the bounds.
+through ``fit_scene`` (``[main]``) and the bounds. Then phase 26
+(``--phase 26`` alone): :func:`defaults_phase` (``[defaults]``: scenes,
+cameras and orbits made with no device argument lie on the card, every entry
+point launches its kernels on them with no plain call, and every kernel
+wrapper refuses CPU copies of the same inputs) and :func:`per_sample_phase`
+(``[bwd-per-sample]``: the per-sample AA cotangent, ``scene_grads_cuda(
+aa_share=False)``, which launches the lattice ``cot_aa``, against its plain
+version, through the tables in every form, its slices, and its times).
 
 Run from the repository root with ``python3 chip_smoke.py``. It needs one CUDA
 card; without one, or without the package beside it, it exits non-zero. Any
@@ -277,6 +284,22 @@ def phase_time(label: str, t0: float) -> float:
     now = time.perf_counter()
     print(f"[smoke] {label} in {now - t0:.1f} s")
     return now
+
+
+def plain_ms(torch, fn, *args, **kwargs) -> float:
+    """Milliseconds of one call of a plain version: the first call's where it
+    takes a second or more (a warm-up call would double the phase for a
+    number that moves less than its noise), else a second call's, the first
+    its warm-up."""
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if ms >= 1e3:
+            break
+    return ms
 
 
 def check(cond: bool, msg: str) -> None:
@@ -674,13 +697,16 @@ def backward_phases(torch, rt, card: str, dev) -> list:
                 sp, train.autograd_value_and_grad(
                     train.pixel_loss(cam_plain, x_plain, depth=2, aliasing=aa)),
                 lr=1e-2, trainable=fit_trainable)
-            t["plain"] = 1e3 * rt.time_fn(pstep, warmup=1, iters=1 if aa else 3)
+            t["plain"] = plain_ms(torch, pstep) if aa else \
+                1e3 * rt.time_fn(pstep, warmup=1, iters=3)
         else:       # the wrapper alone, and the plain VJP
             t["step"] = 1e3 * rt.time_fn(rb.scene_grads_cuda, cam, init, x, depth=2,
                                          aliasing=aa, warmup=2, iters=10)
-            t["plain"] = 1e3 * rt.time_fn(rb.scene_grads_plain, cam_plain, init, x_plain,
-                                          depth=2, aliasing=aa, warmup=1,
-                                          iters=1 if aa else 3)
+            plain_kw = dict(depth=2, aliasing=aa)
+            t["plain"] = plain_ms(torch, rb.scene_grads_plain, cam_plain, init, x_plain,
+                                  **plain_kw) if aa else \
+                1e3 * rt.time_fn(rb.scene_grads_plain, cam_plain, init, x_plain, **plain_kw,
+                                 warmup=1, iters=3)
         t["plain_res"] = cam_plain.resolution
         times[key] = t
         print(f"[time] {key} 1000x1000 d2: {'fit_scene step' if fused else 'wrapper'} "
@@ -1092,14 +1118,13 @@ def soft_phases(torch, rt, card: str, dev) -> list:
             camr, tgt, tau=0.05, backend="cuda"), lr=1e-2, trainable=("spheres.center",))
         t["step"] = rt.time_fn(step, warmup=1, iters=reps)
         pchunk = row_chunk_for(res, sc, SOFT_BLOCK_BYTES)   # the plain version, same size
-        t["plain_fwd"] = rt.time_fn(rt.render_image_soft, camr, sc, tau=0.05,
-                                    row_chunk=pchunk, warmup=1, iters=1)
-        t["plain_step"] = rt.time_fn(sb.soft_loss_and_grads_plain, camr, sc, tgt, tau=0.05,
-                                     row_chunk=pchunk, warmup=1, iters=1)
-        t["plain_cot"] = rt.time_fn(sb.soft_scene_grads_plain, camr, sc, cot, tau=0.05,
-                                    row_chunk=pchunk, warmup=1, iters=1)
-        for k in ("fwd_kernel", "fwd_wrapper", "reduce", "cot_wrapper", "step", "plain_fwd",
-                  "plain_step", "plain_cot"):
+        t["plain_fwd"] = plain_ms(torch, rt.render_image_soft, camr, sc, tau=0.05,
+                                  row_chunk=pchunk)
+        t["plain_step"] = plain_ms(torch, sb.soft_loss_and_grads_plain, camr, sc, tgt,
+                                   tau=0.05, row_chunk=pchunk)
+        t["plain_cot"] = plain_ms(torch, sb.soft_scene_grads_plain, camr, sc, cot, tau=0.05,
+                                  row_chunk=pchunk)
+        for k in ("fwd_kernel", "fwd_wrapper", "reduce", "cot_wrapper", "step"):
             t[k] *= 1e3
         for kind in ("fwd", "fused", "cot"):
             t[f"{kind}_bound"] = timing.bound_ms(*timing.soft_work(camr, sc, 0.05, kind, live))
@@ -2648,8 +2673,10 @@ def ab_kernels(torch, rt, card: str, dev, label: str) -> None:
     keywords every tree of the port shares: render ``aa_shared`` 1000x1000 and
     ``aa_none`` 1080p on the demo scene, the large-scene render (the CLI's
     scene and camera, 1080p, depth 2, no AA and AA) at 100 and 1000 spheres
-    with the tables of ``large_scene_tables``' defaults, the hard fused steps
-    at 1000x1000 d2 on the fit scene, and the fused soft backward at tau 0.05
+    with the tables of ``large_scene_tables``' defaults, the hard backward at
+    1000x1000 d2 on the fit scene (``fused_noaa``, the two-launch step's
+    ``fused_aa``, the one-launch ``fused_aa1`` and ``cot_aa`` on the fit's
+    first cotangent), and the fused soft backward at tau 0.05
     on the demo scene and 100 spheres, from the fit's shifted centers."""
     from python_ray_tracer_tpu_torch import cli
     from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb, render_cuda
@@ -2692,16 +2719,24 @@ def ab_kernels(torch, rt, card: str, dev, label: str) -> None:
     init.spheres = rt.Spheres(fs.spheres.center + shift, fs.spheres.radius, fs.spheres.albedo)
     prm = render_cuda.pack_params(cam, init, True).to(dev)
     tabs = render_cuda.scene_tables(init)
-    for mode in ("fused_noaa", "fused_aa"):
-        aa = mode == "fused_aa"
+    for mode in ("fused_noaa", "fused_aa", "fused_aa1", "cot_aa"):
+        aa, one = mode != "fused_noaa", mode == "fused_aa1"
+        m = "fused_aa" if one else mode
+        fused = m.startswith("fused")
         tgt = rt.render_image_cuda(cam, fs, aliasing=aa)
-        img = rt.render_image_cuda(cam, init, aliasing=True) if aa else None
-        shape = rb.launch_plan(cam, init, mode)
-        n = rb.n_grads(*counts(fs), True)
+        img = rt.render_image_cuda(cam, init, aliasing=True) if m == "fused_aa" and not one \
+            else None
+        if not fused:   # the fit's first cotangent
+            img = (2.0 * (rt.render_image_cuda(cam, init, aliasing=True) - tgt)
+                   / tgt.numel()).contiguous()
+        shape = rb.launch_plan(cam, init, m, one_launch=one)
+        n = rb.n_grads(*counts(fs), fused)
         o, part = torch.empty(n, device=dev), torch.empty(n * shape.blocks, device=dev)
+        rec = torch.empty(rb.rec_floats(shape, 2), device=dev) if one else None
         out.append((f"backward {mode} {FIT_RES[0]}x{FIT_RES[1]} d2", ms(lambda: rb.launch(
-            o, part, prm, tabs, counts(fs), image=img, target=tgt, W=FIT_RES[0], H=FIT_RES[1],
-            depth=2, mode=mode, compat=True, cheap_shadow=True, shape=shape))))
+            o, part, prm, tabs, counts(fs), image=img, target=tgt if fused else None,
+            W=FIT_RES[0], H=FIT_RES[1], depth=2, mode=m, compat=True, cheap_shadow=True,
+            shape=shape, one_launch=one, rec=rec))))
     for name, scene, (W, H) in (("demo", demo, FIT_RES),
                                 ("100 spheres", rt.random_scene(
                                     100, generator=torch.Generator().manual_seed(0), device=dev),
@@ -4747,6 +4782,307 @@ def levels_capsule_phase(torch, rt, card: str, dev) -> None:
           f"{hx.LAUNCHES['hit_extents']}; shadow_lists {sl.LAUNCHES['shadow_lists']}")
 
 
+# --- phase 26: objects made with no device argument; the per-sample AA cotangent ---
+
+DEF_RES = (64, 64)                 # [defaults]: every entry point's frame
+DEF_SPHERES = 100                  # [defaults]: the random scene (the large-scene tables)
+PS_PARITY = ((0, (64, 64)), (1000, (64, 64)))   # [bwd-per-sample] against the plain version
+PS_BITS = (1000, (256, 256))       # [bwd-per-sample]: tables on against off, every form
+PS_SLICE = (96, 64)                # x_offset, local_width of the PS_BITS frame
+PS_TIME_RES = (1000, 1000)         # [bwd-per-sample] times: the demo scene, depth 2
+PS_PLAIN_RES = (128, 128)          # the plain version's time (its memory at 1000x1000)
+
+
+def _all_counts():
+    """Every launch and plain-call counter of the port's kernel wrappers, by
+    name, and a function that resets them all."""
+    from python_ray_tracer_tpu_torch.ops.cuda import (adaptive_cuda, hit_extents_cuda,
+                                                      light_cells_cuda, render_bwd_cuda,
+                                                      render_cuda, shadow_lists_cuda,
+                                                      soft_bwd_cuda, soft_cuda)
+    mods = {"render": render_cuda, "bwd": render_bwd_cuda, "soft": soft_cuda,
+            "soft_bwd": soft_bwd_cuda, "adaptive": adaptive_cuda,
+            "hit_extents": hit_extents_cuda, "light_cells": light_cells_cuda,
+            "shadow_lists": shadow_lists_cuda}
+
+    def read():
+        out = {}
+        for name, m in mods.items():
+            out.update({f"{name}.{k}": v for k, v in m.LAUNCHES.items()})
+            out.update({f"{name}.plain.{k}": v for k, v in getattr(m, "PLAIN_CALLS", {}).items()})
+        return out
+
+    def reset():
+        for m in mods.values():
+            m.reset_launch_counts()
+    return read, reset
+
+
+def defaults_phase(torch, rt, card: str) -> None:
+    """``[defaults]``: the demo scene, ``default_camera``, a
+    DEF_SPHERES-sphere ``random_scene`` and ``orbit_cameras``, made with no
+    device argument, lie on the card; ``render_image_cuda``,
+    ``render_image_fast`` and its backward, ``fit_scene`` (2 steps, the
+    default backend), ``fit_scene_soft`` (1 step a tau), ``fit_camera`` (2
+    steps), ``render_frames`` and ``render_image_adaptive_cuda`` on them, at
+    DEF_RES, launch their kernels (each counter it reaches moves) and call no
+    plain version. Then every kernel wrapper, and ``fit_scene`` on
+    ``backend="cuda"``, raises ``ValueError`` on CPU copies of the same
+    inputs, and no counter moves."""
+    from python_ray_tracer_tpu_torch import animation, cli, train
+    from python_ray_tracer_tpu_torch.ops.cuda import (hit_extents_cuda as hx,
+                                                      light_cells_cuda as lc,
+                                                      render_bwd_cuda as rb, render_cuda,
+                                                      shadow_lists_cuda as sl,
+                                                      soft_bwd_cuda as sb)
+    t0 = time.perf_counter()
+    read, reset = _all_counts()
+    scene = rt.default_scene()
+    cam = rt.default_camera(DEF_RES)
+    big = rt.random_scene(DEF_SPHERES, generator=torch.Generator().manual_seed(0))
+    cams = animation.orbit_cameras((32, 32), center=[1.0, 0.0, 1.0], radius=4.0,
+                                   height=1.5, n_frames=3)
+    init_cam = rt.Camera.build(DEF_RES, [-2.1, 0.08, 1.92], [1.5, -27.5, 2.0])
+    made = {"default_scene": scene.device, "default_camera": cam.device,
+            "random_scene": big.device, "orbit_cameras": cams.device,
+            "Camera.build": init_cam.device,
+            "every scene leaf": {t.device.type for t in scene.leaves() + big.leaves()}}
+    print(f"[defaults] made with no device argument: {made}")
+    check(all(v == {"cuda"} if isinstance(v, set) else v.type == "cuda"
+              for v in made.values()), f"[defaults] not on the card: {made}")
+    init = rt.Scene.from_leaves([t.clone() for t in scene.leaves()])
+    init.spheres.center += torch.tensor(cli.FIT_SHIFT, device=init.device)
+    runs = []
+
+    def run(label, fn, want):
+        reset()
+        fn()
+        torch.cuda.synchronize()
+        got = read()
+        plain = {k: v for k, v in got.items() if ".plain." in k and v}
+        moved = {k: v for k, v in got.items() if v and ".plain." not in k}
+        runs.append(label)
+        print(f"[defaults] {label}: launches {moved}, plain calls {plain or 0}")
+        check(all(got[k] > 0 for k in want), f"[defaults] {label}: {want} not all launched "
+              f"({moved})")
+        check(not plain, f"[defaults] {label} called a plain version: {plain}")
+
+    run("render_image_cuda", lambda: rt.render_image_cuda(cam, scene), ["render.aa_shared"])
+    run("render_image_cuda 100 spheres", lambda: rt.render_image_cuda(cam, big),
+        ["render.aa_shared", "hit_extents.hit_extents", "shadow_lists.shadow_lists",
+         "light_cells.light_cells"])
+
+    def fast():
+        leaves = [t.clone().requires_grad_(True) for t in init.leaves()]
+        img = rt.render_image_fast(cam, rt.Scene.from_leaves(leaves))
+        img.sum().backward()
+        check(all(t.grad is not None for t in leaves[:3]), "render_image_fast: no gradient")
+    run("render_image_fast + backward", fast, ["render.aa_shared", "bwd.cot_aa"])
+    target = rt.render_image_cuda(cam, scene, aliasing=False)
+    run("fit_scene (2 steps)", lambda: train.fit_scene(init, cam, target, steps=2),
+        ["bwd.fused_noaa"])
+    run("fit_scene_soft (1 step a tau)", lambda: train.fit_scene_soft(init, cam, scene, steps=3),
+        ["soft.soft_fwd", "soft_bwd.fused"])
+    run("fit_camera (2 steps)", lambda: train.fit_camera(init_cam, scene, target, steps=2),
+        ["bwd.fused_noaa"])
+    run("render_frames", lambda: animation.render_frames(cams, scene), ["render.aa_shared"])
+    run("render_image_adaptive_cuda 100 spheres",
+        lambda: rt.render_image_adaptive_cuda(cam, big, eps=ADAPTIVE_EPS),
+        ["render.aa_none", "adaptive.render_list", "hit_extents.hit_extents"])
+
+    # CPU copies of the same inputs: every kernel wrapper refuses them
+    cpu_scene = rt.Scene.from_leaves([t.cpu() for t in scene.leaves()])
+    cpu_big = rt.Scene.from_leaves([t.cpu() for t in big.leaves()])
+    cpu_cam = cam.to("cpu")
+    g = torch.zeros((*DEF_RES, 3))
+    sph, _, lts = render_cuda.scene_tables(cpu_big)
+    ext = torch.zeros((16, 8))
+    wrappers = {
+        "render_image_cuda": lambda: rt.render_image_cuda(cpu_cam, cpu_scene),
+        "render_image_fast": lambda: rt.render_image_fast(cpu_cam, cpu_scene),
+        "scene_grads_cuda": lambda: rb.scene_grads_cuda(cpu_cam, cpu_scene, g, aliasing=True),
+        "scene_grads_cuda per-sample": lambda: rb.scene_grads_cuda(
+            cpu_cam, cpu_scene, g, aliasing=True, aa_share=False),
+        "loss_and_scene_grads_cuda": lambda: rb.loss_and_scene_grads_cuda(cpu_cam, cpu_scene, g),
+        "render_image_soft_cuda": lambda: rt.render_image_soft_cuda(cpu_cam, cpu_scene),
+        "render_image_soft_fast": lambda: rt.render_image_soft_fast(cpu_cam, cpu_scene),
+        "soft_scene_grads_cuda": lambda: sb.soft_scene_grads_cuda(cpu_cam, cpu_scene, g),
+        "soft_loss_and_grads_cuda": lambda: sb.soft_loss_and_grads_cuda(cpu_cam, cpu_scene, g),
+        "render_image_adaptive_cuda": lambda: rt.render_image_adaptive_cuda(cpu_cam, cpu_big),
+        "hit_extents_cuda": lambda: hx.hit_extents_cuda(cpu_cam, cpu_big, aliasing=True),
+        "light_cells_cuda": lambda: lc.light_cells_cuda(sph, lts, DEF_SPHERES, 3),
+        "shadow_lists_cuda": lambda: sl.shadow_lists_cuda(
+            ext, torch.ones(1), cpu_big.lights.position, cpu_big.spheres.center,
+            cpu_big.spheres.radius, K=8, compat=True),
+        "fit_scene(backend='cuda')": lambda: train.fit_scene(cpu_scene, cpu_cam, g, steps=1),
+        "render_frames(backend='cuda')": lambda: animation.render_frames(
+            cams.to("cpu"), cpu_scene),
+    }
+    reset()
+    refused = []
+    for name, fn in wrappers.items():
+        try:
+            fn()
+        except ValueError as e:
+            check("cpu" in str(e), f"[defaults] {name}: {e!r} does not name the device")
+            refused.append(name)
+            continue
+        check(False, f"[defaults] {name} took CPU tensors")
+    moved = {k: v for k, v in read().items() if v}
+    check(not moved, f"[defaults] a refused call counted {moved}")
+    print(f"[defaults] {len(refused)} kernel wrappers and entry points refuse CPU tensors "
+          f"with ValueError, no launch and no plain call counted: {', '.join(refused)}")
+    phase_time("[defaults]", t0)
+
+
+def per_sample_phase(torch, rt, card: str, dev) -> list:
+    """``[bwd-per-sample]``: the per-sample AA cotangent
+    (``scene_grads_cuda(aliasing=True, aa_share=False)``, the adjoint of the
+    ``aa_per_sample`` render), which launches ``cot_aa``, the lattice: the AA
+    offsets are 0 and +-0.5, so the per-sample render's rays are the
+    lattice's. Against its plain version (``scene_grads_plain(aliasing=True)``)
+    under ``grad_rule`` with the held-out pixels of the per-sample frame
+    (``kernel_and_plain``) at PS_PARITY, compat and clean, depth 2; the same
+    bits as ``aa_share=True``; two runs bit-identical; with the large-scene
+    tables on against every table off at one launch shape, ``torch.equal``, in
+    the staged, global and device-rows forms, and the partials of 3 slices
+    summing to the frame's at PS_BITS. ``[bwd-per-sample-time]``: the kernel
+    alone (inputs packed once), the wrapper with ``aa_share`` False and True
+    and the plain version at PS_TIME_RES, with the bound (``timing.hard_bwd_work``
+    at the distinct sample positions). Returns its kernels-line entry, its
+    launches the ``cot_aa`` launches of the parity run's ``aa_share=False``
+    calls (counts set to 0 before them and read after)."""
+    from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb, render_cuda
+    from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+    cfg = RenderConfig()
+    t0 = time.perf_counter()
+
+    def camera(res):
+        return rt.Camera.build(res, cfg.camera_position, cfg.camera_euler, cfg.fov, device=dev)
+
+    def shifted(sc):
+        init = rt.Scene.from_leaves([t.clone() for t in sc.leaves()])
+        init.spheres.center += torch.tensor([0.2, -0.15, 0.1], device=dev)
+        return init
+
+    def cotangent(cam, sc):
+        """A fit's first cotangent: the shifted scene's per-sample frame
+        against the scene's."""
+        tgt = rt.render_image_cuda(cam, sc, aliasing=True, aa_share=False)
+        img = rt.render_image_cuda(cam, shifted(sc), aliasing=True, aa_share=False)
+        return (2.0 * (img - tgt) / img.numel()).contiguous()
+
+    worst, errs, launches = {}, [], 0
+    for n, res in PS_PARITY:
+        sc, cam = scene_of(rt, cfg, n, dev), camera(res)
+        init = shifted(sc)
+        for compat in (True, False):
+            x = cotangent(cam, sc)
+            rb.reset_launch_counts()
+            k, p, p_all, held = rb.kernel_and_plain("cot_aa", cam, init, x, depth=2,
+                                                    compat=compat, aa_share=False)
+            kw = dict(depth=2, compat=compat, aliasing=True, return_camera=True)
+            keep = (x * ~held[..., None]).contiguous()
+            again = rb.flatten_grads(*rb.scene_grads_cuda(cam, init, keep, aa_share=False, **kw))
+            check(set(m for m, v in rb.LAUNCHES.items() if v) == {"cot_aa"},
+                  f"[bwd-per-sample] launches {dict(rb.LAUNCHES)}")
+            launches += rb.LAUNCHES["cot_aa"]
+            lat = rb.flatten_grads(*rb.scene_grads_cuda(cam, init, keep, aa_share=True, **kw))
+            rule = rb.grad_rule(k, p, *counts(sc), scale_ref=p_all)
+            bad = [g for g, (_, ok) in rule.items() if not ok]
+            top = max(rule.items(), key=lambda kv: kv[1][0])
+            err = float((k - p).abs().max())
+            errs.append((err, top[1][0]))
+            print(f"[bwd-per-sample] {n or 'demo'} spheres {res[0]}x{res[1]} d2 compat={compat}: "
+                  f"against the plain version worst {top[0]} {top[1][0]:.3g}, max_abs_err "
+                  f"{err:.3g}; aa_share=True the same bits {torch.equal(k, lat)}; two runs "
+                  f"equal {torch.equal(k, again)}")
+            check(not bad, f"[bwd-per-sample] {n} spheres compat={compat}: {bad} off the "
+                  f"plain version")
+            check(torch.equal(k, lat), "[bwd-per-sample] aa_share False and True differ")
+            check(torch.equal(k, again), "[bwd-per-sample] two runs differ")
+    check(launches > 0, "[bwd-per-sample] no cot_aa launch")
+    t0 = phase_time("[bwd-per-sample] parity", t0)
+
+    # tables on against every table off, one launch shape a form
+    n, res = PS_BITS
+    sc, cam = scene_of(rt, cfg, n, dev), camera(res)
+    init, x = shifted(sc), cotangent(cam, sc)
+    cases = 0
+    for compat in (True, False):
+        for form, kw in (("staged", dict(staged=True)), ("global", dict(staged=False)),
+                         ("device rows", dict(device_rows=True))):
+            packed = render_cuda.packed_inputs(cam, init, depth=2, compat=compat)
+            tabs = render_cuda.large_scene_tables(cam, init, depth=2, aliasing=True,
+                                                  compat=compat, packed=packed)
+            shape = rb.launch_plan(cam, init, "cot_aa", tabs=tabs, **kw)
+            outs = []
+            for t, shp in ((tabs, shape), (None, shape._replace(tree_smem=False))):
+                o = torch.empty(rb.n_grads(*counts(sc)), device=dev)
+                rb.launch(o, torch.empty(o.numel() * shp.blocks, device=dev), *packed,
+                          image=x, target=None, W=res[0], H=res[1], depth=2, mode="cot_aa",
+                          compat=compat, cheap_shadow=render_cuda.shadow_cheap_ok(init, compat),
+                          shape=shp, tabs=t)
+                outs.append(o)
+            check(torch.equal(*outs), f"[bwd-per-sample] {n} spheres {form} compat={compat}: "
+                  f"tables on differ from off")
+            cases += 1
+    x0, lw = PS_SLICE
+    whole = rb.flatten_grads(*rb.scene_grads_cuda(cam, init, x, aliasing=True, aa_share=False,
+                                                  return_camera=True))
+    parts = [rb.flatten_grads(*rb.scene_grads_cuda(
+        cam, init, x[a:a + w].contiguous(), aliasing=True, aa_share=False, return_camera=True,
+        x_offset=a, local_width=w)) for a, w in ((0, x0), (x0, lw), (x0 + lw, res[0] - x0 - lw))]
+    rule = rb.grad_rule(parts[0] + parts[1] + parts[2], whole, *counts(sc))
+    bad = [g for g, (_, ok) in rule.items() if not ok]
+    check(not bad, f"[bwd-per-sample] slice partials off the frame's: {bad}")
+    print(f"[bwd-per-sample] {n} spheres {res[0]}x{res[1]}: {cases} launches with the tables "
+          f"torch.equal to every table off (staged, global, device rows; compat and clean); "
+          f"3 slices' partials sum to the frame's within grad_rule")
+
+    t0 = phase_time("[bwd-per-sample] tables and slices", t0)
+    # times at the demo scene 1000x1000 d2
+    sc, cam = scene_of(rt, cfg, 0, dev), camera(PS_TIME_RES)
+    init, x = shifted(sc), cotangent(cam, sc)
+    W, H = PS_TIME_RES
+    packed = render_cuda.packed_inputs(cam, init, depth=2, compat=True)
+    cheap = render_cuda.shadow_cheap_ok(init, True)
+    shape = rb.launch_plan(cam, init, "cot_aa")
+    o = torch.empty(rb.n_grads(*counts(sc)), device=dev)
+    part = torch.empty(o.numel() * shape.blocks, device=dev)
+    kernel = 1e3 * rt.time_fn(lambda: rb.launch(o, part, *packed, image=x, target=None, W=W,
+                                                H=H, depth=2, mode="cot_aa", compat=True,
+                                                cheap_shadow=cheap, shape=shape),
+                              warmup=2, iters=20)
+    wrapper = {}
+    for share in (False, True, True, False):
+        ms = 1e3 * rt.time_fn(lambda: rb.flatten_grads(rb.scene_grads_cuda(
+            cam, init, x, aliasing=True, aa_share=share)), warmup=2, iters=10)
+        wrapper[share] = min(wrapper.get(share, ms), ms)
+    cam_p = camera(PS_PLAIN_RES)
+    x_p = cotangent(cam_p, sc)
+    plain = 1e3 * rt.time_fn(rb.scene_grads_plain, cam_p, init, x_p, depth=2, aliasing=True,
+                             warmup=1, iters=1)
+    live = timing.hard_chain_counts(cam, init, timing.bwd_positions(W, H, True, x), depth=2)
+    bound, bound_by = timing.bound_ms(*timing.hard_bwd_work(W, H, *counts(sc), "cot_aa", live))
+    print(f"[bwd-per-sample-time] demo {W}x{H} d2: kernel alone (cot_aa) {kernel:.4f} ms; "
+          f"wrapper aa_share=False {wrapper[False]:.4f} ms, aa_share=True {wrapper[True]:.4f} ms "
+          f"(A, B, B, A minima); plain {plain:.4f} ms at {PS_PLAIN_RES[0]}x{PS_PLAIN_RES[1]}; "
+          f"cot_aa launches on the parity run {launches} | {card}")
+    print(f"[bound] render_bwd per-sample cotangent {W}x{H} d2: {bound:.4f} ms ({bound_by}; "
+          f"timing.hard_bwd_work at the distinct sample positions, rays / sphere hits / plane "
+          f"hits by level {live.int().tolist()}) vs kernel alone {kernel:.4f} ms "
+          f"({kernel / bound:.1f}x) | {card}")
+    phase_time("[bwd-per-sample] times and bound", t0)
+    return [{"name": "render_bwd_per_sample_cotangent", "route": "cuda", "source": BWD_SOURCE,
+             "replaces": BWD_REPLACES, "mode": "cot_aa", "launches": launches,
+             "max_abs_err": max(e for e, _ in errs), "max_rel_err": max(r for _, r in errs),
+             "ms": wrapper[False], "plain_ms": plain, "kernel_only_ms": kernel,
+             "bound_ms": bound, "bound_by": bound_by, "library_ms": None,
+             "shape": f"{W}x{H}_d2", "plain_shape": "x".join(map(str, PS_PLAIN_RES))}]
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -4806,6 +5142,12 @@ def main() -> int:
     if sys.argv[1:] == ["--phase", "25"]:   # shadow lists at the bounce levels, shadow_cull
         levels_capsule_phase(torch, rt, card, dev)
         print(f"[smoke] phase 25 in {time.perf_counter() - t_start:.1f} s")
+        return 0
+    if sys.argv[1:] == ["--phase", "26"]:   # default devices, the per-sample AA cotangent
+        defaults_phase(torch, rt, card)
+        kernels = per_sample_phase(torch, rt, card, dev)
+        print(f"[smoke] phase 26 in {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": kernels}))
         return 0
     if sys.argv[1:] == ["--phase", "23"]:   # scenes of any size, faults, profiling alone
         faults_phase(torch, rt, card, dev)
@@ -4965,7 +5307,10 @@ def main() -> int:
     kernels += bwd_tables_phase(torch, rt, card, dev)
     t0 = phase_time("phase 24", t0)
     levels_capsule_phase(torch, rt, card, dev)
-    phase_time("phase 25", t0)
+    t0 = phase_time("phase 25", t0)
+    defaults_phase(torch, rt, card)
+    kernels += per_sample_phase(torch, rt, card, dev)
+    phase_time("phase 26", t0)
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,17 @@ loads path-keyed trees (the JAX package's format, Adam's state in optax's
 layout), ``utils.faults`` resumes fits from them after faults, and
 ``utils.profiling`` traces the kernels.
 
+Objects are made on the card unless the caller says otherwise: every
+constructor's ``device=None`` is the CUDA device (``utils.config.resolve_device``,
+which raises without one), every kernel wrapper takes CUDA tensors only, and
+``backend="cuda"`` is every entry point's default. A CPU run passes
+``device="cpu"`` and ``backend="torch"`` (``--backend torch`` on the CLI).
+
 Entry point: ``python -m python_ray_tracer_tpu_torch.cli render|fit|animate``.
 """
+# utils first: the models take their default device from utils.config, and
+# utils.checkpoint imports the models.
+from .utils.config import RenderConfig, require_cuda, resolve_backend, resolve_device
 from .models.scene import (Scene, Spheres, Planes, Lights, Materials, default_scene,
                            random_scene, RED, GREEN, BLUE, YELLOW, GREY, MAGENTA)
 from .models.camera import (Camera, default_camera, euler_rotation, rotation_x,
@@ -38,7 +47,6 @@ from .ops.soft import render_image_soft, render_rays_soft
 from .ops.cuda.soft_cuda import render_image_soft_cuda, render_image_soft_fast
 from .ops.cuda.soft_bwd_cuda import soft_scene_grads_cuda, soft_loss_and_grads_cuda
 from .train import fit_scene, fit_scene_soft, fit_camera
-from .utils.config import RenderConfig, resolve_backend
 from .utils.metrics import MetricsLogger
 from .utils.image import save_png, framebuffer_to_array
 from .utils.checkpoint import save_pytree, load_pytree
@@ -58,7 +66,7 @@ __all__ = [
     "render_image_soft_cuda", "render_image_soft_fast", "soft_scene_grads_cuda",
     "soft_loss_and_grads_cuda", "fit_scene", "fit_scene_soft", "fit_camera",
     "MetricsLogger", "save_pytree", "load_pytree",
-    "RenderConfig", "resolve_backend", "save_png",
+    "RenderConfig", "resolve_backend", "resolve_device", "require_cuda", "save_png",
     "framebuffer_to_array", "time_fn", "rays_per_image",
     "RED", "GREEN", "BLUE", "YELLOW", "GREY", "MAGENTA",
 ]

@@ -22,7 +22,7 @@ from .models.camera import Camera, euler_rotation
 from .models.scene import Scene
 from .ops.cuda import render_cuda
 from .ops.render import render_image, to_framebuffer
-from .utils.config import BACKENDS
+from .utils.config import require_cuda, resolve_backend, resolve_device
 from .utils.image import encode_gif, framebuffer_to_array
 
 
@@ -42,11 +42,13 @@ def stack_cameras(cameras: Sequence[Camera]) -> Camera:
 
 def orbit_cameras(resolution: Tuple[int, int], center, radius: float, height: float,
                   n_frames: int, fov: float = 45.0, start_deg: float = 180.0,
-                  device="cpu") -> Camera:
+                  device=None) -> Camera:
     """Cameras on a horizontal circle around ``center``, each looking at it:
     a yaw toward the center and a pitch down to it, in the reference's
     rotation convention (the camera looks along its rotated +x). The poses
-    are computed on the CPU (as ``Camera.build``'s) and then moved."""
+    are computed on the CPU (as ``Camera.build``'s) and then moved to
+    ``device`` (None: the card)."""
+    device = resolve_device(device)
     cx, cy, cz = (float(v) for v in center)
     cams = []
     for k in range(n_frames):
@@ -56,7 +58,7 @@ def orbit_cameras(resolution: Tuple[int, int], center, radius: float, height: fl
         yaw = math.degrees(math.atan2(dy, dx))
         pitch = math.degrees(math.atan2(dz, math.hypot(dx, dy)))
         cams.append(Camera(torch.tensor([px, py, pz], dtype=torch.float32),
-                           euler_rotation(0.0, pitch, yaw),
+                           euler_rotation(0.0, pitch, yaw, device="cpu"),
                            torch.tensor(fov, dtype=torch.float32), tuple(resolution)))
     return stack_cameras(cams).to(device)
 
@@ -75,18 +77,16 @@ def render_frames(cameras: Camera, scene, *, depth: int = 2, aliasing: bool = Tr
     (``aa_shared`` with AA, else ``aa_none``) on CUDA tensors, which this
     backend requires; the frames' parameter vectors are packed on the host
     and copied in one transfer, and the launches then follow one another on
-    the current stream with no host sync. ``"torch"``: the plain renderer, a
-    frame at a time."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+    the current stream with no host sync; without a card it raises
+    (``utils.config.resolve_backend``). ``"torch"``: the plain renderer, a
+    frame at a time, on the tensors' own device."""
     n = cameras.position.shape[0]
-    if backend == "torch":
+    if resolve_backend(backend) == "torch":
         return torch.stack([render_image(frame_camera(cameras, k), scene, depth=depth,
                                          aliasing=aliasing, compat=compat)
                             for k in range(n)])
-    dev = cameras.position.device
-    if dev.type != "cuda":
-        raise ValueError(f"render_frames(backend='cuda') takes CUDA tensors, got {dev}")
+    dev = require_cuda("render_frames(backend='cuda')", cameras.position,
+                       scene.spheres.center)
     mode = "aa_shared" if aliasing else "aa_none"
     W, H = cameras.resolution
     _, tables, counts = render_cuda.packed_inputs(frame_camera(cameras, 0), scene,

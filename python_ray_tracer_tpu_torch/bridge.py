@@ -7,7 +7,8 @@ from a file; nothing here imports JAX. Both packages then render the same scene
 bit for bit at their inputs, and their gradients compare slot by slot. The
 large-scene tables cross the same way (:func:`tables_from_arrays`,
 :func:`tile_rows_from_jax`), so the port's kernels can run on tables the JAX
-package built.
+package built. Each function makes its tensors on ``device``, None (the
+default) meaning the card (``utils.config.resolve_device``).
 """
 from __future__ import annotations
 
@@ -19,13 +20,14 @@ import torch
 from .models.camera import Camera
 from .models.scene import LEAF_PATHS, Materials, Scene
 from .ops.cuda.render_bwd_cuda import flatten_grads, n_grads, unflatten_grads
+from .utils.config import resolve_device
 
 
 def _t(a, device) -> torch.Tensor:
-    return torch.as_tensor(np.array(a, dtype=np.float32), device=device)
+    return torch.as_tensor(np.array(a, dtype=np.float32), device=resolve_device(device))
 
 
-def scene_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> Scene:
+def scene_from_leaves(leaves: Sequence[np.ndarray], device=None) -> Scene:
     """Scene from the 12 arrays in :data:`~.models.scene.LEAF_PATHS` order (e.g.
     ``[np.asarray(x) for x in jax.tree_util.tree_leaves(jax_scene)]``)."""
     if len(leaves) != len(LEAF_PATHS):
@@ -36,7 +38,7 @@ def scene_from_leaves(leaves: Sequence[np.ndarray], device="cpu") -> Scene:
 
 def scene_from_soa(spheres: np.ndarray, lights: np.ndarray, planes: np.ndarray,
                    materials: Sequence[float] = (0.0, 0.6, 0.3, 0.0, 32.0),
-                   device="cpu") -> Scene:
+                   device=None) -> Scene:
     """Scene from reference-layout SoA arrays ``(7,N)/(3,L)/(9,M)`` (albedo in
     0-255) plus ``(ambient, lambert, reflection, specular, shininess)``."""
     return Scene.from_soa(spheres, lights, planes,
@@ -44,7 +46,7 @@ def scene_from_soa(spheres: np.ndarray, lights: np.ndarray, planes: np.ndarray,
 
 
 def camera_from_arrays(position: np.ndarray, rotation: np.ndarray, fov,
-                       resolution: Tuple[int, int], device="cpu") -> Camera:
+                       resolution: Tuple[int, int], device=None) -> Camera:
     """Camera from its arrays (the JAX Camera's leaves) and resolution."""
     return Camera(_t(position, device), _t(rotation, device), _t(fov, device),
                   tuple(int(v) for v in resolution))
@@ -65,7 +67,7 @@ def tile_rows_from_jax(rows: np.ndarray, n_tx: int, n_ty: int, swap_xy: bool,
     return per.swapaxes(0, 1).reshape(rows.shape)
 
 
-def tables_from_arrays(*, vis=None, shadow=None, device="cpu"):
+def tables_from_arrays(*, vis=None, shadow=None, device=None):
     """The render kernel's list tables from numpy arrays, e.g. those of
     ``render_pallas._tile_visibility`` / ``_shadow_visibility_lists`` built
     with the port's 16x16 tiles and brought into its tile numbering
@@ -74,9 +76,10 @@ def tables_from_arrays(*, vis=None, shadow=None, device="cpu"):
     int32 tensors. Returns ``(vis, shadow)`` as
     ``render_cuda.launch`` takes them (its bounce tree has no JAX
     counterpart: ``cull_tables.bounce_tree``)."""
+    dev = resolve_device(device)
+
     def ints(a):
-        return torch.as_tensor(np.array(a, dtype=np.int32).reshape(-1),
-                               device=device)
+        return torch.as_tensor(np.array(a, dtype=np.int32).reshape(-1), device=dev)
     return tuple(None if t is None else (ints(t[0]), ints(t[1]), *(int(v) for v in t[2:]))
                  for t in (vis, shadow))
 

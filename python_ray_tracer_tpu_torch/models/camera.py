@@ -16,6 +16,8 @@ from typing import Tuple
 
 import torch
 
+from ..utils.config import resolve_device
+
 
 def _stack3x3(rows) -> torch.Tensor:
     return torch.stack([torch.stack(r) for r in rows])
@@ -48,9 +50,10 @@ def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def euler_rotation(roll, pitch, yaw, is_radians: bool = False,
-                   device="cpu") -> torch.Tensor:
+                   device=None) -> torch.Tensor:
     """``Rz(yaw) @ Ry(pitch) @ Rx(roll)``, angles in degrees by default
-    (reference rotation.py:34-43)."""
+    (reference rotation.py:34-43), on ``device`` (None: the card)."""
+    device = resolve_device(device)
     ang = [torch.as_tensor(a, dtype=torch.float32, device=device)
            for a in (roll, pitch, yaw)]
     if not is_radians:
@@ -72,12 +75,14 @@ class Camera:
 
     @staticmethod
     def build(resolution: Tuple[int, int], position, euler, fov: float = 45.0,
-              device="cpu") -> "Camera":
-        # The pose is computed on the CPU and then moved, so a camera has the
-        # same bits on every device (device trig may differ in the last ulp).
+              device=None) -> "Camera":
+        # The pose is computed on the CPU and then moved to the device (None:
+        # the card), so a camera has the same bits on every device (device
+        # trig may differ in the last ulp).
+        device = resolve_device(device)
         return Camera(
             position=torch.as_tensor(position, dtype=torch.float32).to(device),
-            rotation=euler_rotation(euler[0], euler[1], euler[2]).to(device),
+            rotation=euler_rotation(euler[0], euler[1], euler[2], device="cpu").to(device),
             fov=torch.as_tensor(fov, dtype=torch.float32).to(device),
             resolution=tuple(int(v) for v in resolution))
 
@@ -123,7 +128,7 @@ class Camera:
 
 
 def default_camera(resolution: Tuple[int, int] = (1000, 1000),
-                   device="cpu") -> Camera:
-    """The reference's camera (main.py:24)."""
+                   device=None) -> Camera:
+    """The reference's camera (main.py:24), on ``device`` (None: the card)."""
     return Camera.build(resolution, position=[-2.0, 0.0, 2.0],
                         euler=[0.0, -30.0, 0.0], device=device)

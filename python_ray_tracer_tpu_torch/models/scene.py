@@ -15,6 +15,8 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils.config import resolve_device
+
 # Typing aliases (reference scene/common.py:5-6).
 Vector3D = Union[torch.Tensor, np.ndarray, list, Tuple[float, float, float]]
 Color = Union[List[int], Tuple[int, int, int], Sequence[float]]
@@ -43,8 +45,10 @@ class Spheres:
     albedo: torch.Tensor
 
     @staticmethod
-    def build(items: Sequence[tuple], device="cpu") -> "Spheres":
-        """Build from ``[(origin, radius, color255), ...]``. Empty list is allowed."""
+    def build(items: Sequence[tuple], device=None) -> "Spheres":
+        """Build from ``[(origin, radius, color255), ...]``. Empty list is allowed.
+        ``device``: None is the card (``utils.config.resolve_device``)."""
+        device = resolve_device(device)
         if len(items) == 0:
             return Spheres(torch.zeros((0, 3), device=device),
                            torch.zeros((0,), device=device),
@@ -67,7 +71,8 @@ class Planes:
     albedo: torch.Tensor
 
     @staticmethod
-    def build(items: Sequence[tuple], device="cpu") -> "Planes":
+    def build(items: Sequence[tuple], device=None) -> "Planes":
+        device = resolve_device(device)
         if len(items) == 0:
             z3 = torch.zeros((0, 3), device=device)
             return Planes(z3, z3.clone(), z3.clone())
@@ -89,7 +94,8 @@ class Lights:
     position: torch.Tensor
 
     @staticmethod
-    def build(positions: Sequence, device="cpu") -> "Lights":
+    def build(positions: Sequence, device=None) -> "Lights":
+        device = resolve_device(device)
         if len(positions) == 0:
             return Lights(torch.zeros((0, 3), device=device))
         return Lights(_f32(positions, device))
@@ -113,7 +119,8 @@ class Materials:
 
     @staticmethod
     def build(ambient=0.0, lambert=0.6, reflection=0.3, specular=0.0,
-              shininess=32.0, device="cpu") -> "Materials":
+              shininess=32.0, device=None) -> "Materials":
+        device = resolve_device(device)
         return Materials(*(_f32(v, device) for v in
                            (ambient, lambert, reflection, specular, shininess)))
 
@@ -165,8 +172,9 @@ class Scene:
 
     @staticmethod
     def from_soa(spheres, lights, planes, materials: Materials | None = None,
-                 device="cpu") -> "Scene":
+                 device=None) -> "Scene":
         """Inverse of :meth:`to_soa`; accepts reference-layout arrays."""
+        device = resolve_device(device)
         spheres, lights, planes = (np.asarray(a, np.float32)
                                    for a in (spheres, lights, planes))
         sph = Spheres(_f32(spheres[0:3].T, device), _f32(spheres[3], device),
@@ -177,9 +185,10 @@ class Scene:
         return Scene(sph, pln, lts, materials or Materials.build(device=device))
 
 
-def default_scene(materials: Materials | None = None, device="cpu") -> Scene:
+def default_scene(materials: Materials | None = None, device=None) -> Scene:
     """The reference demo scene: 3 lights, 6 spheres, 1 grey ground plane
     (reference scene.py:100-115)."""
+    device = resolve_device(device)
     lights = Lights.build([[2.5, -2.0, 3.0], [2.5, 2.0, 3.0], [5.0, 0.1, 6.0]],
                           device)
     spheres = Spheres.build([
@@ -198,10 +207,11 @@ def default_scene(materials: Materials | None = None, device="cpu") -> Scene:
 def random_scene(n_spheres: int = 100, n_lights: int = 3,
                  materials: Materials | None = None, *,
                  generator: torch.Generator | None = None,
-                 device="cpu") -> Scene:
+                 device=None) -> Scene:
     """Procedural N-sphere scene for scaling runs. Draws on the CPU from
     ``generator`` (its own stream: it does not reproduce ``jax.random``), then
     moves to ``device``. At most 3 lights, as in the JAX package."""
+    device = resolve_device(device)
     def uniform(shape, lo, hi):
         return lo + (hi - lo) * torch.rand(shape, generator=generator)
     centers = torch.stack([uniform((n_spheres,), -8.0, 8.0),

@@ -19,9 +19,10 @@ Counterpart of ``python_ray_tracer_tpu/ops/pallas/render_adaptive.py``
 The TPU design traced a list of fractional sample coordinates into a sample
 buffer and scattered the combined rows with XLA; here each thread of the
 kernel owns one listed pixel, derives its coordinates from the flat index and
-writes its 12 bytes itself. :func:`render_image_adaptive_cuda` runs the plain
-version (``ops/adaptive.render_image_adaptive_plain``) for tensors on the CPU;
-for CUDA tensors it launches the kernels or raises.
+writes its 12 bytes itself. :func:`render_image_adaptive_cuda` takes CUDA
+tensors only: on tensors anywhere else it raises ``ValueError`` and launches
+nothing (the plain version is ``ops/adaptive.render_image_adaptive_plain``, by
+its own name).
 """
 from __future__ import annotations
 
@@ -29,9 +30,9 @@ import ctypes
 
 import torch
 
-from ..adaptive import (budget_slots, render_image_adaptive_plain, stored_to_rgb,
-                        tent_and_worklist)
+from ..adaptive import budget_slots, stored_to_rgb, tent_and_worklist
 from . import render_cuda
+from ...utils.config import require_cuda
 
 # Worklist kernel launches; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {"render_list": 0}
@@ -134,11 +135,8 @@ def render_image_adaptive_cuda(camera, scene, *, depth: int = 2, compat: bool = 
     share of the pixels; pixels flagged past it keep the tent value. Returns
     ``image`` or ``(image, {"flagged": n, "dropped": n})``, the counts as
     0-dim int32 tensors on the image's device (reading them is the caller's
-    sync). CPU tensors take the plain version."""
-    if camera.position.device.type == "cpu":
-        return render_image_adaptive_plain(camera, scene, depth=depth, compat=compat,
-                                           eps=eps, budget_frac=budget_frac,
-                                           with_stats=with_stats)
+    sync). CUDA tensors only (``ValueError`` on others)."""
+    require_cuda("render_image_adaptive_cuda", camera.position)
     packed, (vis, shadow, tree, cells), out, idx, flagged, dropped = worklist_inputs(
         camera, scene, depth=depth, compat=compat, eps=eps, budget_frac=budget_frac)
     with torch.cuda.device(out.device):

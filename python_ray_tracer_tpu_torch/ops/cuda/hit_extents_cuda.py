@@ -11,9 +11,9 @@ where one is given, the largest coordinate magnitude of the rows with hits
 list kernel, plain version ``cull_tables.shadow_visibility_lists``) turns the
 rows and the scale into the render kernel's per-(tile, light) occluder lists.
 
-:func:`hit_extents_cuda` runs :func:`hit_extents_plain` (and
-``extent_scale``) for tensors on the CPU; for CUDA tensors it launches the
-kernel or raises. The plain version reduces the hit points of
+:func:`hit_extents_cuda` takes CUDA tensors only (``ValueError`` on others,
+before any launch); :func:`hit_extents_plain` (and ``extent_scale``) is the
+plain version, by its own name. The plain version reduces the hit points of
 ``ops/intersect.py`` per tile with tensor ops; the tests and
 ``chip_smoke.py`` hold the kernel against it under :func:`extent_rule`, and
 the kernel's scale against ``extent_scale`` of its own rows (bit for bit).
@@ -27,7 +27,8 @@ import torch
 from ..intersect import BIG, _all_t
 from ..shade import BIAS, _surface_attributes, reflect
 from . import render_cuda
-from .cull_tables import LEAF, TILE, extent_scale, tile_grid, tree_box_words
+from ...utils.config import require_cuda
+from .cull_tables import LEAF, TILE, tile_grid, tree_box_words
 
 MAX_LEVELS = 4     # trace levels a pass of the kernel keeps (csrc/hit_extents.cu)
 # Kernel launches; a plain counter, reset with reset_launch_counts().
@@ -293,21 +294,12 @@ def hit_extents_cuda(camera, scene, *, aliasing: bool, compat: bool = True,
     buffer on the camera's device that receives the rows' scale
     (``cull_tables.extent_scale``), or None. ``x_offset`` / ``local_width``:
     the rows of that slice's tiles (``render_cuda.render_image_cuda``'s
-    slice). CPU tensors take :func:`hit_extents_plain`; CUDA tensors launch
-    the kernel."""
-    dev = camera.position.device
+    slice). CUDA tensors only (``ValueError`` on others): one launch of the
+    kernel."""
+    dev = require_cuda("hit_extents_cuda", camera.position)
     lw = render_cuda.slice_width(camera, x_offset, local_width)
     if scale is not None:
         check_scale(scale, dev)
-    if dev.type == "cpu":
-        ext = hit_extents_plain(camera, scene, aliasing=aliasing, compat=compat,
-                                n_levels=n_levels, vis=vis, x_offset=x_offset,
-                                local_width=lw)
-        if scale is not None:
-            scale.copy_(extent_scale(ext).reshape(1))
-        return ext
-    if dev.type != "cuda":
-        raise ValueError(f"hit_extents_cuda takes CPU or CUDA tensors, got {dev}")
     if n_levels < 1:
         raise ValueError(f"n_levels must be at least 1, got {n_levels}")
     render_cuda._check_inputs(camera, scene, dev)

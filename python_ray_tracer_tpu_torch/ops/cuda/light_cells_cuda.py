@@ -12,8 +12,9 @@ degenerate direction or an overflowed row (count ``-1``) takes the sweep of
 before (the bounce tree from ``render_cuda.GROUP_MIN_SPHERES`` spheres, every
 sphere below). No TPU kernel builds such a table.
 
-:func:`light_cells_cuda` runs :func:`light_cells_plain` for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises. The plain version computes
+:func:`light_cells_cuda` takes CUDA tensors only (``ValueError`` on others,
+before any launch); :func:`light_cells_plain` is the plain version, by its own
+name. The plain version computes
 the kernel's float32 test operation for operation (one IEEE rounding each, no
 fused multiply-add), so the two produce the same rows integer for integer.
 :func:`occluded_cells_plain` is the plain lookup traversal that mirrors the
@@ -28,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..intersect import _dot
+from ...utils.config import require_cuda
 from . import cull_tables as ct
 from . import render_cuda
 
@@ -285,14 +287,10 @@ def empty(nl: int, dev, r: int = R, k: int = K) -> LightCells:
 
 def light_cells_cuda(sph, lts, ns: int, nl: int) -> LightCells:
     """The light cells of a scene from the render kernel's SoA tables (
-    ``render_cuda.scene_tables``: ``sph (7, *)``, ``lts (3, nl)``). CPU
-    tensors take :func:`light_cells_plain`; CUDA tensors launch the kernel
-    (one launch, no host sync) or raise."""
-    dev = sph.device
-    if dev.type == "cpu":
-        return light_cells_plain(sph[0:3, :ns].T, sph[3, :ns], lts[:, :nl].T)
-    if dev.type != "cuda":
-        raise ValueError(f"light_cells_cuda takes CPU or CUDA tensors, got {dev}")
+    ``render_cuda.scene_tables``: ``sph (7, *)``, ``lts (3, nl)``), CUDA
+    tensors only (``ValueError`` on others): one launch of the kernel, no
+    host sync."""
+    dev = require_cuda("light_cells_cuda", sph, lts)
     if nl < 1:
         raise ValueError("light cells need a light")
     with torch.cuda.device(dev):

@@ -12,7 +12,12 @@ columns or rows). Four kernel modes:
 
   * ``cot_noaa`` / ``cot_aa``: an image cotangent in (:func:`scene_grads_cuda`);
     the AA form traces the forward's shared-sample lattice, 1089 chains a
-    16x16 tile, each with the cotangent :func:`lattice_cotangents` gives it;
+    16x16 tile, each with the cotangent :func:`lattice_cotangents` gives it.
+    It is also the adjoint of the ``aa_per_sample`` render
+    (``scene_grads_cuda(aliasing=True, aa_share=False)``): the AA offsets are
+    0 and +-0.5, so a pixel's half-offset samples are its neighbours' (the
+    same float32 positions, the same rays), and the per-sample combine's
+    adjoint at each distinct position is the cotangent the lattice gives it;
   * ``fused_noaa``: the training step in one launch: render, MSE against the
     target, loss slot, reverse sweep (:func:`loss_and_scene_grads_cuda`);
   * ``fused_aa``: the AA training step, in one of two forms. Two launches:
@@ -46,8 +51,9 @@ The plain versions (:func:`scene_grads_plain`, :func:`loss_and_scene_grads_plain
 are ``torch.autograd`` of ``ops/render.py`` packed into the same layout;
 :func:`scene_grads_lattice_plain` is the AA cotangent form written as the
 kernel computes it (autograd of the lattice chains' colors weighted by their
-cotangents). The wrappers take the plain versions for tensors on the CPU only;
-for CUDA tensors they launch the kernel or raise.
+cotangents). The wrappers take CUDA tensors only: on tensors anywhere else
+they raise ``ValueError`` before any launch, and the plain versions are
+reached by their own names.
 """
 from __future__ import annotations
 
@@ -59,6 +65,7 @@ import torch
 
 from ...models.camera import Camera
 from ...models.scene import LEAF_PATHS, Lights, Materials, Planes, Scene, Spheres
+from ...utils.config import require_cuda
 from ..render import render_image, render_rays
 from . import cull_tables, render_cuda
 
@@ -257,7 +264,7 @@ def held_out(img_a: torch.Tensor, img_b: torch.Tensor,
 
 
 def kernel_and_plain(mode: str, camera, scene, x, *, depth: int = 2, compat: bool = True,
-                     aa_form: str = "one"):
+                     aa_form: str = "one", aa_share: bool | None = None):
     """The wrapper's and the plain version's flat gradients for one kernel
     mode on the same input ``x`` (the target in the fused modes, else the
     cotangent), camera slots included, with the :func:`held_out` pixels taken
@@ -265,17 +272,20 @@ def kernel_and_plain(mode: str, camera, scene, x, *, depth: int = 2, compat: boo
     the fused modes each side's own loss and gradient on those pixels (its
     cotangent mode on ``2 (render - target) / n`` there) is subtracted.
     ``aa_form``: the fused AA step's form (:func:`loss_and_scene_grads_cuda`).
-    Returns ``(kernel_flat, plain_flat, plain_all_pixels, held)``, the third
-    for :func:`grad_rule`'s ``scale_ref``."""
+    ``aa_share``: with ``cot_aa``, the render and cotangent wrapper's (False:
+    the ``aa_per_sample`` render and its adjoint). Returns ``(kernel_flat,
+    plain_flat, plain_all_pixels, held)``, the third for :func:`grad_rule`'s
+    ``scale_ref``."""
     aa = mode.endswith("_aa")
     kw = dict(depth=depth, compat=compat, aliasing=aa)
-    img_k = render_cuda.render_image_cuda(camera, scene, **kw)
+    share = {} if aa_share is None else dict(aa_share=aa_share)
+    img_k = render_cuda.render_image_cuda(camera, scene, **kw, **share)
     img_p = render_image(camera, scene, **kw)
     held = held_out(img_k, img_p)[..., None]
 
     def cot_kernel(g):
         return flatten_grads(*scene_grads_cuda(camera, scene, g.contiguous(),
-                                               return_camera=True, **kw))
+                                               return_camera=True, **kw, **share))
 
     def cot_plain(g):
         return scene_grads_plain(camera, scene, g, **kw)
@@ -620,9 +630,7 @@ def scene_grads_lattice_plain(camera, scene, g_image, *, depth: int = 2,
 # --- the kernel ------------------------------------------------------------------
 
 def _check(camera, scene, image, depth: int, name: str, lw: int):
-    dev = camera.position.device
-    if dev.type != "cuda":
-        raise ValueError(f"the backward wrappers take CPU or CUDA tensors, got {dev}")
+    dev = require_cuda("the backward wrappers", camera.position)
     if not 0 <= depth <= MAX_DEPTH:
         raise ValueError(f"depth must be in [0, {MAX_DEPTH}], got {depth}")
     render_cuda._check_inputs(camera, scene, dev)
@@ -743,7 +751,8 @@ def launch_plan(camera, scene, mode: str, local_width: int | None = None,
 
 
 def _run(camera, scene, image, target, *, depth, compat, mode, x_offset=0, lw=None,
-         cull=True, shadow_lists=None, group_cull=None, tabs=None, aa_form="one"):
+         cull=True, shadow_lists=None, group_cull=None, tabs=None, aa_form="one",
+         cheap_shadow=None):
     dev = camera.position.device
     Wg, H = camera.resolution
     W = Wg if lw is None else lw
@@ -760,7 +769,8 @@ def _run(camera, scene, image, target, *, depth, compat, mode, x_offset=0, lw=No
                 cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, packed=packed,
                 x_offset=x_offset, local_width=W)
         shape = launch_plan(camera, scene, mode, W, tabs=tabs, one_launch=one)
-        cheap = render_cuda.shadow_cheap_ok(scene, compat)
+        cheap = render_cuda.shadow_cheap_ok(scene, compat) if cheap_shadow is None \
+            else bool(cheap_shadow)
         if mode == "fused_aa" and not one:
             vis, shadow, tree, cells = (None,) * 4 if tabs is None else tabs
             image = render_cuda.launch(torch.empty((W, H, 3), device=dev), params,
@@ -781,27 +791,32 @@ def scene_grads_cuda(camera, scene, g_image, *, depth: int = 2, compat: bool = T
                      aliasing: bool = False, return_camera: bool = False,
                      cull: bool = True, x_offset: int = 0, local_width: int | None = None,
                      shadow_lists: bool | None = None, group_cull: bool | None = None,
-                     tabs=None):
+                     tabs=None, aa_share: bool | None = None,
+                     cheap_shadow: bool | None = None):
     """Image cotangent ``(w, h, 3)`` -> ``Scene`` gradients (with
     ``return_camera``: ``(scene_g, camera_g)``), as
     ``render_bwd.scene_grads_pallas``; with ``x_offset`` / ``local_width`` the
     cotangent is the slice's ``(local_width, h, 3)`` and the gradients its
-    partials. CPU tensors take :func:`scene_grads_plain`, whatever the cull
-    keywords say; CUDA tensors launch ``cot_aa`` (with ``aliasing``) or
-    ``cot_noaa``, on a large scene through the tables that ``cull``,
-    ``shadow_lists`` and ``group_cull`` give (``render_cuda.large_scene_tables``;
-    ``tabs``: those tables where the caller has them, built for the same
-    frame, slice and ``aliasing``)."""
+    partials. CUDA tensors only (``ValueError`` on others, before any launch;
+    :func:`scene_grads_plain` is the plain version): with ``aliasing``
+    ``cot_aa``, the adjoint of the ``aa_shared`` render and, whatever
+    ``aa_share`` says, of the ``aa_per_sample`` one, which draws the same
+    rays (``aa_share`` is taken for the JAX signature and changes no
+    launch), else ``cot_noaa``; on a
+    large scene through the tables that ``cull``, ``shadow_lists`` and
+    ``group_cull`` give (``render_cuda.large_scene_tables``; ``tabs``: those
+    tables where the caller has them, built for the same frame, slice and
+    ``aliasing``). ``cheap_shadow``: the sqrt-free shadow test (None:
+    ``render_cuda.shadow_cheap_ok``, as ``render_image_cuda`` resolves it; True
+    where that guard fails is the caller's choice)."""
+    require_cuda("scene_grads_cuda", camera.position)
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     lw = render_cuda.slice_width(camera, x_offset, local_width)
-    if camera.position.device.type == "cpu":
-        flat = scene_grads_plain(camera, scene, g_image, depth=depth, compat=compat,
-                                 aliasing=aliasing, x_offset=x_offset, local_width=lw)
-    else:
-        _check(camera, scene, g_image, depth, "g_image", lw)
-        flat = _run(camera, scene, g_image, None, depth=depth, compat=compat,
-                    mode="cot_aa" if aliasing else "cot_noaa", x_offset=x_offset, lw=lw,
-                    cull=cull, shadow_lists=shadow_lists, group_cull=group_cull, tabs=tabs)
+    mode = "cot_aa" if aliasing else "cot_noaa"
+    _check(camera, scene, g_image, depth, "g_image", lw)
+    flat = _run(camera, scene, g_image, None, depth=depth, compat=compat, mode=mode,
+                x_offset=x_offset, lw=lw, cull=cull, shadow_lists=shadow_lists,
+                group_cull=group_cull, tabs=tabs, cheap_shadow=cheap_shadow)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=False)
 
@@ -811,31 +826,30 @@ def loss_and_scene_grads_cuda(camera, scene, target, *, depth: int = 2,
                               return_camera: bool = False, cull: bool = True,
                               x_offset: int = 0, local_width: int | None = None,
                               shadow_lists: bool | None = None,
-                              group_cull: bool | None = None, aa_form: str = "one"):
+                              group_cull: bool | None = None, aa_form: str = "one",
+                              cheap_shadow: bool | None = None):
     """The training step's ``(loss, scene_g)`` (with ``return_camera``:
     ``(loss, scene_g, camera_g)``) for ``loss = mean((render - target)^2)``,
     as ``render_bwd.loss_and_scene_grads_pallas``; with ``x_offset`` /
     ``local_width``, ``target`` is the slice's and the loss and gradients its
-    partials over the frame's denominator. CPU tensors take
-    :func:`loss_and_scene_grads_plain`, whatever the cull keywords say; CUDA
-    tensors launch ``fused_noaa``, or with ``aliasing`` the fused AA step in
+    partials over the frame's denominator. CUDA tensors only (``ValueError``
+    on others; :func:`loss_and_scene_grads_plain` is the plain version):
+    ``fused_noaa``, or with ``aliasing`` the fused AA step in
     its one-launch form (``aa_form="two"``: the ``aa_shared`` render, then the
     backward, for the tests and ``chip_smoke.py``), on a large scene through
     the tables that ``cull``, ``shadow_lists`` and ``group_cull`` give (one
-    build serves the two-launch form's render and its backward)."""
-    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
-    lw = render_cuda.slice_width(camera, x_offset, local_width)
+    build serves the two-launch form's render and its backward).
+    ``cheap_shadow``: as :func:`scene_grads_cuda`'s. The fused AA step takes
+    the shared layout only, as the JAX kernel does (no ``aa_share``)."""
     if aa_form not in ("one", "two"):
         raise ValueError(f"aa_form must be 'one' or 'two', got {aa_form!r}")
-    if camera.position.device.type == "cpu":
-        flat = loss_and_scene_grads_plain(camera, scene, target, depth=depth,
-                                          compat=compat, aliasing=aliasing,
-                                          x_offset=x_offset, local_width=lw)
-    else:
-        _check(camera, scene, target, depth, "target", lw)
-        flat = _run(camera, scene, None, target, depth=depth, compat=compat,
-                    mode="fused_aa" if aliasing else "fused_noaa", x_offset=x_offset,
-                    lw=lw, cull=cull, shadow_lists=shadow_lists, group_cull=group_cull,
-                    aa_form=aa_form)
+    require_cuda("loss_and_scene_grads_cuda", camera.position)
+    ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
+    lw = render_cuda.slice_width(camera, x_offset, local_width)
+    _check(camera, scene, target, depth, "target", lw)
+    flat = _run(camera, scene, None, target, depth=depth, compat=compat,
+                mode="fused_aa" if aliasing else "fused_noaa", x_offset=x_offset,
+                lw=lw, cull=cull, shadow_lists=shadow_lists, group_cull=group_cull,
+                aa_form=aa_form, cheap_shadow=cheap_shadow)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=True)

@@ -26,8 +26,9 @@ the image is bit-identical to the full sweep's. No scene is too large: past
 the size whose tables a block stages, a launch takes the kernels' global form
 (:func:`scene_form`; ``csrc/render_fwd_global.cu``), the same bits.
 
-:func:`render_image_cuda` runs the plain PyTorch version (``ops/render.py``) for
-tensors on the CPU; for CUDA tensors it launches the kernels or raises. Camera,
+:func:`render_image_cuda` takes CUDA tensors only: on tensors anywhere else it
+raises ``ValueError`` and launches nothing (the plain PyTorch version is
+``ops/render.render_image``, by its own name). Camera,
 grid and material scalars are packed on the host into the TPU kernel's ``_P_*``
 parameter layout (:func:`pack_params`). Every entry point takes the slice form
 of ``render_pallas._render_image_pallas``: ``x_offset`` and ``local_width``
@@ -47,7 +48,7 @@ import torch
 
 from ...models.camera import Camera
 from ...models.scene import Scene
-from ..render import render_image
+from ...utils.config import require_cuda
 from ..intersect import FAR
 from . import cull_tables
 
@@ -256,7 +257,7 @@ def large_scene_tables(camera, scene, *, depth: int, aliasing: bool, compat: boo
     on the same primary lists (and, past level 0, the same bounce tree, so
     its bounce hit points are the render's), then one launch of the list
     kernel on its rows and scale (``shadow_lists_cuda``; no host sync between
-    them; on CPU tensors both take their plain versions). The JAX package
+    them). The JAX package
     switches its Morton groups off where ``levels > 1``; the tree stays on
     here, since the hit-extent kernel sweeps it as the render does. The light
     cells, the lists of the bounce shadow rays past the listed levels, come
@@ -318,8 +319,8 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
     with ``x_offset`` / ``local_width`` the ``(local_width, h, 3)`` slice of
     it at those columns (``render_pallas.render_image_pallas``'s).
 
-    CPU tensors take the plain PyTorch version, whatever the cull keywords
-    say. CUDA tensors launch the kernel on the current stream (mode
+    CUDA tensors only (``ValueError`` on others, before any launch): the
+    kernel on the current stream (mode
     ``aa_shared`` when ``aliasing and aa_share``, ``aa_per_sample`` for AA
     without sharing, else ``aa_none``), after the hit-extent and list kernels
     where the shadow lists are on. ``cull``, ``shadow_lists``,
@@ -333,9 +334,7 @@ def render_image_cuda(camera, scene, *, depth: int = 2, aliasing: bool = True,
     listed levels, the light cells past them), each as exact as the capsule.
     None of them changes a pixel."""
     lw = slice_width(camera, x_offset, local_width)
-    if camera.position.device.type == "cpu":
-        return render_image(camera, scene, depth=depth, aliasing=aliasing,
-                            compat=compat, x_offset=x_offset, local_width=lw)
+    require_cuda("render_image_cuda", camera.position)
     mode = ("aa_shared" if aa_share else "aa_per_sample") if aliasing else "aa_none"
     return render_packed(camera, scene, packed_inputs(camera, scene, depth=depth,
                                                       compat=compat, x_offset=x_offset),
@@ -350,9 +349,7 @@ def packed_inputs(camera, scene, *, depth: int, compat: bool, x_offset: int = 0)
     them for the kernels: ``(params, tables, counts)``, the parameter
     vector (``x_offset`` in ``P_X0``) and :func:`scene_tables` on the camera's
     device and ``(ns, npl, nl)``."""
-    dev = camera.position.device
-    if dev.type != "cuda":
-        raise ValueError(f"the render kernels take CPU or CUDA tensors, got {dev}")
+    dev = require_cuda("the render kernels", camera.position)
     if depth < 0:
         raise ValueError(f"depth must be >= 0, got {depth}")
     _check_inputs(camera, scene, dev)
@@ -486,16 +483,15 @@ def render_image_fast(camera, scene, depth: int = 2, aliasing: bool = True,
                       compat: bool = True, cull: bool = True,
                       shadow_lists: bool | None = None,
                       group_cull: bool | None = None) -> torch.Tensor:
-    """Differentiable render -> float ``(w, h, 3)``. CPU tensors take the plain
-    version (differentiated by autograd); on CUDA tensors the forward is the
-    render kernel (on the large-scene path for a large scene, with
-    :func:`render_image_cuda`'s three cull keywords) and the backward is the
+    """Differentiable render -> float ``(w, h, 3)`` of CUDA tensors (others
+    raise ``ValueError``; autograd of ``ops/render.render_image`` is the
+    plain version): the forward is the render kernel (on the large-scene
+    path for a large scene, with :func:`render_image_cuda`'s three cull
+    keywords) and the backward is the
     backward kernel, for the scene and the camera alike, through the same
     tables (every cull is exact, so its recomputed forward is the render
     kernel's). No light-count fallback: the kernel has no such limit."""
-    if camera.position.device.type == "cpu":
-        return render_image(camera, scene, depth=depth, aliasing=aliasing,
-                            compat=compat)
+    require_cuda("render_image_fast", camera.position)
     return _RenderImageFast.apply(tuple(camera.resolution), depth, aliasing, compat,
                                   (cull, shadow_lists, group_cull),
                                   camera.position, camera.rotation, camera.fov,

@@ -12,8 +12,9 @@ kernel computes these lists). The kernel reads the hit-extent kernel's rows
 and scale where they lie on the card, so the render path builds its lists with
 two launches and no host sync.
 
-:func:`shadow_lists_cuda` runs the plain function for tensors on the CPU;
-for CUDA tensors it launches the kernel or raises. The kernel computes the
+:func:`shadow_lists_cuda` takes CUDA tensors only (``ValueError`` on others,
+before any launch); ``cull_tables.shadow_visibility_lists`` is the plain
+function, by its own name. The kernel computes the
 plain function's float32 operations in its order, one IEEE rounding each and
 no fused multiply-add, so the two give the same rows integer for integer on
 the same hit-extent rows; ``chip_smoke.py`` (``[lists]``) and
@@ -28,6 +29,7 @@ import torch
 from . import cull_tables as ct
 from . import render_cuda
 from .hit_extents_cuda import check_scale
+from ...utils.config import require_cuda
 
 # Kernel launches; a plain counter, reset with reset_launch_counts().
 LAUNCHES = {"shadow_lists": 0}
@@ -104,15 +106,10 @@ def shadow_lists_cuda(ext, scale, lights, centers, radii, *, K: int, compat: boo
     int32, ``k = min(K, ns)``, row ``tile * nl + light`` (with L levels
     ``(tile * L + level) * nl + light``), from the hit-extent rows ``ext (T,
     8)`` and their ``scale`` (``(1,)``: the boxes'
-    largest coordinate magnitude, as ``hit_extents_cuda`` writes it). CPU
-    tensors take ``cull_tables.shadow_visibility_lists`` with that scale;
-    CUDA tensors launch the kernel (one launch, no host sync) or raise."""
-    dev = ext.device
-    if dev.type == "cpu":
-        return ct.shadow_visibility_lists(ext, lights, centers, radii, K=K, compat=compat,
-                                          scale=scale)
-    if dev.type != "cuda":
-        raise ValueError(f"shadow_lists_cuda takes CPU or CUDA tensors, got {dev}")
+    largest coordinate magnitude, as ``hit_extents_cuda`` writes it), CUDA
+    tensors only (``ValueError`` on others): one launch of the kernel, no
+    host sync."""
+    dev = require_cuda("shadow_lists_cuda", ext, scale, lights, centers, radii)
     T, nl, ns = ext.shape[0], lights.shape[0], centers.shape[0]
     k = min(K, ns)
     lights, centers, radii = (t.contiguous() for t in (lights, centers, radii))

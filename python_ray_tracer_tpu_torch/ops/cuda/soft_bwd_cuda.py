@@ -18,9 +18,9 @@ the scene's counts. Two kernel modes:
 Both fill the camera slots; the ``refl``, ``spec`` and ``shin`` slots stay 0
 (the soft scope has no mirror bounce and no Phong). The plain versions
 (:func:`soft_scene_grads_plain`, :func:`soft_loss_and_grads_plain`) are
-``torch.autograd`` of ``ops/soft.py`` packed into the same layout; the
-wrappers take them for tensors on the CPU only, and for CUDA tensors launch the
-kernel or raise. Every entry point takes the slice form of
+``torch.autograd`` of ``ops/soft.py`` packed into the same layout, reached by
+their own names; the wrappers take CUDA tensors only and raise ``ValueError``
+on others, before any launch. Every entry point takes the slice form of
 ``soft_bwd._soft_grads_pallas`` (``x_offset`` / ``local_width``: a slice's
 partials over the frame's denominator, as ``render_bwd_cuda``'s).
 """
@@ -33,6 +33,7 @@ from typing import NamedTuple
 import torch
 
 from ..soft import render_image_soft
+from ...utils.config import require_cuda
 from . import render_cuda, soft_cuda
 from .render_bwd_cuda import (BLOCKS_PER_SM, H100_SMS, SM_SMEM, _autograd_flat,
                               grad_groups, n_grads, slice_mse, unflatten_grads)
@@ -322,17 +323,15 @@ def soft_scene_grads_cuda(camera, scene, g_image, *, tau: float = 0.05,
     """Image cotangent ``(w, h, 3)`` -> ``Scene`` gradients (with
     ``return_camera``: ``(scene_g, camera_g)``), as
     ``soft_bwd.soft_scene_grads_pallas``; with ``x_offset`` / ``local_width``
-    the slice's cotangent and partials. CPU tensors take
-    :func:`soft_scene_grads_plain`; CUDA tensors launch mode ``cot``."""
+    the slice's cotangent and partials. CUDA tensors only (``ValueError`` on
+    others; :func:`soft_scene_grads_plain` is the plain version): mode
+    ``cot``."""
+    require_cuda("soft_scene_grads_cuda", camera.position)
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     lw = render_cuda.slice_width(camera, x_offset, local_width)
-    if camera.position.device.type == "cpu":
-        flat = soft_scene_grads_plain(camera, scene, g_image, tau=tau, x_offset=x_offset,
-                                      local_width=lw)
-    else:
-        shape = _check(camera, scene, g_image, tau, "g_image", False, lw)
-        flat = _run(camera, scene, g_image, tau=tau, mode="cot", shape=shape,
-                    x_offset=x_offset, lw=lw)
+    shape = _check(camera, scene, g_image, tau, "g_image", False, lw)
+    flat = _run(camera, scene, g_image, tau=tau, mode="cot", shape=shape,
+                x_offset=x_offset, lw=lw)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=False)
 
@@ -344,16 +343,13 @@ def soft_loss_and_grads_cuda(camera, scene, target, *, tau: float = 0.05,
     ``(loss, scene_g, camera_g)``) for ``loss = mean((render_soft -
     target)^2)``, as ``soft_bwd.soft_loss_and_grads_pallas``; with
     ``x_offset`` / ``local_width`` the slice's target, and its partials over
-    the frame's denominator. CPU tensors take :func:`soft_loss_and_grads_plain`;
-    CUDA tensors launch mode ``fused``."""
+    the frame's denominator. CUDA tensors only (``ValueError`` on others;
+    :func:`soft_loss_and_grads_plain` is the plain version): mode ``fused``."""
+    require_cuda("soft_loss_and_grads_cuda", camera.position)
     ns, npl, nl = scene.spheres.count, scene.planes.count, scene.lights.count
     lw = render_cuda.slice_width(camera, x_offset, local_width)
-    if camera.position.device.type == "cpu":
-        flat = soft_loss_and_grads_plain(camera, scene, target, tau=tau,
-                                         x_offset=x_offset, local_width=lw)
-    else:
-        shape = _check(camera, scene, target, tau, "target", True, lw)
-        flat = _run(camera, scene, target, tau=tau, mode="fused", shape=shape,
-                    x_offset=x_offset, lw=lw)
+    shape = _check(camera, scene, target, tau, "target", True, lw)
+    flat = _run(camera, scene, target, tau=tau, mode="fused", shape=shape,
+                x_offset=x_offset, lw=lw)
     return unflatten_grads(flat, ns, npl, nl, camera.resolution,
                            return_camera=return_camera, fused_loss=True)

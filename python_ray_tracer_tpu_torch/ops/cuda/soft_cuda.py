@@ -4,9 +4,10 @@
 Counterpart of ``python_ray_tracer_tpu/ops/pallas/soft_pallas.py``: one launch
 covers the clean-mode ray generation, sigmoid sphere coverage, opaque planes,
 soft shadow transmission, ambient + Lambert shading and the order-free
-front-to-back compositing. :func:`render_image_soft_cuda` runs the plain
-PyTorch version (``ops/soft.py``, :func:`render_image_soft_plain`) for tensors
-on the CPU; for CUDA tensors it launches the kernel or raises.
+front-to-back compositing. :func:`render_image_soft_cuda` takes CUDA tensors
+only: on tensors anywhere else it raises ``ValueError`` and launches nothing
+(the plain PyTorch version is :func:`render_image_soft_plain`, ``ops/soft.py``,
+by its own name).
 :func:`render_image_soft_fast` is the differentiable form
 (``soft_pallas.render_image_soft_fast``): the soft forward kernel forward, the
 soft backward kernel (``soft_bwd_cuda``, cotangent form, camera included)
@@ -20,6 +21,7 @@ import torch
 
 from ...models.camera import Camera
 from ...models.scene import Scene
+from ...utils.config import require_cuda
 from ..soft import render_image_soft
 from . import render_cuda
 
@@ -52,9 +54,7 @@ def render_image_soft_plain(camera, scene, *, tau: float = 0.05,
 def check_inputs(camera, scene, tau: float):
     """The render wrapper's input checks (device, dtype, shapes) plus ``tau >
     0``; returns the device."""
-    dev = camera.position.device
-    if dev.type != "cuda":
-        raise ValueError(f"the soft kernels take CPU or CUDA tensors, got {dev}")
+    dev = require_cuda("the soft kernels", camera.position)
     render_cuda._check_inputs(camera, scene, dev)
     if not float(tau) > 0.0:
         raise ValueError(f"tau must be > 0, got {tau}")
@@ -66,10 +66,9 @@ def check_inputs(camera, scene, tau: float):
 
 def render_image_soft_cuda(camera, scene, *, tau: float = 0.05) -> torch.Tensor:
     """Soft render -> float ``(w, h, 3)``, as :func:`..soft.render_image_soft`
-    (clean orientation and channels). CPU tensors take the plain version; CUDA
-    tensors launch the soft forward kernel on the current stream."""
-    if camera.position.device.type == "cpu":
-        return render_image_soft_plain(camera, scene, tau=tau)
+    (clean orientation and channels), for CUDA tensors only (``ValueError``
+    on others): the soft forward kernel on the current stream."""
+    require_cuda("render_image_soft_cuda", camera.position)
     dev = check_inputs(camera, scene, tau)
     W, H = camera.resolution
     with torch.cuda.device(dev):
@@ -191,12 +190,11 @@ class _RenderImageSoftFast(torch.autograd.Function):
 
 
 def render_image_soft_fast(camera, scene, tau: float = 0.05) -> torch.Tensor:
-    """Differentiable soft render -> float ``(w, h, 3)``. CPU tensors take the
-    plain version (differentiated by autograd); on CUDA tensors the forward is
-    the soft forward kernel and the backward the soft backward kernel, for
-    the scene and the camera alike."""
-    if camera.position.device.type == "cpu":
-        return render_image_soft_plain(camera, scene, tau=tau)
+    """Differentiable soft render -> float ``(w, h, 3)`` of CUDA tensors (others
+    raise ``ValueError``; autograd of :func:`render_image_soft_plain` is the
+    plain version): the forward is the soft forward kernel and the backward
+    the soft backward kernel, for the scene and the camera alike."""
+    require_cuda("render_image_soft_fast", camera.position)
     return _RenderImageSoftFast.apply(tuple(camera.resolution), float(tau),
                                       camera.position, camera.rotation, camera.fov,
                                       *scene.leaves())

@@ -16,7 +16,7 @@ from ..ops.cuda.render_bwd_cuda import slice_mse
 from ..ops.cuda.render_cuda import render_image_cuda
 from ..ops.render import render_image
 from ..ops.soft import render_image_soft
-from ..utils.config import BACKENDS
+from ..utils.config import require_cuda, resolve_backend
 from .mesh import Mesh
 
 
@@ -38,12 +38,12 @@ def render_image_sharded(camera, scene, mesh: Mesh, *, depth: int = 2,
                          backend: str = "cuda", aa_share: bool = True) -> torch.Tensor:
     """This rank's ``(W / n, H, 3)`` slice of the frame, with no
     communication: ``backend="cuda"`` through ``render_image_cuda``'s slice
-    form (the kernels on CUDA tensors, the plain version on CPU ones),
-    ``"torch"`` through the plain renderer."""
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+    form (the kernels: a card and CUDA tensors, else it raises), ``"torch"``
+    through the plain renderer on the tensors' own device."""
     x0, lw = mesh.slice(camera.resolution[0])
-    if backend == "cuda":
+    if resolve_backend(backend) == "cuda":
+        require_cuda("render_image_sharded(backend='cuda')", camera.position,
+                     scene.materials.ambient)
         return render_image_cuda(camera, scene, depth=depth, aliasing=aliasing,
                                  compat=compat, aa_share=aa_share, x_offset=x0,
                                  local_width=lw)

@@ -8,10 +8,12 @@ backends; every entry point defaults to ``"cuda"``:
     backward-kernel launch that renders, forms the MSE loss and its cotangent
     and reverse-sweeps (``loss_and_scene_grads_cuda``; with AA the render
     kernel runs first); ``fused=False`` runs the render kernel and then the
-    backward kernel on the cotangent. Like every kernel wrapper, these take
-    their plain versions for tensors on the CPU and launch or raise on CUDA
-    tensors.
-  * ``"torch"``: autograd of the plain renderer (:func:`pixel_loss`).
+    backward kernel on the cotangent. The backend needs a card
+    (``utils.config.resolve_backend`` raises without one) and CUDA tensors:
+    like every kernel wrapper, these entry points raise ``ValueError`` on
+    tensors anywhere else.
+  * ``"torch"``: autograd of the plain renderer (:func:`pixel_loss`), on the
+    tensors' own device.
 
 The optimizer is ``torch.optim.Adam(lr)`` over the trainable leaves only. That
 is optax Adam on masked gradients (``train._mask_grads``): a leaf whose
@@ -47,15 +49,18 @@ from .ops.cuda.soft_cuda import (render_image_soft_cuda, render_image_soft_fast,
 from .ops.render import render_image
 from .parallel.distributed import all_reduce_sum
 from .parallel.render_sharded import local_target, make_loss_fn
+from .utils.config import require_cuda, resolve_backend
 from .utils.metrics import MetricsLogger
 
-BACKENDS = ("cuda", "torch")
 CAMERA_KEYS = ("position", "euler", "fov")
 
 
-def _check_backend(backend: str) -> None:
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
+def _backend(backend: str, what: str, *tensors: torch.Tensor) -> str:
+    """``resolve_backend(backend)`` (``"cuda"`` without a card raises); on
+    ``"cuda"`` every tensor must lie on the card (``require_cuda``)."""
+    if resolve_backend(backend) == "cuda":
+        require_cuda(f"{what}(backend='cuda')", *tensors)
+    return backend
 
 
 def pixel_loss(camera, target, *, depth: int = 2, aliasing: bool = False,
@@ -77,7 +82,7 @@ def soft_pixel_loss(camera, target, *, tau: float = 0.05, row_chunk: Optional[in
     ``bounce_depth=1`` renders through the plain version on either backend,
     counted in ``soft_cuda.PLAIN_CALLS``: no kernel of either package covers
     the mirror bounce."""
-    _check_backend(backend)
+    _backend(backend, "soft_pixel_loss", camera.position, target)
     if backend == "cuda" and bounce_depth == 0:
         def loss(scene):
             return torch.mean((render_image_soft_fast(camera, scene, tau) - target) ** 2)
@@ -96,7 +101,7 @@ def soft_value_and_grad(camera, target, *, tau: float, backend: str = "cuda",
     one launch of the fused soft backward kernel (render, MSE, reverse sweep);
     otherwise, and for ``bounce_depth=1``, autograd of
     :func:`soft_pixel_loss`'s plain version."""
-    _check_backend(backend)
+    _backend(backend, "soft_value_and_grad", camera.position, target)
     if backend == "cuda" and bounce_depth == 0:
         def value_and_grad(scene):
             return soft_loss_and_grads_cuda(camera, scene, target, tau=tau)
@@ -121,25 +126,28 @@ def trainable_paths(trainable: Optional[Sequence[str]]) -> List[str]:
 
 def cuda_value_and_grad(camera, target, *, depth: int = 2, compat: bool = True,
                         aliasing: bool = False, fused: bool = True, aa_form: str = "one",
-                        **culls) -> Callable:
+                        cheap_shadow: bool | None = None, **culls) -> Callable:
     """``scene -> (loss, scene_grads)`` through the kernels
-    (``train.pallas_value_and_grad``); ``aa_form`` (the fused AA step's form)
-    and the cull keywords ``culls`` (``cull``, ``shadow_lists``,
+    (``train.pallas_value_and_grad``); ``aa_form`` (the fused AA step's form),
+    ``cheap_shadow`` (None: ``render_cuda.shadow_cheap_ok``, as the wrappers
+    resolve it) and the cull keywords ``culls`` (``cull``, ``shadow_lists``,
     ``group_cull``) go to the wrappers."""
     if fused:
         def value_and_grad(scene):
             return loss_and_scene_grads_cuda(camera, scene, target, depth=depth,
                                              compat=compat, aliasing=aliasing,
-                                             aa_form=aa_form, **culls)
+                                             aa_form=aa_form, cheap_shadow=cheap_shadow,
+                                             **culls)
         return value_and_grad
 
     def value_and_grad(scene):
         img = render_image_cuda(camera, scene, depth=depth, aliasing=aliasing,
-                                compat=compat, **culls)
+                                compat=compat, cheap_shadow=cheap_shadow, **culls)
         diff = img - target
         loss = torch.mean(diff ** 2)
         grads = scene_grads_cuda(camera, scene, 2.0 * diff / diff.numel(), depth=depth,
-                                 compat=compat, aliasing=aliasing, **culls)
+                                 compat=compat, aliasing=aliasing,
+                                 cheap_shadow=cheap_shadow, **culls)
         return loss, grads
     return value_and_grad
 
@@ -155,19 +163,21 @@ def _summed(mesh, loss, scene_g):
 
 
 def cuda_value_and_grad_sharded(camera, mesh, *, depth: int = 2, compat: bool = True,
-                                aliasing: bool = False) -> Callable:
+                                aliasing: bool = False,
+                                cheap_shadow: bool | None = None) -> Callable:
     """``(scene, target) -> (loss, scene_grads)`` over a mesh
     (``train.pallas_value_and_grad_sharded``): the fused kernel
-    (``loss_and_scene_grads_cuda``'s slice form) on this rank's columns of
-    ``target`` (the frame's, or the slice itself), then one all-reduce of its
-    gradient and loss partials. Every rank gets the frame's loss and
-    gradient."""
+    (``loss_and_scene_grads_cuda``'s slice form, with ``cheap_shadow``) on
+    this rank's columns of ``target`` (the frame's, or the slice itself),
+    then one all-reduce of its gradient and loss partials. Every rank gets
+    the frame's loss and gradient."""
     x0, lw = mesh.slice(camera.resolution[0])
 
     def value_and_grad(scene, target):
         loss, grads = loss_and_scene_grads_cuda(
             camera, scene, local_target(target, camera, mesh).contiguous(), depth=depth,
-            compat=compat, aliasing=aliasing, x_offset=x0, local_width=lw)
+            compat=compat, aliasing=aliasing, x_offset=x0, local_width=lw,
+            cheap_shadow=cheap_shadow)
         return _summed(mesh, loss, grads)
     return value_and_grad
 
@@ -250,7 +260,7 @@ def fit_scene(init_scene: Scene, camera, target, *, steps: int = 200,
     ``"cuda"`` (the fused step; ``fused=False`` has no sharded form),
     autograd of ``parallel.make_loss_fn`` and the same all-reduce on
     ``"torch"``; ``target`` is the frame's or this rank's slice."""
-    _check_backend(backend)
+    _backend(backend, "fit_scene", camera.position, target, init_scene.materials.ambient)
     scene = Scene.from_leaves([t.detach().clone() for t in init_scene.leaves()])
     if mesh is not None:
         if backend == "cuda":
@@ -298,7 +308,8 @@ def fit_scene_soft(init_scene: Scene, camera, target_scene: Scene, *, steps: int
     the soft forward kernel has no slice form (nor has the JAX package's).
     ``init_scene`` is not modified. The logger's line per stage gives its tau
     and its first and last loss. Returns ``(scene, losses)``."""
-    _check_backend(backend)
+    _backend(backend, "fit_scene_soft", camera.position, init_scene.materials.ambient,
+             target_scene.materials.ambient)
     scene = Scene.from_leaves([t.detach().clone() for t in init_scene.leaves()])
     losses: List[float] = []
     per_stage = max(1, steps // len(taus))
@@ -341,13 +352,15 @@ def camera_of(p: Dict[str, torch.Tensor], resolution) -> Camera:
 
 def camera_value_and_grad(scene, target, resolution, *, depth: int = 1,
                           compat: bool = True, aliasing: bool = False,
-                          backend: str = "cuda") -> Callable:
+                          backend: str = "cuda",
+                          cheap_shadow: bool | None = None) -> Callable:
     """``params -> (loss, grads)`` for camera-pose fitting
     (``train.camera_value_and_grad``). With ``backend="cuda"`` the backward
-    kernel's camera slots are chained to the Euler angles by autograd of
-    ``euler_rotation`` (a 3x3 Jacobian on the card, next to nothing beside the
-    render); with ``"torch"`` the whole loss is differentiated by autograd."""
-    _check_backend(backend)
+    kernel's camera slots (its ``cheap_shadow`` as the wrapper takes it) are
+    chained to the Euler angles by autograd of ``euler_rotation`` (a 3x3
+    Jacobian on the card, next to nothing beside the render); with
+    ``"torch"`` the whole loss is differentiated by autograd."""
+    _backend(backend, "camera_value_and_grad", target, scene.materials.ambient)
     if backend == "cuda":
         def value_and_grad(p):
             e = p["euler"].detach().requires_grad_(True)
@@ -356,7 +369,7 @@ def camera_value_and_grad(scene, target, resolution, *, depth: int = 1,
                          tuple(resolution))
             loss, _, cam_g = loss_and_scene_grads_cuda(
                 cam, scene, target, depth=depth, compat=compat, aliasing=aliasing,
-                return_camera=True)
+                return_camera=True, cheap_shadow=cheap_shadow)
             (euler_g,) = torch.autograd.grad(rot, e, grad_outputs=cam_g.rotation)
             return loss, {"position": cam_g.position, "euler": euler_g, "fov": cam_g.fov}
         return value_and_grad
@@ -382,6 +395,7 @@ def fit_camera(init_camera, scene, target, *, steps: int = 300, lr: float = 1e-2
     taken to come from ``euler_rotation``; its angles are recovered with the
     reference's transposed Ry (``Ry_ref(t) = Ry_std(-t)``, so ``R[2, 0] =
     +sin(pitch)``). Returns ``(fitted_camera, losses)``."""
+    _backend(backend, "fit_camera", init_camera.position, target, scene.materials.ambient)
     R = init_camera.rotation.detach().float()
     pitch0 = torch.asin(torch.clamp(R[2, 0], -1.0, 1.0))
     yaw0 = torch.atan2(R[1, 0], R[0, 0])

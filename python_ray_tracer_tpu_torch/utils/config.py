@@ -28,13 +28,43 @@ class RenderConfig:
     shininess: float = 32.0
 
 
+def _no_card(what: str) -> RuntimeError:
+    return RuntimeError(f"{what} needs a CUDA device, and torch.cuda.is_available() "
+                        f"is False")
+
+
 def resolve_backend(backend: str) -> str:
     """``"cuda"`` (the default): the hand-written kernels on the card;
-    ``"torch"``: the plain PyTorch version on the CPU, only when asked for.
-    ``cuda`` without a card raises: no backend falls back to the CPU."""
+    ``"torch"``: the plain PyTorch version on the tensors' own device, only
+    when asked for. ``cuda`` without a card raises: no backend falls back to
+    the CPU."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; choose from {BACKENDS}")
     if backend == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("backend 'cuda' needs a CUDA device, and "
-                           "torch.cuda.is_available() is False")
+        raise _no_card("backend 'cuda'")
     return backend
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device of the tensors a port function makes: ``None`` (every
+    constructor's default) is the CUDA device, the current one, and raises
+    as :func:`resolve_backend` does without a card; any other value is taken
+    as given. There is no "cuda if available": a caller who wants the CPU
+    says ``device="cpu"``."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise _no_card("the default device (None: the card)")
+    return torch.device("cuda")
+
+
+def require_cuda(what: str, *tensors: torch.Tensor) -> torch.device:
+    """The device of ``tensors``, which must all lie on a CUDA device: every
+    wrapper named for a kernel, and every entry point on ``backend="cuda"``,
+    raises ``ValueError`` naming the device it was given otherwise, before it
+    launches or computes anything. The plain versions are reached by their
+    own names or through ``backend="torch"``."""
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"{what} takes CUDA tensors, got {t.device}")
+    return tensors[0].device

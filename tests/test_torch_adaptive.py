@@ -172,7 +172,7 @@ def test_all_flagged_identity_24_spheres(compat):
 def test_budget_overflow_keeps_tent_and_reports():
     """Pixels flagged past the budget keep the tent value, in pixel-index
     order; the first K listed pixels are those of the covering budget."""
-    cam, scene = trt.default_camera((40, 30)), trt.default_scene()
+    cam, scene = trt.default_camera((40, 30), device="cpu"), trt.default_scene(device="cpu")
     full, sf = A.render_image_adaptive_plain(cam, scene, eps=0.5 / 255, budget_frac=1.0,
                                              with_stats=True)
     part, sp = A.render_image_adaptive_plain(cam, scene, eps=0.5 / 255, budget_frac=0.1,
@@ -191,7 +191,7 @@ def test_budget_overflow_keeps_tent_and_reports():
 def test_trace_worklist_chunks_and_count():
     """The chunked trace equals the one-block trace; slots at or past the
     count leave the image as it is."""
-    cam, scene = trt.default_camera((24, 16)), trt.default_scene()
+    cam, scene = trt.default_camera((24, 16), device="cpu"), trt.default_scene(device="cpu")
     img = torch.rand((24, 16, 3), generator=torch.Generator().manual_seed(0))
     idx = torch.tensor([30, 31, 100, 250, 24 * 16], dtype=torch.int32)
     one = A.trace_worklist_plain(cam, scene, idx, 4, img, depth=2, compat=True)
@@ -207,12 +207,20 @@ def test_trace_worklist_chunks_and_count():
 
 
 def test_wrapper_cpu_path_is_the_plain_version():
-    cam, scene = trt.default_camera((20, 16)), trt.default_scene()
+    """The wrapper takes CUDA tensors only: on CPU tensors it raises, naming
+    the device, and launches nothing. The plain version, by its own name,
+    gives the same frame and stats each call."""
+    from python_ray_tracer_tpu_torch.ops.cuda import adaptive_cuda, render_cuda
+    cam, scene = trt.default_camera((20, 16), device="cpu"), trt.default_scene(device="cpu")
     kw = dict(depth=1, compat=False, eps=0.002, budget_frac=0.3)
-    a, sa = trt.render_image_adaptive_cuda(cam, scene, **kw, with_stats=True)
+    before = (dict(adaptive_cuda.LAUNCHES), dict(render_cuda.LAUNCHES))
+    with pytest.raises(ValueError, match="render_image_adaptive_cuda takes CUDA tensors, got cpu"):
+        trt.render_image_adaptive_cuda(cam, scene, **kw, with_stats=True)
+    assert (dict(adaptive_cuda.LAUNCHES), dict(render_cuda.LAUNCHES)) == before
+    a, sa = trt.render_image_adaptive_plain(cam, scene, **kw, with_stats=True)
     b, sb = trt.render_image_adaptive_plain(cam, scene, **kw, with_stats=True)
     assert torch.equal(a, b) and sa == sb
-    assert torch.equal(trt.render_image_adaptive_cuda(cam, scene, **kw), a)
+    assert torch.equal(trt.render_image_adaptive_plain(cam, scene, **kw), a)
 
 
 def test_adaptive_work_counts_listed_chains():

@@ -25,7 +25,7 @@ ORBIT = dict(center=[1.0, 0.0, 1.0], radius=4.0, height=1.5)
 
 def test_orbit_cameras_look_at_center_and_match_jax():
     from python_ray_tracer_tpu import animation as janim
-    cams = animation.orbit_cameras((16, 16), n_frames=6, **ORBIT)
+    cams = animation.orbit_cameras((16, 16), n_frames=6, **ORBIT, device="cpu")
     assert cams.position.shape == (6, 3) and cams.rotation.shape == (6, 3, 3)
     fwd = cams.rotation.numpy() @ np.array([1.0, 0.0, 0.0])
     to_c = np.array([1.0, 0.0, 1.0]) - cams.position.numpy()
@@ -40,8 +40,8 @@ def test_orbit_cameras_look_at_center_and_match_jax():
 def test_render_frames_match_jax_and_single_renders():
     from python_ray_tracer_tpu import animation as janim
     import python_ray_tracer_tpu as jrt
-    cams = animation.orbit_cameras((24, 16), n_frames=3, **ORBIT)
-    scene = trt.default_scene()
+    cams = animation.orbit_cameras((24, 16), n_frames=3, **ORBIT, device="cpu")
+    scene = trt.default_scene(device="cpu")
     frames = animation.render_frames(cams, scene, depth=1, aliasing=False, backend="torch")
     assert frames.shape == (3, 24, 16, 3)
     ref = np.asarray(janim.render_frames(janim.orbit_cameras((24, 16), n_frames=3, **ORBIT),
@@ -58,24 +58,33 @@ def test_render_frames_match_jax_and_single_renders():
     assert float((frames[0] - frames[1]).abs().max()) > 1e-3
 
 
-def test_render_frames_cuda_backend_takes_cuda_tensors():
-    cams = animation.orbit_cameras((8, 8), n_frames=2, **ORBIT)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        animation.render_frames(cams, trt.default_scene(), backend="cuda")
+def test_render_frames_cuda_backend_takes_cuda_tensors(monkeypatch):
+    """"cuda" needs a card (resolve_backend raises without one) and CUDA
+    tensors: on a host with a card (resolve_backend passing, patched here)
+    CPU tensors raise ValueError before any launch."""
+    cams = animation.orbit_cameras((8, 8), n_frames=2, **ORBIT, device="cpu")
+    scene = trt.default_scene(device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        animation.render_frames(cams, trt.default_scene(), backend="jnp")
+        animation.render_frames(cams, scene, backend="jnp")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            animation.render_frames(cams, scene, backend="cuda")
+    monkeypatch.setattr(animation, "resolve_backend", lambda b: b)
+    with pytest.raises(ValueError, match="CUDA tensors, got cpu"):
+        animation.render_frames(cams, scene, backend="cuda")
 
 
 def test_stack_cameras_checks():
     with pytest.raises(ValueError, match="at least one camera"):
         animation.stack_cameras([])
     with pytest.raises(ValueError, match="resolutions"):
-        animation.stack_cameras([trt.default_camera((8, 8)), trt.default_camera((8, 4))])
+        animation.stack_cameras([trt.default_camera((8, 8), device="cpu"),
+                                 trt.default_camera((8, 4), device="cpu")])
 
 
 def test_save_animation_writes_gif(tmp_path):
-    cams = animation.orbit_cameras((16, 16), n_frames=2, **ORBIT)
-    frames = animation.render_frames(cams, trt.default_scene(), depth=0, aliasing=False,
+    cams = animation.orbit_cameras((16, 16), n_frames=2, **ORBIT, device="cpu")
+    frames = animation.render_frames(cams, trt.default_scene(device="cpu"), depth=0, aliasing=False,
                                      backend="torch")
     path = tmp_path / "orbit.gif"
     animation.save_animation(frames, str(path), fps=8)

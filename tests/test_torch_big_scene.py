@@ -88,7 +88,7 @@ def test_hit_extents_and_lists_at_10000_spheres_match_jax():
     ext_j = np.array(bridge.tile_rows_from_jax(ext_j, n_tx, n_ty, swap))
     vis, _ = bridge.tables_from_arrays(vis=(
         bridge.tile_rows_from_jax(np.asarray(idx_j).reshape(-1, NS), n_tx, n_ty, swap),
-        bridge.tile_rows_from_jax(np.asarray(cnt_j), n_tx, n_ty, swap), NS))
+        bridge.tile_rows_from_jax(np.asarray(cnt_j), n_tx, n_ty, swap), NS), device="cpu")
     idx, cnt = ct.tile_visibility(cam, scene, compat=True, tile=TILE)
     assert _rows(idx, cnt) == _rows(vis[0], vis[1])
     ext = hx.hit_extents_plain(cam, scene, aliasing=False, compat=True, tile=TILE, vis=vis)
@@ -99,10 +99,10 @@ def test_hit_extents_and_lists_at_10000_spheres_match_jax():
     li_j, lc_j = jp._shadow_visibility_lists(jnp.asarray(ext_j), scene_j.lights.position,
                                              scene_j.spheres.center, scene_j.spheres.radius,
                                              nl=3, K=k, compat=True)
-    scale = torch.empty(1)
-    li, lc = sl.shadow_lists_cuda(torch.from_numpy(ext_j), scale.copy_(
-        ct.extent_scale(torch.from_numpy(ext_j)).reshape(1)), scene.lights.position,
-        scene.spheres.center, scene.spheres.radius, K=k, compat=True)
+    scale = ct.extent_scale(torch.from_numpy(ext_j)).reshape(1)
+    li, lc = ct.shadow_visibility_lists(torch.from_numpy(ext_j), scene.lights.position,
+                                        scene.spheres.center, scene.spheres.radius, K=k,
+                                        compat=True, scale=scale)
     np.testing.assert_array_equal(lc.numpy(), np.asarray(lc_j))
     assert _rows(li, lc) == _rows(li_j, lc_j)
     assert int((lc == -1).sum()) > 0 and int((lc >= 0).sum()) > 0

@@ -33,7 +33,7 @@ torch.set_num_threads(1)
 
 
 def _scene(n, seed=0):
-    return trt.random_scene(n, generator=torch.Generator().manual_seed(seed))
+    return trt.random_scene(n, generator=torch.Generator().manual_seed(seed), device="cpu")
 
 
 def _tied(n, seed=0):
@@ -256,7 +256,7 @@ def test_tree_sweeps_a_ground_bounce_with_an_exact_zero(compat):
     off the ground plane keep it, from origins at y = 3. Their closest hits
     through the tree are the full sweep's, and some of them hit a sphere."""
     scene = _scene(1000)
-    cam = trt.Camera.build((129, 65), [-12.0, 3.0, 3.0], [0.0, -15.0, 0.0])
+    cam = trt.Camera.build((129, 65), [-12.0, 3.0, 3.0], [0.0, -15.0, 0.0], device="cpu")
     px = torch.stack(torch.meshgrid(torch.arange(129.0), torch.arange(65.0),
                                     indexing="ij"), -1).reshape(-1, 2)
     d = cam.ray_directions(px, compat=compat)

@@ -29,10 +29,11 @@ MODES = ("cot_noaa", "cot_aa", "fused_noaa", "fused_aa")
 def test_hard_bwd_work_is_the_hand_count():
     """One sphere filling a 4x4 view, one light, no plane, depth 0, fused
     without AA: 16 chains, each a live sphere hit."""
-    scene = trt.Scene(trt.Spheres.build([([60.0, 0.0, 0.0], 50.0, trt.RED)]),
-                      trt.Planes.build([]), trt.Lights.build([[-2.0, 0.0, 30.0]]),
-                      trt.Materials.build())
-    cam = trt.default_camera((4, 4))
+    scene = trt.Scene(trt.Spheres.build([([60.0, 0.0, 0.0], 50.0, trt.RED)], device="cpu"),
+                      trt.Planes.build([], device="cpu"),
+                      trt.Lights.build([[-2.0, 0.0, 30.0]], device="cpu"),
+                      trt.Materials.build(device="cpu"))
+    cam = trt.default_camera((4, 4), device="cpu")
     live = timing.hard_chain_counts(cam, scene, timing.bwd_positions(4, 4, False), depth=0)
     assert live.tolist() == [[16.0, 16.0, 0.0]]
     ops, nbytes = timing.hard_bwd_work(4, 4, 1, 0, 1, "fused_noaa", live)
@@ -52,14 +53,14 @@ def test_hard_bwd_work_is_the_hand_count():
 def _scene(name):
     if name == "two":
         return cli.fit_scene_two_spheres(RenderConfig(), "cpu")
-    return trt.default_scene()
+    return trt.default_scene(device="cpu")
 
 
 @pytest.mark.parametrize("name", ["two", "demo"])
 @pytest.mark.parametrize("mode", MODES)
 def test_hard_bwd_work_is_above_the_lower_bound_and_grows_with_depth(name, mode):
     scene, (W, H) = _scene(name), (18, 12)
-    cam = trt.default_camera((W, H))
+    cam = trt.default_camera((W, H), device="cpu")
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
     pos = timing.bwd_positions(W, H, mode.endswith("_aa"))
     low = timing.hard_work(W, H, *counts, mode)

@@ -66,7 +66,7 @@ def test_lattice_combine_of_the_traced_lattice_is_the_aa_render(compat):
     """The lattice positions are the 9-sample positions: combining the traced
     lattice gives render_image(aliasing=True) to float32 rounding."""
     W, H = 37, 21
-    cam, scene = trt.default_camera((W, H)), trt.default_scene()
+    cam, scene = trt.default_camera((W, H), device="cpu"), trt.default_scene(device="cpu")
     pos = rb.lattice_positions(W, H)
     colors = render_rays(pos.reshape(-1, 2), cam, scene, depth=2, compat=compat)
     img = rb.lattice_combine(colors.reshape(pos.shape[0], rb.LATTICE, 3), W, H, compat)
@@ -78,8 +78,8 @@ def test_lattice_combine_of_the_traced_lattice_is_the_aa_render(compat):
 def test_plain_lattice_gradient_matches_the_9_sample_vjp(compat):
     """32x32, demo scene, Phong on in clean mode: the lattice form against
     scene_grads_plain(aliasing=True) under the kernel rule."""
-    mats = trt.Materials.build(0.05, 0.6, 0.3, 0.0 if compat else 0.6, 8.0)
-    scene, cam = trt.default_scene(mats), trt.default_camera((32, 32))
+    mats = trt.Materials.build(0.05, 0.6, 0.3, 0.0 if compat else 0.6, 8.0, device="cpu")
+    scene, cam = trt.default_scene(mats, device="cpu"), trt.default_camera((32, 32), device="cpu")
     g = torch.from_numpy((noise((32, 32), seed=5) - 0.5) * np.float32(1e-2))
     lattice = rb.scene_grads_lattice_plain(cam, scene, g, depth=2, compat=compat)
     per_sample = rb.scene_grads_plain(cam, scene, g, depth=2, compat=compat, aliasing=True)

@@ -25,6 +25,7 @@ from python_ray_tracer_tpu_torch.utils import timing
 
 from .test_torch_grads import leaf_groups, noise, port_groups
 from .test_torch_render import to_torch
+from .torch_plain_launch import plain_launches, plain_tables
 
 torch.set_num_threads(1)
 
@@ -99,8 +100,8 @@ def test_smem_counts_the_tables(ns):
     kernel's, in every form it takes at this scene, with and without the
     one-launch AA step's colors."""
     npl, nl = 1, 3
-    cam = trt.Camera.build((64, 32), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0])
-    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(0))
+    cam = trt.Camera.build((64, 32), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0], device="cpu")
+    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(0), device="cpu")
     k = ct.list_capacity(ns)
     n_leaves = -(-ns // ct.LEAF)
     tree = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
@@ -148,21 +149,30 @@ def test_cull_keywords_match_the_jax_wrappers():
                                    dict(group_cull=True), dict(cull=False, shadow_lists=False,
                                                                group_cull=False)])
 @pytest.mark.parametrize("aliasing", [False, True])
-def test_cpu_tensors_with_cull_keywords_take_the_plain_version(culls, aliasing):
+def test_cpu_tensors_with_cull_keywords_take_the_plain_version(culls, aliasing, monkeypatch):
     """A 20-sphere scene (the large-scene path on a card) on CPU tensors: both
-    wrappers return the plain version's numbers whatever the cull keywords,
-    and launch nothing."""
-    cam = trt.Camera.build((12, 8), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0])
-    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(3))
+    wrappers refuse them whatever the cull keywords, launching and computing
+    nothing; the plain versions are reached by name. With the launches
+    standing in for the card (tests/torch_plain_launch.py), the wrappers'
+    glue takes every cull keyword and returns the plain version's numbers in
+    both return forms."""
+    cam = trt.Camera.build((12, 8), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0], device="cpu")
+    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(3), device="cpu")
     target = torch.from_numpy(noise((12, 8), seed=6))
+    kw = dict(depth=1, aliasing=aliasing, **culls)
     rb.reset_launch_counts()
-    loss, sg, cg = rb.loss_and_scene_grads_cuda(cam, scene, target, depth=1,
-                                                aliasing=aliasing, return_camera=True,
-                                                **culls)
+    with pytest.raises(ValueError, match="loss_and_scene_grads_cuda takes CUDA tensors, got cpu"):
+        rb.loss_and_scene_grads_cuda(cam, scene, target, return_camera=True, **kw)
+    with pytest.raises(ValueError, match="scene_grads_cuda takes CUDA tensors, got cpu"):
+        rb.scene_grads_cuda(cam, scene, target, **kw)
+    assert rb.PLAIN_CALLS == {"scene_grads": 0, "loss_and_scene_grads": 0}
+    assert not any(rb.LAUNCHES.values()) and not any(rb.TABLE_LAUNCHES.values())
     flat = rb.loss_and_scene_grads_plain(cam, scene, target, depth=1, aliasing=aliasing)
-    torch.testing.assert_close(rb.flatten_grads(sg, cg, loss), flat, rtol=0, atol=0)
-    g = rb.scene_grads_cuda(cam, scene, target, depth=1, aliasing=aliasing, **culls)
     plain = rb.scene_grads_plain(cam, scene, target, depth=1, aliasing=aliasing)
+    plain_launches(monkeypatch.setattr)
+    loss, sg, cg = rb.loss_and_scene_grads_cuda(cam, scene, target, return_camera=True, **kw)
+    torch.testing.assert_close(rb.flatten_grads(sg, cg, loss), flat, rtol=0, atol=0)
+    g = rb.scene_grads_cuda(cam, scene, target, **kw)
     torch.testing.assert_close(rb.flatten_grads(g)[:-13], plain[:-13], rtol=0, atol=0)
     assert rb.PLAIN_CALLS == {"scene_grads": 2, "loss_and_scene_grads": 2}
     assert not any(rb.LAUNCHES.values()) and not any(rb.TABLE_LAUNCHES.values())
@@ -170,13 +180,13 @@ def test_cpu_tensors_with_cull_keywords_take_the_plain_version(culls, aliasing):
         rb.loss_and_scene_grads_cuda(cam, scene, target, aa_form="three")
 
 
-def test_launch_refuses_what_the_kernel_does_not_take():
+def test_launch_refuses_what_the_kernel_does_not_take(monkeypatch):
     """Checked before any library is loaded: the one-launch form outside
     fused_aa, tables on a small scene, the tree staged without a tree or in
     the global form."""
-    cam = trt.Camera.build((32, 16), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0])
-    small = trt.random_scene(8, generator=torch.Generator().manual_seed(1))
-    large = trt.random_scene(40, generator=torch.Generator().manual_seed(1))
+    cam = trt.Camera.build((32, 16), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0], device="cpu")
+    small = trt.random_scene(8, generator=torch.Generator().manual_seed(1), device="cpu")
+    large = trt.random_scene(40, generator=torch.Generator().manual_seed(1), device="cpu")
 
     def go(scene, mode, **kw):
         counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
@@ -191,6 +201,7 @@ def test_launch_refuses_what_the_kernel_does_not_take():
                          compat=True, cheap_shadow=True, shape=shape, **kw)
     with pytest.raises(ValueError, match="one-launch"):
         go(small, "fused_noaa", one_launch=True)
+    plain_tables(monkeypatch.setattr)
     tabs = render_cuda.large_scene_tables(cam, large, depth=1, aliasing=True, compat=True,
                                           group_cull=True)
     with pytest.raises(ValueError, match="takes no large-scene table"):
@@ -202,19 +213,20 @@ def test_launch_refuses_what_the_kernel_does_not_take():
 
 
 @pytest.mark.parametrize("mode", ["cot_noaa", "fused_aa"])
-def test_culled_bound_is_at_most_the_unculled(mode):
+def test_culled_bound_is_at_most_the_unculled(monkeypatch, mode):
     """40 spheres 48x32, depth 2: the culled bound of this frame's tables is
     at most hard_bwd_work's, below it where a list is short, and equal to it
     (operations) with every list row full and no tree."""
     W, H = 48, 32
     aa = mode.endswith("_aa")
-    cam = trt.Camera.build((W, H), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0])
-    scene = trt.random_scene(40, generator=torch.Generator().manual_seed(2))
+    cam = trt.Camera.build((W, H), [-12.0, 0.0, 4.0], [0.0, -15.0, 0.0], device="cpu")
+    scene = trt.random_scene(40, generator=torch.Generator().manual_seed(2), device="cpu")
     counts = (scene.spheres.count, scene.planes.count, scene.lights.count)
     pos = timing.bwd_positions(W, H, aa)
     live = timing.hard_chain_counts(cam, scene, pos, depth=2)
     hits0 = timing.level0_hits_by_tile(cam, scene, pos)
     assert float(hits0.sum()) == float(live[0, 1] + live[0, 2])
+    plain_tables(monkeypatch.setattr)
     vis, shadow, tree, _ = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=aa,
                                                           compat=True, group_cull=True)
     full_ops, full_bytes = timing.hard_bwd_work(W, H, *counts, mode, live)

@@ -115,7 +115,7 @@ def test_kernel_is_deterministic(cuda_device):
 def test_wrapper_rejects_mixed_devices_and_dtypes(cuda_device):
     cam = trt.default_camera((32, 32), device=cuda_device)
     with pytest.raises(ValueError, match="is on cpu"):
-        trt.render_image_cuda(cam, trt.default_scene())
+        trt.render_image_cuda(cam, trt.default_scene(device="cpu"))
     scene = trt.default_scene(device=cuda_device)
     scene.spheres.radius = scene.spheres.radius.double()
     with pytest.raises(TypeError, match="float32"):
@@ -395,7 +395,7 @@ def test_bwd_wrapper_rejects_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="shape"):
         rb.loss_and_scene_grads_cuda(cam, scene, target[:8])
     with pytest.raises(ValueError, match="is on cpu"):
-        rb.scene_grads_cuda(cam, trt.default_scene(), target)
+        rb.scene_grads_cuda(cam, trt.default_scene(device="cpu"), target)
 
 
 def test_fit_scene_cuda_backend_on_card(cuda_device):
@@ -710,7 +710,8 @@ def test_soft_wrappers_reject_bad_inputs(cuda_device):
     with pytest.raises(ValueError, match="shape"):
         sb.soft_loss_and_grads_cuda(cam, scene, _target((16, 16), cuda_device)[:8])
     with pytest.raises(ValueError, match="is on cpu"):
-        sb.soft_scene_grads_cuda(cam, trt.default_scene(), _target((16, 16), cuda_device))
+        sb.soft_scene_grads_cuda(cam, trt.default_scene(device="cpu"),
+                                 _target((16, 16), cuda_device))
 
 
 def test_fit_scene_soft_cuda_backend_on_card(cuda_device):
@@ -1067,7 +1068,7 @@ def test_adaptive_wrapper_launches_and_budget(cuda_device):
     kept, cut = idx[:K].long(), idx[K:int(sf["flagged"])].long()
     assert torch.equal(part.reshape(-1, 3)[kept], full.reshape(-1, 3)[kept])
     assert torch.equal(part.reshape(-1, 3)[cut], tent.reshape(-1, 3)[cut])
-    cpu = trt.render_image_adaptive_cuda(cam.to("cpu"), trt.Scene.from_leaves(
+    cpu = trt.render_image_adaptive_plain(cam.to("cpu"), trt.Scene.from_leaves(
         [t.cpu() for t in scene.leaves()]), eps=0.5 / 255, budget_frac=1.0)
     assert _flipped(full.cpu(), cpu) <= 1e-3 * ADAPTIVE_RES[0] * ADAPTIVE_RES[1]
 
@@ -1129,7 +1130,9 @@ def test_light_cell_kernel_is_its_plain_version(cuda_device, n, lights):
     assert lc.LAUNCHES["light_cells"] == 2
     ref = lc.light_cells_plain(scene.spheres.center, scene.spheres.radius,
                                scene.lights.position)
-    cpu = lc.light_cells_cuda(sph.cpu(), lts.cpu(), ns, nl)
+    with pytest.raises(ValueError, match="light_cells_cuda takes CUDA tensors, got cpu"):
+        lc.light_cells_cuda(sph.cpu(), lts.cpu(), ns, nl)
+    cpu = lc.light_cells_plain(sph[0:3, :ns].T.cpu(), sph[3, :ns].cpu(), lts[:, :nl].T.cpu())
     assert lc.LAUNCHES["light_cells"] == 2
     for x, y, z, w in zip(a, b, ref, cpu):
         assert torch.equal(x, y) and torch.equal(x, z) and torch.equal(x.cpu(), w)
@@ -2151,3 +2154,200 @@ def test_explicit_cheap_shadow_picks_the_instantiation(cuda_device, compat):
                 assert torch.equal(root, auto), mode
             else:
                 assert _flipped(root, auto) <= 1e-3 * 96 * 64, mode
+
+
+# --- the per-sample AA cotangent; default devices ---------------------------
+
+def _ps_cotangent(cam, scene, seed=0):
+    """A fit's first cotangent of the per-sample render: the scene with its
+    centers moved by the fit CLI's shift against the scene."""
+    init = trt.Scene.from_leaves([t.clone() for t in scene.leaves()])
+    init.spheres.center += torch.tensor(cli.FIT_SHIFT, device=scene.device)
+    tgt = trt.render_image_cuda(cam, scene, aliasing=True, aa_share=False)
+    img = trt.render_image_cuda(cam, init, aliasing=True, aa_share=False)
+    return init, (2.0 * (img - tgt) / img.numel()).contiguous()
+
+
+@pytest.mark.parametrize("name", ["demo", "two"])
+@pytest.mark.parametrize("compat", [True, False])
+def test_per_sample_cotangent_matches_plain(cuda_device, name, compat):
+    """scene_grads_cuda(aliasing=True, aa_share=False), the adjoint of the
+    aa_per_sample render, against autograd of the plain per-sample render
+    under the kernel rule, held-out pixels (of the aa_per_sample frame) out of
+    both sides; counted under cot_aa, the lattice, and two runs
+    bit-identical."""
+    scene = _bwd_scene(name, compat, cuda_device)
+    cam = trt.default_camera((64, 64), device=cuda_device)
+    target = _target((64, 64), cuda_device)
+    x = _bwd_input("cot_aa", cam, scene, target, compat)
+    before = rb.LAUNCHES["cot_aa"]
+    flat, ref, ref_all, held = rb.kernel_and_plain("cot_aa", cam, scene, x, depth=2,
+                                                   compat=compat, aa_share=False)
+    assert rb.LAUNCHES["cot_aa"] > before
+    assert bool(torch.isfinite(flat).all())
+    _assert_rule(flat, ref, scene, ref_all)
+    kw = dict(depth=2, compat=compat, aliasing=True, aa_share=False, return_camera=True)
+    a = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, x, **kw))
+    b = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, x, **kw))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_per_sample_cotangent_against_the_lattice(cuda_device, compat):
+    """aa_share=False launches the lattice as aa_share=True does: the AA
+    offsets are 0 and +-0.5, so the per-sample render's rays are the
+    lattice's, and the same launch gives the same bits; both within the
+    kernel rule of the plain per-sample gradient."""
+    scene = _bwd_scene("demo", compat, cuda_device)
+    cam = trt.default_camera((96, 64), device=cuda_device)
+    x = _bwd_input("cot_aa", cam, scene, _target((96, 64), cuda_device, seed=2), compat)
+    kw = dict(depth=2, compat=compat, aliasing=True, return_camera=True)
+    held = rb.held_out(trt.render_image_cuda(cam, scene, depth=2, compat=compat,
+                                             aliasing=True, aa_share=False),
+                       trt.render_image(cam, scene, depth=2, compat=compat, aliasing=True))
+    keep = (x * ~held[..., None]).contiguous()
+    ps = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, keep, aa_share=False, **kw))
+    lat = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, keep, **kw))
+    assert torch.equal(ps, lat)
+    _assert_rule(ps, rb.scene_grads_plain(cam, scene, keep, depth=2, compat=compat,
+                                          aliasing=True),
+                 scene, rb.scene_grads_plain(cam, scene, x, depth=2, compat=compat,
+                                             aliasing=True))
+
+
+@pytest.mark.parametrize("form", sorted(BWD_FORMS))
+def test_per_sample_cotangent_forms_match_plain(cuda_device, form):
+    """300 spheres 48x32 depth 2 with the large-scene tables: the lattice
+    (cot_aa) on the per-sample render's cotangent in every
+    form (staged, the tree staged, global, device rows) against autograd of
+    the plain per-sample render, held-out pixels out of both sides. The
+    default camera: there the plain float32 gradient is within the rule of
+    its float64 witness (0.5% at most); from the _pose camera it is 45-62%
+    off in the geometry groups, a view float32 cannot decide."""
+    scene = trt.random_scene(300, generator=torch.Generator().manual_seed(3),
+                             device=cuda_device)
+    cam = trt.default_camera((48, 32), device=cuda_device)
+    init, x = _ps_cotangent(cam, scene)
+    held = rb.held_out(trt.render_image_cuda(cam, init, aliasing=True, aa_share=False),
+                       trt.render_image(cam, init, aliasing=True))
+    keep = (x * ~held[..., None]).contiguous()
+    before = rb.TABLE_LAUNCHES["cot_aa"]
+    flat, _, shape = _bwd_once(cam, init, "cot_aa", keep, form=form)
+    assert rb.TABLE_LAUNCHES["cot_aa"] == before + 1
+    assert shape.device_rows == (form == "rows") and shape.staged == form.startswith("staged")
+    ref = rb.scene_grads_plain(cam, init, keep, depth=2, aliasing=True)
+    _assert_rule(flat, ref, init, rb.scene_grads_plain(cam, init, x, depth=2, aliasing=True))
+
+
+def test_per_sample_slice_partials_sum_to_the_frame(cuda_device):
+    """The slice form: the partials of 4 slices (96 wide) of the fit scene's
+    384x256 frame summed against the whole frame's under the kernel rule; a
+    slice of a 300-sphere frame with its own tables equals the same slice
+    with every table off, bit for bit."""
+    from python_ray_tracer_tpu_torch.parallel.mesh import column_slice
+    scene = cli.fit_scene_two_spheres(RenderConfig(), cuda_device)
+    cam = trt.default_camera((384, 256), device=cuda_device)
+    init, x = _ps_cotangent(cam, scene)
+    kw = dict(aliasing=True, aa_share=False, return_camera=True)
+
+    def run(x0, lw):
+        return rb.flatten_grads(*rb.scene_grads_cuda(cam, init, x[x0:x0 + lw].contiguous(),
+                                                     x_offset=x0, local_width=lw, **kw))
+    whole = run(0, 384)
+    parts = sum(run(*column_slice(384, i, 4)) for i in range(4))
+    res = rb.grad_rule(parts, whole, *_counts(scene))
+    assert all(ok for _, ok in res.values()), res
+    big = trt.random_scene(300, generator=torch.Generator().manual_seed(3), device=cuda_device)
+    cam = _pose((64, 32), cuda_device)
+    g = (torch.rand((32, 32, 3), generator=torch.Generator().manual_seed(6)) * 1e-2).to(
+        cuda_device)
+    out = [rb.flatten_grads(*rb.scene_grads_cuda(cam, big, g, depth=2, x_offset=20,
+                                                 local_width=32, **kw, **culls))
+           for culls in ({}, ALL_OFF)]
+    torch.cuda.synchronize()
+    assert torch.equal(out[0], out[1])
+
+
+@pytest.mark.parametrize("compat", [True, False])
+def test_backward_cheap_shadow_keyword(cuda_device, compat):
+    """cheap_shadow on the backward wrappers, on the demo and a 100-sphere
+    scene, where shadow_cheap_ok holds: None gives the bits of True (the
+    sqrt-free test); False runs the root test, the bits of a launch of the
+    root-test instantiation at the same shape. On the demo scene it is held
+    against the plain gradient under the kernel rule, held-out pixels out of
+    both; on the 100-sphere scene (a view where the plain float32 gradient
+    is too far off its float64 witness to judge a kernel, as in
+    test_per_sample_cotangent_forms_match_plain) against the sqrt-free test:
+    the same bits in compat mode (pinned arithmetic, as in the render), the
+    kernel rule in clean mode, where on the whole cotangent the two tests'
+    bits differ (4.3e-6 at most on an H100), so False did reach the launch.
+    The fused step and train.cuda_value_and_grad pass the keyword the same
+    way."""
+    for scene, cam in ((_bwd_scene("demo", compat, cuda_device),
+                        trt.default_camera((96, 64), device=cuda_device)),
+                       (_planted_scene(100, cuda_device),
+                        trt.Camera.build((96, 64), *LARGE_POSES[100], device=cuda_device))):
+        assert render_cuda.shadow_cheap_ok(scene, compat)
+        x = _bwd_input("cot_aa", cam, scene, _target((96, 64), cuda_device), compat)
+        held = rb.held_out(trt.render_image_cuda(cam, scene, compat=compat),
+                           trt.render_image(cam, scene, compat=compat))
+        keep = (x * ~held[..., None]).contiguous()
+        kw = dict(depth=2, compat=compat, aliasing=True, return_camera=True)
+        auto = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, keep, **kw))
+        cheap = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, keep, cheap_shadow=True,
+                                                      **kw))
+        root = rb.flatten_grads(*rb.scene_grads_cuda(cam, scene, keep, cheap_shadow=False,
+                                                     **kw))
+        assert torch.equal(auto, cheap)
+        plain_all = rb.scene_grads_plain(cam, scene, x, depth=2, compat=compat, aliasing=True)
+        packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=compat)
+        tabs = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=True,
+                                              compat=compat, packed=packed)
+        shape = rb.launch_plan(cam, scene, "cot_aa", tabs=tabs)
+        n = rb.n_grads(*packed[2])
+        direct = rb.launch(torch.empty(n, device=cuda_device),
+                           torch.empty(n * shape.blocks, device=cuda_device), *packed,
+                           image=keep, target=None, W=96, H=64, depth=2, mode="cot_aa",
+                           compat=compat, cheap_shadow=False, shape=shape, tabs=tabs)
+        assert torch.equal(root, direct)
+        if scene.spheres.count <= render_cuda.CULL_MIN_SPHERES:
+            _assert_rule(root, rb.scene_grads_plain(cam, scene, keep, depth=2, compat=compat,
+                                                    aliasing=True), scene, plain_all)
+        elif compat:
+            assert torch.equal(root, cheap)
+        else:
+            _assert_rule(root, cheap, scene, plain_all)
+            assert not torch.equal(*(rb.flatten_grads(*rb.scene_grads_cuda(
+                cam, scene, x, cheap_shadow=c, **kw)) for c in (True, False)))
+    tgt = trt.render_image_cuda(cam, scene, aliasing=False, compat=compat)
+    init = trt.Scene.from_leaves([t.clone() for t in scene.leaves()])
+    init.spheres.center += 0.05
+    steps = [rb.loss_and_scene_grads_cuda(cam, init, tgt, compat=compat, return_camera=True,
+                                          **c) for c in ({}, dict(cheap_shadow=True))]
+    fused = [rb.flatten_grads(sg, cg, loss) for loss, sg, cg in steps]
+    assert torch.equal(*fused)
+    loss, grads = train.cuda_value_and_grad(cam, tgt, compat=compat, cheap_shadow=False)(init)
+    root = rb.loss_and_scene_grads_cuda(cam, init, tgt, compat=compat, cheap_shadow=False)
+    assert torch.equal(loss, root[0])
+    assert torch.equal(rb.flatten_grads(grads, None, loss), rb.flatten_grads(root[1], None,
+                                                                             root[0]))
+
+
+def test_default_device_is_the_card(cuda_device):
+    """Objects made with no device argument lie on the card, and the entry
+    points launch their kernels on them with no plain call."""
+    from python_ray_tracer_tpu_torch import animation
+    scene, cam = trt.default_scene(), trt.default_camera((32, 32))
+    big = trt.random_scene(40, generator=torch.Generator().manual_seed(1))
+    cams = animation.orbit_cameras((16, 16), center=[1.0, 0.0, 1.0], radius=4.0,
+                                   height=1.5, n_frames=2)
+    for t in scene.leaves() + big.leaves() + [cam.position, cam.rotation, cams.position]:
+        assert t.device.type == "cuda"
+    rb.reset_launch_counts()
+    render_cuda.reset_launch_counts()
+    trt.render_image_cuda(cam, big)
+    animation.render_frames(cams, scene)
+    train.fit_scene(scene, cam, trt.render_image_cuda(cam, scene, aliasing=False), steps=1)
+    torch.cuda.synchronize()
+    assert render_cuda.LAUNCHES["aa_shared"] >= 3 and rb.LAUNCHES["fused_noaa"] == 1
+    assert not any(rb.PLAIN_CALLS.values())

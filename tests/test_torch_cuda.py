@@ -35,17 +35,19 @@ def test_cpu_tensors_match_pallas_interpret(demo_scene, depth, aliasing):
         interpret=True, tile_w=8, tile_h=32, aa_share=False))
     cam, scene = to_torch(cam_j, demo_scene)
     before = dict(render_cuda.LAUNCHES)
-    out = trt.render_image_cuda(cam, scene, depth=depth, aliasing=aliasing,
-                                compat=True)
-    assert render_cuda.LAUNCHES == before      # the CPU path launches nothing
+    with pytest.raises(ValueError, match="render_image_cuda takes CUDA tensors, got cpu"):
+        trt.render_image_cuda(cam, scene, depth=depth, aliasing=aliasing, compat=True)
+    assert render_cuda.LAUNCHES == before      # refused before any launch
+    out = trt.render_image(cam, scene, depth=depth, aliasing=aliasing, compat=True)
     compare_images(out.numpy(), ref)
 
 
 @pytest.mark.parametrize("name", sorted(n for n in GOLDEN_CONFIGS if n.startswith("kernel_")))
 def test_kernel_golden_framebuffers(name):
     (w, h), depth, aa, compat = GOLDEN_CONFIGS[name]
-    img = trt.render_image_cuda(trt.default_camera((w, h)), trt.default_scene(),
-                                depth=depth, aliasing=aa, compat=compat)
+    img = trt.render_image(trt.default_camera((w, h), device="cpu"),
+                           trt.default_scene(device="cpu"), depth=depth, aliasing=aa,
+                           compat=compat)
     compare_frames(trt.to_framebuffer(img).numpy(), load_golden(name), name)
 
 
@@ -73,8 +75,8 @@ def test_scene_tables_match_soa_layout():
     np.testing.assert_array_equal(lts.numpy(), li)
     np.testing.assert_array_equal(pln[:6].numpy(), pl[:6])
     assert sph.is_contiguous() and pln.is_contiguous() and lts.is_contiguous()
-    empty = trt.Scene(trt.Spheres.build([]), trt.Planes.build([]),
-                      trt.Lights.build([]), trt.Materials.build())
+    empty = trt.Scene(trt.Spheres.build([], device="cpu"), trt.Planes.build([], device="cpu"),
+                      trt.Lights.build([], device="cpu"), trt.Materials.build(device="cpu"))
     assert [t.shape for t in render_cuda.scene_tables(empty)] == [(7, 1), (9, 1), (3, 1)]
 
 
@@ -92,8 +94,9 @@ def test_shadow_cheap_ok_matches_jax(demo_scene):
 
 
 def test_wrapper_rejects_other_devices():
-    cam, scene = trt.default_camera((8, 8)).to("meta"), trt.default_scene()
-    with pytest.raises(ValueError, match="CPU or CUDA"):
+    cam = trt.default_camera((8, 8), device="cpu").to("meta")
+    scene = trt.default_scene(device="cpu")
+    with pytest.raises(ValueError, match="takes CUDA tensors, got meta"):
         trt.render_image_cuda(cam, scene)
 
 

@@ -153,17 +153,17 @@ def test_on_restart_hook_sees_event(tmp_path):
 
 def _two_sphere_scene(offset=0.0):
     return trt.Scene(trt.Spheres.build([([2.5 + offset, 0.5, 1.0], 0.8, trt.RED),
-                                        ([1.5, -0.9 + offset, 0.5], 0.5, trt.BLUE)]),
-                     trt.Planes.build([([5, 0, 0], [0, 0, 1], trt.GREY)]),
-                     trt.Lights.build([[2.5, -2.0, 3.0], [2.5, 2.0, 3.0]]),
-                     trt.Materials.build())
+                                        ([1.5, -0.9 + offset, 0.5], 0.5, trt.BLUE)], device="cpu"),
+                     trt.Planes.build([([5, 0, 0], [0, 0, 1], trt.GREY)], device="cpu"),
+                     trt.Lights.build([[2.5, -2.0, 3.0], [2.5, 2.0, 3.0]], device="cpu"),
+                     trt.Materials.build(device="cpu"))
 
 
 def test_checkpoint_roundtrip(tmp_path):
     scene = _two_sphere_scene()
     path = os.path.join(tmp_path, "scene.npz")
     trt.save_pytree(path, scene)
-    loaded = trt.load_pytree(path, trt.Scene.from_soa(*scene.to_soa()))
+    loaded = trt.load_pytree(path, trt.Scene.from_soa(*scene.to_soa(), device="cpu"))
     assert isinstance(loaded, trt.Scene)
     for a, b in zip(loaded.leaves(), scene.leaves()):
         assert torch.equal(a, b)
@@ -193,7 +193,7 @@ def test_checkpoint_legacy_positional_rejected(tmp_path):
 
 def test_checkpoint_resume_training(tmp_path):
     """Save mid-optimization, reload, and continue: the loss keeps falling."""
-    cam = trt.default_camera(RES)
+    cam = trt.default_camera(RES, device="cpu")
     target = trt.render_image(cam, _two_sphere_scene(), depth=1, aliasing=False)
     init = _two_sphere_scene(offset=0.25)
     mid, losses1 = train.fit_scene(init, cam, target, steps=10, lr=2e-2, depth=1,
@@ -278,8 +278,8 @@ def test_fit_checkpoint_crosses_the_packages(tmp_path):
 # --- profiling --------------------------------------------------------------------
 
 def test_capture_trace_on_the_cpu(tmp_path):
-    cam = trt.default_camera(RES)
-    scene = trt.default_scene()
+    cam = trt.default_camera(RES, device="cpu")
+    scene = trt.default_scene(device="cpu")
     with profiling.capture_trace(str(tmp_path)) as prof:
         with profiling.annotate("rt:render"):
             trt.render_image(cam, scene, depth=0, aliasing=False)

@@ -24,6 +24,7 @@ from python_ray_tracer_tpu_torch.models.scene import LEAF_PATHS
 from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
 
 from .test_torch_render import to_torch
+from .torch_plain_launch import plain_launches
 
 torch.set_num_threads(1)
 
@@ -106,12 +107,20 @@ def test_plain_grads_match_jax_autodiff(aliasing, compat, spec):
 
 
 @pytest.mark.parametrize("aliasing", [False, True])
-def test_wrappers_on_cpu_tensors_take_the_plain_version(aliasing):
-    """scene_grads_cuda / loss_and_scene_grads_cuda on CPU tensors: the plain
-    version's numbers, no kernel launch, both return forms."""
+def test_wrappers_on_cpu_tensors_take_the_plain_version(aliasing, monkeypatch):
+    """scene_grads_cuda / loss_and_scene_grads_cuda refuse CPU tensors, with
+    no launch and no plain call; with the launches standing in for the card
+    (tests/torch_plain_launch.py) their glue gives the plain version's
+    numbers in both return forms."""
     cam, scene = to_torch(jrt.default_camera((12, 10)), two_sphere_scene_jax())
     target = torch.from_numpy(noise((12, 10), seed=3))
+    before = dict(rb.LAUNCHES), dict(rb.PLAIN_CALLS)
+    for fn in (rb.loss_and_scene_grads_cuda, rb.scene_grads_cuda):
+        with pytest.raises(ValueError, match="takes CUDA tensors, got cpu"):
+            fn(cam, scene, target, depth=1, aliasing=aliasing)
+    assert (dict(rb.LAUNCHES), dict(rb.PLAIN_CALLS)) == before
     before = dict(rb.LAUNCHES)
+    plain_launches(monkeypatch.setattr)
     loss, scene_g, cam_g = rb.loss_and_scene_grads_cuda(
         cam, scene, target, depth=1, aliasing=aliasing, return_camera=True)
     flat = rb.loss_and_scene_grads_plain(cam, scene, target, depth=1, aliasing=aliasing)
@@ -124,11 +133,13 @@ def test_wrappers_on_cpu_tensors_take_the_plain_version(aliasing):
 
 
 @pytest.mark.parametrize("mode", rb.MODES)
-def test_kernel_and_plain_holds_out_pixels(mode):
+def test_kernel_and_plain_holds_out_pixels(mode, monkeypatch):
     """render_bwd_cuda.kernel_and_plain (the card's parity comparison) takes
-    the held-out pixels out of both sides: on CPU tensors both sides are the
-    plain version, and each equals the gradient of the loss (or the VJP) over
-    the kept pixels alone."""
+    the held-out pixels out of both sides: with the launches standing in for
+    the card (tests/torch_plain_launch.py) both sides are the plain version,
+    and each equals the gradient of the loss (or the VJP) over the kept
+    pixels alone."""
+    plain_launches(monkeypatch.setattr)
     cam, scene = to_torch(jrt.default_camera((20, 16)), two_sphere_scene_jax())
     target = torch.from_numpy(noise((20, 16), seed=5))
     aa = mode.endswith("_aa")
@@ -152,14 +163,18 @@ def test_kernel_and_plain_holds_out_pixels(mode):
 
 
 def test_render_image_fast_on_cpu_is_differentiable():
-    """render_image_fast on CPU tensors is the plain render, differentiated by
-    autograd: its sphere-center gradient equals the plain version's."""
+    """render_image_fast refuses CPU tensors; its plain version, the plain
+    render differentiated by autograd, gives the sphere-center gradient of
+    scene_grads_plain."""
     from python_ray_tracer_tpu_torch.ops.cuda.render_cuda import render_image_fast
+    from python_ray_tracer_tpu_torch.ops.render import render_image
     cam, scene = to_torch(jrt.default_camera((12, 12)), two_sphere_scene_jax())
     g = torch.from_numpy(noise((12, 12), seed=4))
+    with pytest.raises(ValueError, match="render_image_fast takes CUDA tensors, got cpu"):
+        render_image_fast(cam, scene, depth=1, aliasing=True)
     center = scene.spheres.center.clone().requires_grad_(True)
     scene.spheres.center = center
-    (render_image_fast(cam, scene, depth=1, aliasing=True) * g).sum().backward()
+    (render_image(cam, scene, depth=1, aliasing=True) * g).sum().backward()
     flat = rb.scene_grads_plain(cam, scene, g, depth=1, aliasing=True)
     torch.testing.assert_close(center.grad.reshape(-1),
                                flat[:14].reshape(2, 7)[:, :3].reshape(-1))

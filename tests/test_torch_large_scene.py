@@ -30,6 +30,7 @@ from python_ray_tracer_tpu_torch.ops.shade import BIAS, _surface_attributes
 from python_ray_tracer_tpu_torch.utils import timing
 
 from .test_torch_render import to_torch
+from .torch_plain_launch import plain_tables
 
 torch.set_num_threads(1)
 
@@ -202,7 +203,7 @@ def test_hit_extents_plain_matches_pallas_interpret():
     ext_j = bridge.tile_rows_from_jax(ext_j, n_tx, n_ty, swap)
     vis, _ = bridge.tables_from_arrays(vis=(
         bridge.tile_rows_from_jax(np.asarray(idx_j).reshape(-1, ns), n_tx, n_ty, swap),
-        bridge.tile_rows_from_jax(np.asarray(cnt_j), n_tx, n_ty, swap), ns))
+        bridge.tile_rows_from_jax(np.asarray(cnt_j), n_tx, n_ty, swap), ns), device="cpu")
     # the port's own function gives those tables
     idx, cnt = ct.tile_visibility(cam, scene, compat=True, tile=tile)
     assert _rows(idx, cnt) == _rows(vis[0], vis[1])
@@ -218,20 +219,19 @@ def test_hit_extents_plain_matches_pallas_interpret():
 
 
 def test_hit_extents_plain_levels_and_empty_scene():
-    cam = trt.Camera.build((24, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
-    scene = trt.random_scene(30, generator=torch.Generator().manual_seed(2))
+    cam = trt.Camera.build((24, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
+    scene = trt.random_scene(30, generator=torch.Generator().manual_seed(2), device="cpu")
     one = hx.hit_extents_plain(cam, scene, aliasing=True, compat=True, tile=8)
     two = hx.hit_extents_plain(cam, scene, aliasing=True, compat=True, tile=8, n_levels=2)
     assert one.shape == (6, 8) and two.shape == (12, 8)
     torch.testing.assert_close(two[0::2], one, rtol=0, atol=0)     # levels fastest
     assert bool((two[1::2, 6] <= two[0::2, 6]).all())              # alive is cumulative
-    # wrapper on CPU tensors takes the plain version (16x16 tiles)
-    torch.testing.assert_close(
-        hx.hit_extents_cuda(cam, scene, aliasing=True, compat=True),
-        hx.hit_extents_plain(cam, scene, aliasing=True, compat=True), rtol=0, atol=0)
+    # the wrapper refuses CPU tensors (the plain version is hit_extents_plain)
+    with pytest.raises(ValueError, match="hit_extents_cuda takes CUDA tensors, got cpu"):
+        hx.hit_extents_cuda(cam, scene, aliasing=True, compat=True)
     assert hx.LAUNCHES["hit_extents"] == 0
-    empty = trt.Scene(trt.Spheres.build([]), trt.Planes.build([]), trt.Lights.build([]),
-                      trt.Materials.build())
+    empty = trt.Scene(trt.Spheres.build([], device="cpu"), trt.Planes.build([], device="cpu"),
+                      trt.Lights.build([], device="cpu"), trt.Materials.build(device="cpu"))
     e = hx.hit_extents_plain(cam, empty, aliasing=False, compat=True)
     assert e.shape == (2, 8)
     assert e[:, :3].min() == 1e30 and e[:, 3:6].max() == -1e30 and e[:, 6:].abs().max() == 0
@@ -257,7 +257,7 @@ def _tile_hits(cam, scene, aliasing, compat, tile=16):
 def _planted(n=100):
     """n seeded spheres plus one beyond light 0, as seen from the scene
     (tests/test_pallas.py::test_pallas_shadow_lists_exact's occluder)."""
-    base = trt.random_scene(n, generator=torch.Generator().manual_seed(11))
+    base = trt.random_scene(n, generator=torch.Generator().manual_seed(11), device="cpu")
     L0 = base.lights.position[0]
     u = L0 - torch.tensor([0.0, 0.0, 2.0])
     beyond = L0 + 4.0 * u / u.norm()
@@ -269,10 +269,11 @@ def _planted(n=100):
 
 @pytest.mark.parametrize("aliasing", [False, True])
 @pytest.mark.parametrize("compat", [True, False])
-def test_lists_cover_every_used_hit_and_occluder(aliasing, compat):
+def test_lists_cover_every_used_hit_and_occluder(monkeypatch, aliasing, compat):
     scene = _planted()
     ns = scene.spheres.count
-    cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
+    cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0], device="cpu")
+    plain_tables(monkeypatch.setattr)
     vis, shadow, tree, cells = render_cuda.large_scene_tables(
         cam, scene, depth=2, aliasing=aliasing, compat=compat)
     assert tree is None and vis[2] == shadow[2] == 32 and cells is not None
@@ -307,21 +308,23 @@ def test_lists_cover_every_used_hit_and_occluder(aliasing, compat):
     assert any(r == [] for r in sh_rows) and any(r for r in sh_rows)
 
 
-def test_large_scene_tables_thresholds():
+def test_large_scene_tables_thresholds(monkeypatch):
     """Auto: nothing for <= 16 spheres, cull and lists above, groups from 256
     spheres and only with bounces; lists need a light, and the light cells
     the lists and bounces."""
-    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
+    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
     kw = dict(depth=2, aliasing=False, compat=True)
     g = torch.Generator().manual_seed(0)
-    assert render_cuda.large_scene_tables(cam, trt.default_scene(), **kw) == (None,) * 4
-    assert render_cuda.large_scene_tables(cam, trt.random_scene(16, generator=g), **kw,
-                                          shadow_lists=True, group_cull=True) == (None,) * 4
+    plain_tables(monkeypatch.setattr)
+    assert render_cuda.large_scene_tables(cam, trt.default_scene(device="cpu"), **kw) == (None,) * 4
+    assert render_cuda.large_scene_tables(cam, trt.random_scene(16, generator=g, device="cpu"),
+                                          **kw, shadow_lists=True,
+                                          group_cull=True) == (None,) * 4
     vis, shadow, groups, cells = render_cuda.large_scene_tables(
-        cam, trt.random_scene(17, generator=g), **kw)
+        cam, trt.random_scene(17, generator=g, device="cpu"), **kw)
     assert vis is not None and shadow is not None and groups is None and cells is not None
     assert vis[2] == 17 and vis[0].shape == (4 * 17,) and shadow[0].shape == (4 * 3 * 17,)
-    big = trt.random_scene(256, generator=g)
+    big = trt.random_scene(256, generator=g, device="cpu")
     vis, shadow, tree, cells = render_cuda.large_scene_tables(cam, big, **kw)
     assert tree is not None and tree.n_leaves == 256 // ct.LEAF and vis[2] == 32
     assert cells is not None
@@ -329,7 +332,7 @@ def test_large_scene_tables_thresholds():
                                           compat=True)[2:] == (None, None)
     assert render_cuda.large_scene_tables(cam, big, **kw, cull=False, shadow_lists=False,
                                           group_cull=False) == (None,) * 4
-    dark = trt.Scene(big.spheres, big.planes, trt.Lights.build([]), big.materials)
+    dark = trt.Scene(big.spheres, big.planes, trt.Lights.build([], device="cpu"), big.materials)
     assert render_cuda.large_scene_tables(cam, dark, **kw)[1::2] == (None, None)
     assert render_cuda.CULL_MIN_SPHERES == jp._UNROLL_LIMIT
     assert render_cuda.GROUP_MIN_SPHERES == jp._GROUP_MIN_NS
@@ -369,8 +372,8 @@ def test_smem_check_counts_the_tree_only_where_it_is_built(npl, nl):
     assert ns_tree == {(1, 3): 5600, (0, 0): 5643, (1, 20): 5369, (4, 1): 5625}[(npl, nl)]
     if (npl, nl) == (1, 3):
         assert ns_old == 6576
-        cam = trt.Camera.build((16, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
-        scene = trt.random_scene(ns_old, generator=torch.Generator().manual_seed(0))
+        cam = trt.Camera.build((16, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
+        scene = trt.random_scene(ns_old, generator=torch.Generator().manual_seed(0), device="cpu")
         dev = torch.device("cpu")
         render_cuda._check_inputs(cam, scene, dev)
         for depth, group_cull, form in ((0, None, 0), (2, False, 0), (2, None, 1)):
@@ -381,16 +384,30 @@ def test_smem_check_counts_the_tree_only_where_it_is_built(npl, nl):
 @pytest.mark.parametrize("kw", [dict(), dict(cull=False, shadow_lists=False,
                                              group_cull=False),
                                 dict(shadow_lists=True, group_cull=True)])
-def test_wrapper_on_cpu_tensors_is_the_plain_render(kw):
-    scene = trt.random_scene(24, generator=torch.Generator().manual_seed(3))
-    cam = trt.Camera.build((20, 12), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
-    before = (dict(render_cuda.LAUNCHES), dict(hx.LAUNCHES))
-    out = trt.render_image_cuda(cam, scene, depth=1, aliasing=True, **kw)
-    assert (dict(render_cuda.LAUNCHES), dict(hx.LAUNCHES)) == before
-    torch.testing.assert_close(out, trt.render_image(cam, scene, depth=1, aliasing=True),
-                               rtol=0, atol=0)
-    fast = render_cuda.render_image_fast(cam, scene, depth=1, aliasing=True, **kw)
-    torch.testing.assert_close(fast, out, rtol=0, atol=0)
+def test_wrapper_on_cpu_tensors_is_the_plain_render(monkeypatch, kw):
+    """Both render wrappers refuse CPU tensors whatever the cull keywords,
+    before any table or launch; large_scene_tables builds the same keywords'
+    tables from CPU tensors with its table launches standing in by their
+    plain versions (tests/torch_plain_launch.py), launching nothing."""
+    from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
+    from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
+    scene = trt.random_scene(24, generator=torch.Generator().manual_seed(3), device="cpu")
+    cam = trt.Camera.build((20, 12), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
+    before = (dict(render_cuda.LAUNCHES), dict(hx.LAUNCHES), dict(sl.LAUNCHES),
+              dict(lc.LAUNCHES))
+    for fn in (trt.render_image_cuda, render_cuda.render_image_fast):
+        with pytest.raises(ValueError, match="takes CUDA tensors, got cpu"):
+            fn(cam, scene, depth=1, aliasing=True, **kw)
+    plain_tables(monkeypatch.setattr)
+    vis, shadow, tree, cells = render_cuda.large_scene_tables(cam, scene, depth=1,
+                                                              aliasing=True, compat=True,
+                                                              **kw)
+    assert (dict(render_cuda.LAUNCHES), dict(hx.LAUNCHES), dict(sl.LAUNCHES),
+            dict(lc.LAUNCHES)) == before
+    assert (vis is None) == (kw.get("cull") is False)
+    assert (shadow is None) == (kw.get("shadow_lists") is False)
+    assert (tree is None) == (not kw.get("group_cull"))
+    assert all(t.device.type == "cpu" for t in (vis or shadow or (torch.zeros(0),))[:2])
 
 
 def test_cull_keywords_match_the_jax_wrapper():
@@ -407,7 +424,7 @@ def test_bridge_tables_and_tile_rows():
     want = np.array([rows[ty * 3 + tx] for tx in range(3) for ty in range(2)])
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(bridge.tile_rows_from_jax(rows, 3, 2, False), rows)
-    vis, shadow = bridge.tables_from_arrays(vis=(rows, np.full(6, 2), 2))
+    vis, shadow = bridge.tables_from_arrays(vis=(rows, np.full(6, 2), 2), device="cpu")
     assert shadow is None and vis[2] == 2
     assert vis[0].dtype == vis[1].dtype == torch.int32 and vis[0].shape == (12,)
     tree = ct.bounce_tree(torch.rand(32, 3), torch.full((32,), 0.1))
@@ -418,12 +435,13 @@ def test_bridge_tables_and_tile_rows():
         hx.check_tables(None, None, tree, n_tiles=6, ns=40, nl=0, dev=torch.device("cpu"))
 
 
-def test_large_scene_bound_counts_listed_work():
+def test_large_scene_bound_counts_listed_work(monkeypatch):
     """utils/timing.py's large-scene bound: a tile's samples times its listed
     spheres, not ns; less work than the unculled bound, and bytes that count
     the tables in and 32 bytes a tile out."""
     scene = _planted()
-    cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
+    cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0], device="cpu")
+    plain_tables(monkeypatch.setattr)
     vis, shadow, _, _ = render_cuda.large_scene_tables(cam, scene, depth=2,
                                                        aliasing=False, compat=True)
     ext = hx.hit_extents_plain(cam, scene, aliasing=False, compat=True, vis=vis)

@@ -33,12 +33,13 @@ from python_ray_tracer_tpu_torch.ops.cuda import light_cells_cuda as lc
 from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
 from python_ray_tracer_tpu_torch.ops.shade import BIAS, _surface_attributes, reflect
 from python_ray_tracer_tpu_torch.utils.config import RenderConfig
+from .torch_plain_launch import plain_tables
 
 torch.set_num_threads(1)
 
 
 def _scene(n, seed=0):
-    return trt.random_scene(n, generator=torch.Generator().manual_seed(seed))
+    return trt.random_scene(n, generator=torch.Generator().manual_seed(seed), device="cpu")
 
 
 def _planted(n=40, seed=3):
@@ -64,7 +65,7 @@ def _frame(n):
     spheres)."""
     cfg = RenderConfig()
     scene = _scene(n)
-    cam = trt.Camera.build((96, 54), cfg.camera_position, cfg.camera_euler, cfg.fov)
+    cam = trt.Camera.build((96, 54), cfg.camera_position, cfg.camera_euler, cfg.fov, device="cpu")
     c, r, L = scene.spheres.center, scene.spheres.radius, scene.lights.position
     xs, ys = torch.meshgrid(torch.arange(96.0), torch.arange(54.0), indexing="ij")
     d = cam.ray_directions(torch.stack([xs, ys], -1).reshape(-1, 2), compat=True)
@@ -380,14 +381,15 @@ def test_margin_at_zero_misses_far_origin_occluders(cheap):
     assert int((full & ~occ0).sum()) > 500
 
 
-def test_large_scene_tables_build_the_cells_with_the_shadow_lists():
+def test_large_scene_tables_build_the_cells_with_the_shadow_lists(monkeypatch):
     """large_scene_tables: the light cells where the shadow lists are on and
     the frame has bounces (100 spheres as well as 1000), none at depth 0,
     without lights, with shadow_lists=False or light_cells=False; on CPU
     tensors they are the plain build's."""
-    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
+    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
     kw = dict(aliasing=False, compat=True)
     scene = _scene(100)
+    plain_tables(monkeypatch.setattr)
     cells = render_cuda.large_scene_tables(cam, scene, depth=2, **kw)[3]
     want = lc.light_cells_plain(scene.spheres.center, scene.spheres.radius,
                                 scene.lights.position)
@@ -398,7 +400,8 @@ def test_large_scene_tables_build_the_cells_with_the_shadow_lists():
                                           **kw)[3] is None
     assert render_cuda.large_scene_tables(cam, scene, depth=2, light_cells=False,
                                           **kw)[3] is None
-    dark = trt.Scene(scene.spheres, scene.planes, trt.Lights.build([]), scene.materials)
+    dark = trt.Scene(scene.spheres, scene.planes, trt.Lights.build([], device="cpu"),
+                     scene.materials)
     assert render_cuda.large_scene_tables(cam, dark, depth=2, **kw)[3] is None
     assert render_cuda.large_scene_tables(cam, _scene(16), depth=2, **kw)[3] is None
     with pytest.raises(ValueError, match="light cells indices"):

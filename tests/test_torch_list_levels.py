@@ -30,6 +30,7 @@ from python_ray_tracer_tpu_torch.ops.intersect import BIG, _all_t
 from python_ray_tracer_tpu_torch.ops.shade import BIAS, _surface_attributes, reflect
 
 from .test_torch_render import to_torch
+from .torch_plain_launch import plain_tables
 
 torch.set_num_threads(1)
 
@@ -68,7 +69,7 @@ def test_two_level_rows_and_lists_match_jax():
     ext_j = bridge.tile_rows_from_jax(ext_j, n_tx, n_ty, swap, levels=2)
     vis, _ = bridge.tables_from_arrays(vis=(
         bridge.tile_rows_from_jax(np.asarray(idx_j).reshape(-1, ns), n_tx, n_ty, swap),
-        bridge.tile_rows_from_jax(np.asarray(cnt_j), n_tx, n_ty, swap), ns))
+        bridge.tile_rows_from_jax(np.asarray(cnt_j), n_tx, n_ty, swap), ns), device="cpu")
     ext = hx.hit_extents_plain(cam, scene, aliasing=False, compat=True, tile=tile, vis=vis,
                                n_levels=2).numpy()
     assert ext.shape == ext_j.shape == (4, 8)
@@ -94,14 +95,15 @@ def test_two_level_rows_and_lists_match_jax():
 
 
 @pytest.mark.parametrize("depth", [0, 1, 2, 4])
-def test_level_count_clamp(depth):
+def test_level_count_clamp(monkeypatch, depth):
     """render_pallas._render_image_pallas's rule: None is level 0 alone, else
     max(1, min(depth + 1, L)); the tables carry it."""
     assert render_cuda.list_levels(depth) == 1
     for L in (-3, 0, 1, 2, 3, 5, 9):
         assert render_cuda.list_levels(depth, L) == max(1, min(depth + 1, L))
-    cam = trt.Camera.build((32, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
-    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(2))
+    cam = trt.Camera.build((32, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
+    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(2), device="cpu")
+    plain_tables(monkeypatch.setattr)
     vis, shadow, tree, cells = render_cuda.large_scene_tables(
         cam, scene, depth=depth, aliasing=False, compat=True, shadow_list_levels=9)
     levels = min(depth + 1, 9)
@@ -119,14 +121,15 @@ def test_level_count_clamp(depth):
 
 @pytest.mark.parametrize("levels", [2, 3])
 @pytest.mark.parametrize("aliasing", [False, True])
-def test_row_layout(levels, aliasing):
+def test_row_layout(monkeypatch, levels, aliasing):
     """The tables' shadow rows are (tile * L + level) * nl + light: the list
     function on the plain hit-extent rows of L levels (levels fastest), whose
     scale is taken over every level's rows; and the rows of level 0 keep at
     least the one-level tables' spheres."""
-    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
-    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(5))
+    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
+    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(5), device="cpu")
     kw = dict(depth=2, aliasing=aliasing, compat=True)
+    plain_tables(monkeypatch.setattr)
     vis, shadow, _, cells = render_cuda.large_scene_tables(cam, scene, **kw,
                                                            shadow_list_levels=levels)
     assert (cells is not None) == (levels <= 2)
@@ -171,12 +174,13 @@ def _chain_points(cam, scene, levels, compat, tile=16):
 
 @pytest.mark.parametrize("levels", [2, 3])
 @pytest.mark.parametrize("compat", [True, False])
-def test_every_listed_level_covers_its_occluders(levels, compat):
+def test_every_listed_level_covers_its_occluders(monkeypatch, levels, compat):
     """At every listed level, every sphere that blocks a shadow ray of the
     plain bounce chain (sphere_occludes_plain, both forms of the test, beyond
     the light too) is in its (tile, level, light) row, or the row is -1."""
-    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(7))
-    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
+    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(7), device="cpu")
+    cam = trt.Camera.build((32, 32), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0], device="cpu")
+    plain_tables(monkeypatch.setattr)
     _, shadow, _, _ = render_cuda.large_scene_tables(cam, scene, depth=2, aliasing=False,
                                                      compat=compat, shadow_list_levels=levels)
     rows = _rows(shadow[0], shadow[1])
@@ -233,14 +237,18 @@ def test_listed_levels_move_the_staged_bands(tree):
 
 
 def test_cpu_path_takes_the_plain_render():
-    """On CPU tensors render_image_cuda is the plain render whatever the new
-    keywords say."""
-    cam = trt.Camera.build((24, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0])
-    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(3))
-    ref = trt.render_image(cam, scene, depth=2, aliasing=True)
+    """On CPU tensors render_image_cuda raises whatever the new keywords say,
+    before any table or launch; the plain render is render_image, by name."""
+    cam = trt.Camera.build((24, 16), [-7.0, 0.0, 3.0], [0.0, -20.0, 0.0], device="cpu")
+    scene = trt.random_scene(20, generator=torch.Generator().manual_seed(3), device="cpu")
+    before = (dict(render_cuda.LAUNCHES), dict(hx.LAUNCHES))
     for kw in (dict(shadow_list_levels=3), dict(shadow_cull=True),
                dict(cheap_shadow=False), dict(shadow_list_levels=2, shadow_cull=True)):
-        assert torch.equal(trt.render_image_cuda(cam, scene, depth=2, **kw), ref)
+        with pytest.raises(ValueError, match="render_image_cuda takes CUDA tensors, got cpu"):
+            trt.render_image_cuda(cam, scene, depth=2, **kw)
+    assert (dict(render_cuda.LAUNCHES), dict(hx.LAUNCHES)) == before
+    ref = trt.render_image(cam, scene, depth=2, aliasing=True)
+    assert ref.shape == (24, 16, 3) and bool(torch.isfinite(ref).all())
 
 
 @pytest.mark.parametrize("levels", [1, 2, 3])
@@ -251,7 +259,7 @@ def test_backward_plans_count_the_levels(ns, levels):
     (k + 1) list words and fits a block, in every mode."""
     nl, npl = 3, 1
     k = ct.list_capacity(ns)
-    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(0))
+    scene = trt.random_scene(ns, generator=torch.Generator().manual_seed(0), device="cpu")
     tree = ct.bounce_tree(scene.spheres.center, scene.spheres.radius)
     shadow = (torch.zeros(8 * levels * nl * k, dtype=torch.int32),
               torch.zeros(8 * levels * nl, dtype=torch.int32), k, levels)

@@ -29,7 +29,7 @@ def _scenes():
 def _pair(name):
     sj = _scenes()[name]
     return sj, bridge.scene_from_leaves(
-        [np.asarray(x) for x in jax.tree_util.tree_leaves(sj)])
+        [np.asarray(x) for x in jax.tree_util.tree_leaves(sj)], device="cpu")
 
 
 def _rays(n=4000, seed=0):
@@ -108,8 +108,9 @@ def test_far_clip_and_tie_break():
     spheres resolve to the lower index, as the reference's strict `<` does."""
     st = trt.Scene(trt.Spheres.build([([2000.0, 0, 0], 1.0, (255, 0, 0)),
                                       ([5.0, 0, 0], 1.0, (0, 255, 0)),
-                                      ([5.0, 0, 0], 1.0, (0, 0, 255))]),
-                   trt.Planes.build([]), trt.Lights.build([]), trt.Materials.build())
+                                      ([5.0, 0, 0], 1.0, (0, 0, 255))], device="cpu"),
+                   trt.Planes.build([], device="cpu"), trt.Lights.build([], device="cpu"),
+                   trt.Materials.build(device="cpu"))
     o = torch.zeros((2, 3))
     d = torch.tensor([[1.0, 0, 0], [0, 0, 1.0]])
     far = trt.Scene(trt.Spheres(st.spheres.center[:1], st.spheres.radius[:1],
@@ -128,7 +129,7 @@ def test_trace_once_matches_jax(scene_name, compat):
         mats = jrt.Materials.build(0.1, 0.6, 0.3, specular=0.5, shininess=16.0)
         sj = jrt.Scene(sj.spheres, sj.planes, sj.lights, mats)
         st = trt.Scene(st.spheres, st.planes, st.lights,
-                       trt.Materials.build(0.1, 0.6, 0.3, 0.5, 16.0))
+                       trt.Materials.build(0.1, 0.6, 0.3, 0.5, 16.0, device="cpu"))
     o, d = _rays(seed=4)
     rj = jrt.trace_once(jnp.asarray(o), jnp.asarray(d), sj, compat=compat)
     rt = trt.trace_once(torch.from_numpy(o), torch.from_numpy(d), st, compat=compat)

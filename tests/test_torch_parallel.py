@@ -2,8 +2,9 @@
 sharded steps of train.py) on the CPU, against the JAX package's
 (tests/test_parallel.py:20-150 and :213-233).
 
-Plain slices (the wrappers' CPU path) stitch to the whole plain frame bit for
-bit. The port's sharded render, loss and gradients on a 2- or 4-rank mesh
+Plain slices (the plain renderer's, and the wrappers' slice glue with the
+launches standing in for the card, tests/torch_plain_launch.py) stitch to the
+whole plain frame bit for bit. The port's sharded render, loss and gradients on a 2- or 4-rank mesh
 match the JAX package's ``render_image_sharded(backend="jnp")`` and
 ``make_loss_fn`` (soft too) on the same mesh of virtual CPU devices, at the
 JAX tests' tolerances (tests/test_torch_parallel_pallas.py holds the slices'
@@ -28,6 +29,8 @@ from python_ray_tracer_tpu_torch.parallel import (distributed, gather_framebuffe
                                                   render_image_sharded)
 from python_ray_tracer_tpu_torch.parallel.mesh import column_slice
 
+from .torch_plain_launch import plain_launches
+
 torch.set_num_threads(1)
 
 RES = (32, 16)
@@ -47,7 +50,8 @@ def _shifted(scene, d=SHIFT):
 
 def _to_torch(scene_j):
     import jax
-    return bridge.scene_from_leaves([np.asarray(x) for x in jax.tree_util.tree_leaves(scene_j)])
+    return bridge.scene_from_leaves([np.asarray(x) for x in jax.tree_util.tree_leaves(scene_j)],
+                                    device="cpu")
 
 
 def test_column_slice_and_mesh():
@@ -62,8 +66,9 @@ def test_column_slice_and_mesh():
 
 @pytest.mark.parametrize("aliasing,compat", [(True, True), (False, True), (True, False),
                                              (False, False)])
-def test_plain_slices_stitch_to_the_whole_frame(aliasing, compat):
-    cam, scene = trt.default_camera(RES), trt.default_scene()
+def test_plain_slices_stitch_to_the_whole_frame(aliasing, compat, monkeypatch):
+    plain_launches(monkeypatch.setattr)
+    cam, scene = trt.default_camera(RES, device="cpu"), trt.default_scene(device="cpu")
     whole = trt.render_image(cam, scene, depth=2, aliasing=aliasing, compat=compat)
     for n in (2, 4, 8):
         for backend in ("cuda", "torch"):
@@ -73,7 +78,7 @@ def test_plain_slices_stitch_to_the_whole_frame(aliasing, compat):
 
 
 def test_plain_soft_slices_stitch_to_the_whole_frame():
-    cam, scene = trt.default_camera(RES), trt.default_scene()
+    cam, scene = trt.default_camera(RES, device="cpu"), trt.default_scene(device="cpu")
     whole = trt.render_image_soft(cam, scene, tau=0.05)
     for n in (2, 4, 8):
         x = [column_slice(RES[0], i, n) for i in range(n)]
@@ -83,7 +88,7 @@ def test_plain_soft_slices_stitch_to_the_whole_frame():
 
 
 def test_slice_arguments_are_checked():
-    cam, scene = trt.default_camera(RES), trt.default_scene()
+    cam, scene = trt.default_camera(RES, device="cpu"), trt.default_scene(device="cpu")
     for x0, lw in ((-1, 4), (30, 4), (0, 0), (1.5, 4)):
         with pytest.raises(ValueError, match="slice"):
             trt.render_image_cuda(cam, scene, x_offset=x0, local_width=lw)
@@ -98,11 +103,12 @@ def test_sharded_render_matches_jax(n_dev):
     jm = jmesh(jax.devices()[:n_dev])
     cam_j, scene_j = jrt.default_camera(RES), jrt.default_scene()
     ref = np.asarray(jrs(cam_j, scene_j, jm, depth=1, aliasing=True, backend="jnp"))
-    cam, scene = trt.default_camera(RES), _to_torch(scene_j)
+    cam, scene = trt.default_camera(RES, device="cpu"), _to_torch(scene_j)
     for i in range(n_dev):
         m = make_mesh(size=n_dev, rank=i)
         x0, lw = m.slice(RES[0])
-        out = render_image_sharded(cam, scene, m, depth=1, aliasing=True).numpy()
+        out = render_image_sharded(cam, scene, m, depth=1, aliasing=True,
+                                   backend="torch").numpy()
         np.testing.assert_allclose(out, ref[x0:x0 + lw], atol=1e-4)
 
 
@@ -139,7 +145,7 @@ def test_sharded_loss_and_grads_match_jax():
         scene_j.spheres, center=scene_j.spheres.center + 0.05))
     l1, g1 = _jax_value_and_grad(jloss(cam_j, jax.device_put(target_j, image_sharding(jm)),
                                        jm, depth=1, aliasing=False), pert_j)
-    cam, target = trt.default_camera(RES), torch.from_numpy(np.array(target_j))
+    cam, target = trt.default_camera(RES, device="cpu"), torch.from_numpy(np.array(target_j))
     l2, g2 = _port_sharded(2, lambda m: make_loss_fn(cam, target, m, depth=1,
                                                      aliasing=False), _to_torch(pert_j))
     assert l2 == pytest.approx(l1, rel=1e-5)
@@ -162,7 +168,7 @@ def test_sharded_soft_loss_matches_jax():
         scene_j.spheres, center=scene_j.spheres.center + 0.03))
     l1, g1 = _jax_value_and_grad(jloss(cam_j, jax.device_put(target_j, image_sharding(jm)),
                                        jm, soft=True, tau=0.05), pert_j)
-    cam, target = trt.default_camera(res), torch.from_numpy(np.array(target_j))
+    cam, target = trt.default_camera(res, device="cpu"), torch.from_numpy(np.array(target_j))
     l2, g2 = _port_sharded(2, lambda m: make_loss_fn(cam, target, m, soft=True, tau=0.05),
                            _to_torch(pert_j))
     assert l2 == pytest.approx(l1, rel=1e-5)
@@ -173,10 +179,12 @@ def test_sharded_soft_loss_matches_jax():
 
 
 @pytest.mark.parametrize("mode", ["fused_noaa", "fused_aa", "cot_noaa", "cot_aa"])
-def test_slice_partials_sum_to_the_frame(mode):
-    """The hard wrappers' slice form on the CPU (the plain versions): the
-    partials of 4 slices sum to the whole frame's, the loss within rel 1e-6."""
-    cam, scene = trt.default_camera(RES), _shifted(trt.default_scene())
+def test_slice_partials_sum_to_the_frame(mode, monkeypatch):
+    """The hard wrappers' slice form on the CPU (their glue, each launch the
+    plain version: tests/torch_plain_launch.py): the partials of 4 slices sum
+    to the whole frame's, the loss within rel 1e-6."""
+    plain_launches(monkeypatch.setattr)
+    cam, scene = trt.default_camera(RES, device="cpu"), _shifted(trt.default_scene(device="cpu"))
     aa = mode.endswith("_aa")
     x = torch.from_numpy(np.random.default_rng(0).uniform(0.0, 1.0, RES + (3,))
                          .astype(np.float32))
@@ -201,9 +209,11 @@ def test_slice_partials_sum_to_the_frame(mode):
         assert float(parts[-1]) == pytest.approx(float(whole[-1]), rel=1e-6)
 
 
-def test_soft_slice_partials_sum_to_the_frame():
-    cam, scene = trt.default_camera((16, 16)), _shifted(trt.default_scene(), (0.03,) * 3)
-    target = trt.render_image_soft(cam, trt.default_scene(), tau=0.05)
+def test_soft_slice_partials_sum_to_the_frame(monkeypatch):
+    plain_launches(monkeypatch.setattr)
+    cam = trt.default_camera((16, 16), device="cpu")
+    scene = _shifted(trt.default_scene(device="cpu"), (0.03,) * 3)
+    target = trt.render_image_soft(cam, trt.default_scene(device="cpu"), tau=0.05)
     lo, g = sb.soft_loss_and_grads_cuda(cam, scene, target, tau=0.05)
     whole = rb.flatten_grads(g, None, lo)
     parts = 0
@@ -248,9 +258,10 @@ FIT_STEPS = 3
 
 def _fits(mesh=None):
     """The fits the 2-process run shards: fit_scene on both backends
-    (``"cuda"``: the wrappers' CPU path, the plain fused step's slices;
+    (``"cuda"``: the wrappers' glue with the launches standing in for the
+    card, the plain fused step's slices;
     ``"torch"``: autograd of make_loss_fn) and fit_scene_soft, one step a tau."""
-    cam, scene = trt.default_camera(RES), trt.default_scene()
+    cam, scene = trt.default_camera(RES, device="cpu"), trt.default_scene(device="cpu")
     target = trt.render_image(cam, scene, depth=1, aliasing=False)
     kw = dict(steps=FIT_STEPS, lr=1e-2, depth=1, trainable=("spheres.center",), mesh=mesh)
     return [train.fit_scene(_shifted(scene), cam, target, backend=b, **kw)[1]
@@ -262,10 +273,11 @@ def gloo_worker(rank, port, out):
     """One rank of the 2-process gloo run: the frame from the ranks' slices,
     then the sharded fits, with the collectives counted."""
     torch.set_num_threads(1)
+    plain_launches(setattr)   # this process ends with the run
     try:
         initialize(f"tcp://127.0.0.1:{port}", world_size=2, rank=rank, backend="gloo")
         mesh = make_mesh()
-        cam, scene = trt.default_camera(RES), trt.default_scene()
+        cam, scene = trt.default_camera(RES, device="cpu"), trt.default_scene(device="cpu")
         frame = gather_framebuffer(render_image_sharded(cam, scene, mesh, depth=1), mesh)
         distributed.reset_counts()
         losses = _fits(mesh)
@@ -279,11 +291,14 @@ def gloo_worker(rank, port, out):
             torch.distributed.destroy_process_group()
 
 
-def test_two_processes_over_gloo():
+def test_two_processes_over_gloo(monkeypatch):
     """Two OS processes (gloo over loopback): the gathered frame is
     torch.equal to the whole frame on both ranks, and the sharded fits'
     losses (fit_scene on both backends, fit_scene_soft) match the
-    single-process fits', one all-reduce a step."""
+    single-process fits', one all-reduce a step (the "cuda" backend's glue
+    with the launches standing in for the card, tests/torch_plain_launch.py,
+    here and in the workers)."""
+    plain_launches(monkeypatch.setattr)
     ctx = torch.multiprocessing.get_context("spawn")
     out = ctx.Queue()
     port = _free_port()
@@ -299,7 +314,7 @@ def test_two_processes_over_gloo():
             if p.is_alive():
                 p.kill()
                 p.join()
-    cam, scene = trt.default_camera(RES), trt.default_scene()
+    cam, scene = trt.default_camera(RES, device="cpu"), trt.default_scene(device="cpu")
     whole = trt.render_image(cam, scene, depth=1)
     single = _fits()
     for rank, frame, losses, counts, size in got:

@@ -25,9 +25,9 @@ torch.set_num_threads(1)
 
 def to_torch(cam_j, scene_j):
     cam = bridge.camera_from_arrays(cam_j.position, cam_j.rotation, cam_j.fov,
-                                    cam_j.resolution)
+                                    cam_j.resolution, device="cpu")
     return cam, bridge.scene_from_leaves(
-        [np.asarray(x) for x in jax.tree_util.tree_leaves(scene_j)])
+        [np.asarray(x) for x in jax.tree_util.tree_leaves(scene_j)], device="cpu")
 
 
 def compare_images(out, ref, atol=1e-4):
@@ -56,7 +56,8 @@ def test_render_matches_jax(demo_scene, size, depth, aliasing, compat):
 @pytest.mark.parametrize("name", sorted(n for n in GOLDEN_CONFIGS if n.startswith("demo_")))
 def test_demo_golden_framebuffers(name):
     (w, h), depth, aa, compat = GOLDEN_CONFIGS[name]
-    img = trt.render_image(trt.default_camera((w, h)), trt.default_scene(),
+    img = trt.render_image(trt.default_camera((w, h), device="cpu"),
+                           trt.default_scene(device="cpu"),
                            depth=depth, aliasing=aa, compat=compat)
     fb = trt.to_framebuffer(img)
     assert fb.dtype == torch.uint8 and fb.shape == (3, w, h)
@@ -72,7 +73,7 @@ def test_nonsquare_frame_matches_jax(demo_scene):
 
 
 def test_row_chunk_equals_full_frame():
-    cam, scene = trt.default_camera((40, 24)), trt.default_scene()
+    cam, scene = trt.default_camera((40, 24), device="cpu"), trt.default_scene(device="cpu")
     full = trt.render_image(cam, scene, depth=1, aliasing=True)
     chunked = trt.render_image(cam, scene, depth=1, aliasing=True, row_chunk=16)
     torch.testing.assert_close(chunked, full, rtol=0, atol=0)

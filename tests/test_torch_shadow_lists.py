@@ -23,6 +23,7 @@ from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
 from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
 from python_ray_tracer_tpu_torch.ops.cuda import shadow_lists_cuda as sl
 from python_ray_tracer_tpu_torch.utils import timing
+from .torch_plain_launch import plain_tables
 
 torch.set_num_threads(1)
 f32 = np.float32
@@ -68,15 +69,19 @@ def _rows(idx, cnt):
 @pytest.mark.parametrize("cap", [True, False])
 @pytest.mark.parametrize("compat", [True, False])
 def test_entry_point_rows_match_jax(n, cap, compat):
-    """shadow_lists_cuda on CPU tensors, with the scale hit_extents_cuda would
-    write (cull_tables.extent_scale), against the JAX function on the same
-    rows; K at the scene's list capacity, or 4 so that rows overflow."""
+    """The list kernel's plain function (cull_tables.shadow_visibility_lists)
+    with the scale hit_extents_cuda would write (cull_tables.extent_scale),
+    against the JAX function on the same rows; K at the scene's list
+    capacity, or 4 so that rows overflow. The wrapper refuses the CPU
+    tensors, launching nothing."""
     ext, lights, centers, radii = _seeded(n, seed=n + 7)
     K = ct.list_capacity(n) if cap else 4
     e, L, C, R = _torch(ext, lights, centers, radii)
     scale = ct.extent_scale(e).reshape(1)
     sl.reset_launch_counts()
-    idx, cnt = sl.shadow_lists_cuda(e, scale, L, C, R, K=K, compat=compat)
+    with pytest.raises(ValueError, match="shadow_lists_cuda takes CUDA tensors, got cpu"):
+        sl.shadow_lists_cuda(e, scale, L, C, R, K=K, compat=compat)
+    idx, cnt = ct.shadow_visibility_lists(e, L, C, R, K=K, compat=compat, scale=scale)
     assert sl.LAUNCHES["shadow_lists"] == 0
     k = min(K, n)
     assert idx.dtype == cnt.dtype == torch.int32
@@ -108,10 +113,11 @@ def test_entry_point_takes_the_scale_it_is_given():
     ext, lights, centers, radii = _seeded(100, seed=3)
     e, L, C, R = _torch(ext, lights, centers, radii)
     base = ct.shadow_visibility_lists(e, L, C, R, K=100, compat=True)
-    given = sl.shadow_lists_cuda(e, ct.extent_scale(e).reshape(1), L, C, R, K=100,
-                                 compat=True)
+    given = ct.shadow_visibility_lists(e, L, C, R, K=100, compat=True,
+                                       scale=ct.extent_scale(e).reshape(1))
     assert all(torch.equal(a, b) for a, b in zip(base, given))
-    wide = sl.shadow_lists_cuda(e, torch.tensor([1e5]), L, C, R, K=100, compat=True)
+    wide = ct.shadow_visibility_lists(e, L, C, R, K=100, compat=True,
+                                      scale=torch.tensor([1e5]))
     assert bool((wide[1] >= base[1]).all())
     for a, b in zip(_rows(*base), _rows(*wide)):
         assert set(a) <= set(b)
@@ -133,28 +139,41 @@ def test_extent_scale_ignores_rows_without_hits():
     assert float(ct.extent_scale(torch.zeros((0, 8)))) == 0.0
 
 
-def test_hit_extents_wrapper_writes_the_plain_scale():
-    """hit_extents_cuda on CPU tensors writes extent_scale of its rows into
-    the scale buffer it is given, and checks the buffer."""
-    cam = trt.Camera.build((40, 24), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
-    scene = trt.random_scene(30, generator=torch.Generator().manual_seed(4))
+def test_hit_extents_wrapper_writes_the_plain_scale(monkeypatch):
+    """hit_extents_cuda refuses CPU tensors and leaves the scale buffer it is
+    given as it was; large_scene_tables, its table launches standing in by
+    their plain versions (tests/torch_plain_launch.py), writes extent_scale of
+    the plain rows (the plain hit_extents_plain's) into its lists' slack; the
+    buffer check refuses other shapes and types."""
+    cam = trt.Camera.build((40, 24), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0], device="cpu")
+    scene = trt.random_scene(30, generator=torch.Generator().manual_seed(4), device="cpu")
     scale = torch.full((1,), float("nan"))
-    ext = hx.hit_extents_cuda(cam, scene, aliasing=True, compat=True, scale=scale)
-    assert torch.equal(ext, hx.hit_extents_plain(cam, scene, aliasing=True, compat=True))
-    assert torch.equal(scale, ct.extent_scale(ext).reshape(1))
-    assert int((ext[:, 6] == 0).sum()) > 0 and float(scale) < 1e29
+    with pytest.raises(ValueError, match="hit_extents_cuda takes CUDA tensors, got cpu"):
+        hx.hit_extents_cuda(cam, scene, aliasing=True, compat=True, scale=scale)
+    assert bool(torch.isnan(scale).all()) and hx.LAUNCHES["hit_extents"] == 0
+    ext = hx.hit_extents_plain(cam, scene, aliasing=True, compat=True)
+    assert int((ext[:, 6] == 0).sum()) > 0 and float(ct.extent_scale(ext)) < 1e29
+    plain_tables(monkeypatch.setattr)
+    _, shadow, _, _ = render_cuda.large_scene_tables(cam, scene, depth=0, aliasing=True,
+                                                     compat=True)
+    want = ct.shadow_visibility_lists(ext, scene.lights.position, scene.spheres.center,
+                                      scene.spheres.radius, K=shadow[2], compat=True,
+                                      scale=ct.extent_scale(ext).reshape(1))
+    assert torch.equal(shadow[0], want[0]) and torch.equal(shadow[1], want[1])
     with pytest.raises(ValueError, match="scale"):
-        hx.hit_extents_cuda(cam, scene, aliasing=True, scale=torch.zeros(2))
+        hx.check_scale(torch.zeros(2), torch.device("cpu"))
     with pytest.raises(ValueError, match="scale"):
-        hx.hit_extents_cuda(cam, scene, aliasing=True, scale=torch.zeros(1, dtype=torch.float64))
+        hx.check_scale(torch.zeros(1, dtype=torch.float64), torch.device("cpu"))
 
 
 @pytest.mark.parametrize("aliasing", [False, True])
-def test_large_scene_tables_on_the_cpu_are_unchanged(aliasing):
-    """The render path's lists on CPU tensors: the plain hit extents, then the
-    plain lists with the scale they derive themselves."""
-    cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0])
-    scene = trt.random_scene(60, generator=torch.Generator().manual_seed(9))
+def test_large_scene_tables_on_the_cpu_are_unchanged(monkeypatch, aliasing):
+    """The render path's lists on CPU tensors, its table launches standing
+    in by their plain versions (tests/torch_plain_launch.py): the plain hit
+    extents, then the plain lists with the scale they derive themselves."""
+    cam = trt.Camera.build((64, 48), [-7.0, 0.0, 3.0], [0.0, 10.0, 0.0], device="cpu")
+    scene = trt.random_scene(60, generator=torch.Generator().manual_seed(9), device="cpu")
+    plain_tables(monkeypatch.setattr)
     vis, shadow, _, _ = render_cuda.large_scene_tables(cam, scene, depth=2,
                                                        aliasing=aliasing, compat=True)
     ext = hx.hit_extents_plain(cam, scene, aliasing=aliasing, compat=True, vis=vis)

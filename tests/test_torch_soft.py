@@ -83,8 +83,9 @@ def noise(res, seed):
 
 def flat_of_jax(scene_g, cam_g, res):
     """A JAX (scene, camera) gradient pytree -> the port's flat vector."""
-    sg = bridge.scene_from_leaves([np.asarray(x) for x in jax.tree_util.tree_leaves(scene_g)])
-    cg = bridge.camera_from_arrays(cam_g.position, cam_g.rotation, cam_g.fov, res)
+    sg = bridge.scene_from_leaves([np.asarray(x) for x in jax.tree_util.tree_leaves(scene_g)],
+                                  device="cpu")
+    cg = bridge.camera_from_arrays(cam_g.position, cam_g.rotation, cam_g.fov, res, device="cpu")
     return rb.flatten_grads(sg, cg)
 
 
@@ -157,7 +158,7 @@ def test_row_chunk_gradients_equal_whole_frame():
     assert row_chunk_for((20, 12), scene) is None
     assert row_chunk_for((512, 512), bridge.scene_from_leaves(
         [np.asarray(x) for x in jax.tree_util.tree_leaves(
-            jrt.random_scene(jax.random.key(0), n_spheres=100))])) < 512
+            jrt.random_scene(jax.random.key(0), n_spheres=100))], device="cpu")) < 512
 
 
 def test_soft_bounce_gradient_matches_jax():

@@ -29,19 +29,36 @@ from python_ray_tracer_tpu_torch.utils.metrics import MetricsLogger
 
 from .test_torch_render import to_torch
 from .test_torch_soft import TAU, noise, small_scene_jax
+from .torch_plain_launch import plain_launches
 
 torch.set_num_threads(1)
 
 
-def test_soft_wrappers_on_cpu_take_the_plain_version():
-    """render_image_soft_cuda, soft_scene_grads_cuda and
-    soft_loss_and_grads_cuda on CPU tensors: the plain version's numbers,
-    counted in PLAIN_CALLS, with no kernel launch."""
+def test_soft_wrappers_on_cpu_take_the_plain_version(monkeypatch):
+    """render_image_soft_cuda, render_image_soft_fast, soft_scene_grads_cuda
+    and soft_loss_and_grads_cuda refuse CPU tensors: no launch, no plain call.
+    The plain versions, by name, give the plain render's numbers; the two
+    backward wrappers' glue, with their launches standing in for the card
+    (tests/torch_plain_launch.py), gives the plain version's numbers, counted
+    in PLAIN_CALLS, with no kernel launch."""
     cam, scene = to_torch(jrt.default_camera((12, 10)), small_scene_jax())
     g = torch.from_numpy(noise((12, 10), seed=1))
     sb.reset_launch_counts()
     soft_cuda.reset_launch_counts()
-    img = trt.render_image_soft_cuda(cam, scene, tau=TAU)
+    for name, fn in (("render_image_soft_cuda", lambda: trt.render_image_soft_cuda(
+                         cam, scene, tau=TAU)),
+                     ("render_image_soft_fast", lambda: trt.render_image_soft_fast(
+                         cam, scene, tau=TAU)),
+                     ("soft_scene_grads_cuda", lambda: trt.soft_scene_grads_cuda(
+                         cam, scene, g, tau=TAU)),
+                     ("soft_loss_and_grads_cuda", lambda: trt.soft_loss_and_grads_cuda(
+                         cam, scene, g.abs(), tau=TAU))):
+        with pytest.raises(ValueError, match=f"{name} takes CUDA tensors, got cpu"):
+            fn()
+    assert soft_cuda.PLAIN_CALLS == {"render_image_soft": 0}
+    assert sb.PLAIN_CALLS == {"soft_scene_grads": 0, "soft_loss_and_grads": 0}
+    plain_launches(monkeypatch.setattr)
+    img = soft_cuda.render_image_soft_plain(cam, scene, tau=TAU)
     torch.testing.assert_close(img, trt.render_image_soft(cam, scene, tau=TAU), rtol=0,
                                atol=0)
     scene_g, cam_g = trt.soft_scene_grads_cuda(cam, scene, g, tau=TAU, return_camera=True)
@@ -59,14 +76,17 @@ def test_soft_wrappers_on_cpu_take_the_plain_version():
 
 
 def test_render_image_soft_fast_on_cpu_is_differentiable():
-    """render_image_soft_fast on CPU tensors is the plain render, differentiated
-    by autograd: its gradients equal soft_scene_grads_plain's."""
+    """render_image_soft_fast refuses CPU tensors; its plain version, the
+    plain soft render differentiated by autograd, gives the gradients of
+    soft_scene_grads_plain."""
     cam, scene = to_torch(jrt.default_camera((12, 12)), small_scene_jax())
     g = torch.from_numpy(noise((12, 12), seed=4))
+    with pytest.raises(ValueError, match="render_image_soft_fast takes CUDA tensors, got cpu"):
+        trt.render_image_soft_fast(cam, scene, tau=TAU)
     center = scene.spheres.center.clone().requires_grad_(True)
     fov = cam.fov.clone().requires_grad_(True)
     scene.spheres.center, cam.fov = center, fov
-    (trt.render_image_soft_fast(cam, scene, tau=TAU) * g).sum().backward()
+    (soft_cuda.render_image_soft_plain(cam, scene, tau=TAU) * g).sum().backward()
     flat = sb.soft_scene_grads_plain(cam, scene, g, tau=TAU)
     torch.testing.assert_close(center.grad.reshape(-1),
                                flat[:21].reshape(3, 7)[:, :3].reshape(-1))
@@ -134,13 +154,22 @@ def test_fit_scene_soft_matches_jax_fit():
     torch.testing.assert_close(fitted.spheres.radius, init.spheres.radius, rtol=0, atol=0)
 
 
-def test_fit_scene_soft_cuda_backend_on_cpu_matches_torch():
-    """backend="cuda" on CPU tensors runs the fused step's and the targets'
-    plain versions (no launch, counted) and gives the torch backend's losses."""
+def test_fit_scene_soft_cuda_backend_on_cpu_matches_torch(monkeypatch):
+    """backend="cuda" with its launches standing in for the card
+    (tests/torch_plain_launch.py) runs the fused step's and the targets'
+    plain versions (no launch, counted) and gives the torch backend's losses;
+    without a card it raises, and on CPU tensors it raises ValueError."""
     target_j, init_j = _one_sphere_jax()
     cam, init = to_torch(jrt.default_camera((16, 12)), init_j)
     _, target = to_torch(jrt.default_camera((16, 12)), target_j)
     kw = dict(steps=6, lr=5e-2, taus=(0.15, 0.05))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            train.fit_scene_soft(init, cam, target, backend="cuda", **kw)
+    monkeypatch.setattr(train, "resolve_backend", lambda b: b)
+    with pytest.raises(ValueError, match="CUDA tensors, got cpu"):
+        train.fit_scene_soft(init, cam, target, backend="cuda", **kw)
+    plain_launches(monkeypatch.setattr)
     sb.reset_launch_counts()
     soft_cuda.reset_launch_counts()
     _, losses_c = train.fit_scene_soft(init, cam, target, backend="cuda", **kw)
@@ -153,10 +182,12 @@ def test_fit_scene_soft_cuda_backend_on_cpu_matches_torch():
         train.fit_scene_soft(init, cam, target, steps=1, backend="jnp")
 
 
-def test_fit_scene_soft_bounce_recovers_reflection():
+def test_fit_scene_soft_bounce_recovers_reflection(monkeypatch):
     """bounce_depth=1 (tests/test_soft.py::test_soft_fit_recovers_reflection_coefficient,
     smaller): the plain version on either backend, counted, recovers a
-    perturbed reflection coefficient."""
+    perturbed reflection coefficient ("cuda" with its checks standing in for
+    the card, tests/torch_plain_launch.py: no kernel runs on this path)."""
+    plain_launches(monkeypatch.setattr)
     target_j = jrt.Scene(
         jrt.Spheres.build([([3.0, 0.0, 1.0], 1.0, jrt.RED), ([2.0, -1.5, 0.6], 0.6, jrt.BLUE)]),
         jrt.Planes.build([([0.0, 0.0, -0.5], [0.0, 0.0, 1.0], jrt.GREY)]),

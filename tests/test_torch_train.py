@@ -19,10 +19,12 @@ import python_ray_tracer_tpu as jrt
 from python_ray_tracer_tpu import train as jtrain
 import python_ray_tracer_tpu_torch as trt
 from python_ray_tracer_tpu_torch import train
+from python_ray_tracer_tpu_torch.utils.config import BACKENDS
 from python_ray_tracer_tpu_torch.utils.metrics import MetricsLogger
 
 from .test_torch_grads import two_sphere_scene_jax
 from .test_torch_render import to_torch
+from .torch_plain_launch import plain_launches
 
 torch.set_num_threads(1)
 
@@ -57,12 +59,21 @@ def test_fit_scene_torch_matches_jax_fit():
     assert not torch.equal(fitted.spheres.center, init.spheres.center)
 
 
-def test_fit_scene_cuda_backend_fused_and_unfused_agree():
+def test_fit_scene_cuda_backend_fused_and_unfused_agree(monkeypatch):
     """backend="cuda", fused=True (the one-launch step) and fused=False (render
-    + cotangent backward) give the same losses; on CPU tensors both run the
-    plain versions and launch nothing."""
+    + cotangent backward) give the same losses; with the launches standing in
+    for the card (tests/torch_plain_launch.py) both run the plain versions
+    and launch nothing. Without a card the backend raises, and on a card it
+    refuses CPU tensors."""
     from python_ray_tracer_tpu_torch.ops.cuda import render_bwd_cuda as rb
     *_, cam, init, target = _fit_inputs(res=(12, 10))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            train.fit_scene(init, cam, target, steps=1, backend="cuda")
+    monkeypatch.setattr(train, "resolve_backend", lambda b: b)
+    with pytest.raises(ValueError, match="fit_scene.backend='cuda'. takes CUDA tensors"):
+        train.fit_scene(init, cam, target, steps=1, backend="cuda")
+    plain_launches(monkeypatch.setattr)
     before = dict(rb.LAUNCHES)
     runs = [train.fit_scene(init, cam, target, steps=4, lr=5e-3, depth=1,
                             trainable=("spheres.center",), backend="cuda", fused=fused)
@@ -82,7 +93,7 @@ def test_trainable_selects_leaves():
     with pytest.raises(ValueError, match="unknown trainable"):
         train.trainable_paths(("spheres.colour",))
     with pytest.raises(ValueError, match="unknown backend"):
-        train.fit_scene(trt.default_scene(), trt.default_camera((4, 4)),
+        train.fit_scene(trt.default_scene(device="cpu"), trt.default_camera((4, 4), device="cpu"),
                         torch.zeros(4, 4, 3), steps=1, backend="pallas")
 
 
@@ -143,10 +154,12 @@ def test_fit_camera_fit_fov_matches_jax_fit():
     assert abs(float(fitted.fov) - 48.0) > 1e-3      # the fov did move
 
 
-def test_camera_value_and_grad_cuda_backend_matches_autograd():
+def test_camera_value_and_grad_cuda_backend_matches_autograd(monkeypatch):
     """The kernel path's camera gradient (camera slots chained to Euler angles
-    through autograd of euler_rotation; plain version on CPU tensors) equals
-    autograd of the whole loss, and the JAX package's jnp camera gradient."""
+    through autograd of euler_rotation; its launch standing in for the card,
+    tests/torch_plain_launch.py) equals autograd of the whole loss, and the
+    JAX package's jnp camera gradient."""
+    plain_launches(monkeypatch.setattr)
     import jax
     from python_ray_tracer_tpu.models.camera import Camera as JCamera, euler_rotation
     scene_j = two_sphere_scene_jax()
@@ -167,7 +180,7 @@ def test_camera_value_and_grad_cuda_backend_matches_autograd():
     target = torch.from_numpy(np.array(target_j))
     p = {k: torch.from_numpy(np.array(v)) for k, v in p_j.items()}
     out = {b: train.camera_value_and_grad(scene, target, res, depth=1, backend=b)(p)
-           for b in train.BACKENDS}
+           for b in BACKENDS}
     for loss, grads in out.values():
         assert float(loss) == pytest.approx(float(l_j), rel=1e-5)
         for k in train.CAMERA_KEYS:
