@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (python_ray_tracer_tpu_torch) on one card.
 
-Builds the CUDA kernels from ``python_ray_tracer_tpu_torch/csrc``, holds each
+Builds the CUDA kernels from ``python_ray_tracer_tpu_torch/csrc``, checks that
+``random_scene(n)`` and ``cli render --spheres n``'s scene are the JAX
+package's (``[cli-scene]``: digests at 100 and 1000 spheres), holds each
 render kernel mode against the plain PyTorch version and against the JAX
 package's frozen framebuffers (``tests/goldens/*.npz``, read with numpy), drives
 the render path through the CLI (``render --backend cuda`` at 1000x1000 with
@@ -31,7 +33,7 @@ spheres 512x512, both from the fit's shifted centers; the soft forward and
 the backward's two modes at every tau of the anneal, the backward under the
 planner's launch plan). Then the
 large-scene render path (phases 13-15): the hit-extent kernel (TPU kernel 3)
-against its plain version on 100 and 1000 seeded spheres at 256x256, twice for
+against its plain version on the CLI's 100 and 1000 spheres at 256x256, twice for
 bit-identical rows and scales, the scale that of its rows; the list kernel
 (``[lists]``: the level-0 shadow lists, no TPU kernel) against the plain
 ``shadow_visibility_lists`` on the same rows integer for integer, at 1920x1080,
@@ -115,7 +117,9 @@ failed phase raises. ``python3 chip_smoke.py --entry-times DIR`` runs phase
 20 alone on the package of the checkout in DIR (an older commit unpacked with
 ``git archive``, say): it calls only entry points whose signatures every tree
 of the port shares, so that two trees' times can be set side by side in one
-run on one card (each tree's own ``chip_smoke.py`` gives the rest).
+run on one card (each tree's own ``chip_smoke.py`` gives the rest; a tree
+whose ``random_scene`` takes no ``key`` drew another scene for ``--spheres n``:
+run that tree's own ``chip_smoke.py --entry-times .``).
 ``python3 chip_smoke.py --ab-times DIR`` does the same for kernels 1, 2, 4, 5
 and 6 (:func:`ab_times`: the four backward modes at the fit CLI's shapes, the
 soft forward at every tau with each frame's digest, the soft backward's
@@ -147,7 +151,8 @@ pixel flagged, against the per-sample AA render: ``torch.equal`` above 16
 spheres (both in render_fwd.cu's pinned arithmetic), and on the demo scene
 tests/test_adaptive.py's rule (max |d| <= 3e-5, uint8 off by at most 1 on at
 most 0.2% of the pixels). Adaptive frames against full AA: at most 0.5% of
-the pixels off by more than 1 level where no flagged pixel was dropped. A
+the pixels that were not dropped (flagged past the budget) off by more than
+1 level, and the dropped count the flagged count less the budget's slots. A
 render with culls on against culls off: ``torch.equal``, the bounce tree
 included (it takes the least (t, index), so no sweep order moves a tie); the
 worklist kernel with its tables against the same launch without:
@@ -271,6 +276,14 @@ DEMO_ADAPTIVE_CHANGED = 0.002
 PLAIN_LIST_MAX = 65536               # pixels of the plain trace at 1000 spheres
 # Launches of the light-cell kernel on the main paths (phases 14 and 17).
 MAIN_COUNTS = {"light_cells": 0}
+# [cli-scene]: SHA-256 of the float32 bytes of center, radius and albedo, in
+# that order, of the JAX package's random_scene(jax.random.key(0), n), which
+# `cli render --spheres n` draws (tests/test_torch_prng.py holds these digests
+# against the JAX package's scene).
+CLI_SCENE_SHA256 = {
+    100: "1702e56205bcc471d4332a20456057def6e95d15d760ba304ceac37d0ac21fa3",
+    1000: "8ba9e446ccecf9b05be981ca8860c1bb1e2ed77ffa5ca5fc9081fa8ee13dd7b3",
+}
 
 
 def frame_diff(a, b):
@@ -1188,12 +1201,9 @@ def large_scene_phases(torch, rt, card: str, dev) -> list:
     hx_builds = start_extent_builds()
 
     def cli_scene(n, specular=0.0):
-        """`cli render --spheres n`'s scene (cli._build: seed 0, the CLI's
-        materials), with a Phong term for the clean-mode checks."""
-        mats = rt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, specular,
-                                  cfg.shininess, device=dev)
-        return rt.random_scene(n, materials=mats,
-                               generator=torch.Generator().manual_seed(0), device=dev)
+        """`cli render --spheres n`'s scene, with a Phong term for the
+        clean-mode checks."""
+        return scene_of(rt, cfg, n, dev, specular)
 
     def cli_camera(res, pose=None):
         pos, euler = pose or (cfg.camera_position, cfg.camera_euler)
@@ -1616,10 +1626,7 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
     def scene_and_camera(n, res, compat=True):
         """The CLI's scene (`--spheres n`, or the demo scene for 0) and camera,
         with a Phong term in clean mode."""
-        mats = rt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection,
-                                  0.0 if compat else 0.5, cfg.shininess, device=dev)
-        scene = (rt.default_scene(mats, device=dev) if n == 0 else rt.random_scene(
-            n, materials=mats, generator=torch.Generator().manual_seed(0), device=dev))
+        scene = scene_of(rt, cfg, n, dev, 0.0 if compat else 0.5)
         return scene, rt.Camera.build(res, cfg.camera_position, cfg.camera_euler, cfg.fov,
                                       device=dev)
 
@@ -1754,15 +1761,27 @@ def adaptive_phases(torch, rt, card: str, dev) -> list:
         full = rt.render_image_cuda(cam, scene, depth=2, aliasing=True)
         flips, changed, dmax = frame_diff(rt.to_framebuffer(img), rt.to_framebuffer(full))
         share = flips / (W * H)
-        _, all_st = rt.render_image_adaptive_cuda(cam, scene, eps=ADAPTIVE_EPS,
-                                                  budget_frac=1.0, with_stats=True)
+        # The dropped pixels: those flagged past the budget's K slots, in
+        # pixel-index order (the worklist at budget 1 lists every flagged one).
+        k = adp.budget_slots(W, H, ADAPTIVE_BUDGET)
+        *_, idx_all, all_flagged, _ = worklist(cam, scene, True, ADAPTIVE_EPS, 1.0)
+        all_flagged = int(all_flagged)
+        check(flagged == all_flagged and dropped == max(all_flagged - k, 0),
+              f"{label}: flagged {flagged}, dropped {dropped}; at budget 1.0 flagged "
+              f"{all_flagged}, K {k}")
+        kept = torch.ones(W * H, dtype=torch.bool, device=dev)
+        kept[idx_all[k:all_flagged].long()] = False
+        d_lev = (rt.to_framebuffer(img).int() - rt.to_framebuffer(full).int()).abs().amax(0)
+        kept_flips = int((d_lev.reshape(-1)[kept] > FLIP_LEVELS).sum())
+        kept_share = kept_flips / (W * H - dropped)
         print(f"[adaptive-main] {label}: {os.path.relpath(png, ROOT)} decodes to the "
               f"wrapper's frame; flagged {flagged} ({flagged / (W * H):.4f}; "
-              f"{int(all_st['flagged']) / (W * H):.4f} at budget 1.0), dropped {dropped}; "
-              f"vs full AA (aa_shared): off by > 1 level {flips} ({share:.5f}), changed "
-              f"{changed}, max {dmax} levels")
-        if dropped == 0:
-            check(share <= ADAPTIVE_QUALITY, f"{label}: {share:.4%} of pixels off full AA")
+              f"{all_flagged / (W * H):.4f} at budget 1.0), dropped {dropped} (flagged - K, "
+              f"K {k}); vs full AA (aa_shared): off by > 1 level {flips} ({share:.5f}), of "
+              f"them at the {W * H - dropped} pixels not dropped {kept_flips} "
+              f"({kept_share:.5f}), changed {changed}, max {dmax} levels")
+        check(kept_share <= ADAPTIVE_QUALITY,
+              f"{label}: {kept_share:.4%} of the pixels not dropped off full AA")
         main[n] = dict(label=label, flagged=flagged, dropped=dropped, share=share)
     check(launches > 0, "the main path never launched the worklist kernel")
 
@@ -2448,14 +2467,45 @@ def lightbuf_phase(torch, rt, card: str, dev, builds, fwd_regs) -> list:
              "part_of": "render_fwd_aa_none_large: the bounce shadow rays' tables"}]
 
 
-def scene_of(rt, cfg, n: int, dev):
-    """The CLI's scene: the demo scene (n = 0) or ``random_scene(n)`` from
-    seed 0, with the CLI's materials (specular 0)."""
-    import torch
-    mats = rt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, 0.0, cfg.shininess,
-                              device=dev)
-    return (rt.default_scene(mats, device=dev) if n == 0 else rt.random_scene(
-        n, materials=mats, generator=torch.Generator().manual_seed(0), device=dev))
+def scene_digest(scene) -> str:
+    """SHA-256 of the float32 bytes of a scene's sphere centers, radii and
+    albedo (CLI_SCENE_SHA256's digest)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in (scene.spheres.center, scene.spheres.radius, scene.spheres.albedo):
+        h.update(t.detach().cpu().float().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def cli_scene_phase(rt, dev) -> None:
+    """``[cli-scene]``: ``random_scene(n)`` on the card and ``cli render
+    --spheres n``'s scene (``cli._build``) at the n of CLI_SCENE_SHA256, each
+    digest the JAX package's."""
+    import argparse
+    from python_ray_tracer_tpu_torch import cli
+    for n, want in CLI_SCENE_SHA256.items():
+        ap = argparse.ArgumentParser()
+        cli._add_render_args(ap)
+        built = cli._build(ap.parse_args(["--spheres", str(n)]))[1]
+        got = {"random_scene": scene_digest(rt.random_scene(n, device=dev)),
+               "cli._build": scene_digest(built)}
+        print(f"[cli-scene] {n} spheres: sha256 " + ", ".join(
+            f"{k} {v}" for k, v in got.items()) + f"; the JAX package's {want}")
+        check(built.spheres.center.is_cuda and all(v == want for v in got.values()),
+              f"[cli-scene] {n} spheres: {got} on {built.spheres.center.device}, "
+              f"expected {want} on the card")
+
+
+def scene_of(rt, cfg, n: int, dev, specular: float = 0.0):
+    """The CLI's scene (``cli._build``): the demo scene (n = 0) or
+    ``random_scene(n)`` from ``jax.random.key(0)`` (``--spheres n``), the JAX
+    package's scene, with the CLI's materials and the Phong term
+    ``specular``."""
+    mats = rt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, specular,
+                              cfg.shininess, device=dev)
+    if n == 0:
+        return rt.default_scene(mats, device=dev)
+    return rt.random_scene(n, materials=mats, key=0, device=dev)
 
 
 def entry_times(torch, rt, card: str, dev, label: str) -> None:
@@ -2469,7 +2519,8 @@ def entry_times(torch, rt, card: str, dev, label: str) -> None:
     spheres at depth 0, 1 and 2: each wrapper's time (CUDA events) and the
     device time of its kernel a call (torch.profiler; "not measured" where the
     profiler reports none). The entry points' signatures are the same in
-    every tree of the port, so two checkouts' lines can be set side by side.
+    every tree of the port, so two checkouts' lines can be set side by side
+    (:func:`scene_of`'s scenes need ``random_scene``'s ``key``).
     ``[entry-regs]``: ptxas's registers and spills of the checkout's
     render_fwd_small.cu (the small-scene instantiations). ``[entry-tables]``:
     at 100 and 1000 spheres, AA and not, the hit-extent kernel alone
@@ -2633,16 +2684,14 @@ def ab_times(torch, rt, card: str, dev, label: str) -> None:
     # the main paths' frames (the demo scene's, and the large-scene path's at 1000
     # spheres), each frame's digest
     for name, n in (("demo", 0), ("100 spheres", 100), ("1000 spheres", 1000)):
-        sc = rt.default_scene(device=dev) if n == 0 else rt.random_scene(
-            n, generator=torch.Generator().manual_seed(0), device=dev)
+        sc = scene_of(rt, cfg, n, dev)
         line = []
         for res, aa in ((FIT_RES, True), ((1920, 1080), False), ((1920, 1080), True)):
             frame = rt.render_image_cuda(rt.default_camera(res, device=dev), sc, aliasing=aa)
             line.append(f"{res[0]}x{res[1]} {'AA' if aa else 'no AA'} {digest(frame)}")
         print(f"[ab-frames] {label} {name}: " + ", ".join(line))
     for name, res in SOFT_TIMES:
-        base = rt.default_scene(device=dev) if name == "demo" else rt.random_scene(
-            100, generator=torch.Generator().manual_seed(0), device=dev)
+        base = scene_of(rt, cfg, 0 if name == "demo" else 100, dev)
         sc = rt.Scene.from_leaves(base.leaves())
         sc.spheres = rt.Spheres(base.spheres.center + torch.tensor(cli.FIT_SHIFT, device=dev),
                                 base.spheres.radius, base.spheres.albedo)
@@ -2738,9 +2787,7 @@ def ab_kernels(torch, rt, card: str, dev, label: str) -> None:
             W=FIT_RES[0], H=FIT_RES[1], depth=2, mode=m, compat=True, cheap_shadow=True,
             shape=shape, one_launch=one, rec=rec))))
     for name, scene, (W, H) in (("demo", demo, FIT_RES),
-                                ("100 spheres", rt.random_scene(
-                                    100, generator=torch.Generator().manual_seed(0), device=dev),
-                                 (512, 512))):
+                                ("100 spheres", scene_of(rt, cfg, 100, dev), (512, 512))):
         cam = rt.default_camera((W, H), device=dev)
         sc = rt.Scene.from_leaves(scene.leaves())
         sc.spheres = rt.Spheres(scene.spheres.center + shift, scene.spheres.radius,
@@ -3407,13 +3454,14 @@ def scene_size_phase(torch, rt, card: str, dev) -> list:
                                                       soft_bwd_cuda as sb, soft_cuda)
     from python_ray_tracer_tpu_torch.ops.render import render_image
     from python_ray_tracer_tpu_torch.utils import timing
+    from python_ray_tracer_tpu_torch.utils.config import RenderConfig
     wrappers = (render_cuda, ac, hx, lc, sl, soft_cuda, rb, sb)
 
     def reset():
         for m in wrappers:
             m.reset_launch_counts()
 
-    def scene_of(n):
+    def seeded_scene(n):
         return rt.random_scene(n, generator=torch.Generator().manual_seed(SIZE_SEED), device=dev)
 
     def plain_frame(cam, scene, **kw):
@@ -3427,7 +3475,7 @@ def scene_size_phase(torch, rt, card: str, dev) -> list:
     cam = rt.Camera.build(SIZE_FORM_RES, *BENCH_POSE, device=dev)
     W, H = SIZE_FORM_RES
     for n in FORM_NS:
-        scene = scene_of(n)
+        scene = seeded_scene(n)
         cnt = counts(scene)
         packed = render_cuda.packed_inputs(cam, scene, depth=2, compat=True)
         cheap = render_cuda.shadow_cheap_ok(scene, True)
@@ -3574,11 +3622,11 @@ def scene_size_phase(torch, rt, card: str, dev) -> list:
                          f"plan's shape {ms['global twin']:.4f} ms")
             print(f"{line} | {card}")
             check(eq, f"hard {mode} at {n} spheres: device-memory rows differ")
-    # the light cells at the main path's scenes (the CLI's random_scene from
-    # seed 0): the staged form against the chunked one, which the staged
-    # form loses to at FORM_NS[-1]
+    # the light cells at the main path's scenes (the CLI's random_scene): the
+    # staged form against the chunked one, which the staged form loses to at
+    # FORM_NS[-1]
     for n in LC_MAIN_NS:
-        scene = rt.random_scene(n, generator=torch.Generator().manual_seed(0), device=dev)
+        scene = scene_of(rt, RenderConfig(), n, dev)
         sph, _, lts = render_cuda.scene_tables(scene)
         nl = scene.lights.count
         runs = {c: (lambda c=c, o=lc.empty(nl, dev): lc.launch(o, sph, lts, n, nl, chunk=c))
@@ -3591,7 +3639,7 @@ def scene_size_phase(torch, rt, card: str, dev) -> list:
         check(eq, f"light cells at {n} spheres: the chunked form differs")
     # the soft backward's third form against its global form at one plan
     # (SOFT_ROWS_RES: its blocks walk pixel groups)
-    scene = scene_of(FORM_NS[0])
+    scene = seeded_scene(FORM_NS[0])
     cnt = counts(scene)
     cam = rt.Camera.build(SOFT_ROWS_RES, *BENCH_POSE, device=dev)
     W, H = SOFT_ROWS_RES
@@ -3634,7 +3682,7 @@ def scene_size_phase(torch, rt, card: str, dev) -> list:
     # 2. Scenes past every staged form, through the entry points.
     big = {}
     for n in SIZE_NS:
-        scene = scene_of(n)
+        scene = seeded_scene(n)
         cnt = counts(scene)
         cam = rt.Camera.build(SIZE_RES, *BENCH_POSE, device=dev)
         reset()
@@ -3824,7 +3872,7 @@ def scene_size_phase(torch, rt, card: str, dev) -> list:
               f"{big[n]['launches']}")
 
     # 3. The backward kernels at SIZE_BWD_NS: the third form.
-    scene = scene_of(SIZE_BWD_NS)
+    scene = seeded_scene(SIZE_BWD_NS)
     cnt = counts(scene)
     cam = rt.Camera.build(REPAIR_RES, *BENCH_POSE, device=dev)
     W, H = REPAIR_RES
@@ -4517,26 +4565,7 @@ LV_LEVELS = (1, 2, 3)               # [levels], [levels-time]: shadow_list_level
 LV_FORM = (5000, (256, 256))        # [levels]: staged and global forms, compat and clean
 LV_BITS = (1000, (256, 256))        # [levels]: compat and clean, the slice, depth 4
 LV_SLICE = (96, 64)                 # x_offset, local_width of the LV_BITS frame
-LV_TIME_NS = (100, 1000)            # [levels-time], [capsule-time] at LARGE_RES, depth 2
-CAP_NS = (100, 1000, 5000)          # [capsule]: shadow_cull on against off, LV_FORM's size
-CAP_SCALE = 1e4                     # [capsule]: the scene scaled (clean mode)
-
-
-def _planted_scene(torch, rt, n: int, dev, s: float = 1.0):
-    """random_scene(n) from seed 11 plus a sphere of radius 1.5 planted 4
-    units beyond light 0 (tests/test_pallas.py's shadow-cull scene), every
-    length times s."""
-    base = rt.random_scene(n, generator=torch.Generator().manual_seed(11), device=dev)
-    L0 = base.lights.position[0]
-    u = L0 - torch.tensor([0.0, 0.0, 2.0], device=dev)
-    beyond = L0 + 4.0 * u / u.norm()
-    sph = rt.Spheres(torch.cat([base.spheres.center, beyond[None]]) * s,
-                     torch.cat([base.spheres.radius, torch.tensor([1.5], device=dev)]) * s,
-                     torch.cat([base.spheres.albedo, torch.tensor([[1.0, 0.0, 0.0]],
-                                                                  device=dev)]))
-    return rt.Scene(sph, rt.Planes(base.planes.origin * s, base.planes.normal,
-                                   base.planes.albedo),
-                    rt.Lights(base.lights.position * s), base.materials)
+LV_TIME_NS = (100, 1000)            # [levels-time], [capsule] at LARGE_RES, depth 2
 
 
 def levels_capsule_phase(torch, rt, card: str, dev) -> None:
@@ -4549,12 +4578,9 @@ def levels_capsule_phase(torch, rt, card: str, dev) -> None:
     function's. ``[levels-time]``: at each L, the hit-extent kernel, the list
     kernel and the render kernel alone and the whole wrapper at LV_TIME_NS
     spheres, 1920x1080 depth 2, with the list kernel's bound (``[bound]``).
-    ``[capsule]``: ``shadow_cull`` (the JAX wrapper's capsule cull) on and
-    off at the default tables, with the lists off and with every table off:
-    the same launches and frames ``torch.equal`` to every table off, at
-    CAP_NS spheres, the planted occluder beyond a light and the scene scaled
-    by CAP_SCALE. ``[capsule-time]``: the wrapper with it on and off, and
-    with the lists off."""
+    ``[capsule]``: ``shadow_cull=True`` (the JAX wrapper's capsule cull)
+    makes the default's launches and frames (``torch.equal``) at LV_TIME_NS
+    spheres, 1920x1080 depth 2, without and with AA."""
     from python_ray_tracer_tpu_torch.ops.cuda import cull_tables as ct
     from python_ray_tracer_tpu_torch.ops.cuda import hit_extents_cuda as hx
     from python_ray_tracer_tpu_torch.ops.cuda import render_cuda
@@ -4699,7 +4725,7 @@ def levels_capsule_phase(torch, rt, card: str, dev) -> None:
             print(f"[levels-time] {n} spheres {W}x{H} d2 {mode}: " + "; ".join(parts) +
                   f" | {card}")
 
-    # [capsule]: bits and launches
+    # [capsule]: shadow_cull takes the default launches and gives their bits
     def counts():
         return (dict(render_cuda.LAUNCHES), dict(render_cuda.GLOBAL_LAUNCHES),
                 dict(hx.LAUNCHES), dict(sl.LAUNCHES))
@@ -4712,71 +4738,23 @@ def levels_capsule_phase(torch, rt, card: str, dev) -> None:
         b = counts()
         return out, tuple({k: y[k] - x[k] for k in y} for x, y in zip(a, b))
 
-    n_cases = 0
-    for n in CAP_NS:
-        res, pose = (LV_FORM[1], BENCH_POSE) if n >= LV_FORM[0] else ((256, 256), None)
-        scene, cam = scene_of(rt, cfg, n, dev), camera(res, pose)
-        for compat in (True, False):
-            for mode in ("aa_none", "aa_shared") if n >= LV_FORM[0] else modes:
-                kw = kw_of(mode, compat)
-                off = rt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
-                for culls in ({}, dict(shadow_lists=False), ALL_OFF):
-                    made = []
-                    for cull in (False, True):
-                        img, used = launches_of(lambda: rt.render_image_cuda(
-                            cam, scene, **kw, **culls, shadow_cull=cull))
-                        check(torch.equal(img, off), f"[capsule] {n} spheres {mode} compat="
-                              f"{compat} {culls} shadow_cull={cull}: differs from every "
-                              f"table off")
-                        made.append(used)
-                    check(made[0] == made[1], f"[capsule] {n} spheres {mode} {culls}: "
-                          f"shadow_cull changes the launches {made}")
-                    n_cases += 2
-    beyond = {}
-    for s, compat in ((1.0, True), (1.0, False), (CAP_SCALE, False)):
-        scene = _planted_scene(torch, rt, 22, dev, s)
-        base = rt.Scene(rt.Spheres(scene.spheres.center[:-1], scene.spheres.radius[:-1],
-                                   scene.spheres.albedo[:-1]),
-                        scene.planes, scene.lights, scene.materials)
-        cam = rt.Camera.build((96, 64), [v * s for v in (-7.0, 0.0, 3.0)], [0.0, 10.0, 0.0],
-                              device=dev)
-        for mode in modes:
-            kw = dict(kw_of(mode, compat), depth=1)
-            off = rt.render_image_cuda(cam, scene, **kw, **ALL_OFF)
-            without = rt.render_image_cuda(cam, base, **kw)
-            for levels in (None, 2):
-                for cull in (False, True):
-                    on = rt.render_image_cuda(cam, scene, **kw, shadow_list_levels=levels,
-                                              shadow_cull=cull)
-                    check(torch.equal(on, off), f"[capsule] planted x{s} {mode} compat="
-                          f"{compat} L={levels} shadow_cull={cull}: differs from every "
-                          f"table off")
-                    n_cases += 1
-            d = float((off - without).abs().max())
-            check(d > 1e-3, f"[capsule] planted x{s} {mode}: the planted sphere shadows nothing")
-            beyond[(s, compat, mode)] = d
-    print(f"[capsule] {n_cases} frames torch.equal to every table off, shadow_cull on and "
-          f"off with the same launches ({CAP_NS} spheres, every mode, compat and clean, the "
-          f"default tables, lists off and every table off; the occluder planted beyond light "
-          f"0, whose shadow moves a frame by {min(beyond.values()):.4f}-"
-          f"{max(beyond.values()):.4f}, with the lists of 1 and 2 levels, and its scene "
-          f"scaled by {CAP_SCALE:g} in clean mode)")
-
-    # [capsule-time]: shadow_cull takes the default launches; the wrapper's
-    # time with it on and off, and with the lists off (their sweeps then take
-    # every sphere at level 0), each timed A, B, C, C, B, A (the minima)
+    cam = camera(LARGE_RES)
+    made = []
     for n in LV_TIME_NS:
-        scene, cam = scene_of(rt, cfg, n, dev), camera(LARGE_RES)
+        scene = scene_of(rt, cfg, n, dev)
         for aa in (False, True):
-            runs = {name: (lambda kw=kw: rt.render_image_cuda(cam, scene, depth=2, aliasing=aa,
-                                                              **kw))
-                    for name, kw in (("shadow_cull off", {}),
-                                     ("shadow_cull on", dict(shadow_cull=True)),
-                                     ("lists off", dict(shadow_lists=False)))}
-            t = _alternate(rt, runs, 5)
-            print(f"[capsule-time] {n} spheres {LARGE_RES[0]}x{LARGE_RES[1]} d2 "
-                  f"{'aa_shared' if aa else 'aa_none'}, wrapper: " +
-                  ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()) + f" | {card}")
+            (a, used_a), (b, used_b) = (launches_of(
+                lambda kw=kw: rt.render_image_cuda(cam, scene, depth=2, aliasing=aa, **kw))
+                for kw in ({}, dict(shadow_cull=True)))
+            check(torch.equal(a, b), f"[capsule] {n} spheres aa={aa}: shadow_cull=True "
+                  f"differs from the default")
+            check(used_a == used_b, f"[capsule] {n} spheres aa={aa}: shadow_cull changes "
+                  f"the launches {used_a} -> {used_b}")
+            made.append(f"{n} spheres {'AA' if aa else 'no AA'} "
+                        f"{sum(used_a[0].values())} render launches")
+    print(f"[capsule] shadow_cull=True at {LARGE_RES[0]}x{LARGE_RES[1]} d2: the default's "
+          f"frames (torch.equal) and launches ({', '.join(made)}, and the same hit_extents "
+          f"and shadow_lists launches)")
     print(f"[levels] launches in phase 25: render {dict(render_cuda.LAUNCHES)}, of them "
           f"global {dict(render_cuda.GLOBAL_LAUNCHES)}; hit_extents "
           f"{hx.LAUNCHES['hit_extents']}; shadow_lists {sl.LAUNCHES['shadow_lists']}")
@@ -5130,6 +5108,7 @@ def main() -> int:
           f"seconds a source (from the build's start to its end): " + ", ".join(
               f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_SECONDS.items(),
                                                 key=lambda kv: -kv[1])))
+    cli_scene_phase(rt, dev)
     if sys.argv[1:] == ["--phase", "22"]:   # the ray-parallel phase alone
         parallel_phase(torch, rt, card, dev)
         print(f"[smoke] phase 22 in {time.perf_counter() - t_start:.1f} s")

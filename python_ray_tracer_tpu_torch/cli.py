@@ -66,9 +66,9 @@ def _add_render_args(p: argparse.ArgumentParser) -> None:
                    help="worklist length as a share of the pixels (static; pixels "
                         "flagged past it keep the tent value and are reported)")
     p.add_argument("--spheres", type=int, default=0,
-                   help="random N-sphere scene instead of the demo scene (drawn "
-                        "from a seeded torch.Generator: not the JAX package's "
-                        "jax.random scene of the same N)")
+                   help="random N-sphere scene instead of the demo scene: the "
+                        "JAX package's scene of the same N, drawn from "
+                        "jax.random.key(0)")
     p.add_argument("--out", type=str, default="output/render.png")
 
 
@@ -81,8 +81,7 @@ def _build(args):
     mats = Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, cfg.specular,
                            cfg.shininess, device=device)
     if args.spheres > 0:
-        scene = random_scene(args.spheres, materials=mats,
-                             generator=torch.Generator().manual_seed(0), device=device)
+        scene = random_scene(args.spheres, materials=mats, key=0, device=device)
     else:
         scene = default_scene(mats, device=device)
     cam = Camera.build((cfg.width, cfg.height), cfg.camera_position,

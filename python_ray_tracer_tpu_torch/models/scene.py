@@ -15,6 +15,7 @@ from typing import List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..utils import prng
 from ..utils.config import resolve_device
 
 # Typing aliases (reference scene/common.py:5-6).
@@ -205,15 +206,24 @@ def default_scene(materials: Materials | None = None, device=None) -> Scene:
 
 
 def random_scene(n_spheres: int = 100, n_lights: int = 3,
-                 materials: Materials | None = None, *,
+                 materials: Materials | None = None, *, key=0,
                  generator: torch.Generator | None = None,
                  device=None) -> Scene:
-    """Procedural N-sphere scene for scaling runs. Draws on the CPU from
-    ``generator`` (its own stream: it does not reproduce ``jax.random``), then
-    moves to ``device``. At most 3 lights, as in the JAX package."""
+    """Procedural N-sphere scene for scaling runs: the JAX package's
+    ``random_scene(jax.random.key(key), n_spheres, n_lights, materials)`` bit
+    for bit. ``key`` is an int seed, as ``jax.random.key(seed)``, or ``(2,)``
+    key data; the draws are made on the host (:mod:`..utils.prng`) and moved
+    to ``device`` as float32. At most 3 lights, as in the JAX package.
+
+    An explicit ``generator`` draws instead from ``torch.rand`` on it, the
+    port's own stream for its tests (``key`` is then unused)."""
     device = resolve_device(device)
+    keys = iter(prng.split(key, 5))
     def uniform(shape, lo, hi):
-        return lo + (hi - lo) * torch.rand(shape, generator=generator)
+        k = next(keys)
+        if generator is not None:
+            return lo + (hi - lo) * torch.rand(shape, generator=generator)
+        return torch.from_numpy(prng.uniform(k, shape, lo, hi))
     centers = torch.stack([uniform((n_spheres,), -8.0, 8.0),
                            uniform((n_spheres,), -8.0, 8.0),
                            uniform((n_spheres,), 0.2, 4.0)], dim=-1)

@@ -1,10 +1,12 @@
 """The port's slices as a whole: ``cli render`` and ``cli fit`` to PNG, the
 PNG writers, backend resolution, timing helpers, and that the port never
 imports JAX."""
+import argparse
 import os
 import subprocess
 import sys
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -12,9 +14,11 @@ from PIL import Image
 
 import python_ray_tracer_tpu as jrt
 import python_ray_tracer_tpu_torch as trt
+from python_ray_tracer_tpu import cli as jcli
 from python_ray_tracer_tpu.utils.image import framebuffer_to_array as jax_fb_to_array
 from python_ray_tracer_tpu.utils.timing import rays_per_image as jax_rays_per_image
 from python_ray_tracer_tpu_torch import cli
+from python_ray_tracer_tpu_torch.models.scene import LEAF_PATHS
 from python_ray_tracer_tpu_torch.utils import image, native
 
 torch.set_num_threads(1)
@@ -33,6 +37,41 @@ def test_cli_render_torch_backend_matches_jax(tmp_path, capsys):
     want = jax_fb_to_array(np.asarray(jrt.to_framebuffer(img))).astype(np.int32)
     assert got.shape == want.shape == (48, 48, 3)
     assert np.abs(got - want).max() <= 1
+
+
+def test_cli_render_spheres_matches_jax(tmp_path):
+    """``render --spheres 24``: the JAX package's scene from jax.random.key(0),
+    the frame within 1 level of the JAX package's plain render of it."""
+    out = tmp_path / "s.png"
+    assert cli.main(["render", "--backend", "torch", "--spheres", "24", "--width", "32",
+                     "--height", "24", "--out", str(out)]) == 0
+    got = np.asarray(Image.open(out).convert("RGB")).astype(np.int32)
+    cfg = jrt.RenderConfig()
+    mats = jrt.Materials.build(cfg.ambient, cfg.lambert, cfg.reflection, cfg.specular,
+                               cfg.shininess)
+    scene = jrt.random_scene(jax.random.key(0), 24, materials=mats)
+    cam = jrt.Camera.build((32, 24), cfg.camera_position, cfg.camera_euler, cfg.fov)
+    img = jrt.render_image(cam, scene, depth=2, aliasing=True, compat=True)
+    want = jax_fb_to_array(np.asarray(jrt.to_framebuffer(img))).astype(np.int32)
+    assert got.shape == want.shape == (24, 32, 3)
+    assert np.abs(got - want).max() <= 1
+
+
+def test_cli_build_spheres_is_the_jax_clis_scene():
+    """``_build`` for ``--spheres 24``: every leaf of the port CLI's scene the
+    JAX CLI's, bit for bit."""
+    def parsed(add, argv):
+        ap = argparse.ArgumentParser()
+        add(ap)
+        return ap.parse_args(argv)
+    scene = cli._build(parsed(cli._add_render_args, ["--spheres", "24", "--backend", "torch"]))[1]
+    scene_j = jcli._build(parsed(jcli._add_render_args,
+                                 ["--spheres", "24", "--backend", "jnp"]))[1]
+    got = [t.numpy() for t in scene.leaves()]
+    want = [np.asarray(x) for x in jax.tree_util.tree_leaves(scene_j)]
+    assert len(got) == len(want) == len(LEAF_PATHS)
+    for path, a, b in zip(LEAF_PATHS, got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b), path
 
 
 def test_cli_backend_cuda_without_card_raises(tmp_path):

@@ -267,8 +267,8 @@ def test_cli_render_soft_matches_jax_cli(tmp_path, capsys):
 
 
 def test_cli_random_scene_spheres(tmp_path, capsys):
-    """``--spheres N`` renders a seeded N-sphere scene (torch.Generator), the
-    same scene on every call."""
+    """``--spheres N`` renders the N-sphere scene of ``jax.random.key(0)``,
+    the same scene on every call."""
     args = ["render", "--backend", "torch", "--spheres", "12", "--no-aliasing", "--depth",
             "1", "--width", "16", "--height", "12"]
     for name in ("a.png", "b.png"):
