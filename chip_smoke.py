@@ -3260,6 +3260,72 @@ def parallel_phase(torch, rt, card: str, dev) -> None:
           f"torch.equal to single renders on every frame: {same}")
     check(n_anim >= 24 * 5, f"cli animate launched aa_shared {n_anim} times")
     check(same, "render_frames differs from single renders")
+    # The GIF writer on this host (numpy, no Pillow): save_animation's time at
+    # the 256x256 orbit and at the CLI's default 1000x1000, 24 frames each.
+    animate_gif(torch, frames, "256x256", card)
+    cams = animation.orbit_cameras((1000, 1000), center=[1.0, 0.0, 1.0], radius=4.0,
+                                   height=1.5, n_frames=24, device=dev)
+    animate_gif(torch, animation.render_frames(cams, demo), "1000x1000", card)
+
+
+def gif_images(data: bytes):
+    """The delays (hundredths of a second, None without a graphic control
+    block) of a GIF file's images, one an image descriptor, found by walking
+    its blocks."""
+    flags, pos, delay, delays = data[10], 13, None, []
+    if flags & 0x80:
+        pos += 3 * (2 << (flags & 7))
+    while data[pos] != 0x3B:
+        kind = data[pos]
+        check(kind in (0x21, 0x2C), f"GIF block 0x{kind:02x} at byte {pos}")
+        if kind == 0x21:
+            if data[pos + 1] == 0xF9:
+                delay = data[pos + 4] | (data[pos + 5] << 8)
+            pos += 2
+        else:
+            delays.append(delay)
+            delay, local = None, data[pos + 9]
+            pos += 10 + (3 * (2 << (local & 7)) if local & 0x80 else 0) + 1
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    return delays
+
+
+def animate_gif(torch, frames, label: str, card: str, fps: int = 12) -> None:
+    """``[animate]``: time ``animation.save_animation`` on ``frames``, and hold
+    the file's images to the merge rule counted from the framebuffers with the
+    port's own quantiser: a frame whose quantised pixels equal the previous
+    one's adds its delay to it (``int(1000 / fps) * merged // 10``)."""
+    import numpy as np
+    from python_ray_tracer_tpu_torch import animation
+    from python_ray_tracer_tpu_torch.ops.render import to_framebuffer
+    from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
+    from python_ray_tracer_tpu_torch.utils.quantize import adaptive_palette
+    path = os.path.join(OUT_DIR, f"orbit_{label}.gif")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    animation.save_animation(frames, path, fps=fps)
+    ms = 1e3 * (time.perf_counter() - t0)
+    merged, sizes, last = [], [], None
+    for f in frames:
+        palette, idx = adaptive_palette(framebuffer_to_array(to_framebuffer(f.cpu())))
+        pixels = palette[idx]
+        if last is not None and np.array_equal(pixels, last):
+            merged[-1] += 1
+            continue
+        merged.append(1)
+        sizes.append(len(palette))
+        last = pixels
+    with open(path, "rb") as fh:
+        data = fh.read()
+    delays = gif_images(data)
+    want = [int(1000 / fps) * m // 10 for m in merged]
+    print(f"[animate] save_animation {label}, {len(frames)} frames: {ms:.1f} ms, "
+          f"{len(data)} B, {len(delays)} frames written, mean palette "
+          f"{sum(sizes) / len(sizes):.1f} colours | {card}")
+    check(delays == want, f"{label} GIF: images with delays {delays}, the merge rule "
+                          f"counts {want}")
 
 
 # --- phase 23: scenes of any size; checkpointing, fault recovery, profiling ---------

@@ -117,7 +117,10 @@ def render_frames(cameras: Camera, scene, *, depth: int = 2, aliasing: bool = Tr
 def save_animation(frames: torch.Tensor, path: str, *, fps: int = 12) -> None:
     """Write frames ``(n, w, h, 3)`` (float, [0, 1] scale) as an animated GIF,
     each frame the uint8 framebuffer of ``to_framebuffer`` in display
-    orientation (``utils.image.encode_gif``)."""
+    orientation: the file the JAX package's ``save_animation`` writes with
+    Pillow (``duration=int(1000 / fps)``, ``loop=0``), written by
+    ``utils.image.encode_gif`` (each frame's adaptive palette, identical
+    frames merged)."""
     imgs = [framebuffer_to_array(to_framebuffer(f.detach().cpu())) for f in frames]
     with open(path, "wb") as fh:
-        fh.write(encode_gif(np.stack(imgs), delay_cs=max(1, round(100 / fps))))
+        fh.write(encode_gif(np.stack(imgs), duration=int(1000 / fps)))

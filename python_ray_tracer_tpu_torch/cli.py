@@ -116,7 +116,7 @@ def _render_fn(cfg: RenderConfig, soft_tau: float = 0.0, adaptive_eps=None,
     kw = dict(depth=cfg.depth, aliasing=cfg.aliasing, compat=cfg.compat)
     if cfg.backend == "cuda":
         return lambda cam, scene: render_image_cuda(cam, scene, **kw), None
-    return lambda cam, scene: render_image(cam, scene, **kw), None
+    return lambda cam, scene: render_image(cam, scene, row_chunk=cfg.row_chunk, **kw), None
 
 
 def cmd_render(args) -> int:

@@ -109,6 +109,16 @@ class Camera:
         dz = f32(-2.0 / (h - 1)) if h > 1 else f32(0.0)
         return focal.to(torch.float32), f32(ar), dy, f32(1.0), dz
 
+    def pixel_locations(self, compat: bool = True) -> torch.Tensor:
+        """Dense ``(3, w, h)`` image-plane grid (reference camera.py:18-26 layout)."""
+        w, h = self.resolution
+        focal, y0, dy, z0, dz = self.grid_params(compat)
+        dev = self.fov.device
+        xs = torch.arange(w, dtype=torch.float32, device=dev)
+        ys = torch.arange(h, dtype=torch.float32, device=dev)
+        return torch.stack([focal.expand(w, h), (y0 + xs * dy)[:, None].expand(w, h),
+                            (z0 + ys * dz)[None, :].expand(w, h)])
+
     def ray_origin(self) -> torch.Tensor:
         return self.position
 

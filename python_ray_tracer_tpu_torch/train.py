@@ -64,11 +64,12 @@ def _backend(backend: str, what: str, *tensors: torch.Tensor) -> str:
 
 
 def pixel_loss(camera, target, *, depth: int = 2, aliasing: bool = False,
-               compat: bool = True) -> Callable:
-    """``loss(scene) -> scalar`` mean-squared pixel error of the plain renderer."""
+               compat: bool = True, row_chunk: Optional[int] = None) -> Callable:
+    """``loss(scene) -> scalar`` mean-squared pixel error of the plain renderer
+    (``row_chunk``: its column blocks, ``ops.render.render_image``)."""
     def loss(scene):
         img = render_image(camera, scene, depth=depth, aliasing=aliasing,
-                           compat=compat)
+                           compat=compat, row_chunk=row_chunk)
         return torch.mean((img - target) ** 2)
     return loss
 

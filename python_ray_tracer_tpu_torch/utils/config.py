@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,8 +24,14 @@ class RenderConfig:
     camera_euler: Tuple[float, float, float] = (0.0, -30.0, 0.0)
     compat: bool = True            # reproduce the reference's quirks
     backend: str = "cuda"          # "cuda" | "torch"
+    row_chunk: Optional[int] = None  # the plain render's column blocks
     specular: float = 0.0          # Phong highlight (clean mode only)
     shininess: float = 32.0
+
+    @staticmethod
+    def reference_defaults() -> "RenderConfig":
+        """The reference driver's exact settings (main.py:10-12, 24)."""
+        return RenderConfig()
 
 
 def _no_card(what: str) -> RuntimeError:

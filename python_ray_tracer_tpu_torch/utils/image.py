@@ -1,4 +1,4 @@
-"""Framebuffer -> PNG, in the reference's output orientation.
+"""Framebuffer -> PNG or GIF, in the reference's output orientation.
 
 The reference viewer (viewer/image.py:7-19) transposes the uint8 ``(3, w, h)``
 framebuffer to ``(w, h, 3)`` and applies ``ImageOps.mirror(im.rotate(270))``;
@@ -8,9 +8,12 @@ from __future__ import annotations
 
 import struct
 import zlib
+from typing import Tuple
 
 import numpy as np
 import torch
+
+from .quantize import adaptive_palette
 
 
 def framebuffer_to_array(fb) -> np.ndarray:
@@ -38,16 +41,6 @@ def encode_png(img: np.ndarray, *, level: int = 6) -> bytes:
             chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + chunk(b"IEND", b""))
 
 
-def gif_palette() -> np.ndarray:
-    """``(256, 3)`` uint8: the colour cube :func:`encode_gif` quantises to, 6
-    red x 7 green x 6 blue levels evenly over [0, 255] (252 colours; black
-    pads the table)."""
-    r, g, b = np.meshgrid(np.arange(6), np.arange(7), np.arange(6), indexing="ij")
-    cube = np.stack([np.rint(255 * r / 5), np.rint(255 * g / 6), np.rint(255 * b / 5)],
-                    axis=-1).reshape(-1, 3)
-    return np.concatenate([cube, np.zeros((256 - len(cube), 3))]).astype(np.uint8)
-
-
 def _lzw_literal_codes(idx: np.ndarray) -> bytes:
     """GIF image data of 8-bit palette indices: LZW with a code size of 8,
     written as literals only, a clear code before every 254 of them, so that
@@ -65,24 +58,53 @@ def _lzw_literal_codes(idx: np.ndarray) -> bytes:
     return bytes([8]) + blocks + b"\x00"
 
 
-def encode_gif(frames: np.ndarray, *, delay_cs: int = 8) -> bytes:
+def _color_table(palette: np.ndarray) -> Tuple[int, bytes]:
+    """A GIF colour table of ``palette`` (k, 3): its size field ``n`` (2 ** (n
+    + 1) entries, at least 4, as Pillow writes them) and its bytes, black
+    padded."""
+    n = max(1, (len(palette) - 1).bit_length() - 1)
+    table = np.zeros((2 << n, 3), np.uint8)
+    table[:len(palette)] = palette
+    return n, table.tobytes()
+
+
+def encode_gif(frames: np.ndarray, *, duration: int = 80) -> bytes:
     """Encode ``(n, h, w, 3)`` uint8 RGB frames as an animated GIF89a that
-    loops forever, ``delay_cs`` hundredths of a second a frame, with the
-    standard library and numpy: every pixel rounded to :func:`gif_palette`'s
-    nearest level on each channel."""
+    loops forever, as Pillow's ``save(save_all=True, duration=duration,
+    loop=0)`` writes them, with numpy and the standard library:
+
+    * each frame gets its own adaptive palette
+      (``utils.quantize.adaptive_palette``, Pillow's median cut). The first
+      frame's is the global colour table; a later frame carries its own as a
+      local table unless the two are equal;
+    * a frame whose quantised pixels equal the previous written frame's is
+      merged into it, which gains its ``duration`` milliseconds;
+    * each frame waits ``duration * merged // 10`` hundredths of a second (no
+      graphic control block where that is 0).
+
+    The image data is literal-code LZW (:func:`_lzw_literal_codes`)."""
     arr = np.asarray(frames, dtype=np.uint8)
     if arr.ndim != 4 or arr.shape[3] != 3 or arr.shape[0] < 1:
         raise ValueError(f"expected (n, h, w, 3) RGB8 frames, got {arr.shape}")
-    n, h, w = arr.shape[:3]
-    q = arr.astype(np.float64) / 255.0
-    idx = (np.rint(q[..., 0] * 5) * 42 + np.rint(q[..., 1] * 6) * 6 +
-           np.rint(q[..., 2] * 5)).astype(np.uint8)
-    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0xF7, 0, 0), gif_palette().tobytes(),
+    h, w = arr.shape[1:3]
+    kept = []                     # [palette, indices, frames merged]
+    for frame in arr:
+        palette, idx = adaptive_palette(frame)
+        if kept and np.array_equal(palette[idx], kept[-1][0][kept[-1][1]]):
+            kept[-1][2] += 1
+        else:
+            kept.append([palette, idx, 1])
+    size, global_table = _color_table(kept[0][0])
+    out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0x80 | size, 0, 0), global_table,
            b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
-    for k in range(n):
-        out += [b"\x21\xf9\x04\x00" + struct.pack("<H", delay_cs) + b"\x00\x00",
-                b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0),
-                _lzw_literal_codes(idx[k].reshape(-1))]
+    for palette, idx, merged in kept:
+        delay = duration * merged // 10
+        if delay:
+            out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00")
+        size, table = _color_table(palette)
+        local = table != global_table
+        out += [b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, (0x80 | size) if local else 0),
+                table if local else b"", _lzw_literal_codes(idx.reshape(-1))]
     return b"".join(out) + b"\x3b"
 
 

@@ -1,9 +1,10 @@
 """Step-metrics logging for the fits, as ``python_ray_tracer_tpu/utils/metrics.py``:
-a structured in-memory history, mirrored to stdout."""
+a structured in-memory history, mirrored to stdout, and its JSONL export."""
 from __future__ import annotations
 
+import json
 import time
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 
 class MetricsLogger:
@@ -20,3 +21,16 @@ class MetricsLogger:
             body = " ".join(f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
                             for k, v in metrics.items())
             print(f"[{self.name}] step {step}: {body}")
+
+    def dump_jsonl(self, path: str) -> None:
+        """Write the history to ``path``, one JSON object a line."""
+        with open(path, "w") as f:
+            for rec in self.history:
+                f.write(json.dumps(rec) + "\n")
+
+    def last(self, key: str) -> Optional[Any]:
+        """The newest logged value of ``key``, or None."""
+        for rec in reversed(self.history):
+            if key in rec:
+                return rec[key]
+        return None

@@ -19,26 +19,33 @@ def _on_cuda(out) -> bool:
 
 
 def time_fn(fn: Callable, *args, warmup: int = 1, iters: int = 5,
-            **kwargs) -> float:
+            best_of: int = 1, **kwargs) -> float:
     """Seconds per call of ``fn(*args, **kwargs)``: ``iters`` calls back to
-    back after ``warmup`` calls, synchronised once."""
+    back after ``warmup`` calls, synchronised once. ``best_of > 1`` repeats
+    that measurement and returns the fastest."""
     out = None
     for _ in range(max(warmup, 1)):
         out = fn(*args, **kwargs)
-    if not _on_cuda(out):
-        t0 = time.perf_counter()
+    cuda = _on_cuda(out)
+    if cuda:
+        torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(max(best_of, 1)):
+        if not cuda:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn(*args, **kwargs)
+            best = min(best, (time.perf_counter() - t0) / iters)
+            continue
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         for _ in range(iters):
             fn(*args, **kwargs)
-        return (time.perf_counter() - t0) / iters
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn(*args, **kwargs)
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / 1e3 / iters
+        end.record()
+        end.synchronize()
+        best = min(best, start.elapsed_time(end) / 1e3 / iters)
+    return best
 
 
 def rays_per_image(width: int, height: int, *, depth: int, aliasing: bool,

@@ -5,7 +5,7 @@ Orbit cameras equal the JAX ``orbit_cameras``' (both compute the poses in
 float32 from the same float64 angles); frames of the plain backend match the
 JAX ``render_frames(backend="jnp")`` under the port's image rule (uint8
 framebuffers at most 1 level apart on at most 0.1% of the pixels) and equal
-single renders; the GIF writer's frames decode to the quantised framebuffers.
+single renders; the GIF writer's frames decode to the JAX writer's.
 """
 import io
 
@@ -16,7 +16,7 @@ from PIL import Image
 
 import python_ray_tracer_tpu_torch as trt
 from python_ray_tracer_tpu_torch import animation, cli
-from python_ray_tracer_tpu_torch.utils.image import encode_gif, gif_palette
+from python_ray_tracer_tpu_torch.utils.image import encode_gif
 
 torch.set_num_threads(1)
 
@@ -94,21 +94,26 @@ def test_save_animation_writes_gif(tmp_path):
 
 
 @pytest.mark.parametrize("shape", [(1, 1, 1), (3, 37, 53), (2, 300, 7)])
-def test_gif_frames_decode_to_the_palette_levels(shape):
-    """Every decoded pixel is its frame's pixel rounded to the 6 x 7 x 6
-    cube on each channel (the literal-code LZW stream and the palette, PIL
-    decoding), including a frame whose codes cross many clear codes."""
+def test_gif_frames_decode_to_the_palette_levels(shape, tmp_path):
+    """``encode_gif``'s frames decode, with PIL, to the frames of the JAX
+    package's Pillow-written GIF of the same pixels (each frame's adaptive
+    palette, the literal-code LZW stream), including a frame whose codes
+    cross many clear codes."""
+    from python_ray_tracer_tpu import animation as janim
     n, h, w = shape
     frames = np.random.default_rng(h).integers(0, 256, (n, h, w, 3), dtype=np.uint8)
-    im = Image.open(io.BytesIO(encode_gif(frames, delay_cs=5)))
-    levels = np.array([5, 6, 5])
+    path = tmp_path / "jax.gif"
+    janim.save_animation(np.transpose(frames, (0, 2, 1, 3)).astype(np.float32) / 255.0,
+                         str(path), fps=20)
+    want = Image.open(path)
+    im = Image.open(io.BytesIO(encode_gif(frames, duration=50)))
+    assert im.n_frames == want.n_frames == n
     for k in range(n):
         im.seek(k)
-        got = np.asarray(im.convert("RGB")).astype(int)
-        q = np.rint(frames[k] / 255.0 * levels)
-        want = np.rint(255 * q / levels)
-        np.testing.assert_array_equal(got, want)
-    assert gif_palette().shape == (256, 3)
+        want.seek(k)
+        assert im.info["duration"] == want.info["duration"] == 50
+        np.testing.assert_array_equal(np.asarray(im.convert("RGB")),
+                                      np.asarray(want.convert("RGB")))
 
 
 def test_cli_animate_torch_backend_writes_gif(tmp_path, capsys):
