@@ -3,7 +3,9 @@
 
 Builds the CUDA kernels from ``python_ray_tracer_tpu_torch/csrc``, checks that
 ``random_scene(n)`` and ``cli render --spheres n``'s scene are the JAX
-package's (``[cli-scene]``: digests at 100 and 1000 spheres), holds each
+package's (``[cli-scene]``: digests at 100 and 1000 spheres), builds the
+host helper of the output layer (``[native]``: the GIF LZW from
+``csrc/host/``, its g++ time, and ``save_png``'s bytes and zlib), holds each
 render kernel mode against the plain PyTorch version and against the JAX
 package's frozen framebuffers (``tests/goldens/*.npz``, read with numpy), drives
 the render path through the CLI (``render --backend cuda`` at 1000x1000 with
@@ -85,7 +87,9 @@ ray-parallel path (phase 22, :func:`parallel_phase`, ``[ray-par]``,
 the whole frame, the fused steps' slice partials against the frame's, two
 ranks on the one card over gloo, the backward kernels at 7753 spheres and
 their global form against the staged one (the hard kernel's bits, the soft
-kernel's rule, and the times behind the planners' rules), and ``cli animate``;
+kernel's rule, and the times behind the planners' rules), and ``cli animate``
+(its GIF written twice at 256x256 and 1000x1000: the same bytes, sizes and
+times beside the literal-code writer's);
 ``python3 chip_smoke.py --phase 22`` runs it alone after the build. Then
 phase 23 (``--phase 23`` alone): :func:`faults_phase` (``[faults]``,
 ``[profile]``: ``device_healthcheck``, ``resilient_fit`` over the fused step
@@ -2496,6 +2500,37 @@ def cli_scene_phase(rt, dev) -> None:
               f"expected {want} on the card")
 
 
+def native_phase(rt, card: str, dev) -> None:
+    """``[native]``: the port's host helper (``csrc/host/gif_lzw.cpp``, g++ at
+    first use): its build and load time, and the PNG of a demo frame that
+    ``save_png`` writes with the standard library's zlib (its version is
+    printed: the JAX package's encoder writes the same bytes where it links
+    the same zlib), which must be ``encode_png``'s bytes and decode to the
+    frame."""
+    import numpy as np
+    from python_ray_tracer_tpu_torch.utils import image, native
+    t0 = time.perf_counter()
+    native.load()
+    gif_s = time.perf_counter() - t0
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "native.png")
+    fb = rt.to_framebuffer(rt.render_image_cuda(rt.default_camera((256, 256), device=dev),
+                                                rt.default_scene(device=dev)))
+    rt.save_png(fb, path)
+    want = image.framebuffer_to_array(fb)
+    w, h, px = read_png(path)
+    with open(path, "rb") as f:
+        same = f.read() == image.encode_png(want)
+    built = ("none, already built" if native.BUILD_SECONDS is None
+             else f"{native.BUILD_SECONDS:.2f} s")
+    print(f"[native] gif helper loaded in {gif_s:.2f} s (g++ build: {built}); save_png: "
+          f"the standard library's zlib {zlib.ZLIB_RUNTIME_VERSION}, {os.path.getsize(path)} B, "
+          f"encode_png's bytes: {same} | {card}")
+    check(same, f"{path}: not encode_png's bytes")
+    check((w, h) == (256, 256) and np.array_equal(px, want),
+          f"{path}: does not decode to the frame")
+
+
 def scene_of(rt, cfg, n: int, dev, specular: float = 0.0):
     """The CLI's scene (``cli._build``): the demo scene (n = 0) or
     ``random_scene(n)`` from ``jax.random.key(0)`` (``--spheres n``), the JAX
@@ -3293,8 +3328,9 @@ def gif_images(data: bytes):
 
 
 def animate_gif(torch, frames, label: str, card: str, fps: int = 12) -> None:
-    """``[animate]``: time ``animation.save_animation`` on ``frames``, and hold
-    the file's images to the merge rule counted from the framebuffers with the
+    """``[animate]``: write ``frames`` twice with ``animation.save_animation``
+    and time each; the two files must be the same bytes, and the file's
+    images must follow the merge rule counted from the framebuffers with the
     port's own quantiser: a frame whose quantised pixels equal the previous
     one's adds its delay to it (``int(1000 / fps) * merged // 10``)."""
     import numpy as np
@@ -3302,11 +3338,15 @@ def animate_gif(torch, frames, label: str, card: str, fps: int = 12) -> None:
     from python_ray_tracer_tpu_torch.ops.render import to_framebuffer
     from python_ray_tracer_tpu_torch.utils.image import framebuffer_to_array
     from python_ray_tracer_tpu_torch.utils.quantize import adaptive_palette
-    path = os.path.join(OUT_DIR, f"orbit_{label}.gif")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    animation.save_animation(frames, path, fps=fps)
-    ms = 1e3 * (time.perf_counter() - t0)
+    files, times = [], []
+    for k in range(2):
+        path = os.path.join(OUT_DIR, f"orbit_{label}_{k}.gif")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        animation.save_animation(frames, path, fps=fps)
+        times.append(1e3 * (time.perf_counter() - t0))
+        with open(path, "rb") as fh:
+            files.append(fh.read())
     merged, sizes, last = [], [], None
     for f in frames:
         palette, idx = adaptive_palette(framebuffer_to_array(to_framebuffer(f.cpu())))
@@ -3317,13 +3357,14 @@ def animate_gif(torch, frames, label: str, card: str, fps: int = 12) -> None:
         merged.append(1)
         sizes.append(len(palette))
         last = pixels
-    with open(path, "rb") as fh:
-        data = fh.read()
+    data = files[0]
     delays = gif_images(data)
     want = [int(1000 / fps) * m // 10 for m in merged]
-    print(f"[animate] save_animation {label}, {len(frames)} frames: {ms:.1f} ms, "
-          f"{len(data)} B, {len(delays)} frames written, mean palette "
-          f"{sum(sizes) / len(sizes):.1f} colours | {card}")
+    print(f"[animate] save_animation {label}, {len(frames)} frames: {times[0]:.1f} ms, "
+          f"again {times[1]:.1f} ms; {len(data)} B; the two "
+          f"files equal: {files[0] == files[1]}; {len(delays)} frames written, mean "
+          f"palette {sum(sizes) / len(sizes):.1f} colours | {card}")
+    check(files[0] == files[1], f"{label} GIF: two writes of the same frames differ")
     check(delays == want, f"{label} GIF: images with delays {delays}, the merge rule "
                           f"counts {want}")
 
@@ -5175,6 +5216,7 @@ def main() -> int:
               f"{k} {v:.1f}" for k, v in sorted(_build.BUILD_SECONDS.items(),
                                                 key=lambda kv: -kv[1])))
     cli_scene_phase(rt, dev)
+    native_phase(rt, card, dev)
     if sys.argv[1:] == ["--phase", "22"]:   # the ray-parallel phase alone
         parallel_phase(torch, rt, card, dev)
         print(f"[smoke] phase 22 in {time.perf_counter() - t_start:.1f} s")

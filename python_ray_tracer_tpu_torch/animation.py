@@ -118,9 +118,10 @@ def save_animation(frames: torch.Tensor, path: str, *, fps: int = 12) -> None:
     """Write frames ``(n, w, h, 3)`` (float, [0, 1] scale) as an animated GIF,
     each frame the uint8 framebuffer of ``to_framebuffer`` in display
     orientation: the file the JAX package's ``save_animation`` writes with
-    Pillow (``duration=int(1000 / fps)``, ``loop=0``), written by
-    ``utils.image.encode_gif`` (each frame's adaptive palette, identical
-    frames merged)."""
+    Pillow (``duration=int(1000 / fps)``, ``loop=0``), byte for byte, written
+    by ``utils.image.encode_gif`` (each frame's adaptive palette, identical
+    frames merged, later frames cropped to what changed, the compiled LZW of
+    ``utils.native``)."""
     imgs = [framebuffer_to_array(to_framebuffer(f.detach().cpu())) for f in frames]
     with open(path, "wb") as fh:
         fh.write(encode_gif(np.stack(imgs), duration=int(1000 / fps)))

@@ -16,7 +16,6 @@ package loads only the default library.
 from __future__ import annotations
 
 import ctypes
-import fcntl
 import glob
 import hashlib
 import os
@@ -24,6 +23,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ...utils.build_once import build_once
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -86,12 +87,8 @@ def build(sources=None, defines=()) -> str:
     nvcc = find_nvcc()
     srcs, _ = _sources(sources)
     flags = (*NVCC_FLAGS, *defines)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    with open(f"{so}.lock", "w") as lockf:
-        fcntl.flock(lockf, fcntl.LOCK_EX)
-        if os.path.isfile(so):       # built by another process while we waited
-            return so
-        tmp = f"{so}.{os.getpid()}.tmp"
+
+    def make(tmp: str) -> None:
         objs = [f"{tmp}.{os.path.basename(src)}.o" for src in srcs]
         try:
             t0 = time.perf_counter()
@@ -122,12 +119,11 @@ def build(sources=None, defines=()) -> str:
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed (rc {proc.returncode}): "
                                    f"{' '.join(cmd)}\n{proc.stderr}")
-            os.replace(tmp, so)
         finally:
             for f in objs:
                 if os.path.exists(f):
                     os.remove(f)
-    return so
+    return build_once(so, make)
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -8,13 +8,13 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from .native import gif_lzw
 from .quantize import adaptive_palette
-
 
 def framebuffer_to_array(fb) -> np.ndarray:
     """uint8 ``(3, w, h)`` framebuffer (numpy or tensor) -> display-oriented
@@ -26,12 +26,18 @@ def framebuffer_to_array(fb) -> np.ndarray:
 
 def encode_png(img: np.ndarray, *, level: int = 6) -> bytes:
     """Encode an ``(h, w, 3)`` uint8 RGB array as PNG bytes with the standard
-    library: signature, IHDR, one IDAT (scanline filter 0), IEND."""
+    library, in the layout of the JAX package's compiled PNG encoder:
+    signature, IHDR, one IDAT (every scanline with filter 1, "Sub", deflated
+    at ``level`` as zlib's ``compress2`` does), IEND. Where the standard
+    library's zlib is the one that encoder links, the bytes are its bytes."""
     arr = np.ascontiguousarray(img, dtype=np.uint8)
     if arr.ndim != 3 or arr.shape[2] != 3:
         raise ValueError(f"expected (h, w, 3) RGB8 array, got {arr.shape}")
     h, w = arr.shape[:2]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), arr.reshape(h, 3 * w)], axis=1)
+    rows = arr.reshape(h, 3 * w)
+    sub = rows.copy()
+    sub[:, 3:] -= rows[:, :-3]
+    raw = np.concatenate([np.ones((h, 1), np.uint8), sub], axis=1)
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data +
@@ -41,84 +47,115 @@ def encode_png(img: np.ndarray, *, level: int = 6) -> bytes:
             chunk(b"IDAT", zlib.compress(raw.tobytes(), level)) + chunk(b"IEND", b""))
 
 
-def _lzw_literal_codes(idx: np.ndarray) -> bytes:
-    """GIF image data of 8-bit palette indices: LZW with a code size of 8,
-    written as literals only, a clear code before every 254 of them, so that
-    every code stays 9 bits wide (a decoder's table grows to 511 entries and
-    is cleared before it needs a tenth bit). Valid GIF, ~9/8 of the raw
-    size."""
-    n = idx.size
-    chunks = [np.concatenate([[256], c]) for c in np.array_split(
-        idx.astype(np.int64), max(1, -(-n // 254)))]
-    codes = np.concatenate(chunks + [np.array([257])])
-    bits = ((codes[:, None] >> np.arange(9)) & 1).astype(np.uint8).reshape(-1)
-    data = np.packbits(bits, bitorder="little").tobytes()
-    blocks = b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
-                      for i in range(0, len(data), 255))
-    return bytes([8]) + blocks + b"\x00"
-
-
 def _color_table(palette: np.ndarray) -> Tuple[int, bytes]:
     """A GIF colour table of ``palette`` (k, 3): its size field ``n`` (2 ** (n
-    + 1) entries, at least 4, as Pillow writes them) and its bytes, black
-    padded."""
+    + 1) entries: 4 up to 4 colours, else the next power of two) and its
+    bytes, black padded (Pillow's ``_get_color_table_size`` and
+    ``_get_header_palette``)."""
     n = max(1, (len(palette) - 1).bit_length() - 1)
     table = np.zeros((2 << n, 3), np.uint8)
     table[:len(palette)] = palette
     return n, table.tobytes()
 
 
+def _optimized(palette: np.ndarray, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Pillow's palette compaction (``_get_optimize`` and ``remap_palette``):
+    below 512 x 512 pixels, a palette whose used entries leave a hole, or fit
+    a table half the size, is cut to the used entries in their order and the
+    indices renumbered."""
+    if idx.size >= 512 * 512:
+        return palette, idx
+    used = np.flatnonzero(np.bincount(idx.reshape(-1), minlength=256))
+    size = 1 << (len(palette) - 1).bit_length()
+    if used[-1] >= len(used) or (len(used) <= size // 2 and size > 2):
+        renumber = np.zeros(256, np.uint8)
+        renumber[used] = np.arange(len(used))
+        return palette[used], renumber[idx]
+    return palette, idx
+
+
+def _transparent_index(palette: np.ndarray, idx: np.ndarray) -> Optional[int]:
+    """Pillow's ``ImagePalette._new_color_index``: the index after the
+    palette's last entry (no entry is added for it), or with a full palette
+    the highest index the frame leaves unused; None if it uses all 256."""
+    if len(palette) < 256:
+        return len(palette)
+    free = np.flatnonzero(np.bincount(idx.reshape(-1), minlength=256) == 0)
+    return int(free[-1]) if len(free) else None
+
+
+def _control(delay: int, transparent: Optional[int]) -> bytes:
+    """The graphic control block Pillow writes (none when it would say
+    nothing): the transparency flag and index, the delay in hundredths."""
+    if transparent is None and delay == 0:
+        return b""
+    return (b"\x21\xf9\x04" + bytes([transparent is not None]) + struct.pack("<H", delay) +
+            bytes([transparent or 0, 0]))
+
+
 def encode_gif(frames: np.ndarray, *, duration: int = 80) -> bytes:
-    """Encode ``(n, h, w, 3)`` uint8 RGB frames as an animated GIF89a that
-    loops forever, as Pillow's ``save(save_all=True, duration=duration,
-    loop=0)`` writes them, with numpy and the standard library:
+    """Encode ``(n, h, w, 3)`` uint8 RGB frames as the GIF89a that Pillow's
+    ``save(save_all=True, duration=duration, loop=0)`` writes, byte for byte
+    (Pillow 12.1's ``GifImagePlugin``), with numpy and the compiled LZW of
+    ``utils.native.gif_lzw``:
 
     * each frame gets its own adaptive palette
-      (``utils.quantize.adaptive_palette``, Pillow's median cut). The first
-      frame's is the global colour table; a later frame carries its own as a
-      local table unless the two are equal;
-    * a frame whose quantised pixels equal the previous written frame's is
-      merged into it, which gains its ``duration`` milliseconds;
-    * each frame waits ``duration * merged // 10`` hundredths of a second (no
-      graphic control block where that is 0).
-
-    The image data is literal-code LZW (:func:`_lzw_literal_codes`)."""
+      (``utils.quantize.adaptive_palette``, Pillow's median cut), compacted
+      below 512 x 512 pixels as :func:`_optimized` says;
+    * a frame that equals the last written one (its indices where the two
+      palettes are equal, else its colours) is merged into it, which gains
+      its ``duration`` milliseconds;
+    * the first frame is whole, under the global colour table. A later frame
+      is the box of the pixels that changed, with its own palette as a local
+      table; unchanged pixels in the box take the transparent index of
+      :func:`_transparent_index`, which its control block names;
+    * each frame waits ``int(merged ms / 10)`` hundredths of a second;
+    * one frame left after merging is written as a still image, interlaced
+      where both sides are at least 16 pixels."""
     arr = np.asarray(frames, dtype=np.uint8)
     if arr.ndim != 4 or arr.shape[3] != 3 or arr.shape[0] < 1:
         raise ValueError(f"expected (n, h, w, 3) RGB8 frames, got {arr.shape}")
     h, w = arr.shape[1:3]
-    kept = []                     # [palette, indices, frames merged]
+    kept = []                     # [palette, indices written, (x, y), transparent, ms]
+    last = None                   # the last written frame's (palette, indices)
     for frame in arr:
-        palette, idx = adaptive_palette(frame)
-        if kept and np.array_equal(palette[idx], kept[-1][0][kept[-1][1]]):
-            kept[-1][2] += 1
+        palette, idx = _optimized(*adaptive_palette(frame))
+        if last is None:
+            kept.append([palette, idx, (0, 0), None, duration])
         else:
-            kept.append([palette, idx, 1])
+            if np.array_equal(palette, last[0]):
+                changed = idx != last[1]
+            else:
+                changed = (palette[idx] != last[0][last[1]]).any(axis=-1)
+            rows, cols = np.flatnonzero(changed.any(axis=1)), np.flatnonzero(changed.any(axis=0))
+            if not len(rows):
+                kept[-1][4] += duration
+                continue
+            t = _transparent_index(palette, idx)
+            data = idx if t is None else np.where(changed, idx, np.uint8(t))
+            box = (slice(rows[0], rows[-1] + 1), slice(cols[0], cols[-1] + 1))
+            kept.append([palette, data[box], (int(cols[0]), int(rows[0])), t, duration])
+        last = (palette, idx)
     size, global_table = _color_table(kept[0][0])
     out = [b"GIF89a", struct.pack("<HHBBB", w, h, 0x80 | size, 0, 0), global_table,
            b"\x21\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"]
-    for palette, idx, merged in kept:
-        delay = duration * merged // 10
-        if delay:
-            out.append(b"\x21\xf9\x04\x00" + struct.pack("<H", delay) + b"\x00\x00")
+    if len(kept) == 1:
+        interlace = min(w, h) >= 16
+        out += [_control(kept[0][4] // 10, None),
+                b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, 0x40 if interlace else 0),
+                gif_lzw(kept[0][1], interlace=interlace)]
+        return b"".join(out) + b"\x3b"
+    for k, (palette, data, (x, y), t, ms) in enumerate(kept):
         size, table = _color_table(palette)
-        local = table != global_table
-        out += [b"\x2c" + struct.pack("<HHHHB", 0, 0, w, h, (0x80 | size) if local else 0),
-                table if local else b"", _lzw_literal_codes(idx.reshape(-1))]
+        flags, table = (0, b"") if k == 0 else (0x80 | size, table)
+        out += [_control(ms // 10, t),
+                b"\x2c" + struct.pack("<HHHHB", x, y, data.shape[1], data.shape[0], flags),
+                table, gif_lzw(data)]
     return b"".join(out) + b"\x3b"
 
 
 def save_png(fb, path: str) -> None:
-    """Save a uint8 ``(3, w, h)`` framebuffer as a PNG (reference main.py:51-53).
-
-    Encodes with the native C++ encoder (``native/png_writer.cpp``) when it
-    builds here, else with :func:`encode_png`; both are pinned pixel-exact
-    against PIL in the tests."""
-    arr = framebuffer_to_array(fb).astype(np.uint8)
-    from . import native
-
-    if native.available():
-        native.write_png(path, arr)
-        return
+    """Save a uint8 ``(3, w, h)`` framebuffer as a PNG (reference main.py:51-53),
+    :func:`encode_png`'s bytes."""
     with open(path, "wb") as f:
-        f.write(encode_png(arr))
+        f.write(encode_png(framebuffer_to_array(fb)))

@@ -19,7 +19,7 @@ from python_ray_tracer_tpu.utils.image import framebuffer_to_array as jax_fb_to_
 from python_ray_tracer_tpu.utils.timing import rays_per_image as jax_rays_per_image
 from python_ray_tracer_tpu_torch import cli
 from python_ray_tracer_tpu_torch.models.scene import LEAF_PATHS
-from python_ray_tracer_tpu_torch.utils import image, native
+from python_ray_tracer_tpu_torch.utils import image
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -149,11 +149,15 @@ def test_stdlib_png_matches_pil(tmp_path, shape):
 
 
 def test_native_png_matches_pil(tmp_path):
-    if not native.available():
-        pytest.skip("native/png_writer.cpp cannot be built here (no g++ or zlib.h)")
+    """The JAX package's compiled PNG encoder and the port's ``encode_png``
+    write the same bytes, which decode to the pixels."""
+    from python_ray_tracer_tpu.utils import native as jax_native
+    if not jax_native.available():
+        pytest.skip("the JAX package's PNG encoder cannot be built here (no g++ or zlib.h)")
     arr = np.random.default_rng(1).integers(0, 256, (29, 41, 3), dtype=np.uint8)
-    native.write_png(str(tmp_path / "n.png"), arr)
+    jax_native.write_png(str(tmp_path / "n.png"), arr)
     np.testing.assert_array_equal(np.asarray(Image.open(tmp_path / "n.png")), arr)
+    assert (tmp_path / "n.png").read_bytes() == image.encode_png(arr)
 
 
 def test_save_png_orientation_matches_jax(tmp_path):

@@ -2,15 +2,17 @@
 
 The JAX package's ``save_animation`` writes its GIF with Pillow. The port's
 writes it with ``utils.quantize.adaptive_palette`` (Pillow's adaptive median
-cut, in numpy) and ``utils.image.encode_gif``. Each case gives both the same
-float frames, decodes both files with Pillow (``seek(k)``,
-``convert("RGB")``) and asserts the same frame count, the same
-``info["duration"]`` on every frame and ``np.array_equal`` frames. Pillow is
-also the oracle of ``adaptive_palette`` itself: the same entries in the same
-order, and the same index at every pixel.
+cut, in numpy), ``utils.image.encode_gif`` (Pillow's frame pipeline, in numpy)
+and the compiled LZW of ``utils.native.gif_lzw``. Each case gives both the
+same float frames, decodes both files with Pillow (``seek(k)``,
+``convert("RGB")``), asserts the same frame count, the same
+``info["duration"]`` on every frame and ``np.array_equal`` frames, and then
+the same bytes. Pillow is also the oracle of ``adaptive_palette`` itself: the
+same entries in the same order, and the same index at every pixel.
 """
 import ast
 import os
+import struct
 import subprocess
 import sys
 
@@ -41,7 +43,8 @@ def _decode(path):
 
 def _assert_same_gif(frames, tmp_path, fps=12):
     """``frames``: float ``(n, w, h, 3)`` numpy. Both packages' GIFs decode to
-    the same frames with the same durations; returns the decoded count."""
+    the same frames with the same durations, and are the same bytes; returns
+    the decoded count."""
     from python_ray_tracer_tpu import animation as janim
     jpath, tpath = str(tmp_path / "jax.gif"), str(tmp_path / "port.gif")
     janim.save_animation(frames, jpath, fps=fps)
@@ -52,7 +55,41 @@ def _assert_same_gif(frames, tmp_path, fps=12):
     assert got_ms == want_ms
     for k, (g, w) in enumerate(zip(got, want)):
         assert np.array_equal(g, w), (k, int((g != w).any(-1).sum()))
+    data, want_data = (tmp_path / "port.gif").read_bytes(), (tmp_path / "jax.gif").read_bytes()
+    assert len(data) == len(want_data) and data == want_data, _first_difference(data,
+                                                                                want_data)
     return len(got)
+
+
+def _images(data):
+    """The images of a GIF file, in order: ``(x, y, w, h, flags, local table
+    entries or 0, transparent index or None, delay)``, found by walking its
+    blocks."""
+    pos = 13 + (3 * (2 << (data[10] & 7)) if data[10] & 0x80 else 0)
+    images, control = [], (None, None)
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            if data[pos + 1] == 0xF9:
+                packed, delay, t = data[pos + 3], data[pos + 4] | data[pos + 5] << 8, data[pos + 6]
+                control = (t if packed & 1 else None, delay)
+            pos += 2
+        else:
+            x, y, w, h, flags = struct.unpack("<HHHHB", data[pos + 1:pos + 10])
+            entries = 2 << (flags & 7) if flags & 0x80 else 0
+            images.append((x, y, w, h, flags, entries, *control))
+            control = (None, None)
+            pos += 10 + 3 * entries + 1
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    return images
+
+
+def _first_difference(data, want):
+    k = next((i for i, (a, b) in enumerate(zip(data, want)) if a != b), min(len(data),
+                                                                           len(want)))
+    return (f"{len(data)} B against {len(want)} B, first difference at byte {k}; images "
+            f"{_images(data)} against {_images(want)}")
 
 
 def _float_frames(u8):
@@ -80,10 +117,11 @@ def _many_colours(side, seed):
                     axis=-1).reshape(side, side, 3).astype(np.uint8)
 
 
-@pytest.mark.parametrize("res", [(48, 48), (96, 64)])
+@pytest.mark.parametrize("res", [(48, 48), (96, 64), (128, 128)])
 def test_gif_of_the_demo_orbit_equals_jax(res, tmp_path):
     """The demo scene's orbit as ``cli animate`` renders it, from the port's
-    plain renderer at depth 2 with AA, 3 frames."""
+    plain renderer at depth 2 with AA, 3 frames: delta frames cropped to
+    the changed box, palettes compacted below 512 x 512."""
     cams = animation.orbit_cameras(res, center=[1.0, 0.0, 1.0], radius=4.0, height=1.5,
                                    n_frames=3, device="cpu")
     frames = animation.render_frames(cams, trt.default_scene(device="cpu"), depth=2,
@@ -122,6 +160,82 @@ def test_gif_merges_frames_whose_quantised_pixels_agree(tmp_path):
     pb, ib = adaptive_palette(b)
     assert not np.array_equal(a, b) and np.array_equal(pa[ia], pb[ib])
     assert _assert_same_gif(_float_frames(np.stack([a, b])), tmp_path) == 1
+
+
+def _branch_frames(case):
+    """Display-oriented uint8 frames that take one branch of Pillow's GIF
+    writer each, and the images the file must hold for it."""
+    if case == "noise_600x520":                  # no compaction; every index used
+        rng = np.random.default_rng(20)
+        return rng.integers(0, 256, (2, 520, 600, 3), dtype=np.uint8)
+    if case == "moving_patch":                   # static background, a cropped box a frame
+        bg = _colours(200, (90, 120), 21)
+        frames = np.stack([bg] * 4)
+        for k in range(4):
+            frames[k, 10 + 5 * k:30 + 5 * k, 20 + 7 * k:50 + 7 * k] = (255, 0, 0)
+        return frames
+    if case == "same_palette":                   # equal palettes: indices compared
+        a = _colours(100, (40, 50), 22)
+        b = a.copy()
+        b[3, 4], b[20, 30] = a[20, 30], a[3, 4]
+        return np.stack([a, b])
+    if case == "power_of_two_palette":           # 128 entries: index 128 is past the table
+        table = np.random.default_rng(23).integers(0, 256, (128, 3), dtype=np.uint8)
+        rng = np.random.default_rng(24)
+        return np.stack([table[rng.permutation(np.arange(64 * 128) % 128).reshape(64, 128)]
+                         for _ in range(2)])
+    if case in ("full_palette_with_holes", "holes_below_512x512"):
+        # noise whose 256 entries leave 182, 245 and 254 unused: at 600x600 the
+        # palette stays whole and the highest unused index is the transparent
+        # one; at 320x320 it is compacted to 253 entries
+        reps = 15 if case == "full_palette_with_holes" else 8
+        tiles = [np.random.default_rng(s).integers(0, 256, (40, 40, 3), dtype=np.uint8)
+                 for s in (1009, 1008)]
+        return np.stack([np.repeat(np.repeat(t, reps, axis=0), reps, axis=1) for t in tiles])
+    if case == "repeated_then_back":
+        a, b = _colours(4000, (30, 40), 25), _colours(4000, (30, 40), 26)
+        return np.stack([a, b, b, a])
+    if case == "identical_32x32":                # one image, interlaced
+        return np.stack([_colours(50, (32, 32), 27)] * 3)
+    if case == "identical_40x12":                # one image, too small to interlace
+        return np.stack([_colours(50, (12, 40), 28)] * 3)
+    assert case == "one_frame_64x48"
+    return _colours(4000, (48, 64), 29)[None]
+
+
+@pytest.mark.parametrize("case", ["noise_600x520", "moving_patch", "same_palette",
+                                  "power_of_two_palette", "full_palette_with_holes",
+                                  "holes_below_512x512",
+                                  "repeated_then_back", "identical_32x32", "identical_40x12",
+                                  "one_frame_64x48"])
+def test_gif_bytes_of_every_branch_equal_jax(case, tmp_path):
+    """The port's file is the JAX package's, byte for byte, on frames that
+    take each branch of Pillow's writer; the images it holds show that the
+    branch was taken."""
+    u8 = _branch_frames(case)
+    _assert_same_gif(_float_frames(u8), tmp_path)
+    images = _images((tmp_path / "port.gif").read_bytes())
+    h, w = u8.shape[1:3]
+    later = images[1:]
+    if case == "noise_600x520":
+        assert [im[5:7] for im in later] == [(256, None)]
+    elif case == "moving_patch":
+        assert len(later) == 3 and all(0 < im[0] and 0 < im[1] and im[2] < w and im[3] < h
+                                       and im[6] is not None for im in later)
+    elif case == "same_palette":
+        assert [im[:4] for im in later] == [(4, 3, 27, 18)]
+    elif case == "power_of_two_palette":
+        assert [im[5:7] for im in later] == [(128, 128)]
+    elif case == "full_palette_with_holes":
+        assert [im[5:7] for im in later] == [(256, 254)]
+    elif case == "holes_below_512x512":
+        assert [im[5:7] for im in later] == [(256, 253)]
+    elif case == "repeated_then_back":
+        assert [im[7] for im in images] == [8, 16, 8]
+    else:
+        interlace = min(w, h) >= 16
+        assert images == [(0, 0, w, h, 0x40 if interlace else 0, 0, None,
+                           int(1000 / 12) * len(u8) // 10)]
 
 
 @pytest.mark.parametrize("fps", [6, 7, 12, 30, 40])
