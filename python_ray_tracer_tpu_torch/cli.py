@@ -23,6 +23,7 @@ import argparse
 import os
 import sys
 
+import numpy as np
 import torch
 
 from . import animation, train
@@ -150,6 +151,15 @@ def _loss_span(losses) -> str:
     return f"{losses[0]:.3e} -> {losses[-1]:.3e}"
 
 
+def _center_err_span(err0: float, errs: torch.Tensor) -> str:
+    """The summary's center errors as the JAX CLI prints them
+    (``python_ray_tracer_tpu/cli.py:252-256``): ``np.median`` of the float32
+    per-sphere norms, which for an even count is the mean of the two middle
+    values (``torch.median`` returns the lower)."""
+    errs = errs.detach().cpu().numpy()
+    return f"center err: {err0:.3f} -> median {float(np.median(errs)):.4f} / max {errs.max():.4f}"
+
+
 def fit_scene_two_spheres(cfg: RenderConfig, device) -> Scene:
     """The well-separated 2-sphere scene of ``python_ray_tracer_tpu.cli
     cmd_fit`` (cli.py:194-199): hard-visibility gradients mislead on the
@@ -219,9 +229,7 @@ def cmd_fit(args) -> int:
                                              backend=cfg.backend)
         errs = torch.linalg.norm(fitted.spheres.center - scene.spheres.center, dim=1)
         err0 = float((init.spheres.center - scene.spheres.center).abs().max())
-        print(f"loss: {_loss_span(losses)}  "
-              f"center err: {err0:.3f} -> median {float(errs.median()):.4f} "
-              f"/ max {float(errs.max()):.4f}")
+        print(f"loss: {_loss_span(losses)}  {_center_err_span(err0, errs)}")
         img = render(cam, fitted)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
